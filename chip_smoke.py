@@ -6,30 +6,39 @@
 Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
            kernel from csrc/ (one nvcc per source, in parallel)
-  kernels  hold K1-K4 against their plain PyTorch versions on the card at
+  kernels  hold K1-K6 against their plain PyTorch versions on the card at
            the slice's shapes; time kernel, plain version and the library
            yardstick with CUDA events (L2 flushed before each launch)
-  serve    write a Llama-3.2-1B-width Q4_K GGUF (random raw blocks), load it
-           with InferenceEngine(device="cuda") and answer three ChatSession
-           requests (one prompt > 256 tokens: a second prefill chunk runs at
-           an offset); TTFT and decode tok/s per request
+  serve    per model, write a Llama-3.2-1B-width GGUF (random raw blocks),
+           load it with InferenceEngine(device="cuda") and answer three
+           ChatSession requests (one prompt > 256 tokens: a second prefill
+           chunk runs at an offset); TTFT and decode tok/s per request
   batch    prefill_step on an 8x128 prompt, then decode_loop for 64 tokens
-           at batch 8, S = 1024 (the bench.py shape); decode tok/s
+           at batch 8, S = 1024 (the bench.py shape); decode tok/s and the
+           kernel launches per decode step
   profile  torch.profiler over 8 more decode steps of that batch: device
            busy share of the wall time and device time by kernel
-  parity   a 2-layer full-width copy of the model on cuda and on cpu (plain
-           versions): prefill logits and 4 teacher-forced decode steps
-           within tolerance
-The kernels' launch counts are zeroed just before `serve` and read just
-after `batch` (the main path); every kernel must have launched there. The
-line before the last is {"kernels": [...]}, the last
+  parity   2-layer full-width copies of four kinds on cuda and on cpu
+           (plain versions): prefill logits and 4 teacher-forced decode
+           steps within tolerance; the Q4_K copy also prefills one chunk of
+           more than 1024 rows (the mlp_prefill route)
+The main path is two models, each driven by serve, batch and profile:
+  A  the untied Q4_K model in the JAX package's default configuration:
+     every layer's MLP is one K5 launch (16 per decode step), no K6;
+  B  the Q4_K_M mix llama.cpp writes: tied Q6_K table (K6 head, embedding
+     rows gathered from it), Q6_K attn_v/ffn_down on 8 of 16 layers (K6),
+     Q4_K elsewhere (K1); no K5, as the JAX route.
+The kernels' launch counts are zeroed just before each model's path and
+read just after; every kernel of that path must have launched, and the
+per-step counts must match the route. The line before the last is
+{"kernels": [...]} (launches summed over both paths), the last
 {"ok": true, "device": {...}}; a run of a subset of the phases ends with
-"ok": false, since the main path's launch check did not run in full. Kernel
-errors are taken per output row (per batch row for decode attention, per
-query token for prefill attention, per input row for the matmul), so a row
-whose output is small is held to the same tolerance as the largest one.
-Needs the repo checkout (nfai_tpu_torch) and a CUDA device; imports nothing
-of JAX.
+"ok": false, since the main paths' launch checks did not run in full.
+Kernel errors are taken per output row (per batch row for decode
+attention, per query token for prefill attention, per input row for the
+matmuls and the MLP), so a row whose output is small is held to the same
+tolerance as the largest one. Needs the repo checkout (nfai_tpu_torch) and
+a CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -48,6 +57,8 @@ GGUF_Q4K_BYTES_PER_WEIGHT = 144 / 256  # Q4_K's own encoding (the port's contain
 TOL = 2e-2  # max|got - want| / max|want|, the JAX package's kernel-parity rule
 
 PHASES = ("build", "kernels", "serve", "batch", "profile", "parity")
+MODELS = {"A": "q4_k", "B": "q4_k_m"}  # main-path model -> make_llama_1b_gguf kind
+PARITY_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied")
 
 
 def log(msg: str) -> None:
@@ -78,7 +89,8 @@ class Timer:
     """Median CUDA-event time of one fn() launch over `iters` launches.
 
     Before each launch a 128 MB read evicts the 50 MB L2 (the decode path
-    reads each weight once per step, so it meets a cold cache), then a GPU
+    reads each weight once per step, so it meets a cold cache; flush=False
+    leaves the previous launch's data in L2), then a GPU
     spin of ~0.5 ms keeps the device busy while the host enqueues the two
     events and fn(): the events bracket the kernels alone, not the host's
     Python and launch overhead."""
@@ -89,13 +101,14 @@ class Timer:
         self.torch = torch
         self.flush_buf = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
 
-    def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
+    def __call__(self, fn, iters: int = 10, warmup: int = 2, flush: bool = True) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(iters):
-            self.flush_buf.sum()
+            if flush:
+                self.flush_buf.sum()
             torch.cuda._sleep(self.SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -148,6 +161,15 @@ def _q4_weight(torch, n, k, gen):
     return Q4Tensor(qs, sc, mn, k, n)
 
 
+def _q8_weight(torch, n, k, group, qmax, gen, with_mins=False):
+    from nfai_tpu_torch.ops.qtensor import Q8Tensor
+
+    qs = torch.randint(-qmax, qmax, (n, k), dtype=torch.int8, device="cuda", generator=gen)
+    sc = torch.rand(n, k // group, device="cuda", generator=gen) * 2e-3 / qmax * 16 + 1e-5
+    mn = torch.rand(n, k // group, device="cuda", generator=gen) * 1e-2 if with_mins else None
+    return Q8Tensor(qs, sc, mn, k, n, group)
+
+
 def phase_kernels(torch, timer) -> dict:
     import torch.nn.functional as nnf
 
@@ -188,7 +210,8 @@ def phase_kernels(torch, timer) -> dict:
         del w, wd
     results["q4_matmul"] = dict(
         route="cuda", source="nfai_tpu_torch/csrc/q4_matmul.cu",
-        replaces="nfai_tpu/ops/qmatmul.py:415", also_replaces=["nfai_tpu/ops/qmatmul.py:735"],
+        replaces="nfai_tpu/ops/qmatmul.py:415",
+        also_replaces=["nfai_tpu/ops/qmatmul.py:735", "nfai_tpu/ops/qmatmul.py:282"],
         headline=next(c for c in cases if c["shape"] == "lm_head M=8"), cases=cases,
     )
 
@@ -295,6 +318,87 @@ def phase_kernels(torch, timer) -> dict:
         replaces="nfai_tpu/ops/prefill_attention.py:267", also_replaces=[],
         headline=cases4[2], cases=cases4,
     )
+    results.update(_kernels_k5_k6(torch, timer, gen))
+    return results
+
+
+def _kernels_k5_k6(torch, timer, gen) -> dict:
+    import torch.nn.functional as nnf
+
+    from nfai_tpu_torch.ops import fused_mlp as fm
+    from nfai_tpu_torch.ops import qmatmul as qm
+    from nfai_tpu_torch.ops.qtensor import dequant
+
+    bf = torch.bfloat16
+    results = {}
+    # K5 at the 1B MLP: K = H = 2048, F = 8192; decode rows 1 and 8, prefill 256 and 1024
+    k, f, h = 2048, 8192, 2048
+    gu, dn = _q4_weight(torch, 2 * f, k, gen), _q4_weight(torch, h, f, gen)
+
+    def replaced_route(x):  # what K5 replaces: K1 gate_up, silu * up, K1 down
+        g_u = qm.q4_matmul(x, gu)
+        return qm.q4_matmul((nnf.silu(g_u[:, :f].float()) * g_u[:, f:].float()).to(bf), dn)
+
+    cases = []
+    for m in (1, 8, 256, 1024):
+        x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
+        got = fm.fused_mlp(x, gu, dn)
+        torch.cuda.synchronize()
+        err = check(f"K5 M={m} K={k} F={f} H={h}", got, fm.fused_mlp_plain(x, gu, dn), row_dims=1)
+        ms = timer(lambda: fm.fused_mlp(x, gu, dn))
+        plain_ms = timer(lambda: fm.fused_mlp_plain(x, gu, dn), iters=3)
+        route_ms = timer(lambda: replaced_route(x))
+        # the 37.7 MB of weights fit the 50 MB L2: warm, the weights' DRAM reads drop out
+        warm_ms = timer(lambda: fm.fused_mlp(x, gu, dn), flush=False)
+        nbytes = m * k * 2 + (2 * f * k + h * f) * 3 // 4 + m * h * 2
+        b, by = bound_ms(nbytes, 2.0 * m * k * 2 * f + 2.0 * m * f * h)
+        cases.append(dict(shape=f"M={m}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b, bound_by=by, library_ms=None, replaced_route_ms=route_ms,
+                          warm_l2_ms=warm_ms))
+        log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, "
+            f"replaced route K1 + silu*mul + K1 {route_ms:.4f}; no single library call; "
+            f"{warm_ms:.4f} with the weights warm in L2)")
+    results["fused_mlp"] = dict(
+        route="cuda", source="nfai_tpu_torch/csrc/fused_mlp.cu",
+        replaces="nfai_tpu/ops/fused_mlp.py:201", also_replaces=[],
+        headline=cases[1], cases=cases,
+    )
+    del gu, dn
+
+    # K6: the tied Q6_K head, Q8_0 wqkv and down, a Q6_K w_down; rows 1, 8, 256
+    shapes = {"Q6_K head": (2048, 128256, 16, 32), "Q8_0 wqkv": (2048, 3072, 32, 127),
+              "Q8_0 down": (8192, 2048, 32, 127), "Q6_K w_down": (8192, 2048, 16, 32)}
+    cases = []
+    for label, (k, n, group, qmax) in shapes.items():
+        w = _q8_weight(torch, n, k, group, qmax, gen)
+        wd = dequant(w).to(bf)
+        for m in (1, 8, 256):
+            x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
+            got = qm.q8_matmul(x, w)
+            torch.cuda.synchronize()
+            err = check(f"K6 {label} M={m} K={k} N={n} g{group}", got, qm.q8_matmul_plain(x, w),
+                        row_dims=1)
+            ms = timer(lambda: qm.q8_matmul(x, w))
+            plain_ms = timer(lambda: qm.q8_matmul_plain(x, w), iters=3)
+            lib_ms = timer(lambda: torch.matmul(x, wd.T))
+            nbytes = m * k * 2 + n * k + n * (k // group) * 4 + m * n * 2
+            b, by = bound_ms(nbytes, 2.0 * m * n * k)
+            cases.append(dict(shape=f"{label} M={m}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b, bound_by=by, library_ms=lib_ms))
+            log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, "
+                f"cuBLAS on dequantized bf16 {lib_ms:.4f})")
+        # with mins (Q5_K / Q2_K kinds): checked, not timed
+        if label == "Q8_0 wqkv":
+            wm = _q8_weight(torch, n, k, group, qmax, gen, with_mins=True)
+            xm = torch.randn(8, k, device="cuda", dtype=bf, generator=gen)
+            check(f"K6 {label} with mins M=8", qm.q8_matmul(xm, wm), qm.q8_matmul_plain(xm, wm),
+                  row_dims=1)
+        del w, wd
+    results["q8_matmul"] = dict(
+        route="cuda", source="nfai_tpu_torch/csrc/q8_matmul.cu",
+        replaces="nfai_tpu/ops/qmatmul.py:190", also_replaces=["nfai_tpu/ops/qmatmul.py:541"],
+        headline=next(c for c in cases if c["shape"] == "Q6_K head M=8"), cases=cases,
+    )
     return results
 
 
@@ -334,7 +438,7 @@ def phase_serve(torch, path) -> dict:
     return {"engine": engine, "requests": reqs}
 
 
-def phase_batch(torch, engine) -> dict:
+def phase_batch(torch, engine, kernels_mod) -> dict:
     from nfai_tpu_torch.models import decode_loop, prefill_step
 
     b, t, n = 8, 128, 64
@@ -355,18 +459,21 @@ def phase_batch(torch, engine) -> dict:
     pos = torch.full((b,), t, device="cuda")
     decode_loop(engine.params, cfg, first, pos, cache, gen, 2)  # warm-up steps
     torch.cuda.synchronize()
+    before = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
     t0 = time.perf_counter()
     toks, _, cache, _ = decode_loop(engine.params, cfg, first, pos, cache, gen, n)
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
+    per_step = {k.name: (k.launches - before[k.name]) / n for k in kernels_mod.KERNELS.values()}
     if not bool((toks >= 0).all() & (toks < cfg.vocab_size).all()):
         raise AssertionError("decode produced out-of-range token ids")
     out = dict(prefill_ms=prefill_s * 1e3, prefill_tok_s=b * t / prefill_s,
                decode_ms_per_step=dec_s / n * 1e3, decode_tok_s=b * n / dec_s,
-               state=(first, pos + n, cache, gen))
+               launches_per_step=per_step, state=(first, pos + n, cache, gen))
     log(f"  batch {b}, prompt {t}, S 1024: prefill {prefill_s * 1e3:.1f} ms "
         f"({b * t / prefill_s:.0f} tok/s); decode {n} steps {dec_s * 1e3:.1f} ms "
-        f"= {dec_s / n * 1e3:.2f} ms/step, {b * n / dec_s:.1f} tok/s")
+        f"= {dec_s / n * 1e3:.2f} ms/step, {b * n / dec_s:.1f} tok/s; "
+        f"kernel launches per step {per_step}")
     return out
 
 
@@ -412,33 +519,109 @@ def phase_profile(torch, engine, state) -> dict:
     return out
 
 
-def phase_parity(torch, path2) -> dict:
+def phase_parity(torch, path2, kind) -> dict:
+    """A 2-layer full-width copy on cuda and on cpu: prefill logits and 4
+    teacher-forced decode steps; for the Q4_K kind also one prefill chunk
+    of 1100 rows (above MLP_FUSED_MAX_ROWS: the mlp_prefill route)."""
     from nfai_tpu_torch.config import EngineConfig
-    from nfai_tpu_torch.models import decode_step
+    from nfai_tpu_torch.models import KVCache, decode_step, prefill_step
+    from nfai_tpu_torch.ops.fused_mlp import MLP_FUSED_MAX_ROWS
     from nfai_tpu_torch.runtime.engine import InferenceEngine
 
     torch.set_num_threads(os.cpu_count() or 8)
     ecfg = EngineConfig(max_seq_len=256)
     engines = {dev: InferenceEngine(path2, ecfg, device=dev) for dev in ("cuda", "cpu")}
+    rels = []
+
+    def compare(name, logits):
+        check(f"{kind} {name}", logits["cuda"], logits["cpu"])
+        rels.append(errors(logits["cuda"], logits["cpu"])[1])
+
     ids = engines["cpu"].tokenizer.encode("Parity between the card and the plain versions.")
     logits, caches = {}, {}
     for dev, e in engines.items():
         logits[dev], caches[dev] = e.prefill(e.new_cache(1), ids)
-    errs = [errors(logits["cuda"], logits["cpu"])[1]]
-    check(f"prefill logits ({len(ids)} tokens)", logits["cuda"], logits["cpu"])
+    compare(f"prefill logits ({len(ids)} tokens)", logits)
     pos = len(ids)
     for step, tok in enumerate((17, 99, 200, 42)):
         for dev, e in engines.items():
             logits[dev], caches[dev] = decode_step(
                 e.params, e.model_cfg, torch.tensor([tok], device=dev),
                 torch.tensor([pos], device=dev), caches[dev])
-        errs.append(errors(logits["cuda"], logits["cpu"])[1])
-        check(f"decode step {step} logits", logits["cuda"], logits["cpu"])
+        compare(f"decode step {step} logits", logits)
         pos += 1
-    return {"max_rel_err": max(errs)}
+    if kind == "q4_k":
+        t = 1100
+        if not (t > MLP_FUSED_MAX_ROWS and engines["cuda"].params["fused_mlp"]):
+            raise AssertionError("the Q4_K copy should take the fused-MLP route")
+        tokens = torch.randint(0, 256, (1, t), generator=torch.Generator().manual_seed(1))
+        for dev, e in engines.items():
+            logits[dev], _ = prefill_step(
+                e.params, e.model_cfg, tokens.to(dev), torch.arange(t, device=dev)[None],
+                torch.tensor([t - 1], device=dev),
+                KVCache.zeros(e.model_cfg, 1, 1152, e.cache_dtype, e.device))
+        compare(f"prefill logits ({t} rows in one chunk: mlp_prefill)", logits)
+    return {"max_rel_err": max(rels)}
 
 
 # ---------------------------------------------------------------------------
+
+
+# kernels each main-path model must launch, and the one its route must not
+ROUTES = {
+    "A": ({"q4_matmul", "decode_attention", "kv_write", "prefill_attention", "fused_mlp"},
+          "q8_matmul"),
+    "B": ({"q4_matmul", "decode_attention", "kv_write", "prefill_attention", "q8_matmul"},
+          "fused_mlp"),
+}
+
+
+def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> dict:
+    """Serve (and batch, profile) one model with the launch counts zeroed
+    just before; returns the counts read just after, checked against the
+    model's route."""
+    from nfai_tpu_torch.testing import make_llama_1b_gguf
+
+    t0 = time.perf_counter()
+    path = make_llama_1b_gguf(os.path.join(tmp, f"llama1b_{kind}.gguf"), kind=kind)
+    log(f"model {label} ({kind}): wrote {path.stat().st_size / 2**30:.2f} GiB GGUF "
+        f"in {time.perf_counter() - t0:.1f}s")
+    out = {}
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    served = phase_serve(torch, path)
+    engine = served["engine"]
+    out["requests"] = served["requests"]
+    phase_s[f"serve {label}"] = time.perf_counter() - t0
+    if "batch" in only:
+        t0 = time.perf_counter()
+        batch = phase_batch(torch, engine, kernels_mod)
+        state = batch.pop("state")
+        out["batch"] = batch
+        phase_s[f"batch {label}"] = time.perf_counter() - t0
+        if "profile" in only:
+            t0 = time.perf_counter()
+            out["profile"] = phase_profile(torch, engine, state)
+            phase_s[f"profile {label}"] = time.perf_counter() - t0
+        del state
+    launches = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
+    log(f"  model {label} main-path launches: {launches}")
+    must, must_not = ROUTES[label]
+    if any(launches[name] <= 0 for name in must) or launches[must_not] != 0:
+        raise AssertionError(f"model {label} did not take its route: {launches}")
+    if "batch" in out:
+        per_step = out["batch"]["launches_per_step"]
+        n_layers = engine.model_cfg.n_layers
+        if label == "A" and per_step["fused_mlp"] != n_layers:
+            raise AssertionError(f"model A: {per_step['fused_mlp']} K5 launches per step, "
+                                 f"not one per layer ({n_layers})")
+        if label == "B" and not per_step["q8_matmul"] > 0:
+            raise AssertionError("model B: no K6 launch in a decode step")
+    summary[f"model {label}"] = out
+    del served, engine
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None) -> int:
@@ -476,40 +659,22 @@ def main(argv=None) -> int:
             phase_s["kernels"] = time.perf_counter() - t0
         launches = None
         if "serve" in only or "batch" in only:
-            t0 = time.perf_counter()
-            path = make_llama_1b_gguf(os.path.join(tmp, "llama1b.gguf"))
-            log(f"  wrote {path.stat().st_size / 2**30:.2f} GiB GGUF in {time.perf_counter() - t0:.1f}s")
-            kernels_mod.reset_launches()
-            t0 = time.perf_counter()
-            served = phase_serve(torch, path)
-            summary["requests"] = served["requests"]
-            phase_s["serve"] = time.perf_counter() - t0
-            if "batch" in only:
-                t0 = time.perf_counter()
-                batch = phase_batch(torch, served["engine"])
-                state = batch.pop("state")
-                summary["batch"] = batch
-                phase_s["batch"] = time.perf_counter() - t0
-                if "profile" in only:
-                    t0 = time.perf_counter()
-                    summary["profile"] = phase_profile(torch, served["engine"], state)
-                    phase_s["profile"] = time.perf_counter() - t0
-                del state
-            launches = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
-            log(f"  main-path launches: {launches}")
-            if min(launches.values()) <= 0:
-                raise AssertionError(f"a kernel never launched on the main path: {launches}")
-            del served
-            os.remove(path)
-            torch.cuda.empty_cache()
+            by_model = {label: main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s)
+                        for label, kind in MODELS.items()}
+            launches = {name: sum(m[name] for m in by_model.values()) for name in kernels_mod.KERNELS}
+            summary["launches_by_model"] = by_model
         if "parity" in only:
             t0 = time.perf_counter()
-            path2 = make_llama_1b_gguf(os.path.join(tmp, "llama1b_2l.gguf"), n_layers=2)
-            summary["parity"] = phase_parity(torch, path2)
+            summary["parity"] = {}
+            for kind in PARITY_KINDS:
+                path2 = make_llama_1b_gguf(os.path.join(tmp, f"llama1b_2l_{kind}.gguf"),
+                                           kind=kind, n_layers=2)
+                summary["parity"][kind] = phase_parity(torch, path2, kind)
+                os.remove(path2)
             phase_s["parity"] = time.perf_counter() - t0
         log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "
             f"total {time.perf_counter() - t_all:.1f}")
-        if "requests" in summary:
+        if len(summary) > 1:
             log("summary: " + json.dumps({k: v for k, v in summary.items() if k != "smi"}))
         if kern:
             rows = []
@@ -522,7 +687,7 @@ def main(argv=None) -> int:
                     max_abs_err=h["max_abs_err"], ms=h["ms"], plain_ms=h["plain_ms"],
                     bound_ms=h["bound_ms"], bound_by=h["bound_by"],
                     library_ms=h["library_ms"], shape=h["shape"],
-                    **({"bound_gguf_ms": h["bound_gguf_ms"]} if "bound_gguf_ms" in h else {}),
+                    **{key: h[key] for key in ("bound_gguf_ms", "replaced_route_ms") if key in h},
                 ))
             log(json.dumps({"kernels": rows}))
     finally:

@@ -1,4 +1,4 @@
-"""GGUF file format: reader, writer, and the block-quant codecs this slice reads."""
+"""GGUF file format: reader, writer, and the block-quant codecs the port reads."""
 from .constants import (  # noqa: F401
     GGML_BLOCK_LAYOUT,
     GGUF_DEFAULT_ALIGNMENT,

@@ -1,8 +1,9 @@
 """Vectorized numpy codecs for the GGML block formats the port loads.
 
 Decoders follow the ggml dequantization semantics exactly (per-block scales,
-nibble packing, 6-bit K-quant scale unpacking). This slice of the port reads
-F32, F16, Q4_0, Q4_1 and Q4_K; every other kind raises NotImplementedError.
+nibble packing, 6-bit K-quant scale unpacking). The port reads F32, F16,
+Q4_0, Q4_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K and Q6_K; every other kind raises
+NotImplementedError. It writes Q4_0, Q4_1, Q8_0, Q4_K and Q6_K.
 
 Encoders exist so tests and tools can fabricate valid GGUF files; they produce
 bit-valid blocks (round-trip decode matches within quantization error) but use
@@ -55,6 +56,26 @@ def dequant_f16(data: np.ndarray, n: int) -> np.ndarray:
 
 # ---------------------------------------------------------------------------
 # 32-element block formats
+
+
+def dequant_q8_0(data: np.ndarray, n: int) -> np.ndarray:
+    """Q8_0: f16 scale d + 32 int8 quants; x = d * q."""
+    blocks = _blocks(data, n, GGMLType.Q8_0)
+    d = _f16(blocks[:, :2].copy().view(np.uint16))  # (nb, 1)
+    q = blocks[:, 2:34].view(np.int8).astype(np.float32)
+    return (d * q).reshape(-1)[:n]
+
+
+def quant_q8_0(x: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1, 32)
+    amax = np.abs(x).max(axis=1, keepdims=True)
+    d = (amax / 127.0).astype(np.float16).astype(np.float32)
+    inv_d = np.where(d > 0, 1.0 / np.where(d > 0, d, 1.0), 0.0)
+    q = np.clip(np.rint(x * inv_d), -127, 127).astype(np.int8)
+    out = np.empty((x.shape[0], 34), dtype=np.uint8)
+    out[:, :2] = _fp16_bytes(d.reshape(-1).astype(np.float32)).reshape(-1, 2)
+    out[:, 2:] = q.view(np.uint8)
+    return out.reshape(-1)
 
 
 def dequant_q4_0(data: np.ndarray, n: int) -> np.ndarray:
@@ -186,18 +207,157 @@ def quant_q4_k(x: np.ndarray) -> np.ndarray:
     return out.reshape(-1)
 
 
+def dequant_q5_k(data: np.ndarray, n: int) -> np.ndarray:
+    """Q5_K: f16 d, f16 dmin, 12B scales, 32B qh, 128B qs; q = nib | (hbit<<4)."""
+    blocks = _blocks(data, n, GGMLType.Q5_K)
+    nb = blocks.shape[0]
+    d = _f16(blocks[:, :2].copy().view(np.uint16))
+    dmin = _f16(blocks[:, 2:4].copy().view(np.uint16))
+    sc, mi = _unpack_kquant_scales(blocks[:, 4:16])
+    qh = blocks[:, 16:48]  # (nb,32): bit j of qh[l] is high bit of elem (32j + l)... see below
+    qs = blocks[:, 48:176].reshape(nb, 4, 32)
+    # ggml: u1 = 1<<(2j), u2 = 2<<(2j) walking 64-element chunks j=0..3:
+    #   elem l of sub-block 2j   gets high bit (qh[l] & u1)
+    #   elem l of sub-block 2j+1 gets high bit (qh[l] & u2)
+    j = np.arange(4)
+    hb1 = ((qh[:, None, :] >> (2 * j)[None, :, None]) & 1).astype(np.uint8)  # (nb,4,32)
+    hb2 = ((qh[:, None, :] >> (2 * j + 1)[None, :, None]) & 1).astype(np.uint8)
+    lo = (qs & 0x0F) | (hb1 << 4)
+    hi = (qs >> 4) | (hb2 << 4)
+    q = np.stack([lo, hi], axis=2).reshape(nb, 8, 32).astype(np.float32)
+    scales = (d * sc.astype(np.float32))[:, :, None]
+    mins = (dmin * mi.astype(np.float32))[:, :, None]
+    out = q * scales - mins
+    return out.reshape(-1)[:n]
+
+
+def dequant_q6_k(data: np.ndarray, n: int) -> np.ndarray:
+    """Q6_K: 128B ql, 64B qh, 16 int8 scales (per 16 elems), f16 d; x=d*sc*(q-32)."""
+    blocks = _blocks(data, n, GGMLType.Q6_K)
+    nb = blocks.shape[0]
+    ql = blocks[:, 0:128].reshape(nb, 2, 64)  # two 128-element halves
+    qh = blocks[:, 128:192].reshape(nb, 2, 32)
+    scales = blocks[:, 192:208].view(np.int8).astype(np.float32)  # (nb,16)
+    d = _f16(blocks[:, 208:210].copy().view(np.uint16))  # (nb,1)
+    # per half: elems 0..31, 32..63, 64..95, 96..127
+    q1 = (ql[:, :, :32] & 0x0F) | (((qh[:, :, :] >> 0) & 3) << 4)
+    q2 = (ql[:, :, 32:] & 0x0F) | (((qh[:, :, :] >> 2) & 3) << 4)
+    q3 = (ql[:, :, :32] >> 4) | (((qh[:, :, :] >> 4) & 3) << 4)
+    q4 = (ql[:, :, 32:] >> 4) | (((qh[:, :, :] >> 6) & 3) << 4)
+    # flat element order: e = 128*half + 32*quarter + l
+    q = np.stack([q1, q2, q3, q4], axis=2).reshape(nb, 256).astype(np.float32) - 32.0
+    # element e uses scales[e // 16]
+    sc_full = np.repeat(scales, 16, axis=1)  # (nb,256)
+    out = d * sc_full * q
+    return out.reshape(-1)[:n]
+
+
+def quant_q6_k(x: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1, 16, 16)  # 16 groups of 16
+    nb = x.shape[0]
+    gmax = np.abs(x).max(axis=2)  # (nb,16)
+    group_scale = gmax / 31.0  # q-32 in [-32,31] → use 31 to stay in range
+    d = (group_scale.max(axis=1) / 127.0).astype(np.float16).astype(np.float32)
+    inv_d = np.where(d > 0, 1.0 / np.where(d > 0, d, 1.0), 0.0)
+    sc = np.clip(np.rint(group_scale * inv_d[:, None]), -128, 127).astype(np.int8)
+    eff = d[:, None] * sc.astype(np.float32)  # (nb,16)
+    inv_eff = np.where(eff != 0, 1.0 / np.where(eff != 0, eff, 1.0), 0.0)
+    q = np.clip(np.rint(x * inv_eff[:, :, None] + 32.0), 0, 63).astype(np.uint8)  # (nb,16,16)
+    q = q.reshape(nb, 2, 4, 32)  # halves, quarters
+    q1, q2, q3, q4 = q[:, :, 0], q[:, :, 1], q[:, :, 2], q[:, :, 3]
+    ql = np.concatenate([(q1 & 0x0F) | ((q3 & 0x0F) << 4), (q2 & 0x0F) | ((q4 & 0x0F) << 4)], axis=2)
+    qh = ((q1 >> 4) << 0) | ((q2 >> 4) << 2) | ((q3 >> 4) << 4) | ((q4 >> 4) << 6)
+    out = np.empty((nb, 210), dtype=np.uint8)
+    out[:, 0:128] = ql.reshape(nb, 128)
+    out[:, 128:192] = qh.reshape(nb, 64)
+    out[:, 192:208] = sc.view(np.uint8)
+    out[:, 208:210] = _fp16_bytes(d).reshape(-1, 2)
+    return out.reshape(-1)
+
+
+def dequant_q2_k(data: np.ndarray, n: int) -> np.ndarray:
+    """Q2_K: 16B scales (lo4=scale, hi4=min), 64B 2-bit qs, f16 d, f16 dmin.
+
+    x = d*(sc&0xF)*q - dmin*(sc>>4), 16 sub-blocks of 16 elements.
+    qs layout: per 128-elem half, 32 bytes; elem (32*s + l) for shift s=0..3.
+    """
+    blocks = _blocks(data, n, GGMLType.Q2_K)
+    nb = blocks.shape[0]
+    scales = blocks[:, 0:16]
+    qs = blocks[:, 16:80].reshape(nb, 2, 32)  # two halves, 32 bytes each
+    d = _f16(blocks[:, 80:82].copy().view(np.uint16))
+    dmin = _f16(blocks[:, 82:84].copy().view(np.uint16))
+    shifts = np.arange(4)
+    q = ((qs[:, :, None, :] >> (2 * shifts)[None, None, :, None]) & 3).astype(np.float32)
+    # q: (nb, half, shift, l) → element (128*half + 32*shift + l)
+    sc = (scales & 0x0F).astype(np.float32).reshape(nb, 2, 4, 2)  # 16 scales = 2 per 32-elem row
+    mi = (scales >> 4).astype(np.float32).reshape(nb, 2, 4, 2)
+    sc_full = np.repeat(sc, 16, axis=3)  # (nb,2,4,32)
+    mi_full = np.repeat(mi, 16, axis=3)
+    out = d[:, :, None, None] * sc_full * q - dmin[:, :, None, None] * mi_full
+    return out.reshape(-1)[:n]
+
+
+def _unpack_q3k_scales(scales12: np.ndarray) -> np.ndarray:
+    """Q3_K 12-byte scale unpack → (nb, 16) int8 values in [-32, 31]+32 form.
+
+    ggml (dequantize_row_q3_K): aux words with kmask1=0x03030303, kmask2=0x0f0f0f0f.
+    Returns signed scales (already -32 applied).
+    """
+    nb = scales12.shape[0]
+    aux = scales12.copy().view(np.uint32).reshape(nb, 3)
+    a0, a1, tmp = aux[:, 0], aux[:, 1], aux[:, 2]
+    kmask1, kmask2 = np.uint32(0x03030303), np.uint32(0x0F0F0F0F)
+    out = np.empty((nb, 4), dtype=np.uint32)
+    out[:, 0] = (a0 & kmask2) | (((tmp >> 0) & kmask1) << 4)
+    out[:, 1] = (a1 & kmask2) | (((tmp >> 2) & kmask1) << 4)
+    out[:, 2] = ((a0 >> 4) & kmask2) | (((tmp >> 4) & kmask1) << 4)
+    out[:, 3] = ((a1 >> 4) & kmask2) | (((tmp >> 6) & kmask1) << 4)
+    return out.view(np.uint8).reshape(nb, 16).astype(np.int16) - 32
+
+
+def dequant_q3_k(data: np.ndarray, n: int) -> np.ndarray:
+    """Q3_K: 32B hmask, 64B 2-bit qs, 12B 6-bit scales, f16 d.
+
+    x = d * sc * (q2bit - (hmask_bit ? 0 : 4)); 16 sub-blocks of 16 elements.
+    """
+    blocks = _blocks(data, n, GGMLType.Q3_K)
+    nb = blocks.shape[0]
+    hmask = blocks[:, 0:32]  # bit m of hmask[l]: elem (32*m + l)
+    qs = blocks[:, 32:96].reshape(nb, 2, 32)
+    scales = _unpack_q3k_scales(blocks[:, 96:108]).astype(np.float32)  # (nb,16)
+    d = _f16(blocks[:, 108:110].copy().view(np.uint16))
+    shifts = np.arange(4)
+    q = ((qs[:, :, None, :] >> (2 * shifts)[None, None, :, None]) & 3).astype(np.float32)
+    # element index e = 128*half + 32*shift + l ; hmask bit index m = e // 32 = 4*half + shift
+    m = (4 * np.arange(2)[:, None] + shifts[None, :]).reshape(1, 2, 4, 1)
+    hb = ((hmask[:, None, None, :] >> m) & 1).astype(np.float32)
+    q = q - (1.0 - hb) * 4.0
+    sc = scales.reshape(nb, 2, 4, 2)
+    sc_full = np.repeat(sc, 16, axis=3)
+    out = d[:, :, None, None] * sc_full * q
+    return out.reshape(-1)[:n]
+
+
 DEQUANTIZERS = {
     GGMLType.F32: dequant_f32,
     GGMLType.F16: dequant_f16,
     GGMLType.Q4_0: dequant_q4_0,
     GGMLType.Q4_1: dequant_q4_1,
+    GGMLType.Q8_0: dequant_q8_0,
+    GGMLType.Q2_K: dequant_q2_k,
+    GGMLType.Q3_K: dequant_q3_k,
     GGMLType.Q4_K: dequant_q4_k,
+    GGMLType.Q5_K: dequant_q5_k,
+    GGMLType.Q6_K: dequant_q6_k,
 }
 
 QUANTIZERS = {
     GGMLType.Q4_0: quant_q4_0,
     GGMLType.Q4_1: quant_q4_1,
+    GGMLType.Q8_0: quant_q8_0,
     GGMLType.Q4_K: quant_q4_k,
+    GGMLType.Q6_K: quant_q6_k,
 }
 
 
@@ -207,7 +367,7 @@ def dequantize(data: np.ndarray, n_elements: int, ggml_type: GGMLType) -> np.nda
     if fn is None:
         raise NotImplementedError(
             f"dequantization of {ggml_type.name} is not ported yet "
-            "(this slice reads F32, F16, Q4_0, Q4_1 and Q4_K)"
+            "(the port reads F32, F16, Q4_0, Q4_1, Q8_0 and Q2_K..Q6_K)"
         )
     data = np.ascontiguousarray(data).view(np.uint8).reshape(-1)
     return fn(data, n_elements)
@@ -223,7 +383,7 @@ def quantize(x: np.ndarray, ggml_type: GGMLType) -> np.ndarray:
     if fn is None:
         raise NotImplementedError(
             f"quantization to {ggml_type.name} is not ported yet "
-            "(this slice writes F32, F16, Q4_0, Q4_1 and Q4_K)"
+            "(the port writes F32, F16, Q4_0, Q4_1, Q8_0, Q4_K and Q6_K)"
         )
     flat = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
     bs = GGML_BLOCK_LAYOUT[ggml_type].block_size

@@ -138,7 +138,7 @@ def register(kernel: Kernel) -> Kernel:
 def build_all(verbose: bool = False) -> dict[str, str]:
     """Build every registered kernel (the ops modules register theirs when
     imported)."""
-    from .ops import fused_decode, prefill_attention, qmatmul  # noqa: F401
+    from .ops import fused_decode, fused_mlp, prefill_attention, qmatmul  # noqa: F401
 
     return build(list(KERNELS.values()), verbose=verbose)
 

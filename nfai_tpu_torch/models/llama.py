@@ -1,23 +1,32 @@
-"""Llama model: config from GGUF metadata, 4-bit weight loading, the prefill
-and decode forwards, and the decode loop.
+"""Llama model: config from GGUF metadata, quantized weight loading, the
+prefill and decode forwards, and the decode loop.
 
-Counterpart of nfai_tpu/models/llama.py in its single-device configuration
-with ``NFAI_FUSED_MLP=0``: every matmul (wqkv, wo, gate_up, down, LM head)
-goes through kernel K1 (ops.qmatmul); a prefill chunk (T > 1) writes its
-K/V into the cache and attends with K4 (ops.prefill_attention); a decode
-step (T == 1) attends with K2, which folds the new token in, and writes all
-layers' new K/V rows after the layer loop with one K3 launch per cache
-(ops.fused_decode).
+Counterpart of nfai_tpu/models/llama.py in its single-device default
+configuration. Every matmul goes through a dequant-matmul kernel: K1
+(ops.qmatmul) for a 4-bit weight, K6 for an 8-bit one. The MLP follows the
+JAX route: where gate_up and down are 4-bit in every layer and the widths
+qualify (`ops.fused_mlp.mlp_eligible`), one K5 launch per layer runs the
+whole MLP at decode and for prefill chunks of up to 1024 rows, and
+`mlp_prefill` serves longer chunks; otherwise gate_up (or gate and up) and
+down run as separate matmuls. q/k/v and gate/up are fused along N only when
+every layer's parts share a container, as the JAX package decides. A tied
+checkpoint (no output.weight) keeps one quantized table: the LM head runs
+on it and the embedding rows are gathered from it. A prefill chunk (T > 1)
+writes its K/V into the cache and attends with K4 (ops.prefill_attention);
+a decode step (T == 1) attends with K2, which folds the new token in, and
+writes all layers' new K/V rows after the layer loop with one K3 launch per
+cache (ops.fused_decode).
 
 The JAX package scans over layer-stacked weights; here the loop over layers
-is plain Python and each layer's weight is a view of the stacked tensor.
-The cache is updated in place. `decode_loop` is a Python loop over steps
-(the JAX version is one jitted scan; capturing the step as a CUDA graph is
-later work).
+is plain Python and each layer's weight is a view of the stacked tensor (or
+its own container, where a stack mixes kinds). The cache is updated in
+place. `decode_loop` is a Python loop over steps (the JAX version is one
+jitted scan; capturing the step as a CUDA graph is later work).
 
-Only llama-arch, untied, 4-bit (Q4_0/Q4_1/Q4_K) checkpoints load; the other
-families' features (biases, q/k norms, softcaps, sliding windows, MoE, tied
-heads, dense or 8-bit weights) raise NotImplementedError.
+Only llama-arch checkpoints with Q4_0/Q4_1/Q4_K, Q8_0 or Q2_K/Q3_K/Q5_K/
+Q6_K matmul weights load; dense (F16/F32) matmul weights and the other
+families' features (biases, q/k norms, softcaps, sliding windows, MoE,
+pre-fused tensors) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -29,12 +38,15 @@ import torch.nn.functional as nnf
 
 from ..gguf import GGUFFile, Keys
 from ..ops.fused_decode import layered_decode_attention, write_all_layers
+from ..ops.fused_mlp import (
+    MLP_FUSED_MAX_ROWS, fused_mlp_layered, mlp_eligible, mlp_prefill,
+)
 from ..ops.norms import rms_norm
 from ..ops.prefill_attention import flash_prefill_attention
 from ..ops.qmatmul import linear, linear_layered
 from ..ops.qtensor import (
-    SUPPORTED_QUANT_TYPES, Q4Tensor, concat, from_jax_qtensor,
-    pack_gguf_tensor, permute_rows, stack,
+    SUPPORTED_QUANT_TYPES, concat, dequant_gather, from_jax_qtensor, n_layers,
+    pack_gguf_tensor, permute_rows, same_layout, stack,
 )
 from ..ops.rope import (
     apply_rope_cs, compute_inv_freq, inv_freq_from_factors, norm_to_neox_perm,
@@ -150,55 +162,79 @@ _GGUF_NAMES = {
 }
 
 
+_FUSIONS = ((("wq", "wk", "wv"), "wqkv"), (("w_gate", "w_up"), "w_gate_up"))
+
+
+def _stack_layers(per_layer: dict[str, list]) -> dict:
+    """Per-layer parameter lists → layer stacks. q/k/v and gate/up fuse
+    along N only when every layer's parts share a container (the JAX
+    `_fuse_projections` rule: a Q4_K_M file's Q6_K attn_v keeps q/k/v split
+    on every layer); a stack whose layers mix kinds becomes a LayerList."""
+    per_layer = dict(per_layer)
+    for names, fused in _FUSIONS:
+        if all(n in per_layer for n in names):
+            groups = list(zip(*(per_layer[n] for n in names)))
+            if all(same_layout(list(parts)) for parts in groups):
+                per_layer[fused] = [concat(list(parts)) for parts in groups]
+                for n in names:
+                    del per_layer[n]
+    return {
+        k: torch.stack(v) if isinstance(v[0], torch.Tensor) else stack(v)
+        for k, v in per_layer.items()
+    }
+
+
+def _params(embed, layers: dict, final_norm, lm_head, inv_freq, dtype, device) -> dict:
+    return {
+        "embed": None if embed is None else embed.to(dtype).to(device),
+        "layers": {k: v.to(device) for k, v in layers.items()},
+        "final_norm": final_norm.to(device),
+        "lm_head": lm_head.to(device),
+        "inv_freq": inv_freq.to(device),
+        "act_dtype": dtype,
+        "fused_mlp": mlp_eligible(layers.get("w_gate_up"), layers["w_down"]),
+    }
+
+
 def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
                 device="cpu") -> dict:
     """GGUF → params dict on `device`:
 
-    - ``embed`` [V, H] dense in `dtype` (dequantized from any of F32, F16,
-      Q4_0, Q4_1, Q4_K);
-    - ``layers``: ``attn_norm``/``ffn_norm`` f32 [L, H]; ``wqkv``, ``wo``,
-      ``w_gate_up``, ``w_down`` layer-stacked `Q4Tensor`s (q/k/v and
-      gate/up fused along N; wq/wk rows permuted NORM → NEOX);
-    - ``final_norm`` f32 [H], ``lm_head`` 2-D `Q4Tensor`, ``inv_freq`` f32.
+    - ``embed`` [V, H] dense in `dtype` (dequantized from any kind the
+      reader decodes), or None for a tied checkpoint;
+    - ``layers``: ``attn_norm``/``ffn_norm`` f32 [L, H]; the matmul weights
+      as layer stacks of `Q4Tensor`/`Q8Tensor` (or a `LayerList` where the
+      layers mix kinds): ``wqkv`` or ``wq``/``wk``/``wv`` (wq/wk rows
+      permuted NORM → NEOX), ``wo``, ``w_gate_up`` or ``w_gate``/``w_up``,
+      ``w_down``;
+    - ``final_norm`` f32 [H]; ``lm_head`` the 2-D quantized output weight,
+      or for a tied checkpoint the quantized token table itself; ``inv_freq``
+      f32;
+    - ``act_dtype`` (`dtype`) and ``fused_mlp`` (whether the MLP takes K5).
     """
-    if cfg.tied_embeddings:
-        raise NotImplementedError(
-            "tied embeddings (no output.weight) are not ported yet: the tied "
-            "head runs the v2 4-bit kernel, which a later slice ports"
-        )
 
-    def mat(name: str) -> Q4Tensor:
+    def mat(name: str):
         desc = g.tensors[name]
         if desc.ggml_type not in SUPPORTED_QUANT_TYPES:
             raise NotImplementedError(
-                f"{name} is {desc.ggml_type.name}; this slice keeps only "
-                "Q4_0/Q4_1/Q4_K matmul weights (8-bit and dense kernels come later)"
+                f"{name} is {desc.ggml_type.name}; the port keeps only quantized "
+                "matmul weights (Q4_0/Q4_1/Q4_K, Q8_0, Q2_K/Q3_K/Q5_K/Q6_K; dense "
+                "kernels come later)"
             )
         return pack_gguf_tensor(g.tensor_bytes(name), desc.ggml_type, desc.shape)
 
     def vec(name: str) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(g.tensor_f32(name), np.float32))
 
+    per_layer: dict[str, list] = {k: [] for k in _GGUF_NAMES}
+    for i in range(cfg.n_layers):
+        for key, template in _GGUF_NAMES.items():
+            name = template.format(i=i)
+            per_layer[key].append(vec(name) if key.endswith("norm") else mat(name))
     q_perm = norm_to_neox_perm(cfg.n_heads, cfg.head_dim)
     k_perm = norm_to_neox_perm(cfg.n_kv_heads, cfg.head_dim)
-    cols: dict[str, list] = {k: [] for k in
-                             ("attn_norm", "ffn_norm", "wqkv", "wo", "w_gate_up", "w_down")}
-    for i in range(cfg.n_layers):
-        names = {k: t.format(i=i) for k, t in _GGUF_NAMES.items()}
-        cols["attn_norm"].append(vec(names["attn_norm"]))
-        cols["ffn_norm"].append(vec(names["ffn_norm"]))
-        cols["wqkv"].append(concat([
-            permute_rows(mat(names["wq"]), q_perm),
-            permute_rows(mat(names["wk"]), k_perm),
-            mat(names["wv"]),
-        ]))
-        cols["wo"].append(mat(names["wo"]))
-        cols["w_gate_up"].append(concat([mat(names["w_gate"]), mat(names["w_up"])]))
-        cols["w_down"].append(mat(names["w_down"]))
-    layers = {
-        k: (stack(v) if isinstance(v[0], Q4Tensor) else torch.stack(v)).to(device)
-        for k, v in cols.items()
-    }
+    per_layer["wq"] = [permute_rows(w, q_perm) for w in per_layer["wq"]]
+    per_layer["wk"] = [permute_rows(w, k_perm) for w in per_layer["wk"]]
     if "rope_freqs.weight" in g.tensors:
         inv_freq = inv_freq_from_factors(
             g.tensor_f32("rope_freqs.weight"), cfg.head_dim, cfg.rope_base
@@ -209,34 +245,35 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
             cfg.rope_scaling_factor, cfg.rope_low_freq_factor,
             cfg.rope_high_freq_factor, cfg.rope_original_ctx,
         )
-    embed = torch.from_numpy(g.tensor_f32("token_embd.weight")).to(dtype)
-    return {
-        "embed": embed.to(device),
-        "layers": layers,
-        "final_norm": vec("output_norm.weight").to(device),
-        "lm_head": mat("output.weight").to(device),
-        "inv_freq": torch.from_numpy(inv_freq).to(device),
-    }
+    if cfg.tied_embeddings:  # one quantized table: the head, and the embedding rows
+        embed, lm_head = None, mat("token_embd.weight")
+    else:
+        embed = torch.from_numpy(g.tensor_f32("token_embd.weight"))
+        lm_head = mat("output.weight")
+    return _params(embed, _stack_layers(per_layer), vec("output_norm.weight"), lm_head,
+                   torch.from_numpy(inv_freq), dtype, device)
 
 
 def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
                     device="cpu") -> dict:
-    """The JAX package's `load_params` output (leaves as numpy; 4-bit leaves
-    as its QTensor dataclass with numpy fields) → this package's params.
+    """The JAX package's `load_params` output (leaves as numpy; quantized
+    leaves as its QTensor dataclass with numpy fields) → this package's
+    params.
 
     Undoes the TPU packings (v2 split-half nibbles with the /16 and -8
-    folds, v3 word planes, merged q4v3m scales) through
-    `ops.qtensor.from_jax_qtensor`; split q/k/v or gate/up weights are fused
-    here. Dense or 8-bit matmul weights, fused-MLP containers and tied
-    quantized tables raise."""
+    folds, v3 word planes, merged q4v3m scales, the q4mlpg/q4mlpd fused-MLP
+    permutations, 8-bit containers, N padding) through
+    `ops.qtensor.from_jax_qtensor`, then fuses and routes as `load_params`
+    does; a tied quantized table (``embed`` None) becomes the head and the
+    embedding source. Dense matmul weights raise."""
 
-    def q4(leaf) -> Q4Tensor:
+    def conv(leaf):
         if not hasattr(leaf, "kind"):
             raise NotImplementedError("dense matmul weights are not ported yet")
         return from_jax_qtensor(
             leaf.kind, np.asarray(leaf.qs), np.asarray(leaf.scales),
             None if leaf.mins is None else np.asarray(leaf.mins),
-            leaf.k, leaf.n, leaf.sections,
+            leaf.k, leaf.n, leaf.sections, leaf.group, leaf.tfb,
         )
 
     src = np_params["layers"]
@@ -244,23 +281,20 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
                           "wo", "w_gate_up", "w_gate", "w_up", "w_down"}
     if unknown:
         raise NotImplementedError(f"layer parameters {sorted(unknown)} are not ported yet")
-    layers = {k: torch.from_numpy(np.asarray(src[k], np.float32))
-              for k in ("attn_norm", "ffn_norm")}
-    layers["wqkv"] = q4(src["wqkv"]) if "wqkv" in src else concat(
-        [q4(src[k]) for k in ("wq", "wk", "wv")])
-    layers["wo"] = q4(src["wo"])
-    layers["w_gate_up"] = q4(src["w_gate_up"]) if "w_gate_up" in src else concat(
-        [q4(src[k]) for k in ("w_gate", "w_up")])
-    layers["w_down"] = q4(src["w_down"])
-    if np_params.get("embed") is None:
-        raise NotImplementedError("tied quantized embedding tables are not ported yet")
-    return {
-        "embed": torch.from_numpy(np.asarray(np_params["embed"], np.float32)).to(dtype).to(device),
-        "layers": {k: v.to(device) for k, v in layers.items()},
-        "final_norm": torch.from_numpy(np.asarray(np_params["final_norm"], np.float32)).to(device),
-        "lm_head": q4(np_params["lm_head"]).to(device),
-        "inv_freq": torch.from_numpy(np.asarray(np_params["inv_freq"], np.float32)).to(device),
-    }
+    per_layer = {}
+    for key, leaf in src.items():
+        if key.endswith("norm"):
+            per_layer[key] = list(torch.from_numpy(np.array(leaf, np.float32)))
+        else:
+            w = conv(leaf)
+            per_layer[key] = [w.layer(i) for i in range(n_layers(w))]
+    embed = np_params.get("embed")
+    as_f32 = lambda a: torch.from_numpy(np.array(a, np.float32))
+    return _params(
+        None if embed is None else as_f32(embed), _stack_layers(per_layer),
+        as_f32(np_params["final_norm"]), conv(np_params["lm_head"]),
+        as_f32(np_params["inv_freq"]), dtype, device,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +302,18 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
 
 
 def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    if params["embed"] is None:  # tied: rows of the quantized head are the embedding
+        return dequant_gather(params["lm_head"], tokens).to(params["act_dtype"])
     return params["embed"][tokens.long()]
+
+
+def _qkv(lp: dict, x: torch.Tensor, layer: int, qd: int, kvd: int):
+    """q, k, v projections of x [..., H]: one fused matmul where the
+    checkpoint allows it, else three."""
+    if "wqkv" in lp:
+        qkv = linear_layered(x, lp["wqkv"], layer)
+        return qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
+    return tuple(linear_layered(x, lp[k], layer) for k in ("wq", "wk", "wv"))
 
 
 def _write_cache(cache_l: torch.Tensor, new: torch.Tensor, starts: torch.Tensor) -> None:
@@ -279,10 +324,21 @@ def _write_cache(cache_l: torch.Tensor, new: torch.Tensor, starts: torch.Tensor)
 
 
 def _mlp(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torch.Tensor:
+    """The JAX package's MLP route: K5 (up to MLP_FUSED_MAX_ROWS rows) or
+    `mlp_prefill` where the pair is fused-eligible, else two (or three)
+    dequant-matmuls around the activation."""
     lp = params["layers"]
-    gu = linear_layered(x, lp["w_gate_up"], layer)
+    if params["fused_mlp"]:
+        if x.numel() // x.shape[-1] > MLP_FUSED_MAX_ROWS:
+            return mlp_prefill(x, lp["w_gate_up"].layer(layer), lp["w_down"].layer(layer))
+        return fused_mlp_layered(x, lp["w_gate_up"], lp["w_down"], layer)
     f = cfg.ffn_dim
-    inner = (nnf.silu(gu[..., :f].float()) * gu[..., f:].float()).to(x.dtype)
+    if "w_gate_up" in lp:
+        gu = linear_layered(x, lp["w_gate_up"], layer)
+        gate, up = gu[..., :f], gu[..., f:]
+    else:
+        gate, up = (linear_layered(x, lp[k], layer) for k in ("w_gate", "w_up"))
+    inner = (nnf.silu(gate.float()) * up.float()).to(x.dtype)
     return linear_layered(inner, lp["w_down"], layer)
 
 
@@ -302,10 +358,9 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     starts = positions[:, 0].to(torch.int32).contiguous()  # once per chunk, for every layer's K4
     for layer in range(cfg.n_layers):
         x = rms_norm(h, lp["attn_norm"][layer], cfg.rms_eps)
-        qkv = linear_layered(x, lp["wqkv"], layer)
-        q = qkv[..., :qd].reshape(b, t, cfg.n_heads, cfg.head_dim)
-        k = qkv[..., qd:qd + kvd].reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-        v = qkv[..., qd + kvd:]
+        q, k, v = _qkv(lp, x, layer, qd, kvd)
+        q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
+        k = k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
         q = apply_rope_cs(q, cos, sin, neox=True).to(act)
         k = apply_rope_cs(k, cos, sin, neox=True)
         _write_cache(cache.k[layer], k.reshape(b, t, kvd), starts)
@@ -335,12 +390,12 @@ def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     v_rows = torch.empty_like(k_rows)
     for layer in range(cfg.n_layers):
         x = rms_norm(h, lp["attn_norm"][layer], cfg.rms_eps)
-        qkv = linear_layered(x, lp["wqkv"], layer)
-        q = qkv[..., :qd].reshape(b, 1, cfg.n_heads, cfg.head_dim)
-        k = qkv[..., qd:qd + kvd].reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+        q, k, v = _qkv(lp, x, layer, qd, kvd)
+        q = q.reshape(b, 1, cfg.n_heads, cfg.head_dim)
+        k = k.reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
         q = apply_rope_cs(q, cos, sin, neox=True).to(act)
         k_rows[layer] = apply_rope_cs(k, cos, sin, neox=True).reshape(b, kvd)
-        v_rows[layer] = qkv[:, 0, qd + kvd:]
+        v_rows[layer] = v[:, 0]
         attn = layered_decode_attention(
             q.view(b, cfg.n_heads, cfg.head_dim), k_rows[layer], v_rows[layer], cache.k,
             cache.v, layer, starts, scale=cfg.query_scale,
@@ -354,7 +409,7 @@ def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 
 
 def logits_for(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """LM head (K1) → f32 logits."""
+    """LM head (K1 or K6; the tied table for a tied checkpoint) → f32 logits."""
     return linear(hidden, params["lm_head"]).float()
 
 

@@ -6,7 +6,8 @@ from ..gguf import GGUFFile
 
 
 class LlamaFamily:
-    """Llama 3.x dense models (llama arch, 4-bit weights, untied head)."""
+    """Llama 3.x dense models (llama arch, 4-bit and 8-bit GGUF weights, tied or
+    untied head)."""
 
     def config_from_gguf(self, g: GGUFFile):
         from .llama import LlamaConfig

@@ -1,13 +1,17 @@
-"""Synthetic Llama GGUF fixtures: the tiny test model, and a writer for a
-Llama-3.2-1B-width checkpoint filled with random raw Q4_K blocks.
+"""Synthetic Llama GGUF fixtures: the tiny test model, and a writer for
+Llama-3.2-1B-width checkpoints filled with random raw quantized blocks.
 
 `make_tiny_llama_gguf` is a copy of the JAX package's fixture (same bytes
-for the same arguments) limited to the llama options this slice runs.
+for the same arguments) limited to the llama options the port runs.
 `make_llama_1b_gguf` writes the published Llama-3.2-1B shapes (hidden 2048,
 32 heads / 8 kv heads, ffn 8192, vocab 128256, rope base 500000 with a
-llama3 `rope_freqs` tensor, untied output) with every matmul tensor as
-random Q4_K blocks and an F16 embedding — no quantizer runs over 1.2 B
-floats. `n_layers` cuts depth (16 in the published config).
+llama3 `rope_freqs` tensor) with every quantized tensor as random raw
+blocks — no quantizer runs over 1.2 B floats — in one of four kinds:
+"q4_k" (untied, Q4_K matmuls, F16 embedding), "q4_k_m" (the mix llama.cpp
+writes for Q4_K_M: tied Q6_K table, Q6_K attn_v and ffn_down on the layers
+`use_more_bits` picks, Q4_K elsewhere), "q8_0" (untied, Q8_0 throughout)
+and "q4_0_tied" (tied, Q4_0 throughout). `n_layers` cuts depth (16 in the
+published config).
 """
 from __future__ import annotations
 
@@ -83,6 +87,7 @@ def make_tiny_llama_gguf(
     seed: int = 0,
     scale: float = 0.05,
     rope_freqs: np.ndarray | None = None,
+    quant_overrides: dict | None = None,  # tensor name -> GGMLType
 ) -> Path:
     """Write a random-weight llama GGUF (the JAX package's fixture)."""
     rng = np.random.default_rng(seed)
@@ -100,23 +105,36 @@ def make_tiny_llama_gguf(
     def rand(*shape):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
 
-    w.add_tensor("token_embd.weight", rand(vocab_size, hidden), quant)
+    def addw(name, arr, q=quant):
+        if quant_overrides and name in quant_overrides:
+            q = quant_overrides[name]
+        w.add_tensor(name, arr, q)
+
+    addw("token_embd.weight", rand(vocab_size, hidden))
     if rope_freqs is not None:
-        w.add_tensor("rope_freqs.weight", rope_freqs.astype(np.float32), GGMLType.F32)
+        addw("rope_freqs.weight", rope_freqs.astype(np.float32), GGMLType.F32)
     for i in range(n_layers):
-        w.add_tensor(f"blk.{i}.attn_norm.weight", np.ones(hidden, np.float32), GGMLType.F32)
-        w.add_tensor(f"blk.{i}.attn_q.weight", rand(n_heads * head_dim, hidden), quant)
-        w.add_tensor(f"blk.{i}.attn_k.weight", rand(n_kv_heads * head_dim, hidden), quant)
-        w.add_tensor(f"blk.{i}.attn_v.weight", rand(n_kv_heads * head_dim, hidden), quant)
-        w.add_tensor(f"blk.{i}.attn_output.weight", rand(hidden, n_heads * head_dim), quant)
-        w.add_tensor(f"blk.{i}.ffn_norm.weight", np.ones(hidden, np.float32), GGMLType.F32)
-        w.add_tensor(f"blk.{i}.ffn_gate.weight", rand(ffn_dim, hidden), quant)
-        w.add_tensor(f"blk.{i}.ffn_up.weight", rand(ffn_dim, hidden), quant)
-        w.add_tensor(f"blk.{i}.ffn_down.weight", rand(hidden, ffn_dim), quant)
-    w.add_tensor("output_norm.weight", np.ones(hidden, np.float32), GGMLType.F32)
+        addw(f"blk.{i}.attn_norm.weight", np.ones(hidden, np.float32), GGMLType.F32)
+        addw(f"blk.{i}.attn_q.weight", rand(n_heads * head_dim, hidden))
+        addw(f"blk.{i}.attn_k.weight", rand(n_kv_heads * head_dim, hidden))
+        addw(f"blk.{i}.attn_v.weight", rand(n_kv_heads * head_dim, hidden))
+        addw(f"blk.{i}.attn_output.weight", rand(hidden, n_heads * head_dim))
+        addw(f"blk.{i}.ffn_norm.weight", np.ones(hidden, np.float32), GGMLType.F32)
+        addw(f"blk.{i}.ffn_gate.weight", rand(ffn_dim, hidden))
+        addw(f"blk.{i}.ffn_up.weight", rand(ffn_dim, hidden))
+        addw(f"blk.{i}.ffn_down.weight", rand(hidden, ffn_dim))
+    addw("output_norm.weight", np.ones(hidden, np.float32), GGMLType.F32)
     if not tied:
-        w.add_tensor("output.weight", rand(vocab_size, hidden), quant)
+        addw("output.weight", rand(vocab_size, hidden))
     return w.write(path)
+
+
+def use_more_bits(i_layer: int, n_layers: int) -> bool:
+    """llama.cpp's choice of the layers whose attn_v and ffn_down a Q4_K_M
+    file keeps in Q6_K (src/llama-quant.cpp, llama_tensor_get_type):
+    the first and last eighth, and every third layer between."""
+    return (i_layer < n_layers // 8 or i_layer >= 7 * n_layers // 8
+            or (i_layer - n_layers // 8) % 3 == 2)
 
 
 # Llama-3.2-1B (published config.json): widths, heads, vocab, rope
@@ -140,49 +158,102 @@ def random_q4k_bytes(rng: np.random.Generator, n_out: int, k_in: int,
     return blocks.reshape(-1)
 
 
-def make_llama_1b_gguf(path: str | Path, *, n_layers: int | None = None,
-                       seed: int = 0) -> Path:
-    """Write a Llama-3.2-1B-width GGUF with random raw Q4_K matmul weights
-    (~1.2 GB at full depth). Weights are random: the model is for speed and
-    kernel checks, not for text."""
+def _f16_bytes(rng: np.random.Generator, nb: int, d_scale: float) -> np.ndarray:
+    d = (rng.uniform(0.5, 1.5, nb) * d_scale).astype(np.float16)
+    return d.view(np.uint8).reshape(nb, 2)
+
+
+def random_q6k_bytes(rng: np.random.Generator, n_out: int, k_in: int,
+                     d_scale: float = 1e-4) -> np.ndarray:
+    """Raw Q6_K payload: random 6-bit values, int8 sub-block scales in
+    [-15, 15], finite f16 d (weight std ≈ 170 d)."""
+    nb = n_out * k_in // 256
+    blocks = np.frombuffer(rng.bytes(nb * 210), np.uint8).reshape(nb, 210).copy()
+    blocks[:, 192:208] = rng.integers(-15, 16, (nb, 16)).astype(np.int8).view(np.uint8)
+    blocks[:, 208:210] = _f16_bytes(rng, nb, d_scale)
+    return blocks.reshape(-1)
+
+
+def random_q8_0_bytes(rng: np.random.Generator, n_out: int, k_in: int,
+                      d_scale: float = 2.7e-4) -> np.ndarray:
+    """Raw Q8_0 payload: random int8 values, finite f16 d (std ≈ 74 d)."""
+    nb = n_out * k_in // 32
+    blocks = np.frombuffer(rng.bytes(nb * 34), np.uint8).reshape(nb, 34).copy()
+    blocks[:, 0:2] = _f16_bytes(rng, nb, d_scale)
+    return blocks.reshape(-1)
+
+
+def random_q4_0_bytes(rng: np.random.Generator, n_out: int, k_in: int,
+                      d_scale: float = 4e-3) -> np.ndarray:
+    """Raw Q4_0 payload: random nibbles, finite f16 d (std ≈ 4.6 d)."""
+    nb = n_out * k_in // 32
+    blocks = np.frombuffer(rng.bytes(nb * 18), np.uint8).reshape(nb, 18).copy()
+    blocks[:, 0:2] = _f16_bytes(rng, nb, d_scale)
+    return blocks.reshape(-1)
+
+
+_RANDOM_BLOCKS = {
+    GGMLType.Q4_K: random_q4k_bytes,
+    GGMLType.Q6_K: random_q6k_bytes,
+    GGMLType.Q8_0: random_q8_0_bytes,
+    GGMLType.Q4_0: random_q4_0_bytes,
+}
+LLAMA_1B_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied")
+
+
+def make_llama_1b_gguf(path: str | Path, *, kind: str = "q4_k",
+                       n_layers: int | None = None, seed: int = 0) -> Path:
+    """Write a Llama-3.2-1B-width GGUF of `kind` (see module doc) with random
+    raw blocks (~0.9-1.7 GB at full depth). Weights are random: the model is
+    for speed and kernel checks, not for text."""
+    if kind not in LLAMA_1B_KINDS:
+        raise ValueError(f"kind must be one of {LLAMA_1B_KINDS}, got {kind!r}")
     c = dict(LLAMA_1B)
     if n_layers is not None:
         c["n_layers"] = n_layers
     rng = np.random.default_rng(seed)
-    h, f, v = c["hidden"], c["ffn_dim"], c["vocab_size"]
+    h, f, v, nl = c["hidden"], c["ffn_dim"], c["vocab_size"], c["n_layers"]
     hd = h // c["n_heads"]
     qd, kvd = c["n_heads"] * hd, c["n_kv_heads"] * hd
     w = GGUFWriter()
-    _header(w, "llama", "llama-3.2-1b-width-random-q4k",
-            context_length=c["context_length"], hidden=h, n_layers=c["n_layers"],
+    _header(w, "llama", f"llama-3.2-1b-width-random-{kind}",
+            context_length=c["context_length"], hidden=h, n_layers=nl,
             ffn_dim=f, n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
             rope_base=c["rope_base"], vocab_size=v, tok_md=tiny_tokenizer_metadata())
+    base = {"q4_k": GGMLType.Q4_K, "q4_k_m": GGMLType.Q4_K,
+            "q8_0": GGMLType.Q8_0, "q4_0_tied": GGMLType.Q4_0}[kind]
+    tied = kind in ("q4_k_m", "q4_0_tied")
 
     def shape_only(*shape):  # add_tensor reads only the shape next to raw bytes
         return np.broadcast_to(np.zeros((), np.float32), shape)
 
-    def q4k(name, n_out, k_in):
-        w.add_tensor(name, shape_only(n_out, k_in), GGMLType.Q4_K,
-                     raw_bytes=random_q4k_bytes(rng, n_out, k_in))
+    def quant(name, n_out, k_in, q=base):
+        w.add_tensor(name, shape_only(n_out, k_in), q,
+                     raw_bytes=_RANDOM_BLOCKS[q](rng, n_out, k_in))
 
-    embed = (rng.standard_normal((v, h), dtype=np.float32) * 0.02).astype(np.float16)
-    w.add_tensor("token_embd.weight", shape_only(v, h), GGMLType.F16,
-                 raw_bytes=embed.view(np.uint8).reshape(-1))
+    if kind == "q4_k":
+        embed = (rng.standard_normal((v, h), dtype=np.float32) * 0.02).astype(np.float16)
+        w.add_tensor("token_embd.weight", shape_only(v, h), GGMLType.F16,
+                     raw_bytes=embed.view(np.uint8).reshape(-1))
+    else:
+        quant("token_embd.weight", v, h, GGMLType.Q6_K if kind == "q4_k_m" else base)
     # llama.cpp stores llama3 rope scaling as per-dim frequency divisors
     base_inv = 1.0 / (c["rope_base"] ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
     scaled = compute_inv_freq(hd, c["rope_base"], "llama3", c["rope_factor"],
                               c["rope_low"], c["rope_high"], c["rope_orig_ctx"])
     w.add_tensor("rope_freqs.weight", (base_inv / scaled).astype(np.float32), GGMLType.F32)
-    for i in range(c["n_layers"]):
+    for i in range(nl):
+        more = GGMLType.Q6_K if kind == "q4_k_m" and use_more_bits(i, nl) else base
         w.add_tensor(f"blk.{i}.attn_norm.weight", np.ones(h, np.float32), GGMLType.F32)
-        q4k(f"blk.{i}.attn_q.weight", qd, h)
-        q4k(f"blk.{i}.attn_k.weight", kvd, h)
-        q4k(f"blk.{i}.attn_v.weight", kvd, h)
-        q4k(f"blk.{i}.attn_output.weight", h, qd)
+        quant(f"blk.{i}.attn_q.weight", qd, h)
+        quant(f"blk.{i}.attn_k.weight", kvd, h)
+        quant(f"blk.{i}.attn_v.weight", kvd, h, more)
+        quant(f"blk.{i}.attn_output.weight", h, qd)
         w.add_tensor(f"blk.{i}.ffn_norm.weight", np.ones(h, np.float32), GGMLType.F32)
-        q4k(f"blk.{i}.ffn_gate.weight", f, h)
-        q4k(f"blk.{i}.ffn_up.weight", f, h)
-        q4k(f"blk.{i}.ffn_down.weight", h, f)
+        quant(f"blk.{i}.ffn_gate.weight", f, h)
+        quant(f"blk.{i}.ffn_up.weight", f, h)
+        quant(f"blk.{i}.ffn_down.weight", h, f, more)
     w.add_tensor("output_norm.weight", np.ones(h, np.float32), GGMLType.F32)
-    q4k("output.weight", v, h)
+    if not tied:
+        quant("output.weight", v, h)
     return w.write(path)
