@@ -89,8 +89,7 @@ class Timer:
     """Median CUDA-event time of one fn() launch over `iters` launches.
 
     Before each launch a 128 MB read evicts the 50 MB L2 (the decode path
-    reads each weight once per step, so it meets a cold cache; flush=False
-    leaves the previous launch's data in L2), then a GPU
+    reads each weight once per step, so it meets a cold cache), then a GPU
     spin of ~0.5 ms keeps the device busy while the host enqueues the two
     events and fn(): the events bracket the kernels alone, not the host's
     Python and launch overhead."""
@@ -101,14 +100,13 @@ class Timer:
         self.torch = torch
         self.flush_buf = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
 
-    def __call__(self, fn, iters: int = 10, warmup: int = 2, flush: bool = True) -> float:
+    def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(iters):
-            if flush:
-                self.flush_buf.sum()
+            self.flush_buf.sum()
             torch.cuda._sleep(self.SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -182,20 +180,22 @@ def phase_kernels(torch, timer) -> dict:
     bf = torch.bfloat16
     results = {}
 
-    # K1 at every (K, N) of the path, decode rows 1 and 8, prefill rows 256
-    shapes = {"wqkv": (2048, 3072), "wo": (2048, 2048), "gate_up": (2048, 16384),
-              "down": (8192, 2048), "lm_head": (2048, 128256)}
+    # K1 at every (K, N) of the path (wk/wv: model B's split Q4_K layers),
+    # decode rows 1 and 8, prefill rows 256 and 1024 (the batch prefill's
+    # 8x128 chunk; the head sees one row per sequence)
+    shapes = {"wqkv": (2048, 3072), "wo": (2048, 2048), "wk/wv": (2048, 512),
+              "gate_up": (2048, 16384), "down": (8192, 2048), "lm_head": (2048, 128256)}
     cases = []
     for label, (k, n) in shapes.items():
         w = _q4_weight(torch, n, k, gen)
         wd = dequant(w).to(bf)
-        for m in (1, 8, 256):
+        for m in (1, 8, 256) if label == "lm_head" else (1, 8, 256, 1024):
             x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
             got = qm.q4_matmul(x, w)
             torch.cuda.synchronize()
-            err = check(f"K1 {label} M={m} K={k} N={n}", got, qm.q4_matmul_plain(x, w), row_dims=1)
+            err = check(f"K1 {label} M={m} K={k} N={n}", got, qm.matmul_plain(x, w), row_dims=1)
             ms = timer(lambda: qm.q4_matmul(x, w))
-            plain_ms = timer(lambda: qm.q4_matmul_plain(x, w), iters=3)
+            plain_ms = timer(lambda: qm.matmul_plain(x, w), iters=3)
             lib_ms = timer(lambda: torch.matmul(x, wd.T))
             nbytes = m * k * 2 + n * k // 2 + n * k // 32 * 8 + m * n * 2
             b, by = bound_ms(nbytes, 2.0 * m * n * k)
@@ -348,16 +348,12 @@ def _kernels_k5_k6(torch, timer, gen) -> dict:
         ms = timer(lambda: fm.fused_mlp(x, gu, dn))
         plain_ms = timer(lambda: fm.fused_mlp_plain(x, gu, dn), iters=3)
         route_ms = timer(lambda: replaced_route(x))
-        # the 37.7 MB of weights fit the 50 MB L2: warm, the weights' DRAM reads drop out
-        warm_ms = timer(lambda: fm.fused_mlp(x, gu, dn), flush=False)
         nbytes = m * k * 2 + (2 * f * k + h * f) * 3 // 4 + m * h * 2
         b, by = bound_ms(nbytes, 2.0 * m * k * 2 * f + 2.0 * m * f * h)
         cases.append(dict(shape=f"M={m}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b, bound_by=by, library_ms=None, replaced_route_ms=route_ms,
-                          warm_l2_ms=warm_ms))
+                          bound_ms=b, bound_by=by, library_ms=None, replaced_route_ms=route_ms))
         log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, "
-            f"replaced route K1 + silu*mul + K1 {route_ms:.4f}; no single library call; "
-            f"{warm_ms:.4f} with the weights warm in L2)")
+            f"replaced route K1 + silu*mul + K1 {route_ms:.4f}; no single library call)")
     results["fused_mlp"] = dict(
         route="cuda", source="nfai_tpu_torch/csrc/fused_mlp.cu",
         replaces="nfai_tpu/ops/fused_mlp.py:201", also_replaces=[],
@@ -365,21 +361,23 @@ def _kernels_k5_k6(torch, timer, gen) -> dict:
     )
     del gu, dn
 
-    # K6: the tied Q6_K head, Q8_0 wqkv and down, a Q6_K w_down; rows 1, 8, 256
+    # K6: the tied Q6_K head, Q8_0 wqkv and down, model B's Q6_K wv and
+    # w_down; rows 1, 8, 256 and, below the head, 1024 (B's batch prefill)
     shapes = {"Q6_K head": (2048, 128256, 16, 32), "Q8_0 wqkv": (2048, 3072, 32, 127),
-              "Q8_0 down": (8192, 2048, 32, 127), "Q6_K w_down": (8192, 2048, 16, 32)}
+              "Q8_0 down": (8192, 2048, 32, 127), "Q6_K wv": (2048, 512, 16, 32),
+              "Q6_K w_down": (8192, 2048, 16, 32)}
     cases = []
     for label, (k, n, group, qmax) in shapes.items():
         w = _q8_weight(torch, n, k, group, qmax, gen)
         wd = dequant(w).to(bf)
-        for m in (1, 8, 256):
+        for m in (1, 8, 256) if label == "Q6_K head" else (1, 8, 256, 1024):
             x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
             got = qm.q8_matmul(x, w)
             torch.cuda.synchronize()
-            err = check(f"K6 {label} M={m} K={k} N={n} g{group}", got, qm.q8_matmul_plain(x, w),
+            err = check(f"K6 {label} M={m} K={k} N={n} g{group}", got, qm.matmul_plain(x, w),
                         row_dims=1)
             ms = timer(lambda: qm.q8_matmul(x, w))
-            plain_ms = timer(lambda: qm.q8_matmul_plain(x, w), iters=3)
+            plain_ms = timer(lambda: qm.matmul_plain(x, w), iters=3)
             lib_ms = timer(lambda: torch.matmul(x, wd.T))
             nbytes = m * k * 2 + n * k + n * (k // group) * 4 + m * n * 2
             b, by = bound_ms(nbytes, 2.0 * m * n * k)
@@ -391,7 +389,7 @@ def _kernels_k5_k6(torch, timer, gen) -> dict:
         if label == "Q8_0 wqkv":
             wm = _q8_weight(torch, n, k, group, qmax, gen, with_mins=True)
             xm = torch.randn(8, k, device="cuda", dtype=bf, generator=gen)
-            check(f"K6 {label} with mins M=8", qm.q8_matmul(xm, wm), qm.q8_matmul_plain(xm, wm),
+            check(f"K6 {label} with mins M=8", qm.q8_matmul(xm, wm), qm.matmul_plain(xm, wm),
                   row_dims=1)
         del w, wd
     results["q8_matmul"] = dict(

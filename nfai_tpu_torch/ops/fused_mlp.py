@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as nnf
 
 from ..kernels import I, Kernel, P, ptr, register, stream_ptr
-from .qmatmul import q4_matmul
+from .qmatmul import matmul_plain, q4_matmul
 from .qtensor import Q4Tensor, dequant
 
 K5 = register(Kernel(
@@ -60,8 +60,7 @@ def fused_mlp_plain(x: torch.Tensor, gu: Q4Tensor, dn: Q4Tensor,
     the down product (as both Pallas bodies do)."""
     f = gu.n // 2
     g_u = x.float() @ dequant(gu).T
-    a = (_act(g_u[:, :f], act) * g_u[:, f:]).to(torch.bfloat16)
-    return (a.float() @ dequant(dn).T).to(torch.bfloat16)
+    return matmul_plain((_act(g_u[:, :f], act) * g_u[:, f:]).to(torch.bfloat16), dn)
 
 
 def _f_tile(m: int, f: int, row_tile: int) -> int:

@@ -7,7 +7,7 @@ tensor each launches its hand-written kernel — ``csrc/q4_matmul.cu``, the
 port of the JAX package's `_q4v3_matmul`, `_q4v3_matmul_layered` and
 `_q4_matmul` Pallas kernels; ``csrc/q8_matmul.cu``, the port of
 `_q8_matmul` and `_q8_matmul_layered` — or raises; on a CPU tensor it runs
-its plain version, the same function in plain PyTorch.
+`matmul_plain`, the same function in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -44,15 +44,16 @@ def _check(x: torch.Tensor, w, name: str, qs_shape: tuple) -> tuple[int, int]:
     return m, k
 
 
-def q4_matmul_plain(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
-    """x [M, K] (any float dtype) @ dequant(w)^T in f32 → bf16 [M, N]."""
+def matmul_plain(x: torch.Tensor, w: Q4Tensor | Q8Tensor) -> torch.Tensor:
+    """x [M, K] (any float dtype) @ dequant(w)^T in f32 → bf16 [M, N]: the
+    plain version of K1 and of K6."""
     return (x.float() @ dequant(w).T).to(torch.bfloat16)
 
 
 def q4_matmul(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
     """x [M, K] @ W^T → [M, N] bf16 for a 2-D Q4Tensor on x's device."""
     if x.device.type == "cpu":
-        return q4_matmul_plain(x, w)
+        return matmul_plain(x, w)
     m, k = _check(x, w, "q4_matmul", (w.n, x.shape[1] // 2))
     y = torch.empty(m, w.n, dtype=torch.bfloat16, device=x.device)
     if m == 0:
@@ -65,17 +66,12 @@ def q4_matmul(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
     return y
 
 
-def q8_matmul_plain(x: torch.Tensor, w: Q8Tensor) -> torch.Tensor:
-    """x [M, K] (any float dtype) @ dequant(w)^T in f32 → bf16 [M, N]."""
-    return (x.float() @ dequant(w).T).to(torch.bfloat16)
-
-
 def q8_matmul(x: torch.Tensor, w: Q8Tensor) -> torch.Tensor:
     """x [M, K] @ W^T → [M, N] bf16 for a 2-D Q8Tensor on x's device (mins,
     where the kind has them, folded in: the JAX 2-D path subtracts them
     outside its kernel and the layered one inside, the same function)."""
     if x.device.type == "cpu":
-        return q8_matmul_plain(x, w)
+        return matmul_plain(x, w)
     m, k = _check(x, w, "q8_matmul", (w.n, x.shape[1]))
     if w.group not in (16, 32):
         raise ValueError(f"q8_matmul takes scale groups of 16 or 32, got {w.group}")
