@@ -6,7 +6,7 @@
 Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
            kernel from csrc/ (one nvcc per source, in parallel)
-  kernels  hold K1-K6 against their plain PyTorch versions on the card at
+  kernels  hold K1-K7 against their plain PyTorch versions on the card at
            the slice's shapes; time kernel, plain version and the library
            yardstick with CUDA events (L2 flushed before each launch)
   serve    per model, write a Llama-3.2-1B-width GGUF (random raw blocks),
@@ -18,20 +18,32 @@ Phases (each failure propagates, the exit code is then non-zero):
            kernel launches per decode step
   profile  torch.profiler over 8 more decode steps of that batch: device
            busy share of the wall time and device time by kernel
+  server   continuous batching on model A's engine: paged vs dense
+           forwards on the card (a 300-token prefill, 8 teacher-forced
+           decode steps at batch 4), a timed and profiled batch-8 paged
+           decode, then the main path with the counts zeroed: a paged
+           BatchEngine serving 16 requests (prefix sharing, a 3-chunk
+           prompt, mixed sampling), a starved pool that must preempt, and
+           8 concurrent HTTP requests (SSE and blocking) through the server
   parity   2-layer full-width copies of four kinds on cuda and on cpu
            (plain versions): prefill logits and 4 teacher-forced decode
            steps within tolerance; the Q4_K copy also prefills one chunk of
-           more than 1024 rows (the mlp_prefill route)
-The main path is two models, each driven by serve, batch and profile:
+           more than 1024 rows (the mlp_prefill route) and runs the same
+           steps through the paged pool
+The main path is two models, each driven by serve, batch and profile, and
+model A's engine then serves continuously batched traffic:
   A  the untied Q4_K model in the JAX package's default configuration:
      every layer's MLP is one K5 launch (16 per decode step), no K6;
   B  the Q4_K_M mix llama.cpp writes: tied Q6_K table (K6 head, embedding
      rows gathered from it), Q6_K attn_v/ffn_down on 8 of 16 layers (K6),
-     Q4_K elsewhere (K1); no K5, as the JAX route.
-The kernels' launch counts are zeroed just before each model's path and
-read just after; every kernel of that path must have launched, and the
-per-step counts must match the route. The line before the last is
-{"kernels": [...]} (launches summed over both paths), the last
+     Q4_K elsewhere (K1); no K5, as the JAX route;
+  server  model A through the paged pool: K7 for every decode layer, K4 on
+     the gathered pages for prefill, no K2/K3.
+The kernels' launch counts are zeroed just before each of the three paths
+and read just after; every kernel of that path must have launched, the
+kernels off its route must not, and the per-step counts must match the
+route. The line before the last is {"kernels": [...]} (launches summed
+over the three paths), the last
 {"ok": true, "device": {...}}; a run of a subset of the phases ends with
 "ok": false, since the main paths' launch checks did not run in full.
 Kernel errors are taken per output row (per batch row for decode
@@ -56,7 +68,7 @@ PEAK_BF16_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 GGUF_Q4K_BYTES_PER_WEIGHT = 144 / 256  # Q4_K's own encoding (the port's container holds 0.75)
 TOL = 2e-2  # max|got - want| / max|want|, the JAX package's kernel-parity rule
 
-PHASES = ("build", "kernels", "serve", "batch", "profile", "parity")
+PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity")
 MODELS = {"A": "q4_k", "B": "q4_k_m"}  # main-path model -> make_llama_1b_gguf kind
 PARITY_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied")
 
@@ -319,6 +331,7 @@ def phase_kernels(torch, timer) -> dict:
         headline=cases4[2], cases=cases4,
     )
     results.update(_kernels_k5_k6(torch, timer, gen))
+    results.update(_kernels_k7(torch, timer, gen))
     return results
 
 
@@ -400,6 +413,82 @@ def _kernels_k5_k6(torch, timer, gen) -> dict:
     return results
 
 
+def _shuffled_tables(torch, b, n_p, n_pages, seed, device="cuda"):
+    """[b, n_p] int32 block tables: distinct page ids drawn without order
+    from 1 .. n_pages - 1 (page 0 is the sink), never contiguous runs."""
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed))[: b * n_p] + 1
+    return perm.view(b, n_p).to(torch.int32).to(device)
+
+
+def _sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _kernels_k7(torch, timer, gen) -> dict:
+    import torch.nn.functional as nnf
+
+    from nfai_tpu_torch.ops import fused_decode as fd
+    from nfai_tpu_torch.ops import paged_attention as pa
+
+    bf = torch.bfloat16
+    hq, hkv, d = 32, 8, 64
+    scale = d**-0.5
+    ragged = [1, 127, 128, 129, 500, 777, 1000, 1024]
+    # (label, B, page size, lengths); every case is checked per batch row
+    cases_in = (("B=8 ps=128 S=1024", 8, 128, [1024] * 8),
+                ("B=8 ps=128 ragged", 8, 128, ragged),
+                ("B=1 ps=128 len=512", 1, 128, [512]),
+                ("B=8 ps=16 S=1024", 8, 16, [1024] * 8),
+                ("B=8 ps=16 ragged", 8, 16, [1, 15, 16, 17, 500, 777, 1000, 1024]))
+    cases = []
+    for label, b, ps, lens in cases_in:
+        n_p = -(-max(lens) // ps)
+        n_pages = b * n_p + 16  # >= 80 pages at ps = 128
+        kp = torch.randn(hkv, n_pages, ps, d, device="cuda", dtype=bf, generator=gen)
+        vp = torch.randn(hkv, n_pages, ps, d, device="cuda", dtype=bf, generator=gen)
+        tables = _shuffled_tables(torch, b, n_p, n_pages, seed=len(cases))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(b, hq, d, device="cuda", dtype=bf, generator=gen)
+        got = pa.paged_decode_attention(q, kp, vp, tables, lengths, scale)
+        torch.cuda.synchronize()
+        err = check(f"K7 {label} lengths={lens}", got,
+                    pa.paged_decode_attention_plain(q, kp, vp, tables, lengths, scale), row_dims=1)
+        ms = timer(lambda: pa.paged_decode_attention(q, kp, vp, tables, lengths, scale))
+        plain_ms = timer(lambda: pa.paged_decode_attention_plain(q, kp, vp, tables, lengths, scale), iters=3)
+        s = n_p * ps
+        tl = tables.long()
+        mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None].long())[:, None, None, :]
+
+        def gather_sdpa():  # the yardstick: one page gather, then SDPA over the dense view
+            kg = kp[:, tl].view(hkv, b, s, d).transpose(0, 1)
+            vg = vp[:, tl].view(hkv, b, s, d).transpose(0, 1)
+            return nnf.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask,
+                                                    scale=scale, enable_gqa=True)
+
+        lib_ms = timer(gather_sdpa)
+        keys = sum(lens)
+        nbytes = 2 * (2 * b * hq * d) + 4 * (tables.numel() + b) + 2 * (2 * keys * hkv * d)
+        bb, by = bound_ms(nbytes, 4.0 * hq * d * keys)
+        # K2 at the same dense shape: lengths[b] - 1 cached tokens plus the folded-in new one
+        kc = torch.randn(b, max(lens), hkv * d, device="cuda", dtype=bf, generator=gen)
+        vc = torch.randn(b, max(lens), hkv * d, device="cuda", dtype=bf, generator=gen)
+        kn = torch.randn(b, hkv * d, device="cuda", dtype=bf, generator=gen)
+        starts = (lengths - 1).contiguous()
+        k2_ms = timer(lambda: fd.decode_attention(q, kn, kn, kc, vc, starts, scale))
+        cases.append(dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bb,
+                          bound_by=by, library_ms=lib_ms, library="page gather + SDPA",
+                          k2_same_shape_ms=k2_ms))
+        log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, "
+            f"page gather + SDPA {lib_ms:.4f}, K2 at the same dense shape {k2_ms:.4f})")
+        del kp, vp, kc, vc
+    return {"paged_attention": dict(
+        route="cuda", source="nfai_tpu_torch/csrc/paged_attention.cu",
+        replaces="nfai_tpu/ops/paged_attention.py:113", also_replaces=[],
+        headline=cases[0], cases=cases,
+    )}
+
+
 # ---------------------------------------------------------------------------
 # phases: serve, batch, parity
 
@@ -475,20 +564,24 @@ def phase_batch(torch, engine, kernels_mod) -> dict:
     return out
 
 
-def phase_profile(torch, engine, state) -> dict:
+def phase_profile(torch, engine, state, tables=None) -> dict:
     """Device busy share and per-kernel device time of 8 decode steps at
-    batch 8 (the wall clock includes the host's launch work)."""
+    batch 8 (the wall clock includes the host's launch work); through the
+    page pool when `tables` are given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from nfai_tpu_torch.models import decode_loop
+    from nfai_tpu_torch.models import decode_loop, paged_decode_loop
 
     tok, pos, cache, gen = state
     n = 8
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode_loop(engine.params, engine.model_cfg, tok, pos, cache, gen, n)
+        if tables is None:
+            decode_loop(engine.params, engine.model_cfg, tok, pos, cache, gen, n)
+        else:
+            paged_decode_loop(engine.params, engine.model_cfg, tok, pos, cache, tables, gen, n)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel: dict[str, float] = {}
@@ -559,18 +652,334 @@ def phase_parity(torch, path2, kind) -> dict:
                 torch.tensor([t - 1], device=dev),
                 KVCache.zeros(e.model_cfg, 1, 1152, e.cache_dtype, e.device))
         compare(f"prefill logits ({t} rows in one chunk: mlp_prefill)", logits)
+        _paged_parity(torch, engines, ids, compare)
     return {"max_rel_err": max(rels)}
+
+
+def _paged_parity(torch, engines, ids, compare) -> None:
+    """The same prompt and 4 teacher-forced steps through the page pool
+    (a shuffled 2-page table of a 12-page pool): K7 and K4 on the gathered
+    pages on the card against their plain versions on the CPU."""
+    from nfai_tpu_torch.models import decode_step, paged_prefill_step
+    from nfai_tpu_torch.runtime.paged_cache import PagedKVCache
+
+    perm = torch.randperm(11, generator=torch.Generator().manual_seed(2))[:2] + 1
+    logits, pools, tables = {}, {}, {}
+    n = len(ids)
+    for dev, e in engines.items():
+        tables[dev] = perm.view(1, 2).to(torch.int32).to(dev)
+        pools[dev] = PagedKVCache.zeros(e.model_cfg, 12, 128, e.cache_dtype, dev)
+        logits[dev], pools[dev] = paged_prefill_step(
+            e.params, e.model_cfg, torch.tensor([ids], device=dev), torch.arange(n, device=dev)[None],
+            torch.tensor([n - 1], device=dev), pools[dev], tables[dev])
+    compare(f"paged prefill logits ({n} tokens, table {perm.tolist()})", logits)
+    pos = n
+    for step, tok in enumerate((17, 99, 200, 42)):
+        for dev, e in engines.items():
+            logits[dev], pools[dev] = decode_step(
+                e.params, e.model_cfg, torch.tensor([tok], device=dev),
+                torch.tensor([pos], device=dev), pools[dev], page_tables=tables[dev])
+        compare(f"paged decode step {step} logits", logits)
+        pos += 1
+
+
+def _pcts(xs) -> dict:
+    xs = sorted(xs)
+    at = lambda f: xs[min(len(xs) - 1, int(f * len(xs)))]  # noqa: E731
+    return dict(p50=at(0.5), p90=at(0.9), max=xs[-1])
+
+
+def _server_parity(torch, engine, kernels_mod) -> dict:
+    """Paged vs dense forwards on the card, outside the main-path window:
+    a 300-token prefill through a shuffled table (paged_prefill_step)
+    against prefill_step, then 4 rows of ragged length (prefilled with
+    paged_prefill_step / prefill_slot_step) decode 8 teacher-forced steps at
+    batch 4 through one-step paged decodes and dense decode_step; every
+    paged step must launch K7 exactly once per layer.
+
+    Model A's MLP is K5, whose f32 atomics sum in another order on every
+    run, so two identical dense runs of the 16 layers differ by about as
+    much as the tolerance (measured here: `k5_dense_noise`). The check is
+    therefore made with A's weights on the two-K1 MLP route, which is
+    deterministic: K4 sees the same bytes on both sides, and K7 walks keys
+    in K2's order, so paged and dense must agree well inside 2e-2 (exactly,
+    by design). The K5 route's paged-vs-dense error is reported beside its
+    noise floor."""
+    from nfai_tpu_torch.models import (
+        KVCache, decode_step, paged_prefill_step, prefill_slot_step, prefill_step,
+    )
+    from nfai_tpu_torch.ops.paged_attention import K7
+    from nfai_tpu_torch.runtime.paged_cache import PagedKVCache
+
+    cfg, dev = engine.model_cfg, engine.device
+    params = dict(engine.params, fused_mlp=False)  # the deterministic route (see above)
+    ps, n_p, lens = 128, 8, [300, 137, 77, 255]
+    pool = PagedKVCache.zeros(cfg, len(lens) * n_p + 9, ps, engine.cache_dtype, dev)
+    tables = _shuffled_tables(torch, len(lens), n_p, pool.n_pages, seed=7, device=dev)
+    dense = KVCache.zeros(cfg, len(lens), n_p * ps, engine.cache_dtype, dev)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, 1000, (1, n), generator=gen).to(dev) for n in lens]
+    rels = []
+
+    def prefill_args(i):
+        n = lens[i]
+        return (prompts[i], torch.arange(n, device=dev)[None], torch.tensor([n - 1], device=dev))
+
+    for i in range(len(lens)):
+        lp, pool = paged_prefill_step(params, cfg, *prefill_args(i), pool, tables[i:i + 1])
+        ld, dense = prefill_slot_step(params, cfg, *prefill_args(i), dense, i)
+        if i == 0:
+            ref, _ = prefill_step(params, cfg, *prefill_args(0),
+                                  KVCache.zeros(cfg, 1, n_p * ps, engine.cache_dtype, dev))
+            check("paged vs dense prefill logits (300 tokens, shuffled table)", lp, ref)
+            check("prefill_slot_step vs prefill_step logits (300 tokens)", ld, ref)
+            rels += [errors(lp, ref)[1], errors(ld, ref)[1]]
+    positions = torch.tensor(lens, device=dev)
+    for step in range(8):
+        toks = torch.randint(0, 1000, (len(lens),), generator=gen).to(dev)
+        before = K7.launches
+        lp, pool = decode_step(params, cfg, toks, positions, pool, page_tables=tables)
+        if K7.launches - before != cfg.n_layers:
+            raise AssertionError(f"a paged decode step launched K7 {K7.launches - before} times, "
+                                 f"not once per layer ({cfg.n_layers})")
+        ld, dense = decode_step(params, cfg, toks, positions, dense)
+        check(f"paged vs dense decode step {step} logits (batch 4, positions "
+              f"{positions.tolist()})", lp, ld, row_dims=1)
+        rels.append(errors(lp, ld, row_dims=1)[1])
+        positions = positions + 1
+    # the K5 route: paged vs dense, and the same dense prefill twice
+    k5 = engine.params
+    fresh = lambda: KVCache.zeros(cfg, 1, n_p * ps, engine.cache_dtype, dev)  # noqa: E731
+    d1, _ = prefill_step(k5, cfg, *prefill_args(0), fresh())
+    d2, _ = prefill_step(k5, cfg, *prefill_args(0), fresh())
+    pool.k.zero_()
+    pool.v.zero_()
+    p1, _ = paged_prefill_step(k5, cfg, *prefill_args(0), pool, tables[:1])
+    out = {"max_rel_err": max(rels), "k5_paged_vs_dense": errors(p1, d1)[1],
+           "k5_dense_noise": errors(d2, d1)[1]}
+    log(f"  K5 route, 300-token prefill: paged vs dense rel {out['k5_paged_vs_dense']:.3e}, two "
+        f"dense runs rel {out['k5_dense_noise']:.3e} (K5's atomics); not checked")
+    return out
+
+
+def _paged_decode_timing(torch, engine, kernels_mod) -> dict:
+    """Batch-8 paged decode as the batch phase runs dense decode (positions
+    from 128, 64 steps, pool pages filled at random), then 8 steps under
+    the profiler; outside the main-path window."""
+    from nfai_tpu_torch.models import paged_decode_loop
+    from nfai_tpu_torch.runtime.paged_cache import PagedKVCache
+
+    cfg, b, n, ps, dev = engine.model_cfg, 8, 64, 128, engine.device
+    pool = PagedKVCache.zeros(cfg, b * 8 + 9, ps, engine.cache_dtype, dev)
+    pool.k.normal_(0, 0.5)
+    pool.v.normal_(0, 0.5)
+    tables = _shuffled_tables(torch, b, 8, pool.n_pages, seed=11, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tok = torch.randint(0, 1000, (b,), device=dev, generator=gen)
+    pos = torch.full((b,), 128, device=dev)
+    paged_decode_loop(engine.params, cfg, tok, pos, pool, tables, gen, 2)  # warm-up
+    _sync(torch)
+    before = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
+    t0 = time.perf_counter()
+    paged_decode_loop(engine.params, cfg, tok, pos, pool, tables, gen, n)
+    _sync(torch)
+    dec_s = time.perf_counter() - t0
+    per_step = {k.name: (k.launches - before[k.name]) / n for k in kernels_mod.KERNELS.values()}
+    if per_step["paged_attention"] != cfg.n_layers:
+        raise AssertionError(f"paged decode chunk: {per_step['paged_attention']} K7 launches per "
+                             f"step, not one per layer ({cfg.n_layers})")
+    log(f"  paged batch {b}, positions 128..{128 + n}: {dec_s / n * 1e3:.2f} ms/step, "
+        f"{b * n / dec_s:.1f} tok/s; launches per step {per_step}")
+    prof = phase_profile(torch, engine, (tok, pos, pool, gen), tables=tables)
+    del pool
+    return dict(decode_ms_per_step=dec_s / n * 1e3, decode_tok_s=b * n / dec_s,
+                launches_per_step=per_step, profile=prof)
+
+
+def _drive(be, reqs, max_steps=5000):
+    from nfai_tpu_torch.runtime.scheduler import RequestState
+
+    for _ in range(max_steps):
+        if be.step() == 0 and be.queue.empty() and not be._parked:
+            break
+    bad = [r.id for r in reqs if r.state != RequestState.FINISHED]
+    if bad:
+        raise AssertionError(f"requests {bad} did not finish")
+
+
+def _batch_engine_run(torch, engine) -> dict:
+    """16 requests at once on a paged BatchEngine (max_batch 8, chunk 8):
+    8 share a 300-token prefix (2 full pages) with tails of 20-200 tokens,
+    8 are distinct (30-700 tokens, one of them 3 prefill chunks); half
+    greedy, half temperature 0.8 with top_k 20 or 40 and top_p 0.95."""
+    from nfai_tpu_torch.config import SamplingParams
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine
+
+    rng = torch.Generator().manual_seed(5)
+    ids = lambda n: torch.randint(0, 1000, (n,), generator=rng).tolist()  # noqa: E731
+    prefix = ids(300)
+    shared = [prefix + ids(t) for t in (20, 45, 70, 95, 120, 150, 175, 200)]
+    distinct = [ids(n) for n in (30, 90, 150, 230, 310, 420, 512, 700)]
+    prompts = [shared[0]] + distinct + shared[1:]  # the prefix is published before its sharers arrive
+    sampling = [SamplingParams(temperature=0.0, max_new_tokens=64) if i % 2 == 0 else
+                SamplingParams(temperature=0.8, top_k=(20, 40)[i // 2 % 2], top_p=0.95,
+                               max_new_tokens=64) for i in range(len(prompts))]
+    be = BatchEngine(engine, max_batch=8, decode_chunk=8, paged=True)
+    _sync(torch)
+    t0 = time.perf_counter()
+    reqs = [be.submit(p, s) for p, s in zip(prompts, sampling)]
+    _drive(be, reqs)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    n_out = sum(len(r.output_ids) for r in reqs)
+    ttft = _pcts([r.ttft_s * 1e3 for r in reqs])
+    out = dict(requests=len(reqs), prompt_tokens=sum(map(len, prompts)), new_tokens=n_out,
+               wall_s=wall, tok_s=n_out / wall, ttft_ms=ttft, prefix_hits=be.alloc.hits,
+               prefix_misses=be.alloc.misses, pool_mb=be.cache.nbytes / 1e6,
+               preemptions=be.preemptions)
+    log(f"  BatchEngine: {len(reqs)} requests, {out['prompt_tokens']} prompt tokens, {n_out} new "
+        f"in {wall:.2f} s = {n_out / wall:.1f} tok/s aggregate; TTFT p50 {ttft['p50']:.1f} / "
+        f"p90 {ttft['p90']:.1f} / max {ttft['max']:.1f} ms; prefix hits {be.alloc.hits}, misses "
+        f"{be.alloc.misses}; pool {out['pool_mb']:.1f} MB; preemptions {be.preemptions}")
+    if be.alloc.hits <= 0:
+        raise AssertionError("no prefix-cache hit")
+    if any(not 0 < len(r.output_ids) <= 64 for r in reqs):
+        raise AssertionError(f"output lengths {[len(r.output_ids) for r in reqs]}")
+    del be
+    return out
+
+
+def _preemption_run(torch, engine) -> dict:
+    """A pool that admits 8 prompts of 240-250 tokens (2 pages each, 16
+    pages) but cannot grow them all to 314 tokens (24 pages): the youngest
+    are preempted and recomputed; every request must still finish."""
+    from nfai_tpu_torch.config import SamplingParams
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine
+
+    rng = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, 1000, (240 + i,), generator=rng).tolist() for i in range(8)]
+    be = BatchEngine(engine, max_batch=8, decode_chunk=8, paged=True, pool_tokens=2048)
+    t0 = time.perf_counter()
+    reqs = [be.submit(p, SamplingParams(temperature=0.0, max_new_tokens=64)) for p in prompts]
+    _drive(be, reqs)
+    wall = time.perf_counter() - t0
+    lens = [len(r.output_ids) for r in reqs]
+    log(f"  preemption: pool {be.alloc.n_pages} pages, {be.preemptions} preemptions, outputs {lens}, "
+        f"{wall:.2f} s")
+    if be.preemptions < 1:
+        raise AssertionError("the starved pool preempted nothing")
+    if any(not 0 < n <= 64 for n in lens):
+        raise AssertionError(f"output lengths {lens}")
+    return dict(preemptions=be.preemptions, output_lengths=lens, wall_s=wall,
+                full_length=sum(n == 64 for n in lens))
+
+
+def _http_run(torch, engine) -> dict:
+    """ServerState + make_handler on the same engine (127.0.0.1, port 0): 8
+    concurrent requests from threads, 4 SSE chat, 3 blocking chat, 1
+    /v1/completions; TTFT is the time to the first SSE chunk."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine
+    from nfai_tpu_torch.server import ServerState, make_handler
+
+    batch = BatchEngine(engine, max_batch=8, decode_chunk=8)
+    batch.start()
+    state = ServerState(engine, batch)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    srv = threading.Thread(target=httpd.serve_forever, daemon=True)
+    srv.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results, errs = {}, []
+
+    def hit(i):
+        stream = i < 4
+        path, body = ("/v1/completions", {"prompt": f"Request {i}: count to ten."}) if i == 7 else (
+            "/v1/chat/completions", {"messages": [{"role": "user", "content": f"Request {i}: hello"}]})
+        body.update(temperature=0, max_tokens=32, stream=stream)
+        req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                if not stream:
+                    obj = json.loads(r.read())
+                    c = obj["choices"][0]
+                    results[i] = dict(code=r.status, text=c.get("text", c.get("message", {}).get("content")))
+                    return
+                events, first = [], None
+                for line in r:
+                    line = line.decode().strip()
+                    if line.startswith("data: "):
+                        if first is None:
+                            first = time.perf_counter() - t0
+                        events.append(line[6:])
+                text = "".join(json.loads(e)["choices"][0]["delta"].get("content", "")
+                               for e in events[:-1])
+                results[i] = dict(code=r.status, text=text, done=events[-1] == "[DONE]",
+                                  ttft_ms=first * 1e3)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errs.append(f"request {i}: {e!r}")
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batch.close()
+    if errs or len(results) != 8:
+        raise AssertionError(f"HTTP requests failed: {errs or sorted(results)}")
+    if any(r["code"] != 200 or not r["text"] for r in results.values()):
+        raise AssertionError(f"HTTP results: {results}")
+    if not all(results[i]["done"] for i in range(4)):
+        raise AssertionError("an SSE stream did not end in [DONE]")
+    if health["requests_served"] != 8:
+        raise AssertionError(f"/healthz reports {health['requests_served']} requests served")
+    ttft = _pcts([results[i]["ttft_ms"] for i in range(4)])
+    log(f"  HTTP: 8 concurrent requests (4 SSE, 3 blocking chat, 1 completion) all 200 in "
+        f"{wall:.2f} s; SSE TTFT p50 {ttft['p50']:.1f} / max {ttft['max']:.1f} ms; /healthz "
+        f"{health['requests_served']} served")
+    return dict(wall_s=wall, sse_ttft_ms=ttft, chars=[len(results[i]["text"]) for i in range(8)])
+
+
+def phase_server(torch, engine, kernels_mod) -> tuple[dict, dict]:
+    """The continuous-batching path on model A's engine. Returns (results,
+    the launch counts of its main-path window)."""
+    out = dict(paged_vs_dense=_server_parity(torch, engine, kernels_mod),
+               paged_decode=_paged_decode_timing(torch, engine, kernels_mod))
+    kernels_mod.reset_launches()
+    out["batch_engine"] = _batch_engine_run(torch, engine)
+    out["preemption"] = _preemption_run(torch, engine)
+    out["http"] = _http_run(torch, engine)
+    launches = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
+    log(f"  server main-path launches: {launches}")
+    must, must_not = ROUTES["server"]
+    if any(launches[name] <= 0 for name in must) or any(launches[n] != 0 for n in must_not):
+        raise AssertionError(f"the server path did not take its route: {launches}")
+    return out, launches
 
 
 # ---------------------------------------------------------------------------
 
 
-# kernels each main-path model must launch, and the one its route must not
+# kernels each main path must launch, and those its route must not
 ROUTES = {
     "A": ({"q4_matmul", "decode_attention", "kv_write", "prefill_attention", "fused_mlp"},
-          "q8_matmul"),
+          {"q8_matmul", "paged_attention"}),
     "B": ({"q4_matmul", "decode_attention", "kv_write", "prefill_attention", "q8_matmul"},
-          "fused_mlp"),
+          {"fused_mlp", "paged_attention"}),
+    "server": ({"q4_matmul", "paged_attention", "prefill_attention", "fused_mlp"},
+               {"decode_attention", "kv_write", "q8_matmul"}),
 }
 
 
@@ -605,7 +1014,7 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
     launches = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
     log(f"  model {label} main-path launches: {launches}")
     must, must_not = ROUTES[label]
-    if any(launches[name] <= 0 for name in must) or launches[must_not] != 0:
+    if any(launches[name] <= 0 for name in must) or any(launches[n] != 0 for n in must_not):
         raise AssertionError(f"model {label} did not take its route: {launches}")
     if "batch" in out:
         per_step = out["batch"]["launches_per_step"]
@@ -616,10 +1025,15 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
         if label == "B" and not per_step["q8_matmul"] > 0:
             raise AssertionError("model B: no K6 launch in a decode step")
     summary[f"model {label}"] = out
+    by_path = {label: launches}
+    if label == "A" and "server" in only:  # on the engine already loaded
+        t0 = time.perf_counter()
+        summary["server"], by_path["server"] = phase_server(torch, engine, kernels_mod)
+        phase_s["server"] = time.perf_counter() - t0
     del served, engine
     os.remove(path)
     torch.cuda.empty_cache()
-    return launches
+    return by_path
 
 
 def main(argv=None) -> int:
@@ -657,10 +1071,11 @@ def main(argv=None) -> int:
             phase_s["kernels"] = time.perf_counter() - t0
         launches = None
         if "serve" in only or "batch" in only:
-            by_model = {label: main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s)
-                        for label, kind in MODELS.items()}
-            launches = {name: sum(m[name] for m in by_model.values()) for name in kernels_mod.KERNELS}
-            summary["launches_by_model"] = by_model
+            by_path = {}
+            for label, kind in MODELS.items():
+                by_path.update(main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s))
+            launches = {name: sum(m[name] for m in by_path.values()) for name in kernels_mod.KERNELS}
+            summary["launches_by_path"] = by_path
         if "parity" in only:
             t0 = time.perf_counter()
             summary["parity"] = {}
@@ -685,7 +1100,8 @@ def main(argv=None) -> int:
                     max_abs_err=h["max_abs_err"], ms=h["ms"], plain_ms=h["plain_ms"],
                     bound_ms=h["bound_ms"], bound_by=h["bound_by"],
                     library_ms=h["library_ms"], shape=h["shape"],
-                    **{key: h[key] for key in ("bound_gguf_ms", "replaced_route_ms") if key in h},
+                    **{key: h[key] for key in ("bound_gguf_ms", "replaced_route_ms", "library",
+                                               "k2_same_shape_ms") if key in h},
                 ))
             log(json.dumps({"kernels": rows}))
     finally:

@@ -111,3 +111,17 @@ class EngineConfig:
     # unchanged local grouped kernel + one psum (parallel.expert_parallel)
     expert_parallel: bool = False
     system_prompt: str = "You are a helpful assistant."
+
+
+def check_sampling(s: SamplingParams) -> None:
+    """Raise NotImplementedError, naming them, for the sampling options the
+    port does not run yet (the engine and the BatchEngine both refuse them)."""
+    unported = {
+        "constrained decoding": s.constrained,
+        "logprobs": s.logprobs is not None,
+        "penalties": s.has_penalties,
+        "logit_bias": bool(s.logit_bias),
+    }
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(f"sampling options not ported yet: {bad}")

@@ -1,0 +1,204 @@
+// K7: paged decode attention. One new token per row attends the keys of its
+//     sequence, which live in a shared page pool and are found through the
+//     row's block table (the row's own K/V were written before the call).
+//
+//   out[b, h*r + j, :] = softmax_s(q[b, h*r+j] . k_s * scale) @ v_s
+//   over s < lengths[b], where key s of row b is slot s % ps of page
+//   tables[b, s / ps] in the layer's pool [Hkv, P, ps, D] (kv head h).
+//
+// Replaces nfai_tpu/ops/paged_attention.py::paged_flash_decode_attention
+// (_paged_kernel), bf16 pool without softcap or sliding window; the int8
+// pool and those options raise in the wrapper.
+//
+// What bounds it on an H100: bytes. Every valid key and value row of a
+// sequence is read once (2 * lengths[b] * D * 2 bytes per kv head); the
+// arithmetic is ~4 flops per byte, far under the card's ~295 flops/byte
+// ridge.
+//
+// Design: one block per (kv head, batch row); the r = Hq/Hkv query heads of
+// the group share each K/V load (GQA). The TPU kernel walks the pages as a
+// sequential grid axis, with the page id prefetched as a scalar into the
+// BlockSpec index map and pages past the length skipped; here a block walks
+// only the tiles below lengths[b] (the same page skip) and loads its own
+// row of the table. Sixteen warps take 32-key tiles in turn. In a tile each
+// lane owns one key: it looks up the key's page in the table, reads the
+// key's 128-byte head row and computes the r scores against the scaled
+// queries kept in shared memory; the warp runs the online-softmax update,
+// and for P @ V lane l owns dims (2l, 2l+1) and reads each value row (its
+// pool offset shuffled from the lane that owns the key) as one coalesced
+// 128-byte line. Keys past lengths[b] (the ragged last page) are masked.
+// The sixteen warps' (max, sum, acc) states merge through shared memory.
+// D = 64, r <= 8, any page size. Page ids outside [0, P) are clamped into
+// the pool, as XLA clamps a gather index. A split over S for small
+// B * Hkv (flash-decoding) is later work.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int D = 64;
+constexpr int WARPS = 16;
+constexpr float NEG = -1e30f;
+
+__device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(WARPS * 32)
+paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
+                  const __nv_bfloat16* __restrict__ kp,  // [Hkv, P, ps, D]
+                  const __nv_bfloat16* __restrict__ vp,
+                  const int* __restrict__ tables,        // [B, max_pages]
+                  const int* __restrict__ lengths,       // [B]
+                  __nv_bfloat16* __restrict__ out,       // [B, Hq, D]
+                  int n_pages, int ps, int max_pages, int hkv, float scale) {
+  __shared__ float qs[R][D];
+  __shared__ float wm_s[WARPS][R], wl_s[WARPS][R];
+  __shared__ float wacc[WARPS][R][D];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hq = hkv * R;
+  for (int e = tid; e < R * D; e += WARPS * 32) {
+    const int j = e / D, d = e % D;
+    qs[j][d] = __bfloat162float(q[((size_t)b * hq + h * R + j) * D + d]) * scale;
+  }
+  __syncthreads();
+
+  const int cap = max_pages * ps;
+  int len = lengths[b];
+  len = len < 0 ? 0 : (len > cap ? cap : len);
+  const int n_tiles = (len + 31) / 32;
+  const int* trow = tables + (size_t)b * max_pages;
+  const size_t head_rows = (size_t)h * n_pages * ps;  // first pool row of kv head h
+
+  float m_run[R], l_run[R], acc[R][2];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    m_run[j] = NEG;
+    l_run[j] = 0.f;
+    acc[j][0] = acc[j][1] = 0.f;
+  }
+
+  for (int t = warp; t < n_tiles; t += WARPS) {
+    const int s = t * 32 + lane;
+    const bool valid = s < len;
+    int row = 0;  // the key's row within kv head h's [P * ps] pool rows
+    float sc[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) sc[j] = 0.f;
+    if (valid) {
+      int page = __ldg(trow + s / ps);
+      page = page < 0 ? 0 : (page >= n_pages ? n_pages - 1 : page);
+      row = page * ps + s % ps;
+      const uint4* k4 = reinterpret_cast<const uint4*>(kp + (head_rows + row) * D);
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        float kf[8];
+        bf16x8(__ldg(k4 + c), kf);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          float a = sc[j];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) a = fmaf(qs[j][c * 8 + i], kf[i], a);
+          sc[j] = a;
+        }
+      }
+    }
+    float p[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float mx = valid ? sc[j] : NEG;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run[j], mx);
+      const float corr = __expf(m_run[j] - m_new);
+      p[j] = valid ? __expf(sc[j] - m_new) : 0.f;
+      float psum = p[j];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      l_run[j] = l_run[j] * corr + psum;
+      acc[j][0] *= corr;
+      acc[j][1] *= corr;
+      m_run[j] = m_new;
+    }
+    const int n_in = min(32, len - t * 32);
+    for (int i = 0; i < n_in; ++i) {
+      const int row_i = __shfl_sync(0xffffffffu, row, i);
+      const __nv_bfloat162 v2 =
+          reinterpret_cast<const __nv_bfloat162*>(vp + (head_rows + row_i) * D)[lane];
+      const float v0 = __low2float(v2), v1 = __high2float(v2);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p[j], i);
+        acc[j][0] = fmaf(pj, v0, acc[j][0]);
+        acc[j][1] = fmaf(pj, v1, acc[j][1]);
+      }
+    }
+  }
+
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      wm_s[warp][j] = m_run[j];
+      wl_s[warp][j] = l_run[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    wacc[warp][j][2 * lane] = acc[j][0];
+    wacc[warp][j][2 * lane + 1] = acc[j][1];
+  }
+  __syncthreads();
+  for (int e = tid; e < R * D; e += WARPS * 32) {
+    const int j = e / D, d = e % D;
+    float mx = NEG;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm_s[w][j]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = __expf(wm_s[w][j] - mx);
+      num += wacc[w][j][d] * f;
+      den += wl_s[w][j] * f;
+    }
+    out[((size_t)b * hq + h * R + j) * D + d] = __float2bfloat16(num / fmaxf(den, 1e-30f));
+  }
+}
+
+}  // namespace
+
+// q [B, Hq, 64] bf16, kp/vp [Hkv, P, ps, 64] bf16 (one layer's pool),
+// tables [B, max_pages] int32, lengths [B] int32, out [B, Hq, 64] bf16.
+// r = Hq/Hkv in {1, 2, 4, 8}.
+extern "C" int nfai_paged_attention(const void* q, const void* kp,
+                                    const void* vp, const void* tables,
+                                    const void* lengths, void* out, int B,
+                                    int hkv, int r, int n_pages, int ps,
+                                    int max_pages, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(hkv, B), block(WARPS * 32);
+#define NFAI_LAUNCH(RR)                                                        \
+  paged_attn_kernel<RR><<<grid, block, 0, st>>>(                               \
+      static_cast<const __nv_bfloat16*>(q),                                    \
+      static_cast<const __nv_bfloat16*>(kp),                                   \
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(tables), \
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),      \
+      n_pages, ps, max_pages, hkv, scale)
+  switch (r) {
+    case 1: NFAI_LAUNCH(1); break;
+    case 2: NFAI_LAUNCH(2); break;
+    case 4: NFAI_LAUNCH(4); break;
+    case 8: NFAI_LAUNCH(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef NFAI_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}

@@ -138,7 +138,9 @@ def register(kernel: Kernel) -> Kernel:
 def build_all(verbose: bool = False) -> dict[str, str]:
     """Build every registered kernel (the ops modules register theirs when
     imported)."""
-    from .ops import fused_decode, fused_mlp, prefill_attention, qmatmul  # noqa: F401
+    from .ops import (  # noqa: F401
+        fused_decode, fused_mlp, paged_attention, prefill_attention, qmatmul,
+    )
 
     return build(list(KERNELS.values()), verbose=verbose)
 

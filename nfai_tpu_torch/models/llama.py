@@ -17,6 +17,14 @@ a decode step (T == 1) attends with K2, which folds the new token in, and
 writes all layers' new K/V rows after the layer loop with one K3 launch per
 cache (ops.fused_decode).
 
+With block tables (`page_tables`) the cache is the continuous-batching
+page pool (runtime.paged_cache): every layer first writes its roped K and
+V through the tables (`write_paged`'s scatter), then a decode step attends
+with K7 (ops.paged_attention) and a prefill chunk with K4 over the dense
+view of the row's pages (`_gather_pages`). `paged_prefill_step`,
+`paged_decode_loop` and `prefill_slot_step` (one slot of the dense batched
+cache) serve the BatchEngine.
+
 The JAX package scans over layer-stacked weights; here the loop over layers
 is plain Python and each layer's weight is a view of the stacked tensor (or
 its own container, where a stack mixes kinds). The cache is updated in
@@ -42,6 +50,7 @@ from ..ops.fused_mlp import (
     MLP_FUSED_MAX_ROWS, fused_mlp_layered, mlp_eligible, mlp_prefill,
 )
 from ..ops.norms import rms_norm
+from ..ops.paged_attention import gather_pages, paged_decode_attention
 from ..ops.prefill_attention import flash_prefill_attention
 from ..ops.qmatmul import linear, linear_layered
 from ..ops.qtensor import (
@@ -53,6 +62,7 @@ from ..ops.rope import (
     rope_cos_sin,
 )
 from ..ops.sampling import sample_logits
+from ..runtime.paged_cache import PagedKVCache, flat_slots, scatter_rows
 
 
 @dataclass(frozen=True)
@@ -343,10 +353,14 @@ def _mlp(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torch.T
 
 
 def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
-            positions: torch.Tensor, cache: KVCache):
+            positions: torch.Tensor, cache, page_tables: torch.Tensor | None = None):
     """Run the stack over tokens/positions [B, T]; returns (hidden [B, T, H]
-    after the final norm, cache updated in place). T == 1 takes the decode
-    path (K2 + K3), T > 1 the prefill path (cache write + K4)."""
+    after the final norm, cache updated in place). On the dense `KVCache`,
+    T == 1 takes the decode path (K2 + K3), T > 1 the prefill path (cache
+    write + K4). With `page_tables` [B, max_pages] int32 the cache is a
+    `PagedKVCache` pool (`_paged_forward`)."""
+    if page_tables is not None:
+        return _paged_forward(params, cfg, tokens, positions, cache, page_tables)
     if tokens.shape[1] == 1:
         return _decode_forward(params, cfg, tokens, positions, cache)
     b, t = tokens.shape
@@ -408,6 +422,58 @@ def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     return rms_norm(h, params["final_norm"], cfg.rms_eps), cache
 
 
+def _gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """One layer's pool [Hkv, P, ps, D] + tables [B, NP] → the dense
+    merged-lane [B, NP*ps, Hkv*D] view of each row's pages (a copy of the
+    whole table width, as the JAX package gathers it)."""
+    hkv, b, s, d = (g := gather_pages(pages, tables)).shape
+    return g.permute(1, 2, 0, 3).reshape(b, s, hkv * d)
+
+
+def _paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                     tables: torch.Tensor, first: torch.Tensor, scale: float) -> torch.Tensor:
+    """Attention of new tokens q [B, T, Hq, D] against one layer's pool
+    (their K/V already written). T == 1: K7 over the tables, `first` the
+    lengths (positions[:, 0] + 1, int32). T > 1: K4 over the gathered dense
+    view at offsets `first` (positions[:, 0], int32)."""
+    b, t, hq, d = q.shape
+    if t == 1:
+        return paged_decode_attention(q[:, 0], k_pages, v_pages, tables, first, scale)[:, None]
+    span = tables.shape[1] * k_pages.shape[2]
+    if span % 64:
+        raise ValueError(f"a block table spans {span} positions; the prefill attention "
+                         "kernel needs a multiple of 64 (its key tile)")
+    kd, vd = _gather_pages(k_pages, tables), _gather_pages(v_pages, tables)
+    return flash_prefill_attention(q.contiguous(), kd, vd, first, scale=scale)
+
+
+def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
+                   positions: torch.Tensor, pool: PagedKVCache, tables: torch.Tensor):
+    """`forward` over the page pool: per layer, the roped K and V rows are
+    scattered through the tables, then `_paged_attention` runs."""
+    b, t = tokens.shape
+    lp = params["layers"]
+    h = _embed(params, tokens)
+    act = h.dtype
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cos, sin = rope_cos_sin(positions, params["inv_freq"])
+    flat = flat_slots(tables, positions, pool.page_size)  # once for every layer's writes
+    first = positions[:, 0].to(torch.int32)
+    first = (first + 1 if t == 1 else first).contiguous()
+    for layer in range(cfg.n_layers):
+        x = rms_norm(h, lp["attn_norm"][layer], cfg.rms_eps)
+        q, k, v = _qkv(lp, x, layer, hq * hd, hkv * hd)
+        q = apply_rope_cs(q.reshape(b, t, hq, hd), cos, sin, neox=True).to(act)
+        k = apply_rope_cs(k.reshape(b, t, hkv, hd), cos, sin, neox=True)
+        scatter_rows(pool.k[layer], k, flat)
+        scatter_rows(pool.v[layer], v.reshape(b, t, hkv, hd), flat)
+        attn = _paged_attention(q, pool.k[layer], pool.v[layer], tables, first, cfg.query_scale)
+        h = (h + linear_layered(attn.reshape(b, t, hq * hd), lp["wo"], layer)).to(act)
+        x = rms_norm(h, lp["ffn_norm"][layer], cfg.rms_eps)
+        h = (h + _mlp(params, cfg, x, layer)).to(act)
+    return rms_norm(h, params["final_norm"], cfg.rms_eps), pool
+
+
 def logits_for(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     """LM head (K1 or K6; the tied table for a tied checkpoint) → f32 logits."""
     return linear(hidden, params["lm_head"]).float()
@@ -427,30 +493,82 @@ def prefill_step(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 
 @torch.inference_mode()
 def decode_step(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
-                positions: torch.Tensor, cache: KVCache):
-    """One token [B] at positions [B] for every row; returns ([B, V] logits,
-    cache)."""
-    h, cache = forward(params, cfg, tokens[:, None], positions[:, None], cache)
+                positions: torch.Tensor, cache, page_tables: torch.Tensor | None = None):
+    """One token [B] at positions [B] for every row (through `page_tables`
+    on a page pool); returns ([B, V] logits, cache)."""
+    h, cache = forward(params, cfg, tokens[:, None], positions[:, None], cache, page_tables)
     return logits_for(params, h[:, 0]), cache
+
+
+def _decode_chunk(params, cfg, tok, pos, cache, page_tables, generator, n_steps,
+                  temperature, top_k, top_p, min_p, active, top_k_rows):
+    out = []
+    for _ in range(n_steps):
+        logits, cache = decode_step(params, cfg, tok, pos, cache, page_tables)
+        nxt = sample_logits(logits, generator, temperature, top_k, top_p,
+                            min_p=min_p, top_k_rows=top_k_rows).to(tok.dtype)
+        out.append(tok)
+        if active is None:
+            tok, pos = nxt, pos + 1
+        else:  # frozen rows keep their token and never advance
+            tok, pos = torch.where(active, nxt, tok), torch.where(active, pos + 1, pos)
+    return torch.stack(out, dim=1), tok, cache, generator
 
 
 @torch.inference_mode()
 def decode_loop(params: dict, cfg: LlamaConfig, first_tokens: torch.Tensor,
                 start_pos: torch.Tensor, cache: KVCache,
                 generator: torch.Generator | None, n_steps: int,
-                temperature: float = 0.0, top_k: int = 40, top_p: float = 0.95,
-                min_p: float = 0.0):
+                temperature=0.0, top_k: int = 40, top_p=0.95, min_p=0.0,
+                active: torch.Tensor | None = None,
+                top_k_rows: torch.Tensor | None = None):
     """Generate `n_steps` tokens on the device without a host sync per token.
 
-    Returns (tokens [B, n_steps], next_tokens [B], cache, generator): every
-    emitted token has its K/V written; `next_tokens` is sampled but not yet
-    fed through the model (the JAX `decode_loop` contract)."""
-    tok, pos = first_tokens, start_pos
-    out = []
-    for _ in range(n_steps):
-        logits, cache = decode_step(params, cfg, tok, pos, cache)
-        nxt = sample_logits(logits, generator, temperature, top_k, top_p,
-                            min_p=min_p).to(tok.dtype)
-        out.append(tok)
-        tok, pos = nxt, pos + 1
-    return torch.stack(out, dim=1), tok, cache, generator
+    temperature, top_p and min_p are scalars or per-row [B]; `top_k_rows`
+    [B] is a per-row top-k inside the `top_k` window; a row whose `active`
+    [B] entry is False neither advances nor changes its token. Returns
+    (tokens [B, n_steps], next_tokens [B], cache, generator): every emitted
+    token has its K/V written; `next_tokens` is sampled but not yet fed
+    through the model (the JAX `decode_loop` contract)."""
+    return _decode_chunk(params, cfg, first_tokens, start_pos, cache, None, generator,
+                         n_steps, temperature, top_k, top_p, min_p, active, top_k_rows)
+
+
+@torch.inference_mode()
+def paged_decode_loop(params: dict, cfg: LlamaConfig, first_tokens: torch.Tensor,
+                      start_pos: torch.Tensor, cache: PagedKVCache, tables: torch.Tensor,
+                      generator: torch.Generator | None, n_steps: int,
+                      temperature=0.0, top_k: int = 40, top_p=0.95, min_p=0.0,
+                      active: torch.Tensor | None = None,
+                      top_k_rows: torch.Tensor | None = None):
+    """`decode_loop` over the page pool: K/V rows are scattered through the
+    block tables [B, max_pages] int32 (sent once per chunk) and every layer
+    attends with K7. Same returns and sampling arguments as `decode_loop`."""
+    return _decode_chunk(params, cfg, first_tokens, start_pos, cache, tables, generator,
+                         n_steps, temperature, top_k, top_p, min_p, active, top_k_rows)
+
+
+@torch.inference_mode()
+def paged_prefill_step(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
+                       positions: torch.Tensor, last_index: torch.Tensor,
+                       cache: PagedKVCache, tables: torch.Tensor):
+    """Prefill one sequence's (padded) chunk [1, T] through its block table
+    [1, max_pages]; returns (logits [1, V] at the chunk's last real token,
+    the pool, updated in place). The table isolates the slot's pages."""
+    h, cache = forward(params, cfg, tokens, positions, cache, page_tables=tables)
+    rows = torch.arange(h.shape[0], device=h.device)
+    return logits_for(params, h[rows, last_index.long().to(h.device)]), cache
+
+
+@torch.inference_mode()
+def prefill_slot_step(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
+                      positions: torch.Tensor, last_index: torch.Tensor,
+                      cache: KVCache, slot: int):
+    """Prefill one sequence's chunk [1, T] into batch slot `slot` of a dense
+    batched cache [L, B, S, KVD]: the chunk runs as a batch-1 forward on the
+    slot's lane, a view (cache.k[:, slot:slot+1]), so it writes the shared
+    cache in place and nothing is copied back. Returns (logits [1, V],
+    cache)."""
+    lane = KVCache(cache.k[:, slot:slot + 1], cache.v[:, slot:slot + 1])
+    logits, _ = prefill_step(params, cfg, tokens, positions, last_index, lane)
+    return logits, cache

@@ -6,6 +6,8 @@
 - fused_decode: K2 decode attention, K3 K/V row write
   (csrc/decode_attention.cu, csrc/kv_write.cu)
 - prefill_attention: K4 flash prefill attention (csrc/prefill_attention.cu)
+- paged_attention: K7 decode attention through block tables
+  (csrc/paged_attention.cu)
 - qtensor: the 4-bit and 8-bit weight containers (no kernel)
 - norms, rope, sampling: plain PyTorch (no kernel in the JAX package either)
 """

@@ -1,0 +1,98 @@
+"""Kernel K7: decode attention through block tables over a shared page pool.
+
+Counterpart of the JAX package's `paged_flash_decode_attention` and its
+`paged_attention_reference` (nfai_tpu/ops/paged_attention.py). Keys and
+values live in one layer's pool [Hkv, P, page_size, D]; row b owns the
+pages `tables[b, :]` and attends its first `lengths[b]` positions (the new
+token's K/V are written before the call, unlike K2, which folds them in).
+
+On CUDA tensors the wrapper launches ``csrc/paged_attention.cu`` or raises;
+on CPU tensors it runs `paged_decode_attention_plain`. Only the bf16 pool
+without softcap or sliding window is ported: the int8 pool (`k_scales`),
+softcap and window raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import F, I, Kernel, P, ptr, register, stream_ptr
+
+K7 = register(Kernel(
+    "paged_attention", "paged_attention.cu",
+    {"nfai_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, F, P]},
+))
+
+NEG_INF = -1e30
+PAGE_SIZES = (16, 32, 64, 128)
+
+
+def gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """[Hkv, P, ps, D] + [B, NP] → [Hkv, B, NP*ps, D]: each row's pages in
+    table order (a copy)."""
+    hkv, _, ps, d = pages.shape
+    b, n_p = tables.shape
+    return pages[:, tables.long()].reshape(hkv, b, n_p * ps, d)
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths, scale):
+    """q [B, Hq, D], one layer's pool k_pages/v_pages [Hkv, P, ps, D],
+    tables [B, NP], lengths [B] → [B, Hq, D] in q's dtype; f32 math: gather
+    each row's pages densely, mask positions >= lengths[b], attend."""
+    b, hq, d = q.shape
+    hkv = k_pages.shape[0]
+    r = hq // hkv
+    tables = tables.to(q.device)
+    kg = gather_pages(k_pages, tables).float()
+    vg = gather_pages(v_pages, tables).float()
+    s = kg.shape[2]
+    qg = q.float().reshape(b, hkv, r, d)
+    logits = torch.einsum("bhrd,hbsd->bhrs", qg, kg) * scale
+    visible = torch.arange(s, device=q.device)[None, :] < lengths.to(q.device).long()[:, None]
+    logits = logits.masked_fill(~visible[:, None, None, :], NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhrs,hbsd->bhrd", w, vg)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _check_index(name, t, shape, device):
+    if t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name} must be contiguous int32 {list(shape)} on {device}; got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def paged_decode_attention(q, k_pages, v_pages, tables, lengths, scale=None,
+                           softcap: float = 0.0, window: int = 0,
+                           k_scales=None, v_scales=None):
+    """One layer's decode attention through block tables (see module doc):
+    q [B, Hq, D], k_pages/v_pages [Hkv, P, ps, D], tables [B, NP] int32,
+    lengths [B] int32 → [B, Hq, D]."""
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError("the int8 paged KV pool is not ported yet")
+    if softcap or window:
+        raise NotImplementedError("attention softcap / sliding window are not ported yet")
+    b, hq, d = q.shape
+    if scale is None:
+        scale = 1.0 / d**0.5
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths, scale)
+    hkv, n_pages, ps, _ = k_pages.shape
+    r = hq // hkv
+    if d != 64 or r not in (1, 2, 4, 8) or hq != hkv * r:
+        raise NotImplementedError(f"paged attention kernel takes D=64, r in 1/2/4/8; got D={d}, r={r}")
+    if ps not in PAGE_SIZES:
+        raise NotImplementedError(f"paged attention kernel takes page sizes {PAGE_SIZES}; got {ps}")
+    for t in (q, k_pages, v_pages):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError("paged attention needs contiguous bf16 tensors on one device")
+    if v_pages.shape != k_pages.shape or k_pages.shape[3] != d:
+        raise ValueError("paged attention shape mismatch")
+    _check_index("tables", tables, (b, tables.shape[-1]), q.device)
+    _check_index("lengths", lengths, (b,), q.device)
+    out = torch.empty_like(q)
+    K7.call(
+        "nfai_paged_attention", ptr(q), ptr(k_pages), ptr(v_pages), ptr(tables),
+        ptr(lengths), ptr(out), b, hkv, r, n_pages, ps, tables.shape[1],
+        float(scale), stream_ptr(q),
+    )
+    K7.launches += 1
+    return out

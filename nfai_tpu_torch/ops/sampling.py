@@ -2,7 +2,8 @@
 categorical draw, or greedy argmax.
 
 The JAX package takes an approximate top-k (TPU `approx_max_k`); here it is
-the exact `torch.topk`. The draw uses an explicit `torch.Generator` on the
+the exact `torch.topk`. Per-row temperature, top-p, min-p and top-k let one
+batch mix requests. The draw uses an explicit `torch.Generator` on the
 logits' device, so the random bits differ from `jax.random` — compare the two
 packages through greedy decoding and the filtered distribution only.
 """
@@ -20,11 +21,13 @@ def _per_row(v, rows: int, device) -> torch.Tensor:
 
 
 def filtered_for_sampling(logits: torch.Tensor, temperature, top_k: int, top_p,
-                          min_p=0.0):
-    """The sampling pipeline up to the draw (temperature → top-k → top-p →
-    min-p; per-row top-k is not ported yet). Returns (filtered [B, K] tempered
-    logits with dropped entries at NEG_INF, top_idx [B, K] their vocab ids,
-    greedy [B] bool rows)."""
+                          min_p=0.0, top_k_rows=None):
+    """The sampling pipeline up to the draw (temperature → top-k window →
+    per-row top-k → top-p → min-p). `top_k_rows` [B] drops the ranks at or
+    beyond each row's own k (at least 1) inside the static `top_k` window,
+    so one batch can mix requests with different top_k. Returns (filtered
+    [B, K] tempered logits with dropped entries at NEG_INF, top_idx [B, K]
+    their vocab ids, greedy [B] bool rows)."""
     rows, vocab = logits.shape
     temperature = _per_row(temperature, rows, logits.device)
     top_p = _per_row(top_p, rows, logits.device)
@@ -34,6 +37,10 @@ def filtered_for_sampling(logits: torch.Tensor, temperature, top_k: int, top_p,
         top_vals, top_idx = torch.topk(scaled, top_k, dim=-1, sorted=True)
     else:
         top_vals, top_idx = torch.sort(scaled, dim=-1, descending=True)
+    if top_k_rows is not None:
+        ranks = torch.arange(top_vals.shape[-1], device=logits.device)[None, :]
+        kk = torch.clamp(torch.as_tensor(top_k_rows, device=logits.device), min=1)[:, None]
+        top_vals = torch.where(ranks < kk, top_vals, torch.full_like(top_vals, NEG_INF))
     probs = torch.softmax(top_vals, dim=-1)
     cumulative = torch.cumsum(probs, dim=-1)
     keep = (cumulative - probs) < top_p
@@ -44,14 +51,16 @@ def filtered_for_sampling(logits: torch.Tensor, temperature, top_k: int, top_p,
 
 def sample_logits(logits: torch.Tensor, generator: torch.Generator | None,
                   temperature=0.5, top_k: int = 40, top_p=0.95,
-                  min_p=0.0) -> torch.Tensor:
-    """Next token ids [B] (int64). temperature <= 0 is greedy argmax."""
+                  min_p=0.0, top_k_rows=None) -> torch.Tensor:
+    """Next token ids [B] (int64). temperature, top_p and min_p are scalars
+    or per-row [B]; `top_k_rows` [B] is a per-row top-k inside the static
+    `top_k` window. temperature <= 0 is greedy argmax."""
     logits = logits.float()
     static_temp = isinstance(temperature, (int, float))
     if static_temp and temperature <= 0.0:
         return greedy_sample(logits)
     filtered, top_idx, greedy = filtered_for_sampling(
-        logits, temperature, top_k, top_p, min_p
+        logits, temperature, top_k, top_p, min_p, top_k_rows
     )
     probs = torch.softmax(filtered, dim=-1)
     choice = torch.multinomial(probs, 1, generator=generator)

@@ -1,1 +1,2 @@
-"""Runtime: the inference engine and chat session."""
+"""Runtime: the inference engine and chat session, the paged KV pool and
+the continuous-batching scheduler."""

@@ -21,7 +21,7 @@ from typing import Any, Iterator, Sequence
 import numpy as np
 import torch
 
-from ..config import EngineConfig, SamplingParams
+from ..config import EngineConfig, SamplingParams, check_sampling
 from ..device import resolve_device
 from ..gguf import GGUFFile, Keys
 from ..models import KVCache, decode_loop, prefill_step, resolve
@@ -56,18 +56,6 @@ def _check_config(config: EngineConfig) -> None:
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"EngineConfig options not ported yet: {bad}")
-
-
-def _check_sampling(s: SamplingParams) -> None:
-    unported = {
-        "constrained decoding": s.constrained,
-        "logprobs": s.logprobs is not None,
-        "penalties": s.has_penalties,
-        "logit_bias": bool(s.logit_bias),
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"sampling options not ported yet: {bad}")
 
 
 @dataclass
@@ -176,7 +164,7 @@ class InferenceEngine:
     ) -> Iterator[int]:
         """Stream generated token ids until EOS / max tokens / cache full."""
         sampling = sampling or SamplingParams()
-        _check_sampling(sampling)
+        check_sampling(sampling)
         metrics = metrics if metrics is not None else GenerationMetrics()
         if cache is None:
             cache = self.new_cache(1)

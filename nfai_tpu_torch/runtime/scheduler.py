@@ -1,0 +1,521 @@
+"""Continuous batching: a slot-based scheduler that admits and evicts
+requests between fused decode chunks.
+
+Counterpart of nfai_tpu/runtime/scheduler.py. Up to `max_batch` requests
+decode in lockstep; new arrivals prefill one chunk per scheduler step into
+free slots while the others keep decoding. Decode uses per-slot positions
+and per-slot sampling settings (temperature, top-k inside a static window,
+top-p, min-p); finished slots are masked `active=False` so their lanes
+neither advance nor touch another slot's cache.
+
+By default the KV lives in the paged pool (runtime.paged_cache): pages are
+allocated as sequences grow, prompt prefixes are shared across requests,
+the youngest request is preempted (and later recomputed) when the pool runs
+dry, and the decode runs at the smallest power-of-two width covering the
+active slots (lane compaction). `paged=False` keeps dense per-slot lanes.
+
+Not ported yet, and refused by `submit` with NotImplementedError:
+speculative rounds, grammar/JSON constraints, logprobs, presence/frequency
+penalties and logit bias (the engine already refuses `speculative`).
+"""
+from __future__ import annotations
+
+import itertools
+import logging
+import math
+import queue
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from enum import Enum
+from typing import Iterator, Sequence
+
+import numpy as np
+import torch
+
+from ..config import SamplingParams, check_sampling
+from ..models import decode_loop, paged_decode_loop, paged_prefill_step, prefill_slot_step
+from ..ops.sampling import sample_logits
+from .engine import _bucket as _next_bucket
+from .paged_cache import OutOfPages, PageAllocator, PagedKVCache
+
+log = logging.getLogger(__name__)
+
+_END = object()  # stream sentinel
+
+
+class QueueFull(RuntimeError):
+    """The bounded request queue is full: retry later (the server's 503)."""
+
+
+class RequestState(Enum):
+    QUEUED = "queued"
+    RUNNING = "running"
+    FINISHED = "finished"
+    FAILED = "failed"
+    CANCELLED = "cancelled"
+
+
+@dataclass
+class Request:
+    """One generation request; tokens stream into `out`."""
+
+    id: int
+    prompt_ids: list[int]
+    sampling: SamplingParams
+    state: RequestState = RequestState.QUEUED
+    output_ids: list[int] = field(default_factory=list)
+    out: queue.Queue = field(default_factory=queue.Queue)
+    submitted_at: float = field(default_factory=time.perf_counter)
+    first_token_at: float | None = None
+    finished_at: float | None = None
+    _cancel: threading.Event = field(default_factory=threading.Event)
+
+    def cancel(self) -> None:
+        """Stop generating for this request (client disconnected / abort).
+        Safe from any thread; the scheduler frees the slot between chunks."""
+        self._cancel.set()
+
+    @property
+    def cancelled(self) -> bool:
+        return self._cancel.is_set()
+
+    def stream(self, timeout: float | None = None) -> Iterator[int]:
+        """Yield generated token ids as they arrive (blocking iterator)."""
+        while True:
+            item = self.out.get(timeout=timeout)
+            if item is _END:
+                return
+            yield item
+
+    @property
+    def ttft_s(self) -> float | None:
+        if self.first_token_at is None:
+            return None
+        return self.first_token_at - self.submitted_at
+
+
+@dataclass
+class _Slot:
+    request: Request | None = None
+    pos: int = 0  # tokens with KV written
+    budget: int = 0  # max tokens this request may still emit
+    next_token: int = 0  # token sampled but not yet fed through the model
+    pages: list[int] = field(default_factory=list)  # paged mode: block table
+    # incremental prefill: remaining ids to push through the model; None once
+    # the slot is decoding
+    prefill_ids: np.ndarray | None = None
+    prefill_next: int = 0  # next absolute position to prefill
+
+    @property
+    def prefilling(self) -> bool:
+        return self.prefill_ids is not None
+
+
+def _table_width(max_seq: int, page_size: int) -> int:
+    """Pages per block table: enough for max_seq positions, rounded up so
+    that the table spans a multiple of 64 positions (K4's key tile, which
+    attends a prefill chunk over the gathered pages); the extra entries are
+    sink pages, masked by position."""
+    tile = math.lcm(page_size, 64)
+    return -(-max_seq // tile) * (tile // page_size)
+
+
+class BatchEngine:
+    """Continuous-batching executor over an `InferenceEngine`'s model.
+
+    Drive it synchronously with `step()` (tests) or start the background
+    thread with `start()` (server). `submit` may be called from any thread;
+    `step` must run on one thread only.
+
+    With `paged=True` (the default, `EngineConfig.paged_kv`) KV lives in a
+    shared page pool with per-slot block tables: page-granular allocation,
+    prompt-prefix sharing across requests (a request whose prompt starts with
+    a previously served prefix skips prefilling those pages), and
+    recompute-preemption when the pool runs dry mid-generation.
+    """
+
+    def __init__(
+        self,
+        engine,
+        max_batch: int = 8,
+        decode_chunk: int = 8,
+        paged: bool | None = None,
+        pool_tokens: int | None = None,
+        queue_cap: int = 256,
+        prefill_ticks_per_step: int = 1,
+    ):
+        self.engine = engine
+        self.max_batch = max_batch
+        self.decode_chunk = decode_chunk
+        # arrivals prefill one chunk per scheduler step (between decode
+        # chunks) instead of stalling every running slot for whole prompts
+        self.prefill_ticks_per_step = max(1, prefill_ticks_per_step)
+        self.slots = [_Slot() for _ in range(max_batch)]
+        self.queue: queue.Queue[Request] = queue.Queue(maxsize=queue_cap)
+        self._parked: deque[Request] = deque()  # requeued (preempted) heads
+        self._ids = itertools.count()
+        self.generator = torch.Generator(device=engine.device)
+        self.generator.manual_seed(0)
+        self._thread: threading.Thread | None = None
+        self._stop = threading.Event()
+        # the sampling window is static; per-request top_k is applied by
+        # masking ranks inside it (sample_logits top_k_rows). Requests asking
+        # for more are clamped to it, logged once per engine.
+        self.top_k = 64
+        self._warned_topk_clamp = False
+        self.preemptions = 0
+
+        cfg = engine.config
+        self.paged = cfg.paged_kv if paged is None else paged
+        if self.paged:
+            ps = cfg.page_size
+            tokens = pool_tokens or cfg.kv_pool_tokens or (max_batch * engine.max_seq_len)
+            n_pages = -(-tokens // ps) + 1  # + reserved sink page
+            self.page_size = ps
+            self.max_pages = _table_width(engine.max_seq_len, ps)
+            self.alloc = PageAllocator(n_pages, ps)
+            self.cache = PagedKVCache.zeros(
+                engine.model_cfg, n_pages, ps, engine.cache_dtype, engine.device,
+                quantized=cfg.kv_dtype == "int8",
+            )
+            log.info("paged KV pool: %d pages x %d tokens (%.1f MB)", n_pages, ps,
+                     self.cache.nbytes / 1e6)
+        else:
+            self.cache = engine.new_cache(max_batch)
+
+    # -- client API --------------------------------------------------------
+    def submit(self, prompt_ids: Sequence[int], sampling: SamplingParams | None = None) -> Request:
+        sampling = sampling or SamplingParams()
+        check_sampling(sampling)
+        req = Request(id=next(self._ids), prompt_ids=list(prompt_ids), sampling=sampling)
+        max_prompt = self.engine.max_seq_len - 1
+        if len(req.prompt_ids) > max_prompt:
+            req.state = RequestState.FAILED
+            req.out.put(_END)
+            raise ValueError(
+                f"prompt of {len(req.prompt_ids)} tokens exceeds capacity {max_prompt}"
+            )
+        try:
+            self.queue.put_nowait(req)
+        except queue.Full:
+            req.state = RequestState.FAILED
+            req.out.put(_END)
+            raise QueueFull(f"request queue full ({self.queue.maxsize}); retry later") from None
+        return req
+
+    # -- scheduler ---------------------------------------------------------
+    def _next_queued(self) -> Request | None:
+        while True:
+            if self._parked:
+                req = self._parked.popleft()
+            else:
+                try:
+                    req = self.queue.get_nowait()
+                except queue.Empty:
+                    return None
+            if req.cancelled:
+                req.state = RequestState.CANCELLED
+                req.out.put(_END)
+                continue
+            return req
+
+    def _admit(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot.request is not None:
+                continue
+            req = self._next_queued()
+            if req is None:
+                return
+            if not self._begin_prefill(i, req):
+                # pool exhausted: park the request and stop admitting until
+                # capacity frees up
+                self._requeue_front(req)
+                return
+
+    def _requeue_front(self, req: Request) -> None:
+        req.state = RequestState.QUEUED
+        self._parked.appendleft(req)
+
+    def _begin_prefill(self, slot_idx: int, req: Request) -> bool:
+        """Assign a request to a slot and reserve its KV pages; the prompt is
+        prefilled by `_prefill_tick`, one chunk per scheduler step. Returns
+        False when the pool cannot hold it (the caller requeues). A preempted
+        request's already-emitted tokens are part of the sequence to rebuild."""
+        eng = self.engine
+        full_ids = list(req.prompt_ids) + list(req.output_ids)
+        ids = np.asarray(full_ids, np.int32)
+        chunk_cap = eng.config.prefill_chunk
+
+        slot = self.slots[slot_idx]
+        start = 0
+        if self.paged:
+            shared, start = self.alloc.lookup_prefix(full_ids)
+            ps = self.page_size
+            # page coverage must include the padded chunk tails (their writes
+            # land in the slot's own pages past the prompt, masked by position)
+            pos, max_end = start, start
+            while pos < ids.size:
+                take = min(chunk_cap, ids.size - pos)
+                bucket = min(_next_bucket(take, chunk_cap), eng.max_seq_len - pos)
+                max_end = max(max_end, pos + bucket)
+                pos += take
+            need = -(-max_end // ps) - len(shared)
+            try:
+                new_pages = self.alloc.alloc(need) if need > 0 else []
+            except OutOfPages:
+                self.alloc.release(shared)
+                return False
+            slot.pages = list(shared) + list(new_pages)
+            if start:
+                log.debug("req %d: prefix cache hit, %d/%d tokens shared", req.id, start, ids.size)
+        slot.request = req
+        slot.prefill_ids = ids
+        slot.prefill_next = start
+        req.state = RequestState.RUNNING
+        return True
+
+    def _prefill_tick(self, slot_idx: int) -> None:
+        """Run ONE prefill chunk for the slot; on prompt completion, sample
+        the first token (one host read) and switch the slot to decoding."""
+        eng = self.engine
+        dev = eng.device
+        slot = self.slots[slot_idx]
+        req = slot.request
+        ids = slot.prefill_ids
+        chunk_cap = eng.config.prefill_chunk
+        pos = slot.prefill_next
+        take = min(chunk_cap, ids.size - pos)
+        bucket = min(_next_bucket(take, chunk_cap), eng.max_seq_len - pos)
+        chunk = np.zeros(bucket, np.int64)
+        chunk[:take] = ids[pos: pos + take]
+        positions = np.arange(pos, pos + bucket, dtype=np.int64)
+        args = (eng.params, eng.model_cfg, torch.from_numpy(chunk[None]).to(dev),
+                torch.from_numpy(positions[None]).to(dev),
+                torch.tensor([take - 1], device=dev), self.cache)
+        if self.paged:
+            table = torch.from_numpy(self._table_row(slot_idx)[None]).to(dev)
+            logits, self.cache = paged_prefill_step(*args, table)
+        else:
+            logits, self.cache = prefill_slot_step(*args, slot_idx)
+        slot.prefill_next = pos + take
+        if slot.prefill_next < ids.size:
+            return  # more chunks to go; decode proceeds meanwhile
+        # prompt complete: sample the first token
+        if self.paged:
+            self.alloc.publish_prefix([int(t) for t in ids], slot.pages)
+        s = req.sampling
+        tok = int(sample_logits(
+            logits, self.generator, s.temperature, self.top_k, s.top_p, min_p=s.min_p,
+            top_k_rows=torch.tensor([self._effective_top_k(s.top_k)], device=dev),
+        )[0])
+        slot.prefill_ids = None
+        slot.pos = int(ids.size)
+        slot.budget = min(s.max_new_tokens - len(req.output_ids), eng.max_seq_len - ids.size)
+        slot.next_token = tok
+        self._emit(slot_idx, [tok])
+
+    def _table_row(self, slot_idx: int) -> np.ndarray:
+        row = np.zeros(self.max_pages, np.int32)  # sink-padded
+        pages = self.slots[slot_idx].pages
+        row[: len(pages)] = pages
+        return row
+
+    def _effective_top_k(self, requested: int) -> int:
+        """Clamp a request's top_k to the static sampling window. top_k <= 0
+        means "disabled" (sample from the whole window)."""
+        if requested <= 0 or requested >= self.top_k:
+            if requested > self.top_k and not self._warned_topk_clamp:
+                self._warned_topk_clamp = True
+                log.warning("request top_k=%d exceeds the engine sampling window (%d); "
+                            "clamping (larger windows: BatchEngine.top_k)", requested, self.top_k)
+            return self.top_k
+        return requested
+
+    def _emit(self, slot_idx: int, tokens: list[int]) -> None:
+        """Push tokens to the request stream; finish on EOS/budget."""
+        slot = self.slots[slot_idx]
+        req = slot.request
+        tok_eos = self.engine.tokenizer.is_eos
+        for t in tokens:
+            if req.first_token_at is None:
+                req.first_token_at = time.perf_counter()
+            if tok_eos(t) or slot.budget <= 0:
+                self._finish(slot_idx)
+                return
+            req.output_ids.append(t)
+            req.out.put(t)
+            slot.budget -= 1
+        if slot.budget <= 0:
+            self._finish(slot_idx)
+
+    def _finish(self, slot_idx: int, state: RequestState = RequestState.FINISHED) -> None:
+        slot = self.slots[slot_idx]
+        req = slot.request
+        req.state = state
+        req.finished_at = time.perf_counter()
+        req.out.put(_END)
+        if self.paged and slot.pages:
+            self.alloc.release(slot.pages)
+        self.slots[slot_idx] = _Slot()
+
+    def _preempt(self, slot_idx: int) -> None:
+        """Recompute-preemption: free the slot's pages and requeue the
+        request; on re-admission its prompt + already-emitted tokens are
+        prefilled again (usually cheap: the pages stay warm in the prefix
+        cache) and generation continues without visible interruption."""
+        slot = self.slots[slot_idx]
+        req = slot.request
+        self.preemptions += 1
+        log.info("preempting request %d (%d tokens generated): KV pool full",
+                 req.id, len(req.output_ids))
+        if slot.pages:
+            self.alloc.release(slot.pages)
+        self.slots[slot_idx] = _Slot()
+        self._requeue_front(req)
+
+    def _grow_tables(self, active_idx: list[int], n: int) -> list[int]:
+        """Ensure each active slot's block table covers pos + n more tokens;
+        preempts the youngest slots when the pool is exhausted. Returns the
+        still-occupied slot indices."""
+        ps = self.page_size
+        # oldest-first page growth; youngest-first preemption victims
+        for i in sorted(active_idx, key=lambda j: self.slots[j].request.submitted_at):
+            slot = self.slots[i]
+            if slot.request is None:  # preempted for an older slot in this loop
+                continue
+            need = -(-(slot.pos + n) // ps) - len(slot.pages)
+            while need > 0:
+                try:
+                    slot.pages.extend(self.alloc.alloc(need))
+                    need = 0
+                except OutOfPages:
+                    victims = [j for j in active_idx
+                               if j != i and self.slots[j].request is not None]
+                    if not victims:
+                        log.warning("request %d out of KV pages with no victim to preempt; "
+                                    "finishing early", slot.request.id)
+                        self._finish(i)
+                        break
+                    victim = max(victims, key=lambda j: self.slots[j].request.submitted_at)
+                    self._preempt(victim)
+        return [i for i, s in enumerate(self.slots) if s.request is not None]
+
+    def _sweep_cancelled(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot.request is not None and slot.request.cancelled:
+                self._finish(i, RequestState.CANCELLED)
+
+    def _busy(self) -> int:
+        return sum(1 for s in self.slots if s.request is not None)
+
+    def step(self) -> int:
+        """One scheduler iteration: admit, advance up to
+        `prefill_ticks_per_step` pending prefills by one chunk each, then one
+        fused decode chunk for the decoding slots (one host read-back).
+        Returns the number of occupied slots after the step."""
+        self._admit()
+        self._sweep_cancelled()
+        prefilling = [i for i, s in enumerate(self.slots) if s.prefilling]
+        for i in prefilling[: self.prefill_ticks_per_step]:
+            self._prefill_tick(i)
+        active_idx = [i for i, s in enumerate(self.slots)
+                      if s.request is not None and not s.prefilling]
+        if not active_idx:
+            return self._busy()
+        max_seq = self.engine.max_seq_len
+        # the chunk must fit the tightest slot's remaining cache room
+        n = min(self.decode_chunk, min(max_seq - self.slots[i].pos for i in active_idx))
+        if self.paged:
+            active_idx = self._grow_tables(active_idx, n)
+            active_idx = [i for i in active_idx if not self.slots[i].prefilling]
+            if not active_idx:
+                return self._busy()
+            # lane compaction: block tables make lanes virtual, so the chunk
+            # runs at the smallest power of two covering the active slots
+            rows = list(active_idx)
+            width = min(1 << (len(rows) - 1).bit_length(), self.max_batch)
+        else:
+            rows = list(range(self.max_batch))
+            width = self.max_batch
+        row_of = {i: j for j, i in enumerate(rows)}
+        tokens = np.zeros(width, np.int64)
+        positions = np.zeros(width, np.int64)
+        active = np.zeros(width, bool)
+        temps = np.zeros(width, np.float32)
+        top_ps = np.ones(width, np.float32)
+        top_ks = np.full(width, self.top_k, np.int64)
+        min_ps = np.zeros(width, np.float32)
+        if not self.paged:
+            # a dense lane that is mid-prefill writes its frozen row at the
+            # next position its prefill will overwrite, not at 0
+            for i, s in enumerate(self.slots):
+                if s.prefilling:
+                    positions[i] = s.prefill_next
+        for i in active_idx:
+            j = row_of[i]
+            s = self.slots[i]
+            tokens[j] = s.next_token
+            positions[j] = s.pos
+            active[j] = True
+            sp = s.request.sampling
+            temps[j] = sp.temperature
+            top_ps[j] = sp.top_p
+            top_ks[j] = self._effective_top_k(sp.top_k)
+            min_ps[j] = sp.min_p
+        dev = self.engine.device
+        on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        kw = dict(temperature=on(temps), top_k=self.top_k, top_p=on(top_ps), min_p=on(min_ps),
+                  active=on(active), top_k_rows=on(top_ks))
+        if self.paged:
+            tables = np.zeros((width, self.max_pages), np.int32)  # pad lanes: the sink page
+            for j, i in enumerate(rows):
+                tables[j] = self._table_row(i)
+            toks, nxt, self.cache, _ = paged_decode_loop(
+                self.engine.params, self.engine.model_cfg, on(tokens), on(positions),
+                self.cache, on(tables), self.generator, n, **kw)
+        else:
+            toks, nxt, self.cache, _ = decode_loop(
+                self.engine.params, self.engine.model_cfg, on(tokens), on(positions),
+                self.cache, self.generator, n, **kw)
+        host = torch.cat([toks, nxt[:, None]], dim=1).tolist()  # the chunk's one sync
+        for i in active_idx:
+            row = host[row_of[i]]
+            slot = self.slots[i]
+            # toks[j] = [prev next_token (already emitted), t1, ..., t_{n-1}];
+            # fresh tokens for the stream are t1..t_{n-1} plus the new tail
+            fresh = row[1:]
+            slot.pos += n
+            slot.next_token = row[-1]
+            self._emit(i, fresh)
+            if self.slots[i].request is not None and slot.pos >= max_seq:
+                self._finish(i)  # out of cache room
+        return self._busy()
+
+    # -- background driving -------------------------------------------------
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                n = self.step()
+            except Exception:  # noqa: BLE001 - the worker must keep serving
+                log.exception("scheduler step failed; failing the running requests")
+                for i, s in enumerate(self.slots):
+                    if s.request is not None:
+                        self._finish(i, RequestState.FAILED)
+                continue
+            if n == 0:
+                time.sleep(0.002)
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None

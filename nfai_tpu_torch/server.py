@@ -1,0 +1,346 @@
+"""HTTP inference server (OpenAI-style API) over the continuous-batching
+engine.
+
+Counterpart of nfai_tpu/server.py:
+
+- ``POST /v1/chat/completions`` — messages in, completion out; with
+  ``"stream": true`` the reply is SSE chunks (OpenAI wire format)
+- ``POST /v1/completions`` — raw prompt in, text out
+- ``GET  /healthz`` — liveness and model info
+- ``GET  /v1/models`` — model listing
+
+Stdlib only (ThreadingHTTPServer); concurrency comes from the BatchEngine's
+continuous batching, not from a model per thread. A body that asks for an
+option the port does not run yet (grammar, regex, a JSON response_format,
+logprobs, logit_bias, presence/frequency penalties) gets a 501 JSON error
+naming the option; a malformed body gets a 400; a full queue a 503.
+
+Usage:
+    python -m nfai_tpu_torch.server --gguf model.gguf [--port 8000] [--device cpu]
+
+Runs on the GPU by default and raises if none is visible; `--device cpu`
+runs the plain PyTorch versions of the kernels.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from .config import EngineConfig, SamplingParams
+from .runtime.engine import InferenceEngine
+from .runtime.scheduler import BatchEngine, QueueFull
+from .tokenizer import Message, StreamDetokenizer, TextStopper
+
+log = logging.getLogger(__name__)
+
+
+class ServerState:
+    def __init__(self, engine: InferenceEngine, batch: BatchEngine):
+        self.engine = engine
+        self.batch = batch
+        self.started_at = time.time()
+        self.requests_served = 0
+        self.lock = threading.Lock()
+
+
+def _unported_options(body: dict) -> list[str]:
+    """The body options the port does not run yet, by their wire names."""
+    rf = body.get("response_format") or {}
+    rf_type = rf.get("type") if isinstance(rf, dict) else str(rf)
+    lp = body.get("logprobs")
+    asked = {
+        "grammar": body.get("grammar") is not None,
+        "regex": body.get("regex") is not None,
+        f"response_format {rf_type!r}": rf_type in ("json_object", "json", "json_schema"),
+        "logprobs": lp is not None and lp is not False,
+        "logit_bias": bool(body.get("logit_bias")),
+        "presence_penalty": bool(body.get("presence_penalty")),
+        "frequency_penalty": bool(body.get("frequency_penalty")),
+    }
+    return [name for name, on in asked.items() if on]
+
+
+def _sampling_from_body(body: dict) -> SamplingParams:
+    unported = _unported_options(body)
+    if unported:
+        raise NotImplementedError(f"options not supported by this server yet: {unported}")
+    rf = body.get("response_format") or {}
+    rf_type = rf.get("type") if isinstance(rf, dict) else str(rf)
+    if rf_type not in (None, "text"):
+        raise ValueError(f"unsupported response_format type {rf_type!r}")
+    stop = body.get("stop") or ()
+    if isinstance(stop, str):
+        stop = (stop,)
+    return SamplingParams(
+        temperature=float(body.get("temperature", 0.5)),
+        top_k=int(body.get("top_k", 40)),
+        top_p=float(body.get("top_p", 0.95)),
+        min_p=float(body.get("min_p", 0.0)),
+        seed=body.get("seed"),
+        max_new_tokens=int(body.get("max_tokens") or body.get("max_completion_tokens") or 512),
+        stop=tuple(str(s) for s in stop),
+    )
+
+
+def make_handler(state: ServerState):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):  # route to our logger
+            log.debug("%s " + fmt, self.address_string(), *args)
+
+        # -- helpers -------------------------------------------------------
+        def _json(self, code: int, obj: dict):
+            payload = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def _error(self, code: int, message: str):
+            self._json(code, {"error": {"message": message, "code": code}})
+
+        def _body(self) -> dict:
+            length = int(self.headers.get("Content-Length", 0))
+            if length <= 0:
+                raise ValueError("empty request body")
+            body = json.loads(self.rfile.read(length))
+            if not isinstance(body, dict):
+                raise ValueError("the body must be a JSON object")
+            return body
+
+        # -- routes --------------------------------------------------------
+        def do_GET(self):
+            if self.path == "/healthz":
+                eng = state.engine
+                self._json(200, {
+                    "status": "ok",
+                    "model": eng.model_name,
+                    "uptime_s": round(time.time() - state.started_at, 1),
+                    "requests_served": state.requests_served,
+                    "max_batch": state.batch.max_batch,
+                    "max_seq_len": eng.max_seq_len,
+                })
+            elif self.path == "/v1/models":
+                self._json(200, {"object": "list", "data": [
+                    {"id": state.engine.model_name, "object": "model",
+                     "owned_by": "nfai_tpu_torch"},
+                ]})
+            else:
+                self._error(404, f"no route {self.path}")
+
+        def do_POST(self):
+            try:
+                if self.path == "/v1/chat/completions":
+                    self._chat()
+                elif self.path == "/v1/completions":
+                    self._completions()
+                else:
+                    self._error(404, f"no route {self.path}")
+            except NotImplementedError as e:
+                self._error(501, str(e))
+            except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
+                self._error(400, f"bad request: {e}")
+            except (BrokenPipeError, ConnectionResetError):
+                pass
+            except Exception as e:  # noqa: BLE001 - report, don't kill the server
+                log.exception("request failed")
+                try:
+                    self._error(500, str(e))
+                except OSError:
+                    pass
+
+        # -- endpoints -----------------------------------------------------
+        def _chat(self):
+            body = self._body()
+            messages = [Message(str(m["role"]), str(m["content"]))
+                        for m in body.get("messages", [])]
+            if not messages:
+                raise ValueError("messages must be a non-empty list")
+            eng = state.engine
+            prompt = eng.chat_template.render(messages, add_generation_prompt=True)
+            self._generate(body, eng.tokenizer.encode(prompt, add_bos=False), chat=True)
+
+        def _completions(self):
+            body = self._body()
+            prompt = body.get("prompt")
+            if not isinstance(prompt, str):
+                raise ValueError("prompt must be a string")
+            self._generate(body, state.engine.tokenizer.encode(prompt), chat=False)
+
+        def _generate(self, body: dict, prompt_ids: list[int], chat: bool):
+            sampling = _sampling_from_body(body)
+            n = int(body.get("n") or 1)
+            if not 1 <= n <= 8:
+                raise ValueError("n must be between 1 and 8")
+            if n > 1 and body.get("stream"):
+                raise ValueError("streaming with n > 1 is not supported")
+            reqs = []
+            try:
+                for _ in range(n):
+                    reqs.append(state.batch.submit(prompt_ids, sampling))
+            except QueueFull as e:  # bounded queue: shed load
+                for r in reqs:
+                    r.cancel()
+                self._error(503, str(e))
+                return
+            with state.lock:
+                state.requests_served += n
+            try:
+                if n == 1:
+                    self._respond(body, reqs[0], chat)
+                else:
+                    self._respond_multi(reqs, chat)
+            except (BrokenPipeError, ConnectionResetError):
+                # the client went away mid-stream: stop generating
+                for r in reqs:
+                    r.cancel()
+                raise
+
+        def _chunk(self, rid, created, chat, payload, finish=None):
+            obj = "chat.completion.chunk" if chat else "text_completion"
+            delta = {"delta": payload} if chat else {"text": payload.get("content", "")}
+            self._sse({"id": rid, "object": obj, "created": created,
+                       "model": state.engine.model_name,
+                       "choices": [{"index": 0, **delta, "finish_reason": finish}]})
+
+        def _respond(self, body: dict, req, chat: bool):
+            eng = state.engine
+            sampling = req.sampling
+            rid = f"{'chatcmpl' if chat else 'cmpl'}-{uuid.uuid4().hex[:16]}"
+            created = int(time.time())
+            if not body.get("stream"):
+                tokens = list(req.stream(timeout=600))
+                text = _cut_at_stop(eng.tokenizer.decode(tokens, skip_special=True), sampling.stop)
+                content = ({"message": {"role": "assistant", "content": text}} if chat
+                           else {"text": text})
+                self._json(200, {
+                    "id": rid, "object": "chat.completion" if chat else "text_completion",
+                    "created": created, "model": eng.model_name,
+                    "choices": [{"index": 0, **content, "finish_reason": "stop"}],
+                    "usage": {"prompt_tokens": len(req.prompt_ids),
+                              "completion_tokens": len(tokens),
+                              "total_tokens": len(req.prompt_ids) + len(tokens)},
+                })
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            # the SSE body is delimited by connection close (no chunked framing)
+            self.send_header("Connection", "close")
+            self.close_connection = True
+            self.end_headers()
+            detok = StreamDetokenizer(eng.tokenizer)
+            stopper = TextStopper(sampling.stop)
+            for tok in req.stream(timeout=600):
+                raw = detok.push(tok)
+                if not raw:
+                    continue
+                piece, stopped = stopper.feed(raw)
+                if piece:
+                    self._chunk(rid, created, chat, {"content": piece})
+                if stopped:
+                    break
+            if stopper.done:
+                req.cancel()  # stop string hit: free the slot now
+            tail = "" if stopper.done else detok.flush() + stopper.flush()
+            if tail:
+                self._chunk(rid, created, chat, {"content": tail})
+            self._chunk(rid, created, chat, {}, finish="stop")
+            self.wfile.write(b"data: [DONE]\n\n")
+            self.wfile.flush()
+
+        def _respond_multi(self, reqs, chat: bool):
+            """OpenAI `n` > 1: one choice per request (blocking only)."""
+            eng = state.engine
+            choices = []
+            total_completion = 0
+            for idx, req in enumerate(reqs):
+                tokens = list(req.stream(timeout=600))
+                total_completion += len(tokens)
+                text = _cut_at_stop(eng.tokenizer.decode(tokens, skip_special=True),
+                                    req.sampling.stop)
+                content = ({"message": {"role": "assistant", "content": text}} if chat
+                           else {"text": text})
+                choices.append({"index": idx, **content, "finish_reason": "stop"})
+            n_prompt = len(reqs[0].prompt_ids)
+            self._json(200, {
+                "id": f"{'chatcmpl' if chat else 'cmpl'}-{uuid.uuid4().hex[:16]}",
+                "object": "chat.completion" if chat else "text_completion",
+                "created": int(time.time()), "model": eng.model_name, "choices": choices,
+                "usage": {"prompt_tokens": n_prompt, "completion_tokens": total_completion,
+                          "total_tokens": n_prompt + total_completion},
+            })
+
+        def _sse(self, obj: dict):
+            self.wfile.write(f"data: {json.dumps(obj)}\n\n".encode())
+            self.wfile.flush()
+
+    return Handler
+
+
+def _cut_at_stop(text: str, stops) -> str:
+    for s in stops:
+        idx = text.find(s)
+        if idx != -1:
+            text = text[:idx]
+    return text
+
+
+def serve(
+    gguf: str,
+    host: str = "127.0.0.1",
+    port: int = 8000,
+    engine_config: EngineConfig | None = None,
+    max_batch: int = 8,
+    device: str = "cuda",
+) -> ThreadingHTTPServer:
+    """Load the model on `device` (the card unless the caller asks for the
+    CPU; raises without one), start the BatchEngine's thread and bind the
+    server (call its serve_forever)."""
+    engine = InferenceEngine(gguf, engine_config or EngineConfig(gguf_path=gguf), device=device)
+    batch = BatchEngine(engine, max_batch=max_batch)
+    batch.start()
+    state = ServerState(engine, batch)
+    httpd = ThreadingHTTPServer((host, port), make_handler(state))
+    httpd.state = state
+    log.info("serving %s on http://%s:%d", engine.model_name, host, httpd.server_address[1])
+    return httpd
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="nfai_tpu_torch.server")
+    p.add_argument("--gguf", required=True)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--max-seq", type=int, default=512)
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
+                   help="activation dtype (the CUDA kernels take bfloat16)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = p.parse_args(argv)
+    httpd = serve(
+        args.gguf, args.host, args.port,
+        EngineConfig(gguf_path=args.gguf, max_seq_len=args.max_seq, dtype=args.dtype),
+        args.max_batch, device=args.device,
+    )
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.state.batch.close()
+        httpd.server_close()
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -25,9 +25,13 @@ from .ops.rope import compute_inv_freq
 from .tokenizer.bpe import TokenType, bytes_to_unicode
 
 
-def tiny_tokenizer_metadata() -> dict:
+def tiny_tokenizer_metadata(n_tokens: int | None = None) -> dict:
     """A byte-level vocab (256 byte tokens + llama-3 specials), no merges:
-    every string tokenizes (one token per byte)."""
+    every string tokenizes (one token per byte). With `n_tokens` the vocab
+    is padded to that size with filler tokens of three letters or digits
+    (the id in base 62), which encoding never produces but which decode to
+    visible text, so a model with a full-size vocab (the 1B-width fixtures)
+    speaks in text, not in unknown ids."""
     b2u = bytes_to_unicode()
     tokens = [b2u[b] for b in range(256)]
     types = [TokenType.NORMAL] * 256
@@ -41,6 +45,10 @@ def tiny_tokenizer_metadata() -> dict:
     for s in specials:
         tokens.append(s)
         types.append(TokenType.CONTROL)
+    digits = "0123456789abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    for i in range(len(tokens), n_tokens or 0):
+        tokens.append(digits[i // 3844 % 62] + digits[i // 62 % 62] + digits[i % 62])
+        types.append(TokenType.NORMAL)
     return {
         Keys.TOKENIZER_MODEL: "gpt2",
         Keys.TOKENIZER_PRE: "llama-bpe",
@@ -219,7 +227,7 @@ def make_llama_1b_gguf(path: str | Path, *, kind: str = "q4_k",
     _header(w, "llama", f"llama-3.2-1b-width-random-{kind}",
             context_length=c["context_length"], hidden=h, n_layers=nl,
             ffn_dim=f, n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
-            rope_base=c["rope_base"], vocab_size=v, tok_md=tiny_tokenizer_metadata())
+            rope_base=c["rope_base"], vocab_size=v, tok_md=tiny_tokenizer_metadata(v))
     base = {"q4_k": GGMLType.Q4_K, "q4_k_m": GGMLType.Q4_K,
             "q8_0": GGMLType.Q8_0, "q4_0_tied": GGMLType.Q4_0}[kind]
     tied = kind in ("q4_k_m", "q4_0_tied")

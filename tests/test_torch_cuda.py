@@ -11,13 +11,17 @@ decode, per query token for prefill) and the matmuls and MLP (per input
 row) so a row with a small output is not hidden behind a large one; the
 row write is exact. The tiny models of every GGUF kind the port loads run
 on the card and on the CPU, with K5 launched exactly for the fused-MLP
-model and K6 exactly for the 8-bit ones.
+model and K6 exactly for the 8-bit ones. K7 (paged decode attention) is
+checked per batch row on shuffled tables with ragged lengths at page sizes
+16 and 128, and a small paged BatchEngine serves on the card through K7
+without K2/K3.
 """
 import pytest
 import torch
 
 from nfai_tpu_torch.ops import fused_decode as fd
 from nfai_tpu_torch.ops import fused_mlp as fm
+from nfai_tpu_torch.ops import paged_attention as pga
 from nfai_tpu_torch.ops import prefill_attention as pa
 from nfai_tpu_torch.ops import qmatmul as qm
 from nfai_tpu_torch.ops.qtensor import Q4Tensor, Q8Tensor
@@ -166,3 +170,44 @@ def test_tiny_kinds_cuda_match_cpu(cuda, tmp_path, kind):
     assert (fm.K5.launches > before[0]) == (kind == "fused")
     assert (qm.K6.launches > before[1]) == (kind in ("q4_k_m", "q8_0"))
     assert rel(lg.cpu(), lc) < TOL
+
+
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("r", [1, 4])
+def test_paged_attention_kernel(cuda, ps, r):
+    b, hkv, d, n_p = 5, 2, 64, 256 // ps
+    n_pages = b * n_p + 3
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    q = torch.randn(b, hkv * r, d, **bf)
+    kp, vp = torch.randn(hkv, n_pages, ps, d, **bf), torch.randn(hkv, n_pages, ps, d, **bf)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(ps))[: b * n_p] + 1
+    tables = perm.view(b, n_p).to(torch.int32).cuda()  # shuffled, never contiguous
+    lengths = torch.tensor([1, ps - 1, ps, ps + 1, n_p * ps], dtype=torch.int32, device="cuda")
+    before = pga.K7.launches
+    got = pga.paged_decode_attention(q, kp, vp, tables, lengths)
+    assert pga.K7.launches == before + 1
+    want = pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, d**-0.5)
+    assert rel(got, want, row_dims=1) < TOL
+
+
+def test_paged_batch_engine_on_the_card(cuda, tmp_path):
+    from nfai_tpu_torch.config import EngineConfig, SamplingParams
+    from nfai_tpu_torch.gguf import GGMLType
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine, RequestState
+    from nfai_tpu_torch.testing import make_tiny_llama_gguf
+
+    path = make_tiny_llama_gguf(tmp_path / "t.gguf", hidden=256, n_heads=4, n_kv_heads=1,
+                                ffn_dim=512, vocab_size=512, quant=GGMLType.Q4_K, tied=False,
+                                context_length=512)
+    engine = InferenceEngine(path, EngineConfig(max_seq_len=256, page_size=16, prefill_chunk=64))
+    be = BatchEngine(engine, max_batch=4, decode_chunk=4)
+    before = pga.K7.launches, fd.K2.launches, fd.K3.launches
+    reqs = [be.submit(list(range(5, 5 + n)), SamplingParams(temperature=0.0, max_new_tokens=12))
+            for n in (7, 30, 70, 140, 9)]
+    for _ in range(300):
+        if be.step() == 0 and be.queue.empty():
+            break
+    assert all(r.state == RequestState.FINISHED and r.output_ids for r in reqs)
+    assert pga.K7.launches > before[0]
+    assert (fd.K2.launches, fd.K3.launches) == before[1:]

@@ -29,7 +29,9 @@ def test_every_port_module_imports_without_jax():
                          text=True, check=True, timeout=120)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"nfai_tpu_torch.ops.fused_mlp", "nfai_tpu_torch.ops.qmatmul",
-            "nfai_tpu_torch.models.llama", "nfai_tpu_torch.cli"} <= set(res["modules"])
+            "nfai_tpu_torch.models.llama", "nfai_tpu_torch.cli",
+            "nfai_tpu_torch.runtime.paged_cache", "nfai_tpu_torch.runtime.scheduler",
+            "nfai_tpu_torch.ops.paged_attention", "nfai_tpu_torch.server"} <= set(res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
