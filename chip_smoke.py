@@ -6,16 +6,19 @@
 Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
            kernel from csrc/ (one nvcc per source, in parallel)
-  kernels  hold K1-K7 against their plain PyTorch versions on the card at
-           the slice's shapes; time kernel, plain version and the library
-           yardstick with CUDA events (L2 flushed before each launch)
-  serve    per model, write a Llama-3.2-1B-width GGUF (random raw blocks),
+  kernels  hold K1-K9 against their plain PyTorch versions on the card at
+           the slice's shapes (K2/K3/K4/K7 at head_dim 64 and 128; K8/K9 at
+           the decode layouts of a batch-1 and a batch-8 routing and a
+           256-token prefill chunk); time kernel, plain version and the
+           library yardstick with CUDA events (L2 flushed before each launch)
+  serve    per model, write a GGUF of published widths (random raw blocks),
            load it with InferenceEngine(device="cuda") and answer three
-           ChatSession requests (one prompt > 256 tokens: a second prefill
-           chunk runs at an offset); TTFT and decode tok/s per request
+           ChatSession requests through its chat template (one prompt > 256
+           tokens: a second prefill chunk runs at an offset); TTFT and
+           decode tok/s per request
   batch    prefill_step on an 8x128 prompt, then decode_loop for 64 tokens
-           at batch 8, S = 1024 (the bench.py shape); decode tok/s and the
-           kernel launches per decode step
+           at batch 8, S = 1024 (the bench.py shape); decode tok/s, the
+           kernel launches and host syncs per decode step, the byte bound
   profile  torch.profiler over 8 more decode steps of that batch: device
            busy share of the wall time and device time by kernel
   server   continuous batching on model A's engine: paged vs dense
@@ -24,33 +27,43 @@ Phases (each failure propagates, the exit code is then non-zero):
            decode, then the main path with the counts zeroed: a paged
            BatchEngine serving 16 requests (prefix sharing, a 3-chunk
            prompt, mixed sampling), a starved pool that must preempt, and
-           8 concurrent HTTP requests (SSE and blocking) through the server
-  parity   2-layer full-width copies of four kinds on cuda and on cpu
-           (plain versions): prefill logits and 4 teacher-forced decode
-           steps within tolerance; the Q4_K copy also prefills one chunk of
-           more than 1024 rows (the mlp_prefill route) and runs the same
-           steps through the paged pool
-The main path is two models, each driven by serve, batch and profile, and
-model A's engine then serves continuously batched traffic:
-  A  the untied Q4_K model in the JAX package's default configuration:
-     every layer's MLP is one K5 launch (16 per decode step), no K6;
+           8 concurrent HTTP requests (SSE and blocking) through the server;
+           on model C's engine a paged BatchEngine serving 8 requests
+  parity   2-layer full-width copies on cuda and on cpu (plain versions):
+           four Llama-3.2-1B kinds and the Llama-3.2-3B widths (K1 at K =
+           3072, K5 at H = 3072, K2/K4 at head_dim 128): prefill logits and
+           4 teacher-forced decode steps within tolerance; the Q4_K copy
+           also prefills one chunk of more than 1024 rows (the mlp_prefill
+           route) and runs the same steps through the paged pool; model C:
+           each layer's MoE FFN on one routing fed to both sides, then every
+           prompt row and 4 decode steps, router near-ties left out and
+           counted
+The main path is three models, each driven by serve, batch and profile;
+model A's engine then serves continuously batched traffic, and so does C's:
+  A  the untied Q4_K Llama-3.2-1B in the JAX package's default
+     configuration: every layer's MLP is one K5 launch (16 per decode
+     step), no K6;
   B  the Q4_K_M mix llama.cpp writes: tied Q6_K table (K6 head, embedding
      rows gathered from it), Q6_K attn_v/ffn_down on 8 of 16 layers (K6),
      Q4_K elsewhere (K1); no K5, as the JAX route;
+  C  qwen3moe at Qwen3-30B-A3B's widths, 8 of its 48 layers (C_LAYERS),
+     in the Q4_K_M mix: q/k norms, NEOX rope, head_dim 128 (K2/K4 at
+     D = 128, r = 8), per layer K8 for the gate and up experts and for a
+     4-bit down, K9 for a Q6_K down, K6 for the Q6_K head and attn_v; no K5;
   server  model A through the paged pool: K7 for every decode layer, K4 on
-     the gathered pages for prefill, no K2/K3.
-The kernels' launch counts are zeroed just before each of the three paths
-and read just after; every kernel of that path must have launched, the
-kernels off its route must not, and the per-step counts must match the
-route. The line before the last is {"kernels": [...]} (launches summed
-over the three paths), the last
-{"ok": true, "device": {...}}; a run of a subset of the phases ends with
-"ok": false, since the main paths' launch checks did not run in full.
-Kernel errors are taken per output row (per batch row for decode
+     the gathered pages for prefill, no K2/K3; C server the same for C.
+The kernels' launch counts are zeroed just before each path and read just
+after; every kernel of that path must have launched, the kernels off its
+route must not, and the per-step counts must match the route. The line
+before the last is {"kernels": [...]} (launches summed over the paths),
+the last {"ok": true, "device": {...}}; a run of a subset of the phases
+ends with "ok": false, since the main paths' launch checks did not run in
+full. Kernel errors are taken per output row (per batch row for decode
 attention, per query token for prefill attention, per input row for the
-matmuls and the MLP), so a row whose output is small is held to the same
-tolerance as the largest one. Needs the repo checkout (nfai_tpu_torch) and
-a CUDA device; imports nothing of JAX.
+matmuls and the MLP, per routed row for the grouped matmuls), so a row
+whose output is small is held to the same tolerance as the largest one.
+Needs the repo checkout (nfai_tpu_torch) and a CUDA device; imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -69,8 +82,11 @@ GGUF_Q4K_BYTES_PER_WEIGHT = 144 / 256  # Q4_K's own encoding (the port's contain
 TOL = 2e-2  # max|got - want| / max|want|, the JAX package's kernel-parity rule
 
 PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity")
-MODELS = {"A": "q4_k", "B": "q4_k_m"}  # main-path model -> make_llama_1b_gguf kind
-PARITY_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied")
+# main-path model -> make_llama_1b_gguf kind ("qwen3moe": make_qwen3moe_gguf)
+MODELS = {"A": "q4_k", "B": "q4_k_m", "C": "qwen3moe"}
+C_LAYERS = 8  # model C's depth: 8 of Qwen3-30B-A3B's 48 layers, every width kept
+PARITY_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied", "llama_3b")
+NEAR_TIE = 0.01  # router-logit gap below which card and CPU may pick different experts
 
 
 def log(msg: str) -> None:
@@ -196,7 +212,9 @@ def phase_kernels(torch, timer) -> dict:
     # decode rows 1 and 8, prefill rows 256 and 1024 (the batch prefill's
     # 8x128 chunk; the head sees one row per sequence)
     shapes = {"wqkv": (2048, 3072), "wo": (2048, 2048), "wk/wv": (2048, 512),
-              "gate_up": (2048, 16384), "down": (8192, 2048), "lm_head": (2048, 128256)}
+              "gate_up": (2048, 16384), "down": (8192, 2048), "lm_head": (2048, 128256),
+              "C wq": (2048, 4096), "C wo": (4096, 2048),  # model C's head_dim-128 q and o
+              "3B wqkv": (3072, 5120), "3B wo": (3072, 3072)}  # the 3B's K = 3072 (K % 2048 != 0)
     cases = []
     for label, (k, n) in shapes.items():
         w = _q4_weight(torch, n, k, gen)
@@ -227,11 +245,14 @@ def phase_kernels(torch, timer) -> dict:
         headline=next(c for c in cases if c["shape"] == "lm_head M=8"), cases=cases,
     )
 
-    # K2 / K3 at the decode shapes: L=16, Hq=32, Hkv=8, D=64
-    L, hq, hkv, d = 16, 32, 8, 64
-    kvd = hkv * d
+    # K2 / K3 at the decode shapes: the 1B's L=16, Hq=32, Hkv=8, D=64,
+    # model C's L=8, Hq=32, Hkv=4, D=128 (r = 8; K3's row is 512 wide in
+    # both) and the 3B's Hq=24, Hkv=8, D=128 (r = 3; 2 layers of cache)
     cases2, cases3 = [], []
-    for b, s in ((1, 512), (8, 1024)):
+    for L, hq, hkv, d, b, s in ((16, 32, 8, 64, 1, 512), (16, 32, 8, 64, 8, 1024),
+                                (8, 32, 4, 128, 1, 512), (8, 32, 4, 128, 8, 1024),
+                                (2, 24, 8, 128, 8, 1024)):
+        kvd = hkv * d
         kc = torch.randn(L, b, s, kvd, device="cuda", dtype=bf, generator=gen)
         vc = torch.randn(L, b, s, kvd, device="cuda", dtype=bf, generator=gen)
         q = torch.randn(b, hq, d, device="cuda", dtype=bf, generator=gen)
@@ -243,12 +264,13 @@ def phase_kernels(torch, timer) -> dict:
         if b > 1:
             starts[0] = 0
             starts[1] = s // 3
-        layer = 5
+        layer = L // 3
         scale = d**-0.5
         got = fd.layered_decode_attention(q, kn, vn, kc, vc, layer, starts, scale)
         want = fd.decode_attention_plain(q, kn, vn, kc[layer], vc[layer], starts, scale)
         torch.cuda.synchronize()
-        err = check(f"K2 B={b} S={s} starts={starts.tolist()[:3]}...", got, want, row_dims=1)
+        err = check(f"K2 D={d} Hq={hq} Hkv={hkv} B={b} S={s} starts={starts.tolist()[:3]}...", got,
+                    want, row_dims=1)
         # timing: every row holds start old tokens
         starts_t = torch.full((b,), start, dtype=torch.int32, device="cuda")
         ms = timer(lambda: fd.layered_decode_attention(q, kn, vn, kc, vc, layer, starts_t, scale))
@@ -259,8 +281,8 @@ def phase_kernels(torch, timer) -> dict:
         lib_ms = timer(lambda: nnf.scaled_dot_product_attention(q4, kd, vd, scale=scale, enable_gqa=True))
         nbytes = 2 * (2 * b * hq * d + 2 * b * kvd + 2 * b * start * kvd)
         bb, by = bound_ms(nbytes, 4.0 * b * hq * (start + 1) * d)
-        cases2.append(dict(shape=f"B={b} S={s} start={start}", max_abs_err=err, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bb, bound_by=by, library_ms=lib_ms))
+        cases2.append(dict(shape=f"D={d} Hkv={hkv} B={b} S={s} start={start}", max_abs_err=err,
+                           ms=ms, plain_ms=plain_ms, bound_ms=bb, bound_by=by, library_ms=lib_ms))
         log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, SDPA {lib_ms:.4f})")
 
         rows = torch.randn(L, b, kvd, device="cuda", dtype=bf, generator=gen)
@@ -270,7 +292,7 @@ def phase_kernels(torch, timer) -> dict:
         fd.write_all_layers_plain(ref, rows, starts_w)
         got = fd.write_all_layers(kc.clone(), rows, starts_w)
         torch.cuda.synchronize()
-        err3 = check(f"K3 L={L} B={b} S={s}", got, ref, tol=1e-30)  # exact copy
+        err3 = check(f"K3 L={L} B={b} S={s} KVD={kvd}", got, ref, tol=1e-30)  # exact copy
         cache_t = kc.clone()
         ms = timer(lambda: fd.write_all_layers(cache_t, rows, starts_t))
         plain_ms = timer(lambda: fd.write_all_layers_plain(cache_t, rows, starts_t))
@@ -282,24 +304,29 @@ def phase_kernels(torch, timer) -> dict:
 
         lib_ms = timer(index_put)
         bb, by = bound_ms(2 * rows.numel() * 2, 0)
-        cases3.append(dict(shape=f"L={L} B={b} S={s}", max_abs_err=err3, ms=ms,
+        cases3.append(dict(shape=f"L={L} B={b} S={s} KVD={kvd}", max_abs_err=err3, ms=ms,
                            plain_ms=plain_ms, bound_ms=bb, bound_by=by, library_ms=lib_ms))
         log(f"    {ms:.4f} ms (bound {bb:.5f} by {by}, plain {plain_ms:.4f}, index_put_ {lib_ms:.4f})")
         del kc, vc, kd, vd, cache_t, ref
     results["decode_attention"] = dict(
         route="cuda", source="nfai_tpu_torch/csrc/decode_attention.cu",
         replaces="nfai_tpu/ops/fused_decode.py:465", also_replaces=["nfai_tpu/ops/fused_decode.py:200"],
-        headline=cases2[-1], cases=cases2,
+        headline=cases2[1], cases=cases2,
     )
     results["kv_write"] = dict(
         route="cuda", source="nfai_tpu_torch/csrc/kv_write.cu",
         replaces="nfai_tpu/ops/fused_decode.py:601", also_replaces=[],
-        headline=cases3[-1], cases=cases3,
+        headline=cases3[1], cases=cases3,
     )
 
-    # K4: prefill chunks against a layer of the [B, S, KVD] cache
+    # K4: prefill chunks against a layer of the [B, S, KVD] cache, at the
+    # 1B's heads (D=64), model C's (Hkv=4, D=128) and the 3B's (r = 3)
     cases4 = []
-    for b, t, s, off in ((1, 256, 1024, 0), (1, 256, 1024, 256), (8, 128, 1024, 0), (2, 16, 512, 100)):
+    for hq, hkv, d, b, t, s, off in ((32, 8, 64, 1, 256, 1024, 0), (32, 8, 64, 1, 256, 1024, 256),
+                                     (32, 8, 64, 8, 128, 1024, 0), (32, 8, 64, 2, 16, 512, 100),
+                                     (32, 4, 128, 1, 256, 1024, 0), (32, 4, 128, 1, 256, 1024, 256),
+                                     (32, 4, 128, 8, 128, 1024, 0), (24, 8, 128, 1, 256, 1024, 256)):
+        kvd = hkv * d
         q = torch.randn(b, t, hq, d, device="cuda", dtype=bf, generator=gen)
         kc = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
         vc = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
@@ -307,7 +334,7 @@ def phase_kernels(torch, timer) -> dict:
         scale = d**-0.5
         got = pa.flash_prefill_attention(q, kc, vc, offs, scale)
         torch.cuda.synchronize()
-        err = check(f"K4 B={b} T={t} S={s} offset={off}", got,
+        err = check(f"K4 D={d} Hkv={hkv} B={b} T={t} S={s} offset={off}", got,
                     pa.flash_prefill_attention_plain(q, kc, vc, offs, scale), row_dims=2)
         ms = timer(lambda: pa.flash_prefill_attention(q, kc, vc, offs, scale))
         plain_ms = timer(lambda: pa.flash_prefill_attention_plain(q, kc, vc, offs, scale), iters=3)
@@ -322,7 +349,7 @@ def phase_kernels(torch, timer) -> dict:
         visible = t * off + t * (t + 1) // 2
         nbytes = 2 * (2 * b * t * hq * d + 2 * b * span * kvd)
         bb, by = bound_ms(nbytes, 4.0 * b * hq * d * visible)
-        cases4.append(dict(shape=f"B={b} T={t} S={s} offset={off}", max_abs_err=err, ms=ms,
+        cases4.append(dict(shape=f"D={d} Hkv={hkv} B={b} T={t} S={s} offset={off}", max_abs_err=err, ms=ms,
                            plain_ms=plain_ms, bound_ms=bb, bound_by=by, library_ms=lib_ms))
         log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, SDPA {lib_ms:.4f})")
     results["prefill_attention"] = dict(
@@ -332,6 +359,7 @@ def phase_kernels(torch, timer) -> dict:
     )
     results.update(_kernels_k5_k6(torch, timer, gen))
     results.update(_kernels_k7(torch, timer, gen))
+    results.update(_kernels_k8_k9(torch, timer, gen))
     return results
 
 
@@ -344,46 +372,48 @@ def _kernels_k5_k6(torch, timer, gen) -> dict:
 
     bf = torch.bfloat16
     results = {}
-    # K5 at the 1B MLP: K = H = 2048, F = 8192; decode rows 1 and 8, prefill 256 and 1024
-    k, f, h = 2048, 8192, 2048
-    gu, dn = _q4_weight(torch, 2 * f, k, gen), _q4_weight(torch, h, f, gen)
-
-    def replaced_route(x):  # what K5 replaces: K1 gate_up, silu * up, K1 down
-        g_u = qm.q4_matmul(x, gu)
-        return qm.q4_matmul((nnf.silu(g_u[:, :f].float()) * g_u[:, f:].float()).to(bf), dn)
-
+    # K5 at the 1B MLP (K = H = 2048, F = 8192; decode rows 1 and 8, prefill
+    # 256 and 1024) and at the 3B's (K = H = 3072, rows 1, 8 and 256)
     cases = []
-    for m in (1, 8, 256, 1024):
-        x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
-        got = fm.fused_mlp(x, gu, dn)
-        torch.cuda.synchronize()
-        err = check(f"K5 M={m} K={k} F={f} H={h}", got, fm.fused_mlp_plain(x, gu, dn), row_dims=1)
-        ms = timer(lambda: fm.fused_mlp(x, gu, dn))
-        plain_ms = timer(lambda: fm.fused_mlp_plain(x, gu, dn), iters=3)
-        route_ms = timer(lambda: replaced_route(x))
-        nbytes = m * k * 2 + (2 * f * k + h * f) * 3 // 4 + m * h * 2
-        b, by = bound_ms(nbytes, 2.0 * m * k * 2 * f + 2.0 * m * f * h)
-        cases.append(dict(shape=f"M={m}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b, bound_by=by, library_ms=None, replaced_route_ms=route_ms))
-        log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, "
-            f"replaced route K1 + silu*mul + K1 {route_ms:.4f}; no single library call)")
+    for k, f, h, rows in ((2048, 8192, 2048, (1, 8, 256, 1024)), (3072, 8192, 3072, (1, 8, 256))):
+        gu, dn = _q4_weight(torch, 2 * f, k, gen), _q4_weight(torch, h, f, gen)
+
+        def replaced_route(x):  # what K5 replaces: K1 gate_up, silu * up, K1 down
+            g_u = qm.q4_matmul(x, gu)
+            return qm.q4_matmul((nnf.silu(g_u[:, :f].float()) * g_u[:, f:].float()).to(bf), dn)
+
+        for m in rows:
+            x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
+            got = fm.fused_mlp(x, gu, dn)
+            torch.cuda.synchronize()
+            err = check(f"K5 M={m} K={k} F={f} H={h}", got, fm.fused_mlp_plain(x, gu, dn), row_dims=1)
+            ms = timer(lambda: fm.fused_mlp(x, gu, dn))
+            plain_ms = timer(lambda: fm.fused_mlp_plain(x, gu, dn), iters=3)
+            route_ms = timer(lambda: replaced_route(x))
+            nbytes = m * k * 2 + (2 * f * k + h * f) * 3 // 4 + m * h * 2
+            b, by = bound_ms(nbytes, 2.0 * m * k * 2 * f + 2.0 * m * f * h)
+            cases.append(dict(shape=f"M={m}" + ("" if k == 2048 else f" H={h}"), max_abs_err=err,
+                              ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+                              replaced_route_ms=route_ms))
+            log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, "
+                f"replaced route K1 + silu*mul + K1 {route_ms:.4f}; no single library call)")
+        del gu, dn
     results["fused_mlp"] = dict(
         route="cuda", source="nfai_tpu_torch/csrc/fused_mlp.cu",
         replaces="nfai_tpu/ops/fused_mlp.py:201", also_replaces=[],
         headline=cases[1], cases=cases,
     )
-    del gu, dn
 
     # K6: the tied Q6_K head, Q8_0 wqkv and down, model B's Q6_K wv and
     # w_down; rows 1, 8, 256 and, below the head, 1024 (B's batch prefill)
     shapes = {"Q6_K head": (2048, 128256, 16, 32), "Q8_0 wqkv": (2048, 3072, 32, 127),
               "Q8_0 down": (8192, 2048, 32, 127), "Q6_K wv": (2048, 512, 16, 32),
-              "Q6_K w_down": (8192, 2048, 16, 32)}
+              "Q6_K w_down": (8192, 2048, 16, 32), "C Q6_K head": (2048, 151936, 16, 32)}
     cases = []
     for label, (k, n, group, qmax) in shapes.items():
         w = _q8_weight(torch, n, k, group, qmax, gen)
         wd = dequant(w).to(bf)
-        for m in (1, 8, 256) if label == "Q6_K head" else (1, 8, 256, 1024):
+        for m in (1, 8, 256) if label.endswith("head") else (1, 8, 256, 1024):
             x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
             got = qm.q8_matmul(x, w)
             torch.cuda.synchronize()
@@ -432,17 +462,22 @@ def _kernels_k7(torch, timer, gen) -> dict:
     from nfai_tpu_torch.ops import paged_attention as pa
 
     bf = torch.bfloat16
-    hq, hkv, d = 32, 8, 64
-    scale = d**-0.5
     ragged = [1, 127, 128, 129, 500, 777, 1000, 1024]
-    # (label, B, page size, lengths); every case is checked per batch row
-    cases_in = (("B=8 ps=128 S=1024", 8, 128, [1024] * 8),
-                ("B=8 ps=128 ragged", 8, 128, ragged),
-                ("B=1 ps=128 len=512", 1, 128, [512]),
-                ("B=8 ps=16 S=1024", 8, 16, [1024] * 8),
-                ("B=8 ps=16 ragged", 8, 16, [1, 15, 16, 17, 500, 777, 1000, 1024]))
+    # (label, Hq, Hkv, D, B, page size, lengths); every case is checked per
+    # batch row; the 1B's heads (Hkv=8, D=64), model C's (Hkv=4, D=128), the
+    # 3B's (Hq=24, r = 3)
+    cases_in = (("B=8 ps=128 S=1024", 32, 8, 64, 8, 128, [1024] * 8),
+                ("B=8 ps=128 ragged", 32, 8, 64, 8, 128, ragged),
+                ("B=1 ps=128 len=512", 32, 8, 64, 1, 128, [512]),
+                ("B=8 ps=16 S=1024", 32, 8, 64, 8, 16, [1024] * 8),
+                ("B=8 ps=16 ragged", 32, 8, 64, 8, 16, [1, 15, 16, 17, 500, 777, 1000, 1024]),
+                ("D=128 Hkv=4 B=8 ps=128 S=1024", 32, 4, 128, 8, 128, [1024] * 8),
+                ("D=128 Hkv=4 B=8 ps=128 ragged", 32, 4, 128, 8, 128, ragged),
+                ("D=128 Hkv=4 B=1 ps=128 len=512", 32, 4, 128, 1, 128, [512]),
+                ("D=128 Hq=24 Hkv=8 B=8 ps=128 ragged", 24, 8, 128, 8, 128, ragged))
     cases = []
-    for label, b, ps, lens in cases_in:
+    for label, hq, hkv, d, b, ps, lens in cases_in:
+        scale = d**-0.5
         n_p = -(-max(lens) // ps)
         n_pages = b * n_p + 16  # >= 80 pages at ps = 128
         kp = torch.randn(hkv, n_pages, ps, d, device="cuda", dtype=bf, generator=gen)
@@ -487,6 +522,101 @@ def _kernels_k7(torch, timer, gen) -> dict:
         replaces="nfai_tpu/ops/paged_attention.py:113", also_replaces=[],
         headline=cases[0], cases=cases,
     )}
+
+
+def _routing_layout(torch, n_tokens, e, used, gen):
+    """A batch of n_tokens each routed to `used` distinct experts drawn at
+    random (a random-weight router's routing), laid out group-aligned as
+    moe_ffn lays it out: (x_pad rows, dst, block_group, block_rows, tm,
+    distinct experts hit)."""
+    from nfai_tpu_torch.models.llama import group_tm, moe_group_layout
+
+    idx = torch.rand(n_tokens, e, device="cuda", generator=gen).argsort(-1)[:, :used]
+    rows = n_tokens * used
+    tm = group_tm(rows)
+    _, dst, bg, br, m_pad = moe_group_layout(idx.reshape(-1), rows, e, tm)
+    return m_pad, dst, bg, br, tm, int(torch.unique(idx).numel())
+
+
+def _kernels_k8_k9(torch, timer, gen) -> dict:
+    """K8 (4-bit) and K9 (8-bit) at model C's expert shapes: gate/up
+    [128, 768, 2048] and down [128, 2048, 768], at the decode layouts of a
+    batch-1 and a batch-8 routing (8 and 64 rows, tm 8), a 256-token
+    prefill chunk (2048 rows, tm 32) and the batch phase's 8 x 128-token
+    prefill (8192 rows, tm 128); per routed row against the plain version.
+    Yardstick: the hit experts of every block dequantized to bf16, then one
+    torch.bmm over the blocks."""
+    from nfai_tpu_torch.ops import qmatmul as qm
+    from nfai_tpu_torch.ops.qtensor import Q4Tensor, Q8Tensor, dequant
+
+    bf = torch.bfloat16
+    e, used, h, f = 128, 8, 2048, 768
+
+    def stack(kind, n, k, group=32, with_mins=False):
+        if kind == "q4":
+            return Q4Tensor(
+                torch.randint(0, 256, (e, n, k // 2), dtype=torch.uint8, device="cuda", generator=gen),
+                torch.rand(e, n, k // 32, device="cuda", generator=gen) * 2e-3 + 1e-4,
+                torch.rand(e, n, k // 32, device="cuda", generator=gen) * 1.5e-2, k, n)
+        return Q8Tensor(
+            torch.randint(-32, 32, (e, n, k), dtype=torch.int8, device="cuda", generator=gen),
+            torch.rand(e, n, k // group, device="cuda", generator=gen) * 1e-3 + 1e-5,
+            torch.rand(e, n, k // group, device="cuda", generator=gen) * 1e-2 if with_mins else None,
+            k, n, group)
+
+    weights = {"grouped_q4": {"gate/up": stack("q4", f, h), "down": stack("q4", h, f)},
+               "grouped_q8": {"Q6_K down": stack("q8", h, f, group=16)}}
+    layouts = {"batch 1": _routing_layout(torch, 1, e, used, gen),
+               "batch 8": _routing_layout(torch, 8, e, used, gen),
+               "prefill 256": _routing_layout(torch, 256, e, used, gen),
+               "batch prefill 8x128": _routing_layout(torch, 8 * 128, e, used, gen)}
+    results = {}
+    for name, ws in weights.items():
+        cases = []
+        for label, w in ws.items():
+            per_expert = sum(t[0].numel() * t.element_size()
+                             for t in (w.qs, w.scales) + (() if w.mins is None else (w.mins,)))
+            for lname, (m_pad, dst, bg, br, tm, hit) in layouts.items():
+                rows = dst.numel()
+                x = torch.zeros(m_pad, w.k, device="cuda", dtype=bf)
+                x[dst] = torch.randn(rows, w.k, device="cuda", dtype=bf, generator=gen)
+                got = qm.qmatmul_grouped(x, w, bg, tm, br)
+                torch.cuda.synchronize()
+                want = qm.qmatmul_grouped_plain(x, w, bg, tm, br)
+                err = check(f"{'K8' if name == 'grouped_q4' else 'K9'} {label} {lname}: {rows} rows, "
+                            f"m_pad {m_pad}, tm {tm}, {hit} experts hit", got[dst], want[dst],
+                            row_dims=1)
+                if bool((got.float().abs().sum(-1) == 0).sum() != m_pad - rows):
+                    raise AssertionError("padding rows must be zero and routed rows not")
+                ms = timer(lambda: qm.qmatmul_grouped(x, w, bg, tm, br))
+                plain_ms = timer(lambda: qm.qmatmul_grouped_plain(x, w, bg, tm, br), iters=3)
+                g = bg.long()
+                xb = x.view(m_pad // tm, tm, w.k)
+                lib_ms = timer(lambda: torch.bmm(xb, dequant(w._map(lambda t: t[g])).to(bf).transpose(1, 2)),
+                               iters=3)
+                nbytes = hit * per_expert + rows * (w.k + w.n) * 2 + bg.numel() * 8
+                b, by = bound_ms(nbytes, 2.0 * rows * w.k * w.n)
+                cases.append(dict(shape=f"{label} K={w.k} N={w.n} {lname} ({rows} rows, tm {tm})",
+                                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                                  bound_by=by, library_ms=lib_ms,
+                                  library="dequantized hit experts + torch.bmm"))
+                log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, "
+                    f"dequantize hit experts + bmm {lib_ms:.4f})")
+                del x, want, got
+        if name == "grouped_q8":  # with mins (Q5_K / Q2_K kinds), g32: checked, not timed
+            wm = stack("q8", h, f, group=32, with_mins=True)
+            m_pad, dst, bg, br, tm, _ = layouts["batch 8"]
+            x = torch.zeros(m_pad, f, device="cuda", dtype=bf)
+            x[dst] = torch.randn(dst.numel(), f, device="cuda", dtype=bf, generator=gen)
+            check("K9 g32 with mins batch 8", qm.qmatmul_grouped(x, wm, bg, tm, br)[dst],
+                  qm.qmatmul_grouped_plain(x, wm, bg, tm, br)[dst], row_dims=1)
+        results[name] = dict(
+            route="cuda", source="nfai_tpu_torch/csrc/grouped_matmul.cu",
+            replaces="nfai_tpu/ops/qmatmul.py:1098" if name == "grouped_q4" else "nfai_tpu/ops/qmatmul.py:1144",
+            also_replaces=["nfai_tpu/ops/qmatmul.py:1014"],
+            headline=cases[1], cases=cases,
+        )
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -554,14 +684,67 @@ def phase_batch(torch, engine, kernels_mod) -> dict:
     per_step = {k.name: (k.launches - before[k.name]) / n for k in kernels_mod.KERNELS.values()}
     if not bool((toks >= 0).all() & (toks < cfg.vocab_size).all()):
         raise AssertionError("decode produced out-of-range token ids")
+    syncs, where = _syncs_per_step(torch, engine, (first, pos + n, cache, gen))
     out = dict(prefill_ms=prefill_s * 1e3, prefill_tok_s=b * t / prefill_s,
                decode_ms_per_step=dec_s / n * 1e3, decode_tok_s=b * n / dec_s,
-               launches_per_step=per_step, state=(first, pos + n, cache, gen))
+               launches_per_step=per_step, host_syncs_per_step=syncs,
+               decode_bound_ms={f"batch {bb}": _decode_bound_ms(engine, bb) for bb in (1, b)},
+               state=(first, pos + n + 2, cache, gen))
     log(f"  batch {b}, prompt {t}, S 1024: prefill {prefill_s * 1e3:.1f} ms "
         f"({b * t / prefill_s:.0f} tok/s); decode {n} steps {dec_s * 1e3:.1f} ms "
         f"= {dec_s / n * 1e3:.2f} ms/step, {b * n / dec_s:.1f} tok/s; "
-        f"kernel launches per step {per_step}")
+        f"kernel launches per step {per_step}; host syncs per step {syncs} {where}; "
+        f"byte bound of a step {out['decode_bound_ms']} ms")
     return out
+
+
+def _syncs_per_step(torch, engine, state, n=2):
+    """Host syncs per decode step, counted with torch.cuda.set_sync_debug_mode
+    ("warn") over n steps; returns (syncs per step, the distinct warnings)."""
+    import warnings
+
+    from nfai_tpu_torch.models import decode_loop
+
+    tok, pos, cache, gen = state
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            decode_loop(engine.params, engine.model_cfg, tok, pos, cache, gen, n)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).splitlines()[0][:120] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    return len(syncs) / n, sorted(set(syncs))
+
+
+def _decode_bound_ms(engine, batch: int) -> float:
+    """The least time of one decode step at `batch` rows: every weight the
+    step reads, once, over the HBM rate, from the containers loaded (a MoE
+    layer reads the experts a random routing is expected to hit:
+    E (1 - (1 - k/E)^batch) of each stack). Caches and activations are
+    left out."""
+    from nfai_tpu_torch.ops.qtensor import LayerList
+
+    cfg = engine.model_cfg
+
+    def nbytes(w):
+        if isinstance(w, LayerList):
+            return sum(nbytes(it) for it in w.items)
+        if hasattr(w, "qs"):
+            return sum(t.numel() * t.element_size()
+                       for t in (w.qs, w.scales) + (() if w.mins is None else (w.mins,)))
+        return w.numel() * w.element_size()
+
+    total = nbytes(engine.params["lm_head"])
+    for key, w in engine.params["layers"].items():
+        part = nbytes(w)
+        if key.endswith("_exps"):
+            e, k = cfg.n_experts, cfg.n_experts_used
+            part *= (1 - (1 - k / e) ** batch)
+        total += part
+    return total / PEAK_BYTES_S * 1e3
 
 
 def phase_profile(torch, engine, state, tables=None) -> dict:
@@ -619,9 +802,12 @@ def phase_parity(torch, path2, kind) -> dict:
     from nfai_tpu_torch.ops.fused_mlp import MLP_FUSED_MAX_ROWS
     from nfai_tpu_torch.runtime.engine import InferenceEngine
 
+    from nfai_tpu_torch.kernels import KERNELS
+
     torch.set_num_threads(os.cpu_count() or 8)
     ecfg = EngineConfig(max_seq_len=256)
     engines = {dev: InferenceEngine(path2, ecfg, device=dev) for dev in ("cuda", "cpu")}
+    before = {k.name: k.launches for k in KERNELS.values()}
     rels = []
 
     def compare(name, logits):
@@ -653,7 +839,91 @@ def phase_parity(torch, path2, kind) -> dict:
                 KVCache.zeros(e.model_cfg, 1, 1152, e.cache_dtype, e.device))
         compare(f"prefill logits ({t} rows in one chunk: mlp_prefill)", logits)
         _paged_parity(torch, engines, ids, compare)
-    return {"max_rel_err": max(rels)}
+    launches = {k.name: k.launches - before[k.name] for k in KERNELS.values()}
+    if kind == "llama_3b":  # K = 3072, head_dim 128; K5 where mlp_eligible takes H = 3072
+        cfg = engines["cuda"].model_cfg
+        log(f"  llama_3b copy (hidden {cfg.hidden_size}, head_dim {cfg.head_dim}, fused MLP "
+            f"{engines['cuda'].params['fused_mlp']}) launches: {launches}")
+        if cfg.head_dim != 128 or not engines["cuda"].params["fused_mlp"] or any(
+                launches[n] <= 0 for n in ("q4_matmul", "fused_mlp", "decode_attention",
+                                           "prefill_attention")):
+            raise AssertionError(f"the 3B-width copy did not take its route: {launches}")
+    return {"max_rel_err": max(rels), "launches": launches}
+
+
+def phase_parity_moe(torch, path2) -> dict:
+    """A 2-layer model C copy on cuda and on cpu. First each layer's MoE FFN
+    with one routing fed to both sides (the CPU's), per row within TOL; then
+    the whole model on a ChatML prompt: the logits of every prompt row and of
+    4 teacher-forced decode steps, per row, leaving out the rows whose own
+    token has a near-tie in the router (k-th and (k+1)-th router logits
+    within NEAR_TIE on the CPU, at any layer), where the card may rightly
+    pick another expert; their count is printed."""
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.models import KVCache, decode_step, forward, logits_for
+    from nfai_tpu_torch.models import llama as tllama
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    torch.set_num_threads(os.cpu_count() or 8)
+    engines = {dev: InferenceEngine(path2, EngineConfig(max_seq_len=256), device=dev)
+               for dev in ("cuda", "cpu")}
+    cfg = engines["cpu"].model_cfg
+    route = tllama.moe_route
+    try:
+        x = torch.randn(24, cfg.hidden_size, generator=torch.Generator().manual_seed(4)).to(torch.bfloat16)
+        for layer in range(cfg.n_layers):
+            vals, idx = route(x, engines["cpu"].params["layers"]["router"][layer],
+                              cfg.n_experts_used, cfg.norm_topk_prob)
+            tllama.moe_route = lambda xx, *_: (vals.to(xx.device), idx.to(xx.device))
+            ffn = {dev: tllama.moe_ffn(e.params, cfg, x.to(e.device), layer)
+                   for dev, e in engines.items()}
+            kind = type(engines["cpu"].params["layers"]["w_down_exps"].layer(layer)).__name__
+            check(f"qwen3moe layer {layer} MoE FFN (down {kind}), one routing fed to both", ffn["cuda"],
+                  ffn["cpu"], row_dims=1)
+        margins = []
+
+        def recording(xx, router, n_used, norm_topk):
+            if xx.device.type == "cpu":
+                top = torch.topk(xx.float() @ router.float(), n_used + 1, dim=-1).values
+                margins.append(top[:, n_used - 1] - top[:, n_used])
+            return route(xx, router, n_used, norm_topk)
+
+        tllama.moe_route = recording
+        tok = engines["cpu"].tokenizer
+        ids = tok.encode(engines["cpu"].chat_template.render(
+            [{"role": "user", "content": "Parity between the card and the plain versions."}]),
+            add_bos=False)
+        n = len(ids)
+        logits, caches = {}, {}
+        for dev, e in engines.items():
+            cache = KVCache.zeros(cfg, 1, 256, e.cache_dtype, e.device)
+            h, caches[dev] = forward(e.params, cfg, torch.tensor([ids], device=e.device),
+                                     torch.arange(n, device=e.device)[None], cache)
+            logits[dev] = logits_for(e.params, h[0])
+        rows = [(f"prompt row {i}", logits["cuda"][i], logits["cpu"][i]) for i in range(n)]
+        near = [float(torch.stack([m[i] for m in margins]).min()) < NEAR_TIE for i in range(n)]
+        pos = n
+        for step, t in enumerate((17, 99, 200, 42)):
+            margins.clear()
+            for dev, e in engines.items():
+                logits[dev], caches[dev] = decode_step(
+                    e.params, cfg, torch.tensor([t], device=e.device),
+                    torch.tensor([pos], device=e.device), caches[dev])
+            rows.append((f"decode step {step}", logits["cuda"][0], logits["cpu"][0]))
+            near.append(float(torch.stack([m[0] for m in margins]).min()) < NEAR_TIE)
+            pos += 1
+    finally:
+        tllama.moe_route = route
+    kept = [(name, a, b) for (name, a, b), nt in zip(rows, near) if not nt]
+    log(f"  qwen3moe: {sum(near)} of {len(rows)} rows left out as router near-ties "
+        f"(gap < {NEAR_TIE}); {len(kept)} compared")
+    if len(kept) < len(rows) // 2:
+        raise AssertionError("too many near-ties for the parity to mean anything")
+    got = torch.stack([a.float().cpu() for _, a, _ in kept])
+    want = torch.stack([b.float().cpu() for _, _, b in kept])
+    check(f"qwen3moe logits of {len(kept)} rows (prompt {n} tokens, 4 decode steps)", got, want,
+          row_dims=1)
+    return dict(rows=len(rows), near_ties=sum(near), max_rel_err=errors(got, want, 1)[1])
 
 
 def _paged_parity(torch, engines, ids, compare) -> None:
@@ -975,22 +1245,79 @@ def phase_server(torch, engine, kernels_mod) -> tuple[dict, dict]:
 # kernels each main path must launch, and those its route must not
 ROUTES = {
     "A": ({"q4_matmul", "decode_attention", "kv_write", "prefill_attention", "fused_mlp"},
-          {"q8_matmul", "paged_attention"}),
+          {"q8_matmul", "paged_attention", "grouped_q4", "grouped_q8"}),
     "B": ({"q4_matmul", "decode_attention", "kv_write", "prefill_attention", "q8_matmul"},
-          {"fused_mlp", "paged_attention"}),
+          {"fused_mlp", "paged_attention", "grouped_q4", "grouped_q8"}),
     "server": ({"q4_matmul", "paged_attention", "prefill_attention", "fused_mlp"},
-               {"decode_attention", "kv_write", "q8_matmul"}),
+               {"decode_attention", "kv_write", "q8_matmul", "grouped_q4", "grouped_q8"}),
+    "C": ({"q4_matmul", "q8_matmul", "decode_attention", "kv_write", "prefill_attention",
+           "grouped_q4", "grouped_q8"}, {"fused_mlp", "paged_attention"}),
+    "C server": ({"q4_matmul", "q8_matmul", "paged_attention", "prefill_attention",
+                  "grouped_q4", "grouped_q8"}, {"decode_attention", "kv_write", "fused_mlp"}),
 }
+
+
+def _check_moe_step(engine, per_step) -> None:
+    """Model C's decode step launches what its route implies: per layer K8
+    for gate and up and for a 4-bit down, K9 for a Q6_K down."""
+    from nfai_tpu_torch.ops.qtensor import Q4Tensor
+
+    cfg, down = engine.model_cfg, engine.params["layers"]["w_down_exps"]
+    q4_down = sum(isinstance(down.layer(i), Q4Tensor) for i in range(cfg.n_layers))
+    want = {"grouped_q4": 2 * cfg.n_layers + q4_down, "grouped_q8": cfg.n_layers - q4_down,
+            "fused_mlp": 0}
+    got = {k: per_step[k] for k in want}
+    log(f"  model C per-step grouped launches {got}, route implies {want}")
+    if got != want or not 0 < q4_down < cfg.n_layers:
+        raise AssertionError(f"model C: grouped launches per step {got}, route implies {want}")
+
+
+def _moe_server_run(torch, engine) -> dict:
+    """A paged BatchEngine on model C: 8 requests of 30-600 tokens, 32 new
+    tokens each, half greedy and half at temperature 0.8 with top_k 20 or
+    40."""
+    from nfai_tpu_torch.config import SamplingParams
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine
+
+    rng = torch.Generator().manual_seed(8)
+    lens = (30, 95, 160, 240, 330, 420, 510, 600)
+    vocab = engine.model_cfg.vocab_size
+    prompts = [torch.randint(300, vocab, (n,), generator=rng).tolist() for n in lens]
+    sampling = [SamplingParams(temperature=0.0, max_new_tokens=32) if i % 2 == 0 else
+                SamplingParams(temperature=0.8, top_k=(20, 40)[i // 2 % 2], top_p=0.95,
+                               max_new_tokens=32) for i in range(len(prompts))]
+    be = BatchEngine(engine, max_batch=8, decode_chunk=8, paged=True)
+    _sync(torch)
+    t0 = time.perf_counter()
+    reqs = [be.submit(p, sp) for p, sp in zip(prompts, sampling)]
+    _drive(be, reqs)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    n_out = sum(len(r.output_ids) for r in reqs)
+    ttft = _pcts([r.ttft_s * 1e3 for r in reqs])
+    out = dict(requests=len(reqs), prompt_tokens=sum(lens), new_tokens=n_out, wall_s=wall,
+               tok_s=n_out / wall, ttft_ms=ttft, pool_mb=be.cache.nbytes / 1e6,
+               output_lengths=[len(r.output_ids) for r in reqs])
+    log(f"  model C BatchEngine: {len(reqs)} requests, {sum(lens)} prompt tokens, {n_out} new in "
+        f"{wall:.2f} s = {n_out / wall:.1f} tok/s aggregate; TTFT p50 {ttft['p50']:.1f} / max "
+        f"{ttft['max']:.1f} ms; pool {out['pool_mb']:.1f} MB; outputs {out['output_lengths']}")
+    if any(not 0 < n <= 32 for n in out["output_lengths"]):
+        raise AssertionError(f"output lengths {out['output_lengths']}")
+    del be
+    return out
 
 
 def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> dict:
     """Serve (and batch, profile) one model with the launch counts zeroed
     just before; returns the counts read just after, checked against the
     model's route."""
-    from nfai_tpu_torch.testing import make_llama_1b_gguf
+    from nfai_tpu_torch.testing import make_llama_1b_gguf, make_qwen3moe_gguf
 
     t0 = time.perf_counter()
-    path = make_llama_1b_gguf(os.path.join(tmp, f"llama1b_{kind}.gguf"), kind=kind)
+    if kind == "qwen3moe":
+        path = make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe.gguf"), n_layers=C_LAYERS)
+    else:
+        path = make_llama_1b_gguf(os.path.join(tmp, f"llama1b_{kind}.gguf"), kind=kind)
     log(f"model {label} ({kind}): wrote {path.stat().st_size / 2**30:.2f} GiB GGUF "
         f"in {time.perf_counter() - t0:.1f}s")
     out = {}
@@ -1024,12 +1351,24 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
                                  f"not one per layer ({n_layers})")
         if label == "B" and not per_step["q8_matmul"] > 0:
             raise AssertionError("model B: no K6 launch in a decode step")
+        if label == "C":
+            _check_moe_step(engine, per_step)
     summary[f"model {label}"] = out
     by_path = {label: launches}
     if label == "A" and "server" in only:  # on the engine already loaded
         t0 = time.perf_counter()
         summary["server"], by_path["server"] = phase_server(torch, engine, kernels_mod)
         phase_s["server"] = time.perf_counter() - t0
+    if label == "C" and "server" in only:
+        t0 = time.perf_counter()
+        kernels_mod.reset_launches()
+        summary["server C"] = _moe_server_run(torch, engine)
+        by_path["C server"] = launches = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
+        log(f"  model C server main-path launches: {launches}")
+        must, must_not = ROUTES["C server"]
+        if any(launches[n] <= 0 for n in must) or any(launches[n] != 0 for n in must_not):
+            raise AssertionError(f"model C's server path did not take its route: {launches}")
+        phase_s["server C"] = time.perf_counter() - t0
     del served, engine
     os.remove(path)
     torch.cuda.empty_cache()
@@ -1051,7 +1390,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from nfai_tpu_torch import kernels as kernels_mod
-    from nfai_tpu_torch.testing import make_llama_1b_gguf
+    from nfai_tpu_torch.testing import make_llama_1b_gguf, make_qwen3moe_gguf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1084,6 +1423,9 @@ def main(argv=None) -> int:
                                            kind=kind, n_layers=2)
                 summary["parity"][kind] = phase_parity(torch, path2, kind)
                 os.remove(path2)
+            path2 = make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe_2l.gguf"), n_layers=2)
+            summary["parity"]["qwen3moe"] = phase_parity_moe(torch, path2)
+            os.remove(path2)
             phase_s["parity"] = time.perf_counter() - t0
         log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "
             f"total {time.perf_counter() - t_all:.1f}")

@@ -20,26 +20,28 @@
 // sequential grid axis, with the page id prefetched as a scalar into the
 // BlockSpec index map and pages past the length skipped; here a block walks
 // only the tiles below lengths[b] (the same page skip) and loads its own
-// row of the table. Sixteen warps take 32-key tiles in turn. In a tile each
-// lane owns one key: it looks up the key's page in the table, reads the
-// key's 128-byte head row and computes the r scores against the scaled
+// row of the table. Sixteen warps take 32-key tiles in turn. In
+// a tile each lane owns one key: it looks up the key's page in the table,
+// reads the key's head row and computes the r scores against the scaled
 // queries kept in shared memory; the warp runs the online-softmax update,
 // and for P @ V lane l owns dims (2l, 2l+1) and reads each value row (its
 // pool offset shuffled from the lane that owns the key) as one coalesced
 // 128-byte line. Keys past lengths[b] (the ragged last page) are masked.
-// The sixteen warps' (max, sum, acc) states merge through shared memory.
-// D = 64, r <= 8, any page size. Page ids outside [0, P) are clamped into
-// the pool, as XLA clamps a gather index. A split over S for small
-// B * Hkv (flash-decoding) is later work.
+// The warps' (max, sum, acc) states merge through shared memory, the acc
+// buffer (64 KB at D = 128, r = 8) in dynamic shared memory, as in K2.
+// r in {1, 2, 3, 4, 8}, any page size; D = 64 or 128, a template parameter,
+// as in K2: at D = 128 a key row is 256 bytes and lane l owns dims
+// 4l..4l+3, and D = 64 does the arithmetic it did before. Page ids outside
+// [0, P) are clamped into the pool, as XLA clamps a gather index. A split
+// over S for small B * Hkv (flash-decoding) is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int D = 64;
-constexpr int WARPS = 16;
 constexpr float NEG = -1e30f;
+constexpr int WARPS = 16;
 
 __device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
@@ -50,7 +52,23 @@ __device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
   }
 }
 
-template <int R>
+// lane l's DL = D / 32 consecutive dims of a value row, as floats
+template <int D>
+__device__ __forceinline__ void load_dims(const __nv_bfloat16* row, int lane, float* v) {
+  if constexpr (D == 64) {
+    const __nv_bfloat162 v2 = reinterpret_cast<const __nv_bfloat162*>(row)[lane];
+    v[0] = __low2float(v2);
+    v[1] = __high2float(v2);
+  } else {
+    const uint2 u = reinterpret_cast<const uint2*>(row)[lane];
+    v[0] = __uint_as_float(u.x << 16);
+    v[1] = __uint_as_float(u.x & 0xFFFF0000u);
+    v[2] = __uint_as_float(u.y << 16);
+    v[3] = __uint_as_float(u.y & 0xFFFF0000u);
+  }
+}
+
+template <int D, int R>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
                   const __nv_bfloat16* __restrict__ kp,  // [Hkv, P, ps, D]
@@ -59,9 +77,10 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
                   const int* __restrict__ lengths,       // [B]
                   __nv_bfloat16* __restrict__ out,       // [B, Hq, D]
                   int n_pages, int ps, int max_pages, int hkv, float scale) {
+  constexpr int DL = D / 32;
   __shared__ float qs[R][D];
   __shared__ float wm_s[WARPS][R], wl_s[WARPS][R];
-  __shared__ float wacc[WARPS][R][D];
+  extern __shared__ float wacc[];  // [WARPS][R][D]
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hq = hkv * R;
@@ -78,12 +97,13 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
   const int* trow = tables + (size_t)b * max_pages;
   const size_t head_rows = (size_t)h * n_pages * ps;  // first pool row of kv head h
 
-  float m_run[R], l_run[R], acc[R][2];
+  float m_run[R], l_run[R], acc[R][DL];
 #pragma unroll
   for (int j = 0; j < R; ++j) {
     m_run[j] = NEG;
     l_run[j] = 0.f;
-    acc[j][0] = acc[j][1] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DL; ++i) acc[j][i] = 0.f;
   }
 
   for (int t = warp; t < n_tiles; t += WARPS) {
@@ -125,21 +145,20 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
       l_run[j] = l_run[j] * corr + psum;
-      acc[j][0] *= corr;
-      acc[j][1] *= corr;
+#pragma unroll
+      for (int i = 0; i < DL; ++i) acc[j][i] *= corr;
       m_run[j] = m_new;
     }
     const int n_in = min(32, len - t * 32);
     for (int i = 0; i < n_in; ++i) {
       const int row_i = __shfl_sync(0xffffffffu, row, i);
-      const __nv_bfloat162 v2 =
-          reinterpret_cast<const __nv_bfloat162*>(vp + (head_rows + row_i) * D)[lane];
-      const float v0 = __low2float(v2), v1 = __high2float(v2);
+      float v[DL];
+      load_dims<D>(vp + (head_rows + row_i) * D, lane, v);
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p[j], i);
-        acc[j][0] = fmaf(pj, v0, acc[j][0]);
-        acc[j][1] = fmaf(pj, v1, acc[j][1]);
+#pragma unroll
+        for (int e = 0; e < DL; ++e) acc[j][e] = fmaf(pj, v[e], acc[j][e]);
       }
     }
   }
@@ -152,10 +171,9 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
     }
   }
 #pragma unroll
-  for (int j = 0; j < R; ++j) {
-    wacc[warp][j][2 * lane] = acc[j][0];
-    wacc[warp][j][2 * lane + 1] = acc[j][1];
-  }
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int i = 0; i < DL; ++i) wacc[(warp * R + j) * D + DL * lane + i] = acc[j][i];
   __syncthreads();
   for (int e = tid; e < R * D; e += WARPS * 32) {
     const int j = e / D, d = e % D;
@@ -166,39 +184,61 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
       const float f = __expf(wm_s[w][j] - mx);
-      num += wacc[w][j][d] * f;
+      num += wacc[(w * R + j) * D + d] * f;
       den += wl_s[w][j] * f;
     }
     out[((size_t)b * hq + h * R + j) * D + d] = __float2bfloat16(num / fmaxf(den, 1e-30f));
   }
 }
 
+template <int D, int R>
+int launch_r(const void* q, const void* kp, const void* vp, const void* tables,
+             const void* lengths, void* out, int B, int hkv, int n_pages, int ps,
+             int max_pages, float scale, cudaStream_t st) {
+  constexpr int smem = WARPS * R * D * (int)sizeof(float);
+  // once per instantiation: D = 128, r = 8 is above the default 48 KB
+  static const cudaError_t err = cudaFuncSetAttribute(
+      paged_attn_kernel<D, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  paged_attn_kernel<D, R><<<dim3(hkv, B), WARPS * 32, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(tables),
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
+      n_pages, ps, max_pages, hkv, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const void* q, const void* kp, const void* vp, const void* tables,
+           const void* lengths, void* out, int B, int hkv, int r, int n_pages,
+           int ps, int max_pages, float scale, cudaStream_t st) {
+#define NFAI_LAUNCH(RR) \
+  return launch_r<D, RR>(q, kp, vp, tables, lengths, out, B, hkv, n_pages, ps, max_pages, scale, st)
+  switch (r) {
+    case 1: NFAI_LAUNCH(1);
+    case 2: NFAI_LAUNCH(2);
+    case 3: NFAI_LAUNCH(3);
+    case 4: NFAI_LAUNCH(4);
+    case 8: NFAI_LAUNCH(8);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef NFAI_LAUNCH
+}
+
 }  // namespace
 
-// q [B, Hq, 64] bf16, kp/vp [Hkv, P, ps, 64] bf16 (one layer's pool),
-// tables [B, max_pages] int32, lengths [B] int32, out [B, Hq, 64] bf16.
-// r = Hq/Hkv in {1, 2, 4, 8}.
+// q [B, Hq, D] bf16, kp/vp [Hkv, P, ps, D] bf16 (one layer's pool),
+// tables [B, max_pages] int32, lengths [B] int32, out [B, Hq, D] bf16.
+// D in {64, 128}, r = Hq/Hkv in {1, 2, 3, 4, 8}.
 extern "C" int nfai_paged_attention(const void* q, const void* kp,
                                     const void* vp, const void* tables,
                                     const void* lengths, void* out, int B,
                                     int hkv, int r, int n_pages, int ps,
-                                    int max_pages, float scale, void* stream) {
+                                    int max_pages, int d, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(hkv, B), block(WARPS * 32);
-#define NFAI_LAUNCH(RR)                                                        \
-  paged_attn_kernel<RR><<<grid, block, 0, st>>>(                               \
-      static_cast<const __nv_bfloat16*>(q),                                    \
-      static_cast<const __nv_bfloat16*>(kp),                                   \
-      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(tables), \
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),      \
-      n_pages, ps, max_pages, hkv, scale)
-  switch (r) {
-    case 1: NFAI_LAUNCH(1); break;
-    case 2: NFAI_LAUNCH(2); break;
-    case 4: NFAI_LAUNCH(4); break;
-    case 8: NFAI_LAUNCH(8); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef NFAI_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  if (d == 64)
+    return launch<64>(q, kp, vp, tables, lengths, out, B, hkv, r, n_pages, ps, max_pages, scale, st);
+  if (d == 128)
+    return launch<128>(q, kp, vp, tables, lengths, out, B, hkv, r, n_pages, ps, max_pages, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,14 +13,21 @@
 //
 // Design: one block per (64-row query tile, kv head, batch row). The r query
 // heads of the kv head are packed into the rows (row i = token i / r,
-// head i % r), so each K/V tile is loaded once for the whole GQA group.
+// head i % r), so each K/V tile is loaded once for the whole GQA group;
+// a tile holds 64 / r tokens, and where r does not divide 64 (r = 3 at
+// Llama-3.2-3B) its last 64 mod r rows are padding: zero queries, never
+// written.
 // Per 64-key tile: K and V go to shared memory as bf16, S = Q K^T on tensor
 // cores (WMMA bf16, f32 accumulate), then an online-softmax pass (two
-// threads per row) writes P as bf16 over the K tile, and P V runs on tensor
-// cores again; the f32 output rows live in registers and are rescaled per
-// tile. Key tiles wholly in the causal future of the query tile are never
-// visited. D = 64, r divides 64, S % 64 == 0. Double buffering, TMA and
-// wgmma are later work.
+// threads per row, 32 keys each) writes P as bf16 over the K tile, and P V
+// runs on tensor cores again; the f32 output rows (D/2 dims per thread)
+// live in registers and are rescaled per tile. Key tiles wholly in the
+// causal future of the query tile are never visited. D = 64 or 128 (a
+// template parameter), r <= 64, S % 64 == 0. The tiles sit in dynamic
+// shared memory: 44 KB at D = 64, 84 KB at D = 128 (a key row is 256 bytes
+// there), past the 48 KB default, so the launcher raises the kernel's
+// limit first; D = 64 runs the arithmetic it ran before the head width
+// became a parameter. Double buffering, TMA and wgmma are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -28,9 +35,18 @@
 
 namespace {
 
-constexpr int D = 64, ROWS = 64, BS = 64, LDH = 72, LDF = 68;
+constexpr int ROWS = 64, BS = 64;
 constexpr float NEG = -1e30f;
 
+// shared-memory strides (elements) and size at head width D
+template <int D>
+struct Tiles {
+  static constexpr int LDH = D + 8;                    // bf16 rows of Q, K|P, V
+  static constexpr int LDF = (D > BS ? D : BS) + 4;    // f32 rows of S, then P V
+  static constexpr size_t BYTES = 3 * ROWS * LDH * 2 + ROWS * LDF * 4;
+};
+
+template <int D>
 __global__ void __launch_bounds__(128)
 prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
                     const __nv_bfloat16* __restrict__ kc,  // [B, S, KVD]
@@ -39,11 +55,14 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
                     __nv_bfloat16* __restrict__ out,       // [B, T, Hq, D]
                     int T, int S, int hkv, int r, float scale) {
   using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 Qs[ROWS * LDH];
-  __shared__ __align__(32) __nv_bfloat16 KPs[BS * LDH];  // K tile, then P
-  __shared__ __align__(32) __nv_bfloat16 Vs[BS * LDH];
-  __shared__ __align__(32) float Ss[ROWS * LDF];          // scores, then P V
+  constexpr int LDH = Tiles<D>::LDH, LDF = Tiles<D>::LDF, DH = D / 2;
+  extern __shared__ __align__(32) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* KPs = Qs + ROWS * LDH;  // K tile, then P
+  __nv_bfloat16* Vs = KPs + BS * LDH;
+  float* Ss = reinterpret_cast<float*>(Vs + BS * LDH);  // scores, then P V
   const int tt = ROWS / r;  // tokens per query tile
+  const int rows_used = tt * r;  // the rest of the 64 rows are padding
   const int t0 = blockIdx.x * tt, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int hq = hkv * r, kvd = hkv * D;
@@ -52,15 +71,16 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
   for (int e = tid; e < ROWS * D; e += 128) {
     const int i = e / D, d = e % D, t = t0 + i / r;
     float v = 0.f;
-    if (t < T) v = __bfloat162float(q[(((size_t)b * T + t) * hq + h * r + i % r) * D + d]) * scale;
+    if (i < rows_used && t < T)
+      v = __bfloat162float(q[(((size_t)b * T + t) * hq + h * r + i % r) * D + d]) * scale;
     Qs[i * LDH + d] = __float2bfloat16(v);
   }
   // the row this thread softmaxes / accumulates, and which half of it
   const int row = tid >> 1, half = tid & 1;
   const int qpos = offset + t0 + row / r;
-  float m_run = NEG, l_run = 0.f, o[32];
+  float m_run = NEG, l_run = 0.f, o[DH];
 #pragma unroll
-  for (int c = 0; c < 32; ++c) o[c] = 0.f;
+  for (int c = 0; c < DH; ++c) o[c] = 0.f;
 
   const int t_last = min(t0 + tt, T) - 1;
   const int n_tiles = min(S / BS, (offset + t_last) / BS + 1);
@@ -74,32 +94,32 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
     }
     __syncthreads();
     {  // S = Q K^T: warp w owns rows [16w, 16w + 16)
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BS / 16];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
+      for (int j = 0; j < BS / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
 #pragma unroll
       for (int kk = 0; kk < D; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
         wmma::load_matrix_sync(fa, &Qs[warp * 16 * LDH + kk], LDH);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < BS / 16; ++j) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
           wmma::load_matrix_sync(fb, &KPs[j * 16 * LDH + kk], LDH);
           wmma::mma_sync(acc[j], fa, fb, acc[j]);
         }
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < BS / 16; ++j)
         wmma::store_matrix_sync(&Ss[warp * 16 * LDF + j * 16], acc[j], LDF, wmma::mem_row_major);
     }
     __syncthreads();
     float corr;
-    {  // online softmax over this thread's 32 columns of its row
-      float sv[32], mx = NEG;
+    {  // online softmax over this thread's 32 keys of its row
+      float sv[BS / 2], mx = NEG;
 #pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const int s = s0 + half * 32 + c;
-        sv[c] = s <= qpos ? Ss[row * LDF + half * 32 + c] : -INFINITY;
+      for (int c = 0; c < BS / 2; ++c) {
+        const int s = s0 + half * (BS / 2) + c;
+        sv[c] = s <= qpos ? Ss[row * LDF + half * (BS / 2) + c] : -INFINITY;
         mx = fmaxf(mx, sv[c]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -107,64 +127,79 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
       corr = __expf(m_run - m_new);
       float ps = 0.f;
 #pragma unroll
-      for (int c = 0; c < 32; ++c) {
+      for (int c = 0; c < BS / 2; ++c) {
         const float p = __expf(sv[c] - m_new);
         ps += p;
-        KPs[row * LDH + half * 32 + c] = __float2bfloat16(p);
+        KPs[row * LDH + half * (BS / 2) + c] = __float2bfloat16(p);
       }
       ps += __shfl_xor_sync(0xffffffffu, ps, 1);
       l_run = l_run * corr + ps;
       m_run = m_new;
     }
     __syncthreads();
-    {  // P V: warp w owns rows [16w, 16w + 16), all 64 dims
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+    {  // P V: warp w owns rows [16w, 16w + 16), all D dims
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
+      for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
 #pragma unroll
       for (int kk = 0; kk < BS; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
         wmma::load_matrix_sync(fa, &KPs[warp * 16 * LDH + kk], LDH);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < D / 16; ++j) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
           wmma::load_matrix_sync(fb, &Vs[kk * LDH + j * 16], LDH);
           wmma::mma_sync(acc[j], fa, fb, acc[j]);
         }
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < D / 16; ++j)
         wmma::store_matrix_sync(&Ss[warp * 16 * LDF + j * 16], acc[j], LDF, wmma::mem_row_major);
     }
     __syncthreads();
 #pragma unroll
-    for (int c = 0; c < 32; ++c) o[c] = o[c] * corr + Ss[row * LDF + half * 32 + c];
+    for (int c = 0; c < DH; ++c) o[c] = o[c] * corr + Ss[row * LDF + half * DH + c];
     __syncthreads();
   }
 
   const int t = t0 + row / r;
-  if (t < T) {
+  if (row < rows_used && t < T) {
     const float inv = 1.f / fmaxf(l_run, 1e-30f);
-    __nv_bfloat16* dst = out + (((size_t)b * T + t) * hq + h * r + row % r) * D + half * 32;
+    __nv_bfloat16* dst = out + (((size_t)b * T + t) * hq + h * r + row % r) * D + half * DH;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) dst[c] = __float2bfloat16(o[c] * inv);
+    for (int c = 0; c < DH; ++c) dst[c] = __float2bfloat16(o[c] * inv);
   }
 }
 
-}  // namespace
-
-// q/out [B, T, Hkv*r, 64], kc/vc [B, S, Hkv*64] (one layer), offsets [B]
-// int32; bf16 except offsets. Needs r | 64 and S % 64 == 0.
-extern "C" int nfai_prefill_attention(const void* q, const void* kc,
-                                      const void* vc, const void* offsets,
-                                      void* out, int B, int T, int S, int hkv,
-                                      int r, float scale, void* stream) {
-  if (r <= 0 || ROWS % r != 0 || S % BS != 0) return static_cast<int>(cudaErrorInvalidValue);
+template <int D>
+int launch(const void* q, const void* kc, const void* vc, const void* offsets, void* out,
+           int B, int T, int S, int hkv, int r, float scale, cudaStream_t st) {
+  constexpr size_t smem = Tiles<D>::BYTES;
+  if constexpr (smem > 48 * 1024) {  // once per process: above the default limit
+    static const cudaError_t err = cudaFuncSetAttribute(
+        prefill_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int tt = ROWS / r;
   dim3 grid((T + tt - 1) / tt, hkv, B), block(128);
-  prefill_attn_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  prefill_attn_kernel<D><<<grid, block, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
       static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(offsets),
       static_cast<__nv_bfloat16*>(out), T, S, hkv, r, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q/out [B, T, Hkv*r, D], kc/vc [B, S, Hkv*D] (one layer), offsets [B]
+// int32; bf16 except offsets. D in {64, 128}; needs r <= 64 and S % 64 == 0.
+extern "C" int nfai_prefill_attention(const void* q, const void* kc,
+                                      const void* vc, const void* offsets,
+                                      void* out, int B, int T, int S, int hkv,
+                                      int r, int d, float scale, void* stream) {
+  if (r <= 0 || r > ROWS || S % BS != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64) return launch<64>(q, kc, vc, offsets, out, B, T, S, hkv, r, scale, st);
+  if (d == 128) return launch<128>(q, kc, vc, offsets, out, B, T, S, hkv, r, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,9 @@ shared library with a plain C interface and loaded with ctypes — seconds per
 file, where a PyTorch C++ extension takes minutes. A library is built at first
 use into ``_build/`` (listed in .gitignore), named by a hash of its source and
 flags, so an edited source rebuilds and an unchanged one is reused.
-`build_all` starts one nvcc per source at once.
+`build_all` starts one nvcc per source at once. Two `Kernel`s may share a
+source (K8 and K9 are the two entry points of ``grouped_matmul.cu``): they
+share its library, and each keeps its own launch count.
 
 Every C entry point takes pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()``; `Kernel.call` raises if that is not 0. Each
@@ -100,13 +102,14 @@ class Kernel:
 
 
 def build(kernels: list[Kernel], verbose: bool = False) -> dict[str, str]:
-    """Compile the given kernels' sources in parallel (one nvcc each) unless
-    their library is already built. Returns nvcc's output per kernel; raises
-    if any compile fails."""
-    procs = []
+    """Compile the given kernels' sources in parallel (one nvcc per source)
+    unless their library is already built. Returns nvcc's output per kernel;
+    raises if any compile fails."""
+    procs, started = [], set()
     for k in kernels:
-        if k._target().exists():
+        if k._target().exists() or k._target() in started:
             continue
+        started.add(k._target())
         cmd, tmp, target = k.compile_cmd()
         if verbose:
             cmd.insert(1, "-Xptxas=-v")

@@ -1,5 +1,6 @@
-"""Llama model: config from GGUF metadata, quantized weight loading, the
-prefill and decode forwards, and the decode loop.
+"""Llama-schema models (llama, qwen3, qwen3moe): config from GGUF metadata,
+quantized weight loading, the prefill and decode forwards, and the decode
+loop.
 
 Counterpart of nfai_tpu/models/llama.py in its single-device default
 configuration. Every matmul goes through a dequant-matmul kernel: K1
@@ -17,6 +18,24 @@ a decode step (T == 1) attends with K2, which folds the new token in, and
 writes all layers' new K/V rows after the layer loop with one K3 launch per
 cache (ops.fused_decode).
 
+qwen3 and qwen3moe checkpoints are stored without llama's HF→ggml q/k
+permutation (ggml's NEOX rope), so their wq/wk load as they are; their
+per-head q/k RMS norms (`q_norm`/`k_norm`, f32 [D]) run before the rope.
+`head_dim` comes from `attention.key_length` (128 at Qwen3-30B-A3B, where
+hidden / heads is 64). A qwen3moe layer replaces the MLP with `moe_ffn`:
+an f32 router (`router` [H, E]), softmax, top-k and (norm_topk_prob)
+renormalisation; the (token, slot) rows are sorted by expert with a stable
+argsort and scattered to a group-aligned padded layout (`moe_group_layout`)
+in which every tm-row block belongs to one expert; gate, up and down then
+run as grouped matmuls over the stacked [E, ...] expert containers (K8 for
+4-bit, K9 for 8-bit stacks) and the weighted rows are summed back per
+token. Everything there has static shapes and no host read, so the layer
+loop never waits on the device. The JAX package widens a 4-bit expert
+stack whose K breaks its TPU tiling (qwen3moe's down, K = 768) to its
+8-bit container; the port keeps it 4-bit (K8 takes any K % 32 == 0), which
+computes the same function, and keeps a stack whose layers mix kinds (Q6_K
+down on the layers `use_more_bits` picks) per layer, so K8 and K9 both run.
+
 With block tables (`page_tables`) the cache is the continuous-batching
 page pool (runtime.paged_cache): every layer first writes its roped K and
 V through the tables (`write_paged`'s scatter), then a decode step attends
@@ -31,10 +50,10 @@ its own container, where a stack mixes kinds). The cache is updated in
 place. `decode_loop` is a Python loop over steps (the JAX version is one
 jitted scan; capturing the step as a CUDA graph is later work).
 
-Only llama-arch checkpoints with Q4_0/Q4_1/Q4_K, Q8_0 or Q2_K/Q3_K/Q5_K/
-Q6_K matmul weights load; dense (F16/F32) matmul weights and the other
-families' features (biases, q/k norms, softcaps, sliding windows, MoE,
-pre-fused tensors) raise NotImplementedError.
+Only Q4_0/Q4_1/Q4_K, Q8_0 or Q2_K/Q3_K/Q5_K/Q6_K matmul weights load;
+dense (F16/F32) matmul weights and the other families' features (biases,
+softcaps, sliding windows, post norms, pre-fused tensors) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -52,7 +71,7 @@ from ..ops.fused_mlp import (
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import gather_pages, paged_decode_attention
 from ..ops.prefill_attention import flash_prefill_attention
-from ..ops.qmatmul import linear, linear_layered
+from ..ops.qmatmul import linear, linear_layered, qmatmul_grouped
 from ..ops.qtensor import (
     SUPPORTED_QUANT_TYPES, concat, dequant_gather, from_jax_qtensor, n_layers,
     pack_gguf_tensor, permute_rows, same_layout, stack,
@@ -63,6 +82,9 @@ from ..ops.rope import (
 )
 from ..ops.sampling import sample_logits
 from ..runtime.paged_cache import PagedKVCache, flat_slots, scatter_rows
+
+
+ARCHS = frozenset({"llama", "qwen3", "qwen3moe"})
 
 
 @dataclass(frozen=True)
@@ -83,6 +105,13 @@ class LlamaConfig:
     rope_original_ctx: int = 8192
     context_length: int = 8192
     tied_embeddings: bool = True
+    qk_norm: bool = False  # qwen3: per-head q/k RMS norms before the rope
+    rope_neox: bool = False  # stored without the HF→ggml q/k permutation (qwen3)
+    # mixture of experts (qwen3moe); 0 experts = the dense MLP
+    n_experts: int = 0
+    n_experts_used: int = 0
+    moe_ffn_dim: int = 0
+    norm_topk_prob: bool = True
 
     @property
     def query_scale(self) -> float:
@@ -92,19 +121,19 @@ class LlamaConfig:
     def from_gguf(cls, g: GGUFFile) -> "LlamaConfig":
         md = g.metadata
         arch = g.architecture
-        if arch != "llama":
+        if arch not in ARCHS:
             raise NotImplementedError(
-                f"architecture {arch!r} is not ported yet (this slice runs llama)"
+                f"architecture {arch!r} is not ported yet (the port runs {sorted(ARCHS)})"
             )
-        extras = [
-            name for name in (
-                "blk.0.attn_q.bias", "blk.0.attn_q_norm.weight",
-                "blk.0.post_attention_norm.weight", "blk.0.ffn_gate_exps.weight",
-                "blk.0.attn_qkv.weight",
-            ) if name in g.tensors
-        ]
+        unported = ["blk.0.attn_q.bias", "blk.0.post_attention_norm.weight",
+                    "blk.0.attn_qkv.weight"]
+        if arch == "llama":
+            unported.append("blk.0.attn_q_norm.weight")
+        if arch != "qwen3moe":
+            unported.append("blk.0.ffn_gate_exps.weight")
+        extras = [name for name in unported if name in g.tensors]
         if extras:
-            raise NotImplementedError(f"llama checkpoints with {extras} are not ported yet")
+            raise NotImplementedError(f"{arch} checkpoints with {extras} are not ported yet")
 
         def key(template, default=None):
             v = md.get(template.format(arch=arch))
@@ -132,6 +161,11 @@ class LlamaConfig:
             rope_original_ctx=int(key(Keys.ROPE_SCALING_ORIG_CTX, 8192)),
             context_length=int(key(Keys.CONTEXT_LENGTH, 8192)),
             tied_embeddings="output.weight" not in g.tensors,
+            qk_norm="blk.0.attn_q_norm.weight" in g.tensors,
+            rope_neox=arch in ("qwen3", "qwen3moe"),
+            n_experts=int(key(Keys.EXPERT_COUNT, 0) or 0),
+            n_experts_used=int(key(Keys.EXPERT_USED_COUNT, 0) or 0),
+            moe_ffn_dim=int(key("{arch}.expert_feed_forward_length", 0) or 0),
         )
 
 
@@ -170,6 +204,26 @@ _GGUF_NAMES = {
     "w_up": "blk.{i}.ffn_up.weight",
     "w_down": "blk.{i}.ffn_down.weight",
 }
+_QK_NORM_NAMES = {"q_norm": "blk.{i}.attn_q_norm.weight", "k_norm": "blk.{i}.attn_k_norm.weight"}
+# a qwen3moe layer: router + stacked expert tensors in place of the MLP
+_MOE_NAMES = {
+    "router": "blk.{i}.ffn_gate_inp.weight",
+    "w_gate_exps": "blk.{i}.ffn_gate_exps.weight",
+    "w_up_exps": "blk.{i}.ffn_up_exps.weight",
+    "w_down_exps": "blk.{i}.ffn_down_exps.weight",
+}
+
+
+def _layer_names(cfg: LlamaConfig) -> dict[str, str]:
+    """Params key → GGUF tensor template of one layer, per the config."""
+    names = dict(_GGUF_NAMES)
+    if cfg.qk_norm:
+        names.update(_QK_NORM_NAMES)
+    if cfg.n_experts:
+        for k in ("w_gate", "w_up", "w_down"):
+            del names[k]
+        names.update(_MOE_NAMES)
+    return names
 
 
 _FUSIONS = ((("wq", "wk", "wv"), "wqkv"), (("w_gate", "w_up"), "w_gate_up"))
@@ -202,7 +256,7 @@ def _params(embed, layers: dict, final_norm, lm_head, inv_freq, dtype, device) -
         "lm_head": lm_head.to(device),
         "inv_freq": inv_freq.to(device),
         "act_dtype": dtype,
-        "fused_mlp": mlp_eligible(layers.get("w_gate_up"), layers["w_down"]),
+        "fused_mlp": mlp_eligible(layers.get("w_gate_up"), layers.get("w_down")),
     }
 
 
@@ -215,8 +269,11 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
     - ``layers``: ``attn_norm``/``ffn_norm`` f32 [L, H]; the matmul weights
       as layer stacks of `Q4Tensor`/`Q8Tensor` (or a `LayerList` where the
       layers mix kinds): ``wqkv`` or ``wq``/``wk``/``wv`` (wq/wk rows
-      permuted NORM → NEOX), ``wo``, ``w_gate_up`` or ``w_gate``/``w_up``,
-      ``w_down``;
+      permuted NORM → NEOX for llama), ``wo``, ``w_gate_up`` or
+      ``w_gate``/``w_up``, ``w_down``; with q/k norms ``q_norm``/``k_norm``
+      f32 [L, D]; a MoE model has ``router`` f32 [L, H, E] and the expert
+      stacks ``w_gate_exps``/``w_up_exps``/``w_down_exps`` ([L, E, N, ...]
+      containers, or a LayerList of [E, N, ...] ones) in place of the MLP;
     - ``final_norm`` f32 [H]; ``lm_head`` the 2-D quantized output weight,
       or for a tied checkpoint the quantized token table itself; ``inv_freq``
       f32;
@@ -231,20 +288,33 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
                 "matmul weights (Q4_0/Q4_1/Q4_K, Q8_0, Q2_K/Q3_K/Q5_K/Q6_K; dense "
                 "kernels come later)"
             )
-        return pack_gguf_tensor(g.tensor_bytes(name), desc.ggml_type, desc.shape)
+        *lead, n, k = desc.shape
+        e = int(np.prod(lead, dtype=np.int64))
+        # an expert stack [E, N, K] is E*N rows of K (experts contiguous)
+        w = pack_gguf_tensor(g.tensor_bytes(name), desc.ggml_type, (e * n, k))
+        if not lead:
+            return w
+        return w._map(lambda t: t.reshape(*lead, n, *t.shape[1:]), n=n)
 
     def vec(name: str) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(g.tensor_f32(name), np.float32))
 
-    per_layer: dict[str, list] = {k: [] for k in _GGUF_NAMES}
+    names = _layer_names(cfg)
+    per_layer: dict[str, list] = {k: [] for k in names}
     for i in range(cfg.n_layers):
-        for key, template in _GGUF_NAMES.items():
+        for key, template in names.items():
             name = template.format(i=i)
-            per_layer[key].append(vec(name) if key.endswith("norm") else mat(name))
-    q_perm = norm_to_neox_perm(cfg.n_heads, cfg.head_dim)
-    k_perm = norm_to_neox_perm(cfg.n_kv_heads, cfg.head_dim)
-    per_layer["wq"] = [permute_rows(w, q_perm) for w in per_layer["wq"]]
-    per_layer["wk"] = [permute_rows(w, k_perm) for w in per_layer["wk"]]
+            if key.endswith("norm"):
+                per_layer[key].append(vec(name))
+            elif key == "router":  # GGUF [E, H] → [H, E], f32 as the JAX route computes it
+                per_layer[key].append(vec(name).T.contiguous())
+            else:
+                per_layer[key].append(mat(name))
+    if not cfg.rope_neox:
+        q_perm = norm_to_neox_perm(cfg.n_heads, cfg.head_dim)
+        k_perm = norm_to_neox_perm(cfg.n_kv_heads, cfg.head_dim)
+        per_layer["wq"] = [permute_rows(w, q_perm) for w in per_layer["wq"]]
+        per_layer["wk"] = [permute_rows(w, k_perm) for w in per_layer["wk"]]
     if "rope_freqs.weight" in g.tensors:
         inv_freq = inv_freq_from_factors(
             g.tensor_f32("rope_freqs.weight"), cfg.head_dim, cfg.rope_base
@@ -275,7 +345,10 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
     permutations, 8-bit containers, N padding) through
     `ops.qtensor.from_jax_qtensor`, then fuses and routes as `load_params`
     does; a tied quantized table (``embed`` None) becomes the head and the
-    embedding source. Dense matmul weights raise."""
+    embedding source. qwen3's q/k norms and qwen3moe's routers carry over
+    as f32, its 4-D expert stacks (v2 4-bit [L, E, K/2, N], 8-bit
+    [L, E, K, N], promoted or unified 8-bit) as [L, E, N, ...] containers.
+    Dense matmul weights raise."""
 
     def conv(leaf):
         if not hasattr(leaf, "kind"):
@@ -288,12 +361,13 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
 
     src = np_params["layers"]
     unknown = set(src) - {"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv",
-                          "wo", "w_gate_up", "w_gate", "w_up", "w_down"}
+                          "wo", "w_gate_up", "w_gate", "w_up", "w_down",
+                          *_QK_NORM_NAMES, *_MOE_NAMES}
     if unknown:
         raise NotImplementedError(f"layer parameters {sorted(unknown)} are not ported yet")
     per_layer = {}
     for key, leaf in src.items():
-        if key.endswith("norm"):
+        if key.endswith("norm") or key == "router":  # f32 [L, D|H] / [L, H, E]
             per_layer[key] = list(torch.from_numpy(np.array(leaf, np.float32)))
         else:
             w = conv(leaf)
@@ -333,10 +407,96 @@ def _write_cache(cache_l: torch.Tensor, new: torch.Tensor, starts: torch.Tensor)
     cache_l[torch.arange(b, device=new.device)[:, None], rows] = new.to(cache_l.dtype)
 
 
+def _norm_rope(lp: dict, cfg: LlamaConfig, layer: int, q: torch.Tensor, k: torch.Tensor,
+               cos: torch.Tensor, sin: torch.Tensor):
+    """q [.., Hq, D], k [.., Hkv, D] → per-head RMS-normed (qwen3) and
+    roped, in their dtypes."""
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"][layer], cfg.rms_eps)
+        k = rms_norm(k, lp["k_norm"][layer], cfg.rms_eps)
+    return apply_rope_cs(q, cos, sin, neox=True), apply_rope_cs(k, cos, sin, neox=True)
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, n_used: int, norm_topk: bool):
+    """Router softmax + top-k over x [N, H] (the JAX `_moe_route`): f32
+    logits x @ router [H, E]; returns ([N, n_used] weights, renormalised to
+    sum 1 when `norm_topk`, and int64 expert ids), largest first."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    top_vals, top_idx = torch.topk(probs, n_used, dim=-1)
+    if norm_topk:
+        top_vals = top_vals / top_vals.sum(-1, keepdim=True)
+    return top_vals, top_idx
+
+
+def group_tm(rows: int) -> int:
+    """Rows per grouped-matmul block (the JAX rule): 8 at decode (one weight
+    read per hit expert), 32 / 128 as prefill chunks grow."""
+    return 8 if rows <= 512 else (32 if rows <= 4096 else 128)
+
+
+def moe_group_layout(flat_expert: torch.Tensor, n_rows: int, e: int, tm: int):
+    """Group-aligned padded row layout (the JAX `_moe_group_layout`): the
+    (token, slot) rows, sorted by expert with a stable argsort, go to
+    offsets where each expert's rows start on a tm boundary, so every
+    tm-row block belongs to one expert. Returns (order [rows], dst [rows]
+    padded positions, block_group [m_pad/tm] int32, block_rows [m_pad/tm]
+    int32, m_pad). m_pad is static (every active expert wastes < tm rows);
+    block_group is JAX's (the empty blocks past the last expert's padded
+    end clipped to expert E-1) and block_rows counts each block's real
+    rows: 0 exactly on those empty blocks, which the kernels then fill with
+    zeros without reading weights. Sizes come from a scatter-add of static
+    length: nothing here reads the device back."""
+    dev = flat_expert.device
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order]
+    sizes = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert))
+    padded = (sizes + tm - 1) // tm * tm
+    offs = torch.cumsum(padded, 0) - padded
+    csizes = torch.cumsum(sizes, 0) - sizes
+    within = torch.arange(n_rows, device=dev) - csizes[sorted_expert]
+    dst = offs[sorted_expert] + within
+    m_pad = -(-(n_rows + (tm - 1) * min(e, n_rows)) // tm) * tm
+    ends = offs + padded
+    block_start = torch.arange(m_pad // tm, device=dev) * tm
+    g = torch.searchsorted(ends, block_start, right=True).clamp_max(e - 1)
+    block_rows = (offs[g] + sizes[g] - block_start).clamp(0, tm).to(torch.int32)
+    return order, dst, g.to(torch.int32), block_rows, m_pad
+
+
+def moe_ffn(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torch.Tensor:
+    """qwen3moe's FFN of layer `layer` for x [..., H] (the JAX
+    `_moe_ffn_grouped_q`): route, lay the rows out group-aligned in bf16,
+    gate / up / down through `qmatmul_grouped` (K8 / K9), silu(gate) * up
+    rounded to bf16, then each row weighted and summed back to its token in
+    f32; result in x's dtype."""
+    lp = params["layers"]
+    lead, hdim = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, hdim)
+    n, e, used = xf.shape[0], cfg.n_experts, cfg.n_experts_used
+    top_vals, top_idx = moe_route(xf, lp["router"][layer], used, cfg.norm_topk_prob)
+    rows = n * used
+    tm = group_tm(rows)
+    order, dst, block_group, block_rows, m_pad = moe_group_layout(top_idx.reshape(-1), rows, e, tm)
+    token_of = order // used
+    x_pad = torch.zeros(m_pad, hdim, dtype=torch.bfloat16, device=x.device)
+    x_pad[dst] = xf[token_of].to(torch.bfloat16)
+    gate, up = (qmatmul_grouped(x_pad, lp[k].layer(layer), block_group, tm, block_rows)
+                for k in ("w_gate_exps", "w_up_exps"))
+    inner = (nnf.silu(gate.float()) * up.float()).to(torch.bfloat16)
+    down = qmatmul_grouped(inner, lp["w_down_exps"].layer(layer), block_group, tm, block_rows)
+    dsel = down[dst].float() * top_vals.reshape(-1)[order][:, None]
+    out = torch.zeros(n, hdim, dtype=torch.float32, device=x.device).index_add_(0, token_of, dsel)
+    return out.reshape(*lead, hdim).to(x.dtype)
+
+
 def _mlp(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torch.Tensor:
-    """The JAX package's MLP route: K5 (up to MLP_FUSED_MAX_ROWS rows) or
-    `mlp_prefill` where the pair is fused-eligible, else two (or three)
-    dequant-matmuls around the activation."""
+    """The JAX package's FFN route: `moe_ffn` for a MoE model; K5 (up to
+    MLP_FUSED_MAX_ROWS rows) or `mlp_prefill` where the pair is
+    fused-eligible; else two (or three) dequant-matmuls around the
+    activation."""
+    if cfg.n_experts:
+        return moe_ffn(params, cfg, x, layer)
     lp = params["layers"]
     if params["fused_mlp"]:
         if x.numel() // x.shape[-1] > MLP_FUSED_MAX_ROWS:
@@ -373,10 +533,9 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     for layer in range(cfg.n_layers):
         x = rms_norm(h, lp["attn_norm"][layer], cfg.rms_eps)
         q, k, v = _qkv(lp, x, layer, qd, kvd)
-        q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
-        k = k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-        q = apply_rope_cs(q, cos, sin, neox=True).to(act)
-        k = apply_rope_cs(k, cos, sin, neox=True)
+        q, k = _norm_rope(lp, cfg, layer, q.reshape(b, t, cfg.n_heads, cfg.head_dim),
+                          k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim), cos, sin)
+        q = q.to(act)
         _write_cache(cache.k[layer], k.reshape(b, t, kvd), starts)
         _write_cache(cache.v[layer], v, starts)
         attn = flash_prefill_attention(
@@ -405,10 +564,10 @@ def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     for layer in range(cfg.n_layers):
         x = rms_norm(h, lp["attn_norm"][layer], cfg.rms_eps)
         q, k, v = _qkv(lp, x, layer, qd, kvd)
-        q = q.reshape(b, 1, cfg.n_heads, cfg.head_dim)
-        k = k.reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
-        q = apply_rope_cs(q, cos, sin, neox=True).to(act)
-        k_rows[layer] = apply_rope_cs(k, cos, sin, neox=True).reshape(b, kvd)
+        q, k = _norm_rope(lp, cfg, layer, q.reshape(b, 1, cfg.n_heads, cfg.head_dim),
+                          k.reshape(b, 1, cfg.n_kv_heads, cfg.head_dim), cos, sin)
+        q = q.to(act)
+        k_rows[layer] = k.reshape(b, kvd)
         v_rows[layer] = v[:, 0]
         attn = layered_decode_attention(
             q.view(b, cfg.n_heads, cfg.head_dim), k_rows[layer], v_rows[layer], cache.k,
@@ -463,8 +622,9 @@ def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     for layer in range(cfg.n_layers):
         x = rms_norm(h, lp["attn_norm"][layer], cfg.rms_eps)
         q, k, v = _qkv(lp, x, layer, hq * hd, hkv * hd)
-        q = apply_rope_cs(q.reshape(b, t, hq, hd), cos, sin, neox=True).to(act)
-        k = apply_rope_cs(k.reshape(b, t, hkv, hd), cos, sin, neox=True)
+        q, k = _norm_rope(lp, cfg, layer, q.reshape(b, t, hq, hd), k.reshape(b, t, hkv, hd),
+                          cos, sin)
+        q = q.to(act)
         scatter_rows(pool.k[layer], k, flat)
         scatter_rows(pool.v[layer], v.reshape(b, t, hkv, hd), flat)
         attn = _paged_attention(q, pool.k[layer], pool.v[layer], tables, first, cfg.query_scale)

@@ -1,13 +1,14 @@
 """Model factory registry: architecture sniffing → model family dispatch
-(the JAX package's registry, with only the llama family ported)."""
+(the JAX package's registry, with the llama schema's llama, qwen3 and
+qwen3moe architectures ported)."""
 from __future__ import annotations
 
 from ..gguf import GGUFFile
 
 
 class LlamaFamily:
-    """Llama 3.x dense models (llama arch, 4-bit and 8-bit GGUF weights, tied or
-    untied head)."""
+    """Llama 3.x dense models, Qwen3 (q/k norms, NEOX rope) and Qwen3-MoE
+    (routed experts): 4-bit and 8-bit GGUF weights, tied or untied head."""
 
     def config_from_gguf(self, g: GGUFFile):
         from .llama import LlamaConfig
@@ -22,8 +23,10 @@ class LlamaFamily:
 
 def resolve(g: GGUFFile) -> LlamaFamily:
     """The family for a GGUF file; architectures not ported yet raise."""
-    if g.architecture == "llama":
+    from .llama import ARCHS
+
+    if g.architecture in ARCHS:
         return LlamaFamily()
     raise NotImplementedError(
-        f"architecture {g.architecture!r} is not ported yet (this slice runs llama)"
+        f"architecture {g.architecture!r} is not ported yet (the port runs {sorted(ARCHS)})"
     )

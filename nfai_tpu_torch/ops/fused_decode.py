@@ -18,7 +18,7 @@ from ..kernels import F, I, Kernel, P, ptr, register, stream_ptr
 
 K2 = register(Kernel(
     "decode_attention", "decode_attention.cu",
-    {"nfai_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, F, P]},
+    {"nfai_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, F, P]},
 ))
 K3 = register(Kernel(
     "kv_write", "kv_write.cu",
@@ -26,6 +26,7 @@ K3 = register(Kernel(
 ))
 
 NEG_INF = -1e30
+HEAD_DIMS = (64, 128)  # the head widths K2 is compiled for
 
 
 def _check_starts(starts, b, device):
@@ -71,8 +72,9 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, starts, scale=None,
     _, s, kvd = k_cache.shape
     hkv = kvd // d
     r = hq // hkv
-    if d != 64 or r not in (1, 2, 4, 8) or hq != hkv * r:
-        raise NotImplementedError(f"decode attention kernel takes D=64, r in 1/2/4/8; got D={d}, r={r}")
+    if d not in HEAD_DIMS or r not in (1, 2, 3, 4, 8) or hq != hkv * r:
+        raise NotImplementedError(f"decode attention kernel takes D in {HEAD_DIMS}, r in 1/2/3/4/8; "
+                                  f"got D={d}, r={r}")
     for t in (q, k_new, v_new, k_cache, v_cache):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
             raise ValueError("decode attention needs contiguous bf16 tensors on one device (int8 KV is not ported yet)")
@@ -82,7 +84,7 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, starts, scale=None,
     out = torch.empty_like(q)
     K2.call(
         "nfai_decode_attention", ptr(q), ptr(k_new), ptr(v_new), ptr(k_cache),
-        ptr(v_cache), ptr(starts), ptr(out), b, s, hkv, r, float(scale),
+        ptr(v_cache), ptr(starts), ptr(out), b, s, hkv, r, d, float(scale),
         stream_ptr(q),
     )
     K2.launches += 1

@@ -19,11 +19,12 @@ from ..kernels import F, I, Kernel, P, ptr, register, stream_ptr
 
 K7 = register(Kernel(
     "paged_attention", "paged_attention.cu",
-    {"nfai_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, F, P]},
+    {"nfai_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]},
 ))
 
 NEG_INF = -1e30
 PAGE_SIZES = (16, 32, 64, 128)
+HEAD_DIMS = (64, 128)  # the head widths K7 is compiled for
 
 
 def gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -77,8 +78,9 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, scale=None,
         return paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths, scale)
     hkv, n_pages, ps, _ = k_pages.shape
     r = hq // hkv
-    if d != 64 or r not in (1, 2, 4, 8) or hq != hkv * r:
-        raise NotImplementedError(f"paged attention kernel takes D=64, r in 1/2/4/8; got D={d}, r={r}")
+    if d not in HEAD_DIMS or r not in (1, 2, 3, 4, 8) or hq != hkv * r:
+        raise NotImplementedError(f"paged attention kernel takes D in {HEAD_DIMS}, r in 1/2/3/4/8; "
+                                  f"got D={d}, r={r}")
     if ps not in PAGE_SIZES:
         raise NotImplementedError(f"paged attention kernel takes page sizes {PAGE_SIZES}; got {ps}")
     for t in (q, k_pages, v_pages):
@@ -91,7 +93,7 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, scale=None,
     out = torch.empty_like(q)
     K7.call(
         "nfai_paged_attention", ptr(q), ptr(k_pages), ptr(v_pages), ptr(tables),
-        ptr(lengths), ptr(out), b, hkv, r, n_pages, ps, tables.shape[1],
+        ptr(lengths), ptr(out), b, hkv, r, n_pages, ps, tables.shape[1], d,
         float(scale), stream_ptr(q),
     )
     K7.launches += 1

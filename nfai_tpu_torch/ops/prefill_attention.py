@@ -17,10 +17,11 @@ from ..kernels import F, I, Kernel, P, ptr, register, stream_ptr
 
 K4 = register(Kernel(
     "prefill_attention", "prefill_attention.cu",
-    {"nfai_prefill_attention": [P, P, P, P, P, I, I, I, I, I, F, P]},
+    {"nfai_prefill_attention": [P, P, P, P, P, I, I, I, I, I, I, F, P]},
 ))
 
 NEG_INF = -1e30
+HEAD_DIMS = (64, 128)  # the head widths K4 is compiled for
 
 
 def flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale):
@@ -55,8 +56,9 @@ def flash_prefill_attention(q, k_cache, v_cache, offsets, scale=None,
     _, s, kvd = k_cache.shape
     hkv = kvd // d
     r = hq // hkv
-    if d != 64 or hq != hkv * r or 64 % r:
-        raise NotImplementedError(f"prefill attention kernel takes D=64 and r | 64; got D={d}, r={r}")
+    if d not in HEAD_DIMS or hq != hkv * r or not 0 < r <= 64:
+        raise NotImplementedError(f"prefill attention kernel takes D in {HEAD_DIMS} and r <= 64; "
+                                  f"got D={d}, r={r}")
     if s % 64:
         raise ValueError(f"cache length {s} must be a multiple of 64")
     for x in (q, k_cache, v_cache):
@@ -70,7 +72,7 @@ def flash_prefill_attention(q, k_cache, v_cache, offsets, scale=None,
     out = torch.empty_like(q)
     K4.call(
         "nfai_prefill_attention", ptr(q), ptr(k_cache), ptr(v_cache),
-        ptr(offsets), ptr(out), b, t, s, hkv, r, float(scale), stream_ptr(q),
+        ptr(offsets), ptr(out), b, t, s, hkv, r, d, float(scale), stream_ptr(q),
     )
     K4.launches += 1
     return out

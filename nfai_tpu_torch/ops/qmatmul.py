@@ -1,5 +1,6 @@
-"""Kernels K1 (4-bit) and K6 (8-bit) dequant-matmul, and the `linear` entry
-points over them.
+"""Kernels K1 (4-bit) and K6 (8-bit) dequant-matmul, the `linear` entry
+points over them, and the grouped (MoE expert) kernels K8 (4-bit) and K9
+(8-bit) behind `qmatmul_grouped`.
 
 `q4_matmul(x, w)` computes y[M, N] = x[M, K] @ W^T for a 2-D `Q4Tensor`,
 `q8_matmul(x, w)` the same for a 2-D `Q8Tensor` (bf16 out). On a CUDA
@@ -8,6 +9,12 @@ port of the JAX package's `_q4v3_matmul`, `_q4v3_matmul_layered` and
 `_q4_matmul` Pallas kernels; ``csrc/q8_matmul.cu``, the port of
 `_q8_matmul` and `_q8_matmul_layered` — or raises; on a CPU tensor it runs
 `matmul_plain`, the same function in plain PyTorch.
+
+`qmatmul_grouped(x, w, block_group, tm)` multiplies row block i of x
+(tm rows) by expert block_group[i] of a stacked [E, ...] container:
+``csrc/grouped_matmul.cu``, the port of `_grouped_call` through
+`_qmatmul_grouped_q4` (K8) and `_qmatmul_grouped_q8` (K9), or on a CPU
+tensor `qmatmul_grouped_plain`.
 """
 from __future__ import annotations
 
@@ -23,6 +30,14 @@ K1 = register(Kernel(
 K6 = register(Kernel(
     "q8_matmul", "q8_matmul.cu",
     {"nfai_q8_matmul": [P, P, P, P, P, I, I, I, I, P]},
+))
+K8 = register(Kernel(
+    "grouped_q4", "grouped_matmul.cu",
+    {"nfai_grouped_q4": [P, P, P, P, P, P, P, I, I, I, I, P]},
+))
+K9 = register(Kernel(
+    "grouped_q8", "grouped_matmul.cu",
+    {"nfai_grouped_q8": [P, P, P, P, P, P, P, I, I, I, I, I, P]},
 ))
 
 
@@ -108,3 +123,65 @@ def linear_layered(x: torch.Tensor, w, layer: int) -> torch.Tensor:
     """x @ W[layer] for a layer-stacked container or a LayerList — the
     layer's view, no copy (the JAX `linear_layered`)."""
     return linear(x, w.layer(layer))
+
+
+def qmatmul_grouped_plain(x: torch.Tensor, w: Q4Tensor | Q8Tensor, block_group: torch.Tensor,
+                          tm: int, block_rows: torch.Tensor) -> torch.Tensor:
+    """x [M, K] (M % tm == 0) → bf16 [M, N]: row block i times expert
+    block_group[i] of the stacked [E, ...] container in f32; zero on the
+    rows of block i past block_rows[i]. The plain version of K8 and K9."""
+    m, k = x.shape
+    wsel = dequant(w._map(lambda t: t[block_group.to(x.device).long()]))  # [M/tm, N, K]
+    y = torch.einsum("btk,bnk->btn", x.float().reshape(m // tm, tm, k), wsel)
+    rows = block_rows.to(x.device).long()[:, None]
+    keep = torch.arange(tm, device=x.device)[None] < rows
+    return torch.where(keep[..., None], y, 0.0).reshape(m, w.n).to(torch.bfloat16)
+
+
+def qmatmul_grouped(x: torch.Tensor, w: Q4Tensor | Q8Tensor, block_group: torch.Tensor,
+                    tm: int, block_rows: torch.Tensor) -> torch.Tensor:
+    """Group-aligned grouped matmul (the JAX `qmatmul_grouped`, with the
+    real rows of each block given, as `models.llama.moe_group_layout`
+    returns them; see `qmatmul_grouped_plain`): x [M, K] bf16, w a stacked
+    [E, ...] Q4Tensor (K8) or Q8Tensor (K9), block_group / block_rows
+    [M/tm] int32. tm = 8 or a multiple of 32 (then N % 64 == 0)."""
+    if x.device.type == "cpu":
+        return qmatmul_grouped_plain(x, w, block_group, tm, block_rows)
+    m, k = x.shape
+    if isinstance(w, Q4Tensor):
+        kernel, qs_shape = K8, (w.n, k // 2)
+    elif isinstance(w, Q8Tensor):
+        kernel, qs_shape = K9, (w.n, k)
+        if w.group not in (16, 32):
+            raise ValueError(f"grouped_q8 takes scale groups of 16 or 32, got {w.group}")
+    else:
+        raise NotImplementedError("grouped matmul takes 4-bit and 8-bit expert stacks")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"qmatmul_grouped on CUDA takes bf16 activations, got {x.dtype}")
+    if w.qs.dim() != 3 or w.k != k or tuple(w.qs.shape[1:]) != qs_shape:
+        raise ValueError(f"expert stack {tuple(w.qs.shape)} does not match x {tuple(x.shape)}")
+    if k % 32 or m % tm or not (tm == 8 or (tm % 32 == 0 and w.n % 64 == 0)):
+        raise ValueError(f"grouped matmul needs K % 32 == 0, M % tm == 0 and tm = 8 or a "
+                         f"multiple of 32 with N % 64 == 0; got K={k}, M={m}, tm={tm}, N={w.n}")
+    index = (block_group, block_rows)
+    for t in index:
+        if t.dtype != torch.int32 or t.shape != (m // tm,):
+            raise ValueError(f"block_group / block_rows must be int32 [{m // tm}]; got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    leaves = (x, w.qs, w.scales) + (() if w.mins is None else (w.mins,)) + index
+    if any(t.device != x.device or not t.is_contiguous() for t in leaves):
+        raise ValueError("qmatmul_grouped needs contiguous tensors on one device")
+    if w.scales.dtype != torch.float32 or (w.mins is not None and w.mins.dtype != torch.float32):
+        raise TypeError("qmatmul_grouped needs f32 scales and mins")
+    y = torch.empty(m, w.n, dtype=torch.bfloat16, device=x.device)
+    if m == 0:
+        return y
+    args = (ptr(x), ptr(w.qs), ptr(w.scales), ptr(w.mins) if w.mins is not None else None,
+            ptr(block_group), ptr(block_rows), ptr(y),
+            m, k, w.n, tm)
+    if kernel is K8:
+        K8.call("nfai_grouped_q4", *args, stream_ptr(x))
+    else:
+        K9.call("nfai_grouped_q8", *args, w.group, stream_ptr(x))
+    kernel.launches += 1
+    return y

@@ -1,17 +1,24 @@
-"""Synthetic Llama GGUF fixtures: the tiny test model, and a writer for
-Llama-3.2-1B-width checkpoints filled with random raw quantized blocks.
+"""Synthetic GGUF fixtures: the tiny test model, and writers for
+checkpoints at published widths filled with random raw quantized blocks
+(no quantizer runs over billions of floats).
 
 `make_tiny_llama_gguf` is a copy of the JAX package's fixture (same bytes
-for the same arguments) limited to the llama options the port runs.
+for the same arguments) limited to the options the port runs (llama, qwen3
+q/k norms, qwen3moe experts).
 `make_llama_1b_gguf` writes the published Llama-3.2-1B shapes (hidden 2048,
 32 heads / 8 kv heads, ffn 8192, vocab 128256, rope base 500000 with a
-llama3 `rope_freqs` tensor) with every quantized tensor as random raw
-blocks — no quantizer runs over 1.2 B floats — in one of four kinds:
-"q4_k" (untied, Q4_K matmuls, F16 embedding), "q4_k_m" (the mix llama.cpp
-writes for Q4_K_M: tied Q6_K table, Q6_K attn_v and ffn_down on the layers
-`use_more_bits` picks, Q4_K elsewhere), "q8_0" (untied, Q8_0 throughout)
-and "q4_0_tied" (tied, Q4_0 throughout). `n_layers` cuts depth (16 in the
-published config).
+llama3 `rope_freqs` tensor) in one of four kinds: "q4_k" (untied, Q4_K
+matmuls, F16 embedding), "q4_k_m" (the mix llama.cpp writes for Q4_K_M:
+tied Q6_K table, Q6_K attn_v and ffn_down on the layers `use_more_bits`
+picks, Q4_K elsewhere), "q8_0" (untied, Q8_0 throughout) and "q4_0_tied"
+(tied, Q4_0 throughout); or, with kind "llama_3b", the published
+Llama-3.2-3B shapes (hidden 3072, 24 heads / 8 kv heads, head_dim 128, ffn
+8192, 28 layers), tied Q4_K throughout.
+`make_qwen3moe_gguf` writes Qwen3-30B-A3B's published widths (hidden 2048,
+32 / 4 heads of head_dim 128, 128 experts of which 8 are used, expert ffn
+768, vocab 151936, rope base 1e6, rms eps 1e-6, untied) in the mix
+llama.cpp writes for Q4_K_M, with a ChatML tokenizer. `n_layers` cuts
+depth (16, 28 and 48 in the published configs).
 """
 from __future__ import annotations
 
@@ -25,23 +32,30 @@ from .ops.rope import compute_inv_freq
 from .tokenizer.bpe import TokenType, bytes_to_unicode
 
 
-def tiny_tokenizer_metadata(n_tokens: int | None = None) -> dict:
+LLAMA3_SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>",
+                   "<|end_header_id|>", "<|eot_id|>")
+CHATML_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+CHATML_TEMPLATE = (
+    "{%- for message in messages %}"
+    "{{- '<|im_start|>' + message['role'] + '\\n' + message['content'] + '<|im_end|>\\n' }}"
+    "{%- endfor %}"
+    "{%- if add_generation_prompt %}{{- '<|im_start|>assistant\\n' }}{%- endif %}"
+)
+
+
+def tiny_tokenizer_metadata(n_tokens: int | None = None, chatml: bool = False) -> dict:
     """A byte-level vocab (256 byte tokens + llama-3 specials), no merges:
     every string tokenizes (one token per byte). With `n_tokens` the vocab
     is padded to that size with filler tokens of three letters or digits
     (the id in base 62), which encoding never produces but which decode to
     visible text, so a model with a full-size vocab (the 1B-width fixtures)
-    speaks in text, not in unknown ids."""
+    speaks in text, not in unknown ids. `chatml` takes Qwen's specials
+    instead (<|endoftext|> as BOS, <|im_start|>, <|im_end|> as EOS, no BOS
+    added), its "qwen2" pre-tokenizer and a ChatML chat template."""
     b2u = bytes_to_unicode()
     tokens = [b2u[b] for b in range(256)]
     types = [TokenType.NORMAL] * 256
-    specials = [
-        "<|begin_of_text|>",
-        "<|end_of_text|>",
-        "<|start_header_id|>",
-        "<|end_header_id|>",
-        "<|eot_id|>",
-    ]
+    specials = CHATML_SPECIALS if chatml else LLAMA3_SPECIALS
     for s in specials:
         tokens.append(s)
         types.append(TokenType.CONTROL)
@@ -49,21 +63,27 @@ def tiny_tokenizer_metadata(n_tokens: int | None = None) -> dict:
     for i in range(len(tokens), n_tokens or 0):
         tokens.append(digits[i // 3844 % 62] + digits[i // 62 % 62] + digits[i % 62])
         types.append(TokenType.NORMAL)
-    return {
+    md = {
         Keys.TOKENIZER_MODEL: "gpt2",
-        Keys.TOKENIZER_PRE: "llama-bpe",
+        Keys.TOKENIZER_PRE: "qwen2" if chatml else "llama-bpe",
         Keys.TOKENIZER_TOKENS: tokens,
         Keys.TOKENIZER_TOKEN_TYPE: types,
         Keys.TOKENIZER_MERGES: [],
-        Keys.TOKENIZER_BOS: tokens.index("<|begin_of_text|>"),
-        Keys.TOKENIZER_EOS: tokens.index("<|eot_id|>"),
+        Keys.TOKENIZER_BOS: tokens.index(specials[0]),
+        Keys.TOKENIZER_EOS: tokens.index(specials[-1]),
     }
+    if chatml:
+        md[Keys.TOKENIZER_ADD_BOS] = False
+        md[Keys.TOKENIZER_CHAT_TEMPLATE] = CHATML_TEMPLATE
+    return md
 
 
 def _header(w: GGUFWriter, arch: str, name: str, *, context_length: int,
             hidden: int, n_layers: int, ffn_dim: int, n_heads: int,
             n_kv_heads: int, rope_base: float, vocab_size: int,
-            tok_md: dict) -> None:
+            tok_md: dict, rms_eps: float = 1e-5, extra: dict | None = None) -> None:
+    """The JAX fixture's key order; `extra` ({key: value}, keys without the
+    arch prefix) goes before the tokenizer."""
     w.add(Keys.ARCHITECTURE, arch)
     w.add(Keys.NAME, name)
     w.add(f"{arch}.context_length", context_length)
@@ -72,9 +92,11 @@ def _header(w: GGUFWriter, arch: str, name: str, *, context_length: int,
     w.add(f"{arch}.feed_forward_length", ffn_dim)
     w.add(f"{arch}.attention.head_count", n_heads)
     w.add(f"{arch}.attention.head_count_kv", n_kv_heads)
-    w.add(f"{arch}.attention.layer_norm_rms_epsilon", 1e-5)
+    w.add(f"{arch}.attention.layer_norm_rms_epsilon", rms_eps)
     w.add(f"{arch}.rope.freq_base", rope_base)
     w.add(f"{arch}.vocab_size", vocab_size)
+    for k, v in (extra or {}).items():
+        w.add(f"{arch}.{k}", v)
     for k, v in tok_md.items():
         w.add(k, v)
 
@@ -82,6 +104,7 @@ def _header(w: GGUFWriter, arch: str, name: str, *, context_length: int,
 def make_tiny_llama_gguf(
     path: str | Path,
     *,
+    arch: str = "llama",
     vocab_size: int | None = None,
     hidden: int = 64,
     n_layers: int = 2,
@@ -92,12 +115,15 @@ def make_tiny_llama_gguf(
     rope_base: float = 10000.0,
     quant: GGMLType = GGMLType.F32,
     tied: bool = True,
+    qk_norm: bool = False,  # qwen3-style per-head q/k norms
+    n_experts: int = 0,  # qwen3moe-style MoE FFN
+    n_experts_used: int = 0,
     seed: int = 0,
     scale: float = 0.05,
     rope_freqs: np.ndarray | None = None,
     quant_overrides: dict | None = None,  # tensor name -> GGMLType
 ) -> Path:
-    """Write a random-weight llama GGUF (the JAX package's fixture)."""
+    """Write a random-weight llama-schema GGUF (the JAX package's fixture)."""
     rng = np.random.default_rng(seed)
     tok_md = tiny_tokenizer_metadata()
     if vocab_size is None:
@@ -105,10 +131,12 @@ def make_tiny_llama_gguf(
         vocab_size = (n_tok + 7) // 8 * 8
     head_dim = hidden // n_heads
     w = GGUFWriter()
-    _header(w, "llama", "tiny-llama-test", context_length=context_length,
+    moe = {"expert_count": n_experts, "expert_used_count": n_experts_used or 2,
+           "expert_feed_forward_length": ffn_dim} if n_experts else None
+    _header(w, arch, f"tiny-{arch}-test", context_length=context_length,
             hidden=hidden, n_layers=n_layers, ffn_dim=ffn_dim, n_heads=n_heads,
             n_kv_heads=n_kv_heads, rope_base=rope_base, vocab_size=vocab_size,
-            tok_md=tok_md)
+            tok_md=tok_md, extra=moe)
 
     def rand(*shape):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -127,10 +155,19 @@ def make_tiny_llama_gguf(
         addw(f"blk.{i}.attn_k.weight", rand(n_kv_heads * head_dim, hidden))
         addw(f"blk.{i}.attn_v.weight", rand(n_kv_heads * head_dim, hidden))
         addw(f"blk.{i}.attn_output.weight", rand(hidden, n_heads * head_dim))
+        if qk_norm:
+            addw(f"blk.{i}.attn_q_norm.weight", 1.0 + rand(head_dim), GGMLType.F32)
+            addw(f"blk.{i}.attn_k_norm.weight", 1.0 + rand(head_dim), GGMLType.F32)
         addw(f"blk.{i}.ffn_norm.weight", np.ones(hidden, np.float32), GGMLType.F32)
-        addw(f"blk.{i}.ffn_gate.weight", rand(ffn_dim, hidden))
-        addw(f"blk.{i}.ffn_up.weight", rand(ffn_dim, hidden))
-        addw(f"blk.{i}.ffn_down.weight", rand(hidden, ffn_dim))
+        if n_experts:
+            addw(f"blk.{i}.ffn_gate_inp.weight", rand(n_experts, hidden), GGMLType.F32)
+            addw(f"blk.{i}.ffn_gate_exps.weight", rand(n_experts, ffn_dim, hidden))
+            addw(f"blk.{i}.ffn_up_exps.weight", rand(n_experts, ffn_dim, hidden))
+            addw(f"blk.{i}.ffn_down_exps.weight", rand(n_experts, hidden, ffn_dim))
+        else:
+            addw(f"blk.{i}.ffn_gate.weight", rand(ffn_dim, hidden))
+            addw(f"blk.{i}.ffn_up.weight", rand(ffn_dim, hidden))
+            addw(f"blk.{i}.ffn_down.weight", rand(hidden, ffn_dim))
     addw("output_norm.weight", np.ones(hidden, np.float32), GGMLType.F32)
     if not tied:
         addw("output.weight", rand(vocab_size, hidden))
@@ -145,11 +182,18 @@ def use_more_bits(i_layer: int, n_layers: int) -> bool:
             or (i_layer - n_layers // 8) % 3 == 2)
 
 
-# Llama-3.2-1B (published config.json): widths, heads, vocab, rope
+# Llama-3.2-1B and -3B (published config.json): widths, heads, vocab, rope
 LLAMA_1B = dict(
     hidden=2048, n_layers=16, n_heads=32, n_kv_heads=8, ffn_dim=8192,
     vocab_size=128256, rope_base=500000.0, context_length=131072,
     rope_factor=32.0, rope_low=1.0, rope_high=4.0, rope_orig_ctx=8192,
+)
+LLAMA_3B = dict(LLAMA_1B, hidden=3072, n_layers=28, n_heads=24, n_kv_heads=8)
+# Qwen3-30B-A3B (published config.json; llama.cpp's qwen3moe GGUF keys)
+QWEN3_30B_A3B = dict(
+    hidden=2048, n_layers=48, n_heads=32, n_kv_heads=4, head_dim=128, ffn_dim=6144,
+    n_experts=128, n_experts_used=8, moe_ffn_dim=768, vocab_size=151936,
+    rope_base=1e6, rms_eps=1e-6, context_length=40960,
 )
 
 
@@ -206,17 +250,22 @@ _RANDOM_BLOCKS = {
     GGMLType.Q8_0: random_q8_0_bytes,
     GGMLType.Q4_0: random_q4_0_bytes,
 }
-LLAMA_1B_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied")
+LLAMA_1B_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied", "llama_3b")
+
+
+def _shape_only(*shape):  # add_tensor reads only the shape next to raw bytes
+    return np.broadcast_to(np.zeros((), np.float32), shape)
 
 
 def make_llama_1b_gguf(path: str | Path, *, kind: str = "q4_k",
                        n_layers: int | None = None, seed: int = 0) -> Path:
-    """Write a Llama-3.2-1B-width GGUF of `kind` (see module doc) with random
-    raw blocks (~0.9-1.7 GB at full depth). Weights are random: the model is
-    for speed and kernel checks, not for text."""
+    """Write a Llama-3.2-1B-width GGUF of `kind` (see module doc; "llama_3b"
+    is the 3B widths) with random raw blocks (~0.9-1.7 GB at full depth).
+    Weights are random: the model is for speed and kernel checks, not for
+    text."""
     if kind not in LLAMA_1B_KINDS:
         raise ValueError(f"kind must be one of {LLAMA_1B_KINDS}, got {kind!r}")
-    c = dict(LLAMA_1B)
+    c = dict(LLAMA_3B if kind == "llama_3b" else LLAMA_1B)
     if n_layers is not None:
         c["n_layers"] = n_layers
     rng = np.random.default_rng(seed)
@@ -224,24 +273,22 @@ def make_llama_1b_gguf(path: str | Path, *, kind: str = "q4_k",
     hd = h // c["n_heads"]
     qd, kvd = c["n_heads"] * hd, c["n_kv_heads"] * hd
     w = GGUFWriter()
-    _header(w, "llama", f"llama-3.2-1b-width-random-{kind}",
+    width = "3.2-3b" if kind == "llama_3b" else "3.2-1b"
+    _header(w, "llama", f"llama-{width}-width-random-{kind}",
             context_length=c["context_length"], hidden=h, n_layers=nl,
             ffn_dim=f, n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
             rope_base=c["rope_base"], vocab_size=v, tok_md=tiny_tokenizer_metadata(v))
-    base = {"q4_k": GGMLType.Q4_K, "q4_k_m": GGMLType.Q4_K,
+    base = {"q4_k": GGMLType.Q4_K, "q4_k_m": GGMLType.Q4_K, "llama_3b": GGMLType.Q4_K,
             "q8_0": GGMLType.Q8_0, "q4_0_tied": GGMLType.Q4_0}[kind]
-    tied = kind in ("q4_k_m", "q4_0_tied")
-
-    def shape_only(*shape):  # add_tensor reads only the shape next to raw bytes
-        return np.broadcast_to(np.zeros((), np.float32), shape)
+    tied = kind in ("q4_k_m", "q4_0_tied", "llama_3b")
 
     def quant(name, n_out, k_in, q=base):
-        w.add_tensor(name, shape_only(n_out, k_in), q,
+        w.add_tensor(name, _shape_only(n_out, k_in), q,
                      raw_bytes=_RANDOM_BLOCKS[q](rng, n_out, k_in))
 
     if kind == "q4_k":
         embed = (rng.standard_normal((v, h), dtype=np.float32) * 0.02).astype(np.float16)
-        w.add_tensor("token_embd.weight", shape_only(v, h), GGMLType.F16,
+        w.add_tensor("token_embd.weight", _shape_only(v, h), GGMLType.F16,
                      raw_bytes=embed.view(np.uint8).reshape(-1))
     else:
         quant("token_embd.weight", v, h, GGMLType.Q6_K if kind == "q4_k_m" else base)
@@ -264,4 +311,52 @@ def make_llama_1b_gguf(path: str | Path, *, kind: str = "q4_k",
     w.add_tensor("output_norm.weight", np.ones(h, np.float32), GGMLType.F32)
     if not tied:
         quant("output.weight", v, h)
+    return w.write(path)
+
+
+def make_qwen3moe_gguf(path: str | Path, *, n_layers: int = 8, seed: int = 0) -> Path:
+    """Write a Qwen3-30B-A3B-width qwen3moe GGUF (see module doc) with
+    random raw blocks in the Q4_K_M mix: Q4_K base (token table, q/k/o, the
+    gate and up experts), Q6_K output.weight, Q6_K attn_v and ffn_down_exps
+    on the layers `use_more_bits` picks, an F32 router (std 0.02: router
+    logits of std ≈ 1) and F32 q/k norms near 1. Experts are contiguous in
+    each [E, N, K] tensor, K fastest. ~3.4 GB at 8 layers."""
+    c = dict(QWEN3_30B_A3B, n_layers=n_layers)
+    rng = np.random.default_rng(seed)
+    h, v, hd, e, fe = c["hidden"], c["vocab_size"], c["head_dim"], c["n_experts"], c["moe_ffn_dim"]
+    qd, kvd = c["n_heads"] * hd, c["n_kv_heads"] * hd
+    w = GGUFWriter()
+    _header(w, "qwen3moe", "qwen3-30b-a3b-width-random-q4_k_m",
+            context_length=c["context_length"], hidden=h, n_layers=n_layers,
+            ffn_dim=c["ffn_dim"], n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
+            rope_base=c["rope_base"], vocab_size=v, rms_eps=c["rms_eps"],
+            tok_md=tiny_tokenizer_metadata(v, chatml=True),
+            extra={"attention.key_length": hd, "attention.value_length": hd,
+                   "expert_count": e, "expert_used_count": c["n_experts_used"],
+                   "expert_feed_forward_length": fe})
+
+    def quant(name, q, *shape):  # shape (..., N, K); experts are E * N rows
+        w.add_tensor(name, _shape_only(*shape), q,
+                     raw_bytes=_RANDOM_BLOCKS[q](rng, int(np.prod(shape[:-1])), shape[-1]))
+
+    def f32(name, arr):
+        w.add_tensor(name, np.asarray(arr, np.float32), GGMLType.F32)
+
+    quant("token_embd.weight", GGMLType.Q4_K, v, h)
+    for i in range(n_layers):
+        more = GGMLType.Q6_K if use_more_bits(i, n_layers) else GGMLType.Q4_K
+        f32(f"blk.{i}.attn_norm.weight", np.ones(h))
+        quant(f"blk.{i}.attn_q.weight", GGMLType.Q4_K, qd, h)
+        quant(f"blk.{i}.attn_k.weight", GGMLType.Q4_K, kvd, h)
+        quant(f"blk.{i}.attn_v.weight", more, kvd, h)
+        quant(f"blk.{i}.attn_output.weight", GGMLType.Q4_K, h, qd)
+        f32(f"blk.{i}.attn_q_norm.weight", rng.uniform(0.9, 1.1, hd))
+        f32(f"blk.{i}.attn_k_norm.weight", rng.uniform(0.9, 1.1, hd))
+        f32(f"blk.{i}.ffn_norm.weight", np.ones(h))
+        f32(f"blk.{i}.ffn_gate_inp.weight", rng.standard_normal((e, h), np.float32) * 0.02)
+        quant(f"blk.{i}.ffn_gate_exps.weight", GGMLType.Q4_K, e, fe, h)
+        quant(f"blk.{i}.ffn_up_exps.weight", GGMLType.Q4_K, e, fe, h)
+        quant(f"blk.{i}.ffn_down_exps.weight", more, e, h, fe)
+    f32("output_norm.weight", np.ones(h))
+    quant("output.weight", GGMLType.Q6_K, v, h)
     return w.write(path)

@@ -9,9 +9,12 @@ Tolerance: max|got - want| / max|want| < 2e-2 (bf16 kernels against f32
 plain versions), taken per output row for attention (per batch row for
 decode, per query token for prefill) and the matmuls and MLP (per input
 row) so a row with a small output is not hidden behind a large one; the
-row write is exact. The tiny models of every GGUF kind the port loads run
-on the card and on the CPU, with K5 launched exactly for the fused-MLP
-model and K6 exactly for the 8-bit ones. K7 (paged decode attention) is
+row write is exact. K2, K4 and K7 are also checked at head_dim 128 with
+r = 3 and 8, and K8 / K9 (grouped matmul) per routed row on a routing with
+an empty expert and a two-block expert, at tm = 8, 32 and 128. The tiny
+models of every GGUF kind the port loads run on the card and on the CPU,
+with K5 launched exactly for the fused-MLP model and K6 exactly for the
+8-bit ones. K7 (paged decode attention) is
 checked per batch row on shuffled tables with ragged lengths at page sizes
 16 and 128, and a small paged BatchEngine serves on the card through K7
 without K2/K3.
@@ -211,3 +214,56 @@ def test_paged_batch_engine_on_the_card(cuda, tmp_path):
     assert all(r.state == RequestState.FINISHED and r.output_ids for r in reqs)
     assert pga.K7.launches > before[0]
     assert (fd.K2.launches, fd.K3.launches) == before[1:]
+
+
+@pytest.mark.parametrize("r", [3, 8])
+def test_attention_kernels_head_dim_128(cuda, r):
+    b, s, hkv, d = 3, 192, 2, 128
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    q = torch.randn(b, hkv * r, d, **bf)
+    kn, vn = torch.randn(b, hkv * d, **bf), torch.randn(b, hkv * d, **bf)
+    kc, vc = torch.randn(1, b, s, hkv * d, **bf), torch.randn(1, b, s, hkv * d, **bf)
+    starts = torch.tensor([0, 77, s - 1], device="cuda", dtype=torch.int32)
+    got = fd.layered_decode_attention(q, kn, vn, kc, vc, 0, starts)
+    assert rel(got, fd.decode_attention_plain(q, kn, vn, kc[0], vc[0], starts, d**-0.5), 1) < TOL
+    qp = torch.randn(b, 40, hkv * r, d, **bf)
+    offs = torch.tensor([0, 60, 100], device="cuda", dtype=torch.int32)
+    got = pa.flash_prefill_attention(qp, kc[0], vc[0], offs)
+    assert rel(got, pa.flash_prefill_attention_plain(qp, kc[0], vc[0], offs, d**-0.5), 2) < TOL
+    kp, vp = torch.randn(hkv, 20, 16, d, **bf), torch.randn(hkv, 20, 16, d, **bf)
+    tables = (torch.randperm(19, generator=torch.Generator().manual_seed(0))[:12] + 1).view(b, 4)
+    tables = tables.to(torch.int32).cuda()
+    lengths = torch.tensor([1, 17, 64], dtype=torch.int32, device="cuda")
+    got = pga.paged_decode_attention(q, kp, vp, tables, lengths)
+    assert rel(got, pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, d**-0.5), 1) < TOL
+
+
+@pytest.mark.parametrize("tm", [8, 32, 128])
+@pytest.mark.parametrize("kind", ["q4", "q8_g32", "q8_g16_mins"])
+def test_grouped_matmul_kernels(cuda, tm, kind):
+    from nfai_tpu_torch.models.llama import moe_group_layout
+
+    e, n, k = 4, 256, 512
+    if kind == "q4":
+        w = Q4Tensor(torch.randint(0, 256, (e, n, k // 2), dtype=torch.uint8, device="cuda",
+                                   generator=cuda),
+                     torch.rand(e, n, k // 32, device="cuda", generator=cuda) * 1e-2,
+                     torch.rand(e, n, k // 32, device="cuda", generator=cuda) * 5e-2, k, n)
+    else:
+        g = 32 if kind == "q8_g32" else 16
+        w = Q8Tensor(torch.randint(-32, 32, (e, n, k), dtype=torch.int8, device="cuda",
+                                   generator=cuda),
+                     torch.rand(e, n, k // g, device="cuda", generator=cuda) * 1e-2,
+                     torch.rand(e, n, k // g, device="cuda", generator=cuda) * 5e-2
+                     if kind.endswith("mins") else None, k, n, g)
+    flat = torch.tensor([1, 2, 2, 3] + [2] * (tm + 2) + [1, 1], device="cuda")  # expert 0 empty
+    order, dst, bg, br, m_pad = moe_group_layout(flat, flat.numel(), e, tm)
+    x = torch.zeros(m_pad, k, device="cuda", dtype=torch.bfloat16)
+    x[dst] = torch.randn(flat.numel(), k, device="cuda", dtype=torch.bfloat16, generator=cuda)
+    counter = qm.K8 if kind == "q4" else qm.K9
+    before = counter.launches
+    got = qm.qmatmul_grouped(x, w, bg, tm, br)
+    assert counter.launches == before + 1
+    want = qm.qmatmul_grouped_plain(x, w, bg, tm, br)
+    assert rel(got[dst], want[dst], row_dims=1) < TOL
+    assert torch.equal(got.float().abs().sum(-1) == 0, want.float().abs().sum(-1) == 0)
