@@ -6,11 +6,16 @@
 Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
            kernel from csrc/ (one nvcc per source, in parallel)
-  kernels  hold K1-K9 against their plain PyTorch versions on the card at
+  kernels  hold K1-K10 against their plain PyTorch versions on the card at
            the slice's shapes (K2/K3/K4/K7 at head_dim 64 and 128; K8/K9 at
            the decode layouts of a batch-1 and a batch-8 routing and a
-           256-token prefill chunk); time kernel, plain version and the
-           library yardstick with CUDA events (L2 flushed before each launch)
+           256-token prefill chunk); the int8 KV cache's kernels on int8
+           codes and scales from quantize_kv: K2-i8, K4-i8 and K7-i8 at the
+           K2/K4/K7 cases, K2 and K7 (bf16 and int8) also at batch 8 with
+           4000 keys in a 4096-slot cache, K10 (the scale write) exactly at
+           models A's and C's scale arrays; time kernel, plain version and
+           the library yardstick with CUDA events (L2 flushed before each
+           launch)
   serve    per model, write a GGUF of published widths (random raw blocks),
            load it with InferenceEngine(device="cuda") and answer three
            ChatSession requests through its chat template (one prompt > 256
@@ -18,7 +23,11 @@ Phases (each failure propagates, the exit code is then non-zero):
            decode tok/s per request
   batch    prefill_step on an 8x128 prompt, then decode_loop for 64 tokens
            at batch 8, S = 1024 (the bench.py shape); decode tok/s, the
-           kernel launches and host syncs per decode step, the byte bound
+           kernel launches and host syncs per decode step, the byte bound,
+           the cache MB; for A and A8 also the long context: batch 8 in a
+           4096-slot cache with 3500 positions of random rows, 32 decode
+           steps under the profiler (device ms/step, K2 ms per launch, each
+           beside its byte bound)
   profile  torch.profiler over 8 more decode steps of that batch: device
            busy share of the wall time and device time by kernel
   server   continuous batching on model A's engine: paged vs dense
@@ -28,7 +37,13 @@ Phases (each failure propagates, the exit code is then non-zero):
            BatchEngine serving 16 requests (prefix sharing, a 3-chunk
            prompt, mixed sampling), a starved pool that must preempt, and
            8 concurrent HTTP requests (SSE and blocking) through the server;
-           on model C's engine a paged BatchEngine serving 8 requests
+           the same on A8's engine (the int8 pool, 4 HTTP requests; its
+           paged-vs-dense check is held to INT8_TOL or, where larger, the
+           int8 cache's own error against a bf16 cache on the same forward:
+           the dense decode folds
+           the new token in at full precision, the paged one reads it back
+           quantized); on model C's engine a paged BatchEngine serving 8
+           requests
   parity   2-layer full-width copies on cuda and on cpu (plain versions):
            four Llama-3.2-1B kinds and the Llama-3.2-3B widths (K1 at K =
            3072, K5 at H = 3072, K2/K4 at head_dim 128): prefill logits and
@@ -37,9 +52,12 @@ Phases (each failure propagates, the exit code is then non-zero):
            route) and runs the same steps through the paged pool; model C:
            each layer's MoE FFN on one routing fed to both sides, then every
            prompt row and 4 decode steps, router near-ties left out and
-           counted
-The main path is three models, each driven by serve, batch and profile;
-model A's engine then serves continuously batched traffic, and so does C's:
+           counted; the Q4_K copy (dense and paged) and model C's again
+           with an int8 cache on both sides (within INT8_TOL: each device
+           quantizes its own K/V)
+The main path is three models and A8, each driven by serve, batch and
+profile; A's and A8's engines then serve continuously batched traffic, and
+so does C's:
   A  the untied Q4_K Llama-3.2-1B in the JAX package's default
      configuration: every layer's MLP is one K5 launch (16 per decode
      step), no K6;
@@ -50,8 +68,14 @@ model A's engine then serves continuously batched traffic, and so does C's:
      in the Q4_K_M mix: q/k norms, NEOX rope, head_dim 128 (K2/K4 at
      D = 128, r = 8), per layer K8 for the gate and up experts and for a
      4-bit down, K9 for a Q6_K down, K6 for the Q6_K head and attn_v; no K5;
+  A8  model A's GGUF on a second engine with EngineConfig(kv_dtype="int8"),
+     loaded after A's phases and freed before B: int8 codes with f32
+     scales; per decode step K2-i8 once per layer, K3 and K10 twice each,
+     no host sync; prefill through K4-i8; no bf16 attention kernel;
   server  model A through the paged pool: K7 for every decode layer, K4 on
-     the gathered pages for prefill, no K2/K3; C server the same for C.
+     the gathered pages for prefill, no K2/K3; C server the same for C;
+     A8 server through the int8 pool: K7-i8, K4 (bf16) on the gathered
+     pages dequantized, no K2/K3/K10/K4-i8 of either kind.
 The kernels' launch counts are zeroed just before each path and read just
 after; every kernel of that path must have launched, the kernels off its
 route must not, and the per-step counts must match the route. The line
@@ -80,6 +104,10 @@ PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 GGUF_Q4K_BYTES_PER_WEIGHT = 144 / 256  # Q4_K's own encoding (the port's container holds 0.75)
 TOL = 2e-2  # max|got - want| / max|want|, the JAX package's kernel-parity rule
+# whole models on an int8 KV cache compared across two routes or devices that
+# quantize or dequantize differently: the JAX package's int8 rule (int8 vs
+# bf16 cache logits within 5e-2 of the logit scale, tests/test_kv_int8.py)
+INT8_TOL = 5e-2
 
 PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity")
 # main-path model -> make_llama_1b_gguf kind ("qwen3moe": make_qwen3moe_gguf)
@@ -360,6 +388,7 @@ def phase_kernels(torch, timer) -> dict:
     results.update(_kernels_k5_k6(torch, timer, gen))
     results.update(_kernels_k7(torch, timer, gen))
     results.update(_kernels_k8_k9(torch, timer, gen))
+    results.update(_kernels_int8(torch, timer, gen, results))
     return results
 
 
@@ -524,6 +553,265 @@ def _kernels_k7(torch, timer, gen) -> dict:
     )}
 
 
+def _kv_codes(torch, x, hkv):
+    """bf16 K or V rows [..., S, Hkv*D] → (int8 codes [..., S, Hkv*D], f32
+    time-minor scales [..., Hkv, S]) through the port's quantize_kv."""
+    from nfai_tpu_torch.models.llama import quantize_kv
+
+    q, sc = quantize_kv(x, hkv)
+    return q, sc.transpose(-1, -2).contiguous()
+
+
+def _pool_codes(torch, pages):
+    """A bf16 page pool [Hkv, P, ps, D] → (int8 codes, f32 scales [Hkv, P,
+    ps]): one scale per (kv head, token), as the int8 pool stores them."""
+    from nfai_tpu_torch.models.llama import quantize_kv
+
+    q, sc = quantize_kv(pages, 1)
+    return q, sc[..., 0].contiguous()
+
+
+def _kernels_int8(torch, timer, gen, results) -> dict:
+    """The int8 KV cache's kernels against their plain versions on the same
+    int8 codes and scales (made by quantize_kv from bf16 draws): K2-i8 at
+    K2's cases, K4-i8 at K4's, K7-i8 at K7's, each also at B = 8 with 4000
+    keys in a 4096-slot cache (where K2 and K7 also run on the bf16 cache
+    for the comparison); K10 exactly at model A's (L 16, Hkv 8) and model
+    C's (L 8, Hkv 4) scale arrays, and K3 on int8 rows. Yardstick: the
+    cache (K7: the gathered pages) dequantized to bf16, then SDPA; K10:
+    index_put_."""
+    import torch.nn.functional as nnf
+
+    from nfai_tpu_torch.models.llama import dequant_kv
+    from nfai_tpu_torch.ops import fused_decode as fd
+    from nfai_tpu_torch.ops import paged_attention as pga
+    from nfai_tpu_torch.ops import prefill_attention as pa
+
+    bf = torch.bfloat16
+    out = {}
+
+    # K2-i8 (and K2 bf16 at the 4096-slot case)
+    cases = []
+    for L, hq, hkv, d, b, s, start in ((16, 32, 8, 64, 1, 512, 511), (16, 32, 8, 64, 8, 1024, 1023),
+                                       (8, 32, 4, 128, 1, 512, 511), (8, 32, 4, 128, 8, 1024, 1023),
+                                       (2, 24, 8, 128, 8, 1024, 1023), (2, 32, 8, 64, 8, 4096, 4000)):
+        kvd = hkv * d
+        kf = torch.randn(L, b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        vf = torch.randn(L, b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        (kc, ks), (vc, vs) = _kv_codes(torch, kf, hkv), _kv_codes(torch, vf, hkv)
+        q = torch.randn(b, hq, d, device="cuda", dtype=bf, generator=gen)
+        kn = torch.randn(b, kvd, device="cuda", dtype=bf, generator=gen)
+        vn = torch.randn(b, kvd, device="cuda", dtype=bf, generator=gen)
+        starts = torch.full((b,), start, dtype=torch.int32, device="cuda")
+        if b > 1:
+            starts[0] = 0
+            starts[1] = s // 3
+        layer, scale = L // 3, d**-0.5
+        sc = dict(k_scales=ks, v_scales=vs)
+        got = fd.layered_decode_attention(q, kn, vn, kc, vc, layer, starts, scale, **sc)
+        want = fd.decode_attention_plain(q, kn, vn, kc[layer], vc[layer], starts, scale, ks[layer], vs[layer])
+        torch.cuda.synchronize()
+        err = check(f"K2-i8 D={d} Hq={hq} Hkv={hkv} B={b} S={s} starts={starts.tolist()[:3]}...", got,
+                    want, row_dims=1)
+        starts_t = torch.full((b,), start, dtype=torch.int32, device="cuda")
+        ms = timer(lambda: fd.layered_decode_attention(q, kn, vn, kc, vc, layer, starts_t, scale, **sc))
+        plain_ms = timer(lambda: fd.decode_attention_plain(q, kn, vn, kc[layer], vc[layer], starts_t, scale,
+                                                           ks[layer], vs[layer]), iters=3)
+
+        def dequant_sdpa():  # the yardstick: the layer's old tokens dequantized, then SDPA
+            kd = torch.cat([dequant_kv(kc[layer, :, :start], ks[layer, :, :, :start], bf), kn[:, None]], 1)
+            vd = torch.cat([dequant_kv(vc[layer, :, :start], vs[layer, :, :, :start], bf), vn[:, None]], 1)
+            return nnf.scaled_dot_product_attention(
+                q[:, :, None], kd.view(b, start + 1, hkv, d).transpose(1, 2),
+                vd.view(b, start + 1, hkv, d).transpose(1, 2), scale=scale, enable_gqa=True)
+
+        lib_ms = timer(dequant_sdpa)
+        nbytes = 2 * (2 * b * hq * d + 2 * b * kvd) + 2 * b * start * kvd + 2 * 4 * b * hkv * start
+        bb, by = bound_ms(nbytes, 4.0 * b * hq * (start + 1) * d)
+        shape = f"D={d} Hkv={hkv} B={b} S={s} start={start}"
+        cases.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bb,
+                          bound_by=by, library_ms=lib_ms, library="dequantize + SDPA"))
+        log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, dequantize + SDPA {lib_ms:.4f})")
+        if s == 4096:  # K2 on the bf16 cache at the same shape
+            got = fd.layered_decode_attention(q, kn, vn, kf, vf, layer, starts, scale)
+            torch.cuda.synchronize()
+            err = check(f"K2 {shape}", got, fd.decode_attention_plain(q, kn, vn, kf[layer], vf[layer], starts,
+                                                                    scale), row_dims=1)
+            ms = timer(lambda: fd.layered_decode_attention(q, kn, vn, kf, vf, layer, starts_t, scale))
+            plain_ms = timer(lambda: fd.decode_attention_plain(q, kn, vn, kf[layer], vf[layer], starts_t,
+                                                               scale), iters=3)
+            kd = torch.cat([kf[layer, :, :start], kn[:, None]], 1).view(b, start + 1, hkv, d).transpose(1, 2)
+            vd = torch.cat([vf[layer, :, :start], vn[:, None]], 1).view(b, start + 1, hkv, d).transpose(1, 2)
+            lib_ms = timer(lambda: nnf.scaled_dot_product_attention(q[:, :, None], kd.contiguous(),
+                                                                    vd.contiguous(), scale=scale,
+                                                                    enable_gqa=True))
+            bb, by = bound_ms(2 * (2 * b * hq * d + 2 * b * kvd + 2 * b * start * kvd),
+                              4.0 * b * hq * (start + 1) * d)
+            results["decode_attention"]["cases"].append(dict(
+                shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bb, bound_by=by,
+                library_ms=lib_ms))
+            log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, SDPA {lib_ms:.4f})")
+        del kf, vf, kc, vc
+    out["decode_attention_i8"] = dict(
+        route="cuda", source="nfai_tpu_torch/csrc/decode_attention.cu",
+        replaces="nfai_tpu/ops/fused_decode.py:465", also_replaces=["nfai_tpu/ops/fused_decode.py:200"],
+        headline=cases[1], cases=cases,
+    )
+
+    # K10 at model A's and model C's scale arrays; K3 on int8 code rows
+    cases = []
+    for L, b, hkv, s in ((16, 8, 8, 1024), (8, 8, 4, 1024)):
+        arr = torch.rand(L, b, hkv, s, device="cuda", generator=gen)
+        rows = torch.rand(L, b, hkv, device="cuda", generator=gen)
+        starts = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
+        starts[0], starts[1], starts[-1] = 0, s // 3, s  # the last row is dropped
+        ref = fd.write_all_layers_t_plain(arr.clone(), rows, starts)
+        got = fd.write_all_layers_t(arr.clone(), rows, starts)
+        torch.cuda.synchronize()
+        err = check(f"K10 L={L} B={b} Hkv={hkv} S={s}", got, ref, tol=1e-30)  # exact
+        arr_t, starts_t = arr.clone(), torch.full((b,), 128, dtype=torch.int32, device="cuda")
+        ms = timer(lambda: fd.write_all_layers_t(arr_t, rows, starts_t))
+        plain_ms = timer(lambda: fd.write_all_layers_t_plain(arr_t, rows, starts_t))
+        bidx, sidx, rows_b = torch.arange(b, device="cuda"), starts_t.long(), rows.permute(1, 0, 2).contiguous()
+        lib_ms = timer(lambda: arr_t.permute(1, 3, 0, 2).index_put_((bidx, sidx), rows_b))
+        bb, by = bound_ms(2 * rows.numel() * 4, 0)
+        cases.append(dict(shape=f"L={L} B={b} Hkv={hkv} S={s}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bb, bound_by=by, library_ms=lib_ms))
+        log(f"    {ms:.4f} ms (bound {bb:.6f} by {by}, plain {plain_ms:.4f}, index_put_ {lib_ms:.4f})")
+        if hkv == 8:
+            codes = torch.randint(-127, 128, (L, b, s, 512), dtype=torch.int8, device="cuda", generator=gen)
+            crow = torch.randint(-127, 128, (L, b, 512), dtype=torch.int8, device="cuda", generator=gen)
+            check(f"K3 int8 rows L={L} B={b} S={s} KVD=512", fd.write_all_layers(codes.clone(), crow, starts),
+                  fd.write_all_layers_plain(codes.clone(), crow, starts), tol=1e-30)
+            del codes
+    out["kv_write_t"] = dict(
+        route="cuda", source="nfai_tpu_torch/csrc/kv_write.cu",
+        replaces="nfai_tpu/ops/fused_decode.py:659", also_replaces=[],
+        headline=cases[0], cases=cases,
+    )
+
+    # K4-i8 at K4's cases
+    cases = []
+    for hq, hkv, d, b, t, s, off in ((32, 8, 64, 1, 256, 1024, 0), (32, 8, 64, 1, 256, 1024, 256),
+                                     (32, 8, 64, 8, 128, 1024, 0), (32, 8, 64, 2, 16, 512, 100),
+                                     (32, 4, 128, 1, 256, 1024, 0), (32, 4, 128, 1, 256, 1024, 256),
+                                     (32, 4, 128, 8, 128, 1024, 0), (24, 8, 128, 1, 256, 1024, 256)):
+        kvd = hkv * d
+        q = torch.randn(b, t, hq, d, device="cuda", dtype=bf, generator=gen)
+        (kc, ks), (vc, vs) = (_kv_codes(torch, torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen),
+                                        hkv) for _ in range(2))
+        offs = torch.full((b,), off, dtype=torch.int32, device="cuda")
+        scale = d**-0.5
+        sc = dict(k_scales=ks, v_scales=vs)
+        got = pa.flash_prefill_attention(q, kc, vc, offs, scale, **sc)
+        torch.cuda.synchronize()
+        err = check(f"K4-i8 D={d} Hkv={hkv} B={b} T={t} S={s} offset={off}", got,
+                    pa.flash_prefill_attention_plain(q, kc, vc, offs, scale, ks, vs), row_dims=2)
+        ms = timer(lambda: pa.flash_prefill_attention(q, kc, vc, offs, scale, **sc))
+        plain_ms = timer(lambda: pa.flash_prefill_attention_plain(q, kc, vc, offs, scale, ks, vs), iters=3)
+        span = off + t
+        qt = q.transpose(1, 2)
+        mask = (torch.arange(span, device="cuda")[None, :]
+                <= (off + torch.arange(t, device="cuda"))[:, None])
+
+        def dequant_sdpa():
+            kd = dequant_kv(kc[:, :span], ks[:, :, :span], bf).view(b, span, hkv, d).transpose(1, 2)
+            vd = dequant_kv(vc[:, :span], vs[:, :, :span], bf).view(b, span, hkv, d).transpose(1, 2)
+            return nnf.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)
+
+        lib_ms = timer(dequant_sdpa)
+        visible = t * off + t * (t + 1) // 2
+        nbytes = 2 * (2 * b * t * hq * d) + 2 * b * span * kvd + 2 * 4 * b * hkv * span
+        bb, by = bound_ms(nbytes, 4.0 * b * hq * d * visible)
+        cases.append(dict(shape=f"D={d} Hkv={hkv} B={b} T={t} S={s} offset={off}", max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bb, bound_by=by, library_ms=lib_ms,
+                          library="dequantize + SDPA"))
+        log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, dequantize + SDPA {lib_ms:.4f})")
+    out["prefill_attention_i8"] = dict(
+        route="cuda", source="nfai_tpu_torch/csrc/prefill_attention.cu",
+        replaces="nfai_tpu/ops/prefill_attention.py:267", also_replaces=[],
+        headline=cases[2], cases=cases,
+    )
+
+    # K7-i8 at K7's cases, and at 4000 keys (with K7 on the bf16 pool beside it)
+    ragged = [1, 127, 128, 129, 500, 777, 1000, 1024]
+    cases = []
+    for label, hq, hkv, d, b, ps, lens in (
+            ("B=8 ps=128 S=1024", 32, 8, 64, 8, 128, [1024] * 8),
+            ("B=8 ps=128 ragged", 32, 8, 64, 8, 128, ragged),
+            ("B=1 ps=128 len=512", 32, 8, 64, 1, 128, [512]),
+            ("B=8 ps=16 S=1024", 32, 8, 64, 8, 16, [1024] * 8),
+            ("B=8 ps=16 ragged", 32, 8, 64, 8, 16, [1, 15, 16, 17, 500, 777, 1000, 1024]),
+            ("D=128 Hkv=4 B=8 ps=128 S=1024", 32, 4, 128, 8, 128, [1024] * 8),
+            ("D=128 Hkv=4 B=8 ps=128 ragged", 32, 4, 128, 8, 128, ragged),
+            ("D=128 Hkv=4 B=1 ps=128 len=512", 32, 4, 128, 1, 128, [512]),
+            ("D=128 Hq=24 Hkv=8 B=8 ps=128 ragged", 24, 8, 128, 8, 128, ragged),
+            ("B=8 ps=128 4000 keys", 32, 8, 64, 8, 128, [4000] * 8)):
+        scale = d**-0.5
+        n_p = -(-max(lens) // ps)
+        n_pages = b * n_p + 16
+        kf = torch.randn(hkv, n_pages, ps, d, device="cuda", dtype=bf, generator=gen)
+        vf = torch.randn(hkv, n_pages, ps, d, device="cuda", dtype=bf, generator=gen)
+        (kp, ksp), (vp, vsp) = _pool_codes(torch, kf), _pool_codes(torch, vf)
+        tables = _shuffled_tables(torch, b, n_p, n_pages, seed=100 + len(cases))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(b, hq, d, device="cuda", dtype=bf, generator=gen)
+        sc = dict(k_scales=ksp, v_scales=vsp)
+        got = pga.paged_decode_attention(q, kp, vp, tables, lengths, scale, **sc)
+        torch.cuda.synchronize()
+        err = check(f"K7-i8 {label} lengths={lens}", got,
+                    pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, scale, ksp, vsp), row_dims=1)
+        ms = timer(lambda: pga.paged_decode_attention(q, kp, vp, tables, lengths, scale, **sc))
+        plain_ms = timer(lambda: pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, scale, ksp, vsp),
+                         iters=3)
+        s = n_p * ps
+        tl = tables.long()
+        mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None].long())[:, None, None, :]
+
+        def gather_dequant_sdpa():  # the pages gathered and dequantized, then SDPA
+            kg = (kp[:, tl].float() * ksp[:, tl][..., None]).to(bf).view(hkv, b, s, d).transpose(0, 1)
+            vg = (vp[:, tl].float() * vsp[:, tl][..., None]).to(bf).view(hkv, b, s, d).transpose(0, 1)
+            return nnf.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask, scale=scale,
+                                                    enable_gqa=True)
+
+        lib_ms = timer(gather_dequant_sdpa)
+        keys = sum(lens)
+        nbytes = 2 * (2 * b * hq * d) + 4 * (tables.numel() + b) + 2 * keys * hkv * d + 2 * 4 * keys * hkv
+        bb, by = bound_ms(nbytes, 4.0 * hq * d * keys)
+        cases.append(dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bb, bound_by=by,
+                          library_ms=lib_ms, library="page gather + dequantize + SDPA"))
+        log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, "
+            f"page gather + dequantize + SDPA {lib_ms:.4f})")
+        if max(lens) == 4000:  # K7 on the bf16 pool at the same shape
+            got = pga.paged_decode_attention(q, kf, vf, tables, lengths, scale)
+            torch.cuda.synchronize()
+            err = check(f"K7 {label}", got, pga.paged_decode_attention_plain(q, kf, vf, tables, lengths, scale),
+                        row_dims=1)
+            ms = timer(lambda: pga.paged_decode_attention(q, kf, vf, tables, lengths, scale))
+            plain_ms = timer(lambda: pga.paged_decode_attention_plain(q, kf, vf, tables, lengths, scale), iters=3)
+
+            def gather_sdpa():
+                kg = kf[:, tl].view(hkv, b, s, d).transpose(0, 1)
+                vg = vf[:, tl].view(hkv, b, s, d).transpose(0, 1)
+                return nnf.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask, scale=scale,
+                                                        enable_gqa=True)
+
+            lib_ms = timer(gather_sdpa)
+            bb, by = bound_ms(2 * (2 * b * hq * d) + 4 * (tables.numel() + b) + 2 * (2 * keys * hkv * d),
+                              4.0 * hq * d * keys)
+            results["paged_attention"]["cases"].append(dict(
+                shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bb, bound_by=by,
+                library_ms=lib_ms, library="page gather + SDPA"))
+            log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, page gather + SDPA {lib_ms:.4f})")
+        del kf, vf, kp, vp
+    out["paged_attention_i8"] = dict(
+        route="cuda", source="nfai_tpu_torch/csrc/paged_attention.cu",
+        replaces="nfai_tpu/ops/paged_attention.py:113", also_replaces=[],
+        headline=cases[0], cases=cases,
+    )
+    return out
+
+
 def _routing_layout(torch, n_tokens, e, used, gen):
     """A batch of n_tokens each routed to `used` distinct experts drawn at
     random (a random-weight router's routing), laid out group-aligned as
@@ -623,14 +911,14 @@ def _kernels_k8_k9(torch, timer, gen) -> dict:
 # phases: serve, batch, parity
 
 
-def phase_serve(torch, path) -> dict:
+def phase_serve(torch, path, kv_dtype="auto") -> dict:
     from nfai_tpu_torch.config import EngineConfig, SamplingParams
     from nfai_tpu_torch.runtime.engine import ChatSession, InferenceEngine
 
     t0 = time.perf_counter()
-    engine = InferenceEngine(path, EngineConfig(max_seq_len=1024), device="cuda")
+    engine = InferenceEngine(path, EngineConfig(max_seq_len=1024, kv_dtype=kv_dtype), device="cuda")
     torch.cuda.synchronize()
-    log(f"  loaded {engine.model_name}: {engine.model_cfg.n_layers} layers, "
+    log(f"  loaded {engine.model_name}: {engine.model_cfg.n_layers} layers, kv_dtype {kv_dtype}, "
         f"hidden {engine.model_cfg.hidden_size}, vocab {engine.model_cfg.vocab_size} "
         f"in {time.perf_counter() - t0:.1f}s; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     session = ChatSession(engine, SamplingParams(temperature=0.0, max_new_tokens=64))
@@ -689,13 +977,85 @@ def phase_batch(torch, engine, kernels_mod) -> dict:
                decode_ms_per_step=dec_s / n * 1e3, decode_tok_s=b * n / dec_s,
                launches_per_step=per_step, host_syncs_per_step=syncs,
                decode_bound_ms={f"batch {bb}": _decode_bound_ms(engine, bb) for bb in (1, b)},
-               state=(first, pos + n + 2, cache, gen))
+               cache_mb=cache.nbytes / 1e6, state=(first, pos + n + 2, cache, gen))
     log(f"  batch {b}, prompt {t}, S 1024: prefill {prefill_s * 1e3:.1f} ms "
         f"({b * t / prefill_s:.0f} tok/s); decode {n} steps {dec_s * 1e3:.1f} ms "
         f"= {dec_s / n * 1e3:.2f} ms/step, {b * n / dec_s:.1f} tok/s; "
         f"kernel launches per step {per_step}; host syncs per step {syncs} {where}; "
-        f"byte bound of a step {out['decode_bound_ms']} ms")
+        f"byte bound of a step {out['decode_bound_ms']} ms; cache {out['cache_mb']:.1f} MB")
     return out
+
+
+def phase_long_context(torch, engine) -> dict:
+    """Batch 8 in a 4096-slot cache whose first 3500 positions hold random
+    rows (through quantize_kv for an int8 cache), then 32 decode steps, the
+    last 8 under the profiler: wall ms/step of the first 24, device ms/step
+    and K2's device ms per launch of the last 8, each beside its byte bound
+    (the step's weights plus the K/V and scales read; K2's keys of one
+    layer)."""
+    from nfai_tpu_torch.models import KVCache, decode_loop
+    from nfai_tpu_torch.models.llama import quantize_kv
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, b, s, fill, n, n_prof = engine.model_cfg, 8, 4096, 3500, 24, 8
+    hkv, d = cfg.n_kv_heads, cfg.head_dim
+    cache = KVCache.zeros(cfg, b, s, engine.cache_dtype, engine.device, quantized=engine.kv_quantized)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for layer in range(cfg.n_layers):
+        for dst, sdst in ((cache.k, cache.ks), (cache.v, cache.vs)):
+            rows = torch.randn(b, fill, hkv * d, device="cuda", dtype=torch.bfloat16, generator=gen)
+            if cache.quantized:
+                rows, sc = quantize_kv(rows, hkv)
+                sdst[layer, :, :, :fill] = sc.transpose(1, 2)
+            dst[layer, :, :fill] = rows
+    tok = torch.randint(0, 1000, (b,), device="cuda", generator=gen)
+    pos = torch.full((b,), fill, device="cuda")
+    decode_loop(engine.params, cfg, tok, pos, cache, gen, 2)  # warm-up (rewrites positions 3500-3501)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, pos = decode_loop(engine.params, cfg, tok, pos, cache, gen, n)[1], pos + n
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode_loop(engine.params, cfg, tok, pos, cache, gen, n_prof)
+        torch.cuda.synchronize()
+    table = _kernel_table(prof)
+    busy = sum(ms for ms, _ in table.values())
+    k2_ms = sum(ms for name, (ms, _) in table.items() if "decode_attn_kernel" in name)
+    k2_n = sum(n_ for name, (_, n_) in table.items() if "decode_attn_kernel" in name)
+    keys = fill + n + (n_prof - 1) / 2  # the mean number of old keys over the profiled steps
+    elem = 1 if cache.quantized else 2
+    kv_bytes = cfg.n_layers * 2 * b * keys * hkv * (d * elem + (4 if cache.quantized else 0))
+    out = dict(batch=b, slots=s, filled=fill, steps=n + n_prof, wall_ms_per_step=wall_ms / n,
+               device_ms_per_step=busy / n_prof, step_bound_ms=_decode_bound_ms(engine, b)
+               + kv_bytes / PEAK_BYTES_S * 1e3, k2_ms_per_launch=k2_ms / max(k2_n, 1),
+               k2_launches=k2_n, k2_bound_ms=kv_bytes / cfg.n_layers / PEAK_BYTES_S * 1e3,
+               cache_mb=cache.nbytes / 1e6)
+    log(f"  long context ({'int8' if cache.quantized else 'bf16'} cache, {cache.nbytes / 1e6:.0f} MB): batch {b}, "
+        f"{fill} filled of {s}, {n} + {n_prof} steps: wall {out['wall_ms_per_step']:.2f} ms/step; "
+        f"profiled: device {out['device_ms_per_step']:.3f} ms/step (bound {out['step_bound_ms']:.3f}), K2 "
+        f"{out['k2_ms_per_launch']:.4f} ms per launch over {k2_n} launches (bound {out['k2_bound_ms']:.4f})")
+    if k2_n != n_prof * cfg.n_layers:
+        raise AssertionError(f"long context: {k2_n} K2 launches in the profile, not {n_prof * cfg.n_layers}")
+    del cache
+    return out
+
+
+def _kernel_table(prof) -> dict[str, tuple[float, int]]:
+    """Device kernels of a profile (ops would double count): name → (device
+    ms, launches)."""
+    from torch.autograd import DeviceType
+
+    table: dict[str, tuple[float, int]] = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        ms, count = table.get(ev.key, (0.0, 0))
+        table[ev.key] = (ms + dev_us / 1e3, count + ev.count)
+    return table
 
 
 def _syncs_per_step(torch, engine, state, n=2):
@@ -751,7 +1111,6 @@ def phase_profile(torch, engine, state, tables=None) -> dict:
     """Device busy share and per-kernel device time of 8 decode steps at
     batch 8 (the wall clock includes the host's launch work); through the
     page pool when `tables` are given."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from nfai_tpu_torch.models import decode_loop, paged_decode_loop
@@ -767,17 +1126,9 @@ def phase_profile(torch, engine, state, tables=None) -> dict:
             paged_decode_loop(engine.params, engine.model_cfg, tok, pos, cache, tables, gen, n)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel: dict[str, float] = {}
-    n_kernels = 0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:  # kernels only: ops would double count
-            continue
-        n_kernels += ev.count
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0:
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e3
+    table = _kernel_table(prof)
+    by_kernel = {name: ms for name, (ms, _) in table.items() if ms > 0}
+    n_kernels = sum(count for _, count in table.values())
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     out = dict(steps=n, kernels_per_step=n_kernels / n,
@@ -793,31 +1144,44 @@ def phase_profile(torch, engine, state, tables=None) -> dict:
     return out
 
 
-def phase_parity(torch, path2, kind) -> dict:
+def phase_parity(torch, path2, kind, kv_dtypes=("auto",)) -> dict:
     """A 2-layer full-width copy on cuda and on cpu: prefill logits and 4
     teacher-forced decode steps; for the Q4_K kind also one prefill chunk
-    of 1100 rows (above MLP_FUSED_MAX_ROWS: the mlp_prefill route)."""
+    of 1100 rows (above MLP_FUSED_MAX_ROWS: the mlp_prefill route; bf16
+    cache only) and the same steps through the page pool. For "int8" in
+    kv_dtypes the same engines run it again with int8 caches on both sides
+    (K2/K4/K7 through their int8 entry points and K10 on the card). Returns
+    the result of each run by name."""
     from nfai_tpu_torch.config import EngineConfig
-    from nfai_tpu_torch.models import KVCache, decode_step, prefill_step
-    from nfai_tpu_torch.ops.fused_mlp import MLP_FUSED_MAX_ROWS
     from nfai_tpu_torch.runtime.engine import InferenceEngine
 
-    from nfai_tpu_torch.kernels import KERNELS
-
     torch.set_num_threads(os.cpu_count() or 8)
-    ecfg = EngineConfig(max_seq_len=256)
-    engines = {dev: InferenceEngine(path2, ecfg, device=dev) for dev in ("cuda", "cpu")}
+    engines = {dev: InferenceEngine(path2, EngineConfig(max_seq_len=256), device=dev)
+               for dev in ("cuda", "cpu")}
+    ids = engines["cpu"].tokenizer.encode("Parity between the card and the plain versions.")
+    return {kind if kv == "auto" else f"{kind} {kv}": _parity_run(torch, engines, ids, kind, kv == "int8")
+            for kv in kv_dtypes}
+
+
+def _parity_run(torch, engines, ids, kind, quant) -> dict:
+    """`phase_parity` on one cache kind (int8 when `quant`)."""
+    from nfai_tpu_torch.kernels import KERNELS
+    from nfai_tpu_torch.models import KVCache, decode_step, prefill_step
+    from nfai_tpu_torch.ops.fused_mlp import MLP_FUSED_MAX_ROWS
+
     before = {k.name: k.launches for k in KERNELS.values()}
     rels = []
+    tag = f"{kind} int8 cache" if quant else kind
+    tol = INT8_TOL if quant else TOL  # each device quantizes its own K/V
 
     def compare(name, logits):
-        check(f"{kind} {name}", logits["cuda"], logits["cpu"])
+        check(f"{tag} {name}", logits["cuda"], logits["cpu"], tol)
         rels.append(errors(logits["cuda"], logits["cpu"])[1])
 
-    ids = engines["cpu"].tokenizer.encode("Parity between the card and the plain versions.")
     logits, caches = {}, {}
     for dev, e in engines.items():
-        logits[dev], caches[dev] = e.prefill(e.new_cache(1), ids)
+        cache = KVCache.zeros(e.model_cfg, 1, 256, e.cache_dtype, e.device, quantized=quant)
+        logits[dev], caches[dev] = e.prefill(cache, ids)
     compare(f"prefill logits ({len(ids)} tokens)", logits)
     pos = len(ids)
     for step, tok in enumerate((17, 99, 200, 42)):
@@ -827,7 +1191,7 @@ def phase_parity(torch, path2, kind) -> dict:
                 torch.tensor([pos], device=dev), caches[dev])
         compare(f"decode step {step} logits", logits)
         pos += 1
-    if kind == "q4_k":
+    if kind == "q4_k" and not quant:
         t = 1100
         if not (t > MLP_FUSED_MAX_ROWS and engines["cuda"].params["fused_mlp"]):
             raise AssertionError("the Q4_K copy should take the fused-MLP route")
@@ -838,8 +1202,15 @@ def phase_parity(torch, path2, kind) -> dict:
                 torch.tensor([t - 1], device=dev),
                 KVCache.zeros(e.model_cfg, 1, 1152, e.cache_dtype, e.device))
         compare(f"prefill logits ({t} rows in one chunk: mlp_prefill)", logits)
-        _paged_parity(torch, engines, ids, compare)
+    if kind == "q4_k":
+        _paged_parity(torch, engines, ids, compare, quant)
     launches = {k.name: k.launches - before[k.name] for k in KERNELS.values()}
+    if quant:
+        log(f"  {tag} launches: {launches}")
+        want = ("decode_attention_i8", "prefill_attention_i8", "kv_write_t") + (
+            ("paged_attention_i8",) if kind == "q4_k" else ())
+        if any(launches[n] <= 0 for n in want) or launches["decode_attention"] or launches["paged_attention"]:
+            raise AssertionError(f"the {tag} copy did not take the int8 routes: {launches}")
     if kind == "llama_3b":  # K = 3072, head_dim 128; K5 where mlp_eligible takes H = 3072
         cfg = engines["cuda"].model_cfg
         log(f"  llama_3b copy (hidden {cfg.hidden_size}, head_dim {cfg.head_dim}, fused MLP "
@@ -851,16 +1222,18 @@ def phase_parity(torch, path2, kind) -> dict:
     return {"max_rel_err": max(rels), "launches": launches}
 
 
-def phase_parity_moe(torch, path2) -> dict:
+def phase_parity_moe(torch, path2, kv_dtypes=("auto",)) -> dict:
     """A 2-layer model C copy on cuda and on cpu. First each layer's MoE FFN
     with one routing fed to both sides (the CPU's), per row within TOL; then
     the whole model on a ChatML prompt: the logits of every prompt row and of
     4 teacher-forced decode steps, per row, leaving out the rows whose own
     token has a near-tie in the router (k-th and (k+1)-th router logits
     within NEAR_TIE on the CPU, at any layer), where the card may rightly
-    pick another expert; their count is printed."""
+    pick another expert; their count is printed. For "int8" in kv_dtypes
+    the same engines run the whole-model check again with int8 caches on
+    both sides (the FFN check, which no cache reaches, is not repeated).
+    Returns the result of each whole-model run by name."""
     from nfai_tpu_torch.config import EngineConfig
-    from nfai_tpu_torch.models import KVCache, decode_step, forward, logits_for
     from nfai_tpu_torch.models import llama as tllama
     from nfai_tpu_torch.runtime.engine import InferenceEngine
 
@@ -893,40 +1266,52 @@ def phase_parity_moe(torch, path2) -> dict:
         ids = tok.encode(engines["cpu"].chat_template.render(
             [{"role": "user", "content": "Parity between the card and the plain versions."}]),
             add_bos=False)
-        n = len(ids)
-        logits, caches = {}, {}
-        for dev, e in engines.items():
-            cache = KVCache.zeros(cfg, 1, 256, e.cache_dtype, e.device)
-            h, caches[dev] = forward(e.params, cfg, torch.tensor([ids], device=e.device),
-                                     torch.arange(n, device=e.device)[None], cache)
-            logits[dev] = logits_for(e.params, h[0])
-        rows = [(f"prompt row {i}", logits["cuda"][i], logits["cpu"][i]) for i in range(n)]
-        near = [float(torch.stack([m[i] for m in margins]).min()) < NEAR_TIE for i in range(n)]
-        pos = n
-        for step, t in enumerate((17, 99, 200, 42)):
-            margins.clear()
-            for dev, e in engines.items():
-                logits[dev], caches[dev] = decode_step(
-                    e.params, cfg, torch.tensor([t], device=e.device),
-                    torch.tensor([pos], device=e.device), caches[dev])
-            rows.append((f"decode step {step}", logits["cuda"][0], logits["cpu"][0]))
-            near.append(float(torch.stack([m[0] for m in margins]).min()) < NEAR_TIE)
-            pos += 1
+        return {"qwen3moe" if kv == "auto" else f"qwen3moe {kv}": _moe_model_parity(
+                    torch, engines, ids, margins, kv == "int8") for kv in kv_dtypes}
     finally:
         tllama.moe_route = route
+
+
+def _moe_model_parity(torch, engines, ids, margins, quant) -> dict:
+    """`phase_parity_moe`'s whole-model check on one cache kind; `margins`
+    collects the CPU router's k-th vs (k+1)-th gaps of each forward."""
+    from nfai_tpu_torch.models import KVCache, decode_step, forward, logits_for
+
+    cfg = engines["cpu"].model_cfg
+    tag = "qwen3moe int8 cache" if quant else "qwen3moe"
+    n = len(ids)
+    logits, caches = {}, {}
+    margins.clear()
+    for dev, e in engines.items():
+        cache = KVCache.zeros(cfg, 1, 256, e.cache_dtype, e.device, quantized=quant)
+        h, caches[dev] = forward(e.params, cfg, torch.tensor([ids], device=e.device),
+                                 torch.arange(n, device=e.device)[None], cache)
+        logits[dev] = logits_for(e.params, h[0])
+    rows = [(f"prompt row {i}", logits["cuda"][i], logits["cpu"][i]) for i in range(n)]
+    near = [float(torch.stack([m[i] for m in margins]).min()) < NEAR_TIE for i in range(n)]
+    pos = n
+    for step, t in enumerate((17, 99, 200, 42)):
+        margins.clear()
+        for dev, e in engines.items():
+            logits[dev], caches[dev] = decode_step(
+                e.params, cfg, torch.tensor([t], device=e.device),
+                torch.tensor([pos], device=e.device), caches[dev])
+        rows.append((f"decode step {step}", logits["cuda"][0], logits["cpu"][0]))
+        near.append(float(torch.stack([m[0] for m in margins]).min()) < NEAR_TIE)
+        pos += 1
     kept = [(name, a, b) for (name, a, b), nt in zip(rows, near) if not nt]
-    log(f"  qwen3moe: {sum(near)} of {len(rows)} rows left out as router near-ties "
+    log(f"  {tag}: {sum(near)} of {len(rows)} rows left out as router near-ties "
         f"(gap < {NEAR_TIE}); {len(kept)} compared")
     if len(kept) < len(rows) // 2:
         raise AssertionError("too many near-ties for the parity to mean anything")
     got = torch.stack([a.float().cpu() for _, a, _ in kept])
     want = torch.stack([b.float().cpu() for _, _, b in kept])
-    check(f"qwen3moe logits of {len(kept)} rows (prompt {n} tokens, 4 decode steps)", got, want,
-          row_dims=1)
+    check(f"{tag} logits of {len(kept)} rows (prompt {n} tokens, 4 decode steps)", got, want,
+          INT8_TOL if quant else TOL, row_dims=1)
     return dict(rows=len(rows), near_ties=sum(near), max_rel_err=errors(got, want, 1)[1])
 
 
-def _paged_parity(torch, engines, ids, compare) -> None:
+def _paged_parity(torch, engines, ids, compare, quant) -> None:
     """The same prompt and 4 teacher-forced steps through the page pool
     (a shuffled 2-page table of a 12-page pool): K7 and K4 on the gathered
     pages on the card against their plain versions on the CPU."""
@@ -938,7 +1323,7 @@ def _paged_parity(torch, engines, ids, compare) -> None:
     n = len(ids)
     for dev, e in engines.items():
         tables[dev] = perm.view(1, 2).to(torch.int32).to(dev)
-        pools[dev] = PagedKVCache.zeros(e.model_cfg, 12, 128, e.cache_dtype, dev)
+        pools[dev] = PagedKVCache.zeros(e.model_cfg, 12, 128, e.cache_dtype, dev, quantized=quant)
         logits[dev], pools[dev] = paged_prefill_step(
             e.params, e.model_cfg, torch.tensor([ids], device=dev), torch.arange(n, device=dev)[None],
             torch.tensor([n - 1], device=dev), pools[dev], tables[dev])
@@ -960,7 +1345,8 @@ def _pcts(xs) -> dict:
 
 
 def _server_parity(torch, engine, kernels_mod) -> dict:
-    """Paged vs dense forwards on the card, outside the main-path window:
+    """Paged vs dense forwards on the card, outside the main-path window
+    (on the engine's cache kind: bf16, or int8 codes and scales):
     a 300-token prefill through a shuffled table (paged_prefill_step)
     against prefill_step, then 4 rows of ragged length (prefilled with
     paged_prefill_step / prefill_slot_step) decode 8 teacher-forced steps at
@@ -974,19 +1360,40 @@ def _server_parity(torch, engine, kernels_mod) -> dict:
     deterministic: K4 sees the same bytes on both sides, and K7 walks keys
     in K2's order, so paged and dense must agree well inside 2e-2 (exactly,
     by design). The K5 route's paged-vs-dense error is reported beside its
-    noise floor."""
+    noise floor. With an int8 cache the two no longer agree bit for bit:
+    the dense decode folds the new token in at full precision, the paged
+    one reads it back quantized, and the paged prefill attends pages
+    dequantized to bf16 where the dense one applies the scales in f32. On
+    an H100 those roundings grew to 3.3e-2 (prefill) and 4.9e-2 (decode)
+    over model A's 16 layers, as K5's f32 atomics order alone gives 1.7e-2,
+    while the int8 cache sat 6.8e-2 from the bf16 cache on the same
+    prefill. So each int8 comparison must come out below the larger of
+    INT8_TOL and the int8 cache's own error against a bf16 cache on the
+    same dense forward (run beside it): the two int8 routes agree at least
+    as well as the JAX package's int8 rule, or as int8 agrees with bf16."""
     from nfai_tpu_torch.models import (
         KVCache, decode_step, paged_prefill_step, prefill_slot_step, prefill_step,
     )
-    from nfai_tpu_torch.ops.paged_attention import K7
+    from nfai_tpu_torch.ops.paged_attention import K7, K7_I8
     from nfai_tpu_torch.runtime.paged_cache import PagedKVCache
 
-    cfg, dev = engine.model_cfg, engine.device
+    cfg, dev, quant = engine.model_cfg, engine.device, engine.kv_quantized
+    k7 = K7_I8 if quant else K7
     params = dict(engine.params, fused_mlp=False)  # the deterministic route (see above)
     ps, n_p, lens = 128, 8, [300, 137, 77, 255]
-    pool = PagedKVCache.zeros(cfg, len(lens) * n_p + 9, ps, engine.cache_dtype, dev)
+    pool = PagedKVCache.zeros(cfg, len(lens) * n_p + 9, ps, engine.cache_dtype, dev, quantized=quant)
     tables = _shuffled_tables(torch, len(lens), n_p, pool.n_pages, seed=7, device=dev)
-    dense = KVCache.zeros(cfg, len(lens), n_p * ps, engine.cache_dtype, dev)
+    dense = KVCache.zeros(cfg, len(lens), n_p * ps, engine.cache_dtype, dev, quantized=quant)
+    # int8: the same dense forwards on a bf16 cache set each comparison's bound
+    dense_bf16 = KVCache.zeros(cfg, len(lens), n_p * ps, engine.cache_dtype, dev) if quant else None
+    bounds = []
+
+    def bound(got_int8, got_bf16, row_dims=0):
+        """For an int8 cache: INT8_TOL, or the int8 cache's own error
+        against the bf16 cache on the same forward when that is larger."""
+        bounds.append(errors(got_int8, got_bf16, row_dims)[1])
+        return max(INT8_TOL, bounds[-1])
+
     gen = torch.Generator().manual_seed(3)
     prompts = [torch.randint(0, 1000, (1, n), generator=gen).to(dev) for n in lens]
     rels = []
@@ -998,35 +1405,45 @@ def _server_parity(torch, engine, kernels_mod) -> dict:
     for i in range(len(lens)):
         lp, pool = paged_prefill_step(params, cfg, *prefill_args(i), pool, tables[i:i + 1])
         ld, dense = prefill_slot_step(params, cfg, *prefill_args(i), dense, i)
+        if quant:
+            lb, dense_bf16 = prefill_slot_step(params, cfg, *prefill_args(i), dense_bf16, i)
         if i == 0:
             ref, _ = prefill_step(params, cfg, *prefill_args(0),
-                                  KVCache.zeros(cfg, 1, n_p * ps, engine.cache_dtype, dev))
-            check("paged vs dense prefill logits (300 tokens, shuffled table)", lp, ref)
+                                  KVCache.zeros(cfg, 1, n_p * ps, engine.cache_dtype, dev, quantized=quant))
+            check("paged vs dense prefill logits (300 tokens, shuffled table)", lp, ref,
+                  bound(ld, lb) if quant else TOL)
             check("prefill_slot_step vs prefill_step logits (300 tokens)", ld, ref)
             rels += [errors(lp, ref)[1], errors(ld, ref)[1]]
     positions = torch.tensor(lens, device=dev)
     for step in range(8):
         toks = torch.randint(0, 1000, (len(lens),), generator=gen).to(dev)
-        before = K7.launches
+        before = k7.launches
         lp, pool = decode_step(params, cfg, toks, positions, pool, page_tables=tables)
-        if K7.launches - before != cfg.n_layers:
-            raise AssertionError(f"a paged decode step launched K7 {K7.launches - before} times, "
+        if k7.launches - before != cfg.n_layers:
+            raise AssertionError(f"a paged decode step launched {k7.name} {k7.launches - before} times, "
                                  f"not once per layer ({cfg.n_layers})")
         ld, dense = decode_step(params, cfg, toks, positions, dense)
+        tol = TOL
+        if quant:
+            lb, dense_bf16 = decode_step(params, cfg, toks, positions, dense_bf16)
+            tol = bound(ld, lb, row_dims=1)
         check(f"paged vs dense decode step {step} logits (batch 4, positions "
-              f"{positions.tolist()})", lp, ld, row_dims=1)
+              f"{positions.tolist()})", lp, ld, tol, row_dims=1)
         rels.append(errors(lp, ld, row_dims=1)[1])
         positions = positions + 1
     # the K5 route: paged vs dense, and the same dense prefill twice
     k5 = engine.params
-    fresh = lambda: KVCache.zeros(cfg, 1, n_p * ps, engine.cache_dtype, dev)  # noqa: E731
+    fresh = lambda: KVCache.zeros(cfg, 1, n_p * ps, engine.cache_dtype, dev, quantized=quant)  # noqa: E731
     d1, _ = prefill_step(k5, cfg, *prefill_args(0), fresh())
     d2, _ = prefill_step(k5, cfg, *prefill_args(0), fresh())
-    pool.k.zero_()
-    pool.v.zero_()
+    pool = PagedKVCache.zeros(cfg, pool.n_pages, ps, engine.cache_dtype, dev, quantized=quant)
     p1, _ = paged_prefill_step(k5, cfg, *prefill_args(0), pool, tables[:1])
     out = {"max_rel_err": max(rels), "k5_paged_vs_dense": errors(p1, d1)[1],
            "k5_dense_noise": errors(d2, d1)[1]}
+    if quant:
+        out["int8_vs_bf16"] = bounds
+        log(f"  int8 vs bf16 cache on the same dense forwards (each bound above is the larger of this and INT8_TOL): "
+            f"{', '.join(f'{b:.3e}' for b in bounds)}")
     log(f"  K5 route, 300-token prefill: paged vs dense rel {out['k5_paged_vs_dense']:.3e}, two "
         f"dense runs rel {out['k5_dense_noise']:.3e} (K5's atomics); not checked")
     return out
@@ -1040,9 +1457,13 @@ def _paged_decode_timing(torch, engine, kernels_mod) -> dict:
     from nfai_tpu_torch.runtime.paged_cache import PagedKVCache
 
     cfg, b, n, ps, dev = engine.model_cfg, 8, 64, 128, engine.device
-    pool = PagedKVCache.zeros(cfg, b * 8 + 9, ps, engine.cache_dtype, dev)
-    pool.k.normal_(0, 0.5)
-    pool.v.normal_(0, 0.5)
+    pool = PagedKVCache.zeros(cfg, b * 8 + 9, ps, engine.cache_dtype, dev, quantized=engine.kv_quantized)
+    for dst, sdst in ((pool.k, pool.ks), (pool.v, pool.vs)):
+        rows = torch.randn(dst.shape, device=dev, dtype=torch.bfloat16) * 0.5
+        if pool.quantized:
+            rows, sc = _pool_codes(torch, rows)
+            sdst.copy_(sc)
+        dst.copy_(rows)
     tables = _shuffled_tables(torch, b, 8, pool.n_pages, seed=11, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     tok = torch.randint(0, 1000, (b,), device=dev, generator=gen)
@@ -1055,15 +1476,17 @@ def _paged_decode_timing(torch, engine, kernels_mod) -> dict:
     _sync(torch)
     dec_s = time.perf_counter() - t0
     per_step = {k.name: (k.launches - before[k.name]) / n for k in kernels_mod.KERNELS.values()}
-    if per_step["paged_attention"] != cfg.n_layers:
-        raise AssertionError(f"paged decode chunk: {per_step['paged_attention']} K7 launches per "
+    k7 = "paged_attention_i8" if pool.quantized else "paged_attention"
+    if per_step[k7] != cfg.n_layers:
+        raise AssertionError(f"paged decode chunk: {per_step[k7]} {k7} launches per "
                              f"step, not one per layer ({cfg.n_layers})")
     log(f"  paged batch {b}, positions 128..{128 + n}: {dec_s / n * 1e3:.2f} ms/step, "
         f"{b * n / dec_s:.1f} tok/s; launches per step {per_step}")
     prof = phase_profile(torch, engine, (tok, pos, pool, gen), tables=tables)
+    pool_mb = pool.nbytes / 1e6
     del pool
     return dict(decode_ms_per_step=dec_s / n * 1e3, decode_tok_s=b * n / dec_s,
-                launches_per_step=per_step, profile=prof)
+                launches_per_step=per_step, profile=prof, pool_mb=pool_mb)
 
 
 def _drive(be, reqs, max_steps=5000):
@@ -1138,15 +1561,17 @@ def _preemption_run(torch, engine) -> dict:
         f"{wall:.2f} s")
     if be.preemptions < 1:
         raise AssertionError("the starved pool preempted nothing")
+    if not (be.alloc.refs[1:] == 0).all():
+        raise AssertionError("pages were not all returned after the preempting run")
     if any(not 0 < n <= 64 for n in lens):
         raise AssertionError(f"output lengths {lens}")
     return dict(preemptions=be.preemptions, output_lengths=lens, wall_s=wall,
                 full_length=sum(n == 64 for n in lens))
 
 
-def _http_run(torch, engine) -> dict:
-    """ServerState + make_handler on the same engine (127.0.0.1, port 0): 8
-    concurrent requests from threads, 4 SSE chat, 3 blocking chat, 1
+def _http_run(torch, engine, n: int = 8) -> dict:
+    """ServerState + make_handler on the same engine (127.0.0.1, port 0): n
+    concurrent requests from threads, n/2 SSE chat, n/2 - 1 blocking chat, 1
     /v1/completions; TTFT is the time to the first SSE chunk."""
     import threading
     import urllib.request
@@ -1165,8 +1590,8 @@ def _http_run(torch, engine) -> dict:
     results, errs = {}, []
 
     def hit(i):
-        stream = i < 4
-        path, body = ("/v1/completions", {"prompt": f"Request {i}: count to ten."}) if i == 7 else (
+        stream = i < n // 2
+        path, body = ("/v1/completions", {"prompt": f"Request {i}: count to ten."}) if i == n - 1 else (
             "/v1/chat/completions", {"messages": [{"role": "user", "content": f"Request {i}: hello"}]})
         body.update(temperature=0, max_tokens=32, stream=stream)
         req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
@@ -1195,7 +1620,7 @@ def _http_run(torch, engine) -> dict:
 
     try:
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=hit, args=(i,)) for i in range(8)]
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(n)]
         for t in threads:
             t.start()
         for t in threads:
@@ -1207,35 +1632,36 @@ def _http_run(torch, engine) -> dict:
         httpd.shutdown()
         httpd.server_close()
         batch.close()
-    if errs or len(results) != 8:
+    if errs or len(results) != n:
         raise AssertionError(f"HTTP requests failed: {errs or sorted(results)}")
     if any(r["code"] != 200 or not r["text"] for r in results.values()):
         raise AssertionError(f"HTTP results: {results}")
-    if not all(results[i]["done"] for i in range(4)):
+    if not all(results[i]["done"] for i in range(n // 2)):
         raise AssertionError("an SSE stream did not end in [DONE]")
-    if health["requests_served"] != 8:
+    if health["requests_served"] != n:
         raise AssertionError(f"/healthz reports {health['requests_served']} requests served")
-    ttft = _pcts([results[i]["ttft_ms"] for i in range(4)])
-    log(f"  HTTP: 8 concurrent requests (4 SSE, 3 blocking chat, 1 completion) all 200 in "
-        f"{wall:.2f} s; SSE TTFT p50 {ttft['p50']:.1f} / max {ttft['max']:.1f} ms; /healthz "
+    ttft = _pcts([results[i]["ttft_ms"] for i in range(n // 2)])
+    log(f"  HTTP: {n} concurrent requests ({n // 2} SSE, {n // 2 - 1} blocking chat, 1 completion) all "
+        f"200 in {wall:.2f} s; SSE TTFT p50 {ttft['p50']:.1f} / max {ttft['max']:.1f} ms; /healthz "
         f"{health['requests_served']} served")
-    return dict(wall_s=wall, sse_ttft_ms=ttft, chars=[len(results[i]["text"]) for i in range(8)])
+    return dict(wall_s=wall, sse_ttft_ms=ttft, chars=[len(results[i]["text"]) for i in range(n)])
 
 
-def phase_server(torch, engine, kernels_mod) -> tuple[dict, dict]:
-    """The continuous-batching path on model A's engine. Returns (results,
-    the launch counts of its main-path window)."""
+def phase_server(torch, engine, kernels_mod, route="server", n_http=8) -> tuple[dict, dict]:
+    """The continuous-batching path on model A's engine (`route` "server",
+    or "A8 server" on the int8-cache engine). Returns (results, the launch
+    counts of its main-path window)."""
     out = dict(paged_vs_dense=_server_parity(torch, engine, kernels_mod),
                paged_decode=_paged_decode_timing(torch, engine, kernels_mod))
     kernels_mod.reset_launches()
     out["batch_engine"] = _batch_engine_run(torch, engine)
     out["preemption"] = _preemption_run(torch, engine)
-    out["http"] = _http_run(torch, engine)
+    out["http"] = _http_run(torch, engine, n_http)
     launches = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
-    log(f"  server main-path launches: {launches}")
-    must, must_not = ROUTES["server"]
+    log(f"  {route} main-path launches: {launches}")
+    must, must_not = ROUTES[route]
     if any(launches[name] <= 0 for name in must) or any(launches[n] != 0 for n in must_not):
-        raise AssertionError(f"the server path did not take its route: {launches}")
+        raise AssertionError(f"the {route} path did not take its route: {launches}")
     return out, launches
 
 
@@ -1243,17 +1669,25 @@ def phase_server(torch, engine, kernels_mod) -> tuple[dict, dict]:
 
 
 # kernels each main path must launch, and those its route must not
+INT8 = {"decode_attention_i8", "kv_write_t", "prefill_attention_i8", "paged_attention_i8"}
 ROUTES = {
     "A": ({"q4_matmul", "decode_attention", "kv_write", "prefill_attention", "fused_mlp"},
-          {"q8_matmul", "paged_attention", "grouped_q4", "grouped_q8"}),
+          {"q8_matmul", "paged_attention", "grouped_q4", "grouped_q8"} | INT8),
+    "A8": ({"q4_matmul", "fused_mlp", "decode_attention_i8", "kv_write", "kv_write_t",
+            "prefill_attention_i8"},
+           {"decode_attention", "prefill_attention", "paged_attention", "paged_attention_i8",
+            "q8_matmul", "grouped_q4", "grouped_q8"}),
     "B": ({"q4_matmul", "decode_attention", "kv_write", "prefill_attention", "q8_matmul"},
-          {"fused_mlp", "paged_attention", "grouped_q4", "grouped_q8"}),
+          {"fused_mlp", "paged_attention", "grouped_q4", "grouped_q8"} | INT8),
     "server": ({"q4_matmul", "paged_attention", "prefill_attention", "fused_mlp"},
-               {"decode_attention", "kv_write", "q8_matmul", "grouped_q4", "grouped_q8"}),
+               {"decode_attention", "kv_write", "q8_matmul", "grouped_q4", "grouped_q8"} | INT8),
+    "A8 server": ({"q4_matmul", "fused_mlp", "paged_attention_i8", "prefill_attention"},
+                  {"decode_attention", "decode_attention_i8", "kv_write", "kv_write_t",
+                   "prefill_attention_i8", "paged_attention", "q8_matmul", "grouped_q4", "grouped_q8"}),
     "C": ({"q4_matmul", "q8_matmul", "decode_attention", "kv_write", "prefill_attention",
-           "grouped_q4", "grouped_q8"}, {"fused_mlp", "paged_attention"}),
+           "grouped_q4", "grouped_q8"}, {"fused_mlp", "paged_attention"} | INT8),
     "C server": ({"q4_matmul", "q8_matmul", "paged_attention", "prefill_attention",
-                  "grouped_q4", "grouped_q8"}, {"decode_attention", "kv_write", "fused_mlp"}),
+                  "grouped_q4", "grouped_q8"}, {"decode_attention", "kv_write", "fused_mlp"} | INT8),
 }
 
 
@@ -1308,9 +1742,9 @@ def _moe_server_run(torch, engine) -> dict:
 
 
 def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> dict:
-    """Serve (and batch, profile) one model with the launch counts zeroed
-    just before; returns the counts read just after, checked against the
-    model's route."""
+    """Write the model's GGUF and drive it (`_drive_model`); model A's file
+    then also serves A8, a second engine with the int8 KV cache. Returns
+    the launch counts of each path."""
     from nfai_tpu_torch.testing import make_llama_1b_gguf, make_qwen3moe_gguf
 
     t0 = time.perf_counter()
@@ -1320,10 +1754,23 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
         path = make_llama_1b_gguf(os.path.join(tmp, f"llama1b_{kind}.gguf"), kind=kind)
     log(f"model {label} ({kind}): wrote {path.stat().st_size / 2**30:.2f} GiB GGUF "
         f"in {time.perf_counter() - t0:.1f}s")
+    by_path = _drive_model(torch, kernels_mod, label, path, only, summary, phase_s)
+    if label == "A":
+        log(f"model A8 ({kind}, kv_dtype int8): a second engine on model A's GGUF")
+        by_path.update(_drive_model(torch, kernels_mod, "A8", path, only, summary, phase_s, "int8"))
+    os.remove(path)
+    return by_path
+
+
+def _drive_model(torch, kernels_mod, label, path, only, summary, phase_s, kv_dtype="auto") -> dict:
+    """Serve (and batch, long context, profile) one engine with the launch
+    counts zeroed just before; the counts read just after are checked
+    against the model's route. Model A's engine (and A8's) then runs the
+    server phase, model C's its paged BatchEngine."""
     out = {}
     kernels_mod.reset_launches()
     t0 = time.perf_counter()
-    served = phase_serve(torch, path)
+    served = phase_serve(torch, path, kv_dtype)
     engine = served["engine"]
     out["requests"] = served["requests"]
     phase_s[f"serve {label}"] = time.perf_counter() - t0
@@ -1332,6 +1779,8 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
         batch = phase_batch(torch, engine, kernels_mod)
         state = batch.pop("state")
         out["batch"] = batch
+        if label in ("A", "A8"):  # the long-context decode users of the int8 cache run it for
+            out["long_context"] = phase_long_context(torch, engine)
         phase_s[f"batch {label}"] = time.perf_counter() - t0
         if "profile" in only:
             t0 = time.perf_counter()
@@ -1346,19 +1795,35 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
     if "batch" in out:
         per_step = out["batch"]["launches_per_step"]
         n_layers = engine.model_cfg.n_layers
-        if label == "A" and per_step["fused_mlp"] != n_layers:
-            raise AssertionError(f"model A: {per_step['fused_mlp']} K5 launches per step, "
+        if label in ("A", "A8") and per_step["fused_mlp"] != n_layers:
+            raise AssertionError(f"model {label}: {per_step['fused_mlp']} K5 launches per step, "
                                  f"not one per layer ({n_layers})")
+        if label == "A8":
+            want = {"decode_attention_i8": n_layers, "kv_write": 2, "kv_write_t": 2, "decode_attention": 0}
+            got = {k: per_step[k] for k in want}
+            if got != want or out["batch"]["host_syncs_per_step"] != 0:
+                raise AssertionError(f"model A8: per decode step {got} and "
+                                     f"{out['batch']['host_syncs_per_step']} host syncs; the route implies "
+                                     f"{want} and none")
+            a = summary["model A"]["batch"]
+            log(f"  cache at batch 8, S 1024: int8 {out['batch']['cache_mb']:.1f} MB (codes and scales) "
+                f"against bf16 {a['cache_mb']:.1f} MB (model A)")
         if label == "B" and not per_step["q8_matmul"] > 0:
             raise AssertionError("model B: no K6 launch in a decode step")
         if label == "C":
             _check_moe_step(engine, per_step)
     summary[f"model {label}"] = out
     by_path = {label: launches}
-    if label == "A" and "server" in only:  # on the engine already loaded
+    if label in ("A", "A8") and "server" in only:  # on the engine already loaded
         t0 = time.perf_counter()
-        summary["server"], by_path["server"] = phase_server(torch, engine, kernels_mod)
-        phase_s["server"] = time.perf_counter() - t0
+        name = "server" if label == "A" else "A8 server"
+        summary[name], by_path[name] = phase_server(torch, engine, kernels_mod, route=name,
+                                                    n_http=8 if label == "A" else 4)
+        if label == "A8":
+            bf16 = summary["server"]["batch_engine"]["pool_mb"]
+            log(f"  BatchEngine pool: int8 {summary[name]['batch_engine']['pool_mb']:.1f} MB (codes and "
+                f"scales) against bf16 {bf16:.1f} MB (server)")
+        phase_s[name] = time.perf_counter() - t0
     if label == "C" and "server" in only:
         t0 = time.perf_counter()
         kernels_mod.reset_launches()
@@ -1370,7 +1835,6 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
             raise AssertionError(f"model C's server path did not take its route: {launches}")
         phase_s["server C"] = time.perf_counter() - t0
     del served, engine
-    os.remove(path)
     torch.cuda.empty_cache()
     return by_path
 
@@ -1421,10 +1885,12 @@ def main(argv=None) -> int:
             for kind in PARITY_KINDS:
                 path2 = make_llama_1b_gguf(os.path.join(tmp, f"llama1b_2l_{kind}.gguf"),
                                            kind=kind, n_layers=2)
-                summary["parity"][kind] = phase_parity(torch, path2, kind)
+                # the Q4_K copy also with an int8 cache on both sides
+                summary["parity"].update(phase_parity(
+                    torch, path2, kind, ("auto", "int8") if kind == "q4_k" else ("auto",)))
                 os.remove(path2)
             path2 = make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe_2l.gguf"), n_layers=2)
-            summary["parity"]["qwen3moe"] = phase_parity_moe(torch, path2)
+            summary["parity"].update(phase_parity_moe(torch, path2, ("auto", "int8")))
             os.remove(path2)
             phase_s["parity"] = time.perf_counter() - t0
         log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "

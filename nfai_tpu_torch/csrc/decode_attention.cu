@@ -28,9 +28,25 @@
 // 4l..4l+3 in P @ V (one 8-byte load per lane and value row); D = 64 does
 // the arithmetic it did before the head width became a parameter.
 // Splitting long rows across blocks (flash-decoding) is later work.
+//
+// int8 cache (nfai_decode_attention_i8, launch counter decode_attention_i8):
+// kc/vc hold int8 codes and ks/vs the per-(kv head, token) f32 scales of the
+// layer, [B, Hkv, S] (time-minor), as the JAX kernel's k_scales/v_scales.
+// The scale factors out of the D contraction, so a lane reads its int8 key
+// row (64 or 128 bytes, 16-byte loads), multiplies the dot by ks[b, h, s]
+// (32 lanes read 32 consecutive floats), and after the online-softmax
+// update multiplies its weight by vs[b, h, s] for the accumulator only: the
+// denominator sums the unscaled weights (nfai_tpu/ops/fused_decode.py:116-151,
+// the int8 branch of _fused_kernel / _fused_slab_kernel). A lane
+// owns 2 (D = 64) or 4 (D = 128) bytes of each int8 value row. The new token
+// still comes from the bf16 k_new/v_new at factor 1 (it is quantized for
+// storage after the layer loop). Bound: bytes, B * keys * Hkv * (2 * D + 8),
+// about half the bf16 stream.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -43,6 +59,66 @@ __device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
   for (int i = 0; i < 4; ++i) {
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+// 16 int8 codes of a uint4, as floats
+__device__ __forceinline__ void i8x16(const uint4& u, float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    f[i] = static_cast<float>(static_cast<int8_t>((w[i >> 2] >> (8 * (i & 3))) & 0xFFu));
+}
+
+// lane l's DL = D / 32 consecutive dims of an int8 value row, as floats
+template <int D>
+__device__ __forceinline__ void load_dims(const int8_t* row, int lane, float* v) {
+  if constexpr (D == 64) {
+    const char2 c = reinterpret_cast<const char2*>(row)[lane];
+    v[0] = c.x;
+    v[1] = c.y;
+  } else {
+    const char4 c = reinterpret_cast<const char4*>(row)[lane];
+    v[0] = c.x;
+    v[1] = c.y;
+    v[2] = c.z;
+    v[3] = c.w;
+  }
+}
+
+// sc[j] = qs[j] . row for a bf16 key row of D dims
+template <int D, int R>
+__device__ __forceinline__ void scores(const __nv_bfloat16* row, const float (*qs)[D], float* sc) {
+  const uint4* k4 = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    float kf[8];
+    bf16x8(__ldg(k4 + c), kf);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float a = sc[j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a = fmaf(qs[j][c * 8 + i], kf[i], a);
+      sc[j] = a;
+    }
+  }
+}
+
+// the same for an int8 key row (codes; the caller applies the scale)
+template <int D, int R>
+__device__ __forceinline__ void scores(const int8_t* row, const float (*qs)[D], float* sc) {
+  const uint4* k4 = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    float kf[16];
+    i8x16(__ldg(k4 + c), kf);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float a = sc[j];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) a = fmaf(qs[j][c * 16 + i], kf[i], a);
+      sc[j] = a;
+    }
   }
 }
 
@@ -62,16 +138,20 @@ __device__ __forceinline__ void load_dims(const __nv_bfloat16* row, int lane, fl
   }
 }
 
-template <int D, int R>
+// KV: the cache element, __nv_bfloat16 or int8_t (then ks/vs are read)
+template <int D, int R, typename KV>
 __global__ void __launch_bounds__(WARPS * 32)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
                    const __nv_bfloat16* __restrict__ k_new,  // [B, KVD]
                    const __nv_bfloat16* __restrict__ v_new,
-                   const __nv_bfloat16* __restrict__ kc,     // [B, S, KVD]
-                   const __nv_bfloat16* __restrict__ vc,
+                   const KV* __restrict__ kc,                // [B, S, KVD]
+                   const KV* __restrict__ vc,
+                   const float* __restrict__ ks,             // [B, Hkv, S] (int8 only)
+                   const float* __restrict__ vs,
                    const int* __restrict__ starts,           // [B]
                    __nv_bfloat16* __restrict__ out,          // [B, Hq, D]
                    int S, int hkv, float scale) {
+  constexpr bool Q = std::is_same<KV, int8_t>::value;
   constexpr int DL = D / 32;
   __shared__ float qs[R][D];
   __shared__ float wm_s[WARPS][R], wl_s[WARPS][R];
@@ -103,24 +183,26 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
     const int s = t * 32 + lane;
     const bool valid = s < n_keys;
     float sc[R];
+    float vsc = 1.f;  // this lane's value scale (int8 cache, old keys)
 #pragma unroll
     for (int j = 0; j < R; ++j) sc[j] = 0.f;
     if (valid) {
-      const __nv_bfloat16* krow = s < n_old
-          ? kc + ((size_t)b * S + s) * kvd + h * D
-          : k_new + (size_t)b * kvd + h * D;
-      const uint4* k4 = reinterpret_cast<const uint4*>(krow);
+      if constexpr (Q) {
+        if (s < n_old) {
+          scores<D, R>(kc + ((size_t)b * S + s) * kvd + h * D, qs, sc);
+          const size_t si = ((size_t)b * hkv + h) * S + s;
+          const float ksc = __ldg(ks + si);
+          vsc = __ldg(vs + si);
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
-        float kf[8];
-        bf16x8(__ldg(k4 + c), kf);
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          float a = sc[j];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) a = fmaf(qs[j][c * 8 + i], kf[i], a);
-          sc[j] = a;
+          for (int j = 0; j < R; ++j) sc[j] *= ksc;
+        } else {
+          scores<D, R>(k_new + (size_t)b * kvd + h * D, qs, sc);
         }
+      } else {
+        const __nv_bfloat16* krow = s < n_old
+            ? kc + ((size_t)b * S + s) * kvd + h * D
+            : k_new + (size_t)b * kvd + h * D;
+        scores<D, R>(krow, qs, sc);
       }
     }
     float p[R];
@@ -140,15 +222,23 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
 #pragma unroll
       for (int i = 0; i < DL; ++i) acc[j][i] *= corr;
       m_run[j] = m_new;
+      if constexpr (Q) p[j] *= vsc;  // after the denominator: the accumulator's weight only
     }
     const int n_in = min(32, n_keys - t * 32);
     for (int i = 0; i < n_in; ++i) {
       const int si = t * 32 + i;
-      const __nv_bfloat16* vrow = si < n_old
-          ? vc + ((size_t)b * S + si) * kvd + h * D
-          : v_new + (size_t)b * kvd + h * D;
       float v[DL];
-      load_dims<D>(vrow, lane, v);
+      if constexpr (Q) {
+        if (si < n_old)
+          load_dims<D>(vc + ((size_t)b * S + si) * kvd + h * D, lane, v);
+        else
+          load_dims<D>(v_new + (size_t)b * kvd + h * D, lane, v);
+      } else {
+        const __nv_bfloat16* vrow = si < n_old
+            ? vc + ((size_t)b * S + si) * kvd + h * D
+            : v_new + (size_t)b * kvd + h * D;
+        load_dims<D>(vrow, lane, v);
+      }
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p[j], i);
@@ -186,29 +276,29 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
   }
 }
 
-template <int D, int R>
+template <int D, int R, typename KV>
 int launch_r(const void* q, const void* k_new, const void* v_new, const void* kc,
-             const void* vc, const void* starts, void* out, int B, int S, int hkv,
-             float scale, cudaStream_t st) {
+             const void* vc, const void* ks, const void* vs, const void* starts, void* out,
+             int B, int S, int hkv, float scale, cudaStream_t st) {
   constexpr int smem = WARPS * R * D * (int)sizeof(float);
   // once per instantiation: D = 128, r = 8 is above the default 48 KB
   static const cudaError_t err = cudaFuncSetAttribute(
-      decode_attn_kernel<D, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decode_attn_kernel<D, R, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_attn_kernel<D, R><<<dim3(hkv, B), WARPS * 32, smem, st>>>(
+  decode_attn_kernel<D, R, KV><<<dim3(hkv, B), WARPS * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new), static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(starts),
-      static_cast<__nv_bfloat16*>(out), S, hkv, scale);
+      static_cast<const __nv_bfloat16*>(v_new), static_cast<const KV*>(kc),
+      static_cast<const KV*>(vc), static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<const int*>(starts), static_cast<__nv_bfloat16*>(out), S, hkv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, typename KV>
 int launch(const void* q, const void* k_new, const void* v_new, const void* kc,
-           const void* vc, const void* starts, void* out, int B, int S, int hkv,
-           int r, float scale, cudaStream_t st) {
+           const void* vc, const void* ks, const void* vs, const void* starts, void* out,
+           int B, int S, int hkv, int r, float scale, cudaStream_t st) {
 #define NFAI_LAUNCH(RR) \
-  return launch_r<D, RR>(q, k_new, v_new, kc, vc, starts, out, B, S, hkv, scale, st)
+  return launch_r<D, RR, KV>(q, k_new, v_new, kc, vc, ks, vs, starts, out, B, S, hkv, scale, st)
   switch (r) {
     case 1: NFAI_LAUNCH(1);
     case 2: NFAI_LAUNCH(2);
@@ -218,6 +308,18 @@ int launch(const void* q, const void* k_new, const void* v_new, const void* kc,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef NFAI_LAUNCH
+}
+
+template <typename KV>
+int dispatch(const void* q, const void* k_new, const void* v_new, const void* kc,
+             const void* vc, const void* ks, const void* vs, const void* starts, void* out,
+             int B, int S, int hkv, int r, int d, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch<64, KV>(q, k_new, v_new, kc, vc, ks, vs, starts, out, B, S, hkv, r, scale, st);
+  if (d == 128)
+    return launch<128, KV>(q, k_new, v_new, kc, vc, ks, vs, starts, out, B, S, hkv, r, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -230,8 +332,18 @@ extern "C" int nfai_decode_attention(const void* q, const void* k_new,
                                      const void* vc, const void* starts,
                                      void* out, int B, int S, int hkv, int r,
                                      int d, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch<64>(q, k_new, v_new, kc, vc, starts, out, B, S, hkv, r, scale, st);
-  if (d == 128) return launch<128>(q, k_new, v_new, kc, vc, starts, out, B, S, hkv, r, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<__nv_bfloat16>(q, k_new, v_new, kc, vc, nullptr, nullptr, starts, out, B, S,
+                                 hkv, r, d, scale, stream);
+}
+
+// The int8 cache: kc/vc [B, S, Hkv*D] int8 codes, ks/vs [B, Hkv, S] f32
+// scales (one layer's views); q, k_new, v_new and out bf16 as above.
+extern "C" int nfai_decode_attention_i8(const void* q, const void* k_new,
+                                        const void* v_new, const void* kc,
+                                        const void* vc, const void* ks,
+                                        const void* vs, const void* starts,
+                                        void* out, int B, int S, int hkv, int r,
+                                        int d, float scale, void* stream) {
+  return dispatch<int8_t>(q, k_new, v_new, kc, vc, ks, vs, starts, out, B, S, hkv, r, d, scale,
+                          stream);
 }

@@ -7,8 +7,10 @@
 //   tables[b, s / ps] in the layer's pool [Hkv, P, ps, D] (kv head h).
 //
 // Replaces nfai_tpu/ops/paged_attention.py::paged_flash_decode_attention
-// (_paged_kernel), bf16 pool without softcap or sliding window; the int8
-// pool and those options raise in the wrapper.
+// (_paged_kernel) without softcap or sliding window (those raise in the
+// wrapper), for the bf16 pool (nfai_paged_attention, counter
+// paged_attention) and the int8 pool (nfai_paged_attention_i8, counter
+// paged_attention_i8).
 //
 // What bounds it on an H100: bytes. Every valid key and value row of a
 // sequence is read once (2 * lengths[b] * D * 2 bytes per kv head); the
@@ -34,9 +36,21 @@
 // 4l..4l+3, and D = 64 does the arithmetic it did before. Page ids outside
 // [0, P) are clamped into the pool, as XLA clamps a gather index. A split
 // over S for small B * Hkv (flash-decoding) is later work.
+//
+// int8 pool: kp/vp hold int8 codes and ks/vs the per-(kv head, token) f32
+// scales [Hkv, P, ps], found through the same table: a lane reads the scale
+// at (h, page, slot) beside its key row (64 or 128 bytes), puts the k scale
+// on its score and, after the online-softmax update, the v scale on its
+// weight for the accumulator only (the denominator sums unscaled weights),
+// as the JAX kernel does (nfai_tpu/ops/paged_attention.py:70-93). There is
+// no new-token fold: the current token was written to the pool, quantized,
+// before the call. Bound: bytes, keys * Hkv * (2 * D + 8), half the bf16
+// stream.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -49,6 +63,66 @@ __device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
   for (int i = 0; i < 4; ++i) {
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+// 16 int8 codes of a uint4, as floats
+__device__ __forceinline__ void i8x16(const uint4& u, float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    f[i] = static_cast<float>(static_cast<int8_t>((w[i >> 2] >> (8 * (i & 3))) & 0xFFu));
+}
+
+// sc[j] = qs[j] . row for a bf16 key row of D dims
+template <int D, int R>
+__device__ __forceinline__ void scores(const __nv_bfloat16* row, const float (*qs)[D], float* sc) {
+  const uint4* k4 = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    float kf[8];
+    bf16x8(__ldg(k4 + c), kf);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float a = sc[j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a = fmaf(qs[j][c * 8 + i], kf[i], a);
+      sc[j] = a;
+    }
+  }
+}
+
+// the same for an int8 key row (codes; the caller applies the scale)
+template <int D, int R>
+__device__ __forceinline__ void scores(const int8_t* row, const float (*qs)[D], float* sc) {
+  const uint4* k4 = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    float kf[16];
+    i8x16(__ldg(k4 + c), kf);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float a = sc[j];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) a = fmaf(qs[j][c * 16 + i], kf[i], a);
+      sc[j] = a;
+    }
+  }
+}
+
+// lane l's DL = D / 32 consecutive dims of an int8 value row, as floats
+template <int D>
+__device__ __forceinline__ void load_dims(const int8_t* row, int lane, float* v) {
+  if constexpr (D == 64) {
+    const char2 c = reinterpret_cast<const char2*>(row)[lane];
+    v[0] = c.x;
+    v[1] = c.y;
+  } else {
+    const char4 c = reinterpret_cast<const char4*>(row)[lane];
+    v[0] = c.x;
+    v[1] = c.y;
+    v[2] = c.z;
+    v[3] = c.w;
   }
 }
 
@@ -68,15 +142,19 @@ __device__ __forceinline__ void load_dims(const __nv_bfloat16* row, int lane, fl
   }
 }
 
-template <int D, int R>
+// KV: the pool element, __nv_bfloat16 or int8_t (then ks/vs are read)
+template <int D, int R, typename KV>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
-                  const __nv_bfloat16* __restrict__ kp,  // [Hkv, P, ps, D]
-                  const __nv_bfloat16* __restrict__ vp,
+                  const KV* __restrict__ kp,             // [Hkv, P, ps, D]
+                  const KV* __restrict__ vp,
+                  const float* __restrict__ ks,          // [Hkv, P, ps] (int8 only)
+                  const float* __restrict__ vs,
                   const int* __restrict__ tables,        // [B, max_pages]
                   const int* __restrict__ lengths,       // [B]
                   __nv_bfloat16* __restrict__ out,       // [B, Hq, D]
                   int n_pages, int ps, int max_pages, int hkv, float scale) {
+  constexpr bool Q = std::is_same<KV, int8_t>::value;
   constexpr int DL = D / 32;
   __shared__ float qs[R][D];
   __shared__ float wm_s[WARPS][R], wl_s[WARPS][R];
@@ -111,24 +189,19 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
     const bool valid = s < len;
     int row = 0;  // the key's row within kv head h's [P * ps] pool rows
     float sc[R];
+    float vsc = 1.f;  // this lane's value scale (int8 pool)
 #pragma unroll
     for (int j = 0; j < R; ++j) sc[j] = 0.f;
     if (valid) {
       int page = __ldg(trow + s / ps);
       page = page < 0 ? 0 : (page >= n_pages ? n_pages - 1 : page);
       row = page * ps + s % ps;
-      const uint4* k4 = reinterpret_cast<const uint4*>(kp + (head_rows + row) * D);
+      scores<D, R>(kp + (head_rows + row) * D, qs, sc);
+      if constexpr (Q) {
+        const float ksc = __ldg(ks + head_rows + row);
+        vsc = __ldg(vs + head_rows + row);
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
-        float kf[8];
-        bf16x8(__ldg(k4 + c), kf);
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          float a = sc[j];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) a = fmaf(qs[j][c * 8 + i], kf[i], a);
-          sc[j] = a;
-        }
+        for (int j = 0; j < R; ++j) sc[j] *= ksc;
       }
     }
     float p[R];
@@ -148,6 +221,7 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
 #pragma unroll
       for (int i = 0; i < DL; ++i) acc[j][i] *= corr;
       m_run[j] = m_new;
+      if constexpr (Q) p[j] *= vsc;  // after the denominator: the accumulator's weight only
     }
     const int n_in = min(32, len - t * 32);
     for (int i = 0; i < n_in; ++i) {
@@ -191,29 +265,30 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
   }
 }
 
-template <int D, int R>
-int launch_r(const void* q, const void* kp, const void* vp, const void* tables,
-             const void* lengths, void* out, int B, int hkv, int n_pages, int ps,
-             int max_pages, float scale, cudaStream_t st) {
+template <int D, int R, typename KV>
+int launch_r(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
+             const void* tables, const void* lengths, void* out, int B, int hkv, int n_pages,
+             int ps, int max_pages, float scale, cudaStream_t st) {
   constexpr int smem = WARPS * R * D * (int)sizeof(float);
   // once per instantiation: D = 128, r = 8 is above the default 48 KB
   static const cudaError_t err = cudaFuncSetAttribute(
-      paged_attn_kernel<D, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      paged_attn_kernel<D, R, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  paged_attn_kernel<D, R><<<dim3(hkv, B), WARPS * 32, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
-      n_pages, ps, max_pages, hkv, scale);
+  paged_attn_kernel<D, R, KV><<<dim3(hkv, B), WARPS * 32, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kp),
+      static_cast<const KV*>(vp), static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<const int*>(tables), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), n_pages, ps, max_pages, hkv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch(const void* q, const void* kp, const void* vp, const void* tables,
-           const void* lengths, void* out, int B, int hkv, int r, int n_pages,
-           int ps, int max_pages, float scale, cudaStream_t st) {
-#define NFAI_LAUNCH(RR) \
-  return launch_r<D, RR>(q, kp, vp, tables, lengths, out, B, hkv, n_pages, ps, max_pages, scale, st)
+template <int D, typename KV>
+int launch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
+           const void* tables, const void* lengths, void* out, int B, int hkv, int r,
+           int n_pages, int ps, int max_pages, float scale, cudaStream_t st) {
+#define NFAI_LAUNCH(RR)                                                                   \
+  return launch_r<D, RR, KV>(q, kp, vp, ks, vs, tables, lengths, out, B, hkv, n_pages, ps, \
+                             max_pages, scale, st)
   switch (r) {
     case 1: NFAI_LAUNCH(1);
     case 2: NFAI_LAUNCH(2);
@@ -223,6 +298,20 @@ int launch(const void* q, const void* kp, const void* vp, const void* tables,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef NFAI_LAUNCH
+}
+
+template <typename KV>
+int dispatch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
+             const void* tables, const void* lengths, void* out, int B, int hkv, int r,
+             int n_pages, int ps, int max_pages, int d, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch<64, KV>(q, kp, vp, ks, vs, tables, lengths, out, B, hkv, r, n_pages, ps,
+                          max_pages, scale, st);
+  if (d == 128)
+    return launch<128, KV>(q, kp, vp, ks, vs, tables, lengths, out, B, hkv, r, n_pages, ps,
+                           max_pages, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -235,10 +324,18 @@ extern "C" int nfai_paged_attention(const void* q, const void* kp,
                                     const void* lengths, void* out, int B,
                                     int hkv, int r, int n_pages, int ps,
                                     int max_pages, int d, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch<64>(q, kp, vp, tables, lengths, out, B, hkv, r, n_pages, ps, max_pages, scale, st);
-  if (d == 128)
-    return launch<128>(q, kp, vp, tables, lengths, out, B, hkv, r, n_pages, ps, max_pages, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<__nv_bfloat16>(q, kp, vp, nullptr, nullptr, tables, lengths, out, B, hkv, r,
+                                 n_pages, ps, max_pages, d, scale, stream);
+}
+
+// The int8 pool: kp/vp [Hkv, P, ps, D] int8 codes, ks/vs [Hkv, P, ps] f32
+// scales (one layer's views); the rest as above.
+extern "C" int nfai_paged_attention_i8(const void* q, const void* kp,
+                                       const void* vp, const void* ks,
+                                       const void* vs, const void* tables,
+                                       const void* lengths, void* out, int B,
+                                       int hkv, int r, int n_pages, int ps,
+                                       int max_pages, int d, float scale, void* stream) {
+  return dispatch<int8_t>(q, kp, vp, ks, vs, tables, lengths, out, B, hkv, r, n_pages, ps,
+                          max_pages, d, scale, stream);
 }

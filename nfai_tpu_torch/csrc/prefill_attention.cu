@@ -28,10 +28,23 @@
 // there), past the 48 KB default, so the launcher raises the kernel's
 // limit first; D = 64 runs the arithmetic it ran before the head width
 // became a parameter. Double buffering, TMA and wgmma are later work.
+//
+// int8 cache (nfai_prefill_attention_i8, counter prefill_attention_i8): kc/vc
+// hold int8 codes and ks/vs the layer's per-(kv head, token) f32 scales
+// [B, Hkv, S], as the JAX kernel's k_scales/v_scales. The K and V tiles are
+// converted to bf16 on their way into shared memory (codes of |q| <= 127 are
+// exact in bf16, the JAX `_to_mxu` note), the tile's 64 k and v scales go to
+// shared memory beside them, the scores are multiplied by the k scale of
+// their column before the online softmax, which sums the unscaled p, and P
+// is multiplied by the v scale of its column before it is written as bf16
+// over the K tile (nfai_tpu/ops/prefill_attention.py:230-251). The tiles read
+// half the bytes of the bf16 cache.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -46,15 +59,34 @@ struct Tiles {
   static constexpr size_t BYTES = 3 * ROWS * LDH * 2 + ROWS * LDF * 4;
 };
 
-template <int D>
+// 16 int8 codes of a uint4 → 16 bf16 at dst (32 bytes, 16-byte aligned)
+__device__ __forceinline__ void i8x16_to_bf16(const uint4& u, __nv_bfloat16* dst) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  __align__(16) __nv_bfloat162 h2[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float a = static_cast<float>(static_cast<int8_t>((w[i >> 1] >> (16 * (i & 1))) & 0xFFu));
+    const float b = static_cast<float>(static_cast<int8_t>((w[i >> 1] >> (16 * (i & 1) + 8)) & 0xFFu));
+    h2[i] = __floats2bfloat162_rn(a, b);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(h2)[0];
+  reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(h2)[1];
+}
+
+// KV: the cache element, __nv_bfloat16 or int8_t (then ks/vs are read)
+template <int D, typename KV>
 __global__ void __launch_bounds__(128)
 prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
-                    const __nv_bfloat16* __restrict__ kc,  // [B, S, KVD]
-                    const __nv_bfloat16* __restrict__ vc,
+                    const KV* __restrict__ kc,             // [B, S, KVD]
+                    const KV* __restrict__ vc,
+                    const float* __restrict__ ks,          // [B, Hkv, S] (int8 only)
+                    const float* __restrict__ vs,
                     const int* __restrict__ offsets,       // [B]
                     __nv_bfloat16* __restrict__ out,       // [B, T, Hq, D]
                     int T, int S, int hkv, int r, float scale) {
   using namespace nvcuda;
+  constexpr bool Q = std::is_same<KV, int8_t>::value;
+  __shared__ float kss[BS], vss[BS];  // the tile's scales (int8 cache)
   constexpr int LDH = Tiles<D>::LDH, LDF = Tiles<D>::LDF, DH = D / 2;
   extern __shared__ __align__(32) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -86,11 +118,25 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
   const int n_tiles = min(S / BS, (offset + t_last) / BS + 1);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int s0 = kt * BS;
-    for (int e = tid; e < BS * (D / 8); e += 128) {
-      const int sr = e / (D / 8), c = (e % (D / 8)) * 8;
-      const size_t g = ((size_t)b * S + s0 + sr) * kvd + h * D + c;
-      *reinterpret_cast<uint4*>(&KPs[sr * LDH + c]) = __ldg(reinterpret_cast<const uint4*>(kc + g));
-      *reinterpret_cast<uint4*>(&Vs[sr * LDH + c]) = __ldg(reinterpret_cast<const uint4*>(vc + g));
+    if constexpr (Q) {
+      for (int e = tid; e < BS * (D / 16); e += 128) {
+        const int sr = e / (D / 16), c = (e % (D / 16)) * 16;
+        const size_t g = ((size_t)b * S + s0 + sr) * kvd + h * D + c;
+        i8x16_to_bf16(__ldg(reinterpret_cast<const uint4*>(kc + g)), &KPs[sr * LDH + c]);
+        i8x16_to_bf16(__ldg(reinterpret_cast<const uint4*>(vc + g)), &Vs[sr * LDH + c]);
+      }
+      if (tid < BS) {
+        const size_t g = ((size_t)b * hkv + h) * S + s0 + tid;
+        kss[tid] = __ldg(ks + g);
+        vss[tid] = __ldg(vs + g);
+      }
+    } else {
+      for (int e = tid; e < BS * (D / 8); e += 128) {
+        const int sr = e / (D / 8), c = (e % (D / 8)) * 8;
+        const size_t g = ((size_t)b * S + s0 + sr) * kvd + h * D + c;
+        *reinterpret_cast<uint4*>(&KPs[sr * LDH + c]) = __ldg(reinterpret_cast<const uint4*>(kc + g));
+        *reinterpret_cast<uint4*>(&Vs[sr * LDH + c]) = __ldg(reinterpret_cast<const uint4*>(vc + g));
+      }
     }
     __syncthreads();
     {  // S = Q K^T: warp w owns rows [16w, 16w + 16)
@@ -119,7 +165,10 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
 #pragma unroll
       for (int c = 0; c < BS / 2; ++c) {
         const int s = s0 + half * (BS / 2) + c;
-        sv[c] = s <= qpos ? Ss[row * LDF + half * (BS / 2) + c] : -INFINITY;
+        if constexpr (Q)  // the k scale of the column
+          sv[c] = s <= qpos ? Ss[row * LDF + half * (BS / 2) + c] * kss[half * (BS / 2) + c] : -INFINITY;
+        else
+          sv[c] = s <= qpos ? Ss[row * LDF + half * (BS / 2) + c] : -INFINITY;
         mx = fmaxf(mx, sv[c]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -129,8 +178,8 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
 #pragma unroll
       for (int c = 0; c < BS / 2; ++c) {
         const float p = __expf(sv[c] - m_new);
-        ps += p;
-        KPs[row * LDH + half * (BS / 2) + c] = __float2bfloat16(p);
+        ps += p;  // the denominator takes the unscaled p, P the v scale of its column
+        KPs[row * LDH + half * (BS / 2) + c] = __float2bfloat16(Q ? p * vss[half * (BS / 2) + c] : p);
       }
       ps += __shfl_xor_sync(0xffffffffu, ps, 1);
       l_run = l_run * corr + ps;
@@ -171,22 +220,34 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
   }
 }
 
-template <int D>
-int launch(const void* q, const void* kc, const void* vc, const void* offsets, void* out,
-           int B, int T, int S, int hkv, int r, float scale, cudaStream_t st) {
+template <int D, typename KV>
+int launch(const void* q, const void* kc, const void* vc, const void* ks, const void* vs,
+           const void* offsets, void* out, int B, int T, int S, int hkv, int r, float scale,
+           cudaStream_t st) {
   constexpr size_t smem = Tiles<D>::BYTES;
   if constexpr (smem > 48 * 1024) {  // once per process: above the default limit
     static const cudaError_t err = cudaFuncSetAttribute(
-        prefill_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        prefill_attn_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int tt = ROWS / r;
   dim3 grid((T + tt - 1) / tt, hkv, B), block(128);
-  prefill_attn_kernel<D><<<grid, block, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(offsets),
-      static_cast<__nv_bfloat16*>(out), T, S, hkv, r, scale);
+  prefill_attn_kernel<D, KV><<<grid, block, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kc),
+      static_cast<const KV*>(vc), static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<const int*>(offsets), static_cast<__nv_bfloat16*>(out), T, S, hkv, r, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename KV>
+int dispatch(const void* q, const void* kc, const void* vc, const void* ks, const void* vs,
+             const void* offsets, void* out, int B, int T, int S, int hkv, int r, int d,
+             float scale, void* stream) {
+  if (r <= 0 || r > ROWS || S % BS != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64) return launch<64, KV>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, scale, st);
+  if (d == 128) return launch<128, KV>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -197,9 +258,16 @@ extern "C" int nfai_prefill_attention(const void* q, const void* kc,
                                       const void* vc, const void* offsets,
                                       void* out, int B, int T, int S, int hkv,
                                       int r, int d, float scale, void* stream) {
-  if (r <= 0 || r > ROWS || S % BS != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch<64>(q, kc, vc, offsets, out, B, T, S, hkv, r, scale, st);
-  if (d == 128) return launch<128>(q, kc, vc, offsets, out, B, T, S, hkv, r, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<__nv_bfloat16>(q, kc, vc, nullptr, nullptr, offsets, out, B, T, S, hkv, r, d,
+                                 scale, stream);
+}
+
+// The int8 cache: kc/vc [B, S, Hkv*D] int8 codes, ks/vs [B, Hkv, S] f32
+// scales (one layer's views); the rest as above.
+extern "C" int nfai_prefill_attention_i8(const void* q, const void* kc,
+                                         const void* vc, const void* ks,
+                                         const void* vs, const void* offsets,
+                                         void* out, int B, int T, int S, int hkv,
+                                         int r, int d, float scale, void* stream) {
+  return dispatch<int8_t>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, d, scale, stream);
 }

@@ -36,6 +36,21 @@ stack whose K breaks its TPU tiling (qwen3moe's down, K = 768) to its
 computes the same function, and keeps a stack whose layers mix kinds (Q6_K
 down on the layers `use_more_bits` picks) per layer, so K8 and K9 both run.
 
+The int8 KV cache (``EngineConfig.kv_dtype="int8"``, `KVCache.zeros(...,
+quantized=True)`) follows the JAX package: `quantize_kv` makes int8 codes
+and per-(token, kv head) f32 scales, stored time-minor ([L, B, Hkv, S]).
+A prefill chunk quantizes its K/V, writes codes and scales (the scales
+through `_write_cache` on the time-minor array's [B, S, Hkv] view) and
+attends them with K4's int8 entry point, so the chunk's own tokens are
+attended in their quantized form; a decode step attends the old tokens with
+K2's int8 entry point and folds the new token in at full precision, then
+quantizes the new rows for storage only (K3 for the codes, K10 for the
+scales). The int8 page pool stores codes and scales through the tables: a
+decode step reads the current token back quantized (K7's int8 entry
+point), and a prefill chunk gathers its pages, dequantizes them into the
+activation dtype (`dequant_kv`) and runs K4's bf16 route, as the JAX
+package does.
+
 With block tables (`page_tables`) the cache is the continuous-batching
 page pool (runtime.paged_cache): every layer first writes its roped K and
 V through the tables (`write_paged`'s scatter), then a decode step attends
@@ -64,7 +79,7 @@ import torch
 import torch.nn.functional as nnf
 
 from ..gguf import GGUFFile, Keys
-from ..ops.fused_decode import layered_decode_attention, write_all_layers
+from ..ops.fused_decode import layered_decode_attention, write_all_layers, write_all_layers_t
 from ..ops.fused_mlp import (
     MLP_FUSED_MAX_ROWS, fused_mlp_layered, mlp_eligible, mlp_prefill,
 )
@@ -173,21 +188,67 @@ class LlamaConfig:
 class KVCache:
     """Dense KV cache, k/v [L, B, S, KVD] with KVD = Hkv*D (head-major
     columns): one token of one layer is one contiguous KVD row, and
-    cache.k[l] is the [B, S, KVD] view the attention kernels read."""
+    cache.k[l] is the [B, S, KVD] view the attention kernels read. The int8
+    cache holds int8 codes in k/v and the per-(token, kv head) f32 scales in
+    ks/vs [L, B, Hkv, S] (time-minor, the JAX layout); ks/vs are None for a
+    bf16/f32 cache."""
 
     k: torch.Tensor
     v: torch.Tensor
+    ks: torch.Tensor | None = None
+    vs: torch.Tensor | None = None
 
     @classmethod
     def zeros(cls, cfg: LlamaConfig, batch: int, max_seq: int,
-              dtype=torch.bfloat16, device="cpu") -> "KVCache":
+              dtype=torch.bfloat16, device="cpu", quantized: bool = False) -> "KVCache":
         shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads * cfg.head_dim)
+        if quantized:
+            sshape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq)
+            zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)  # noqa: E731
+            return cls(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                       zeros(sshape, torch.float32), zeros(sshape, torch.float32))
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
     @property
     def max_seq(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.ks is not None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.k, self.v, self.ks, self.vs)
+                   if t is not None)
+
+    def lane(self, slot: int) -> "KVCache":
+        """Batch slot `slot` as a batch-1 cache of views (writes go to self)."""
+        view = lambda t: None if t is None else t[:, slot:slot + 1]  # noqa: E731
+        return KVCache(view(self.k), view(self.v), view(self.ks), view(self.vs))
+
+
+def quantize_kv(x: torch.Tensor, n_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(..., head) int8 quantization of merged-lane K/V rows
+    x [..., H*D] → (int8 [..., H*D], f32 scales [..., H]): scale =
+    max(amax, 1e-20) / 127, q = clip(round(x / scale), -127, 127), round
+    half to even and a true division, as the JAX `quantize_kv`."""
+    lead = x.shape[:-1]
+    d = x.shape[-1] // n_heads
+    xh = x.reshape(*lead, n_heads, d).float()
+    scale = xh.abs().amax(-1).clamp_min(1e-20) / 127.0
+    q = torch.round(xh / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q.reshape(*lead, n_heads * d), scale
+
+
+def dequant_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """int8 codes q [B, S, KVD] with time-minor scales [B, H, S] → [B, S,
+    KVD] in `dtype` (f32 product, then the cast)."""
+    b, s, kvd = q.shape
+    h = scale.shape[1]
+    xh = q.reshape(b, s, h, kvd // h).float() * scale.transpose(1, 2)[..., None]
+    return xh.reshape(b, s, kvd).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -518,7 +579,8 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     after the final norm, cache updated in place). On the dense `KVCache`,
     T == 1 takes the decode path (K2 + K3), T > 1 the prefill path (cache
     write + K4). With `page_tables` [B, max_pages] int32 the cache is a
-    `PagedKVCache` pool (`_paged_forward`)."""
+    `PagedKVCache` pool (`_paged_forward`). An int8 cache takes the int8
+    entry points (module doc)."""
     if page_tables is not None:
         return _paged_forward(params, cfg, tokens, positions, cache, page_tables)
     if tokens.shape[1] == 1:
@@ -536,11 +598,18 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         q, k = _norm_rope(lp, cfg, layer, q.reshape(b, t, cfg.n_heads, cfg.head_dim),
                           k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim), cos, sin)
         q = q.to(act)
-        _write_cache(cache.k[layer], k.reshape(b, t, kvd), starts)
+        k = k.reshape(b, t, kvd)
+        scales = {}
+        if cache.quantized:  # the chunk is attended in its stored, quantized form
+            (k, ksc), (v, vsc) = quantize_kv(k, cfg.n_kv_heads), quantize_kv(v, cfg.n_kv_heads)
+            _write_cache(cache.ks[layer].transpose(1, 2), ksc, starts)  # time-minor: columns
+            _write_cache(cache.vs[layer].transpose(1, 2), vsc, starts)
+            scales = dict(k_scales=cache.ks[layer], v_scales=cache.vs[layer])
+        _write_cache(cache.k[layer], k, starts)
         _write_cache(cache.v[layer], v, starts)
         attn = flash_prefill_attention(
             q.contiguous(), cache.k[layer], cache.v[layer], starts,
-            scale=cfg.query_scale,
+            scale=cfg.query_scale, **scales,
         )
         h = (h + linear_layered(attn.reshape(b, t, qd), lp["wo"], layer)).to(act)
         x = rms_norm(h, lp["ffn_norm"][layer], cfg.rms_eps)
@@ -551,7 +620,10 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
                     positions: torch.Tensor, cache: KVCache):
     """One token per row: K2 attends over cache[:, :starts] plus the new row;
-    after the layer loop K3 writes every layer's new K/V row."""
+    after the layer loop K3 writes every layer's new K/V row. An int8 cache
+    is attended through its scales with the new row at full precision;
+    after the loop the new rows are quantized for storage only and K10
+    writes their scales."""
     b = tokens.shape[0]
     lp = params["layers"]
     h = _embed(params, tokens)
@@ -559,7 +631,9 @@ def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     cos, sin = rope_cos_sin(positions, params["inv_freq"])
     starts = positions[:, 0].to(torch.int32).contiguous()  # once per step, for K2 and K3
-    k_rows = torch.empty(cfg.n_layers, b, kvd, dtype=cache.k.dtype, device=h.device)
+    # the new rows stay in the activation dtype until they are stored
+    k_rows = torch.empty(cfg.n_layers, b, kvd, dtype=act if cache.quantized else cache.k.dtype,
+                         device=h.device)
     v_rows = torch.empty_like(k_rows)
     for layer in range(cfg.n_layers):
         x = rms_norm(h, lp["attn_norm"][layer], cfg.rms_eps)
@@ -571,11 +645,16 @@ def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         v_rows[layer] = v[:, 0]
         attn = layered_decode_attention(
             q.view(b, cfg.n_heads, cfg.head_dim), k_rows[layer], v_rows[layer], cache.k,
-            cache.v, layer, starts, scale=cfg.query_scale,
+            cache.v, layer, starts, scale=cfg.query_scale, k_scales=cache.ks, v_scales=cache.vs,
         )
         h = (h + linear_layered(attn.reshape(b, 1, qd), lp["wo"], layer)).to(act)
         x = rms_norm(h, lp["ffn_norm"][layer], cfg.rms_eps)
         h = (h + _mlp(params, cfg, x, layer)).to(act)
+    if cache.quantized:
+        (k_rows, ksc), (v_rows, vsc) = (quantize_kv(k_rows, cfg.n_kv_heads),
+                                        quantize_kv(v_rows, cfg.n_kv_heads))
+        write_all_layers_t(cache.ks, ksc, starts)
+        write_all_layers_t(cache.vs, vsc, starts)
     write_all_layers(cache.k, k_rows, starts)
     write_all_layers(cache.v, v_rows, starts)
     return rms_norm(h, params["final_norm"], cfg.rms_eps), cache
@@ -589,27 +668,41 @@ def _gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     return g.permute(1, 2, 0, 3).reshape(b, s, hkv * d)
 
 
-def _paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+def _gather_page_scales(spool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """One layer's scale pool [Hkv, P, ps] + tables [B, NP] → the dense
+    time-minor [B, Hkv, NP*ps] scales of each row's pages."""
+    return gather_pages(spool, tables).transpose(0, 1)
+
+
+def _paged_attention(q: torch.Tensor, pool: PagedKVCache, layer: int,
                      tables: torch.Tensor, first: torch.Tensor, scale: float) -> torch.Tensor:
-    """Attention of new tokens q [B, T, Hq, D] against one layer's pool
-    (their K/V already written). T == 1: K7 over the tables, `first` the
-    lengths (positions[:, 0] + 1, int32). T > 1: K4 over the gathered dense
-    view at offsets `first` (positions[:, 0], int32)."""
+    """Attention of new tokens q [B, T, Hq, D] against layer `layer` of the
+    pool (their K/V already written). T == 1: K7 over the tables, `first`
+    the lengths (positions[:, 0] + 1, int32). T > 1: K4 over the gathered
+    dense view at offsets `first` (positions[:, 0], int32); an int8 pool's
+    pages are dequantized into q's dtype first."""
     b, t, hq, d = q.shape
+    k_pages, v_pages = pool.k[layer], pool.v[layer]
     if t == 1:
-        return paged_decode_attention(q[:, 0], k_pages, v_pages, tables, first, scale)[:, None]
+        scales = {} if not pool.quantized else dict(k_scales=pool.ks[layer], v_scales=pool.vs[layer])
+        return paged_decode_attention(q[:, 0], k_pages, v_pages, tables, first, scale,
+                                      **scales)[:, None]
     span = tables.shape[1] * k_pages.shape[2]
     if span % 64:
         raise ValueError(f"a block table spans {span} positions; the prefill attention "
                          "kernel needs a multiple of 64 (its key tile)")
     kd, vd = _gather_pages(k_pages, tables), _gather_pages(v_pages, tables)
+    if pool.quantized:
+        kd = dequant_kv(kd, _gather_page_scales(pool.ks[layer], tables), q.dtype)
+        vd = dequant_kv(vd, _gather_page_scales(pool.vs[layer], tables), q.dtype)
     return flash_prefill_attention(q.contiguous(), kd, vd, first, scale=scale)
 
 
 def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, pool: PagedKVCache, tables: torch.Tensor):
-    """`forward` over the page pool: per layer, the roped K and V rows are
-    scattered through the tables, then `_paged_attention` runs."""
+    """`forward` over the page pool: per layer, the roped K and V rows (an
+    int8 pool: their codes and scales) are scattered through the tables,
+    then `_paged_attention` runs."""
     b, t = tokens.shape
     lp = params["layers"]
     h = _embed(params, tokens)
@@ -625,9 +718,13 @@ def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         q, k = _norm_rope(lp, cfg, layer, q.reshape(b, t, hq, hd), k.reshape(b, t, hkv, hd),
                           cos, sin)
         q = q.to(act)
-        scatter_rows(pool.k[layer], k, flat)
+        if pool.quantized:
+            (k, ksc), (v, vsc) = quantize_kv(k.reshape(b, t, hkv * hd), hkv), quantize_kv(v, hkv)
+            scatter_rows(pool.ks[layer][..., None], ksc[..., None], flat)  # one-wide rows
+            scatter_rows(pool.vs[layer][..., None], vsc[..., None], flat)
+        scatter_rows(pool.k[layer], k.reshape(b, t, hkv, hd), flat)
         scatter_rows(pool.v[layer], v.reshape(b, t, hkv, hd), flat)
-        attn = _paged_attention(q, pool.k[layer], pool.v[layer], tables, first, cfg.query_scale)
+        attn = _paged_attention(q, pool, layer, tables, first, cfg.query_scale)
         h = (h + linear_layered(attn.reshape(b, t, hq * hd), lp["wo"], layer)).to(act)
         x = rms_norm(h, lp["ffn_norm"][layer], cfg.rms_eps)
         h = (h + _mlp(params, cfg, x, layer)).to(act)
@@ -726,9 +823,8 @@ def prefill_slot_step(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
                       cache: KVCache, slot: int):
     """Prefill one sequence's chunk [1, T] into batch slot `slot` of a dense
     batched cache [L, B, S, KVD]: the chunk runs as a batch-1 forward on the
-    slot's lane, a view (cache.k[:, slot:slot+1]), so it writes the shared
-    cache in place and nothing is copied back. Returns (logits [1, V],
-    cache)."""
-    lane = KVCache(cache.k[:, slot:slot + 1], cache.v[:, slot:slot + 1])
-    logits, _ = prefill_step(params, cfg, tokens, positions, last_index, lane)
+    slot's lane, a view (cache.k[:, slot:slot+1], and an int8 cache's
+    ks/vs[:, slot:slot+1]), so it writes the shared cache in place and
+    nothing is copied back. Returns (logits [1, V], cache)."""
+    logits, _ = prefill_step(params, cfg, tokens, positions, last_index, cache.lane(slot))
     return logits, cache

@@ -1,11 +1,20 @@
-"""Kernels K2 (decode attention) and K3 (per-step K/V row write).
+"""Kernels K2 (decode attention), K3 (per-step K/V row write) and K10 (the
+int8 cache's per-step scale write).
 
 The decode step never writes the new token's K/V before attending: K2
 folds the new row in itself, and after the layer loop K3 writes every
 layer's new row into the stacked merged-lane cache [L, B, S, Hkv*D] at
 ``starts[b]`` in one launch, in place. Counterparts of the JAX package's
-`layered_decode_attention_slab` / `layered_decode_attention` and
-`write_all_layers` (nfai_tpu/ops/fused_decode.py).
+`layered_decode_attention_slab` / `layered_decode_attention`,
+`write_all_layers` and `write_all_layers_t` (nfai_tpu/ops/fused_decode.py).
+
+The int8 cache (``EngineConfig.kv_dtype="int8"``) stores int8 codes in the
+same [L, B, S, Hkv*D] layout and per-(token, kv head) f32 scales time-minor,
+[L, B, Hkv, S]. K2 then reads the codes and applies the scales
+(``k_scales``/``v_scales``, one layer's [B, Hkv, S] view) through its own
+entry point and launch counter (``decode_attention_i8``); the new token is
+still folded in at full precision. K3 copies the int8 code rows as bytes,
+and K10 (``kv_write_t``) writes the new scales at ``starts[b]``.
 
 On CUDA tensors the wrappers launch ``csrc/decode_attention.cu`` and
 ``csrc/kv_write.cu`` or raise; on CPU tensors they run the plain versions.
@@ -20,9 +29,17 @@ K2 = register(Kernel(
     "decode_attention", "decode_attention.cu",
     {"nfai_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, F, P]},
 ))
+K2_I8 = register(Kernel(
+    "decode_attention_i8", "decode_attention.cu",
+    {"nfai_decode_attention_i8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]},
+))
 K3 = register(Kernel(
     "kv_write", "kv_write.cu",
     {"nfai_kv_write": [P, P, P, I, I, I, I, P]},
+))
+K10 = register(Kernel(
+    "kv_write_t", "kv_write.cu",
+    {"nfai_kv_write_t": [P, P, P, I, I, I, I, P]},
 ))
 
 NEG_INF = -1e30
@@ -36,10 +53,15 @@ def _check_starts(starts, b, device):
                          f"{tuple(starts.shape)} on {starts.device}")
 
 
-def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, starts, scale):
+def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, starts, scale,
+                           k_scales=None, v_scales=None):
     """q [B, Hq, D], k_new/v_new [B, KVD], one layer of the cache
     k_cache/v_cache [B, S, KVD], starts [B] (old tokens per row) →
-    [B, Hq, D] in q's dtype; f32 math."""
+    [B, Hq, D] in q's dtype; f32 math. With k_scales/v_scales [B, Hkv, S]
+    the cache holds int8 codes: the k scale multiplies each score column
+    and the v scale each softmax weight of an old token after the
+    normalisation (so the denominator sums the unscaled weights); the new
+    token is at full precision."""
     b, hq, d = q.shape
     _, s, kvd = k_cache.shape
     hkv = kvd // d
@@ -48,40 +70,73 @@ def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, starts, scale):
     kf = k_cache.float().reshape(b, s, hkv, d)
     vf = v_cache.float().reshape(b, s, hkv, d)
     logits = torch.einsum("bhrd,bshd->bhrs", qg, kf)
+    if k_scales is not None:
+        logits = logits * k_scales.float()[:, :, None, :]
     visible = torch.arange(s, device=q.device)[None, :] < starts.to(q.device)[:, None]
     logits = logits.masked_fill(~visible[:, None, None, :], NEG_INF)
     kn = k_new.float().reshape(b, hkv, d)
     vn = v_new.float().reshape(b, hkv, d)
     s_new = torch.einsum("bhrd,bhd->bhr", qg, kn)[..., None]
     w = torch.softmax(torch.cat([logits, s_new], dim=-1), dim=-1)
-    out = torch.einsum("bhrs,bshd->bhrd", w[..., :s], vf)
+    w_old = w[..., :s]
+    if v_scales is not None:
+        w_old = w_old * v_scales.float()[:, :, None, :]
+    out = torch.einsum("bhrs,bshd->bhrd", w_old, vf)
     out = out + w[..., s:] * vn[:, :, None, :]
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def check_scales(k_scales, v_scales, shape, device):
+    """The int8 cache's scales as the kernels take them: contiguous f32 of
+    `shape`, one layer's view (a batch lane of a layer-stacked array is
+    contiguous per layer); raises otherwise."""
+    for t in (k_scales, v_scales):
+        if t is None or t.dtype != torch.float32 or tuple(t.shape) != shape or \
+                not t.is_contiguous() or t.device != device:
+            raise ValueError(f"k_scales/v_scales must be contiguous f32 {list(shape)} on {device}")
+
+
 def decode_attention(q, k_new, v_new, k_cache, v_cache, starts, scale=None,
-                     softcap: float = 0.0, window: int = 0):
-    """One layer's decode attention (see `decode_attention_plain`)."""
+                     softcap: float = 0.0, window: int = 0, k_scales=None,
+                     v_scales=None):
+    """One layer's decode attention (see `decode_attention_plain`); with
+    k_scales/v_scales the cache is int8 and the int8 entry point runs."""
     b, hq, d = q.shape
     if scale is None:
         scale = 1.0 / d**0.5
     if softcap or window:
         raise NotImplementedError("attention softcap / sliding window are not ported yet")
+    quantized = k_scales is not None
+    if quantized != (v_scales is not None):
+        raise ValueError("k_scales and v_scales come together")
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_new, v_new, k_cache, v_cache, starts, scale)
+        return decode_attention_plain(q, k_new, v_new, k_cache, v_cache, starts, scale,
+                                      k_scales, v_scales)
     _, s, kvd = k_cache.shape
     hkv = kvd // d
     r = hq // hkv
     if d not in HEAD_DIMS or r not in (1, 2, 3, 4, 8) or hq != hkv * r:
         raise NotImplementedError(f"decode attention kernel takes D in {HEAD_DIMS}, r in 1/2/3/4/8; "
                                   f"got D={d}, r={r}")
-    for t in (q, k_new, v_new, k_cache, v_cache):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError("decode attention needs contiguous bf16 tensors on one device (int8 KV is not ported yet)")
+    cache_dtype = torch.int8 if quantized else torch.bfloat16
+    for t, dtype in ((q, torch.bfloat16), (k_new, torch.bfloat16), (v_new, torch.bfloat16),
+                     (k_cache, cache_dtype), (v_cache, cache_dtype)):
+        if t.dtype != dtype or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"decode attention needs contiguous bf16 q/k_new/v_new and a {cache_dtype} "
+                             "cache on one device")
     if k_new.shape != (b, kvd) or v_cache.shape != k_cache.shape or k_cache.shape[0] != b:
         raise ValueError("decode attention shape mismatch")
     _check_starts(starts, b, q.device)
     out = torch.empty_like(q)
+    if quantized:
+        check_scales(k_scales, v_scales, (b, hkv, s), q.device)
+        K2_I8.call(
+            "nfai_decode_attention_i8", ptr(q), ptr(k_new), ptr(v_new), ptr(k_cache),
+            ptr(v_cache), ptr(k_scales), ptr(v_scales), ptr(starts), ptr(out), b, s, hkv, r, d,
+            float(scale), stream_ptr(q),
+        )
+        K2_I8.launches += 1
+        return out
     K2.call(
         "nfai_decode_attention", ptr(q), ptr(k_new), ptr(v_new), ptr(k_cache),
         ptr(v_cache), ptr(starts), ptr(out), b, s, hkv, r, d, float(scale),
@@ -93,11 +148,14 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, starts, scale=None,
 
 def layered_decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int,
                              starts, scale=None, softcap: float = 0.0,
-                             window: int = 0):
+                             window: int = 0, k_scales=None, v_scales=None):
     """`decode_attention` over layer `layer` of the stacked [L, B, S, KVD]
-    cache (a view: the JAX layer index becomes a pointer offset)."""
+    cache (a view: the JAX layer index becomes a pointer offset); the int8
+    cache's k_scales/v_scales are the stacked [L, B, Hkv, S] arrays."""
+    layer_of = lambda t: None if t is None else t[layer]  # noqa: E731
     return decode_attention(q, k_new, v_new, k_cache[layer], v_cache[layer],
-                            starts, scale, softcap, window)
+                            starts, scale, softcap, window, layer_of(k_scales),
+                            layer_of(v_scales))
 
 
 def write_all_layers_plain(cache, rows, starts):
@@ -126,3 +184,28 @@ def write_all_layers(cache, rows, starts):
             row_bytes, stream_ptr(cache))
     K3.launches += 1
     return cache
+
+
+def write_all_layers_t_plain(arr, rows, starts):
+    """arr[l, b, :, starts[b]] = rows[l, b] in place (the int8 cache's
+    time-minor scales [L, B, H, S], rows [L, B, H]); starts outside [0, S)
+    dropped: `write_all_layers_plain` on its [L, B, S, H] view."""
+    write_all_layers_plain(arr.transpose(2, 3), rows, starts)
+    return arr
+
+
+def write_all_layers_t(arr, rows, starts):
+    """Write every layer's new scales [L, B, H] into arr [L, B, H, S] at
+    starts[b], in place; returns `arr`."""
+    if arr.device.type == "cpu":
+        return write_all_layers_t_plain(arr, rows, starts)
+    l, b, h, s = arr.shape
+    if rows.shape != (l, b, h) or rows.dtype != torch.float32 or arr.dtype != torch.float32:
+        raise ValueError(f"rows {tuple(rows.shape)} {rows.dtype} do not match f32 scales {tuple(arr.shape)} "
+                         f"{arr.dtype}")
+    if not arr.is_contiguous() or not rows.is_contiguous() or rows.device != arr.device:
+        raise ValueError("kv_write_t needs contiguous tensors on one device")
+    _check_starts(starts, b, arr.device)
+    K10.call("nfai_kv_write_t", ptr(arr), ptr(rows), ptr(starts), l, b, h, s, stream_ptr(arr))
+    K10.launches += 1
+    return arr

@@ -6,20 +6,30 @@ values live in one layer's pool [Hkv, P, page_size, D]; row b owns the
 pages `tables[b, :]` and attends its first `lengths[b]` positions (the new
 token's K/V are written before the call, unlike K2, which folds them in).
 
+The int8 pool (``EngineConfig.kv_dtype="int8"``) holds int8 codes and
+per-(token, kv head) f32 scales [Hkv, P, page_size] (``k_scales``/
+``v_scales``, found through the same tables) and runs through the kernel's
+int8 entry point and launch counter (``paged_attention_i8``): the k scale
+multiplies each score column, the v scale each softmax weight after the
+denominator is summed. Softcap and sliding window raise NotImplementedError.
+
 On CUDA tensors the wrapper launches ``csrc/paged_attention.cu`` or raises;
-on CPU tensors it runs `paged_decode_attention_plain`. Only the bf16 pool
-without softcap or sliding window is ported: the int8 pool (`k_scales`),
-softcap and window raise NotImplementedError.
+on CPU tensors it runs `paged_decode_attention_plain`.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels import F, I, Kernel, P, ptr, register, stream_ptr
+from .fused_decode import check_scales
 
 K7 = register(Kernel(
     "paged_attention", "paged_attention.cu",
     {"nfai_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]},
+))
+K7_I8 = register(Kernel(
+    "paged_attention_i8", "paged_attention.cu",
+    {"nfai_paged_attention_i8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]},
 ))
 
 NEG_INF = -1e30
@@ -29,16 +39,19 @@ HEAD_DIMS = (64, 128)  # the head widths K7 is compiled for
 
 def gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """[Hkv, P, ps, D] + [B, NP] → [Hkv, B, NP*ps, D]: each row's pages in
-    table order (a copy)."""
-    hkv, _, ps, d = pages.shape
+    table order (a copy). Scale pages [Hkv, P, ps] give [Hkv, B, NP*ps]."""
+    hkv, _, ps, *d = pages.shape
     b, n_p = tables.shape
-    return pages[:, tables.long()].reshape(hkv, b, n_p * ps, d)
+    return pages[:, tables.long()].reshape(hkv, b, n_p * ps, *d)
 
 
-def paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths, scale):
+def paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths, scale,
+                                 k_scales=None, v_scales=None):
     """q [B, Hq, D], one layer's pool k_pages/v_pages [Hkv, P, ps, D],
     tables [B, NP], lengths [B] → [B, Hq, D] in q's dtype; f32 math: gather
-    each row's pages densely, mask positions >= lengths[b], attend."""
+    each row's pages densely, mask positions >= lengths[b], attend. With
+    k_scales/v_scales [Hkv, P, ps] the pool holds int8 codes (see the module
+    doc)."""
     b, hq, d = q.shape
     hkv = k_pages.shape[0]
     r = hq // hkv
@@ -48,9 +61,13 @@ def paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths, scale):
     s = kg.shape[2]
     qg = q.float().reshape(b, hkv, r, d)
     logits = torch.einsum("bhrd,hbsd->bhrs", qg, kg) * scale
+    if k_scales is not None:
+        logits = logits * gather_pages(k_scales, tables).float().transpose(0, 1)[:, :, None, :]
     visible = torch.arange(s, device=q.device)[None, :] < lengths.to(q.device).long()[:, None]
     logits = logits.masked_fill(~visible[:, None, None, :], NEG_INF)
     w = torch.softmax(logits, dim=-1)
+    if v_scales is not None:
+        w = w * gather_pages(v_scales, tables).float().transpose(0, 1)[:, :, None, :]
     out = torch.einsum("bhrs,hbsd->bhrd", w, vg)
     return out.reshape(b, hq, d).to(q.dtype)
 
@@ -66,16 +83,19 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, scale=None,
                            k_scales=None, v_scales=None):
     """One layer's decode attention through block tables (see module doc):
     q [B, Hq, D], k_pages/v_pages [Hkv, P, ps, D], tables [B, NP] int32,
-    lengths [B] int32 → [B, Hq, D]."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("the int8 paged KV pool is not ported yet")
+    lengths [B] int32 → [B, Hq, D]; an int8 pool with k_scales/v_scales
+    [Hkv, P, ps]."""
     if softcap or window:
         raise NotImplementedError("attention softcap / sliding window are not ported yet")
+    quantized = k_scales is not None
+    if quantized != (v_scales is not None):
+        raise ValueError("k_scales and v_scales come together")
     b, hq, d = q.shape
     if scale is None:
         scale = 1.0 / d**0.5
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths, scale)
+        return paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths, scale,
+                                            k_scales, v_scales)
     hkv, n_pages, ps, _ = k_pages.shape
     r = hq // hkv
     if d not in HEAD_DIMS or r not in (1, 2, 3, 4, 8) or hq != hkv * r:
@@ -83,14 +103,24 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, scale=None,
                                   f"got D={d}, r={r}")
     if ps not in PAGE_SIZES:
         raise NotImplementedError(f"paged attention kernel takes page sizes {PAGE_SIZES}; got {ps}")
-    for t in (q, k_pages, v_pages):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError("paged attention needs contiguous bf16 tensors on one device")
+    pool_dtype = torch.int8 if quantized else torch.bfloat16
+    for t, dtype in ((q, torch.bfloat16), (k_pages, pool_dtype), (v_pages, pool_dtype)):
+        if t.dtype != dtype or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"paged attention needs contiguous bf16 q and a {pool_dtype} pool on one device")
     if v_pages.shape != k_pages.shape or k_pages.shape[3] != d:
         raise ValueError("paged attention shape mismatch")
     _check_index("tables", tables, (b, tables.shape[-1]), q.device)
     _check_index("lengths", lengths, (b,), q.device)
     out = torch.empty_like(q)
+    if quantized:
+        check_scales(k_scales, v_scales, tuple(k_pages.shape[:3]), q.device)
+        K7_I8.call(
+            "nfai_paged_attention_i8", ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scales),
+            ptr(v_scales), ptr(tables), ptr(lengths), ptr(out), b, hkv, r, n_pages, ps,
+            tables.shape[1], d, float(scale), stream_ptr(q),
+        )
+        K7_I8.launches += 1
+        return out
     K7.call(
         "nfai_paged_attention", ptr(q), ptr(k_pages), ptr(v_pages), ptr(tables),
         ptr(lengths), ptr(out), b, hkv, r, n_pages, ps, tables.shape[1], d,

@@ -4,7 +4,12 @@ A prompt chunk of T queries at absolute positions offsets[b] + t attends
 cache slots s <= its own position (the chunk's K/V are written first). The
 cache arrives in its native [B, S, Hkv*D] layout — one layer's view of the
 stacked cache. Counterpart of the JAX package's `flash_prefill_attention`
-with kv_layout="full" (nfai_tpu/ops/prefill_attention.py).
+with kv_layout="full" (nfai_tpu/ops/prefill_attention.py). An int8 cache
+comes with its per-(token, kv head) f32 scales ``k_scales``/``v_scales``
+(one layer's time-minor [B, Hkv, S] view) and runs through the kernel's
+int8 entry point and launch counter (``prefill_attention_i8``): the k scale
+multiplies each score column and the v scale each softmax weight after the
+denominator is summed, as the JAX kernel applies them.
 
 On CUDA tensors the wrapper launches ``csrc/prefill_attention.cu`` or
 raises; on CPU tensors it runs `flash_prefill_attention_plain`.
@@ -14,19 +19,27 @@ from __future__ import annotations
 import torch
 
 from ..kernels import F, I, Kernel, P, ptr, register, stream_ptr
+from .fused_decode import check_scales
 
 K4 = register(Kernel(
     "prefill_attention", "prefill_attention.cu",
     {"nfai_prefill_attention": [P, P, P, P, P, I, I, I, I, I, I, F, P]},
+))
+K4_I8 = register(Kernel(
+    "prefill_attention_i8", "prefill_attention.cu",
+    {"nfai_prefill_attention_i8": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P]},
 ))
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the head widths K4 is compiled for
 
 
-def flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale):
+def flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale,
+                                  k_scales=None, v_scales=None):
     """q [B, T, Hq, D], k_cache/v_cache [B, S, KVD], offsets [B] →
-    [B, T, Hq, D] in q's dtype; f32 math with the causal mask s <= pos."""
+    [B, T, Hq, D] in q's dtype; f32 math with the causal mask s <= pos.
+    With k_scales/v_scales [B, Hkv, S] the cache holds int8 codes (see the
+    module doc)."""
     b, t, hq, d = q.shape
     _, s, kvd = k_cache.shape
     hkv = kvd // d
@@ -35,24 +48,32 @@ def flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale):
     kf = k_cache.float().reshape(b, s, hkv, d)
     vf = v_cache.float().reshape(b, s, hkv, d)
     logits = torch.einsum("bthrd,bshd->bhrts", qg, kf) * scale
+    if k_scales is not None:
+        logits = logits * k_scales.float()[:, :, None, None, :]
     pos = offsets.to(q.device).long()[:, None] + torch.arange(t, device=q.device)[None]
     visible = torch.arange(s, device=q.device)[None, None, :] <= pos[:, :, None]
     logits = logits.masked_fill(~visible[:, None, None], NEG_INF)
     w = torch.softmax(logits, dim=-1)
+    if v_scales is not None:
+        w = w * v_scales.float()[:, :, None, None, :]
     out = torch.einsum("bhrts,bshd->bthrd", w, vf)
     return out.reshape(b, t, hq, d).to(q.dtype)
 
 
 def flash_prefill_attention(q, k_cache, v_cache, offsets, scale=None,
-                            softcap: float = 0.0, window: int = 0):
+                            softcap: float = 0.0, window: int = 0,
+                            k_scales=None, v_scales=None):
     """Offset-causal GQA attention of a prefill chunk (see module doc)."""
     b, t, hq, d = q.shape
     if scale is None:
         scale = 1.0 / d**0.5
     if softcap or window:
         raise NotImplementedError("attention softcap / sliding window are not ported yet")
+    quantized = k_scales is not None
+    if quantized != (v_scales is not None):
+        raise ValueError("k_scales and v_scales come together")
     if q.device.type == "cpu":
-        return flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale)
+        return flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale, k_scales, v_scales)
     _, s, kvd = k_cache.shape
     hkv = kvd // d
     r = hq // hkv
@@ -61,15 +82,25 @@ def flash_prefill_attention(q, k_cache, v_cache, offsets, scale=None,
                                   f"got D={d}, r={r}")
     if s % 64:
         raise ValueError(f"cache length {s} must be a multiple of 64")
-    for x in (q, k_cache, v_cache):
-        if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.device != q.device:
-            raise ValueError("prefill attention needs contiguous bf16 tensors on one device (int8 KV is not ported yet)")
+    cache_dtype = torch.int8 if quantized else torch.bfloat16
+    for x, dtype in ((q, torch.bfloat16), (k_cache, cache_dtype), (v_cache, cache_dtype)):
+        if x.dtype != dtype or not x.is_contiguous() or x.device != q.device:
+            raise ValueError(f"prefill attention needs contiguous bf16 q and a {cache_dtype} cache "
+                             "on one device")
     if k_cache.shape[0] != b or v_cache.shape != k_cache.shape:
         raise ValueError("prefill attention shape mismatch")
     if offsets.dtype != torch.int32 or offsets.shape != (b,) or not offsets.is_contiguous() or offsets.device != q.device:
         raise ValueError(f"offsets must be contiguous int32 [{b}] on {q.device}; got {offsets.dtype} "
                          f"{tuple(offsets.shape)} on {offsets.device}")
     out = torch.empty_like(q)
+    if quantized:
+        check_scales(k_scales, v_scales, (b, hkv, s), q.device)
+        K4_I8.call(
+            "nfai_prefill_attention_i8", ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scales),
+            ptr(v_scales), ptr(offsets), ptr(out), b, t, s, hkv, r, d, float(scale), stream_ptr(q),
+        )
+        K4_I8.launches += 1
+        return out
     K4.call(
         "nfai_prefill_attention", ptr(q), ptr(k_cache), ptr(v_cache),
         ptr(offsets), ptr(out), b, t, s, hkv, r, d, float(scale), stream_ptr(q),

@@ -6,10 +6,13 @@ in chunks of up to `decode_chunk` steps (`decode_loop`) whose sampled ids
 are read back once per chunk; EOS, the token budget and the cache length
 end generation exactly as in the JAX engine, so greedy output is the same.
 
+`EngineConfig(kv_dtype="int8")` keeps the KV cache as int8 codes with
+per-(token, kv head) f32 scales (`KVCache.zeros(..., quantized=True)`; the
+model's int8 routes are described in models.llama).
+
 Not ported yet, and raising NotImplementedError when asked for: speculative
 and constrained decoding, logprobs, presence/frequency penalties, logit
-bias, session save/load, device meshes (tensor/sequence/expert parallel)
-and the int8 KV cache.
+bias, session save/load, device meshes (tensor/sequence/expert parallel).
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ def _bucket(n: int, cap: int) -> int:
 def _check_config(config: EngineConfig) -> None:
     unported = {
         "speculative": config.speculative != "off",
-        "kv_dtype": config.kv_dtype not in ("auto", ""),
+        "kv_dtype": config.kv_dtype not in ("auto", "", "int8"),
         "mesh_shape": bool(config.mesh_shape),
         "seq_parallel": config.seq_parallel,
         "expert_parallel": config.expert_parallel,
@@ -107,15 +110,18 @@ class InferenceEngine:
             g.metadata.get(Keys.TOKENIZER_CHAT_TEMPLATE), bos_token=bos, eos_token=eos
         )
         self.cache_dtype = dtype
+        self.kv_quantized = self.config.kv_dtype == "int8"
         self.max_seq_len = min(self.config.max_seq_len, self.model_cfg.context_length)
 
     # -- low level ---------------------------------------------------------
     def new_cache(self, batch: int = 1) -> KVCache:
-        """A zeroed cache for `batch` rows. Its length is max_seq_len rounded
-        up to a multiple of 64 (the prefill kernel's key tile); attention
-        masks by position, so the extra slots are never read."""
+        """A zeroed cache for `batch` rows (int8 codes and scales under
+        kv_dtype="int8"). Its length is max_seq_len rounded up to a multiple
+        of 64 (the prefill kernel's key tile); attention masks by position,
+        so the extra slots are never read."""
         slots = -(-self.max_seq_len // 64) * 64
-        return KVCache.zeros(self.model_cfg, batch, slots, self.cache_dtype, self.device)
+        return KVCache.zeros(self.model_cfg, batch, slots, self.cache_dtype, self.device,
+                             quantized=self.kv_quantized)
 
     def prefill(
         self, cache: KVCache, token_ids: Sequence[int], start_pos: int = 0

@@ -1,8 +1,7 @@
 """Paged KV cache: one page pool per layer, per-slot block tables, and the
 host allocator with refcounts and prompt-prefix sharing.
 
-Counterpart of nfai_tpu/runtime/paged_cache.py (bf16/f32 pool only; the
-int8 pool raises NotImplementedError). The pool replaces the dense per-slot
+Counterpart of nfai_tpu/runtime/paged_cache.py. The pool replaces the dense per-slot
 cache ([L, B, S, KVD], batch x max_seq reserved up front) for continuous
 batching: device memory holds `n_pages` pages per layer, and each request
 maps its positions onto pages through a block table. Pages are refcounted,
@@ -10,7 +9,9 @@ so requests that share a prompt prefix share its KV pages (the partial tail
 page is never shared).
 
 Device layout (`PagedKVCache`): k/v [L, Hkv, P, page_size, D], the JAX
-package's layout. The block tables and lengths live on the host in the
+package's layout; the int8 pool (``EngineConfig.kv_dtype="int8"``) holds
+int8 codes there and per-(token, kv head) f32 scales ks/vs [L, Hkv, P,
+page_size] on the same pages, so the tables and prefix sharing carry over. The block tables and lengths live on the host in the
 scheduler and go to the device once per chunk as [B, max_pages] / [B].
 Page 0 is the sink: it is never handed out, and padding lanes write there.
 """
@@ -29,19 +30,28 @@ PAGE_SIZE = 128
 @dataclass
 class PagedKVCache:
     """Device pool. k/v: [L, Hkv, P, page_size, D]; k[l] is one layer's
-    [Hkv, P, page_size, D] pool, the view K7 and `write_paged` take."""
+    [Hkv, P, page_size, D] pool, the view K7 and `write_paged` take. The
+    int8 pool adds ks/vs [L, Hkv, P, page_size] f32 (None otherwise)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    ks: torch.Tensor | None = None
+    vs: torch.Tensor | None = None
 
     @classmethod
     def zeros(cls, cfg, n_pages: int, page_size: int = PAGE_SIZE,
               dtype=torch.bfloat16, device="cpu", quantized: bool = False) -> "PagedKVCache":
-        if quantized:
-            raise NotImplementedError("the int8 paged KV pool is not ported yet")
         shape = (cfg.n_layers, cfg.n_kv_heads, n_pages, page_size, cfg.head_dim)
+        if quantized:
+            zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)  # noqa: E731
+            return cls(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                       zeros(shape[:-1], torch.float32), zeros(shape[:-1], torch.float32))
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+    @property
+    def quantized(self) -> bool:
+        return self.ks is not None
 
     @property
     def n_pages(self) -> int:
@@ -53,7 +63,8 @@ class PagedKVCache:
 
     @property
     def nbytes(self) -> int:
-        return 2 * self.k.numel() * self.k.element_size()
+        return sum(t.numel() * t.element_size() for t in (self.k, self.v, self.ks, self.vs)
+                   if t is not None)
 
 
 class OutOfPages(RuntimeError):
@@ -204,3 +215,13 @@ def write_paged(pages: torch.Tensor, new: torch.Tensor, slot_pages: torch.Tensor
     Unlike the JAX function (an XLA scatter on a donated pool), this updates
     `pages` in place and returns it."""
     return scatter_rows(pages, new, flat_slots(slot_pages, positions, pages.shape[2]))
+
+
+def write_paged_scales(spool: torch.Tensor, new: torch.Tensor, slot_pages: torch.Tensor,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """`write_paged` for the int8 pool's scale pages: new [B, T, Hkv]
+    per-token scales into one layer's [Hkv, P, ps] at absolute positions
+    [B, T] through the block tables (the JAX `write_paged_scales`), in
+    place, as one-wide rows; returns `spool`."""
+    write_paged(spool[..., None], new[..., None], slot_pages, positions)
+    return spool

@@ -13,6 +13,8 @@ allocated as sequences grow, prompt prefixes are shared across requests,
 the youngest request is preempted (and later recomputed) when the pool runs
 dry, and the decode runs at the smallest power-of-two width covering the
 active slots (lane compaction). `paged=False` keeps dense per-slot lanes.
+Under `EngineConfig(kv_dtype="int8")` both hold int8 codes with f32
+scales (the pool's MB counts the scales).
 
 Not ported yet, and refused by `submit` with NotImplementedError:
 speculative rounds, grammar/JSON constraints, logprobs, presence/frequency
@@ -178,7 +180,7 @@ class BatchEngine:
             self.alloc = PageAllocator(n_pages, ps)
             self.cache = PagedKVCache.zeros(
                 engine.model_cfg, n_pages, ps, engine.cache_dtype, engine.device,
-                quantized=cfg.kv_dtype == "int8",
+                quantized=engine.kv_quantized,
             )
             log.info("paged KV pool: %d pages x %d tokens (%.1f MB)", n_pages, ps,
                      self.cache.nbytes / 1e6)

@@ -189,8 +189,8 @@ def test_cache_rounds_up_to_the_key_tile(gguf_path):
 def test_unported_options_raise(gguf_path):
     with pytest.raises(NotImplementedError):
         InferenceEngine(gguf_path, EngineConfig(speculative="ngram"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(gguf_path, EngineConfig(kv_dtype="int8"), device="cpu")
+    with pytest.raises(NotImplementedError):  # int8 runs (test_torch_kv_int8.py); other kinds do not
+        InferenceEngine(gguf_path, EngineConfig(kv_dtype="fp8"), device="cpu")
     te = InferenceEngine(gguf_path, EngineConfig(dtype="float32"), device="cpu")
     with pytest.raises(NotImplementedError):
         list(te.generate([1, 2, 3], SamplingParams(logprobs=2)))

@@ -154,15 +154,10 @@ def test_paged_attention_plain_vs_jax(ps, r):
 def test_paged_attention_unported_variants_raise():
     q, kp = torch.zeros(1, 4, 64), torch.zeros(2, 3, 16, 64)
     tables, lengths = torch.ones(1, 1, dtype=torch.int32), torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="int8"):
-        paged_decode_attention(q, kp, kp, tables, lengths, k_scales=torch.ones(2, 3, 16))
     with pytest.raises(NotImplementedError, match="softcap"):
         paged_decode_attention(q, kp, kp, tables, lengths, softcap=30.0)
     with pytest.raises(NotImplementedError, match="window"):
         paged_decode_attention(q, kp, kp, tables, lengths, window=8)
-    with pytest.raises(NotImplementedError, match="int8"):
-        PagedKVCache.zeros(type("C", (), dict(n_layers=1, n_kv_heads=1, head_dim=64))(), 2,
-                           quantized=True)
 
 
 @pytest.fixture(scope="module")
