@@ -13,9 +13,13 @@ Phases (each failure propagates, the exit code is then non-zero):
            codes and scales from quantize_kv: K2-i8, K4-i8 and K7-i8 at the
            K2/K4/K7 cases, K2 and K7 (bf16 and int8) also at batch 8 with
            4000 keys in a 4096-slot cache, K10 (the scale write) exactly at
-           models A's and C's scale arrays; time kernel, plain version and
-           the library yardstick with CUDA events (L2 flushed before each
-           launch)
+           models A's and C's scale arrays; K5 three times on the same
+           inputs (the same bits); Gemma's K2/K4/K7 (bf16 and int8) at
+           head_dim 256: model G's heads with softcap 50 and window 0 or
+           4096, Gemma-3-1B's with window 512, Gemma 2B's (r = 8), and at
+           4000 keys window 512 beside window 0; time kernel, plain version
+           and the library yardstick with CUDA events (L2 flushed before
+           each launch)
   serve    per model, write a GGUF of published widths (random raw blocks),
            load it with InferenceEngine(device="cuda") and answer three
            ChatSession requests through its chat template (one prompt > 256
@@ -42,7 +46,9 @@ Phases (each failure propagates, the exit code is then non-zero):
            int8 cache's own error against a bf16 cache on the same forward:
            the dense decode folds
            the new token in at full precision, the paged one reads it back
-           quantized); on model C's engine a paged BatchEngine serving 8
+           quantized); the paged-vs-dense forwards run on A's K5 route,
+           whose two identical dense prefills must give the same bits; on
+           model C's and model G's engines a paged BatchEngine serving 8
            requests
   parity   2-layer full-width copies on cuda and on cpu (plain versions):
            four Llama-3.2-1B kinds and the Llama-3.2-3B widths (K1 at K =
@@ -54,10 +60,13 @@ Phases (each failure propagates, the exit code is then non-zero):
            prompt row and 4 decode steps, router near-ties left out and
            counted; the Q4_K copy (dense and paged) and model C's again
            with an int8 cache on both sides (within INT8_TOL: each device
-           quantizes its own K/V)
-The main path is three models and A8, each driven by serve, batch and
+           quantizes its own K/V); a Gemma-3-1B-width copy (layer 0 local
+           with window 512 and the local rope base, layer 1 global) on a
+           700-token prompt and 4 decode steps past it, dense and paged,
+           bf16 and int8
+The main path is four models and A8, each driven by serve, batch and
 profile; A's and A8's engines then serve continuously batched traffic, and
-so does C's:
+so do C's and G's:
   A  the untied Q4_K Llama-3.2-1B in the JAX package's default
      configuration: every layer's MLP is one K5 launch (16 per decode
      step), no K6;
@@ -68,6 +77,12 @@ so does C's:
      in the Q4_K_M mix: q/k norms, NEOX rope, head_dim 128 (K2/K4 at
      D = 128, r = 8), per layer K8 for the gate and up experts and for a
      4-bit down, K9 for a Q6_K down, K6 for the Q6_K head and attn_v; no K5;
+  G  gemma2 at Gemma-2-2B's widths (hidden 2304, 26 layers, 8 / 4 heads of
+     head_dim 256, ffn 9216, vocab 256000 of SPM pieces, window 4096 on
+     every second layer, softcaps 50 / 30, tied embeddings) in the Q4_K_M
+     mix: K2/K4 at D = 256 with softcap on every layer and the window on
+     the local ones, K1 and K6 (Q6_K attn_v / ffn_down, the tied head); no
+     K5 (K = 2304); its server path K7 with the same options;
   A8  model A's GGUF on a second engine with EngineConfig(kv_dtype="int8"),
      loaded after A's phases and freed before B: int8 codes with f32
      scales; per decode step K2-i8 once per layer, K3 and K10 twice each,
@@ -78,8 +93,10 @@ so does C's:
      pages dequantized, no K2/K3/K10/K4-i8 of either kind.
 The kernels' launch counts are zeroed just before each path and read just
 after; every kernel of that path must have launched, the kernels off its
-route must not, and the per-step counts must match the route. The line
-before the last is {"kernels": [...]} (launches summed over the paths),
+route must not, the per-step counts must match the route, and model G's
+attention launches must include the softcapped local and global variants.
+The line before the last is {"kernels": [...]} (launches summed over the
+paths, the attention kernels' also by variant),
 the last {"ok": true, "device": {...}}; a run of a subset of the phases
 ends with "ok": false, since the main paths' launch checks did not run in
 full. Kernel errors are taken per output row (per batch row for decode
@@ -111,8 +128,9 @@ INT8_TOL = 5e-2
 
 PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity")
 # main-path model -> make_llama_1b_gguf kind ("qwen3moe": make_qwen3moe_gguf)
-MODELS = {"A": "q4_k", "B": "q4_k_m", "C": "qwen3moe"}
+MODELS = {"A": "q4_k", "B": "q4_k_m", "C": "qwen3moe", "G": "gemma2_2b"}
 C_LAYERS = 8  # model C's depth: 8 of Qwen3-30B-A3B's 48 layers, every width kept
+GEMMA3_PROMPT = 700  # the Gemma-3-1B copy's prompt: past its 512-token window
 PARITY_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied", "llama_3b")
 NEAR_TIE = 0.01  # router-logit gap below which card and CPU may pick different experts
 
@@ -389,6 +407,7 @@ def phase_kernels(torch, timer) -> dict:
     results.update(_kernels_k7(torch, timer, gen))
     results.update(_kernels_k8_k9(torch, timer, gen))
     results.update(_kernels_int8(torch, timer, gen, results))
+    _kernels_gemma(torch, timer, gen, results)
     return results
 
 
@@ -416,6 +435,10 @@ def _kernels_k5_k6(torch, timer, gen) -> dict:
             got = fm.fused_mlp(x, gu, dn)
             torch.cuda.synchronize()
             err = check(f"K5 M={m} K={k} F={f} H={h}", got, fm.fused_mlp_plain(x, gu, dn), row_dims=1)
+            # the F-tile partials are summed in a fixed order: the same bits every launch
+            if not all(torch.equal(fm.fused_mlp(x, gu, dn), got) for _ in range(2)):
+                raise AssertionError(f"K5 M={m}: two launches on the same inputs differ")
+            log(f"  K5 M={m}: three launches on the same inputs give the same bits")
             ms = timer(lambda: fm.fused_mlp(x, gu, dn))
             plain_ms = timer(lambda: fm.fused_mlp_plain(x, gu, dn), iters=3)
             route_ms = timer(lambda: replaced_route(x))
@@ -810,6 +833,197 @@ def _kernels_int8(torch, timer, gen, results) -> dict:
         headline=cases[0], cases=cases,
     )
     return out
+
+
+# Gemma head layouts at head_dim 256: (label, Hq, Hkv); model G is Gemma-2-2B
+GEMMA_HEADS = {"G": (8, 4), "3-1B": (4, 1), "2B": (8, 1)}
+
+
+def _kernels_gemma(torch, timer, gen, results) -> None:
+    """K2, K4 and K7 at head_dim 256 with Gemma's options, bf16 and int8 (the
+    int8 entry points on quantize_kv codes), appended to those kernels'
+    cases: model G's heads (Gemma-2-2B, r = 2) with softcap 50 and window 0
+    or 4096, Gemma-3-1B's (r = 4) with window 512 and no softcap, Gemma 2B's
+    (r = 8, multi-query) once without either; K2 and K7 also at batch 8 with
+    4000 keys in a 4096-slot cache, window 512 beside window 0 (the skipped
+    tiles), and K4 at a chunk whose window bites. Queries are drawn at 8x
+    scale under a softcap, so that the cap changes the scores. Each case is
+    checked per row against the plain version (ragged starts), then timed
+    with every row full; the bound counts the bytes and operations of the
+    keys the window leaves visible. Yardstick: SDPA over the visible keys
+    (int8: dequantized first; K7: the pages gathered first), without the
+    softcap, which SDPA does not take."""
+    import torch.nn.functional as nnf
+
+    from nfai_tpu_torch.models.llama import dequant_kv
+    from nfai_tpu_torch.ops import fused_decode as fd
+    from nfai_tpu_torch.ops import paged_attention as pga
+    from nfai_tpu_torch.ops import prefill_attention as pa
+
+    bf, d = torch.bfloat16, 256
+
+    def record(name, label, err, run, plain, lib, nbytes, flops, library):
+        ms = timer(run)
+        plain_ms = timer(plain, iters=3)
+        lib_ms = timer(lib)
+        bb, by = bound_ms(nbytes, flops)
+        results[name]["cases"].append(dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bb, bound_by=by, library_ms=lib_ms, library=library))
+        log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, {library} {lib_ms:.4f})")
+
+    def opts(cap, win):
+        return dict(softcap=cap, window=win)
+
+    # K2 / K2-i8: (heads, B, S, start, softcap, window)
+    for heads, b, s, start, cap, win in (("G", 8, 1024, 1023, 50.0, 0), ("G", 8, 1024, 1023, 50.0, 4096),
+                                         ("G", 8, 4096, 4000, 50.0, 0), ("G", 8, 4096, 4000, 50.0, 512),
+                                         ("3-1B", 8, 1024, 1023, 0.0, 512), ("3-1B", 8, 4096, 4000, 0.0, 0),
+                                         ("3-1B", 8, 4096, 4000, 0.0, 512), ("2B", 8, 1024, 1023, 0.0, 0)):
+        hq, hkv = GEMMA_HEADS[heads]
+        kvd = hkv * d
+        kf = torch.randn(2, b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        vf = torch.randn(2, b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        q = torch.randn(b, hq, d, device="cuda", dtype=bf, generator=gen) * (8 if cap else 1)
+        kn = torch.randn(b, kvd, device="cuda", dtype=bf, generator=gen)
+        vn = torch.randn(b, kvd, device="cuda", dtype=bf, generator=gen)
+        starts = torch.full((b,), start, dtype=torch.int32, device="cuda")
+        starts[0], starts[1] = 0, s // 3
+        starts_t = torch.full((b,), start, dtype=torch.int32, device="cuda")
+        first = max(start - win + 1, 0) if win else 0  # the first visible old key
+        vis = start - first
+        for quant in (False, True):
+            if quant:
+                (kc, ks), (vc, vs) = _kv_codes(torch, kf, hkv), _kv_codes(torch, vf, hkv)
+                sc, name = dict(k_scales=ks, v_scales=vs), "decode_attention_i8"
+            else:
+                kc, vc, ks, vs, sc, name = kf, vf, None, None, {}, "decode_attention"
+            label = (f"D=256 {heads} heads Hq={hq} Hkv={hkv} B={b} S={s} start={start} softcap={cap:g} "
+                     f"window={win}")
+            got = fd.layered_decode_attention(q, kn, vn, kc, vc, 1, starts, d**-0.5, **opts(cap, win), **sc)
+            torch.cuda.synchronize()
+            lsc = (ks[1], vs[1]) if quant else (None, None)
+            err = check(f"{'K2-i8' if quant else 'K2'} {label}", got, fd.decode_attention_plain(
+                q, kn, vn, kc[1], vc[1], starts, d**-0.5, *lsc, cap, win), row_dims=1)
+
+            def lib():  # the visible keys (dequantized for int8) and the new one, SDPA
+                if quant:
+                    kd = dequant_kv(kc[1, :, first:start], ks[1, :, :, first:start], bf)
+                    vd = dequant_kv(vc[1, :, first:start], vs[1, :, :, first:start], bf)
+                else:
+                    kd, vd = kc[1, :, first:start], vc[1, :, first:start]
+                kd = torch.cat([kd, kn[:, None]], 1).view(b, vis + 1, hkv, d).transpose(1, 2)
+                vd = torch.cat([vd, vn[:, None]], 1).view(b, vis + 1, hkv, d).transpose(1, 2)
+                return nnf.scaled_dot_product_attention(q[:, :, None], kd, vd, scale=d**-0.5, enable_gqa=True)
+
+            elem = 1 if quant else 2
+            nbytes = 2 * (2 * b * hq * d + 2 * b * kvd) + 2 * b * vis * kvd * elem + (
+                2 * 4 * b * hkv * vis if quant else 0)
+            record(name, label, err,
+                   lambda: fd.layered_decode_attention(q, kn, vn, kc, vc, 1, starts_t, d**-0.5,
+                                                       **opts(cap, win), **sc),
+                   lambda: fd.decode_attention_plain(q, kn, vn, kc[1], vc[1], starts_t, d**-0.5, *lsc,
+                                                     cap, win),
+                   lib, nbytes, 4.0 * b * hq * (vis + 1) * d,
+                   "dequantize + SDPA" if quant else "SDPA")
+            del kc, vc
+        del kf, vf
+
+    # K4 / K4-i8: (heads, B, T, S, offset, softcap, window)
+    for heads, b, t, s, off, cap, win in (("G", 1, 256, 1024, 0, 50.0, 4096), ("G", 1, 256, 1024, 256, 50.0, 4096),
+                                          ("G", 8, 128, 1024, 0, 50.0, 4096), ("G", 1, 256, 1024, 768, 50.0, 512),
+                                          ("3-1B", 1, 256, 1024, 768, 0.0, 512), ("2B", 1, 256, 1024, 256, 0.0, 0)):
+        hq, hkv = GEMMA_HEADS[heads]
+        kvd = hkv * d
+        q = torch.randn(b, t, hq, d, device="cuda", dtype=bf, generator=gen) * (8 if cap else 1)
+        kf = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        vf = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        offs = torch.full((b,), off, dtype=torch.int32, device="cuda")
+        span = off + t
+        qpos = off + torch.arange(t, device="cuda")[:, None]
+        keys = torch.arange(span, device="cuda")[None, :]
+        mask = (keys <= qpos) & ((keys > qpos - win) if win else True)
+        visible = int(mask.sum())
+        first = max(off - win + 1, 0) if win else 0
+        for quant in (False, True):
+            if quant:
+                (kc, ks), (vc, vs) = _kv_codes(torch, kf, hkv), _kv_codes(torch, vf, hkv)
+                sc, name = dict(k_scales=ks, v_scales=vs), "prefill_attention_i8"
+            else:
+                kc, vc, ks, vs, sc, name = kf, vf, None, None, {}, "prefill_attention"
+            label = (f"D=256 {heads} heads Hq={hq} Hkv={hkv} B={b} T={t} S={s} offset={off} "
+                     f"softcap={cap:g} window={win}")
+            run = lambda: pa.flash_prefill_attention(q, kc, vc, offs, d**-0.5, **opts(cap, win), **sc)  # noqa: E731
+            got = run()
+            torch.cuda.synchronize()
+            plain = lambda: pa.flash_prefill_attention_plain(q, kc, vc, offs, d**-0.5, ks, vs, cap, win)  # noqa: E731
+            err = check(f"{'K4-i8' if quant else 'K4'} {label}", got, plain(), row_dims=2)
+
+            def lib():
+                if quant:
+                    kd, vd = dequant_kv(kc[:, :span], ks[:, :, :span], bf), dequant_kv(vc[:, :span], vs[:, :, :span], bf)
+                else:
+                    kd, vd = kc[:, :span], vc[:, :span]
+                return nnf.scaled_dot_product_attention(
+                    q.transpose(1, 2), kd.view(b, span, hkv, d).transpose(1, 2),
+                    vd.view(b, span, hkv, d).transpose(1, 2), attn_mask=mask, scale=d**-0.5, enable_gqa=True)
+
+            read = span - first  # the keys of the chunk's windows, read once
+            nbytes = 2 * (2 * b * t * hq * d) + 2 * b * read * kvd * (1 if quant else 2) + (
+                2 * 4 * b * hkv * read if quant else 0)
+            record(name, label, err, run, plain, lib, nbytes, 4.0 * b * hq * d * visible,
+                   "dequantize + SDPA" if quant else "SDPA")
+            del kc, vc
+
+    # K7 / K7-i8: (heads, B, ps, lengths, softcap, window)
+    ragged = [1, 127, 128, 129, 500, 777, 1000, 1024]
+    for heads, b, ps, lens, cap, win in (("G", 8, 128, [1024] * 8, 50.0, 0), ("G", 8, 128, ragged, 50.0, 4096),
+                                         ("G", 8, 128, [4000] * 8, 50.0, 0), ("G", 8, 128, [4000] * 8, 50.0, 512),
+                                         ("3-1B", 8, 128, ragged, 0.0, 512), ("3-1B", 8, 128, [4000] * 8, 0.0, 0),
+                                         ("3-1B", 8, 128, [4000] * 8, 0.0, 512), ("2B", 8, 128, [1024] * 8, 0.0, 0)):
+        hq, hkv = GEMMA_HEADS[heads]
+        n_p = -(-max(lens) // ps)
+        n_pages = b * n_p + 16
+        kf = torch.randn(hkv, n_pages, ps, d, device="cuda", dtype=bf, generator=gen)
+        vf = torch.randn(hkv, n_pages, ps, d, device="cuda", dtype=bf, generator=gen)
+        tables = _shuffled_tables(torch, b, n_p, n_pages, seed=200 + len(results["paged_attention"]["cases"]))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(b, hq, d, device="cuda", dtype=bf, generator=gen) * (8 if cap else 1)
+        s = n_p * ps
+        tl = tables.long()
+        pos = torch.arange(s, device="cuda")[None, :]
+        lim = lengths[:, None].long()
+        mask = ((pos < lim) & ((pos >= lim - win) if win else True))[:, None, None, :]
+        keys = int(mask.sum())
+        for quant in (False, True):
+            if quant:
+                (kp, ksp), (vp, vsp) = _pool_codes(torch, kf), _pool_codes(torch, vf)
+                sc, name = dict(k_scales=ksp, v_scales=vsp), "paged_attention_i8"
+            else:
+                kp, vp, ksp, vsp, sc, name = kf, vf, None, None, {}, "paged_attention"
+            label = f"D=256 {heads} heads Hq={hq} Hkv={hkv} B={b} ps={ps} lengths={lens[0]}..{lens[-1]} " \
+                    f"softcap={cap:g} window={win}"
+            run = lambda: pga.paged_decode_attention(q, kp, vp, tables, lengths, d**-0.5, **opts(cap, win), **sc)  # noqa: E731
+            got = run()
+            torch.cuda.synchronize()
+            plain = lambda: pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, d**-0.5, ksp, vsp,  # noqa: E731
+                                                             cap, win)
+            err = check(f"{'K7-i8' if quant else 'K7'} {label}", got, plain(), row_dims=1)
+
+            def lib():
+                kg, vg = kp[:, tl], vp[:, tl]
+                if quant:
+                    kg = (kg.float() * ksp[:, tl][..., None]).to(bf)
+                    vg = (vg.float() * vsp[:, tl][..., None]).to(bf)
+                kg, vg = (x.reshape(hkv, b, s, d).transpose(0, 1) for x in (kg, vg))
+                return nnf.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask, scale=d**-0.5,
+                                                        enable_gqa=True)
+
+            nbytes = 2 * (2 * b * hq * d) + 4 * (tables.numel() + b) + 2 * keys * hkv * d * (1 if quant else 2) + (
+                2 * 4 * keys * hkv if quant else 0)
+            record(name, label, err, run, plain, lib, nbytes, 4.0 * hq * d * keys,
+                   "page gather + dequantize + SDPA" if quant else "page gather + SDPA")
+            del kp, vp
+        del kf, vf
 
 
 def _routing_layout(torch, n_tokens, e, used, gen):
@@ -1286,7 +1500,7 @@ def _moe_model_parity(torch, engines, ids, margins, quant) -> dict:
         cache = KVCache.zeros(cfg, 1, 256, e.cache_dtype, e.device, quantized=quant)
         h, caches[dev] = forward(e.params, cfg, torch.tensor([ids], device=e.device),
                                  torch.arange(n, device=e.device)[None], cache)
-        logits[dev] = logits_for(e.params, h[0])
+        logits[dev] = logits_for(e.params, h[0], cfg)
     rows = [(f"prompt row {i}", logits["cuda"][i], logits["cpu"][i]) for i in range(n)]
     near = [float(torch.stack([m[i] for m in margins]).min()) < NEAR_TIE for i in range(n)]
     pos = n
@@ -1309,6 +1523,75 @@ def _moe_model_parity(torch, engines, ids, margins, quant) -> dict:
     check(f"{tag} logits of {len(kept)} rows (prompt {n} tokens, 4 decode steps)", got, want,
           INT8_TOL if quant else TOL, row_dims=1)
     return dict(rows=len(rows), near_ties=sum(near), max_rel_err=errors(got, want, 1)[1])
+
+
+def phase_parity_gemma3(torch, kernels_mod, path2) -> dict:
+    """A 2-layer Gemma-3-1B-width copy on cuda and on cpu. Its swa pattern
+    is cut with its depth, from 6 to 2, so that layer 0 is local (window
+    512, the local rope base) and layer 1 global. A 700-token prompt is
+    prefilled in the engine's chunks (the last ones past the window), then 4
+    teacher-forced steps decode at positions 700-703: dense, then through a
+    shuffled 6-page table, on bf16 caches (within TOL) and on int8 caches
+    (within INT8_TOL: each device quantizes its own K/V). On the card K2, K4
+    and K7 must run both the windowed and the global layer at D = 256."""
+    import dataclasses
+
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.models import KVCache, decode_step, paged_prefill_step
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+    from nfai_tpu_torch.runtime.paged_cache import PagedKVCache
+
+    torch.set_num_threads(os.cpu_count() or 8)
+    engines = {dev: InferenceEngine(path2, EngineConfig(max_seq_len=1024), device=dev)
+               for dev in ("cuda", "cpu")}
+    for e in engines.values():
+        e.model_cfg = dataclasses.replace(e.model_cfg, swa_pattern=2)
+    cfg = engines["cpu"].model_cfg
+    if cfg.layer_windows() != [512, 0] or cfg.head_dim != 256 or "inv_freq_local" not in engines["cpu"].params:
+        raise AssertionError(f"the Gemma-3-1B copy: windows {cfg.layer_windows()}, head_dim {cfg.head_dim}")
+    ids = torch.randint(300, cfg.vocab_size, (GEMMA3_PROMPT,), generator=torch.Generator().manual_seed(12)).tolist()
+    n = len(ids)
+    perm = torch.randperm(15, generator=torch.Generator().manual_seed(13))[:6] + 1
+    out = {}
+    kernels_mod.reset_launches()
+    for quant in (False, True):
+        tag = "gemma3-1b int8 cache" if quant else "gemma3-1b"
+        tol, rels = (INT8_TOL if quant else TOL), []
+
+        def compare(name, logits):
+            check(f"{tag} {name}", logits["cuda"], logits["cpu"], tol)
+            rels.append(errors(logits["cuda"], logits["cpu"])[1])
+
+        for paged in (False, True):
+            logits, caches, tables = {}, {}, {}
+            for dev, e in engines.items():
+                if paged:
+                    tables[dev] = perm.view(1, 6).to(torch.int32).to(dev)
+                    pool = PagedKVCache.zeros(cfg, 16, 128, e.cache_dtype, dev, quantized=quant)
+                    logits[dev], caches[dev] = paged_prefill_step(
+                        e.params, cfg, torch.tensor([ids], device=dev), torch.arange(n, device=dev)[None],
+                        torch.tensor([n - 1], device=dev), pool, tables[dev])
+                else:
+                    tables[dev] = None
+                    cache = KVCache.zeros(cfg, 1, 1024, e.cache_dtype, e.device, quantized=quant)
+                    logits[dev], caches[dev] = e.prefill(cache, ids)
+            route = "paged" if paged else "dense"
+            compare(f"{route} prefill logits ({n} tokens, window 512)", logits)
+            for step, tok in enumerate((17, 99, 200, 42)):
+                for dev, e in engines.items():
+                    logits[dev], caches[dev] = decode_step(
+                        e.params, cfg, torch.tensor([tok], device=dev), torch.tensor([n + step], device=dev),
+                        caches[dev], page_tables=tables[dev])
+                compare(f"{route} decode step {step} logits (position {n + step})", logits)
+        out[tag] = {"max_rel_err": max(rels)}
+    variants = {k.name: dict(k.variants) for k in kernels_mod.KERNELS.values() if k.variants}
+    log(f"  gemma3-1b copy attention launches by variant: {variants}")
+    want = ("D=256 window", "D=256")
+    for name in ("decode_attention", "prefill_attention", "paged_attention", "decode_attention_i8",
+                 "prefill_attention_i8", "paged_attention_i8"):
+        if any(variants.get(name, {}).get(v, 0) <= 0 for v in want):
+            raise AssertionError(f"the Gemma-3-1B copy: {name} launched {variants.get(name)}, not all of {want}")
+    return out
 
 
 def _paged_parity(torch, engines, ids, compare, quant) -> None:
@@ -1353,14 +1636,12 @@ def _server_parity(torch, engine, kernels_mod) -> dict:
     batch 4 through one-step paged decodes and dense decode_step; every
     paged step must launch K7 exactly once per layer.
 
-    Model A's MLP is K5, whose f32 atomics sum in another order on every
-    run, so two identical dense runs of the 16 layers differ by about as
-    much as the tolerance (measured here: `k5_dense_noise`). The check is
-    therefore made with A's weights on the two-K1 MLP route, which is
-    deterministic: K4 sees the same bytes on both sides, and K7 walks keys
-    in K2's order, so paged and dense must agree well inside 2e-2 (exactly,
-    by design). The K5 route's paged-vs-dense error is reported beside its
-    noise floor. With an int8 cache the two no longer agree bit for bit:
+    Model A's MLP is K5, whose F-tile partials are summed in a fixed order,
+    so two identical dense runs give the same bits (checked first:
+    `k5_dense_noise` must be 0). K4 sees the same bytes on both sides, and
+    K7 walks keys in K2's order, so paged and dense must agree well inside
+    2e-2 (exactly, by design). With an int8 cache the two no longer agree
+    bit for bit:
     the dense decode folds the new token in at full precision, the paged
     one reads it back quantized, and the paged prefill attends pages
     dequantized to bf16 where the dense one applies the scales in f32. On
@@ -1379,7 +1660,7 @@ def _server_parity(torch, engine, kernels_mod) -> dict:
 
     cfg, dev, quant = engine.model_cfg, engine.device, engine.kv_quantized
     k7 = K7_I8 if quant else K7
-    params = dict(engine.params, fused_mlp=False)  # the deterministic route (see above)
+    params = engine.params
     ps, n_p, lens = 128, 8, [300, 137, 77, 255]
     pool = PagedKVCache.zeros(cfg, len(lens) * n_p + 9, ps, engine.cache_dtype, dev, quantized=quant)
     tables = _shuffled_tables(torch, len(lens), n_p, pool.n_pages, seed=7, device=dev)
@@ -1401,6 +1682,14 @@ def _server_parity(torch, engine, kernels_mod) -> dict:
     def prefill_args(i):
         n = lens[i]
         return (prompts[i], torch.arange(n, device=dev)[None], torch.tensor([n - 1], device=dev))
+
+    fresh = lambda: KVCache.zeros(cfg, 1, n_p * ps, engine.cache_dtype, dev, quantized=quant)  # noqa: E731
+    d1, _ = prefill_step(params, cfg, *prefill_args(0), fresh())
+    d2, _ = prefill_step(params, cfg, *prefill_args(0), fresh())
+    noise = errors(d2, d1)[1]
+    log(f"  two dense 300-token prefills through K5: rel {noise:.3e} (must be 0: K5 sums in a fixed order)")
+    if noise != 0:
+        raise AssertionError("two identical dense prefills on the K5 route differ")
 
     for i in range(len(lens)):
         lp, pool = paged_prefill_step(params, cfg, *prefill_args(i), pool, tables[i:i + 1])
@@ -1431,21 +1720,11 @@ def _server_parity(torch, engine, kernels_mod) -> dict:
               f"{positions.tolist()})", lp, ld, tol, row_dims=1)
         rels.append(errors(lp, ld, row_dims=1)[1])
         positions = positions + 1
-    # the K5 route: paged vs dense, and the same dense prefill twice
-    k5 = engine.params
-    fresh = lambda: KVCache.zeros(cfg, 1, n_p * ps, engine.cache_dtype, dev, quantized=quant)  # noqa: E731
-    d1, _ = prefill_step(k5, cfg, *prefill_args(0), fresh())
-    d2, _ = prefill_step(k5, cfg, *prefill_args(0), fresh())
-    pool = PagedKVCache.zeros(cfg, pool.n_pages, ps, engine.cache_dtype, dev, quantized=quant)
-    p1, _ = paged_prefill_step(k5, cfg, *prefill_args(0), pool, tables[:1])
-    out = {"max_rel_err": max(rels), "k5_paged_vs_dense": errors(p1, d1)[1],
-           "k5_dense_noise": errors(d2, d1)[1]}
+    out = {"max_rel_err": max(rels), "k5_dense_noise": noise}
     if quant:
         out["int8_vs_bf16"] = bounds
         log(f"  int8 vs bf16 cache on the same dense forwards (each bound above is the larger of this and INT8_TOL): "
             f"{', '.join(f'{b:.3e}' for b in bounds)}")
-    log(f"  K5 route, 300-token prefill: paged vs dense rel {out['k5_paged_vs_dense']:.3e}, two "
-        f"dense runs rel {out['k5_dense_noise']:.3e} (K5's atomics); not checked")
     return out
 
 
@@ -1657,12 +1936,7 @@ def phase_server(torch, engine, kernels_mod, route="server", n_http=8) -> tuple[
     out["batch_engine"] = _batch_engine_run(torch, engine)
     out["preemption"] = _preemption_run(torch, engine)
     out["http"] = _http_run(torch, engine, n_http)
-    launches = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
-    log(f"  {route} main-path launches: {launches}")
-    must, must_not = ROUTES[route]
-    if any(launches[name] <= 0 for name in must) or any(launches[n] != 0 for n in must_not):
-        raise AssertionError(f"the {route} path did not take its route: {launches}")
-    return out, launches
+    return out, _check_route(kernels_mod, route, f"the {route} path")
 
 
 # ---------------------------------------------------------------------------
@@ -1688,7 +1962,42 @@ ROUTES = {
            "grouped_q4", "grouped_q8"}, {"fused_mlp", "paged_attention"} | INT8),
     "C server": ({"q4_matmul", "q8_matmul", "paged_attention", "prefill_attention",
                   "grouped_q4", "grouped_q8"}, {"decode_attention", "kv_write", "fused_mlp"} | INT8),
+    # model G: K1 for Q4_K, K6 for the Q6_K attn_v / ffn_down and the tied head;
+    # no K5 (K = 2304 is not a multiple of 1024, and down mixes kinds)
+    "G": ({"q4_matmul", "q8_matmul", "decode_attention", "kv_write", "prefill_attention"},
+          {"fused_mlp", "paged_attention", "grouped_q4", "grouped_q8"} | INT8),
+    "G server": ({"q4_matmul", "q8_matmul", "paged_attention", "prefill_attention"},
+                 {"decode_attention", "kv_write", "fused_mlp", "grouped_q4", "grouped_q8"} | INT8),
 }
+
+
+# attention variants a path must launch (`Kernel.variants`): model G's layers
+# alternate local (window 4096) and global, both softcapped, at head_dim 256
+GEMMA2_VARIANTS = ("D=256 softcap window", "D=256 softcap")
+VARIANTS = {
+    "G": {"decode_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS},
+    "G server": {"paged_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS},
+}
+
+
+PATH_VARIANTS: dict[str, dict] = {}  # main path -> its attention launches by variant
+
+
+def _check_route(kernels_mod, path, what) -> dict:
+    """The launch counts since the last reset against ROUTES[path] (and the
+    variants VARIANTS[path] names, kept in PATH_VARIANTS); returns the
+    counts."""
+    launches = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
+    variants = {k.name: dict(k.variants) for k in kernels_mod.KERNELS.values() if k.variants}
+    PATH_VARIANTS[path] = variants
+    log(f"  {what} main-path launches: {launches}; attention variants {variants}")
+    must, must_not = ROUTES[path]
+    if any(launches[name] <= 0 for name in must) or any(launches[n] != 0 for n in must_not):
+        raise AssertionError(f"{what} did not take its route: {launches}")
+    for name, want in VARIANTS.get(path, {}).items():
+        if any(variants.get(name, {}).get(v, 0) <= 0 for v in want):
+            raise AssertionError(f"{what}: {name} launched {variants.get(name)}, not all of {want}")
+    return launches
 
 
 def _check_moe_step(engine, per_step) -> None:
@@ -1706,10 +2015,10 @@ def _check_moe_step(engine, per_step) -> None:
         raise AssertionError(f"model C: grouped launches per step {got}, route implies {want}")
 
 
-def _moe_server_run(torch, engine) -> dict:
-    """A paged BatchEngine on model C: 8 requests of 30-600 tokens, 32 new
-    tokens each, half greedy and half at temperature 0.8 with top_k 20 or
-    40."""
+def _paged_server_run(torch, engine, label) -> dict:
+    """A paged BatchEngine on model C or G: 8 requests of 30-600 tokens, 32
+    new tokens each, half greedy and half at temperature 0.8 with top_k 20
+    or 40."""
     from nfai_tpu_torch.config import SamplingParams
     from nfai_tpu_torch.runtime.scheduler import BatchEngine
 
@@ -1732,7 +2041,7 @@ def _moe_server_run(torch, engine) -> dict:
     out = dict(requests=len(reqs), prompt_tokens=sum(lens), new_tokens=n_out, wall_s=wall,
                tok_s=n_out / wall, ttft_ms=ttft, pool_mb=be.cache.nbytes / 1e6,
                output_lengths=[len(r.output_ids) for r in reqs])
-    log(f"  model C BatchEngine: {len(reqs)} requests, {sum(lens)} prompt tokens, {n_out} new in "
+    log(f"  model {label} BatchEngine: {len(reqs)} requests, {sum(lens)} prompt tokens, {n_out} new in "
         f"{wall:.2f} s = {n_out / wall:.1f} tok/s aggregate; TTFT p50 {ttft['p50']:.1f} / max "
         f"{ttft['max']:.1f} ms; pool {out['pool_mb']:.1f} MB; outputs {out['output_lengths']}")
     if any(not 0 < n <= 32 for n in out["output_lengths"]):
@@ -1745,11 +2054,13 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
     """Write the model's GGUF and drive it (`_drive_model`); model A's file
     then also serves A8, a second engine with the int8 KV cache. Returns
     the launch counts of each path."""
-    from nfai_tpu_torch.testing import make_llama_1b_gguf, make_qwen3moe_gguf
+    from nfai_tpu_torch.testing import make_gemma2_2b_gguf, make_llama_1b_gguf, make_qwen3moe_gguf
 
     t0 = time.perf_counter()
     if kind == "qwen3moe":
         path = make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe.gguf"), n_layers=C_LAYERS)
+    elif kind == "gemma2_2b":
+        path = make_gemma2_2b_gguf(os.path.join(tmp, "gemma2_2b.gguf"))
     else:
         path = make_llama_1b_gguf(os.path.join(tmp, f"llama1b_{kind}.gguf"), kind=kind)
     log(f"model {label} ({kind}): wrote {path.stat().st_size / 2**30:.2f} GiB GGUF "
@@ -1766,7 +2077,7 @@ def _drive_model(torch, kernels_mod, label, path, only, summary, phase_s, kv_dty
     """Serve (and batch, long context, profile) one engine with the launch
     counts zeroed just before; the counts read just after are checked
     against the model's route. Model A's engine (and A8's) then runs the
-    server phase, model C's its paged BatchEngine."""
+    server phase, models C's and G's their paged BatchEngine."""
     out = {}
     kernels_mod.reset_launches()
     t0 = time.perf_counter()
@@ -1787,11 +2098,7 @@ def _drive_model(torch, kernels_mod, label, path, only, summary, phase_s, kv_dty
             out["profile"] = phase_profile(torch, engine, state)
             phase_s[f"profile {label}"] = time.perf_counter() - t0
         del state
-    launches = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
-    log(f"  model {label} main-path launches: {launches}")
-    must, must_not = ROUTES[label]
-    if any(launches[name] <= 0 for name in must) or any(launches[n] != 0 for n in must_not):
-        raise AssertionError(f"model {label} did not take its route: {launches}")
+    launches = _check_route(kernels_mod, label, f"model {label}")
     if "batch" in out:
         per_step = out["batch"]["launches_per_step"]
         n_layers = engine.model_cfg.n_layers
@@ -1824,19 +2131,25 @@ def _drive_model(torch, kernels_mod, label, path, only, summary, phase_s, kv_dty
             log(f"  BatchEngine pool: int8 {summary[name]['batch_engine']['pool_mb']:.1f} MB (codes and "
                 f"scales) against bf16 {bf16:.1f} MB (server)")
         phase_s[name] = time.perf_counter() - t0
-    if label == "C" and "server" in only:
+    if label in ("C", "G") and "server" in only:
         t0 = time.perf_counter()
         kernels_mod.reset_launches()
-        summary["server C"] = _moe_server_run(torch, engine)
-        by_path["C server"] = launches = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
-        log(f"  model C server main-path launches: {launches}")
-        must, must_not = ROUTES["C server"]
-        if any(launches[n] <= 0 for n in must) or any(launches[n] != 0 for n in must_not):
-            raise AssertionError(f"model C's server path did not take its route: {launches}")
-        phase_s["server C"] = time.perf_counter() - t0
+        summary[f"server {label}"] = _paged_server_run(torch, engine, label)
+        by_path[f"{label} server"] = _check_route(kernels_mod, f"{label} server", f"model {label}'s server path")
+        phase_s[f"server {label}"] = time.perf_counter() - t0
     del served, engine
     torch.cuda.empty_cache()
     return by_path
+
+
+def _sum_variants(name) -> dict:
+    """A kernel's main-path launches by variant (head width, softcap,
+    window), summed over the paths."""
+    total: dict[str, int] = {}
+    for variants in PATH_VARIANTS.values():
+        for v, n in variants.get(name, {}).items():
+            total[v] = total.get(v, 0) + n
+    return total
 
 
 def main(argv=None) -> int:
@@ -1854,7 +2167,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from nfai_tpu_torch import kernels as kernels_mod
-    from nfai_tpu_torch.testing import make_llama_1b_gguf, make_qwen3moe_gguf
+    from nfai_tpu_torch.testing import make_gemma3_1b_gguf, make_llama_1b_gguf, make_qwen3moe_gguf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1892,6 +2205,9 @@ def main(argv=None) -> int:
             path2 = make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe_2l.gguf"), n_layers=2)
             summary["parity"].update(phase_parity_moe(torch, path2, ("auto", "int8")))
             os.remove(path2)
+            path2 = make_gemma3_1b_gguf(os.path.join(tmp, "gemma3_1b_2l.gguf"), n_layers=2)
+            summary["parity"].update(phase_parity_gemma3(torch, kernels_mod, path2))
+            os.remove(path2)
             phase_s["parity"] = time.perf_counter() - t0
         log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "
             f"total {time.perf_counter() - t_all:.1f}")
@@ -1905,6 +2221,7 @@ def main(argv=None) -> int:
                     name=name, route=r["route"], source=r["source"], replaces=r["replaces"],
                     also_replaces=r["also_replaces"],
                     launches=None if launches is None else launches[name],
+                    launches_by_variant=_sum_variants(name),
                     max_abs_err=h["max_abs_err"], ms=h["ms"], plain_ms=h["plain_ms"],
                     bound_ms=h["bound_ms"], bound_by=h["bound_by"],
                     library_ms=h["library_ms"], shape=h["shape"],

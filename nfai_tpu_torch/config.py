@@ -89,8 +89,8 @@ class EngineConfig:
     spec_rounds: int = 4
     # KV cache storage: "auto" (= activation dtype) | "int8" (per-token
     # per-head symmetric quantization — halves decode attention HBM
-    # traffic and doubles cache capacity; dense cache paths only: the
-    # BatchEngine falls back from the paged pool to dense lanes)
+    # traffic and doubles cache capacity; the dense cache and the
+    # BatchEngine's paged pool both store int8 codes and f32 scales)
     kv_dtype: str = "auto"
     # continuous batching (BatchEngine): paged KV pool with block tables and
     # prompt-prefix sharing; False = dense per-slot lanes (debug/compare)

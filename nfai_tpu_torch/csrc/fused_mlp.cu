@@ -9,7 +9,8 @@
 // both its bodies, _mlp_kernel_v2 and _mlp_kernel (one function). The TPU
 // kernel walks F in order on one core and carries the [B, H] sum in VMEM
 // across grid steps; here blocks own F tiles and run in parallel, so the sum
-// over F is a reduction across blocks.
+// over F is a reduction across blocks, made in a fixed order so that equal
+// inputs give equal bits on every run (the TPU kernel's sum is ordered too).
 //
 // Weight layout: the port's Q4Tensor (nfai_tpu_torch/ops/qtensor.py) in
 // natural order, N-major: qs uint8 [N, K/2] (32-block b of row n is bytes
@@ -34,20 +35,27 @@
 //      block is loaded into registers while the current one multiplies.
 //      a = act(g) * u goes to shared memory as bf16 [TM, TF];
 //   2. multiplies a with the down weight's F-slice, 256 output columns at a
-//      time, and adds its [TM, 256] partial into an f32 [M, H] buffer with
-//      atomicAdd (the buffer is zeroed by the wrapper);
-//   3. counts itself done for its row tile; the last block of a row tile
-//      (threadfence reduction) converts the tile's rows to bf16.
+//      time, and stores its [TM, 256] partial into its own slice of an f32
+//      workspace [F / TF, M, H] (plain stores, no atomics);
+//   3. counts itself done for that (row tile, 256-column chunk); the last
+//      block to arrive there (threadfence reduction) sums the F / TF
+//      partials of the chunk in F-tile order and writes the bf16 result
+//      (with few rows, up to 8 sets of its threads each sum a run of tiles
+//      in order, and the runs are added in order). Blocks walk the chunks
+//      starting at chunk blockIdx.x, so the last arrivals, and with them
+//      the final sums, fall to different blocks instead of all to the
+//      slowest one.
 // At decode a block is one of ~128, one per SM, and its serial steps
 // (dequantize, barrier, WMMA, barrier) set its time rather than the bytes:
 // 16 warps and deep steps (24 steps at the 1B widths) keep more of them in
 // flight than 8 warps and 48 steps did.
 // TF (ffn columns per block) is 64 at decode, so F = 8192 makes 128 blocks
 // on the 132 SMs; the wrapper widens it at prefill row counts (up to 512) to
-// keep the atomics, M * H * F / TF, near 34 M. The order of the atomic adds
-// varies from run to run: the result is not bitwise reproducible (f32 sums
-// of 16..128 partials; well inside the 2e-2 tolerance). wgmma, TMA and a
-// deeper pipeline are later work.
+// keep the partials, M * H * F / TF floats written and read back once each,
+// near 34 M. The sum over F tiles is deterministic: each output element is
+// the f32 sum of its F / TF partials in tile order, whichever block makes
+// it (f32 atomics here would make 16-layer runs differ by ~1.7e-2). wgmma,
+// TMA and a deeper pipeline are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -118,7 +126,7 @@ fused_mlp_kernel(const __nv_bfloat16* __restrict__ x,
                  const uint8_t* __restrict__ gq, const float* __restrict__ gs,
                  const float* __restrict__ gm, const uint8_t* __restrict__ dq,
                  const float* __restrict__ ds, const float* __restrict__ dm,
-                 float* __restrict__ acc, unsigned* __restrict__ arrivals,
+                 float* __restrict__ part, unsigned* __restrict__ arrivals,
                  __nv_bfloat16* __restrict__ y, int M, int K, int F, int H,
                  int TF, int gelu) {
   using namespace nvcuda;
@@ -129,7 +137,7 @@ fused_mlp_kernel(const __nv_bfloat16* __restrict__ x,
   __nv_bfloat16* xs = ws + WS_ELEMS;                            // [TM][LDW1]
   float* os = reinterpret_cast<float*>(xs + TM * LDW1);         // [TM][LDO]
   __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(os + TM * LDO);  // [TM][TF + 8]
-  __shared__ unsigned last_block;
+  __shared__ unsigned last_arrival;
   const int lda = TF + 8;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int f0 = blockIdx.x * TF, m0 = blockIdx.y * TM;
@@ -157,11 +165,12 @@ fused_mlp_kernel(const __nv_bfloat16* __restrict__ x,
     }
   };
   // ---- phase 2 mapping: row r2 of the step's 256, 32-block b2 of its two;
-  // warp: 16 of the 256 output columns
+  // warp: 16 of the 256 output columns. Chunk order starts at blockIdx.x.
   const int r2 = tid >> 1, b2 = tid & 1;
-  const int fsteps = TF / KC2, steps2 = (H / NW2) * fsteps;
+  const int fsteps = TF / KC2, chunks = H / NW2, steps2 = chunks * fsteps;
+  auto chunk0 = [&](int t) { return ((t / fsteps + blockIdx.x) % chunks) * NW2; };
   auto dn_load = [&](int t) -> RawBlock {
-    const int h0 = (t / fsteps) * NW2, fs = (t % fsteps) * KC2;
+    const int h0 = chunk0(t), fs = (t % fsteps) * KC2;
     return load_block(dq, ds, dm, (size_t)(h0 + r2), dn_blocks, ((f0 + fs) >> 5) + b2);
   };
   // the first down block is fetched now and held through phase 1
@@ -217,9 +226,11 @@ fused_mlp_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
 
-  // ---- phase 2: acc[m0 + r, :] += as[r, :] Wd[:, f0:f0+TF]^T, 256 output columns per chunk
+  // ---- phase 2: part[blockIdx.x, m0 + r, :] = as[r, :] Wd[:, f0:f0+TF]^T, 256 output
+  // columns per chunk; the last block at a chunk sums its partials in F-tile order
+  const int rows = min(TM, M - m0), n_ft = gridDim.x;
   for (int t = 0; t < steps2; ++t) {
-    const int h0 = (t / fsteps) * NW2, fs = (t % fsteps) * KC2;
+    const int h0 = chunk0(t), fs = (t % fsteps) * KC2;
     if (fs == 0) {
 #pragma unroll
       for (int i = 0; i < RF; ++i) wmma::fill_fragment(fc[i], 0.f);
@@ -239,35 +250,78 @@ fused_mlp_kernel(const __nv_bfloat16* __restrict__ x,
       }
     }
     __syncthreads();
-    if (fs + KC2 == TF) {  // chunk done: add the [TM, 256] partial into the f32 sum
+    if (fs + KC2 == TF) {  // chunk done: store the [rows, 256] partial, then count arrivals
 #pragma unroll
       for (int i = 0; i < RF; ++i)
         wmma::store_matrix_sync(os + i * 16 * LDO + warp * 16, fc[i], LDO, wmma::mem_row_major);
       __syncthreads();
-      for (int e = tid; e < TM * NW2; e += THREADS) {
-        const int r = e / NW2, c = e % NW2;
-        if (m0 + r < M) atomicAdd(acc + (size_t)(m0 + r) * H + h0 + c, os[r * LDO + c]);
+      float* dst = part + ((size_t)blockIdx.x * M + m0) * H + h0;
+      for (int e = tid; e < rows * (NW2 / 4); e += THREADS) {
+        const int r = e / (NW2 / 4), c = (e % (NW2 / 4)) * 4;
+        __stcg(reinterpret_cast<float4*>(dst + (size_t)r * H + c),
+               *reinterpret_cast<const float4*>(os + r * LDO + c));
+      }
+      __threadfence();
+      __syncthreads();
+      if (tid == 0)
+        last_arrival = atomicAdd(arrivals + blockIdx.y * chunks + h0 / NW2, 1u) == n_ft - 1;
+      __syncthreads();
+      if (last_arrival) {  // every partial of this chunk is stored: sum them in tile order
+        __threadfence();
+        // few rows (decode): `groups` sets of threads each sum a run of F
+        // tiles in order, then the runs are added in order (gsum over the
+        // free staging tile); the order depends on M alone
+        const int items = rows * (NW2 / 4);  // float4 columns of the chunk
+        const int groups = items >= THREADS ? 1 : min(8, THREADS / items);
+        const int per = (n_ft + groups - 1) / groups;
+        float4* gsum = reinterpret_cast<float4*>(os);  // [groups][items]
+        for (int e = tid; e < items * groups; e += THREADS) {
+          const int it = e % items, g = e / items;
+          const int r = it / (NW2 / 4), c = (it % (NW2 / 4)) * 4;
+          const float* src = part + (size_t)(m0 + r) * H + h0 + c;
+          float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+          const int ft_end = min(n_ft, (g + 1) * per);
+#pragma unroll 8
+          for (int ft = g * per; ft < ft_end; ++ft) {
+            const float4 v = __ldcg(reinterpret_cast<const float4*>(src + (size_t)ft * M * H));
+            sum.x += v.x;
+            sum.y += v.y;
+            sum.z += v.z;
+            sum.w += v.w;
+          }
+          if (groups == 1) {
+            __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(y + (size_t)(m0 + r) * H + h0 + c);
+            out[0] = __floats2bfloat162_rn(sum.x, sum.y);
+            out[1] = __floats2bfloat162_rn(sum.z, sum.w);
+          } else {
+            gsum[g * items + it] = sum;
+          }
+        }
+        if (groups > 1) {
+          __syncthreads();
+          for (int it = tid; it < items; it += THREADS) {
+            float4 sum = gsum[it];
+            for (int g = 1; g < groups; ++g) {
+              const float4 v = gsum[g * items + it];
+              sum.x += v.x;
+              sum.y += v.y;
+              sum.z += v.z;
+              sum.w += v.w;
+            }
+            const int r = it / (NW2 / 4), c = (it % (NW2 / 4)) * 4;
+            __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(y + (size_t)(m0 + r) * H + h0 + c);
+            out[0] = __floats2bfloat162_rn(sum.x, sum.y);
+            out[1] = __floats2bfloat162_rn(sum.z, sum.w);
+          }
+        }
       }
     }
-  }
-
-  // ---- the last block of this row tile to finish writes its rows as bf16
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last_block = atomicAdd(arrivals + blockIdx.y, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (last_block) {
-    __threadfence();
-    const int rows = min(TM, M - m0);
-    const size_t base = (size_t)m0 * H;
-    for (int e = tid; e < rows * H; e += THREADS)
-      y[base + e] = __float2bfloat16(__ldcg(acc + base + e));
   }
 }
 
 template <int TM>
 int launch(const void* x, const void* gq, const void* gs, const void* gm,
-           const void* dq, const void* ds, const void* dm, float* acc,
+           const void* dq, const void* ds, const void* dm, float* part,
            unsigned* arrivals, void* y, int M, int K, int F, int H, int TF,
            int gelu, cudaStream_t st) {
   static bool configured = false;  // idempotent: a race only repeats the call
@@ -288,7 +342,7 @@ int launch(const void* x, const void* gq, const void* gs, const void* gm,
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(gq),
       static_cast<const float*>(gs), static_cast<const float*>(gm),
       static_cast<const uint8_t*>(dq), static_cast<const float*>(ds),
-      static_cast<const float*>(dm), acc, arrivals, static_cast<__nv_bfloat16*>(y),
+      static_cast<const float*>(dm), part, arrivals, static_cast<__nv_bfloat16*>(y),
       M, K, F, H, TF, gelu);
   return static_cast<int>(cudaGetLastError());
 }
@@ -296,10 +350,11 @@ int launch(const void* x, const void* gq, const void* gs, const void* gm,
 }  // namespace
 
 // x [M, K] bf16; gate_up qs [2F, K/2] u8 + scales/mins [2F, K/32] f32; down
-// qs [H, F/2] u8 + scales/mins [H, F/32] f32; work f32 [M*H + ceil(M/TM)]
-// zeroed (the sum, then one arrival counter per row tile); y [M, H] bf16.
-// TF ffn columns per block (64..512, a multiple of 64 dividing F); gelu 0 =
-// silu, 1 = tanh-gelu. Needs K % 128 == 0 and H % 256 == 0.
+// qs [H, F/2] u8 + scales/mins [H, F/32] f32; work f32 [(F/TF)*M*H] (the
+// partials, written before they are read) followed by ceil(M/TM) * H/256
+// zeroed arrival counters (one per row tile and 256-column chunk); y [M, H]
+// bf16. TF ffn columns per block (64..512, a multiple of 64 dividing F);
+// gelu 0 = silu, 1 = tanh-gelu. Needs K % 128 == 0 and H % 256 == 0.
 extern "C" int nfai_fused_mlp(const void* x, const void* gq, const void* gs,
                               const void* gm, const void* dq, const void* ds,
                               const void* dm, void* work, void* y, int M, int K,
@@ -307,9 +362,9 @@ extern "C" int nfai_fused_mlp(const void* x, const void* gq, const void* gs,
   if (M < 1 || K % KC1 || H % NW2 || TF % 64 || TF > TF_MAX || F % TF)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* acc = static_cast<float*>(work);
-  unsigned* arrivals = reinterpret_cast<unsigned*>(acc + (size_t)M * H);
+  float* part = static_cast<float*>(work);
+  unsigned* arrivals = reinterpret_cast<unsigned*>(part + (size_t)(F / TF) * M * H);
   if (M <= 16)
-    return launch<16>(x, gq, gs, gm, dq, ds, dm, acc, arrivals, y, M, K, F, H, TF, gelu, st);
-  return launch<64>(x, gq, gs, gm, dq, ds, dm, acc, arrivals, y, M, K, F, H, TF, gelu, st);
+    return launch<16>(x, gq, gs, gm, dq, ds, dm, part, arrivals, y, M, K, F, H, TF, gelu, st);
+  return launch<64>(x, gq, gs, gm, dq, ds, dm, part, arrivals, y, M, K, F, H, TF, gelu, st);
 }

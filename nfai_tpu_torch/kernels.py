@@ -12,13 +12,16 @@ share its library, and each keeps its own launch count.
 Every C entry point takes pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()``; `Kernel.call` raises if that is not 0. Each
 `Kernel` carries a plain integer `launches`, which its wrapper increments
-where it launches the kernel and nowhere else.
+where it launches the kernel and nowhere else; `count` does that, and also
+tallies the launch under a variant label in `variants` where the wrapper
+names one (the attention kernels: head width, softcap, window).
 
 Nothing here runs at import: the CPU tests import every module of the port,
 and nvcc is first called when a kernel is first launched on a CUDA tensor.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -58,6 +61,7 @@ class Kernel:
         self.source = source
         self.functions = functions  # C symbol -> ctypes argtypes
         self.launches = 0
+        self.variants: collections.Counter = collections.Counter()
         self._lib = None
         self._lock = threading.Lock()
 
@@ -99,6 +103,12 @@ class Kernel:
             raise RuntimeError(
                 f"{self.name}: {symbol} returned cudaError_t {rc}"
             )
+
+    def count(self, variant: str | None = None) -> None:
+        """One launch (of `variant`, where the wrapper names one)."""
+        self.launches += 1
+        if variant is not None:
+            self.variants[variant] += 1
 
 
 def build(kernels: list[Kernel], verbose: bool = False) -> dict[str, str]:
@@ -151,6 +161,7 @@ def build_all(verbose: bool = False) -> dict[str, str]:
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.variants.clear()
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

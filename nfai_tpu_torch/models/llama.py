@@ -1,6 +1,6 @@
-"""Llama-schema models (llama, qwen3, qwen3moe): config from GGUF metadata,
-quantized weight loading, the prefill and decode forwards, and the decode
-loop.
+"""Llama-schema models (llama, qwen3, qwen3moe, gemma, gemma2, gemma3):
+config from GGUF metadata, quantized weight loading, the prefill and decode
+forwards, and the decode loop.
 
 Counterpart of nfai_tpu/models/llama.py in its single-device default
 configuration. Every matmul goes through a dequant-matmul kernel: K1
@@ -51,6 +51,20 @@ point), and a prefill chunk gathers its pages, dequantizes them into the
 activation dtype (`dequant_kv`) and runs K4's bf16 route, as the JAX
 package does.
 
+Gemma (gemma, gemma2, gemma3) follows the JAX layer step: NEOX rope
+without the q/k permutation, embeddings times sqrt(hidden) (in f32, then
+rounded to the activation dtype), tanh-gelu in the MLP on every route;
+gemma2/3 add RMS norms on the attention and FFN outputs before each
+residual add (`post_attn_norm`, `post_ffw_norm`) and a sliding window on
+the local layers (`LlamaConfig.layer_windows`: every second layer of
+gemma2, five of six of gemma3), which K2, K4 and K7 apply themselves;
+gemma2 caps the attention scores and the final logits with
+softcap * tanh(x / softcap); gemma3 has q/k norms and ropes its local
+layers with a second base (`inv_freq_local`). The attention scale follows
+llama.cpp: head_dim^-0.5, except (hidden // n_heads)^-0.5 for the 27B
+models (gemma2 with 46 blocks, gemma3 with 62), where the JAX package
+scales every gemma2 by (hidden / n_heads)^-0.5.
+
 With block tables (`page_tables`) the cache is the continuous-batching
 page pool (runtime.paged_cache): every layer first writes its roped K and
 V through the tables (`write_paged`'s scatter), then a decode step attends
@@ -67,8 +81,7 @@ jitted scan; capturing the step as a CUDA graph is later work).
 
 Only Q4_0/Q4_1/Q4_K, Q8_0 or Q2_K/Q3_K/Q5_K/Q6_K matmul weights load;
 dense (F16/F32) matmul weights and the other families' features (biases,
-softcaps, sliding windows, post norms, pre-fused tensors) raise
-NotImplementedError.
+pre-fused tensors) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -81,7 +94,7 @@ import torch.nn.functional as nnf
 from ..gguf import GGUFFile, Keys
 from ..ops.fused_decode import layered_decode_attention, write_all_layers, write_all_layers_t
 from ..ops.fused_mlp import (
-    MLP_FUSED_MAX_ROWS, fused_mlp_layered, mlp_eligible, mlp_prefill,
+    MLP_FUSED_MAX_ROWS, activation, fused_mlp_layered, mlp_eligible, mlp_prefill,
 )
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import gather_pages, paged_decode_attention
@@ -99,7 +112,10 @@ from ..ops.sampling import sample_logits
 from ..runtime.paged_cache import PagedKVCache, flat_slots, scatter_rows
 
 
-ARCHS = frozenset({"llama", "qwen3", "qwen3moe"})
+ARCHS = frozenset({"llama", "qwen3", "qwen3moe", "gemma", "gemma2", "gemma3"})
+GEMMA = ("gemma", "gemma2", "gemma3")
+# llama.cpp's 27B detection by depth: only these scale q by (hidden // heads)^-0.5
+GEMMA_27B_LAYERS = {"gemma2": 46, "gemma3": 62}
 
 
 @dataclass(frozen=True)
@@ -120,17 +136,38 @@ class LlamaConfig:
     rope_original_ctx: int = 8192
     context_length: int = 8192
     tied_embeddings: bool = True
-    qk_norm: bool = False  # qwen3: per-head q/k RMS norms before the rope
-    rope_neox: bool = False  # stored without the HF→ggml q/k permutation (qwen3)
+    qk_norm: bool = False  # qwen3, gemma3: per-head q/k RMS norms before the rope
+    rope_neox: bool = False  # stored without the HF→ggml q/k permutation (qwen3, gemma)
+    activation: str = "silu"  # MLP gate activation ("silu" | "gelu", tanh form)
+    embed_scale: float = 1.0  # gemma multiplies embeddings by sqrt(hidden)
+    # gemma2/3
+    attn_softcap: float = 0.0  # gemma2: scores = cap * tanh(scores / cap)
+    final_softcap: float = 0.0  # gemma2: the same cap on the f32 logits
+    sliding_window: int = 0  # the local layers' attention window
+    swa_pattern: int = 0  # layer i is local iff (i + 1) % pattern != 0
+    post_norms: bool = False  # RMS norms on the attention and FFN outputs
+    attn_scale: float = 0.0  # 0: head_dim^-0.5 (see `from_gguf`)
+    rope_base_local: float = 0.0  # gemma3: the local layers' rope base
     # mixture of experts (qwen3moe); 0 experts = the dense MLP
     n_experts: int = 0
     n_experts_used: int = 0
     moe_ffn_dim: int = 0
     norm_topk_prob: bool = True
 
+    def layer_is_local(self, i: int) -> bool:
+        """Sliding-window (local) layer by llama.cpp's swa pattern: every
+        `pattern`-th layer is global, the others local (gemma2: 2, gemma3:
+        6)."""
+        return self.swa_pattern > 0 and (i + 1) % self.swa_pattern != 0
+
+    def layer_windows(self) -> list[int]:
+        """Per-layer attention window (0 = unlimited)."""
+        return [self.sliding_window if self.layer_is_local(i) else 0
+                for i in range(self.n_layers)]
+
     @property
     def query_scale(self) -> float:
-        return 1.0 / (self.head_dim**0.5)
+        return self.attn_scale or 1.0 / (self.head_dim**0.5)
 
     @classmethod
     def from_gguf(cls, g: GGUFFile) -> "LlamaConfig":
@@ -140,8 +177,9 @@ class LlamaConfig:
             raise NotImplementedError(
                 f"architecture {arch!r} is not ported yet (the port runs {sorted(ARCHS)})"
             )
-        unported = ["blk.0.attn_q.bias", "blk.0.post_attention_norm.weight",
-                    "blk.0.attn_qkv.weight"]
+        unported = ["blk.0.attn_q.bias", "blk.0.attn_qkv.weight"]
+        if arch not in ("gemma2", "gemma3"):
+            unported.append("blk.0.post_attention_norm.weight")
         if arch == "llama":
             unported.append("blk.0.attn_q_norm.weight")
         if arch != "qwen3moe":
@@ -156,13 +194,15 @@ class LlamaConfig:
 
         n_heads = int(key(Keys.HEAD_COUNT))
         hidden = int(key(Keys.EMBEDDING_LENGTH))
+        n_layers = int(key(Keys.BLOCK_COUNT))
         vocab = key(Keys.VOCAB_SIZE)
         if vocab is None:
             vocab = len(md[Keys.TOKENIZER_TOKENS])
+        gemma = arch in GEMMA
         return cls(
             vocab_size=int(vocab),
             hidden_size=hidden,
-            n_layers=int(key(Keys.BLOCK_COUNT)),
+            n_layers=n_layers,
             n_heads=n_heads,
             n_kv_heads=int(key(Keys.HEAD_COUNT_KV, n_heads)),
             head_dim=int(key(Keys.KEY_LENGTH, hidden // n_heads)),
@@ -177,7 +217,23 @@ class LlamaConfig:
             context_length=int(key(Keys.CONTEXT_LENGTH, 8192)),
             tied_embeddings="output.weight" not in g.tensors,
             qk_norm="blk.0.attn_q_norm.weight" in g.tensors,
-            rope_neox=arch in ("qwen3", "qwen3moe"),
+            rope_neox=arch in ("qwen3", "qwen3moe") or gemma,
+            activation="gelu" if gemma else "silu",
+            embed_scale=float(hidden) ** 0.5 if gemma else 1.0,
+            attn_softcap=float(key("{arch}.attn_logit_softcapping", 0.0) or 0.0),
+            final_softcap=float(key("{arch}.final_logit_softcapping", 0.0) or 0.0),
+            sliding_window=(int(key("{arch}.attention.sliding_window", 0) or 0)
+                            if arch in ("gemma2", "gemma3") else 0),
+            swa_pattern={"gemma2": 2, "gemma3": 6}.get(arch, 0),
+            post_norms="blk.0.post_attention_norm.weight" in g.tensors,
+            # llama.cpp (llm_load_hparams): (hidden // heads)^-0.5 for the 27B
+            # models only, head_dim^-0.5 otherwise; the JAX package takes
+            # (hidden / heads)^-0.5 for every gemma2 (288^-0.5 at Gemma-2-2B,
+            # whose query_pre_attn_scalar is 256)
+            attn_scale=((hidden // n_heads) ** -0.5
+                        if GEMMA_27B_LAYERS.get(arch) == n_layers else 0.0),
+            rope_base_local=(float(key("{arch}.rope.freq_base_swa", 10000.0) or 10000.0)
+                             if arch == "gemma3" else 0.0),
             n_experts=int(key(Keys.EXPERT_COUNT, 0) or 0),
             n_experts_used=int(key(Keys.EXPERT_USED_COUNT, 0) or 0),
             moe_ffn_dim=int(key("{arch}.expert_feed_forward_length", 0) or 0),
@@ -266,6 +322,9 @@ _GGUF_NAMES = {
     "w_down": "blk.{i}.ffn_down.weight",
 }
 _QK_NORM_NAMES = {"q_norm": "blk.{i}.attn_q_norm.weight", "k_norm": "blk.{i}.attn_k_norm.weight"}
+# gemma2/3: RMS norms on the attention and FFN outputs
+_POST_NORM_NAMES = {"post_attn_norm": "blk.{i}.post_attention_norm.weight",
+                    "post_ffw_norm": "blk.{i}.post_ffw_norm.weight"}
 # a qwen3moe layer: router + stacked expert tensors in place of the MLP
 _MOE_NAMES = {
     "router": "blk.{i}.ffn_gate_inp.weight",
@@ -280,6 +339,8 @@ def _layer_names(cfg: LlamaConfig) -> dict[str, str]:
     names = dict(_GGUF_NAMES)
     if cfg.qk_norm:
         names.update(_QK_NORM_NAMES)
+    if cfg.post_norms:
+        names.update(_POST_NORM_NAMES)
     if cfg.n_experts:
         for k in ("w_gate", "w_up", "w_down"):
             del names[k]
@@ -309,8 +370,9 @@ def _stack_layers(per_layer: dict[str, list]) -> dict:
     }
 
 
-def _params(embed, layers: dict, final_norm, lm_head, inv_freq, dtype, device) -> dict:
-    return {
+def _params(embed, layers: dict, final_norm, lm_head, inv_freq, inv_freq_local, dtype,
+            device) -> dict:
+    out = {
         "embed": None if embed is None else embed.to(dtype).to(device),
         "layers": {k: v.to(device) for k, v in layers.items()},
         "final_norm": final_norm.to(device),
@@ -319,6 +381,9 @@ def _params(embed, layers: dict, final_norm, lm_head, inv_freq, dtype, device) -
         "act_dtype": dtype,
         "fused_mlp": mlp_eligible(layers.get("w_gate_up"), layers.get("w_down")),
     }
+    if inv_freq_local is not None:  # gemma3's local layers
+        out["inv_freq_local"] = inv_freq_local.to(device)
+    return out
 
 
 def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
@@ -332,12 +397,14 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
       layers mix kinds): ``wqkv`` or ``wq``/``wk``/``wv`` (wq/wk rows
       permuted NORM → NEOX for llama), ``wo``, ``w_gate_up`` or
       ``w_gate``/``w_up``, ``w_down``; with q/k norms ``q_norm``/``k_norm``
-      f32 [L, D]; a MoE model has ``router`` f32 [L, H, E] and the expert
+      f32 [L, D]; with post norms ``post_attn_norm``/``post_ffw_norm`` f32
+      [L, H]; a MoE model has ``router`` f32 [L, H, E] and the expert
       stacks ``w_gate_exps``/``w_up_exps``/``w_down_exps`` ([L, E, N, ...]
       containers, or a LayerList of [E, N, ...] ones) in place of the MLP;
     - ``final_norm`` f32 [H]; ``lm_head`` the 2-D quantized output weight,
       or for a tied checkpoint the quantized token table itself; ``inv_freq``
-      f32;
+      f32, and gemma3's ``inv_freq_local`` (its local layers' base, without
+      the global layers' rope scaling, as the JAX package computes it);
     - ``act_dtype`` (`dtype`) and ``fused_mlp`` (whether the MLP takes K5).
     """
 
@@ -386,13 +453,15 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
             cfg.rope_scaling_factor, cfg.rope_low_freq_factor,
             cfg.rope_high_freq_factor, cfg.rope_original_ctx,
         )
+    inv_freq_local = (torch.from_numpy(compute_inv_freq(cfg.head_dim, cfg.rope_base_local))
+                      if cfg.rope_base_local else None)
     if cfg.tied_embeddings:  # one quantized table: the head, and the embedding rows
         embed, lm_head = None, mat("token_embd.weight")
     else:
         embed = torch.from_numpy(g.tensor_f32("token_embd.weight"))
         lm_head = mat("output.weight")
     return _params(embed, _stack_layers(per_layer), vec("output_norm.weight"), lm_head,
-                   torch.from_numpy(inv_freq), dtype, device)
+                   torch.from_numpy(inv_freq), inv_freq_local, dtype, device)
 
 
 def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
@@ -406,8 +475,9 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
     permutations, 8-bit containers, N padding) through
     `ops.qtensor.from_jax_qtensor`, then fuses and routes as `load_params`
     does; a tied quantized table (``embed`` None) becomes the head and the
-    embedding source. qwen3's q/k norms and qwen3moe's routers carry over
-    as f32, its 4-D expert stacks (v2 4-bit [L, E, K/2, N], 8-bit
+    embedding source. qwen3's and gemma3's q/k norms, gemma's post norms
+    and qwen3moe's routers carry over as f32, gemma3's `inv_freq_local` as
+    it is, its 4-D expert stacks (v2 4-bit [L, E, K/2, N], 8-bit
     [L, E, K, N], promoted or unified 8-bit) as [L, E, N, ...] containers.
     Dense matmul weights raise."""
 
@@ -423,7 +493,7 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
     src = np_params["layers"]
     unknown = set(src) - {"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv",
                           "wo", "w_gate_up", "w_gate", "w_up", "w_down",
-                          *_QK_NORM_NAMES, *_MOE_NAMES}
+                          *_QK_NORM_NAMES, *_POST_NORM_NAMES, *_MOE_NAMES}
     if unknown:
         raise NotImplementedError(f"layer parameters {sorted(unknown)} are not ported yet")
     per_layer = {}
@@ -433,12 +503,12 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
         else:
             w = conv(leaf)
             per_layer[key] = [w.layer(i) for i in range(n_layers(w))]
-    embed = np_params.get("embed")
+    embed, local = np_params.get("embed"), np_params.get("inv_freq_local")
     as_f32 = lambda a: torch.from_numpy(np.array(a, np.float32))
     return _params(
         None if embed is None else as_f32(embed), _stack_layers(per_layer),
         as_f32(np_params["final_norm"]), conv(np_params["lm_head"]),
-        as_f32(np_params["inv_freq"]), dtype, device,
+        as_f32(np_params["inv_freq"]), None if local is None else as_f32(local), dtype, device,
     )
 
 
@@ -446,10 +516,47 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
 # forward
 
 
-def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params: dict, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token rows in the activation dtype (gemma: times sqrt(hidden) in f32,
+    then rounded, as the JAX package scales them)."""
     if params["embed"] is None:  # tied: rows of the quantized head are the embedding
-        return dequant_gather(params["lm_head"], tokens).to(params["act_dtype"])
-    return params["embed"][tokens.long()]
+        h = dequant_gather(params["lm_head"], tokens).to(params["act_dtype"])
+    else:
+        h = params["embed"][tokens.long()]
+    if cfg.embed_scale != 1.0:
+        h = (h.float() * cfg.embed_scale).to(h.dtype)
+    return h
+
+
+def _rope_tables(params: dict, cfg: LlamaConfig, positions: torch.Tensor) -> list:
+    """Each layer's (cos, sin): gemma3's local layers take the tables of
+    `inv_freq_local`, every other layer those of `inv_freq`."""
+    glob = rope_cos_sin(positions, params["inv_freq"])
+    if "inv_freq_local" not in params:
+        return [glob] * cfg.n_layers
+    loc = rope_cos_sin(positions, params["inv_freq_local"])
+    return [loc if cfg.layer_is_local(i) else glob for i in range(cfg.n_layers)]
+
+
+def _attn_kw(cfg: LlamaConfig, windows: list, layer: int) -> dict:
+    """The attention kernels' options for `layer`: scale, softcap, window."""
+    return dict(scale=cfg.query_scale, softcap=cfg.attn_softcap, window=windows[layer])
+
+
+def _finish_layer(params: dict, cfg: LlamaConfig, h: torch.Tensor, attn: torch.Tensor,
+                  layer: int) -> torch.Tensor:
+    """The rest of a layer after attention: wo, the residual add, the FFN
+    and its residual add, each output RMS-normed first where the model has
+    post norms; h stays in its dtype."""
+    lp = params["layers"]
+    out = linear_layered(attn, lp["wo"], layer)
+    if cfg.post_norms:
+        out = rms_norm(out, lp["post_attn_norm"][layer], cfg.rms_eps)
+    h = (h + out).to(h.dtype)
+    out = _mlp(params, cfg, rms_norm(h, lp["ffn_norm"][layer], cfg.rms_eps), layer)
+    if cfg.post_norms:
+        out = rms_norm(out, lp["post_ffw_norm"][layer], cfg.rms_eps)
+    return (h + out).to(h.dtype)
 
 
 def _qkv(lp: dict, x: torch.Tensor, layer: int, qd: int, kvd: int):
@@ -555,21 +662,21 @@ def _mlp(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torch.T
     """The JAX package's FFN route: `moe_ffn` for a MoE model; K5 (up to
     MLP_FUSED_MAX_ROWS rows) or `mlp_prefill` where the pair is
     fused-eligible; else two (or three) dequant-matmuls around the
-    activation."""
+    activation (silu, or gemma's tanh-gelu, on every route)."""
     if cfg.n_experts:
         return moe_ffn(params, cfg, x, layer)
-    lp = params["layers"]
+    lp, act = params["layers"], cfg.activation
     if params["fused_mlp"]:
         if x.numel() // x.shape[-1] > MLP_FUSED_MAX_ROWS:
-            return mlp_prefill(x, lp["w_gate_up"].layer(layer), lp["w_down"].layer(layer))
-        return fused_mlp_layered(x, lp["w_gate_up"], lp["w_down"], layer)
+            return mlp_prefill(x, lp["w_gate_up"].layer(layer), lp["w_down"].layer(layer), act)
+        return fused_mlp_layered(x, lp["w_gate_up"], lp["w_down"], layer, act)
     f = cfg.ffn_dim
     if "w_gate_up" in lp:
         gu = linear_layered(x, lp["w_gate_up"], layer)
         gate, up = gu[..., :f], gu[..., f:]
     else:
         gate, up = (linear_layered(x, lp[k], layer) for k in ("w_gate", "w_up"))
-    inner = (nnf.silu(gate.float()) * up.float()).to(x.dtype)
+    inner = (activation(gate.float(), act) * up.float()).to(x.dtype)
     return linear_layered(inner, lp["w_down"], layer)
 
 
@@ -587,16 +694,16 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         return _decode_forward(params, cfg, tokens, positions, cache)
     b, t = tokens.shape
     lp = params["layers"]
-    h = _embed(params, tokens)
+    h = _embed(params, cfg, tokens)
     act = h.dtype
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-    cos, sin = rope_cos_sin(positions, params["inv_freq"])
+    rope, windows = _rope_tables(params, cfg, positions), cfg.layer_windows()
     starts = positions[:, 0].to(torch.int32).contiguous()  # once per chunk, for every layer's K4
     for layer in range(cfg.n_layers):
         x = rms_norm(h, lp["attn_norm"][layer], cfg.rms_eps)
         q, k, v = _qkv(lp, x, layer, qd, kvd)
         q, k = _norm_rope(lp, cfg, layer, q.reshape(b, t, cfg.n_heads, cfg.head_dim),
-                          k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim), cos, sin)
+                          k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim), *rope[layer])
         q = q.to(act)
         k = k.reshape(b, t, kvd)
         scales = {}
@@ -609,11 +716,9 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         _write_cache(cache.v[layer], v, starts)
         attn = flash_prefill_attention(
             q.contiguous(), cache.k[layer], cache.v[layer], starts,
-            scale=cfg.query_scale, **scales,
+            **_attn_kw(cfg, windows, layer), **scales,
         )
-        h = (h + linear_layered(attn.reshape(b, t, qd), lp["wo"], layer)).to(act)
-        x = rms_norm(h, lp["ffn_norm"][layer], cfg.rms_eps)
-        h = (h + _mlp(params, cfg, x, layer)).to(act)
+        h = _finish_layer(params, cfg, h, attn.reshape(b, t, qd), layer)
     return rms_norm(h, params["final_norm"], cfg.rms_eps), cache
 
 
@@ -626,10 +731,10 @@ def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     writes their scales."""
     b = tokens.shape[0]
     lp = params["layers"]
-    h = _embed(params, tokens)
+    h = _embed(params, cfg, tokens)
     act = h.dtype
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-    cos, sin = rope_cos_sin(positions, params["inv_freq"])
+    rope, windows = _rope_tables(params, cfg, positions), cfg.layer_windows()
     starts = positions[:, 0].to(torch.int32).contiguous()  # once per step, for K2 and K3
     # the new rows stay in the activation dtype until they are stored
     k_rows = torch.empty(cfg.n_layers, b, kvd, dtype=act if cache.quantized else cache.k.dtype,
@@ -639,17 +744,16 @@ def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         x = rms_norm(h, lp["attn_norm"][layer], cfg.rms_eps)
         q, k, v = _qkv(lp, x, layer, qd, kvd)
         q, k = _norm_rope(lp, cfg, layer, q.reshape(b, 1, cfg.n_heads, cfg.head_dim),
-                          k.reshape(b, 1, cfg.n_kv_heads, cfg.head_dim), cos, sin)
+                          k.reshape(b, 1, cfg.n_kv_heads, cfg.head_dim), *rope[layer])
         q = q.to(act)
         k_rows[layer] = k.reshape(b, kvd)
         v_rows[layer] = v[:, 0]
         attn = layered_decode_attention(
             q.view(b, cfg.n_heads, cfg.head_dim), k_rows[layer], v_rows[layer], cache.k,
-            cache.v, layer, starts, scale=cfg.query_scale, k_scales=cache.ks, v_scales=cache.vs,
+            cache.v, layer, starts, **_attn_kw(cfg, windows, layer), k_scales=cache.ks,
+            v_scales=cache.vs,
         )
-        h = (h + linear_layered(attn.reshape(b, 1, qd), lp["wo"], layer)).to(act)
-        x = rms_norm(h, lp["ffn_norm"][layer], cfg.rms_eps)
-        h = (h + _mlp(params, cfg, x, layer)).to(act)
+        h = _finish_layer(params, cfg, h, attn.reshape(b, 1, qd), layer)
     if cache.quantized:
         (k_rows, ksc), (v_rows, vsc) = (quantize_kv(k_rows, cfg.n_kv_heads),
                                         quantize_kv(v_rows, cfg.n_kv_heads))
@@ -675,17 +779,18 @@ def _gather_page_scales(spool: torch.Tensor, tables: torch.Tensor) -> torch.Tens
 
 
 def _paged_attention(q: torch.Tensor, pool: PagedKVCache, layer: int,
-                     tables: torch.Tensor, first: torch.Tensor, scale: float) -> torch.Tensor:
+                     tables: torch.Tensor, first: torch.Tensor, attn_kw: dict) -> torch.Tensor:
     """Attention of new tokens q [B, T, Hq, D] against layer `layer` of the
-    pool (their K/V already written). T == 1: K7 over the tables, `first`
-    the lengths (positions[:, 0] + 1, int32). T > 1: K4 over the gathered
-    dense view at offsets `first` (positions[:, 0], int32); an int8 pool's
-    pages are dequantized into q's dtype first."""
+    pool (their K/V already written), with the layer's `attn_kw` (scale,
+    softcap, window). T == 1: K7 over the tables, `first` the lengths
+    (positions[:, 0] + 1, int32). T > 1: K4 over the gathered dense view at
+    offsets `first` (positions[:, 0], int32); an int8 pool's pages are
+    dequantized into q's dtype first."""
     b, t, hq, d = q.shape
     k_pages, v_pages = pool.k[layer], pool.v[layer]
     if t == 1:
         scales = {} if not pool.quantized else dict(k_scales=pool.ks[layer], v_scales=pool.vs[layer])
-        return paged_decode_attention(q[:, 0], k_pages, v_pages, tables, first, scale,
+        return paged_decode_attention(q[:, 0], k_pages, v_pages, tables, first, **attn_kw,
                                       **scales)[:, None]
     span = tables.shape[1] * k_pages.shape[2]
     if span % 64:
@@ -695,7 +800,7 @@ def _paged_attention(q: torch.Tensor, pool: PagedKVCache, layer: int,
     if pool.quantized:
         kd = dequant_kv(kd, _gather_page_scales(pool.ks[layer], tables), q.dtype)
         vd = dequant_kv(vd, _gather_page_scales(pool.vs[layer], tables), q.dtype)
-    return flash_prefill_attention(q.contiguous(), kd, vd, first, scale=scale)
+    return flash_prefill_attention(q.contiguous(), kd, vd, first, **attn_kw)
 
 
 def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -705,10 +810,10 @@ def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     then `_paged_attention` runs."""
     b, t = tokens.shape
     lp = params["layers"]
-    h = _embed(params, tokens)
+    h = _embed(params, cfg, tokens)
     act = h.dtype
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cos, sin = rope_cos_sin(positions, params["inv_freq"])
+    rope, windows = _rope_tables(params, cfg, positions), cfg.layer_windows()
     flat = flat_slots(tables, positions, pool.page_size)  # once for every layer's writes
     first = positions[:, 0].to(torch.int32)
     first = (first + 1 if t == 1 else first).contiguous()
@@ -716,7 +821,7 @@ def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         x = rms_norm(h, lp["attn_norm"][layer], cfg.rms_eps)
         q, k, v = _qkv(lp, x, layer, hq * hd, hkv * hd)
         q, k = _norm_rope(lp, cfg, layer, q.reshape(b, t, hq, hd), k.reshape(b, t, hkv, hd),
-                          cos, sin)
+                          *rope[layer])
         q = q.to(act)
         if pool.quantized:
             (k, ksc), (v, vsc) = quantize_kv(k.reshape(b, t, hkv * hd), hkv), quantize_kv(v, hkv)
@@ -724,16 +829,18 @@ def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
             scatter_rows(pool.vs[layer][..., None], vsc[..., None], flat)
         scatter_rows(pool.k[layer], k.reshape(b, t, hkv, hd), flat)
         scatter_rows(pool.v[layer], v.reshape(b, t, hkv, hd), flat)
-        attn = _paged_attention(q, pool, layer, tables, first, cfg.query_scale)
-        h = (h + linear_layered(attn.reshape(b, t, hq * hd), lp["wo"], layer)).to(act)
-        x = rms_norm(h, lp["ffn_norm"][layer], cfg.rms_eps)
-        h = (h + _mlp(params, cfg, x, layer)).to(act)
+        attn = _paged_attention(q, pool, layer, tables, first, _attn_kw(cfg, windows, layer))
+        h = _finish_layer(params, cfg, h, attn.reshape(b, t, hq * hd), layer)
     return rms_norm(h, params["final_norm"], cfg.rms_eps), pool
 
 
-def logits_for(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """LM head (K1 or K6; the tied table for a tied checkpoint) → f32 logits."""
-    return linear(hidden, params["lm_head"]).float()
+def logits_for(params: dict, hidden: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """LM head (K1 or K6; the tied table for a tied checkpoint) → f32
+    logits, capped by gemma2's final softcap where `cfg` has one."""
+    logits = linear(hidden, params["lm_head"]).float()
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
 
 
 @torch.inference_mode()
@@ -745,7 +852,7 @@ def prefill_step(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     h, cache = forward(params, cfg, tokens, positions, cache)
     rows = torch.arange(h.shape[0], device=h.device)
     h_last = h[rows, last_index.long().to(h.device)]
-    return logits_for(params, h_last), cache
+    return logits_for(params, h_last, cfg), cache
 
 
 @torch.inference_mode()
@@ -754,7 +861,7 @@ def decode_step(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     """One token [B] at positions [B] for every row (through `page_tables`
     on a page pool); returns ([B, V] logits, cache)."""
     h, cache = forward(params, cfg, tokens[:, None], positions[:, None], cache, page_tables)
-    return logits_for(params, h[:, 0]), cache
+    return logits_for(params, h[:, 0], cfg), cache
 
 
 def _decode_chunk(params, cfg, tok, pos, cache, page_tables, generator, n_steps,
@@ -814,7 +921,7 @@ def paged_prefill_step(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     the pool, updated in place). The table isolates the slot's pages."""
     h, cache = forward(params, cfg, tokens, positions, cache, page_tables=tables)
     rows = torch.arange(h.shape[0], device=h.device)
-    return logits_for(params, h[rows, last_index.long().to(h.device)]), cache
+    return logits_for(params, h[rows, last_index.long().to(h.device)], cfg), cache
 
 
 @torch.inference_mode()

@@ -1,14 +1,16 @@
 """Model factory registry: architecture sniffing → model family dispatch
-(the JAX package's registry, with the llama schema's llama, qwen3 and
-qwen3moe architectures ported)."""
+(the JAX package's registry, with the llama schema's llama, qwen3,
+qwen3moe and gemma/gemma2/gemma3 architectures ported)."""
 from __future__ import annotations
 
 from ..gguf import GGUFFile
 
 
 class LlamaFamily:
-    """Llama 3.x dense models, Qwen3 (q/k norms, NEOX rope) and Qwen3-MoE
-    (routed experts): 4-bit and 8-bit GGUF weights, tied or untied head."""
+    """Llama 3.x dense models, Qwen3 (q/k norms, NEOX rope), Qwen3-MoE
+    (routed experts) and Gemma 1/2/3 (gelu, scaled embeddings, softcaps,
+    sliding windows, post norms): 4-bit and 8-bit GGUF weights, tied or
+    untied head."""
 
     def config_from_gguf(self, g: GGUFFile):
         from .llama import LlamaConfig

@@ -16,6 +16,12 @@ entry point and launch counter (``decode_attention_i8``); the new token is
 still folded in at full precision. K3 copies the int8 code rows as bytes,
 and K10 (``kv_write_t``) writes the new scales at ``starts[b]``.
 
+Gemma's attention options ride the same entry points: ``softcap`` (the
+score becomes softcap * tanh(score / softcap) after the scale and the k
+scale, the new token's too) and ``window`` (a sliding window: the old keys
+s > starts[b] - window and the new token stay visible; 0 = unlimited), as
+the JAX kernels apply them. Head widths 64, 128 and 256.
+
 On CUDA tensors the wrappers launch ``csrc/decode_attention.cu`` and
 ``csrc/kv_write.cu`` or raise; on CPU tensors they run the plain versions.
 """
@@ -27,11 +33,11 @@ from ..kernels import F, I, Kernel, P, ptr, register, stream_ptr
 
 K2 = register(Kernel(
     "decode_attention", "decode_attention.cu",
-    {"nfai_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, F, P]},
+    {"nfai_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, I, P]},
 ))
 K2_I8 = register(Kernel(
     "decode_attention_i8", "decode_attention.cu",
-    {"nfai_decode_attention_i8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]},
+    {"nfai_decode_attention_i8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, I, P]},
 ))
 K3 = register(Kernel(
     "kv_write", "kv_write.cu",
@@ -43,7 +49,23 @@ K10 = register(Kernel(
 ))
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the head widths K2 is compiled for
+HEAD_DIMS = (64, 128, 256)  # the head widths K2 is compiled for
+
+
+def softcap_scores(logits, softcap: float):
+    """gemma2's score cap, softcap * tanh(logits / softcap) (the JAX form:
+    a multiply by the reciprocal); 0 leaves the scores as they are."""
+    return softcap * torch.tanh(logits * (1.0 / softcap)) if softcap else logits
+
+
+def variant(d: int, softcap: float, window: int) -> str:
+    """The label an attention launch is tallied under (`Kernel.variants`)."""
+    return f"D={d}" + (" softcap" if softcap else "") + (" window" if window else "")
+
+
+def check_options(softcap, window) -> None:
+    if softcap < 0 or window < 0 or int(window) != window:
+        raise ValueError(f"softcap must be >= 0 and window a non-negative int; got {softcap}, {window}")
 
 
 def _check_starts(starts, b, device):
@@ -54,14 +76,17 @@ def _check_starts(starts, b, device):
 
 
 def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, starts, scale,
-                           k_scales=None, v_scales=None):
+                           k_scales=None, v_scales=None, softcap: float = 0.0,
+                           window: int = 0):
     """q [B, Hq, D], k_new/v_new [B, KVD], one layer of the cache
     k_cache/v_cache [B, S, KVD], starts [B] (old tokens per row) →
     [B, Hq, D] in q's dtype; f32 math. With k_scales/v_scales [B, Hkv, S]
     the cache holds int8 codes: the k scale multiplies each score column
     and the v scale each softmax weight of an old token after the
     normalisation (so the denominator sums the unscaled weights); the new
-    token is at full precision."""
+    token is at full precision. `softcap` caps every score (the new token's
+    too) before the mask; `window` > 0 hides the old keys s <= starts[b] -
+    window."""
     b, hq, d = q.shape
     _, s, kvd = k_cache.shape
     hkv = kvd // d
@@ -72,11 +97,16 @@ def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, starts, scale,
     logits = torch.einsum("bhrd,bshd->bhrs", qg, kf)
     if k_scales is not None:
         logits = logits * k_scales.float()[:, :, None, :]
-    visible = torch.arange(s, device=q.device)[None, :] < starts.to(q.device)[:, None]
+    logits = softcap_scores(logits, softcap)
+    span = torch.arange(s, device=q.device)[None, :]
+    start = starts.to(q.device).long()[:, None]
+    visible = span < start
+    if window:
+        visible &= span > start - window
     logits = logits.masked_fill(~visible[:, None, None, :], NEG_INF)
     kn = k_new.float().reshape(b, hkv, d)
     vn = v_new.float().reshape(b, hkv, d)
-    s_new = torch.einsum("bhrd,bhd->bhr", qg, kn)[..., None]
+    s_new = softcap_scores(torch.einsum("bhrd,bhd->bhr", qg, kn)[..., None], softcap)
     w = torch.softmax(torch.cat([logits, s_new], dim=-1), dim=-1)
     w_old = w[..., :s]
     if v_scales is not None:
@@ -104,14 +134,13 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, starts, scale=None,
     b, hq, d = q.shape
     if scale is None:
         scale = 1.0 / d**0.5
-    if softcap or window:
-        raise NotImplementedError("attention softcap / sliding window are not ported yet")
+    check_options(softcap, window)
     quantized = k_scales is not None
     if quantized != (v_scales is not None):
         raise ValueError("k_scales and v_scales come together")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, k_cache, v_cache, starts, scale,
-                                      k_scales, v_scales)
+                                      k_scales, v_scales, softcap, window)
     _, s, kvd = k_cache.shape
     hkv = kvd // d
     r = hq // hkv
@@ -133,16 +162,16 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, starts, scale=None,
         K2_I8.call(
             "nfai_decode_attention_i8", ptr(q), ptr(k_new), ptr(v_new), ptr(k_cache),
             ptr(v_cache), ptr(k_scales), ptr(v_scales), ptr(starts), ptr(out), b, s, hkv, r, d,
-            float(scale), stream_ptr(q),
+            float(scale), float(softcap), int(window), stream_ptr(q),
         )
-        K2_I8.launches += 1
+        K2_I8.count(variant(d, softcap, window))
         return out
     K2.call(
         "nfai_decode_attention", ptr(q), ptr(k_new), ptr(v_new), ptr(k_cache),
         ptr(v_cache), ptr(starts), ptr(out), b, s, hkv, r, d, float(scale),
-        stream_ptr(q),
+        float(softcap), int(window), stream_ptr(q),
     )
-    K2.launches += 1
+    K2.count(variant(d, softcap, window))
     return out
 
 
@@ -182,7 +211,7 @@ def write_all_layers(cache, rows, starts):
     _check_starts(starts, b, cache.device)
     K3.call("nfai_kv_write", ptr(cache), ptr(rows), ptr(starts), l, b, s,
             row_bytes, stream_ptr(cache))
-    K3.launches += 1
+    K3.count()
     return cache
 
 
@@ -207,5 +236,5 @@ def write_all_layers_t(arr, rows, starts):
         raise ValueError("kv_write_t needs contiguous tensors on one device")
     _check_starts(starts, b, arr.device)
     K10.call("nfai_kv_write_t", ptr(arr), ptr(rows), ptr(starts), l, b, h, s, stream_ptr(arr))
-    K10.launches += 1
+    K10.count()
     return arr

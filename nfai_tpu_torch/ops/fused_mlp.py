@@ -35,7 +35,8 @@ MLP_FUSED_MAX_ROWS = 1024
 ACTIVATIONS = ("silu", "gelu")  # gelu is the tanh approximation, as in JAX
 
 
-def _act(g: torch.Tensor, act: str) -> torch.Tensor:
+def activation(g: torch.Tensor, act: str) -> torch.Tensor:
+    """silu, or the tanh form of gelu (gemma), by name."""
     if act == "silu":
         return nnf.silu(g)
     if act == "gelu":
@@ -60,12 +61,13 @@ def fused_mlp_plain(x: torch.Tensor, gu: Q4Tensor, dn: Q4Tensor,
     the down product (as both Pallas bodies do)."""
     f = gu.n // 2
     g_u = x.float() @ dequant(gu).T
-    return matmul_plain((_act(g_u[:, :f], act) * g_u[:, f:]).to(torch.bfloat16), dn)
+    return matmul_plain((activation(g_u[:, :f], act) * g_u[:, f:]).to(torch.bfloat16), dn)
 
 
 def _f_tile(m: int, f: int, row_tile: int) -> int:
     """FFN columns per block: 64 while the grid fills the card; wider at
-    prefill row counts, where every extra F tile adds M*H atomics."""
+    prefill row counts, where every extra F tile adds M*H partial sums to
+    write and read back."""
     row_tiles = -(-m // row_tile)
     tf = 64
     while tf < 512 and f % (2 * tf) == 0 and row_tiles * (f // tf) > 264:
@@ -101,15 +103,20 @@ def fused_mlp(x: torch.Tensor, gu: Q4Tensor, dn: Q4Tensor,
         return y
     row_tile = 16 if m <= 16 else 64
     tf = _f_tile(m, f, row_tile)
-    # f32 [M, H] accumulator + one arrival counter per row tile, zeroed
-    # together; the last block of a row tile writes its bf16 rows
-    work = torch.zeros(m * h + math.ceil(m / row_tile), dtype=torch.float32, device=x.device)
+    # per-F-tile f32 partials [F / TF, M, H] (every one written before it is
+    # read), then one zeroed arrival counter per (row tile, 256-column
+    # chunk): the last block at a chunk sums its partials in F-tile order,
+    # so equal inputs give equal bits
+    n_part = f // tf * m * h
+    work = torch.empty(n_part + math.ceil(m / row_tile) * (h // 256), dtype=torch.float32,
+                       device=x.device)
+    work[n_part:].zero_()
     K5.call(
         "nfai_fused_mlp", ptr(x), ptr(gu.qs), ptr(gu.scales), ptr(gu.mins),
         ptr(dn.qs), ptr(dn.scales), ptr(dn.mins), ptr(work), ptr(y),
         m, k, f, h, tf, int(act == "gelu"), stream_ptr(x),
     )
-    K5.launches += 1
+    K5.count()
     return y
 
 
@@ -132,6 +139,6 @@ def mlp_prefill(x: torch.Tensor, gu: Q4Tensor, dn: Q4Tensor,
     lead = x.shape[:-1]
     f = gu.n // 2
     g_u = q4_matmul(x.reshape(-1, gu.k).to(torch.bfloat16).contiguous(), gu)
-    a = (_act(g_u[:, :f].float(), act) * g_u[:, f:].float()).to(torch.bfloat16)
+    a = (activation(g_u[:, :f].float(), act) * g_u[:, f:].float()).to(torch.bfloat16)
     y = torch.matmul(a, dequant(dn).to(torch.bfloat16).T)
     return y.reshape(*lead, dn.n).to(x.dtype)

@@ -11,7 +11,10 @@ per-(token, kv head) f32 scales [Hkv, P, page_size] (``k_scales``/
 ``v_scales``, found through the same tables) and runs through the kernel's
 int8 entry point and launch counter (``paged_attention_i8``): the k scale
 multiplies each score column, the v scale each softmax weight after the
-denominator is summed. Softcap and sliding window raise NotImplementedError.
+denominator is summed. Gemma's ``softcap`` (after the scale and the k
+scale) and sliding ``window`` (positions lengths[b] - window <= s <
+lengths[b]; 0 = unlimited) take the same entry points; head widths 64, 128
+and 256.
 
 On CUDA tensors the wrapper launches ``csrc/paged_attention.cu`` or raises;
 on CPU tensors it runs `paged_decode_attention_plain`.
@@ -21,20 +24,20 @@ from __future__ import annotations
 import torch
 
 from ..kernels import F, I, Kernel, P, ptr, register, stream_ptr
-from .fused_decode import check_scales
+from .fused_decode import check_options, check_scales, softcap_scores, variant
 
 K7 = register(Kernel(
     "paged_attention", "paged_attention.cu",
-    {"nfai_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]},
+    {"nfai_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, I, P]},
 ))
 K7_I8 = register(Kernel(
     "paged_attention_i8", "paged_attention.cu",
-    {"nfai_paged_attention_i8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]},
+    {"nfai_paged_attention_i8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, I, P]},
 ))
 
 NEG_INF = -1e30
 PAGE_SIZES = (16, 32, 64, 128)
-HEAD_DIMS = (64, 128)  # the head widths K7 is compiled for
+HEAD_DIMS = (64, 128, 256)  # the head widths K7 is compiled for
 
 
 def gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -46,12 +49,14 @@ def gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths, scale,
-                                 k_scales=None, v_scales=None):
+                                 k_scales=None, v_scales=None, softcap: float = 0.0,
+                                 window: int = 0):
     """q [B, Hq, D], one layer's pool k_pages/v_pages [Hkv, P, ps, D],
     tables [B, NP], lengths [B] → [B, Hq, D] in q's dtype; f32 math: gather
-    each row's pages densely, mask positions >= lengths[b], attend. With
-    k_scales/v_scales [Hkv, P, ps] the pool holds int8 codes (see the module
-    doc)."""
+    each row's pages densely, cap the scores by `softcap`, mask positions
+    >= lengths[b] (and < lengths[b] - window where `window` > 0), attend.
+    With k_scales/v_scales [Hkv, P, ps] the pool holds int8 codes (see the
+    module doc)."""
     b, hq, d = q.shape
     hkv = k_pages.shape[0]
     r = hq // hkv
@@ -63,7 +68,12 @@ def paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths, scale,
     logits = torch.einsum("bhrd,hbsd->bhrs", qg, kg) * scale
     if k_scales is not None:
         logits = logits * gather_pages(k_scales, tables).float().transpose(0, 1)[:, :, None, :]
-    visible = torch.arange(s, device=q.device)[None, :] < lengths.to(q.device).long()[:, None]
+    logits = softcap_scores(logits, softcap)
+    span = torch.arange(s, device=q.device)[None, :]
+    length = lengths.to(q.device).long()[:, None]
+    visible = span < length
+    if window:
+        visible &= span >= length - window
     logits = logits.masked_fill(~visible[:, None, None, :], NEG_INF)
     w = torch.softmax(logits, dim=-1)
     if v_scales is not None:
@@ -85,8 +95,7 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, scale=None,
     q [B, Hq, D], k_pages/v_pages [Hkv, P, ps, D], tables [B, NP] int32,
     lengths [B] int32 → [B, Hq, D]; an int8 pool with k_scales/v_scales
     [Hkv, P, ps]."""
-    if softcap or window:
-        raise NotImplementedError("attention softcap / sliding window are not ported yet")
+    check_options(softcap, window)
     quantized = k_scales is not None
     if quantized != (v_scales is not None):
         raise ValueError("k_scales and v_scales come together")
@@ -95,7 +104,7 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, scale=None,
         scale = 1.0 / d**0.5
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths, scale,
-                                            k_scales, v_scales)
+                                            k_scales, v_scales, softcap, window)
     hkv, n_pages, ps, _ = k_pages.shape
     r = hq // hkv
     if d not in HEAD_DIMS or r not in (1, 2, 3, 4, 8) or hq != hkv * r:
@@ -117,14 +126,14 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, scale=None,
         K7_I8.call(
             "nfai_paged_attention_i8", ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scales),
             ptr(v_scales), ptr(tables), ptr(lengths), ptr(out), b, hkv, r, n_pages, ps,
-            tables.shape[1], d, float(scale), stream_ptr(q),
+            tables.shape[1], d, float(scale), float(softcap), int(window), stream_ptr(q),
         )
-        K7_I8.launches += 1
+        K7_I8.count(variant(d, softcap, window))
         return out
     K7.call(
         "nfai_paged_attention", ptr(q), ptr(k_pages), ptr(v_pages), ptr(tables),
         ptr(lengths), ptr(out), b, hkv, r, n_pages, ps, tables.shape[1], d,
-        float(scale), stream_ptr(q),
+        float(scale), float(softcap), int(window), stream_ptr(q),
     )
-    K7.launches += 1
+    K7.count(variant(d, softcap, window))
     return out

@@ -9,7 +9,9 @@ comes with its per-(token, kv head) f32 scales ``k_scales``/``v_scales``
 (one layer's time-minor [B, Hkv, S] view) and runs through the kernel's
 int8 entry point and launch counter (``prefill_attention_i8``): the k scale
 multiplies each score column and the v scale each softmax weight after the
-denominator is summed, as the JAX kernel applies them.
+denominator is summed, as the JAX kernel applies them. Gemma's ``softcap``
+and sliding ``window`` (query t sees slots pos - window < s <= pos; 0 =
+unlimited) take the same entry points; head widths 64, 128 and 256.
 
 On CUDA tensors the wrapper launches ``csrc/prefill_attention.cu`` or
 raises; on CPU tensors it runs `flash_prefill_attention_plain`.
@@ -19,27 +21,29 @@ from __future__ import annotations
 import torch
 
 from ..kernels import F, I, Kernel, P, ptr, register, stream_ptr
-from .fused_decode import check_scales
+from .fused_decode import check_options, check_scales, softcap_scores, variant
 
 K4 = register(Kernel(
     "prefill_attention", "prefill_attention.cu",
-    {"nfai_prefill_attention": [P, P, P, P, P, I, I, I, I, I, I, F, P]},
+    {"nfai_prefill_attention": [P, P, P, P, P, I, I, I, I, I, I, F, F, I, P]},
 ))
 K4_I8 = register(Kernel(
     "prefill_attention_i8", "prefill_attention.cu",
-    {"nfai_prefill_attention_i8": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P]},
+    {"nfai_prefill_attention_i8": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, P]},
 ))
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the head widths K4 is compiled for
+HEAD_DIMS = (64, 128, 256)  # the head widths K4 is compiled for
 
 
 def flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale,
-                                  k_scales=None, v_scales=None):
+                                  k_scales=None, v_scales=None, softcap: float = 0.0,
+                                  window: int = 0):
     """q [B, T, Hq, D], k_cache/v_cache [B, S, KVD], offsets [B] →
-    [B, T, Hq, D] in q's dtype; f32 math with the causal mask s <= pos.
-    With k_scales/v_scales [B, Hkv, S] the cache holds int8 codes (see the
-    module doc)."""
+    [B, T, Hq, D] in q's dtype; f32 math with the causal mask s <= pos
+    (and s > pos - window where `window` > 0), the scores capped by
+    `softcap` first. With k_scales/v_scales [B, Hkv, S] the cache holds int8
+    codes (see the module doc)."""
     b, t, hq, d = q.shape
     _, s, kvd = k_cache.shape
     hkv = kvd // d
@@ -50,8 +54,12 @@ def flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale,
     logits = torch.einsum("bthrd,bshd->bhrts", qg, kf) * scale
     if k_scales is not None:
         logits = logits * k_scales.float()[:, :, None, None, :]
+    logits = softcap_scores(logits, softcap)
     pos = offsets.to(q.device).long()[:, None] + torch.arange(t, device=q.device)[None]
-    visible = torch.arange(s, device=q.device)[None, None, :] <= pos[:, :, None]
+    span = torch.arange(s, device=q.device)[None, None, :]
+    visible = span <= pos[:, :, None]
+    if window:
+        visible &= span > pos[:, :, None] - window
     logits = logits.masked_fill(~visible[:, None, None], NEG_INF)
     w = torch.softmax(logits, dim=-1)
     if v_scales is not None:
@@ -67,13 +75,13 @@ def flash_prefill_attention(q, k_cache, v_cache, offsets, scale=None,
     b, t, hq, d = q.shape
     if scale is None:
         scale = 1.0 / d**0.5
-    if softcap or window:
-        raise NotImplementedError("attention softcap / sliding window are not ported yet")
+    check_options(softcap, window)
     quantized = k_scales is not None
     if quantized != (v_scales is not None):
         raise ValueError("k_scales and v_scales come together")
     if q.device.type == "cpu":
-        return flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale, k_scales, v_scales)
+        return flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale, k_scales, v_scales,
+                                             softcap, window)
     _, s, kvd = k_cache.shape
     hkv = kvd // d
     r = hq // hkv
@@ -97,13 +105,15 @@ def flash_prefill_attention(q, k_cache, v_cache, offsets, scale=None,
         check_scales(k_scales, v_scales, (b, hkv, s), q.device)
         K4_I8.call(
             "nfai_prefill_attention_i8", ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scales),
-            ptr(v_scales), ptr(offsets), ptr(out), b, t, s, hkv, r, d, float(scale), stream_ptr(q),
+            ptr(v_scales), ptr(offsets), ptr(out), b, t, s, hkv, r, d, float(scale), float(softcap),
+            int(window), stream_ptr(q),
         )
-        K4_I8.launches += 1
+        K4_I8.count(variant(d, softcap, window))
         return out
     K4.call(
         "nfai_prefill_attention", ptr(q), ptr(k_cache), ptr(v_cache),
-        ptr(offsets), ptr(out), b, t, s, hkv, r, d, float(scale), stream_ptr(q),
+        ptr(offsets), ptr(out), b, t, s, hkv, r, d, float(scale), float(softcap), int(window),
+        stream_ptr(q),
     )
-    K4.launches += 1
+    K4.count(variant(d, softcap, window))
     return out

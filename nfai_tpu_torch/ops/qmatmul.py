@@ -77,7 +77,7 @@ def q4_matmul(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
         "nfai_q4_matmul", ptr(x), ptr(w.qs), ptr(w.scales), ptr(w.mins),
         ptr(y), m, k, w.n, stream_ptr(x),
     )
-    K1.launches += 1
+    K1.count()
     return y
 
 
@@ -98,7 +98,7 @@ def q8_matmul(x: torch.Tensor, w: Q8Tensor) -> torch.Tensor:
         ptr(w.mins) if w.mins is not None else None,
         ptr(y), m, k, w.n, w.group, stream_ptr(x),
     )
-    K6.launches += 1
+    K6.count()
     return y
 
 
@@ -183,5 +183,5 @@ def qmatmul_grouped(x: torch.Tensor, w: Q4Tensor | Q8Tensor, block_group: torch.
         K8.call("nfai_grouped_q4", *args, stream_ptr(x))
     else:
         K9.call("nfai_grouped_q8", *args, w.group, stream_ptr(x))
-    kernel.launches += 1
+    kernel.count()
     return y

@@ -4,7 +4,9 @@ checkpoints at published widths filled with random raw quantized blocks
 
 `make_tiny_llama_gguf` is a copy of the JAX package's fixture (same bytes
 for the same arguments) limited to the options the port runs (llama, qwen3
-q/k norms, qwen3moe experts).
+q/k norms, qwen3moe experts, the gemma options: post norms, sliding window,
+softcaps, the SPM vocabulary), plus `key_length`, which the JAX fixture
+lacks, for a head_dim * n_heads other than hidden.
 `make_llama_1b_gguf` writes the published Llama-3.2-1B shapes (hidden 2048,
 32 heads / 8 kv heads, ffn 8192, vocab 128256, rope base 500000 with a
 llama3 `rope_freqs` tensor) in one of four kinds: "q4_k" (untied, Q4_K
@@ -19,6 +21,14 @@ Llama-3.2-3B shapes (hidden 3072, 24 heads / 8 kv heads, head_dim 128, ffn
 768, vocab 151936, rope base 1e6, rms eps 1e-6, untied) in the mix
 llama.cpp writes for Q4_K_M, with a ChatML tokenizer. `n_layers` cuts
 depth (16, 28 and 48 in the published configs).
+`make_gemma2_2b_gguf` writes Gemma-2-2B's published widths (google/gemma-2-2b
+config.json: hidden 2304, 26 layers, 8 / 4 heads of head_dim 256, ffn 9216,
+vocab 256000, sliding window 4096, softcaps 50 / 30, rope base 1e4, tied
+embeddings) in the Q4_K_M mix, with an SPM vocabulary of 256000 pieces and
+Gemma's chat template; `make_gemma3_1b_gguf` Gemma-3-1B's
+(google/gemma-3-1b-it config.json: hidden 1152, 4 / 1 heads of head_dim
+256, ffn 6912, vocab 262144, window 512, rope 1e6 global and 1e4 local,
+q/k norms), whose K = 1152 rows no k-quant can hold (K % 256 != 0).
 """
 from __future__ import annotations
 
@@ -78,6 +88,71 @@ def tiny_tokenizer_metadata(n_tokens: int | None = None, chatml: bool = False) -
     return md
 
 
+SPM_SPECIALS = ("<pad>", "<eos>", "<bos>", "<unk>", "<start_of_turn>", "<end_of_turn>")
+GEMMA_TEMPLATE = (
+    "{{- bos_token }}"
+    "{%- for message in messages %}"
+    "{%- set role = 'model' if message['role'] == 'assistant' else message['role'] %}"
+    "{{- '<start_of_turn>' + role + '\n' + message['content'] | trim + '<end_of_turn>\n' }}"
+    "{%- endfor %}"
+    "{%- if add_generation_prompt %}{{- '<start_of_turn>model\n' }}{%- endif %}"
+)
+
+
+def tiny_spm_tokenizer_metadata() -> dict:
+    """SPM-style vocab: <unk>/<s>/</s> + 256 byte pieces (+ scores), so any
+    string tokenizes via byte fallback (the JAX fixture's SPM vocabulary)."""
+    pieces = ["<unk>", "<s>", "</s>"]
+    types = [TokenType.UNKNOWN, TokenType.CONTROL, TokenType.CONTROL]
+    for b in range(256):
+        pieces.append(f"<0x{b:02X}>")
+        types.append(TokenType.BYTE)
+    pieces.append("▁")
+    types.append(TokenType.NORMAL)
+    return {
+        Keys.TOKENIZER_MODEL: "llama",
+        Keys.TOKENIZER_TOKENS: pieces,
+        "tokenizer.ggml.scores": [0.0] * len(pieces),
+        Keys.TOKENIZER_TOKEN_TYPE: types,
+        Keys.TOKENIZER_BOS: 1,
+        Keys.TOKENIZER_EOS: 2,
+        "tokenizer.ggml.unknown_token_id": 0,
+    }
+
+
+def gemma_spm_tokenizer_metadata(n_tokens: int) -> dict:
+    """A Gemma-style SPM vocabulary of `n_tokens` pieces: <pad> <eos> <bos>
+    <unk> (ids 0-3, as in Gemma's), <start_of_turn> and <end_of_turn>
+    (control pieces: <end_of_turn> ends generation), the 256 byte pieces and
+    "▁", then filler pieces of four letters or digits (the id in base 62)
+    that decode to visible text; there are no two-character pieces, so
+    every string falls back to byte pieces and encoding never merges. With
+    Gemma's chat template."""
+    pieces, types = list(SPM_SPECIALS), [TokenType.CONTROL] * len(SPM_SPECIALS)
+    types[3] = TokenType.UNKNOWN
+    for b in range(256):
+        pieces.append(f"<0x{b:02X}>")
+        types.append(TokenType.BYTE)
+    pieces.append("▁")
+    types.append(TokenType.NORMAL)
+    digits = "0123456789abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    for i in range(len(pieces), n_tokens):
+        pieces.append("".join(digits[i // 62**p % 62] for p in (3, 2, 1, 0)))
+        types.append(TokenType.NORMAL)
+    return {
+        Keys.TOKENIZER_MODEL: "llama",
+        Keys.TOKENIZER_TOKENS: pieces,
+        "tokenizer.ggml.scores": [0.0] * len(pieces),
+        Keys.TOKENIZER_TOKEN_TYPE: types,
+        Keys.TOKENIZER_BOS: 2,
+        Keys.TOKENIZER_EOS: 1,
+        Keys.TOKENIZER_PAD: 0,
+        "tokenizer.ggml.unknown_token_id": 3,
+        Keys.TOKENIZER_ADD_BOS: True,
+        Keys.TOKENIZER_CHAT_TEMPLATE: GEMMA_TEMPLATE,
+    }
+
+
 def _header(w: GGUFWriter, arch: str, name: str, *, context_length: int,
             hidden: int, n_layers: int, ffn_dim: int, n_heads: int,
             n_kv_heads: int, rope_base: float, vocab_size: int,
@@ -116,27 +191,44 @@ def make_tiny_llama_gguf(
     quant: GGMLType = GGMLType.F32,
     tied: bool = True,
     qk_norm: bool = False,  # qwen3-style per-head q/k norms
+    spm_tokenizer: bool = False,  # llama-2/gemma-style SPM vocab instead of BPE
     n_experts: int = 0,  # qwen3moe-style MoE FFN
     n_experts_used: int = 0,
+    post_norms: bool = False,  # gemma2/3 post_attention/post_ffw norms
+    sliding_window: int = 0,  # gemma2/3 {arch}.attention.sliding_window
+    attn_softcap: float = 0.0,  # gemma2 softcaps
+    final_softcap: float = 0.0,
+    key_length: int | None = None,  # head_dim (written as attention.key_length)
     seed: int = 0,
     scale: float = 0.05,
     rope_freqs: np.ndarray | None = None,
     quant_overrides: dict | None = None,  # tensor name -> GGMLType
 ) -> Path:
-    """Write a random-weight llama-schema GGUF (the JAX package's fixture)."""
+    """Write a random-weight llama-schema GGUF (the JAX package's fixture;
+    with `key_length`, head_dim = key_length instead of hidden // n_heads)."""
     rng = np.random.default_rng(seed)
-    tok_md = tiny_tokenizer_metadata()
+    tok_md = tiny_spm_tokenizer_metadata() if spm_tokenizer else tiny_tokenizer_metadata()
     if vocab_size is None:
         n_tok = len(tok_md[Keys.TOKENIZER_TOKENS])
         vocab_size = (n_tok + 7) // 8 * 8
-    head_dim = hidden // n_heads
+    head_dim = key_length or hidden // n_heads
     w = GGUFWriter()
-    moe = {"expert_count": n_experts, "expert_used_count": n_experts_used or 2,
-           "expert_feed_forward_length": ffn_dim} if n_experts else None
+    extra = {}  # in the JAX fixture's key order
+    if sliding_window:
+        extra["attention.sliding_window"] = sliding_window
+    if attn_softcap:
+        extra["attn_logit_softcapping"] = attn_softcap
+    if final_softcap:
+        extra["final_logit_softcapping"] = final_softcap
+    if n_experts:
+        extra.update({"expert_count": n_experts, "expert_used_count": n_experts_used or 2,
+                      "expert_feed_forward_length": ffn_dim})
+    if key_length:
+        extra.update({"attention.key_length": key_length, "attention.value_length": key_length})
     _header(w, arch, f"tiny-{arch}-test", context_length=context_length,
             hidden=hidden, n_layers=n_layers, ffn_dim=ffn_dim, n_heads=n_heads,
             n_kv_heads=n_kv_heads, rope_base=rope_base, vocab_size=vocab_size,
-            tok_md=tok_md, extra=moe)
+            tok_md=tok_md, extra=extra)
 
     def rand(*shape):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -158,6 +250,11 @@ def make_tiny_llama_gguf(
         if qk_norm:
             addw(f"blk.{i}.attn_q_norm.weight", 1.0 + rand(head_dim), GGMLType.F32)
             addw(f"blk.{i}.attn_k_norm.weight", 1.0 + rand(head_dim), GGMLType.F32)
+        if post_norms:
+            addw(f"blk.{i}.post_attention_norm.weight", (1.0 + rand(hidden)).astype(np.float32),
+                 GGMLType.F32)
+            addw(f"blk.{i}.post_ffw_norm.weight", (1.0 + rand(hidden)).astype(np.float32),
+                 GGMLType.F32)
         addw(f"blk.{i}.ffn_norm.weight", np.ones(hidden, np.float32), GGMLType.F32)
         if n_experts:
             addw(f"blk.{i}.ffn_gate_inp.weight", rand(n_experts, hidden), GGMLType.F32)
@@ -194,6 +291,17 @@ QWEN3_30B_A3B = dict(
     hidden=2048, n_layers=48, n_heads=32, n_kv_heads=4, head_dim=128, ffn_dim=6144,
     n_experts=128, n_experts_used=8, moe_ffn_dim=768, vocab_size=151936,
     rope_base=1e6, rms_eps=1e-6, context_length=40960,
+)
+# google/gemma-2-2b and google/gemma-3-1b-it (published config.json)
+GEMMA2_2B = dict(
+    hidden=2304, n_layers=26, n_heads=8, n_kv_heads=4, head_dim=256, ffn_dim=9216,
+    vocab_size=256000, rope_base=1e4, rms_eps=1e-6, context_length=8192,
+    sliding_window=4096, attn_softcap=50.0, final_softcap=30.0,
+)
+GEMMA3_1B = dict(
+    hidden=1152, n_layers=26, n_heads=4, n_kv_heads=1, head_dim=256, ffn_dim=6912,
+    vocab_size=262144, rope_base=1e6, rms_eps=1e-6, context_length=32768,
+    sliding_window=512,
 )
 
 
@@ -360,3 +468,84 @@ def make_qwen3moe_gguf(path: str | Path, *, n_layers: int = 8, seed: int = 0) ->
     f32("output_norm.weight", np.ones(h))
     quant("output.weight", GGMLType.Q6_K, v, h)
     return w.write(path)
+
+
+def _gemma_gguf(path, arch: str, c: dict, name: str, kind, seed: int) -> Path:
+    """A random-block gemma2/gemma3 GGUF of the widths in `c`; `kind(name,
+    layer, n_out, k_in)` picks each matmul tensor's GGMLType (the tied token
+    table is asked for with layer -1)."""
+    rng = np.random.default_rng(seed)
+    h, v, hd, nl = c["hidden"], c["vocab_size"], c["head_dim"], c["n_layers"]
+    qd, kvd, f = c["n_heads"] * hd, c["n_kv_heads"] * hd, c["ffn_dim"]
+    extra = {"attention.key_length": hd, "attention.value_length": hd,
+             "attention.sliding_window": c["sliding_window"]}
+    if c.get("attn_softcap"):
+        extra.update(attn_logit_softcapping=c["attn_softcap"],
+                     final_logit_softcapping=c["final_softcap"])
+    w = GGUFWriter()
+    _header(w, arch, name, context_length=c["context_length"], hidden=h, n_layers=nl,
+            ffn_dim=f, n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
+            rope_base=c["rope_base"], vocab_size=v, rms_eps=c["rms_eps"],
+            tok_md=gemma_spm_tokenizer_metadata(v), extra=extra)
+
+    def quant(tname, layer, n_out, k_in):
+        q = kind(tname, layer, n_out, k_in)
+        w.add_tensor(tname, _shape_only(n_out, k_in), q, raw_bytes=_RANDOM_BLOCKS[q](rng, n_out, k_in))
+
+    def norm(tname, n):  # GGUF gemma norms carry the +1: weights near 1
+        w.add_tensor(tname, rng.uniform(0.9, 1.1, n).astype(np.float32), GGMLType.F32)
+
+    quant("token_embd.weight", -1, v, h)
+    for i in range(nl):
+        norm(f"blk.{i}.attn_norm.weight", h)
+        quant(f"blk.{i}.attn_q.weight", i, qd, h)
+        quant(f"blk.{i}.attn_k.weight", i, kvd, h)
+        quant(f"blk.{i}.attn_v.weight", i, kvd, h)
+        quant(f"blk.{i}.attn_output.weight", i, h, qd)
+        if arch == "gemma3":
+            norm(f"blk.{i}.attn_q_norm.weight", hd)
+            norm(f"blk.{i}.attn_k_norm.weight", hd)
+        norm(f"blk.{i}.post_attention_norm.weight", h)
+        norm(f"blk.{i}.ffn_norm.weight", h)
+        quant(f"blk.{i}.ffn_gate.weight", i, f, h)
+        quant(f"blk.{i}.ffn_up.weight", i, f, h)
+        quant(f"blk.{i}.ffn_down.weight", i, h, f)
+        norm(f"blk.{i}.post_ffw_norm.weight", h)
+    norm("output_norm.weight", h)
+    return w.write(path)
+
+
+def make_gemma2_2b_gguf(path: str | Path, *, n_layers: int | None = None, seed: int = 0) -> Path:
+    """Write a Gemma-2-2B-width gemma2 GGUF (see module doc) in the Q4_K_M
+    mix llama.cpp writes: tied Q6_K token table, Q6_K attn_v and ffn_down
+    on the layers `use_more_bits` picks, Q4_K elsewhere; F32 norms near 1.
+    ~1.8 GB at the full 26 layers."""
+    c = dict(GEMMA2_2B)
+    if n_layers is not None:
+        c["n_layers"] = n_layers
+    nl = c["n_layers"]
+
+    def kind(name, layer, n_out, k_in):
+        if layer < 0 or (name.endswith(("attn_v.weight", "ffn_down.weight"))
+                         and use_more_bits(layer, nl)):
+            return GGMLType.Q6_K
+        return GGMLType.Q4_K
+
+    return _gemma_gguf(path, "gemma2", c, "gemma-2-2b-width-random-q4_k_m", kind, seed)
+
+
+def make_gemma3_1b_gguf(path: str | Path, *, n_layers: int = 2, seed: int = 0) -> Path:
+    """Write a Gemma-3-1B-width gemma3 GGUF (see module doc): Q4_K where a
+    row's K is a multiple of 256 (attn_output, ffn_down), Q4_0 where K =
+    1152 is not (q, k, v, gate, up: llama.cpp falls back to Q5_0 there, a
+    kind the port does not load), a tied Q8_0 token table (its fallback for
+    Q6_K); F32 norms near 1, q/k norms included. `n_layers` cuts depth (26
+    in the published config)."""
+    c = dict(GEMMA3_1B, n_layers=n_layers)
+
+    def kind(name, layer, n_out, k_in):
+        if layer < 0:
+            return GGMLType.Q8_0
+        return GGMLType.Q4_K if k_in % 256 == 0 else GGMLType.Q4_0
+
+    return _gemma_gguf(path, "gemma3", c, "gemma-3-1b-width-random", kind, seed)

@@ -1,4 +1,4 @@
-"""Tokenization: byte-level BPE and chat templates (SPM is not ported yet)."""
+"""Tokenization: byte-level BPE, SentencePiece-style SPM, chat templates."""
 from .bpe import (  # noqa: F401
     BPETokenizer,
     StreamDetokenizer,
@@ -12,20 +12,17 @@ from .chat_template import (  # noqa: F401
     ChatTemplate,
     Message,
 )
+from .spm import SPMTokenizer  # noqa: F401
 
 
 def tokenizer_from_gguf(metadata: dict):
     """Dispatch on ``tokenizer.ggml.model``: "gpt2" → byte-level BPE
-    (llama-3, qwen). "llama" (SPM: llama-2, gemma, mistral-v0.1) is not
-    ported yet and raises NotImplementedError."""
+    (llama-3, qwen), "llama" → SPM (llama-2, gemma, mistral-v0.1)."""
     from ..gguf.constants import Keys
 
     model = str(metadata.get(Keys.TOKENIZER_MODEL, "gpt2"))
     if model == "llama":
-        raise NotImplementedError(
-            "SentencePiece (tokenizer.ggml.model='llama') vocabularies are not "
-            "ported yet; this slice reads byte-level BPE ('gpt2') vocabularies"
-        )
+        return SPMTokenizer.from_gguf_metadata(metadata)
     return BPETokenizer.from_gguf_metadata(metadata)
 
 

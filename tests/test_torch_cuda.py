@@ -21,7 +21,11 @@ without K2/K3. The int8 KV cache: K2, K4 and K7 through their int8 entry
 points (int8 codes and f32 scales from `quantize_kv`) at head_dim 64 and
 128 against their plain versions within the same tolerance, K10 (the
 scale write) exactly, and a tiny int8 engine (dense and paged) on the card
-against the CPU through the int8 routes only.
+against the CPU through the int8 routes only. Gemma: K2, K4 and K7 at
+head_dim 256 with softcap and a sliding window (bf16 and int8, r = 1, 2, 4
+and 8) against their plain versions, K5 bit for bit on repeated launches,
+and a tiny gemma2 (dense and paged, bf16 and int8) on the card against the
+CPU.
 """
 import pytest
 import torch
@@ -371,3 +375,118 @@ def test_tiny_int8_engine_cuda_matches_cpu(cuda, tmp_path):
     paged = [k.launches - b for k, b in zip(counters, before)]
     assert paged[7] > 0 and paged[4] > 0  # K7 int8 at decode, K4 bf16 on the dequantized pages
     assert paged[0] == paged[1] == paged[2] == paged[3] == paged[5] == paged[6] == 0
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("r", [1, 2, 4, 8])
+def test_gemma_attention_kernels_head_dim_256(cuda, r, quant):
+    """K2, K4, K7 at D = 256 with softcap 50 and window 96 (and each option
+    alone on K2), per row against the plain versions; the launches are
+    tallied under their variant."""
+    from nfai_tpu_torch.models.llama import quantize_kv
+
+    b, s, hkv, d, cap, win = 3, 320, 2 if r < 8 else 1, 256, 50.0, 96
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+
+    def cache(*lead):  # (values, k_scales-style time-minor scales or None)
+        x = torch.randn(*lead, hkv * d, **bf) * 3
+        if not quant:
+            return x, None
+        c, sc = quantize_kv(x, hkv)
+        return c, sc.transpose(-1, -2).contiguous()
+
+    (kc, ks), (vc, vs) = cache(b, s), cache(b, s)
+    sc = dict(k_scales=ks, v_scales=vs) if quant else {}
+    q = torch.randn(b, hkv * r, d, **bf) * 3
+    kn, vn = torch.randn(b, hkv * d, **bf), torch.randn(b, hkv * d, **bf)
+    starts = torch.tensor([0, 77, s - 1], device="cuda", dtype=torch.int32)
+    k2 = fd.K2_I8 if quant else fd.K2
+    for cap_, win_ in ((cap, win), (cap, 0), (0.0, win)):
+        before = k2.variants[fd.variant(d, cap_, win_)]
+        got = fd.decode_attention(q, kn, vn, kc, vc, starts, softcap=cap_, window=win_, **sc)
+        assert k2.variants[fd.variant(d, cap_, win_)] == before + 1
+        want = fd.decode_attention_plain(q, kn, vn, kc, vc, starts, d**-0.5, ks, vs, cap_, win_)
+        assert rel(got, want, 1) < TOL, (cap_, win_)
+    qp = torch.randn(b, 130, hkv * r, d, **bf) * 3
+    offs = torch.tensor([0, 60, 190], device="cuda", dtype=torch.int32)
+    got = pa.flash_prefill_attention(qp, kc, vc, offs, softcap=cap, window=win, **sc)
+    want = pa.flash_prefill_attention_plain(qp, kc, vc, offs, d**-0.5, ks, vs, cap, win)
+    assert rel(got, want, 2) < TOL
+    n_pages, ps = 30, 16
+    (kq, kps), (vq, vps) = cache(n_pages, ps), cache(n_pages, ps)
+    kp = kq.view(n_pages, ps, hkv, d).permute(2, 0, 1, 3).contiguous()
+    vp = vq.view(n_pages, ps, hkv, d).permute(2, 0, 1, 3).contiguous()
+    psc = {}
+    if quant:
+        kps, vps = kps.transpose(-1, -2), vps.transpose(-1, -2)  # back to [P, ps, Hkv]
+        psc = dict(k_scales=kps.permute(2, 0, 1).contiguous(), v_scales=vps.permute(2, 0, 1).contiguous())
+    tables = (torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(2))[:27] + 1)
+    tables = tables.view(b, 9).to(torch.int32).cuda()
+    lengths = torch.tensor([1, 17, 140], dtype=torch.int32, device="cuda")
+    got = pga.paged_decode_attention(q, kp, vp, tables, lengths, softcap=cap, window=win, **psc)
+    want = pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, d**-0.5,
+                                            psc.get("k_scales"), psc.get("v_scales"), cap, win)
+    assert rel(got, want, 1) < TOL
+
+
+@pytest.mark.parametrize("m", [1, 8, 256])
+def test_fused_mlp_is_deterministic(cuda, m):
+    """K5 sums its F-tile partials in a fixed order: repeated launches on the
+    same inputs give the same bits."""
+    k, f, h = 1024, 2048, 1024
+    gu = Q4Tensor(torch.randint(0, 256, (2 * f, k // 2), dtype=torch.uint8, device="cuda", generator=cuda),
+                  torch.rand(2 * f, k // 32, device="cuda", generator=cuda) * 2e-3,
+                  torch.rand(2 * f, k // 32, device="cuda", generator=cuda) * 1.5e-2, k, 2 * f)
+    dn = Q4Tensor(torch.randint(0, 256, (h, f // 2), dtype=torch.uint8, device="cuda", generator=cuda),
+                  torch.rand(h, f // 32, device="cuda", generator=cuda) * 2e-3,
+                  torch.rand(h, f // 32, device="cuda", generator=cuda) * 1.5e-2, f, h)
+    x = torch.randn(m, k, device="cuda", dtype=torch.bfloat16, generator=cuda)
+    first = fm.fused_mlp(x, gu, dn)
+    for _ in range(4):
+        assert torch.equal(fm.fused_mlp(x, gu, dn), first)
+    assert rel(first, fm.fused_mlp_plain(x, gu, dn), 1) < TOL
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_tiny_gemma_cuda_matches_cpu(cuda, tmp_path, kv_dtype):
+    """A tiny gemma2 (head_dim 256, softcaps, window 8 under a 30-token
+    prompt) on the card against the CPU, dense then through a paged
+    BatchEngine: K2/K4 and K7 run with softcap and window."""
+    from nfai_tpu_torch.config import EngineConfig, SamplingParams
+    from nfai_tpu_torch.gguf import GGMLType
+    from nfai_tpu_torch.models import decode_step
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine, RequestState
+    from nfai_tpu_torch.testing import make_tiny_llama_gguf
+
+    path = make_tiny_llama_gguf(tmp_path / "g.gguf", arch="gemma2", hidden=256, n_heads=4,
+                                n_kv_heads=2, key_length=256, ffn_dim=512, vocab_size=512,
+                                post_norms=True, sliding_window=8, attn_softcap=50.0,
+                                final_softcap=30.0, quant=GGMLType.Q4_K, scale=0.02)
+    cfg = EngineConfig(max_seq_len=256, kv_dtype=kv_dtype, page_size=16, prefill_chunk=64)
+    gpu, cpu = InferenceEngine(path, cfg, device="cuda"), InferenceEngine(path, cfg, device="cpu")
+    tol = INT8_TOL if kv_dtype == "int8" else TOL
+    ids = list(range(5, 35))
+    k2 = fd.K2_I8 if kv_dtype == "int8" else fd.K2
+    before = k2.variants[fd.variant(256, 50.0, 8)]
+    lg, cg = gpu.prefill(gpu.new_cache(1), ids)
+    lc, cc = cpu.prefill(cpu.new_cache(1), ids)
+    assert rel(lg.cpu(), lc) < tol
+    pos = len(ids)
+    for tok in (17, 99):
+        lg, cg = decode_step(gpu.params, gpu.model_cfg, torch.tensor([tok], device="cuda"),
+                             torch.tensor([pos], device="cuda"), cg)
+        lc, cc = decode_step(cpu.params, cpu.model_cfg, torch.tensor([tok]), torch.tensor([pos]), cc)
+        assert rel(lg.cpu(), lc) < tol
+        pos += 1
+    assert k2.variants[fd.variant(256, 50.0, 8)] == before + 2  # layer 0 of 2 steps
+    k7 = pga.K7_I8 if kv_dtype == "int8" else pga.K7
+    before = k7.variants[fd.variant(256, 50.0, 8)]
+    be = BatchEngine(gpu, max_batch=2, decode_chunk=4)
+    reqs = [be.submit(list(range(5, 5 + n)), SamplingParams(temperature=0.0, max_new_tokens=8))
+            for n in (7, 70, 9)]
+    for _ in range(200):
+        if be.step() == 0 and be.queue.empty():
+            break
+    assert all(r.state == RequestState.FINISHED and r.output_ids for r in reqs)
+    assert k7.variants[fd.variant(256, 50.0, 8)] > before

@@ -32,7 +32,8 @@ def test_every_port_module_imports_without_jax():
             "nfai_tpu_torch.models.llama", "nfai_tpu_torch.cli",
             "nfai_tpu_torch.runtime.paged_cache", "nfai_tpu_torch.runtime.scheduler",
             "nfai_tpu_torch.ops.paged_attention", "nfai_tpu_torch.server",
-            "nfai_tpu_torch.testing", "nfai_tpu_torch.models.registry"} <= set(res["modules"])
+            "nfai_tpu_torch.testing", "nfai_tpu_torch.models.registry",
+            "nfai_tpu_torch.tokenizer.spm"} <= set(res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 

@@ -264,7 +264,7 @@ def _jax_rounded_fused_mlp(x, gu, dn, act="silu"):
     xb = _bf16(x.float())
     wg, mg = v3(gu)
     g_u = xb @ wg.T - _block_sums(xb) @ mg.T
-    a = _bf16(tfm._act(g_u[:, :f], act) * g_u[:, f:])
+    a = _bf16(tfm.activation(g_u[:, :f], act) * g_u[:, f:])
     wd, md = v3(dn)
     return (a @ wd.T - _block_sums(a) @ md.T).to(torch.bfloat16)
 

@@ -152,12 +152,14 @@ def test_paged_attention_plain_vs_jax(ps, r):
 
 
 def test_paged_attention_unported_variants_raise():
+    """Softcap and window are ported (tests/test_torch_gemma.py); a negative
+    softcap or window, or a fractional window, raises."""
     q, kp = torch.zeros(1, 4, 64), torch.zeros(2, 3, 16, 64)
     tables, lengths = torch.ones(1, 1, dtype=torch.int32), torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        paged_decode_attention(q, kp, kp, tables, lengths, softcap=30.0)
-    with pytest.raises(NotImplementedError, match="window"):
-        paged_decode_attention(q, kp, kp, tables, lengths, window=8)
+    with pytest.raises(ValueError, match="softcap"):
+        paged_decode_attention(q, kp, kp, tables, lengths, softcap=-30.0)
+    with pytest.raises(ValueError, match="window"):
+        paged_decode_attention(q, kp, kp, tables, lengths, window=8.5)
 
 
 @pytest.fixture(scope="module")

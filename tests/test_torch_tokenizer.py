@@ -12,7 +12,7 @@ from nfai_tpu.tokenizer import TextStopper as JStopper
 from nfai_tpu.tokenizer import tokenizer_from_gguf as jax_tokenizer
 from nfai_tpu_torch.testing import tiny_tokenizer_metadata
 from nfai_tpu_torch.tokenizer import (
-    ChatTemplate, Message, StreamDetokenizer, TextStopper, tokenizer_from_gguf,
+    ChatTemplate, Message, SPMTokenizer, StreamDetokenizer, TextStopper, tokenizer_from_gguf,
 )
 
 TEXTS = [
@@ -83,5 +83,12 @@ def test_chat_template_vs_jax():
 
 
 def test_spm_vocab_raises():
-    with pytest.raises(NotImplementedError):
-        tokenizer_from_gguf({"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": ["a"]})
+    """An SPM ("llama") vocabulary now builds the port's SPM tokenizer
+    (tests/test_torch_spm.py holds it against JAX); one without a token
+    list still raises."""
+    md = {"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": ["a"]}
+    tok = tokenizer_from_gguf(md)
+    assert isinstance(tok, SPMTokenizer)
+    assert tok.encode("a b") == jax_tokenizer(md).encode("a b")  # "▁" falls back to <unk>
+    with pytest.raises(KeyError):
+        tokenizer_from_gguf({"tokenizer.ggml.model": "llama"})
