@@ -6,7 +6,7 @@
 Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
            kernel from csrc/ (one nvcc per source, in parallel)
-  kernels  hold K1-K10 against their plain PyTorch versions on the card at
+  kernels  hold K1-K11 against their plain PyTorch versions on the card at
            the slice's shapes (K2/K3/K4/K7 at head_dim 64 and 128; K8/K9 at
            the decode layouts of a batch-1 and a batch-8 routing and a
            256-token prefill chunk); the int8 KV cache's kernels on int8
@@ -17,7 +17,9 @@ Phases (each failure propagates, the exit code is then non-zero):
            inputs (the same bits); Gemma's K2/K4/K7 (bf16 and int8) at
            head_dim 256: model G's heads with softcap 50 and window 0 or
            4096, Gemma-3-1B's with window 512, Gemma 2B's (r = 8), and at
-           4000 keys window 512 beside window 0; time kernel, plain version
+           4000 keys window 512 beside window 0; K11 (dense matmul) at model
+           D's projections and Gemma-3-1B's K = 1152, rows 1, 8, 256 and
+           1024, three launches with the same bits; time kernel, plain version
            and the library yardstick with CUDA events (L2 flushed before
            each launch)
   serve    per model, write a GGUF of published widths (random raw blocks),
@@ -49,7 +51,7 @@ Phases (each failure propagates, the exit code is then non-zero):
            quantized); the paged-vs-dense forwards run on A's K5 route,
            whose two identical dense prefills must give the same bits; on
            model C's and model G's engines a paged BatchEngine serving 8
-           requests
+           requests; on model D's engine the same 8-request paged BatchEngine
   parity   2-layer full-width copies on cuda and on cpu (plain versions):
            four Llama-3.2-1B kinds and the Llama-3.2-3B widths (K1 at K =
            3072, K5 at H = 3072, K2/K4 at head_dim 128): prefill logits and
@@ -63,10 +65,14 @@ Phases (each failure propagates, the exit code is then non-zero):
            quantizes its own K/V); a Gemma-3-1B-width copy (layer 0 local
            with window 512 and the local rope base, layer 1 global) on a
            700-token prompt and 4 decode steps past it, dense and paged,
-           bf16 and int8
-The main path is four models and A8, each driven by serve, batch and
+           bf16 and int8; the same on llama.cpp's Q4_K_M mix of Gemma-3-1B
+           (Q5_0 and a dequantized Q8_0 layer dense, through K11 beside K1
+           and K6); dense weights: the F16 (dense and paged) and BF16 copies,
+           the Q4_K_M copy and model C's with param_dtype="bfloat16" (every
+           weight dequantized at load: K11, no K1/K5/K6/K8/K9)
+The main path is five models and A8, each driven by serve, batch and
 profile; A's and A8's engines then serve continuously batched traffic, and
-so do C's and G's:
+so do C's, G's and D's:
   A  the untied Q4_K Llama-3.2-1B in the JAX package's default
      configuration: every layer's MLP is one K5 launch (16 per decode
      step), no K6;
@@ -83,6 +89,10 @@ so do C's and G's:
      mix: K2/K4 at D = 256 with softcap on every layer and the window on
      the local ones, K1 and K6 (Q6_K attn_v / ffn_down, the tied head); no
      K5 (K = 2304); its server path K7 with the same options;
+  D  Llama-3.2-1B as llama.cpp's f16 conversion writes it (F16 matmul
+     weights, a tied F16 table, no cut): every projection dense through K11
+     (4 launches a layer: wqkv, wo, gate_up, down; no K1/K5/K6), the tied
+     head torch.matmul, the embedding rows gathered from the same table;
   A8  model A's GGUF on a second engine with EngineConfig(kv_dtype="int8"),
      loaded after A's phases and freed before B: int8 codes with f32
      scales; per decode step K2-i8 once per layer, K3 and K10 twice each,
@@ -128,10 +138,13 @@ INT8_TOL = 5e-2
 
 PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity")
 # main-path model -> make_llama_1b_gguf kind ("qwen3moe": make_qwen3moe_gguf)
-MODELS = {"A": "q4_k", "B": "q4_k_m", "C": "qwen3moe", "G": "gemma2_2b"}
+MODELS = {"A": "q4_k", "B": "q4_k_m", "C": "qwen3moe", "G": "gemma2_2b", "D": "f16"}
 C_LAYERS = 8  # model C's depth: 8 of Qwen3-30B-A3B's 48 layers, every width kept
 GEMMA3_PROMPT = 700  # the Gemma-3-1B copy's prompt: past its 512-token window
-PARITY_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied", "llama_3b")
+PARITY_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied", "f16", "bf16", "llama_3b")
+DENSE_KINDS = ("f16", "bf16")  # every matmul weight dense: K11, no K1/K5/K6
+# parity copies that run again with every weight dequantized at load
+PARITY_PARAM_DTYPE = {"q4_k_m": "bfloat16"}
 NEAR_TIE = 0.01  # router-logit gap below which card and CPU may pick different experts
 
 
@@ -406,6 +419,7 @@ def phase_kernels(torch, timer) -> dict:
     results.update(_kernels_k5_k6(torch, timer, gen))
     results.update(_kernels_k7(torch, timer, gen))
     results.update(_kernels_k8_k9(torch, timer, gen))
+    results.update(_kernels_k11(torch, timer, gen))
     results.update(_kernels_int8(torch, timer, gen, results))
     _kernels_gemma(torch, timer, gen, results)
     return results
@@ -1121,6 +1135,43 @@ def _kernels_k8_k9(torch, timer, gen) -> dict:
     return results
 
 
+def _kernels_k11(torch, timer, gen) -> dict:
+    """K11 (dense layer-stacked matmul) at model D's projections, a 2-layer
+    bf16 stack read at layer 1: wqkv 2048 x 3072, wo 2048 x 2048, gate_up
+    2048 x 16384, down 8192 x 2048, and Gemma-3-1B's K = 1152 (q and
+    gate_up), at decode rows 1 and 8 and prefill rows 256 and 1024; per
+    input row against the plain version, three launches with the same
+    bits. Yardstick: torch.matmul(x, w[layer].T) (cuBLAS)."""
+    from nfai_tpu_torch.ops import qmatmul as qm
+
+    bf = torch.bfloat16
+    shapes = {"wqkv": (2048, 3072), "wo": (2048, 2048), "gate_up": (2048, 16384),
+              "down": (8192, 2048), "3-1B wq": (1152, 1024), "3-1B gate_up": (1152, 13824)}
+    cases = []
+    for label, (k, n) in shapes.items():
+        w = torch.randn(2, n, k, device="cuda", dtype=bf, generator=gen) * 0.03
+        for m in (1, 8, 256, 1024):
+            x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
+            got = qm.dense_matmul_layered(x, w, 1)
+            torch.cuda.synchronize()
+            err = check(f"K11 {label} M={m} K={k} N={n}", got, qm.dense_matmul_plain(x, w, 1), row_dims=1)
+            if not all(torch.equal(qm.dense_matmul_layered(x, w, 1), got) for _ in range(2)):
+                raise AssertionError(f"K11 {label} M={m}: two launches on the same inputs differ")
+            ms = timer(lambda: qm.dense_matmul_layered(x, w, 1))
+            plain_ms = timer(lambda: qm.dense_matmul_plain(x, w, 1), iters=3)
+            lib_ms = timer(lambda: torch.matmul(x, w[1].T))
+            b, by = bound_ms(2 * (k * n + m * k + m * n), 2.0 * m * n * k)
+            cases.append(dict(shape=f"{label} M={m}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b, bound_by=by, library_ms=lib_ms))
+            log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, cuBLAS {lib_ms:.4f})")
+        del w
+    return {"dense_matmul": dict(
+        route="cuda", source="nfai_tpu_torch/csrc/dense_matmul.cu",
+        replaces="nfai_tpu/ops/qmatmul.py:965", also_replaces=[],
+        headline=next(c for c in cases if c["shape"] == "gate_up M=8"), cases=cases,
+    )}
+
+
 # ---------------------------------------------------------------------------
 # phases: serve, batch, parity
 
@@ -1358,26 +1409,30 @@ def phase_profile(torch, engine, state, tables=None) -> dict:
     return out
 
 
-def phase_parity(torch, path2, kind, kv_dtypes=("auto",)) -> dict:
+def phase_parity(torch, path2, kind, kv_dtypes=("auto",), param_dtype="auto") -> dict:
     """A 2-layer full-width copy on cuda and on cpu: prefill logits and 4
     teacher-forced decode steps; for the Q4_K kind also one prefill chunk
     of 1100 rows (above MLP_FUSED_MAX_ROWS: the mlp_prefill route; bf16
-    cache only) and the same steps through the page pool. For "int8" in
-    kv_dtypes the same engines run it again with int8 caches on both sides
-    (K2/K4/K7 through their int8 entry points and K10 on the card). Returns
-    the result of each run by name."""
+    cache only), and for it and the F16 kind the same steps through the
+    page pool. For "int8" in kv_dtypes the same engines run it again with
+    int8 caches on both sides (K2/K4/K7 through their int8 entry points and
+    K10 on the card). With a `param_dtype` other than "auto" every matmul
+    weight is dequantized at load. Returns the result of each run by
+    name."""
     from nfai_tpu_torch.config import EngineConfig
     from nfai_tpu_torch.runtime.engine import InferenceEngine
 
     torch.set_num_threads(os.cpu_count() or 8)
-    engines = {dev: InferenceEngine(path2, EngineConfig(max_seq_len=256), device=dev)
-               for dev in ("cuda", "cpu")}
+    config = EngineConfig(max_seq_len=256, param_dtype=param_dtype)
+    engines = {dev: InferenceEngine(path2, config, device=dev) for dev in ("cuda", "cpu")}
     ids = engines["cpu"].tokenizer.encode("Parity between the card and the plain versions.")
-    return {kind if kv == "auto" else f"{kind} {kv}": _parity_run(torch, engines, ids, kind, kv == "int8")
-            for kv in kv_dtypes}
+    name = kind if param_dtype == "auto" else f"{kind} param_dtype {param_dtype}"
+    return {name if kv == "auto" else f"{name} {kv}": _parity_run(
+        torch, engines, ids, kind, kv == "int8", dense=kind in DENSE_KINDS or param_dtype != "auto")
+        for kv in kv_dtypes}
 
 
-def _parity_run(torch, engines, ids, kind, quant) -> dict:
+def _parity_run(torch, engines, ids, kind, quant, dense=False) -> dict:
     """`phase_parity` on one cache kind (int8 when `quant`)."""
     from nfai_tpu_torch.kernels import KERNELS
     from nfai_tpu_torch.models import KVCache, decode_step, prefill_step
@@ -1385,7 +1440,8 @@ def _parity_run(torch, engines, ids, kind, quant) -> dict:
 
     before = {k.name: k.launches for k in KERNELS.values()}
     rels = []
-    tag = f"{kind} int8 cache" if quant else kind
+    tag = (f"{kind} param_dtype" if dense and kind not in DENSE_KINDS else kind) + (
+        " int8 cache" if quant else "")
     tol = INT8_TOL if quant else TOL  # each device quantizes its own K/V
 
     def compare(name, logits):
@@ -1405,7 +1461,7 @@ def _parity_run(torch, engines, ids, kind, quant) -> dict:
                 torch.tensor([pos], device=dev), caches[dev])
         compare(f"decode step {step} logits", logits)
         pos += 1
-    if kind == "q4_k" and not quant:
+    if kind == "q4_k" and not quant and not dense:
         t = 1100
         if not (t > MLP_FUSED_MAX_ROWS and engines["cuda"].params["fused_mlp"]):
             raise AssertionError("the Q4_K copy should take the fused-MLP route")
@@ -1416,13 +1472,18 @@ def _parity_run(torch, engines, ids, kind, quant) -> dict:
                 torch.tensor([t - 1], device=dev),
                 KVCache.zeros(e.model_cfg, 1, 1152, e.cache_dtype, e.device))
         compare(f"prefill logits ({t} rows in one chunk: mlp_prefill)", logits)
-    if kind == "q4_k":
+    if kind in ("q4_k", "f16"):
         _paged_parity(torch, engines, ids, compare, quant)
     launches = {k.name: k.launches - before[k.name] for k in KERNELS.values()}
+    if dense:  # every matmul weight dense: K11 and no dequant-matmul kernel
+        log(f"  {tag} (dense weights) launches: {launches}")
+        if launches["dense_matmul"] <= 0 or any(launches[n] for n in (
+                "q4_matmul", "q8_matmul", "fused_mlp")):
+            raise AssertionError(f"the {tag} copy did not take the dense route: {launches}")
     if quant:
         log(f"  {tag} launches: {launches}")
         want = ("decode_attention_i8", "prefill_attention_i8", "kv_write_t") + (
-            ("paged_attention_i8",) if kind == "q4_k" else ())
+            ("paged_attention_i8",) if kind in ("q4_k", "f16") else ())
         if any(launches[n] <= 0 for n in want) or launches["decode_attention"] or launches["paged_attention"]:
             raise AssertionError(f"the {tag} copy did not take the int8 routes: {launches}")
     if kind == "llama_3b":  # K = 3072, head_dim 128; K5 where mlp_eligible takes H = 3072
@@ -1436,7 +1497,7 @@ def _parity_run(torch, engines, ids, kind, quant) -> dict:
     return {"max_rel_err": max(rels), "launches": launches}
 
 
-def phase_parity_moe(torch, path2, kv_dtypes=("auto",)) -> dict:
+def phase_parity_moe(torch, path2, kv_dtypes=("auto",), param_dtype="auto") -> dict:
     """A 2-layer model C copy on cuda and on cpu. First each layer's MoE FFN
     with one routing fed to both sides (the CPU's), per row within TOL; then
     the whole model on a ChatML prompt: the logits of every prompt row and of
@@ -1446,16 +1507,22 @@ def phase_parity_moe(torch, path2, kv_dtypes=("auto",)) -> dict:
     pick another expert; their count is printed. For "int8" in kv_dtypes
     the same engines run the whole-model check again with int8 caches on
     both sides (the FFN check, which no cache reaches, is not repeated).
+    With a `param_dtype` other than "auto" every weight, the experts too, is
+    dense: the experts run `_moe_ffn_dense` (no grouped kernel, the JAX
+    package's ragged_dot route in plain PyTorch) and the projections K11.
     Returns the result of each whole-model run by name."""
     from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.kernels import KERNELS
     from nfai_tpu_torch.models import llama as tllama
     from nfai_tpu_torch.runtime.engine import InferenceEngine
 
     torch.set_num_threads(os.cpu_count() or 8)
-    engines = {dev: InferenceEngine(path2, EngineConfig(max_seq_len=256), device=dev)
-               for dev in ("cuda", "cpu")}
+    config = EngineConfig(max_seq_len=256, param_dtype=param_dtype)
+    engines = {dev: InferenceEngine(path2, config, device=dev) for dev in ("cuda", "cpu")}
     cfg = engines["cpu"].model_cfg
     route = tllama.moe_route
+    name = "qwen3moe" if param_dtype == "auto" else f"qwen3moe param_dtype {param_dtype}"
+    before = {k.name: k.launches for k in KERNELS.values()}
     try:
         x = torch.randn(24, cfg.hidden_size, generator=torch.Generator().manual_seed(4)).to(torch.bfloat16)
         for layer in range(cfg.n_layers):
@@ -1464,8 +1531,9 @@ def phase_parity_moe(torch, path2, kv_dtypes=("auto",)) -> dict:
             tllama.moe_route = lambda xx, *_: (vals.to(xx.device), idx.to(xx.device))
             ffn = {dev: tllama.moe_ffn(e.params, cfg, x.to(e.device), layer)
                    for dev, e in engines.items()}
-            kind = type(engines["cpu"].params["layers"]["w_down_exps"].layer(layer)).__name__
-            check(f"qwen3moe layer {layer} MoE FFN (down {kind}), one routing fed to both", ffn["cuda"],
+            down = engines["cpu"].params["layers"]["w_down_exps"]
+            kind = "dense" if isinstance(down, torch.Tensor) else type(down.layer(layer)).__name__
+            check(f"{name} layer {layer} MoE FFN (down {kind}), one routing fed to both", ffn["cuda"],
                   ffn["cpu"], row_dims=1)
         margins = []
 
@@ -1480,19 +1548,26 @@ def phase_parity_moe(torch, path2, kv_dtypes=("auto",)) -> dict:
         ids = tok.encode(engines["cpu"].chat_template.render(
             [{"role": "user", "content": "Parity between the card and the plain versions."}]),
             add_bos=False)
-        return {"qwen3moe" if kv == "auto" else f"qwen3moe {kv}": _moe_model_parity(
-                    torch, engines, ids, margins, kv == "int8") for kv in kv_dtypes}
+        out = {name if kv == "auto" else f"{name} {kv}": _moe_model_parity(
+                   torch, engines, ids, margins, kv == "int8", name) for kv in kv_dtypes}
     finally:
         tllama.moe_route = route
+    if param_dtype != "auto":
+        launches = {k.name: k.launches - before[k.name] for k in KERNELS.values()}
+        log(f"  {name} launches: {launches}")
+        if launches["dense_matmul"] <= 0 or any(launches[n] for n in (
+                "q4_matmul", "q8_matmul", "grouped_q4", "grouped_q8")):
+            raise AssertionError(f"the {name} copy did not take the dense route: {launches}")
+    return out
 
 
-def _moe_model_parity(torch, engines, ids, margins, quant) -> dict:
+def _moe_model_parity(torch, engines, ids, margins, quant, name="qwen3moe") -> dict:
     """`phase_parity_moe`'s whole-model check on one cache kind; `margins`
     collects the CPU router's k-th vs (k+1)-th gaps of each forward."""
     from nfai_tpu_torch.models import KVCache, decode_step, forward, logits_for
 
     cfg = engines["cpu"].model_cfg
-    tag = "qwen3moe int8 cache" if quant else "qwen3moe"
+    tag = f"{name} int8 cache" if quant else name
     n = len(ids)
     logits, caches = {}, {}
     margins.clear()
@@ -1525,7 +1600,7 @@ def _moe_model_parity(torch, engines, ids, margins, quant) -> dict:
     return dict(rows=len(rows), near_ties=sum(near), max_rel_err=errors(got, want, 1)[1])
 
 
-def phase_parity_gemma3(torch, kernels_mod, path2) -> dict:
+def phase_parity_gemma3(torch, kernels_mod, path2, kind="q4_0") -> dict:
     """A 2-layer Gemma-3-1B-width copy on cuda and on cpu. Its swa pattern
     is cut with its depth, from 6 to 2, so that layer 0 is local (window
     512, the local rope base) and layer 1 global. A 700-token prompt is
@@ -1533,7 +1608,11 @@ def phase_parity_gemma3(torch, kernels_mod, path2) -> dict:
     teacher-forced steps decode at positions 700-703: dense, then through a
     shuffled 6-page table, on bf16 caches (within TOL) and on int8 caches
     (within INT8_TOL: each device quantizes its own K/V). On the card K2, K4
-    and K7 must run both the windowed and the global layer at D = 256."""
+    and K7 must run both the windowed and the global layer at D = 256. Kind
+    "q4_k_m" is llama.cpp's real mix (`make_gemma3_1b_gguf`): dense Q5_0
+    q/k/gate/up through K11, a wv stack of a Q5_0 and a dequantized Q8_0
+    layer (q/k/v split), K1 for attn_output and layer 0's ffn_down, K6 for
+    layer 1's Q6_K ffn_down and the Q8_0 head; all three must launch."""
     import dataclasses
 
     from nfai_tpu_torch.config import EngineConfig
@@ -1554,8 +1633,13 @@ def phase_parity_gemma3(torch, kernels_mod, path2) -> dict:
     perm = torch.randperm(15, generator=torch.Generator().manual_seed(13))[:6] + 1
     out = {}
     kernels_mod.reset_launches()
+    name = "gemma3-1b" if kind == "q4_0" else f"gemma3-1b {kind}"
+    if kind == "q4_k_m":
+        lp = engines["cuda"].params["layers"]
+        if "wqkv" in lp or not all(isinstance(lp[k], torch.Tensor) for k in ("wq", "wk", "wv", "w_gate_up")):
+            raise AssertionError(f"the Gemma-3-1B mix loaded {({k: type(v).__name__ for k, v in lp.items()})}")
     for quant in (False, True):
-        tag = "gemma3-1b int8 cache" if quant else "gemma3-1b"
+        tag = f"{name} int8 cache" if quant else name
         tol, rels = (INT8_TOL if quant else TOL), []
 
         def compare(name, logits):
@@ -1585,12 +1669,17 @@ def phase_parity_gemma3(torch, kernels_mod, path2) -> dict:
                 compare(f"{route} decode step {step} logits (position {n + step})", logits)
         out[tag] = {"max_rel_err": max(rels)}
     variants = {k.name: dict(k.variants) for k in kernels_mod.KERNELS.values() if k.variants}
-    log(f"  gemma3-1b copy attention launches by variant: {variants}")
+    log(f"  {name} copy attention launches by variant: {variants}")
     want = ("D=256 window", "D=256")
-    for name in ("decode_attention", "prefill_attention", "paged_attention", "decode_attention_i8",
-                 "prefill_attention_i8", "paged_attention_i8"):
-        if any(variants.get(name, {}).get(v, 0) <= 0 for v in want):
-            raise AssertionError(f"the Gemma-3-1B copy: {name} launched {variants.get(name)}, not all of {want}")
+    for kname in ("decode_attention", "prefill_attention", "paged_attention", "decode_attention_i8",
+                  "prefill_attention_i8", "paged_attention_i8"):
+        if any(variants.get(kname, {}).get(v, 0) <= 0 for v in want):
+            raise AssertionError(f"the {name} copy: {kname} launched {variants.get(kname)}, not all of {want}")
+    if kind == "q4_k_m":
+        launches = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
+        log(f"  {name} copy launches: {launches}")
+        if any(launches[k] <= 0 for k in ("dense_matmul", "q4_matmul", "q8_matmul")):
+            raise AssertionError(f"the {name} copy did not launch K11, K1 and K6: {launches}")
     return out
 
 
@@ -1968,6 +2057,13 @@ ROUTES = {
           {"fused_mlp", "paged_attention", "grouped_q4", "grouped_q8"} | INT8),
     "G server": ({"q4_matmul", "q8_matmul", "paged_attention", "prefill_attention"},
                  {"decode_attention", "kv_write", "fused_mlp", "grouped_q4", "grouped_q8"} | INT8),
+    # model D: every matmul weight dense (K11), the tied head torch.matmul
+    "D": ({"dense_matmul", "decode_attention", "kv_write", "prefill_attention"},
+          {"q4_matmul", "q8_matmul", "fused_mlp", "paged_attention", "grouped_q4", "grouped_q8"}
+          | INT8),
+    "D server": ({"dense_matmul", "paged_attention", "prefill_attention"},
+                 {"decode_attention", "kv_write", "q4_matmul", "q8_matmul", "fused_mlp",
+                  "grouped_q4", "grouped_q8"} | INT8),
 }
 
 
@@ -2119,6 +2215,13 @@ def _drive_model(torch, kernels_mod, label, path, only, summary, phase_s, kv_dty
             raise AssertionError("model B: no K6 launch in a decode step")
         if label == "C":
             _check_moe_step(engine, per_step)
+        if label == "D":  # K11 for wqkv, wo, gate_up and down on every layer, nothing else
+            want = {"dense_matmul": 4 * n_layers, "q4_matmul": 0, "q8_matmul": 0, "fused_mlp": 0}
+            got = {k: per_step[k] for k in want}
+            if got != want or out["batch"]["host_syncs_per_step"] != 0:
+                raise AssertionError(f"model D: per decode step {got} and "
+                                     f"{out['batch']['host_syncs_per_step']} host syncs; the route "
+                                     f"implies {want} and none")
     summary[f"model {label}"] = out
     by_path = {label: launches}
     if label in ("A", "A8") and "server" in only:  # on the engine already loaded
@@ -2131,7 +2234,7 @@ def _drive_model(torch, kernels_mod, label, path, only, summary, phase_s, kv_dty
             log(f"  BatchEngine pool: int8 {summary[name]['batch_engine']['pool_mb']:.1f} MB (codes and "
                 f"scales) against bf16 {bf16:.1f} MB (server)")
         phase_s[name] = time.perf_counter() - t0
-    if label in ("C", "G") and "server" in only:
+    if label in ("C", "G", "D") and "server" in only:
         t0 = time.perf_counter()
         kernels_mod.reset_launches()
         summary[f"server {label}"] = _paged_server_run(torch, engine, label)
@@ -2167,7 +2270,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from nfai_tpu_torch import kernels as kernels_mod
-    from nfai_tpu_torch.testing import make_gemma3_1b_gguf, make_llama_1b_gguf, make_qwen3moe_gguf
+    from nfai_tpu_torch.testing import (
+        GEMMA3_1B_KINDS, make_gemma3_1b_gguf, make_llama_1b_gguf, make_qwen3moe_gguf,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2201,13 +2306,19 @@ def main(argv=None) -> int:
                 # the Q4_K copy also with an int8 cache on both sides
                 summary["parity"].update(phase_parity(
                     torch, path2, kind, ("auto", "int8") if kind == "q4_k" else ("auto",)))
+                if kind in PARITY_PARAM_DTYPE:
+                    summary["parity"].update(phase_parity(
+                        torch, path2, kind, param_dtype=PARITY_PARAM_DTYPE[kind]))
                 os.remove(path2)
             path2 = make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe_2l.gguf"), n_layers=2)
             summary["parity"].update(phase_parity_moe(torch, path2, ("auto", "int8")))
+            summary["parity"].update(phase_parity_moe(torch, path2, param_dtype="bfloat16"))
             os.remove(path2)
-            path2 = make_gemma3_1b_gguf(os.path.join(tmp, "gemma3_1b_2l.gguf"), n_layers=2)
-            summary["parity"].update(phase_parity_gemma3(torch, kernels_mod, path2))
-            os.remove(path2)
+            for kind in GEMMA3_1B_KINDS:
+                path2 = make_gemma3_1b_gguf(os.path.join(tmp, f"gemma3_1b_2l_{kind}.gguf"),
+                                            n_layers=2, kind=kind)
+                summary["parity"].update(phase_parity_gemma3(torch, kernels_mod, path2, kind))
+                os.remove(path2)
             phase_s["parity"] = time.perf_counter() - t0
         log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "
             f"total {time.perf_counter() - t_all:.1f}")

@@ -1,9 +1,11 @@
 """Vectorized numpy codecs for the GGML block formats the port loads.
 
 Decoders follow the ggml dequantization semantics exactly (per-block scales,
-nibble packing, 6-bit K-quant scale unpacking). The port reads F32, F16,
-Q4_0, Q4_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K and Q6_K; every other kind raises
-NotImplementedError. It writes Q4_0, Q4_1, Q8_0, Q4_K and Q6_K.
+nibble packing, 6-bit K-quant scale unpacking). The port reads every kind
+the JAX package reads (`DEQUANTIZERS`: F32, F16, BF16, F64, I8-I64, Q4_0,
+Q4_1, Q5_0, Q5_1, Q8_0, Q8_1, Q2_K-Q6_K, Q8_K, IQ4_NL, IQ4_XS); every other
+kind raises NotImplementedError. It writes F32, F16, BF16 (rounded to
+nearest even), Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q4_K and Q6_K.
 
 Encoders exist so tests and tools can fabricate valid GGUF files; they produce
 bit-valid blocks (round-trip decode matches within quantization error) but use
@@ -52,6 +54,38 @@ def dequant_f32(data: np.ndarray, n: int) -> np.ndarray:
 
 def dequant_f16(data: np.ndarray, n: int) -> np.ndarray:
     return data[: n * 2].view(np.float16).astype(np.float32)
+
+
+def dequant_f64(data: np.ndarray, n: int) -> np.ndarray:
+    return data[: n * 8].view(np.float64).astype(np.float32)
+
+
+def dequant_bf16(data: np.ndarray, n: int) -> np.ndarray:
+    u16 = data[: n * 2].view(np.uint16).astype(np.uint32) << 16
+    return u16.view(np.float32)
+
+
+def dequant_i8(data: np.ndarray, n: int) -> np.ndarray:
+    return data[:n].view(np.int8).astype(np.float32)
+
+
+def dequant_i16(data: np.ndarray, n: int) -> np.ndarray:
+    return data[: n * 2].view(np.int16).astype(np.float32)
+
+
+def dequant_i32(data: np.ndarray, n: int) -> np.ndarray:
+    return data[: n * 4].view(np.int32).astype(np.float32)
+
+
+def dequant_i64(data: np.ndarray, n: int) -> np.ndarray:
+    return data[: n * 8].view(np.int64).astype(np.float32)
+
+
+def quant_bf16(x: np.ndarray) -> np.ndarray:
+    """float32 → bf16 bytes, rounded to nearest even."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    rounded = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+    return rounded.view(np.uint8).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +162,83 @@ def quant_q4_1(x: np.ndarray) -> np.ndarray:
     out[:, 2:4] = _fp16_bytes(m).reshape(-1, 2)
     out[:, 4:] = q[:, :16] | (q[:, 16:] << 4)
     return out.reshape(-1)
+
+
+def _q5_high_bits(qh_u32: np.ndarray) -> np.ndarray:
+    """Expand the per-block u32 of high bits into (nb, 32) {0,1} array."""
+    shifts = np.arange(32, dtype=np.uint32)
+    return ((qh_u32[:, None] >> shifts[None, :]) & 1).astype(np.uint8)
+
+
+def dequant_q5_0(data: np.ndarray, n: int) -> np.ndarray:
+    """Q5_0: f16 d, u32 qh, 16 bytes; q = nibble | (bit<<4); x = d*(q-16)."""
+    blocks = _blocks(data, n, GGMLType.Q5_0)
+    d = _f16(blocks[:, :2].copy().view(np.uint16))
+    qh = blocks[:, 2:6].copy().view(np.uint32).reshape(-1)
+    qs = blocks[:, 6:22]
+    hb = _q5_high_bits(qh)
+    lo = (qs & 0x0F) | (hb[:, :16] << 4)
+    hi = (qs >> 4) | (hb[:, 16:] << 4)
+    out = (np.concatenate([lo, hi], axis=1).astype(np.float32) - 16.0) * d
+    return out.reshape(-1)[:n]
+
+
+def quant_q5_0(x: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1, 32)
+    idx = np.abs(x).argmax(axis=1)
+    maxv = x[np.arange(x.shape[0]), idx]
+    d = (maxv / -16.0).astype(np.float16).astype(np.float32)
+    inv_d = np.where(d != 0, 1.0 / np.where(d != 0, d, 1.0), 0.0)
+    q = np.clip(np.rint(x * inv_d[:, None] + 16.0), 0, 31).astype(np.uint8)
+    hb = (q >> 4) & 1
+    shifts = np.arange(32, dtype=np.uint32)
+    qh = (hb.astype(np.uint32) << shifts[None, :]).sum(axis=1, dtype=np.uint64).astype(np.uint32)
+    out = np.empty((x.shape[0], 22), dtype=np.uint8)
+    out[:, :2] = _fp16_bytes(d).reshape(-1, 2)
+    out[:, 2:6] = qh.view(np.uint8).reshape(-1, 4)
+    out[:, 6:] = (q[:, :16] & 0x0F) | ((q[:, 16:] & 0x0F) << 4)
+    return out.reshape(-1)
+
+
+def dequant_q5_1(data: np.ndarray, n: int) -> np.ndarray:
+    """Q5_1: f16 d, f16 m, u32 qh, 16 bytes; x = d*q + m."""
+    blocks = _blocks(data, n, GGMLType.Q5_1)
+    d = _f16(blocks[:, :2].copy().view(np.uint16))
+    m = _f16(blocks[:, 2:4].copy().view(np.uint16))
+    qh = blocks[:, 4:8].copy().view(np.uint32).reshape(-1)
+    qs = blocks[:, 8:24]
+    hb = _q5_high_bits(qh)
+    lo = (qs & 0x0F) | (hb[:, :16] << 4)
+    hi = (qs >> 4) | (hb[:, 16:] << 4)
+    out = np.concatenate([lo, hi], axis=1).astype(np.float32) * d + m
+    return out.reshape(-1)[:n]
+
+
+def quant_q5_1(x: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1, 32)
+    mn = x.min(axis=1)
+    mx = x.max(axis=1)
+    d = ((mx - mn) / 31.0).astype(np.float16).astype(np.float32)
+    m = mn.astype(np.float16).astype(np.float32)
+    inv_d = np.where(d != 0, 1.0 / np.where(d != 0, d, 1.0), 0.0)
+    q = np.clip(np.rint((x - m[:, None]) * inv_d[:, None]), 0, 31).astype(np.uint8)
+    hb = (q >> 4) & 1
+    shifts = np.arange(32, dtype=np.uint32)
+    qh = (hb.astype(np.uint32) << shifts[None, :]).sum(axis=1, dtype=np.uint64).astype(np.uint32)
+    out = np.empty((x.shape[0], 24), dtype=np.uint8)
+    out[:, :2] = _fp16_bytes(d).reshape(-1, 2)
+    out[:, 2:4] = _fp16_bytes(m).reshape(-1, 2)
+    out[:, 4:8] = qh.view(np.uint8).reshape(-1, 4)
+    out[:, 8:] = (q[:, :16] & 0x0F) | ((q[:, 16:] & 0x0F) << 4)
+    return out.reshape(-1)
+
+
+def dequant_q8_1(data: np.ndarray, n: int) -> np.ndarray:
+    """Q8_1: f16 d, f16 s(=d*sum q) + 32 int8; x = d * q."""
+    blocks = _blocks(data, n, GGMLType.Q8_1)
+    d = _f16(blocks[:, :2].copy().view(np.uint16))
+    q = blocks[:, 4:36].view(np.int8).astype(np.float32)
+    return (d * q).reshape(-1)[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -339,22 +450,93 @@ def dequant_q3_k(data: np.ndarray, n: int) -> np.ndarray:
     return out.reshape(-1)[:n]
 
 
+def dequant_q8_k(data: np.ndarray, n: int) -> np.ndarray:
+    """Q8_K: f32 d + 256 int8 + 16 i16 bsums; x = d * q."""
+    blocks = _blocks(data, n, GGMLType.Q8_K)
+    d = blocks[:, :4].copy().view(np.float32)
+    q = blocks[:, 4:260].view(np.int8).astype(np.float32)
+    return (d * q).reshape(-1)[:n]
+
+
+# ---------------------------------------------------------------------------
+# IQ4 non-linear formats
+
+IQ4_NL_VALUES = np.array(
+    [-127, -104, -83, -65, -49, -35, -22, -10, 1, 13, 25, 38, 53, 69, 89, 113],
+    dtype=np.float32,
+)
+
+
+def dequant_iq4_nl(data: np.ndarray, n: int) -> np.ndarray:
+    """IQ4_NL: f16 d + 16B nibbles indexing a nonlinear 16-entry LUT."""
+    blocks = _blocks(data, n, GGMLType.IQ4_NL)
+    d = _f16(blocks[:, :2].copy().view(np.uint16))
+    qs = blocks[:, 2:18]
+    lo = IQ4_NL_VALUES[qs & 0x0F]
+    hi = IQ4_NL_VALUES[qs >> 4]
+    out = np.concatenate([lo, hi], axis=1) * d
+    return out.reshape(-1)[:n]
+
+
+def dequant_iq4_xs(data: np.ndarray, n: int) -> np.ndarray:
+    """IQ4_XS: f16 d, u16 scales_h, 4B scales_l, 128B qs (256-elem super-block,
+    136 bytes: ggml's block_iq4_xs).
+
+    Per 32-elem sub-block ib: ls = (scales_l nibble) | (scales_h 2 bits << 4) - 32.
+    (The JAX package's copy reads scales_l as 8 bytes and qs from byte 12,
+    past the block, and raises on every IQ4_XS tensor.)
+    """
+    blocks = _blocks(data, n, GGMLType.IQ4_XS)
+    nb = blocks.shape[0]
+    d = _f16(blocks[:, :2].copy().view(np.uint16))
+    scales_h = blocks[:, 2:4].copy().view(np.uint16).reshape(nb).astype(np.uint32)
+    scales_l = blocks[:, 4:8]
+    qs = blocks[:, 8:136].reshape(nb, 8, 16)
+    ib = np.arange(8)
+    sl = np.where(ib % 2 == 0, scales_l[:, ib // 2] & 0x0F, scales_l[:, ib // 2] >> 4)
+    sh = (scales_h[:, None] >> (2 * ib)[None, :]) & 3
+    ls = (sl.astype(np.int32) | (sh.astype(np.int32) << 4)) - 32  # (nb,8)
+    lo = IQ4_NL_VALUES[qs & 0x0F]  # (nb,8,16) elems 0..15 of sub-block
+    hi = IQ4_NL_VALUES[qs >> 4]  # elems 16..31
+    q = np.concatenate([lo, hi], axis=2)  # (nb,8,32)
+    out = d[:, :, None] * ls[:, :, None].astype(np.float32) * q
+    return out.reshape(-1)[:n]
+
+
+# ---------------------------------------------------------------------------
+# dispatch tables
+
 DEQUANTIZERS = {
     GGMLType.F32: dequant_f32,
     GGMLType.F16: dequant_f16,
+    GGMLType.F64: dequant_f64,
+    GGMLType.BF16: dequant_bf16,
+    GGMLType.I8: dequant_i8,
+    GGMLType.I16: dequant_i16,
+    GGMLType.I32: dequant_i32,
+    GGMLType.I64: dequant_i64,
     GGMLType.Q4_0: dequant_q4_0,
     GGMLType.Q4_1: dequant_q4_1,
+    GGMLType.Q5_0: dequant_q5_0,
+    GGMLType.Q5_1: dequant_q5_1,
     GGMLType.Q8_0: dequant_q8_0,
+    GGMLType.Q8_1: dequant_q8_1,
     GGMLType.Q2_K: dequant_q2_k,
     GGMLType.Q3_K: dequant_q3_k,
     GGMLType.Q4_K: dequant_q4_k,
     GGMLType.Q5_K: dequant_q5_k,
     GGMLType.Q6_K: dequant_q6_k,
+    GGMLType.Q8_K: dequant_q8_k,
+    GGMLType.IQ4_NL: dequant_iq4_nl,
+    GGMLType.IQ4_XS: dequant_iq4_xs,
 }
 
 QUANTIZERS = {
+    GGMLType.BF16: quant_bf16,
     GGMLType.Q4_0: quant_q4_0,
     GGMLType.Q4_1: quant_q4_1,
+    GGMLType.Q5_0: quant_q5_0,
+    GGMLType.Q5_1: quant_q5_1,
     GGMLType.Q8_0: quant_q8_0,
     GGMLType.Q4_K: quant_q4_k,
     GGMLType.Q6_K: quant_q6_k,
@@ -366,8 +548,9 @@ def dequantize(data: np.ndarray, n_elements: int, ggml_type: GGMLType) -> np.nda
     fn = DEQUANTIZERS.get(ggml_type)
     if fn is None:
         raise NotImplementedError(
-            f"dequantization of {ggml_type.name} is not ported yet "
-            "(the port reads F32, F16, Q4_0, Q4_1, Q8_0 and Q2_K..Q6_K)"
+            f"dequantization of {ggml_type.name} is not supported (the port reads "
+            "the JAX package's kinds: F32/F16/BF16/F64, I8-I64, Q4_0-Q8_1, the "
+            "k-quants Q2_K-Q8_K, IQ4_NL and IQ4_XS)"
         )
     data = np.ascontiguousarray(data).view(np.uint8).reshape(-1)
     return fn(data, n_elements)
@@ -382,8 +565,8 @@ def quantize(x: np.ndarray, ggml_type: GGMLType) -> np.ndarray:
     fn = QUANTIZERS.get(ggml_type)
     if fn is None:
         raise NotImplementedError(
-            f"quantization to {ggml_type.name} is not ported yet "
-            "(the port writes F32, F16, Q4_0, Q4_1, Q8_0, Q4_K and Q6_K)"
+            f"quantization to {ggml_type.name} is not supported (the port writes "
+            "F32, F16, BF16, Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q4_K and Q6_K)"
         )
     flat = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
     bs = GGML_BLOCK_LAYOUT[ggml_type].block_size

@@ -79,9 +79,24 @@ its own container, where a stack mixes kinds). The cache is updated in
 place. `decode_loop` is a Python loop over steps (the JAX version is one
 jitted scan; capturing the step as a CUDA graph is later work).
 
-Only Q4_0/Q4_1/Q4_K, Q8_0 or Q2_K/Q3_K/Q5_K/Q6_K matmul weights load;
-dense (F16/F32) matmul weights and the other families' features (biases,
-pre-fused tensors) raise NotImplementedError.
+Dense weights follow the JAX package's decisions: a matmul weight stays
+quantized only where its kind has a container (Q4_0/Q4_1/Q4_K, Q8_0,
+Q2_K/Q3_K/Q5_K/Q6_K), K % 64 == 0, N % 128 == 0 and the engine's
+`param_dtype` is "auto" (the JAX `quantizable`); any other weight (F16,
+BF16, F32, llama.cpp's fallback kinds Q5_0/Q5_1/IQ4_NL/IQ4_XS, Q8_1, Q8_K)
+is decoded to f32 and rounded once to the activation dtype, [N, K] per
+layer (GGUF's row order). A dense layer stack [L, N, K] runs through K11
+(`ops.qmatmul.dense_matmul_layered`), which reads the layer in place; a
+stack mixing quantized and dense layers is dequantized whole, and q/k/v or
+gate/up whose parts mix the two stay split on every layer, as
+`_fuse_projections` decides. A dense MLP is K11 on gate_up, the
+activation, K11 on down (no K5). A dense tied table is one tensor serving
+the embedding rows and the head; a dense head runs `torch.matmul` (JAX
+leaves `x @ lm_head` to XLA). Dense expert stacks [L, E, N, K] run
+`_moe_ffn_dense`, the JAX `_moe_ffn_grouped` (XLA's `ragged_dot`, no
+Pallas kernel) in plain PyTorch: one product per hit expert, which reads
+the expert counts back to the host once per layer. The other families'
+features (biases, pre-fused tensors) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -351,32 +366,38 @@ def _layer_names(cfg: LlamaConfig) -> dict[str, str]:
 _FUSIONS = ((("wq", "wk", "wv"), "wqkv"), (("w_gate", "w_up"), "w_gate_up"))
 
 
-def _stack_layers(per_layer: dict[str, list]) -> dict:
+def _stack_layers(per_layer: dict[str, list], fuse: bool = True) -> dict:
     """Per-layer parameter lists → layer stacks. q/k/v and gate/up fuse
-    along N only when every layer's parts share a container (the JAX
-    `_fuse_projections` rule: a Q4_K_M file's Q6_K attn_v keeps q/k/v split
-    on every layer); a stack whose layers mix kinds becomes a LayerList."""
+    along N only when every layer's parts share a container or are all
+    dense (the JAX `_fuse_projections` rule: a Q4_K_M file's Q6_K attn_v, or
+    a dense part beside quantized ones, keeps the group split on every
+    layer); a stack whose quantized layers mix kinds becomes a LayerList,
+    one that mixes quantized and dense layers a dense stack (`stack`).
+    Without `fuse` the parts stay as given (weights the JAX package has
+    already fused or kept split)."""
     per_layer = dict(per_layer)
-    for names, fused in _FUSIONS:
+    for names, fused in _FUSIONS if fuse else ():
         if all(n in per_layer for n in names):
             groups = list(zip(*(per_layer[n] for n in names)))
             if all(same_layout(list(parts)) for parts in groups):
                 per_layer[fused] = [concat(list(parts)) for parts in groups]
                 for n in names:
                     del per_layer[n]
-    return {
-        k: torch.stack(v) if isinstance(v[0], torch.Tensor) else stack(v)
-        for k, v in per_layer.items()
-    }
+    return {k: stack(v) for k, v in per_layer.items()}
 
 
 def _params(embed, layers: dict, final_norm, lm_head, inv_freq, inv_freq_local, dtype,
             device) -> dict:
+    head = lm_head.to(device)
+    if embed is lm_head:  # a dense tied table: one copy for the head and the rows
+        embed = head
+    elif embed is not None:
+        embed = embed.to(dtype).to(device)
     out = {
-        "embed": None if embed is None else embed.to(dtype).to(device),
+        "embed": embed,
         "layers": {k: v.to(device) for k, v in layers.items()},
         "final_norm": final_norm.to(device),
-        "lm_head": lm_head.to(device),
+        "lm_head": head,
         "inv_freq": inv_freq.to(device),
         "act_dtype": dtype,
         "fused_mlp": mlp_eligible(layers.get("w_gate_up"), layers.get("w_down")),
@@ -387,36 +408,41 @@ def _params(embed, layers: dict, final_norm, lm_head, inv_freq, inv_freq_local, 
 
 
 def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
-                device="cpu") -> dict:
-    """GGUF → params dict on `device`:
+                device="cpu", quantized: bool = True) -> dict:
+    """GGUF → params dict on `device`. With `quantized` (the engine's
+    ``param_dtype="auto"``) a matmul weight keeps a quantized container
+    where the JAX `quantizable` holds (its kind has one, K % 64 == 0,
+    N % 128 == 0); every other matmul weight, and all of them without
+    `quantized`, is dense: decoded to f32 and rounded to `dtype`, one
+    tensor at a time.
 
     - ``embed`` [V, H] dense in `dtype` (dequantized from any kind the
-      reader decodes), or None for a tied checkpoint;
+      reader decodes), or None for a tied checkpoint whose table stays
+      quantized; a dense tied table is the ``lm_head`` tensor itself;
     - ``layers``: ``attn_norm``/``ffn_norm`` f32 [L, H]; the matmul weights
-      as layer stacks of `Q4Tensor`/`Q8Tensor` (or a `LayerList` where the
-      layers mix kinds): ``wqkv`` or ``wq``/``wk``/``wv`` (wq/wk rows
+      as layer stacks of `Q4Tensor`/`Q8Tensor` (a `LayerList` where the
+      quantized layers mix kinds) or dense [L, N, K] tensors in `dtype`:
+      ``wqkv`` or ``wq``/``wk``/``wv`` (wq/wk rows
       permuted NORM → NEOX for llama), ``wo``, ``w_gate_up`` or
       ``w_gate``/``w_up``, ``w_down``; with q/k norms ``q_norm``/``k_norm``
       f32 [L, D]; with post norms ``post_attn_norm``/``post_ffw_norm`` f32
       [L, H]; a MoE model has ``router`` f32 [L, H, E] and the expert
       stacks ``w_gate_exps``/``w_up_exps``/``w_down_exps`` ([L, E, N, ...]
-      containers, or a LayerList of [E, N, ...] ones) in place of the MLP;
-    - ``final_norm`` f32 [H]; ``lm_head`` the 2-D quantized output weight,
-      or for a tied checkpoint the quantized token table itself; ``inv_freq``
-      f32, and gemma3's ``inv_freq_local`` (its local layers' base, without
+      containers, a LayerList of [E, N, ...] ones, or dense [L, E, N, K])
+      in place of the MLP;
+    - ``final_norm`` f32 [H]; ``lm_head`` the 2-D output weight (quantized,
+      or dense [V, H]), or for a tied checkpoint the token table itself;
+      ``inv_freq`` f32, and gemma3's ``inv_freq_local`` (its local layers' base, without
       the global layers' rope scaling, as the JAX package computes it);
     - ``act_dtype`` (`dtype`) and ``fused_mlp`` (whether the MLP takes K5).
     """
 
     def mat(name: str):
         desc = g.tensors[name]
-        if desc.ggml_type not in SUPPORTED_QUANT_TYPES:
-            raise NotImplementedError(
-                f"{name} is {desc.ggml_type.name}; the port keeps only quantized "
-                "matmul weights (Q4_0/Q4_1/Q4_K, Q8_0, Q2_K/Q3_K/Q5_K/Q6_K; dense "
-                "kernels come later)"
-            )
         *lead, n, k = desc.shape
+        if not (quantized and desc.ggml_type in SUPPORTED_QUANT_TYPES
+                and k % 64 == 0 and n % 128 == 0):  # the JAX `quantizable`
+            return torch.from_numpy(g.tensor_f32(name)).to(dtype)
         e = int(np.prod(lead, dtype=np.int64))
         # an expert stack [E, N, K] is E*N rows of K (experts contiguous)
         w = pack_gguf_tensor(g.tensor_bytes(name), desc.ggml_type, (e * n, k))
@@ -455,8 +481,9 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
         )
     inv_freq_local = (torch.from_numpy(compute_inv_freq(cfg.head_dim, cfg.rope_base_local))
                       if cfg.rope_base_local else None)
-    if cfg.tied_embeddings:  # one quantized table: the head, and the embedding rows
-        embed, lm_head = None, mat("token_embd.weight")
+    if cfg.tied_embeddings:  # one table: the head, and the embedding rows
+        lm_head = mat("token_embd.weight")
+        embed = lm_head if isinstance(lm_head, torch.Tensor) else None
     else:
         embed = torch.from_numpy(g.tensor_f32("token_embd.weight"))
         lm_head = mat("output.weight")
@@ -473,17 +500,22 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
     Undoes the TPU packings (v2 split-half nibbles with the /16 and -8
     folds, v3 word planes, merged q4v3m scales, the q4mlpg/q4mlpd fused-MLP
     permutations, 8-bit containers, N padding) through
-    `ops.qtensor.from_jax_qtensor`, then fuses and routes as `load_params`
-    does; a tied quantized table (``embed`` None) becomes the head and the
-    embedding source. qwen3's and gemma3's q/k norms, gemma's post norms
+    `ops.qtensor.from_jax_qtensor`, keeps the projections fused or split as
+    the JAX package left them, and routes as `load_params` does; a tied
+    quantized table (``embed`` None) becomes the head and the embedding
+    source. qwen3's and gemma3's q/k norms, gemma's post norms
     and qwen3moe's routers carry over as f32, gemma3's `inv_freq_local` as
     it is, its 4-D expert stacks (v2 4-bit [L, E, K/2, N], 8-bit
     [L, E, K, N], promoted or unified 8-bit) as [L, E, N, ...] containers.
-    Dense matmul weights raise."""
+    Dense leaves ([..., K, N]: layer and expert stacks, the head) become
+    [..., N, K] tensors in `dtype`; a tied checkpoint's dense head (the
+    JAX package keeps the table twice, as ``embed`` and its transpose)
+    becomes one tensor serving both."""
 
     def conv(leaf):
-        if not hasattr(leaf, "kind"):
-            raise NotImplementedError("dense matmul weights are not ported yet")
+        if not hasattr(leaf, "kind"):  # dense [..., K, N] → [..., N, K]
+            dense = torch.from_numpy(np.array(leaf, np.float32))
+            return dense.transpose(-1, -2).contiguous().to(dtype)
         return from_jax_qtensor(
             leaf.kind, np.asarray(leaf.qs), np.asarray(leaf.scales),
             None if leaf.mins is None else np.asarray(leaf.mins),
@@ -502,12 +534,17 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
             per_layer[key] = list(torch.from_numpy(np.array(leaf, np.float32)))
         else:
             w = conv(leaf)
-            per_layer[key] = [w.layer(i) for i in range(n_layers(w))]
+            per_layer[key] = (list(w) if isinstance(w, torch.Tensor)
+                              else [w.layer(i) for i in range(n_layers(w))])
     embed, local = np_params.get("embed"), np_params.get("inv_freq_local")
     as_f32 = lambda a: torch.from_numpy(np.array(a, np.float32))
+    lm_head = conv(np_params["lm_head"])
+    if embed is not None:  # a dense tied head serves the embedding rows too
+        tied_dense = cfg.tied_embeddings and isinstance(lm_head, torch.Tensor)
+        embed = lm_head if tied_dense else as_f32(embed)
     return _params(
-        None if embed is None else as_f32(embed), _stack_layers(per_layer),
-        as_f32(np_params["final_norm"]), conv(np_params["lm_head"]),
+        embed, _stack_layers(per_layer, fuse=False),
+        as_f32(np_params["final_norm"]), lm_head,
         as_f32(np_params["inv_freq"]), None if local is None else as_f32(local), dtype, device,
     )
 
@@ -637,8 +674,13 @@ def moe_ffn(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torc
     `_moe_ffn_grouped_q`): route, lay the rows out group-aligned in bf16,
     gate / up / down through `qmatmul_grouped` (K8 / K9), silu(gate) * up
     rounded to bf16, then each row weighted and summed back to its token in
-    f32; result in x's dtype."""
+    f32; result in x's dtype. Dense expert stacks take `_moe_ffn_dense`."""
     lp = params["layers"]
+    dense = [isinstance(lp[k], torch.Tensor) for k in ("w_gate_exps", "w_up_exps", "w_down_exps")]
+    if any(dense):
+        if not all(dense):
+            raise NotImplementedError("expert stacks mixing dense and quantized kinds")
+        return _moe_ffn_dense(params, cfg, x, layer)
     lead, hdim = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, hdim)
     n, e, used = xf.shape[0], cfg.n_experts, cfg.n_experts_used
@@ -656,6 +698,37 @@ def moe_ffn(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torc
     dsel = down[dst].float() * top_vals.reshape(-1)[order][:, None]
     out = torch.zeros(n, hdim, dtype=torch.float32, device=x.device).index_add_(0, token_of, dsel)
     return out.reshape(*lead, hdim).to(x.dtype)
+
+
+def _moe_ffn_dense(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torch.Tensor:
+    """The MoE FFN over dense expert stacks [L, E, N, K] (the JAX
+    `_moe_ffn_grouped`, XLA's `ragged_dot` there): route, sort the (token,
+    slot) rows by expert (stable), round them to the weights' dtype, one
+    f32 product per hit expert for gate, up and down, act(gate) * up
+    rounded to the weights' dtype, each row weighted and summed back to its
+    token in f32. The expert counts are read back to the host once a layer."""
+    lp = params["layers"]
+    lead, hdim = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, hdim)
+    used = cfg.n_experts_used
+    top_vals, top_idx = moe_route(xf, lp["router"][layer], used, cfg.norm_topk_prob)
+    flat = top_idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    token_of = order // used
+    wg, wu, wd = (lp[k][layer] for k in ("w_gate_exps", "w_up_exps", "w_down_exps"))
+    xs = xf[token_of].to(wg.dtype)
+    down = torch.empty(xs.shape[0], wd.shape[1], dtype=torch.float32, device=x.device)
+    start = 0
+    for e, rows in enumerate(torch.bincount(flat, minlength=cfg.n_experts).tolist()):
+        if rows:
+            xe = xs[start:start + rows].float()
+            gate, up = xe @ wg[e].float().T, xe @ wu[e].float().T
+            inner = (activation(gate, cfg.activation) * up).to(wg.dtype)
+            down[start:start + rows] = inner.float() @ wd[e].float().T
+            start += rows
+    down = down * top_vals.reshape(-1)[order][:, None]
+    out = torch.zeros(xf.shape[0], hdim, dtype=torch.float32, device=x.device)
+    return out.index_add_(0, token_of, down).reshape(*lead, hdim).to(x.dtype)
 
 
 def _mlp(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torch.Tensor:

@@ -15,6 +15,13 @@ port of the JAX package's `_q4v3_matmul`, `_q4v3_matmul_layered` and
 ``csrc/grouped_matmul.cu``, the port of `_grouped_call` through
 `_qmatmul_grouped_q4` (K8) and `_qmatmul_grouped_q8` (K9), or on a CPU
 tensor `qmatmul_grouped_plain`.
+
+`dense_matmul_layered(x, w, layer)` computes x @ w[layer]^T for a dense
+(unquantized) weight stack w [L, N, K] in the activation dtype: on a CUDA
+tensor ``csrc/dense_matmul.cu`` (K11), the port of `_dense_matmul_layered`,
+which reads the layer in place from the stack; on a CPU tensor
+`dense_matmul_plain`. A dense 2-D weight (the LM head) is multiplied with
+`torch.matmul`, as the JAX package leaves `x @ w` to XLA.
 """
 from __future__ import annotations
 
@@ -38,6 +45,10 @@ K8 = register(Kernel(
 K9 = register(Kernel(
     "grouped_q8", "grouped_matmul.cu",
     {"nfai_grouped_q8": [P, P, P, P, P, P, P, I, I, I, I, I, P]},
+))
+K11 = register(Kernel(
+    "dense_matmul", "dense_matmul.cu",
+    {"nfai_dense_matmul": [P, P, P, I, I, I, I, I, P]},
 ))
 
 
@@ -102,26 +113,65 @@ def q8_matmul(x: torch.Tensor, w: Q8Tensor) -> torch.Tensor:
     return y
 
 
+def dense_matmul_plain(x: torch.Tensor, w: torch.Tensor, layer: int) -> torch.Tensor:
+    """x [M, K] @ w[layer]^T for a dense stack w [L, N, K]: x rounded to
+    w's dtype, products and sums in f32, the result in x's dtype (the JAX
+    wrapper casts x to the weight's dtype and returns x's; f32 operands stay
+    f32). The plain version of K11."""
+    return (x.to(w.dtype).float() @ w[layer].float().T).to(x.dtype)
+
+
+def dense_matmul_layered(x: torch.Tensor, w: torch.Tensor, layer: int) -> torch.Tensor:
+    """x [M, K] bf16 @ w[layer]^T → [M, N] bf16 for a dense bf16 stack w
+    [L, N, K] on x's device; any M, K and N. The layer is an offset into the
+    stack: nothing is sliced or copied."""
+    if x.device.type == "cpu":
+        return dense_matmul_plain(x, w, layer)
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"dense_matmul_layered on CUDA takes bf16 x and w, got {x.dtype} "
+                        f"and {w.dtype}")
+    if x.dim() != 2 or w.dim() != 3 or w.shape[2] != x.shape[1]:
+        raise ValueError(f"weight stack {tuple(w.shape)} does not match x {tuple(x.shape)}")
+    if not 0 <= layer < w.shape[0]:
+        raise IndexError(f"layer {layer} of a {w.shape[0]}-layer stack")
+    if w.device != x.device or not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("dense_matmul_layered needs contiguous tensors on one device")
+    m, k = x.shape
+    n = w.shape[1]
+    y = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
+    if m == 0:
+        return y
+    vec = k % 8 == 0 and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    K11.call("nfai_dense_matmul", ptr(x), ptr(w), ptr(y), m, k, n, layer, int(vec), stream_ptr(x))
+    K11.count()
+    return y
+
+
 def linear(x: torch.Tensor, w) -> torch.Tensor:
-    """x [..., K] @ quantized W → [..., N] bf16 (the JAX `linear`): K1 for
-    a Q4Tensor, K6 for a Q8Tensor."""
+    """x [..., K] @ W → [..., N] (the JAX `linear`): K1 for a Q4Tensor,
+    K6 for a Q8Tensor (bf16 out); `torch.matmul` for a dense [N, K] tensor
+    in the activation dtype (the LM head, which JAX leaves to XLA)."""
+    if isinstance(w, torch.Tensor):
+        return torch.matmul(x.to(w.dtype), w.T)
     if isinstance(w, Q4Tensor):
         matmul = q4_matmul
     elif isinstance(w, Q8Tensor):
         matmul = q8_matmul
     else:
-        raise NotImplementedError(
-            "dense (unquantized) matmul weights are not ported yet; the port "
-            "carries 4-bit and 8-bit weights"
-        )
+        raise TypeError(f"no matmul for a weight of type {type(w).__name__}")
     lead = x.shape[:-1]
     y = matmul(x.reshape(-1, w.k).contiguous(), w)
     return y.reshape(*lead, w.n)
 
 
 def linear_layered(x: torch.Tensor, w, layer: int) -> torch.Tensor:
-    """x @ W[layer] for a layer-stacked container or a LayerList — the
-    layer's view, no copy (the JAX `linear_layered`)."""
+    """x @ W[layer] for a layer stack (the JAX `linear_layered`): K11 on a
+    dense [L, N, K] stack; for a quantized stacked container or a LayerList,
+    the layer's view (no copy) through `linear`."""
+    if isinstance(w, torch.Tensor):
+        lead = x.shape[:-1]
+        y = dense_matmul_layered(x.reshape(-1, w.shape[2]).contiguous(), w, layer)
+        return y.reshape(*lead, w.shape[1])
     return linear(x, w.layer(layer))
 
 

@@ -33,6 +33,14 @@ kinds (a Q4_K_M file keeps attn_v and ffn_down in Q6_K on some layers) is a
 `layer(i)`, where the JAX package promotes the whole stack to its 8-bit
 container (`unify_qtensors`). The function computed is the same.
 
+A weight the JAX package keeps dense (a kind without a container, a shape
+outside the kernel layout, or every weight under a `param_dtype` other
+than "auto") is a plain tensor [..., N, K] in the activation dtype. The
+helpers below (`same_layout`, `concat`, `permute_rows`, `stack`,
+`n_layers`) take such tensors beside the containers; a stack whose layers
+mix quantized and dense weights is dequantized whole (`to_dense`: f32,
+then one rounding to the dtype), as the JAX `stack` does.
+
 `from_jax_qtensor` undoes the JAX package's TPU packings (v2 split-half
 nibbles with the /16 and -8 folds, v3 word planes, merged q4v3m scales, the
 fused-MLP permutations of q4mlpg/q4mlpd, N padding) into these containers.
@@ -117,14 +125,20 @@ class LayerList:
 
 
 def n_layers(w) -> int:
-    """Layer count of a stacked container or LayerList."""
-    return len(w.items) if isinstance(w, LayerList) else w.qs.shape[0]
+    """Layer count of a stacked container, a LayerList or a dense stack."""
+    if isinstance(w, LayerList):
+        return len(w.items)
+    return w.shape[0] if isinstance(w, torch.Tensor) else w.qs.shape[0]
 
 
 def same_layout(items: list) -> bool:
     """Whether the weights share container, group, K and the presence of
-    mins — the condition to fuse them along N or stack them."""
+    mins (or are all dense tensors of one K and dtype) — the condition to
+    fuse them along N or stack them."""
     a = items[0]
+    if isinstance(a, torch.Tensor):
+        return all(isinstance(it, torch.Tensor) and it.shape[-1] == a.shape[-1]
+                   and it.dtype == a.dtype for it in items)
     return all(
         type(it) is type(a) and it.group == a.group and it.k == a.k
         and (it.mins is None) == (a.mins is None)
@@ -345,22 +359,39 @@ def dequant_gather(table: Q4Tensor | Q8Tensor, ids: torch.Tensor) -> torch.Tenso
     return dequant(table._map(lambda t: t[ids.long()]))
 
 
-def concat(items: list) -> Q4Tensor | Q8Tensor:
+def to_dense(qt: Q4Tensor | Q8Tensor, dtype) -> torch.Tensor:
+    """The container's weight [..., N, K] in `dtype`: f32 first, then one
+    rounding to nearest even (the JAX `np.asarray(dequant_qtensor(w), dtype)`)."""
+    return dequant(qt).to(dtype)
+
+
+def concat(items: list):
     """Concatenate along the output (N) axis — the wqkv / gate_up fusion."""
     if not same_layout(items):
         raise ValueError("cannot fuse weights of different containers, groups or K")
+    if isinstance(items[0], torch.Tensor):
+        return torch.cat(items, dim=-2)
     return _join(items, lambda ts: torch.cat(ts, dim=-2), n=sum(it.n for it in items))
 
 
-def permute_rows(qt: Q4Tensor | Q8Tensor, perm: np.ndarray):
-    """Reorder output rows (exact: rows are independent)."""
+def permute_rows(qt, perm: np.ndarray):
+    """Reorder output rows of a container or a dense [..., N, K] tensor
+    (exact: rows are independent)."""
     idx = torch.as_tensor(perm, dtype=torch.long)
+    if isinstance(qt, torch.Tensor):
+        return qt.index_select(-2, idx)
     return qt._map(lambda t: t.index_select(-2, idx))
 
 
 def stack(items: list):
     """Layer-stack per-layer weights: one stacked container when every layer
-    shares its layout, else a `LayerList`."""
+    shares its layout, a `LayerList` when quantized layers mix kinds, and a
+    dense tensor when any layer is dense (the quantized ones dequantized to
+    its dtype, as the JAX `stack` does)."""
+    dense = [it for it in items if isinstance(it, torch.Tensor)]
+    if dense:
+        return torch.stack([it if isinstance(it, torch.Tensor) else to_dense(it, dense[0].dtype)
+                            for it in items])
     if not same_layout(items):
         return LayerList(list(items))
     return _join(items, torch.stack)

@@ -10,6 +10,13 @@ end generation exactly as in the JAX engine, so greedy output is the same.
 per-(token, kv head) f32 scales (`KVCache.zeros(..., quantized=True)`; the
 model's int8 routes are described in models.llama).
 
+`EngineConfig(param_dtype=...)`: "auto" keeps every GGUF weight whose kind
+and shape have a kernel layout quantized; a dtype name dequantizes every
+matmul weight at load into the activation dtype (dense weights, K11), as
+the JAX engine does for any value but "auto". The port takes only "auto"
+or the activation dtype's own name: the JAX engine reads a misspelt value,
+or another dtype, as a request for the activation dtype.
+
 Not ported yet, and raising NotImplementedError when asked for: speculative
 and constrained decoding, logprobs, presence/frequency penalties, logit
 bias, session save/load, device meshes (tensor/sequence/expert parallel).
@@ -54,11 +61,15 @@ def _check_config(config: EngineConfig) -> None:
         "mesh_shape": bool(config.mesh_shape),
         "seq_parallel": config.seq_parallel,
         "expert_parallel": config.expert_parallel,
-        "param_dtype": config.param_dtype != "auto",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"EngineConfig options not ported yet: {bad}")
+    if config.param_dtype not in ("auto", config.dtype):
+        raise ValueError(
+            f"param_dtype={config.param_dtype!r}: use 'auto' (keep quantized weights) or the "
+            f"activation dtype {config.dtype!r} (dequantize every matmul weight into it)"
+        )
 
 
 @dataclass
@@ -96,7 +107,8 @@ class InferenceEngine:
         self.family = resolve(g)
         self.model_cfg = self.family.config_from_gguf(g)
         self.model_name = str(g.metadata.get(Keys.NAME, g.architecture))
-        self.params = self.family.load_params(g, self.model_cfg, dtype=dtype, device=self.device)
+        self.params = self.family.load_params(g, self.model_cfg, dtype=dtype, device=self.device,
+                                              quantized=self.config.param_dtype == "auto")
         self.tokenizer = tokenizer_from_gguf(g.metadata)
         bos = (
             self.tokenizer.id_to_token.get(self.tokenizer.bos_id, "")

@@ -9,11 +9,13 @@ softcaps, the SPM vocabulary), plus `key_length`, which the JAX fixture
 lacks, for a head_dim * n_heads other than hidden.
 `make_llama_1b_gguf` writes the published Llama-3.2-1B shapes (hidden 2048,
 32 heads / 8 kv heads, ffn 8192, vocab 128256, rope base 500000 with a
-llama3 `rope_freqs` tensor) in one of four kinds: "q4_k" (untied, Q4_K
+llama3 `rope_freqs` tensor) in one of these kinds: "q4_k" (untied, Q4_K
 matmuls, F16 embedding), "q4_k_m" (the mix llama.cpp writes for Q4_K_M:
 tied Q6_K table, Q6_K attn_v and ffn_down on the layers `use_more_bits`
-picks, Q4_K elsewhere), "q8_0" (untied, Q8_0 throughout) and "q4_0_tied"
-(tied, Q4_0 throughout); or, with kind "llama_3b", the published
+picks, Q4_K elsewhere), "q8_0" (untied, Q8_0 throughout), "q4_0_tied"
+(tied, Q4_0 throughout), "f16" (llama.cpp's f16 conversion: F16 matmul
+weights and tied F16 token table, F32 norms) and "bf16" (the same in
+BF16); or, with kind "llama_3b", the published
 Llama-3.2-3B shapes (hidden 3072, 24 heads / 8 kv heads, head_dim 128, ffn
 8192, 28 layers), tied Q4_K throughout.
 `make_qwen3moe_gguf` writes Qwen3-30B-A3B's published widths (hidden 2048,
@@ -28,7 +30,9 @@ embeddings) in the Q4_K_M mix, with an SPM vocabulary of 256000 pieces and
 Gemma's chat template; `make_gemma3_1b_gguf` Gemma-3-1B's
 (google/gemma-3-1b-it config.json: hidden 1152, 4 / 1 heads of head_dim
 256, ffn 6912, vocab 262144, window 512, rope 1e6 global and 1e4 local,
-q/k norms), whose K = 1152 rows no k-quant can hold (K % 256 != 0).
+q/k norms), whose K = 1152 rows no k-quant can hold (K % 256 != 0): kind
+"q4_0" puts Q4_0 there, kind "q4_k_m" the mix llama.cpp's Q4_K_M file of
+Gemma-3-1B holds (its fallbacks: Q5_0 for Q4_K, Q8_0 for Q6_K).
 """
 from __future__ import annotations
 
@@ -352,13 +356,42 @@ def random_q4_0_bytes(rng: np.random.Generator, n_out: int, k_in: int,
     return blocks.reshape(-1)
 
 
+def random_q5_0_bytes(rng: np.random.Generator, n_out: int, k_in: int,
+                      d_scale: float = 2e-3) -> np.ndarray:
+    """Raw Q5_0 payload: random 5-bit values (high bits in qh), finite f16
+    d (std ≈ 9.2 d)."""
+    nb = n_out * k_in // 32
+    blocks = np.frombuffer(rng.bytes(nb * 22), np.uint8).reshape(nb, 22).copy()
+    blocks[:, 0:2] = _f16_bytes(rng, nb, d_scale)
+    return blocks.reshape(-1)
+
+
+def random_float_bytes(rng: np.random.Generator, n_out: int, k_in: int,
+                       kind: GGMLType = GGMLType.F16) -> np.ndarray:
+    """Raw F16 or BF16 payload of random values from random bits (no float
+    math over billions of weights): a random sign and mantissa, an exponent
+    drawn from four values, so |w| lies in [2^-8, 2^-4) (std ≈ 0.027)."""
+    n = n_out * k_in
+    bits = np.frombuffer(rng.bytes(2 * n), np.uint16).copy()
+    if kind == GGMLType.F16:  # 1 sign, 5 exponent (bias 15), 10 mantissa bits
+        bits = (bits & 0x83FF) | ((7 + ((bits >> 10) & 3)) << 10).astype(np.uint16)
+    elif kind == GGMLType.BF16:  # 1 sign, 8 exponent (bias 127), 7 mantissa bits
+        bits = (bits & 0x807F) | ((119 + ((bits >> 7) & 3)) << 7).astype(np.uint16)
+    else:
+        raise ValueError(f"random_float_bytes writes F16 or BF16, not {kind.name}")
+    return bits.view(np.uint8)
+
+
 _RANDOM_BLOCKS = {
     GGMLType.Q4_K: random_q4k_bytes,
     GGMLType.Q6_K: random_q6k_bytes,
     GGMLType.Q8_0: random_q8_0_bytes,
     GGMLType.Q4_0: random_q4_0_bytes,
+    GGMLType.Q5_0: random_q5_0_bytes,
+    GGMLType.F16: lambda rng, n, k: random_float_bytes(rng, n, k, GGMLType.F16),
+    GGMLType.BF16: lambda rng, n, k: random_float_bytes(rng, n, k, GGMLType.BF16),
 }
-LLAMA_1B_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied", "llama_3b")
+LLAMA_1B_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied", "f16", "bf16", "llama_3b")
 
 
 def _shape_only(*shape):  # add_tensor reads only the shape next to raw bytes
@@ -368,7 +401,8 @@ def _shape_only(*shape):  # add_tensor reads only the shape next to raw bytes
 def make_llama_1b_gguf(path: str | Path, *, kind: str = "q4_k",
                        n_layers: int | None = None, seed: int = 0) -> Path:
     """Write a Llama-3.2-1B-width GGUF of `kind` (see module doc; "llama_3b"
-    is the 3B widths) with random raw blocks (~0.9-1.7 GB at full depth).
+    is the 3B widths) with random raw blocks (~0.9-1.7 GB at full depth;
+    2.5 GB for "f16" and "bf16").
     Weights are random: the model is for speed and kernel checks, not for
     text."""
     if kind not in LLAMA_1B_KINDS:
@@ -387,8 +421,9 @@ def make_llama_1b_gguf(path: str | Path, *, kind: str = "q4_k",
             ffn_dim=f, n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
             rope_base=c["rope_base"], vocab_size=v, tok_md=tiny_tokenizer_metadata(v))
     base = {"q4_k": GGMLType.Q4_K, "q4_k_m": GGMLType.Q4_K, "llama_3b": GGMLType.Q4_K,
-            "q8_0": GGMLType.Q8_0, "q4_0_tied": GGMLType.Q4_0}[kind]
-    tied = kind in ("q4_k_m", "q4_0_tied", "llama_3b")
+            "q8_0": GGMLType.Q8_0, "q4_0_tied": GGMLType.Q4_0, "f16": GGMLType.F16,
+            "bf16": GGMLType.BF16}[kind]
+    tied = kind in ("q4_k_m", "q4_0_tied", "f16", "bf16", "llama_3b")
 
     def quant(name, n_out, k_in, q=base):
         w.add_tensor(name, _shape_only(n_out, k_in), q,
@@ -534,18 +569,36 @@ def make_gemma2_2b_gguf(path: str | Path, *, n_layers: int | None = None, seed: 
     return _gemma_gguf(path, "gemma2", c, "gemma-2-2b-width-random-q4_k_m", kind, seed)
 
 
-def make_gemma3_1b_gguf(path: str | Path, *, n_layers: int = 2, seed: int = 0) -> Path:
-    """Write a Gemma-3-1B-width gemma3 GGUF (see module doc): Q4_K where a
-    row's K is a multiple of 256 (attn_output, ffn_down), Q4_0 where K =
-    1152 is not (q, k, v, gate, up: llama.cpp falls back to Q5_0 there, a
-    kind the port does not load), a tied Q8_0 token table (its fallback for
-    Q6_K); F32 norms near 1, q/k norms included. `n_layers` cuts depth (26
-    in the published config)."""
+GEMMA3_1B_KINDS = ("q4_0", "q4_k_m")
+
+
+def make_gemma3_1b_gguf(path: str | Path, *, n_layers: int = 2, seed: int = 0,
+                        kind: str = "q4_0") -> Path:
+    """Write a Gemma-3-1B-width gemma3 GGUF (see module doc) with a tied
+    Q8_0 token table (llama.cpp's fallback for Q6_K) and F32 norms near 1,
+    q/k norms included. Kind "q4_0": Q4_K where a row's K is a multiple of
+    256 (attn_output, ffn_down), Q4_0 where K = 1152 is not (q, k, v, gate,
+    up). Kind "q4_k_m", the mix of llama.cpp's Q4_K_M file of this model:
+    Q5_0 where K = 1152 (q, k, gate, up; the fallback for Q4_K), attn_v
+    Q5_0, or Q8_0 on the layers `use_more_bits` picks (the fallback for
+    Q6_K), Q4_K attn_output, and ffn_down (K = 6912) Q4_K, or Q6_K on those
+    layers. `n_layers` cuts depth (26 in the published config)."""
+    if kind not in GEMMA3_1B_KINDS:
+        raise ValueError(f"kind must be one of {GEMMA3_1B_KINDS}, got {kind!r}")
     c = dict(GEMMA3_1B, n_layers=n_layers)
 
-    def kind(name, layer, n_out, k_in):
+    def q4_0(name, layer, n_out, k_in):
         if layer < 0:
             return GGMLType.Q8_0
         return GGMLType.Q4_K if k_in % 256 == 0 else GGMLType.Q4_0
 
-    return _gemma_gguf(path, "gemma3", c, "gemma-3-1b-width-random", kind, seed)
+    def q4_k_m(name, layer, n_out, k_in):
+        more = layer >= 0 and use_more_bits(layer, n_layers)
+        if layer < 0 or (more and name.endswith("attn_v.weight")):
+            return GGMLType.Q8_0
+        if more and name.endswith("ffn_down.weight"):
+            return GGMLType.Q6_K
+        return GGMLType.Q4_K if k_in % 256 == 0 else GGMLType.Q5_0
+
+    name = "gemma-3-1b-width-random" + ("" if kind == "q4_0" else f"-{kind}")
+    return _gemma_gguf(path, "gemma3", c, name, {"q4_0": q4_0, "q4_k_m": q4_k_m}[kind], seed)

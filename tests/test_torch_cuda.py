@@ -25,7 +25,11 @@ against the CPU through the int8 routes only. Gemma: K2, K4 and K7 at
 head_dim 256 with softcap and a sliding window (bf16 and int8, r = 1, 2, 4
 and 8) against their plain versions, K5 bit for bit on repeated launches,
 and a tiny gemma2 (dense and paged, bf16 and int8) on the card against the
-CPU.
+CPU. Dense weights: K11 per input row at the Llama-3.2-1B projection shapes,
+Gemma-3-1B's K = 1152 and an odd shape (K = 1000, N = 130), through its
+16-byte and its 2-byte loads, twice with the same bits; tiny F16 and
+`param_dtype` models (dense and paged, bf16 and int8 caches) on the card
+against the CPU, through K11 and no K1/K5/K6.
 """
 import pytest
 import torch
@@ -490,3 +494,68 @@ def test_tiny_gemma_cuda_matches_cpu(cuda, tmp_path, kv_dtype):
             break
     assert all(r.state == RequestState.FINISHED and r.output_ids for r in reqs)
     assert k7.variants[fd.variant(256, 50.0, 8)] > before
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 40, 256])
+@pytest.mark.parametrize("k,n", [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048),
+                                 (1152, 1024), (1000, 130)])
+def test_dense_matmul_kernel(cuda, m, k, n):
+    w = torch.randn(3, n, k, device="cuda", dtype=torch.bfloat16, generator=cuda) * 0.05
+    x = torch.randn(m, k, device="cuda", dtype=torch.bfloat16, generator=cuda)
+    before = qm.K11.launches
+    got = qm.dense_matmul_layered(x, w, 2)
+    assert qm.K11.launches == before + 1
+    assert rel(got, qm.dense_matmul_plain(x, w, 2), row_dims=1) < TOL
+    assert torch.equal(qm.dense_matmul_layered(x, w, 2), got)  # no atomics: the same bits
+
+
+@pytest.mark.parametrize("m", [2, 24])
+def test_dense_matmul_kernel_unaligned(cuda, m):
+    """x 2 bytes past a 16-byte boundary: the 2-byte-load instantiation."""
+    k, n = 512, 192
+    w = torch.randn(2, n, k, device="cuda", dtype=torch.bfloat16, generator=cuda)
+    flat = torch.randn(m * k + 1, device="cuda", dtype=torch.bfloat16, generator=cuda)
+    x = flat[1:].view(m, k)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    assert rel(qm.dense_matmul_layered(x, w, 1), qm.dense_matmul_plain(x, w, 1), row_dims=1) < TOL
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+@pytest.mark.parametrize("kind", ["f16", "param_dtype"])
+def test_tiny_dense_cuda_matches_cpu(cuda, tmp_path, kind, kv_dtype):
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.gguf import GGMLType
+    from nfai_tpu_torch.models import decode_step, paged_prefill_step
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+    from nfai_tpu_torch.runtime.paged_cache import PagedKVCache
+    from nfai_tpu_torch.testing import make_tiny_llama_gguf
+
+    quant = GGMLType.F16 if kind == "f16" else GGMLType.Q4_K
+    path = make_tiny_llama_gguf(tmp_path / f"{kind}.gguf", hidden=256, n_heads=4, n_kv_heads=2,
+                                ffn_dim=512, vocab_size=512, quant=quant, tied=True)
+    cfg = EngineConfig(max_seq_len=256, kv_dtype=kv_dtype, page_size=16,
+                       param_dtype="auto" if kind == "f16" else "bfloat16")
+    gpu, cpu = InferenceEngine(path, cfg, device="cuda"), InferenceEngine(path, cfg, device="cpu")
+    assert gpu.params["embed"] is gpu.params["lm_head"]  # the dense tied table, once
+    tol = INT8_TOL if kv_dtype == "int8" else TOL
+    ids = cpu.tokenizer.encode("a short prompt for both devices")
+    counts = lambda: {k.name: k.launches for k in (qm.K1, qm.K6, fm.K5, qm.K11)}  # noqa: E731
+    before = counts()
+    lg, _ = gpu.prefill(gpu.new_cache(1), ids)
+    lc, _ = cpu.prefill(cpu.new_cache(1), ids)
+    assert rel(lg.cpu(), lc) < tol
+    quant_pool = kv_dtype == "int8"
+    table = torch.tensor([[3, 1, 4, 5]], dtype=torch.int32)  # 64 positions: K4's key tile
+    out = {}
+    for dev, e in (("cuda", gpu), ("cpu", cpu)):
+        pool = PagedKVCache.zeros(e.model_cfg, 6, 16, e.cache_dtype, dev, quantized=quant_pool)
+        logits, pool = paged_prefill_step(
+            e.params, e.model_cfg, torch.tensor([ids], device=dev), torch.arange(len(ids), device=dev)[None],
+            torch.tensor([len(ids) - 1], device=dev), pool, table.to(dev))
+        logits, _ = decode_step(e.params, e.model_cfg, torch.tensor([7], device=dev),
+                                torch.tensor([len(ids)], device=dev), pool, page_tables=table.to(dev))
+        out[dev] = logits
+    assert rel(out["cuda"].cpu(), out["cpu"]) < tol
+    after = counts()
+    assert after["dense_matmul"] > before["dense_matmul"]
+    assert all(after[k] == before[k] for k in ("q4_matmul", "q8_matmul", "fused_mlp"))

@@ -141,7 +141,11 @@ def test_linear_shapes_and_dense_raises():
     assert y.shape == (2, 3, 64) and y.dtype == torch.bfloat16
     want = x.reshape(6, 256) @ tqt.dequant(w).T
     assert rel(y.reshape(6, 64).float().numpy(), want.numpy()) < 1e-2
-    with pytest.raises(NotImplementedError):
+    # a dense [N, K] weight (the LM head) multiplies with torch.matmul; one
+    # whose K does not match x's raises
+    dense = torch.from_numpy(rng.standard_normal((64, 256)).astype(np.float32))
+    assert torch.equal(linear(x, dense), torch.matmul(x, dense.T))
+    with pytest.raises(RuntimeError):
         linear(x, torch.zeros(256, 64))
     with pytest.raises(NotImplementedError):  # a kind the port does not carry quantized
         tqt.pack_gguf_tensor(raw, GGMLType.Q5_0, (64, 256))
