@@ -19,9 +19,16 @@ Phases (each failure propagates, the exit code is then non-zero):
            4096, Gemma-3-1B's with window 512, Gemma 2B's (r = 8), and at
            4000 keys window 512 beside window 0; K11 (dense matmul) at model
            D's projections and Gemma-3-1B's K = 1152, rows 1, 8, 256 and
-           1024, three launches with the same bits; time kernel, plain version
-           and the library yardstick with CUDA events (L2 flushed before
-           each launch)
+           1024, three launches with the same bits; K12 (q8v3 matmul) at
+           model E's projections and head, rows 1, 8, 256 (and 1024 below
+           the head), and in the g16 / mins kinds, three launches with the
+           same bits, beside K6 on the same int8 codes; K4 in the
+           "headmajor" (K4-hm) and "merged" layouts, bf16 and int8, at model
+           E's heads, A's (D = 64: "merged" must be refused) and G's
+           (softcap, window), each against its plain version and against
+           "full" on the same values; time kernel, plain version and the
+           library yardstick with CUDA events (L2 flushed before each
+           launch)
   serve    per model, write a GGUF of published widths (random raw blocks),
            load it with InferenceEngine(device="cuda") and answer three
            ChatSession requests through its chat template (one prompt > 256
@@ -69,16 +76,22 @@ Phases (each failure propagates, the exit code is then non-zero):
            (Q5_0 and a dequantized Q8_0 layer dense, through K11 beside K1
            and K6); dense weights: the F16 (dense and paged) and BF16 copies,
            the Q4_K_M copy and model C's with param_dtype="bfloat16" (every
-           weight dequantized at load: K11, no K1/K5/K6/K8/K9)
-The main path is five models and A8, each driven by serve, batch and
+           weight dequantized at load: K11, no K1/K5/K6/K8/K9); the Q4_K_M
+           copy again under NFAI_Q8V3=1 (its Q6_K layers on K12, its tied
+           Q6_K head on K6); model E's 2-layer copy under NFAI_Q8V3=1:
+           "headmajor" dense and paged on bf16 and int8 caches, "merged"
+           dense (K12, K4-hm, K4-hm-i8 and K4's merged variant)
+The main path is six models, A8 and E8, each driven by serve, batch and
 profile; A's and A8's engines then serve continuously batched traffic, and
-so do C's, G's and D's:
+so do C's, G's, D's and E's:
   A  the untied Q4_K Llama-3.2-1B in the JAX package's default
      configuration: every layer's MLP is one K5 launch (16 per decode
      step), no K6;
-  B  the Q4_K_M mix llama.cpp writes: tied Q6_K table (K6 head, embedding
-     rows gathered from it), Q6_K attn_v/ffn_down on 8 of 16 layers (K6),
-     Q4_K elsewhere (K1); no K5, as the JAX route;
+  B  the Q4_K_M mix llama.cpp writes, 8 of the 16 layers (B_LAYERS, cut
+     for the run's time: it repeats A's widths): tied Q6_K table
+     (K6 head, embedding rows gathered from it), Q6_K attn_v/ffn_down on the
+     layers `use_more_bits` picks (4 of 8, K6), Q4_K elsewhere (K1); no K5,
+     as the JAX route;
   C  qwen3moe at Qwen3-30B-A3B's widths, 8 of its 48 layers (C_LAYERS),
      in the Q4_K_M mix: q/k norms, NEOX rope, head_dim 128 (K2/K4 at
      D = 128, r = 8), per layer K8 for the gate and up experts and for a
@@ -93,6 +106,15 @@ so do C's, G's and D's:
      weights, a tied F16 table, no cut): every projection dense through K11
      (4 launches a layer: wqkv, wo, gate_up, down; no K1/K5/K6), the tied
      head torch.matmul, the embedding rows gathered from the same table;
+  E  Llama-3.1-8B's widths (hidden 4096, 32 / 8 heads of 128, ffn 14336,
+     vocab 128256, untied) as llama.cpp's Q8_0 conversion writes it, 8 of
+     32 layers (E_LAYERS), loaded under NFAI_Q8V3=1 and run with K4's
+     "headmajor" layout: 33 K12 a decode step (wqkv, wo, gate_up, down on
+     each layer, the head) and no K1/K5/K6/K11, K4-hm once a layer a
+     prefill chunk and no K4 "full"; its server path ("merged") K7 at
+     decode and K4's merged variant on the gathered pages;
+  E8  model E's GGUF on a second engine with EngineConfig(kv_dtype="int8"),
+     "headmajor": K4-hm's int8 entry point at prefill, K2-i8, K3, K10;
   A8  model A's GGUF on a second engine with EngineConfig(kv_dtype="int8"),
      loaded after A's phases and freed before B: int8 codes with f32
      scales; per decode step K2-i8 once per layer, K3 and K10 twice each,
@@ -138,8 +160,14 @@ INT8_TOL = 5e-2
 
 PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity")
 # main-path model -> make_llama_1b_gguf kind ("qwen3moe": make_qwen3moe_gguf)
-MODELS = {"A": "q4_k", "B": "q4_k_m", "C": "qwen3moe", "G": "gemma2_2b", "D": "f16"}
+MODELS = {"A": "q4_k", "B": "q4_k_m", "C": "qwen3moe", "G": "gemma2_2b", "D": "f16",
+          "E": "llama_8b_q8_0"}
 C_LAYERS = 8  # model C's depth: 8 of Qwen3-30B-A3B's 48 layers, every width kept
+E_LAYERS = 8  # model E's depth: 8 of Llama-3.1-8B's 32 layers, every width kept
+B_LAYERS = 8  # model B's depth, cut for the run's time: it repeats A's widths (16 layers)
+# model E runs under the JAX package's two opt-ins: NFAI_Q8V3=1 around its load,
+# and K4's layout per path ("headmajor" for its engine, "merged" for its server)
+E_LAYOUTS = {"E": "headmajor", "E8": "headmajor", "E server": "merged"}
 GEMMA3_PROMPT = 700  # the Gemma-3-1B copy's prompt: past its 512-token window
 PARITY_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied", "f16", "bf16", "llama_3b")
 DENSE_KINDS = ("f16", "bf16")  # every matmul weight dense: K11, no K1/K5/K6
@@ -422,6 +450,12 @@ def phase_kernels(torch, timer) -> dict:
     results.update(_kernels_k11(torch, timer, gen))
     results.update(_kernels_int8(torch, timer, gen, results))
     _kernels_gemma(torch, timer, gen, results)
+    results.update(_kernels_k12(torch, timer, gen))
+    layouts = _kernels_k4_layouts(torch, timer, gen)
+    # "merged" is K4's merged-lane instance: its cases join K4's (and K4-i8's) rows
+    results["prefill_attention"]["merged_cases"] = layouts.pop("merged")
+    results["prefill_attention_i8"]["merged_cases"] = layouts.pop("merged_i8")
+    results.update(layouts)
     return results
 
 
@@ -1172,16 +1206,205 @@ def _kernels_k11(torch, timer, gen) -> dict:
     )}
 
 
+def _kernels_k12(torch, timer, gen) -> dict:
+    """K12 (q8v3 matmul) at model E's projections (Llama-3.1-8B widths):
+    wqkv 4096 x 6144, wo 4096 x 4096, gate_up 4096 x 28672, down 14336 x
+    4096 at rows 1, 8, 256 and 1024, the untied head 4096 x 128256 at rows 1,
+    8 and 256 (Q8_0 codes, groups of 32, no mins), and wo at rows 8 and 256
+    in the other kinds the container takes (g16 without mins, as Q6_K/Q3_K;
+    g32 and g16 with mins, as Q5_K and Q2_K). Per input row against the
+    plain version; three launches with the same bits. In the same call: K6
+    on the same int8 codes (the container the switch replaces) and cuBLAS on
+    the dequantized bf16 weight (the library yardstick)."""
+    from nfai_tpu_torch.ops import qmatmul as qm
+    from nfai_tpu_torch.ops.qtensor import Q8Tensor, dequant, to_q8v3_stacked
+
+    bf = torch.bfloat16
+    shapes = {"wqkv": (4096, 6144), "wo": (4096, 4096), "gate_up": (4096, 28672),
+              "down": (14336, 4096), "lm_head": (4096, 128256)}
+    kinds = {"g16": (16, False), "g32 mins": (32, True), "g16 mins": (16, True)}
+    cases = []
+
+    def run(label, k, n, group, with_mins, rows):
+        qs = torch.randint(-128, 128, (n, k), dtype=torch.int8, device="cuda", generator=gen)
+        sc = torch.rand(n, k // group, device="cuda", generator=gen) * 2e-3 / 16 + 1e-5
+        mn = torch.rand(n, k // group, device="cuda", generator=gen) * 1e-2 if with_mins else None
+        w8 = Q8Tensor(qs, sc, mn, k, n, group)
+        w = to_q8v3_stacked(w8)
+        wd = dequant(w).to(bf)
+        for m in rows:
+            x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
+            got = qm.q8v3_matmul(x, w)
+            torch.cuda.synchronize()
+            err = check(f"K12 {label} M={m} K={k} N={n} g{group}{' mins' if with_mins else ''}",
+                        got, qm.q8v3_matmul_plain(x, w), row_dims=1)
+            if not all(torch.equal(qm.q8v3_matmul(x, w), got) for _ in range(2)):
+                raise AssertionError(f"K12 {label} M={m}: two launches on the same inputs differ")
+            ms = timer(lambda: qm.q8v3_matmul(x, w))
+            plain_ms = timer(lambda: qm.q8v3_matmul_plain(x, w), iters=3)
+            k6_ms = timer(lambda: qm.q8_matmul(x, w8))
+            lib_ms = timer(lambda: torch.matmul(x, wd.T))
+            nbytes = m * k * 2 + n * k + n * (k // group) * 2 * (2 if with_mins else 1) + m * n * 2
+            b, by = bound_ms(nbytes, 2.0 * m * n * k)
+            cases.append(dict(shape=f"{label} M={m}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b, bound_by=by, library_ms=lib_ms, k6_same_codes_ms=k6_ms))
+            log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, K6 on the same "
+                f"codes {k6_ms:.4f}, cuBLAS on dequantized bf16 {lib_ms:.4f})")
+        del qs, w8, w, wd
+
+    for label, (k, n) in shapes.items():
+        run(label, k, n, 32, False, (1, 8, 256) if label == "lm_head" else (1, 8, 256, 1024))
+    for label, (group, with_mins) in kinds.items():
+        run(f"wo {label}", 4096, 4096, group, with_mins, (8, 256))
+    return {"q8v3_matmul": dict(
+        route="cuda", source="nfai_tpu_torch/csrc/q8v3_matmul.cu",
+        replaces="nfai_tpu/ops/qmatmul.py:881", also_replaces=[],
+        headline=next(c for c in cases if c["shape"] == "gate_up M=8"), cases=cases,
+    )}
+
+
+# (label, Hq, Hkv, D, B, T, S, offset, softcap, window): model E's heads (32 / 8 of
+# 128) at the batch prefill's 8 x 128 chunk and a 256-token chunk at offsets 0
+# and 256; model A's heads (D = 64, "headmajor" only); model G's (8 / 4 of 256)
+# with softcap 50 and window 512
+LAYOUT_CASES = (("E B=8 T=128", 32, 8, 128, 8, 128, 1024, 0, 0.0, 0),
+                ("E B=1 T=256 offset 0", 32, 8, 128, 1, 256, 1024, 0, 0.0, 0),
+                ("E B=1 T=256 offset 256", 32, 8, 128, 1, 256, 1024, 256, 0.0, 0),
+                ("A D=64 B=1 T=256 offset 256", 32, 8, 64, 1, 256, 1024, 256, 0.0, 0),
+                ("G D=256 softcap window B=1 T=256 offset 768", 8, 4, 256, 1, 256, 1024, 768,
+                 50.0, 512))
+
+
+def _kernels_k4_layouts(torch, timer, gen) -> dict:
+    """K4 in the "headmajor" layout (K4-hm: its own entry points, the cache
+    copied to [B, Hkv, S, D]) and "merged" (K4's merged-lane instance under
+    its own variant label) at LAYOUT_CASES, bf16 and int8 (codes and scales
+    from quantize_kv): each against the plain version (per query token) and
+    against "full" on the same values; "merged" at D = 64 must raise. Timed
+    beside the plain version and SDPA over the head-major copy (int8:
+    dequantize, then SDPA)."""
+    import torch.nn.functional as nnf
+
+    from nfai_tpu_torch.ops import prefill_attention as pa
+
+    bf = torch.bfloat16
+    out = {name: [] for name in ("prefill_attention_hm", "prefill_attention_hm_i8",
+                                 "merged", "merged_i8")}
+    for label, hq, hkv, d, b, t, s, off, cap, win in LAYOUT_CASES:
+        kvd, scale = hkv * d, d**-0.5
+        q = torch.randn(b, t, hq, d, device="cuda", dtype=bf, generator=gen)
+        kc = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        vc = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        offs = torch.full((b,), off, dtype=torch.int32, device="cuda")
+        span = off + t
+        mask = (torch.arange(span, device="cuda")[None, :]
+                <= (off + torch.arange(t, device="cuda"))[:, None])
+        if win:
+            mask &= torch.arange(span, device="cuda")[None, :] > (
+                off + torch.arange(t, device="cuda"))[:, None] - win
+        qt = q.transpose(1, 2)
+        visible = int(mask.sum())
+        for quant in (False, True):
+            kw = dict(scale=scale, softcap=cap, window=win)
+            if quant:
+                (kq, ks), (vq, vs) = _kv_codes(torch, kc, hkv), _kv_codes(torch, vc, hkv)
+                kw.update(k_scales=ks, v_scales=vs)
+                kin, vin = kq, vq
+            else:
+                kin, vin = kc, vc
+            full = pa.flash_prefill_attention(q, kin, vin, offs, **kw)
+            kh, vh = pa.head_major(kin, hkv), pa.head_major(vin, hkv)
+            tag = f"{label}{' int8' if quant else ''}"
+            layouts = ("headmajor", "merged") if d % 128 == 0 else ("headmajor",)
+            if d % 128:
+                try:
+                    pa.flash_prefill_attention(q, kin, vin, offs, kv_layout="merged", **kw)
+                except ValueError:
+                    log(f"  K4 merged {tag}: refused (D % 128 != 0), as the JAX function")
+                else:
+                    raise AssertionError(f"K4 merged {tag}: D = {d} was not refused")
+            for layout in layouts:
+                kl, vl = (kh, vh) if layout == "headmajor" else (kin, vin)
+                run = lambda: pa.flash_prefill_attention(q, kl, vl, offs, kv_layout=layout, **kw)  # noqa: B023,E731
+                got = run()
+                torch.cuda.synchronize()
+                plain = lambda: pa.flash_prefill_attention_plain(  # noqa: B023,E731
+                    q, kl, vl, offs, scale, kw.get("k_scales"), kw.get("v_scales"), cap, win, layout)
+                err = check(f"K4 {layout} {tag}", got, plain(), INT8_TOL if quant else TOL, row_dims=2)
+                check(f"K4 {layout} {tag} against full", got, full, 1e-6, row_dims=2)
+                ms = timer(run)
+                plain_ms = timer(plain, iters=3)
+                if quant:  # the yardstick dequantizes, then SDPA
+                    def lib():
+                        kd = (kq.view(b, s, hkv, d).float() * ks.transpose(1, 2)[..., None]).to(bf)
+                        vd = (vq.view(b, s, hkv, d).float() * vs.transpose(1, 2)[..., None]).to(bf)
+                        return nnf.scaled_dot_product_attention(
+                            qt, kd[:, :span].transpose(1, 2), vd[:, :span].transpose(1, 2),
+                            attn_mask=mask, scale=scale, enable_gqa=True)
+                else:
+                    def lib():
+                        return nnf.scaled_dot_product_attention(
+                            qt, kh[:, :, :span], vh[:, :, :span], attn_mask=mask, scale=scale,
+                            enable_gqa=True)
+                lib_ms = timer(lib)
+                elem = 1 if quant else 2
+                nbytes = 2 * (2 * b * t * hq * d) + 2 * b * span * kvd * elem + (
+                    2 * 4 * b * hkv * span if quant else 0)
+                bb, by = bound_ms(nbytes, 4.0 * b * hq * d * visible)
+                key = ("prefill_attention_hm" if layout == "headmajor" else "merged") + (
+                    "_i8" if quant else "")
+                out[key].append(dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bb, bound_by=by, library_ms=lib_ms,
+                                     library="dequantize + SDPA" if quant else "SDPA"))
+                log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, "
+                    f"{'dequantize + ' if quant else ''}SDPA {lib_ms:.4f})")
+    src = "nfai_tpu_torch/csrc/prefill_attention.cu"
+    row = lambda cases: dict(route="cuda", source=src, replaces="nfai_tpu/ops/prefill_attention.py:70",  # noqa: E731
+                             also_replaces=["nfai_tpu/ops/prefill_attention.py:414"],
+                             headline=cases[0], cases=cases)
+    return {"prefill_attention_hm": row(out["prefill_attention_hm"]),
+            "prefill_attention_hm_i8": row(out["prefill_attention_hm_i8"]),
+            "merged": out["merged"], "merged_i8": out["merged_i8"]}
+
+
 # ---------------------------------------------------------------------------
 # phases: serve, batch, parity
 
 
-def phase_serve(torch, path, kv_dtype="auto") -> dict:
+class _Switches:
+    """NFAI_Q8V3 (read by load_params) and K4's layout (the port's
+    `_PREFILL_KV_LAYOUT`) set for a block and restored after it, so the
+    other models run as before."""
+
+    def __init__(self, q8v3: bool = False, layout: str | None = None):
+        self.q8v3, self.layout = q8v3, layout
+
+    def __enter__(self):
+        from nfai_tpu_torch.models import llama
+
+        self.saved = os.environ.get("NFAI_Q8V3"), llama._PREFILL_KV_LAYOUT
+        if self.q8v3:
+            os.environ["NFAI_Q8V3"] = "1"
+        if self.layout:
+            llama._PREFILL_KV_LAYOUT = self.layout
+
+    def __exit__(self, *exc):
+        from nfai_tpu_torch.models import llama
+
+        env, llama._PREFILL_KV_LAYOUT = self.saved
+        if env is None:
+            os.environ.pop("NFAI_Q8V3", None)
+        else:
+            os.environ["NFAI_Q8V3"] = env
+
+
+def phase_serve(torch, path, kv_dtype="auto", q8v3=False) -> dict:
     from nfai_tpu_torch.config import EngineConfig, SamplingParams
     from nfai_tpu_torch.runtime.engine import ChatSession, InferenceEngine
 
     t0 = time.perf_counter()
-    engine = InferenceEngine(path, EngineConfig(max_seq_len=1024, kv_dtype=kv_dtype), device="cuda")
+    with _Switches(q8v3=q8v3):
+        engine = InferenceEngine(path, EngineConfig(max_seq_len=1024, kv_dtype=kv_dtype), device="cuda")
     torch.cuda.synchronize()
     log(f"  loaded {engine.model_name}: {engine.model_cfg.n_layers} layers, kv_dtype {kv_dtype}, "
         f"hidden {engine.model_cfg.hidden_size}, vocab {engine.model_cfg.vocab_size} "
@@ -1220,12 +1443,14 @@ def phase_batch(torch, engine, kernels_mod) -> dict:
     tokens = torch.randint(0, 256, (b, t), device="cuda", generator=gen)
     positions = torch.arange(t, device="cuda")[None].expand(b, t).contiguous()
     torch.cuda.synchronize()
+    before = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
     t0 = time.perf_counter()
     logits, cache = prefill_step(engine.params, cfg, tokens, positions,
                                  torch.full((b,), t - 1, device="cuda"), cache)
     first = logits.argmax(-1)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    per_chunk = {k.name: k.launches - before[k.name] for k in kernels_mod.KERNELS.values()}
     pos = torch.full((b,), t, device="cuda")
     decode_loop(engine.params, cfg, first, pos, cache, gen, 2)  # warm-up steps
     torch.cuda.synchronize()
@@ -1240,7 +1465,8 @@ def phase_batch(torch, engine, kernels_mod) -> dict:
     syncs, where = _syncs_per_step(torch, engine, (first, pos + n, cache, gen))
     out = dict(prefill_ms=prefill_s * 1e3, prefill_tok_s=b * t / prefill_s,
                decode_ms_per_step=dec_s / n * 1e3, decode_tok_s=b * n / dec_s,
-               launches_per_step=per_step, host_syncs_per_step=syncs,
+               launches_per_step=per_step, launches_per_prefill_chunk=per_chunk,
+               host_syncs_per_step=syncs,
                decode_bound_ms={f"batch {bb}": _decode_bound_ms(engine, bb) for bb in (1, b)},
                cache_mb=cache.nbytes / 1e6, state=(first, pos + n + 2, cache, gen))
     log(f"  batch {b}, prompt {t}, S 1024: prefill {prefill_s * 1e3:.1f} ms "
@@ -1409,7 +1635,7 @@ def phase_profile(torch, engine, state, tables=None) -> dict:
     return out
 
 
-def phase_parity(torch, path2, kind, kv_dtypes=("auto",), param_dtype="auto") -> dict:
+def phase_parity(torch, path2, kind, kv_dtypes=("auto",), param_dtype="auto", q8v3=False) -> dict:
     """A 2-layer full-width copy on cuda and on cpu: prefill logits and 4
     teacher-forced decode steps; for the Q4_K kind also one prefill chunk
     of 1100 rows (above MLP_FUSED_MAX_ROWS: the mlp_prefill route; bf16
@@ -1417,19 +1643,35 @@ def phase_parity(torch, path2, kind, kv_dtypes=("auto",), param_dtype="auto") ->
     page pool. For "int8" in kv_dtypes the same engines run it again with
     int8 caches on both sides (K2/K4/K7 through their int8 entry points and
     K10 on the card). With a `param_dtype` other than "auto" every matmul
-    weight is dequantized at load. Returns the result of each run by
+    weight is dequantized at load; with `q8v3` both engines load under
+    NFAI_Q8V3=1 (model B's mix: its Q6_K layers on K12, its tied head on K6). Returns the result of each run by
     name."""
     from nfai_tpu_torch.config import EngineConfig
     from nfai_tpu_torch.runtime.engine import InferenceEngine
 
     torch.set_num_threads(os.cpu_count() or 8)
     config = EngineConfig(max_seq_len=256, param_dtype=param_dtype)
-    engines = {dev: InferenceEngine(path2, config, device=dev) for dev in ("cuda", "cpu")}
+    with _Switches(q8v3=q8v3):
+        engines = {dev: InferenceEngine(path2, config, device=dev) for dev in ("cuda", "cpu")}
     ids = engines["cpu"].tokenizer.encode("Parity between the card and the plain versions.")
     name = kind if param_dtype == "auto" else f"{kind} param_dtype {param_dtype}"
-    return {name if kv == "auto" else f"{name} {kv}": _parity_run(
+    name += " NFAI_Q8V3=1" if q8v3 else ""
+    out = {name if kv == "auto" else f"{name} {kv}": _parity_run(
         torch, engines, ids, kind, kv == "int8", dense=kind in DENSE_KINDS or param_dtype != "auto")
         for kv in kv_dtypes}
+    if q8v3:  # B's mix: the Q6_K layers of its LayerLists on K12, the tied Q6_K head on K6
+        from nfai_tpu_torch.ops.qtensor import LayerList, Q8Tensor, Q8V3Tensor
+
+        lp = engines["cuda"].params["layers"]
+        mixed = [k for k, w in lp.items() if isinstance(w, LayerList)]
+        launches = out[name]["launches"]
+        log(f"  {name}: LayerLists {mixed}, their kinds "
+            f"{ {k: [type(it).__name__ for it in lp[k].items] for k in mixed} }; launches {launches}")
+        if not mixed or not all(any(isinstance(it, Q8V3Tensor) for it in lp[k].items) for k in mixed) \
+                or not isinstance(engines["cuda"].params["lm_head"], Q8Tensor) \
+                or launches["q8v3_matmul"] <= 0 or launches["q8_matmul"] <= 0:
+            raise AssertionError(f"{name}: the Q6_K layers are not on K12 or the tied head not on K6")
+    return out
 
 
 def _parity_run(torch, engines, ids, kind, quant, dense=False) -> dict:
@@ -1708,6 +1950,77 @@ def _paged_parity(torch, engines, ids, compare, quant) -> None:
                 torch.tensor([pos], device=dev), pools[dev], page_tables=tables[dev])
         compare(f"paged decode step {step} logits", logits)
         pos += 1
+
+
+def _e_steps(torch, e, ids, paged, quant) -> list:
+    """Prefill logits and 4 teacher-forced decode steps of engine `e`, on a
+    dense cache or through a shuffled 2-page table of a 12-page pool."""
+    from nfai_tpu_torch.models import KVCache, decode_step, paged_prefill_step
+    from nfai_tpu_torch.runtime.paged_cache import PagedKVCache
+
+    dev, cfg, n = e.device, e.model_cfg, len(ids)
+    if paged:
+        table = (torch.randperm(11, generator=torch.Generator().manual_seed(2))[:2] + 1)
+        table = table.view(1, 2).to(torch.int32).to(dev)
+        cache = PagedKVCache.zeros(cfg, 12, 128, e.cache_dtype, dev, quantized=quant)
+        logits, cache = paged_prefill_step(
+            e.params, cfg, torch.tensor([ids], device=dev), torch.arange(n, device=dev)[None],
+            torch.tensor([n - 1], device=dev), cache, table)
+    else:
+        table = None
+        logits, cache = e.prefill(KVCache.zeros(cfg, 1, 256, e.cache_dtype, dev, quantized=quant), ids)
+    out = [logits]
+    for step, tok in enumerate((17, 99, 200, 42)):
+        logits, cache = decode_step(e.params, cfg, torch.tensor([tok], device=dev),
+                                    torch.tensor([n + step], device=dev), cache, page_tables=table)
+        out.append(logits)
+    return out
+
+
+def phase_parity_e(torch, kernels_mod, path2) -> dict:
+    """Model E's 2-layer copy (Llama-3.1-8B widths, Q8_0, untied) loaded
+    under NFAI_Q8V3=1 on cuda and on cpu: the prefill logits and 4
+    teacher-forced decode steps, "headmajor" dense and paged on bf16 and
+    int8 caches (within TOL and INT8_TOL: each device quantizes its own
+    K/V), "merged" dense on bf16. The CPU's plain K4 reads every layout the
+    same way, so its runs are shared between the layouts. On the card K12,
+    K4-hm (bf16 and int8) and K4's merged variant must launch, and no K1,
+    K6 or K11."""
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.ops.qtensor import Q8V3Tensor
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    torch.set_num_threads(os.cpu_count() or 8)
+    with _Switches(q8v3=True):
+        engines = {dev: InferenceEngine(path2, EngineConfig(max_seq_len=256), device=dev)
+                   for dev in ("cuda", "cpu")}
+    if not all(isinstance(e.params["lm_head"], Q8V3Tensor) for e in engines.values()):
+        raise AssertionError("the E copy did not load its q8v3 head")
+    ids = engines["cpu"].tokenizer.encode("Parity between the card and the plain versions.")
+    ref, out = {}, {}
+    kernels_mod.reset_launches()
+    runs = (("headmajor", False, False), ("headmajor", True, False), ("headmajor", False, True),
+            ("headmajor", True, True), ("merged", False, False))
+    for layout, paged, quant in runs:
+        tag = f"E copy {layout} {'paged' if paged else 'dense'}{' int8 cache' if quant else ''}"
+        with _Switches(layout=layout):
+            if (paged, quant) not in ref:
+                ref[(paged, quant)] = _e_steps(torch, engines["cpu"], ids, paged, quant)
+            got = _e_steps(torch, engines["cuda"], ids, paged, quant)
+        rels = []
+        for step, (g, w) in enumerate(zip(got, ref[(paged, quant)])):
+            what = "prefill logits" if step == 0 else f"decode step {step - 1} logits"
+            check(f"{tag} {what}", g, w, INT8_TOL if quant else TOL)
+            rels.append(errors(g, w)[1])
+        out[tag] = {"max_rel_err": max(rels)}
+    launches = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
+    variants = {k.name: dict(k.variants) for k in kernels_mod.KERNELS.values() if k.variants}
+    log(f"  E copy launches: {launches}; attention variants {variants}")
+    if any(launches[k] <= 0 for k in ("q8v3_matmul", "prefill_attention_hm", "prefill_attention_hm_i8")) \
+            or variants.get("prefill_attention", {}).get("merged D=128", 0) <= 0 \
+            or any(launches[k] for k in ("q4_matmul", "q8_matmul", "dense_matmul")):
+        raise AssertionError(f"the E copy did not take its routes: {launches}, {variants}")
+    return out
 
 
 def _pcts(xs) -> dict:
@@ -2033,6 +2346,9 @@ def phase_server(torch, engine, kernels_mod, route="server", n_http=8) -> tuple[
 
 # kernels each main path must launch, and those its route must not
 INT8 = {"decode_attention_i8", "kv_write_t", "prefill_attention_i8", "paged_attention_i8"}
+# the q8v3 and head-major kernels, off every route but model E's: K12 and K4's
+# head-major entry points
+Q8V3_HM = {"q8v3_matmul", "prefill_attention_hm", "prefill_attention_hm_i8"}
 ROUTES = {
     "A": ({"q4_matmul", "decode_attention", "kv_write", "prefill_attention", "fused_mlp"},
           {"q8_matmul", "paged_attention", "grouped_q4", "grouped_q8"} | INT8),
@@ -2064,7 +2380,26 @@ ROUTES = {
     "D server": ({"dense_matmul", "paged_attention", "prefill_attention"},
                  {"decode_attention", "kv_write", "q4_matmul", "q8_matmul", "fused_mlp",
                   "grouped_q4", "grouped_q8"} | INT8),
+    # model E under NFAI_Q8V3=1: K12 for every projection and the head; K4-hm
+    # for prefill ("headmajor"), never K4 "full"
+    "E": ({"q8v3_matmul", "decode_attention", "kv_write", "prefill_attention_hm"},
+          {"q4_matmul", "q8_matmul", "fused_mlp", "dense_matmul", "prefill_attention",
+           "paged_attention", "grouped_q4", "grouped_q8", "prefill_attention_hm_i8"} | INT8),
+    # E8: model E's GGUF on an int8 cache: K4-hm's int8 entry point, K2-i8, K10
+    "E8": ({"q8v3_matmul", "decode_attention_i8", "kv_write", "kv_write_t",
+            "prefill_attention_hm_i8"},
+           {"q4_matmul", "q8_matmul", "fused_mlp", "dense_matmul", "decode_attention",
+            "prefill_attention", "prefill_attention_i8", "prefill_attention_hm",
+            "paged_attention", "paged_attention_i8", "grouped_q4", "grouped_q8"}),
+    # E server ("merged"): K7 at decode, K4's merged-lane instance on the gathered pages
+    "E server": ({"q8v3_matmul", "paged_attention", "prefill_attention"},
+                 {"decode_attention", "kv_write", "q4_matmul", "q8_matmul", "fused_mlp",
+                  "dense_matmul", "prefill_attention_hm", "prefill_attention_hm_i8",
+                  "grouped_q4", "grouped_q8"} | INT8),
 }
+for _path, (_must, _must_not) in ROUTES.items():
+    if not _path.startswith("E"):
+        _must_not |= Q8V3_HM
 
 
 # attention variants a path must launch (`Kernel.variants`): model G's layers
@@ -2073,6 +2408,9 @@ GEMMA2_VARIANTS = ("D=256 softcap window", "D=256 softcap")
 VARIANTS = {
     "G": {"decode_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS},
     "G server": {"paged_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS},
+    "E": {"prefill_attention_hm": ("D=128",)},
+    "E8": {"prefill_attention_hm_i8": ("D=128",)},
+    "E server": {"prefill_attention": ("merged D=128",)},
 }
 
 
@@ -2109,6 +2447,34 @@ def _check_moe_step(engine, per_step) -> None:
     log(f"  model C per-step grouped launches {got}, route implies {want}")
     if got != want or not 0 < q4_down < cfg.n_layers:
         raise AssertionError(f"model C: grouped launches per step {got}, route implies {want}")
+
+
+def _check_e_step(engine, batch, quant=False) -> None:
+    """Model E's decode step launches 4 K12 a layer (wqkv, wo, gate_up, down)
+    and one for the head, K2 a layer and K3 twice, and no other matmul
+    kernel, with no host sync; a prefill chunk K4-hm once a layer and no K4
+    "full". On the int8 cache (E8): K2-i8 a layer, K3 and K10 twice each,
+    K4-hm-i8 once a layer a chunk."""
+    from nfai_tpu_torch.ops.qtensor import Q8V3Tensor
+
+    n = engine.model_cfg.n_layers
+    if not isinstance(engine.params["lm_head"], Q8V3Tensor) or not all(
+            isinstance(engine.params["layers"][k], Q8V3Tensor)
+            for k in ("wqkv", "wo", "w_gate_up", "w_down")):
+        raise AssertionError("model E did not load its q8v3 containers")
+    step, chunk = batch["launches_per_step"], batch["launches_per_prefill_chunk"]
+    i8 = "_i8" if quant else ""
+    want = {"q8v3_matmul": 4 * n + 1, f"decode_attention{i8}": n, "kv_write": 2, "q4_matmul": 0,
+            "q8_matmul": 0, "fused_mlp": 0, "dense_matmul": 0, **({"kv_write_t": 2} if quant else {})}
+    got = {k: step[k] for k in want}
+    want_chunk = {f"prefill_attention_hm{i8}": n, f"prefill_attention{i8}": 0,
+                  "q8v3_matmul": 4 * n + 1}
+    got_chunk = {k: chunk[k] for k in want_chunk}
+    log(f"  model E{'8' if quant else ''} per decode step {got}, per prefill chunk {got_chunk}")
+    if got != want or got_chunk != want_chunk or batch["host_syncs_per_step"] != 0:
+        raise AssertionError(f"model E: per decode step {got}, per prefill chunk {got_chunk} and "
+                             f"{batch['host_syncs_per_step']} host syncs; the route implies {want}, "
+                             f"{want_chunk} and none")
 
 
 def _paged_server_run(torch, engine, label) -> dict:
@@ -2157,14 +2523,18 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
         path = make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe.gguf"), n_layers=C_LAYERS)
     elif kind == "gemma2_2b":
         path = make_gemma2_2b_gguf(os.path.join(tmp, "gemma2_2b.gguf"))
+    elif kind == "llama_8b_q8_0":
+        path = make_llama_1b_gguf(os.path.join(tmp, "llama8b_q8_0.gguf"), kind=kind, n_layers=E_LAYERS)
     else:
-        path = make_llama_1b_gguf(os.path.join(tmp, f"llama1b_{kind}.gguf"), kind=kind)
+        path = make_llama_1b_gguf(os.path.join(tmp, f"llama1b_{kind}.gguf"), kind=kind,
+                                  n_layers=B_LAYERS if label == "B" else None)
     log(f"model {label} ({kind}): wrote {path.stat().st_size / 2**30:.2f} GiB GGUF "
         f"in {time.perf_counter() - t0:.1f}s")
     by_path = _drive_model(torch, kernels_mod, label, path, only, summary, phase_s)
-    if label == "A":
-        log(f"model A8 ({kind}, kv_dtype int8): a second engine on model A's GGUF")
-        by_path.update(_drive_model(torch, kernels_mod, "A8", path, only, summary, phase_s, "int8"))
+    if label in ("A", "E"):
+        log(f"model {label}8 ({kind}, kv_dtype int8): a second engine on model {label}'s GGUF")
+        by_path.update(_drive_model(torch, kernels_mod, f"{label}8", path, only, summary, phase_s,
+                                    "int8"))
     os.remove(path)
     return by_path
 
@@ -2174,10 +2544,15 @@ def _drive_model(torch, kernels_mod, label, path, only, summary, phase_s, kv_dty
     counts zeroed just before; the counts read just after are checked
     against the model's route. Model A's engine (and A8's) then runs the
     server phase, models C's and G's their paged BatchEngine."""
+    with _Switches(layout=E_LAYOUTS.get(label)):
+        return _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dtype)
+
+
+def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dtype) -> dict:
     out = {}
     kernels_mod.reset_launches()
     t0 = time.perf_counter()
-    served = phase_serve(torch, path, kv_dtype)
+    served = phase_serve(torch, path, kv_dtype, q8v3=label in ("E", "E8"))
     engine = served["engine"]
     out["requests"] = served["requests"]
     phase_s[f"serve {label}"] = time.perf_counter() - t0
@@ -2215,6 +2590,8 @@ def _drive_model(torch, kernels_mod, label, path, only, summary, phase_s, kv_dty
             raise AssertionError("model B: no K6 launch in a decode step")
         if label == "C":
             _check_moe_step(engine, per_step)
+        if label in ("E", "E8"):  # K12 for wqkv, wo, gate_up, down and the head; K4-hm once a layer a chunk
+            _check_e_step(engine, out["batch"], quant=label == "E8")
         if label == "D":  # K11 for wqkv, wo, gate_up and down on every layer, nothing else
             want = {"dense_matmul": 4 * n_layers, "q4_matmul": 0, "q8_matmul": 0, "fused_mlp": 0}
             got = {k: per_step[k] for k in want}
@@ -2234,11 +2611,16 @@ def _drive_model(torch, kernels_mod, label, path, only, summary, phase_s, kv_dty
             log(f"  BatchEngine pool: int8 {summary[name]['batch_engine']['pool_mb']:.1f} MB (codes and "
                 f"scales) against bf16 {bf16:.1f} MB (server)")
         phase_s[name] = time.perf_counter() - t0
-    if label in ("C", "G", "D") and "server" in only:
+    if label in ("C", "G", "D", "E") and "server" in only:
         t0 = time.perf_counter()
         kernels_mod.reset_launches()
-        summary[f"server {label}"] = _paged_server_run(torch, engine, label)
+        with _Switches(layout=E_LAYOUTS.get(f"{label} server")):
+            summary[f"server {label}"] = _paged_server_run(torch, engine, label)
         by_path[f"{label} server"] = _check_route(kernels_mod, f"{label} server", f"model {label}'s server path")
+        if label == "E":  # every K4 launch of the path on the merged-lane instance
+            k4 = PATH_VARIANTS["E server"].get("prefill_attention", {})
+            if not k4 or any(not v.startswith("merged") for v in k4):
+                raise AssertionError(f"E server: K4 launched {k4}, not only its merged variant")
         phase_s[f"server {label}"] = time.perf_counter() - t0
     del served, engine
     torch.cuda.empty_cache()
@@ -2300,7 +2682,9 @@ def main(argv=None) -> int:
         if "parity" in only:
             t0 = time.perf_counter()
             summary["parity"] = {}
+            timed = lambda name, t: phase_s.__setitem__(f"parity {name}", time.perf_counter() - t)  # noqa: E731
             for kind in PARITY_KINDS:
+                t1 = time.perf_counter()
                 path2 = make_llama_1b_gguf(os.path.join(tmp, f"llama1b_2l_{kind}.gguf"),
                                            kind=kind, n_layers=2)
                 # the Q4_K copy also with an int8 cache on both sides
@@ -2309,16 +2693,29 @@ def main(argv=None) -> int:
                 if kind in PARITY_PARAM_DTYPE:
                     summary["parity"].update(phase_parity(
                         torch, path2, kind, param_dtype=PARITY_PARAM_DTYPE[kind]))
+                if kind == "q4_k_m":  # model B's mix under NFAI_Q8V3=1
+                    summary["parity"].update(phase_parity(torch, path2, kind, q8v3=True))
                 os.remove(path2)
+                timed(kind, t1)
+            t1 = time.perf_counter()
+            path2 = make_llama_1b_gguf(os.path.join(tmp, "llama8b_2l_q8_0.gguf"),
+                                       kind="llama_8b_q8_0", n_layers=2)
+            summary["parity"].update(phase_parity_e(torch, kernels_mod, path2))
+            os.remove(path2)
+            timed("E", t1)
+            t1 = time.perf_counter()
             path2 = make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe_2l.gguf"), n_layers=2)
             summary["parity"].update(phase_parity_moe(torch, path2, ("auto", "int8")))
             summary["parity"].update(phase_parity_moe(torch, path2, param_dtype="bfloat16"))
             os.remove(path2)
+            timed("qwen3moe", t1)
             for kind in GEMMA3_1B_KINDS:
+                t1 = time.perf_counter()
                 path2 = make_gemma3_1b_gguf(os.path.join(tmp, f"gemma3_1b_2l_{kind}.gguf"),
                                             n_layers=2, kind=kind)
                 summary["parity"].update(phase_parity_gemma3(torch, kernels_mod, path2, kind))
                 os.remove(path2)
+                timed(f"gemma3 {kind}", t1)
             phase_s["parity"] = time.perf_counter() - t0
         log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "
             f"total {time.perf_counter() - t_all:.1f}")
@@ -2337,7 +2734,8 @@ def main(argv=None) -> int:
                     bound_ms=h["bound_ms"], bound_by=h["bound_by"],
                     library_ms=h["library_ms"], shape=h["shape"],
                     **{key: h[key] for key in ("bound_gguf_ms", "replaced_route_ms", "library",
-                                               "k2_same_shape_ms") if key in h},
+                                               "k2_same_shape_ms", "k6_same_codes_ms") if key in h},
+                    **({"merged": r["merged_cases"][0]} if r.get("merged_cases") else {}),
                 ))
             log(json.dumps({"kernels": rows}))
     finally:

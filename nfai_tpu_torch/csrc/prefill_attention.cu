@@ -9,7 +9,18 @@
 // Replaces nfai_tpu/ops/prefill_attention.py::flash_prefill_attention with
 // kv_layout="full" (_prefill_kernel_full), softcap (:232-233) and sliding
 // window (tile skip :200-202, mask :217-219) included: q [B, T, Hq, D],
-// cache [B, S, Hkv*D] read in place (no head-major transpose).
+// cache [B, S, Hkv*D] read in place (no head-major transpose). The same
+// kernel serves its kv_layout="headmajor" and "merged" calls (_prefill_kernel,
+// the pallas_call at :414): the K/V tile loads are a template on the
+// addressing (HM). "headmajor" reads a [B, Hkv, S, D] cache, a key row at
+// ((b * Hkv + h) * S + s) * D (entry points nfai_prefill_attention_hm and
+// _hm_i8, their own launch counters); "merged" reads the native merged-lane
+// rows one head at a time, which is what every block here already does (one
+// block per query tile, kv head and batch row, loading that head's D
+// columns of each key row: _prefill_kernel's grid over the merged BlockSpec
+// (bb, kk, h)), so it launches this merged-lane instance, counted under its
+// own variant label by the wrapper. A head-major K or V tile is one
+// contiguous 64 * D * 2-byte run (a TMA candidate; later work).
 //
 // What bounds it on an H100: operations once T is large (4*T*span*D flops
 // per head against one read of the span's K/V); at T = 16 bytes.
@@ -92,12 +103,20 @@ __device__ __forceinline__ void i8x16_to_bf16(const uint4& u, __nv_bfloat16* dst
   reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(h2)[1];
 }
 
+// the element offset of key row s of kv head h, batch row b: merged-lane
+// rows (b, s, h * D) or head-major rows ((b * Hkv + h) * S + s) * D
+template <bool HM, int D>
+__device__ __forceinline__ size_t key_offset(int b, int h, int s, int S, int hkv, int kvd) {
+  if constexpr (HM) return (((size_t)b * hkv + h) * S + s) * D;
+  return ((size_t)b * S + s) * kvd + (size_t)h * D;
+}
+
 // KV: the cache element, __nv_bfloat16 or int8_t (then ks/vs are read);
-// EXT: softcap (> 0) and window (> 0) are read
-template <int D, typename KV, bool EXT>
+// EXT: softcap (> 0) and window (> 0) are read; HM: the cache is head-major
+template <int D, typename KV, bool EXT, bool HM>
 __global__ void __launch_bounds__(128)
 prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
-                    const KV* __restrict__ kc,             // [B, S, KVD]
+                    const KV* __restrict__ kc,             // [B, S, KVD] ([B, Hkv, S, D] if HM)
                     const KV* __restrict__ vc,
                     const float* __restrict__ ks,          // [B, Hkv, S] (int8 only)
                     const float* __restrict__ vs,
@@ -153,7 +172,7 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
     if constexpr (Q) {
       for (int e = tid; e < BS * (D / 16); e += 128) {
         const int sr = e / (D / 16), c = (e % (D / 16)) * 16;
-        const size_t g = ((size_t)b * S + s0 + sr) * kvd + h * D + c;
+        const size_t g = key_offset<HM, D>(b, h, s0 + sr, S, hkv, kvd) + c;
         i8x16_to_bf16(__ldg(reinterpret_cast<const uint4*>(kc + g)), &KPs[sr * LDH + c]);
         i8x16_to_bf16(__ldg(reinterpret_cast<const uint4*>(vc + g)), &Vs[sr * LDH + c]);
       }
@@ -165,7 +184,7 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
     } else {
       for (int e = tid; e < BS * (D / 8); e += 128) {
         const int sr = e / (D / 8), c = (e % (D / 8)) * 8;
-        const size_t g = ((size_t)b * S + s0 + sr) * kvd + h * D + c;
+        const size_t g = key_offset<HM, D>(b, h, s0 + sr, S, hkv, kvd) + c;
         *reinterpret_cast<uint4*>(&KPs[sr * LDH + c]) = __ldg(reinterpret_cast<const uint4*>(kc + g));
         *reinterpret_cast<uint4*>(&Vs[sr * LDH + c]) = __ldg(reinterpret_cast<const uint4*>(vc + g));
       }
@@ -289,19 +308,19 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
   }
 }
 
-template <int D, typename KV, bool EXT>
+template <int D, typename KV, bool EXT, bool HM>
 int launch(const void* q, const void* kc, const void* vc, const void* ks, const void* vs,
            const void* offsets, void* out, int B, int T, int S, int hkv, int r, float scale,
            float softcap, int window, cudaStream_t st) {
   constexpr size_t smem = Tiles<D>::BYTES;
   if constexpr (smem > 48 * 1024) {  // once per process: above the default limit
     static const cudaError_t err = cudaFuncSetAttribute(
-        prefill_attn_kernel<D, KV, EXT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        prefill_attn_kernel<D, KV, EXT, HM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int tt = ROWS / r;
   dim3 grid((T + tt - 1) / tt, hkv, B), block(128);
-  prefill_attn_kernel<D, KV, EXT><<<grid, block, smem, st>>>(
+  prefill_attn_kernel<D, KV, EXT, HM><<<grid, block, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kc),
       static_cast<const KV*>(vc), static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(offsets), static_cast<__nv_bfloat16*>(out), T, S, hkv, r, scale,
@@ -309,23 +328,23 @@ int launch(const void* q, const void* kc, const void* vc, const void* ks, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename KV, bool EXT>
+template <typename KV, bool EXT, bool HM>
 int dispatch_d(const void* q, const void* kc, const void* vc, const void* ks, const void* vs,
                const void* offsets, void* out, int B, int T, int S, int hkv, int r, int d,
                float scale, float softcap, int window, cudaStream_t st) {
   if (d == 64)
-    return launch<64, KV, EXT>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, scale, softcap,
+    return launch<64, KV, EXT, HM>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, scale, softcap,
                                window, st);
   if (d == 128)
-    return launch<128, KV, EXT>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, scale, softcap,
+    return launch<128, KV, EXT, HM>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, scale, softcap,
                                 window, st);
   if (d == 256)
-    return launch<256, KV, EXT>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, scale, softcap,
+    return launch<256, KV, EXT, HM>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, scale, softcap,
                                 window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename KV>
+template <typename KV, bool HM>
 int dispatch(const void* q, const void* kc, const void* vc, const void* ks, const void* vs,
              const void* offsets, void* out, int B, int T, int S, int hkv, int r, int d,
              float scale, float softcap, int window, void* stream) {
@@ -333,9 +352,9 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* ks, cons
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (softcap > 0.f || window > 0)
-    return dispatch_d<KV, true>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, d, scale,
+    return dispatch_d<KV, true, HM>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, d, scale,
                                 softcap, window, st);
-  return dispatch_d<KV, false>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, d, scale, 0.f,
+  return dispatch_d<KV, false, HM>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, d, scale, 0.f,
                                0, st);
 }
 
@@ -349,8 +368,8 @@ extern "C" int nfai_prefill_attention(const void* q, const void* kc,
                                       void* out, int B, int T, int S, int hkv,
                                       int r, int d, float scale, float softcap,
                                       int window, void* stream) {
-  return dispatch<__nv_bfloat16>(q, kc, vc, nullptr, nullptr, offsets, out, B, T, S, hkv, r, d,
-                                 scale, softcap, window, stream);
+  return dispatch<__nv_bfloat16, false>(q, kc, vc, nullptr, nullptr, offsets, out, B, T, S, hkv,
+                                        r, d, scale, softcap, window, stream);
 }
 
 // The int8 cache: kc/vc [B, S, Hkv*D] int8 codes, ks/vs [B, Hkv, S] f32
@@ -361,6 +380,29 @@ extern "C" int nfai_prefill_attention_i8(const void* q, const void* kc,
                                          void* out, int B, int T, int S, int hkv,
                                          int r, int d, float scale, float softcap,
                                          int window, void* stream) {
-  return dispatch<int8_t>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, d, scale, softcap,
-                          window, stream);
+  return dispatch<int8_t, false>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, d, scale,
+                                 softcap, window, stream);
+}
+
+// kv_layout "headmajor": kc/vc [B, Hkv, S, D] bf16; the rest as
+// nfai_prefill_attention.
+extern "C" int nfai_prefill_attention_hm(const void* q, const void* kc,
+                                         const void* vc, const void* offsets,
+                                         void* out, int B, int T, int S, int hkv,
+                                         int r, int d, float scale, float softcap,
+                                         int window, void* stream) {
+  return dispatch<__nv_bfloat16, true>(q, kc, vc, nullptr, nullptr, offsets, out, B, T, S, hkv,
+                                       r, d, scale, softcap, window, stream);
+}
+
+// kv_layout "headmajor" on the int8 cache: kc/vc [B, Hkv, S, D] int8 codes,
+// ks/vs [B, Hkv, S] f32 scales; the rest as nfai_prefill_attention_i8.
+extern "C" int nfai_prefill_attention_hm_i8(const void* q, const void* kc,
+                                            const void* vc, const void* ks,
+                                            const void* vs, const void* offsets,
+                                            void* out, int B, int T, int S, int hkv,
+                                            int r, int d, float scale, float softcap,
+                                            int window, void* stream) {
+  return dispatch<int8_t, true>(q, kc, vc, ks, vs, offsets, out, B, T, S, hkv, r, d, scale,
+                                softcap, window, stream);
 }

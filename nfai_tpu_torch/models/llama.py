@@ -79,6 +79,26 @@ its own container, where a stack mixes kinds). The cache is updated in
 place. `decode_loop` is a Python loop over steps (the JAX version is one
 jitted scan; capturing the step as a CUDA graph is later work).
 
+Two opt-ins of the JAX package are read from the same environment
+variables at the same points, with no config field, as there:
+
+- ``NFAI_Q8V3`` (not "0"): `load_params` repacks every 8-bit layer stack
+  that the JAX `q8v3_eligible` would take (groups of 16 or 32, K % 2048 ==
+  0, no expert stack) and an untied 8-bit head into `Q8V3Tensor`, after the
+  stacks are built (the NORM→NEOX rows and the fusions stay on `Q8Tensor`);
+  they run through K12 (`ops.qmatmul.q8v3_matmul`). A tied 8-bit table stays
+  a `Q8Tensor` on K6 (the embedding rows are gathered from it). In a
+  `LayerList` the 8-bit layers are repacked and the 4-bit ones stay on K1,
+  where the JAX package promotes the whole stack to 8 bits first: the same
+  function.
+- ``NFAI_PREFILL_KV`` → `_PREFILL_KV_LAYOUT`, read once at import ("full"
+  by default): the kv_layout of K4 at both prefill call sites, the dense
+  prefill and the paged prefill on gathered pages, bf16 and int8 caches.
+  Under "headmajor" the caller makes the [B, Hkv, S, D] copy of each
+  layer's K and V (the scales stay [B, Hkv, S]), as the JAX
+  `_cached_attention` does; "merged" needs head_dim % 128 == 0. Any other
+  value raises at use, where the JAX package silently runs "headmajor".
+
 Dense weights follow the JAX package's decisions: a matmul weight stays
 quantized only where its kind has a container (Q4_0/Q4_1/Q4_K, Q8_0,
 Q2_K/Q3_K/Q5_K/Q6_K), K % 64 == 0, N % 128 == 0 and the engine's
@@ -100,6 +120,7 @@ features (biases, pre-fused tensors) raise NotImplementedError.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -113,11 +134,11 @@ from ..ops.fused_mlp import (
 )
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import gather_pages, paged_decode_attention
-from ..ops.prefill_attention import flash_prefill_attention
+from ..ops.prefill_attention import flash_prefill_attention, head_major
 from ..ops.qmatmul import linear, linear_layered, qmatmul_grouped
 from ..ops.qtensor import (
-    SUPPORTED_QUANT_TYPES, concat, dequant_gather, from_jax_qtensor, n_layers,
-    pack_gguf_tensor, permute_rows, same_layout, stack,
+    SUPPORTED_QUANT_TYPES, LayerList, concat, dequant_gather, from_jax_qtensor, n_layers,
+    pack_gguf_tensor, permute_rows, q8v3_eligible, same_layout, stack, to_q8v3_stacked,
 )
 from ..ops.rope import (
     apply_rope_cs, compute_inv_freq, inv_freq_from_factors, norm_to_neox_perm,
@@ -128,6 +149,10 @@ from ..runtime.paged_cache import PagedKVCache, flat_slots, scatter_rows
 
 
 ARCHS = frozenset({"llama", "qwen3", "qwen3moe", "gemma", "gemma2", "gemma3"})
+# "full" feeds K4 the native merged-lane [B, S, KVD] cache; "headmajor" a
+# per-layer [B, Hkv, S, D] copy; "merged" the native rows one head at a
+# time (the JAX package's NFAI_PREFILL_KV, read at import as there)
+_PREFILL_KV_LAYOUT = os.environ.get("NFAI_PREFILL_KV", "full")
 GEMMA = ("gemma", "gemma2", "gemma3")
 # llama.cpp's 27B detection by depth: only these scale q by (hidden // heads)^-0.5
 GEMMA_27B_LAYERS = {"gemma2": 46, "gemma3": 62}
@@ -407,6 +432,29 @@ def _params(embed, layers: dict, final_norm, lm_head, inv_freq, inv_freq_local, 
     return out
 
 
+def _q8v3_on() -> bool:
+    return os.environ.get("NFAI_Q8V3", "0") != "0"
+
+
+def _repack_q8v3(layers: dict, device) -> dict:
+    """The JAX `repack` under NFAI_Q8V3: every eligible 8-bit layer stack
+    (or 8-bit layer of a LayerList) → `Q8V3Tensor`, repacked on `device`;
+    expert stacks and every other weight as they are."""
+
+    def repack(w):
+        return to_q8v3_stacked(w.to(device)) if q8v3_eligible(w) else w
+
+    out = {}
+    for key, w in layers.items():
+        if key.endswith("_exps"):
+            out[key] = w
+        elif isinstance(w, LayerList):
+            out[key] = LayerList([repack(it) for it in w.items])
+        else:
+            out[key] = repack(w)
+    return out
+
+
 def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
                 device="cpu", quantized: bool = True) -> dict:
     """GGUF → params dict on `device`. With `quantized` (the engine's
@@ -435,6 +483,9 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
       ``inv_freq`` f32, and gemma3's ``inv_freq_local`` (its local layers' base, without
       the global layers' rope scaling, as the JAX package computes it);
     - ``act_dtype`` (`dtype`) and ``fused_mlp`` (whether the MLP takes K5).
+
+    Under ``NFAI_Q8V3`` (not "0") the eligible 8-bit stacks and an untied
+    8-bit head are `Q8V3Tensor`s (module doc).
     """
 
     def mat(name: str):
@@ -487,7 +538,12 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
     else:
         embed = torch.from_numpy(g.tensor_f32("token_embd.weight"))
         lm_head = mat("output.weight")
-    return _params(embed, _stack_layers(per_layer), vec("output_norm.weight"), lm_head,
+        if _q8v3_on() and q8v3_eligible(lm_head):  # an untied 8-bit head: no gather reads it
+            lm_head = to_q8v3_stacked(lm_head.to(device))
+    layers = _stack_layers(per_layer)
+    if _q8v3_on():
+        layers = _repack_q8v3(layers, device)
+    return _params(embed, layers, vec("output_norm.weight"), lm_head,
                    torch.from_numpy(inv_freq), inv_freq_local, dtype, device)
 
 
@@ -499,7 +555,8 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
 
     Undoes the TPU packings (v2 split-half nibbles with the /16 and -8
     folds, v3 word planes, merged q4v3m scales, the q4mlpg/q4mlpd fused-MLP
-    permutations, 8-bit containers, N padding) through
+    permutations, 8-bit containers, N padding; a "q8v3" container becomes a
+    `Q8V3Tensor` with its bf16 scales and mins bit for bit) through
     `ops.qtensor.from_jax_qtensor`, keeps the projections fused or split as
     the JAX package left them, and routes as `load_params` does; a tied
     quantized table (``embed`` None) becomes the head and the embedding
@@ -787,10 +844,8 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
             scales = dict(k_scales=cache.ks[layer], v_scales=cache.vs[layer])
         _write_cache(cache.k[layer], k, starts)
         _write_cache(cache.v[layer], v, starts)
-        attn = flash_prefill_attention(
-            q.contiguous(), cache.k[layer], cache.v[layer], starts,
-            **_attn_kw(cfg, windows, layer), **scales,
-        )
+        attn = _prefill_attention(q.contiguous(), cache.k[layer], cache.v[layer], starts,
+                                  cfg.n_kv_heads, _attn_kw(cfg, windows, layer), scales)
         h = _finish_layer(params, cfg, h, attn.reshape(b, t, qd), layer)
     return rms_norm(h, params["final_norm"], cfg.rms_eps), cache
 
@@ -837,6 +892,18 @@ def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     return rms_norm(h, params["final_norm"], cfg.rms_eps), cache
 
 
+def _prefill_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, offsets: torch.Tensor,
+                       n_kv_heads: int, attn_kw: dict, scales: dict) -> torch.Tensor:
+    """K4 over one layer's merged-lane K/V [B, S, KVD] in the layout
+    `_PREFILL_KV_LAYOUT` names (an unknown one raises in K4's wrapper):
+    "headmajor" first copies them to [B, Hkv, S, D] (the JAX
+    `_cached_attention`'s transpose)."""
+    layout = _PREFILL_KV_LAYOUT
+    if layout == "headmajor":
+        kc, vc = head_major(kc, n_kv_heads), head_major(vc, n_kv_heads)
+    return flash_prefill_attention(q, kc, vc, offsets, kv_layout=layout, **attn_kw, **scales)
+
+
 def _gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """One layer's pool [Hkv, P, ps, D] + tables [B, NP] → the dense
     merged-lane [B, NP*ps, Hkv*D] view of each row's pages (a copy of the
@@ -861,6 +928,7 @@ def _paged_attention(q: torch.Tensor, pool: PagedKVCache, layer: int,
     dequantized into q's dtype first."""
     b, t, hq, d = q.shape
     k_pages, v_pages = pool.k[layer], pool.v[layer]
+    hkv = k_pages.shape[0]
     if t == 1:
         scales = {} if not pool.quantized else dict(k_scales=pool.ks[layer], v_scales=pool.vs[layer])
         return paged_decode_attention(q[:, 0], k_pages, v_pages, tables, first, **attn_kw,
@@ -873,7 +941,7 @@ def _paged_attention(q: torch.Tensor, pool: PagedKVCache, layer: int,
     if pool.quantized:
         kd = dequant_kv(kd, _gather_page_scales(pool.ks[layer], tables), q.dtype)
         vd = dequant_kv(vd, _gather_page_scales(pool.vs[layer], tables), q.dtype)
-    return flash_prefill_attention(q.contiguous(), kd, vd, first, **attn_kw)
+    return _prefill_attention(q.contiguous(), kd, vd, first, hkv, attn_kw, {})
 
 
 def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,

@@ -13,6 +13,17 @@ denominator is summed, as the JAX kernel applies them. Gemma's ``softcap``
 and sliding ``window`` (query t sees slots pos - window < s <= pos; 0 =
 unlimited) take the same entry points; head widths 64, 128 and 256.
 
+`kv_layout` follows the JAX function's (default "full", as the JAX
+`_PREFILL_KV_LAYOUT`): "full" and "merged" take the native [B, S, Hkv*D]
+cache, "headmajor" a [B, Hkv, S, D] copy the caller made (scales stay
+[B, Hkv, S]). "headmajor" runs the kernel's head-major addressing through
+its own entry points and counters (``prefill_attention_hm``,
+``prefill_attention_hm_i8``). "merged" launches the merged-lane instance
+("full"'s), tallied under a "merged ..." variant: every K4 block already
+reads one kv head's D columns of each key row, the JAX merged BlockSpec's
+grid; like the JAX function it refuses D % 128 != 0. Any other layout
+raises, where the JAX function takes it as "headmajor".
+
 On CUDA tensors the wrapper launches ``csrc/prefill_attention.cu`` or
 raises; on CPU tensors it runs `flash_prefill_attention_plain`.
 """
@@ -31,20 +42,49 @@ K4_I8 = register(Kernel(
     "prefill_attention_i8", "prefill_attention.cu",
     {"nfai_prefill_attention_i8": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, P]},
 ))
+K4_HM = register(Kernel(
+    "prefill_attention_hm", "prefill_attention.cu",
+    {"nfai_prefill_attention_hm": [P, P, P, P, P, I, I, I, I, I, I, F, F, I, P]},
+))
+K4_HM_I8 = register(Kernel(
+    "prefill_attention_hm_i8", "prefill_attention.cu",
+    {"nfai_prefill_attention_hm_i8": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, P]},
+))
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)  # the head widths K4 is compiled for
+KV_LAYOUTS = ("full", "headmajor", "merged")
+
+
+def check_layout(kv_layout: str, d: int) -> None:
+    """Refuse an unknown layout, and "merged" where D % 128 != 0 (the JAX
+    function's ValueError)."""
+    if kv_layout not in KV_LAYOUTS:
+        raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, got {kv_layout!r}")
+    if kv_layout == "merged" and d % 128:
+        raise ValueError(f"kv_layout='merged' needs D % 128 == 0 (lane-sliced BlockSpec), "
+                         f"got D={d}; use 'full' or 'headmajor'")
+
+
+def head_major(cache_l: torch.Tensor, n_kv_heads: int) -> torch.Tensor:
+    """One layer's merged-lane cache [B, S, Hkv*D] → a head-major copy
+    [B, Hkv, S, D] (the "headmajor" caller's transpose)."""
+    b, s, kvd = cache_l.shape
+    return cache_l.view(b, s, n_kv_heads, kvd // n_kv_heads).transpose(1, 2).contiguous()
 
 
 def flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale,
                                   k_scales=None, v_scales=None, softcap: float = 0.0,
-                                  window: int = 0):
-    """q [B, T, Hq, D], k_cache/v_cache [B, S, KVD], offsets [B] →
-    [B, T, Hq, D] in q's dtype; f32 math with the causal mask s <= pos
-    (and s > pos - window where `window` > 0), the scores capped by
-    `softcap` first. With k_scales/v_scales [B, Hkv, S] the cache holds int8
-    codes (see the module doc)."""
+                                  window: int = 0, kv_layout: str = "full"):
+    """q [B, T, Hq, D], k_cache/v_cache [B, S, KVD] ([B, Hkv, S, D] for
+    "headmajor"), offsets [B] → [B, T, Hq, D] in q's dtype; f32 math with
+    the causal mask s <= pos (and s > pos - window where `window` > 0), the
+    scores capped by `softcap` first. With k_scales/v_scales [B, Hkv, S] the
+    cache holds int8 codes (see the module doc)."""
     b, t, hq, d = q.shape
+    check_layout(kv_layout, d)
+    if kv_layout == "headmajor":
+        k_cache, v_cache = (c.transpose(1, 2).reshape(b, c.shape[2], -1) for c in (k_cache, v_cache))
     _, s, kvd = k_cache.shape
     hkv = kvd // d
     r = hq // hkv
@@ -70,20 +110,28 @@ def flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale,
 
 def flash_prefill_attention(q, k_cache, v_cache, offsets, scale=None,
                             softcap: float = 0.0, window: int = 0,
-                            k_scales=None, v_scales=None):
+                            k_scales=None, v_scales=None, kv_layout: str = "full"):
     """Offset-causal GQA attention of a prefill chunk (see module doc)."""
     b, t, hq, d = q.shape
     if scale is None:
         scale = 1.0 / d**0.5
     check_options(softcap, window)
+    check_layout(kv_layout, d)
     quantized = k_scales is not None
     if quantized != (v_scales is not None):
         raise ValueError("k_scales and v_scales come together")
     if q.device.type == "cpu":
         return flash_prefill_attention_plain(q, k_cache, v_cache, offsets, scale, k_scales, v_scales,
-                                             softcap, window)
-    _, s, kvd = k_cache.shape
-    hkv = kvd // d
+                                             softcap, window, kv_layout)
+    hm = kv_layout == "headmajor"
+    if hm:
+        if k_cache.dim() != 4 or k_cache.shape[3] != d:
+            raise ValueError(f"a head-major cache is [B, Hkv, S, {d}], got {tuple(k_cache.shape)}")
+        _, hkv, s, _ = k_cache.shape
+        kvd = hkv * d
+    else:
+        _, s, kvd = k_cache.shape
+        hkv = kvd // d
     r = hq // hkv
     if d not in HEAD_DIMS or hq != hkv * r or not 0 < r <= 64:
         raise NotImplementedError(f"prefill attention kernel takes D in {HEAD_DIMS} and r <= 64; "
@@ -101,19 +149,16 @@ def flash_prefill_attention(q, k_cache, v_cache, offsets, scale=None,
         raise ValueError(f"offsets must be contiguous int32 [{b}] on {q.device}; got {offsets.dtype} "
                          f"{tuple(offsets.shape)} on {offsets.device}")
     out = torch.empty_like(q)
+    label = ("merged " if kv_layout == "merged" else "") + variant(d, softcap, window)
+    dims = (b, t, s, hkv, r, d, float(scale), float(softcap), int(window), stream_ptr(q))
     if quantized:
         check_scales(k_scales, v_scales, (b, hkv, s), q.device)
-        K4_I8.call(
-            "nfai_prefill_attention_i8", ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scales),
-            ptr(v_scales), ptr(offsets), ptr(out), b, t, s, hkv, r, d, float(scale), float(softcap),
-            int(window), stream_ptr(q),
-        )
-        K4_I8.count(variant(d, softcap, window))
-        return out
-    K4.call(
-        "nfai_prefill_attention", ptr(q), ptr(k_cache), ptr(v_cache),
-        ptr(offsets), ptr(out), b, t, s, hkv, r, d, float(scale), float(softcap), int(window),
-        stream_ptr(q),
-    )
-    K4.count(variant(d, softcap, window))
+        kernel, symbol = (K4_HM_I8, "nfai_prefill_attention_hm_i8") if hm else (
+            K4_I8, "nfai_prefill_attention_i8")
+        kernel.call(symbol, ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scales), ptr(v_scales),
+                    ptr(offsets), ptr(out), *dims)
+    else:
+        kernel, symbol = (K4_HM, "nfai_prefill_attention_hm") if hm else (K4, "nfai_prefill_attention")
+        kernel.call(symbol, ptr(q), ptr(k_cache), ptr(v_cache), ptr(offsets), ptr(out), *dims)
+    kernel.count(label)
     return out

@@ -16,6 +16,14 @@ port of the JAX package's `_q4v3_matmul`, `_q4v3_matmul_layered` and
 `_qmatmul_grouped_q4` (K8) and `_qmatmul_grouped_q8` (K9), or on a CPU
 tensor `qmatmul_grouped_plain`.
 
+`q8v3_matmul(x, w)` computes y[M, N] = x[M, K] @ W^T for a 2-D
+`Q8V3Tensor` (a layer of a stack is a view: its pointer is an offset into
+the stacked buffer, nothing is copied): on a CUDA tensor
+``csrc/q8v3_matmul.cu`` (K12), the port of `_q8v3_matmul_layered` (the
+JAX 2-D q8v3 head runs it as a one-layer stack), which decodes the nibble
+planes with bit operations only; on a CPU tensor `q8v3_matmul_plain`, the
+same decode written out in PyTorch.
+
 `dense_matmul_layered(x, w, layer)` computes x @ w[layer]^T for a dense
 (unquantized) weight stack w [L, N, K] in the activation dtype: on a CUDA
 tensor ``csrc/dense_matmul.cu`` (K11), the port of `_dense_matmul_layered`,
@@ -28,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import I, Kernel, P, ptr, register, stream_ptr
-from .qtensor import Q4Tensor, Q8Tensor, dequant
+from .qtensor import Q4Tensor, Q8Tensor, Q8V3Tensor, dequant, q8v3_order, q8v3_planar
 
 K1 = register(Kernel(
     "q4_matmul", "q4_matmul.cu",
@@ -49,6 +57,10 @@ K9 = register(Kernel(
 K11 = register(Kernel(
     "dense_matmul", "dense_matmul.cu",
     {"nfai_dense_matmul": [P, P, P, I, I, I, I, I, P]},
+))
+K12 = register(Kernel(
+    "q8v3_matmul", "q8v3_matmul.cu",
+    {"nfai_q8v3_matmul": [P, P, P, P, P, I, I, I, I, P]},
 ))
 
 
@@ -113,6 +125,50 @@ def q8_matmul(x: torch.Tensor, w: Q8Tensor) -> torch.Tensor:
     return y
 
 
+def q8v3_matmul_plain(x: torch.Tensor, w: Q8V3Tensor) -> torch.Tensor:
+    """x [M, K] (any float dtype) @ W^T → bf16 [M, N] with W the decode
+    written out (u0 = (hi - 50) + lo in bf16, times 8s, minus the mins, in
+    f32), products and sums in f32: the plain version of K12. W stays in the
+    planes' K order and x is permuted to it (the same sum, without
+    reordering the big operand), and W is decoded 1024 rows at a time, so a
+    block stays in the CPU's caches between its decode and its product."""
+    xp = x.float().index_select(-1, q8v3_order(w.k).to(x.device))
+    rows = 1024
+    parts = [xp @ q8v3_planar(w._map(lambda t: t[r:r + rows])).T for r in range(0, w.n, rows)]  # noqa: B023
+    return torch.cat(parts, dim=-1).to(torch.bfloat16)
+
+
+def q8v3_matmul(x: torch.Tensor, w: Q8V3Tensor) -> torch.Tensor:
+    """x [M, K] bf16 @ W^T → [M, N] bf16 for a 2-D Q8V3Tensor on x's device;
+    any M and N, K % 128 == 0, scale groups of 16 or 32, with or without
+    mins."""
+    if x.device.type == "cpu":
+        return q8v3_matmul_plain(x, w)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"q8v3_matmul on CUDA takes bf16 activations, got {x.dtype}")
+    m, k = x.shape
+    if w.k != k or tuple(w.qs.shape) != (w.n, k) or w.qs.dtype != torch.uint8:
+        raise ValueError(f"q8v3 weight {tuple(w.qs.shape)} does not match x {tuple(x.shape)}")
+    if k % 128 or w.group not in (16, 32):
+        raise ValueError(f"q8v3_matmul takes K % 128 == 0 and groups of 16 or 32; got K={k}, "
+                         f"group {w.group}")
+    leaves = (x, w.qs, w.scales) + (() if w.mins is None else (w.mins,))
+    if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16 for t in leaves):
+        raise ValueError("q8v3_matmul needs contiguous, 16-byte aligned tensors on one device")
+    if w.scales.dtype != torch.bfloat16 or (w.mins is not None and w.mins.dtype != torch.bfloat16):
+        raise TypeError("q8v3_matmul needs bf16 scales and mins")
+    y = torch.empty(m, w.n, dtype=torch.bfloat16, device=x.device)
+    if m == 0:
+        return y
+    K12.call(
+        "nfai_q8v3_matmul", ptr(x), ptr(w.qs), ptr(w.scales),
+        ptr(w.mins) if w.mins is not None else None,
+        ptr(y), m, k, w.n, w.group, stream_ptr(x),
+    )
+    K12.count()
+    return y
+
+
 def dense_matmul_plain(x: torch.Tensor, w: torch.Tensor, layer: int) -> torch.Tensor:
     """x [M, K] @ w[layer]^T for a dense stack w [L, N, K]: x rounded to
     w's dtype, products and sums in f32, the result in x's dtype (the JAX
@@ -149,14 +205,17 @@ def dense_matmul_layered(x: torch.Tensor, w: torch.Tensor, layer: int) -> torch.
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
     """x [..., K] @ W → [..., N] (the JAX `linear`): K1 for a Q4Tensor,
-    K6 for a Q8Tensor (bf16 out); `torch.matmul` for a dense [N, K] tensor
-    in the activation dtype (the LM head, which JAX leaves to XLA)."""
+    K6 for a Q8Tensor, K12 for a Q8V3Tensor (bf16 out); `torch.matmul` for a
+    dense [N, K] tensor in the activation dtype (the LM head, which JAX
+    leaves to XLA)."""
     if isinstance(w, torch.Tensor):
         return torch.matmul(x.to(w.dtype), w.T)
     if isinstance(w, Q4Tensor):
         matmul = q4_matmul
     elif isinstance(w, Q8Tensor):
         matmul = q8_matmul
+    elif isinstance(w, Q8V3Tensor):
+        matmul = q8v3_matmul
     else:
         raise TypeError(f"no matmul for a weight of type {type(w).__name__}")
     lead = x.shape[:-1]

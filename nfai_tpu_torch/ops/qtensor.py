@@ -20,7 +20,19 @@ itself (each output row's K values contiguous), with f32 scales (and mins):
       w[n, k] = scales[n, k // g] * q[n, k] (- mins[n, k // g])
 
   ``qs`` int8 [..., N, K]. Q6_K takes 1.25 bytes per weight here against
-  0.82 in GGUF, Q8_0 1.125 against 1.0625.
+  0.82 in GGUF, Q8_0 1.125 against 1.0625;
+- `Q8V3Tensor` ("q8v3", the opt-in ``NFAI_Q8V3`` container of the JAX
+  package's `to_q8v3_stacked`): the int8 codes of a `Q8Tensor` split into
+  two nibble planes, lo = v & 0xF and hi = (v >> 4) + 8, which decode to
+  bf16 with bit operations only: lo under the header 0x4000 is 2 + lo/8,
+  hi under 0x4200 is 32 + 2 hi, and the fold u0 = (hi - 50) + lo is exact
+  in bf16 and equals v/8. With the effective scales 8s and the mins stored
+  in bf16, as the JAX container stores them:
+
+      w[n, k] = u0[n, k] * scales[n, k // g] (- mins[n, k // g])
+
+  ``qs`` uint8 [..., N, K], K*N bytes like int8, N-major, in chunks of 128
+  codes laid out for the mma.sync fragments of K12 (`_Q8V3_NIBBLE`).
 
 f32 makes the dequantized weight equal `gguf.quants.dequantize` bit for
 bit (Q4_K's d*sc needs 17 mantissa bits, more than f16 has).
@@ -97,6 +109,19 @@ class Q8Tensor(_Container):
     qs: torch.Tensor  # int8 [..., N, K]
     scales: torch.Tensor  # f32 [..., N, K/group]
     mins: torch.Tensor | None  # f32 [..., N, K/group] or None (symmetric kinds)
+    k: int
+    n: int
+    group: int = QBLOCK
+
+
+@dataclasses.dataclass
+class Q8V3Tensor(_Container):
+    """An 8-bit weight of logical shape (N out, K in) in nibble planes; see
+    module doc."""
+
+    qs: torch.Tensor  # uint8 [..., N, K] (two nibble planes per 128-code chunk)
+    scales: torch.Tensor  # bf16 [..., N, K/group], the effective 8s
+    mins: torch.Tensor | None  # bf16 [..., N, K/group] or None (symmetric kinds)
     k: int
     n: int
     group: int = QBLOCK
@@ -338,8 +363,10 @@ def unpack_q_values(qt: Q4Tensor) -> torch.Tensor:
 # plain functions of the containers
 
 
-def dequant(qt: Q4Tensor | Q8Tensor) -> torch.Tensor:
+def dequant(qt: Q4Tensor | Q8Tensor | Q8V3Tensor) -> torch.Tensor:
     """Dense f32 [..., N, K] (the plain version of every dequant kernel)."""
+    if isinstance(qt, Q8V3Tensor):
+        return _q8v3_dequant(qt)
     if isinstance(qt, Q4Tensor):
         q = unpack_q_values(qt).float()
     else:
@@ -407,6 +434,148 @@ def _join(items: list, fn, **changes):
 
 
 # ---------------------------------------------------------------------------
+# the q8v3 container
+#
+# A row's K codes fall into chunks of 128: code c = 32b + 16i + 4t + j of a
+# chunk (block b, half i, lane t, j < 4) sits in plane p (lo 0, hi 1) at
+# bytes [64p + 16t + 4b, +4) of the chunk, a little-endian word, in nibble
+# _Q8V3_NIBBLE[4i + j]. A K12 lane t thus reads its 16 bytes of each plane
+# with one load, and ((w << 3) & 0x00780078) | header, (w >> 1), (w >> 5),
+# (w >> 9) give the bf16x2 pairs of codes (4t, 4t+1), (4t+2, 4t+3) of half 0
+# and the same of half 1: the B fragments of two m16n8k16 products, the
+# 16 codes of a product within one scale group of 16.
+
+_Q8V3_NIBBLE = (0, 4, 1, 5, 2, 6, 3, 7)
+_Q8V3_CODE = tuple(int(c) for c in np.argsort(_Q8V3_NIBBLE))  # nibble → code
+Q8V3_K_MULTIPLE = 2048  # the JAX q8v3_eligible's K % 2048 == 0
+
+
+def q8v3_eligible(w) -> bool:
+    """Whether the JAX `q8v3_eligible` takes the container the JAX package
+    holds for `w`: an 8-bit kind with scale groups of 16 or 32, K % 2048 ==
+    0, a 2-D weight or a layer stack (expert stacks are kept off by the
+    caller: they are [L, E, N, K], or [E, N, K] items of a LayerList)."""
+    return (isinstance(w, Q8Tensor) and w.group in (16, 32) and w.k % Q8V3_K_MULTIPLE == 0
+            and w.qs.dim() in (2, 3))
+
+
+def _q8v3_pack(v: torch.Tensor) -> torch.Tensor:
+    """int8 codes [..., N, K] → the two nibble planes, uint8 [..., N, K]."""
+    *lead, n, k = v.shape
+    lo = (v & 0xF).to(torch.uint8)
+    hi = ((v >> 4) + 8).to(torch.uint8)  # arithmetic shift: (v >> 4) + 8 in 0..15
+    planes = []
+    for nib in (lo, hi):
+        # chunk, b, i, t, j → chunk, t, b, (i, j)
+        x = nib.reshape(-1, k // 128, 4, 2, 4, 4).permute(0, 1, 4, 2, 3, 5)
+        x = x.reshape(-1, k // 128, 4, 4, 8)[..., list(_Q8V3_CODE)]
+        planes.append(x[..., 0::2] | (x[..., 1::2] << 4))  # nibble 2q low, 2q + 1 high
+    out = torch.stack(planes, dim=2)  # chunk, plane, t, b, byte
+    return out.reshape(*lead, n, k).contiguous()
+
+
+def q8v3_nibbles(qs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The planes uint8 [..., N, K] → (lo, hi) nibbles [..., N, K] in natural
+    K order (the inverse of the packing)."""
+    *lead, n, k = qs.shape
+    by = qs.reshape(-1, k // 128, 2, 4, 4, 4)  # chunk, plane, t, b, byte
+    nib = torch.stack([by & 0xF, by >> 4], dim=-1).reshape(-1, k // 128, 2, 4, 4, 8)
+    codes = nib[..., list(_Q8V3_NIBBLE)].reshape(-1, k // 128, 2, 4, 4, 2, 4)
+    codes = codes.permute(0, 1, 2, 4, 5, 3, 6).reshape(-1, k // 128, 2, 128)  # plane, (b, i, t, j)
+    lo, hi = codes[:, :, 0], codes[:, :, 1]
+    return lo.reshape(*lead, n, k), hi.reshape(*lead, n, k)
+
+
+def _u0_pair_table() -> torch.Tensor:
+    """f32 [65536, 2]: for a lo-plane byte L and the hi-plane byte H at the
+    same place (index L | H << 8; they hold the same two codes), u0 of the
+    code in the low nibbles and of the code in the high nibbles. u0 =
+    (hi - 50) + lo in bf16 arithmetic, with lo = bits 0x4000 | lo << 3
+    (2 + lo/8) and hi = bits 0x4200 | hi << 3 (32 + 2 hi): exact, u0 = v/8."""
+    idx = torch.arange(65536, dtype=torch.int32)
+    as_bf16 = lambda nib, hdr: ((nib << 3) | hdr).to(torch.int16).view(torch.bfloat16)  # noqa: E731
+
+    def u0(lo, hi):
+        return ((as_bf16(hi, 0x4200) - 50) + as_bf16(lo, 0x4000)).float()
+
+    lo_b, hi_b = idx & 0xFF, idx >> 8
+    return torch.stack([u0(lo_b & 0xF, hi_b & 0xF), u0(lo_b >> 4, hi_b >> 4)], dim=-1)
+
+
+_U0_PAIRS = _u0_pair_table()
+
+
+def q8v3_order(k: int) -> torch.Tensor:
+    """int64 [K]: the natural K index of each position of the plane order,
+    in which a chunk's byte q = 2 j0 + i of lane t's word b holds codes
+    32b + 16i + 4t + j0 (low nibble) and + 2 (high nibble)."""
+    t, b, j0, i, p = torch.meshgrid(*(torch.arange(n) for n in (4, 4, 2, 2, 2)), indexing="ij")
+    within = (32 * b + 16 * i + 4 * t + j0 + 2 * p).reshape(-1)
+    return (torch.arange(k // 128)[:, None] * 128 + within).reshape(-1)
+
+
+def _q8v3_u0_planar(qs: torch.Tensor) -> torch.Tensor:
+    """f32 u0 of every code, [rows, K/128, t, b, j0, i, p] in the plane
+    order: each byte pair of the two planes looked up in `_U0_PAIRS`."""
+    k = qs.shape[-1]
+    by = qs.reshape(-1, k // 128, 2, 64)  # chunk, plane, (t, b, q)
+    idx = torch.stack([by[:, :, 0], by[:, :, 1]], dim=-1).view(torch.int16).to(torch.int32) & 0xFFFF
+    u0 = _U0_PAIRS.to(qs.device).index_select(0, idx.reshape(-1))
+    return u0.reshape(-1, k // 128, 4, 4, 2, 2, 2)
+
+
+def q8v3_planar(qt: Q8V3Tensor) -> torch.Tensor:
+    """f32 [..., N, K] of u0 * 8s (- mins) in the plane order (`q8v3_order`),
+    as the JAX `dequant_qtensor` of "q8v3" computes each weight."""
+    *lead, n, k = qt.qs.shape
+    g = (1, 4, 1, 1, 1) if qt.group == 32 else (1, 4, 1, 2, 1)  # a group is b, or (b, i)
+    per_group = lambda a: a.float().reshape(-1, k // 128, *g)  # noqa: E731
+    w = _q8v3_u0_planar(qt.qs) * per_group(qt.scales)
+    if qt.mins is not None:
+        w = w - per_group(qt.mins)
+    return w.reshape(*lead, n, k)
+
+
+def _natural(planar: torch.Tensor) -> torch.Tensor:
+    """[..., K] in the plane order → natural K order."""
+    inv = torch.argsort(q8v3_order(planar.shape[-1])).to(planar.device)
+    return planar.index_select(-1, inv)
+
+
+def q8v3_u0(qs: torch.Tensor) -> torch.Tensor:
+    """f32 [..., N, K] of u0 = v/8 in natural K order (the decode written
+    out, without the scales)."""
+    return _natural(_q8v3_u0_planar(qs).reshape(qs.shape))
+
+
+def _q8v3_dequant(qt: Q8V3Tensor) -> torch.Tensor:
+    """f32 u0 * 8s (- mins) in natural order, bit for bit the JAX
+    `dequant_qtensor` of "q8v3"."""
+    return _natural(q8v3_planar(qt))
+
+
+def q8v3_from_codes(v: torch.Tensor, scales8: torch.Tensor, mins: torch.Tensor | None,
+                    group: int) -> Q8V3Tensor:
+    """int8 codes [..., N, K] with the effective scales 8s and mins (rounded
+    to bf16 here) → Q8V3Tensor on the codes' device."""
+    *_, n, k = v.shape
+    if k % 128:
+        raise ValueError(f"the q8v3 planes need K % 128 == 0, got K={k}")
+    bf = lambda t: t.to(torch.bfloat16).contiguous()  # noqa: E731
+    return Q8V3Tensor(_q8v3_pack(v), bf(scales8), None if mins is None else bf(mins), k, n, group)
+
+
+def to_q8v3_stacked(w):
+    """The JAX `to_q8v3_stacked`: an eligible `Q8Tensor` (2-D or a layer
+    stack) → `Q8V3Tensor` with scales 8s and the mins carried over, both
+    rounded once from f32 to bf16; anything else comes back unchanged. Runs
+    on the weight's device."""
+    if not q8v3_eligible(w):
+        return w
+    return q8v3_from_codes(w.qs, 8.0 * w.scales, w.mins, w.group)
+
+
+# ---------------------------------------------------------------------------
 # weights carried across from the JAX package
 
 _V3_PLANES = ((0, 0), (1, 0), (0, 4), (1, 4))  # (byte pair, nibble shift)
@@ -451,7 +620,9 @@ def from_jax_qtensor(kind: str, qs, scales, mins, k: int, n: int,
     layer-stacked) → Q4Tensor / Q8Tensor with the same dequantized values,
     in natural order and without N padding (as `dequant_qtensor` returns).
 
-    kinds: "q8" (int8 [K, N], per-`group` scales, optional mins); "q4" (v2
+    kinds: "q8" (int8 [K, N], per-`group` scales, optional mins); "q8v3"
+    (int32 [K/4, N]: the lo nibbles' v3 word rows, then the hi nibbles'
+    (biased +8), bf16 scales 8s and mins, kept bit for bit); "q4" (v2
     split-half bytes, high nibble stored as (q-8)&0xF with its scale rows
     /16 and its mins -8s); "q4v3" (int32 word planes, scales 8s and mins
     m+16s); "q4v3m" (q4v3 with mins stacked under the scales); "q4mlpg"
@@ -465,6 +636,14 @@ def from_jax_qtensor(kind: str, qs, scales, mins, k: int, n: int,
         q = np.asarray(qs).view(np.int8)
         mn = None if mins is None else swap(np.asarray(mins, np.float32))
         return _q8_from_numpy(swap(q), swap(sc), mn, group)
+    if kind == "q8v3":
+        words = np.asarray(qs)
+        nw = k // 8
+        lo = _v3_values(words[..., :nw, :], k).astype(np.int16)
+        hi = _v3_values(words[..., nw:, :], k).astype(np.int16)
+        v = torch.from_numpy(np.ascontiguousarray(swap((16 * (hi - 8) + lo).astype(np.int8))))
+        bf = lambda a: torch.from_numpy(np.ascontiguousarray(swap(np.asarray(a, np.float32))))  # noqa: E731
+        return q8v3_from_codes(v, bf(scales), None if mins is None else bf(mins), group)
     if sections != 1:
         raise NotImplementedError("sectioned (row-parallel TP) containers are not ported")
     tfb = tfb or MLP_TFB

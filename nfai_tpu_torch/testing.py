@@ -17,7 +17,13 @@ picks, Q4_K elsewhere), "q8_0" (untied, Q8_0 throughout), "q4_0_tied"
 weights and tied F16 token table, F32 norms) and "bf16" (the same in
 BF16); or, with kind "llama_3b", the published
 Llama-3.2-3B shapes (hidden 3072, 24 heads / 8 kv heads, head_dim 128, ffn
-8192, 28 layers), tied Q4_K throughout.
+8192, 28 layers), tied Q4_K throughout; or, with kind "llama_8b_q8_0",
+Llama-3.1-8B's (Meta-Llama-3.1-8B config.json: hidden 4096, 32 layers, 32
+heads / 8 kv heads of head_dim 128, ffn 14336, vocab 128256, rope base
+500000 with llama3 scaling of factor 8, low 1, high 4, original context
+8192, untied) as llama.cpp's Q8_0 conversion writes it: every matmul
+weight, the token table and an untied `output.weight` in Q8_0, F32 norms
+and `rope_freqs`.
 `make_qwen3moe_gguf` writes Qwen3-30B-A3B's published widths (hidden 2048,
 32 / 4 heads of head_dim 128, 128 experts of which 8 are used, expert ffn
 768, vocab 151936, rope base 1e6, rms eps 1e-6, untied) in the mix
@@ -290,6 +296,9 @@ LLAMA_1B = dict(
     rope_factor=32.0, rope_low=1.0, rope_high=4.0, rope_orig_ctx=8192,
 )
 LLAMA_3B = dict(LLAMA_1B, hidden=3072, n_layers=28, n_heads=24, n_kv_heads=8)
+# Meta-Llama-3.1-8B (published config.json)
+LLAMA_3_1_8B = dict(LLAMA_1B, hidden=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                    ffn_dim=14336, rope_factor=8.0)
 # Qwen3-30B-A3B (published config.json; llama.cpp's qwen3moe GGUF keys)
 QWEN3_30B_A3B = dict(
     hidden=2048, n_layers=48, n_heads=32, n_kv_heads=4, head_dim=128, ffn_dim=6144,
@@ -391,7 +400,9 @@ _RANDOM_BLOCKS = {
     GGMLType.F16: lambda rng, n, k: random_float_bytes(rng, n, k, GGMLType.F16),
     GGMLType.BF16: lambda rng, n, k: random_float_bytes(rng, n, k, GGMLType.BF16),
 }
-LLAMA_1B_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied", "f16", "bf16", "llama_3b")
+LLAMA_1B_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied", "f16", "bf16", "llama_3b",
+                  "llama_8b_q8_0")
+_WIDTHS = {"llama_3b": (LLAMA_3B, "3.2-3b"), "llama_8b_q8_0": (LLAMA_3_1_8B, "3.1-8b")}
 
 
 def _shape_only(*shape):  # add_tensor reads only the shape next to raw bytes
@@ -401,13 +412,15 @@ def _shape_only(*shape):  # add_tensor reads only the shape next to raw bytes
 def make_llama_1b_gguf(path: str | Path, *, kind: str = "q4_k",
                        n_layers: int | None = None, seed: int = 0) -> Path:
     """Write a Llama-3.2-1B-width GGUF of `kind` (see module doc; "llama_3b"
-    is the 3B widths) with random raw blocks (~0.9-1.7 GB at full depth;
-    2.5 GB for "f16" and "bf16").
+    is the 3B widths, "llama_8b_q8_0" the 3.1-8B's) with random raw blocks
+    (~0.9-1.7 GB at full depth; 2.5 GB for "f16" and "bf16"; the 8B 8.5 GB,
+    1.58 GB at 2 layers and 2.97 GB at 8).
     Weights are random: the model is for speed and kernel checks, not for
     text."""
     if kind not in LLAMA_1B_KINDS:
         raise ValueError(f"kind must be one of {LLAMA_1B_KINDS}, got {kind!r}")
-    c = dict(LLAMA_3B if kind == "llama_3b" else LLAMA_1B)
+    widths, width = _WIDTHS.get(kind, (LLAMA_1B, "3.2-1b"))
+    c = dict(widths)
     if n_layers is not None:
         c["n_layers"] = n_layers
     rng = np.random.default_rng(seed)
@@ -415,14 +428,13 @@ def make_llama_1b_gguf(path: str | Path, *, kind: str = "q4_k",
     hd = h // c["n_heads"]
     qd, kvd = c["n_heads"] * hd, c["n_kv_heads"] * hd
     w = GGUFWriter()
-    width = "3.2-3b" if kind == "llama_3b" else "3.2-1b"
     _header(w, "llama", f"llama-{width}-width-random-{kind}",
             context_length=c["context_length"], hidden=h, n_layers=nl,
             ffn_dim=f, n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
             rope_base=c["rope_base"], vocab_size=v, tok_md=tiny_tokenizer_metadata(v))
     base = {"q4_k": GGMLType.Q4_K, "q4_k_m": GGMLType.Q4_K, "llama_3b": GGMLType.Q4_K,
             "q8_0": GGMLType.Q8_0, "q4_0_tied": GGMLType.Q4_0, "f16": GGMLType.F16,
-            "bf16": GGMLType.BF16}[kind]
+            "bf16": GGMLType.BF16, "llama_8b_q8_0": GGMLType.Q8_0}[kind]
     tied = kind in ("q4_k_m", "q4_0_tied", "f16", "bf16", "llama_3b")
 
     def quant(name, n_out, k_in, q=base):

@@ -29,7 +29,14 @@ CPU. Dense weights: K11 per input row at the Llama-3.2-1B projection shapes,
 Gemma-3-1B's K = 1152 and an odd shape (K = 1000, N = 130), through its
 16-byte and its 2-byte loads, twice with the same bits; tiny F16 and
 `param_dtype` models (dense and paged, bf16 and int8 caches) on the card
-against the CPU, through K11 and no K1/K5/K6.
+against the CPU, through K11 and no K1/K5/K6. The q8v3 container: K12 per
+input row against its plain version at M = 1, 3, 8, 40 and 256, groups 16
+and 32 with and without mins, a ragged N, three launches with the same
+bits; K4 in the "headmajor" and "merged" layouts (bf16 and int8, D = 64,
+128 and 256 with softcap and window) against the plain version and
+against "full" on the same values; and a tiny hidden-2048 Q8_0 model under
+NFAI_Q8V3=1 with each layout, dense and paged, on the card against the CPU,
+through K12 and K4-hm / K4 "merged" only.
 """
 import pytest
 import torch
@@ -559,3 +566,124 @@ def test_tiny_dense_cuda_matches_cpu(cuda, tmp_path, kind, kv_dtype):
     after = counts()
     assert after["dense_matmul"] > before["dense_matmul"]
     assert all(after[k] == before[k] for k in ("q4_matmul", "q8_matmul", "fused_mlp"))
+
+
+def _q8v3_weight(n, k, group, with_mins, gen):
+    from nfai_tpu_torch.ops.qtensor import to_q8v3_stacked
+
+    qs = torch.randint(-128, 128, (n, k), dtype=torch.int8, device="cuda", generator=gen)
+    sc = torch.rand(n, k // group, device="cuda", generator=gen) * 1e-3 + 1e-5
+    mn = torch.rand(n, k // group, device="cuda", generator=gen) * 1e-2 if with_mins else None
+    return to_q8v3_stacked(Q8Tensor(qs, sc, mn, k, n, group))
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 40, 256])
+@pytest.mark.parametrize("group,with_mins", [(32, False), (32, True), (16, False), (16, True)])
+def test_q8v3_matmul_kernel(cuda, m, group, with_mins):
+    k, n = 4096, 1000  # a ragged N: neither 64 nor 128 divides it
+    w = _q8v3_weight(n, k, group, with_mins, cuda)
+    x = torch.randn(m, k, device="cuda", dtype=torch.bfloat16, generator=cuda)
+    before = qm.K12.launches
+    got = qm.q8v3_matmul(x, w)
+    assert qm.K12.launches == before + 1
+    assert rel(got, qm.q8v3_matmul_plain(x, w), row_dims=1) < TOL
+    assert all(torch.equal(qm.q8v3_matmul(x, w), got) for _ in range(2))  # no atomics
+
+
+def test_q8v3_matmul_reads_a_layer_in_place(cuda):
+    from nfai_tpu_torch.ops.qtensor import to_q8v3_stacked
+
+    qs = torch.randint(-128, 128, (3, 256, 2048), dtype=torch.int8, device="cuda", generator=cuda)
+    sc = torch.rand(3, 256, 64, device="cuda", generator=cuda) * 1e-3
+    w = to_q8v3_stacked(Q8Tensor(qs, sc, None, 2048, 256, 32))
+    x = torch.randn(8, 2048, device="cuda", dtype=torch.bfloat16, generator=cuda)
+    layer = w.layer(2)
+    assert layer.qs.data_ptr() == w.qs.data_ptr() + 2 * 256 * 2048
+    assert rel(qm.linear_layered(x, w, 2), qm.q8v3_matmul_plain(x, layer), row_dims=1) < TOL
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("layout", ["headmajor", "merged"])
+@pytest.mark.parametrize("d,r,softcap,window", [(64, 4, 0.0, 0), (128, 4, 0.0, 0),
+                                                (256, 2, 50.0, 96)])
+def test_prefill_attention_layouts(cuda, d, r, softcap, window, layout, quant):
+    from nfai_tpu_torch.models.llama import quantize_kv
+
+    b, t, s, hkv = 2, 64, 256, 2
+    if layout == "merged" and d % 128:
+        q = torch.zeros(b, t, hkv * r, d, device="cuda", dtype=torch.bfloat16)
+        kc = torch.zeros(b, s, hkv * d, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="merged"):
+            pa.flash_prefill_attention(q, kc, kc, torch.zeros(b, dtype=torch.int32, device="cuda"),
+                                       kv_layout="merged")
+        return
+    q = torch.randn(b, t, hkv * r, d, device="cuda", dtype=torch.bfloat16, generator=cuda)
+    rows = [torch.randn(b, s, hkv * d, device="cuda", dtype=torch.bfloat16, generator=cuda)
+            for _ in range(2)]
+    kw = dict(softcap=softcap, window=window)
+    if quant:
+        (kc, ks), (vc, vs) = (quantize_kv(x, hkv) for x in rows)
+        kw.update(k_scales=ks.transpose(1, 2).contiguous(), v_scales=vs.transpose(1, 2).contiguous())
+    else:
+        kc, vc = rows
+    offs = torch.tensor([0, 150], dtype=torch.int32, device="cuda")
+    if layout == "headmajor":
+        kin, vin = (x.view(b, s, hkv, d).transpose(1, 2).contiguous() for x in (kc, vc))
+        kernel = pa.K4_HM_I8 if quant else pa.K4_HM
+    else:
+        kin, vin = kc, vc
+        kernel = pa.K4_I8 if quant else pa.K4
+    before = kernel.launches
+    got = pa.flash_prefill_attention(q, kin, vin, offs, kv_layout=layout, **kw)
+    assert kernel.launches == before + 1
+    if layout == "merged":
+        assert kernel.variants[f"merged D={d}" + (" softcap window" if softcap else "")] > 0
+    plain = pa.flash_prefill_attention_plain(q, kin, vin, offs, d**-0.5, kw.get("k_scales"),
+                                             kw.get("v_scales"), softcap, window, layout)
+    assert rel(got, plain, row_dims=2) < (INT8_TOL if quant else TOL)
+    assert torch.equal(got, pa.flash_prefill_attention(q, kc, vc, offs, **kw))  # as "full"
+
+
+@pytest.mark.parametrize("layout", ["headmajor", "merged"])
+def test_tiny_q8v3_model_cuda_matches_cpu(cuda, tmp_path, monkeypatch, layout):
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.gguf import GGMLType
+    from nfai_tpu_torch.models import decode_step, paged_prefill_step
+    from nfai_tpu_torch.models import llama as tllama
+    from nfai_tpu_torch.ops.qtensor import Q8V3Tensor
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+    from nfai_tpu_torch.runtime.paged_cache import PagedKVCache
+    from nfai_tpu_torch.testing import make_tiny_llama_gguf
+
+    path = make_tiny_llama_gguf(tmp_path / "q8v3.gguf", hidden=2048, n_layers=2, n_heads=16,
+                                n_kv_heads=4, ffn_dim=2048, vocab_size=512, quant=GGMLType.Q8_0,
+                                tied=False, seed=7)
+    monkeypatch.setenv("NFAI_Q8V3", "1")
+    monkeypatch.setattr(tllama, "_PREFILL_KV_LAYOUT", layout)
+    cfg = EngineConfig(max_seq_len=256, page_size=16)
+    gpu, cpu = InferenceEngine(path, cfg, device="cuda"), InferenceEngine(path, cfg, device="cpu")
+    assert isinstance(gpu.params["lm_head"], Q8V3Tensor)
+    assert isinstance(gpu.params["layers"]["wqkv"], Q8V3Tensor)
+    kernels = (qm.K1, qm.K6, qm.K11, qm.K12, pa.K4, pa.K4_HM)
+    before = {k.name: k.launches for k in kernels}
+    ids = cpu.tokenizer.encode("a short prompt for both devices")
+    lg, _ = gpu.prefill(gpu.new_cache(1), ids)
+    lc, _ = cpu.prefill(cpu.new_cache(1), ids)
+    assert rel(lg.cpu(), lc) < TOL
+    table = torch.tensor([[3, 1, 4, 5]], dtype=torch.int32)
+    out = {}
+    for dev, e in (("cuda", gpu), ("cpu", cpu)):
+        pool = PagedKVCache.zeros(e.model_cfg, 6, 16, e.cache_dtype, dev)
+        logits, pool = paged_prefill_step(
+            e.params, e.model_cfg, torch.tensor([ids], device=dev),
+            torch.arange(len(ids), device=dev)[None], torch.tensor([len(ids) - 1], device=dev),
+            pool, table.to(dev))
+        logits, _ = decode_step(e.params, e.model_cfg, torch.tensor([7], device=dev),
+                                torch.tensor([len(ids)], device=dev), pool, page_tables=table.to(dev))
+        out[dev] = logits
+    assert rel(out["cuda"].cpu(), out["cpu"]) < TOL
+    got = {k.name: k.launches - before[k.name] for k in kernels}
+    attn = "prefill_attention_hm" if layout == "headmajor" else "prefill_attention"
+    assert got["q8v3_matmul"] > 0 and got[attn] > 0
+    assert all(got[k] == 0 for k in ("q4_matmul", "q8_matmul", "dense_matmul"))
+    assert got["prefill_attention" if layout == "headmajor" else "prefill_attention_hm"] == 0
