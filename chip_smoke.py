@@ -7,7 +7,10 @@ Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
            kernel from csrc/ (one nvcc per source, in parallel)
   kernels  hold K1-K11 against their plain PyTorch versions on the card at
-           the slice's shapes (K2/K3/K4/K7 at head_dim 64 and 128; K8/K9 at
+           the slice's shapes (K1 at rows 1, 8, 16, 64, 256 and 1024, each
+           path of it: the CUDA-core GEMV, the tensor-core GEMV and the wgmma
+           tiles 16, 64 and 128 wide, three launches with the same bits;
+           K2/K3/K4/K7 at head_dim 64 and 128; K8/K9 at
            the decode layouts of a batch-1 and a batch-8 routing and a
            256-token prefill chunk); the int8 KV cache's kernels on int8
            codes and scales from quantize_kv: K2-i8, K4-i8 and K7-i8 at the
@@ -296,8 +299,10 @@ def phase_kernels(torch, timer) -> dict:
     results = {}
 
     # K1 at every (K, N) of the path (wk/wv: model B's split Q4_K layers),
-    # decode rows 1 and 8, prefill rows 256 and 1024 (the batch prefill's
-    # 8x128 chunk; the head sees one row per sequence)
+    # decode rows 1 (the CUDA-core GEMV) and 8 (the tensor-core GEMV),
+    # prefill rows 16 and 64 (batch-1 buckets: wgmma tiles 16 and 64 wide),
+    # 256 and 1024 (the batch prefill's 8x128 chunk; the head sees one row
+    # per sequence); three launches with the same bits
     shapes = {"wqkv": (2048, 3072), "wo": (2048, 2048), "wk/wv": (2048, 512),
               "gate_up": (2048, 16384), "down": (8192, 2048), "lm_head": (2048, 128256),
               "C wq": (2048, 4096), "C wo": (4096, 2048),  # model C's head_dim-128 q and o
@@ -306,11 +311,13 @@ def phase_kernels(torch, timer) -> dict:
     for label, (k, n) in shapes.items():
         w = _q4_weight(torch, n, k, gen)
         wd = dequant(w).to(bf)
-        for m in (1, 8, 256) if label == "lm_head" else (1, 8, 256, 1024):
+        for m in (1, 8, 16, 64, 256) if label == "lm_head" else (1, 8, 16, 64, 256, 1024):
             x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
             got = qm.q4_matmul(x, w)
             torch.cuda.synchronize()
             err = check(f"K1 {label} M={m} K={k} N={n}", got, qm.matmul_plain(x, w), row_dims=1)
+            if not all(torch.equal(qm.q4_matmul(x, w), got) for _ in range(2)):
+                raise AssertionError(f"K1 {label} M={m}: two launches on the same inputs differ")
             ms = timer(lambda: qm.q4_matmul(x, w))
             plain_ms = timer(lambda: qm.matmul_plain(x, w), iters=3)
             lib_ms = timer(lambda: torch.matmul(x, wd.T))

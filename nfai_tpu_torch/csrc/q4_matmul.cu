@@ -15,22 +15,42 @@
 //          dequantization bit for bit).
 //
 // What bounds it on an H100: decode (M <= 8) streams 0.75 bytes per weight
-// (0.5 of nibbles + 8 bytes of scale/min per 32) and does ~(4 + M) f32 ops
-// per weight, so M = 1 is bound by HBM bytes and M = 8 sits near the f32
-// ALU limit. Prefill (M = 16..1024) is bound by operations.
+// (0.5 of nibbles + 8 bytes of scale/min per 32) and does 2M flops on it,
+// far below the 295 flops a byte where the tensor cores become the limit: it
+// is bound by bytes (the head, 2048 x 128256: 0.059 ms). Prefill (M =
+// 16..1024) reaches the operations bound from M ~ 256 on.
 //
-// Design: M <= 8 takes a GEMV: one warp per output column, each lane
-// decodes one whole 32-block (one 16-byte load) per step and multiplies it
-// against up to 8 rows of x read through the read-only cache; scales and
-// mins are read coalesced (32 consecutive floats per warp). The nibble ->
-// float conversion uses the 2^23 magic-number trick (no I2F instruction).
+// M = 1: a GEMV on CUDA cores, one warp per output row, each lane decoding
+// one whole 32-block (one 16-byte load) a step with the 2^23 magic-number
+// trick (no I2F instruction); measured faster than the tensor-core GEMV at
+// M = 1 on every shape of the path but one (gate_up, within 3%).
+// 2 <= M <= 8: a GEMV on tensor cores, mma.sync m16n8k16 with the weight as
+// A (16 rows a warp) and x as B (its 8 columns are the M rows). Lane (g, t)
+// of a warp holds word t (bytes 4t..4t+3) of a 32-block of rows g and g + 8:
+// codes 4t..4t+3 of the low half in the low nibbles, of the high half in
+// the high ones. The K order inside a product is free, so slots (2t, 2t+1)
+// take codes (4t, 4t+2) and slots (2t+8, 2t+9) codes (4t+1, 4t+3): a nibble
+// at bits 0-3 and one at 16-19 become a bf16x2 of exact integers by one
+// lop3 (0x4300 | q = 128 + q) and one packed subtract of 128; x is loaded
+// in the same permutation (two prmt). A block's two halves sum into one
+// partial, scaled by its f32 scale; its min times the block's x sum (a
+// product against ones) is subtracted: W enters exactly as s q - m in f32,
+// only the order of the sums differs from the plain version. A lane loads
+// 16 bytes (a whole block) of each row and a quad transposes its four
+// blocks with four shuffles (measured 6% faster on the head than 4-byte
+// loads of word t). x is staged per chunk of 4096 codes in shared memory by
+// cp.async; each warp prefetches its next four blocks (codes, scales,
+// mins) while it multiplies the current ones. A block of 8 warps splits K
+// into ks slices, the fewest that give every SM a block; the slices meet in
+// shared memory and one thread adds them in slice order: no atomics, the
+// same bits on every launch.
 // M > 8 takes a tiled kernel: 64x64 output tiles, the 64x32 weight tile is
 // dequantized into shared memory as bf16 and both operands go through
-// tensor cores (WMMA 16x16x16 bf16, f32 accumulate). wgmma, TMA and a
-// pipelined producer are later work.
+// tensor cores (WMMA 16x16x16 bf16, f32 accumulate).
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -53,7 +73,7 @@ constexpr int GEMV_WARPS = 8;
 
 template <int MR>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
-q4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
+q4_gemv_cc_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
                const uint8_t* __restrict__ qs, const float* __restrict__ sc,
                const float* __restrict__ mn, __nv_bfloat16* __restrict__ y,
                int N) {
@@ -104,87 +124,601 @@ q4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
   }
 }
 
-constexpr int TM = 64, TN = 64, TK = 32, LDS = TK + 8, LDC = TN + 4;
+// ---------------------------------------------------------------------------
+// M <= 8: the tensor-core GEMV
 
-__global__ void __launch_bounds__(128)
-q4_mma_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
-              const uint8_t* __restrict__ qs, const float* __restrict__ sc,
-              const float* __restrict__ mn, __nv_bfloat16* __restrict__ y,
-              int N) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 xs[TM * LDS];  // A tile, row-major
-  __shared__ __align__(32) __nv_bfloat16 ws[TN * LDS];  // W tile [n][k] = B col-major
-  __shared__ __align__(32) float cs[TM * LDC];          // epilogue staging
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+constexpr uint32_t NIB_MASK = 0x000F000Fu, HDR_128 = 0x43004300u;  // bf16x2 (128, 128)
+constexpr uint32_t BF16X2_ONE = 0x3F803F80u;
+constexpr int GV_WARPS = 8, GV_CB = 128;  // warps a block; 32-blocks of x a chunk in shared memory
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t lop3_and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;  // (a & b) | c: the LUT of f(0xF0, 0xCC, 0xAA) is 0xEA
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// the nibbles at bits 0-3 and 16-19 of w → the bf16x2 of the two codes,
+// exact: 0x4300 | q is 128 + q, and (128 + q) - 128 rounds nothing
+__device__ __forceinline__ uint32_t nib2(uint32_t w) {
+  uint32_t v = lop3_and_or(w, NIB_MASK, HDR_128);
+  const uint32_t off = HDR_128;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
+                             *reinterpret_cast<const __nv_bfloat162*>(&off));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Lane t of a quad holds the 16 bytes (words 0..3) of 32-block t of a row;
+// afterwards it holds word t of blocks 0..3: a 4 x 4 transpose in two
+// rounds of shuffles (swap the off-diagonal 2 x 2 blocks, then inside them)
+__device__ __forceinline__ void quad_transpose(const uint4& v, int t, uint32_t (&w)[4]) {
+  uint32_t a0 = v.x, a1 = v.y, a2 = v.z, a3 = v.w;
+  const bool hi = t & 2, od = t & 1;
+  uint32_t s0 = __shfl_xor_sync(0xffffffffu, hi ? a0 : a2, 2);
+  uint32_t s1 = __shfl_xor_sync(0xffffffffu, hi ? a1 : a3, 2);
+  if (hi) { a0 = s0; a1 = s1; } else { a2 = s0; a3 = s1; }
+  s0 = __shfl_xor_sync(0xffffffffu, od ? a0 : a1, 1);
+  s1 = __shfl_xor_sync(0xffffffffu, od ? a2 : a3, 1);
+  if (od) { a0 = s0; a2 = s1; } else { a1 = s0; a3 = s1; }
+  w[0] = a0; w[1] = a1; w[2] = a2; w[3] = a3;
+}
+
+// One 32-block of a row group: A from the lane's words of rows g and g + 8,
+// B from the lane's x fragment; the block's partial scaled by its scale, its
+// min times the block's x sum subtracted, in f32.
+__device__ __forceinline__ void gemv_block(uint32_t w0, uint32_t w1, const uint4& xv, float s0,
+                                           float s1, float m0, float m1, float (&acc)[4]) {
+  float q[4] = {0.f, 0.f, 0.f, 0.f};  // x sums of columns 2t, 2t + 1 (every row the same)
+  mma_16816(q, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, xv.x, xv.y);
+  mma_16816(q, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, xv.z, xv.w);
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  // half 0 (low nibbles): slots 2t, 2t+1 <- codes 4t, 4t+2; 2t+8, 2t+9 <- 4t+1, 4t+3
+  mma_16816(p, nib2(w0), nib2(w1), nib2(w0 >> 8), nib2(w1 >> 8), xv.x, xv.y);
+  // half 1 (high nibbles), the same slots
+  mma_16816(p, nib2(w0 >> 4), nib2(w1 >> 4), nib2(w0 >> 12), nib2(w1 >> 12), xv.z, xv.w);
+  acc[0] = fmaf(-m0, q[0], fmaf(s0, p[0], acc[0]));
+  acc[1] = fmaf(-m0, q[1], fmaf(s0, p[1], acc[1]));
+  acc[2] = fmaf(-m1, q[0], fmaf(s1, p[2], acc[2]));
+  acc[3] = fmaf(-m1, q[1], fmaf(s1, p[3], acc[3]));
+}
+
+// x fragment of block `bl` of the staged chunk: lane (g, t) reads codes
+// 4t..4t+3 of both halves of x row g and orders them as its B slots
+__device__ __forceinline__ uint4 x_frag(const unsigned char* xrow, int bl, int t, bool live) {
+  if (!live) return make_uint4(0, 0, 0, 0);
+  const uint2 u = *reinterpret_cast<const uint2*>(xrow + 64 * bl + 8 * t);
+  const uint2 v = *reinterpret_cast<const uint2*>(xrow + 64 * bl + 32 + 8 * t);
+  return make_uint4(prmt(u.x, u.y, 0x5410), prmt(u.x, u.y, 0x7632), prmt(v.x, v.y, 0x5410),
+                    prmt(v.x, v.y, 0x7632));
+}
+
+// four blocks of rows g and g + 8: the 16 bytes of block b0 + t of each,
+// and the four blocks' scales and mins of each
+struct Group {
+  uint4 q[2];
+  float4 s[2], m[2];
+};
+
+template <bool Q16>
+__device__ __forceinline__ void load_group(Group& G, const uint8_t* const (&qrow)[2],
+                                           const float* const (&srow)[2],
+                                           const float* const (&mrow)[2], int b0, int t, bool vec) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if constexpr (Q16) {
+      G.q[h] = __ldcs(reinterpret_cast<const uint4*>(qrow[h]) + b0 + t);
+    } else {  // word t of each of the four blocks: already in fragment order
+      const uint32_t* p = reinterpret_cast<const uint32_t*>(qrow[h] + 16 * b0) + t;
+      G.q[h] = make_uint4(__ldcs(p), __ldcs(p + 4), __ldcs(p + 8), __ldcs(p + 12));
+    }
+    if (vec) {
+      G.s[h] = __ldg(reinterpret_cast<const float4*>(srow[h] + b0));
+      G.m[h] = __ldg(reinterpret_cast<const float4*>(mrow[h] + b0));
+    } else {
+      G.s[h] = make_float4(__ldg(srow[h] + b0), __ldg(srow[h] + b0 + 1), __ldg(srow[h] + b0 + 2),
+                           __ldg(srow[h] + b0 + 3));
+      G.m[h] = make_float4(__ldg(mrow[h] + b0), __ldg(mrow[h] + b0 + 1), __ldg(mrow[h] + b0 + 2),
+                           __ldg(mrow[h] + b0 + 3));
+    }
+  }
+}
+
+__device__ __forceinline__ float comp(const float4& v, int j) {
+  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+template <bool Q16>
+__global__ void __launch_bounds__(GV_WARPS * 32)
+q4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
+               const uint8_t* __restrict__ qs, const float* __restrict__ sc,
+               const float* __restrict__ mn, __nv_bfloat16* __restrict__ y, int N, int ks) {
+  extern __shared__ __align__(16) unsigned char xsm[];  // [M][pitch]: x rows of a chunk
+  __shared__ float part[GV_WARPS][16][8];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int slice = warp % ks, rg = warp / ks;
+  const int rows_per_block = (GV_WARPS / ks) * 16;
+  const int nrow0 = blockIdx.x * rows_per_block + rg * 16;
   const int nb = K >> 5;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  const bool vec = (nb & 3) == 0;  // scale rows 16-byte aligned: float4 loads of 4 blocks
+  const uint8_t* qrow[2];
+  const float* srow[2];
+  const float* mrow[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  for (int h = 0; h < 2; ++h) {
+    const int row = min(nrow0 + g + 8 * h, N - 1);  // rows past N: read, discarded
+    qrow[h] = qs + (size_t)row * (K >> 1);
+    srow[h] = sc + (size_t)row * nb;
+    mrow[h] = mn + (size_t)row * nb;
+  }
+  const bool live = g < M;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
 
-  for (int kb = 0; kb < nb; ++kb) {
-    {  // x tile: 64 rows x 32 bf16; two threads per row, 16 elements each
-      const int r = tid >> 1, c = (tid & 1) * 16;
-      uint4 a = make_uint4(0, 0, 0, 0), b = a;
-      if (m0 + r < M) {
-        const uint4* src = reinterpret_cast<const uint4*>(
-            x + (size_t)(m0 + r) * K + (size_t)kb * 32 + c);
-        a = __ldg(src);
-        b = __ldg(src + 1);
+  for (int c0 = 0; c0 < nb; c0 += GV_CB) {
+    const int cb = min(GV_CB, nb - c0), pitch = cb * 64 + 32;
+    const int per = (((cb + ks - 1) / ks) + 3) & ~3;
+    const int lo = min(cb, slice * per), hi = min(cb, lo + per);
+    const int groups = (hi - lo) >> 2;
+    Group A;
+    if (groups > 0) load_group<Q16>(A, qrow, srow, mrow, c0 + lo, t, vec);  // in flight while x lands
+    __syncthreads();  // the previous chunk is consumed
+    for (int e = tid; e < M * cb * 4; e += blockDim.x) {  // x rows < M: 16-byte copies
+      const int r = e / (cb * 4), c = e % (cb * 4);
+      cp_async16(xsm + r * pitch + 16 * c, x + (size_t)r * K + (size_t)c0 * 32 + 8 * c);
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    const unsigned char* xrow = xsm + (live ? g : 0) * pitch;
+    for (int i = 0; i < groups; ++i) {
+      Group B;
+      if (i + 1 < groups) load_group<Q16>(B, qrow, srow, mrow, c0 + lo + 4 * (i + 1), t, vec);
+      uint32_t w[2][4];
+      if constexpr (Q16) {
+        quad_transpose(A.q[0], t, w[0]);
+        quad_transpose(A.q[1], t, w[1]);
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          w[h][0] = A.q[h].x; w[h][1] = A.q[h].y; w[h][2] = A.q[h].z; w[h][3] = A.q[h].w;
+        }
       }
-      *reinterpret_cast<uint4*>(&xs[r * LDS + c]) = a;
-      *reinterpret_cast<uint4*>(&xs[r * LDS + c + 8]) = b;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        gemv_block(w[0][j], w[1][j], x_frag(xrow, lo + 4 * i + j, t, live), comp(A.s[0], j),
+                   comp(A.s[1], j), comp(A.m[0], j), comp(A.m[1], j), acc);
+      A = B;
     }
-    {  // weight tile: one 32-block per column; two threads per column
-      const int c = tid >> 1, h = tid & 1;
-      const size_t blk = (size_t)(n0 + c) * nb + kb;
-      const uint4 w4 = __ldg(reinterpret_cast<const uint4*>(qs) + blk);
-      const float s = __ldg(sc + blk), mi = -__ldg(mn + blk);
-      const uint32_t wv[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        ws[c * LDS + h * 16 + i] = __float2bfloat16(
-            fmaf(s, nib((wv[i >> 2] >> (8 * (i & 3) + 4 * h)) & 0xFu), mi));
+    for (int b = lo + 4 * groups; b < hi; ++b) {  // the last blocks of a slice: word t directly
+      const int gb = c0 + b;
+      const uint32_t w0 = __ldcs(reinterpret_cast<const uint32_t*>(qrow[0] + 16 * gb) + t);
+      const uint32_t w1 = __ldcs(reinterpret_cast<const uint32_t*>(qrow[1] + 16 * gb) + t);
+      gemv_block(w0, w1, x_frag(xrow, b, t, live), __ldg(srow[0] + gb), __ldg(srow[1] + gb),
+                 __ldg(mrow[0] + gb), __ldg(mrow[1] + gb), acc);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &xs[(wm + 16 * i) * LDS + kk], LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &ws[(wn + 16 * j) * LDS + kk], LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&cs[(wm + 16 * i) * LDC + wn + 16 * j], acc[i][j],
-                              LDC, wmma::mem_row_major);
+  // C fragment: acc[0..1] row g (columns m = 2t, 2t+1), acc[2..3] row g + 8
+  part[warp][g][2 * t] = acc[0];
+  part[warp][g][2 * t + 1] = acc[1];
+  part[warp][g + 8][2 * t] = acc[2];
+  part[warp][g + 8][2 * t + 1] = acc[3];
   __syncthreads();
-  for (int e = tid; e < TM * TN; e += 128) {
-    const int r = e / TN, c = e % TN;
-    if (m0 + r < M) y[(size_t)(m0 + r) * N + n0 + c] = __float2bfloat16(cs[r * LDC + c]);
+  for (int e = tid; e < M * rows_per_block; e += blockDim.x) {
+    const int m = e / rows_per_block, rl = e % rows_per_block;
+    const int n = blockIdx.x * rows_per_block + rl;
+    if (n < N) {
+      float sum = 0.f;
+      for (int k = 0; k < ks; ++k) sum += part[(rl >> 4) * ks + k][rl & 15][m];
+      y[(size_t)m * N + n] = __float2bfloat16(sum);
+    }
   }
+}
+
+// K slices a block for M <= 8 (each warp 16 rows): the fewest that give
+// every SM a block, each slice keeping at least 8 blocks of 32 (measured:
+// fewer, longer blocks stream better once the card is covered)
+int gemv_ks(int K, int N) {
+  const int nb = K / 32;
+  int ks = 1;
+  while (ks < GV_WARPS && (N + (GV_WARPS / ks) * 16 - 1) / ((GV_WARPS / ks) * 16) < 132 &&
+         nb / (2 * ks) >= 8)
+    ks *= 2;
+  return ks;
+}
+
+template <bool Q16>
+cudaError_t gemv(const __nv_bfloat16* x, const uint8_t* qs, const float* sc, const float* mn,
+                 __nv_bfloat16* y, int M, int K, int N, cudaStream_t st, int force_ks = 0) {
+  static bool sized = false;  // above 48 KB of shared memory needs the opt-in
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        q4_gemv_kernel<Q16>, cudaFuncAttributeMaxDynamicSharedMemorySize, 8 * (GV_CB * 64 + 32));
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  const int ks = force_ks ? force_ks : gemv_ks(K, N), rows = (GV_WARPS / ks) * 16;
+  const int smem = M * (min(K / 32, GV_CB) * 64 + 32);
+  q4_gemv_kernel<Q16><<<(N + rows - 1) / rows, GV_WARPS * 32, smem, st>>>(x, M, K, qs, sc, mn, y,
+                                                                           N, ks);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// M > 8: wgmma tiles, y^T = W x^T
+
+constexpr int TN = 128, TK = 64, STAGES = 4;  // weight rows, codes a stage
+constexpr int TW_PITCH = 48;                  // bytes a weight row of a stage (32 used)
+constexpr int TW_BYTES = TN * TW_PITCH, TS_BYTES = TN * 16;  // codes; {s0, s1, m0, m1} a row
+constexpr int T_THREADS = 2 * 128 + 32;      // two consumer warpgroups, one producer warp
+
+template <int BM>
+struct TileShape {
+  static constexpr int X_BYTES = BM * 128;  // BM rows of 64 bf16, 128-byte swizzled
+  static constexpr int STAGE = X_BYTES + TW_BYTES + TS_BYTES;  // a multiple of 1024
+  static constexpr int SMEM = STAGES * STAGE + 1024;            // + alignment slack
+  static constexpr int OUT_PITCH = TN + 8;                      // bf16 a row of the y tile
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// the copies this thread issued so far arrive on `bar` when they land
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, int bytes, bool ok) {
+  const uint32_t d = smem_u32(dst);
+  const int n = ok ? bytes : 0;  // 0 source bytes: zero-filled
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma descriptor of a K-major operand tile with 128-byte rows under the
+// 128-byte swizzle: 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (uint64_t(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void pin(uint32_t (&a)[4], uint64_t& d) {
+  asm volatile("" : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+l"(d)::"memory");
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+
+template <int BM>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BM / 2], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (BM == 16) wgmma_rs_n16(d, a, desc);
+  else if constexpr (BM == 32) wgmma_rs_n32(d, a, desc);
+  else if constexpr (BM == 64) wgmma_rs_n64(d, a, desc);
+  else wgmma_rs_n128(d, a, desc);
+}
+
+// the code at bit p of w (a nibble) → 128 + code as f32, exactly
+template <int P>
+__device__ __forceinline__ float nib128(uint32_t w) {
+  const uint32_t v = P <= 16 ? (w << (16 - P)) : (w >> (P - 16));
+  return __uint_as_float((v & 0x000F0000u) | 0x43000000u);
+}
+
+// A fragment of one k16 step (half H of a block) for rows g (w0, s0, c0)
+// and g + 8 (w1, s1, c1): bf16(s * q - m) = bf16(s * (128 + q) + c), c = -(m + 128 s).
+// w holds bytes 2t, 2t+1, 2t+8, 2t+9 of the block: k = 2t, 2t+1 | 2t+8, 2t+9.
+template <int H>
+__device__ __forceinline__ void decode_a(uint32_t w0, uint32_t w1, float s0, float c0, float s1,
+                                         float c1, uint32_t (&a)[4]) {
+  constexpr int p = 4 * H;
+  __nv_bfloat162 v;
+  v = __floats2bfloat162_rn(fmaf(s0, nib128<p>(w0), c0), fmaf(s0, nib128<p + 8>(w0), c0));
+  a[0] = *reinterpret_cast<uint32_t*>(&v);
+  v = __floats2bfloat162_rn(fmaf(s1, nib128<p>(w1), c1), fmaf(s1, nib128<p + 8>(w1), c1));
+  a[1] = *reinterpret_cast<uint32_t*>(&v);
+  v = __floats2bfloat162_rn(fmaf(s0, nib128<p + 16>(w0), c0), fmaf(s0, nib128<p + 24>(w0), c0));
+  a[2] = *reinterpret_cast<uint32_t*>(&v);
+  v = __floats2bfloat162_rn(fmaf(s1, nib128<p + 16>(w1), c1), fmaf(s1, nib128<p + 24>(w1), c1));
+  a[3] = *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t lds_u16(const unsigned char* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+template <int BM>
+__global__ void __launch_bounds__(T_THREADS, 1)
+q4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, int M, int K,
+                const uint8_t* __restrict__ qs, const float* __restrict__ sc,
+                const float* __restrict__ mn, __nv_bfloat16* __restrict__ y, int N) {
+  using S = TileShape<BM>;
+  extern __shared__ unsigned char tsm_raw[];
+  unsigned char* tsm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(tsm_raw) + 1023) & ~uintptr_t(1023));
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * BM;
+  const int nb = K >> 5, kt_n = (K + TK - 1) / TK;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the producer's expect_tx and its 32 lanes' copies
+      mbar_init(&empty[s], 2);      // one thread of each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer warp
+    for (int kt = 0; kt < kt_n; ++kt) {
+      const int s = kt % STAGES;
+      if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
+      unsigned char* st = tsm + s * S::STAGE;
+      unsigned char* ws = st + S::X_BYTES;
+      unsigned char* ss = ws + TW_BYTES;
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], S::X_BYTES);
+        tma_load_2d(st, &xmap, kt * TK, m0, &full[s]);
+      }
+      for (int i = lane; i < 2 * TN; i += 32) {  // codes: two 16-byte copies a row
+        const int r = i >> 1, h = i & 1, n = n0 + r;
+        const bool ok = n < N && kt * TK + 32 * h < K;
+        cp_async_zfill(ws + r * TW_PITCH + 16 * h,
+                       ok ? qs + (size_t)n * (K >> 1) + kt * 32 + 16 * h : qs, 16, ok);
+      }
+      const int b0 = 2 * kt;  // the stage's blocks b0, b0 + 1 (b0 + 1 may be past K)
+      for (int i = lane; i < 2 * TN; i += 32) {  // scales then mins: {s0, s1, m0, m1}
+        const int r = i >> 1, h = i & 1, n = n0 + r;
+        const float* src = (h ? mn : sc) + (size_t)n * nb + b0;
+        unsigned char* dst = ss + r * 16 + 8 * h;
+        if ((nb & 1) == 0) {
+          cp_async_zfill(dst, n < N ? src : sc, 8, n < N);
+        } else {
+          cp_async_zfill(dst, n < N ? src : sc, 4, n < N);
+          cp_async_zfill(dst + 4, n < N && b0 + 1 < nb ? src + 1 : sc, 4, n < N && b0 + 1 < nb);
+        }
+      }
+      cp_async_arrive(&full[s]);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its thread
+    return;
+  }
+
+  // consumers: warpgroup wg holds weight rows 64 wg .. 64 wg + 63 of the tile
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * wg + 16 * (warp & 3) + g;  // this lane's rows r0 and r0 + 8
+  float acc[BM / 2];
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  // one stage: its four A fragments go to `a`, which its products read
+  // until the next stage has been issued, so stages alternate two arrays
+  auto stage = [&](int kt, uint32_t (&a)[4][4]) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const unsigned char* st = tsm + s * S::STAGE;
+    const unsigned char* ws = st + S::X_BYTES;
+    const float4 q0 = *reinterpret_cast<const float4*>(ws + TW_BYTES + r0 * 16);
+    const float4 q1 = *reinterpret_cast<const float4*>(ws + TW_BYTES + (r0 + 8) * 16);
+#pragma unroll
+    for (int jb = 0; jb < 2; ++jb) {
+      const unsigned char* w0p = ws + r0 * TW_PITCH + 16 * jb + 2 * t;
+      const unsigned char* w1p = w0p + 8 * TW_PITCH;
+      const uint32_t w0 = lds_u16(w0p) | (lds_u16(w0p + 8) << 16);
+      const uint32_t w1 = lds_u16(w1p) | (lds_u16(w1p + 8) << 16);
+      const float s0 = jb ? q0.y : q0.x, s1 = jb ? q1.y : q1.x;
+      const float c0 = -fmaf(128.f, s0, jb ? q0.w : q0.z);
+      const float c1 = -fmaf(128.f, s1, jb ? q1.w : q1.z);
+      decode_a<0>(w0, w1, s0, c0, s1, c1, a[2 * jb]);
+      decode_a<1>(w0, w1, s0, c0, s1, c1, a[2 * jb + 1]);
+    }
+    uint64_t desc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      desc[j] = sw128_desc(st + 32 * j);
+      pin(a[j], desc[j]);  // operands final before the fence: nothing sinks between products
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_rs<BM>(acc, a[j], desc[j]);
+    wgmma_commit();
+    // the previous stage's products have completed (this stage's may run on
+    // while the next one is decoded): every warp of this group has read
+    // that stage, and the tensor cores are done with it
+    wgmma_wait<1>();
+    if (kt > 0 && (warp & 3) == 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+  };
+  uint32_t a0[4][4], a1[4][4];  // k16 step 2 jb + h: block jb, half h
+  for (int kt = 0; kt < kt_n; kt += 2) {
+    stage(kt, a0);
+    if (kt + 1 < kt_n) stage(kt + 1, a1);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both groups are done with the stages
+  // D fragment: acc[4i + e] = row r0 (+8 for e >= 2), column m = 8i + 2t (+1 for odd e)
+  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(tsm);  // [BM][OUT_PITCH]
+#pragma unroll
+  for (int i = 0; i < BM / 8; ++i) {
+    const int m = 8 * i + 2 * t;
+    out[m * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i]);
+    out[(m + 1) * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i + 1]);
+    out[m * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 2]);
+    out[(m + 1) * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 3]);
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const bool vec = (N & 7) == 0 && n0 + TN <= N;
+  for (int e = tid; e < BM * (TN / 8); e += 256) {  // 16 bytes (8 columns) a thread
+    const int m = e / (TN / 8), c = 8 * (e % (TN / 8));
+    if (m0 + m >= M) continue;
+    const __nv_bfloat16* src = out + m * S::OUT_PITCH + c;
+    __nv_bfloat16* dst = y + (size_t)(m0 + m) * N + n0 + c;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int j = 0; j < 8 && n0 + c + j < N; ++j) dst[j] = src[j];
+    }
+  }
+}
+
+// the x operand's TMA map: [M, K] bf16 row-major, boxes of 64 codes x BM rows
+// under the 128-byte swizzle; rows past M and codes past K read as zero
+cudaError_t x_tensor_map(CUtensorMap* map, const void* x, int M, int K, int BM) {
+  static PFN_cuTensorMapEncodeTiled encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &q);
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess || !encode)
+      return err != cudaSuccess ? err : cudaErrorNotSupported;
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
+  const cuuint32_t box[2] = {TK, static_cast<cuuint32_t>(BM)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BM>
+cudaError_t launch_tiles(const void* x, const uint8_t* qs, const float* sc, const float* mn,
+                         __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
+  static bool sized = false;  // one per instantiation: above 48 KB needs the opt-in
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        q4_wgmma_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, TileShape<BM>::SMEM);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  CUtensorMap map;
+  const cudaError_t err = x_tensor_map(&map, x, M, K, BM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + TN - 1) / TN, (M + BM - 1) / BM);
+  q4_wgmma_kernel<BM><<<grid, T_THREADS, TileShape<BM>::SMEM, st>>>(map, M, K, qs, sc, mn, y, N);
+  return cudaGetLastError();
+}
+
+// the tile width: the least of 16, 32, 64, 128 that holds M, else 128
+cudaError_t tiles(const void* x, const uint8_t* qs, const float* sc, const float* mn,
+                  __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
+  if (M <= 16) return launch_tiles<16>(x, qs, sc, mn, y, M, K, N, st);
+  if (M <= 32) return launch_tiles<32>(x, qs, sc, mn, y, M, K, N, st);
+  if (M <= 64) return launch_tiles<64>(x, qs, sc, mn, y, M, K, N, st);
+  return launch_tiles<128>(x, qs, sc, mn, y, M, K, N, st);
 }
 
 }  // namespace
 
 // x [M, K] bf16, qs [N, K/2] u8, scales/mins [N, K/32] f32, y [M, N] bf16.
-// Needs K % 32 == 0; the tiled path (M > 8) also needs N % 64 == 0.
+// Needs K % 32 == 0 and 16-byte aligned pointers; any M and N.
 extern "C" int nfai_q4_matmul(const void* x, const void* qs, const void* sc,
                               const void* mn, void* y, int M, int K, int N,
                               void* stream) {
@@ -194,19 +728,31 @@ extern "C" int nfai_q4_matmul(const void* x, const void* qs, const void* sc,
   auto s = static_cast<const float*>(sc);
   auto m = static_cast<const float*>(mn);
   auto yb = static_cast<__nv_bfloat16*>(y);
-  if (M <= 8) {
-    dim3 grid((N + GEMV_WARPS - 1) / GEMV_WARPS), block(GEMV_WARPS * 32);
-    if (M == 1)
-      q4_gemv_kernel<1><<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N);
-    else if (M == 2)
-      q4_gemv_kernel<2><<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N);
-    else if (M <= 4)
-      q4_gemv_kernel<4><<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N);
-    else
-      q4_gemv_kernel<8><<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N);
-  } else {
-    dim3 grid(N / TN, (M + TM - 1) / TM), block(128);
-    q4_mma_kernel<<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N);
+  if (M == 1) {
+    q4_gemv_cc_kernel<1><<<(N + GEMV_WARPS - 1) / GEMV_WARPS, GEMV_WARPS * 32, 0, st>>>(
+        xb, M, K, q, s, m, yb, N);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (M <= 8) return static_cast<int>(gemv<true>(xb, q, s, m, yb, M, K, N, st));
+  return static_cast<int>(tiles(x, q, s, m, yb, M, K, N, st));
+}
+
+// A/B probe of the M <= 8 GEMV: variant 0 = 16-byte loads and a quad
+// transpose, 1 = 4-byte loads of word t, 2 = the CUDA-core GEMV
+extern "C" int nfai_q4_gemv_variant(const void* x, const void* qs, const void* sc,
+                                    const void* mn, void* y, int M, int K, int N,
+                                    int variant, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto xb = static_cast<const __nv_bfloat16*>(x);
+  auto q = static_cast<const uint8_t*>(qs);
+  auto s = static_cast<const float*>(sc);
+  auto m = static_cast<const float*>(mn);
+  auto yb = static_cast<__nv_bfloat16*>(y);
+  if (variant == 0) return static_cast<int>(gemv<true>(xb, q, s, m, yb, M, K, N, st));
+  if (variant == 1) return static_cast<int>(gemv<false>(xb, q, s, m, yb, M, K, N, st));
+  if (variant > 10) return static_cast<int>(gemv<true>(xb, q, s, m, yb, M, K, N, st, variant - 10));
+  dim3 grid((N + GEMV_WARPS - 1) / GEMV_WARPS), block(GEMV_WARPS * 32);
+  if (M == 1) q4_gemv_cc_kernel<1><<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N);
+  else q4_gemv_cc_kernel<8><<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N);
   return static_cast<int>(cudaGetLastError());
 }

@@ -72,13 +72,23 @@ def _check(x: torch.Tensor, w, name: str, qs_shape: tuple) -> tuple[int, int]:
         raise ValueError(f"weight {tuple(w.qs.shape)} does not match x {tuple(x.shape)}")
     if k % 32:
         raise ValueError(f"K={k} must be a multiple of 32")
-    if m > 8 and w.n % 64:
-        raise ValueError(f"N={w.n} must be a multiple of 64 for M={m} > 8")
     for t in (x, w.qs, w.scales) + (() if w.mins is None else (w.mins,)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous tensors on one device")
     if w.scales.dtype != torch.float32 or (w.mins is not None and w.mins.dtype != torch.float32):
         raise TypeError(f"{name} needs f32 scales and mins")
+    return m, k
+
+
+def q4_check(x: torch.Tensor, w: Q4Tensor) -> tuple[int, int]:
+    """What K1 takes, or a ValueError/TypeError: bf16 x [M, K] and a 2-D
+    Q4Tensor [N, K] (f32 scales and mins), K % 32 == 0, every tensor
+    contiguous, on x's device and 16-byte aligned (the GEMV's 16-byte and
+    float4 loads, the tiles' TMA map of x and their 16-byte copies). Any M
+    and N: the kernel masks the ragged edges. Returns (M, K)."""
+    m, k = _check(x, w, "q4_matmul", (w.n, x.shape[1] // 2))
+    if any(t.data_ptr() % 16 for t in (x, w.qs, w.scales, w.mins)):
+        raise ValueError("q4_matmul needs 16-byte aligned tensors")
     return m, k
 
 
@@ -92,7 +102,7 @@ def q4_matmul(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
     """x [M, K] @ W^T → [M, N] bf16 for a 2-D Q4Tensor on x's device."""
     if x.device.type == "cpu":
         return matmul_plain(x, w)
-    m, k = _check(x, w, "q4_matmul", (w.n, x.shape[1] // 2))
+    m, k = q4_check(x, w)
     y = torch.empty(m, w.n, dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return y
@@ -111,6 +121,8 @@ def q8_matmul(x: torch.Tensor, w: Q8Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return matmul_plain(x, w)
     m, k = _check(x, w, "q8_matmul", (w.n, x.shape[1]))
+    if m > 8 and w.n % 64:
+        raise ValueError(f"N={w.n} must be a multiple of 64 for M={m} > 8")
     if w.group not in (16, 32):
         raise ValueError(f"q8_matmul takes scale groups of 16 or 32, got {w.group}")
     y = torch.empty(m, w.n, dtype=torch.bfloat16, device=x.device)

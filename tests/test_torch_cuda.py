@@ -67,18 +67,47 @@ def rel(got, want, row_dims=0):
     return float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 40])
-def test_q4_matmul_kernel(cuda, m):
-    n, k = 192, 512
-    w = Q4Tensor(
-        torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device="cuda", generator=cuda),
-        torch.rand(n, k // 32, device="cuda", generator=cuda) * 1e-2,
-        torch.rand(n, k // 32, device="cuda", generator=cuda) * 5e-2, k, n,
+def _q4_weight(n, k, gen, layers=None):
+    lead = () if layers is None else (layers,)
+    return Q4Tensor(
+        torch.randint(0, 256, (*lead, n, k // 2), dtype=torch.uint8, device="cuda", generator=gen),
+        torch.rand(*lead, n, k // 32, device="cuda", generator=gen) * 1e-2,
+        torch.rand(*lead, n, k // 32, device="cuda", generator=gen) * 5e-2, k, n,
     )
+
+
+# every branch of K1: the CUDA-core GEMV (M = 1), the tensor-core GEMV
+# (M = 2..8), the wgmma tiles at each width (16, 32, 64, 128; M = 256 and
+# 1024 take several row tiles); N of the path (wk/wv 512, wo 2048, the head
+# 128256), the 3B's K = 3072, and a small ragged case (N = 192, K = 512)
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 16, 40, 64, 100, 256, 1024])
+@pytest.mark.parametrize("k,n", [(512, 192), (2048, 512), (2048, 2048), (2048, 128256), (3072, 3072)])
+def test_q4_matmul_kernel(cuda, m, k, n):
+    if n == 128256 and m > 256:
+        pytest.skip("the head sees one row per sequence: at most 256 at a time")
+    w = _q4_weight(n, k, cuda)
     x = torch.randn(m, k, device="cuda", dtype=torch.bfloat16, generator=cuda)
     before = qm.K1.launches
-    assert rel(qm.q4_matmul(x, w), qm.matmul_plain(x, w)) < TOL
+    got = qm.q4_matmul(x, w)
     assert qm.K1.launches == before + 1
+    assert rel(got, qm.matmul_plain(x, w), row_dims=1) < TOL
+    assert all(torch.equal(qm.q4_matmul(x, w), got) for _ in range(2))  # no atomics
+
+
+@pytest.mark.parametrize("m", [8, 64])
+def test_q4_matmul_reads_a_layer_in_place(cuda, m):
+    w = _q4_weight(1024, 2048, cuda, layers=3)
+    x = torch.randn(m, 2048, device="cuda", dtype=torch.bfloat16, generator=cuda)
+    layer = w.layer(2)
+    assert layer.qs.data_ptr() == w.qs.data_ptr() + 2 * 1024 * 1024
+    assert rel(qm.linear_layered(x, w, 2), qm.matmul_plain(x, layer), row_dims=1) < TOL
+
+
+def test_q4_matmul_refuses_misaligned_tensors(cuda):
+    w = _q4_weight(256, 512, cuda)
+    x = torch.randn(4 * 512 + 1, device="cuda", dtype=torch.bfloat16, generator=cuda)[1:].view(4, 512)
+    with pytest.raises(ValueError, match="16-byte"):
+        qm.q4_matmul(x, w)
 
 
 def test_decode_attention_and_row_write_kernels(cuda):

@@ -12,6 +12,8 @@ Q4_K blocks (random 6-bit scales/mins, d/dmin as in a checkpoint): the JAX v3
 container stores 8s and m+16s in bf16, and on zero-mean requantized weights
 that storage alone already sits near the 2e-2 line against exact f32.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +29,7 @@ from nfai_tpu.ops.qmatmul import (
 )
 from nfai_tpu_torch.gguf import GGMLType, dequantize
 from nfai_tpu_torch.ops import qtensor as tqt
-from nfai_tpu_torch.ops.qmatmul import linear, linear_layered, q4_matmul
+from nfai_tpu_torch.ops.qmatmul import linear, linear_layered, q4_check, q4_matmul
 from nfai_tpu_torch.testing import random_q4k_bytes
 
 TOL = 2e-2
@@ -149,3 +151,47 @@ def test_linear_shapes_and_dense_raises():
         linear(x, torch.zeros(256, 64))
     with pytest.raises(NotImplementedError):  # a kind the port does not carry quantized
         tqt.pack_gguf_tensor(raw, GGMLType.Q5_0, (64, 256))
+
+
+def _q4_check_case(case):
+    """(x, w) for a q4_check case: a 16-byte aligned bf16 x [40, 256] and a
+    [100, 256] Q4Tensor (N a multiple of neither 64 nor 128), then one
+    thing K1 does not take."""
+    rng = np.random.default_rng(1)
+    n, k = 100, 256
+    w = tqt.pack_q_values(rng.integers(0, 16, (n, k)), rng.random((n, k // 32)).astype(np.float32),
+                          rng.random((n, k // 32)).astype(np.float32))
+    x = torch.zeros(40, k, dtype=torch.bfloat16)
+    if case == "misaligned x":
+        x = torch.zeros(40 * k + 1, dtype=torch.bfloat16)[1:].view(40, k)
+    elif case == "f32 x":
+        x = x.float()
+    elif case == "K % 32":
+        w = tqt.Q4Tensor(torch.zeros(n, 24, dtype=torch.uint8), torch.zeros(n, 1), torch.zeros(n, 1), 48, n)
+        x = torch.zeros(40, 48, dtype=torch.bfloat16)
+    elif case == "wrong K":
+        x = torch.zeros(40, 2 * k, dtype=torch.bfloat16)
+    elif case == "strided scales":
+        w = dataclasses.replace(w, scales=torch.zeros(k // 32, n).T)
+    elif case == "bf16 mins":
+        w = dataclasses.replace(w, mins=w.mins.to(torch.bfloat16))
+    elif case == "a layer stack":
+        w = tqt.stack([w, w])
+    return x, w
+
+
+@pytest.mark.parametrize("case,error", [
+    ("ok", None), ("misaligned x", ValueError), ("f32 x", TypeError), ("K % 32", ValueError),
+    ("wrong K", ValueError), ("strided scales", ValueError), ("bf16 mins", TypeError),
+    ("a layer stack", ValueError),
+])
+def test_q4_check_takes_what_k1_takes(case, error):
+    """The rules K1's wrapper holds a CUDA launch to, checked on CPU
+    tensors: any M and N, K % 32 == 0, bf16 x, f32 scales and mins, 2-D,
+    contiguous and 16-byte aligned; everything else raises."""
+    x, w = _q4_check_case(case)
+    if error is None:
+        assert q4_check(x, w) == (40, 256)
+    else:
+        with pytest.raises(error):
+            q4_check(x, w)
