@@ -1,23 +1,18 @@
 """K1 (4-bit dequant-matmul) alone on one NVIDIA GPU: build, check, time.
 
-    python3 k1_probe.py [--variants]
+    python3 k1_probe.py
 
 Builds csrc/q4_matmul.cu (nvcc -Xptxas=-v: registers and spills), then at
 every (K, N) the path launches K1 with and every M it takes, holds
 `q4_matmul` against `matmul_plain` per input row (the 2e-2 rule of
 chip_smoke.py), checks that three launches give the same bits, and times it
 beside cuBLAS on the dequantized bf16 weight and the byte/operation bound
-(chip_smoke.py's Timer: median of CUDA-event times, L2 flushed). With
---variants it also times the M <= 8 GEMV's variants through
-`nfai_q4_gemv_variant` on the same inputs, in turns (K1_PROBE_VARIANTS,
-default "0,1,2": 0 = the tensor-core GEMV with 16-byte loads and a quad
-transpose, 1 = the same with 4-byte loads, 10 + ks = variant 0 with ks K
-slices, 2 = the CUDA-core GEMV).
-Writes chiprun_out/k1_probe.json.
+(chip_smoke.py's Timer: median of CUDA-event times, L2 flushed).
+K1_PROBE_M="1,8,..." picks the rows. Writes chiprun_out/k1_probe.json.
 """
-import ctypes
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -33,19 +28,12 @@ def main() -> int:
     from nfai_tpu_torch.ops import qmatmul as qm
     from nfai_tpu_torch.ops.qtensor import Q4Tensor, dequant
 
-    variants = "--variants" in sys.argv
-    vlist = [int(v) for v in os.environ.get("K1_PROBE_VARIANTS", "0,1,2").split(",")]
-    log(f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    log(f"{card}; torch {torch.__version__}")
     t0 = time.time()
     logs = kernels.build([qm.K1], verbose=True)
     log(f"build {time.time() - t0:.1f} s\n{logs.get('q4_matmul', '')}")
-    lib = qm.K1.lib()
-    vfn = getattr(lib, "nfai_q4_gemv_variant", None) if variants else None
-    if vfn is not None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        vfn.argtypes = [P, P, P, P, P, I, I, I, I, P]
-        vfn.restype = ctypes.c_int
-
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -74,21 +62,6 @@ def main() -> int:
             row = dict(shape=label, m=m, k=k, n=n, max_abs_err=err)
             nbytes = m * k * 2 + n * k // 2 + n * k // 32 * 8 + m * n * 2
             row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * m * n * k)
-            if vfn is not None and m <= 8:
-                ys = {}
-                for v in vlist:
-                    y = torch.empty(m, n, dtype=bf, device="cuda")
-                    args = (x.data_ptr(), qs.data_ptr(), sc.data_ptr(), mn.data_ptr(),
-                            y.data_ptr(), m, k, n, v, torch.cuda.current_stream().cuda_stream)
-                    rc = vfn(*args)
-                    torch.cuda.synchronize()
-                    if rc:
-                        raise RuntimeError(f"variant {v}: cudaError_t {rc}")
-                    check(f"  variant {v}", y, want, row_dims=1)
-                    ys[v] = (args, y)
-                for v in vlist + vlist[::-1]:
-                    t = timer(lambda: vfn(*ys[v][0]))  # noqa: B023
-                    row.setdefault(f"variant{v}_ms", []).append(t)
             row["ms"] = timer(lambda: qm.q4_matmul(x, w))  # noqa: B023
             row["library_ms"] = timer(lambda: torch.matmul(x, wd.T))  # noqa: B023
             log(f"    {json.dumps({k_: v_ for k_, v_ in row.items() if k_ not in ('shape', 'k', 'n')})}")
@@ -96,7 +69,7 @@ def main() -> int:
         del qs, sc, mn, w, wd
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/k1_probe.json", "w") as f:
-        json.dump(dict(device=torch.cuda.get_device_name(0), rows=out), f, indent=1)
+        json.dump(dict(device=torch.cuda.get_device_name(0), card=card, rows=out), f, indent=1)
     print(json.dumps({"ok": True, "rows": len(out)}))
     return 0
 

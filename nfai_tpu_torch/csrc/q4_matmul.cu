@@ -14,39 +14,60 @@
 //   scales float [N, K/32], mins float [N, K/32] (f32: W equals ggml's own
 //          dequantization bit for bit).
 //
-// What bounds it on an H100: decode (M <= 8) streams 0.75 bytes per weight
-// (0.5 of nibbles + 8 bytes of scale/min per 32) and does 2M flops on it,
-// far below the 295 flops a byte where the tensor cores become the limit: it
-// is bound by bytes (the head, 2048 x 128256: 0.059 ms). Prefill (M =
-// 16..1024) reaches the operations bound from M ~ 256 on.
+// What bounds it on an H100 (3.35 TB/s, 989 TF/s bf16): decode (M <= 8)
+// streams 0.75 bytes per weight (0.5 of nibbles + 8 bytes of f32 scale and
+// min per 32) and does 2M flops on it, far below the 295 flops a byte
+// where the tensor cores become the limit: bytes (the head, 2048 x 128256:
+// 0.059 ms). Prefill rows (M = 16..1024) reach the operations bound from
+// M ~ 256 on; below it they are bound by bytes too.
 //
 // M = 1: a GEMV on CUDA cores, one warp per output row, each lane decoding
-// one whole 32-block (one 16-byte load) a step with the 2^23 magic-number
-// trick (no I2F instruction); measured faster than the tensor-core GEMV at
-// M = 1 on every shape of the path but one (gate_up, within 3%).
+// whole 32-blocks (one 16-byte load each) with the 2^23 magic-number trick
+// (no I2F); measured faster than the tensor-core GEMV at M = 1 on every
+// shape of the path but one (gate_up, within 3%).
+//
 // 2 <= M <= 8: a GEMV on tensor cores, mma.sync m16n8k16 with the weight as
 // A (16 rows a warp) and x as B (its 8 columns are the M rows). Lane (g, t)
-// of a warp holds word t (bytes 4t..4t+3) of a 32-block of rows g and g + 8:
-// codes 4t..4t+3 of the low half in the low nibbles, of the high half in
-// the high ones. The K order inside a product is free, so slots (2t, 2t+1)
-// take codes (4t, 4t+2) and slots (2t+8, 2t+9) codes (4t+1, 4t+3): a nibble
-// at bits 0-3 and one at 16-19 become a bf16x2 of exact integers by one
-// lop3 (0x4300 | q = 128 + q) and one packed subtract of 128; x is loaded
-// in the same permutation (two prmt). A block's two halves sum into one
-// partial, scaled by its f32 scale; its min times the block's x sum (a
+// holds word t (bytes 4t..4t+3) of a 32-block of rows g and g + 8: codes
+// 4t..4t+3 of the low half in the low nibbles, of the high half in the
+// high ones. The K order inside a product is free, so slots (2t, 2t+1)
+// take codes (4t, 4t+2) and slots (2t+8, 2t+9) codes (4t+1, 4t+3): nibbles
+// at bits 0-3 and 16-19 become a bf16x2 of exact integers by one lop3
+// (0x4300 | q = 128 + q) and one packed subtract of 128; x is loaded in the
+// same permutation (two prmt). A block's two halves sum into one partial,
+// scaled by the block's f32 scale; its min times the block's x sum (a
 // product against ones) is subtracted: W enters exactly as s q - m in f32,
 // only the order of the sums differs from the plain version. A lane loads
-// 16 bytes (a whole block) of each row and a quad transposes its four
-// blocks with four shuffles (measured 6% faster on the head than 4-byte
-// loads of word t). x is staged per chunk of 4096 codes in shared memory by
-// cp.async; each warp prefetches its next four blocks (codes, scales,
-// mins) while it multiplies the current ones. A block of 8 warps splits K
-// into ks slices, the fewest that give every SM a block; the slices meet in
-// shared memory and one thread adds them in slice order: no atomics, the
-// same bits on every launch.
-// M > 8 takes a tiled kernel: 64x64 output tiles, the 64x32 weight tile is
-// dequantized into shared memory as bf16 and both operands go through
-// tensor cores (WMMA 16x16x16 bf16, f32 accumulate).
+// 16 bytes (a whole block) of each row and a quad transposes its four blocks
+// with four shuffles (6% faster on the head than 4-byte loads of word t).
+// x is staged per chunk of 4096 codes in shared memory by cp.async; each
+// warp prefetches its next four blocks (codes, scales, mins) while it
+// multiplies the current ones. A block of 8 warps splits K into ks slices,
+// the fewest that give every SM a block; the slices meet in shared memory
+// and one thread adds them in slice order: no atomics, the same bits on
+// every launch.
+//
+// M > 8: wgmma tiles computing y^T = W x^T, so the weight is the 64-row A
+// operand and M is wgmma's N width: 16, 32, 64 or 128 (the least that
+// holds M; larger M takes several 128-row tiles), which the prefill
+// buckets fill without waste. A block covers 128 weight rows: two consumer
+// warpgroups of 64 rows and one producer warpgroup. Per 64-code stage the
+// producer brings x (BM rows x 64 bf16) by TMA under the 128-byte swizzle
+// and each of its threads one weight row's 32 bytes of codes and its two
+// scales and mins by cp.async, into a ring of 4 stages under mbarriers (a
+// full barrier: TMA bytes plus the 128 copies; an empty one: both groups).
+// A consumer thread decodes its rows' codes in registers straight into the
+// wgmma A fragment as bf16(s q - m) (f32 fma, one rounding), the RS form
+// m64nBMk16 with x from shared memory; the A fragments of two stages
+// alternate, and a stage is released once the next one's products are
+// issued. One block sums each output over K in order: the same bits on
+// every launch. The D tile is transposed through shared memory into rows
+// of y. What bounds it today is the time a block takes a stage, not the
+// card: below M ~ 256 a block's 32 stages of K = 2048 cost the same at any
+// width and any N (k1_probe.py), so each stage is a chain of its decode
+// (32 codes a consumer thread) and its four products, which ptxas
+// serializes (C7513: the A operand is defined by ordinary instructions
+// while earlier products are in flight); the producer keeps ahead.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -69,59 +90,42 @@ __device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
   }
 }
 
-constexpr int GEMV_WARPS = 8;
+// ---------------------------------------------------------------------------
+// M = 1: the CUDA-core GEMV
 
-template <int MR>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-q4_gemv_cc_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
-               const uint8_t* __restrict__ qs, const float* __restrict__ sc,
-               const float* __restrict__ mn, __nv_bfloat16* __restrict__ y,
-               int N) {
+constexpr int M1_WARPS = 8;
+
+__global__ void __launch_bounds__(M1_WARPS * 32)
+q4_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const uint8_t* __restrict__ qs,
+                  const float* __restrict__ sc, const float* __restrict__ mn,
+                  __nv_bfloat16* __restrict__ y, int N) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * GEMV_WARPS + warp;
+  const int n = blockIdx.x * M1_WARPS + warp;
   if (n >= N) return;
   const int nb = K >> 5;
   const uint4* qcol = reinterpret_cast<const uint4*>(qs + (size_t)n * (K >> 1));
   const float* scol = sc + (size_t)n * nb;
   const float* mcol = mn + (size_t)n * nb;
-  float acc[MR];
-#pragma unroll
-  for (int m = 0; m < MR; ++m) acc[m] = 0.f;
-
+  float acc = 0.f;
 #pragma unroll 2
-  for (int b = lane; b < nb; b += 32) {
+  for (int b = lane; b < nb; b += 32) {  // lane: whole 32-blocks, one 16-byte load each
     const uint4 w4 = __ldg(qcol + b);
     const float s = __ldg(scol + b), mi = -__ldg(mcol + b);
     const uint32_t wv[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // h = 0: elements 0..15, h = 1: 16..31
-      float w[16];
+      const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)b * 32 + h * 16);
+      float xf[16];
+      bf16x8(__ldg(xr), xf);
+      bf16x8(__ldg(xr + 1), xf + 8);
 #pragma unroll
       for (int i = 0; i < 16; ++i)
-        w[i] = fmaf(s, nib((wv[i >> 2] >> (8 * (i & 3) + 4 * h)) & 0xFu), mi);
-#pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        if (m < M) {
-          const uint4* xr = reinterpret_cast<const uint4*>(
-              x + (size_t)m * K + (size_t)b * 32 + h * 16);
-          float xf[16];
-          bf16x8(__ldg(xr), xf);
-          bf16x8(__ldg(xr + 1), xf + 8);
-          float a = acc[m];
-#pragma unroll
-          for (int i = 0; i < 16; ++i) a = fmaf(xf[i], w[i], a);
-          acc[m] = a;
-        }
-      }
+        acc = fmaf(xf[i], fmaf(s, nib((wv[i >> 2] >> (8 * (i & 3) + 4 * h)) & 0xFu), mi), acc);
     }
   }
 #pragma unroll
-  for (int m = 0; m < MR; ++m) {
-    float a = acc[m];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-    if (lane == 0 && m < M) y[(size_t)m * N + n] = __float2bfloat16(a);
-  }
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) y[n] = __float2bfloat16(acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -213,18 +217,12 @@ struct Group {
   float4 s[2], m[2];
 };
 
-template <bool Q16>
 __device__ __forceinline__ void load_group(Group& G, const uint8_t* const (&qrow)[2],
                                            const float* const (&srow)[2],
                                            const float* const (&mrow)[2], int b0, int t, bool vec) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if constexpr (Q16) {
-      G.q[h] = __ldcs(reinterpret_cast<const uint4*>(qrow[h]) + b0 + t);
-    } else {  // word t of each of the four blocks: already in fragment order
-      const uint32_t* p = reinterpret_cast<const uint32_t*>(qrow[h] + 16 * b0) + t;
-      G.q[h] = make_uint4(__ldcs(p), __ldcs(p + 4), __ldcs(p + 8), __ldcs(p + 12));
-    }
+    G.q[h] = __ldcs(reinterpret_cast<const uint4*>(qrow[h]) + b0 + t);
     if (vec) {
       G.s[h] = __ldg(reinterpret_cast<const float4*>(srow[h] + b0));
       G.m[h] = __ldg(reinterpret_cast<const float4*>(mrow[h] + b0));
@@ -246,7 +244,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
-template <bool Q16>
 __global__ void __launch_bounds__(GV_WARPS * 32)
 q4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
                const uint8_t* __restrict__ qs, const float* __restrict__ sc,
@@ -279,7 +276,7 @@ q4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
     const int lo = min(cb, slice * per), hi = min(cb, lo + per);
     const int groups = (hi - lo) >> 2;
     Group A;
-    if (groups > 0) load_group<Q16>(A, qrow, srow, mrow, c0 + lo, t, vec);  // in flight while x lands
+    if (groups > 0) load_group(A, qrow, srow, mrow, c0 + lo, t, vec);  // in flight while x lands
     __syncthreads();  // the previous chunk is consumed
     for (int e = tid; e < M * cb * 4; e += blockDim.x) {  // x rows < M: 16-byte copies
       const int r = e / (cb * 4), c = e % (cb * 4);
@@ -290,17 +287,10 @@ q4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
     const unsigned char* xrow = xsm + (live ? g : 0) * pitch;
     for (int i = 0; i < groups; ++i) {
       Group B;
-      if (i + 1 < groups) load_group<Q16>(B, qrow, srow, mrow, c0 + lo + 4 * (i + 1), t, vec);
+      if (i + 1 < groups) load_group(B, qrow, srow, mrow, c0 + lo + 4 * (i + 1), t, vec);
       uint32_t w[2][4];
-      if constexpr (Q16) {
-        quad_transpose(A.q[0], t, w[0]);
-        quad_transpose(A.q[1], t, w[1]);
-      } else {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          w[h][0] = A.q[h].x; w[h][1] = A.q[h].y; w[h][2] = A.q[h].z; w[h][3] = A.q[h].w;
-        }
-      }
+      quad_transpose(A.q[0], t, w[0]);
+      quad_transpose(A.q[1], t, w[1]);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         gemv_block(w[0][j], w[1][j], x_frag(xrow, lo + 4 * i + j, t, live), comp(A.s[0], j),
@@ -344,20 +334,18 @@ int gemv_ks(int K, int N) {
   return ks;
 }
 
-template <bool Q16>
 cudaError_t gemv(const __nv_bfloat16* x, const uint8_t* qs, const float* sc, const float* mn,
-                 __nv_bfloat16* y, int M, int K, int N, cudaStream_t st, int force_ks = 0) {
+                 __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
   static bool sized = false;  // above 48 KB of shared memory needs the opt-in
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        q4_gemv_kernel<Q16>, cudaFuncAttributeMaxDynamicSharedMemorySize, 8 * (GV_CB * 64 + 32));
+        q4_gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 8 * (GV_CB * 64 + 32));
     if (err != cudaSuccess) return err;
     sized = true;
   }
-  const int ks = force_ks ? force_ks : gemv_ks(K, N), rows = (GV_WARPS / ks) * 16;
+  const int ks = gemv_ks(K, N), rows = (GV_WARPS / ks) * 16;
   const int smem = M * (min(K / 32, GV_CB) * 64 + 32);
-  q4_gemv_kernel<Q16><<<(N + rows - 1) / rows, GV_WARPS * 32, smem, st>>>(x, M, K, qs, sc, mn, y,
-                                                                           N, ks);
+  q4_gemv_kernel<<<(N + rows - 1) / rows, GV_WARPS * 32, smem, st>>>(x, M, K, qs, sc, mn, y, N, ks);
   return cudaGetLastError();
 }
 
@@ -367,7 +355,7 @@ cudaError_t gemv(const __nv_bfloat16* x, const uint8_t* qs, const float* sc, con
 constexpr int TN = 128, TK = 64, STAGES = 4;  // weight rows, codes a stage
 constexpr int TW_PITCH = 48;                  // bytes a weight row of a stage (32 used)
 constexpr int TW_BYTES = TN * TW_PITCH, TS_BYTES = TN * 16;  // codes; {s0, s1, m0, m1} a row
-constexpr int T_THREADS = 2 * 128 + 32;      // two consumer warpgroups, one producer warp
+constexpr int T_THREADS = 3 * 128;  // two consumer warpgroups, one producer warpgroup
 
 template <int BM>
 struct TileShape {
@@ -547,41 +535,41 @@ q4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, int M, int K,
   const int nb = K >> 5, kt_n = (K + TK - 1) / TK;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1 + 32);  // the producer's expect_tx and its 32 lanes' copies
+      mbar_init(&full[s], 1 + 128);  // the producer's expect_tx and its 128 threads' copies
       mbar_init(&empty[s], 2);      // one thread of each consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == 8) {  // the producer warp
+  if (warp >= 8) {  // the producer warpgroup: thread p copies weight row p of every stage
+    const int p = tid - 256, n = n0 + p;
+    const bool row_ok = n < N;
+    const uint8_t* qrow = qs + (size_t)(row_ok ? n : 0) * (K >> 1);
+    const float* srow = sc + (size_t)(row_ok ? n : 0) * nb;
+    const float* mrow = mn + (size_t)(row_ok ? n : 0) * nb;
     for (int kt = 0; kt < kt_n; ++kt) {
       const int s = kt % STAGES;
       if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
       unsigned char* st = tsm + s * S::STAGE;
-      unsigned char* ws = st + S::X_BYTES;
-      unsigned char* ss = ws + TW_BYTES;
-      if (lane == 0) {
+      unsigned char* ws = st + S::X_BYTES + p * TW_PITCH;
+      unsigned char* ss = st + S::X_BYTES + TW_BYTES + p * 16;
+      if (p == 0) {
         mbar_expect_tx(&full[s], S::X_BYTES);
         tma_load_2d(st, &xmap, kt * TK, m0, &full[s]);
       }
-      for (int i = lane; i < 2 * TN; i += 32) {  // codes: two 16-byte copies a row
-        const int r = i >> 1, h = i & 1, n = n0 + r;
-        const bool ok = n < N && kt * TK + 32 * h < K;
-        cp_async_zfill(ws + r * TW_PITCH + 16 * h,
-                       ok ? qs + (size_t)n * (K >> 1) + kt * 32 + 16 * h : qs, 16, ok);
-      }
       const int b0 = 2 * kt;  // the stage's blocks b0, b0 + 1 (b0 + 1 may be past K)
-      for (int i = lane; i < 2 * TN; i += 32) {  // scales then mins: {s0, s1, m0, m1}
-        const int r = i >> 1, h = i & 1, n = n0 + r;
-        const float* src = (h ? mn : sc) + (size_t)n * nb + b0;
-        unsigned char* dst = ss + r * 16 + 8 * h;
-        if ((nb & 1) == 0) {
-          cp_async_zfill(dst, n < N ? src : sc, 8, n < N);
-        } else {
-          cp_async_zfill(dst, n < N ? src : sc, 4, n < N);
-          cp_async_zfill(dst + 4, n < N && b0 + 1 < nb ? src + 1 : sc, 4, n < N && b0 + 1 < nb);
-        }
+      const bool ok1 = row_ok && b0 + 1 < nb;
+      cp_async_zfill(ws, row_ok ? qrow + 16 * b0 : qs, 16, row_ok);  // codes
+      cp_async_zfill(ws + 16, ok1 ? qrow + 16 * (b0 + 1) : qs, 16, ok1);
+      if ((nb & 1) == 0) {  // {s0, s1, m0, m1}
+        cp_async_zfill(ss, row_ok ? srow + b0 : sc, 8, row_ok);
+        cp_async_zfill(ss + 8, row_ok ? mrow + b0 : mn, 8, row_ok);
+      } else {
+        cp_async_zfill(ss, row_ok ? srow + b0 : sc, 4, row_ok);
+        cp_async_zfill(ss + 4, ok1 ? srow + b0 + 1 : sc, 4, ok1);
+        cp_async_zfill(ss + 8, row_ok ? mrow + b0 : mn, 4, row_ok);
+        cp_async_zfill(ss + 12, ok1 ? mrow + b0 + 1 : mn, 4, ok1);
       }
       cp_async_arrive(&full[s]);
     }
@@ -722,6 +710,7 @@ cudaError_t tiles(const void* x, const uint8_t* qs, const float* sc, const float
 extern "C" int nfai_q4_matmul(const void* x, const void* qs, const void* sc,
                               const void* mn, void* y, int M, int K, int N,
                               void* stream) {
+  if (K % 32 != 0 || M < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto xb = static_cast<const __nv_bfloat16*>(x);
   auto q = static_cast<const uint8_t*>(qs);
@@ -729,30 +718,9 @@ extern "C" int nfai_q4_matmul(const void* x, const void* qs, const void* sc,
   auto m = static_cast<const float*>(mn);
   auto yb = static_cast<__nv_bfloat16*>(y);
   if (M == 1) {
-    q4_gemv_cc_kernel<1><<<(N + GEMV_WARPS - 1) / GEMV_WARPS, GEMV_WARPS * 32, 0, st>>>(
-        xb, M, K, q, s, m, yb, N);
+    q4_gemv_m1_kernel<<<(N + M1_WARPS - 1) / M1_WARPS, M1_WARPS * 32, 0, st>>>(xb, K, q, s, m, yb, N);
     return static_cast<int>(cudaGetLastError());
   }
-  if (M <= 8) return static_cast<int>(gemv<true>(xb, q, s, m, yb, M, K, N, st));
+  if (M <= 8) return static_cast<int>(gemv(xb, q, s, m, yb, M, K, N, st));
   return static_cast<int>(tiles(x, q, s, m, yb, M, K, N, st));
-}
-
-// A/B probe of the M <= 8 GEMV: variant 0 = 16-byte loads and a quad
-// transpose, 1 = 4-byte loads of word t, 2 = the CUDA-core GEMV
-extern "C" int nfai_q4_gemv_variant(const void* x, const void* qs, const void* sc,
-                                    const void* mn, void* y, int M, int K, int N,
-                                    int variant, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto q = static_cast<const uint8_t*>(qs);
-  auto s = static_cast<const float*>(sc);
-  auto m = static_cast<const float*>(mn);
-  auto yb = static_cast<__nv_bfloat16*>(y);
-  if (variant == 0) return static_cast<int>(gemv<true>(xb, q, s, m, yb, M, K, N, st));
-  if (variant == 1) return static_cast<int>(gemv<false>(xb, q, s, m, yb, M, K, N, st));
-  if (variant > 10) return static_cast<int>(gemv<true>(xb, q, s, m, yb, M, K, N, st, variant - 10));
-  dim3 grid((N + GEMV_WARPS - 1) / GEMV_WARPS), block(GEMV_WARPS * 32);
-  if (M == 1) q4_gemv_cc_kernel<1><<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N);
-  else q4_gemv_cc_kernel<8><<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N);
-  return static_cast<int>(cudaGetLastError());
 }
