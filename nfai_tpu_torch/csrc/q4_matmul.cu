@@ -49,25 +49,27 @@
 //
 // M > 8: wgmma tiles computing y^T = W x^T, so the weight is the 64-row A
 // operand and M is wgmma's N width: 16, 32, 64 or 128 (the least that
-// holds M; larger M takes several 128-row tiles), which the prefill
-// buckets fill without waste. A block covers 128 weight rows: two consumer
-// warpgroups of 64 rows and one producer warpgroup. Per 64-code stage the
-// producer brings x (BM rows x 64 bf16) by TMA under the 128-byte swizzle
-// and each of its threads one weight row's 32 bytes of codes and its two
-// scales and mins by cp.async, into a ring of 4 stages under mbarriers (a
-// full barrier: TMA bytes plus the 128 copies; an empty one: both groups).
-// A consumer thread decodes its rows' codes in registers straight into the
-// wgmma A fragment as bf16(s q - m) (f32 fma, one rounding), the RS form
-// m64nBMk16 with x from shared memory; the A fragments of two stages
-// alternate, and a stage is released once the next one's products are
-// issued. One block sums each output over K in order: the same bits on
-// every launch. The D tile is transposed through shared memory into rows
-// of y. What bounds it today is the time a block takes a stage, not the
-// card: below M ~ 256 a block's 32 stages of K = 2048 cost the same at any
-// width and any N (k1_probe.py), so each stage is a chain of its decode
-// (32 codes a consumer thread) and its four products, which ptxas
-// serializes (C7513: the A operand is defined by ordinary instructions
-// while earlier products are in flight); the producer keeps ahead.
+// holds M; larger M takes several 128-wide tiles), which the prefill
+// buckets fill without waste. Two consumer warpgroups and one producer
+// warp. Per 128-code stage the producer's lane 0 brings every operand by
+// TMA into a ring of 4-6 stages under mbarriers: x as two 64-code boxes
+// under the 128-byte swizzle (wgmma's B), the codes (64 bytes a row), the
+// scales and the mins (4 f32 a row; where the scale rows are not 16-byte
+// strided, K % 128 != 0, the warp copies them by cp.async instead). A
+// consumer thread decodes its rows' codes in registers straight into the
+// wgmma A fragment as bf16(s q - m) (one rounding of an f32 fma on 128 + q,
+// bit operations for the nibble), the RS form m64nBMk16 with x from shared
+// memory, four products a half-stage. A half's A registers are read while
+// its products run, so a group waits for them before it decodes the next
+// half; the other group's products fill the tensor cores meanwhile. Where
+// the row split (each group 64 of the block's 128 weight rows) would leave
+// most SMs idle (fewer than 64 blocks), the K split takes over: both groups
+// own the block's 64 rows and take alternate stages, and group 1's sums are
+// added to group 0's in shared memory, in that order. Every output is summed
+// in a fixed order: the same bits on every launch. The D tile is transposed
+// through shared memory into rows of y. What bounds it today is the
+// decode: ~3 integer and f32 operations a code on the CUDA cores, which the
+// products of the other group overlap only in part (PERF.md).
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -352,17 +354,20 @@ cudaError_t gemv(const __nv_bfloat16* x, const uint8_t* qs, const float* sc, con
 // ---------------------------------------------------------------------------
 // M > 8: wgmma tiles, y^T = W x^T
 
-constexpr int TN = 128, TK = 64, STAGES = 4;  // weight rows, codes a stage
-constexpr int TW_PITCH = 48;                  // bytes a weight row of a stage (32 used)
-constexpr int TW_BYTES = TN * TW_PITCH, TS_BYTES = TN * 16;  // codes; {s0, s1, m0, m1} a row
-constexpr int T_THREADS = 3 * 128;  // two consumer warpgroups, one producer warpgroup
+constexpr int TN = 128, TK = 128;   // weight rows a block (row split), codes a stage
+constexpr int T_THREADS = 2 * 128 + 32;  // two consumer warpgroups, one producer warp
 
 template <int BM>
 struct TileShape {
-  static constexpr int X_BYTES = BM * 128;  // BM rows of 64 bf16, 128-byte swizzled
-  static constexpr int STAGE = X_BYTES + TW_BYTES + TS_BYTES;  // a multiple of 1024
-  static constexpr int SMEM = STAGES * STAGE + 1024;            // + alignment slack
-  static constexpr int OUT_PITCH = TN + 8;                      // bf16 a row of the y tile
+  static constexpr int STAGES = BM == 128 ? 4 : 6;
+  static constexpr int X_BYTES = BM * 128;       // one of the stage's two 64-code x tiles
+  static constexpr int W_OFF = 2 * X_BYTES;      // codes: 128 rows of 64 bytes
+  static constexpr int S_OFF = W_OFF + TN * 64;  // scales: 128 rows of 4 f32
+  static constexpr int M_OFF = S_OFF + TN * 16;  // mins: the same
+  static constexpr int STAGE = M_OFF + TN * 16;  // a multiple of 1024
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
+  static constexpr int OUT_PITCH = TN + 8;            // bf16 a row of the y tile
+  static constexpr int OUT_BYTES = BM * OUT_PITCH * 2;  // then the K split's sums
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -401,15 +406,10 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, int bytes, bool ok) {
-  const uint32_t d = smem_u32(dst);
-  const int n = ok ? bytes : 0;  // 0 source bytes: zero-filled
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const int n = ok ? 4 : 0;  // 0 source bytes: zero-filled
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(n));
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
@@ -428,7 +428,9 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (uint64_t(1024 >> 4) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
@@ -516,133 +518,150 @@ __device__ __forceinline__ void decode_a(uint32_t w0, uint32_t w1, float s0, flo
   a[3] = *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t lds_u16(const unsigned char* p) {
-  return *reinterpret_cast<const uint16_t*>(p);
-}
-
-template <int BM>
+template <int BM, bool KS>
 __global__ void __launch_bounds__(T_THREADS, 1)
-q4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, int M, int K,
-                const uint8_t* __restrict__ qs, const float* __restrict__ sc,
-                const float* __restrict__ mn, __nv_bfloat16* __restrict__ y, int N) {
+q4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap mmap,
+                int M, int K, const float* __restrict__ sc, const float* __restrict__ mn,
+                __nv_bfloat16* __restrict__ y, int N, bool scales_by_tma) {
   using S = TileShape<BM>;
+  constexpr int STAGES = S::STAGES;
   extern __shared__ unsigned char tsm_raw[];
   unsigned char* tsm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(tsm_raw) + 1023) & ~uintptr_t(1023));
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * BM;
+  constexpr int RB = KS ? 64 : TN;  // weight rows a block
+  const int n0 = blockIdx.x * RB, m0 = blockIdx.y * BM;
   const int nb = K >> 5, kt_n = (K + TK - 1) / TK;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1 + 128);  // the producer's expect_tx and its 128 threads' copies
-      mbar_init(&empty[s], 2);      // one thread of each consumer warpgroup
+      mbar_init(&full[s], scales_by_tma ? 1 : 1 + 32);  // expect_tx (+ the lanes' copies)
+      mbar_init(&empty[s], KS ? 1 : 2);  // one thread of each group that reads the stage
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= 8) {  // the producer warpgroup: thread p copies weight row p of every stage
-    const int p = tid - 256, n = n0 + p;
-    const bool row_ok = n < N;
-    const uint8_t* qrow = qs + (size_t)(row_ok ? n : 0) * (K >> 1);
-    const float* srow = sc + (size_t)(row_ok ? n : 0) * nb;
-    const float* mrow = mn + (size_t)(row_ok ? n : 0) * nb;
+  if (warp == 8) {  // the producer warp: every operand by TMA from lane 0
+    constexpr int TX = 2 * S::X_BYTES + RB * 64 + (2 * RB * 16);
     for (int kt = 0; kt < kt_n; ++kt) {
       const int s = kt % STAGES;
       if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
       unsigned char* st = tsm + s * S::STAGE;
-      unsigned char* ws = st + S::X_BYTES + p * TW_PITCH;
-      unsigned char* ss = st + S::X_BYTES + TW_BYTES + p * 16;
-      if (p == 0) {
-        mbar_expect_tx(&full[s], S::X_BYTES);
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], scales_by_tma ? TX : TX - 2 * RB * 16);
         tma_load_2d(st, &xmap, kt * TK, m0, &full[s]);
+        tma_load_2d(st + S::X_BYTES, &xmap, kt * TK + 64, m0, &full[s]);
+        tma_load_2d(st + S::W_OFF, &qmap, kt * (TK / 2), n0, &full[s]);
+        if (scales_by_tma) {
+          tma_load_2d(st + S::S_OFF, &smap, kt * 4, n0, &full[s]);
+          tma_load_2d(st + S::M_OFF, &mmap, kt * 4, n0, &full[s]);
+        }
       }
-      const int b0 = 2 * kt;  // the stage's blocks b0, b0 + 1 (b0 + 1 may be past K)
-      const bool ok1 = row_ok && b0 + 1 < nb;
-      cp_async_zfill(ws, row_ok ? qrow + 16 * b0 : qs, 16, row_ok);  // codes
-      cp_async_zfill(ws + 16, ok1 ? qrow + 16 * (b0 + 1) : qs, 16, ok1);
-      if ((nb & 1) == 0) {  // {s0, s1, m0, m1}
-        cp_async_zfill(ss, row_ok ? srow + b0 : sc, 8, row_ok);
-        cp_async_zfill(ss + 8, row_ok ? mrow + b0 : mn, 8, row_ok);
-      } else {
-        cp_async_zfill(ss, row_ok ? srow + b0 : sc, 4, row_ok);
-        cp_async_zfill(ss + 4, ok1 ? srow + b0 + 1 : sc, 4, ok1);
-        cp_async_zfill(ss + 8, row_ok ? mrow + b0 : mn, 4, row_ok);
-        cp_async_zfill(ss + 12, ok1 ? mrow + b0 + 1 : mn, 4, ok1);
+      if (!scales_by_tma) {  // scale rows not 16-byte strided (K % 128 != 0): 4-byte copies
+        for (int i = lane; i < RB * 8; i += 32) {
+          const int r = i >> 3, j = i & 3, n = n0 + r, b = 4 * kt + j;
+          const bool ok = n < N && b < nb;
+          const float* src = (i & 4 ? mn : sc) + (size_t)(ok ? n : 0) * nb + (ok ? b : 0);
+          cp_async4(st + (i & 4 ? S::M_OFF : S::S_OFF) + r * 16 + 4 * j, src, ok);
+        }
+        cp_async_arrive(&full[s]);
       }
-      cp_async_arrive(&full[s]);
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its thread
     return;
   }
 
-  // consumers: warpgroup wg holds weight rows 64 wg .. 64 wg + 63 of the tile
+  // consumers: with KS both groups own the tile's 64 rows and take
+  // alternate stages (their sums meet at the end, group 0's first); else
+  // group wg owns rows 64 wg .. 64 wg + 63 and takes every stage
   const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
-  const int r0 = 64 * wg + 16 * (warp & 3) + g;  // this lane's rows r0 and r0 + 8
+  const int r0 = (KS ? 0 : 64 * wg) + 16 * (warp & 3) + g;  // this lane's rows r0 and r0 + 8
+  constexpr int STEP = KS ? 2 : 1;
   float acc[BM / 2];
 #pragma unroll
   for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
   fence_regs(acc);
-  // one stage: its four A fragments go to `a`, which its products read
-  // until the next stage has been issued, so stages alternate two arrays
-  auto stage = [&](int kt, uint32_t (&a)[4][4]) {
-    const int s = kt % STAGES;
-    mbar_wait(&full[s], (kt / STAGES) & 1);
-    const unsigned char* st = tsm + s * S::STAGE;
-    const unsigned char* ws = st + S::X_BYTES;
-    const float4 q0 = *reinterpret_cast<const float4*>(ws + TW_BYTES + r0 * 16);
-    const float4 q1 = *reinterpret_cast<const float4*>(ws + TW_BYTES + (r0 + 8) * 16);
+  // a stage is two halves of two 32-blocks, four k16 products each. A
+  // half's A fragment lives in registers that its products read while they
+  // run, so a group waits for them before it decodes the next half; the
+  // other group's products keep the tensor cores busy meanwhile
+  auto half = [&](const unsigned char* st, int hb, const float4 (&q)[4]) {
+    uint32_t a[4][4];  // k16 step 2 jj + h: block 2 hb + jj, half h
 #pragma unroll
-    for (int jb = 0; jb < 2; ++jb) {
-      const unsigned char* w0p = ws + r0 * TW_PITCH + 16 * jb + 2 * t;
-      const unsigned char* w1p = w0p + 8 * TW_PITCH;
-      const uint32_t w0 = lds_u16(w0p) | (lds_u16(w0p + 8) << 16);
-      const uint32_t w1 = lds_u16(w1p) | (lds_u16(w1p + 8) << 16);
-      const float s0 = jb ? q0.y : q0.x, s1 = jb ? q1.y : q1.x;
-      const float c0 = -fmaf(128.f, s0, jb ? q0.w : q0.z);
-      const float c1 = -fmaf(128.f, s1, jb ? q1.w : q1.z);
-      decode_a<0>(w0, w1, s0, c0, s1, c1, a[2 * jb]);
-      decode_a<1>(w0, w1, s0, c0, s1, c1, a[2 * jb + 1]);
+    for (int jj = 0; jj < 2; ++jj) {
+      const int jb = 2 * hb + jj;
+      // the block's 16 bytes of rows r0 and r0 + 8 (a quad reads one chunk);
+      // lane t keeps bytes 2t, 2t+1, 2t+8, 2t+9: k = 2t, 2t+1 | 2t+8, 2t+9
+      const uint4 c0 = *reinterpret_cast<const uint4*>(st + S::W_OFF + r0 * 64 + 16 * jb);
+      const uint4 c1 = *reinterpret_cast<const uint4*>(st + S::W_OFF + (r0 + 8) * 64 + 16 * jb);
+      const uint32_t sel = (t & 1) ? 0x7632 : 0x5410;
+      const uint32_t w0 = prmt(t & 2 ? c0.y : c0.x, t & 2 ? c0.w : c0.z, sel);
+      const uint32_t w1 = prmt(t & 2 ? c1.y : c1.x, t & 2 ? c1.w : c1.z, sel);
+      const float s0 = comp(q[0], jb), s1 = comp(q[1], jb);
+      const float cc0 = -fmaf(128.f, s0, comp(q[2], jb)), cc1 = -fmaf(128.f, s1, comp(q[3], jb));
+      decode_a<0>(w0, w1, s0, cc0, s1, cc1, a[2 * jj]);
+      decode_a<1>(w0, w1, s0, cc0, s1, cc1, a[2 * jj + 1]);
     }
     uint64_t desc[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      desc[j] = sw128_desc(st + 32 * j);
+      desc[j] = sw128_desc(st + hb * S::X_BYTES + 32 * j);
       pin(a[j], desc[j]);  // operands final before the fence: nothing sinks between products
     }
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) wgmma_rs<BM>(acc, a[j], desc[j]);
     wgmma_commit();
-    // the previous stage's products have completed (this stage's may run on
-    // while the next one is decoded): every warp of this group has read
-    // that stage, and the tensor cores are done with it
-    wgmma_wait<1>();
-    if (kt > 0 && (warp & 3) == 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+    wgmma_wait<0>();
   };
-  uint32_t a0[4][4], a1[4][4];  // k16 step 2 jb + h: block jb, half h
-  for (int kt = 0; kt < kt_n; kt += 2) {
-    stage(kt, a0);
-    if (kt + 1 < kt_n) stage(kt + 1, a1);
+  for (int kt = KS ? wg : 0; kt < kt_n; kt += STEP) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const unsigned char* st = tsm + s * S::STAGE;
+    const float4 q[4] = {  // the stage's four scales and mins of rows r0 and r0 + 8
+        *reinterpret_cast<const float4*>(st + S::S_OFF + r0 * 16),
+        *reinterpret_cast<const float4*>(st + S::S_OFF + (r0 + 8) * 16),
+        *reinterpret_cast<const float4*>(st + S::M_OFF + r0 * 16),
+        *reinterpret_cast<const float4*>(st + S::M_OFF + (r0 + 8) * 16)};
+    half(st, 0, q);
+    half(st, 1, q);
+    // the group's products of this stage have completed, after every warp
+    // of the group had read it: the stage is free
+    if ((warp & 3) == 0 && lane == 0) mbar_arrive(&empty[s]);
   }
-  wgmma_wait<0>();
   fence_regs(acc);
   asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both groups are done with the stages
+  if constexpr (KS) {  // group 1's sums, in its fragment order, onto group 0's
+    float* part = reinterpret_cast<float*>(tsm + S::OUT_BYTES);
+    float* mine = part + (warp & 3) * (BM / 2) * 32 + lane;
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < BM / 2; ++i) mine[i * 32] = acc[i];
+    }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < BM / 2; ++i) acc[i] += mine[i * 32];
+    }
+  }
   // D fragment: acc[4i + e] = row r0 (+8 for e >= 2), column m = 8i + 2t (+1 for odd e)
   __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(tsm);  // [BM][OUT_PITCH]
+  if (!KS || wg == 0) {
 #pragma unroll
-  for (int i = 0; i < BM / 8; ++i) {
-    const int m = 8 * i + 2 * t;
-    out[m * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i]);
-    out[(m + 1) * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i + 1]);
-    out[m * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 2]);
-    out[(m + 1) * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 3]);
+    for (int i = 0; i < BM / 8; ++i) {
+      const int m = 8 * i + 2 * t;
+      out[m * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i]);
+      out[(m + 1) * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i + 1]);
+      out[m * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 2]);
+      out[(m + 1) * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 3]);
+    }
   }
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
-  const bool vec = (N & 7) == 0 && n0 + TN <= N;
-  for (int e = tid; e < BM * (TN / 8); e += 256) {  // 16 bytes (8 columns) a thread
-    const int m = e / (TN / 8), c = 8 * (e % (TN / 8));
+  const bool vec = (N & 7) == 0 && n0 + RB <= N;
+  for (int e = tid; e < BM * (RB / 8); e += 256) {  // 16 bytes (8 columns) a thread
+    const int m = e / (RB / 8), c = 8 * (e % (RB / 8));
     if (m0 + m >= M) continue;
     const __nv_bfloat16* src = out + m * S::OUT_PITCH + c;
     __nv_bfloat16* dst = y + (size_t)(m0 + m) * N + n0 + c;
@@ -654,9 +673,10 @@ q4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, int M, int K,
   }
 }
 
-// the x operand's TMA map: [M, K] bf16 row-major, boxes of 64 codes x BM rows
-// under the 128-byte swizzle; rows past M and codes past K read as zero
-cudaError_t x_tensor_map(CUtensorMap* map, const void* x, int M, int K, int BM) {
+// a 2-D TMA map of a row-major [rows, cols] tensor: boxes of box_cols x
+// box_rows, elements past the edges read as zero
+cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* p,
+                       int rows, int cols, int box_cols, int box_rows, CUtensorMapSwizzle swz) {
   static PFN_cuTensorMapEncodeTiled encode = nullptr;
   if (!encode) {
     cudaDriverEntryPointQueryResult q;
@@ -665,42 +685,66 @@ cudaError_t x_tensor_map(CUtensorMap* map, const void* x, int M, int K, int BM) 
     if (err != cudaSuccess || q != cudaDriverEntryPointSuccess || !encode)
       return err != cudaSuccess ? err : cudaErrorNotSupported;
   }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
-  const cuuint32_t box[2] = {TK, static_cast<cuuint32_t>(BM)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t one[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(p), dims, strides, box, one,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int BM>
+template <int BM, bool KS>
 cudaError_t launch_tiles(const void* x, const uint8_t* qs, const float* sc, const float* mn,
                          __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
   static bool sized = false;  // one per instantiation: above 48 KB needs the opt-in
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        q4_wgmma_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, TileShape<BM>::SMEM);
+        q4_wgmma_kernel<BM, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, TileShape<BM>::SMEM);
     if (err != cudaSuccess) return err;
     sized = true;
   }
-  CUtensorMap map;
-  const cudaError_t err = x_tensor_map(&map, x, M, K, BM);
+  constexpr int RB = KS ? 64 : TN;
+  const int nb = K / 32;
+  const bool scales_by_tma = nb % 4 == 0;  // TMA strides are multiples of 16 bytes
+  CUtensorMap xm, qm, sm, mm;
+  cudaError_t err = tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, 64, BM,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = tensor_map(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qs, N, K / 2, TK / 2, RB,
+                     CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess && scales_by_tma)
+    err = tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, sc, N, nb, 4, RB,
+                     CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess && scales_by_tma)
+    err = tensor_map(&mm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, mn, N, nb, 4, RB,
+                     CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + TN - 1) / TN, (M + BM - 1) / BM);
-  q4_wgmma_kernel<BM><<<grid, T_THREADS, TileShape<BM>::SMEM, st>>>(map, M, K, qs, sc, mn, y, N);
+  if (!scales_by_tma) sm = mm = qm;  // unused
+  dim3 grid((N + RB - 1) / RB, (M + BM - 1) / BM);
+  q4_wgmma_kernel<BM, KS><<<grid, T_THREADS, TileShape<BM>::SMEM, st>>>(
+      xm, qm, sm, mm, M, K, sc, mn, y, N, scales_by_tma);
   return cudaGetLastError();
 }
 
-// the tile width: the least of 16, 32, 64, 128 that holds M, else 128
+// the tile width: the least of 16, 32, 64, 128 that holds M (larger M
+// takes several 128-wide row tiles); the K split where the row split
+// would leave most SMs without a block (fewer than 64 blocks; measured)
+template <int BM>
+cudaError_t launch_width(const void* x, const uint8_t* qs, const float* sc, const float* mn,
+                         __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
+  const int blocks = (N + TN - 1) / TN * ((M + BM - 1) / BM);
+  return blocks < 64 ? launch_tiles<BM, true>(x, qs, sc, mn, y, M, K, N, st)
+                     : launch_tiles<BM, false>(x, qs, sc, mn, y, M, K, N, st);
+}
+
 cudaError_t tiles(const void* x, const uint8_t* qs, const float* sc, const float* mn,
                   __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
-  if (M <= 16) return launch_tiles<16>(x, qs, sc, mn, y, M, K, N, st);
-  if (M <= 32) return launch_tiles<32>(x, qs, sc, mn, y, M, K, N, st);
-  if (M <= 64) return launch_tiles<64>(x, qs, sc, mn, y, M, K, N, st);
-  return launch_tiles<128>(x, qs, sc, mn, y, M, K, N, st);
+  if (M <= 16) return launch_width<16>(x, qs, sc, mn, y, M, K, N, st);
+  if (M <= 32) return launch_width<32>(x, qs, sc, mn, y, M, K, N, st);
+  if (M <= 64) return launch_width<64>(x, qs, sc, mn, y, M, K, N, st);
+  return launch_width<128>(x, qs, sc, mn, y, M, K, N, st);
 }
 
 }  // namespace
