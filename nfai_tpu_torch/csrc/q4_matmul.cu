@@ -63,7 +63,7 @@
 // its products run, so a group waits for them before it decodes the next
 // half; the other group's products fill the tensor cores meanwhile. Where
 // the row split (each group 64 of the block's 128 weight rows) would leave
-// most SMs idle (fewer than 64 blocks), the K split takes over: both groups
+// part of a wave of SMs idle, the K split takes over: both groups
 // own the block's 64 rows and take alternate stages, and group 1's sums are
 // added to group 0's in shared memory, in that order. Every output is summed
 // in a fixed order: the same bits on every launch. The D tile is transposed
@@ -729,14 +729,19 @@ cudaError_t launch_tiles(const void* x, const uint8_t* qs, const float* sc, cons
 }
 
 // the tile width: the least of 16, 32, 64, 128 that holds M (larger M
-// takes several 128-wide row tiles); the K split where the row split
-// would leave most SMs without a block (fewer than 64 blocks; measured)
+// takes several 128-wide row tiles). The K split doubles the blocks and
+// halves each one's stages: it pays where the row split's grid is short
+// of two waves of one block an SM and splitting saves half a wave (faster
+// at 24 to 64 blocks and at 192, slower at 128 and 256: measured)
 template <int BM>
 cudaError_t launch_width(const void* x, const uint8_t* qs, const float* sc, const float* mn,
                          __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
+  constexpr int SMS = 132;
   const int blocks = (N + TN - 1) / TN * ((M + BM - 1) / BM);
-  return blocks < 64 ? launch_tiles<BM, true>(x, qs, sc, mn, y, M, K, N, st)
-                     : launch_tiles<BM, false>(x, qs, sc, mn, y, M, K, N, st);
+  const int waves = (blocks + SMS - 1) / SMS, waves_split = (2 * blocks + SMS - 1) / SMS;
+  return blocks <= 2 * SMS && waves_split <= 2 * waves - 1
+             ? launch_tiles<BM, true>(x, qs, sc, mn, y, M, K, N, st)
+             : launch_tiles<BM, false>(x, qs, sc, mn, y, M, K, N, st);
 }
 
 cudaError_t tiles(const void* x, const uint8_t* qs, const float* sc, const float* mn,
