@@ -1,6 +1,6 @@
 """K1 (4-bit dequant-matmul) alone on one NVIDIA GPU: build, check, time.
 
-    python3 k1_probe.py
+    python3 k1_probe.py [rows.json]
 
 Builds csrc/q4_matmul.cu (nvcc -Xptxas=-v: registers and spills), then at
 every (K, N) the path launches K1 with and every M it takes, holds
@@ -8,7 +8,8 @@ every (K, N) the path launches K1 with and every M it takes, holds
 chip_smoke.py), checks that three launches give the same bits, and times it
 beside cuBLAS on the dequantized bf16 weight and the byte/operation bound
 (chip_smoke.py's Timer: median of CUDA-event times, L2 flushed).
-K1_PROBE_M="1,8,..." picks the rows. Writes chiprun_out/k1_probe.json.
+K1_PROBE_M="1,8,..." picks the rows. The rows are also written as JSON to
+the path given, if one is.
 """
 import json
 import os
@@ -67,9 +68,9 @@ def main() -> int:
             log(f"    {json.dumps({k_: v_ for k_, v_ in row.items() if k_ not in ('shape', 'k', 'n')})}")
             out.append(row)
         del qs, sc, mn, w, wd
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/k1_probe.json", "w") as f:
-        json.dump(dict(device=torch.cuda.get_device_name(0), card=card, rows=out), f, indent=1)
+    if len(sys.argv) > 1:
+        with open(sys.argv[1], "w") as f:
+            json.dump(dict(device=torch.cuda.get_device_name(0), card=card, rows=out), f, indent=1)
     print(json.dumps({"ok": True, "rows": len(out)}))
     return 0
 
