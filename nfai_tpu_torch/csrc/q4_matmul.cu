@@ -731,15 +731,15 @@ cudaError_t launch_tiles(const void* x, const uint8_t* qs, const float* sc, cons
 // the tile width: the least of 16, 32, 64, 128 that holds M (larger M
 // takes several 128-wide row tiles). The K split doubles the blocks and
 // halves each one's stages: it pays where the row split's grid is short
-// of two waves of one block an SM and splitting saves half a wave (faster
-// at 24 to 64 blocks and at 192, slower at 128 and 256: measured)
+// of three waves of one block an SM and splitting saves half a wave
+// (faster at 24 to 64 blocks, 192 and 320, slower at 128 and 256: measured)
 template <int BM>
 cudaError_t launch_width(const void* x, const uint8_t* qs, const float* sc, const float* mn,
                          __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
   constexpr int SMS = 132;
   const int blocks = (N + TN - 1) / TN * ((M + BM - 1) / BM);
   const int waves = (blocks + SMS - 1) / SMS, waves_split = (2 * blocks + SMS - 1) / SMS;
-  return blocks <= 2 * SMS && waves_split <= 2 * waves - 1
+  return blocks <= 3 * SMS && waves_split <= 2 * waves - 1
              ? launch_tiles<BM, true>(x, qs, sc, mn, y, M, K, N, st)
              : launch_tiles<BM, false>(x, qs, sc, mn, y, M, K, N, st);
 }
