@@ -300,18 +300,20 @@ def phase_kernels(torch, timer) -> dict:
 
     # K1 at every (K, N) of the path (wk/wv: model B's split Q4_K layers),
     # decode rows 1 (the CUDA-core GEMV) and 8 (the tensor-core GEMV),
-    # prefill rows 16 and 64 (batch-1 buckets: wgmma tiles 16 and 64 wide),
-    # 256 and 1024 (the batch prefill's 8x128 chunk; the head sees one row
-    # per sequence); three launches with the same bits
+    # prefill rows 16, 24, 32 and 64 (batch-1 buckets: wgmma tiles 16, 32
+    # and 64 wide, in the K split at N <= 5120 and the row split on the
+    # head), 256 and 1024 (the batch prefill's 8x128 chunk; the head sees
+    # one row per sequence); three launches with the same bits
     shapes = {"wqkv": (2048, 3072), "wo": (2048, 2048), "wk/wv": (2048, 512),
               "gate_up": (2048, 16384), "down": (8192, 2048), "lm_head": (2048, 128256),
               "C wq": (2048, 4096), "C wo": (4096, 2048),  # model C's head_dim-128 q and o
-              "3B wqkv": (3072, 5120), "3B wo": (3072, 3072)}  # the 3B's K = 3072 (K % 2048 != 0)
+              "3B wqkv": (3072, 5120), "3B wo": (3072, 3072),  # the 3B's K = 3072 (K % 2048 != 0)
+              "G wqkv": (2304, 4096)}  # model G's K = 2304
     cases = []
     for label, (k, n) in shapes.items():
         w = _q4_weight(torch, n, k, gen)
         wd = dequant(w).to(bf)
-        for m in (1, 8, 16, 64, 256) if label == "lm_head" else (1, 8, 16, 64, 256, 1024):
+        for m in (1, 8, 16, 24, 32, 64, 256) + (() if label == "lm_head" else (1024,)):
             x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
             got = qm.q4_matmul(x, w)
             torch.cuda.synchronize()

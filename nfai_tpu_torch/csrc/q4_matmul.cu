@@ -324,13 +324,27 @@ q4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
   }
 }
 
+// the current device's SM count, read once: both launch rules size their
+// grids by it (132 on an H100 SXM)
+cudaError_t sm_count(int* sms) {
+  static int cached = 0;
+  if (!cached) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached;
+  return cudaSuccess;
+}
+
 // K slices a block for M <= 8 (each warp 16 rows): the fewest that give
 // every SM a block, each slice keeping at least 8 blocks of 32 (measured:
 // fewer, longer blocks stream better once the card is covered)
-int gemv_ks(int K, int N) {
+int gemv_ks(int K, int N, int sms) {
   const int nb = K / 32;
   int ks = 1;
-  while (ks < GV_WARPS && (N + (GV_WARPS / ks) * 16 - 1) / ((GV_WARPS / ks) * 16) < 132 &&
+  while (ks < GV_WARPS && (N + (GV_WARPS / ks) * 16 - 1) / ((GV_WARPS / ks) * 16) < sms &&
          nb / (2 * ks) >= 8)
     ks *= 2;
   return ks;
@@ -345,7 +359,10 @@ cudaError_t gemv(const __nv_bfloat16* x, const uint8_t* qs, const float* sc, con
     if (err != cudaSuccess) return err;
     sized = true;
   }
-  const int ks = gemv_ks(K, N), rows = (GV_WARPS / ks) * 16;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int ks = gemv_ks(K, N, sms), rows = (GV_WARPS / ks) * 16;
   const int smem = M * (min(K / 32, GV_CB) * 64 + 32);
   q4_gemv_kernel<<<(N + rows - 1) / rows, GV_WARPS * 32, smem, st>>>(x, M, K, qs, sc, mn, y, N, ks);
   return cudaGetLastError();
@@ -736,10 +753,12 @@ cudaError_t launch_tiles(const void* x, const uint8_t* qs, const float* sc, cons
 template <int BM>
 cudaError_t launch_width(const void* x, const uint8_t* qs, const float* sc, const float* mn,
                          __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
-  constexpr int SMS = 132;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const int blocks = (N + TN - 1) / TN * ((M + BM - 1) / BM);
-  const int waves = (blocks + SMS - 1) / SMS, waves_split = (2 * blocks + SMS - 1) / SMS;
-  return blocks <= 3 * SMS && waves_split <= 2 * waves - 1
+  const int waves = (blocks + sms - 1) / sms, waves_split = (2 * blocks + sms - 1) / sms;
+  return blocks <= 3 * sms && waves_split <= 2 * waves - 1
              ? launch_tiles<BM, true>(x, qs, sc, mn, y, M, K, N, st)
              : launch_tiles<BM, false>(x, qs, sc, mn, y, M, K, N, st);
 }

@@ -77,14 +77,16 @@ def _q4_weight(n, k, gen, layers=None):
 
 
 # every branch of K1: the CUDA-core GEMV (M = 1), the tensor-core GEMV
-# (M = 2..8), the wgmma tiles at each width (16, 32, 64, 128; M = 256 and
-# 1024 take several row tiles) in both splits (K split below 64 blocks);
-# N of the path (wk/wv 512, wo 2048, the head 128256), the 3B's K = 3072,
-# a small ragged case (N = 192, K = 512) and K % 128 != 0 (K = 1056: the
+# (M = 2..8), the wgmma tiles at each width: 16 (M = 9, 16), 32 (M = 24,
+# 32), 64 (M = 40, 64) and 128 (M = 100; 256 and 1024 take several row
+# tiles), each in both splits (the K split on the small grids of N <=
+# 3072, the row split on the head's 1002 blocks); N of the path (wk/wv 512,
+# wo 2048, the head 128256), the 3B's K = 3072, a small ragged case (N =
+# 192, K = 512) and K % 128 != 0 (K = 1056 and 2080 with a ragged N: the
 # tiles copy the scales, the GEMV reads them one by one)
-@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 16, 40, 64, 100, 256, 1024])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 16, 24, 32, 40, 64, 100, 256, 1024])
 @pytest.mark.parametrize("k,n", [(512, 192), (2048, 512), (2048, 2048), (2048, 128256), (3072, 3072),
-                                 (1056, 200)])
+                                 (1056, 200), (2080, 1000)])
 def test_q4_matmul_kernel(cuda, m, k, n):
     if n == 128256 and m > 256:
         pytest.skip("the head sees one row per sequence: at most 256 at a time")
