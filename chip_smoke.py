@@ -10,6 +10,9 @@ Phases (each failure propagates, the exit code is then non-zero):
            the slice's shapes (K1 at rows 1, 8, 16, 64, 256 and 1024, each
            path of it: the CUDA-core GEMV, the tensor-core GEMV and the wgmma
            tiles 16, 64 and 128 wide, three launches with the same bits;
+           K6 the same at every (K, N) of the path, the heads of models B,
+           C and G, a g32 layer with mins, at rows 1, 2, 8, 16, 24, 32,
+           64, 256 and 1024 (G's head at 1 and 8);
            K2/K3/K4/K7 at head_dim 64 and 128; K8/K9 at
            the decode layouts of a batch-1 and a batch-8 routing and a
            256-token prefill chunk); the int8 KV cache's kernels on int8
@@ -45,7 +48,8 @@ Phases (each failure propagates, the exit code is then non-zero):
            steps under the profiler (device ms/step, K2 ms per launch, each
            beside its byte bound)
   profile  torch.profiler over 8 more decode steps of that batch: device
-           busy share of the wall time and device time by kernel
+           busy share of the wall time and device time by kernel (K1's
+           and K6's ms a step tallied by their functions' names)
   server   continuous batching on model A's engine: paged vs dense
            forwards on the card (a 300-token prefill, 8 teacher-forced
            decode steps at batch 4), a timed and profiled batch-8 paged
@@ -177,6 +181,8 @@ DENSE_KINDS = ("f16", "bf16")  # every matmul weight dense: K11, no K1/K5/K6
 # parity copies that run again with every weight dequantized at load
 PARITY_PARAM_DTYPE = {"q4_k_m": "bfloat16"}
 NEAR_TIE = 0.01  # router-logit gap below which card and CPU may pick different experts
+# the profile's device ms a step of K1 and K6, tallied by their CUDA functions' names
+KERNEL_FUNCTIONS = {"q4_matmul": ("q4_gemv", "q4_wgmma"), "q8_matmul": ("q8_gemv", "q8_wgmma")}
 
 
 def log(msg: str) -> None:
@@ -513,36 +519,44 @@ def _kernels_k5_k6(torch, timer, gen) -> dict:
         headline=cases[1], cases=cases,
     )
 
-    # K6: the tied Q6_K head, Q8_0 wqkv and down, model B's Q6_K wv and
-    # w_down; rows 1, 8, 256 and, below the head, 1024 (B's batch prefill)
-    shapes = {"Q6_K head": (2048, 128256, 16, 32), "Q8_0 wqkv": (2048, 3072, 32, 127),
-              "Q8_0 down": (8192, 2048, 32, 127), "Q6_K wv": (2048, 512, 16, 32),
-              "Q6_K w_down": (8192, 2048, 16, 32), "C Q6_K head": (2048, 151936, 16, 32)}
+    # K6 at every (K, N) of the path: the tied Q6_K heads of models B (and
+    # the 1B copies), C and G, Q8_0 wqkv and down, model B's Q6_K wv and
+    # w_down, model G's Q6_K ffn_down (K = 9216), and a g32 layer with mins
+    # (Q5_K); decode rows 1 (the CUDA-core GEMV), 2 and 8 (the tensor-core
+    # GEMV), prefill rows 16, 24, 32 and 64 (batch-1 buckets: wgmma tiles 16,
+    # 32 and 64 wide) and 256 and, below the heads, 1024 (the batch prefill's
+    # 8x128 chunk; a head sees one row per sequence, G's at most 8 here);
+    # three launches with the same bits
+    shapes = {"Q6_K head": (2048, 128256, 16, 32, False), "C Q6_K head": (2048, 151936, 16, 32, False),
+              "G Q6_K head": (2304, 256000, 16, 32, False), "Q8_0 wqkv": (2048, 3072, 32, 127, False),
+              "Q8_0 down": (8192, 2048, 32, 127, False), "Q6_K wv": (2048, 512, 16, 32, False),
+              "Q6_K w_down": (8192, 2048, 16, 32, False),
+              "G Q6_K ffn_down": (9216, 2304, 16, 32, False),
+              "Q5_K wqkv (mins)": (2048, 3072, 32, 127, True)}
     cases = []
-    for label, (k, n, group, qmax) in shapes.items():
-        w = _q8_weight(torch, n, k, group, qmax, gen)
+    for label, (k, n, group, qmax, with_mins) in shapes.items():
+        w = _q8_weight(torch, n, k, group, qmax, gen, with_mins=with_mins)
         wd = dequant(w).to(bf)
-        for m in (1, 8, 256) if label.endswith("head") else (1, 8, 256, 1024):
+        rows = ((1, 8) if label.startswith("G") and label.endswith("head")
+                else (1, 2, 8, 16, 24, 32, 64, 256) if label.endswith("head")
+                else (1, 2, 8, 16, 24, 32, 64, 256, 1024))
+        for m in rows:
             x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
             got = qm.q8_matmul(x, w)
             torch.cuda.synchronize()
             err = check(f"K6 {label} M={m} K={k} N={n} g{group}", got, qm.matmul_plain(x, w),
                         row_dims=1)
+            if not all(torch.equal(qm.q8_matmul(x, w), got) for _ in range(2)):
+                raise AssertionError(f"K6 {label} M={m}: two launches on the same inputs differ")
             ms = timer(lambda: qm.q8_matmul(x, w))
             plain_ms = timer(lambda: qm.matmul_plain(x, w), iters=3)
             lib_ms = timer(lambda: torch.matmul(x, wd.T))
-            nbytes = m * k * 2 + n * k + n * (k // group) * 4 + m * n * 2
+            nbytes = m * k * 2 + n * k + n * (k // group) * 4 * (2 if with_mins else 1) + m * n * 2
             b, by = bound_ms(nbytes, 2.0 * m * n * k)
             cases.append(dict(shape=f"{label} M={m}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=b, bound_by=by, library_ms=lib_ms))
             log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, "
                 f"cuBLAS on dequantized bf16 {lib_ms:.4f})")
-        # with mins (Q5_K / Q2_K kinds): checked, not timed
-        if label == "Q8_0 wqkv":
-            wm = _q8_weight(torch, n, k, group, qmax, gen, with_mins=True)
-            xm = torch.randn(8, k, device="cuda", dtype=bf, generator=gen)
-            check(f"K6 {label} with mins M=8", qm.q8_matmul(xm, wm), qm.matmul_plain(xm, wm),
-                  row_dims=1)
         del w, wd
     results["q8_matmul"] = dict(
         route="cuda", source="nfai_tpu_torch/csrc/q8_matmul.cu",
@@ -1631,12 +1645,15 @@ def phase_profile(torch, engine, state, tables=None) -> dict:
     n_kernels = sum(count for _, count in table.values())
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    family_ms = {name: sum(ms for k, ms in by_kernel.items() if any(f in k for f in functions)) / n
+                 for name, functions in KERNEL_FUNCTIONS.items()}
     out = dict(steps=n, kernels_per_step=n_kernels / n,
                wall_ms_per_step=wall_ms / n, device_ms_per_step=busy_ms / n,
-               device_idle_share=1.0 - busy_ms / wall_ms,
+               device_idle_share=1.0 - busy_ms / wall_ms, kernel_ms_per_step=family_ms,
                top_kernels_ms_per_step={k[:60]: v / n for k, v in top})
     log(f"  profiled {n} steps: {n_kernels / n:.0f} kernels/step, wall {wall_ms / n:.2f} ms/step, device busy "
-        f"{busy_ms / n:.2f} ms/step, idle share {out['device_idle_share']:.3f}")
+        f"{busy_ms / n:.2f} ms/step, idle share {out['device_idle_share']:.3f}; device ms a step "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in family_ms.items()))
     for k, v in top:
         log(f"    {v / n:8.4f} ms/step  {k[:90]}")
     if busy_ms <= 0:

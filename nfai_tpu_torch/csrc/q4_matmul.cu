@@ -70,26 +70,13 @@
 // through shared memory into rows of y. What bounds it today is the
 // decode: ~3 integer and f32 operations a code on the CUDA cores, which the
 // products of the other group overlap only in part (PERF.md).
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
 __device__ __forceinline__ float nib(uint32_t v) {
   // v in [0, 15] -> exactly (float)v
   return __uint_as_float(0x4B000000u | v) - 8388608.0f;
-}
-
-__device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -134,53 +121,12 @@ q4_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const uint8_t* __r
 // M <= 8: the tensor-core GEMV
 
 constexpr uint32_t NIB_MASK = 0x000F000Fu, HDR_128 = 0x43004300u;  // bf16x2 (128, 128)
-constexpr uint32_t BF16X2_ONE = 0x3F803F80u;
-constexpr int GV_WARPS = 8, GV_CB = 128;  // warps a block; 32-blocks of x a chunk in shared memory
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t lop3_and_or(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;  // (a & b) | c: the LUT of f(0xF0, 0xCC, 0xAA) is 0xEA
-  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
+constexpr int GV_CB = 128;  // 32-blocks of x a chunk in shared memory
 
 // the nibbles at bits 0-3 and 16-19 of w → the bf16x2 of the two codes,
 // exact: 0x4300 | q is 128 + q, and (128 + q) - 128 rounds nothing
 __device__ __forceinline__ uint32_t nib2(uint32_t w) {
-  uint32_t v = lop3_and_or(w, NIB_MASK, HDR_128);
-  const uint32_t off = HDR_128;
-  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
-                             *reinterpret_cast<const __nv_bfloat162*>(&off));
-  return *reinterpret_cast<uint32_t*>(&r);
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Lane t of a quad holds the 16 bytes (words 0..3) of 32-block t of a row;
-// afterwards it holds word t of blocks 0..3: a 4 x 4 transpose in two
-// rounds of shuffles (swap the off-diagonal 2 x 2 blocks, then inside them)
-__device__ __forceinline__ void quad_transpose(const uint4& v, int t, uint32_t (&w)[4]) {
-  uint32_t a0 = v.x, a1 = v.y, a2 = v.z, a3 = v.w;
-  const bool hi = t & 2, od = t & 1;
-  uint32_t s0 = __shfl_xor_sync(0xffffffffu, hi ? a0 : a2, 2);
-  uint32_t s1 = __shfl_xor_sync(0xffffffffu, hi ? a1 : a3, 2);
-  if (hi) { a0 = s0; a1 = s1; } else { a2 = s0; a3 = s1; }
-  s0 = __shfl_xor_sync(0xffffffffu, od ? a0 : a1, 1);
-  s1 = __shfl_xor_sync(0xffffffffu, od ? a2 : a3, 1);
-  if (od) { a0 = s0; a2 = s1; } else { a1 = s0; a3 = s1; }
-  w[0] = a0; w[1] = a1; w[2] = a2; w[3] = a3;
+  return bf16x2_sub(lop3_and_or(w, NIB_MASK, HDR_128), HDR_128);
 }
 
 // One 32-block of a row group: A from the lane's words of rows g and g + 8,
@@ -235,15 +181,6 @@ __device__ __forceinline__ void load_group(Group& G, const uint8_t* const (&qrow
                            __ldg(mrow[h] + b0 + 3));
     }
   }
-}
-
-__device__ __forceinline__ float comp(const float4& v, int j) {
-  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
 __global__ void __launch_bounds__(GV_WARPS * 32)
@@ -324,32 +261,6 @@ q4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
   }
 }
 
-// the current device's SM count, read once: both launch rules size their
-// grids by it (132 on an H100 SXM)
-cudaError_t sm_count(int* sms) {
-  static int cached = 0;
-  if (!cached) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  *sms = cached;
-  return cudaSuccess;
-}
-
-// K slices a block for M <= 8 (each warp 16 rows): the fewest that give
-// every SM a block, each slice keeping at least 8 blocks of 32 (measured:
-// fewer, longer blocks stream better once the card is covered)
-int gemv_ks(int K, int N, int sms) {
-  const int nb = K / 32;
-  int ks = 1;
-  while (ks < GV_WARPS && (N + (GV_WARPS / ks) * 16 - 1) / ((GV_WARPS / ks) * 16) < sms &&
-         nb / (2 * ks) >= 8)
-    ks *= 2;
-  return ks;
-}
-
 cudaError_t gemv(const __nv_bfloat16* x, const uint8_t* qs, const float* sc, const float* mn,
                  __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
   static bool sized = false;  // above 48 KB of shared memory needs the opt-in
@@ -386,129 +297,6 @@ struct TileShape {
   static constexpr int OUT_PITCH = TN + 8;            // bf16 a row of the y tile
   static constexpr int OUT_BYTES = BM * OUT_PITCH * 2;  // then the K split's sums
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// the copies this thread issued so far arrive on `bar` when they land
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  const int n = ok ? 4 : 0;  // 0 source bytes: zero-filled
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(n));
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma descriptor of a K-major operand tile with 128-byte rows under the
-// 128-byte swizzle: 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (uint64_t(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void pin(uint32_t (&a)[4], uint64_t& d) {
-  asm volatile("" : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+l"(d)::"memory");
-}
-
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-
-template <int BM>
-__device__ __forceinline__ void wgmma_rs(float (&d)[BM / 2], const uint32_t (&a)[4], uint64_t desc) {
-  if constexpr (BM == 16) wgmma_rs_n16(d, a, desc);
-  else if constexpr (BM == 32) wgmma_rs_n32(d, a, desc);
-  else if constexpr (BM == 64) wgmma_rs_n64(d, a, desc);
-  else wgmma_rs_n128(d, a, desc);
-}
 
 // the code at bit p of w (a nibble) → 128 + code as f32, exactly
 template <int P>
@@ -690,28 +478,6 @@ q4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
   }
 }
 
-// a 2-D TMA map of a row-major [rows, cols] tensor: boxes of box_cols x
-// box_rows, elements past the edges read as zero
-cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* p,
-                       int rows, int cols, int box_cols, int box_rows, CUtensorMapSwizzle swz) {
-  static PFN_cuTensorMapEncodeTiled encode = nullptr;
-  if (!encode) {
-    cudaDriverEntryPointQueryResult q;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &q);
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess || !encode)
-      return err != cudaSuccess ? err : cudaErrorNotSupported;
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t one[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(p), dims, strides, box, one,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int BM, bool KS>
 cudaError_t launch_tiles(const void* x, const uint8_t* qs, const float* sc, const float* mn,
                          __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
@@ -746,19 +512,14 @@ cudaError_t launch_tiles(const void* x, const uint8_t* qs, const float* sc, cons
 }
 
 // the tile width: the least of 16, 32, 64, 128 that holds M (larger M
-// takes several 128-wide row tiles). The K split doubles the blocks and
-// halves each one's stages: it pays where the row split's grid is short
-// of three waves of one block an SM and splitting saves half a wave
-// (faster at 24 to 64 blocks, 192 and 320, slower at 128 and 256: measured)
+// takes several 128-wide row tiles); the split by `tiles_k_split`
 template <int BM>
 cudaError_t launch_width(const void* x, const uint8_t* qs, const float* sc, const float* mn,
                          __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  const int blocks = (N + TN - 1) / TN * ((M + BM - 1) / BM);
-  const int waves = (blocks + sms - 1) / sms, waves_split = (2 * blocks + sms - 1) / sms;
-  return blocks <= 3 * sms && waves_split <= 2 * waves - 1
+  return tiles_k_split((N + TN - 1) / TN * ((M + BM - 1) / BM), sms)
              ? launch_tiles<BM, true>(x, qs, sc, mn, y, M, K, N, st)
              : launch_tiles<BM, false>(x, qs, sc, mn, y, M, K, N, st);
 }

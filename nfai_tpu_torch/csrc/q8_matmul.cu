@@ -14,204 +14,679 @@
 //   qs     int8 [N, K] (Q6_K's q-32, Q8_0's q, Q5_K/Q2_K's unsigned values);
 //   scales float [N, K/g], mins float [N, K/g] or null.
 //
-// What bounds it on an H100: decode (M <= 8) streams 1 byte of q plus
-// 4/g (or 8/g with mins) bytes of scales per weight: 1.25 B/weight for Q6_K,
-// 1.125 for Q8_0; M = 1 is bound by HBM bytes, M = 8 does (3 + 2M) f32 ops
-// per weight and sits near the CUDA-core limit. Prefill (M > 8) is bound by
-// operations. The scale product is f32 (int8 times a bf16 scale would round
-// the scale to 8 bits first).
+// What bounds it on an H100 (3.35 TB/s, 989 TF/s bf16): decode (M <= 8)
+// streams 1 byte of code plus 4/g (8/g with mins) bytes of scale a weight,
+// 1.25 B/weight for Q6_K and 1.125 for Q8_0, and does 2M flops on it: bytes
+// (the tied Q6_K head, 2048 x 128256: 0.098 ms). Prefill rows (M = 16..1024)
+// reach the operations bound from M ~ 256 on.
 //
-// Design, as K1: M <= 8 takes a GEMV: one warp per output column, each lane
-// decodes one 32-element chunk (two 16-byte loads) per step and multiplies
-// it against up to 8 rows of x read through the read-only cache. M > 8 takes
-// a tiled kernel: 64x64 output tiles, the 64x32 weight tile dequantized into
-// shared memory as bf16 (f32 scale product, then one rounding) and both
-// operands through tensor cores (WMMA 16x16x16 bf16, f32 accumulate).
-// wgmma, TMA and a pipelined producer are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+// M = 1: a GEMV on CUDA cores, one warp a row, each lane decoding whole
+// 16-code chunks (one 16-byte load) by the 2^23 magic number (a prmt and a
+// subtract a code, no I2F), one f32 fma a code; K slices at small N.
+//
+// 2 <= M <= 8: a GEMV on tensor cores, mma.sync m16n8k16 with the weight as
+// A (16 rows a warp) and x as B (its 8 columns are the M rows). Lane (g, t)
+// holds word t (codes 4t..4t+3) of a 16-code block of rows g and g + 8. The
+// K order inside a product is free, so slots (2t, 2t+1) take codes (4t,
+// 4t+2) and slots (2t+8, 2t+9) codes (4t+1, 4t+3), and x is loaded in the
+// same permutation (two prmt). The bytes at bits 0-7 and 16-23 of a word
+// become a bf16x2 of the exact codes by two lop3 and one packed subtract:
+// 0x4300 | (b & 0x7F) is 128 + (b & 0x7F), 0x4300 | (b & 0x80) is 128 or
+// 256 (the sign bit's weight on top of 128), and their difference is the
+// signed code. A block's product goes into a fresh f32 fragment, folded
+// in by one fma with its group's f32 scale (a g32 group takes two blocks);
+// with mins, the group's x sum (a product against ones) times the min is
+// subtracted: W enters exactly as s q - m in f32. A lane loads 16 bytes
+// (a whole block) of each row and a quad transposes its four blocks with
+// four shuffles; x is staged per chunk of 4096 codes in shared memory by
+// cp.async; each warp prefetches its next four blocks (codes, scales,
+// mins) while it multiplies the current ones. A block of 8 warps splits K
+// into ks slices, the fewest that give every SM a block; the slices meet
+// in shared memory and one thread adds them in slice order: no atomics,
+// the same bits on every launch.
+//
+// M > 8: wgmma tiles computing y^T = W x^T, so the weight is the 64-row A
+// operand and M is wgmma's N width: 16, 32, 64 or 128 (the least that
+// holds M; larger M takes several 128-wide tiles). Two consumer warpgroups
+// and one producer warp. Per 128-code stage the producer's lane 0 brings
+// every operand by TMA into a ring of 4-6 stages under mbarriers: x as two
+// 64-code boxes under the 128-byte swizzle (wgmma's B), the codes (128
+// bytes a row, under the 128-byte swizzle too, so the eight rows a warp
+// reads at once sit in different banks), the scales and the mins (8 or 4
+// f32 a row; where the scale rows are not 16-byte strided or aligned, the
+// warp copies them by cp.async instead). A consumer thread decodes its
+// rows' codes in registers straight into the wgmma A fragment as
+// bf16(s q - m): a prmt places the sign-flipped byte u = q + 128 in an f32
+// 1 + u 2^-15, and one fma by 2^15 s plus -(32896 s + m) gives s q - m, one
+// rounding to bf16 (the RS form m64nBMk16 with x from shared memory, four
+// products a half-stage). A half's A registers are read while its products
+// run, so a group waits for them before it decodes the next half; the other
+// group's products fill the tensor cores meanwhile. Where the row split
+// (each group 64 of the block's 128 weight rows) would leave part of a wave
+// of SMs idle, the K split takes over: both groups own the block's 64 rows
+// and take alternate stages, and group 1's sums are added to group 0's in
+// shared memory, in that order. The D tile is transposed through shared
+// memory into rows of y.
+#include "sm90.cuh"
 
 namespace {
 
-__device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+// byte i of w, sign-flipped (u = q + 128), → q as f32, exactly: 0x4B0000uu
+// is 2^23 + u
+__device__ __forceinline__ float i8f(uint32_t w, int i) {
+  return __uint_as_float(prmt(w, 0x4B000000u, 0x7440u | i)) - 8388736.0f;
+}
+
+constexpr uint32_t FLIP = 0x80808080u;  // the sign bit of each byte
+
+// ---------------------------------------------------------------------------
+// M = 1: the CUDA-core GEMV
+
+template <bool MINS>
+__global__ void __launch_bounds__(GV_WARPS * 32)
+q8_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const int8_t* __restrict__ qs,
+                  const float* __restrict__ sc, const float* __restrict__ mn,
+                  __nv_bfloat16* __restrict__ y, int N, int gshift, int ks) {
+  __shared__ float part[GV_WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rows = GV_WARPS / ks, slice = warp % ks;
+  const int n = blockIdx.x * rows + warp / ks;
+  const int nc = K >> 4, per = (nc + ks - 1) / ks;  // 16-code chunks: a row's, a slice's
+  const int lo = min(nc, slice * per), hi = min(nc, lo + per);
+  const int ng = K >> gshift;
+  float acc = 0.f;
+  if (n < N) {
+    const uint4* qrow = reinterpret_cast<const uint4*>(qs + (size_t)n * K);
+    const float* srow = sc + (size_t)n * ng;
+    const float* mrow = MINS ? mn + (size_t)n * ng : nullptr;
+#pragma unroll 2
+    for (int c = lo + lane; c < hi; c += 32) {
+      const uint4 q = __ldcs(qrow + c);
+      const int gi = (c << 4) >> gshift;
+      const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)c * 16);
+      float xf[16];
+      bf16x8(__ldg(xr), xf);
+      bf16x8(__ldg(xr + 1), xf + 8);
+      const uint32_t w[4] = {q.x ^ FLIP, q.y ^ FLIP, q.z ^ FLIP, q.w ^ FLIP};
+      float p = 0.f, sx = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+      for (int i = 0; i < 16; ++i) {
+        p = fmaf(xf[i], i8f(w[i >> 2], i & 3), p);
+        if (MINS) sx += xf[i];
+      }
+      acc = fmaf(__ldg(srow + gi), p, acc);
+      if (MINS) acc = fmaf(-__ldg(mrow + gi), sx, acc);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) part[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x < rows) {
+    const int r = threadIdx.x, nn = blockIdx.x * rows + r;
+    if (nn < N) {
+      float sum = 0.f;
+      for (int k = 0; k < ks; ++k) sum += part[r * ks + k];
+      y[nn] = __float2bfloat16(sum);
+    }
   }
 }
 
-__device__ __forceinline__ void i8x16(const uint4& u, float* f) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    f[i] = static_cast<float>(static_cast<int8_t>((w[i >> 2] >> (8 * (i & 3))) & 0xFFu));
+// K slices a block at M = 1 (a warp a row): the fewest that give every SM a
+// block, each slice keeping a chunk a lane
+int m1_ks(int K, int N, int sms) {
+  int ks = 1;
+  while (ks < GV_WARPS && (N + GV_WARPS / ks - 1) / (GV_WARPS / ks) < sms && K / (32 * ks) >= 32)
+    ks *= 2;
+  return ks;
 }
 
-constexpr int GEMV_WARPS = 8;
+cudaError_t gemv_m1(const __nv_bfloat16* x, const int8_t* qs, const float* sc, const float* mn,
+                    __nv_bfloat16* y, int K, int N, int gshift, cudaStream_t st) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int ks = m1_ks(K, N, sms), rows = GV_WARPS / ks;
+  const dim3 grid((N + rows - 1) / rows), block(GV_WARPS * 32);
+  if (mn)
+    q8_gemv_m1_kernel<true><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
+  else
+    q8_gemv_m1_kernel<false><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
+  return cudaGetLastError();
+}
 
-template <int MR>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
+// ---------------------------------------------------------------------------
+// M <= 8: the tensor-core GEMV
+
+constexpr uint32_t LOW7 = 0x007F007Fu, SIGN = 0x00800080u, HDR_128 = 0x43004300u;
+constexpr uint32_t NIB = 0x000F000Fu, HDR_136 = 0x43084308u;  // the split decode's
+constexpr int GV_CB = 256;  // 16-code blocks of x a chunk in shared memory (4096 codes)
+
+// the int8 codes at bits 0-7 and 16-23 of w → their bf16x2, exactly
+__device__ __forceinline__ uint32_t i8x2(uint32_t w) {
+  return bf16x2_sub(lop3_and_or(w, LOW7, HDR_128), lop3_and_or(w, SIGN, HDR_128));
+}
+
+// One 16-code block of rows g (w0) and g + 8 (w1) times the lane's x
+// fragment (b0, b1), added to p. DEC picks the decode of the codes to
+// exact bf16: 0 the lop3 header above; 1 byte → f32 by the magic number,
+// then one cvt a pair; 2 the split v = 16 hi + lo into two exact planes
+// (the low nibble, the signed high nibble), two products.
+template <int DEC>
+__device__ __forceinline__ void block16(float (&p)[4], uint32_t w0, uint32_t w1, uint32_t b0,
+                                        uint32_t b1) {
+  if constexpr (DEC == 0) {
+    mma_16816(p, i8x2(w0), i8x2(w1), i8x2(w0 >> 8), i8x2(w1 >> 8), b0, b1);
+  } else if constexpr (DEC == 1) {
+    const uint32_t u0 = w0 ^ FLIP, u1 = w1 ^ FLIP;
+    mma_16816(p, bf16x2(i8f(u0, 0), i8f(u0, 2)), bf16x2(i8f(u1, 0), i8f(u1, 2)),
+              bf16x2(i8f(u0, 1), i8f(u0, 3)), bf16x2(i8f(u1, 1), i8f(u1, 3)), b0, b1);
+  } else {
+    const uint32_t u0 = w0 ^ FLIP, u1 = w1 ^ FLIP;
+    auto lo = [](uint32_t w) { return bf16x2_sub(lop3_and_or(w, NIB, HDR_128), HDR_128); };
+    auto hi = [](uint32_t w) { return bf16x2_sub(lop3_and_or(w, NIB, HDR_128), HDR_136); };
+    float h[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_16816(p, lo(w0), lo(w1), lo(w0 >> 8), lo(w1 >> 8), b0, b1);
+    mma_16816(h, hi(u0 >> 4), hi(u1 >> 4), hi(u0 >> 12), hi(u1 >> 12), b0, b1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = fmaf(16.f, h[i], p[i]);
+  }
+}
+
+// x fragment of block `bl` of the staged chunk: lane (g, t) reads codes
+// 4t..4t+3 of x row g and orders them as its B slots
+__device__ __forceinline__ uint2 x_frag(const unsigned char* xrow, int bl, int t, bool live) {
+  if (!live) return make_uint2(0, 0);
+  const uint2 u = *reinterpret_cast<const uint2*>(xrow + 32 * bl + 8 * t);
+  return make_uint2(prmt(u.x, u.y, 0x5410), prmt(u.x, u.y, 0x7632));
+}
+
+// a group's fresh products folded into the rows' sums: p scaled by the
+// group's scales of rows g (s0) and g + 8 (s1); with mins, the group's x
+// sums q times the mins subtracted
+template <bool MINS>
+__device__ __forceinline__ void fold(float (&acc)[4], const float (&p)[4], const float (&q)[4],
+                                     float s0, float s1, float m0, float m1) {
+  acc[0] = fmaf(s0, p[0], acc[0]);
+  acc[1] = fmaf(s0, p[1], acc[1]);
+  acc[2] = fmaf(s1, p[2], acc[2]);
+  acc[3] = fmaf(s1, p[3], acc[3]);
+  if (MINS) {
+    acc[0] = fmaf(-m0, q[0], acc[0]);
+    acc[1] = fmaf(-m0, q[1], acc[1]);
+    acc[2] = fmaf(-m1, q[0], acc[2]);
+    acc[3] = fmaf(-m1, q[1], acc[3]);
+  }
+}
+
+// four blocks of rows g and g + 8: the 16 bytes of block b0 + t of each,
+// and the four blocks' scales and mins of each (g32: two groups, .x .y)
+struct Group {
+  uint4 q[2];
+  float4 s[2], m[2];
+};
+
+template <bool G32>
+__device__ __forceinline__ float4 load_scales(const float* p, bool vec) {
+  if (G32) {
+    const float2 v = vec ? __ldg(reinterpret_cast<const float2*>(p)) : make_float2(__ldg(p), __ldg(p + 1));
+    return make_float4(v.x, v.y, 0.f, 0.f);
+  }
+  return vec ? __ldg(reinterpret_cast<const float4*>(p))
+             : make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+template <bool G32, bool MINS>
+__device__ __forceinline__ void load_group(Group& G, const int8_t* const (&qrow)[2],
+                                           const float* const (&srow)[2],
+                                           const float* const (&mrow)[2], int b0, int t, bool vec) {
+  const int g0 = G32 ? b0 >> 1 : b0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    G.q[h] = __ldcs(reinterpret_cast<const uint4*>(qrow[h]) + b0 + t);
+    G.s[h] = load_scales<G32>(srow[h] + g0, vec);
+    if (MINS) G.m[h] = load_scales<G32>(mrow[h] + g0, vec);
+  }
+}
+
+template <int DEC, bool G32, bool MINS, int PF, bool XS>
+__global__ void __launch_bounds__(GV_WARPS * 32)
 q8_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
                const int8_t* __restrict__ qs, const float* __restrict__ sc,
-               const float* __restrict__ mn, __nv_bfloat16* __restrict__ y,
-               int N, int gshift) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * GEMV_WARPS + warp;
-  if (n >= N) return;
-  const int nc = K >> 5;  // 32-element chunks per row
-  const int ng = K >> gshift;
-  const uint4* qrow = reinterpret_cast<const uint4*>(qs + (size_t)n * K);
-  const float* srow = sc + (size_t)n * ng;
-  const float* mrow = mn ? mn + (size_t)n * ng : nullptr;
-  float acc[MR];
+               const float* __restrict__ mn, __nv_bfloat16* __restrict__ y, int N, int ks,
+               bool vec) {
+  extern __shared__ __align__(16) unsigned char xsm[];  // [M][pitch]: x rows of a chunk
+  __shared__ float part[GV_WARPS][16][8];
+  constexpr int BPG = G32 ? 2 : 1;  // blocks a scale group
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int slice = warp % ks, rg = warp / ks;
+  const int rows_per_block = (GV_WARPS / ks) * 16;
+  const int nrow0 = blockIdx.x * rows_per_block + rg * 16;
+  const int nb = K >> 4, ng = nb / BPG;
+  const int8_t* qrow[2];
+  const float* srow[2];
+  const float* mrow[2];
 #pragma unroll
-  for (int m = 0; m < MR; ++m) acc[m] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int row = min(nrow0 + g + 8 * h, N - 1);  // rows past N: read, discarded
+    qrow[h] = qs + (size_t)row * K;
+    srow[h] = sc + (size_t)row * ng;
+    mrow[h] = MINS ? mn + (size_t)row * ng : nullptr;
+  }
+  const bool live = g < M;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
 
-  for (int c = lane; c < nc; c += 32) {
-    const uint4 q2[2] = {__ldg(qrow + 2 * c), __ldg(qrow + 2 * c + 1)};
+  for (int c0 = 0; c0 < nb; c0 += GV_CB) {
+    const int cb = min(GV_CB, nb - c0), pitch = cb * 32 + 32;
+    const int per = (((cb + ks - 1) / ks) + 3) & ~3;
+    const int lo = min(cb, slice * per), hi = min(cb, lo + per);
+    const int groups = (hi - lo) >> 2;
+    Group A, B;
+    if (groups > 0) load_group<G32, MINS>(A, qrow, srow, mrow, c0 + lo, t, vec);  // in flight while x lands
+    if (PF == 2 && groups > 1) load_group<G32, MINS>(B, qrow, srow, mrow, c0 + lo + 4, t, vec);
+    const unsigned char* xrow;
+    if (XS) {
+      __syncthreads();  // the previous chunk is consumed
+      for (int e = tid; e < M * cb * 2; e += blockDim.x) {  // x rows < M: 16-byte copies
+        const int r = e / (cb * 2), c = e % (cb * 2);
+        cp_async16(xsm + r * pitch + 16 * c, x + (size_t)r * K + (size_t)c0 * 16 + 8 * c);
+      }
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      xrow = xsm + (live ? g : 0) * pitch;
+    } else {
+      xrow = reinterpret_cast<const unsigned char*>(x + (size_t)(live ? g : 0) * K + (size_t)c0 * 16);
+    }
+    for (int i = 0; i < groups; ++i) {
+      Group C;
+      if (i + PF < groups) load_group<G32, MINS>(C, qrow, srow, mrow, c0 + lo + 4 * (i + PF), t, vec);
+      uint32_t w[2][4];
+      quad_transpose(A.q[0], t, w[0]);
+      quad_transpose(A.q[1], t, w[1]);
+      float p[4], q[4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {  // h = 0: elements 0..15 of the chunk, 1: 16..31
-      const int gi = (c * 32 + 16 * h) >> gshift;
-      const float s = __ldg(srow + gi), mi = mrow ? -__ldg(mrow + gi) : 0.f;
-      float w[16];
-      i8x16(q2[h], w);
+      for (int j = 0; j < 4; ++j) {
+        if (j % BPG == 0) {
 #pragma unroll
-      for (int i = 0; i < 16; ++i) w[i] = fmaf(s, w[i], mi);
-#pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        if (m < M) {
-          const uint4* xr = reinterpret_cast<const uint4*>(
-              x + (size_t)m * K + (size_t)c * 32 + h * 16);
-          float xf[16];
-          bf16x8(__ldg(xr), xf);
-          bf16x8(__ldg(xr + 1), xf + 8);
-          float a = acc[m];
-#pragma unroll
-          for (int i = 0; i < 16; ++i) a = fmaf(xf[i], w[i], a);
-          acc[m] = a;
+          for (int e = 0; e < 4; ++e) p[e] = q[e] = 0.f;
+        }
+        const uint2 xv = x_frag(xrow, lo + 4 * i + j, t, live);
+        block16<DEC>(p, w[0][j], w[1][j], xv.x, xv.y);
+        if (MINS) mma_16816(q, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, xv.x, xv.y);
+        if (j % BPG == BPG - 1) {
+          const int si = j / BPG;
+          fold<MINS>(acc, p, q, comp(A.s[0], si), comp(A.s[1], si), MINS ? comp(A.m[0], si) : 0.f,
+                     MINS ? comp(A.m[1], si) : 0.f);
         }
       }
+      if (PF == 2) {
+        A = B;
+        B = C;
+      } else {
+        A = C;
+      }
+    }
+    // the last blocks of a slice (fewer than four): word t of each directly
+    for (int b = lo + 4 * groups; b < hi; b += BPG) {
+      float p[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < BPG; ++j) {
+        const int gb = c0 + b + j;
+        const uint32_t w0 = __ldcs(reinterpret_cast<const uint32_t*>(qrow[0] + 16 * gb) + t);
+        const uint32_t w1 = __ldcs(reinterpret_cast<const uint32_t*>(qrow[1] + 16 * gb) + t);
+        const uint2 xv = x_frag(xrow, b + j, t, live);
+        block16<DEC>(p, w0, w1, xv.x, xv.y);
+        if (MINS) mma_16816(q, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, xv.x, xv.y);
+      }
+      const int gi = (c0 + b) / BPG;
+      fold<MINS>(acc, p, q, __ldg(srow[0] + gi), __ldg(srow[1] + gi),
+                 MINS ? __ldg(mrow[0] + gi) : 0.f, MINS ? __ldg(mrow[1] + gi) : 0.f);
     }
   }
-#pragma unroll
-  for (int m = 0; m < MR; ++m) {
-    float a = acc[m];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-    if (lane == 0 && m < M) y[(size_t)m * N + n] = __float2bfloat16(a);
+  // C fragment: acc[0..1] row g (columns m = 2t, 2t+1), acc[2..3] row g + 8
+  part[warp][g][2 * t] = acc[0];
+  part[warp][g][2 * t + 1] = acc[1];
+  part[warp][g + 8][2 * t] = acc[2];
+  part[warp][g + 8][2 * t + 1] = acc[3];
+  __syncthreads();
+  for (int e = tid; e < M * rows_per_block; e += blockDim.x) {
+    const int m = e / rows_per_block, rl = e % rows_per_block;
+    const int n = blockIdx.x * rows_per_block + rl;
+    if (n < N) {
+      float sum = 0.f;
+      for (int k = 0; k < ks; ++k) sum += part[(rl >> 4) * ks + k][rl & 15][m];
+      y[(size_t)m * N + n] = __float2bfloat16(sum);
+    }
   }
 }
 
-constexpr int TM = 64, TN = 64, TK = 32, LDS = TK + 8, LDC = TN + 4;
-
-__global__ void __launch_bounds__(128)
-q8_mma_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
-              const int8_t* __restrict__ qs, const float* __restrict__ sc,
-              const float* __restrict__ mn, __nv_bfloat16* __restrict__ y,
-              int N, int gshift) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 xs[TM * LDS];  // A tile, row-major
-  __shared__ __align__(32) __nv_bfloat16 ws[TN * LDS];  // W tile [n][k] = B col-major
-  __shared__ __align__(32) float cs[TM * LDC];          // epilogue staging
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int nc = K >> 5, ng = K >> gshift;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int kc = 0; kc < nc; ++kc) {
-    {  // x tile: 64 rows x 32 bf16; two threads per row, 16 elements each
-      const int r = tid >> 1, c = (tid & 1) * 16;
-      uint4 a = make_uint4(0, 0, 0, 0), b = a;
-      if (m0 + r < M) {
-        const uint4* src = reinterpret_cast<const uint4*>(
-            x + (size_t)(m0 + r) * K + (size_t)kc * 32 + c);
-        a = __ldg(src);
-        b = __ldg(src + 1);
-      }
-      *reinterpret_cast<uint4*>(&xs[r * LDS + c]) = a;
-      *reinterpret_cast<uint4*>(&xs[r * LDS + c + 8]) = b;
-    }
-    {  // weight tile: 16 int8 per thread, two threads per column
-      const int c = tid >> 1, h = tid & 1;
-      const size_t row = (size_t)(n0 + c);
-      const uint4 q4 = __ldg(reinterpret_cast<const uint4*>(qs + row * K + (size_t)kc * 32 + 16 * h));
-      const int gi = (kc * 32 + 16 * h) >> gshift;
-      const float s = __ldg(sc + row * ng + gi), mi = mn ? -__ldg(mn + row * ng + gi) : 0.f;
-      float w[16];
-      i8x16(q4, w);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) ws[c * LDS + h * 16 + i] = __float2bfloat16(fmaf(s, w[i], mi));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &xs[(wm + 16 * i) * LDS + kk], LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &ws[(wn + 16 * j) * LDS + kk], LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+template <int DEC, bool G32, bool MINS, int PF, bool XS>
+cudaError_t gemv_launch(const __nv_bfloat16* x, const int8_t* qs, const float* sc, const float* mn,
+                        __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
+  static bool sized = false;  // one per instantiation: above 48 KB needs the opt-in
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(q8_gemv_kernel<DEC, G32, MINS, PF, XS>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 8 * (GV_CB * 32 + 32));
+    if (err != cudaSuccess) return err;
+    sized = true;
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&cs[(wm + 16 * i) * LDC + wn + 16 * j], acc[i][j],
-                              LDC, wmma::mem_row_major);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int ks = gemv_ks(K, N, sms), rows = (GV_WARPS / ks) * 16;
+  // a group of four blocks reads its scales (and mins) by one vector load
+  // where every row of them is aligned to it
+  const int per = G32 ? 2 : 4, ng = K / (16 * (G32 ? 2 : 1));
+  const auto aligned = [&](const float* p) { return reinterpret_cast<uintptr_t>(p) % (4 * per) == 0; };
+  const bool vec = ng % per == 0 && aligned(sc) && (!MINS || aligned(mn));
+  const int smem = XS ? M * (min(K / 16, GV_CB) * 32 + 32) : 0;
+  q8_gemv_kernel<DEC, G32, MINS, PF, XS><<<(N + rows - 1) / rows, GV_WARPS * 32, smem, st>>>(
+      x, M, K, qs, sc, mn, y, N, ks, vec);
+  return cudaGetLastError();
+}
+
+template <int DEC, int PF = 1, bool XS = true>
+cudaError_t gemv(const __nv_bfloat16* x, const int8_t* qs, const float* sc, const float* mn,
+                 __nv_bfloat16* y, int M, int K, int N, int gshift, cudaStream_t st) {
+  if (gshift == 5)
+    return mn ? gemv_launch<DEC, true, true, PF, XS>(x, qs, sc, mn, y, M, K, N, st)
+              : gemv_launch<DEC, true, false, PF, XS>(x, qs, sc, mn, y, M, K, N, st);
+  return mn ? gemv_launch<DEC, false, true, PF, XS>(x, qs, sc, mn, y, M, K, N, st)
+            : gemv_launch<DEC, false, false, PF, XS>(x, qs, sc, mn, y, M, K, N, st);
+}
+
+// ---------------------------------------------------------------------------
+// M > 8: wgmma tiles, y^T = W x^T
+
+constexpr int TN = 128, TK = 128;   // weight rows a block (row split), codes a stage
+constexpr int T_THREADS = 2 * 128 + 32;  // two consumer warpgroups, one producer warp
+constexpr int SMEM_MAX = 232448;         // 227 KB a block
+
+template <int BM>
+struct TileShape {
+  static constexpr int X_BYTES = BM * 128;        // one of the stage's two 64-code x tiles
+  static constexpr int W_OFF = 2 * X_BYTES;       // codes: 128 rows of 128 bytes
+  static constexpr int S_OFF = W_OFF + TN * 128;  // scales: 128 rows of up to 8 f32
+  static constexpr int M_OFF = S_OFF + TN * 32;   // mins: the same
+  static constexpr int STAGE = M_OFF + TN * 32;   // a multiple of 1024
+  static constexpr int STAGES = (SMEM_MAX - 2048) / STAGE < 6 ? (SMEM_MAX - 2048) / STAGE : 6;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
+  static constexpr int OUT_PITCH = TN + 8;            // bf16 a row of the y tile
+  static constexpr int OUT_BYTES = BM * OUT_PITCH * 2;  // then the K split's sums
+};
+
+// byte i of w (sign-flipped, u = q + 128) as the f32 1 + u 2^-15: bytes
+// (0x00, u, 0x80, 0x3F)
+__device__ __forceinline__ float u_f32(uint32_t w, uint32_t sel) {
+  return __uint_as_float(prmt(w, 0x3F800000u, sel));
+}
+
+template <int BM, bool KS>
+__global__ void __launch_bounds__(T_THREADS, 1)
+q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap mmap,
+                int M, int K, const float* __restrict__ sc, const float* __restrict__ mn,
+                __nv_bfloat16* __restrict__ y, int N, int gshift, bool scales_by_tma) {
+  using S = TileShape<BM>;
+  constexpr int STAGES = S::STAGES;
+  extern __shared__ unsigned char tsm_raw[];
+  unsigned char* tsm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(tsm_raw) + 1023) & ~uintptr_t(1023));
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr int RB = KS ? 64 : TN;  // weight rows a block
+  const int n0 = blockIdx.x * RB, m0 = blockIdx.y * BM;
+  const int ng = K >> gshift, spg = TK >> gshift, kt_n = (K + TK - 1) / TK;  // spg: scales a row a stage
+  const bool mins = mn != nullptr;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], scales_by_tma ? 1 : 1 + 32);  // expect_tx (+ the lanes' copies)
+      mbar_init(&empty[s], KS ? 1 : 2);  // one thread of each group that reads the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  for (int e = tid; e < TM * TN; e += 128) {
-    const int r = e / TN, c = e % TN;
-    if (m0 + r < M) y[(size_t)(m0 + r) * N + n0 + c] = __float2bfloat16(cs[r * LDC + c]);
+
+  if (warp == 8) {  // the producer warp: every operand by TMA from lane 0
+    const int sbytes = RB * spg * 4 * (mins ? 2 : 1);
+    const int tx = 2 * S::X_BYTES + RB * TK + (scales_by_tma ? sbytes : 0);
+    for (int kt = 0; kt < kt_n; ++kt) {
+      const int s = kt % STAGES;
+      if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
+      unsigned char* st = tsm + s * S::STAGE;
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], tx);
+        tma_load_2d(st, &xmap, kt * TK, m0, &full[s]);
+        tma_load_2d(st + S::X_BYTES, &xmap, kt * TK + 64, m0, &full[s]);
+        tma_load_2d(st + S::W_OFF, &qmap, kt * TK, n0, &full[s]);
+        if (scales_by_tma) {
+          tma_load_2d(st + S::S_OFF, &smap, kt * spg, n0, &full[s]);
+          if (mins) tma_load_2d(st + S::M_OFF, &mmap, kt * spg, n0, &full[s]);
+        }
+      }
+      if (!scales_by_tma) {  // scale rows not 16-byte strided or aligned: 4-byte copies
+        const int per = RB * spg;
+        for (int i = lane; i < per * (mins ? 2 : 1); i += 32) {
+          const int which = i >= per, e = i - which * per, r = e / spg, j = e % spg;
+          const int n = n0 + r, gi = kt * spg + j;
+          const bool ok = n < N && gi < ng;
+          const float* src = (which ? mn : sc) + (ok ? (size_t)n * ng + gi : 0);
+          cp_async4(st + (which ? S::M_OFF : S::S_OFF) + r * spg * 4 + 4 * j, src, ok);
+        }
+        cp_async_arrive(&full[s]);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its thread
+    return;
   }
+
+  // consumers: with KS both groups own the tile's 64 rows and take
+  // alternate stages (their sums meet at the end, group 0's first); else
+  // group wg owns rows 64 wg .. 64 wg + 63 and takes every stage
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = (KS ? 0 : 64 * wg) + 16 * (warp & 3) + g;  // this lane's rows r0 and r0 + 8
+  constexpr int STEP = KS ? 2 : 1;
+  const int gs = gshift - 4;  // a scale group is 1 << gs k16 steps
+  // lane t's A slots are codes 2t, 2t+1 (word t/2 of a 16-code chunk) and
+  // 2t+8, 2t+9 (word 2 + t/2), bytes 2(t&1) and 2(t&1) + 1 of each word
+  const uint32_t sel0 = 0x7604u | ((2u * (t & 1)) << 4), sel1 = sel0 + 0x10u;
+  const int wofs = 4 * (t >> 1);
+  float acc[BM / 2];
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  // a stage is two halves of four k16 steps. A half's A fragment lives in
+  // registers that its products read while they run, so a group waits for
+  // them before it decodes the next half; the other group's products keep
+  // the tensor cores busy meanwhile
+  auto half = [&](const unsigned char* st, int hb) {
+    const float* s_r0 = reinterpret_cast<const float*>(st + S::S_OFF) + r0 * spg;
+    const float* m_r0 = reinterpret_cast<const float*>(st + S::M_OFF) + r0 * spg;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * hb + jj, si = j >> gs;
+      const float s0 = s_r0[si], s1 = s_r0[8 * spg + si];
+      const float mm0 = mins ? m_r0[si] : 0.f, mm1 = mins ? m_r0[8 * spg + si] : 0.f;
+      // s q - m = 2^15 s (1 + u 2^-15) - (32896 s + m), u = q + 128
+      const float sa = 32768.f * s0, sb = 32768.f * s1;
+      const float ca = -fmaf(32896.f, s0, mm0), cb = -fmaf(32896.f, s1, mm1);
+      // chunk j of rows r0 and r0 + 8 sits at chunk j ^ (row & 7) = j ^ g (128-byte swizzle)
+      const unsigned char* ch = st + S::W_OFF + r0 * 128 + ((j ^ g) << 4) + wofs;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(ch) ^ FLIP;
+      const uint32_t v0 = *reinterpret_cast<const uint32_t*>(ch + 8) ^ FLIP;
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(ch + 8 * 128) ^ FLIP;
+      const uint32_t v1 = *reinterpret_cast<const uint32_t*>(ch + 8 * 128 + 8) ^ FLIP;
+      a[jj][0] = bf16x2(fmaf(sa, u_f32(w0, sel0), ca), fmaf(sa, u_f32(w0, sel1), ca));
+      a[jj][1] = bf16x2(fmaf(sb, u_f32(w1, sel0), cb), fmaf(sb, u_f32(w1, sel1), cb));
+      a[jj][2] = bf16x2(fmaf(sa, u_f32(v0, sel0), ca), fmaf(sa, u_f32(v0, sel1), ca));
+      a[jj][3] = bf16x2(fmaf(sb, u_f32(v1, sel0), cb), fmaf(sb, u_f32(v1, sel1), cb));
+    }
+    uint64_t desc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      desc[j] = sw128_desc(st + hb * S::X_BYTES + 32 * j);
+      pin(a[j], desc[j]);  // operands final before the fence: nothing sinks between products
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_rs<BM>(acc, a[j], desc[j]);
+    wgmma_commit();
+    wgmma_wait<0>();
+  };
+  for (int kt = KS ? wg : 0; kt < kt_n; kt += STEP) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const unsigned char* st = tsm + s * S::STAGE;
+    half(st, 0);
+    half(st, 1);
+    // the group's products of this stage have completed, after every warp
+    // of the group had read it: the stage is free
+    if ((warp & 3) == 0 && lane == 0) mbar_arrive(&empty[s]);
+  }
+  fence_regs(acc);
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both groups are done with the stages
+  if constexpr (KS) {  // group 1's sums, in its fragment order, onto group 0's
+    float* part = reinterpret_cast<float*>(tsm + S::OUT_BYTES);
+    float* mine = part + (warp & 3) * (BM / 2) * 32 + lane;
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < BM / 2; ++i) mine[i * 32] = acc[i];
+    }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < BM / 2; ++i) acc[i] += mine[i * 32];
+    }
+  }
+  // D fragment: acc[4i + e] = row r0 (+8 for e >= 2), column m = 8i + 2t (+1 for odd e)
+  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(tsm);  // [BM][OUT_PITCH]
+  if (!KS || wg == 0) {
+#pragma unroll
+    for (int i = 0; i < BM / 8; ++i) {
+      const int m = 8 * i + 2 * t;
+      out[m * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i]);
+      out[(m + 1) * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i + 1]);
+      out[m * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 2]);
+      out[(m + 1) * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 3]);
+    }
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const bool vec = (N & 7) == 0 && n0 + RB <= N;
+  for (int e = tid; e < BM * (RB / 8); e += 256) {  // 16 bytes (8 columns) a thread
+    const int m = e / (RB / 8), c = 8 * (e % (RB / 8));
+    if (m0 + m >= M) continue;
+    const __nv_bfloat16* src = out + m * S::OUT_PITCH + c;
+    __nv_bfloat16* dst = y + (size_t)(m0 + m) * N + n0 + c;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int j = 0; j < 8 && n0 + c + j < N; ++j) dst[j] = src[j];
+    }
+  }
+}
+
+template <int BM, bool KS>
+cudaError_t launch_tiles(const void* x, const int8_t* qs, const float* sc, const float* mn,
+                         __nv_bfloat16* y, int M, int K, int N, int gshift, cudaStream_t st) {
+  static bool sized = false;  // one per instantiation: above 48 KB needs the opt-in
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        q8_wgmma_kernel<BM, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, TileShape<BM>::SMEM);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  constexpr int RB = KS ? 64 : TN;
+  const int ng = K >> gshift, spg = TK >> gshift;
+  const auto aligned = [](const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  // TMA strides and addresses are multiples of 16 bytes
+  const bool scales_by_tma = ng % 4 == 0 && aligned(sc) && (!mn || aligned(mn));
+  CUtensorMap xm, qm, sm, mm;
+  cudaError_t err = tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, 64, BM,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = tensor_map(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qs, N, K, TK, RB,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess && scales_by_tma)
+    err = tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, sc, N, ng, spg, RB,
+                     CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess && scales_by_tma && mn)
+    err = tensor_map(&mm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, mn, N, ng, spg, RB,
+                     CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  if (!scales_by_tma) sm = qm;  // unused
+  if (!scales_by_tma || !mn) mm = sm;  // unused
+  dim3 grid((N + RB - 1) / RB, (M + BM - 1) / BM);
+  q8_wgmma_kernel<BM, KS><<<grid, T_THREADS, TileShape<BM>::SMEM, st>>>(
+      xm, qm, sm, mm, M, K, sc, mn, y, N, gshift, scales_by_tma);
+  return cudaGetLastError();
+}
+
+// the tile width: the least of 16, 32, 64, 128 that holds M (larger M
+// takes several 128-wide row tiles); the split by `tiles_k_split`
+template <int BM>
+cudaError_t launch_width(const void* x, const int8_t* qs, const float* sc, const float* mn,
+                         __nv_bfloat16* y, int M, int K, int N, int gshift, cudaStream_t st) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  return tiles_k_split((N + TN - 1) / TN * ((M + BM - 1) / BM), sms)
+             ? launch_tiles<BM, true>(x, qs, sc, mn, y, M, K, N, gshift, st)
+             : launch_tiles<BM, false>(x, qs, sc, mn, y, M, K, N, gshift, st);
+}
+
+cudaError_t tiles(const void* x, const int8_t* qs, const float* sc, const float* mn,
+                  __nv_bfloat16* y, int M, int K, int N, int gshift, cudaStream_t st) {
+  if (M <= 16) return launch_width<16>(x, qs, sc, mn, y, M, K, N, gshift, st);
+  if (M <= 32) return launch_width<32>(x, qs, sc, mn, y, M, K, N, gshift, st);
+  if (M <= 64) return launch_width<64>(x, qs, sc, mn, y, M, K, N, gshift, st);
+  return launch_width<128>(x, qs, sc, mn, y, M, K, N, gshift, st);
 }
 
 }  // namespace
 
 // x [M, K] bf16, qs [N, K] int8, scales/mins [N, K/group] f32 (mins may be
-// null), y [M, N] bf16; group 16 or 32. Needs K % 32 == 0; the tiled path
-// (M > 8) also needs N % 64 == 0.
+// null), y [M, N] bf16; group 16 or 32. Needs K % 32 == 0 and x, qs 16-byte
+// aligned; any M and N.
 extern "C" int nfai_q8_matmul(const void* x, const void* qs, const void* sc,
                               const void* mn, void* y, int M, int K, int N,
                               int group, void* stream) {
+  if (K % 32 != 0 || M < 1 || N < 1 || (group != 16 && group != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto xb = static_cast<const __nv_bfloat16*>(x);
   auto q = static_cast<const int8_t*>(qs);
   auto s = static_cast<const float*>(sc);
   auto m = static_cast<const float*>(mn);
   auto yb = static_cast<__nv_bfloat16*>(y);
-  if (group != 16 && group != 32) return static_cast<int>(cudaErrorInvalidValue);
   const int gshift = group == 16 ? 4 : 5;
-  if (M <= 8) {
-    dim3 grid((N + GEMV_WARPS - 1) / GEMV_WARPS), block(GEMV_WARPS * 32);
-    if (M == 1)
-      q8_gemv_kernel<1><<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N, gshift);
-    else if (M == 2)
-      q8_gemv_kernel<2><<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N, gshift);
-    else if (M <= 4)
-      q8_gemv_kernel<4><<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N, gshift);
-    else
-      q8_gemv_kernel<8><<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N, gshift);
-  } else {
-    dim3 grid(N / TN, (M + TM - 1) / TM), block(128);
-    q8_mma_kernel<<<grid, block, 0, st>>>(xb, M, K, q, s, m, yb, N, gshift);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (M == 1) return static_cast<int>(gemv_m1(xb, q, s, m, yb, K, N, gshift, st));
+  if (M <= 8) return static_cast<int>(gemv<0>(xb, q, s, m, yb, M, K, N, gshift, st));
+  return static_cast<int>(tiles(x, q, s, m, yb, M, K, N, gshift, st));
+}
+
+// The measured alternatives of the GEMV: variant 1 and 2 its other decodes
+// (magic number + cvt; two nibble planes), 3 the tensor-core GEMV at any M
+// (M = 1 included); 0 the kernel as dispatched above.
+extern "C" int nfai_q8_matmul_variant(const void* x, const void* qs, const void* sc,
+                                      const void* mn, void* y, int M, int K, int N,
+                                      int group, int variant, void* stream) {
+  if (variant == 0 || M > 8) return nfai_q8_matmul(x, qs, sc, mn, y, M, K, N, group, stream);
+  if (K % 32 != 0 || M < 1 || N < 1 || (group != 16 && group != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto xb = static_cast<const __nv_bfloat16*>(x);
+  auto q = static_cast<const int8_t*>(qs);
+  auto s = static_cast<const float*>(sc);
+  auto m = static_cast<const float*>(mn);
+  auto yb = static_cast<__nv_bfloat16*>(y);
+  const int gshift = group == 16 ? 4 : 5;
+  if (variant == 1) return static_cast<int>(gemv<1>(xb, q, s, m, yb, M, K, N, gshift, st));
+  if (variant == 2) return static_cast<int>(gemv<2>(xb, q, s, m, yb, M, K, N, gshift, st));
+  if (variant == 4) return static_cast<int>(gemv<0, 2, true>(xb, q, s, m, yb, M, K, N, gshift, st));
+  if (variant == 5) return static_cast<int>(gemv<0, 1, false>(xb, q, s, m, yb, M, K, N, gshift, st));
+  if (variant == 6) return static_cast<int>(gemv<0, 2, false>(xb, q, s, m, yb, M, K, N, gshift, st));
+  return static_cast<int>(gemv<0>(xb, q, s, m, yb, M, K, N, gshift, st));
 }

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ctypes — seconds per
 file, where a PyTorch C++ extension takes minutes. A library is built at first
-use into ``_build/`` (listed in .gitignore), named by a hash of its source and
-flags, so an edited source rebuilds and an unchanged one is reused.
+use into ``_build/`` (listed in .gitignore), named by a hash of its source,
+the headers of ``csrc/`` (``*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one is reused.
 `build_all` starts one nvcc per source at once. Two `Kernel`s may share a
 source (K8 and K9 are the two entry points of ``grouped_matmul.cu``): they
 share its library, and each keeps its own launch count.
@@ -71,6 +72,8 @@ class Kernel:
 
     def _target(self) -> Path:
         h = hashlib.sha256(self.path.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):  # any source may include any header
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.path.stem}-{h.hexdigest()[:16]}.so"
 

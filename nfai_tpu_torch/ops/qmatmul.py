@@ -44,7 +44,8 @@ K1 = register(Kernel(
 ))
 K6 = register(Kernel(
     "q8_matmul", "q8_matmul.cu",
-    {"nfai_q8_matmul": [P, P, P, P, P, I, I, I, I, P]},
+    {"nfai_q8_matmul": [P, P, P, P, P, I, I, I, I, P],
+     "nfai_q8_matmul_variant": [P, P, P, P, P, I, I, I, I, I, P]},
 ))
 K8 = register(Kernel(
     "grouped_q4", "grouped_matmul.cu",
@@ -92,6 +93,21 @@ def q4_check(x: torch.Tensor, w: Q4Tensor) -> tuple[int, int]:
     return m, k
 
 
+def q8_check(x: torch.Tensor, w: Q8Tensor) -> tuple[int, int]:
+    """What K6 takes, or a ValueError/TypeError: bf16 x [M, K] and a 2-D
+    Q8Tensor [N, K] (f32 scales, and mins where the kind has them), K % 32
+    == 0, scale groups of 16 or 32, every tensor contiguous and on x's
+    device, x and the codes 16-byte aligned (the GEMVs' 16-byte loads, the
+    tiles' TMA maps; unaligned scale rows are read one by one). Any M and N:
+    the kernel masks the ragged edges. Returns (M, K)."""
+    m, k = _check(x, w, "q8_matmul", (w.n, x.shape[1]))
+    if w.group not in (16, 32):
+        raise ValueError(f"q8_matmul takes scale groups of 16 or 32, got {w.group}")
+    if x.data_ptr() % 16 or w.qs.data_ptr() % 16:
+        raise ValueError("q8_matmul needs 16-byte aligned activations and codes")
+    return m, k
+
+
 def matmul_plain(x: torch.Tensor, w: Q4Tensor | Q8Tensor) -> torch.Tensor:
     """x [M, K] (any float dtype) @ dequant(w)^T in f32 → bf16 [M, N]: the
     plain version of K1 and of K6."""
@@ -120,11 +136,7 @@ def q8_matmul(x: torch.Tensor, w: Q8Tensor) -> torch.Tensor:
     outside its kernel and the layered one inside, the same function)."""
     if x.device.type == "cpu":
         return matmul_plain(x, w)
-    m, k = _check(x, w, "q8_matmul", (w.n, x.shape[1]))
-    if m > 8 and w.n % 64:
-        raise ValueError(f"N={w.n} must be a multiple of 64 for M={m} > 8")
-    if w.group not in (16, 32):
-        raise ValueError(f"q8_matmul takes scale groups of 16 or 32, got {w.group}")
+    m, k = q8_check(x, w)
     y = torch.empty(m, w.n, dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return y

@@ -46,7 +46,7 @@ from nfai_tpu_torch.ops import fused_mlp as fm
 from nfai_tpu_torch.ops import paged_attention as pga
 from nfai_tpu_torch.ops import prefill_attention as pa
 from nfai_tpu_torch.ops import qmatmul as qm
-from nfai_tpu_torch.ops.qtensor import Q4Tensor, Q8Tensor
+from nfai_tpu_torch.ops.qtensor import LayerList, Q4Tensor, Q8Tensor
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -161,20 +161,65 @@ def test_tiny_model_cuda_matches_cpu(cuda, tmp_path):
     assert len(out) > 0
 
 
-@pytest.mark.parametrize("m", [1, 5, 40])
-@pytest.mark.parametrize("group,with_mins", [(32, False), (16, False), (16, True)])
-def test_q8_matmul_kernel(cuda, m, group, with_mins):
-    n, k = 192, 512
-    w = Q8Tensor(
-        torch.randint(-32, 32, (n, k), dtype=torch.int8, device="cuda", generator=cuda),
-        torch.rand(n, k // group, device="cuda", generator=cuda) * 1e-2,
-        torch.rand(n, k // group, device="cuda", generator=cuda) * 5e-2 if with_mins else None,
+def _q8_weight(n, k, group, with_mins, gen, layers=None):
+    """Codes over the whole int8 range, so an inexact decode of any byte fails."""
+    lead = () if layers is None else (layers,)
+    return Q8Tensor(
+        torch.randint(-128, 128, (*lead, n, k), dtype=torch.int8, device="cuda", generator=gen),
+        torch.rand(*lead, n, k // group, device="cuda", generator=gen) * 1e-2,
+        torch.rand(*lead, n, k // group, device="cuda", generator=gen) * 5e-2 if with_mins else None,
         k, n, group,
     )
+
+
+# every branch of K6: the CUDA-core GEMV (M = 1), the tensor-core GEMV
+# (M = 2..8), the wgmma tiles at each width: 16 (M = 9, 16), 32 (M = 24,
+# 32), 64 (M = 40, 64) and 128 (M = 100; 256 and 1024 take several row
+# tiles), each in both splits (the K split on the small grids of N <=
+# 2048, the row split on the head's 1002 blocks); N of the path (wv 512,
+# w_down 2048, the head 128256), K = 2048, 8192 (w_down) and 2304 (Gemma's
+# hidden), and K % 128 != 0 with a ragged N (K = 1056, N = 200: the tiles'
+# last stage is short, their g32 scales come by cp.async); scale groups of
+# 32 and 16, with and without mins
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 16, 24, 32, 40, 64, 100, 256, 1024])
+@pytest.mark.parametrize("k,n", [(2048, 512), (8192, 2048), (2304, 2048), (2048, 128256),
+                                 (1056, 200)])
+@pytest.mark.parametrize("group,with_mins", [(32, False), (16, False), (32, True), (16, True)])
+def test_q8_matmul_kernel(cuda, m, k, n, group, with_mins):
+    if n == 128256 and m > 256:
+        pytest.skip("the head sees one row per sequence: at most 256 at a time")
+    w = _q8_weight(n, k, group, with_mins, cuda)
     x = torch.randn(m, k, device="cuda", dtype=torch.bfloat16, generator=cuda)
     before = qm.K6.launches
-    assert rel(qm.q8_matmul(x, w), qm.matmul_plain(x, w), row_dims=1) < TOL
+    got = qm.q8_matmul(x, w)
     assert qm.K6.launches == before + 1
+    assert rel(got, qm.matmul_plain(x, w), row_dims=1) < TOL
+    assert all(torch.equal(qm.q8_matmul(x, w), got) for _ in range(2))  # no atomics
+
+
+def test_q8_matmul_refuses_misaligned_tensors(cuda):
+    w = _q8_weight(256, 512, 32, False, cuda)
+    x = torch.randn(4 * 512 + 1, device="cuda", dtype=torch.bfloat16, generator=cuda)[1:].view(4, 512)
+    with pytest.raises(ValueError, match="16-byte"):
+        qm.q8_matmul(x, w)
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_q8_matmul_reads_a_layer_in_place(cuda, m):
+    """A layer of a stacked Q8Tensor is a view into the stack; a LayerList's
+    Q6_K layer (a Q4_K_M mix) is its own tensor: both multiply in place."""
+    w = _q8_weight(1024, 2048, 16, False, cuda, layers=3)
+    x = torch.randn(m, 2048, device="cuda", dtype=torch.bfloat16, generator=cuda)
+    layer = w.layer(2)
+    assert layer.qs.data_ptr() == w.qs.data_ptr() + 2 * 1024 * 2048
+    assert layer.scales.data_ptr() == w.scales.data_ptr() + 2 * 1024 * 128 * 4
+    assert rel(qm.linear_layered(x, w, 2), qm.matmul_plain(x, layer), row_dims=1) < TOL
+    q6 = _q8_weight(1024, 2048, 16, False, cuda)
+    mixed = LayerList([_q4_weight(1024, 2048, cuda), q6, _q4_weight(1024, 2048, cuda)])
+    before = qm.K6.launches
+    got = qm.linear_layered(x, mixed, 1)
+    assert qm.K6.launches == before + 1
+    assert rel(got, qm.matmul_plain(x, q6), row_dims=1) < TOL
 
 
 @pytest.mark.parametrize("m", [1, 8, 40])

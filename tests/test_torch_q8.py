@@ -101,6 +101,42 @@ def test_linear_layered_plain_vs_jax_q8_matmul_layered(kind, group, has_mins):
         assert rel(got.float().numpy(), want) < TOL
 
 
+# Gemma's widths, the card's K6 rows at K % 2048 != 0, at a narrow N: hidden
+# 2304 (Gemma-2-2B: the Q6_K head, attn_v; Q5_K with mins) and 1152
+# (Gemma-3-1B, where the k-quants' 256-blocks do not fit: Q8_0)
+GEMMA_CASES = [(2304, GGMLType.Q6_K), (2304, GGMLType.Q5_K), (1152, GGMLType.Q8_0)]
+
+
+@pytest.mark.parametrize("k,kind", GEMMA_CASES, ids=lambda v: getattr(v, "name", str(v)))
+@pytest.mark.parametrize("m", [1, 8, 24])
+def test_q8_matmul_plain_vs_jax_at_gemma_widths(k, kind, m):
+    rng = np.random.default_rng(30 + m)
+    n = 128
+    raw = _raw(rng, n, k, kind)
+    jt = jqt.pack_gguf_tensor(raw, JGGMLType[kind.name], (n, k), device_put=False)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    want = _q8_matmul(jnp.asarray(x, jnp.bfloat16), jt.qs, jt.scales, jt.mins, group=jt.group)
+    got = q8_matmul(torch.from_numpy(x).to(torch.bfloat16), tqt.pack_gguf_tensor(raw, kind, (n, k)))
+    assert got.shape == (m, n)
+    assert rel(got.float().numpy(), want) < TOL
+
+
+@pytest.mark.parametrize("k,kind", GEMMA_CASES, ids=lambda v: getattr(v, "name", str(v)))
+def test_linear_layered_plain_vs_jax_at_gemma_widths(k, kind):
+    rng = np.random.default_rng(40)
+    n_layers, n, m = 2, 128, 8
+    raws = [_raw(rng, n, k, kind) for _ in range(n_layers)]
+    parts = [jqt.pack_gguf_tensor(r, JGGMLType[kind.name], (n, k), device_put=False) for r in raws]
+    stack = lambda a: None if a[0] is None else np.stack(a)
+    qs, sc, mn = (stack([getattr(p, f) for p in parts]) for f in ("qs", "scales", "mins"))
+    w = tqt.stack([tqt.pack_gguf_tensor(r, kind, (n, k)) for r in raws])
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    for layer in range(n_layers):
+        want = _q8_matmul_layered(jnp.asarray(x, jnp.bfloat16), jnp.int32(layer), qs, sc, mn,
+                                  group=parts[0].group)
+        assert rel(linear_layered(torch.from_numpy(x), w, layer).float().numpy(), want) < TOL
+
+
 @pytest.mark.parametrize("kind", [GGMLType.Q8_0, GGMLType.Q2_K], ids=lambda k: k.name)
 def test_from_jax_q8_round_trip(kind):
     """JAX dequant_qtensor of an N-padded 8-bit container (as a head is) ==
