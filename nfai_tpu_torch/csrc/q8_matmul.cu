@@ -67,7 +67,11 @@
 // and take alternate stages, and group 1's sums are added to group 0's in
 // shared memory, in that order. The D tile is transposed through shared
 // memory into rows of y.
+#include <cooperative_groups.h>
+
 #include "sm90.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -155,42 +159,53 @@ cudaError_t gemv_m1(const __nv_bfloat16* x, const int8_t* qs, const float* sc, c
   return cudaGetLastError();
 }
 
+// the K split across a cluster of blocks (1, 2, 4 or 8 of them, each with
+// its share of K, their partial sums met in distributed shared memory):
+// doubled while that cuts the waves of blocks on the SMs by a fifth, each
+// slice keeping at least 256 codes
+int cluster_split(int blocks, int K, int sms) {
+  const auto waves = [&](int c) { return float((blocks * c + sms - 1) / sms) / c; };
+  int c = 1;
+  while (c < 8 && K / (2 * c) >= 256 && waves(2 * c) <= 0.8f * waves(c)) c *= 2;
+  return c;
+}
+
+// a kernel launched in clusters of `cluster` blocks along x
+template <typename... Params, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, int smem, int cluster,
+                             cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // ---------------------------------------------------------------------------
 // M <= 8: the tensor-core GEMV
 
 constexpr uint32_t LOW7 = 0x007F007Fu, SIGN = 0x00800080u, HDR_128 = 0x43004300u;
-constexpr uint32_t NIB = 0x000F000Fu, HDR_136 = 0x43084308u;  // the split decode's
-constexpr int GV_CB = 256;  // 16-code blocks of x a chunk in shared memory (4096 codes)
+constexpr int GV_ROWS = GV_WARPS * 16;  // weight rows a block: 16 a warp
+constexpr int GV_CB = 256;              // 16-code blocks of x a chunk in shared memory
 
 // the int8 codes at bits 0-7 and 16-23 of w → their bf16x2, exactly
 __device__ __forceinline__ uint32_t i8x2(uint32_t w) {
   return bf16x2_sub(lop3_and_or(w, LOW7, HDR_128), lop3_and_or(w, SIGN, HDR_128));
 }
 
-// One 16-code block of rows g (w0) and g + 8 (w1) times the lane's x
-// fragment (b0, b1), added to p. DEC picks the decode of the codes to
-// exact bf16: 0 the lop3 header above; 1 byte → f32 by the magic number,
-// then one cvt a pair; 2 the split v = 16 hi + lo into two exact planes
-// (the low nibble, the signed high nibble), two products.
-template <int DEC>
+// one 16-code block of rows g (w0) and g + 8 (w1) times the lane's x
+// fragment (b0, b1), added to p
 __device__ __forceinline__ void block16(float (&p)[4], uint32_t w0, uint32_t w1, uint32_t b0,
                                         uint32_t b1) {
-  if constexpr (DEC == 0) {
-    mma_16816(p, i8x2(w0), i8x2(w1), i8x2(w0 >> 8), i8x2(w1 >> 8), b0, b1);
-  } else if constexpr (DEC == 1) {
-    const uint32_t u0 = w0 ^ FLIP, u1 = w1 ^ FLIP;
-    mma_16816(p, bf16x2(i8f(u0, 0), i8f(u0, 2)), bf16x2(i8f(u1, 0), i8f(u1, 2)),
-              bf16x2(i8f(u0, 1), i8f(u0, 3)), bf16x2(i8f(u1, 1), i8f(u1, 3)), b0, b1);
-  } else {
-    const uint32_t u0 = w0 ^ FLIP, u1 = w1 ^ FLIP;
-    auto lo = [](uint32_t w) { return bf16x2_sub(lop3_and_or(w, NIB, HDR_128), HDR_128); };
-    auto hi = [](uint32_t w) { return bf16x2_sub(lop3_and_or(w, NIB, HDR_128), HDR_136); };
-    float h[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_16816(p, lo(w0), lo(w1), lo(w0 >> 8), lo(w1 >> 8), b0, b1);
-    mma_16816(h, hi(u0 >> 4), hi(u1 >> 4), hi(u0 >> 12), hi(u1 >> 12), b0, b1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = fmaf(16.f, h[i], p[i]);
-  }
+  mma_16816(p, i8x2(w0), i8x2(w1), i8x2(w0 >> 8), i8x2(w1 >> 8), b0, b1);
 }
 
 // x fragment of block `bl` of the staged chunk: lane (g, t) reads codes
@@ -249,7 +264,9 @@ __device__ __forceinline__ void load_group(Group& G, const int8_t* const (&qrow)
   }
 }
 
-template <int DEC, bool G32, bool MINS, int PF, bool XS>
+// Block: 8 warps over 16 weight rows each for one of ks slices of K (the
+// block's 128 / ks rows); the slices meet in shared memory, added in order.
+template <bool G32, bool MINS>
 __global__ void __launch_bounds__(GV_WARPS * 32)
 q8_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
                const int8_t* __restrict__ qs, const float* __restrict__ sc,
@@ -282,25 +299,19 @@ q8_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
     const int per = (((cb + ks - 1) / ks) + 3) & ~3;
     const int lo = min(cb, slice * per), hi = min(cb, lo + per);
     const int groups = (hi - lo) >> 2;
-    Group A, B;
+    Group A;
     if (groups > 0) load_group<G32, MINS>(A, qrow, srow, mrow, c0 + lo, t, vec);  // in flight while x lands
-    if (PF == 2 && groups > 1) load_group<G32, MINS>(B, qrow, srow, mrow, c0 + lo + 4, t, vec);
-    const unsigned char* xrow;
-    if (XS) {
-      __syncthreads();  // the previous chunk is consumed
-      for (int e = tid; e < M * cb * 2; e += blockDim.x) {  // x rows < M: 16-byte copies
-        const int r = e / (cb * 2), c = e % (cb * 2);
-        cp_async16(xsm + r * pitch + 16 * c, x + (size_t)r * K + (size_t)c0 * 16 + 8 * c);
-      }
-      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-      __syncthreads();
-      xrow = xsm + (live ? g : 0) * pitch;
-    } else {
-      xrow = reinterpret_cast<const unsigned char*>(x + (size_t)(live ? g : 0) * K + (size_t)c0 * 16);
+    __syncthreads();  // the previous chunk is consumed
+    for (int e = tid; e < M * cb * 2; e += blockDim.x) {  // x rows < M: 16-byte copies
+      const int r = e / (cb * 2), c = e % (cb * 2);
+      cp_async16(xsm + r * pitch + 16 * c, x + (size_t)r * K + (size_t)c0 * 16 + 8 * c);
     }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    const unsigned char* xrow = xsm + (live ? g : 0) * pitch;
     for (int i = 0; i < groups; ++i) {
-      Group C;
-      if (i + PF < groups) load_group<G32, MINS>(C, qrow, srow, mrow, c0 + lo + 4 * (i + PF), t, vec);
+      Group B;
+      if (i + 1 < groups) load_group<G32, MINS>(B, qrow, srow, mrow, c0 + lo + 4 * (i + 1), t, vec);
       uint32_t w[2][4];
       quad_transpose(A.q[0], t, w[0]);
       quad_transpose(A.q[1], t, w[1]);
@@ -312,7 +323,7 @@ q8_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
           for (int e = 0; e < 4; ++e) p[e] = q[e] = 0.f;
         }
         const uint2 xv = x_frag(xrow, lo + 4 * i + j, t, live);
-        block16<DEC>(p, w[0][j], w[1][j], xv.x, xv.y);
+        block16(p, w[0][j], w[1][j], xv.x, xv.y);
         if (MINS) mma_16816(q, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, xv.x, xv.y);
         if (j % BPG == BPG - 1) {
           const int si = j / BPG;
@@ -320,12 +331,7 @@ q8_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
                      MINS ? comp(A.m[1], si) : 0.f);
         }
       }
-      if (PF == 2) {
-        A = B;
-        B = C;
-      } else {
-        A = C;
-      }
+      A = B;
     }
     // the last blocks of a slice (fewer than four): word t of each directly
     for (int b = lo + 4 * groups; b < hi; b += BPG) {
@@ -336,7 +342,7 @@ q8_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
         const uint32_t w0 = __ldcs(reinterpret_cast<const uint32_t*>(qrow[0] + 16 * gb) + t);
         const uint32_t w1 = __ldcs(reinterpret_cast<const uint32_t*>(qrow[1] + 16 * gb) + t);
         const uint2 xv = x_frag(xrow, b + j, t, live);
-        block16<DEC>(p, w0, w1, xv.x, xv.y);
+        block16(p, w0, w1, xv.x, xv.y);
         if (MINS) mma_16816(q, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, xv.x, xv.y);
       }
       const int gi = (c0 + b) / BPG;
@@ -361,12 +367,12 @@ q8_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
   }
 }
 
-template <int DEC, bool G32, bool MINS, int PF, bool XS>
+template <bool G32, bool MINS>
 cudaError_t gemv_launch(const __nv_bfloat16* x, const int8_t* qs, const float* sc, const float* mn,
                         __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
   static bool sized = false;  // one per instantiation: above 48 KB needs the opt-in
   if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(q8_gemv_kernel<DEC, G32, MINS, PF, XS>,
+    const cudaError_t err = cudaFuncSetAttribute(q8_gemv_kernel<G32, MINS>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  8 * (GV_CB * 32 + 32));
     if (err != cudaSuccess) return err;
@@ -375,32 +381,32 @@ cudaError_t gemv_launch(const __nv_bfloat16* x, const int8_t* qs, const float* s
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  const int ks = gemv_ks(K, N, sms), rows = (GV_WARPS / ks) * 16;
+  const int ks = gemv_ks(K, N, sms);
+  const int rows = (GV_WARPS / ks) * 16;
   // a group of four blocks reads its scales (and mins) by one vector load
   // where every row of them is aligned to it
   const int per = G32 ? 2 : 4, ng = K / (16 * (G32 ? 2 : 1));
   const auto aligned = [&](const float* p) { return reinterpret_cast<uintptr_t>(p) % (4 * per) == 0; };
   const bool vec = ng % per == 0 && aligned(sc) && (!MINS || aligned(mn));
-  const int smem = XS ? M * (min(K / 16, GV_CB) * 32 + 32) : 0;
-  q8_gemv_kernel<DEC, G32, MINS, PF, XS><<<(N + rows - 1) / rows, GV_WARPS * 32, smem, st>>>(
+  const int smem = M * (min(K / 16, GV_CB) * 32 + 32);
+  q8_gemv_kernel<G32, MINS><<<(N + rows - 1) / rows, GV_WARPS * 32, smem, st>>>(
       x, M, K, qs, sc, mn, y, N, ks, vec);
   return cudaGetLastError();
 }
 
-template <int DEC, int PF = 1, bool XS = true>
 cudaError_t gemv(const __nv_bfloat16* x, const int8_t* qs, const float* sc, const float* mn,
                  __nv_bfloat16* y, int M, int K, int N, int gshift, cudaStream_t st) {
   if (gshift == 5)
-    return mn ? gemv_launch<DEC, true, true, PF, XS>(x, qs, sc, mn, y, M, K, N, st)
-              : gemv_launch<DEC, true, false, PF, XS>(x, qs, sc, mn, y, M, K, N, st);
-  return mn ? gemv_launch<DEC, false, true, PF, XS>(x, qs, sc, mn, y, M, K, N, st)
-            : gemv_launch<DEC, false, false, PF, XS>(x, qs, sc, mn, y, M, K, N, st);
+    return mn ? gemv_launch<true, true>(x, qs, sc, mn, y, M, K, N, st)
+              : gemv_launch<true, false>(x, qs, sc, mn, y, M, K, N, st);
+  return mn ? gemv_launch<false, true>(x, qs, sc, mn, y, M, K, N, st)
+            : gemv_launch<false, false>(x, qs, sc, mn, y, M, K, N, st);
 }
 
 // ---------------------------------------------------------------------------
 // M > 8: wgmma tiles, y^T = W x^T
 
-constexpr int TN = 128, TK = 128;   // weight rows a block (row split), codes a stage
+constexpr int TN = 128, TK = 128;   // weight rows a block, codes a stage
 constexpr int T_THREADS = 2 * 128 + 32;  // two consumer warpgroups, one producer warp
 constexpr int SMEM_MAX = 232448;         // 227 KB a block
 
@@ -413,9 +419,8 @@ struct TileShape {
   static constexpr int STAGE = M_OFF + TN * 32;   // a multiple of 1024
   static constexpr int STAGES = (SMEM_MAX - 2048) / STAGE < 6 ? (SMEM_MAX - 2048) / STAGE : 6;
   static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
-  static constexpr int OUT_PITCH = TN + 8;            // bf16 a row of the y tile
-  static constexpr int OUT_BYTES = BM * OUT_PITCH * 2;  // then the K split's sums
-};
+  static constexpr int OUT_PITCH = TN + 8;            // bf16 a row of the y tile, then
+};                                                    // the K split's sums
 
 // byte i of w (sign-flipped, u = q + 128) as the f32 1 + u 2^-15: bytes
 // (0x00, u, 0x80, 0x3F)
@@ -423,6 +428,8 @@ __device__ __forceinline__ float u_f32(uint32_t w, uint32_t sel) {
   return __uint_as_float(prmt(w, 0x3F800000u, sel));
 }
 
+// Block (row tile, slice; m tile): 128 weight rows (64 with KS) times BM
+// rows of x over the slice's stages; a cluster holds the row tile's slices.
 template <int BM, bool KS>
 __global__ void __launch_bounds__(T_THREADS, 1)
 q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
@@ -435,10 +442,13 @@ q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
   unsigned char* tsm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(tsm_raw) + 1023) & ~uintptr_t(1023));
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ks = cluster.num_blocks(), slice = cluster.block_rank();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr int RB = KS ? 64 : TN;  // weight rows a block
-  const int n0 = blockIdx.x * RB, m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x / ks * RB, m0 = blockIdx.y * BM;
   const int ng = K >> gshift, spg = TK >> gshift, kt_n = (K + TK - 1) / TK;  // spg: scales a row a stage
+  const int kt0 = slice * kt_n / ks, kt_end = (slice + 1) * kt_n / ks;  // the slice's stages
   const bool mins = mn != nullptr;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -449,12 +459,17 @@ q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
   }
   __syncthreads();
 
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = (KS ? 0 : 64 * wg) + 16 * (warp & 3) + g;  // this lane's rows r0 and r0 + 8
+  float acc[BM / 2];
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
   if (warp == 8) {  // the producer warp: every operand by TMA from lane 0
     const int sbytes = RB * spg * 4 * (mins ? 2 : 1);
     const int tx = 2 * S::X_BYTES + RB * TK + (scales_by_tma ? sbytes : 0);
-    for (int kt = 0; kt < kt_n; ++kt) {
-      const int s = kt % STAGES;
-      if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
+    for (int kt = kt0; kt < kt_end; ++kt) {
+      const int i = kt - kt0, s = i % STAGES;
+      if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
       unsigned char* st = tsm + s * S::STAGE;
       if (lane == 0) {
         mbar_expect_tx(&full[s], tx);
@@ -468,8 +483,8 @@ q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
       }
       if (!scales_by_tma) {  // scale rows not 16-byte strided or aligned: 4-byte copies
         const int per = RB * spg;
-        for (int i = lane; i < per * (mins ? 2 : 1); i += 32) {
-          const int which = i >= per, e = i - which * per, r = e / spg, j = e % spg;
+        for (int e = lane; e < per * (mins ? 2 : 1); e += 32) {
+          const int which = e >= per, f = e - which * per, r = f / spg, j = f % spg;
           const int n = n0 + r, gi = kt * spg + j;
           const bool ok = n < N && gi < ng;
           const float* src = (which ? mn : sc) + (ok ? (size_t)n * ng + gi : 0);
@@ -479,118 +494,156 @@ q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
       }
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its thread
-    return;
-  }
-
-  // consumers: with KS both groups own the tile's 64 rows and take
-  // alternate stages (their sums meet at the end, group 0's first); else
-  // group wg owns rows 64 wg .. 64 wg + 63 and takes every stage
-  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
-  const int r0 = (KS ? 0 : 64 * wg) + 16 * (warp & 3) + g;  // this lane's rows r0 and r0 + 8
-  constexpr int STEP = KS ? 2 : 1;
-  const int gs = gshift - 4;  // a scale group is 1 << gs k16 steps
-  // lane t's A slots are codes 2t, 2t+1 (word t/2 of a 16-code chunk) and
-  // 2t+8, 2t+9 (word 2 + t/2), bytes 2(t&1) and 2(t&1) + 1 of each word
-  const uint32_t sel0 = 0x7604u | ((2u * (t & 1)) << 4), sel1 = sel0 + 0x10u;
-  const int wofs = 4 * (t >> 1);
-  float acc[BM / 2];
+  } else {
+    // consumers: with KS both groups own the tile's 64 rows and take
+    // alternate stages (their sums meet at the end, group 0's first); else
+    // group wg owns rows 64 wg .. 64 wg + 63 and takes every stage
+    const int gs = gshift - 4;  // a scale group is 1 << gs k16 steps
+    // lane t's A slots are codes 2t, 2t+1 (word t/2 of a 16-code chunk) and
+    // 2t+8, 2t+9 (word 2 + t/2), bytes 2(t&1) and 2(t&1) + 1 of each word
+    const uint32_t sel0 = 0x7604u | ((2u * (t & 1)) << 4), sel1 = sel0 + 0x10u;
+    const int wofs = 4 * (t >> 1);
+    fence_regs(acc);
+    // a stage is two halves of four k16 steps. A half's A fragment lives in
+    // registers that its products read while they run, so a group waits for
+    // them before it decodes the next half; the other group's products keep
+    // the tensor cores busy meanwhile
+    auto half = [&](const unsigned char* st, int hb) {
+      const float* s_r0 = reinterpret_cast<const float*>(st + S::S_OFF) + r0 * spg;
+      const float* m_r0 = reinterpret_cast<const float*>(st + S::M_OFF) + r0 * spg;
+      uint32_t a[4][4];
 #pragma unroll
-  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
-  fence_regs(acc);
-  // a stage is two halves of four k16 steps. A half's A fragment lives in
-  // registers that its products read while they run, so a group waits for
-  // them before it decodes the next half; the other group's products keep
-  // the tensor cores busy meanwhile
-  auto half = [&](const unsigned char* st, int hb) {
-    const float* s_r0 = reinterpret_cast<const float*>(st + S::S_OFF) + r0 * spg;
-    const float* m_r0 = reinterpret_cast<const float*>(st + S::M_OFF) + r0 * spg;
-    uint32_t a[4][4];
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * hb + jj, si = j >> gs;
+        const float s0 = s_r0[si], s1 = s_r0[8 * spg + si];
+        const float mm0 = mins ? m_r0[si] : 0.f, mm1 = mins ? m_r0[8 * spg + si] : 0.f;
+        // s q - m = 2^15 s (1 + u 2^-15) - (32896 s + m), u = q + 128
+        const float sa = 32768.f * s0, sb = 32768.f * s1;
+        const float ca = -fmaf(32896.f, s0, mm0), cb = -fmaf(32896.f, s1, mm1);
+        // chunk j of rows r0 and r0 + 8 sits at chunk j ^ (row & 7) = j ^ g (128-byte swizzle)
+        const unsigned char* ch = st + S::W_OFF + r0 * 128 + ((j ^ g) << 4) + wofs;
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(ch) ^ FLIP;
+        const uint32_t v0 = *reinterpret_cast<const uint32_t*>(ch + 8) ^ FLIP;
+        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(ch + 8 * 128) ^ FLIP;
+        const uint32_t v1 = *reinterpret_cast<const uint32_t*>(ch + 8 * 128 + 8) ^ FLIP;
+        a[jj][0] = bf16x2(fmaf(sa, u_f32(w0, sel0), ca), fmaf(sa, u_f32(w0, sel1), ca));
+        a[jj][1] = bf16x2(fmaf(sb, u_f32(w1, sel0), cb), fmaf(sb, u_f32(w1, sel1), cb));
+        a[jj][2] = bf16x2(fmaf(sa, u_f32(v0, sel0), ca), fmaf(sa, u_f32(v0, sel1), ca));
+        a[jj][3] = bf16x2(fmaf(sb, u_f32(v1, sel0), cb), fmaf(sb, u_f32(v1, sel1), cb));
+      }
+      uint64_t desc[4];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int j = 4 * hb + jj, si = j >> gs;
-      const float s0 = s_r0[si], s1 = s_r0[8 * spg + si];
-      const float mm0 = mins ? m_r0[si] : 0.f, mm1 = mins ? m_r0[8 * spg + si] : 0.f;
-      // s q - m = 2^15 s (1 + u 2^-15) - (32896 s + m), u = q + 128
-      const float sa = 32768.f * s0, sb = 32768.f * s1;
-      const float ca = -fmaf(32896.f, s0, mm0), cb = -fmaf(32896.f, s1, mm1);
-      // chunk j of rows r0 and r0 + 8 sits at chunk j ^ (row & 7) = j ^ g (128-byte swizzle)
-      const unsigned char* ch = st + S::W_OFF + r0 * 128 + ((j ^ g) << 4) + wofs;
-      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(ch) ^ FLIP;
-      const uint32_t v0 = *reinterpret_cast<const uint32_t*>(ch + 8) ^ FLIP;
-      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(ch + 8 * 128) ^ FLIP;
-      const uint32_t v1 = *reinterpret_cast<const uint32_t*>(ch + 8 * 128 + 8) ^ FLIP;
-      a[jj][0] = bf16x2(fmaf(sa, u_f32(w0, sel0), ca), fmaf(sa, u_f32(w0, sel1), ca));
-      a[jj][1] = bf16x2(fmaf(sb, u_f32(w1, sel0), cb), fmaf(sb, u_f32(w1, sel1), cb));
-      a[jj][2] = bf16x2(fmaf(sa, u_f32(v0, sel0), ca), fmaf(sa, u_f32(v0, sel1), ca));
-      a[jj][3] = bf16x2(fmaf(sb, u_f32(v1, sel0), cb), fmaf(sb, u_f32(v1, sel1), cb));
+      for (int j = 0; j < 4; ++j) {
+        desc[j] = sw128_desc(st + hb * S::X_BYTES + 32 * j);
+        pin(a[j], desc[j]);  // operands final before the fence: nothing sinks between products
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_rs<BM>(acc, a[j], desc[j]);
+      wgmma_commit();
+      wgmma_wait<0>();
+    };
+    for (int kt = kt0 + (KS ? wg : 0); kt < kt_end; kt += KS ? 2 : 1) {
+      const int i = kt - kt0, s = i % STAGES;
+      mbar_wait(&full[s], (i / STAGES) & 1);
+      const unsigned char* st = tsm + s * S::STAGE;
+      half(st, 0);
+      half(st, 1);
+      // the group's products of this stage have completed, after every warp
+      // of the group had read it: the stage is free
+      if ((warp & 3) == 0 && lane == 0) mbar_arrive(&empty[s]);
     }
-    uint64_t desc[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      desc[j] = sw128_desc(st + hb * S::X_BYTES + 32 * j);
-      pin(a[j], desc[j]);  // operands final before the fence: nothing sinks between products
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wgmma_rs<BM>(acc, a[j], desc[j]);
-    wgmma_commit();
-    wgmma_wait<0>();
-  };
-  for (int kt = KS ? wg : 0; kt < kt_n; kt += STEP) {
-    const int s = kt % STAGES;
-    mbar_wait(&full[s], (kt / STAGES) & 1);
-    const unsigned char* st = tsm + s * S::STAGE;
-    half(st, 0);
-    half(st, 1);
-    // the group's products of this stage have completed, after every warp
-    // of the group had read it: the stage is free
-    if ((warp & 3) == 0 && lane == 0) mbar_arrive(&empty[s]);
-  }
-  fence_regs(acc);
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both groups are done with the stages
-  if constexpr (KS) {  // group 1's sums, in its fragment order, onto group 0's
-    float* part = reinterpret_cast<float*>(tsm + S::OUT_BYTES);
-    float* mine = part + (warp & 3) * (BM / 2) * 32 + lane;
-    if (wg == 1) {
-#pragma unroll
-      for (int i = 0; i < BM / 2; ++i) mine[i * 32] = acc[i];
-    }
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    if (wg == 0) {
-#pragma unroll
-      for (int i = 0; i < BM / 2; ++i) acc[i] += mine[i * 32];
-    }
+    fence_regs(acc);
   }
   // D fragment: acc[4i + e] = row r0 (+8 for e >= 2), column m = 8i + 2t (+1 for odd e)
-  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(tsm);  // [BM][OUT_PITCH]
-  if (!KS || wg == 0) {
+  if (ks == 1) {  // through shared memory into rows of y
+    __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(tsm);  // [BM][OUT_PITCH]
+    if (warp < 8) {
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both groups are done with the stages
+      if constexpr (KS) {  // group 1's sums, in its fragment order, onto group 0's
+        float* part = reinterpret_cast<float*>(tsm + BM * S::OUT_PITCH * 2);
+        float* mine = part + (warp & 3) * (BM / 2) * 32 + lane;
+        if (wg == 1) {
 #pragma unroll
-    for (int i = 0; i < BM / 8; ++i) {
-      const int m = 8 * i + 2 * t;
-      out[m * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i]);
-      out[(m + 1) * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i + 1]);
-      out[m * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 2]);
-      out[(m + 1) * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 3]);
+          for (int i = 0; i < BM / 2; ++i) mine[i * 32] = acc[i];
+        }
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        if (wg == 0) {
+#pragma unroll
+          for (int i = 0; i < BM / 2; ++i) acc[i] += mine[i * 32];
+        }
+      }
+      if (!KS || wg == 0) {
+#pragma unroll
+        for (int i = 0; i < BM / 8; ++i) {
+          const int m = 8 * i + 2 * t;
+          out[m * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i]);
+          out[(m + 1) * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i + 1]);
+          out[m * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 2]);
+          out[(m + 1) * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 3]);
+        }
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      const bool vec = (N & 7) == 0 && n0 + RB <= N;
+      for (int e = tid; e < BM * (RB / 8); e += 256) {  // 16 bytes (8 columns) a thread
+        const int m = e / (RB / 8), c = 8 * (e % (RB / 8));
+        if (m0 + m >= M) continue;
+        const __nv_bfloat16* src = out + m * S::OUT_PITCH + c;
+        __nv_bfloat16* dst = y + (size_t)(m0 + m) * N + n0 + c;
+        if (vec) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int j = 0; j < 8 && n0 + c + j < N; ++j) dst[j] = src[j];
+        }
+      }
+    }
+    return;
+  }
+  // the slices' sums, each thread's in its fragment order, met in
+  // distributed shared memory: slice s adds the s-th share of the block's
+  // sums over the slices in order, every slice's float4 in flight at once
+  float* part = reinterpret_cast<float*>(tsm);  // [8 warps][BM / 2][32 lanes]
+  cluster.sync();  // every block of the cluster is done with its stages
+  if (warp < 8) {
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) part[(warp * (BM / 2) + i) * 32 + lane] = acc[i];
+  }
+  cluster.sync();
+  const float4* parts[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    parts[k] = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, k < ks ? k : 0));
+  const int f4 = 32 * BM / ks;
+  for (int f = slice * f4 + tid; f < (slice + 1) * f4; f += T_THREADS) {
+    float4 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < ks) v[k] = parts[k][f];
+    float sum[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+#pragma unroll
+    for (int k = 1; k < 8; ++k) {
+      if (k < ks) {
+        sum[0] += v[k].x;
+        sum[1] += v[k].y;
+        sum[2] += v[k].z;
+        sum[3] += v[k].w;
+      }
+    }
+    // entries 4f..4f+3: warp w, fragment entry i, lanes (g, t = 0..3)
+    const int e = 4 * f, w = e / (16 * BM), i = (e >> 5) % (BM / 2), g0 = (e & 31) >> 2;
+    const int n = n0 + 64 * (w >> 2) + 16 * (w & 3) + g0 + 8 * ((i >> 1) & 1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int m = m0 + 8 * (i >> 2) + 2 * c + (i & 1);
+      if (m < M && n < N) y[(size_t)m * N + n] = __float2bfloat16(sum[c]);
     }
   }
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-  const bool vec = (N & 7) == 0 && n0 + RB <= N;
-  for (int e = tid; e < BM * (RB / 8); e += 256) {  // 16 bytes (8 columns) a thread
-    const int m = e / (RB / 8), c = 8 * (e % (RB / 8));
-    if (m0 + m >= M) continue;
-    const __nv_bfloat16* src = out + m * S::OUT_PITCH + c;
-    __nv_bfloat16* dst = y + (size_t)(m0 + m) * N + n0 + c;
-    if (vec) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int j = 0; j < 8 && n0 + c + j < N; ++j) dst[j] = src[j];
-    }
-  }
+  cluster.sync();  // no block leaves while another reads its sums
 }
 
 template <int BM, bool KS>
 cudaError_t launch_tiles(const void* x, const int8_t* qs, const float* sc, const float* mn,
-                         __nv_bfloat16* y, int M, int K, int N, int gshift, cudaStream_t st) {
+                         __nv_bfloat16* y, int M, int K, int N, int gshift, int ks, cudaStream_t st) {
   static bool sized = false;  // one per instantiation: above 48 KB needs the opt-in
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -618,23 +671,31 @@ cudaError_t launch_tiles(const void* x, const int8_t* qs, const float* sc, const
   if (err != cudaSuccess) return err;
   if (!scales_by_tma) sm = qm;  // unused
   if (!scales_by_tma || !mn) mm = sm;  // unused
-  dim3 grid((N + RB - 1) / RB, (M + BM - 1) / BM);
+  const dim3 grid((N + RB - 1) / RB * ks, (M + BM - 1) / BM);
+  if (ks > 1)
+    return launch_clustered(q8_wgmma_kernel<BM, KS>, grid, T_THREADS, TileShape<BM>::SMEM, ks, st,
+                            xm, qm, sm, mm, M, K, sc, mn, y, N, gshift, scales_by_tma);
   q8_wgmma_kernel<BM, KS><<<grid, T_THREADS, TileShape<BM>::SMEM, st>>>(
       xm, qm, sm, mm, M, K, sc, mn, y, N, gshift, scales_by_tma);
   return cudaGetLastError();
 }
 
 // the tile width: the least of 16, 32, 64, 128 that holds M (larger M
-// takes several 128-wide row tiles); the split by `tiles_k_split`
+// takes several 128-wide row tiles). Where the row tiles leave SMs idle, K
+// is split: at widths up to 64 across a cluster of blocks (`cluster_split`),
+// at 128, whose partial sums are four times larger, between the two groups
+// of a block of 64 rows (`tiles_k_split`; measured faster there)
 template <int BM>
 cudaError_t launch_width(const void* x, const int8_t* qs, const float* sc, const float* mn,
                          __nv_bfloat16* y, int M, int K, int N, int gshift, cudaStream_t st) {
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  return tiles_k_split((N + TN - 1) / TN * ((M + BM - 1) / BM), sms)
-             ? launch_tiles<BM, true>(x, qs, sc, mn, y, M, K, N, gshift, st)
-             : launch_tiles<BM, false>(x, qs, sc, mn, y, M, K, N, gshift, st);
+  const int blocks = (N + TN - 1) / TN * ((M + BM - 1) / BM);
+  if (BM < 128)
+    return launch_tiles<BM, false>(x, qs, sc, mn, y, M, K, N, gshift, cluster_split(blocks, K, sms), st);
+  return tiles_k_split(blocks, sms) ? launch_tiles<BM, true>(x, qs, sc, mn, y, M, K, N, gshift, 1, st)
+                                    : launch_tiles<BM, false>(x, qs, sc, mn, y, M, K, N, gshift, 1, st);
 }
 
 cudaError_t tiles(const void* x, const int8_t* qs, const float* sc, const float* mn,
@@ -663,30 +724,7 @@ extern "C" int nfai_q8_matmul(const void* x, const void* qs, const void* sc,
   auto yb = static_cast<__nv_bfloat16*>(y);
   const int gshift = group == 16 ? 4 : 5;
   if (M == 1) return static_cast<int>(gemv_m1(xb, q, s, m, yb, K, N, gshift, st));
-  if (M <= 8) return static_cast<int>(gemv<0>(xb, q, s, m, yb, M, K, N, gshift, st));
+  if (M <= 8) return static_cast<int>(gemv(xb, q, s, m, yb, M, K, N, gshift, st));
   return static_cast<int>(tiles(x, q, s, m, yb, M, K, N, gshift, st));
 }
 
-// The measured alternatives of the GEMV: variant 1 and 2 its other decodes
-// (magic number + cvt; two nibble planes), 3 the tensor-core GEMV at any M
-// (M = 1 included); 0 the kernel as dispatched above.
-extern "C" int nfai_q8_matmul_variant(const void* x, const void* qs, const void* sc,
-                                      const void* mn, void* y, int M, int K, int N,
-                                      int group, int variant, void* stream) {
-  if (variant == 0 || M > 8) return nfai_q8_matmul(x, qs, sc, mn, y, M, K, N, group, stream);
-  if (K % 32 != 0 || M < 1 || N < 1 || (group != 16 && group != 32))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto q = static_cast<const int8_t*>(qs);
-  auto s = static_cast<const float*>(sc);
-  auto m = static_cast<const float*>(mn);
-  auto yb = static_cast<__nv_bfloat16*>(y);
-  const int gshift = group == 16 ? 4 : 5;
-  if (variant == 1) return static_cast<int>(gemv<1>(xb, q, s, m, yb, M, K, N, gshift, st));
-  if (variant == 2) return static_cast<int>(gemv<2>(xb, q, s, m, yb, M, K, N, gshift, st));
-  if (variant == 4) return static_cast<int>(gemv<0, 2, true>(xb, q, s, m, yb, M, K, N, gshift, st));
-  if (variant == 5) return static_cast<int>(gemv<0, 1, false>(xb, q, s, m, yb, M, K, N, gshift, st));
-  if (variant == 6) return static_cast<int>(gemv<0, 2, false>(xb, q, s, m, yb, M, K, N, gshift, st));
-  return static_cast<int>(gemv<0>(xb, q, s, m, yb, M, K, N, gshift, st));
-}

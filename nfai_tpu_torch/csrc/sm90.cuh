@@ -1,7 +1,7 @@
 // Device and host pieces that K1 (q4_matmul.cu) and K6 (q8_matmul.cu)
 // share: the tensor-core GEMV's mma.sync and operand shuffles, the wgmma
-// tiles' mbarrier ring, TMA copies and register-A wgmma, and the launch
-// rules both size by the SM count. kernels.py hashes every header of
+// tiles' mbarrier ring, TMA copies and register-A wgmma, and the GEMV's
+// launch rule (K slices by the SM count). kernels.py hashes every header of
 // csrc/ into each library's name, so an edit here rebuilds both.
 #pragma once
 
@@ -84,12 +84,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 
 // ---------------------------------------------------------------------------
-// the tensor-core GEMV's launch rule
 
-constexpr int GV_WARPS = 8;  // warps a block, 16 weight rows each
+constexpr int GV_WARPS = 8;  // warps a GEMV block, 16 weight rows each
 
-// the current device's SM count, read once: the launch rules size their
-// grids by it (132 on an H100 SXM)
+// the current device's SM count, read once (132 on an H100 SXM)
 cudaError_t sm_count(int* sms) {
   static int cached = 0;
   if (!cached) {

@@ -44,8 +44,7 @@ K1 = register(Kernel(
 ))
 K6 = register(Kernel(
     "q8_matmul", "q8_matmul.cu",
-    {"nfai_q8_matmul": [P, P, P, P, P, I, I, I, I, P],
-     "nfai_q8_matmul_variant": [P, P, P, P, P, I, I, I, I, I, P]},
+    {"nfai_q8_matmul": [P, P, P, P, P, I, I, I, I, P]},
 ))
 K8 = register(Kernel(
     "grouped_q4", "grouped_matmul.cu",
