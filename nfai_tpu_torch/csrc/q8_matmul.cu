@@ -429,8 +429,9 @@ __device__ __forceinline__ float u_f32(uint32_t w, uint32_t sel) {
 }
 
 // Block (row tile, slice; m tile): 128 weight rows (64 with KS) times BM
-// rows of x over the slice's stages; a cluster holds the row tile's slices.
-template <int BM, bool KS>
+// rows of x over the slice's stages; with CL a cluster holds the row tile's
+// slices (a kernel without CL has no cluster code at all: measured faster)
+template <int BM, bool KS, bool CL>
 __global__ void __launch_bounds__(T_THREADS, 1)
 q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap mmap,
@@ -442,8 +443,8 @@ q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
   unsigned char* tsm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(tsm_raw) + 1023) & ~uintptr_t(1023));
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int ks = cluster.num_blocks(), slice = cluster.block_rank();
+  const int ks = CL ? cg::this_cluster().num_blocks() : 1;
+  const int slice = CL ? cg::this_cluster().block_rank() : 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr int RB = KS ? 64 : TN;  // weight rows a block
   const int n0 = blockIdx.x / ks * RB, m0 = blockIdx.y * BM;
@@ -494,6 +495,7 @@ q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
       }
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its thread
+    if constexpr (!CL) return;
   } else {
     // consumers: with KS both groups own the tile's 64 rows and take
     // alternate stages (their sums meet at the end, group 0's first); else
@@ -556,7 +558,7 @@ q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
     fence_regs(acc);
   }
   // D fragment: acc[4i + e] = row r0 (+8 for e >= 2), column m = 8i + 2t (+1 for odd e)
-  if (ks == 1) {  // through shared memory into rows of y
+  if constexpr (!CL) {  // through shared memory into rows of y
     __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(tsm);  // [BM][OUT_PITCH]
     if (warp < 8) {
       asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both groups are done with the stages
@@ -598,56 +600,58 @@ q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
       }
     }
     return;
-  }
-  // the slices' sums, each thread's in its fragment order, met in
-  // distributed shared memory: slice s adds the s-th share of the block's
-  // sums over the slices in order, every slice's float4 in flight at once
-  float* part = reinterpret_cast<float*>(tsm);  // [8 warps][BM / 2][32 lanes]
-  cluster.sync();  // every block of the cluster is done with its stages
-  if (warp < 8) {
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    // the slices' sums, each thread's in its fragment order, met in
+    // distributed shared memory: slice s adds the s-th share of the block's
+    // sums over the slices in order, every slice's float4 in flight at once
+    float* part = reinterpret_cast<float*>(tsm);  // [8 warps][BM / 2][32 lanes]
+    cluster.sync();  // every block of the cluster is done with its stages
+    if (warp < 8) {
 #pragma unroll
-    for (int i = 0; i < BM / 2; ++i) part[(warp * (BM / 2) + i) * 32 + lane] = acc[i];
-  }
-  cluster.sync();
-  const float4* parts[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    parts[k] = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, k < ks ? k : 0));
-  const int f4 = 32 * BM / ks;
-  for (int f = slice * f4 + tid; f < (slice + 1) * f4; f += T_THREADS) {
-    float4 v[8];
+      for (int i = 0; i < BM / 2; ++i) part[(warp * (BM / 2) + i) * 32 + lane] = acc[i];
+    }
+    cluster.sync();
+    const float4* parts[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      if (k < ks) v[k] = parts[k][f];
-    float sum[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+      parts[k] = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, k < ks ? k : 0));
+    const int f4 = 32 * BM / ks;
+    for (int f = slice * f4 + tid; f < (slice + 1) * f4; f += T_THREADS) {
+      float4 v[8];
 #pragma unroll
-    for (int k = 1; k < 8; ++k) {
-      if (k < ks) {
-        sum[0] += v[k].x;
-        sum[1] += v[k].y;
-        sum[2] += v[k].z;
-        sum[3] += v[k].w;
+      for (int k = 0; k < 8; ++k)
+        if (k < ks) v[k] = parts[k][f];
+      float sum[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+#pragma unroll
+      for (int k = 1; k < 8; ++k) {
+        if (k < ks) {
+          sum[0] += v[k].x;
+          sum[1] += v[k].y;
+          sum[2] += v[k].z;
+          sum[3] += v[k].w;
+        }
+      }
+      // entries 4f..4f+3: warp w, fragment entry i, lanes (g, t = 0..3)
+      const int e = 4 * f, w = e / (16 * BM), i = (e >> 5) % (BM / 2), g0 = (e & 31) >> 2;
+      const int n = n0 + 64 * (w >> 2) + 16 * (w & 3) + g0 + 8 * ((i >> 1) & 1);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int m = m0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        if (m < M && n < N) y[(size_t)m * N + n] = __float2bfloat16(sum[c]);
       }
     }
-    // entries 4f..4f+3: warp w, fragment entry i, lanes (g, t = 0..3)
-    const int e = 4 * f, w = e / (16 * BM), i = (e >> 5) % (BM / 2), g0 = (e & 31) >> 2;
-    const int n = n0 + 64 * (w >> 2) + 16 * (w & 3) + g0 + 8 * ((i >> 1) & 1);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int m = m0 + 8 * (i >> 2) + 2 * c + (i & 1);
-      if (m < M && n < N) y[(size_t)m * N + n] = __float2bfloat16(sum[c]);
-    }
+    cluster.sync();  // no block leaves while another reads its sums
   }
-  cluster.sync();  // no block leaves while another reads its sums
 }
 
-template <int BM, bool KS>
+template <int BM, bool KS, bool CL>
 cudaError_t launch_tiles(const void* x, const int8_t* qs, const float* sc, const float* mn,
                          __nv_bfloat16* y, int M, int K, int N, int gshift, int ks, cudaStream_t st) {
   static bool sized = false;  // one per instantiation: above 48 KB needs the opt-in
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        q8_wgmma_kernel<BM, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, TileShape<BM>::SMEM);
+        q8_wgmma_kernel<BM, KS, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize, TileShape<BM>::SMEM);
     if (err != cudaSuccess) return err;
     sized = true;
   }
@@ -672,10 +676,10 @@ cudaError_t launch_tiles(const void* x, const int8_t* qs, const float* sc, const
   if (!scales_by_tma) sm = qm;  // unused
   if (!scales_by_tma || !mn) mm = sm;  // unused
   const dim3 grid((N + RB - 1) / RB * ks, (M + BM - 1) / BM);
-  if (ks > 1)
-    return launch_clustered(q8_wgmma_kernel<BM, KS>, grid, T_THREADS, TileShape<BM>::SMEM, ks, st,
+  if (CL)
+    return launch_clustered(q8_wgmma_kernel<BM, KS, CL>, grid, T_THREADS, TileShape<BM>::SMEM, ks, st,
                             xm, qm, sm, mm, M, K, sc, mn, y, N, gshift, scales_by_tma);
-  q8_wgmma_kernel<BM, KS><<<grid, T_THREADS, TileShape<BM>::SMEM, st>>>(
+  q8_wgmma_kernel<BM, KS, CL><<<grid, T_THREADS, TileShape<BM>::SMEM, st>>>(
       xm, qm, sm, mm, M, K, sc, mn, y, N, gshift, scales_by_tma);
   return cudaGetLastError();
 }
@@ -692,10 +696,11 @@ cudaError_t launch_width(const void* x, const int8_t* qs, const float* sc, const
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int blocks = (N + TN - 1) / TN * ((M + BM - 1) / BM);
-  if (BM < 128)
-    return launch_tiles<BM, false>(x, qs, sc, mn, y, M, K, N, gshift, cluster_split(blocks, K, sms), st);
-  return tiles_k_split(blocks, sms) ? launch_tiles<BM, true>(x, qs, sc, mn, y, M, K, N, gshift, 1, st)
-                                    : launch_tiles<BM, false>(x, qs, sc, mn, y, M, K, N, gshift, 1, st);
+  const int ks = BM < 128 ? cluster_split(blocks, K, sms) : 1;
+  if (ks > 1) return launch_tiles<BM, false, true>(x, qs, sc, mn, y, M, K, N, gshift, ks, st);
+  return BM == 128 && tiles_k_split(blocks, sms)
+             ? launch_tiles<BM, true, false>(x, qs, sc, mn, y, M, K, N, gshift, 1, st)
+             : launch_tiles<BM, false, false>(x, qs, sc, mn, y, M, K, N, gshift, 1, st);
 }
 
 cudaError_t tiles(const void* x, const int8_t* qs, const float* sc, const float* mn,
