@@ -194,7 +194,10 @@ cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, 
 
 constexpr uint32_t LOW7 = 0x007F007Fu, SIGN = 0x00800080u, HDR_128 = 0x43004300u;
 constexpr int GV_ROWS = GV_WARPS * 16;  // weight rows a block: 16 a warp
-constexpr int GV_CB = 256;              // 16-code blocks of x a chunk in shared memory
+// x is staged in chunks of at most 256 16-code blocks and 40 KB of shared
+// memory: with 66 KB a block, G's head (2000 blocks) ran 1.4x slower at M =
+// 8 than with 37 KB (measured)
+constexpr int GV_CB = 256, GV_SMEM = 40 * 1024;
 
 // the int8 codes at bits 0-7 and 16-23 of w → their bf16x2, exactly
 __device__ __forceinline__ uint32_t i8x2(uint32_t w) {
@@ -271,7 +274,7 @@ __global__ void __launch_bounds__(GV_WARPS * 32)
 q8_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
                const int8_t* __restrict__ qs, const float* __restrict__ sc,
                const float* __restrict__ mn, __nv_bfloat16* __restrict__ y, int N, int ks,
-               bool vec) {
+               int cbm, bool vec) {
   extern __shared__ __align__(16) unsigned char xsm[];  // [M][pitch]: x rows of a chunk
   __shared__ float part[GV_WARPS][16][8];
   constexpr int BPG = G32 ? 2 : 1;  // blocks a scale group
@@ -294,8 +297,8 @@ q8_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
   const bool live = g < M;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
 
-  for (int c0 = 0; c0 < nb; c0 += GV_CB) {
-    const int cb = min(GV_CB, nb - c0), pitch = cb * 32 + 32;
+  for (int c0 = 0; c0 < nb; c0 += cbm) {
+    const int cb = min(cbm, nb - c0), pitch = cb * 32 + 32;
     const int per = (((cb + ks - 1) / ks) + 3) & ~3;
     const int lo = min(cb, slice * per), hi = min(cb, lo + per);
     const int groups = (hi - lo) >> 2;
@@ -370,14 +373,6 @@ q8_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
 template <bool G32, bool MINS>
 cudaError_t gemv_launch(const __nv_bfloat16* x, const int8_t* qs, const float* sc, const float* mn,
                         __nv_bfloat16* y, int M, int K, int N, cudaStream_t st) {
-  static bool sized = false;  // one per instantiation: above 48 KB needs the opt-in
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(q8_gemv_kernel<G32, MINS>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 8 * (GV_CB * 32 + 32));
-    if (err != cudaSuccess) return err;
-    sized = true;
-  }
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
@@ -388,9 +383,10 @@ cudaError_t gemv_launch(const __nv_bfloat16* x, const int8_t* qs, const float* s
   const int per = G32 ? 2 : 4, ng = K / (16 * (G32 ? 2 : 1));
   const auto aligned = [&](const float* p) { return reinterpret_cast<uintptr_t>(p) % (4 * per) == 0; };
   const bool vec = ng % per == 0 && aligned(sc) && (!MINS || aligned(mn));
-  const int smem = M * (min(K / 16, GV_CB) * 32 + 32);
+  const int cbm = min(GV_CB, (GV_SMEM / M - 32) / 32) & ~3;  // blocks of a chunk
+  const int smem = M * (min(K / 16, cbm) * 32 + 32);
   q8_gemv_kernel<G32, MINS><<<(N + rows - 1) / rows, GV_WARPS * 32, smem, st>>>(
-      x, M, K, qs, sc, mn, y, N, ks, vec);
+      x, M, K, qs, sc, mn, y, N, ks, cbm, vec);
   return cudaGetLastError();
 }
 
