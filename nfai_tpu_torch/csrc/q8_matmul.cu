@@ -601,9 +601,22 @@ q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
     // the slices' sums, each thread's in its fragment order, met in
     // distributed shared memory: slice s adds the s-th share of the block's
     // sums over the slices in order, every slice's float4 in flight at once
-    float* part = reinterpret_cast<float*>(tsm);  // [8 warps][BM / 2][32 lanes]
+    constexpr int WARPS = KS ? 4 : 8;  // the warps that hold the block's sums
+    float* part = reinterpret_cast<float*>(tsm);  // [WARPS][BM / 2][32 lanes]
     cluster.sync();  // every block of the cluster is done with its stages
-    if (warp < 8) {
+    if (KS && warp < 8) {  // group 1's sums, in its fragment order, onto group 0's
+      float* mine = part + (WARPS + (warp & 3)) * (BM / 2) * 32 + lane;
+      if (wg == 1) {
+#pragma unroll
+        for (int i = 0; i < BM / 2; ++i) mine[i * 32] = acc[i];
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < BM / 2; ++i) acc[i] += mine[i * 32];
+      }
+    }
+    if (warp < WARPS) {
 #pragma unroll
       for (int i = 0; i < BM / 2; ++i) part[(warp * (BM / 2) + i) * 32 + lane] = acc[i];
     }
@@ -612,7 +625,7 @@ q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
 #pragma unroll
     for (int k = 0; k < 8; ++k)
       parts[k] = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, k < ks ? k : 0));
-    const int f4 = 32 * BM / ks;
+    const int f4 = WARPS * 4 * BM / ks;
     for (int f = slice * f4 + tid; f < (slice + 1) * f4; f += T_THREADS) {
       float4 v[8];
 #pragma unroll
@@ -682,9 +695,10 @@ cudaError_t launch_tiles(const void* x, const int8_t* qs, const float* sc, const
 
 // the tile width: the least of 16, 32, 64, 128 that holds M (larger M
 // takes several 128-wide row tiles). Where the row tiles leave SMs idle, K
-// is split: at widths up to 64 across a cluster of blocks (`cluster_split`),
-// at 128, whose partial sums are four times larger, between the two groups
-// of a block of 64 rows (`tiles_k_split`; measured faster there)
+// is split: at widths up to 64 across a cluster of blocks (`cluster_split`);
+// at 128, whose partial sums are four times larger, first between the two
+// groups of a block of 64 rows (`tiles_k_split`, measured faster there than
+// a cluster of 128-row blocks), then across a cluster of such blocks
 template <int BM>
 cudaError_t launch_width(const void* x, const int8_t* qs, const float* sc, const float* mn,
                          __nv_bfloat16* y, int M, int K, int N, int gshift, cudaStream_t st) {
@@ -692,11 +706,14 @@ cudaError_t launch_width(const void* x, const int8_t* qs, const float* sc, const
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int blocks = (N + TN - 1) / TN * ((M + BM - 1) / BM);
+  if (BM == 128 && tiles_k_split(blocks, sms)) {
+    const int ks = cluster_split(2 * blocks, K, sms);
+    return ks > 1 ? launch_tiles<BM, true, true>(x, qs, sc, mn, y, M, K, N, gshift, ks, st)
+                  : launch_tiles<BM, true, false>(x, qs, sc, mn, y, M, K, N, gshift, 1, st);
+  }
   const int ks = BM < 128 ? cluster_split(blocks, K, sms) : 1;
-  if (ks > 1) return launch_tiles<BM, false, true>(x, qs, sc, mn, y, M, K, N, gshift, ks, st);
-  return BM == 128 && tiles_k_split(blocks, sms)
-             ? launch_tiles<BM, true, false>(x, qs, sc, mn, y, M, K, N, gshift, 1, st)
-             : launch_tiles<BM, false, false>(x, qs, sc, mn, y, M, K, N, gshift, 1, st);
+  return ks > 1 ? launch_tiles<BM, false, true>(x, qs, sc, mn, y, M, K, N, gshift, ks, st)
+                : launch_tiles<BM, false, false>(x, qs, sc, mn, y, M, K, N, gshift, 1, st);
 }
 
 cudaError_t tiles(const void* x, const int8_t* qs, const float* sc, const float* mn,
