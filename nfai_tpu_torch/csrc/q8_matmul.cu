@@ -162,11 +162,11 @@ cudaError_t gemv_m1(const __nv_bfloat16* x, const int8_t* qs, const float* sc, c
 // the K split across a cluster of blocks (1, 2, 4 or 8 of them, each with
 // its share of K, their partial sums met in distributed shared memory):
 // doubled while that cuts the waves of blocks on the SMs by a fifth, each
-// slice keeping at least 256 codes
-int cluster_split(int blocks, int K, int sms) {
+// slice keeping at least `least` codes
+int cluster_split(int blocks, int K, int sms, int least) {
   const auto waves = [&](int c) { return float((blocks * c + sms - 1) / sms) / c; };
   int c = 1;
-  while (c < 8 && K / (2 * c) >= 256 && waves(2 * c) <= 0.8f * waves(c)) c *= 2;
+  while (c < 8 && K / (2 * c) >= least && waves(2 * c) <= 0.8f * waves(c)) c *= 2;
   return c;
 }
 
@@ -706,12 +706,12 @@ cudaError_t launch_width(const void* x, const int8_t* qs, const float* sc, const
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int blocks = (N + TN - 1) / TN * ((M + BM - 1) / BM);
-  if (BM == 128 && tiles_k_split(blocks, sms)) {
-    const int ks = cluster_split(2 * blocks, K, sms);
+  if (BM == 128 && tiles_k_split(blocks, sms)) {  // 1024 codes a slice: wv at M = 256 ran
+    const int ks = cluster_split(2 * blocks, K, sms, 1024);  // slower with 8 slices of 256
     return ks > 1 ? launch_tiles<BM, true, true>(x, qs, sc, mn, y, M, K, N, gshift, ks, st)
                   : launch_tiles<BM, true, false>(x, qs, sc, mn, y, M, K, N, gshift, 1, st);
   }
-  const int ks = BM < 128 ? cluster_split(blocks, K, sms) : 1;
+  const int ks = BM < 128 ? cluster_split(blocks, K, sms, 256) : 1;
   return ks > 1 ? launch_tiles<BM, false, true>(x, qs, sc, mn, y, M, K, N, gshift, ks, st)
                 : launch_tiles<BM, false, false>(x, qs, sc, mn, y, M, K, N, gshift, 1, st);
 }
