@@ -38,9 +38,9 @@
 // with mins, the group's x sum (a product against ones) times the min is
 // subtracted: W enters exactly as s q - m in f32. A lane loads 16 bytes
 // (a whole block) of each row and a quad transposes its four blocks with
-// four shuffles; x is staged per chunk of 4096 codes in shared memory by
-// cp.async; each warp prefetches its next four blocks (codes, scales,
-// mins) while it multiplies the current ones. A block of 8 warps splits K
+// four shuffles; x is staged in shared memory by cp.async, in chunks of up
+// to 4096 codes and 40 KB; each warp prefetches its next four blocks
+// (codes, scales, mins) while it multiplies the current ones. A block of 8 warps splits K
 // into ks slices, the fewest that give every SM a block; the slices meet
 // in shared memory and one thread adds them in slice order: no atomics,
 // the same bits on every launch.
@@ -61,12 +61,16 @@
 // rounding to bf16 (the RS form m64nBMk16 with x from shared memory, four
 // products a half-stage). A half's A registers are read while its products
 // run, so a group waits for them before it decodes the next half; the other
-// group's products fill the tensor cores meanwhile. Where the row split
-// (each group 64 of the block's 128 weight rows) would leave part of a wave
-// of SMs idle, the K split takes over: both groups own the block's 64 rows
-// and take alternate stages, and group 1's sums are added to group 0's in
-// shared memory, in that order. The D tile is transposed through shared
-// memory into rows of y.
+// group's products fill the tensor cores meanwhile. Where the row tiles
+// would leave SMs idle, K is split and the partial sums added in a fixed
+// order: at widths 16-64 across a cluster of 2-8 blocks, whose sums meet in
+// distributed shared memory; at width 128 first between the two groups of
+// a block that then owns 64 rows (group 1's sums added to group 0's in
+// shared memory), then across a cluster of such blocks. Without a split the
+// D tile is transposed through shared memory into rows of y. What bounds
+// the tiles: the consumers' decode (~3.5 operations a code on the CUDA
+// cores) beside the products of the other group, and at small N and large
+// M the re-reading of x by every row tile (PERF.md).
 #include <cooperative_groups.h>
 
 #include "sm90.cuh"
@@ -159,41 +163,10 @@ cudaError_t gemv_m1(const __nv_bfloat16* x, const int8_t* qs, const float* sc, c
   return cudaGetLastError();
 }
 
-// the K split across a cluster of blocks (1, 2, 4 or 8 of them, each with
-// its share of K, their partial sums met in distributed shared memory):
-// doubled while that cuts the waves of blocks on the SMs by a fifth, each
-// slice keeping at least `least` codes
-int cluster_split(int blocks, int K, int sms, int least) {
-  const auto waves = [&](int c) { return float((blocks * c + sms - 1) / sms) / c; };
-  int c = 1;
-  while (c < 8 && K / (2 * c) >= least && waves(2 * c) <= 0.8f * waves(c)) c *= 2;
-  return c;
-}
-
-// a kernel launched in clusters of `cluster` blocks along x
-template <typename... Params, typename... Args>
-cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, int smem, int cluster,
-                             cudaStream_t st, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
 // ---------------------------------------------------------------------------
 // M <= 8: the tensor-core GEMV
 
 constexpr uint32_t LOW7 = 0x007F007Fu, SIGN = 0x00800080u, HDR_128 = 0x43004300u;
-constexpr int GV_ROWS = GV_WARPS * 16;  // weight rows a block: 16 a warp
 // x is staged in chunks of at most 256 16-code blocks and 40 KB of shared
 // memory: with 66 KB a block, G's head (2000 blocks) ran 1.4x slower at M =
 // 8 than with 37 KB (measured)
@@ -405,6 +378,36 @@ cudaError_t gemv(const __nv_bfloat16* x, const int8_t* qs, const float* sc, cons
 constexpr int TN = 128, TK = 128;   // weight rows a block, codes a stage
 constexpr int T_THREADS = 2 * 128 + 32;  // two consumer warpgroups, one producer warp
 constexpr int SMEM_MAX = 232448;         // 227 KB a block
+
+// the K split across a cluster of blocks (1, 2, 4 or 8 of them, each with
+// its share of K, their partial sums met in distributed shared memory):
+// doubled while that cuts the waves of blocks on the SMs by a fifth, each
+// slice keeping at least `least` codes
+int cluster_split(int blocks, int K, int sms, int least) {
+  const auto waves = [&](int c) { return float((blocks * c + sms - 1) / sms) / c; };
+  int c = 1;
+  while (c < 8 && K / (2 * c) >= least && waves(2 * c) <= 0.8f * waves(c)) c *= 2;
+  return c;
+}
+
+// a kernel launched in clusters of `cluster` blocks along x
+template <typename... Params, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, int smem, int cluster,
+                             cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
 
 template <int BM>
 struct TileShape {

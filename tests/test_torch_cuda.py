@@ -9,7 +9,12 @@ Tolerance: max|got - want| / max|want| < 2e-2 (bf16 kernels against f32
 plain versions), taken per output row for attention (per batch row for
 decode, per query token for prefill) and the matmuls and MLP (per input
 row) so a row with a small output is not hidden behind a large one; the
-row write is exact. K2, K4 and K7 are also checked at head_dim 128 with
+row write is exact. K1 and K6 (4-bit and 8-bit dequant-matmul) are
+checked on every path: the CUDA-core GEMV (M = 1), the tensor-core GEMV
+(M = 2..8) and each wgmma tile width in both K splits, at the path's N
+and K, K % 128 != 0 and a ragged N; K6 with codes over all of -128..127,
+scale groups of 16 and 32, with and without mins; three launches give the
+same bits, and a layer of a stack is read in place. K2, K4 and K7 are also checked at head_dim 128 with
 r = 3 and 8, and K8 / K9 (grouped matmul) per routed row on a routing with
 an empty expert and a two-block expert, at tm = 8, 32 and 128. The tiny
 models of every GGUF kind the port loads run on the card and on the CPU,

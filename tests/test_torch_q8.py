@@ -11,6 +11,8 @@ Tolerances: exact equality where both sides decode GGUF bytes in f32;
 max|got - want| / max|want| < 2e-2 for the matmuls (the JAX kernels round
 each scale*q product and the activations to bf16).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,7 @@ from nfai_tpu.ops import qtensor as jqt
 from nfai_tpu.ops.qmatmul import _q8_matmul, _q8_matmul_layered
 from nfai_tpu_torch.gguf import GGMLType, dequantize, quantize
 from nfai_tpu_torch.ops import qtensor as tqt
-from nfai_tpu_torch.ops.qmatmul import linear, linear_layered, q8_matmul
+from nfai_tpu_torch.ops.qmatmul import linear, linear_layered, q8_check, q8_matmul
 
 TOL = 2e-2
 NEW_KINDS = [GGMLType.Q8_0, GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q2_K, GGMLType.Q3_K]
@@ -189,3 +191,49 @@ def test_mixed_stack_keeps_each_layer_in_its_kind():
         tqt.concat([q4, q6])
     fused = tqt.concat([q6, q6])  # same kind: fuses along N
     assert isinstance(fused, tqt.Q8Tensor) and fused.n == 2 * n
+
+
+def _q8_check_case(case):
+    """(x, w) for a q8_check case: a 16-byte aligned bf16 x [40, 256] and a
+    [100, 256] g16 Q8Tensor with mins (N a multiple of neither 64 nor 128),
+    then one thing K6 does or does not take."""
+    n, k = 100, 256
+    w = tqt.Q8Tensor(torch.zeros(n, k, dtype=torch.int8), torch.zeros(n, k // 16),
+                     torch.zeros(n, k // 16), k, n, 16)
+    x = torch.zeros(40, k, dtype=torch.bfloat16)
+    if case == "misaligned x":
+        x = torch.zeros(40 * k + 1, dtype=torch.bfloat16)[1:].view(40, k)
+    elif case == "misaligned codes":
+        w = dataclasses.replace(w, qs=torch.zeros(n * k + 1, dtype=torch.int8)[1:].view(n, k))
+    elif case == "misaligned scales":  # read one by one: taken
+        w = dataclasses.replace(w, scales=torch.zeros(n * k // 16 + 1)[1:].view(n, k // 16))
+    elif case == "f32 x":
+        x = x.float()
+    elif case == "K % 32":
+        w = tqt.Q8Tensor(torch.zeros(n, 48, dtype=torch.int8), torch.zeros(n, 3), None, 48, n, 16)
+        x = torch.zeros(40, 48, dtype=torch.bfloat16)
+    elif case == "group 64":
+        w = dataclasses.replace(w, scales=torch.zeros(n, k // 64), mins=None, group=64)
+    elif case == "bf16 scales":
+        w = dataclasses.replace(w, scales=w.scales.to(torch.bfloat16))
+    elif case == "a layer stack":
+        w = tqt.stack([w, w])
+    return x, w
+
+
+@pytest.mark.parametrize("case,error", [
+    ("ok", None), ("misaligned x", ValueError), ("misaligned codes", ValueError),
+    ("misaligned scales", None), ("f32 x", TypeError), ("K % 32", ValueError),
+    ("group 64", ValueError), ("bf16 scales", TypeError), ("a layer stack", ValueError),
+])
+def test_q8_check_takes_what_k6_takes(case, error):
+    """The rules K6's wrapper holds a CUDA launch to, checked on CPU
+    tensors: any M and N, K % 32 == 0, groups of 16 or 32, bf16 x, f32
+    scales and mins, 2-D, contiguous, x and codes 16-byte aligned;
+    everything else raises."""
+    x, w = _q8_check_case(case)
+    if error is None:
+        assert q8_check(x, w) == (40, 256)
+    else:
+        with pytest.raises(error):
+            q8_check(x, w)
