@@ -21,7 +21,7 @@
 // reach the operations bound from M ~ 256 on.
 //
 // M = 1: a GEMV on CUDA cores, one warp a row, each lane decoding whole
-// 16-code chunks (one 16-byte load) by the 2^23 magic number (a prmt and a
+// 32-code chunks (two 16-byte loads) by the 2^23 magic number (a prmt and a
 // subtract a code, no I2F), one f32 fma a code; K slices at small N.
 //
 // 2 <= M <= 8: a GEMV on tensor cores, mma.sync m16n8k16 with the weight as
@@ -99,7 +99,7 @@ q8_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const int8_t* __re
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rows = GV_WARPS / ks, slice = warp % ks;
   const int n = blockIdx.x * rows + warp / ks;
-  const int nc = K >> 4, per = (nc + ks - 1) / ks;  // 16-code chunks: a row's, a slice's
+  const int nc = K >> 5, per = (nc + ks - 1) / ks;  // 32-code chunks: a row's, a slice's
   const int lo = min(nc, slice * per), hi = min(nc, lo + per);
   const int ng = K >> gshift;
   float acc = 0.f;
@@ -109,21 +109,24 @@ q8_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const int8_t* __re
     const float* mrow = MINS ? mn + (size_t)n * ng : nullptr;
 #pragma unroll 2
     for (int c = lo + lane; c < hi; c += 32) {
-      const uint4 q = __ldcs(qrow + c);
-      const int gi = (c << 4) >> gshift;
-      const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)c * 16);
-      float xf[16];
-      bf16x8(__ldg(xr), xf);
-      bf16x8(__ldg(xr + 1), xf + 8);
-      const uint32_t w[4] = {q.x ^ FLIP, q.y ^ FLIP, q.z ^ FLIP, q.w ^ FLIP};
-      float p = 0.f, sx = 0.f;
+      const uint4 q2[2] = {__ldg(qrow + 2 * c), __ldg(qrow + 2 * c + 1)};  // 32 bytes in flight
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        p = fmaf(xf[i], i8f(w[i >> 2], i & 3), p);
-        if (MINS) sx += xf[i];
+      for (int h = 0; h < 2; ++h) {  // codes 16h .. 16h + 15 of the chunk
+        const int gi = (32 * c + 16 * h) >> gshift;
+        const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)c * 32 + 16 * h);
+        float xf[16];
+        bf16x8(__ldg(xr), xf);
+        bf16x8(__ldg(xr + 1), xf + 8);
+        const uint32_t w[4] = {q2[h].x ^ FLIP, q2[h].y ^ FLIP, q2[h].z ^ FLIP, q2[h].w ^ FLIP};
+        float p = 0.f, sx = 0.f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          p = fmaf(xf[i], i8f(w[i >> 2], i & 3), p);
+          if (MINS) sx += xf[i];
+        }
+        acc = fmaf(__ldg(srow + gi), p, acc);
+        if (MINS) acc = fmaf(-__ldg(mrow + gi), sx, acc);
       }
-      acc = fmaf(__ldg(srow + gi), p, acc);
-      if (MINS) acc = fmaf(-__ldg(mrow + gi), sx, acc);
     }
   }
 #pragma unroll
@@ -144,7 +147,7 @@ q8_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const int8_t* __re
 // block, each slice keeping a chunk a lane
 int m1_ks(int K, int N, int sms) {
   int ks = 1;
-  while (ks < GV_WARPS && (N + GV_WARPS / ks - 1) / (GV_WARPS / ks) < sms && K / (32 * ks) >= 32)
+  while (ks < GV_WARPS && (N + GV_WARPS / ks - 1) / (GV_WARPS / ks) < sms && K / (64 * ks) >= 32)
     ks *= 2;
   return ks;
 }
@@ -168,8 +171,8 @@ cudaError_t gemv_m1(const __nv_bfloat16* x, const int8_t* qs, const float* sc, c
 
 constexpr uint32_t LOW7 = 0x007F007Fu, SIGN = 0x00800080u, HDR_128 = 0x43004300u;
 // x is staged in chunks of at most 256 16-code blocks and 40 KB of shared
-// memory: with 66 KB a block, G's head (2000 blocks) ran 1.4x slower at M =
-// 8 than with 37 KB (measured)
+// memory: with 66 KB a block, G's ffn_down (144 blocks) ran 1.2x slower at
+// M = 8 than with 40 KB (measured)
 constexpr int GV_CB = 256, GV_SMEM = 40 * 1024;
 
 // the int8 codes at bits 0-7 and 16-23 of w → their bf16x2, exactly
