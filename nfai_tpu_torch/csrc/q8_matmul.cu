@@ -72,6 +72,7 @@
 // cores) beside the products of the other group, and at small N and large
 // M the re-reading of x by every row tile (PERF.md).
 #include <cooperative_groups.h>
+#include <stdlib.h>
 
 #include "sm90.cuh"
 
@@ -90,7 +91,7 @@ constexpr uint32_t FLIP = 0x80808080u;  // the sign bit of each byte
 // ---------------------------------------------------------------------------
 // M = 1: the CUDA-core GEMV
 
-template <bool MINS>
+template <bool MINS, bool I2F>
 __global__ void __launch_bounds__(GV_WARPS * 32)
 q8_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const int8_t* __restrict__ qs,
                   const float* __restrict__ sc, const float* __restrict__ mn,
@@ -107,7 +108,6 @@ q8_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const int8_t* __re
     const uint4* qrow = reinterpret_cast<const uint4*>(qs + (size_t)n * K);
     const float* srow = sc + (size_t)n * ng;
     const float* mrow = MINS ? mn + (size_t)n * ng : nullptr;
-#pragma unroll 2
     for (int c = lo + lane; c < hi; c += 32) {
       const uint4 q2[2] = {__ldg(qrow + 2 * c), __ldg(qrow + 2 * c + 1)};  // 32 bytes in flight
 #pragma unroll
@@ -117,15 +117,25 @@ q8_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const int8_t* __re
         float xf[16];
         bf16x8(__ldg(xr), xf);
         bf16x8(__ldg(xr + 1), xf + 8);
-        const uint32_t w[4] = {q2[h].x ^ FLIP, q2[h].y ^ FLIP, q2[h].z ^ FLIP, q2[h].w ^ FLIP};
-        float p = 0.f, sx = 0.f;
+        if (I2F) {
+          const float s = __ldg(srow + gi), mi = MINS ? -__ldg(mrow + gi) : 0.f;
+          const uint32_t w[4] = {q2[h].x, q2[h].y, q2[h].z, q2[h].w};
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          p = fmaf(xf[i], i8f(w[i >> 2], i & 3), p);
-          if (MINS) sx += xf[i];
+          for (int i = 0; i < 16; ++i) {
+            const float v = static_cast<float>(static_cast<int8_t>((w[i >> 2] >> (8 * (i & 3))) & 0xFFu));
+            acc = fmaf(xf[i], fmaf(s, v, mi), acc);
+          }
+        } else {
+          const uint32_t w[4] = {q2[h].x ^ FLIP, q2[h].y ^ FLIP, q2[h].z ^ FLIP, q2[h].w ^ FLIP};
+          float p = 0.f, sx = 0.f;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            p = fmaf(xf[i], i8f(w[i >> 2], i & 3), p);
+            if (MINS) sx += xf[i];
+          }
+          acc = fmaf(__ldg(srow + gi), p, acc);
+          if (MINS) acc = fmaf(-__ldg(mrow + gi), sx, acc);
         }
-        acc = fmaf(__ldg(srow + gi), p, acc);
-        if (MINS) acc = fmaf(-__ldg(mrow + gi), sx, acc);
       }
     }
   }
@@ -159,10 +169,17 @@ cudaError_t gemv_m1(const __nv_bfloat16* x, const int8_t* qs, const float* sc, c
   if (err != cudaSuccess) return err;
   const int ks = m1_ks(K, N, sms), rows = GV_WARPS / ks;
   const dim3 grid((N + rows - 1) / rows), block(GV_WARPS * 32);
+  if (getenv("K6_M1_I2F")) {
+    if (mn)
+      q8_gemv_m1_kernel<true, true><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
+    else
+      q8_gemv_m1_kernel<false, true><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
+    return cudaGetLastError();
+  }
   if (mn)
-    q8_gemv_m1_kernel<true><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
+    q8_gemv_m1_kernel<true, false><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
   else
-    q8_gemv_m1_kernel<false><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
+    q8_gemv_m1_kernel<false, false><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
   return cudaGetLastError();
 }
 
