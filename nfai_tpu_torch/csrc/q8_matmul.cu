@@ -21,8 +21,9 @@
 // reach the operations bound from M ~ 256 on.
 //
 // M = 1: a GEMV on CUDA cores, one warp a row, each lane decoding whole
-// 32-code chunks (two 16-byte loads) by the 2^23 magic number (a prmt and a
-// subtract a code, no I2F), one f32 fma a code; K slices at small N.
+// 32-code chunks (two 16-byte loads in flight) by I2F and an f32 fma by the
+// scale (the 2^23 magic number measured no faster), K slices at small N;
+// without slices a warp writes its row and leaves, no block barrier.
 //
 // 2 <= M <= 8: a GEMV on tensor cores, mma.sync m16n8k16 with the weight as
 // A (16 rows a warp) and x as B (its 8 columns are the M rows). Lane (g, t)
@@ -72,7 +73,6 @@
 // cores) beside the products of the other group, and at small N and large
 // M the re-reading of x by every row tile (PERF.md).
 #include <cooperative_groups.h>
-#include <stdlib.h>
 
 #include "sm90.cuh"
 
@@ -80,18 +80,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// byte i of w, sign-flipped (u = q + 128), → q as f32, exactly: 0x4B0000uu
-// is 2^23 + u
-__device__ __forceinline__ float i8f(uint32_t w, int i) {
-  return __uint_as_float(prmt(w, 0x4B000000u, 0x7440u | i)) - 8388736.0f;
-}
-
 constexpr uint32_t FLIP = 0x80808080u;  // the sign bit of each byte
 
 // ---------------------------------------------------------------------------
 // M = 1: the CUDA-core GEMV
 
-template <bool MINS, bool I2F>
+template <bool MINS>
 __global__ void __launch_bounds__(GV_WARPS * 32)
 q8_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const int8_t* __restrict__ qs,
                   const float* __restrict__ sc, const float* __restrict__ mn,
@@ -117,30 +111,22 @@ q8_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const int8_t* __re
         float xf[16];
         bf16x8(__ldg(xr), xf);
         bf16x8(__ldg(xr + 1), xf + 8);
-        if (I2F) {
-          const float s = __ldg(srow + gi), mi = MINS ? -__ldg(mrow + gi) : 0.f;
-          const uint32_t w[4] = {q2[h].x, q2[h].y, q2[h].z, q2[h].w};
+        const float s = __ldg(srow + gi), mi = MINS ? -__ldg(mrow + gi) : 0.f;
+        const uint32_t w[4] = {q2[h].x, q2[h].y, q2[h].z, q2[h].w};
 #pragma unroll
-          for (int i = 0; i < 16; ++i) {
-            const float v = static_cast<float>(static_cast<int8_t>((w[i >> 2] >> (8 * (i & 3))) & 0xFFu));
-            acc = fmaf(xf[i], fmaf(s, v, mi), acc);
-          }
-        } else {
-          const uint32_t w[4] = {q2[h].x ^ FLIP, q2[h].y ^ FLIP, q2[h].z ^ FLIP, q2[h].w ^ FLIP};
-          float p = 0.f, sx = 0.f;
-#pragma unroll
-          for (int i = 0; i < 16; ++i) {
-            p = fmaf(xf[i], i8f(w[i >> 2], i & 3), p);
-            if (MINS) sx += xf[i];
-          }
-          acc = fmaf(__ldg(srow + gi), p, acc);
-          if (MINS) acc = fmaf(-__ldg(mrow + gi), sx, acc);
+        for (int i = 0; i < 16; ++i) {
+          const float v = static_cast<float>(static_cast<int8_t>((w[i >> 2] >> (8 * (i & 3))) & 0xFFu));
+          acc = fmaf(xf[i], fmaf(s, v, mi), acc);
         }
       }
     }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (ks == 1) {  // no barrier: a warp that is done leaves
+    if (lane == 0 && n < N) y[n] = __float2bfloat16(acc);
+    return;
+  }
   if (lane == 0) part[warp] = acc;
   __syncthreads();
   if (threadIdx.x < rows) {
@@ -169,17 +155,10 @@ cudaError_t gemv_m1(const __nv_bfloat16* x, const int8_t* qs, const float* sc, c
   if (err != cudaSuccess) return err;
   const int ks = m1_ks(K, N, sms), rows = GV_WARPS / ks;
   const dim3 grid((N + rows - 1) / rows), block(GV_WARPS * 32);
-  if (getenv("K6_M1_I2F")) {
-    if (mn)
-      q8_gemv_m1_kernel<true, true><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
-    else
-      q8_gemv_m1_kernel<false, true><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
-    return cudaGetLastError();
-  }
   if (mn)
-    q8_gemv_m1_kernel<true, false><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
+    q8_gemv_m1_kernel<true><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
   else
-    q8_gemv_m1_kernel<false, false><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
+    q8_gemv_m1_kernel<false><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
   return cudaGetLastError();
 }
 
