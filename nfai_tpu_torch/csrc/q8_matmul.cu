@@ -89,12 +89,12 @@ template <bool MINS>
 __global__ void __launch_bounds__(GV_WARPS * 32)
 q8_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const int8_t* __restrict__ qs,
                   const float* __restrict__ sc, const float* __restrict__ mn,
-                  __nv_bfloat16* __restrict__ y, int N, int gshift, int ks) {
+                  __nv_bfloat16* __restrict__ y, int N, int gshift, int lks) {
   __shared__ float part[GV_WARPS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rows = GV_WARPS / ks, slice = warp % ks;
-  const int n = blockIdx.x * rows + warp / ks;
-  const int nc = K >> 5, per = (nc + ks - 1) / ks;  // 32-code chunks: a row's, a slice's
+  const int ks = 1 << lks, rows = GV_WARPS >> lks, slice = warp & (ks - 1);  // ks slices: shifts
+  const int n = blockIdx.x * rows + (warp >> lks);
+  const int nc = K >> 5, per = (nc + ks - 1) >> lks;  // 32-code chunks: a row's, a slice's
   const int lo = min(nc, slice * per), hi = min(nc, lo + per);
   const int ng = K >> gshift;
   float acc = 0.f;
@@ -139,13 +139,13 @@ q8_gemv_m1_kernel(const __nv_bfloat16* __restrict__ x, int K, const int8_t* __re
   }
 }
 
-// K slices a block at M = 1 (a warp a row): the fewest that give every SM a
-// block, each slice keeping a chunk a lane
-int m1_ks(int K, int N, int sms) {
-  int ks = 1;
-  while (ks < GV_WARPS && (N + GV_WARPS / ks - 1) / (GV_WARPS / ks) < sms && K / (64 * ks) >= 32)
-    ks *= 2;
-  return ks;
+// K slices a block at M = 1 (a warp a row), as a power of two 2^lks: the
+// fewest that give every SM a block, each slice keeping a chunk a lane
+int m1_lks(int K, int N, int sms) {
+  int lks = 0;
+  while (lks < 3 && (N + (GV_WARPS >> lks) - 1) / (GV_WARPS >> lks) < sms && K / (64 << lks) >= 32)
+    ++lks;
+  return lks;
 }
 
 cudaError_t gemv_m1(const __nv_bfloat16* x, const int8_t* qs, const float* sc, const float* mn,
@@ -153,12 +153,12 @@ cudaError_t gemv_m1(const __nv_bfloat16* x, const int8_t* qs, const float* sc, c
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  const int ks = m1_ks(K, N, sms), rows = GV_WARPS / ks;
+  const int lks = m1_lks(K, N, sms), rows = GV_WARPS >> lks;
   const dim3 grid((N + rows - 1) / rows), block(GV_WARPS * 32);
   if (mn)
-    q8_gemv_m1_kernel<true><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
+    q8_gemv_m1_kernel<true><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, lks);
   else
-    q8_gemv_m1_kernel<false><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, ks);
+    q8_gemv_m1_kernel<false><<<grid, block, 0, st>>>(x, K, qs, sc, mn, y, N, gshift, lks);
   return cudaGetLastError();
 }
 
