@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only build,kernels   # a quick kernel check
+    python3 chip_smoke.py --only build,kernels --kernels k12   # one matmul kernel's rows
+    python3 chip_smoke.py --only build,serve,batch,profile --models E   # one model's path
 
 Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
@@ -26,9 +28,10 @@ Phases (each failure propagates, the exit code is then non-zero):
            4000 keys window 512 beside window 0; K11 (dense matmul) at model
            D's projections and Gemma-3-1B's K = 1152, rows 1, 8, 256 and
            1024, three launches with the same bits; K12 (q8v3 matmul) at
-           model E's projections and head, rows 1, 8, 256 (and 1024 below
-           the head), and in the g16 / mins kinds, three launches with the
-           same bits, beside K6 on the same int8 codes; K4 in the
+           model E's projections and head, rows 1, 8, 16, 32, 64, 256 (and
+           1024 below the head), model B's Q6_K wv and w_down at rows 16,
+           256 and 1024, and wo in the g16 / mins kinds, three launches with
+           the same bits, beside K6 on the same int8 codes; K4 in the
            "headmajor" (K4-hm) and "merged" layouts, bf16 and int8, at model
            E's heads, A's (D = 64: "merged" must be refused) and G's
            (softcap, window), each against its plain version and against
@@ -48,8 +51,11 @@ Phases (each failure propagates, the exit code is then non-zero):
            steps under the profiler (device ms/step, K2 ms per launch, each
            beside its byte bound)
   profile  torch.profiler over 8 more decode steps of that batch: device
-           busy share of the wall time and device time by kernel (K1's
-           and K6's ms a step tallied by their functions' names)
+           busy share of the wall time and device time by kernel (K1's,
+           K6's and K12's ms a step tallied by their functions' names); for
+           model E also over one more 8x128 prefill chunk, whose K12 device
+           time is tallied by path (GEMV for the head, wgmma tiles for the
+           layers: both must run)
   server   continuous batching on model A's engine: paged vs dense
            forwards on the card (a 300-token prefill, 8 teacher-forced
            decode steps at batch 4), a timed and profiled batch-8 paged
@@ -136,12 +142,13 @@ route must not, the per-step counts must match the route, and model G's
 attention launches must include the softcapped local and global variants.
 The line before the last is {"kernels": [...]} (launches summed over the
 paths, the attention kernels' also by variant),
-the last {"ok": true, "device": {...}}; a run of a subset of the phases
-ends with "ok": false, since the main paths' launch checks did not run in
-full. Kernel errors are taken per output row (per batch row for decode
-attention, per query token for prefill attention, per input row for the
-matmuls and the MLP, per routed row for the grouped matmuls), so a row
-whose output is small is held to the same tolerance as the largest one.
+the last {"ok": true, "device": {...}}; a run of a subset of the phases,
+kernels (--kernels) or models (--models) ends with "ok": false, since the
+main paths' launch checks did not run in full. Kernel errors are taken per
+output row (per batch row for decode attention, per query token for
+prefill attention, per input row for the matmuls and the MLP, per routed
+row for the grouped matmuls), so a row whose output is small is held to
+the same tolerance as the largest one.
 Needs the repo checkout (nfai_tpu_torch) and a CUDA device; imports
 nothing of JAX.
 """
@@ -181,8 +188,11 @@ DENSE_KINDS = ("f16", "bf16")  # every matmul weight dense: K11, no K1/K5/K6
 # parity copies that run again with every weight dequantized at load
 PARITY_PARAM_DTYPE = {"q4_k_m": "bfloat16"}
 NEAR_TIE = 0.01  # router-logit gap below which card and CPU may pick different experts
-# the profile's device ms a step of K1 and K6, tallied by their CUDA functions' names
-KERNEL_FUNCTIONS = {"q4_matmul": ("q4_gemv", "q4_wgmma"), "q8_matmul": ("q8_gemv", "q8_wgmma")}
+# the profile's device ms a step of K1, K6 and K12, tallied by their CUDA functions' names
+KERNEL_FUNCTIONS = {"q4_matmul": ("q4_gemv", "q4_wgmma"), "q8_matmul": ("q8_gemv", "q8_wgmma"),
+                    "q8v3_matmul": ("q8v3_gemv", "q8v3_wgmma")}
+# device functions the profiles tally one by one (a kernel's paths)
+PATH_FUNCTIONS = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 
 
 def log(msg: str) -> None:
@@ -264,7 +274,7 @@ def phase_build(torch, kernels_mod) -> dict:
     logs = kernels_mod.build_all(verbose=True)
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("registers", "spill", "smem", "warning")):
                 log(f"  [{name}] {line.strip()}")
     log(f"  built {sorted(kernels_mod.KERNELS)} in {time.perf_counter() - t0:.1f}s")
     return {"smi": smi}
@@ -292,18 +302,12 @@ def _q8_weight(torch, n, k, group, qmax, gen, with_mins=False):
     return Q8Tensor(qs, sc, mn, k, n, group)
 
 
-def phase_kernels(torch, timer) -> dict:
-    import torch.nn.functional as nnf
-
-    from nfai_tpu_torch.ops import fused_decode as fd
-    from nfai_tpu_torch.ops import prefill_attention as pa
+def _kernels_k1(torch, timer, gen) -> dict:
     from nfai_tpu_torch.ops import qmatmul as qm
     from nfai_tpu_torch.ops.qtensor import dequant
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
     results = {}
-
     # K1 at every (K, N) of the path (wk/wv: model B's split Q4_K layers),
     # decode rows 1 (the CUDA-core GEMV) and 8 (the tensor-core GEMV),
     # prefill rows 16, 24, 32 and 64 (batch-1 buckets: wgmma tiles 16, 32
@@ -346,6 +350,20 @@ def phase_kernels(torch, timer) -> dict:
         also_replaces=["nfai_tpu/ops/qmatmul.py:735", "nfai_tpu/ops/qmatmul.py:282"],
         headline=next(c for c in cases if c["shape"] == "lm_head M=8"), cases=cases,
     )
+    return results
+
+
+def phase_kernels(torch, timer, matmuls=None) -> dict:
+    import torch.nn.functional as nnf
+
+    from nfai_tpu_torch.ops import fused_decode as fd
+    from nfai_tpu_torch.ops import prefill_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    if matmuls is not None:  # only these dequant-matmul kernels (a quick check)
+        return {k: v for name in matmuls for k, v in MATMUL_PHASES[name](torch, timer, gen).items()}
+    results = _kernels_k1(torch, timer, gen)
 
     # K2 / K3 at the decode shapes: the 1B's L=16, Hq=32, Hkv=8, D=64,
     # model C's L=8, Hq=32, Hkv=4, D=128 (r = 8; K3's row is 512 wide in
@@ -459,7 +477,8 @@ def phase_kernels(torch, timer) -> dict:
         replaces="nfai_tpu/ops/prefill_attention.py:267", also_replaces=[],
         headline=cases4[2], cases=cases4,
     )
-    results.update(_kernels_k5_k6(torch, timer, gen))
+    results.update(_kernels_k5(torch, timer, gen))
+    results.update(_kernels_k6(torch, timer, gen))
     results.update(_kernels_k7(torch, timer, gen))
     results.update(_kernels_k8_k9(torch, timer, gen))
     results.update(_kernels_k11(torch, timer, gen))
@@ -474,12 +493,11 @@ def phase_kernels(torch, timer) -> dict:
     return results
 
 
-def _kernels_k5_k6(torch, timer, gen) -> dict:
+def _kernels_k5(torch, timer, gen) -> dict:
     import torch.nn.functional as nnf
 
     from nfai_tpu_torch.ops import fused_mlp as fm
     from nfai_tpu_torch.ops import qmatmul as qm
-    from nfai_tpu_torch.ops.qtensor import dequant
 
     bf = torch.bfloat16
     results = {}
@@ -518,7 +536,15 @@ def _kernels_k5_k6(torch, timer, gen) -> dict:
         replaces="nfai_tpu/ops/fused_mlp.py:201", also_replaces=[],
         headline=cases[1], cases=cases,
     )
+    return results
 
+
+def _kernels_k6(torch, timer, gen) -> dict:
+    from nfai_tpu_torch.ops import qmatmul as qm
+    from nfai_tpu_torch.ops.qtensor import dequant
+
+    bf = torch.bfloat16
+    results = {}
     # K6 at every (K, N) of the path: the tied Q6_K heads of models B (and
     # the 1B copies), C and G, Q8_0 wqkv and down, model B's Q6_K wv and
     # w_down, model G's Q6_K ffn_down (K = 9216), and a g32 layer with mins
@@ -1232,9 +1258,13 @@ def _kernels_k11(torch, timer, gen) -> dict:
 def _kernels_k12(torch, timer, gen) -> dict:
     """K12 (q8v3 matmul) at model E's projections (Llama-3.1-8B widths):
     wqkv 4096 x 6144, wo 4096 x 4096, gate_up 4096 x 28672, down 14336 x
-    4096 at rows 1, 8, 256 and 1024, the untied head 4096 x 128256 at rows 1,
-    8 and 256 (Q8_0 codes, groups of 32, no mins), and wo at rows 8 and 256
-    in the other kinds the container takes (g16 without mins, as Q6_K/Q3_K;
+    4096 at rows 1 and 8 (the GEMV), 16, 32 and 64 (batch-1 buckets: wgmma
+    tiles 16, 32 and 64 wide), 256 and 1024 (the batch prefill's 8x128
+    chunk), the untied head 4096 x 128256 at rows 1 to 256 (Q8_0 codes,
+    groups of 32, no mins); model B's Q6_K layers under the switch, wv 2048
+    x 512 and w_down 8192 x 2048 (g16, codes in -32..31), at rows 16, 256
+    and 1024 (the cluster K split at small N); and wo at rows 8 and 256 in
+    the other kinds the container takes (g16 without mins, as Q6_K/Q3_K;
     g32 and g16 with mins, as Q5_K and Q2_K). Per input row against the
     plain version; three launches with the same bits. In the same call: K6
     on the same int8 codes (the container the switch replaces) and cuBLAS on
@@ -1245,12 +1275,13 @@ def _kernels_k12(torch, timer, gen) -> dict:
     bf = torch.bfloat16
     shapes = {"wqkv": (4096, 6144), "wo": (4096, 4096), "gate_up": (4096, 28672),
               "down": (14336, 4096), "lm_head": (4096, 128256)}
+    b_shapes = {"B Q6_K wv": (2048, 512), "B Q6_K w_down": (8192, 2048)}
     kinds = {"g16": (16, False), "g32 mins": (32, True), "g16 mins": (16, True)}
     cases = []
 
-    def run(label, k, n, group, with_mins, rows):
-        qs = torch.randint(-128, 128, (n, k), dtype=torch.int8, device="cuda", generator=gen)
-        sc = torch.rand(n, k // group, device="cuda", generator=gen) * 2e-3 / 16 + 1e-5
+    def run(label, k, n, group, with_mins, rows, qmax=128):
+        qs = torch.randint(-qmax, qmax, (n, k), dtype=torch.int8, device="cuda", generator=gen)
+        sc = torch.rand(n, k // group, device="cuda", generator=gen) * 2e-3 / qmax * 8 + 1e-5
         mn = torch.rand(n, k // group, device="cuda", generator=gen) * 1e-2 if with_mins else None
         w8 = Q8Tensor(qs, sc, mn, k, n, group)
         w = to_q8v3_stacked(w8)
@@ -1272,11 +1303,14 @@ def _kernels_k12(torch, timer, gen) -> dict:
             cases.append(dict(shape=f"{label} M={m}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=b, bound_by=by, library_ms=lib_ms, k6_same_codes_ms=k6_ms))
             log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, K6 on the same "
-                f"codes {k6_ms:.4f}, cuBLAS on dequantized bf16 {lib_ms:.4f})")
+                f"codes {k6_ms:.4f}, cuBLAS on dequantized bf16 {lib_ms:.4f}; "
+                f"{ms / lib_ms:.2f}x cuBLAS)")
         del qs, w8, w, wd
 
     for label, (k, n) in shapes.items():
-        run(label, k, n, 32, False, (1, 8, 256) if label == "lm_head" else (1, 8, 256, 1024))
+        run(label, k, n, 32, False, (1, 8, 16, 32, 64, 256) + (() if label == "lm_head" else (1024,)))
+    for label, (k, n) in b_shapes.items():
+        run(label, k, n, 16, False, (16, 256, 1024), qmax=32)
     for label, (group, with_mins) in kinds.items():
         run(f"wo {label}", 4096, 4096, group, with_mins, (8, 256))
     return {"q8v3_matmul": dict(
@@ -1284,6 +1318,10 @@ def _kernels_k12(torch, timer, gen) -> dict:
         replaces="nfai_tpu/ops/qmatmul.py:881", also_replaces=[],
         headline=next(c for c in cases if c["shape"] == "gate_up M=8"), cases=cases,
     )}
+
+
+# the dequant-matmul kernels' phases, by the name `--kernels` takes
+MATMUL_PHASES = {"k1": _kernels_k1, "k6": _kernels_k6, "k12": _kernels_k12}
 
 
 # (label, Hq, Hkv, D, B, T, S, offset, softcap, window): model E's heads (32 / 8 of
@@ -1570,13 +1608,14 @@ def phase_long_context(torch, engine) -> dict:
 
 
 def _kernel_table(prof) -> dict[str, tuple[float, int]]:
-    """Device kernels of a profile (ops would double count): name → (device
-    ms, launches)."""
+    """Device kernels of a profile (ops would double count; a scheduled
+    profile's step annotation spans the step on the device too): name →
+    (device ms, launches)."""
     from torch.autograd import DeviceType
 
     table: dict[str, tuple[float, int]] = {}
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("ProfilerStep"):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -1673,6 +1712,58 @@ def phase_profile(torch, engine, state, tables=None) -> dict:
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     return out
+
+
+def phase_profile_prefill(torch, engine, expect: dict[str, int]) -> dict:
+    """torch.profiler over one more prefill chunk of the batch phase's shape
+    (8 x 128, M = 1024 rows for every projection) on a fresh cache: host
+    wall (synchronised), device busy ms, and the device ms of each path of
+    the dequant-matmul kernels, tallied by function name (K12: the GEMV for
+    the head's 8 rows, the wgmma tiles for the layers'). `expect` gives the
+    launches of a chunk by function name. The profiler loses the records of
+    the first kernels after it starts (seen on the card: 1 to 12 of the 32
+    tile launches), so a first chunk runs as the profiler's warm-up step and
+    the second is recorded; a profile that still holds other counts is
+    taken again, at most three times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from nfai_tpu_torch.models import prefill_step
+
+    b, t = 8, 128
+    cfg = engine.model_cfg
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 256, (b, t), device="cuda", generator=gen)
+    positions = torch.arange(t, device="cuda")[None].expand(b, t).contiguous()
+    last = torch.full((b,), t - 1, device="cuda")
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up chunk, then the recorded one
+                cache = engine.new_cache(b)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prefill_step(engine.params, cfg, tokens, positions, last, cache)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        table = _kernel_table(prof)
+        count = {f: sum(n for k, (_, n) in table.items() if f in k) for f in expect}
+        if count == expect:
+            break
+        log(f"  profiled prefill 8x128: launches {count}, not {expect}: the profile lost records, again")
+    else:
+        raise AssertionError(f"three prefill profiles held launches {count}, not {expect}")
+    busy_ms = sum(ms for ms, _ in table.values())
+    by_function = {f: sum(ms for k, (ms, _) in table.items() if f in k) for f in PATH_FUNCTIONS}
+    top = sorted(table.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"  profiled prefill 8x128: wall {wall_ms:.2f} ms (under the profiler), device busy "
+        f"{busy_ms:.2f} ms; device ms by function "
+        + ", ".join(f"{f} {ms:.4f}" for f, ms in by_function.items() if ms > 0))
+    for k, (ms, n) in top:
+        log(f"    {ms:8.4f} ms  x{n:<4d} {k[:90]}")
+    if busy_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return dict(wall_ms=wall_ms, device_ms=busy_ms, device_ms_by_function=by_function)
 
 
 def phase_parity(torch, path2, kind, kv_dtypes=("auto",), param_dtype="auto", q8v3=False) -> dict:
@@ -2607,6 +2698,14 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
         if "profile" in only:
             t0 = time.perf_counter()
             out["profile"] = phase_profile(torch, engine, state)
+            if label == "E":  # every projection of a prefill chunk through K12's tiles, the head its GEMV
+                n_layers = engine.model_cfg.n_layers
+                prof = out["prefill_profile"] = phase_profile_prefill(
+                    torch, engine, {"q8v3_wgmma": 4 * n_layers, "q8v3_gemv": 1})
+                ms = prof["device_ms_by_function"]
+                log(f"  model E prefill 8x128: {out['batch']['prefill_ms']:.1f} ms (host clock, "
+                    f"synchronised, batch phase); K12's device share {ms['q8v3_wgmma'] + ms['q8v3_gemv']:.2f} "
+                    f"of {prof['device_ms']:.2f} ms (tiles {ms['q8v3_wgmma']:.2f}, GEMV {ms['q8v3_gemv']:.4f})")
             phase_s[f"profile {label}"] = time.perf_counter() - t0
         del state
     launches = _check_route(kernels_mod, label, f"model {label}")
@@ -2681,10 +2780,24 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
+    ap.add_argument("--kernels", default=None,
+                    help=f"kernels phase: only these dequant-matmul kernels, of {sorted(MATMUL_PHASES)}")
+    ap.add_argument("--models", default=None,
+                    help=f"serve/batch/profile/server: only these models, of {sorted(MODELS)}")
     args = ap.parse_args(argv)
     only = [p for p in args.only.split(",") if p]
     if bad := set(only) - set(PHASES):
         ap.error(f"unknown phases {sorted(bad)}")
+    matmuls = None if args.kernels is None else [k for k in args.kernels.split(",") if k]
+    if matmuls is not None and (bad := set(matmuls) - set(MATMUL_PHASES)):
+        ap.error(f"unknown kernels {sorted(bad)}")
+    models = MODELS
+    if args.models is not None:
+        names = [m for m in args.models.split(",") if m]
+        if bad := set(names) - set(MODELS):
+            ap.error(f"unknown models {sorted(bad)}")
+        models = {m: MODELS[m] for m in names}
+    whole = set(only) == set(PHASES) and matmuls is None and models is MODELS
 
     import torch
 
@@ -2710,12 +2823,12 @@ def main(argv=None) -> int:
         kern = {}
         if "kernels" in only:
             t0 = time.perf_counter()
-            kern = phase_kernels(torch, timer)
+            kern = phase_kernels(torch, timer, matmuls)
             phase_s["kernels"] = time.perf_counter() - t0
         launches = None
         if "serve" in only or "batch" in only:
             by_path = {}
-            for label, kind in MODELS.items():
+            for label, kind in models.items():
                 by_path.update(main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s))
             launches = {name: sum(m[name] for m in by_path.values()) for name in kernels_mod.KERNELS}
             summary["launches_by_path"] = by_path
@@ -2780,7 +2893,7 @@ def main(argv=None) -> int:
             log(json.dumps({"kernels": rows}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(json.dumps({"ok": set(only) == set(PHASES), "device": {
+    print(json.dumps({"ok": whole, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0

@@ -374,39 +374,9 @@ cudaError_t gemv(const __nv_bfloat16* x, const int8_t* qs, const float* sc, cons
 // ---------------------------------------------------------------------------
 // M > 8: wgmma tiles, y^T = W x^T
 
-constexpr int TN = 128, TK = 128;   // weight rows a block, codes a stage
-constexpr int T_THREADS = 2 * 128 + 32;  // two consumer warpgroups, one producer warp
-constexpr int SMEM_MAX = 232448;         // 227 KB a block
-
-// the K split across a cluster of blocks (1, 2, 4 or 8 of them, each with
-// its share of K, their partial sums met in distributed shared memory):
-// doubled while that cuts the waves of blocks on the SMs by a fifth, each
-// slice keeping at least `least` codes
-int cluster_split(int blocks, int K, int sms, int least) {
-  const auto waves = [&](int c) { return float((blocks * c + sms - 1) / sms) / c; };
-  int c = 1;
-  while (c < 8 && K / (2 * c) >= least && waves(2 * c) <= 0.8f * waves(c)) c *= 2;
-  return c;
-}
-
-// a kernel launched in clusters of `cluster` blocks along x
-template <typename... Params, typename... Args>
-cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, int smem, int cluster,
-                             cudaStream_t st, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
+constexpr int TN = T8_ROWS, TK = 128;  // weight rows a block, codes a stage
+constexpr int T_THREADS = T8_THREADS;  // two consumer warpgroups, one producer warp
+constexpr int SMEM_MAX = 232448;       // 227 KB a block
 
 template <int BM>
 struct TileShape {
@@ -417,8 +387,7 @@ struct TileShape {
   static constexpr int STAGE = M_OFF + TN * 32;   // a multiple of 1024
   static constexpr int STAGES = (SMEM_MAX - 2048) / STAGE < 6 ? (SMEM_MAX - 2048) / STAGE : 6;
   static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
-  static constexpr int OUT_PITCH = TN + 8;            // bf16 a row of the y tile, then
-};                                                    // the K split's sums
+};
 
 // byte i of w (sign-flipped, u = q + 128) as the f32 1 + u 2^-15: bytes
 // (0x00, u, 0x80, 0x3F)
@@ -555,105 +524,7 @@ q8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
     }
     fence_regs(acc);
   }
-  // D fragment: acc[4i + e] = row r0 (+8 for e >= 2), column m = 8i + 2t (+1 for odd e)
-  if constexpr (!CL) {  // through shared memory into rows of y
-    __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(tsm);  // [BM][OUT_PITCH]
-    if (warp < 8) {
-      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both groups are done with the stages
-      if constexpr (KS) {  // group 1's sums, in its fragment order, onto group 0's
-        float* part = reinterpret_cast<float*>(tsm + BM * S::OUT_PITCH * 2);
-        float* mine = part + (warp & 3) * (BM / 2) * 32 + lane;
-        if (wg == 1) {
-#pragma unroll
-          for (int i = 0; i < BM / 2; ++i) mine[i * 32] = acc[i];
-        }
-        asm volatile("bar.sync 1, 256;\n" ::: "memory");
-        if (wg == 0) {
-#pragma unroll
-          for (int i = 0; i < BM / 2; ++i) acc[i] += mine[i * 32];
-        }
-      }
-      if (!KS || wg == 0) {
-#pragma unroll
-        for (int i = 0; i < BM / 8; ++i) {
-          const int m = 8 * i + 2 * t;
-          out[m * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i]);
-          out[(m + 1) * S::OUT_PITCH + r0] = __float2bfloat16(acc[4 * i + 1]);
-          out[m * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 2]);
-          out[(m + 1) * S::OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 3]);
-        }
-      }
-      asm volatile("bar.sync 1, 256;\n" ::: "memory");
-      const bool vec = (N & 7) == 0 && n0 + RB <= N;
-      for (int e = tid; e < BM * (RB / 8); e += 256) {  // 16 bytes (8 columns) a thread
-        const int m = e / (RB / 8), c = 8 * (e % (RB / 8));
-        if (m0 + m >= M) continue;
-        const __nv_bfloat16* src = out + m * S::OUT_PITCH + c;
-        __nv_bfloat16* dst = y + (size_t)(m0 + m) * N + n0 + c;
-        if (vec) {
-          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-        } else {
-          for (int j = 0; j < 8 && n0 + c + j < N; ++j) dst[j] = src[j];
-        }
-      }
-    }
-    return;
-  } else {
-    cg::cluster_group cluster = cg::this_cluster();
-    // the slices' sums, each thread's in its fragment order, met in
-    // distributed shared memory: slice s adds the s-th share of the block's
-    // sums over the slices in order, every slice's float4 in flight at once
-    constexpr int WARPS = KS ? 4 : 8;  // the warps that hold the block's sums
-    float* part = reinterpret_cast<float*>(tsm);  // [WARPS][BM / 2][32 lanes]
-    cluster.sync();  // every block of the cluster is done with its stages
-    if (KS && warp < 8) {  // group 1's sums, in its fragment order, onto group 0's
-      float* mine = part + (WARPS + (warp & 3)) * (BM / 2) * 32 + lane;
-      if (wg == 1) {
-#pragma unroll
-        for (int i = 0; i < BM / 2; ++i) mine[i * 32] = acc[i];
-      }
-      asm volatile("bar.sync 1, 256;\n" ::: "memory");
-      if (wg == 0) {
-#pragma unroll
-        for (int i = 0; i < BM / 2; ++i) acc[i] += mine[i * 32];
-      }
-    }
-    if (warp < WARPS) {
-#pragma unroll
-      for (int i = 0; i < BM / 2; ++i) part[(warp * (BM / 2) + i) * 32 + lane] = acc[i];
-    }
-    cluster.sync();
-    const float4* parts[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      parts[k] = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, k < ks ? k : 0));
-    const int f4 = WARPS * 4 * BM / ks;
-    for (int f = slice * f4 + tid; f < (slice + 1) * f4; f += T_THREADS) {
-      float4 v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        if (k < ks) v[k] = parts[k][f];
-      float sum[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
-#pragma unroll
-      for (int k = 1; k < 8; ++k) {
-        if (k < ks) {
-          sum[0] += v[k].x;
-          sum[1] += v[k].y;
-          sum[2] += v[k].z;
-          sum[3] += v[k].w;
-        }
-      }
-      // entries 4f..4f+3: warp w, fragment entry i, lanes (g, t = 0..3)
-      const int e = 4 * f, w = e / (16 * BM), i = (e >> 5) % (BM / 2), g0 = (e & 31) >> 2;
-      const int n = n0 + 64 * (w >> 2) + 16 * (w & 3) + g0 + 8 * ((i >> 1) & 1);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int m = m0 + 8 * (i >> 2) + 2 * c + (i & 1);
-        if (m < M && n < N) y[(size_t)m * N + n] = __float2bfloat16(sum[c]);
-      }
-    }
-    cluster.sync();  // no block leaves while another reads its sums
-  }
+  tile_epilogue<BM, KS, CL>(acc, tsm, r0, n0, m0, M, N, y);
 }
 
 template <int BM, bool KS, bool CL>
@@ -695,29 +566,18 @@ cudaError_t launch_tiles(const void* x, const int8_t* qs, const float* sc, const
   return cudaGetLastError();
 }
 
-// the tile width: the least of 16, 32, 64, 128 that holds M (larger M
-// takes several 128-wide row tiles). Where the row tiles leave SMs idle, K
-// is split: at widths up to 64 across a cluster of blocks (`cluster_split`);
-// at 128, whose partial sums are four times larger, first between the two
-// groups of a block of 64 rows (`tiles_k_split`, measured faster there than
-// a cluster of 128-row blocks), then across a cluster of such blocks
+// a tile width: its K split by `tile_split`
 template <int BM>
 cudaError_t launch_width(const void* x, const int8_t* qs, const float* sc, const float* mn,
                          __nv_bfloat16* y, int M, int K, int N, int gshift, cudaStream_t st) {
-  int sms = 0;
-  const cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return err;
-  const int blocks = (N + TN - 1) / TN * ((M + BM - 1) / BM);
-  if (BM == 128 && tiles_k_split(blocks, sms)) {  // 1024 codes a slice: wv at M = 256 ran
-    const int ks = cluster_split(2 * blocks, K, sms, 1024);  // slower with 8 slices of 256
-    return ks > 1 ? launch_tiles<BM, true, true>(x, qs, sc, mn, y, M, K, N, gshift, ks, st)
-                  : launch_tiles<BM, true, false>(x, qs, sc, mn, y, M, K, N, gshift, 1, st);
-  }
-  const int ks = BM < 128 ? cluster_split(blocks, K, sms, 256) : 1;
-  return ks > 1 ? launch_tiles<BM, false, true>(x, qs, sc, mn, y, M, K, N, gshift, ks, st)
-                : launch_tiles<BM, false, false>(x, qs, sc, mn, y, M, K, N, gshift, 1, st);
+  return tile_split<BM>(M, K, N, [&](auto ks_split, auto cl, int ks) {
+    return launch_tiles<BM, decltype(ks_split)::value, decltype(cl)::value>(x, qs, sc, mn, y, M, K, N,
+                                                                            gshift, ks, st);
+  });
 }
 
+// the tile width: the least of 16, 32, 64, 128 that holds M (larger M
+// takes several 128-wide row tiles)
 cudaError_t tiles(const void* x, const int8_t* qs, const float* sc, const float* mn,
                   __nv_bfloat16* y, int M, int K, int N, int gshift, cudaStream_t st) {
   if (M <= 16) return launch_width<16>(x, qs, sc, mn, y, M, K, N, gshift, st);

@@ -1,15 +1,20 @@
-// Device and host pieces that K1 (q4_matmul.cu) and K6 (q8_matmul.cu)
-// share: the tensor-core GEMV's mma.sync and operand shuffles, the wgmma
-// tiles' mbarrier ring, TMA copies and register-A wgmma, and the GEMV's
-// launch rule (K slices by the SM count). kernels.py hashes every header of
-// csrc/ into each library's name, so an edit here rebuilds both.
+// Device and host pieces that K1 (q4_matmul.cu), K6 (q8_matmul.cu) and
+// K12 (q8v3_matmul.cu) share: the tensor-core GEMV's mma.sync and operand
+// shuffles, the wgmma tiles' mbarrier ring, TMA copies and register-A
+// wgmma, the GEMV's launch rule (K slices by the SM count), and the 8-bit
+// tiles' K split, launch rule and epilogue (K6 and K12). kernels.py hashes
+// every header of csrc/ into each library's name, so an edit here rebuilds
+// them all.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -261,6 +266,183 @@ cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem, con
 bool tiles_k_split(int blocks, int sms) {
   const int waves = (blocks + sms - 1) / sms, waves_split = (2 * blocks + sms - 1) / sms;
   return blocks <= 3 * sms && waves_split <= 2 * waves - 1;
+}
+
+
+// ---------------------------------------------------------------------------
+// the 8-bit tiles (K6, K12): y^T = W x^T on 128 weight rows a block (64 with
+// the two-group K split), two consumer warpgroups and one producer warp
+
+constexpr int T8_ROWS = 128;                // weight rows a block without the two-group split
+constexpr int T8_THREADS = 2 * 128 + 32;    // two consumer warpgroups, one producer warp
+constexpr int T8_OUT_PITCH = T8_ROWS + 8;   // bf16 a row of the y tile in shared memory
+
+// the K split across a cluster of blocks (1, 2, 4 or 8 of them, each with
+// its share of K, their partial sums met in distributed shared memory):
+// doubled while that cuts the waves of blocks on the SMs by a fifth, each
+// slice keeping at least `least` codes
+int cluster_split(int blocks, int K, int sms, int least) {
+  const auto waves = [&](int c) { return float((blocks * c + sms - 1) / sms) / c; };
+  int c = 1;
+  while (c < 8 && K / (2 * c) >= least && waves(2 * c) <= 0.8f * waves(c)) c *= 2;
+  return c;
+}
+
+// a kernel launched in clusters of `cluster` blocks along x
+template <typename... Params, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, int smem, int cluster,
+                             cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The split of a tile width BM: where the row tiles leave SMs idle, K is
+// split: at widths up to 64 across a cluster of blocks (`cluster_split`);
+// at 128, whose partial sums are four times larger, first between the two
+// groups of a block of 64 rows (`tiles_k_split`, measured faster there
+// than a cluster of 128-row blocks), then across a cluster of such blocks.
+// Calls launch(KS, CL, ks) with KS and CL as std::bool_constant.
+template <int BM, typename Launch>
+cudaError_t tile_split(int M, int K, int N, Launch&& launch) {
+  using Y = std::true_type;
+  using No = std::false_type;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int blocks = (N + T8_ROWS - 1) / T8_ROWS * ((M + BM - 1) / BM);
+  if constexpr (BM == 128) {
+    if (tiles_k_split(blocks, sms)) {  // 1024 codes a slice: K6's wv at M = 256 ran
+      const int ks = cluster_split(2 * blocks, K, sms, 1024);  // slower with 8 slices of 256
+      return ks > 1 ? launch(Y{}, Y{}, ks) : launch(Y{}, No{}, 1);
+    }
+    return launch(No{}, No{}, 1);
+  } else {
+    const int ks = cluster_split(blocks, K, sms, 256);
+    return ks > 1 ? launch(No{}, Y{}, ks) : launch(No{}, No{}, 1);
+  }
+}
+
+// The tiles' epilogue, by every thread of the block (the producer warp of a
+// block without a cluster has left). D fragment: acc[4i + e] = weight row
+// r0 (+8 for e >= 2), x row 8i + 2t (+1 for odd e) of the tile. With KS the
+// two groups hold sums of the same 64 rows (group 1's are added to group
+// 0's); without CL the D tile is transposed through shared memory into
+// rows of y, else the slices' sums are met in distributed shared memory.
+template <int BM, bool KS, bool CL>
+__device__ __forceinline__ void tile_epilogue(float (&acc)[BM / 2], unsigned char* tsm, int r0, int n0,
+                                              int m0, int M, int N, __nv_bfloat16* __restrict__ y) {
+  namespace cg = cooperative_groups;
+  constexpr int RB = KS ? 64 : T8_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2, t = lane & 3;
+  if constexpr (!CL) {  // through shared memory into rows of y
+    __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(tsm);  // [BM][T8_OUT_PITCH]
+    if (warp < 8) {
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both groups are done with the stages
+      if constexpr (KS) {  // group 1's sums, in its fragment order, onto group 0's
+        float* part = reinterpret_cast<float*>(tsm + BM * T8_OUT_PITCH * 2);
+        float* mine = part + (warp & 3) * (BM / 2) * 32 + lane;
+        if (wg == 1) {
+#pragma unroll
+          for (int i = 0; i < BM / 2; ++i) mine[i * 32] = acc[i];
+        }
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        if (wg == 0) {
+#pragma unroll
+          for (int i = 0; i < BM / 2; ++i) acc[i] += mine[i * 32];
+        }
+      }
+      if (!KS || wg == 0) {
+#pragma unroll
+        for (int i = 0; i < BM / 8; ++i) {
+          const int m = 8 * i + 2 * t;
+          out[m * T8_OUT_PITCH + r0] = __float2bfloat16(acc[4 * i]);
+          out[(m + 1) * T8_OUT_PITCH + r0] = __float2bfloat16(acc[4 * i + 1]);
+          out[m * T8_OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 2]);
+          out[(m + 1) * T8_OUT_PITCH + r0 + 8] = __float2bfloat16(acc[4 * i + 3]);
+        }
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      const bool vec = (N & 7) == 0 && n0 + RB <= N;
+      for (int e = tid; e < BM * (RB / 8); e += 256) {  // 16 bytes (8 columns) a thread
+        const int m = e / (RB / 8), c = 8 * (e % (RB / 8));
+        if (m0 + m >= M) continue;
+        const __nv_bfloat16* src = out + m * T8_OUT_PITCH + c;
+        __nv_bfloat16* dst = y + (size_t)(m0 + m) * N + n0 + c;
+        if (vec) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int j = 0; j < 8 && n0 + c + j < N; ++j) dst[j] = src[j];
+        }
+      }
+    }
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int ks = cluster.num_blocks(), slice = cluster.block_rank();
+    // the slices' sums, each thread's in its fragment order, met in
+    // distributed shared memory: slice s adds the s-th share of the block's
+    // sums over the slices in order, every slice's float4 in flight at once
+    constexpr int WARPS = KS ? 4 : 8;  // the warps that hold the block's sums
+    float* part = reinterpret_cast<float*>(tsm);  // [WARPS][BM / 2][32 lanes]
+    cluster.sync();  // every block of the cluster is done with its stages
+    if (KS && warp < 8) {  // group 1's sums, in its fragment order, onto group 0's
+      float* mine = part + (WARPS + (warp & 3)) * (BM / 2) * 32 + lane;
+      if (wg == 1) {
+#pragma unroll
+        for (int i = 0; i < BM / 2; ++i) mine[i * 32] = acc[i];
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < BM / 2; ++i) acc[i] += mine[i * 32];
+      }
+    }
+    if (warp < WARPS) {
+#pragma unroll
+      for (int i = 0; i < BM / 2; ++i) part[(warp * (BM / 2) + i) * 32 + lane] = acc[i];
+    }
+    cluster.sync();
+    const float4* parts[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      parts[k] = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, k < ks ? k : 0));
+    const int f4 = WARPS * 4 * BM / ks;
+    for (int f = slice * f4 + tid; f < (slice + 1) * f4; f += T8_THREADS) {
+      float4 v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (k < ks) v[k] = parts[k][f];
+      float sum[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+#pragma unroll
+      for (int k = 1; k < 8; ++k) {
+        if (k < ks) {
+          sum[0] += v[k].x;
+          sum[1] += v[k].y;
+          sum[2] += v[k].z;
+          sum[3] += v[k].w;
+        }
+      }
+      // entries 4f..4f+3: warp w, fragment entry i, lanes (g, t = 0..3)
+      const int e = 4 * f, w = e / (16 * BM), i = (e >> 5) % (BM / 2), g0 = (e & 31) >> 2;
+      const int n = n0 + 64 * (w >> 2) + 16 * (w & 3) + g0 + 8 * ((i >> 1) & 1);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int m = m0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        if (m < M && n < N) y[(size_t)m * N + n] = __float2bfloat16(sum[c]);
+      }
+    }
+    cluster.sync();  // no block leaves while another reads its sums
+  }
 }
 
 }  // namespace

@@ -21,8 +21,9 @@ tensor `qmatmul_grouped_plain`.
 the stacked buffer, nothing is copied): on a CUDA tensor
 ``csrc/q8v3_matmul.cu`` (K12), the port of `_q8v3_matmul_layered` (the
 JAX 2-D q8v3 head runs it as a one-layer stack), which decodes the nibble
-planes with bit operations only; on a CPU tensor `q8v3_matmul_plain`, the
-same decode written out in PyTorch.
+planes with bit operations only (a GEMV at M <= 8, TMA-fed wgmma tiles
+above); on a CPU tensor `q8v3_matmul_plain`, the same decode written out in
+PyTorch.
 
 `dense_matmul_layered(x, w, layer)` computes x @ w[layer]^T for a dense
 (unquantized) weight stack w [L, N, K] in the activation dtype: on a CUDA
@@ -161,12 +162,16 @@ def q8v3_matmul_plain(x: torch.Tensor, w: Q8V3Tensor) -> torch.Tensor:
     return torch.cat(parts, dim=-1).to(torch.bfloat16)
 
 
-def q8v3_matmul(x: torch.Tensor, w: Q8V3Tensor) -> torch.Tensor:
-    """x [M, K] bf16 @ W^T → [M, N] bf16 for a 2-D Q8V3Tensor on x's device;
-    any M and N, K % 128 == 0, scale groups of 16 or 32, with or without
-    mins."""
-    if x.device.type == "cpu":
-        return q8v3_matmul_plain(x, w)
+def q8v3_check(x: torch.Tensor, w: Q8V3Tensor) -> tuple[int, int]:
+    """What K12 takes, or a ValueError/TypeError: bf16 x [M, K] and a 2-D
+    Q8V3Tensor [N, K] (uint8 planes, bf16 scales and mins), K % 128 == 0
+    (the planes' chunks, the tiles' stages), scale groups of 16 or 32, every
+    tensor contiguous, on x's device and 16-byte aligned (the GEMV's 16-byte
+    loads, the tiles' TMA maps of x and the planes, their 16- and 8-byte
+    copies of a stage's scales and mins; a layer of a stack is an offset
+    into it, so it keeps the stack's alignment only where a layer's bytes
+    are a multiple of 16). Any M and N: the kernel masks the ragged edges.
+    Returns (M, K)."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"q8v3_matmul on CUDA takes bf16 activations, got {x.dtype}")
     m, k = x.shape
@@ -180,6 +185,15 @@ def q8v3_matmul(x: torch.Tensor, w: Q8V3Tensor) -> torch.Tensor:
         raise ValueError("q8v3_matmul needs contiguous, 16-byte aligned tensors on one device")
     if w.scales.dtype != torch.bfloat16 or (w.mins is not None and w.mins.dtype != torch.bfloat16):
         raise TypeError("q8v3_matmul needs bf16 scales and mins")
+    return m, k
+
+
+def q8v3_matmul(x: torch.Tensor, w: Q8V3Tensor) -> torch.Tensor:
+    """x [M, K] bf16 @ W^T → [M, N] bf16 for a 2-D Q8V3Tensor on x's device
+    (what it takes: `q8v3_check`)."""
+    if x.device.type == "cpu":
+        return q8v3_matmul_plain(x, w)
+    m, k = q8v3_check(x, w)
     y = torch.empty(m, w.n, dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return y

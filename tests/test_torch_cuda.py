@@ -35,9 +35,10 @@ Gemma-3-1B's K = 1152 and an odd shape (K = 1000, N = 130), through its
 16-byte and its 2-byte loads, twice with the same bits; tiny F16 and
 `param_dtype` models (dense and paged, bf16 and int8 caches) on the card
 against the CPU, through K11 and no K1/K5/K6. The q8v3 container: K12 per
-input row against its plain version at M = 1, 3, 8, 40 and 256, groups 16
-and 32 with and without mins, a ragged N, three launches with the same
-bits; K4 in the "headmajor" and "merged" layouts (bf16 and int8, D = 64,
+input row against its plain version at M = 1, 3 and 8 (the GEMV) and every
+width of its wgmma tiles with its ragged edge (M = 9 ... 1024), groups 16
+and 32 with and without mins, a ragged N and a small N with a long K (the
+cluster K split), a layer of a stack, three launches with the same bits; K4 in the "headmajor" and "merged" layouts (bf16 and int8, D = 64,
 128 and 256 with softcap and window) against the plain version and
 against "full" on the same values; and a tiny hidden-2048 Q8_0 model under
 NFAI_Q8V3=1 with each layout, dense and paged, on the card against the CPU,
@@ -661,10 +662,17 @@ def _q8v3_weight(n, k, group, with_mins, gen):
     return to_q8v3_stacked(Q8Tensor(qs, sc, mn, k, n, group))
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 40, 256])
+# every branch of K12: the GEMV (M = 1, 3, 8), the wgmma tiles at each width
+# and its ragged edge: 16 (M = 9, 16), 32 (17, 32), 64 (33, 40, 64) and
+# 128 (65, 128; 129, 256 and 1024 take several row tiles), at a ragged N
+# (1000: the row split, the two-group split at 128) and at a small N with a
+# long K (512 x 8192: the K split across a cluster); scale groups of 32 and
+# 16, with and without mins
+@pytest.mark.parametrize("m,k,n", [(m, 4096, 1000) for m in (1, 3, 8, 9, 16, 17, 32, 33, 40, 64, 65, 128,
+                                                                 129, 256, 1024)]
+                         + [(m, 8192, 512) for m in (1, 8, 16, 32, 64, 128, 256, 1024)])
 @pytest.mark.parametrize("group,with_mins", [(32, False), (32, True), (16, False), (16, True)])
-def test_q8v3_matmul_kernel(cuda, m, group, with_mins):
-    k, n = 4096, 1000  # a ragged N: neither 64 nor 128 divides it
+def test_q8v3_matmul_kernel(cuda, m, k, n, group, with_mins):
     w = _q8v3_weight(n, k, group, with_mins, cuda)
     x = torch.randn(m, k, device="cuda", dtype=torch.bfloat16, generator=cuda)
     before = qm.K12.launches
@@ -674,16 +682,22 @@ def test_q8v3_matmul_kernel(cuda, m, group, with_mins):
     assert all(torch.equal(qm.q8v3_matmul(x, w), got) for _ in range(2))  # no atomics
 
 
-def test_q8v3_matmul_reads_a_layer_in_place(cuda):
+@pytest.mark.parametrize("m", [8, 256])
+def test_q8v3_matmul_reads_a_layer_in_place(cuda, m):
+    """A layer of a stacked Q8V3Tensor is a pointer offset into the stack:
+    the GEMV and the tiles' TMA maps and scale copies read it in place."""
     from nfai_tpu_torch.ops.qtensor import to_q8v3_stacked
 
     qs = torch.randint(-128, 128, (3, 256, 2048), dtype=torch.int8, device="cuda", generator=cuda)
     sc = torch.rand(3, 256, 64, device="cuda", generator=cuda) * 1e-3
     w = to_q8v3_stacked(Q8Tensor(qs, sc, None, 2048, 256, 32))
-    x = torch.randn(8, 2048, device="cuda", dtype=torch.bfloat16, generator=cuda)
+    x = torch.randn(m, 2048, device="cuda", dtype=torch.bfloat16, generator=cuda)
     layer = w.layer(2)
     assert layer.qs.data_ptr() == w.qs.data_ptr() + 2 * 256 * 2048
-    assert rel(qm.linear_layered(x, w, 2), qm.q8v3_matmul_plain(x, layer), row_dims=1) < TOL
+    assert layer.scales.data_ptr() == w.scales.data_ptr() + 2 * 256 * 64 * 2
+    got = qm.linear_layered(x, w, 2)
+    assert rel(got, qm.q8v3_matmul_plain(x, layer), row_dims=1) < TOL
+    assert all(torch.equal(qm.linear_layered(x, w, 2), got) for _ in range(2))
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])

@@ -26,6 +26,8 @@ on the CPU):
   `params_from_jax` on the JAX engine's q8v3 leaves gives the port's own
   containers bit for bit.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -167,6 +169,147 @@ def test_eligibility_matches_jax(k, group, ok):
                            np.zeros((64, k // 32), np.float32))
     assert not tqt.q8v3_eligible(q4) and not jq8v3_eligible(jq.replace(kind="q4"))
     assert tqt.to_q8v3_stacked(q4) is q4
+
+
+def _bf16_bits(bits):
+    """uint32 bf16 bit patterns (low 16 bits) → f64."""
+    return (np.asarray(bits, np.uint32) << 16).view(np.float32).astype(np.float64)
+
+
+def _round_bf16(x):
+    """f64 → the nearest bf16 (ties to even), as f64: one rounding."""
+    mant, exp = np.frexp(x)
+    return np.ldexp(np.rint(mant * 256.0), exp - 8)
+
+
+def _tile_a_operand(w: "tqt.Q8V3Tensor") -> tuple[np.ndarray, np.ndarray]:
+    """K12's wgmma tiles' A operand, in numpy bit operations on the packed
+    planes of a 16-row weight, gathered as csrc/q8v3_matmul.cu's consumer
+    lane (g, t) gathers it: for each 16-code step s of a 128-code chunk,
+    rows g and g + 8, the lane reads chunks t>>1 and 2 + (t>>1) of the lo
+    plane (bytes 0..63) and the same of the hi plane (64..127), takes word
+    b = s // 2 of each, joins a lo word and a hi word into the sign-flipped
+    bytes u = lo | hi << 4 after shifting by 4 (t & 1), shifts by 8 for the
+    odd steps, decodes bytes 0 and 2 to bf16 v / 16 (0x4100 | (u & 0x7F)
+    minus 0x4100 | (~u & 0x80)) and folds the group's scale and min:
+    A = bf16(v / 16 * s8 - m / 2), the group being block b (g32) or step s
+    (g16) of the chunk. Returns (v / 16, A), f64 [16, K], each placed at the
+    natural k of its wgmma slot: 2t, 2t + 1 (word t>>1) and 2t + 8, 2t + 9
+    (word 2 + (t>>1)) of the step."""
+    qs = w.qs.numpy()
+    n, k = qs.shape
+    words = qs.reshape(n, k // 128, 128).view("<u4")  # [row, chunk, 16-byte chunk * 4 + word]
+    s8 = w.scales.float().numpy().astype(np.float64)
+    m = np.zeros_like(s8) if w.mins is None else w.mins.float().numpy().astype(np.float64)
+    spg = 128 // w.group
+    v16 = np.full((n, k), np.nan)
+    a = np.full((n, k), np.nan)
+    rows = np.arange(n)[:, None]
+    for t in range(4):
+        sl, sh = 4 * (t & 1), 4 - 4 * (t & 1)
+        for s in range(8):
+            b, i = s // 2, s % 2
+            si = b if w.group == 32 else s
+            for word, slot in ((t >> 1, 2 * t), (2 + (t >> 1), 2 * t + 8)):
+                lo, hi = words[:, :, 4 * word + b], words[:, :, 4 * (4 + word) + b]
+                u = ((lo >> sl) & 0x0F0F0F0F) | ((hi << sh) & 0xF0F0F0F0)
+                u >>= 8 * i
+                for half, byte in ((0, u & 0xFF), (1, (u >> 16) & 0xFF)):
+                    dec = _bf16_bits(0x4100 | (byte & 0x7F)) - _bf16_bits(0x4100 | (~byte & 0x80))
+                    col = np.arange(k // 128)[None, :] * 128 + 16 * s + slot + half
+                    grp = np.arange(k // 128)[None, :] * spg + si
+                    v16[rows, col] = dec
+                    a[rows, col] = _round_bf16(dec * s8[rows, grp] - m[rows, grp] / 2)
+    return v16, a
+
+
+@pytest.mark.parametrize("group,with_mins", [(32, False), (32, True), (16, False), (16, True)])
+def test_tile_fragment_mapping(group, with_mins):
+    """The bit operations K12's tiles decode with, on the packed bytes of
+    `q8v3_from_codes`: every lane (g, t) of every 16-code step gets u0 of
+    the codes at natural k = 2t, 2t+1, 2t+8, 2t+9 of its rows g and g + 8,
+    exactly (as v / 16 = u0 / 2), and its A value is the plain version's
+    weight halved, rounded once to bf16 (the tiles double their f32 sums)."""
+    rng = np.random.default_rng(40 + group + with_mins)
+    n, k = 16, 256
+    v = torch.from_numpy(rng.integers(-128, 128, (n, k), dtype=np.int8))
+    v[0, :256] = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)  # every code once
+    s8 = torch.from_numpy((rng.random((n, k // group)) * 0.08 + 1e-4).astype(np.float32))
+    mn = torch.from_numpy((rng.random((n, k // group)) * 0.05).astype(np.float32)) if with_mins else None
+    w = tqt.q8v3_from_codes(v, s8, mn, group)
+    v16, a = _tile_a_operand(w)
+    assert np.array_equal(2 * v16, tqt.q8v3_u0(w.qs).numpy().astype(np.float64))
+    assert np.array_equal(16 * v16, v.numpy().astype(np.float64))
+    # the group each weight's scale and min come from, by natural k
+    per_k = lambda t: np.repeat(t.float().numpy().astype(np.float64), group, -1)  # noqa: E731
+    s8k, mk = per_k(w.scales), 0.0 if mn is None else per_k(w.mins)
+    assert np.array_equal(2 * a, _round_bf16(2 * v16 * s8k - mk))
+    # the plain version's weight (u0 * s8 - m in f32) within half a bf16 ulp
+    want = tqt.dequant(w).numpy().astype(np.float64)
+    assert np.all(np.abs(2 * a - want) <= np.abs(want) * 2.0**-8 + 2.0**-20 * (np.abs(2 * v16 * s8k) + mk))
+
+
+def _q8v3_check_case(case):
+    """(x, w) for a q8v3_check case: a 16-byte aligned bf16 x [40, 256] and a
+    [100, 256] g16 Q8V3Tensor with mins (N a multiple of neither 64 nor 128),
+    then one thing K12 does or does not take."""
+    n, k = 100, 256
+    w = tqt.Q8V3Tensor(torch.zeros(n, k, dtype=torch.uint8), torch.zeros(n, k // 16, dtype=torch.bfloat16),
+                       torch.zeros(n, k // 16, dtype=torch.bfloat16), k, n, 16)
+    x = torch.zeros(40, k, dtype=torch.bfloat16)
+    stack = lambda w, layers: tqt.stack([w] * layers)  # noqa: E731
+    if case == "misaligned x":
+        x = torch.zeros(40 * k + 1, dtype=torch.bfloat16)[1:].view(40, k)
+    elif case == "misaligned planes":
+        w = dataclasses.replace(w, qs=torch.zeros(n * k + 1, dtype=torch.uint8)[1:].view(n, k))
+    elif case == "misaligned mins":
+        w = dataclasses.replace(w, mins=torch.zeros(n * k // 16 + 1, dtype=torch.bfloat16)[1:]
+                                .view(n, k // 16))
+    elif case == "f32 x":
+        x = x.float()
+    elif case == "K % 128":
+        w = tqt.Q8V3Tensor(torch.zeros(n, 192, dtype=torch.uint8), torch.zeros(n, 12, dtype=torch.bfloat16),
+                           None, 192, n, 16)
+        x = torch.zeros(40, 192, dtype=torch.bfloat16)
+    elif case == "group 64":
+        w = dataclasses.replace(w, scales=w.scales[:, :4].contiguous(), mins=None, group=64)
+    elif case == "f32 scales":
+        w = dataclasses.replace(w, scales=w.scales.float())
+    elif case == "int8 planes":
+        w = dataclasses.replace(w, qs=w.qs.to(torch.int8))
+    elif case == "a layer stack":
+        w = stack(w, 2)
+    elif case == "a layer of a stack":  # an offset of 100 * 16 * 2 bytes: aligned
+        w = stack(w, 3).layer(2)
+    elif case == "a g32 layer, odd N":  # 99 rows of 8 scales: 1584 bytes a layer, aligned
+        w = stack(tqt.Q8V3Tensor(torch.zeros(99, k, dtype=torch.uint8),
+                                 torch.zeros(99, k // 32, dtype=torch.bfloat16), None, k, 99, 32), 2).layer(1)
+    elif case == "a g32 layer, misaligned":  # 99 rows of 4 scales: 792 bytes a layer
+        w = stack(tqt.Q8V3Tensor(torch.zeros(99, 128, dtype=torch.uint8),
+                                 torch.zeros(99, 4, dtype=torch.bfloat16), None, 128, 99, 32), 2).layer(1)
+        x = torch.zeros(40, 128, dtype=torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.parametrize("case,error", [
+    ("ok", None), ("misaligned x", ValueError), ("misaligned planes", ValueError),
+    ("misaligned mins", ValueError), ("f32 x", TypeError), ("K % 128", ValueError),
+    ("group 64", ValueError), ("f32 scales", TypeError), ("int8 planes", ValueError),
+    ("a layer stack", ValueError), ("a layer of a stack", None), ("a g32 layer, odd N", None),
+    ("a g32 layer, misaligned", ValueError),
+])
+def test_q8v3_check_takes_what_k12_takes(case, error):
+    """The rules K12's wrapper holds a CUDA launch to, checked on CPU
+    tensors: any M and N, K % 128 == 0, groups of 16 or 32, bf16 x, uint8
+    planes, bf16 scales and mins, 2-D, contiguous, every tensor 16-byte
+    aligned (a layer of a stack where its bytes keep the alignment);
+    everything else raises."""
+    x, w = _q8v3_check_case(case)
+    if error is None:
+        assert tqm.q8v3_check(x, w) == (40, w.k)
+    else:
+        with pytest.raises(error):
+            tqm.q8v3_check(x, w)
 
 
 @pytest.mark.parametrize("group", [32, 16])
