@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only build,kernels   # a quick kernel check
     python3 chip_smoke.py --only build,kernels --kernels k12   # one matmul kernel's rows
+    python3 chip_smoke.py --only build,kernels --kernels k11   # K11 (dense) alone
     python3 chip_smoke.py --only build,serve,batch,profile --models E   # one model's path
 
 Phases (each failure propagates, the exit code is then non-zero):
@@ -26,8 +27,9 @@ Phases (each failure propagates, the exit code is then non-zero):
            head_dim 256: model G's heads with softcap 50 and window 0 or
            4096, Gemma-3-1B's with window 512, Gemma 2B's (r = 8), and at
            4000 keys window 512 beside window 0; K11 (dense matmul) at model
-           D's projections and Gemma-3-1B's K = 1152, rows 1, 8, 256 and
-           1024, three launches with the same bits; K12 (q8v3 matmul) at
+           D's projections and Gemma-3-1B's K = 1152, rows 1, 8, 16, 24,
+           32, 64, 256 and 1024 (the GEMVs, each wgmma tile width and the
+           cluster K split), three launches with the same bits; K12 (q8v3 matmul) at
            model E's projections and head, rows 1, 8, 16, 32, 64, 256 (and
            1024 below the head), model B's Q6_K wv and w_down at rows 16,
            256 and 1024, and wo in the g16 / mins kinds, three launches with
@@ -119,6 +121,8 @@ so do C's, G's, D's and E's:
      weights, a tied F16 table, no cut): every projection dense through K11
      (4 launches a layer: wqkv, wo, gate_up, down; no K1/K5/K6), the tied
      head torch.matmul, the embedding rows gathered from the same table;
+     its profile phase also records one 8x128 prefill chunk, whose 64
+     projections must all run K11's wgmma tiles;
   E  Llama-3.1-8B's widths (hidden 4096, 32 / 8 heads of 128, ffn 14336,
      vocab 128256, untied) as llama.cpp's Q8_0 conversion writes it, 8 of
      32 layers (E_LAYERS), loaded under NFAI_Q8V3=1 and run with K4's
@@ -188,11 +192,18 @@ DENSE_KINDS = ("f16", "bf16")  # every matmul weight dense: K11, no K1/K5/K6
 # parity copies that run again with every weight dequantized at load
 PARITY_PARAM_DTYPE = {"q4_k_m": "bfloat16"}
 NEAR_TIE = 0.01  # router-logit gap below which card and CPU may pick different experts
-# the profile's device ms a step of K1, K6 and K12, tallied by their CUDA functions' names
+# the profile's device ms a step of K1, K6, K11 and K12, tallied by their CUDA functions' names
 KERNEL_FUNCTIONS = {"q4_matmul": ("q4_gemv", "q4_wgmma"), "q8_matmul": ("q8_gemv", "q8_wgmma"),
-                    "q8v3_matmul": ("q8v3_gemv", "q8v3_wgmma")}
+                    "q8v3_matmul": ("q8v3_gemv", "q8v3_wgmma"),
+                    # K11: both GEMVs, the wgmma tiles, the WMMA tiles of unaligned shapes
+                    "dense_matmul": ("dense_gemv", "dense_wgmma", "dense_mma")}
 # device functions the profiles tally one by one (a kernel's paths)
 PATH_FUNCTIONS = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
+# models whose profile phase also records one 8x128 prefill chunk: (tile
+# function, GEMV function, GEMV launches a chunk); every projection of a
+# layer (wqkv, wo, gate_up, down) runs the tiles at M = 1024. E's head is
+# K12's GEMV (8 rows), D's tied F16 head torch.matmul
+PREFILL_PROFILED = {"E": ("q8v3_wgmma", "q8v3_gemv", 1), "D": ("dense_wgmma", "dense_gemv", 0)}
 
 
 def log(msg: str) -> None:
@@ -361,7 +372,7 @@ def phase_kernels(torch, timer, matmuls=None) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
-    if matmuls is not None:  # only these dequant-matmul kernels (a quick check)
+    if matmuls is not None:  # only these matmul kernels (a quick check)
         return {k: v for name in matmuls for k, v in MATMUL_PHASES[name](torch, timer, gen).items()}
     results = _kernels_k1(torch, timer, gen)
 
@@ -1222,9 +1233,11 @@ def _kernels_k11(torch, timer, gen) -> dict:
     """K11 (dense layer-stacked matmul) at model D's projections, a 2-layer
     bf16 stack read at layer 1: wqkv 2048 x 3072, wo 2048 x 2048, gate_up
     2048 x 16384, down 8192 x 2048, and Gemma-3-1B's K = 1152 (q and
-    gate_up), at decode rows 1 and 8 and prefill rows 256 and 1024; per
-    input row against the plain version, three launches with the same
-    bits. Yardstick: torch.matmul(x, w[layer].T) (cuBLAS)."""
+    gate_up), at decode rows 1 and 8 (the GEMVs), 16, 24, 32 and 64 (the
+    batch-1 buckets: wgmma tiles 16, 32 and 64 wide, the cluster K split
+    at small N) and the prefill rows 256 and 1024; per input row against
+    the plain version, three launches with the same bits. Yardstick:
+    torch.matmul(x, w[layer].T) (cuBLAS)."""
     from nfai_tpu_torch.ops import qmatmul as qm
 
     bf = torch.bfloat16
@@ -1233,7 +1246,7 @@ def _kernels_k11(torch, timer, gen) -> dict:
     cases = []
     for label, (k, n) in shapes.items():
         w = torch.randn(2, n, k, device="cuda", dtype=bf, generator=gen) * 0.03
-        for m in (1, 8, 256, 1024):
+        for m in (1, 8, 16, 24, 32, 64, 256, 1024):
             x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
             got = qm.dense_matmul_layered(x, w, 1)
             torch.cuda.synchronize()
@@ -1246,7 +1259,8 @@ def _kernels_k11(torch, timer, gen) -> dict:
             b, by = bound_ms(2 * (k * n + m * k + m * n), 2.0 * m * n * k)
             cases.append(dict(shape=f"{label} M={m}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=b, bound_by=by, library_ms=lib_ms))
-            log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, cuBLAS {lib_ms:.4f})")
+            log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, cuBLAS {lib_ms:.4f}; "
+                f"{ms / lib_ms:.2f}x cuBLAS)")
         del w
     return {"dense_matmul": dict(
         route="cuda", source="nfai_tpu_torch/csrc/dense_matmul.cu",
@@ -1320,8 +1334,8 @@ def _kernels_k12(torch, timer, gen) -> dict:
     )}
 
 
-# the dequant-matmul kernels' phases, by the name `--kernels` takes
-MATMUL_PHASES = {"k1": _kernels_k1, "k6": _kernels_k6, "k12": _kernels_k12}
+# the matmul kernels' phases, by the name `--kernels` takes
+MATMUL_PHASES = {"k1": _kernels_k1, "k6": _kernels_k6, "k11": _kernels_k11, "k12": _kernels_k12}
 
 
 # (label, Hq, Hkv, D, B, T, S, offset, softcap, window): model E's heads (32 / 8 of
@@ -1718,13 +1732,16 @@ def phase_profile_prefill(torch, engine, expect: dict[str, int]) -> dict:
     """torch.profiler over one more prefill chunk of the batch phase's shape
     (8 x 128, M = 1024 rows for every projection) on a fresh cache: host
     wall (synchronised), device busy ms, and the device ms of each path of
-    the dequant-matmul kernels, tallied by function name (K12: the GEMV for
-    the head's 8 rows, the wgmma tiles for the layers'). `expect` gives the
+    the matmul kernels, tallied by function name (E: K12's GEMV for the
+    head's 8 rows, its wgmma tiles for the layers'; D: K11's wgmma tiles,
+    no GEMV). `expect` gives the
     launches of a chunk by function name. The profiler loses the records of
     the first kernels after it starts (seen on the card: 1 to 12 of the 32
     tile launches), so a first chunk runs as the profiler's warm-up step and
     the second is recorded; a profile that still holds other counts is
-    taken again, at most three times."""
+    taken again, at most three times. Before the profile, the chunk's host
+    wall (synchronised) is taken as the median of five runs without the
+    profiler: one chunk's wall follows the host's speed of the moment."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from nfai_tpu_torch.models import prefill_step
@@ -1735,6 +1752,15 @@ def phase_profile_prefill(torch, engine, expect: dict[str, int]) -> dict:
     tokens = torch.randint(0, 256, (b, t), device="cuda", generator=gen)
     positions = torch.arange(t, device="cuda")[None].expand(b, t).contiguous()
     last = torch.full((b,), t - 1, device="cuda")
+    walls = []
+    for _ in range(5):
+        cache = engine.new_cache(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill_step(engine.params, cfg, tokens, positions, last, cache)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    median_ms = sorted(walls)[len(walls) // 2]
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
@@ -1756,14 +1782,15 @@ def phase_profile_prefill(torch, engine, expect: dict[str, int]) -> dict:
     busy_ms = sum(ms for ms, _ in table.values())
     by_function = {f: sum(ms for k, (ms, _) in table.items() if f in k) for f in PATH_FUNCTIONS}
     top = sorted(table.items(), key=lambda kv: -kv[1][0])[:8]
-    log(f"  profiled prefill 8x128: wall {wall_ms:.2f} ms (under the profiler), device busy "
-        f"{busy_ms:.2f} ms; device ms by function "
+    log(f"  profiled prefill 8x128: wall {wall_ms:.2f} ms (under the profiler; median of five "
+        f"without it {median_ms:.2f}), device busy {busy_ms:.2f} ms; device ms by function "
         + ", ".join(f"{f} {ms:.4f}" for f, ms in by_function.items() if ms > 0))
     for k, (ms, n) in top:
         log(f"    {ms:8.4f} ms  x{n:<4d} {k[:90]}")
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
-    return dict(wall_ms=wall_ms, device_ms=busy_ms, device_ms_by_function=by_function)
+    return dict(wall_ms=wall_ms, median_wall_ms=median_ms, device_ms=busy_ms,
+                device_ms_by_function=by_function)
 
 
 def phase_parity(torch, path2, kind, kv_dtypes=("auto",), param_dtype="auto", q8v3=False) -> dict:
@@ -2698,14 +2725,17 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
         if "profile" in only:
             t0 = time.perf_counter()
             out["profile"] = phase_profile(torch, engine, state)
-            if label == "E":  # every projection of a prefill chunk through K12's tiles, the head its GEMV
+            if label in PREFILL_PROFILED:
+                tiles, gemv, head = PREFILL_PROFILED[label]
                 n_layers = engine.model_cfg.n_layers
                 prof = out["prefill_profile"] = phase_profile_prefill(
-                    torch, engine, {"q8v3_wgmma": 4 * n_layers, "q8v3_gemv": 1})
+                    torch, engine, {tiles: 4 * n_layers, gemv: head})
                 ms = prof["device_ms_by_function"]
-                log(f"  model E prefill 8x128: {out['batch']['prefill_ms']:.1f} ms (host clock, "
-                    f"synchronised, batch phase); K12's device share {ms['q8v3_wgmma'] + ms['q8v3_gemv']:.2f} "
-                    f"of {prof['device_ms']:.2f} ms (tiles {ms['q8v3_wgmma']:.2f}, GEMV {ms['q8v3_gemv']:.4f})")
+                log(f"  model {label} prefill 8x128: {out['batch']['prefill_ms']:.1f} ms (host clock, "
+                    f"synchronised, batch phase; median of five {prof['median_wall_ms']:.1f}); the "
+                    f"matmul kernel's device share "
+                    f"{ms[tiles] + ms[gemv]:.2f} of {prof['device_ms']:.2f} ms (tiles {ms[tiles]:.2f} in "
+                    f"{4 * n_layers} launches, GEMV {ms[gemv]:.4f} in {head})")
             phase_s[f"profile {label}"] = time.perf_counter() - t0
         del state
     launches = _check_route(kernels_mod, label, f"model {label}")
@@ -2781,7 +2811,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--kernels", default=None,
-                    help=f"kernels phase: only these dequant-matmul kernels, of {sorted(MATMUL_PHASES)}")
+                    help=f"kernels phase: only these matmul kernels, of {sorted(MATMUL_PHASES)}")
     ap.add_argument("--models", default=None,
                     help=f"serve/batch/profile/server: only these models, of {sorted(MODELS)}")
     args = ap.parse_args(argv)

@@ -588,7 +588,13 @@ def test_tiny_gemma_cuda_matches_cpu(cuda, tmp_path, kv_dtype):
     assert k7.variants[fd.variant(256, 50.0, 8)] > before
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 40, 256])
+# M = 1, 3 and 8: the GEMVs. 16, 24 and 32, 40 and 64: the 16-, 32- and
+# 64-wide wgmma tiles, with the cluster K split at small N (down 8192 x
+# 2048, Gemma-3-1B's 1152 x 1024). 128, 256 and 1024: the 128-wide tiles
+# (the two-group split at small N) and the 256-wide ones (gate_up at 256,
+# and at 1024 in a grid of more than one wave). 1000 x 130: N % 128 != 0
+# and K % 64 != 0 (TMA's zero fill past N and K).
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 24, 32, 40, 64, 128, 256, 1024])
 @pytest.mark.parametrize("k,n", [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048),
                                  (1152, 1024), (1000, 130)])
 def test_dense_matmul_kernel(cuda, m, k, n):

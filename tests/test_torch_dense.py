@@ -177,9 +177,14 @@ def _stack(rng, l, n, k, dtype):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("m,k,n", [(1, 512, 256), (8, 2048, 384), (3, 1152, 256),
-                                   (64, 256, 1024), (130, 384, 128)])
+                                   (64, 256, 1024), (130, 384, 128),
+                                   # edges of the card's wgmma tiles: a full 16-row
+                                   # tile, one row past the 16-, 64- and 256-row ones
+                                   (16, 512, 256), (17, 256, 512), (65, 1024, 384),
+                                   (257, 384, 256)])
 def test_plain_matches_the_jax_kernel(m, k, n, dtype):
-    """Shapes the JAX tiles divide: the Pallas kernel itself (interpret)."""
+    """Shapes the JAX tiles divide: the Pallas kernel itself (interpret).
+    The plain version is what the card's K11 is held to."""
     rng = np.random.default_rng(m * 7 + k)
     w = _stack(rng, 3, n, k, dtype)
     x = rng.standard_normal((m, k)).astype(np.float32)
