@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only build,kernels   # a quick kernel check
     python3 chip_smoke.py --only build,kernels --kernels k12   # one matmul kernel's rows
     python3 chip_smoke.py --only build,kernels --kernels k11   # K11 (dense) alone
+    python3 chip_smoke.py --only build,kernels --kernels k4    # K4 (prefill attention) alone
     python3 chip_smoke.py --only build,serve,batch,profile --models E   # one model's path
 
 Phases (each failure propagates, the exit code is then non-zero):
@@ -33,13 +34,15 @@ Phases (each failure propagates, the exit code is then non-zero):
            model E's projections and head, rows 1, 8, 16, 32, 64, 256 (and
            1024 below the head), model B's Q6_K wv and w_down at rows 16,
            256 and 1024, and wo in the g16 / mins kinds, three launches with
-           the same bits, beside K6 on the same int8 codes; K4 in the
-           "headmajor" (K4-hm) and "merged" layouts, bf16 and int8, at model
-           E's heads, A's (D = 64: "merged" must be refused) and G's
-           (softcap, window), each against its plain version and against
-           "full" on the same values; time kernel, plain version and the
-           library yardstick with CUDA events (L2 flushed before each
-           launch)
+           the same bits, beside K6 on the same int8 codes; K4 (every case
+           in `_kernels_k4`, --kernels k4): "full" at models A's, C's, E's,
+           the 3B's and Gemma's heads (A's batch-1 16-token bucket at offset
+           1000: the short grid), bf16 and int8, then the "headmajor"
+           (K4-hm) and "merged" layouts, bf16 and int8, at model E's heads,
+           A's (D = 64: "merged" must be refused) and G's (softcap, window),
+           each against its plain version and against "full" on the same
+           values; time kernel, plain version and the library yardstick
+           with CUDA events (L2 flushed before each launch)
   serve    per model, write a GGUF of published widths (random raw blocks),
            load it with InferenceEngine(device="cuda") and answer three
            ChatSession requests through its chat template (one prompt > 256
@@ -54,10 +57,11 @@ Phases (each failure propagates, the exit code is then non-zero):
            beside its byte bound)
   profile  torch.profiler over 8 more decode steps of that batch: device
            busy share of the wall time and device time by kernel (K1's,
-           K6's and K12's ms a step tallied by their functions' names); for
-           model E also over one more 8x128 prefill chunk, whose K12 device
-           time is tallied by path (GEMV for the head, wgmma tiles for the
-           layers: both must run)
+           K6's, K11's, K12's and K4's ms a step tallied by their functions'
+           names); for models E and D also over one more 8x128 prefill
+           chunk, whose matmul device time is tallied by path (E: K12's GEMV
+           for the head, wgmma tiles for the layers; D: K11's tiles) beside
+           K4's (once a layer)
   server   continuous batching on model A's engine: paged vs dense
            forwards on the card (a 300-token prefill, 8 teacher-forced
            decode steps at batch 4), a timed and profiled batch-8 paged
@@ -192,17 +196,20 @@ DENSE_KINDS = ("f16", "bf16")  # every matmul weight dense: K11, no K1/K5/K6
 # parity copies that run again with every weight dequantized at load
 PARITY_PARAM_DTYPE = {"q4_k_m": "bfloat16"}
 NEAR_TIE = 0.01  # router-logit gap below which card and CPU may pick different experts
-# the profile's device ms a step of K1, K6, K11 and K12, tallied by their CUDA functions' names
+# the profile's device ms a step of K1, K6, K11, K12 and K4, tallied by their CUDA functions' names
 KERNEL_FUNCTIONS = {"q4_matmul": ("q4_gemv", "q4_wgmma"), "q8_matmul": ("q8_gemv", "q8_wgmma"),
                     "q8v3_matmul": ("q8v3_gemv", "q8v3_wgmma"),
                     # K11: both GEMVs, the wgmma tiles, the WMMA tiles of unaligned shapes
-                    "dense_matmul": ("dense_gemv", "dense_wgmma", "dense_mma")}
+                    "dense_matmul": ("dense_gemv", "dense_wgmma", "dense_mma"),
+                    # K4, every instance (prefill_attn_wgmma<D, groups, cache element, EXT>)
+                    "prefill_attention": ("prefill_attn",)}
 # device functions the profiles tally one by one (a kernel's paths)
 PATH_FUNCTIONS = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 # models whose profile phase also records one 8x128 prefill chunk: (tile
 # function, GEMV function, GEMV launches a chunk); every projection of a
-# layer (wqkv, wo, gate_up, down) runs the tiles at M = 1024. E's head is
-# K12's GEMV (8 rows), D's tied F16 head torch.matmul
+# layer (wqkv, wo, gate_up, down) runs the tiles at M = 1024, and K4 (E's
+# head-major instance, D's "full") runs once a layer. E's head is K12's
+# GEMV (8 rows), D's tied F16 head torch.matmul
 PREFILL_PROFILED = {"E": ("q8v3_wgmma", "q8v3_gemv", 1), "D": ("dense_wgmma", "dense_gemv", 0)}
 
 
@@ -364,16 +371,15 @@ def _kernels_k1(torch, timer, gen) -> dict:
     return results
 
 
-def phase_kernels(torch, timer, matmuls=None) -> dict:
+def phase_kernels(torch, timer, subset=None) -> dict:
     import torch.nn.functional as nnf
 
     from nfai_tpu_torch.ops import fused_decode as fd
-    from nfai_tpu_torch.ops import prefill_attention as pa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
-    if matmuls is not None:  # only these matmul kernels (a quick check)
-        return {k: v for name in matmuls for k, v in MATMUL_PHASES[name](torch, timer, gen).items()}
+    if subset is not None:  # only these kernels' phases (a quick check)
+        return {k: v for name in subset for k, v in KERNEL_PHASES[name](torch, timer, gen).items()}
     results = _kernels_k1(torch, timer, gen)
 
     # K2 / K3 at the decode shapes: the 1B's L=16, Hq=32, Hkv=8, D=64,
@@ -450,44 +456,6 @@ def phase_kernels(torch, timer, matmuls=None) -> dict:
         headline=cases3[1], cases=cases3,
     )
 
-    # K4: prefill chunks against a layer of the [B, S, KVD] cache, at the
-    # 1B's heads (D=64), model C's (Hkv=4, D=128) and the 3B's (r = 3)
-    cases4 = []
-    for hq, hkv, d, b, t, s, off in ((32, 8, 64, 1, 256, 1024, 0), (32, 8, 64, 1, 256, 1024, 256),
-                                     (32, 8, 64, 8, 128, 1024, 0), (32, 8, 64, 2, 16, 512, 100),
-                                     (32, 4, 128, 1, 256, 1024, 0), (32, 4, 128, 1, 256, 1024, 256),
-                                     (32, 4, 128, 8, 128, 1024, 0), (24, 8, 128, 1, 256, 1024, 256)):
-        kvd = hkv * d
-        q = torch.randn(b, t, hq, d, device="cuda", dtype=bf, generator=gen)
-        kc = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
-        vc = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
-        offs = torch.full((b,), off, dtype=torch.int32, device="cuda")
-        scale = d**-0.5
-        got = pa.flash_prefill_attention(q, kc, vc, offs, scale)
-        torch.cuda.synchronize()
-        err = check(f"K4 D={d} Hkv={hkv} B={b} T={t} S={s} offset={off}", got,
-                    pa.flash_prefill_attention_plain(q, kc, vc, offs, scale), row_dims=2)
-        ms = timer(lambda: pa.flash_prefill_attention(q, kc, vc, offs, scale))
-        plain_ms = timer(lambda: pa.flash_prefill_attention_plain(q, kc, vc, offs, scale), iters=3)
-        span = off + t
-        qt = q.transpose(1, 2)
-        kd = kc[:, :span].view(b, span, hkv, d).transpose(1, 2).contiguous()
-        vd = vc[:, :span].view(b, span, hkv, d).transpose(1, 2).contiguous()
-        mask = (torch.arange(span, device="cuda")[None, :]
-                <= (off + torch.arange(t, device="cuda"))[:, None])
-        lib_ms = timer(lambda: nnf.scaled_dot_product_attention(
-            qt, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True))
-        visible = t * off + t * (t + 1) // 2
-        nbytes = 2 * (2 * b * t * hq * d + 2 * b * span * kvd)
-        bb, by = bound_ms(nbytes, 4.0 * b * hq * d * visible)
-        cases4.append(dict(shape=f"D={d} Hkv={hkv} B={b} T={t} S={s} offset={off}", max_abs_err=err, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bb, bound_by=by, library_ms=lib_ms))
-        log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, SDPA {lib_ms:.4f})")
-    results["prefill_attention"] = dict(
-        route="cuda", source="nfai_tpu_torch/csrc/prefill_attention.cu",
-        replaces="nfai_tpu/ops/prefill_attention.py:267", also_replaces=[],
-        headline=cases4[2], cases=cases4,
-    )
     results.update(_kernels_k5(torch, timer, gen))
     results.update(_kernels_k6(torch, timer, gen))
     results.update(_kernels_k7(torch, timer, gen))
@@ -496,11 +464,7 @@ def phase_kernels(torch, timer, matmuls=None) -> dict:
     results.update(_kernels_int8(torch, timer, gen, results))
     _kernels_gemma(torch, timer, gen, results)
     results.update(_kernels_k12(torch, timer, gen))
-    layouts = _kernels_k4_layouts(torch, timer, gen)
-    # "merged" is K4's merged-lane instance: its cases join K4's (and K4-i8's) rows
-    results["prefill_attention"]["merged_cases"] = layouts.pop("merged")
-    results["prefill_attention_i8"]["merged_cases"] = layouts.pop("merged_i8")
-    results.update(layouts)
+    results.update(_kernels_k4(torch, timer, gen))
     return results
 
 
@@ -705,18 +669,17 @@ def _pool_codes(torch, pages):
 def _kernels_int8(torch, timer, gen, results) -> dict:
     """The int8 KV cache's kernels against their plain versions on the same
     int8 codes and scales (made by quantize_kv from bf16 draws): K2-i8 at
-    K2's cases, K4-i8 at K4's, K7-i8 at K7's, each also at B = 8 with 4000
-    keys in a 4096-slot cache (where K2 and K7 also run on the bf16 cache
-    for the comparison); K10 exactly at model A's (L 16, Hkv 8) and model
-    C's (L 8, Hkv 4) scale arrays, and K3 on int8 rows. Yardstick: the
-    cache (K7: the gathered pages) dequantized to bf16, then SDPA; K10:
-    index_put_."""
+    K2's cases, K7-i8 at K7's, each also at B = 8 with 4000 keys in a
+    4096-slot cache (where K2 and K7 also run on the bf16 cache for the
+    comparison); K10 exactly at model A's (L 16, Hkv 8) and model C's (L 8,
+    Hkv 4) scale arrays, and K3 on int8 rows (K4-i8: `_kernels_k4`).
+    Yardstick: the cache (K7: the gathered pages) dequantized to bf16, then
+    SDPA; K10: index_put_."""
     import torch.nn.functional as nnf
 
     from nfai_tpu_torch.models.llama import dequant_kv
     from nfai_tpu_torch.ops import fused_decode as fd
     from nfai_tpu_torch.ops import paged_attention as pga
-    from nfai_tpu_torch.ops import prefill_attention as pa
 
     bf = torch.bfloat16
     out = {}
@@ -821,49 +784,6 @@ def _kernels_int8(torch, timer, gen, results) -> dict:
         headline=cases[0], cases=cases,
     )
 
-    # K4-i8 at K4's cases
-    cases = []
-    for hq, hkv, d, b, t, s, off in ((32, 8, 64, 1, 256, 1024, 0), (32, 8, 64, 1, 256, 1024, 256),
-                                     (32, 8, 64, 8, 128, 1024, 0), (32, 8, 64, 2, 16, 512, 100),
-                                     (32, 4, 128, 1, 256, 1024, 0), (32, 4, 128, 1, 256, 1024, 256),
-                                     (32, 4, 128, 8, 128, 1024, 0), (24, 8, 128, 1, 256, 1024, 256)):
-        kvd = hkv * d
-        q = torch.randn(b, t, hq, d, device="cuda", dtype=bf, generator=gen)
-        (kc, ks), (vc, vs) = (_kv_codes(torch, torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen),
-                                        hkv) for _ in range(2))
-        offs = torch.full((b,), off, dtype=torch.int32, device="cuda")
-        scale = d**-0.5
-        sc = dict(k_scales=ks, v_scales=vs)
-        got = pa.flash_prefill_attention(q, kc, vc, offs, scale, **sc)
-        torch.cuda.synchronize()
-        err = check(f"K4-i8 D={d} Hkv={hkv} B={b} T={t} S={s} offset={off}", got,
-                    pa.flash_prefill_attention_plain(q, kc, vc, offs, scale, ks, vs), row_dims=2)
-        ms = timer(lambda: pa.flash_prefill_attention(q, kc, vc, offs, scale, **sc))
-        plain_ms = timer(lambda: pa.flash_prefill_attention_plain(q, kc, vc, offs, scale, ks, vs), iters=3)
-        span = off + t
-        qt = q.transpose(1, 2)
-        mask = (torch.arange(span, device="cuda")[None, :]
-                <= (off + torch.arange(t, device="cuda"))[:, None])
-
-        def dequant_sdpa():
-            kd = dequant_kv(kc[:, :span], ks[:, :, :span], bf).view(b, span, hkv, d).transpose(1, 2)
-            vd = dequant_kv(vc[:, :span], vs[:, :, :span], bf).view(b, span, hkv, d).transpose(1, 2)
-            return nnf.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)
-
-        lib_ms = timer(dequant_sdpa)
-        visible = t * off + t * (t + 1) // 2
-        nbytes = 2 * (2 * b * t * hq * d) + 2 * b * span * kvd + 2 * 4 * b * hkv * span
-        bb, by = bound_ms(nbytes, 4.0 * b * hq * d * visible)
-        cases.append(dict(shape=f"D={d} Hkv={hkv} B={b} T={t} S={s} offset={off}", max_abs_err=err, ms=ms,
-                          plain_ms=plain_ms, bound_ms=bb, bound_by=by, library_ms=lib_ms,
-                          library="dequantize + SDPA"))
-        log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, dequantize + SDPA {lib_ms:.4f})")
-    out["prefill_attention_i8"] = dict(
-        route="cuda", source="nfai_tpu_torch/csrc/prefill_attention.cu",
-        replaces="nfai_tpu/ops/prefill_attention.py:267", also_replaces=[],
-        headline=cases[2], cases=cases,
-    )
-
     # K7-i8 at K7's cases, and at 4000 keys (with K7 on the bf16 pool beside it)
     ragged = [1, 127, 128, 129, 500, 777, 1000, 1024]
     cases = []
@@ -948,13 +868,13 @@ GEMMA_HEADS = {"G": (8, 4), "3-1B": (4, 1), "2B": (8, 1)}
 
 
 def _kernels_gemma(torch, timer, gen, results) -> None:
-    """K2, K4 and K7 at head_dim 256 with Gemma's options, bf16 and int8 (the
+    """K2 and K7 at head_dim 256 with Gemma's options, bf16 and int8 (the
     int8 entry points on quantize_kv codes), appended to those kernels'
-    cases: model G's heads (Gemma-2-2B, r = 2) with softcap 50 and window 0
-    or 4096, Gemma-3-1B's (r = 4) with window 512 and no softcap, Gemma 2B's
-    (r = 8, multi-query) once without either; K2 and K7 also at batch 8 with
-    4000 keys in a 4096-slot cache, window 512 beside window 0 (the skipped
-    tiles), and K4 at a chunk whose window bites. Queries are drawn at 8x
+    cases (K4's: `_kernels_k4`): model G's heads (Gemma-2-2B, r = 2) with
+    softcap 50 and window 0 or 4096, Gemma-3-1B's (r = 4) with window 512
+    and no softcap, Gemma 2B's (r = 8, multi-query) once without either;
+    both also at batch 8 with 4000 keys in a 4096-slot cache, window 512
+    beside window 0 (the skipped tiles). Queries are drawn at 8x
     scale under a softcap, so that the cap changes the scores. Each case is
     checked per row against the plain version (ragged starts), then timed
     with every row full; the bound counts the bytes and operations of the
@@ -966,7 +886,6 @@ def _kernels_gemma(torch, timer, gen, results) -> None:
     from nfai_tpu_torch.models.llama import dequant_kv
     from nfai_tpu_torch.ops import fused_decode as fd
     from nfai_tpu_torch.ops import paged_attention as pga
-    from nfai_tpu_torch.ops import prefill_attention as pa
 
     bf, d = torch.bfloat16, 256
 
@@ -1035,52 +954,6 @@ def _kernels_gemma(torch, timer, gen, results) -> None:
                    "dequantize + SDPA" if quant else "SDPA")
             del kc, vc
         del kf, vf
-
-    # K4 / K4-i8: (heads, B, T, S, offset, softcap, window)
-    for heads, b, t, s, off, cap, win in (("G", 1, 256, 1024, 0, 50.0, 4096), ("G", 1, 256, 1024, 256, 50.0, 4096),
-                                          ("G", 8, 128, 1024, 0, 50.0, 4096), ("G", 1, 256, 1024, 768, 50.0, 512),
-                                          ("3-1B", 1, 256, 1024, 768, 0.0, 512), ("2B", 1, 256, 1024, 256, 0.0, 0)):
-        hq, hkv = GEMMA_HEADS[heads]
-        kvd = hkv * d
-        q = torch.randn(b, t, hq, d, device="cuda", dtype=bf, generator=gen) * (8 if cap else 1)
-        kf = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
-        vf = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
-        offs = torch.full((b,), off, dtype=torch.int32, device="cuda")
-        span = off + t
-        qpos = off + torch.arange(t, device="cuda")[:, None]
-        keys = torch.arange(span, device="cuda")[None, :]
-        mask = (keys <= qpos) & ((keys > qpos - win) if win else True)
-        visible = int(mask.sum())
-        first = max(off - win + 1, 0) if win else 0
-        for quant in (False, True):
-            if quant:
-                (kc, ks), (vc, vs) = _kv_codes(torch, kf, hkv), _kv_codes(torch, vf, hkv)
-                sc, name = dict(k_scales=ks, v_scales=vs), "prefill_attention_i8"
-            else:
-                kc, vc, ks, vs, sc, name = kf, vf, None, None, {}, "prefill_attention"
-            label = (f"D=256 {heads} heads Hq={hq} Hkv={hkv} B={b} T={t} S={s} offset={off} "
-                     f"softcap={cap:g} window={win}")
-            run = lambda: pa.flash_prefill_attention(q, kc, vc, offs, d**-0.5, **opts(cap, win), **sc)  # noqa: E731
-            got = run()
-            torch.cuda.synchronize()
-            plain = lambda: pa.flash_prefill_attention_plain(q, kc, vc, offs, d**-0.5, ks, vs, cap, win)  # noqa: E731
-            err = check(f"{'K4-i8' if quant else 'K4'} {label}", got, plain(), row_dims=2)
-
-            def lib():
-                if quant:
-                    kd, vd = dequant_kv(kc[:, :span], ks[:, :, :span], bf), dequant_kv(vc[:, :span], vs[:, :, :span], bf)
-                else:
-                    kd, vd = kc[:, :span], vc[:, :span]
-                return nnf.scaled_dot_product_attention(
-                    q.transpose(1, 2), kd.view(b, span, hkv, d).transpose(1, 2),
-                    vd.view(b, span, hkv, d).transpose(1, 2), attn_mask=mask, scale=d**-0.5, enable_gqa=True)
-
-            read = span - first  # the keys of the chunk's windows, read once
-            nbytes = 2 * (2 * b * t * hq * d) + 2 * b * read * kvd * (1 if quant else 2) + (
-                2 * 4 * b * hkv * read if quant else 0)
-            record(name, label, err, run, plain, lib, nbytes, 4.0 * b * hq * d * visible,
-                   "dequantize + SDPA" if quant else "SDPA")
-            del kc, vc
 
     # K7 / K7-i8: (heads, B, ps, lengths, softcap, window)
     ragged = [1, 127, 128, 129, 500, 777, 1000, 1024]
@@ -1334,8 +1207,110 @@ def _kernels_k12(torch, timer, gen) -> dict:
     )}
 
 
-# the matmul kernels' phases, by the name `--kernels` takes
-MATMUL_PHASES = {"k1": _kernels_k1, "k6": _kernels_k6, "k11": _kernels_k11, "k12": _kernels_k12}
+
+
+# K4's "full" cases, bf16 and int8 (label, Hq, Hkv, D, B, T, S, offset):
+# model A's heads (32 / 8 of 64) at a 256-token chunk at offsets 0 and 256,
+# the 8 x 128 batch prefill, two rows of 16 at offset 100 and the batch-1
+# 16-token bucket at offset 1000 (8 blocks on the SMs: the short grid);
+# model C's (32 / 4 of 128) the same, model E's (32 / 8 of 128) at the 8 x
+# 128 prefill, the 3B's (24 / 8 of 128, r = 3: padding rows)
+K4_CASES = (("A", 32, 8, 64, 1, 256, 1024, 0), ("A", 32, 8, 64, 1, 256, 1024, 256),
+            ("A", 32, 8, 64, 8, 128, 1024, 0), ("A", 32, 8, 64, 2, 16, 512, 100),
+            ("A", 32, 8, 64, 1, 16, 1024, 1000),
+            ("C", 32, 4, 128, 1, 256, 1024, 0), ("C", 32, 4, 128, 1, 256, 1024, 256),
+            ("C", 32, 4, 128, 8, 128, 1024, 0), ("E", 32, 8, 128, 8, 128, 1024, 0),
+            ("3B", 24, 8, 128, 1, 256, 1024, 256))
+# K4 at head_dim 256 (heads of GEMMA_HEADS, B, T, S, offset, softcap,
+# window): model G's with softcap 50 at chunks of 256 (window 4096 and, at
+# offset 768, 512: the window bites) and the 8 x 128 prefill; Gemma-3-1B's
+# with window 512; Gemma 2B's (r = 8) without either
+GEMMA_K4_CASES = (("G", 1, 256, 1024, 0, 50.0, 4096), ("G", 1, 256, 1024, 256, 50.0, 4096),
+                  ("G", 8, 128, 1024, 0, 50.0, 4096), ("G", 1, 256, 1024, 768, 50.0, 512),
+                  ("3-1B", 1, 256, 1024, 768, 0.0, 512), ("2B", 1, 256, 1024, 256, 0.0, 0))
+
+
+def _kernels_k4(torch, timer, gen) -> dict:
+    """K4 (flash prefill attention) and its int8, head-major and merged-lane
+    instances against their plain versions: "full" at K4_CASES and
+    GEMMA_K4_CASES, bf16 and int8 (quantize_kv codes of the same values;
+    under a softcap the queries are drawn at 8x scale, so that the cap
+    changes the scores), then the layouts (`_k4_layouts`). Each case is
+    checked per query token, then timed beside the plain version and the
+    yardstick: SDPA over the visible span of a head-major copy made
+    beforehand (int8: the span dequantized, then SDPA; softcap: SDPA
+    without it, which it does not take). The bound counts the bytes and
+    operations of the keys the window leaves visible."""
+    import torch.nn.functional as nnf
+
+    from nfai_tpu_torch.models.llama import dequant_kv
+    from nfai_tpu_torch.ops import prefill_attention as pa
+
+    bf = torch.bfloat16
+    out = {"prefill_attention": [], "prefill_attention_i8": []}
+    cases = [(f"{m} heads", hq, hkv, d, b, t, s, off, 0.0, 0) for m, hq, hkv, d, b, t, s, off in K4_CASES]
+    cases += [(f"{heads} heads", *GEMMA_HEADS[heads], 256, b, t, s, off, cap, win)
+              for heads, b, t, s, off, cap, win in GEMMA_K4_CASES]
+    for model, hq, hkv, d, b, t, s, off, cap, win in cases:
+        kvd, scale = hkv * d, d**-0.5
+        q = torch.randn(b, t, hq, d, device="cuda", dtype=bf, generator=gen) * (8 if cap else 1)
+        kf = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        vf = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        offs = torch.full((b,), off, dtype=torch.int32, device="cuda")
+        span = off + t
+        qpos = off + torch.arange(t, device="cuda")[:, None]
+        keys = torch.arange(span, device="cuda")[None, :]
+        mask = (keys <= qpos) & ((keys > qpos - win) if win else True)
+        visible = int(mask.sum())
+        first = max(off - win + 1, 0) if win else 0  # the first key of the chunk's windows
+        qt = q.transpose(1, 2)
+        kd, vd = (x[:, :span].view(b, span, hkv, d).transpose(1, 2).contiguous() for x in (kf, vf))
+        for quant in (False, True):
+            if quant:
+                (kc, ks), (vc, vs) = _kv_codes(torch, kf, hkv), _kv_codes(torch, vf, hkv)
+                sc, name = dict(k_scales=ks, v_scales=vs), "prefill_attention_i8"
+            else:
+                kc, vc, ks, vs, sc, name = kf, vf, None, None, {}, "prefill_attention"
+            label = f"{model} Hq={hq} Hkv={hkv} D={d} B={b} T={t} S={s} offset={off}" + (
+                f" softcap={cap:g} window={win}" if cap or win else "")
+            run = lambda: pa.flash_prefill_attention(q, kc, vc, offs, scale, softcap=cap, window=win, **sc)  # noqa: B023,E731
+            got = run()
+            torch.cuda.synchronize()
+            plain = lambda: pa.flash_prefill_attention_plain(q, kc, vc, offs, scale, ks, vs, cap, win)  # noqa: B023,E731
+            err = check(f"{'K4-i8' if quant else 'K4'} {label}", got, plain(), row_dims=2)
+            if quant:
+                def lib():  # noqa: B023
+                    kq = dequant_kv(kc[:, :span], ks[:, :, :span], bf).view(b, span, hkv, d).transpose(1, 2)
+                    vq = dequant_kv(vc[:, :span], vs[:, :, :span], bf).view(b, span, hkv, d).transpose(1, 2)
+                    return nnf.scaled_dot_product_attention(qt, kq, vq, attn_mask=mask, scale=scale,
+                                                            enable_gqa=True)
+            else:
+                def lib():  # noqa: B023
+                    return nnf.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, scale=scale,
+                                                            enable_gqa=True)
+            ms = timer(run)
+            plain_ms = timer(plain, iters=3)
+            lib_ms = timer(lib)
+            read = span - first  # the keys of the chunk's windows, read once
+            nbytes = 2 * (2 * b * t * hq * d) + 2 * b * read * kvd * (1 if quant else 2) + (
+                2 * 4 * b * hkv * read if quant else 0)
+            bb, by = bound_ms(nbytes, 4.0 * b * hq * d * visible)
+            library = "dequantize + SDPA" if quant else "SDPA"
+            out[name].append(dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bb,
+                                  bound_by=by, library_ms=lib_ms, library=library))
+            log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, {library} {lib_ms:.4f}, "
+                f"x{ms / lib_ms:.2f})")
+            del kc, vc
+        del kf, vf, kd, vd
+    src = "nfai_tpu_torch/csrc/prefill_attention.cu"
+    rows = {name: dict(route="cuda", source=src, replaces="nfai_tpu/ops/prefill_attention.py:267",
+                       also_replaces=[], headline=c[2], cases=c) for name, c in out.items()}
+    layouts = _k4_layouts(torch, timer, gen)
+    # "merged" is K4's merged-lane instance: its cases join K4's (and K4-i8's) rows
+    rows["prefill_attention"]["merged_cases"] = layouts.pop("merged")
+    rows["prefill_attention_i8"]["merged_cases"] = layouts.pop("merged_i8")
+    rows.update(layouts)
+    return rows
 
 
 # (label, Hq, Hkv, D, B, T, S, offset, softcap, window): model E's heads (32 / 8 of
@@ -1350,7 +1325,7 @@ LAYOUT_CASES = (("E B=8 T=128", 32, 8, 128, 8, 128, 1024, 0, 0.0, 0),
                  50.0, 512))
 
 
-def _kernels_k4_layouts(torch, timer, gen) -> dict:
+def _k4_layouts(torch, timer, gen) -> dict:
     """K4 in the "headmajor" layout (K4-hm: its own entry points, the cache
     copied to [B, Hkv, S, D]) and "merged" (K4's merged-lane instance under
     its own variant label) at LAYOUT_CASES, bf16 and int8 (codes and scales
@@ -1440,6 +1415,11 @@ def _kernels_k4_layouts(torch, timer, gen) -> dict:
     return {"prefill_attention_hm": row(out["prefill_attention_hm"]),
             "prefill_attention_hm_i8": row(out["prefill_attention_hm_i8"]),
             "merged": out["merged"], "merged_i8": out["merged_i8"]}
+
+
+# the kernel phases `--kernels` takes: the matmuls and K4
+KERNEL_PHASES = {"k1": _kernels_k1, "k4": _kernels_k4, "k6": _kernels_k6, "k11": _kernels_k11,
+                 "k12": _kernels_k12}
 
 
 # ---------------------------------------------------------------------------
@@ -1732,9 +1712,9 @@ def phase_profile_prefill(torch, engine, expect: dict[str, int]) -> dict:
     """torch.profiler over one more prefill chunk of the batch phase's shape
     (8 x 128, M = 1024 rows for every projection) on a fresh cache: host
     wall (synchronised), device busy ms, and the device ms of each path of
-    the matmul kernels, tallied by function name (E: K12's GEMV for the
-    head's 8 rows, its wgmma tiles for the layers'; D: K11's wgmma tiles,
-    no GEMV). `expect` gives the
+    the matmul kernels and of K4, tallied by function name (E: K12's GEMV
+    for the head's 8 rows, its wgmma tiles for the layers', K4-hm; D: K11's
+    wgmma tiles, no GEMV, K4). `expect` gives the
     launches of a chunk by function name. The profiler loses the records of
     the first kernels after it starts (seen on the card: 1 to 12 of the 32
     tile launches), so a first chunk runs as the profiler's warm-up step and
@@ -2729,13 +2709,14 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
                 tiles, gemv, head = PREFILL_PROFILED[label]
                 n_layers = engine.model_cfg.n_layers
                 prof = out["prefill_profile"] = phase_profile_prefill(
-                    torch, engine, {tiles: 4 * n_layers, gemv: head})
+                    torch, engine, {tiles: 4 * n_layers, gemv: head, "prefill_attn": n_layers})
                 ms = prof["device_ms_by_function"]
                 log(f"  model {label} prefill 8x128: {out['batch']['prefill_ms']:.1f} ms (host clock, "
                     f"synchronised, batch phase; median of five {prof['median_wall_ms']:.1f}); the "
                     f"matmul kernel's device share "
                     f"{ms[tiles] + ms[gemv]:.2f} of {prof['device_ms']:.2f} ms (tiles {ms[tiles]:.2f} in "
-                    f"{4 * n_layers} launches, GEMV {ms[gemv]:.4f} in {head})")
+                    f"{4 * n_layers} launches, GEMV {ms[gemv]:.4f} in {head}); K4 "
+                    f"{ms['prefill_attn']:.4f} ms in {n_layers} launches")
             phase_s[f"profile {label}"] = time.perf_counter() - t0
         del state
     launches = _check_route(kernels_mod, label, f"model {label}")
@@ -2811,15 +2792,15 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--kernels", default=None,
-                    help=f"kernels phase: only these matmul kernels, of {sorted(MATMUL_PHASES)}")
+                    help=f"kernels phase: only these kernels, of {sorted(KERNEL_PHASES)}")
     ap.add_argument("--models", default=None,
                     help=f"serve/batch/profile/server: only these models, of {sorted(MODELS)}")
     args = ap.parse_args(argv)
     only = [p for p in args.only.split(",") if p]
     if bad := set(only) - set(PHASES):
         ap.error(f"unknown phases {sorted(bad)}")
-    matmuls = None if args.kernels is None else [k for k in args.kernels.split(",") if k]
-    if matmuls is not None and (bad := set(matmuls) - set(MATMUL_PHASES)):
+    subset = None if args.kernels is None else [k for k in args.kernels.split(",") if k]
+    if subset is not None and (bad := set(subset) - set(KERNEL_PHASES)):
         ap.error(f"unknown kernels {sorted(bad)}")
     models = MODELS
     if args.models is not None:
@@ -2827,7 +2808,7 @@ def main(argv=None) -> int:
         if bad := set(names) - set(MODELS):
             ap.error(f"unknown models {sorted(bad)}")
         models = {m: MODELS[m] for m in names}
-    whole = set(only) == set(PHASES) and matmuls is None and models is MODELS
+    whole = set(only) == set(PHASES) and subset is None and models is MODELS
 
     import torch
 
@@ -2853,7 +2834,7 @@ def main(argv=None) -> int:
         kern = {}
         if "kernels" in only:
             t0 = time.perf_counter()
-            kern = phase_kernels(torch, timer, matmuls)
+            kern = phase_kernels(torch, timer, subset)
             phase_s["kernels"] = time.perf_counter() - t0
         launches = None
         if "serve" in only or "batch" in only:

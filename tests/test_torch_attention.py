@@ -1,6 +1,7 @@
 """K2 (decode attention), K3 (K/V row write) and K4 (flash prefill
 attention): the port's plain versions against the JAX package's Pallas
-kernels in interpret mode, on the same numpy inputs, in f32.
+kernels in interpret mode, on the same numpy inputs, in f32; and K4's
+wgmma kernel's shared-memory layouts and fragments, modelled in numpy.
 
 Tolerance: 1e-4 relative to max|want| — both sides compute in f32 and differ
 only in summation order (the 2e-2 bf16 rule is not needed here).
@@ -114,3 +115,130 @@ def test_flash_prefill_plain_vs_jax(t, offset):
     )
     assert got.shape == (b, t, hq, d)
     assert rel(got.numpy(), want) < TOL
+
+
+# K4's wgmma kernel (csrc/prefill_attention.cu), modelled in numpy: its
+# shared-memory tiles under the 128-byte swizzle, the K-major (Q K^T) and
+# MN-major (P V) operand descriptors, and the fragments of wgmma's
+# accumulators and register A operand. Addresses are bytes; a tile is a
+# flat array of 2-byte slots.
+
+
+def _swz(addr):
+    """The 128-byte swizzle of a 1024-byte aligned tile: the 16-byte chunk
+    (address bits 4-6) XOR the 128-byte row (bits 7-9)."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _sw_off(rows, rr, c8):
+    """The kernel's `sw_off`: 16-byte chunk c8 of row rr in a tile of 64-column
+    sub-tiles of [rows][128 B]."""
+    return (c8 >> 3) * rows * 128 + rr * 128 + (((c8 & 7) ^ (rr & 7)) << 4)
+
+
+def _tile(x, conv=False):
+    """x [rows, D] as the kernel lays it in shared memory: TMA's 64-column
+    boxes under the 128-byte swizzle (the Q stores take `_sw_off`, asserted
+    equal), or the int8 conversion's stores (codes 16p..16p+15 of a row's
+    sub-tile c to its chunks 2p and 2p + 1)."""
+    rows, d = x.shape
+    rr, dd = np.meshgrid(np.arange(rows), np.arange(d), indexing="ij")
+    tma = _swz((dd // 64) * rows * 128 + rr * 128 + (dd % 64) * 2)
+    assert np.array_equal(tma, _sw_off(rows, rr, dd // 8) + (dd % 8) * 2)
+    if conv:
+        c, p, half = dd // 64, (dd % 64) // 16, (dd % 16) // 8
+        off = c * rows * 128 + rr * 128 + (((2 * p + half) ^ (rr & 7)) << 4) + (dd % 8) * 2
+    else:
+        off = tma
+    mem = np.full(rows * d, np.nan)
+    mem[off // 2] = x
+    assert not np.isnan(mem).any()  # every slot written once
+    return mem
+
+
+def _kmajor(mem, start, rows):
+    """The [rows, 16] operand of one k16 step that a K-major descriptor under
+    the 128-byte swizzle reads at `start`: 8-row groups 1024 bytes apart
+    (the stride byte offset), 128-byte rows, 2 bytes an element."""
+    m, k = np.meshgrid(np.arange(rows), np.arange(16), indexing="ij")
+    return mem[_swz(start + (m // 8) * 1024 + (m % 8) * 128 + 2 * k) // 2]
+
+
+def _mnmajor(mem, start, lbo, n):
+    """The [16, n] B operand (K x N) of one k16 step that an MN-major
+    descriptor under the 128-byte swizzle reads at `start` (wgmma's
+    transpose-B): N contiguous in 128-byte rows, 64-wide N blocks `lbo`
+    bytes apart (the leading byte offset), 8-row K groups 1024 apart."""
+    k, nn = np.meshgrid(np.arange(16), np.arange(n), indexing="ij")
+    return mem[_swz(start + (nn // 64) * lbo + (k // 8) * 1024 + (k % 8) * 128 + 2 * (nn % 64)) // 2]
+
+
+def _lanes():
+    tid = np.arange(128)
+    lane = tid % 32
+    return tid // 32, lane // 4, lane % 4  # warp, g, t
+
+
+def _acc_map(n):
+    """(row, col) of accumulator element j of thread tid of an m64nN
+    product: [128, n / 2] each: rows 16w + g (+ 8), columns 8c + 2t (+ 1)
+    for j = 4c + 2hh + e."""
+    w, g, t = (x[:, None] for x in _lanes())
+    j = np.arange(n // 2)[None, :]
+    return 16 * w + g + 8 * ((j >> 1) & 1), 8 * (j >> 2) + 2 * t + (j & 1)
+
+
+def _a_map(step):
+    """(row, k) of the register A operand of k16 step `step`: [128, 4 regs,
+    2 halves]: reg 0 (g, 2t + h), 1 (g + 8, 2t + h), 2 (g, 2t + 8 + h),
+    3 (g + 8, 2t + 8 + h) of the warp's 16 rows."""
+    w, g, t = (x[:, None, None] for x in _lanes())
+    e, h = np.arange(4)[None, :, None], np.arange(2)[None, None, :]
+    return 16 * w + g + 8 * (e & 1), 16 * step + 2 * t + 8 * (e >> 1) + h
+
+
+@pytest.mark.parametrize("conv", [False, True], ids=["bf16 tiles", "int8 converted"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_k4_fragment_mapping(d, conv):
+    """S = Q K^T from the K-major descriptors (32 bytes a k16 step inside
+    the swizzle atom), S's accumulator elements (each (row, key) held once),
+    P's A fragments made of the accumulator pairs (8k + 2e, 8k + 2e + 1),
+    V through the MN-major descriptor (each B element is V[16 k + kk, n]),
+    and the epilogue's stores and 16-byte row reads: the modelled P V
+    equals the plain product. Small integers: every sum is exact."""
+    rng = np.random.default_rng(d + conv)
+    bs = 64  # keys a tile
+    q, k, v = (rng.integers(-8, 8, (rows, d)).astype(np.float64) for rows in (64, bs, bs))
+    qm, km, vm = _tile(q), _tile(k, conv), _tile(v, conv)
+    s = sum(_kmajor(qm, (kk // 4) * 64 * 128 + 32 * (kk % 4), 64)
+            @ _kmajor(km, (kk // 4) * bs * 128 + 32 * (kk % 4), bs).T for kk in range(d // 16))
+    assert np.array_equal(s, q @ k.T)
+    row, col = _acc_map(bs)
+    assert np.array_equal(np.bincount((row * bs + col).ravel()), np.ones(64 * bs))
+    p = np.floor(s[row, col] / 7) - 3  # the softmax: any function of each element, exact here
+    p_full = np.full((64, bs), np.nan)
+    p_full[row, col] = p
+    a = np.full((64, bs), np.nan)
+    for step in range(bs // 16):
+        r_, key = _a_map(step)
+        a[r_, key] = np.stack([p[:, 8 * step + 2 * e: 8 * step + 2 * e + 2] for e in range(4)], 1)
+    assert np.array_equal(a, p_full)
+    o = np.zeros((64, d))
+    for step in range(bs // 16):
+        b = _mnmajor(vm, step * 16 * 128, bs * 128, d)
+        assert np.array_equal(b, v[16 * step:16 * step + 16])
+        o += a[:, 16 * step:16 * step + 16] @ b
+    orow, ocol = _acc_map(d)
+    acc = o[orow, ocol]
+    # epilogue: lane (w, g, t) stores the pair (4c + 2hh, + 1) of row 16w +
+    # g + 8hh at sw_off(64, row, c) + 4t; rows are then read 16 bytes at a time
+    w, g, t = (x[:, None, None] for x in _lanes())
+    c, hh = np.arange(d // 8)[None, :, None], np.arange(2)[None, None, :]
+    rr = 16 * w + g + 8 * hh
+    slot = (_sw_off(64, rr, c) + 4 * t) // 2
+    mem = np.full(64 * d, np.nan)
+    pairs = acc.reshape(128, d // 8, 2, 2)  # [thread, c, hh, e]
+    mem[slot], mem[slot + 1] = pairs[..., 0], pairs[..., 1]
+    r8, c8 = np.meshgrid(np.arange(64), np.arange(d // 8), indexing="ij")
+    out = mem[(_sw_off(64, r8, c8) // 2)[..., None] + np.arange(8)].reshape(64, d)
+    assert np.array_equal(out, p_full @ v)

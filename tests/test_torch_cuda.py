@@ -7,9 +7,14 @@ no JAX, run them without the suite's conftest:
 
 Tolerance: max|got - want| / max|want| < 2e-2 (bf16 kernels against f32
 plain versions), taken per output row for attention (per batch row for
-decode, per query token for prefill) and the matmuls and MLP (per input
-row) so a row with a small output is not hidden behind a large one; the
-row write is exact. K1 and K6 (4-bit and 8-bit dequant-matmul) are
+decode, per query token or (token, head) row for prefill) and the matmuls
+and MLP (per input row) so a row with a small output is not hidden behind a
+large one; the row write is exact. K4's wgmma kernel is checked at every
+head width (64, 128, 256; softcap and window at 256), GQA ratios 1, 2, 3,
+4 and 8, chunks of 1 to 256 tokens at offsets 0, 40 and 700, on a narrow
+and a wide grid (one and two consumer groups a block), bf16 and int8, per
+(token, head) row and with the same bits on three launches; K7 at head
+widths 64, 128 and 256. K1 and K6 (4-bit and 8-bit dequant-matmul) are
 checked on every path: the CUDA-core GEMV (M = 1), the tensor-core GEMV
 (M = 2..8) and each wgmma tile width in both K splits, at the path's N
 and K, K % 128 != 0 and a ragged N; K6 with codes over all of -128..127,
@@ -137,15 +142,44 @@ def test_decode_attention_and_row_write_kernels(cuda):
     assert torch.equal(fd.write_all_layers(kc.clone(), rows, starts_w), ref)
 
 
-@pytest.mark.parametrize("t,offset", [(16, 0), (12, 40), (64, 64)])
-def test_prefill_attention_kernel(cuda, t, offset):
-    b, s, hkv, r, d = 2, 192, 2, 4, 64
+# every shape class of K4's wgmma kernel: D 64 and 128 (one consumer group
+# a block on the narrow grid of 2 rows x 2 kv heads, two where the wide
+# grid of 8 x 8 and a long chunk give blocks for every SM) and 256 (one,
+# with and without softcap / window), GQA ratios 1-8 (r = 3: padding rows;
+# at T = 128 and 256 on the wide grid the last block's second group has no
+# real row), chunks of 1 to 256 tokens (17: a ragged tile), offsets 0, 40
+# and 700 (tiles skipped, the diagonal crossing a tile), a batch row at half
+# the offset; bf16 and int8 (codes and scales from quantize_kv); per
+# (token, head) row against the plain version, the same bits on three
+# launches
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("offset", [0, 40, 700])
+@pytest.mark.parametrize("t", [1, 16, 17, 64, 128, 256])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("b,hkv", [(2, 2), (8, 8)], ids=["narrow", "wide"])
+def test_prefill_attention_kernel(cuda, b, hkv, d, r, t, offset, quant):
+    from nfai_tpu_torch.models.llama import quantize_kv
+
+    s = 1024
     bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
-    q = torch.randn(b, t, hkv * r, d, **bf)
+    q = torch.randn(b, t, hkv * r, d, **bf) * 2
     kc, vc = torch.randn(b, s, hkv * d, **bf), torch.randn(b, s, hkv * d, **bf)
-    offs = torch.tensor([offset, offset // 2], device="cuda", dtype=torch.int32)
-    got = pa.flash_prefill_attention(q, kc, vc, offs)
-    assert rel(got, pa.flash_prefill_attention_plain(q, kc, vc, offs, d**-0.5), row_dims=2) < TOL
+    sc = {}
+    if quant:
+        (kc, ks), (vc, vs) = quantize_kv(kc, hkv), quantize_kv(vc, hkv)
+        sc = dict(k_scales=ks.transpose(1, 2).contiguous(), v_scales=vs.transpose(1, 2).contiguous())
+    offs = torch.tensor([offset, offset // 2] * (b // 2), device="cuda", dtype=torch.int32)
+    kernel = pa.K4_I8 if quant else pa.K4
+    for cap, win in ((0.0, 0), (50.0, 96)) if d == 256 else ((0.0, 0),):
+        before = kernel.launches
+        got = pa.flash_prefill_attention(q, kc, vc, offs, softcap=cap, window=win, **sc)
+        assert kernel.launches == before + 1
+        want = pa.flash_prefill_attention_plain(q, kc, vc, offs, d**-0.5, sc.get("k_scales"),
+                                                sc.get("v_scales"), cap, win)
+        assert rel(got, want, row_dims=3) < (INT8_TOL if quant else TOL), (cap, win)
+        assert all(torch.equal(pa.flash_prefill_attention(q, kc, vc, offs, softcap=cap, window=win, **sc),
+                               got) for _ in range(2))  # no atomics
 
 
 def test_tiny_model_cuda_matches_cpu(cuda, tmp_path):
@@ -282,8 +316,9 @@ def test_tiny_kinds_cuda_match_cpu(cuda, tmp_path, kind):
 
 @pytest.mark.parametrize("ps", [16, 128])
 @pytest.mark.parametrize("r", [1, 4])
-def test_paged_attention_kernel(cuda, ps, r):
-    b, hkv, d, n_p = 5, 2, 64, 256 // ps
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_paged_attention_kernel(cuda, d, ps, r):
+    b, hkv, n_p = 5, 2, 256 // ps
     n_pages = b * n_p + 3
     bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
     q = torch.randn(b, hkv * r, d, **bf)
