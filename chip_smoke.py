@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only build,kernels --kernels k12   # one matmul kernel's rows
     python3 chip_smoke.py --only build,kernels --kernels k11   # K11 (dense) alone
     python3 chip_smoke.py --only build,kernels --kernels k4    # K4 (prefill attention) alone
+    python3 chip_smoke.py --only build,kernels --kernels k2,k7 # K2 / K7 (decode attention), int8 and Gemma rows
     python3 chip_smoke.py --only build,serve,batch,profile --models E   # one model's path
 
 Phases (each failure propagates, the exit code is then non-zero):
@@ -237,6 +238,12 @@ def check(name: str, got, want, tol: float = TOL, row_dims: int = 0) -> float:
     return abs_err
 
 
+def same_bits(name: str, got, fn) -> None:
+    """Two more launches of fn() give got's bits (no atomics)."""
+    if not all(fn().equal(got) for _ in range(2)):
+        raise AssertionError(f"{name}: three launches on the same inputs differ")
+
+
 class Timer:
     """Median CUDA-event time of one fn() launch over `iters` launches.
 
@@ -372,23 +379,48 @@ def _kernels_k1(torch, timer, gen) -> dict:
 
 
 def phase_kernels(torch, timer, subset=None) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if subset is not None:  # only these kernels' phases (a quick check)
+        return {k: v for name in subset for k, v in KERNEL_PHASES[name](torch, timer, gen).items()}
+    results = _kernels_k1(torch, timer, gen)
+    results.update(_kernels_k2(torch, timer, gen))
+    results.update(_kernels_kv_write(torch, timer, gen))
+    results.update(_kernels_k5(torch, timer, gen))
+    results.update(_kernels_k6(torch, timer, gen))
+    results.update(_kernels_k7(torch, timer, gen))
+    results.update(_kernels_k8_k9(torch, timer, gen))
+    results.update(_kernels_k11(torch, timer, gen))
+    results.update(_kernels_k12(torch, timer, gen))
+    results.update(_kernels_k4(torch, timer, gen))
+    return results
+
+
+# the decode shapes of K2 and K3: (layers, Hq, Hkv, D, B, S) of the 1B (L=16,
+# Hq=32, Hkv=8, D=64), model C (L=8, Hq=32, Hkv=4, D=128, r = 8; K3's row is
+# 512 wide in both) and the 3B (Hq=24, Hkv=8, D=128, r = 3; 2 layers of cache)
+DECODE_SHAPES = ((16, 32, 8, 64, 1, 512), (16, 32, 8, 64, 8, 1024), (8, 32, 4, 128, 1, 512),
+                 (8, 32, 4, 128, 8, 1024), (2, 24, 8, 128, 8, 1024))
+
+
+def _split_of(torch, b, hkv, capacity, d) -> int | None:
+    """The blocks K2/K7 split a row's keys across at this grid (None before
+    the split existed), for the log."""
+    from nfai_tpu_torch.ops import fused_decode as fd
+
+    split = getattr(fd, "decode_split", None)
+    return None if split is None else split(b, hkv, capacity, fd.sm_count(torch.cuda.current_device()), d)
+
+
+def _kernels_k2(torch, timer, gen) -> dict:
+    """K2 (`--kernels k2`): bf16 at the decode shapes, then K2-i8 (with K2
+    beside it at 4000 keys) and Gemma's head_dim-256 rows, bf16 and int8."""
     import torch.nn.functional as nnf
 
     from nfai_tpu_torch.ops import fused_decode as fd
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
-    if subset is not None:  # only these kernels' phases (a quick check)
-        return {k: v for name in subset for k, v in KERNEL_PHASES[name](torch, timer, gen).items()}
-    results = _kernels_k1(torch, timer, gen)
-
-    # K2 / K3 at the decode shapes: the 1B's L=16, Hq=32, Hkv=8, D=64,
-    # model C's L=8, Hq=32, Hkv=4, D=128 (r = 8; K3's row is 512 wide in
-    # both) and the 3B's Hq=24, Hkv=8, D=128 (r = 3; 2 layers of cache)
-    cases2, cases3 = [], []
-    for L, hq, hkv, d, b, s in ((16, 32, 8, 64, 1, 512), (16, 32, 8, 64, 8, 1024),
-                                (8, 32, 4, 128, 1, 512), (8, 32, 4, 128, 8, 1024),
-                                (2, 24, 8, 128, 8, 1024)):
+    cases2 = []
+    for L, hq, hkv, d, b, s in DECODE_SHAPES:
         kvd = hkv * d
         kc = torch.randn(L, b, s, kvd, device="cuda", dtype=bf, generator=gen)
         vc = torch.randn(L, b, s, kvd, device="cuda", dtype=bf, generator=gen)
@@ -406,8 +438,10 @@ def phase_kernels(torch, timer, subset=None) -> dict:
         got = fd.layered_decode_attention(q, kn, vn, kc, vc, layer, starts, scale)
         want = fd.decode_attention_plain(q, kn, vn, kc[layer], vc[layer], starts, scale)
         torch.cuda.synchronize()
-        err = check(f"K2 D={d} Hq={hq} Hkv={hkv} B={b} S={s} starts={starts.tolist()[:3]}...", got,
-                    want, row_dims=1)
+        err = check(f"K2 D={d} Hq={hq} Hkv={hkv} B={b} S={s} starts={starts.tolist()[:3]}... "
+                    f"split {_split_of(torch, b, hkv, s, d)}", got, want, row_dims=1)
+        same_bits(f"K2 D={d} B={b}", got, lambda: fd.layered_decode_attention(q, kn, vn, kc, vc, layer, starts,
+                                                                             scale))
         # timing: every row holds start old tokens
         starts_t = torch.full((b,), start, dtype=torch.int32, device="cuda")
         ms = timer(lambda: fd.layered_decode_attention(q, kn, vn, kc, vc, layer, starts_t, scale))
@@ -421,7 +455,32 @@ def phase_kernels(torch, timer, subset=None) -> dict:
         cases2.append(dict(shape=f"D={d} Hkv={hkv} B={b} S={s} start={start}", max_abs_err=err,
                            ms=ms, plain_ms=plain_ms, bound_ms=bb, bound_by=by, library_ms=lib_ms))
         log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, SDPA {lib_ms:.4f})")
+        del kc, vc, kd, vd
+    results = {"decode_attention": dict(
+        route="cuda", source="nfai_tpu_torch/csrc/decode_attention.cu",
+        replaces="nfai_tpu/ops/fused_decode.py:465", also_replaces=["nfai_tpu/ops/fused_decode.py:200"],
+        headline=cases2[1], cases=cases2,
+    )}
+    results["decode_attention_i8"] = _k2_int8(torch, timer, gen, results)
+    _gemma_k2(torch, timer, gen, results)
+    return results
 
+
+def _kernels_kv_write(torch, timer, gen) -> dict:
+    """K3 at the decode shapes (and on int8 rows) and K10 at models A's and
+    C's scale arrays, both exactly."""
+    from nfai_tpu_torch.ops import fused_decode as fd
+
+    bf = torch.bfloat16
+    cases3 = []
+    for L, hq, hkv, d, b, s in DECODE_SHAPES:
+        kvd = hkv * d
+        kc = torch.randn(L, b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        starts = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
+        if b > 1:
+            starts[0] = 0
+            starts[1] = s // 3
+        starts_t = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
         rows = torch.randn(L, b, kvd, device="cuda", dtype=bf, generator=gen)
         starts_w = starts.clone()
         starts_w[-1] = s  # dropped
@@ -444,27 +503,13 @@ def phase_kernels(torch, timer, subset=None) -> dict:
         cases3.append(dict(shape=f"L={L} B={b} S={s} KVD={kvd}", max_abs_err=err3, ms=ms,
                            plain_ms=plain_ms, bound_ms=bb, bound_by=by, library_ms=lib_ms))
         log(f"    {ms:.4f} ms (bound {bb:.5f} by {by}, plain {plain_ms:.4f}, index_put_ {lib_ms:.4f})")
-        del kc, vc, kd, vd, cache_t, ref
-    results["decode_attention"] = dict(
-        route="cuda", source="nfai_tpu_torch/csrc/decode_attention.cu",
-        replaces="nfai_tpu/ops/fused_decode.py:465", also_replaces=["nfai_tpu/ops/fused_decode.py:200"],
-        headline=cases2[1], cases=cases2,
-    )
-    results["kv_write"] = dict(
+        del kc, cache_t, ref
+    results = {"kv_write": dict(
         route="cuda", source="nfai_tpu_torch/csrc/kv_write.cu",
         replaces="nfai_tpu/ops/fused_decode.py:601", also_replaces=[],
         headline=cases3[1], cases=cases3,
-    )
-
-    results.update(_kernels_k5(torch, timer, gen))
-    results.update(_kernels_k6(torch, timer, gen))
-    results.update(_kernels_k7(torch, timer, gen))
-    results.update(_kernels_k8_k9(torch, timer, gen))
-    results.update(_kernels_k11(torch, timer, gen))
-    results.update(_kernels_int8(torch, timer, gen, results))
-    _kernels_gemma(torch, timer, gen, results)
-    results.update(_kernels_k12(torch, timer, gen))
-    results.update(_kernels_k4(torch, timer, gen))
+    )}
+    results["kv_write_t"] = _k10(torch, timer, gen)
     return results
 
 
@@ -611,8 +656,9 @@ def _kernels_k7(torch, timer, gen) -> dict:
         q = torch.randn(b, hq, d, device="cuda", dtype=bf, generator=gen)
         got = pa.paged_decode_attention(q, kp, vp, tables, lengths, scale)
         torch.cuda.synchronize()
-        err = check(f"K7 {label} lengths={lens}", got,
+        err = check(f"K7 {label} lengths={lens} split {_split_of(torch, b, hkv, n_p * ps, d)}", got,
                     pa.paged_decode_attention_plain(q, kp, vp, tables, lengths, scale), row_dims=1)
+        same_bits(f"K7 {label}", got, lambda: pa.paged_decode_attention(q, kp, vp, tables, lengths, scale))
         ms = timer(lambda: pa.paged_decode_attention(q, kp, vp, tables, lengths, scale))
         plain_ms = timer(lambda: pa.paged_decode_attention_plain(q, kp, vp, tables, lengths, scale), iters=3)
         s = n_p * ps
@@ -641,11 +687,14 @@ def _kernels_k7(torch, timer, gen) -> dict:
         log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, "
             f"page gather + SDPA {lib_ms:.4f}, K2 at the same dense shape {k2_ms:.4f})")
         del kp, vp, kc, vc
-    return {"paged_attention": dict(
+    results = {"paged_attention": dict(
         route="cuda", source="nfai_tpu_torch/csrc/paged_attention.cu",
         replaces="nfai_tpu/ops/paged_attention.py:113", also_replaces=[],
         headline=cases[0], cases=cases,
     )}
+    results["paged_attention_i8"] = _k7_int8(torch, timer, gen, results)
+    _gemma_k7(torch, timer, gen, results)
+    return results
 
 
 def _kv_codes(torch, x, hkv):
@@ -666,23 +715,18 @@ def _pool_codes(torch, pages):
     return q, sc[..., 0].contiguous()
 
 
-def _kernels_int8(torch, timer, gen, results) -> dict:
-    """The int8 KV cache's kernels against their plain versions on the same
-    int8 codes and scales (made by quantize_kv from bf16 draws): K2-i8 at
-    K2's cases, K7-i8 at K7's, each also at B = 8 with 4000 keys in a
-    4096-slot cache (where K2 and K7 also run on the bf16 cache for the
-    comparison); K10 exactly at model A's (L 16, Hkv 8) and model C's (L 8,
-    Hkv 4) scale arrays, and K3 on int8 rows (K4-i8: `_kernels_k4`).
-    Yardstick: the cache (K7: the gathered pages) dequantized to bf16, then
-    SDPA; K10: index_put_."""
+def _k2_int8(torch, timer, gen, results) -> dict:
+    """K2-i8 against its plain version on the same int8 codes and scales
+    (made by quantize_kv from bf16 draws) at K2's cases and at B = 8 with
+    4000 keys in a 4096-slot cache, where K2 also runs on the bf16 cache
+    for the comparison (appended to results["decode_attention"]).
+    Yardstick: the cache dequantized to bf16, then SDPA."""
     import torch.nn.functional as nnf
 
     from nfai_tpu_torch.models.llama import dequant_kv
     from nfai_tpu_torch.ops import fused_decode as fd
-    from nfai_tpu_torch.ops import paged_attention as pga
 
     bf = torch.bfloat16
-    out = {}
 
     # K2-i8 (and K2 bf16 at the 4096-slot case)
     cases = []
@@ -746,11 +790,17 @@ def _kernels_int8(torch, timer, gen, results) -> dict:
                 library_ms=lib_ms))
             log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, SDPA {lib_ms:.4f})")
         del kf, vf, kc, vc
-    out["decode_attention_i8"] = dict(
+    return dict(
         route="cuda", source="nfai_tpu_torch/csrc/decode_attention.cu",
         replaces="nfai_tpu/ops/fused_decode.py:465", also_replaces=["nfai_tpu/ops/fused_decode.py:200"],
         headline=cases[1], cases=cases,
     )
+
+
+def _k10(torch, timer, gen) -> dict:
+    """K10 exactly at model A's (L 16, Hkv 8) and model C's (L 8, Hkv 4)
+    scale arrays, and K3 on int8 code rows. Yardstick: index_put_."""
+    from nfai_tpu_torch.ops import fused_decode as fd
 
     # K10 at model A's and model C's scale arrays; K3 on int8 code rows
     cases = []
@@ -778,12 +828,23 @@ def _kernels_int8(torch, timer, gen, results) -> dict:
             check(f"K3 int8 rows L={L} B={b} S={s} KVD=512", fd.write_all_layers(codes.clone(), crow, starts),
                   fd.write_all_layers_plain(codes.clone(), crow, starts), tol=1e-30)
             del codes
-    out["kv_write_t"] = dict(
+    return dict(
         route="cuda", source="nfai_tpu_torch/csrc/kv_write.cu",
         replaces="nfai_tpu/ops/fused_decode.py:659", also_replaces=[],
         headline=cases[0], cases=cases,
     )
 
+
+def _k7_int8(torch, timer, gen, results) -> dict:
+    """K7-i8 against its plain version on quantize_kv codes at K7's cases
+    and at 4000 keys, where K7 also runs on the bf16 pool (appended to
+    results["paged_attention"]). Yardstick: the gathered pages dequantized,
+    then SDPA."""
+    import torch.nn.functional as nnf
+
+    from nfai_tpu_torch.ops import paged_attention as pga
+
+    bf = torch.bfloat16
     # K7-i8 at K7's cases, and at 4000 keys (with K7 on the bf16 pool beside it)
     ragged = [1, 127, 128, 129, 500, 777, 1000, 1024]
     cases = []
@@ -855,22 +916,33 @@ def _kernels_int8(torch, timer, gen, results) -> dict:
                 library_ms=lib_ms, library="page gather + SDPA"))
             log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, page gather + SDPA {lib_ms:.4f})")
         del kf, vf, kp, vp
-    out["paged_attention_i8"] = dict(
+    return dict(
         route="cuda", source="nfai_tpu_torch/csrc/paged_attention.cu",
         replaces="nfai_tpu/ops/paged_attention.py:113", also_replaces=[],
         headline=cases[0], cases=cases,
     )
-    return out
 
 
 # Gemma head layouts at head_dim 256: (label, Hq, Hkv); model G is Gemma-2-2B
 GEMMA_HEADS = {"G": (8, 4), "3-1B": (4, 1), "2B": (8, 1)}
 
 
-def _kernels_gemma(torch, timer, gen, results) -> None:
-    """K2 and K7 at head_dim 256 with Gemma's options, bf16 and int8 (the
-    int8 entry points on quantize_kv codes), appended to those kernels'
-    cases (K4's: `_kernels_k4`): model G's heads (Gemma-2-2B, r = 2) with
+def _record(timer, results, name, label, err, run, plain, lib, nbytes, flops, library):
+    """Time a Gemma row (kernel, plain version, yardstick) and append it to
+    results[name]'s cases."""
+    ms = timer(run)
+    plain_ms = timer(plain, iters=3)
+    lib_ms = timer(lib)
+    bb, by = bound_ms(nbytes, flops)
+    results[name]["cases"].append(dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bb, bound_by=by, library_ms=lib_ms, library=library))
+    log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, {library} {lib_ms:.4f})")
+
+
+def _gemma_k2(torch, timer, gen, results) -> None:
+    """K2 (and, in `_gemma_k7`, K7) at head_dim 256 with Gemma's options,
+    bf16 and int8 (the int8 entry points on quantize_kv codes), appended to
+    those kernels' cases (K4's: `_kernels_k4`): model G's heads (Gemma-2-2B, r = 2) with
     softcap 50 and window 0 or 4096, Gemma-3-1B's (r = 4) with window 512
     and no softcap, Gemma 2B's (r = 8, multi-query) once without either;
     both also at batch 8 with 4000 keys in a 4096-slot cache, window 512
@@ -885,21 +957,8 @@ def _kernels_gemma(torch, timer, gen, results) -> None:
 
     from nfai_tpu_torch.models.llama import dequant_kv
     from nfai_tpu_torch.ops import fused_decode as fd
-    from nfai_tpu_torch.ops import paged_attention as pga
 
     bf, d = torch.bfloat16, 256
-
-    def record(name, label, err, run, plain, lib, nbytes, flops, library):
-        ms = timer(run)
-        plain_ms = timer(plain, iters=3)
-        lib_ms = timer(lib)
-        bb, by = bound_ms(nbytes, flops)
-        results[name]["cases"].append(dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                           bound_ms=bb, bound_by=by, library_ms=lib_ms, library=library))
-        log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, {library} {lib_ms:.4f})")
-
-    def opts(cap, win):
-        return dict(softcap=cap, window=win)
 
     # K2 / K2-i8: (heads, B, S, start, softcap, window)
     for heads, b, s, start, cap, win in (("G", 8, 1024, 1023, 50.0, 0), ("G", 8, 1024, 1023, 50.0, 4096),
@@ -926,7 +985,7 @@ def _kernels_gemma(torch, timer, gen, results) -> None:
                 kc, vc, ks, vs, sc, name = kf, vf, None, None, {}, "decode_attention"
             label = (f"D=256 {heads} heads Hq={hq} Hkv={hkv} B={b} S={s} start={start} softcap={cap:g} "
                      f"window={win}")
-            got = fd.layered_decode_attention(q, kn, vn, kc, vc, 1, starts, d**-0.5, **opts(cap, win), **sc)
+            got = fd.layered_decode_attention(q, kn, vn, kc, vc, 1, starts, d**-0.5, softcap=cap, window=win, **sc)
             torch.cuda.synchronize()
             lsc = (ks[1], vs[1]) if quant else (None, None)
             err = check(f"{'K2-i8' if quant else 'K2'} {label}", got, fd.decode_attention_plain(
@@ -945,15 +1004,25 @@ def _kernels_gemma(torch, timer, gen, results) -> None:
             elem = 1 if quant else 2
             nbytes = 2 * (2 * b * hq * d + 2 * b * kvd) + 2 * b * vis * kvd * elem + (
                 2 * 4 * b * hkv * vis if quant else 0)
-            record(name, label, err,
-                   lambda: fd.layered_decode_attention(q, kn, vn, kc, vc, 1, starts_t, d**-0.5,
-                                                       **opts(cap, win), **sc),
-                   lambda: fd.decode_attention_plain(q, kn, vn, kc[1], vc[1], starts_t, d**-0.5, *lsc,
-                                                     cap, win),
-                   lib, nbytes, 4.0 * b * hq * (vis + 1) * d,
-                   "dequantize + SDPA" if quant else "SDPA")
+            _record(timer, results, name, label, err,
+                    lambda: fd.layered_decode_attention(q, kn, vn, kc, vc, 1, starts_t, d**-0.5,
+                                                        softcap=cap, window=win, **sc),
+                    lambda: fd.decode_attention_plain(q, kn, vn, kc[1], vc[1], starts_t, d**-0.5, *lsc,
+                                                      cap, win),
+                    lib, nbytes, 4.0 * b * hq * (vis + 1) * d,
+                    "dequantize + SDPA" if quant else "SDPA")
             del kc, vc
         del kf, vf
+
+
+def _gemma_k7(torch, timer, gen, results) -> None:
+    """K7 and K7-i8 at head_dim 256 with Gemma's options (see `_gemma_k2`),
+    through shuffled tables of 128-slot pages."""
+    import torch.nn.functional as nnf
+
+    from nfai_tpu_torch.ops import paged_attention as pga
+
+    bf, d = torch.bfloat16, 256
 
     # K7 / K7-i8: (heads, B, ps, lengths, softcap, window)
     ragged = [1, 127, 128, 129, 500, 777, 1000, 1024]
@@ -983,7 +1052,7 @@ def _kernels_gemma(torch, timer, gen, results) -> None:
                 kp, vp, ksp, vsp, sc, name = kf, vf, None, None, {}, "paged_attention"
             label = f"D=256 {heads} heads Hq={hq} Hkv={hkv} B={b} ps={ps} lengths={lens[0]}..{lens[-1]} " \
                     f"softcap={cap:g} window={win}"
-            run = lambda: pga.paged_decode_attention(q, kp, vp, tables, lengths, d**-0.5, **opts(cap, win), **sc)  # noqa: E731
+            run = lambda: pga.paged_decode_attention(q, kp, vp, tables, lengths, d**-0.5, softcap=cap, window=win, **sc)  # noqa: E731
             got = run()
             torch.cuda.synchronize()
             plain = lambda: pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, d**-0.5, ksp, vsp,  # noqa: E731
@@ -1001,8 +1070,8 @@ def _kernels_gemma(torch, timer, gen, results) -> None:
 
             nbytes = 2 * (2 * b * hq * d) + 4 * (tables.numel() + b) + 2 * keys * hkv * d * (1 if quant else 2) + (
                 2 * 4 * keys * hkv if quant else 0)
-            record(name, label, err, run, plain, lib, nbytes, 4.0 * hq * d * keys,
-                   "page gather + dequantize + SDPA" if quant else "page gather + SDPA")
+            _record(timer, results, name, label, err, run, plain, lib, nbytes, 4.0 * hq * d * keys,
+                    "page gather + dequantize + SDPA" if quant else "page gather + SDPA")
             del kp, vp
         del kf, vf
 
@@ -1417,8 +1486,10 @@ def _k4_layouts(torch, timer, gen) -> dict:
             "merged": out["merged"], "merged_i8": out["merged_i8"]}
 
 
-# the kernel phases `--kernels` takes: the matmuls and K4
-KERNEL_PHASES = {"k1": _kernels_k1, "k4": _kernels_k4, "k6": _kernels_k6, "k11": _kernels_k11,
+# the kernel phases `--kernels` takes: the matmuls, K4, and K2 / K7 (each
+# with its int8 entry point and Gemma's head_dim-256 rows: `--kernels k2,k7`)
+KERNEL_PHASES = {"k1": _kernels_k1, "k2": _kernels_k2, "k4": _kernels_k4, "k6": _kernels_k6,
+                 "k7": _kernels_k7, "k11": _kernels_k11,
                  "k12": _kernels_k12}
 
 
@@ -2179,8 +2250,9 @@ def _server_parity(torch, engine, kernels_mod) -> dict:
     Model A's MLP is K5, whose F-tile partials are summed in a fixed order,
     so two identical dense runs give the same bits (checked first:
     `k5_dense_noise` must be 0). K4 sees the same bytes on both sides, and
-    K7 walks keys in K2's order, so paged and dense must agree well inside
-    2e-2 (exactly, by design). With an int8 cache the two no longer agree
+    K7 splits, tiles and merges a row's keys as K2 does (the last key as
+    K2's new token), so paged and dense must agree well inside 2e-2
+    (exactly, by design). With an int8 cache the two no longer agree
     bit for bit:
     the dense decode folds the new token in at full precision, the paged
     one reads it back quantized, and the paged prefill attends pages

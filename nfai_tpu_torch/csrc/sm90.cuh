@@ -1,6 +1,7 @@
 // Device and host pieces that K1 (q4_matmul.cu), K6 (q8_matmul.cu), K11
-// (dense_matmul.cu), K12 (q8v3_matmul.cu) and K4 (prefill_attention.cu)
-// share: the tensor-core GEMV's mma.sync and operand shuffles, the wgmma
+// (dense_matmul.cu), K12 (q8v3_matmul.cu), K4 (prefill_attention.cu) and
+// K2 / K7 (decode_attn.cuh: cp.async rings, ldmatrix, movmatrix, the
+// cluster launch) share: the tensor-core GEMV's mma.sync and operand shuffles, the wgmma
 // tiles' mbarrier ring, TMA copies (2-D, and 3-D for K4's K/V tiles) and
 // register-A (K1, K6, K12; K4's P with an MN-major B) and shared-memory-A
 // (K11, K4's Q K^T) wgmma, the GEMV's
@@ -89,6 +90,39 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+// 16 bytes, or 16 zero bytes where !ok (no byte of src is read)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group but the newest N of this thread's cp.async groups has landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices, transposed: lanes 8m..8m+7 give the 16-byte rows
+// of matrix m; lane (g, t) receives rows 2t and 2t + 1 of column g of each
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// an 8 x 8 bf16 matrix in the mma fragment layout (lane (g, t): row g,
+// columns 2t and 2t + 1) → its transpose in the same layout
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
 }
 
 // ---------------------------------------------------------------------------

@@ -27,17 +27,19 @@ On CUDA tensors the wrappers launch ``csrc/decode_attention.cu`` and
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..kernels import F, I, Kernel, P, ptr, register, stream_ptr
 
 K2 = register(Kernel(
     "decode_attention", "decode_attention.cu",
-    {"nfai_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, I, P]},
+    {"nfai_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, I, I, P]},
 ))
 K2_I8 = register(Kernel(
     "decode_attention_i8", "decode_attention.cu",
-    {"nfai_decode_attention_i8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, I, P]},
+    {"nfai_decode_attention_i8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, I, I, P]},
 ))
 K3 = register(Kernel(
     "kv_write", "kv_write.cu",
@@ -50,6 +52,50 @@ K10 = register(Kernel(
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)  # the head widths K2 is compiled for
+SPLIT_KEYS = 64  # keys a tile of K2/K7 (csrc/decode_attn.cuh's DA_KEYS)
+# blocks a cluster at most: 16 (non-portable) measured slower than 8 at every
+# narrow grid (tests/torch_decode_split_probe.py: 1.3-1.5x at B * Hkv = 8)
+MAX_SPLIT = 8
+LONG_SHARE = 1024  # keys of the capacity each block keeps where the blocks pass one wave
+
+
+def decode_split(b: int, hkv: int, capacity: int, sms: int, head_dim: int) -> int:
+    """The blocks c (1, 2, 4 or 8, one thread-block cluster) across which K2
+    and K7 split the keys of each (batch row, kv head) pair, from the grid
+    alone (no length is read on the host; the capacity is S for K2,
+    max_pages * page_size for K7): doubled while each block keeps at least
+    one 64-key tile of the capacity and the b * hkv * c blocks stay within
+    sms * 128 / head_dim (two waves at head_dim 64, whose blocks sit two to
+    an SM; one at 128; half a wave at 256, whose blocks fill an SM's shared
+    memory: 128 of them streamed 7-14% slower than 64), past one wave only
+    while each block keeps LONG_SHARE keys (each choice measured by
+    tests/torch_decode_split_probe.py). 8 at b * hkv = 8; 4 at 32 (2 at
+    head_dim 256); 2 at 64 (4 from 4096 slots at head_dim 64); 1 from 67
+    pairs at head_dim 128."""
+    limit = sms * 128 // head_dim
+    c = 1
+    while c < MAX_SPLIT and capacity >= 2 * c * SPLIT_KEYS:
+        blocks = b * hkv * 2 * c
+        if blocks > limit or (blocks > sms and capacity < 2 * c * LONG_SHARE):
+            break
+        c *= 2
+    return c
+
+
+def decode_share(lo: int, hi: int, c: int, rank: int) -> range:
+    """The 64-key tiles block `rank` of `c` reads of the visible keys
+    [lo, hi): the range's tiles cut into c nearly equal runs in rank order
+    (`da_share` in csrc/decode_attn.cuh is the same rule); empty where the
+    range has fewer tiles than blocks."""
+    t_lo = lo // SPLIT_KEYS
+    n = max(-(-hi // SPLIT_KEYS) - t_lo, 0)
+    return range(t_lo + rank * n // c, t_lo + (rank + 1) * n // c)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index` (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def softcap_scores(logits, softcap: float):
@@ -157,19 +203,20 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, starts, scale=None,
         raise ValueError("decode attention shape mismatch")
     _check_starts(starts, b, q.device)
     out = torch.empty_like(q)
+    c = decode_split(b, hkv, s, sm_count(q.device.index), d)
     if quantized:
         check_scales(k_scales, v_scales, (b, hkv, s), q.device)
         K2_I8.call(
             "nfai_decode_attention_i8", ptr(q), ptr(k_new), ptr(v_new), ptr(k_cache),
             ptr(v_cache), ptr(k_scales), ptr(v_scales), ptr(starts), ptr(out), b, s, hkv, r, d,
-            float(scale), float(softcap), int(window), stream_ptr(q),
+            float(scale), float(softcap), int(window), c, stream_ptr(q),
         )
         K2_I8.count(variant(d, softcap, window))
         return out
     K2.call(
         "nfai_decode_attention", ptr(q), ptr(k_new), ptr(v_new), ptr(k_cache),
         ptr(v_cache), ptr(starts), ptr(out), b, s, hkv, r, d, float(scale),
-        float(softcap), int(window), stream_ptr(q),
+        float(softcap), int(window), c, stream_ptr(q),
     )
     K2.count(variant(d, softcap, window))
     return out

@@ -24,15 +24,15 @@ from __future__ import annotations
 import torch
 
 from ..kernels import F, I, Kernel, P, ptr, register, stream_ptr
-from .fused_decode import check_options, check_scales, softcap_scores, variant
+from .fused_decode import check_options, check_scales, decode_split, sm_count, softcap_scores, variant
 
 K7 = register(Kernel(
     "paged_attention", "paged_attention.cu",
-    {"nfai_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, I, P]},
+    {"nfai_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, I, I, P]},
 ))
 K7_I8 = register(Kernel(
     "paged_attention_i8", "paged_attention.cu",
-    {"nfai_paged_attention_i8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, I, P]},
+    {"nfai_paged_attention_i8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, I, I, P]},
 ))
 
 NEG_INF = -1e30
@@ -121,19 +121,21 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, scale=None,
     _check_index("tables", tables, (b, tables.shape[-1]), q.device)
     _check_index("lengths", lengths, (b,), q.device)
     out = torch.empty_like(q)
+    max_pages = tables.shape[1]
+    c = decode_split(b, hkv, max_pages * ps, sm_count(q.device.index), d)
     if quantized:
         check_scales(k_scales, v_scales, tuple(k_pages.shape[:3]), q.device)
         K7_I8.call(
             "nfai_paged_attention_i8", ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scales),
             ptr(v_scales), ptr(tables), ptr(lengths), ptr(out), b, hkv, r, n_pages, ps,
-            tables.shape[1], d, float(scale), float(softcap), int(window), stream_ptr(q),
+            max_pages, d, float(scale), float(softcap), int(window), c, stream_ptr(q),
         )
         K7_I8.count(variant(d, softcap, window))
         return out
     K7.call(
         "nfai_paged_attention", ptr(q), ptr(k_pages), ptr(v_pages), ptr(tables),
-        ptr(lengths), ptr(out), b, hkv, r, n_pages, ps, tables.shape[1], d,
-        float(scale), float(softcap), int(window), stream_ptr(q),
+        ptr(lengths), ptr(out), b, hkv, r, n_pages, ps, max_pages, d,
+        float(scale), float(softcap), int(window), c, stream_ptr(q),
     )
     K7.count(variant(d, softcap, window))
     return out

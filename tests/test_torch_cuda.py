@@ -47,7 +47,12 @@ cluster K split), a layer of a stack, three launches with the same bits; K4 in t
 128 and 256 with softcap and window) against the plain version and
 against "full" on the same values; and a tiny hidden-2048 Q8_0 model under
 NFAI_Q8V3=1 with each layout, dense and paged, on the card against the CPU,
-through K12 and K4-hm / K4 "merged" only.
+through K12 and K4-hm / K4 "merged" only. K2's and K7's split kernel
+(clusters of 1-16 blocks over a row's keys) at every head width, GQA ratio
+1-8, bf16 and int8, with and without softcap and window, on a narrow and a
+wide grid of a 4096-slot cache or pool (K7 at page sizes 16 and 128), per
+(row, head) and with the same bits on three launches; K7 through tables
+and K2 over the same keys give the same bits.
 """
 import pytest
 import torch
@@ -331,6 +336,111 @@ def test_paged_attention_kernel(cuda, d, ps, r):
     assert pga.K7.launches == before + 1
     want = pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, d**-0.5)
     assert rel(got, want, row_dims=1) < TOL
+
+
+# K2's and K7's split kernel (csrc/decode_attn.cuh) on every instance: D 64,
+# 128 and 256, r 1, 2, 3, 4 and 8, bf16 and int8 (codes and scales from
+# quantize_kv), without options, with softcap 50 and with window 512; on a
+# narrow grid (8 rows x 1 kv head: clusters of 16 blocks) and a wide one (8
+# x 8: clusters of 2) of a 4096-slot cache or pool; K2's rows hold 0 (only
+# the new token), 1, 63, 64, 65, 1024 (one tile a block at 16), 4000 and
+# 4096 (a full cache) old keys, K7's rows 1, 63, 64, 65, 777, 1024, 4000 and
+# 4096 keys at page sizes 16 and 128 on shuffled tables. Per (row, head)
+# against the plain version, one counter step a call, the same bits on
+# three launches.
+DECODE_STARTS = [0, 1, 63, 64, 65, 1024, 4000, 4096]
+PAGED_LENGTHS = [1, 63, 64, 65, 777, 1024, 4000, 4096]
+SPLIT_OPTIONS = dict(argnames="cap,win", argvalues=[(0.0, 0), (50.0, 0), (0.0, 512)],
+                     ids=["plain", "softcap", "window"])
+
+
+@pytest.mark.parametrize(**SPLIT_OPTIONS)
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("b,hkv", [(8, 1), (8, 8)], ids=["narrow", "wide"])
+def test_decode_attention_split_kernel(cuda, b, hkv, d, r, quant, cap, win):
+    from nfai_tpu_torch.models.llama import quantize_kv
+
+    s = 4096
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    kc, vc = torch.randn(b, s, hkv * d, **bf), torch.randn(b, s, hkv * d, **bf)
+    sc = {}
+    if quant:
+        (kc, ks), (vc, vs) = quantize_kv(kc, hkv), quantize_kv(vc, hkv)
+        sc = dict(k_scales=ks.transpose(1, 2).contiguous(), v_scales=vs.transpose(1, 2).contiguous())
+    q = torch.randn(b, hkv * r, d, **bf) * (3 if cap else 1)
+    kn, vn = torch.randn(b, hkv * d, **bf), torch.randn(b, hkv * d, **bf)
+    starts = torch.tensor(DECODE_STARTS, device="cuda", dtype=torch.int32)
+    kernel = fd.K2_I8 if quant else fd.K2
+
+    def run():
+        return fd.decode_attention(q, kn, vn, kc, vc, starts, softcap=cap, window=win, **sc)
+
+    before = kernel.launches
+    got = run()
+    assert kernel.launches == before + 1
+    want = fd.decode_attention_plain(q, kn, vn, kc, vc, starts, d**-0.5, sc.get("k_scales"),
+                                     sc.get("v_scales"), cap, win)
+    assert rel(got, want, row_dims=2) < TOL
+    assert all(torch.equal(run(), got) for _ in range(2))  # no atomics
+
+
+@pytest.mark.parametrize(**SPLIT_OPTIONS)
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("b,hkv", [(8, 1), (8, 8)], ids=["narrow", "wide"])
+def test_paged_attention_split_kernel(cuda, b, hkv, d, r, ps, quant, cap, win):
+    from nfai_tpu_torch.models.llama import quantize_kv
+
+    n_p = 4096 // ps
+    n_pages = b * n_p + 3
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    kp, vp = torch.randn(hkv, n_pages, ps, d, **bf), torch.randn(hkv, n_pages, ps, d, **bf)
+    sc = {}
+    if quant:  # one scale a (kv head, token): the pool's rows as one head each
+        (kp, ks), (vp, vs) = quantize_kv(kp, 1), quantize_kv(vp, 1)
+        sc = dict(k_scales=ks[..., 0].contiguous(), v_scales=vs[..., 0].contiguous())
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(ps + d + r))[: b * n_p] + 1
+    tables = perm.view(b, n_p).to(torch.int32).cuda()  # shuffled, never contiguous
+    lengths = torch.tensor(PAGED_LENGTHS, device="cuda", dtype=torch.int32)
+    q = torch.randn(b, hkv * r, d, **bf) * (3 if cap else 1)
+    kernel = pga.K7_I8 if quant else pga.K7
+
+    def run():
+        return pga.paged_decode_attention(q, kp, vp, tables, lengths, softcap=cap, window=win, **sc)
+
+    before = kernel.launches
+    got = run()
+    assert kernel.launches == before + 1
+    want = pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, d**-0.5, sc.get("k_scales"),
+                                            sc.get("v_scales"), cap, win)
+    assert rel(got, want, row_dims=2) < TOL
+    assert all(torch.equal(run(), got) for _ in range(2))  # no atomics
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_paged_and_dense_decode_attention_agree_bit_for_bit(cuda, d):
+    """K7 through shuffled tables and K2 over the same keys as a dense
+    cache, the row's last key as K2's new token: the same split, tiles and
+    merge, so the same bits (the server's paged and dense decode agree)."""
+    b, hkv, r, ps, n_p = 4, 2, 4, 128, 8
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    n_pages = b * n_p + 1
+    kp, vp = torch.randn(hkv, n_pages, ps, d, **bf), torch.randn(hkv, n_pages, ps, d, **bf)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(d))[: b * n_p] + 1
+    tables = perm.view(b, n_p).to(torch.int32).cuda()
+    lengths = torch.tensor([300, 137, 77, n_p * ps], device="cuda", dtype=torch.int32)
+    q = torch.randn(b, hkv * r, d, **bf)
+    got = pga.paged_decode_attention(q, kp, vp, tables, lengths)
+    kc, vc = (pga.gather_pages(x, tables).permute(1, 2, 0, 3).reshape(b, n_p * ps, hkv * d).contiguous()
+              for x in (kp, vp))
+    starts = (lengths - 1).contiguous()
+    rows = torch.arange(b, device="cuda")
+    kn, vn = kc[rows, starts.long()].contiguous(), vc[rows, starts.long()].contiguous()
+    assert torch.equal(got, fd.decode_attention(q, kn, vn, kc, vc, starts))
 
 
 def test_paged_batch_engine_on_the_card(cuda, tmp_path):
