@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only build,kernels --kernels k11   # K11 (dense) alone
     python3 chip_smoke.py --only build,kernels --kernels k4    # K4 (prefill attention) alone
     python3 chip_smoke.py --only build,kernels --kernels k2,k7 # K2 / K7 (decode attention), int8 and Gemma rows
+    python3 chip_smoke.py --only build,kernels --kernels k5    # K5 (fused MLP) alone
     python3 chip_smoke.py --only build,serve,batch,profile --models E   # one model's path
 
 Phases (each failure propagates, the exit code is then non-zero):
@@ -197,13 +198,15 @@ DENSE_KINDS = ("f16", "bf16")  # every matmul weight dense: K11, no K1/K5/K6
 # parity copies that run again with every weight dequantized at load
 PARITY_PARAM_DTYPE = {"q4_k_m": "bfloat16"}
 NEAR_TIE = 0.01  # router-logit gap below which card and CPU may pick different experts
-# the profile's device ms a step of K1, K6, K11, K12 and K4, tallied by their CUDA functions' names
+# the profile's device ms a step of K1, K6, K11, K12, K4 and K5, tallied by their CUDA functions' names
 KERNEL_FUNCTIONS = {"q4_matmul": ("q4_gemv", "q4_wgmma"), "q8_matmul": ("q8_gemv", "q8_wgmma"),
                     "q8v3_matmul": ("q8v3_gemv", "q8v3_wgmma"),
                     # K11: both GEMVs, the wgmma tiles, the WMMA tiles of unaligned shapes
                     "dense_matmul": ("dense_gemv", "dense_wgmma", "dense_mma"),
                     # K4, every instance (prefill_attn_wgmma<D, groups, cache element, EXT>)
-                    "prefill_attention": ("prefill_attn",)}
+                    "prefill_attention": ("prefill_attn",),
+                    # K5: the decode kernel (M <= 16), the tiles above
+                    "fused_mlp": ("fused_mlp_decode", "fused_mlp_tiles")}
 # device functions the profiles tally one by one (a kernel's paths)
 PATH_FUNCTIONS = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 # models whose profile phase also records one 8x128 prefill chunk: (tile
@@ -521,10 +524,12 @@ def _kernels_k5(torch, timer, gen) -> dict:
 
     bf = torch.bfloat16
     results = {}
-    # K5 at the 1B MLP (K = H = 2048, F = 8192; decode rows 1 and 8, prefill
-    # 256 and 1024) and at the 3B's (K = H = 3072, rows 1, 8 and 256)
+    # K5 at the 1B MLP (K = H = 2048, F = 8192; the decode kernel's rows 1,
+    # 2, 8 and 16, the tiles' 17, 32 and 64 (batch-1 buckets), 256 and 1024
+    # (the 8x128 chunk)) and at the 3B's (K = H = 3072, rows 1, 8, 256)
     cases = []
-    for k, f, h, rows in ((2048, 8192, 2048, (1, 8, 256, 1024)), (3072, 8192, 3072, (1, 8, 256))):
+    for k, f, h, rows in ((2048, 8192, 2048, (1, 2, 8, 16, 17, 32, 64, 256, 1024)),
+                          (3072, 8192, 3072, (1, 8, 256))):
         gu, dn = _q4_weight(torch, 2 * f, k, gen), _q4_weight(torch, h, f, gen)
 
         def replaced_route(x):  # what K5 replaces: K1 gate_up, silu * up, K1 down
@@ -554,7 +559,7 @@ def _kernels_k5(torch, timer, gen) -> dict:
     results["fused_mlp"] = dict(
         route="cuda", source="nfai_tpu_torch/csrc/fused_mlp.cu",
         replaces="nfai_tpu/ops/fused_mlp.py:201", also_replaces=[],
-        headline=cases[1], cases=cases,
+        headline=cases[2], cases=cases,
     )
     return results
 
@@ -1486,10 +1491,10 @@ def _k4_layouts(torch, timer, gen) -> dict:
             "merged": out["merged"], "merged_i8": out["merged_i8"]}
 
 
-# the kernel phases `--kernels` takes: the matmuls, K4, and K2 / K7 (each
+# the kernel phases `--kernels` takes: the matmuls, K4, K5, and K2 / K7 (each
 # with its int8 entry point and Gemma's head_dim-256 rows: `--kernels k2,k7`)
-KERNEL_PHASES = {"k1": _kernels_k1, "k2": _kernels_k2, "k4": _kernels_k4, "k6": _kernels_k6,
-                 "k7": _kernels_k7, "k11": _kernels_k11,
+KERNEL_PHASES = {"k1": _kernels_k1, "k2": _kernels_k2, "k4": _kernels_k4, "k5": _kernels_k5,
+                 "k6": _kernels_k6, "k7": _kernels_k7, "k11": _kernels_k11,
                  "k12": _kernels_k12}
 
 
@@ -1785,7 +1790,8 @@ def phase_profile_prefill(torch, engine, expect: dict[str, int]) -> dict:
     wall (synchronised), device busy ms, and the device ms of each path of
     the matmul kernels and of K4, tallied by function name (E: K12's GEMV
     for the head's 8 rows, its wgmma tiles for the layers', K4-hm; D: K11's
-    wgmma tiles, no GEMV, K4). `expect` gives the
+    wgmma tiles, no GEMV, K4; A: K1's tiles for wqkv and wo, K5 for the
+    MLP, K1's GEMV for the head, K4). `expect` gives the
     launches of a chunk by function name. The profiler loses the records of
     the first kernels after it starts (seen on the card: 1 to 12 of the 32
     tile launches), so a first chunk runs as the profiler's warm-up step and
@@ -1831,7 +1837,7 @@ def phase_profile_prefill(torch, engine, expect: dict[str, int]) -> dict:
     else:
         raise AssertionError(f"three prefill profiles held launches {count}, not {expect}")
     busy_ms = sum(ms for ms, _ in table.values())
-    by_function = {f: sum(ms for k, (ms, _) in table.items() if f in k) for f in PATH_FUNCTIONS}
+    by_function = {f: sum(ms for k, (ms, _) in table.items() if f in k) for f in (*PATH_FUNCTIONS, *expect)}
     top = sorted(table.items(), key=lambda kv: -kv[1][0])[:8]
     log(f"  profiled prefill 8x128: wall {wall_ms:.2f} ms (under the profiler; median of five "
         f"without it {median_ms:.2f}), device busy {busy_ms:.2f} ms; device ms by function "
@@ -2789,6 +2795,16 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
                     f"{ms[tiles] + ms[gemv]:.2f} of {prof['device_ms']:.2f} ms (tiles {ms[tiles]:.2f} in "
                     f"{4 * n_layers} launches, GEMV {ms[gemv]:.4f} in {head}); K4 "
                     f"{ms['prefill_attn']:.4f} ms in {n_layers} launches")
+            if label == "A":  # K5 at M = 1024 (a layer's MLP), K1's tiles for wqkv and wo
+                n_layers = engine.model_cfg.n_layers
+                prof = out["prefill_profile"] = phase_profile_prefill(
+                    torch, engine, {"q4_wgmma": 2 * n_layers, "q4_gemv": 1, "fused_mlp": n_layers,
+                                    "prefill_attn": n_layers})
+                ms = prof["device_ms_by_function"]
+                log(f"  model A prefill 8x128: {out['batch']['prefill_ms']:.1f} ms (host clock, "
+                    f"synchronised, batch phase; median of five {prof['median_wall_ms']:.1f}); device "
+                    f"{prof['device_ms']:.2f} ms: K5 {ms['fused_mlp']:.2f} in {n_layers} launches, K1's "
+                    f"tiles {ms['q4_wgmma']:.2f} in {2 * n_layers}, K4 {ms['prefill_attn']:.4f}")
             phase_s[f"profile {label}"] = time.perf_counter() - t0
         del state
     launches = _check_route(kernels_mod, label, f"model {label}")

@@ -298,31 +298,6 @@ struct TileShape {
   static constexpr int OUT_BYTES = BM * OUT_PITCH * 2;  // then the K split's sums
 };
 
-// the code at bit p of w (a nibble) → 128 + code as f32, exactly
-template <int P>
-__device__ __forceinline__ float nib128(uint32_t w) {
-  const uint32_t v = P <= 16 ? (w << (16 - P)) : (w >> (P - 16));
-  return __uint_as_float((v & 0x000F0000u) | 0x43000000u);
-}
-
-// A fragment of one k16 step (half H of a block) for rows g (w0, s0, c0)
-// and g + 8 (w1, s1, c1): bf16(s * q - m) = bf16(s * (128 + q) + c), c = -(m + 128 s).
-// w holds bytes 2t, 2t+1, 2t+8, 2t+9 of the block: k = 2t, 2t+1 | 2t+8, 2t+9.
-template <int H>
-__device__ __forceinline__ void decode_a(uint32_t w0, uint32_t w1, float s0, float c0, float s1,
-                                         float c1, uint32_t (&a)[4]) {
-  constexpr int p = 4 * H;
-  __nv_bfloat162 v;
-  v = __floats2bfloat162_rn(fmaf(s0, nib128<p>(w0), c0), fmaf(s0, nib128<p + 8>(w0), c0));
-  a[0] = *reinterpret_cast<uint32_t*>(&v);
-  v = __floats2bfloat162_rn(fmaf(s1, nib128<p>(w1), c1), fmaf(s1, nib128<p + 8>(w1), c1));
-  a[1] = *reinterpret_cast<uint32_t*>(&v);
-  v = __floats2bfloat162_rn(fmaf(s0, nib128<p + 16>(w0), c0), fmaf(s0, nib128<p + 24>(w0), c0));
-  a[2] = *reinterpret_cast<uint32_t*>(&v);
-  v = __floats2bfloat162_rn(fmaf(s1, nib128<p + 16>(w1), c1), fmaf(s1, nib128<p + 24>(w1), c1));
-  a[3] = *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int BM, bool KS>
 __global__ void __launch_bounds__(T_THREADS, 1)
 q4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,

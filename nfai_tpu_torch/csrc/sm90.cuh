@@ -1,7 +1,8 @@
 // Device and host pieces that K1 (q4_matmul.cu), K6 (q8_matmul.cu), K11
 // (dense_matmul.cu), K12 (q8v3_matmul.cu), K4 (prefill_attention.cu) and
 // K2 / K7 (decode_attn.cuh: cp.async rings, ldmatrix, movmatrix, the
-// cluster launch) share: the tensor-core GEMV's mma.sync and operand shuffles, the wgmma
+// cluster launch) and K5 (fused_mlp.cu: cp.async rings and ldmatrix at
+// decode, K1's tiles and 4-bit decode above) share: the tensor-core GEMV's mma.sync and operand shuffles, the wgmma
 // tiles' mbarrier ring, TMA copies (2-D, and 3-D for K4's K/V tiles) and
 // register-A (K1, K6, K12; K4's P with an MN-major B) and shared-memory-A
 // (K11, K4's Q K^T) wgmma, the GEMV's
@@ -106,6 +107,15 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 b16 matrices: lanes 8m..8m+7 give the 16-byte rows of matrix
+// m; lane (g, t) receives bytes 4t..4t+3 of row g of each (K5's code words)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_u32(p))
+               : "memory");
 }
 
 // four 8 x 8 bf16 matrices, transposed: lanes 8m..8m+7 give the 16-byte rows
@@ -299,6 +309,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BM / 2], const uint32_t (&a)
   else if constexpr (BM == 64) wgmma_rs_n64<TB>(d, a, desc);
   else if constexpr (BM == 128) wgmma_rs_n128<TB>(d, a, desc);
   else wgmma_rs_n256<TB>(d, a, desc);
+}
+
+// the code at bit p of w (a nibble) → 128 + code as f32, exactly
+template <int P>
+__device__ __forceinline__ float nib128(uint32_t w) {
+  const uint32_t v = P <= 16 ? (w << (16 - P)) : (w >> (P - 16));
+  return __uint_as_float((v & 0x000F0000u) | 0x43000000u);
+}
+
+// The 4-bit register-A decode (K1's tiles, K5's): the A fragment of one
+// k16 step (half H of a 32-block) for rows g (w0, s0, c0)
+// and g + 8 (w1, s1, c1): bf16(s * q - m) = bf16(s * (128 + q) + c), c = -(m + 128 s).
+// w holds bytes 2t, 2t+1, 2t+8, 2t+9 of the block: k = 2t, 2t+1 | 2t+8, 2t+9.
+template <int H>
+__device__ __forceinline__ void decode_a(uint32_t w0, uint32_t w1, float s0, float c0, float s1,
+                                         float c1, uint32_t (&a)[4]) {
+  constexpr int p = 4 * H;
+  __nv_bfloat162 v;
+  v = __floats2bfloat162_rn(fmaf(s0, nib128<p>(w0), c0), fmaf(s0, nib128<p + 8>(w0), c0));
+  a[0] = *reinterpret_cast<uint32_t*>(&v);
+  v = __floats2bfloat162_rn(fmaf(s1, nib128<p>(w1), c1), fmaf(s1, nib128<p + 8>(w1), c1));
+  a[1] = *reinterpret_cast<uint32_t*>(&v);
+  v = __floats2bfloat162_rn(fmaf(s0, nib128<p + 16>(w0), c0), fmaf(s0, nib128<p + 24>(w0), c0));
+  a[2] = *reinterpret_cast<uint32_t*>(&v);
+  v = __floats2bfloat162_rn(fmaf(s1, nib128<p + 16>(w1), c1), fmaf(s1, nib128<p + 24>(w1), c1));
+  a[3] = *reinterpret_cast<uint32_t*>(&v);
 }
 
 // the shared-memory-A (SS) form: A and B both K-major tiles in shared memory

@@ -152,13 +152,20 @@ def q8_matmul(x: torch.Tensor, w: Q8Tensor) -> torch.Tensor:
 def q8v3_matmul_plain(x: torch.Tensor, w: Q8V3Tensor) -> torch.Tensor:
     """x [M, K] (any float dtype) @ W^T → bf16 [M, N] with W the decode
     written out (u0 = (hi - 50) + lo in bf16, times 8s, minus the mins, in
-    f32), products and sums in f32: the plain version of K12. W stays in the
-    planes' K order and x is permuted to it (the same sum, without
-    reordering the big operand), and W is decoded 1024 rows at a time, so a
-    block stays in the CPU's caches between its decode and its product."""
+    f32) and rounded once to bf16, as K12's wgmma tiles round it
+    (A = bf16(v/16 · 8s − m/2), the sums doubled) and as the JAX kernel
+    feeds its bf16 dot; products and sums in f32: the plain version of K12.
+    W stays in the planes' K order and x is permuted to it (the same sum,
+    without reordering the big operand), and W is decoded 1024 rows at a
+    time, so a block stays in the CPU's caches between its decode and its
+    product."""
     xp = x.float().index_select(-1, q8v3_order(w.k).to(x.device))
     rows = 1024
-    parts = [xp @ q8v3_planar(w._map(lambda t: t[r:r + rows])).T for r in range(0, w.n, rows)]  # noqa: B023
+
+    def weight(r):  # rows r .. r + 1023 of W, rounded once to bf16
+        return q8v3_planar(w._map(lambda t: t[r:r + rows])).to(torch.bfloat16).float()
+
+    parts = [xp @ weight(r).T for r in range(0, w.n, rows)]
     return torch.cat(parts, dim=-1).to(torch.bfloat16)
 
 

@@ -33,7 +33,11 @@ points (int8 codes and f32 scales from `quantize_kv`) at head_dim 64 and
 scale write) exactly, and a tiny int8 engine (dense and paged) on the card
 against the CPU through the int8 routes only. Gemma: K2, K4 and K7 at
 head_dim 256 with softcap and a sliding window (bf16 and int8, r = 1, 2, 4
-and 8) against their plain versions, K5 bit for bit on repeated launches,
+and 8) against their plain versions, K5 bit for bit on repeated launches
+(and at the edges of its regimes: rows 1, 2, 8, 9 and 16 on the decode
+kernel, 17, 40, 64 and 200 on the tiles, one and five F slices, an F
+too wide for the decode kernel,
+silu and gelu, per row, one launch a call),
 and a tiny gemma2 (dense and paged, bf16 and int8) on the card against the
 CPU. Dense weights: K11 per input row at the Llama-3.2-1B projection shapes,
 Gemma-3-1B's K = 1152 and an odd shape (K = 1000, N = 130), through its
@@ -267,10 +271,16 @@ def test_q8_matmul_reads_a_layer_in_place(cuda, m):
     assert rel(got, qm.matmul_plain(x, q6), row_dims=1) < TOL
 
 
-@pytest.mark.parametrize("m", [1, 8, 40])
+# K5 at the edges of its regimes: the decode kernel at 1, 2, 8 (one n8
+# fragment), 9, 16 (two), the tiles at 17, 40, 64, 200 (widths 32, 64, 64,
+# 128); F = 256 is one F slice of the decode kernel's down product (4
+# blocks) and of the tiles' (ks 1), 1280 five (20 blocks; ks 2); F = 8704
+# is more blocks than an H100's SMs, so the tiles take every row count
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 40, 64, 200])
+@pytest.mark.parametrize("f", [256, 1280, 8704])
 @pytest.mark.parametrize("act", ["silu", "gelu"])
-def test_fused_mlp_kernel(cuda, m, act):
-    k, f, h = 256, 512, 256
+def test_fused_mlp_kernel(cuda, m, f, act):
+    k, h = 256, 256
 
     def q4(n, kk):
         return Q4Tensor(
@@ -285,6 +295,7 @@ def test_fused_mlp_kernel(cuda, m, act):
     got = fm.fused_mlp(x, gu, dn, act)
     assert fm.K5.launches == before + 1
     assert rel(got, fm.fused_mlp_plain(x, gu, dn, act), row_dims=1) < TOL
+    assert all(torch.equal(fm.fused_mlp(x, gu, dn, act), got) for _ in range(2))
 
 
 @pytest.mark.parametrize("kind", ["fused", "q4_k_m", "q8_0", "q4_0_tied"])

@@ -138,3 +138,149 @@ def test_eligibility_follows_the_jax_rule(pair):
     assert not tfm.mlp_eligible(narrow, tdn)  # K % 1024 != 0, as jqt.mlp_eligible
     with pytest.raises(ValueError):
         tfm.fused_mlp(torch.zeros(2, K), tgu.layer(0), tdn.layer(0), act="relu")
+
+
+# -- the decode kernel's host plan and index maps (csrc/fused_mlp.cu), on the CPU --------
+
+
+@pytest.mark.parametrize("m,k,f,h", [(1, 2048, 8192, 2048), (8, 2048, 8192, 2048),
+                                     (16, 2048, 8192, 2048), (9, 3072, 8192, 3072),
+                                     (16, 256, 256, 256), (2, 256, 512, 256), (3, 1024, 2048, 1024),
+                                     (8, 4096, 4096, 4096)])
+def test_decode_plan_covers_f_and_h(m, k, f, h):
+    """The plan's blocks cover F exactly (64 ffn columns each) and fit on
+    the card at once, its ring fits in an H100 block's shared memory, its
+    phase-2 items cover H x F exactly, and its workspace is what the kernel
+    writes: one f32 partial per (F slice, row, output column), one counter
+    per 16 output columns receiving one arrival per slice."""
+    p = tfm.decode_plan(m, k, f, h)
+    assert p is not None
+    assert p["blocks"] * tfm.DECODE_FB == f and p["blocks"] <= 132
+    assert tfm.DECODE_FB == 8 * tfm.DECODE_WARPS  # 8 gate (and up) rows a warp
+    assert p["slices"] * p["slice"] == f and p["items"] * tfm.DECODE_RB * p["slice"] == h * f
+    assert p["part"] == p["slices"] * m * h and p["counters"] == h // 16 + 2 * p["slices"]
+    nf = 1 if m <= 8 else 2
+    assert p["work"] == nf * f * 16 + (f // 32) * 8 * nf * 4 + 4 * p["part"]
+    assert p["smem"] <= tfm.SMEM_MAX and p["stages"] in (3, 4)
+    writes, counts = _decode_writes(p, m, h)
+    assert writes.shape == (p["slices"], m, h) and (writes == 1).all()
+    assert (counts == p["slices"]).all()
+
+
+@pytest.mark.parametrize("m,k,f,h", [(17, 2048, 8192, 2048), (8, 1152, 8192, 2048),
+                                     (8, 2048, 8192 + 128, 2048), (8, 2048, 8192, 2048 + 64),
+                                     (16, 4096, 4096, 4096), (8, 4096, 14336, 4096)])
+def test_decode_plan_leaves_other_shapes_to_the_tiles(m, k, f, h):
+    """More than 16 rows, K % 256, F % 256 or H % 128 not 0, x too wide for
+    shared memory beside the ring at two n8 fragments, or more blocks than
+    the card holds at once: no plan (the tiles take the shape)."""
+    assert tfm.decode_plan(m, k, f, h) is None
+
+
+@pytest.mark.parametrize("m,k,f,h", [(17, 2048, 8192, 2048), (64, 2048, 8192, 2048),
+                                     (256, 2048, 8192, 2048), (1024, 2048, 8192, 2048),
+                                     (256, 3072, 8192, 3072), (200, 256, 1280, 256),
+                                     (9, 256, 8704, 256)])
+def test_tiles_plan_splits_f_within_the_card(m, k, f, h):
+    """The tiles' row tile holds m (or tiles it by 128), phase 2's F split
+    divides F's 128-code stages and keeps phase 2 within the card's SMs
+    where it splits, and the workspace is a [m, F] bf16 plus the slices'
+    f32 sums (BM / 2 per consumer thread a tile)."""
+    p = tfm.tiles_plan(m, k, f, h)
+    bm, n_m, ks = p["bm"], p["row_tiles"], p["ks"]
+    assert bm in (16, 32, 64, 128) and (m <= bm or bm == 128) and n_m == -(-m // bm)
+    assert bm == 16 or m > bm // 2 or bm == 128
+    assert ks in (1, 2, 4, 8) and (f // 128) % ks == 0
+    assert ks == 1 or (h // 128) * n_m * ks <= 132
+    assert ks == 8 or (f // 128) % (2 * ks) or (h // 128) * n_m * 2 * ks > 132
+    part = ks * n_m * (h // 128) * (bm // 2) * 256 if ks > 1 else 0
+    assert p["work"] == m * f * 2 + 4 * part and p["counters"] == n_m * (2 + h // 128)
+    assert p["blocks"] == (f // 64 + ks * (h // 128)) * n_m
+
+
+def _decode_writes(plan, m, h):
+    """The kernel's phase-2 index map: (number of stores of each partial
+    element [F slice, row, output column], arrivals at each row group's
+    counter) over every block's items and warps."""
+    writes = np.zeros((plan["slices"], m, h), np.int64)
+    counts = np.zeros(h // 16, np.int64)
+    grid, n_fs = plan["blocks"], plan["slices"]
+    for b in range(grid):
+        mine = (plan["items"] - b + grid - 1) // grid
+        for it in (b + grid * r for r in range(mine)):
+            fs = it % n_fs
+            for warp in range(tfm.DECODE_WARPS):
+                hg = (it // n_fs) * tfm.DECODE_RB + 16 * warp
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    for j in range(2 if m > 8 else 1):
+                        for e in range(4):
+                            row, col = 8 * j + 2 * t + (e & 1), hg + g + 8 * (e >> 1)
+                            if row < m:
+                                writes[fs, row, col] += 1
+                counts[hg // 16] += 1
+    return writes, counts
+
+
+def _nib2(w):
+    """The kernel's nib2: the codes at bits 0-3 and 16-19 of w (lo, hi)."""
+    return np.stack([w & 0xF, (w >> 16) & 0xF], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("mp", [8, 16])
+def test_decode_stage_fragment_mapping(mp):
+    """One ring stage through the kernel's stage_product, modelled in numpy:
+    the ldmatrix lane addresses, nib2 on the words, K1's permuted B
+    fragment of x, two m16n8k16 products a 32-block, the f32 scale and the
+    min times the block's x sum; the C fragments assembled equal
+    (s q - m) @ x^T for the stage's 16 rows."""
+    rng = np.random.default_rng(mp)
+    codes = rng.integers(0, 256, (16, 128), dtype=np.uint8)  # 16 rows x 256 codes (8 32-blocks)
+    sc = rng.random((16, 8), dtype=np.float32) * 1e-2
+    mn = rng.random((16, 8), dtype=np.float32) * 5e-2
+    x = rng.standard_normal((mp, 256)).astype(np.float32)
+    q = np.empty((16, 256), np.float32)  # the natural-order codes of each 32-block
+    for b in range(8):
+        blk = codes[:, 16 * b:16 * b + 16]
+        q[:, 32 * b:32 * b + 16], q[:, 32 * b + 16:32 * b + 32] = blk & 0xF, blk >> 4
+    want = (np.repeat(sc, 32, 1) * q - np.repeat(mn, 32, 1)) @ x.T  # [16, mp]
+    xsum = x.reshape(mp, 8, 32).sum(-1).T  # [8 blocks][mp]
+    words = codes.view("<u4")  # [16 rows, 32 words]: block b word t at 4b + t
+    acc = np.zeros((mp // 8, 32, 4))
+    for b in range(8):
+        bb, hh = b & ~1, b & 1
+        A = np.zeros((2, 16, 16), np.float32)  # the two products' A, from every lane's registers
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            # ldmatrix register i of lane (g, t): word t of the row lane 8i + g addresses
+            w = [int(words[g + 8 * (i & 1), 4 * (bb + (i >> 1)) + t]) for i in range(4)]
+            w0, w1 = w[2 * hh], w[2 * hh + 1]
+            a = [_nib2(v) for v in (w0, w1, w0 >> 8, w1 >> 8, w0 >> 4, w1 >> 4, w0 >> 12, w1 >> 12)]
+            for mma in range(2):
+                A[mma, g, 2 * t:2 * t + 2], A[mma, g + 8, 2 * t:2 * t + 2] = a[4 * mma], a[4 * mma + 1]
+                A[mma, g, 2 * t + 8:2 * t + 10] = a[4 * mma + 2]
+                A[mma, g + 8, 2 * t + 8:2 * t + 10] = a[4 * mma + 3]
+        for j in range(mp // 8):
+            B = np.zeros((2, 16, 8), np.float32)  # b_frag: lane (g, t) holds column g
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                row = x[8 * j + g, 32 * b:32 * b + 32]
+                for mma in range(2):
+                    half = row[16 * mma:]
+                    B[mma, 2 * t:2 * t + 2, g] = half[[4 * t, 4 * t + 2]]
+                    B[mma, 2 * t + 8:2 * t + 10, g] = half[[4 * t + 1, 4 * t + 3]]
+            D = A[0] @ B[0] + A[1] @ B[1]
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                p = (D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t], D[g + 8, 2 * t + 1])
+                xs = xsum[b, 8 * j + 2 * t:8 * j + 2 * t + 2]
+                for e in range(4):
+                    r = g + 8 * (e >> 1)
+                    acc[j, lane, e] += sc[r, b] * p[e] - mn[r, b] * xs[e & 1]
+    got = np.zeros((16, mp))
+    for j in range(mp // 8):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            got[g, 8 * j + 2 * t:8 * j + 2 * t + 2] = acc[j, lane, :2]
+            got[g + 8, 8 * j + 2 * t:8 * j + 2 * t + 2] = acc[j, lane, 2:]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())

@@ -12,8 +12,9 @@ on the CPU):
   (through `load_params`);
 - `q8v3_matmul_plain` against the JAX `qmatmul_layered` / `qmatmul` on
   the JAX q8v3 container, run as `tests/test_q8v3.py` runs it (bf16 x): per
-  input row max|Δ| / max|ref| ≤ 1e-2 (the JAX kernel rounds u0 * 8s to
-  bf16, the port multiplies in f32);
+  input row max|Δ| / max|ref| ≤ 1e-2 (both round the weight to bf16: the
+  JAX kernel u0 * 8s before it subtracts the mins' product, the port
+  u0 * 8s - m, as K12's tiles do);
 - `load_params` under `NFAI_Q8V3=1` (set with `monkeypatch.setenv` for
   both packages) makes the JAX package's container choices key by key: a
   JAX "q8v3" stack is a `Q8V3Tensor`, or a `LayerList` whose 8-bit layers
