@@ -206,15 +206,25 @@ KERNEL_FUNCTIONS = {"q4_matmul": ("q4_gemv", "q4_wgmma"), "q8_matmul": ("q8_gemv
                     # K4, every instance (prefill_attn_wgmma<D, groups, cache element, EXT>)
                     "prefill_attention": ("prefill_attn",),
                     # K5: the decode kernel (M <= 16), the tiles above
-                    "fused_mlp": ("fused_mlp_decode", "fused_mlp_tiles")}
+                    "fused_mlp": ("fused_mlp_decode", "fused_mlp_tiles"),
+                    # K8 (4-bit) and K9 (8-bit): the GEMV at tm = 8, the wgmma tiles above
+                    "grouped_q4": ("grouped_gemv_kernel<true", "grouped_wgmma_kernel<true"),
+                    "grouped_q8": ("grouped_gemv_kernel<false", "grouped_wgmma_kernel<false")}
 # device functions the profiles tally one by one (a kernel's paths)
 PATH_FUNCTIONS = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
-# models whose profile phase also records one 8x128 prefill chunk: (tile
-# function, GEMV function, GEMV launches a chunk); every projection of a
-# layer (wqkv, wo, gate_up, down) runs the tiles at M = 1024, and K4 (E's
-# head-major instance, D's "full") runs once a layer. E's head is K12's
-# GEMV (8 rows), D's tied F16 head torch.matmul
-PREFILL_PROFILED = {"E": ("q8v3_wgmma", "q8v3_gemv", 1), "D": ("dense_wgmma", "dense_gemv", 0)}
+# models whose profile phase also records one 8x128 prefill chunk: the
+# launches of a chunk by device function, from the loaded engine. E and D:
+# every projection of a layer (wqkv, wo, gate_up, down) runs the tiles at
+# M = 1024, K4 (E's head-major instance, D's "full") once a layer; E's head
+# is K12's GEMV (8 rows), D's tied F16 head torch.matmul. C: K8's tiles for
+# gate, up and each 4-bit down, K9's for each Q6_K down (8192 rows, tm 128),
+# K4 once a layer
+PREFILL_PROFILED = {
+    "E": lambda engine, n: {"q8v3_wgmma": 4 * n, "q8v3_gemv": 1, "prefill_attn": n},
+    "D": lambda engine, n: {"dense_wgmma": 4 * n, "dense_gemv": 0, "prefill_attn": n},
+    "C": lambda engine, n: {"grouped_wgmma_kernel<true": 2 * n + _q4_downs(engine),
+                            "grouped_wgmma_kernel<false": n - _q4_downs(engine), "prefill_attn": n},
+}
 
 
 def log(msg: str) -> None:
@@ -1096,13 +1106,17 @@ def _routing_layout(torch, n_tokens, e, used, gen):
 
 
 def _kernels_k8_k9(torch, timer, gen) -> dict:
-    """K8 (4-bit) and K9 (8-bit) at model C's expert shapes: gate/up
-    [128, 768, 2048] and down [128, 2048, 768], at the decode layouts of a
-    batch-1 and a batch-8 routing (8 and 64 rows, tm 8), a 256-token
+    """K8 (4-bit) and K9 (8-bit) at model C's expert shapes (`--kernels k8`):
+    gate/up [128, 768, 2048] and down [128, 2048, 768], at the decode layouts
+    of a batch-1 and a batch-8 routing (8 and 64 rows, tm 8), a 256-token
     prefill chunk (2048 rows, tm 32) and the batch phase's 8 x 128-token
-    prefill (8192 rows, tm 128); per routed row against the plain version.
-    Yardstick: the hit experts of every block dequantized to bf16, then one
-    torch.bmm over the blocks."""
+    prefill (8192 rows, tm 128); per routed row against the plain version,
+    with x's padding rows random (the kernels must write zeros there from
+    block_rows alone), three launches with the same bits. Yardsticks: the
+    hit experts of every block dequantized to bf16, then one torch.bmm over
+    the blocks (library_ms); and K1's, torch.bmm over the non-empty blocks
+    alone with their experts' bf16 weights gathered before the timer
+    (bmm_dequantized_ms)."""
     from nfai_tpu_torch.ops import qmatmul as qm
     from nfai_tpu_torch.ops.qtensor import Q4Tensor, Q8Tensor, dequant
 
@@ -1130,43 +1144,47 @@ def _kernels_k8_k9(torch, timer, gen) -> dict:
     results = {}
     for name, ws in weights.items():
         cases = []
+        kname = "K8" if name == "grouped_q4" else "K9"
         for label, w in ws.items():
             per_expert = sum(t[0].numel() * t.element_size()
                              for t in (w.qs, w.scales) + (() if w.mins is None else (w.mins,)))
             for lname, (m_pad, dst, bg, br, tm, hit) in layouts.items():
                 rows = dst.numel()
-                x = torch.zeros(m_pad, w.k, device="cuda", dtype=bf)
-                x[dst] = torch.randn(rows, w.k, device="cuda", dtype=bf, generator=gen)
+                x = torch.randn(m_pad, w.k, device="cuda", dtype=bf, generator=gen)  # padding too
                 got = qm.qmatmul_grouped(x, w, bg, tm, br)
                 torch.cuda.synchronize()
                 want = qm.qmatmul_grouped_plain(x, w, bg, tm, br)
-                err = check(f"{'K8' if name == 'grouped_q4' else 'K9'} {label} {lname}: {rows} rows, "
-                            f"m_pad {m_pad}, tm {tm}, {hit} experts hit", got[dst], want[dst],
-                            row_dims=1)
+                err = check(f"{kname} {label} {lname}: {rows} rows, m_pad {m_pad}, tm {tm}, {hit} "
+                            f"experts hit", got[dst], want[dst], row_dims=1)
                 if bool((got.float().abs().sum(-1) == 0).sum() != m_pad - rows):
                     raise AssertionError("padding rows must be zero and routed rows not")
+                same_bits(f"{kname} {label} {lname}", got, lambda: qm.qmatmul_grouped(x, w, bg, tm, br))
                 ms = timer(lambda: qm.qmatmul_grouped(x, w, bg, tm, br))
                 plain_ms = timer(lambda: qm.qmatmul_grouped_plain(x, w, bg, tm, br), iters=3)
                 g = bg.long()
                 xb = x.view(m_pad // tm, tm, w.k)
                 lib_ms = timer(lambda: torch.bmm(xb, dequant(w._map(lambda t: t[g])).to(bf).transpose(1, 2)),
                                iters=3)
+                live = (br > 0).nonzero().flatten()  # the non-empty blocks, their weights gathered
+                x_live, w_live = xb[live].contiguous(), dequant(w._map(lambda t: t[g[live]])).to(bf)
+                bmm_ms = timer(lambda: torch.bmm(x_live, w_live.transpose(1, 2)))
+                del x_live, w_live
                 nbytes = hit * per_expert + rows * (w.k + w.n) * 2 + bg.numel() * 8
                 b, by = bound_ms(nbytes, 2.0 * rows * w.k * w.n)
                 cases.append(dict(shape=f"{label} K={w.k} N={w.n} {lname} ({rows} rows, tm {tm})",
                                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                                  bound_by=by, library_ms=lib_ms,
+                                  bound_by=by, library_ms=lib_ms, bmm_dequantized_ms=bmm_ms,
                                   library="dequantized hit experts + torch.bmm"))
                 log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, "
-                    f"dequantize hit experts + bmm {lib_ms:.4f})")
+                    f"dequantize hit experts + bmm {lib_ms:.4f}, bmm on gathered bf16 {bmm_ms:.4f})")
                 del x, want, got
         if name == "grouped_q8":  # with mins (Q5_K / Q2_K kinds), g32: checked, not timed
             wm = stack("q8", h, f, group=32, with_mins=True)
-            m_pad, dst, bg, br, tm, _ = layouts["batch 8"]
-            x = torch.zeros(m_pad, f, device="cuda", dtype=bf)
-            x[dst] = torch.randn(dst.numel(), f, device="cuda", dtype=bf, generator=gen)
-            check("K9 g32 with mins batch 8", qm.qmatmul_grouped(x, wm, bg, tm, br)[dst],
-                  qm.qmatmul_grouped_plain(x, wm, bg, tm, br)[dst], row_dims=1)
+            for lname in ("batch 8", "prefill 256"):
+                m_pad, dst, bg, br, tm, _ = layouts[lname]
+                x = torch.randn(m_pad, f, device="cuda", dtype=bf, generator=gen)
+                check(f"K9 g32 with mins {lname}", qm.qmatmul_grouped(x, wm, bg, tm, br)[dst],
+                      qm.qmatmul_grouped_plain(x, wm, bg, tm, br)[dst], row_dims=1)
         results[name] = dict(
             route="cuda", source="nfai_tpu_torch/csrc/grouped_matmul.cu",
             replaces="nfai_tpu/ops/qmatmul.py:1098" if name == "grouped_q4" else "nfai_tpu/ops/qmatmul.py:1144",
@@ -1491,10 +1509,11 @@ def _k4_layouts(torch, timer, gen) -> dict:
             "merged": out["merged"], "merged_i8": out["merged_i8"]}
 
 
-# the kernel phases `--kernels` takes: the matmuls, K4, K5, and K2 / K7 (each
-# with its int8 entry point and Gemma's head_dim-256 rows: `--kernels k2,k7`)
+# the kernel phases `--kernels` takes: the matmuls (`k8`: K8 and K9), K4, K5,
+# and K2 / K7 (each with its int8 entry point and Gemma's head_dim-256 rows:
+# `--kernels k2,k7`)
 KERNEL_PHASES = {"k1": _kernels_k1, "k2": _kernels_k2, "k4": _kernels_k4, "k5": _kernels_k5,
-                 "k6": _kernels_k6, "k7": _kernels_k7, "k11": _kernels_k11,
+                 "k6": _kernels_k6, "k7": _kernels_k7, "k8": _kernels_k8_k9, "k11": _kernels_k11,
                  "k12": _kernels_k12}
 
 
@@ -1790,8 +1809,9 @@ def phase_profile_prefill(torch, engine, expect: dict[str, int]) -> dict:
     wall (synchronised), device busy ms, and the device ms of each path of
     the matmul kernels and of K4, tallied by function name (E: K12's GEMV
     for the head's 8 rows, its wgmma tiles for the layers', K4-hm; D: K11's
-    wgmma tiles, no GEMV, K4; A: K1's tiles for wqkv and wo, K5 for the
-    MLP, K1's GEMV for the head, K4). `expect` gives the
+    wgmma tiles, no GEMV, K4; C: K8's and K9's tiles for the experts (tm
+    128), K4; A: K1's tiles for wqkv and wo, K5 for the MLP, K1's GEMV for
+    the head, K4). `expect` gives the
     launches of a chunk by function name. The profiler loses the records of
     the first kernels after it starts (seen on the card: 1 to 12 of the 32
     tile launches), so a first chunk runs as the profiler's warm-up step and
@@ -2650,13 +2670,19 @@ def _check_route(kernels_mod, path, what) -> dict:
     return launches
 
 
+def _q4_downs(engine) -> int:
+    """Model C's layers whose expert down stack is 4-bit (K8; the others
+    are Q6_K, K9)."""
+    from nfai_tpu_torch.ops.qtensor import Q4Tensor
+
+    down = engine.params["layers"]["w_down_exps"]
+    return sum(isinstance(down.layer(i), Q4Tensor) for i in range(engine.model_cfg.n_layers))
+
+
 def _check_moe_step(engine, per_step) -> None:
     """Model C's decode step launches what its route implies: per layer K8
     for gate and up and for a 4-bit down, K9 for a Q6_K down."""
-    from nfai_tpu_torch.ops.qtensor import Q4Tensor
-
-    cfg, down = engine.model_cfg, engine.params["layers"]["w_down_exps"]
-    q4_down = sum(isinstance(down.layer(i), Q4Tensor) for i in range(cfg.n_layers))
+    cfg, q4_down = engine.model_cfg, _q4_downs(engine)
     want = {"grouped_q4": 2 * cfg.n_layers + q4_down, "grouped_q8": cfg.n_layers - q4_down,
             "fused_mlp": 0}
     got = {k: per_step[k] for k in want}
@@ -2784,17 +2810,13 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
             t0 = time.perf_counter()
             out["profile"] = phase_profile(torch, engine, state)
             if label in PREFILL_PROFILED:
-                tiles, gemv, head = PREFILL_PROFILED[label]
-                n_layers = engine.model_cfg.n_layers
-                prof = out["prefill_profile"] = phase_profile_prefill(
-                    torch, engine, {tiles: 4 * n_layers, gemv: head, "prefill_attn": n_layers})
+                expect = PREFILL_PROFILED[label](engine, engine.model_cfg.n_layers)
+                prof = out["prefill_profile"] = phase_profile_prefill(torch, engine, expect)
                 ms = prof["device_ms_by_function"]
                 log(f"  model {label} prefill 8x128: {out['batch']['prefill_ms']:.1f} ms (host clock, "
-                    f"synchronised, batch phase; median of five {prof['median_wall_ms']:.1f}); the "
-                    f"matmul kernel's device share "
-                    f"{ms[tiles] + ms[gemv]:.2f} of {prof['device_ms']:.2f} ms (tiles {ms[tiles]:.2f} in "
-                    f"{4 * n_layers} launches, GEMV {ms[gemv]:.4f} in {head}); K4 "
-                    f"{ms['prefill_attn']:.4f} ms in {n_layers} launches")
+                    f"synchronised, batch phase; median of five {prof['median_wall_ms']:.1f}); device "
+                    f"{prof['device_ms']:.2f} ms: "
+                    + ", ".join(f"{f} {ms[f]:.4f} in {n} launches" for f, n in expect.items()))
             if label == "A":  # K5 at M = 1024 (a layer's MLP), K1's tiles for wqkv and wo
                 n_layers = engine.model_cfg.n_layers
                 prof = out["prefill_profile"] = phase_profile_prefill(
@@ -2985,7 +3007,7 @@ def main(argv=None) -> int:
                     max_abs_err=h["max_abs_err"], ms=h["ms"], plain_ms=h["plain_ms"],
                     bound_ms=h["bound_ms"], bound_by=h["bound_by"],
                     library_ms=h["library_ms"], shape=h["shape"],
-                    **{key: h[key] for key in ("bound_gguf_ms", "replaced_route_ms", "library",
+                    **{key: h[key] for key in ("bound_gguf_ms", "replaced_route_ms", "library", "bmm_dequantized_ms",
                                                "k2_same_shape_ms", "k6_same_codes_ms") if key in h},
                     **({"merged": r["merged_cases"][0]} if r.get("merged_cases") else {}),
                 ))

@@ -1,8 +1,9 @@
 // Device and host pieces that K1 (q4_matmul.cu), K6 (q8_matmul.cu), K11
-// (dense_matmul.cu), K12 (q8v3_matmul.cu), K4 (prefill_attention.cu) and
+// (dense_matmul.cu), K12 (q8v3_matmul.cu), K4 (prefill_attention.cu),
 // K2 / K7 (decode_attn.cuh: cp.async rings, ldmatrix, movmatrix, the
-// cluster launch) and K5 (fused_mlp.cu: cp.async rings and ldmatrix at
-// decode, K1's tiles and 4-bit decode above) share: the tensor-core GEMV's mma.sync and operand shuffles, the wgmma
+// cluster launch), K5 (fused_mlp.cu: cp.async rings and ldmatrix at
+// decode, K1's tiles and 4-bit decode above) and K8 / K9 (grouped_matmul.cu:
+// the same at decode, K1's and K6's tiles and epilogue above) share: the tensor-core GEMV's mma.sync and operand shuffles, the wgmma
 // tiles' mbarrier ring, TMA copies (2-D, and 3-D for K4's K/V tiles) and
 // register-A (K1, K6, K12; K4's P with an MN-major B) and shared-memory-A
 // (K11, K4's Q K^T) wgmma, the GEMV's

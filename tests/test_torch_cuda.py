@@ -20,8 +20,12 @@ checked on every path: the CUDA-core GEMV (M = 1), the tensor-core GEMV
 and K, K % 128 != 0 and a ragged N; K6 with codes over all of -128..127,
 scale groups of 16 and 32, with and without mins; three launches give the
 same bits, and a layer of a stack is read in place. K2, K4 and K7 are also checked at head_dim 128 with
-r = 3 and 8, and K8 / K9 (grouped matmul) per routed row on a routing with
-an empty expert and a two-block expert, at tm = 8, 32 and 128. The tiny
+r = 3 and 8, and K8 / K9 (grouped matmul) per routed row, with x random on
+the padding rows (written as zeros) and the same bits on three launches, on
+a routing with an empty expert, a block of exactly tm rows and the clipped
+empty tail blocks at tm = 8, 32 and 128 (K % 128 != 0 and a ragged N too;
+g16 and g32, with and without mins), and at model C's widths and layouts
+(batch 1, batch 8, 256 tokens, 8 x 128). The tiny
 models of every GGUF kind the port loads run on the card and on the CPU,
 with K5 launched exactly for the fused-MLP model and K6 exactly for the
 8-bit ones. K7 (paged decode attention) is
@@ -499,35 +503,70 @@ def test_attention_kernels_head_dim_128(cuda, r):
     assert rel(got, pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, d**-0.5), 1) < TOL
 
 
-@pytest.mark.parametrize("tm", [8, 32, 128])
-@pytest.mark.parametrize("kind", ["q4", "q8_g32", "q8_g16_mins"])
-def test_grouped_matmul_kernels(cuda, tm, kind):
+def _expert_stack(cuda, kind, e, n, k):
+    if kind == "q4":
+        return Q4Tensor(torch.randint(0, 256, (e, n, k // 2), dtype=torch.uint8, device="cuda",
+                                      generator=cuda),
+                        torch.rand(e, n, k // 32, device="cuda", generator=cuda) * 1e-2,
+                        torch.rand(e, n, k // 32, device="cuda", generator=cuda) * 5e-2, k, n)
+    g = 32 if kind.startswith("q8_g32") else 16
+    return Q8Tensor(torch.randint(-32, 32, (e, n, k), dtype=torch.int8, device="cuda", generator=cuda),
+                    torch.rand(e, n, k // g, device="cuda", generator=cuda) * 1e-2,
+                    torch.rand(e, n, k // g, device="cuda", generator=cuda) * 5e-2
+                    if kind.endswith("mins") else None, k, n, g)
+
+
+def _check_grouped(cuda, w, flat, e, tm):
+    """One launch of K8 / K9 on a routing laid out as moe_ffn lays it out,
+    x random on the padding rows too: per routed row against the plain
+    version, zeros on every other row, the same bits on three launches."""
     from nfai_tpu_torch.models.llama import moe_group_layout
 
-    e, n, k = 4, 256, 512
-    if kind == "q4":
-        w = Q4Tensor(torch.randint(0, 256, (e, n, k // 2), dtype=torch.uint8, device="cuda",
-                                   generator=cuda),
-                     torch.rand(e, n, k // 32, device="cuda", generator=cuda) * 1e-2,
-                     torch.rand(e, n, k // 32, device="cuda", generator=cuda) * 5e-2, k, n)
-    else:
-        g = 32 if kind == "q8_g32" else 16
-        w = Q8Tensor(torch.randint(-32, 32, (e, n, k), dtype=torch.int8, device="cuda",
-                                   generator=cuda),
-                     torch.rand(e, n, k // g, device="cuda", generator=cuda) * 1e-2,
-                     torch.rand(e, n, k // g, device="cuda", generator=cuda) * 5e-2
-                     if kind.endswith("mins") else None, k, n, g)
-    flat = torch.tensor([1, 2, 2, 3] + [2] * (tm + 2) + [1, 1], device="cuda")  # expert 0 empty
     order, dst, bg, br, m_pad = moe_group_layout(flat, flat.numel(), e, tm)
-    x = torch.zeros(m_pad, k, device="cuda", dtype=torch.bfloat16)
-    x[dst] = torch.randn(flat.numel(), k, device="cuda", dtype=torch.bfloat16, generator=cuda)
-    counter = qm.K8 if kind == "q4" else qm.K9
+    x = torch.randn(m_pad, w.k, device="cuda", dtype=torch.bfloat16, generator=cuda)
+    counter = qm.K8 if isinstance(w, Q4Tensor) else qm.K9
     before = counter.launches
     got = qm.qmatmul_grouped(x, w, bg, tm, br)
     assert counter.launches == before + 1
     want = qm.qmatmul_grouped_plain(x, w, bg, tm, br)
     assert rel(got[dst], want[dst], row_dims=1) < TOL
-    assert torch.equal(got.float().abs().sum(-1) == 0, want.float().abs().sum(-1) == 0)
+    routed = torch.zeros(m_pad, dtype=torch.bool, device="cuda")
+    routed[dst] = True
+    assert not got[~routed].any() and bool((got[routed].float().abs().sum(-1) > 0).all())
+    for _ in range(2):
+        assert torch.equal(qm.qmatmul_grouped(x, w, bg, tm, br), got)
+    return bg, br
+
+
+@pytest.mark.parametrize("n,k", [(256, 512), (192, 544)], ids=["K512", "K544-N192"])
+@pytest.mark.parametrize("tm", [8, 32, 128])
+@pytest.mark.parametrize("kind", ["q4", "q8_g32", "q8_g16_mins", "q8_g32_mins", "q8_g16"])
+def test_grouped_matmul_kernels(cuda, tm, kind, n, k):
+    """An empty expert (0), a block with exactly tm real rows and a partial
+    one (expert 2), the clipped empty tail blocks; K = 544 has scale rows
+    that are not 16-byte strided and N = 192 a last weight tile that runs
+    past the expert's rows."""
+    e = 4
+    w = _expert_stack(cuda, kind, e, n, k)
+    flat = torch.tensor([1, 2, 2, 3] + [2] * (tm + 2) + [1, 1], device="cuda")  # expert 0 empty
+    bg, br = _check_grouped(cuda, w, flat, e, tm)
+    assert bool((br == tm).any()) and bool((br == 0).any()) and int(bg[-1]) == e - 1
+
+
+@pytest.mark.parametrize("tokens", [1, 8, 256, 1024], ids=["batch1", "batch8", "prefill256", "8x128"])
+@pytest.mark.parametrize("kind,n,k", [("q4", 768, 2048), ("q4", 2048, 768), ("q8_g16", 2048, 768)],
+                         ids=["K8-gate", "K8-down", "K9-Q6_K-down"])
+def test_grouped_matmul_model_c_layouts(cuda, kind, n, k, tokens):
+    """Model C's widths (128 experts, 8 a token; gate/up K = 2048, N = 768,
+    down K = 768, N = 2048) at the layouts moe_ffn gives a batch-1 and a
+    batch-8 decode step (tm 8), a 256-token chunk (tm 32) and the 8 x 128
+    prefill (tm 128)."""
+    from nfai_tpu_torch.models.llama import group_tm
+
+    e, used = 128, 8
+    w = _expert_stack(cuda, kind, e, n, k)
+    flat = torch.rand(tokens, e, device="cuda", generator=cuda).argsort(-1)[:, :used].reshape(-1)
+    _check_grouped(cuda, w, flat, e, group_tm(flat.numel()))
 
 
 @pytest.mark.parametrize("d,r", [(64, 4), (128, 3), (128, 8)])

@@ -16,7 +16,10 @@ interpret mode, as its own tests run them):
 - a tiny qwen3moe model (hidden 512, 4 heads / 2 kv: head_dim 128, E = 4,
   top-2, expert ffn 256, Q4_K with a Q6_K ffn_down_exps on layer 1)
   carried across by `params_from_jax`: prefill logits and 4 teacher-forced
-  decode steps, dense and through the page pool, against the JAX engine.
+  decode steps, dense and through the page pool, against the JAX engine;
+- one ring stage of K8's and K9's decode GEMV modelled in numpy (the
+  swizzled copies, ldmatrix, the nibble and int8 decodes into the permuted
+  K order, scale and min folds) against (s q - m) @ x^T.
 
 Tolerances: max|got - want| / max|want| < 2e-2 (per routed row for the
 grouped matmul) for the kernels' plain versions and the FFN: the JAX
@@ -308,3 +311,101 @@ def test_qwen3moe_engine_greedy_vs_jax(moe_engines):
     want = list(je.generate(ids, JSamplingParams(temperature=0.0, max_new_tokens=8)))
     got = list(te.generate(ids, SamplingParams(temperature=0.0, max_new_tokens=8)))
     assert got == want
+
+
+@pytest.mark.parametrize("kind", ["q4", "q8_g16", "q8_g32_mins"])
+def test_grouped_gemv_stage_fragment_mapping(kind):
+    """One ring stage of K8 / K9's decode GEMV (csrc/grouped_matmul.cu,
+    `grouped_gemv_kernel`), modelled in numpy: the lanes' 16-byte copies of
+    16 code rows x 128 bytes into the stage with chunk c of row r at
+    c ^ (r & 7), the ldmatrix lanes' addresses and the words they hand to
+    lane (g, t), the nibble decode (A = 128 + q, one lop3) or K6's int8 one
+    (A = q) of those words into the A slots' permuted K order, x's B
+    fragment in the same order, the m16n8k16 products, each scale group's
+    f32 scale and its min (K8: min + 128 scale) times the group's x sum
+    staged beside the fragments: the C fragments equal (s q - m) @ x^T for
+    the stage's 16 rows and 8 x rows (two of them live, the rest zero)."""
+    q4, g32, mins = kind == "q4", "g32" in kind, kind == "q4" or kind.endswith("mins")
+    cpb, bps = (32, 1) if q4 else (16, 2 if g32 else 1)
+    ncodes, rows = 8 * cpb, 2
+    rng = np.random.default_rng(len(kind))
+    raw = rng.integers(0, 256, (16, 128), dtype=np.uint8)  # the stage's code bytes, 8 blocks a row
+    groups = 8 // bps
+    sc = rng.random((16, groups), dtype=np.float32) * 1e-2
+    mn = rng.random((16, groups), dtype=np.float32) * 5e-2 if mins else np.zeros((16, groups), np.float32)
+    x = np.zeros((8, ncodes), np.float32)
+    x[:rows] = rng.standard_normal((rows, ncodes)).astype(np.float32)
+    if q4:  # natural order: byte j of 32-block b holds code 32b+j low, 32b+16+j high
+        q = np.empty((16, ncodes), np.float32)
+        for b in range(8):
+            blk = raw[:, 16 * b:16 * b + 16]
+            q[:, 32 * b:32 * b + 16], q[:, 32 * b + 16:32 * b + 32] = blk & 0xF, blk >> 4
+    else:
+        q = raw.view(np.int8).astype(np.float32)
+    w = np.repeat(sc, cpb * bps, 1) * q - np.repeat(mn, cpb * bps, 1)
+    want = w @ x.T  # [16 weight rows, 8 x rows]
+
+    stage = np.zeros(16 * 128, np.uint8)  # the copies: lane (rq, cq), rows rq + 4k
+    written = np.zeros((16, 8), int)
+    for lane in range(32):
+        rq, cq = lane >> 3, lane & 7
+        for k in range(4):
+            r = rq + 4 * k
+            dst = r * 128 + 16 * (cq ^ (r & 7))
+            stage[dst:dst + 16] = raw[r, 16 * cq:16 * cq + 16]
+            written[r, cq] += 1
+    assert (written == 1).all()
+    words = stage.view("<u4")  # 4-byte words of the stage
+
+    def ldmatrix(ch0):
+        """register j of lane (g, t): word t of the 16-byte row that lane 8j + g addresses"""
+        addr = []
+        for lane in range(32):
+            lr, ch = (lane & 7) + 8 * ((lane >> 3) & 1), ch0 + (lane >> 4)
+            addr.append(lr * 128 + 16 * (ch ^ (lr & 7)))
+        return [[int(words[(addr[8 * j + (lane >> 2)] >> 2) + (lane & 3)]) for j in range(4)]
+                for lane in range(32)]
+
+    def nib2(v):  # the kernel's nib2 (GV_Q128): 128 + the codes at bits 0-3 and 16-19 of v
+        return [128.0 + (v & 0xF), 128.0 + ((v >> 16) & 0xF)]
+
+    def i8x2(v):  # K6's i8x2: the int8 codes at bits 0-7 and 16-23 of v
+        return [float(((v & 0xFF) ^ 0x80) - 0x80), float((((v >> 16) & 0xFF) ^ 0x80) - 0x80)]
+
+    xsum = x.reshape(8, groups, cpb * bps).sum(-1)  # [x rows, scale groups], staged beside the fragments
+    acc = np.zeros((32, 4))
+    p = None
+    for pr in range(4):
+        reg = ldmatrix(2 * pr)
+        for h in range(2):
+            b = 2 * pr + h
+            if b % bps == 0:
+                p = np.zeros((16, 8))
+            halves = 2 if q4 else 1
+            for half in range(halves):
+                A, B = np.zeros((16, 16)), np.zeros((16, 8))
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    w0, w1 = reg[lane][2 * h], reg[lane][2 * h + 1]
+                    sh = 4 * half
+                    dec = (lambda v: nib2(v >> sh)) if q4 else i8x2
+                    A[g, 2 * t:2 * t + 2], A[g + 8, 2 * t:2 * t + 2] = dec(w0), dec(w1)
+                    A[g, 2 * t + 8:2 * t + 10], A[g + 8, 2 * t + 8:2 * t + 10] = dec(w0 >> 8), dec(w1 >> 8)
+                    seg = x[g, b * cpb + 16 * half:b * cpb + 16 * half + 16]  # B: lane (g, t) holds column g
+                    B[2 * t:2 * t + 2, g] = seg[[4 * t, 4 * t + 2]]
+                    B[2 * t + 8:2 * t + 10, g] = seg[[4 * t + 1, 4 * t + 3]]
+                p += A @ B
+            if b % bps == bps - 1:
+                gi = b // bps
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    for e in range(4):
+                        r, m = g + 8 * (e >> 1), 2 * t + (e & 1)
+                        min_r = mn[r, gi] + (128.0 * sc[r, gi] if q4 else 0.0)
+                        acc[lane, e] += sc[r, gi] * p[r, m] - min_r * xsum[m, gi]
+    got = np.zeros((16, 8))
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        got[g, 2 * t:2 * t + 2], got[g + 8, 2 * t:2 * t + 2] = acc[lane, :2], acc[lane, 2:]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+    assert not got[:, rows:].any()
