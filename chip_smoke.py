@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only build,kernels --kernels k4    # K4 (prefill attention) alone
     python3 chip_smoke.py --only build,kernels --kernels k2,k7 # K2 / K7 (decode attention), int8 and Gemma rows
     python3 chip_smoke.py --only build,kernels --kernels k5    # K5 (fused MLP) alone
+    python3 chip_smoke.py --only build,kernels --kernels k3    # K3 / K10 and the K/V store
     python3 chip_smoke.py --only build,serve,batch,profile --models E   # one model's path
 
 Phases (each failure propagates, the exit code is then non-zero):
@@ -25,7 +26,14 @@ Phases (each failure propagates, the exit code is then non-zero):
            codes and scales from quantize_kv: K2-i8, K4-i8 and K7-i8 at the
            K2/K4/K7 cases, K2 and K7 (bf16 and int8) also at batch 8 with
            4000 keys in a 4096-slot cache, K10 (the scale write) exactly at
-           models A's and C's scale arrays; K5 three times on the same
+           models A's and C's scale arrays; the K/V store (--kernels k3)
+           bit for bit against its plain version run on the CPU: the dense
+           decode store at A's, C's and G's caches (all layers' K and V in
+           one launch), the dense prefill store (8x128 and batch-1 chunks,
+           one with its tail past the cache) and the paged store (decode at
+           page sizes 128 and 16, a 256-token chunk; C's and G's heads),
+           bf16 and int8, ragged positions and a dropped row in every case,
+           each timed beside the route it replaced; K5 three times on the same
            inputs (the same bits); Gemma's K2/K4/K7 (bf16 and int8) at
            head_dim 256: model G's heads with softcap 50 and window 0 or
            4096, Gemma-3-1B's with window 512, Gemma 2B's (r = 8), and at
@@ -137,15 +145,19 @@ so do C's, G's, D's and E's:
      prefill chunk and no K4 "full"; its server path ("merged") K7 at
      decode and K4's merged variant on the gathered pages;
   E8  model E's GGUF on a second engine with EngineConfig(kv_dtype="int8"),
-     "headmajor": K4-hm's int8 entry point at prefill, K2-i8, K3, K10;
+     "headmajor": K4-hm's int8 entry point at prefill, K2-i8, the int8 store;
   A8  model A's GGUF on a second engine with EngineConfig(kv_dtype="int8"),
      loaded after A's phases and freed before B: int8 codes with f32
-     scales; per decode step K2-i8 once per layer, K3 and K10 twice each,
+     scales; per decode step K2-i8 once per layer, the int8 store once,
      no host sync; prefill through K4-i8; no bf16 attention kernel;
-  server  model A through the paged pool: K7 for every decode layer, K4 on
-     the gathered pages for prefill, no K2/K3; C server the same for C;
-     A8 server through the int8 pool: K7-i8, K4 (bf16) on the gathered
-     pages dequantized, no K2/K3/K10/K4-i8 of either kind.
+  server  model A through the paged pool: K7 and the paged store for every
+     decode layer, the paged store and K4 on the gathered pages for
+     prefill, no K2 and no dense store; C server the same for C; A8 server
+     through the int8 pool: K7-i8, the int8 paged store, K4 (bf16) on the
+     gathered pages dequantized, no K2/K4-i8 of either kind.
+Every dense path stores its K/V with one store launch a decode step and one
+a layer a prefill chunk, every paged path one a layer; K3 and K10 in their
+own contracts launch on no path.
 The kernels' launch counts are zeroed just before each path and read just
 after; every kernel of that path must have launched, the kernels off its
 route must not, the per-step counts must match the route, and model G's
@@ -209,7 +221,9 @@ KERNEL_FUNCTIONS = {"q4_matmul": ("q4_gemv", "q4_wgmma"), "q8_matmul": ("q8_gemv
                     "fused_mlp": ("fused_mlp_decode", "fused_mlp_tiles"),
                     # K8 (4-bit) and K9 (8-bit): the GEMV at tm = 8, the wgmma tiles above
                     "grouped_q4": ("grouped_gemv_kernel<true", "grouped_wgmma_kernel<true"),
-                    "grouped_q8": ("grouped_gemv_kernel<false", "grouped_wgmma_kernel<false")}
+                    "grouped_q8": ("grouped_gemv_kernel<false", "grouped_wgmma_kernel<false"),
+                    # the K/V store, dense and paged, bf16 and int8 (and K3 / K10 in their contracts)
+                    "kv_store": ("kv_store_kernel",)}
 # device functions the profiles tally one by one (a kernel's paths)
 PATH_FUNCTIONS = tuple(f for fs in KERNEL_FUNCTIONS.values() for f in fs)
 # models whose profile phase also records one 8x128 prefill chunk: the
@@ -397,7 +411,7 @@ def phase_kernels(torch, timer, subset=None) -> dict:
         return {k: v for name in subset for k, v in KERNEL_PHASES[name](torch, timer, gen).items()}
     results = _kernels_k1(torch, timer, gen)
     results.update(_kernels_k2(torch, timer, gen))
-    results.update(_kernels_kv_write(torch, timer, gen))
+    results.update(_kernels_k3(torch, timer, gen))
     results.update(_kernels_k5(torch, timer, gen))
     results.update(_kernels_k6(torch, timer, gen))
     results.update(_kernels_k7(torch, timer, gen))
@@ -848,6 +862,224 @@ def _k10(torch, timer, gen) -> dict:
         replaces="nfai_tpu/ops/fused_decode.py:659", also_replaces=[],
         headline=cases[0], cases=cases,
     )
+
+
+# the store's dense decode cases: (label, L, B, Hkv, D, S) of models A (and A8), C and G
+STORE_STEP_CASES = (("A", 16, 8, 8, 64, 1024), ("C", 8, 8, 4, 128, 1024), ("G", 26, 8, 4, 256, 1024))
+# its dense prefill cases, one layer: (label, B, T, Hkv, D, S, offset); A's batch-1
+# chunk at S - 128 keeps 128 of its 256 rows (the rest are dropped)
+STORE_CHUNK_CASES = (("A 8x128", 8, 128, 8, 64, 1024, 0), ("A B=1 T=256 tail", 1, 256, 8, 64, 1024, 896),
+                     ("C B=1 T=256", 1, 256, 4, 128, 1024, 256), ("G 8x128", 8, 128, 4, 256, 1024, 0))
+# its paged cases, one layer: (label, B, T, Hkv, D, page size); a row of every
+# case lands on a page outside the pool and is dropped
+STORE_PAGED_CASES = (("A decode ps=128", 8, 1, 8, 64, 128), ("A decode ps=16", 8, 1, 8, 64, 16),
+                     ("A chunk B=1 T=256", 1, 256, 8, 64, 128), ("C decode", 8, 1, 4, 128, 128),
+                     ("G decode", 8, 1, 4, 256, 128))
+
+
+def _equal(name, got, want) -> float:
+    """Bit-for-bit equality of a card tensor with the CPU's; returns max|got - want| (0)."""
+    import torch
+
+    got = got.cpu()
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(want.dtype)
+    same = got.dtype == want.dtype and (got.view(bits).equal(want.view(bits)) if bits else got.equal(want))
+    if not same:
+        diff = (got.float() - want.float()).abs()
+        raise AssertionError(f"{name}: {int((got != want).sum())} elements differ from the CPU's "
+                             f"plain version, max {float(diff.max()):.3e}")
+    return 0.0
+
+
+def _kernels_k3(torch, timer, gen) -> dict:
+    """K3 and K10 in their own contracts (`_kernels_kv_write`, `_k10`), then
+    the K/V store that replaces them on the main path: the dense decode
+    store at A's, C's and G's caches, the dense prefill store and the paged
+    store (decode and a prefill chunk, page sizes 128 and 16), bf16 and
+    int8, each case with ragged positions and a dropped row, held bit for
+    bit against its plain version run on the CPU copy of the same inputs,
+    then timed beside the route it replaces (two K3; 2 quantize_kv + 2 K10 +
+    2 K3; the old index_put_ writes; the paged scatters)."""
+    results = _kernels_kv_write(torch, timer, gen)
+    results.update(_kv_store_cases(torch, timer, gen))
+    return results
+
+
+def _store_bytes(n_rows, kvd, hkv, quant, index_bytes) -> float:
+    """Bytes the store must move: K and V rows read (bf16) and written (bf16,
+    or int8 codes and an f32 scale a head), the indices read once."""
+    out = n_rows * (kvd + 4 * hkv) if quant else n_rows * kvd * 2
+    return 2 * (n_rows * kvd * 2 + out) + index_bytes
+
+
+def _old_write_cache(cache_l, new, starts):
+    """The dense prefill write the store replaced (one index_put_, no drop)."""
+    import torch
+
+    b, t, _ = new.shape
+    rows = starts.long()[:, None] + torch.arange(t, device=new.device)[None]
+    cache_l[torch.arange(b, device=new.device)[:, None], rows] = new.to(cache_l.dtype)
+
+
+def _kv_store_cases(torch, timer, gen) -> dict:
+    """The store's cases (see `_kernels_k3`); also how the card's own plain
+    quantize_kv differs from the CPU's (a division by a Python scalar on CUDA
+    is a product with its reciprocal)."""
+    from nfai_tpu_torch.ops import fused_decode as fd
+    from nfai_tpu_torch.ops import kv_store as ks
+    from nfai_tpu_torch.runtime.paged_cache import flat_slots, scatter_rows
+
+    bf, dev = torch.bfloat16, "cuda"
+    cpu = lambda *ts: [None if t is None else t.cpu() for t in ts]  # noqa: E731
+    step_cases, chunk_cases, paged_cases = [], [], []
+    diffs = {}
+    for label, L, b, hkv, d, s in STORE_STEP_CASES:
+        kvd = hkv * d
+        rows = [torch.randn(L, b, kvd, device=dev, dtype=bf, generator=gen) * 3 for _ in range(2)]
+        starts = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+        starts[0], starts[1], starts[-1] = 0, s // 3, s  # the last row is dropped
+        if label == "A":  # the card's plain quantize_kv against the CPU's, the same rows
+            q_cuda, sc_cuda = ks.quantize_kv(rows[0], hkv)
+            q_cpu, sc_cpu = ks.quantize_kv(rows[0].cpu(), hkv)
+            diffs = dict(scales=int((sc_cuda.cpu() != sc_cpu).sum()), scale_count=sc_cpu.numel(),
+                         codes=int((q_cuda.cpu() != q_cpu).sum()), code_count=q_cpu.numel(),
+                         max_scale_ulps=float(((sc_cuda.cpu().view(torch.int32) - sc_cpu.view(torch.int32))
+                                               .abs().max())))
+            log(f"  quantize_kv on the card vs the CPU, A's {L}x{b} rows: {diffs['scales']} of "
+                f"{diffs['scale_count']} scales differ (at most {diffs['max_scale_ulps']:.0f} ulp), "
+                f"{diffs['codes']} of {diffs['code_count']} codes")
+        for quant in (False, True):
+            kc, vc = (torch.randint(-127, 128, (L, b, s, kvd), dtype=torch.int8, device=dev, generator=gen)
+                      if quant else torch.randn(L, b, s, kvd, device=dev, dtype=bf, generator=gen)
+                      for _ in range(2))
+            kss, vss = ((torch.rand(L, b, hkv, s, device=dev, generator=gen) for _ in range(2)) if quant
+                        else (None, None))
+            want = cpu(kc, vc, kss, vss)
+            ks.kv_store_plain(*want[:2], *cpu(*rows), starts.cpu(), hkv, *want[2:])
+            got = [t.clone() if t is not None else None for t in (kc, vc, kss, vss)]
+            ks.kv_store(*got[:2], *rows, starts, hkv, *got[2:])
+            torch.cuda.synchronize()
+            tag = f"store {'int8' if quant else 'bf16'} decode {label} L={L} B={b} Hkv={hkv} D={d} S={s}"
+            err = max(_equal(f"{tag} {n}", g, w) for n, g, w in zip(("k", "v", "ks", "vs"), got, want)
+                      if w is not None)
+            log(f"  {tag}: codes/rows{' and scales' if quant else ''} equal the CPU's bit for bit")
+            st = torch.full((b,), 128, dtype=torch.int32, device=dev)
+            ms = timer(lambda: ks.kv_store(*got[:2], *rows, st, hkv, *got[2:]))
+            plain_ms = timer(lambda: ks.kv_store_plain(*got[:2], *rows, st, hkv, *got[2:]), iters=3)
+
+            def route():  # what the decode step ran before: quantize_kv, K10 and K3 twice each
+                for cache, scales, r in ((got[0], got[2], rows[0]), (got[1], got[3], rows[1])):
+                    if quant:
+                        r, sc = ks.quantize_kv(r, hkv)
+                        fd.write_all_layers_t(scales, sc, st)
+                    fd.write_all_layers(cache, r, st)
+
+            route_ms = timer(route)
+            bb, by = bound_ms(_store_bytes(L * b, kvd, hkv, quant, b * 4), 0)
+            step_cases.append(dict(shape=f"{'int8' if quant else 'bf16'} {label} decode L={L} B={b} "
+                                         f"Hkv={hkv} D={d}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bb, bound_by=by, library_ms=None, replaced_route_ms=route_ms))
+            log(f"    {ms:.4f} ms (bound {bb:.5f} by {by}; the route it replaces {route_ms:.4f}; plain "
+                f"{plain_ms:.3f})")
+            del kc, vc, got, want
+    for label, b, t, hkv, d, s, off in STORE_CHUNK_CASES:
+        kvd = hkv * d
+        # v as a column slice of a fused qkv output, as `_qkv` hands it over
+        qkv = torch.randn(b, t, 3 * kvd, device=dev, dtype=bf, generator=gen) * 3
+        k, v = qkv[..., :kvd].contiguous(), qkv[..., 2 * kvd:]
+        starts = torch.full((b,), off, dtype=torch.int32, device=dev)
+        if b > 1:
+            starts[1], starts[-1] = 17, s - t // 2  # the last row's tail is dropped
+        for quant in (False, True):
+            kc, vc = (torch.zeros(b, s, kvd, dtype=torch.int8 if quant else bf, device=dev) for _ in range(2))
+            kss, vss = ((torch.zeros(b, hkv, s, device=dev) for _ in range(2)) if quant else (None, None))
+            want = cpu(kc, vc, kss, vss)
+            ks.kv_store_plain(*want[:2], *cpu(k, v), starts.cpu(), hkv, *want[2:])
+            got = [t_.clone() if t_ is not None else None for t_ in (kc, vc, kss, vss)]
+            ks.kv_store(*got[:2], k, v, starts, hkv, *got[2:])
+            torch.cuda.synchronize()
+            tag = f"store {'int8' if quant else 'bf16'} chunk {label} Hkv={hkv} D={d} starts {starts.tolist()[:3]}"
+            err = max(_equal(f"{tag} {n}", g, w) for n, g, w in zip(("k", "v", "ks", "vs"), got, want)
+                      if w is not None)
+            log(f"  {tag}: equal the CPU's bit for bit")
+            st = torch.full((b,), min(off, s - t), dtype=torch.int32, device=dev)
+            ms = timer(lambda: ks.kv_store(*got[:2], k, v, st, hkv, *got[2:]))
+            plain_ms = timer(lambda: ks.kv_store_plain(*got[:2], k, v, st, hkv, *got[2:]), iters=3)
+
+            def route():  # the prefill's writes before: quantize_kv, then index_put_ on scales and rows
+                for cache, scales, r in ((got[0], got[2], k), (got[1], got[3], v)):
+                    if quant:
+                        r, sc = ks.quantize_kv(r, hkv)
+                        _old_write_cache(scales.transpose(1, 2), sc, st)
+                    _old_write_cache(cache, r, st)
+
+            route_ms = timer(route)
+            bb, by = bound_ms(_store_bytes(b * t, kvd, hkv, quant, b * 4), 0)
+            chunk_cases.append(dict(shape=f"{'int8' if quant else 'bf16'} {label} chunk Hkv={hkv} D={d}",
+                                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bb, bound_by=by,
+                                    library_ms=None, replaced_route_ms=route_ms))
+            log(f"    {ms:.4f} ms (bound {bb:.5f} by {by}; the route it replaces {route_ms:.4f}; plain "
+                f"{plain_ms:.3f})")
+            del kc, vc, got, want
+    for label, b, t, hkv, d, ps in STORE_PAGED_CASES:
+        n_p = -(-max(t, 1024) // ps)  # pages a table: 1024 positions, or the chunk's
+        n_pages = b * n_p + 9
+        tables = _shuffled_tables(torch, b, n_p, n_pages, seed=ps + t)
+        if t == 1:  # ragged lengths, the new token at the last of them
+            lens = [1, ps - 1, ps, ps + 1, 500, 777, 1000, 1024][:b]
+            positions = torch.tensor([[n - 1] for n in lens], dtype=torch.int32, device=dev)
+        else:
+            positions = (torch.arange(t, dtype=torch.int32, device=dev) + 3)[None].repeat(b, 1).contiguous()
+        tables[-1, int(positions[-1, -1]) // ps] = n_pages  # a page outside the pool: that row is dropped
+        rows = [torch.randn(b, t, hkv, d, device=dev, dtype=bf, generator=gen) * 3 for _ in range(2)]
+        for quant in (False, True):
+            kp, vp = (torch.randint(-127, 128, (hkv, n_pages, ps, d), dtype=torch.int8, device=dev, generator=gen)
+                      if quant else torch.randn(hkv, n_pages, ps, d, device=dev, dtype=bf, generator=gen)
+                      for _ in range(2))
+            kss, vss = ((torch.rand(hkv, n_pages, ps, device=dev, generator=gen) for _ in range(2)) if quant
+                        else (None, None))
+            want = cpu(kp, vp, kss, vss)
+            ks.kv_store_paged_plain(*want[:2], *cpu(*rows), tables.cpu(), positions.cpu(), *want[2:])
+            got = [t_.clone() if t_ is not None else None for t_ in (kp, vp, kss, vss)]
+            ks.kv_store_paged(*got[:2], *rows, tables, positions, *got[2:])
+            torch.cuda.synchronize()
+            tag = f"store {'int8' if quant else 'bf16'} paged {label} Hkv={hkv} D={d}"
+            err = max(_equal(f"{tag} {n}", g, w) for n, g, w in zip(("k", "v", "ks", "vs"), got, want)
+                      if w is not None)
+            log(f"  {tag}: equal the CPU's bit for bit (one row on a page outside the pool)")
+            tables_t = tables.clone()
+            tables_t[-1, int(positions[-1, -1]) // ps] = 1
+            ms = timer(lambda: ks.kv_store_paged(*got[:2], *rows, tables_t, positions, *got[2:]))
+            plain_ms = timer(lambda: ks.kv_store_paged_plain(*got[:2], *rows, tables_t, positions, *got[2:]),
+                             iters=3)
+            flat = flat_slots(tables_t, positions, ps)  # once a forward on the route it replaces
+
+            def route():  # a layer of the paged forward before: quantize_kv, then the scatters
+                for pages, scales, r in ((got[0], got[2], rows[0]), (got[1], got[3], rows[1])):
+                    if quant:
+                        r, sc = ks.quantize_kv(r.reshape(b, t, hkv * d), hkv)
+                        scatter_rows(scales[..., None], sc[..., None], flat)
+                        r = r.view(b, t, hkv, d)
+                    scatter_rows(pages, r, flat)
+
+            route_ms = timer(route)
+            bb, by = bound_ms(_store_bytes(b * t, hkv * d, hkv, quant, 2 * b * t * 4), 0)
+            paged_cases.append(dict(shape=f"{'int8' if quant else 'bf16'} {label} Hkv={hkv} D={d}",
+                                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bb, bound_by=by,
+                                    library_ms=None, replaced_route_ms=route_ms))
+            log(f"    {ms:.4f} ms (bound {bb:.5f} by {by}; the route it replaces, flat_slots aside, "
+                f"{route_ms:.4f}; plain {plain_ms:.3f})")
+            del kp, vp, got, want
+    return {
+        "kv_store": dict(route="cuda", source="nfai_tpu_torch/csrc/kv_write.cu",
+                         replaces="nfai_tpu/ops/fused_decode.py:601",
+                         also_replaces=["nfai_tpu/ops/fused_decode.py:659"],
+                         headline=step_cases[1], cases=step_cases + chunk_cases, cuda_plain_vs_cpu=diffs),
+        "kv_store_paged": dict(route="cuda", source="nfai_tpu_torch/csrc/kv_write.cu",
+                               replaces="nfai_tpu/ops/fused_decode.py:601",
+                               also_replaces=["nfai_tpu/ops/fused_decode.py:659"],
+                               headline=paged_cases[1], cases=paged_cases),
+    }
 
 
 def _k7_int8(torch, timer, gen, results) -> dict:
@@ -1510,9 +1742,9 @@ def _k4_layouts(torch, timer, gen) -> dict:
 
 
 # the kernel phases `--kernels` takes: the matmuls (`k8`: K8 and K9), K4, K5,
-# and K2 / K7 (each with its int8 entry point and Gemma's head_dim-256 rows:
-# `--kernels k2,k7`)
-KERNEL_PHASES = {"k1": _kernels_k1, "k2": _kernels_k2, "k4": _kernels_k4, "k5": _kernels_k5,
+# K2 / K7 (each with its int8 entry point and Gemma's head_dim-256 rows:
+# `--kernels k2,k7`), and K3 / K10 with the K/V store (`k3`)
+KERNEL_PHASES = {"k1": _kernels_k1, "k2": _kernels_k2, "k3": _kernels_k3, "k4": _kernels_k4, "k5": _kernels_k5,
                  "k6": _kernels_k6, "k7": _kernels_k7, "k8": _kernels_k8_k9, "k11": _kernels_k11,
                  "k12": _kernels_k12}
 
@@ -1877,7 +2109,7 @@ def phase_parity(torch, path2, kind, kv_dtypes=("auto",), param_dtype="auto", q8
     cache only), and for it and the F16 kind the same steps through the
     page pool. For "int8" in kv_dtypes the same engines run it again with
     int8 caches on both sides (K2/K4/K7 through their int8 entry points and
-    K10 on the card). With a `param_dtype` other than "auto" every matmul
+    the int8 store on the card). With a `param_dtype` other than "auto" every matmul
     weight is dequantized at load; with `q8v3` both engines load under
     NFAI_Q8V3=1 (model B's mix: its Q6_K layers on K12, its tied head on K6). Returns the result of each run by
     name."""
@@ -1959,8 +2191,8 @@ def _parity_run(torch, engines, ids, kind, quant, dense=False) -> dict:
             raise AssertionError(f"the {tag} copy did not take the dense route: {launches}")
     if quant:
         log(f"  {tag} launches: {launches}")
-        want = ("decode_attention_i8", "prefill_attention_i8", "kv_write_t") + (
-            ("paged_attention_i8",) if kind in ("q4_k", "f16") else ())
+        want = ("decode_attention_i8", "prefill_attention_i8", "kv_store") + (
+            ("paged_attention_i8", "kv_store_paged") if kind in ("q4_k", "f16") else ())
         if any(launches[n] <= 0 for n in want) or launches["decode_attention"] or launches["paged_attention"]:
             raise AssertionError(f"the {tag} copy did not take the int8 routes: {launches}")
     if kind == "llama_3b":  # K = 3072, head_dim 128; K5 where mlp_eligible takes H = 3072
@@ -2394,9 +2626,10 @@ def _paged_decode_timing(torch, engine, kernels_mod) -> dict:
     dec_s = time.perf_counter() - t0
     per_step = {k.name: (k.launches - before[k.name]) / n for k in kernels_mod.KERNELS.values()}
     k7 = "paged_attention_i8" if pool.quantized else "paged_attention"
-    if per_step[k7] != cfg.n_layers:
-        raise AssertionError(f"paged decode chunk: {per_step[k7]} {k7} launches per "
-                             f"step, not one per layer ({cfg.n_layers})")
+    for name in (k7, "kv_store_paged"):
+        if per_step[name] != cfg.n_layers:
+            raise AssertionError(f"paged decode chunk: {per_step[name]} {name} launches per "
+                                 f"step, not one per layer ({cfg.n_layers})")
     log(f"  paged batch {b}, positions 128..{128 + n}: {dec_s / n * 1e3:.2f} ms/step, "
         f"{b * n / dec_s:.1f} tok/s; launches per step {per_step}")
     prof = phase_profile(torch, engine, (tok, pos, pool, gen), tables=tables)
@@ -2581,59 +2814,61 @@ def phase_server(torch, engine, kernels_mod, route="server", n_http=8) -> tuple[
 
 
 # kernels each main path must launch, and those its route must not
-INT8 = {"decode_attention_i8", "kv_write_t", "prefill_attention_i8", "paged_attention_i8"}
+INT8 = {"decode_attention_i8", "prefill_attention_i8", "paged_attention_i8"}
+# K3 and K10 in their own contracts: off every route, the store writes the rows
+OLD_WRITES = {"kv_write", "kv_write_t"}
 # the q8v3 and head-major kernels, off every route but model E's: K12 and K4's
 # head-major entry points
 Q8V3_HM = {"q8v3_matmul", "prefill_attention_hm", "prefill_attention_hm_i8"}
 ROUTES = {
-    "A": ({"q4_matmul", "decode_attention", "kv_write", "prefill_attention", "fused_mlp"},
-          {"q8_matmul", "paged_attention", "grouped_q4", "grouped_q8"} | INT8),
-    "A8": ({"q4_matmul", "fused_mlp", "decode_attention_i8", "kv_write", "kv_write_t",
-            "prefill_attention_i8"},
+    "A": ({"q4_matmul", "decode_attention", "kv_store", "prefill_attention", "fused_mlp"},
+          {"q8_matmul", "paged_attention", "grouped_q4", "grouped_q8", "kv_store_paged"} | INT8),
+    "A8": ({"q4_matmul", "fused_mlp", "decode_attention_i8", "kv_store", "prefill_attention_i8"},
            {"decode_attention", "prefill_attention", "paged_attention", "paged_attention_i8",
-            "q8_matmul", "grouped_q4", "grouped_q8"}),
-    "B": ({"q4_matmul", "decode_attention", "kv_write", "prefill_attention", "q8_matmul"},
-          {"fused_mlp", "paged_attention", "grouped_q4", "grouped_q8"} | INT8),
-    "server": ({"q4_matmul", "paged_attention", "prefill_attention", "fused_mlp"},
-               {"decode_attention", "kv_write", "q8_matmul", "grouped_q4", "grouped_q8"} | INT8),
-    "A8 server": ({"q4_matmul", "fused_mlp", "paged_attention_i8", "prefill_attention"},
-                  {"decode_attention", "decode_attention_i8", "kv_write", "kv_write_t",
-                   "prefill_attention_i8", "paged_attention", "q8_matmul", "grouped_q4", "grouped_q8"}),
-    "C": ({"q4_matmul", "q8_matmul", "decode_attention", "kv_write", "prefill_attention",
-           "grouped_q4", "grouped_q8"}, {"fused_mlp", "paged_attention"} | INT8),
-    "C server": ({"q4_matmul", "q8_matmul", "paged_attention", "prefill_attention",
-                  "grouped_q4", "grouped_q8"}, {"decode_attention", "kv_write", "fused_mlp"} | INT8),
+            "q8_matmul", "grouped_q4", "grouped_q8", "kv_store_paged"}),
+    "B": ({"q4_matmul", "decode_attention", "kv_store", "prefill_attention", "q8_matmul"},
+          {"fused_mlp", "paged_attention", "grouped_q4", "grouped_q8", "kv_store_paged"} | INT8),
+    "server": ({"q4_matmul", "paged_attention", "prefill_attention", "fused_mlp", "kv_store_paged"},
+               {"decode_attention", "kv_store", "q8_matmul", "grouped_q4", "grouped_q8"} | INT8),
+    "A8 server": ({"q4_matmul", "fused_mlp", "paged_attention_i8", "prefill_attention", "kv_store_paged"},
+                  {"decode_attention", "decode_attention_i8", "kv_store", "prefill_attention_i8",
+                   "paged_attention", "q8_matmul", "grouped_q4", "grouped_q8"}),
+    "C": ({"q4_matmul", "q8_matmul", "decode_attention", "kv_store", "prefill_attention",
+           "grouped_q4", "grouped_q8"}, {"fused_mlp", "paged_attention", "kv_store_paged"} | INT8),
+    "C server": ({"q4_matmul", "q8_matmul", "paged_attention", "prefill_attention", "kv_store_paged",
+                  "grouped_q4", "grouped_q8"}, {"decode_attention", "kv_store", "fused_mlp"} | INT8),
     # model G: K1 for Q4_K, K6 for the Q6_K attn_v / ffn_down and the tied head;
     # no K5 (K = 2304 is not a multiple of 1024, and down mixes kinds)
-    "G": ({"q4_matmul", "q8_matmul", "decode_attention", "kv_write", "prefill_attention"},
-          {"fused_mlp", "paged_attention", "grouped_q4", "grouped_q8"} | INT8),
-    "G server": ({"q4_matmul", "q8_matmul", "paged_attention", "prefill_attention"},
-                 {"decode_attention", "kv_write", "fused_mlp", "grouped_q4", "grouped_q8"} | INT8),
+    "G": ({"q4_matmul", "q8_matmul", "decode_attention", "kv_store", "prefill_attention"},
+          {"fused_mlp", "paged_attention", "grouped_q4", "grouped_q8", "kv_store_paged"} | INT8),
+    "G server": ({"q4_matmul", "q8_matmul", "paged_attention", "prefill_attention", "kv_store_paged"},
+                 {"decode_attention", "kv_store", "fused_mlp", "grouped_q4", "grouped_q8"} | INT8),
     # model D: every matmul weight dense (K11), the tied head torch.matmul
-    "D": ({"dense_matmul", "decode_attention", "kv_write", "prefill_attention"},
-          {"q4_matmul", "q8_matmul", "fused_mlp", "paged_attention", "grouped_q4", "grouped_q8"}
-          | INT8),
-    "D server": ({"dense_matmul", "paged_attention", "prefill_attention"},
-                 {"decode_attention", "kv_write", "q4_matmul", "q8_matmul", "fused_mlp",
+    "D": ({"dense_matmul", "decode_attention", "kv_store", "prefill_attention"},
+          {"q4_matmul", "q8_matmul", "fused_mlp", "paged_attention", "grouped_q4", "grouped_q8",
+           "kv_store_paged"} | INT8),
+    "D server": ({"dense_matmul", "paged_attention", "prefill_attention", "kv_store_paged"},
+                 {"decode_attention", "kv_store", "q4_matmul", "q8_matmul", "fused_mlp",
                   "grouped_q4", "grouped_q8"} | INT8),
     # model E under NFAI_Q8V3=1: K12 for every projection and the head; K4-hm
     # for prefill ("headmajor"), never K4 "full"
-    "E": ({"q8v3_matmul", "decode_attention", "kv_write", "prefill_attention_hm"},
+    "E": ({"q8v3_matmul", "decode_attention", "kv_store", "prefill_attention_hm"},
           {"q4_matmul", "q8_matmul", "fused_mlp", "dense_matmul", "prefill_attention",
-           "paged_attention", "grouped_q4", "grouped_q8", "prefill_attention_hm_i8"} | INT8),
-    # E8: model E's GGUF on an int8 cache: K4-hm's int8 entry point, K2-i8, K10
-    "E8": ({"q8v3_matmul", "decode_attention_i8", "kv_write", "kv_write_t",
-            "prefill_attention_hm_i8"},
+           "paged_attention", "grouped_q4", "grouped_q8", "prefill_attention_hm_i8",
+           "kv_store_paged"} | INT8),
+    # E8: model E's GGUF on an int8 cache: K4-hm's int8 entry point, K2-i8, the int8 store
+    "E8": ({"q8v3_matmul", "decode_attention_i8", "kv_store", "prefill_attention_hm_i8"},
            {"q4_matmul", "q8_matmul", "fused_mlp", "dense_matmul", "decode_attention",
             "prefill_attention", "prefill_attention_i8", "prefill_attention_hm",
-            "paged_attention", "paged_attention_i8", "grouped_q4", "grouped_q8"}),
+            "paged_attention", "paged_attention_i8", "grouped_q4", "grouped_q8", "kv_store_paged"}),
     # E server ("merged"): K7 at decode, K4's merged-lane instance on the gathered pages
-    "E server": ({"q8v3_matmul", "paged_attention", "prefill_attention"},
-                 {"decode_attention", "kv_write", "q4_matmul", "q8_matmul", "fused_mlp",
+    "E server": ({"q8v3_matmul", "paged_attention", "prefill_attention", "kv_store_paged"},
+                 {"decode_attention", "kv_store", "q4_matmul", "q8_matmul", "fused_mlp",
                   "dense_matmul", "prefill_attention_hm", "prefill_attention_hm_i8",
                   "grouped_q4", "grouped_q8"} | INT8),
 }
 for _path, (_must, _must_not) in ROUTES.items():
+    _must_not |= OLD_WRITES
     if not _path.startswith("E"):
         _must_not |= Q8V3_HM
 
@@ -2641,11 +2876,18 @@ for _path, (_must, _must_not) in ROUTES.items():
 # attention variants a path must launch (`Kernel.variants`): model G's layers
 # alternate local (window 4096) and global, both softcapped, at head_dim 256
 GEMMA2_VARIANTS = ("D=256 softcap window", "D=256 softcap")
+# and the store's mode a path must launch it in (bf16 or int8, head width)
 VARIANTS = {
-    "G": {"decode_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS},
-    "G server": {"paged_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS},
+    "A": {"kv_store": ("bf16 D=64",)},
+    "A8": {"kv_store": ("int8 D=64",)},
+    "server": {"kv_store_paged": ("bf16 D=64",)},
+    "A8 server": {"kv_store_paged": ("int8 D=64",)},
+    "G": {"decode_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS,
+          "kv_store": ("bf16 D=256",)},
+    "G server": {"paged_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS,
+                 "kv_store_paged": ("bf16 D=256",)},
     "E": {"prefill_attention_hm": ("D=128",)},
-    "E8": {"prefill_attention_hm_i8": ("D=128",)},
+    "E8": {"prefill_attention_hm_i8": ("D=128",), "kv_store": ("int8 D=128",)},
     "E server": {"prefill_attention": ("merged D=128",)},
 }
 
@@ -2693,10 +2935,10 @@ def _check_moe_step(engine, per_step) -> None:
 
 def _check_e_step(engine, batch, quant=False) -> None:
     """Model E's decode step launches 4 K12 a layer (wqkv, wo, gate_up, down)
-    and one for the head, K2 a layer and K3 twice, and no other matmul
-    kernel, with no host sync; a prefill chunk K4-hm once a layer and no K4
-    "full". On the int8 cache (E8): K2-i8 a layer, K3 and K10 twice each,
-    K4-hm-i8 once a layer a chunk."""
+    and one for the head, K2 a layer and the store once, and no other
+    matmul kernel, with no host sync; a prefill chunk K4-hm and the store
+    once a layer and no K4 "full". On the int8 cache (E8): K2-i8 a layer,
+    the int8 store once, K4-hm-i8 once a layer a chunk."""
     from nfai_tpu_torch.ops.qtensor import Q8V3Tensor
 
     n = engine.model_cfg.n_layers
@@ -2706,11 +2948,11 @@ def _check_e_step(engine, batch, quant=False) -> None:
         raise AssertionError("model E did not load its q8v3 containers")
     step, chunk = batch["launches_per_step"], batch["launches_per_prefill_chunk"]
     i8 = "_i8" if quant else ""
-    want = {"q8v3_matmul": 4 * n + 1, f"decode_attention{i8}": n, "kv_write": 2, "q4_matmul": 0,
-            "q8_matmul": 0, "fused_mlp": 0, "dense_matmul": 0, **({"kv_write_t": 2} if quant else {})}
+    want = {"q8v3_matmul": 4 * n + 1, f"decode_attention{i8}": n, "kv_store": 1, "q4_matmul": 0,
+            "q8_matmul": 0, "fused_mlp": 0, "dense_matmul": 0}
     got = {k: step[k] for k in want}
     want_chunk = {f"prefill_attention_hm{i8}": n, f"prefill_attention{i8}": 0,
-                  "q8v3_matmul": 4 * n + 1}
+                  "q8v3_matmul": 4 * n + 1, "kv_store": n}
     got_chunk = {k: chunk[k] for k in want_chunk}
     log(f"  model E{'8' if quant else ''} per decode step {got}, per prefill chunk {got_chunk}")
     if got != want or got_chunk != want_chunk or batch["host_syncs_per_step"] != 0:
@@ -2833,11 +3075,16 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
     if "batch" in out:
         per_step = out["batch"]["launches_per_step"]
         n_layers = engine.model_cfg.n_layers
+        stores = {"per step": per_step["kv_store"],
+                  "per prefill chunk": out["batch"]["launches_per_prefill_chunk"]["kv_store"]}
+        if stores != {"per step": 1, "per prefill chunk": n_layers}:
+            raise AssertionError(f"model {label}: store launches {stores}; the route implies one a decode "
+                                 f"step and one a layer ({n_layers}) a prefill chunk")
         if label in ("A", "A8") and per_step["fused_mlp"] != n_layers:
             raise AssertionError(f"model {label}: {per_step['fused_mlp']} K5 launches per step, "
                                  f"not one per layer ({n_layers})")
         if label == "A8":
-            want = {"decode_attention_i8": n_layers, "kv_write": 2, "kv_write_t": 2, "decode_attention": 0}
+            want = {"decode_attention_i8": n_layers, "kv_store": 1, "decode_attention": 0}
             got = {k: per_step[k] for k in want}
             if got != want or out["batch"]["host_syncs_per_step"] != 0:
                 raise AssertionError(f"model A8: per decode step {got} and "

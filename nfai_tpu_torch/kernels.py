@@ -155,7 +155,7 @@ def build_all(verbose: bool = False) -> dict[str, str]:
     """Build every registered kernel (the ops modules register theirs when
     imported)."""
     from .ops import (  # noqa: F401
-        fused_decode, fused_mlp, paged_attention, prefill_attention, qmatmul,
+        fused_decode, fused_mlp, kv_store, paged_attention, prefill_attention, qmatmul,
     )
 
     return build(list(KERNELS.values()), verbose=verbose)

@@ -12,11 +12,12 @@ whole MLP at decode and for prefill chunks of up to 1024 rows, and
 down run as separate matmuls. q/k/v and gate/up are fused along N only when
 every layer's parts share a container, as the JAX package decides. A tied
 checkpoint (no output.weight) keeps one quantized table: the LM head runs
-on it and the embedding rows are gathered from it. A prefill chunk (T > 1)
-writes its K/V into the cache and attends with K4 (ops.prefill_attention);
-a decode step (T == 1) attends with K2, which folds the new token in, and
-writes all layers' new K/V rows after the layer loop with one K3 launch per
-cache (ops.fused_decode).
+on it and the embedding rows are gathered from it. Every new K/V row goes
+through the K/V store (ops.kv_store, K3 and K10 redesigned as one kernel):
+a prefill chunk (T > 1) stores each layer's K and V (one launch a layer)
+and attends with K4 (ops.prefill_attention); a decode step (T == 1)
+attends with K2 (ops.fused_decode), which folds the new token in, and
+stores every layer's new K and V rows after the layer loop in one launch.
 
 qwen3 and qwen3moe checkpoints are stored without llama's HF→ggml q/k
 permutation (ggml's NEOX rope), so their wq/wk load as they are; their
@@ -37,15 +38,14 @@ computes the same function, and keeps a stack whose layers mix kinds (Q6_K
 down on the layers `use_more_bits` picks) per layer, so K8 and K9 both run.
 
 The int8 KV cache (``EngineConfig.kv_dtype="int8"``, `KVCache.zeros(...,
-quantized=True)`) follows the JAX package: `quantize_kv` makes int8 codes
-and per-(token, kv head) f32 scales, stored time-minor ([L, B, Hkv, S]).
-A prefill chunk quantizes its K/V, writes codes and scales (the scales
-through `_write_cache` on the time-minor array's [B, S, Hkv] view) and
-attends them with K4's int8 entry point, so the chunk's own tokens are
-attended in their quantized form; a decode step attends the old tokens with
-K2's int8 entry point and folds the new token in at full precision, then
-quantizes the new rows for storage only (K3 for the codes, K10 for the
-scales). The int8 page pool stores codes and scales through the tables: a
+quantized=True)`) follows the JAX package: the store quantizes each new
+row as `quantize_kv` does into int8 codes and per-(token, kv head) f32
+scales, stored time-minor ([L, B, Hkv, S]). A prefill chunk stores its
+codes and scales and attends them with K4's int8 entry point, so the
+chunk's own tokens are attended in their quantized form; a decode step
+attends the old tokens with K2's int8 entry point and folds the new token
+in at full precision, then the store quantizes the new rows for storage
+only. The int8 page pool stores codes and scales through the tables: a
 decode step reads the current token back quantized (K7's int8 entry
 point), and a prefill chunk gathers its pages, dequantizes them into the
 activation dtype (`dequant_kv`) and runs K4's bf16 route, as the JAX
@@ -66,8 +66,8 @@ models (gemma2 with 46 blocks, gemma3 with 62), where the JAX package
 scales every gemma2 by (hidden / n_heads)^-0.5.
 
 With block tables (`page_tables`) the cache is the continuous-batching
-page pool (runtime.paged_cache): every layer first writes its roped K and
-V through the tables (`write_paged`'s scatter), then a decode step attends
+page pool (runtime.paged_cache): every layer first stores its roped K and
+V through the tables (`kv_store_paged`), then a decode step attends
 with K7 (ops.paged_attention) and a prefill chunk with K4 over the dense
 view of the row's pages (`_gather_pages`). `paged_prefill_step`,
 `paged_decode_loop` and `prefill_slot_step` (one slot of the dense batched
@@ -128,10 +128,11 @@ import torch
 import torch.nn.functional as nnf
 
 from ..gguf import GGUFFile, Keys
-from ..ops.fused_decode import layered_decode_attention, write_all_layers, write_all_layers_t
+from ..ops.fused_decode import layered_decode_attention
 from ..ops.fused_mlp import (
     MLP_FUSED_MAX_ROWS, activation, fused_mlp_layered, mlp_eligible, mlp_prefill,
 )
+from ..ops.kv_store import kv_store, kv_store_paged, quantize_kv  # noqa: F401 (quantize_kv: re-exported)
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import gather_pages, paged_decode_attention
 from ..ops.prefill_attention import flash_prefill_attention, head_major
@@ -145,7 +146,7 @@ from ..ops.rope import (
     rope_cos_sin,
 )
 from ..ops.sampling import sample_logits
-from ..runtime.paged_cache import PagedKVCache, flat_slots, scatter_rows
+from ..runtime.paged_cache import PagedKVCache
 
 
 ARCHS = frozenset({"llama", "qwen3", "qwen3moe", "gemma", "gemma2", "gemma3"})
@@ -323,19 +324,6 @@ class KVCache:
         """Batch slot `slot` as a batch-1 cache of views (writes go to self)."""
         view = lambda t: None if t is None else t[:, slot:slot + 1]  # noqa: E731
         return KVCache(view(self.k), view(self.v), view(self.ks), view(self.vs))
-
-
-def quantize_kv(x: torch.Tensor, n_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-(..., head) int8 quantization of merged-lane K/V rows
-    x [..., H*D] → (int8 [..., H*D], f32 scales [..., H]): scale =
-    max(amax, 1e-20) / 127, q = clip(round(x / scale), -127, 127), round
-    half to even and a true division, as the JAX `quantize_kv`."""
-    lead = x.shape[:-1]
-    d = x.shape[-1] // n_heads
-    xh = x.reshape(*lead, n_heads, d).float()
-    scale = xh.abs().amax(-1).clamp_min(1e-20) / 127.0
-    q = torch.round(xh / scale[..., None]).clamp(-127, 127).to(torch.int8)
-    return q.reshape(*lead, n_heads * d), scale
 
 
 def dequant_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -662,13 +650,6 @@ def _qkv(lp: dict, x: torch.Tensor, layer: int, qd: int, kvd: int):
     return tuple(linear_layered(x, lp[k], layer) for k in ("wq", "wk", "wv"))
 
 
-def _write_cache(cache_l: torch.Tensor, new: torch.Tensor, starts: torch.Tensor) -> None:
-    """new [B, T, KVD] → cache_l [B, S, KVD] rows starts[b] .. starts[b]+T-1."""
-    b, t, _ = new.shape
-    rows = starts.long()[:, None] + torch.arange(t, device=new.device)[None]
-    cache_l[torch.arange(b, device=new.device)[:, None], rows] = new.to(cache_l.dtype)
-
-
 def _norm_rope(lp: dict, cfg: LlamaConfig, layer: int, q: torch.Tensor, k: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor):
     """q [.., Hq, D], k [.., Hkv, D] → per-head RMS-normed (qwen3) and
@@ -814,8 +795,8 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
             positions: torch.Tensor, cache, page_tables: torch.Tensor | None = None):
     """Run the stack over tokens/positions [B, T]; returns (hidden [B, T, H]
     after the final norm, cache updated in place). On the dense `KVCache`,
-    T == 1 takes the decode path (K2 + K3), T > 1 the prefill path (cache
-    write + K4). With `page_tables` [B, max_pages] int32 the cache is a
+    T == 1 takes the decode path (K2 + the store), T > 1 the prefill path
+    (the store + K4). With `page_tables` [B, max_pages] int32 the cache is a
     `PagedKVCache` pool (`_paged_forward`). An int8 cache takes the int8
     entry points (module doc)."""
     if page_tables is not None:
@@ -835,15 +816,11 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         q, k = _norm_rope(lp, cfg, layer, q.reshape(b, t, cfg.n_heads, cfg.head_dim),
                           k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim), *rope[layer])
         q = q.to(act)
-        k = k.reshape(b, t, kvd)
         scales = {}
         if cache.quantized:  # the chunk is attended in its stored, quantized form
-            (k, ksc), (v, vsc) = quantize_kv(k, cfg.n_kv_heads), quantize_kv(v, cfg.n_kv_heads)
-            _write_cache(cache.ks[layer].transpose(1, 2), ksc, starts)  # time-minor: columns
-            _write_cache(cache.vs[layer].transpose(1, 2), vsc, starts)
             scales = dict(k_scales=cache.ks[layer], v_scales=cache.vs[layer])
-        _write_cache(cache.k[layer], k, starts)
-        _write_cache(cache.v[layer], v, starts)
+        kv_store(cache.k[layer], cache.v[layer], k.reshape(b, t, kvd), v, starts, cfg.n_kv_heads,
+                 **scales)
         attn = _prefill_attention(q.contiguous(), cache.k[layer], cache.v[layer], starts,
                                   cfg.n_kv_heads, _attn_kw(cfg, windows, layer), scales)
         h = _finish_layer(params, cfg, h, attn.reshape(b, t, qd), layer)
@@ -853,17 +830,17 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
                     positions: torch.Tensor, cache: KVCache):
     """One token per row: K2 attends over cache[:, :starts] plus the new row;
-    after the layer loop K3 writes every layer's new K/V row. An int8 cache
-    is attended through its scales with the new row at full precision;
-    after the loop the new rows are quantized for storage only and K10
-    writes their scales."""
+    after the layer loop one store launch writes every layer's new K and V
+    rows. An int8 cache is attended through its scales with the new row at
+    full precision; the store quantizes the new rows for storage only and
+    writes their codes and scales."""
     b = tokens.shape[0]
     lp = params["layers"]
     h = _embed(params, cfg, tokens)
     act = h.dtype
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     rope, windows = _rope_tables(params, cfg, positions), cfg.layer_windows()
-    starts = positions[:, 0].to(torch.int32).contiguous()  # once per step, for K2 and K3
+    starts = positions[:, 0].to(torch.int32).contiguous()  # once per step, for K2 and the store
     # the new rows stay in the activation dtype until they are stored
     k_rows = torch.empty(cfg.n_layers, b, kvd, dtype=act if cache.quantized else cache.k.dtype,
                          device=h.device)
@@ -882,13 +859,7 @@ def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
             v_scales=cache.vs,
         )
         h = _finish_layer(params, cfg, h, attn.reshape(b, 1, qd), layer)
-    if cache.quantized:
-        (k_rows, ksc), (v_rows, vsc) = (quantize_kv(k_rows, cfg.n_kv_heads),
-                                        quantize_kv(v_rows, cfg.n_kv_heads))
-        write_all_layers_t(cache.ks, ksc, starts)
-        write_all_layers_t(cache.vs, vsc, starts)
-    write_all_layers(cache.k, k_rows, starts)
-    write_all_layers(cache.v, v_rows, starts)
+    kv_store(cache.k, cache.v, k_rows, v_rows, starts, cfg.n_kv_heads, cache.ks, cache.vs)
     return rms_norm(h, params["final_norm"], cfg.rms_eps), cache
 
 
@@ -946,16 +917,16 @@ def _paged_attention(q: torch.Tensor, pool: PagedKVCache, layer: int,
 
 def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, pool: PagedKVCache, tables: torch.Tensor):
-    """`forward` over the page pool: per layer, the roped K and V rows (an
-    int8 pool: their codes and scales) are scattered through the tables,
-    then `_paged_attention` runs."""
+    """`forward` over the page pool: per layer, one store launch writes the
+    roped K and V rows (an int8 pool: their codes and scales) through the
+    tables, then `_paged_attention` runs."""
     b, t = tokens.shape
     lp = params["layers"]
     h = _embed(params, cfg, tokens)
     act = h.dtype
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rope, windows = _rope_tables(params, cfg, positions), cfg.layer_windows()
-    flat = flat_slots(tables, positions, pool.page_size)  # once for every layer's writes
+    slots = positions.to(torch.int32).contiguous()  # once for every layer's store
     first = positions[:, 0].to(torch.int32)
     first = (first + 1 if t == 1 else first).contiguous()
     for layer in range(cfg.n_layers):
@@ -964,12 +935,8 @@ def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         q, k = _norm_rope(lp, cfg, layer, q.reshape(b, t, hq, hd), k.reshape(b, t, hkv, hd),
                           *rope[layer])
         q = q.to(act)
-        if pool.quantized:
-            (k, ksc), (v, vsc) = quantize_kv(k.reshape(b, t, hkv * hd), hkv), quantize_kv(v, hkv)
-            scatter_rows(pool.ks[layer][..., None], ksc[..., None], flat)  # one-wide rows
-            scatter_rows(pool.vs[layer][..., None], vsc[..., None], flat)
-        scatter_rows(pool.k[layer], k.reshape(b, t, hkv, hd), flat)
-        scatter_rows(pool.v[layer], v.reshape(b, t, hkv, hd), flat)
+        scales = {} if not pool.quantized else dict(k_scales=pool.ks[layer], v_scales=pool.vs[layer])
+        kv_store_paged(pool.k[layer], pool.v[layer], k, v.reshape(b, t, hkv, hd), tables, slots, **scales)
         attn = _paged_attention(q, pool, layer, tables, first, _attn_kw(cfg, windows, layer))
         h = _finish_layer(params, cfg, h, attn.reshape(b, t, hq * hd), layer)
     return rms_norm(h, params["final_norm"], cfg.rms_eps), pool
@@ -1046,7 +1013,7 @@ def paged_decode_loop(params: dict, cfg: LlamaConfig, first_tokens: torch.Tensor
                       temperature=0.0, top_k: int = 40, top_p=0.95, min_p=0.0,
                       active: torch.Tensor | None = None,
                       top_k_rows: torch.Tensor | None = None):
-    """`decode_loop` over the page pool: K/V rows are scattered through the
+    """`decode_loop` over the page pool: K/V rows are stored through the
     block tables [B, max_pages] int32 (sent once per chunk) and every layer
     attends with K7. Same returns and sampling arguments as `decode_loop`."""
     return _decode_chunk(params, cfg, first_tokens, start_pos, cache, tables, generator,

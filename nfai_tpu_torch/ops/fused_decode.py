@@ -2,19 +2,24 @@
 int8 cache's per-step scale write).
 
 The decode step never writes the new token's K/V before attending: K2
-folds the new row in itself, and after the layer loop K3 writes every
-layer's new row into the stacked merged-lane cache [L, B, S, Hkv*D] at
-``starts[b]`` in one launch, in place. Counterparts of the JAX package's
-`layered_decode_attention_slab` / `layered_decode_attention`,
-`write_all_layers` and `write_all_layers_t` (nfai_tpu/ops/fused_decode.py).
+folds the new row in itself, and after the layer loop the K/V store
+(ops.kv_store) writes every layer's new K and V rows into the stacked
+merged-lane cache [L, B, S, Hkv*D] at ``starts[b]`` in one launch, in
+place. Counterparts of the JAX package's `layered_decode_attention_slab` /
+`layered_decode_attention`, `write_all_layers` and `write_all_layers_t`
+(nfai_tpu/ops/fused_decode.py). `write_all_layers` (K3) and
+`write_all_layers_t` (K10) keep the JAX functions' contracts, one array a
+call; on the card they launch the store's device body in its copy mode
+(``csrc/kv_write.cu``). The main path stores through `ops.kv_store`, which
+computes both (and the quantization before them) in one launch.
 
 The int8 cache (``EngineConfig.kv_dtype="int8"``) stores int8 codes in the
 same [L, B, S, Hkv*D] layout and per-(token, kv head) f32 scales time-minor,
 [L, B, Hkv, S]. K2 then reads the codes and applies the scales
 (``k_scales``/``v_scales``, one layer's [B, Hkv, S] view) through its own
 entry point and launch counter (``decode_attention_i8``); the new token is
-still folded in at full precision. K3 copies the int8 code rows as bytes,
-and K10 (``kv_write_t``) writes the new scales at ``starts[b]``.
+still folded in at full precision. K3 copies int8 code rows as bytes, and
+K10 (``kv_write_t``) writes scales at ``starts[b]``.
 
 Gemma's attention options ride the same entry points: ``softcap`` (the
 score becomes softcap * tanh(score / softcap) after the scale and the k

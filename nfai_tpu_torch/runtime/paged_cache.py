@@ -11,7 +11,11 @@ page is never shared).
 Device layout (`PagedKVCache`): k/v [L, Hkv, P, page_size, D], the JAX
 package's layout; the int8 pool (``EngineConfig.kv_dtype="int8"``) holds
 int8 codes there and per-(token, kv head) f32 scales ks/vs [L, Hkv, P,
-page_size] on the same pages, so the tables and prefix sharing carry over. The block tables and lengths live on the host in the
+page_size] on the same pages, so the tables and prefix sharing carry over.
+The forwards store new rows through `ops.kv_store.kv_store_paged` (one
+launch a layer). Its plain version runs `flat_slots` and `scatter_rows`,
+as `write_paged` and `write_paged_scales` (the JAX functions'
+counterparts) do. The block tables and lengths live on the host in the
 scheduler and go to the device once per chunk as [B, max_pages] / [B].
 Page 0 is the sink: it is never handed out, and padding lanes write there.
 """

@@ -60,7 +60,13 @@ through K12 and K4-hm / K4 "merged" only. K2's and K7's split kernel
 1-8, bf16 and int8, with and without softcap and window, on a narrow and a
 wide grid of a 4096-slot cache or pool (K7 at page sizes 16 and 128), per
 (row, head) and with the same bits on three launches; K7 through tables
-and K2 over the same keys give the same bits.
+and K2 over the same keys give the same bits. The K/V store (dense decode
+step and prefill chunk, paged decode and chunk at page sizes 16 and 128,
+bf16 and int8, head widths 64, 128 and 256, a dropped row in every case)
+equals its plain version run on the CPU bit for bit, one launch a call,
+and refuses a head width, a row type or an alignment it does not take;
+K3's contract on the store's copy body holds at row widths on both sides
+of its 512-byte split, bf16 and int8, exactly.
 """
 import pytest
 import torch
@@ -636,7 +642,11 @@ def test_tiny_int8_engine_cuda_matches_cpu(cuda, tmp_path):
     cfg = EngineConfig(max_seq_len=256, kv_dtype="int8", page_size=16, prefill_chunk=64)
     gpu, cpu = InferenceEngine(path, cfg, device="cuda"), InferenceEngine(path, cfg, device="cpu")
     ids = cpu.tokenizer.encode("a short prompt for both devices")
-    counters = (fd.K2, fd.K2_I8, fd.K3, fd.K10, pa.K4, pa.K4_I8, pga.K7, pga.K7_I8)
+    from nfai_tpu_torch.ops import kv_store as kvs
+
+    # the K/V store writes every row (K3 and K10 in their own contracts run on no path)
+    counters = (fd.K2, fd.K2_I8, kvs.KV_STORE, kvs.KV_STORE_PAGED, pa.K4, pa.K4_I8, pga.K7, pga.K7_I8,
+                fd.K3, fd.K10)
     before = [k.launches for k in counters]
     # each device quantizes its own K/V, and a code flips by one step where
     # the two bf16 values straddle a rounding point: the int8 rule (5e-2 of
@@ -653,8 +663,9 @@ def test_tiny_int8_engine_cuda_matches_cpu(cuda, tmp_path):
         assert rel(lg.cpu(), lc) < INT8_TOL
         pos += 1
     dense = [k.launches - b for k, b in zip(counters, before)]
-    assert dense[0] == dense[4] == dense[6] == dense[7] == 0  # no bf16 attention, no paged kernel
-    assert min(dense[1], dense[2], dense[3], dense[5]) > 0
+    # no bf16 attention, no paged kernel, no K3 / K10
+    assert dense[0] == dense[3] == dense[4] == dense[6] == dense[7] == dense[8] == dense[9] == 0
+    assert min(dense[1], dense[2], dense[5]) > 0
     before = [k.launches for k in counters]
     be = BatchEngine(gpu, max_batch=2, decode_chunk=4)
     reqs = [be.submit(list(range(5, 5 + n)), SamplingParams(temperature=0.0, max_new_tokens=8))
@@ -664,8 +675,9 @@ def test_tiny_int8_engine_cuda_matches_cpu(cuda, tmp_path):
             break
     assert all(r.state == RequestState.FINISHED and r.output_ids for r in reqs)
     paged = [k.launches - b for k, b in zip(counters, before)]
-    assert paged[7] > 0 and paged[4] > 0  # K7 int8 at decode, K4 bf16 on the dequantized pages
-    assert paged[0] == paged[1] == paged[2] == paged[3] == paged[5] == paged[6] == 0
+    # the paged store, K7 int8 at decode, K4 bf16 on the dequantized pages
+    assert paged[3] > 0 and paged[7] > 0 and paged[4] > 0
+    assert paged[0] == paged[1] == paged[2] == paged[5] == paged[6] == paged[8] == paged[9] == 0
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
@@ -986,3 +998,129 @@ def test_tiny_q8v3_model_cuda_matches_cpu(cuda, tmp_path, monkeypatch, layout):
     assert got["q8v3_matmul"] > 0 and got[attn] > 0
     assert all(got[k] == 0 for k in ("q4_matmul", "q8_matmul", "dense_matmul"))
     assert got["prefill_attention" if layout == "headmajor" else "prefill_attention_hm"] == 0
+
+
+def _same_bits(got, want) -> bool:
+    """Bit-for-bit equality of a card tensor with a CPU one (floats as their bits)."""
+    got = got.cpu()
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(want.dtype)
+    return got.dtype == want.dtype and (got.view(bits).equal(want.view(bits)) if bits else got.equal(want))
+
+
+def _store_caches(shape, scale_shape, quant, gen):
+    """K and V caches (random bf16 rows or int8 codes) and, int8, their scales."""
+    if quant:
+        caches = [torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+                  for _ in range(2)]
+        return caches + [torch.rand(scale_shape, device="cuda", generator=gen) for _ in range(2)]
+    return [torch.randn(shape, device="cuda", dtype=torch.bfloat16, generator=gen)
+            for _ in range(2)] + [None, None]
+
+
+# the K/V store on the layer-stacked cache, one launch: a decode step (all
+# layers' K and V, T = 1, 4-D caches) and a prefill chunk (one layer, T = 37,
+# v a column slice of a fused qkv output); bf16 and int8, every head width,
+# ragged starts, a start at S (dropped) and, in the chunk, a tail past S;
+# bit for bit against the plain version on the CPU copy of the inputs
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("mode", ["step", "chunk"])
+def test_kv_store_kernel(cuda, d, quant, mode):
+    from nfai_tpu_torch.ops import kv_store as kvs
+
+    l, b, s, hkv = 3, 4, 96, 2
+    kvd = hkv * d
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    if mode == "step":
+        shape, sshape, starts = (l, b, s, kvd), (l, b, hkv, s), [0, 41, s - 1, s]
+        k, v = torch.randn(l, b, kvd, **bf) * 4, torch.randn(l, b, kvd, **bf) * 4
+    else:
+        t = 37
+        shape, sshape, starts = (b, s, kvd), (b, hkv, s), [0, 41, s - 20, s]
+        qkv = torch.randn(b, t, 3 * kvd, **bf) * 4
+        k, v = qkv[..., :kvd].contiguous(), qkv[..., 2 * kvd:]
+    starts = torch.tensor(starts, device="cuda", dtype=torch.int32)
+    caches = _store_caches(shape, sshape, quant, cuda)
+    want = [None if c is None else c.cpu() for c in caches]
+    kvs.kv_store_plain(*want[:2], k.cpu(), v.cpu(), starts.cpu(), hkv, *want[2:])
+    before = kvs.KV_STORE.launches
+    kvs.kv_store(*caches[:2], k, v, starts, hkv, *caches[2:])
+    torch.cuda.synchronize()
+    assert kvs.KV_STORE.launches == before + 1
+    assert all(_same_bits(g, w) for g, w in zip(caches, want) if w is not None)
+
+
+# the paged store through shuffled block tables: decode (T = 1, ragged
+# lengths) and a 37-token chunk across pages, page sizes 16 and 128, bf16
+# and int8, every head width; one row's page lies outside the pool (dropped)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("t,ps", [(1, 16), (1, 128), (37, 16), (37, 128)])
+def test_kv_store_paged_kernel(cuda, d, quant, t, ps):
+    from nfai_tpu_torch.ops import kv_store as kvs
+
+    b, hkv, n_p = 4, 2, 4
+    n_pages = b * n_p + 3
+    tables = (torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(ps + t))[: b * n_p] + 1)
+    tables = tables.view(b, n_p).to(torch.int32)
+    span = n_p * ps
+    if t == 1:
+        positions = torch.tensor([[0], [ps - 1], [ps], [span - 1]], dtype=torch.int32)
+    else:
+        positions = (torch.arange(t, dtype=torch.int32)[None] + torch.tensor([[0], [5], [ps - 3], [9]])
+                     ).to(torch.int32) % span
+    tables[3, int(positions[3, -1]) // ps] = n_pages  # outside the pool: dropped
+    tables, positions = tables.cuda(), positions.contiguous().cuda()
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    k = torch.randn(b, t, hkv, d, **bf) * 4
+    v = (torch.randn(b, t, 3, hkv, d, **bf) * 4)[:, :, 1]  # strided, as a slice of qkv
+    caches = _store_caches((hkv, n_pages, ps, d), (hkv, n_pages, ps), quant, cuda)
+    want = [None if c is None else c.cpu() for c in caches]
+    kvs.kv_store_paged_plain(*want[:2], k.cpu(), v.cpu(), tables.cpu(), positions.cpu(), *want[2:])
+    before = kvs.KV_STORE_PAGED.launches
+    kvs.kv_store_paged(*caches[:2], k, v, tables, positions, *caches[2:])
+    torch.cuda.synchronize()
+    assert kvs.KV_STORE_PAGED.launches == before + 1
+    assert all(_same_bits(g, w) for g, w in zip(caches, want) if w is not None)
+
+
+def test_kv_store_refuses_what_it_cannot_store(cuda):
+    from nfai_tpu_torch.ops import kv_store as kvs
+
+    b, s, hkv = 2, 64, 2
+    starts = torch.zeros(b, device="cuda", dtype=torch.int32)
+    for d, dtype in ((96, torch.bfloat16), (64, torch.float32)):  # a head width, a row type it lacks
+        cache = torch.zeros(b, s, hkv * d, device="cuda", dtype=dtype)
+        rows = torch.zeros(b, 3, hkv * d, device="cuda", dtype=dtype)
+        with pytest.raises((NotImplementedError, ValueError)):
+            kvs.kv_store(cache, cache.clone(), rows, rows, starts, hkv)
+    cache = torch.zeros(b, s, hkv * 64, device="cuda", dtype=torch.bfloat16)
+    rows = torch.zeros(b, 3, hkv * 64 + 4, device="cuda", dtype=torch.bfloat16)[..., 4:]  # 8 bytes off
+    with pytest.raises(ValueError):
+        kvs.kv_store(cache, cache.clone(), rows, rows, starts, hkv)
+    with pytest.raises(ValueError):  # int64 positions
+        kvs.kv_store_paged(torch.zeros(hkv, 4, 16, 64, device="cuda", dtype=torch.bfloat16),
+                           torch.zeros(hkv, 4, 16, 64, device="cuda", dtype=torch.bfloat16),
+                           torch.zeros(b, 1, hkv, 64, device="cuda", dtype=torch.bfloat16),
+                           torch.zeros(b, 1, hkv, 64, device="cuda", dtype=torch.bfloat16),
+                           torch.ones(b, 1, device="cuda", dtype=torch.int32),
+                           torch.zeros(b, 1, device="cuda", dtype=torch.int64))
+
+
+# K3's contract on the store's copy body at row widths on both sides of its
+# 512-byte split: 400 and 1040 bytes (one warp a row, 25 and 65 pieces),
+# 1024, 2048 and 3072 (2, 4 and 6 warps a row); bf16 rows and int8 codes
+@pytest.mark.parametrize("row_bytes", [400, 1040, 1024, 2048, 3072])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_row_write_kernel_row_widths(cuda, row_bytes, dtype):
+    l, b, s = 3, 4, 40
+    width = row_bytes // (2 if dtype == torch.bfloat16 else 1)
+    if dtype == torch.int8:
+        cache = torch.randint(-127, 128, (l, b, s, width), dtype=dtype, device="cuda", generator=cuda)
+        rows = torch.randint(-127, 128, (l, b, width), dtype=dtype, device="cuda", generator=cuda)
+    else:
+        cache = torch.randn(l, b, s, width, dtype=dtype, device="cuda", generator=cuda)
+        rows = torch.randn(l, b, width, dtype=dtype, device="cuda", generator=cuda)
+    starts = torch.tensor([0, 17, s - 1, s], device="cuda", dtype=torch.int32)  # the last dropped
+    want = fd.write_all_layers_plain(cache.cpu(), rows.cpu(), starts.cpu())
+    assert _same_bits(fd.write_all_layers(cache.clone(), rows, starts), want)
