@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only build,kernels --kernels k5    # K5 (fused MLP) alone
     python3 chip_smoke.py --only build,kernels --kernels k3    # K3 / K10 and the K/V store
     python3 chip_smoke.py --only build,serve,batch,profile --models E   # one model's path
+    python3 chip_smoke.py --only build,options,eval   # the OpenAI options, sessions and eval on A / A8
 
 Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
@@ -110,6 +111,29 @@ Phases (each failure propagates, the exit code is then non-zero):
            Q6_K head on K6); model E's 2-layer copy under NFAI_Q8V3=1:
            "headmajor" dense and paged on bf16 and int8 caches, "merged"
            dense (K12, K4-hm, K4-hm-i8 and K4's merged variant)
+  options  on model A's engine, with the counts zeroed: generate at batch 1
+           with a +100 logit bias (its token forced on every greedy step),
+           then a frequency penalty of 30 (the repeat broken within 4),
+           logprobs with the top 5 (finite, <= 0, sorted); a ChatSession
+           saved, loaded and continued (the loaded cache holds the saved
+           bits on the card, the continuation equals the uninterrupted
+           session); the batch-8 decode with the three options off and on
+           (wall and device ms a step, the launches they add a step) and
+           its host syncs per step with them on (must be 0): the path "A
+           options"; then the paged BatchEngine at batch 8 with mixed slots
+           (each greedy slot's tokens equal generate's, up to a near-tie)
+           and one HTTP request with logprobs, whole and streamed: "A
+           options server"; on A8's engine the session round trip on the
+           int8 cache and generate with the options: "A8 options"
+  eval     nfai_tpu_torch.eval on model A: one 512-token window of a seeded
+           id stream on a bf16 and on an int8 cache, seconds a window
+           ("A eval": K4 / K4-i8, the store and K5 once a layer a window,
+           K1 for wqkv, wo and the head at M = 512); K1's head at M = 512
+           timed beside its plain version and cuBLAS, with its bound; the
+           2-layer Q4_K copy's window on the card against the CPU's plain
+           versions (mean NLL within TOL, INT8_TOL on the int8 cache)
+With only options and eval (no serve or batch) the main path is model A
+and A8 alone; either phase needs serve's load of those engines, which runs.
 The main path is six models, A8 and E8, each driven by serve, batch and
 profile; A's and A8's engines then serve continuously batched traffic, and
 so do C's, G's, D's and E's:
@@ -177,6 +201,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -194,7 +219,7 @@ TOL = 2e-2  # max|got - want| / max|want|, the JAX package's kernel-parity rule
 # bf16 cache logits within 5e-2 of the logit scale, tests/test_kv_int8.py)
 INT8_TOL = 5e-2
 
-PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity")
+PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity", "options", "eval")
 # main-path model -> make_llama_1b_gguf kind ("qwen3moe": make_qwen3moe_gguf)
 MODELS = {"A": "q4_k", "B": "q4_k_m", "C": "qwen3moe", "G": "gemma2_2b", "D": "f16",
           "E": "llama_8b_q8_0"}
@@ -1946,9 +1971,10 @@ def _kernel_table(prof) -> dict[str, tuple[float, int]]:
     return table
 
 
-def _syncs_per_step(torch, engine, state, n=2):
+def _syncs_per_step(torch, engine, state, n=2, **options):
     """Host syncs per decode step, counted with torch.cuda.set_sync_debug_mode
-    ("warn") over n steps; returns (syncs per step, the distinct warnings)."""
+    ("warn") over n steps (with `options`, decode_loop's OpenAI options);
+    returns (syncs per step, the distinct warnings)."""
     import warnings
 
     from nfai_tpu_torch.models import decode_loop
@@ -1959,7 +1985,7 @@ def _syncs_per_step(torch, engine, state, n=2):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            decode_loop(engine.params, engine.model_cfg, tok, pos, cache, gen, n)
+            decode_loop(engine.params, engine.model_cfg, tok, pos, cache, gen, n, **options)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     syncs = [str(w.message).splitlines()[0][:120] for w in caught
@@ -2811,6 +2837,428 @@ def phase_server(torch, engine, kernels_mod, route="server", n_http=8) -> tuple[
 
 
 # ---------------------------------------------------------------------------
+# phases: options (the OpenAI sampling options and sessions) and eval
+
+
+FORCED = 1000  # a plain vocabulary entry the options phase forces with a logit bias
+
+
+def _options_kw(torch, b, vocab) -> dict:
+    """decode_loop's three OpenAI options at batch b, all on: a 16-wide
+    random logit-bias table a row, presence and frequency penalties over
+    output counts, logprobs with the top 5."""
+    gen = torch.Generator().manual_seed(9)
+    return dict(bias_ids=torch.randint(0, vocab, (b, 16), generator=gen).cuda(),
+                bias_vals=(torch.rand(b, 16, generator=gen) * 4 - 2).cuda(),
+                presence=torch.full((b,), 0.5, device="cuda"), frequency=torch.full((b,), 0.5, device="cuda"),
+                counts=torch.zeros((b, vocab), dtype=torch.int32, device="cuda"), n_logprobs=5)
+
+
+def _check_logprobs(name, entries, ids, k) -> None:
+    """GenerationMetrics.logprobs / Request.logprob_data: one entry per
+    token, finite, <= 0, the top list k long and sorted."""
+    import math
+
+    if [e["id"] for e in entries] != list(ids):
+        raise AssertionError(f"{name}: logprob entries do not follow the tokens")
+    for e in entries:
+        vals = [v for _, v in e["top"]]
+        if not (math.isfinite(e["logprob"]) and e["logprob"] <= 1e-6 and len(vals) == k
+                and all(math.isfinite(v) and v <= 1e-6 for v in vals)
+                and all(a >= b for a, b in zip(vals, vals[1:]))):
+            raise AssertionError(f"{name}: bad logprob entry {e}")
+
+
+def _near_tie_prefix(name, got, want, entries, margin) -> int:
+    """The common prefix of two greedy streams; where they part, `got`'s
+    token must lie within `margin` of the top of `want`'s logprobs there
+    (two routes that round differently may pick either of a near-tie)."""
+    for d, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            top = dict(entries[d]["top"])
+            if g not in top or top[g] < entries[d]["top"][0][1] - margin:
+                raise AssertionError(f"{name}: token {d} is {g}, not {w}, and not a near-tie: {entries[d]}")
+            return d
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} tokens against {len(want)}")
+    return len(got)
+
+
+def _generate_options(torch, engine) -> dict:
+    """generate at batch 1 with each option: a +100 bias forces its token
+    on every greedy step; a frequency penalty of 30 a repeat takes it off
+    after at most 4 (+100 - 4 x 30); logprobs with the top 5 follow the
+    tokens, finite, <= 0, sorted, the greedy token's equal to the top."""
+    from nfai_tpu_torch.config import SamplingParams
+    from nfai_tpu_torch.runtime.engine import GenerationMetrics
+
+    ids = engine.tokenizer.encode("Options on the card: a logit bias, penalties and logprobs.")
+    forced = list(engine.generate(ids, SamplingParams(temperature=0.0, max_new_tokens=16,
+                                                      logit_bias=((FORCED, 100.0),))))
+    if forced != [FORCED] * 16:
+        raise AssertionError(f"a +100 logit bias did not force token {FORCED}: {forced}")
+    m = GenerationMetrics()
+    pen = list(engine.generate(ids, SamplingParams(temperature=0.0, max_new_tokens=16,
+                                                   logit_bias=((FORCED, 100.0),), frequency_penalty=30.0,
+                                                   logprobs=5), metrics=m))
+    n_forced = pen.count(FORCED)
+    if pen[0] != FORCED or not 1 <= n_forced <= 4 or len(set(pen)) < 16 - n_forced + 1:
+        raise AssertionError(f"the frequency penalty did not break the greedy repeat: {pen}")
+    _check_logprobs("generate with bias and penalty", m.logprobs, pen, 5)
+    m = GenerationMetrics()
+    plain = list(engine.generate(ids, SamplingParams(temperature=0.0, max_new_tokens=32, logprobs=5), metrics=m))
+    _check_logprobs("generate with logprobs", m.logprobs, plain, 5)
+    if any(abs(e["top"][0][1] - e["logprob"]) > 1e-5 for e in m.logprobs):
+        raise AssertionError("a greedy token's logprob is not the top one")
+    log(f"  generate options: a +100 bias forces {FORCED} 16 times; with frequency 30 it repeats "
+        f"{n_forced} times in {pen}; logprobs of 32 greedy tokens: the first "
+        f"{m.logprobs[0]['logprob']:.4f}, top 5 {[round(v, 3) for _, v in m.logprobs[0]['top']]}")
+    return dict(forced_repeats_with_penalty=n_forced, first_logprob=m.logprobs[0]["logprob"])
+
+
+def _session_round_trip(torch, engine, tmp, kv) -> dict:
+    """ChatSession.save → load → continue on the card: the loaded cache
+    holds the saved bits, and the continued session's second reply and
+    tokens are those of the session never saved."""
+    from nfai_tpu_torch.config import SamplingParams
+    from nfai_tpu_torch.runtime.engine import ChatSession
+
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=24)
+    s = ChatSession(engine, greedy)
+    s.send("Hello! Remember the number forty-two, please.")
+    path = os.path.join(tmp, f"session_{kv}.npz")
+    t0 = time.perf_counter()
+    s.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s2 = ChatSession.load(engine, path, greedy)
+    _sync(torch)
+    load_s = time.perf_counter() - t0
+    n = engine.max_seq_len
+    for a in ("k", "v", "ks", "vs"):
+        saved, loaded = getattr(s._cache, a), getattr(s2._cache, a)
+        if saved is None:
+            continue
+        cut = (slice(None),) * (2 if a in ("k", "v") else 3) + (slice(0, n),)
+        if loaded.device != engine.device or not torch.equal(loaded[cut], saved[cut]):
+            raise AssertionError(f"session ({kv}): the loaded cache.{a} is not the saved one on the card")
+    r2 = s2.send("Which number was it?")
+    want = s.send("Which number was it?")  # the uninterrupted session
+    if r2 != want or s2._cached_ids != s._cached_ids:
+        raise AssertionError(f"session ({kv}): the loaded session went on as {r2!r}, the saved one as {want!r}")
+    size = os.path.getsize(path)
+    os.remove(path)
+    log(f"  session ({kv} cache): {len(s._cached_ids)} cached tokens, file {size / 1e6:.2f} MB, save "
+        f"{save_s * 1e3:.0f} ms, load {load_s * 1e3:.0f} ms; the continued session equals the uninterrupted one")
+    return dict(file_mb=size / 1e6, save_ms=save_s * 1e3, load_ms=load_s * 1e3, cached_tokens=len(s._cached_ids))
+
+
+def _options_profile(torch, engine) -> dict:
+    """A's batch-8 decode (S 1024, after an 8x128 prefill) with the three
+    options off and on: the wall a step (median of three 8-step chunks,
+    synchronised, no profiler), and under torch.profiler (a warm-up chunk,
+    then a recorded one) the device ms and kernel launches a step. Returns
+    the numbers and the state to count host syncs on."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from nfai_tpu_torch.models import decode_loop, prefill_step
+
+    b, t, n = 8, 128, 8
+    cfg = engine.model_cfg
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, 256, (b, t), device="cuda", generator=gen)
+    cache = engine.new_cache(b)
+    logits, cache = prefill_step(engine.params, cfg, tokens,
+                                 torch.arange(t, device="cuda")[None].expand(b, t).contiguous(),
+                                 torch.full((b,), t - 1, device="cuda"), cache)
+    first, pos = logits.argmax(-1), torch.full((b,), t, device="cuda")
+    out, tables = {}, {}
+    for label in ("off", "on"):
+        kw = _options_kw(torch, b, cfg.vocab_size) if label == "on" else {}
+        walls = []
+        for _ in range(4):  # the first is a warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode_loop(engine.params, cfg, first, pos, cache, gen, n, **kw)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / n)
+        wall = sorted(walls[1:])[1]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                decode_loop(engine.params, cfg, first, pos, cache, gen, n, **kw)
+                torch.cuda.synchronize()
+                prof.step()
+        table = tables[label] = _kernel_table(prof)
+        device_ms = sum(ms for ms, _ in table.values()) / n
+        launches = sum(c for _, c in table.values()) / n
+        out[label] = dict(wall_ms_per_step=wall, device_ms_per_step=device_ms, kernels_per_step=launches)
+        if device_ms <= 0:
+            raise AssertionError("the profiler saw no device time")
+    added = out["on"]["kernels_per_step"] - out["off"]["kernels_per_step"]
+    log(f"  batch-8 decode, options off: wall {out['off']['wall_ms_per_step']:.3f} ms/step, device "
+        f"{out['off']['device_ms_per_step']:.3f} ms/step, {out['off']['kernels_per_step']:.1f} kernels/step; "
+        f"all three on (bias 16 wide, penalties, logprobs top 5): wall {out['on']['wall_ms_per_step']:.3f}, "
+        f"device {out['on']['device_ms_per_step']:.3f}, {out['on']['kernels_per_step']:.1f} kernels/step "
+        f"(+{added:.1f} launches a step)")
+    out["launches_added_per_step"] = added
+    # what the options add, by kernel name: launches and device ms a step
+    extra = {k: ((ms - tables["off"].get(k, (0.0, 0))[0]) / n, (c - tables["off"].get(k, (0.0, 0))[1]) / n)
+             for k, (ms, c) in tables["on"].items()}
+    extra = sorted(((k, v) for k, v in extra.items() if v[1] > 0), key=lambda kv: -kv[1][1])
+    for k, (ms, c) in extra[:16]:
+        log(f"    +{c:5.2f} launches, +{ms:.4f} ms a step  {k[:100]}")
+    out["added_by_kernel"] = {k[:80]: dict(launches=c, ms=ms) for k, (ms, c) in extra}
+    return out, (first, pos, cache, gen)
+
+
+def _options_batch_engine(torch, engine):
+    """The paged BatchEngine at batch 8 with mixed slots: four greedy (the
+    options one by one) and four sampled at temperature 0.8 with options.
+    Returns (results, a check to run outside the main-path window: each
+    greedy slot's tokens equal generate's for the same request, up to a
+    near-tie (TOL of the logit scale, by generate's own logprobs))."""
+    from nfai_tpu_torch.config import SamplingParams
+    from nfai_tpu_torch.runtime.engine import GenerationMetrics
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine
+
+    rng = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(0, 1000, (n,), generator=rng).tolist() for n in (40, 90, 150, 230, 60, 120, 200, 300)]
+    banned = range(FORCED + 1, FORCED + 17)
+    bans = tuple((i, -100.0) for i in banned)
+    options = [dict(logprobs=5), dict(logit_bias=((FORCED, 100.0),), frequency_penalty=30.0, logprobs=2),
+               dict(presence_penalty=1.0, frequency_penalty=0.5), dict(logit_bias=bans, logprobs=0)]
+    sampling = [SamplingParams(temperature=0.0, max_new_tokens=64, **o) for o in options] + [
+        SamplingParams(temperature=0.8, top_k=40, top_p=0.95, max_new_tokens=64, seed=i, **o)
+        for i, o in enumerate(options)]
+    be = BatchEngine(engine, max_batch=8, decode_chunk=8, paged=True)
+    _sync(torch)
+    t0 = time.perf_counter()
+    reqs = [be.submit(p, s) for p, s in zip(prompts, sampling)]
+    _drive(be, reqs)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    for i, (s, r) in enumerate(zip(sampling, reqs)):
+        if s.logprobs is not None:
+            _check_logprobs(f"BatchEngine slot {i}", r.logprob_data, r.output_ids, s.logprobs)
+        elif r.logprob_data:
+            raise AssertionError(f"slot {i} asked for no logprobs and got some")
+        if not 0 < len(r.output_ids) <= 64:
+            raise AssertionError(f"slot {i}: {len(r.output_ids)} tokens")
+    if reqs[1].output_ids[0] != FORCED or reqs[1].output_ids.count(FORCED) > 4:
+        raise AssertionError(f"slot 1's bias and penalty: {reqs[1].output_ids[:8]}")
+    if set(banned) & set(reqs[3].output_ids + reqs[7].output_ids):
+        raise AssertionError("a banned token was sampled")
+    n_out = sum(len(r.output_ids) for r in reqs)
+    log(f"  BatchEngine with options: 8 requests (4 greedy, 4 at temperature 0.8), {n_out} tokens in "
+        f"{wall:.2f} s")
+    out = dict(wall_s=wall, new_tokens=n_out)
+
+    def against_generate():
+        scale = float(engine.prefill(engine.new_cache(1), prompts[0])[0].abs().max())
+        agreed = []
+        for i, (p, s, r) in enumerate(zip(prompts, sampling, reqs)):
+            if s.temperature <= 0:
+                m = GenerationMetrics()
+                ref = list(engine.generate(p, dataclasses.replace(s, logprobs=5), metrics=m))
+                agreed.append(_near_tie_prefix(f"BatchEngine slot {i} against generate", r.output_ids, ref,
+                                               m.logprobs, TOL * scale))
+        log(f"  BatchEngine greedy slots equal generate for {agreed} of 64 tokens (the rest after a "
+            f"near-tie within {TOL} x the logit scale {scale:.2f})")
+        out.update(greedy_agreed=agreed, logit_scale=scale)
+
+    return out, against_generate
+
+
+def _http_logprobs(torch, engine) -> dict:
+    """One chat request with logprobs (top 3), a logit bias and a frequency
+    penalty through the server, whole and streamed: 200, one logprob entry
+    per completion token in the chat layout, the same text both ways."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine
+    from nfai_tpu_torch.server import ServerState, make_handler
+
+    batch = BatchEngine(engine, max_batch=8, decode_chunk=8)
+    batch.start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(ServerState(engine, batch)))
+    srv = threading.Thread(target=httpd.serve_forever, daemon=True)
+    srv.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    body = {"messages": [{"role": "user", "content": "Tell me about logprobs."}], "temperature": 0,
+            "max_tokens": 24, "logprobs": True, "top_logprobs": 3, "logit_bias": {str(FORCED + 1): -100},
+            "frequency_penalty": 0.5}
+
+    def post(b):
+        req = urllib.request.Request(base + "/v1/chat/completions", data=json.dumps(b).encode(),
+                                     headers={"Content-Type": "application/json"})
+        return urllib.request.urlopen(req, timeout=300)
+
+    try:
+        with post(body) as r:
+            whole = json.loads(r.read())
+            code = r.status
+        with post(dict(body, stream=True)) as r:
+            events = [line.decode().strip()[6:] for line in r if line.decode().startswith("data: ")]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batch.close()
+    choice = whole["choices"][0]
+    content = choice["logprobs"]["content"]
+    n = whole["usage"]["completion_tokens"]
+    if code != 200 or len(content) != n or any(len(e["top_logprobs"]) != 3 or e["logprob"] > 1e-6
+                                               for e in content):
+        raise AssertionError(f"HTTP logprobs: {code}, {len(content)} entries for {n} tokens")
+    chunks = [json.loads(e) for e in events[:-1]]
+    streamed = [e for c in chunks for e in (c["choices"][0].get("logprobs") or {}).get("content", [])]
+    text = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+    if events[-1] != "[DONE]" or text != choice["message"]["content"] or len(streamed) != n:
+        raise AssertionError(f"HTTP logprobs streamed: {len(streamed)} entries for {n} tokens, "
+                             f"text {text!r} against {choice['message']['content']!r}")
+    log(f"  HTTP with logprobs: {n} tokens, whole and streamed, {len(chunks)} SSE chunks, the same text; "
+        f"first token {content[0]['token']!r} logprob {content[0]['logprob']:.4f}")
+    return dict(tokens=n, sse_chunks=len(chunks))
+
+
+def phase_options(torch, engine, kernels_mod, label, tmp) -> tuple[dict, dict]:
+    """The OpenAI options and sessions on model A's engine (or A8's: its
+    session on the int8 cache and generate with the options), each window
+    of main-path launches zeroed before and checked after: "A options"
+    (generate, a session round trip, the batch-8 decode with the options
+    off and on, host syncs per step with them on), "A options server" (the
+    paged BatchEngine at batch 8 with mixed slots, one HTTP request with
+    logprobs); "A8 options". Returns (results, launches by path)."""
+    out, paths = {}, {}
+    kernels_mod.reset_launches()
+    if label == "A8":
+        out["session"] = _session_round_trip(torch, engine, tmp, "int8")
+        out["generate"] = _generate_options(torch, engine)
+        paths["A8 options"] = _check_route(kernels_mod, "A8 options", "model A8's options")
+        return out, paths
+    out["generate"] = _generate_options(torch, engine)
+    out["session"] = _session_round_trip(torch, engine, tmp, "bf16")
+    out["decode"], state = _options_profile(torch, engine)
+    syncs, where = _syncs_per_step(torch, engine, state, **_options_kw(torch, 8, engine.model_cfg.vocab_size))
+    out["host_syncs_per_step"] = syncs
+    log(f"  host syncs per decode step with every option on: {syncs} {where}")
+    if syncs != 0:
+        raise AssertionError(f"the options add host syncs to a decode step: {where}")
+    del state
+    paths["A options"] = _check_route(kernels_mod, "A options", "model A's options")
+    kernels_mod.reset_launches()
+    out["batch_engine"], against_generate = _options_batch_engine(torch, engine)
+    out["http"] = _http_logprobs(torch, engine)
+    paths["A options server"] = _check_route(kernels_mod, "A options server", "model A's options server")
+    against_generate()  # dense runs, outside the paged path's window
+    return out, paths
+
+
+EVAL_WINDOW = 512
+
+
+def _eval_windows(torch, params, cfg, ids, name) -> dict:
+    """One EVAL_WINDOW window of `ids` on a bf16 and on an int8 cache:
+    perplexity and seconds of each (synchronised)."""
+    import math
+
+    from nfai_tpu_torch.eval import perplexity
+
+    out = {}
+    for kv, quant in (("bf16", False), ("int8", True)):
+        dev = params["final_norm"].device
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ppl = perplexity(params, cfg, ids, EVAL_WINDOW, torch.bfloat16, kv_quant=quant)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[kv] = dict(ppl=ppl, window_s=time.perf_counter() - t0)
+        if not (math.isfinite(ppl) and ppl > 1):
+            raise AssertionError(f"{name} {kv}: perplexity {ppl}")
+    log(f"  eval {name} ({EVAL_WINDOW}-token window, {dev.type}): bf16 cache ppl {out['bf16']['ppl']:.4f} in "
+        f"{out['bf16']['window_s']:.3f} s; int8 cache ppl {out['int8']['ppl']:.4f} in "
+        f"{out['int8']['window_s']:.3f} s")
+    return out
+
+
+def _k1_head_m512(torch, engine) -> dict:
+    """K1 on model A's head at M = 512 (an eval window's logits), against
+    its plain version per row, timed beside the plain version and cuBLAS
+    on the dequantized bf16 weight, with its bound."""
+    from nfai_tpu_torch.ops import qmatmul as qm
+    from nfai_tpu_torch.ops.qtensor import dequant
+
+    timer = Timer(torch)
+    w = engine.params["lm_head"]
+    m, k, n = EVAL_WINDOW, w.k, w.n
+    x = torch.randn(m, k, device="cuda", dtype=torch.bfloat16, generator=torch.Generator(device="cuda").manual_seed(3))
+    got = qm.q4_matmul(x, w)
+    err = check(f"K1 head M={m} K={k} N={n}", got, qm.matmul_plain(x, w), row_dims=1)
+    ms = timer(lambda: qm.q4_matmul(x, w))
+    plain_ms = timer(lambda: qm.matmul_plain(x, w), iters=3)
+    wd = dequant(w).to(torch.bfloat16)
+    lib_ms = timer(lambda: torch.matmul(x, wd.T))
+    del wd
+    nbytes = m * k * 2 + n * k // 2 + n * k // 32 * 8 + m * n * 2
+    b, by = bound_ms(nbytes, 2.0 * m * n * k)
+    log(f"    K1 head M={m}: {ms:.4f} ms (bound {b:.4f} by {by}; plain {plain_ms:.3f}, cuBLAS on the "
+        f"dequantized bf16 weight {lib_ms:.4f})")
+    return dict(shape=f"lm_head M={m}", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=lib_ms)
+
+
+def phase_eval(torch, engine, kernels_mod, tmp) -> tuple[dict, dict]:
+    """nfai_tpu_torch.eval on the card: model A scores one 512-token window
+    of a seeded id stream on a bf16 and an int8 cache (the main-path window
+    "A eval": per window K4 (or K4-i8), the store and K5 once a layer, K1
+    for wqkv and wo on every layer and the head at M = 512); then K1's head
+    at M = 512 is timed; then Llama-3.2-1B's 2-layer Q4_K copy scores the
+    same window on the card and on the CPU's plain versions: mean NLL
+    within TOL relative on the bf16 cache, INT8_TOL on the int8 one (each
+    device quantizes its own K/V)."""
+    import math
+
+    from nfai_tpu_torch.gguf import GGUFFile
+    from nfai_tpu_torch.models import LlamaConfig, load_params
+    from nfai_tpu_torch.testing import make_llama_1b_gguf
+
+    cfg = engine.model_cfg
+    ids = torch.randint(0, cfg.vocab_size, (EVAL_WINDOW,), generator=torch.Generator().manual_seed(12)).numpy()
+    kernels_mod.reset_launches()
+    out = {"A": _eval_windows(torch, engine.params, cfg, ids, "model A")}
+    launches = _check_route(kernels_mod, "A eval", "model A's eval")
+    L = cfg.n_layers
+    want = {"prefill_attention": L, "prefill_attention_i8": L, "kv_store": 2 * L, "fused_mlp": 2 * L,
+            "q4_matmul": 2 * (2 * L + 1)}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"model A's eval windows launched {got}; the route implies {want}")
+    out["k1_head_m512"] = _k1_head_m512(torch, engine)
+    t0 = time.perf_counter()
+    path2 = make_llama_1b_gguf(os.path.join(tmp, "llama1b_2l_q4_k_eval.gguf"), kind="q4_k", n_layers=2)
+    torch.set_num_threads(os.cpu_count() or 8)
+    with GGUFFile.open(path2) as g:
+        cfg2 = LlamaConfig.from_gguf(g)
+        res = {dev: _eval_windows(torch, load_params(g, cfg2, dtype=torch.bfloat16, device=dev), cfg2, ids,
+                                  "2-layer Q4_K copy") for dev in ("cuda", "cpu")}
+    os.remove(path2)
+    for kv, tol in (("bf16", TOL), ("int8", INT8_TOL)):
+        nll = {dev: math.log(res[dev][kv]["ppl"]) for dev in ("cuda", "cpu")}
+        rel = abs(nll["cuda"] - nll["cpu"]) / nll["cpu"]
+        log(f"  eval parity ({kv} cache): mean NLL card {nll['cuda']:.5f}, CPU {nll['cpu']:.5f}, rel "
+            f"{rel:.2e} (tol {tol:g})")
+        if not rel < tol:
+            raise AssertionError(f"eval parity ({kv}): the card's mean NLL is {rel:.2e} from the CPU's")
+        res[f"rel_nll_{kv}"] = rel
+    out["parity"] = res
+    out["parity_s"] = time.perf_counter() - t0
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 
 
 # kernels each main path must launch, and those its route must not
@@ -2826,6 +3274,11 @@ ROUTES = {
     "A8": ({"q4_matmul", "fused_mlp", "decode_attention_i8", "kv_store", "prefill_attention_i8"},
            {"decode_attention", "prefill_attention", "paged_attention", "paged_attention_i8",
             "q8_matmul", "grouped_q4", "grouped_q8", "kv_store_paged"}),
+    # model A's 512-token eval windows: the prefill path on a bf16 and an
+    # int8 cache (K4 and K4-i8), the head at M = 512 on K1's tiles; no decode
+    "A eval": ({"q4_matmul", "fused_mlp", "kv_store", "prefill_attention", "prefill_attention_i8"},
+               {"decode_attention", "decode_attention_i8", "paged_attention", "paged_attention_i8",
+                "q8_matmul", "grouped_q4", "grouped_q8", "kv_store_paged"}),
     "B": ({"q4_matmul", "decode_attention", "kv_store", "prefill_attention", "q8_matmul"},
           {"fused_mlp", "paged_attention", "grouped_q4", "grouped_q8", "kv_store_paged"} | INT8),
     "server": ({"q4_matmul", "paged_attention", "prefill_attention", "fused_mlp", "kv_store_paged"},
@@ -2867,6 +3320,10 @@ ROUTES = {
                   "dense_matmul", "prefill_attention_hm", "prefill_attention_hm_i8",
                   "grouped_q4", "grouped_q8"} | INT8),
 }
+# the OpenAI options and sessions run the routes of the engines they use:
+# generate and ChatSession on A's and A8's dense caches, the BatchEngine and
+# the HTTP server on A's page pool
+ROUTES.update({"A options": ROUTES["A"], "A8 options": ROUTES["A8"], "A options server": ROUTES["server"]})
 for _path, (_must, _must_not) in ROUTES.items():
     _must_not |= OLD_WRITES
     if not _path.startswith("E"):
@@ -2882,6 +3339,10 @@ VARIANTS = {
     "A8": {"kv_store": ("int8 D=64",)},
     "server": {"kv_store_paged": ("bf16 D=64",)},
     "A8 server": {"kv_store_paged": ("int8 D=64",)},
+    "A options": {"kv_store": ("bf16 D=64",)},
+    "A8 options": {"kv_store": ("int8 D=64",)},
+    "A options server": {"kv_store_paged": ("bf16 D=64",)},
+    "A eval": {"kv_store": ("bf16 D=64", "int8 D=64")},
     "G": {"decode_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS,
           "kv_store": ("bf16 D=256",)},
     "G server": {"paged_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS,
@@ -3118,6 +3579,16 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
             log(f"  BatchEngine pool: int8 {summary[name]['batch_engine']['pool_mb']:.1f} MB (codes and "
                 f"scales) against bf16 {bf16:.1f} MB (server)")
         phase_s[name] = time.perf_counter() - t0
+    if label in ("A", "A8") and "options" in only:  # on the engine already loaded
+        t0 = time.perf_counter()
+        summary[f"options {label}"], paths = phase_options(torch, engine, kernels_mod, label,
+                                                           os.path.dirname(path))
+        by_path.update(paths)
+        phase_s[f"options {label}"] = time.perf_counter() - t0
+    if label == "A" and "eval" in only:
+        t0 = time.perf_counter()
+        summary["eval"], by_path["A eval"] = phase_eval(torch, engine, kernels_mod, os.path.dirname(path))
+        phase_s["eval"] = time.perf_counter() - t0
     if label in ("C", "G", "D", "E") and "server" in only:
         t0 = time.perf_counter()
         kernels_mod.reset_launches()
@@ -3194,7 +3665,9 @@ def main(argv=None) -> int:
             kern = phase_kernels(torch, timer, subset)
             phase_s["kernels"] = time.perf_counter() - t0
         launches = None
-        if "serve" in only or "batch" in only:
+        if not {"serve", "batch"} & set(only) and {"options", "eval"} & set(only):
+            models = {m: k for m, k in models.items() if m == "A"}  # they run on A's (and A8's) engines
+        if {"serve", "batch", "options", "eval"} & set(only):
             by_path = {}
             for label, kind in models.items():
                 by_path.update(main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s))

@@ -56,6 +56,12 @@ class SamplingParams:
     def has_penalties(self) -> bool:
         return bool(self.presence_penalty or self.frequency_penalty)
 
+    @property
+    def top_logprobs(self) -> int:
+        """The alternatives a token's logprob record lists: `logprobs`
+        clamped to 0..20 (0 when logprobs is off)."""
+        return 0 if self.logprobs is None else max(0, min(int(self.logprobs), 20))
+
 
 @dataclass(frozen=True)
 class EngineConfig:
@@ -114,14 +120,8 @@ class EngineConfig:
 
 
 def check_sampling(s: SamplingParams) -> None:
-    """Raise NotImplementedError, naming them, for the sampling options the
-    port does not run yet (the engine and the BatchEngine both refuse them)."""
-    unported = {
-        "constrained decoding": s.constrained,
-        "logprobs": s.logprobs is not None,
-        "penalties": s.has_penalties,
-        "logit_bias": bool(s.logit_bias),
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"sampling options not ported yet: {bad}")
+    """Raise NotImplementedError for the sampling option the port does not
+    run yet, constrained decoding (grammar, regex, JSON), naming it (the
+    engine and the BatchEngine both refuse it)."""
+    if s.constrained:
+        raise NotImplementedError("sampling options not ported yet: ['constrained decoding']")

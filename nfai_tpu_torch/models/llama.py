@@ -77,7 +77,10 @@ The JAX package scans over layer-stacked weights; here the loop over layers
 is plain Python and each layer's weight is a view of the stacked tensor (or
 its own container, where a stack mixes kinds). The cache is updated in
 place. `decode_loop` is a Python loop over steps (the JAX version is one
-jitted scan; capturing the step as a CUDA graph is later work).
+jitted scan; capturing the step as a CUDA graph is later work). It takes
+the JAX `decode_loop`'s OpenAI options (a logit-bias table, presence and
+frequency penalties over carried output counts, logprobs) as plain
+PyTorch on the step's logits, with no host read.
 
 Two opt-ins of the JAX package are read from the same environment
 variables at the same points, with no config field, as there:
@@ -145,7 +148,7 @@ from ..ops.rope import (
     apply_rope_cs, compute_inv_freq, inv_freq_from_factors, norm_to_neox_perm,
     rope_cos_sin,
 )
-from ..ops.sampling import sample_logits
+from ..ops.sampling import apply_logit_bias, apply_penalties, sample_logits, token_logprobs
 from ..runtime.paged_cache import PagedKVCache
 
 
@@ -973,10 +976,24 @@ def decode_step(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 
 
 def _decode_chunk(params, cfg, tok, pos, cache, page_tables, generator, n_steps,
-                  temperature, top_k, top_p, min_p, active, top_k_rows):
-    out = []
+                  temperature, top_k, top_p, min_p, active, top_k_rows, bias_ids=None,
+                  bias_vals=None, presence=None, frequency=None, counts=None, n_logprobs=None):
+    """The shared body of `decode_loop` and `paged_decode_loop`. Per step:
+    logits → bias → penalties → sample → logprobs of the sampled token from
+    those same logits; `counts` grow on active rows only. Nothing is read
+    back to the host."""
+    out, lps = [], []
+    if counts is not None:
+        counts = counts.clone()  # the caller's tensor stays as it was (the JAX contract)
+        inc = (torch.ones(tok.shape[0], dtype=counts.dtype, device=tok.device) if active is None
+               else active.to(counts.dtype))[:, None]
     for _ in range(n_steps):
         logits, cache = decode_step(params, cfg, tok, pos, cache, page_tables)
+        if bias_ids is not None:
+            logits = apply_logit_bias(logits, bias_ids, bias_vals)
+        if counts is not None:
+            logits = apply_penalties(logits, counts, 0.0 if presence is None else presence,
+                                     0.0 if frequency is None else frequency)
         nxt = sample_logits(logits, generator, temperature, top_k, top_p,
                             min_p=min_p, top_k_rows=top_k_rows).to(tok.dtype)
         out.append(tok)
@@ -984,7 +1001,14 @@ def _decode_chunk(params, cfg, tok, pos, cache, page_tables, generator, n_steps,
             tok, pos = nxt, pos + 1
         else:  # frozen rows keep their token and never advance
             tok, pos = torch.where(active, nxt, tok), torch.where(active, pos + 1, pos)
-    return torch.stack(out, dim=1), tok, cache, generator
+        if n_logprobs is not None:  # of the token sampled this step: toks[:, 1:] + next_tokens
+            lps.append(token_logprobs(logits, tok, n_logprobs))
+        if counts is not None:
+            counts.scatter_add_(1, tok.long()[:, None], inc)
+    tail = () if counts is None else (counts,)
+    if n_logprobs is not None:
+        tail += tuple(torch.stack(parts, dim=1) for parts in zip(*lps))
+    return (torch.stack(out, dim=1), tok, cache, generator) + tail
 
 
 @torch.inference_mode()
@@ -993,7 +1017,10 @@ def decode_loop(params: dict, cfg: LlamaConfig, first_tokens: torch.Tensor,
                 generator: torch.Generator | None, n_steps: int,
                 temperature=0.0, top_k: int = 40, top_p=0.95, min_p=0.0,
                 active: torch.Tensor | None = None,
-                top_k_rows: torch.Tensor | None = None):
+                top_k_rows: torch.Tensor | None = None,
+                bias_ids: torch.Tensor | None = None, bias_vals: torch.Tensor | None = None,
+                presence=None, frequency=None, counts: torch.Tensor | None = None,
+                n_logprobs: int | None = None):
     """Generate `n_steps` tokens on the device without a host sync per token.
 
     temperature, top_p and min_p are scalars or per-row [B]; `top_k_rows`
@@ -1001,9 +1028,19 @@ def decode_loop(params: dict, cfg: LlamaConfig, first_tokens: torch.Tensor,
     [B] entry is False neither advances nor changes its token. Returns
     (tokens [B, n_steps], next_tokens [B], cache, generator): every emitted
     token has its K/V written; `next_tokens` is sampled but not yet fed
-    through the model (the JAX `decode_loop` contract)."""
+    through the model (the JAX `decode_loop` contract).
+
+    The OpenAI options, as in the JAX package: `bias_ids`/`bias_vals`
+    [B, W] add a fixed-width logit-bias table per row; `counts` [B, V]
+    int32 (the output-token counts so far) turns on the presence/frequency
+    penalties (`presence`, `frequency`: scalars or [B]) and adds the updated
+    counts to the returns; `n_logprobs` (0 = the chosen token only) adds
+    (chosen_lp [B, n_steps], top_ids [B, n_steps, k], top_lps [B, n_steps,
+    k]), k = max(n_logprobs, 1), where step j describes the token it
+    sampled: toks[:, j + 1], and next_tokens for the last step."""
     return _decode_chunk(params, cfg, first_tokens, start_pos, cache, None, generator,
-                         n_steps, temperature, top_k, top_p, min_p, active, top_k_rows)
+                         n_steps, temperature, top_k, top_p, min_p, active, top_k_rows,
+                         bias_ids, bias_vals, presence, frequency, counts, n_logprobs)
 
 
 @torch.inference_mode()
@@ -1012,12 +1049,16 @@ def paged_decode_loop(params: dict, cfg: LlamaConfig, first_tokens: torch.Tensor
                       generator: torch.Generator | None, n_steps: int,
                       temperature=0.0, top_k: int = 40, top_p=0.95, min_p=0.0,
                       active: torch.Tensor | None = None,
-                      top_k_rows: torch.Tensor | None = None):
+                      top_k_rows: torch.Tensor | None = None,
+                      bias_ids: torch.Tensor | None = None, bias_vals: torch.Tensor | None = None,
+                      presence=None, frequency=None, counts: torch.Tensor | None = None,
+                      n_logprobs: int | None = None):
     """`decode_loop` over the page pool: K/V rows are stored through the
     block tables [B, max_pages] int32 (sent once per chunk) and every layer
     attends with K7. Same returns and sampling arguments as `decode_loop`."""
     return _decode_chunk(params, cfg, first_tokens, start_pos, cache, tables, generator,
-                         n_steps, temperature, top_k, top_p, min_p, active, top_k_rows)
+                         n_steps, temperature, top_k, top_p, min_p, active, top_k_rows,
+                         bias_ids, bias_vals, presence, frequency, counts, n_logprobs)
 
 
 @torch.inference_mode()

@@ -1,5 +1,8 @@
 """Token sampling on the device: temperature → top-k → top-p → min-p →
-categorical draw, or greedy argmax.
+categorical draw, or greedy argmax; and the OpenAI options applied before
+it (`apply_logit_bias`, `apply_penalties`) and read after it
+(`token_logprobs`), plain PyTorch as they are plain `jnp` in the JAX
+package.
 
 The JAX package takes an approximate top-k (TPU `approx_max_k`); here it is
 the exact `torch.topk`. Per-row temperature, top-p, min-p and top-k let one
@@ -72,3 +75,53 @@ def sample_logits(logits: torch.Tensor, generator: torch.Generator | None,
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits.float(), dim=-1)
+
+
+def apply_logit_bias(logits: torch.Tensor, bias_ids: torch.Tensor,
+                     bias_vals: torch.Tensor) -> torch.Tensor:
+    """Per-request additive logit biases (OpenAI `logit_bias`): a fixed-width
+    (id, bias) table per row, bias_ids [B, W] int and bias_vals [B, W];
+    padding entries add 0.0 to token 0 (a no-op). A repeated id adds each
+    of its biases, as the JAX scatter-add does. Returns a new tensor."""
+    ids = bias_ids.to(device=logits.device, dtype=torch.int64)
+    return logits.scatter_add(1, ids, bias_vals.to(device=logits.device, dtype=logits.dtype))
+
+
+def apply_penalties(logits: torch.Tensor, counts: torch.Tensor, presence, frequency) -> torch.Tensor:
+    """OpenAI presence/frequency penalties over the OUTPUT tokens generated
+    so far (vLLM semantics: prompt tokens are not penalized): logits -
+    frequency * count - presence * (count > 0), with counts [B, V] int32
+    and presence/frequency scalars or [B]."""
+    rows = logits.shape[0]
+    pres = _per_row(presence, rows, logits.device)
+    freq = _per_row(frequency, rows, logits.device)
+    cf = counts.float()
+    return logits - freq * cf - pres * (cf > 0).float()
+
+
+def token_logprobs(logits: torch.Tensor, chosen: torch.Tensor, n_top: int = 0):
+    """OpenAI `logprobs`: the log-probability of the chosen token plus the
+    `n_top` most likely alternatives, from the UN-tempered distribution of
+    `logits` [B, V] (after bias and penalties: logprobs describe the model,
+    not the sampler).
+
+    Returns (chosen_lp [B] f32, top_ids [B, max(n_top, 1)] int64, top_lps
+    [B, max(n_top, 1)] f32); with n_top == 0 the top arrays are width-1
+    placeholders, as in the JAX package. The top list is exact
+    (`torch.topk` over the log-softmax; the JAX package's TPU route takes
+    an approximate top-k) and sorted by logprob, descending; equal logprobs
+    come in torch.topk's order, which `logprob_entry` turns into ascending
+    token id (the JAX order) when the host reads them."""
+    lsm = torch.log_softmax(logits.float(), dim=-1)
+    chosen_lp = lsm.gather(1, chosen.to(device=lsm.device, dtype=torch.int64)[:, None])[:, 0]
+    top_lps, top_ids = torch.topk(lsm, max(n_top, 1), dim=-1)
+    return chosen_lp, top_ids, top_lps
+
+
+def logprob_entry(lp, tid, tlp, row: int, want_k: int, token: int) -> dict:
+    """One per-token logprob record ({"id", "logprob", "top": [(id, lp),
+    ...]}) from `token_logprobs`' arrays read back as host lists, at `row`
+    (a batch row or a decode step): the top list ordered by logprob,
+    descending, equal ones by ascending id, and cut to `want_k`."""
+    top = sorted(zip(map(int, tid[row]), map(float, tlp[row])), key=lambda p: (-p[1], p[0]))
+    return {"id": int(token), "logprob": float(lp[row]), "top": top[:want_k] if want_k > 0 else []}

@@ -17,12 +17,19 @@ the JAX engine does for any value but "auto". The port takes only "auto"
 or the activation dtype's own name: the JAX engine reads a misspelt value,
 or another dtype, as a request for the activation dtype.
 
+`generate` takes the OpenAI options of `SamplingParams` as the JAX engine
+does: a logit bias (the first token's at prefill too), presence/frequency
+penalties over the output tokens (a [1, V] count that the decode chunks
+carry on the device) and logprobs (`GenerationMetrics.logprobs`, one entry
+per emitted token, read back with the chunk's tokens). `ChatSession.save`
+and `load` write and read the JAX package's session file.
+
 Not ported yet, and raising NotImplementedError when asked for: speculative
-and constrained decoding, logprobs, presence/frequency penalties, logit
-bias, session save/load, device meshes (tensor/sequence/expert parallel).
+and constrained decoding, device meshes (tensor/sequence/expert parallel).
 """
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -35,7 +42,7 @@ from ..config import EngineConfig, SamplingParams, check_sampling
 from ..device import resolve_device
 from ..gguf import GGUFFile, Keys
 from ..models import KVCache, decode_loop, prefill_step, resolve
-from ..ops.sampling import sample_logits
+from ..ops.sampling import apply_logit_bias, logprob_entry, sample_logits, token_logprobs
 from ..tokenizer import (
     ChatTemplate,
     Message,
@@ -72,6 +79,14 @@ def _check_config(config: EngineConfig) -> None:
         )
 
 
+def check_bias_ids(sampling: SamplingParams, vocab_size: int) -> None:
+    """A logit_bias id outside the vocabulary is a ValueError (an index
+    the device scatter cannot take; the JAX scatter drops it silently)."""
+    bad = [int(i) for i, _ in sampling.logit_bias if not 0 <= int(i) < vocab_size]
+    if bad:
+        raise ValueError(f"logit_bias token ids {bad} are outside the vocabulary (size {vocab_size})")
+
+
 @dataclass
 class GenerationMetrics:
     """Request-level metrics: TTFT and decode tokens/s."""
@@ -80,6 +95,9 @@ class GenerationMetrics:
     new_tokens: int = 0
     ttft_s: float = 0.0
     decode_s: float = 0.0
+    # SamplingParams.logprobs: one dict per emitted token (appended BEFORE
+    # the token is yielded) — {"id", "logprob", "top": [(id, lp), ...]}
+    logprobs: list = field(default_factory=list)
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -183,21 +201,44 @@ class InferenceEngine:
         """Stream generated token ids until EOS / max tokens / cache full."""
         sampling = sampling or SamplingParams()
         check_sampling(sampling)
+        check_bias_ids(sampling, self.model_cfg.vocab_size)
         metrics = metrics if metrics is not None else GenerationMetrics()
         if cache is None:
             cache = self.new_cache(1)
         gen = self._generator(sampling.seed)
+        dev = self.device
+        extras = {}
+        if sampling.logit_bias:
+            pairs = tuple(sampling.logit_bias)
+            extras.update(bias_ids=torch.tensor([[int(i) for i, _ in pairs]], device=dev),
+                          bias_vals=torch.tensor([[float(v) for _, v in pairs]], device=dev))
+        counts = None
+        if sampling.has_penalties:
+            counts = torch.zeros((1, self.model_cfg.vocab_size), dtype=torch.int32, device=dev)
+            extras.update(presence=sampling.presence_penalty,
+                          frequency=sampling.frequency_penalty)
+        want_lp, lp_k = sampling.logprobs is not None, sampling.top_logprobs
+        if want_lp:
+            extras["n_logprobs"] = lp_k
         t0 = time.perf_counter()
         logits, cache = self.prefill(cache, prompt_ids, start_pos)
         pos = start_pos + len(prompt_ids)
+        if "bias_ids" in extras:  # the output counts are still zero: no penalty yet
+            logits = apply_logit_bias(logits, extras["bias_ids"], extras["bias_vals"])
         token = sample_logits(
             logits, gen, sampling.temperature, sampling.top_k, sampling.top_p,
             min_p=sampling.min_p,
         )
+        if counts is not None:
+            counts.scatter_add_(1, token[:, None], torch.ones_like(counts[:, :1]))
+        if want_lp:
+            first_lp = token_logprobs(logits, token, lp_k)
         token_host = int(token[0])  # sync: TTFT includes the first sample
         metrics.prompt_tokens = len(prompt_ids)
         metrics.ttft_s = time.perf_counter() - t0
         self._last_cache, self._last_pos = cache, pos
+        if want_lp:
+            carry_lp = logprob_entry(*(a.tolist() for a in first_lp), 0, lp_k, token_host)
 
         t_dec = time.perf_counter()
         emitted = 0
@@ -209,18 +250,31 @@ class InferenceEngine:
                 break
             n = min(self.config.decode_chunk, budget)
             n = 1 << (n.bit_length() - 1)
-            toks, token, cache, gen = decode_loop(
+            out = decode_loop(
                 self.params, self.model_cfg, token,
-                torch.tensor([pos], device=self.device), cache, gen, n,
+                torch.tensor([pos], device=dev), cache, gen, n,
                 sampling.temperature, sampling.top_k, sampling.top_p,
-                sampling.min_p,
+                sampling.min_p, counts=counts, **extras,
             )
+            toks, token, cache, gen = out[:4]
+            rest = list(out[4:])
+            if counts is not None:
+                counts = rest.pop(0)
             toks_host = toks[0].tolist()  # one sync per chunk
+            if want_lp:  # [n], [n, k], [n, k], read after that sync
+                lp_host = [a[0].tolist() for a in rest]
+                next_host = int(token[0])
             for j, t in enumerate(toks_host):
                 if self.tokenizer.is_eos(t) or emitted >= sampling.max_new_tokens:
                     done = True
                     self._last_pos = pos + j
                     break
+                if want_lp:
+                    # toks[0]'s logprob came from the previous chunk (or the
+                    # prefill); step j's arrays describe toks[j + 1]
+                    metrics.logprobs.append(carry_lp)
+                    carry_lp = logprob_entry(*lp_host, j, lp_k,
+                                             toks_host[j + 1] if j + 1 < n else next_host)
                 yield t
                 emitted += 1
             else:
@@ -233,6 +287,8 @@ class InferenceEngine:
             # KV slot
             token_host = int(token[0])
             if emitted < sampling.max_new_tokens and not self.tokenizer.is_eos(token_host):
+                if want_lp:
+                    metrics.logprobs.append(carry_lp)
                 yield token_host
                 emitted += 1
         metrics.new_tokens = emitted
@@ -314,9 +370,87 @@ class ChatSession:
     def send(self, user_text: str) -> str:
         return "".join(self.stream(user_text))
 
+    # -- session persistence: the JAX package's file (np.savez_compressed) --
     def save(self, path) -> None:
-        raise NotImplementedError("session save/load is not ported yet")
+        """Write the conversation and the KV cache so the session can resume
+        in another process without prefilling again, in the JAX package's
+        format: `meta` (JSON: messages, cached_ids, model, max_seq_len) and
+        `cache_k`/`cache_v` [L, 1, max_seq_len, KVD] (+ `cache_ks`/`cache_vs`
+        [L, 1, Hkv, max_seq_len] f32 on an int8 cache). A bf16 cache is
+        written as the raw 2-byte records (`|V2`) numpy makes of the JAX
+        package's bf16 arrays."""
+        meta = {
+            "messages": [m.asdict() for m in self.messages],
+            "cached_ids": list(self._cached_ids),
+            "model": self.engine.model_name,
+            "max_seq_len": self.engine.max_seq_len,
+        }
+        arrays = {}
+        if self._cache is not None:
+            s = self.engine.max_seq_len  # the cache's slots past it are never written
+            c = self._cache
+            arrays["cache_k"], arrays["cache_v"] = _to_numpy(c.k[:, :, :s]), _to_numpy(c.v[:, :, :s])
+            if c.quantized:
+                arrays["cache_ks"], arrays["cache_vs"] = _to_numpy(c.ks[..., :s]), _to_numpy(c.vs[..., :s])
+        np.savez_compressed(path, meta=json.dumps(meta), **arrays)
 
     @classmethod
-    def load(cls, engine, path, sampling=None):
-        raise NotImplementedError("session save/load is not ported yet")
+    def load(cls, engine: InferenceEngine, path, sampling: SamplingParams | None = None) -> "ChatSession":
+        """Read a session written by `save` (or by the JAX package's
+        ChatSession.save) onto `engine.device`. The model name and
+        max_seq_len must match the engine's, and an int8 cache needs an
+        int8 engine (and a bf16/f32 cache one that is not); a float cache
+        is cast to the engine's cache dtype."""
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["meta"]))
+            if meta["model"] != engine.model_name:
+                raise ValueError(f"session was saved for model {meta['model']!r}, "
+                                 f"engine runs {engine.model_name!r}")
+            if meta["max_seq_len"] != engine.max_seq_len:
+                raise ValueError(f"session cache length {meta['max_seq_len']} != engine "
+                                 f"max_seq_len {engine.max_seq_len}")
+            session = cls(engine, sampling or SamplingParams(), messages=[])
+            session.messages = [Message(**m) for m in meta["messages"]]
+            session._cached_ids = [int(t) for t in meta["cached_ids"]]
+            if "cache_k" in z:
+                session._cache = _cache_from_arrays(engine, {k: z[k] for k in z.files if k != "meta"})
+        return session
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A cache tensor on the host; bf16 as the raw 2-byte records (|V2)
+    numpy writes for the JAX package's bf16 arrays."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """`_to_numpy`'s inverse: 2-byte void records are bf16 bits."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _cache_from_arrays(engine: InferenceEngine, arrays: dict) -> KVCache:
+    """A saved batch-1 cache ([L, 1, S, KVD], + [L, 1, Hkv, S] scales) in
+    a new engine cache on the engine's device, its S slots first."""
+    k = arrays["cache_k"]
+    if k.ndim != 4:  # the JAX package's pre-merged-lane sessions: [L, Hkv, B, S, D]
+        raise ValueError("session cache uses the old per-head KV layout; re-create the session "
+                         "(cache layout is now [L, B, S, Hkv*D])")
+    quantized = "cache_ks" in arrays
+    if quantized != engine.kv_quantized:
+        raise ValueError(f"session cache is {'int8' if quantized else 'not int8'}; the engine's "
+                         f"kv_dtype is {engine.config.kv_dtype!r}")
+    cache = engine.new_cache(1)
+    s = k.shape[2]
+    if k.shape[:2] + k.shape[3:] != cache.k.shape[:2] + cache.k.shape[3:] or s > cache.max_seq:
+        raise ValueError(f"session cache shape {k.shape} does not fit the engine's {tuple(cache.k.shape)}")
+    pairs = [("k", "cache_k"), ("v", "cache_v")] + ([("ks", "cache_ks"), ("vs", "cache_vs")] if quantized else [])
+    for attr, key in pairs:
+        dst = getattr(cache, attr)
+        dst = dst[:, :, :s] if attr in ("k", "v") else dst[..., :s]
+        dst.copy_(_from_numpy(arrays[key]))
+    return cache

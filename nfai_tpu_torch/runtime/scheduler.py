@@ -16,9 +16,18 @@ active slots (lane compaction). `paged=False` keeps dense per-slot lanes.
 Under `EngineConfig(kv_dtype="int8")` both hold int8 codes with f32
 scales (the pool's MB counts the scales).
 
+The OpenAI options run as in the JAX scheduler: a fixed-width logit-bias
+table per slot (`bias_width`, the largest-magnitude entries kept), the
+presence/frequency penalties over a lazy [max_batch, V] int32 count of each
+slot's output tokens (gathered for the rows of a compacted decode and
+written back to their slots), and logprobs (`Request.logprob_data`, one
+entry per streamed token, read back with the chunk's tokens). The first
+token is sampled at the end of the prefill with the same options. A
+preempted request's counts are rebuilt from the tokens it already emitted
+(the JAX scheduler restarts them from zero).
+
 Not ported yet, and refused by `submit` with NotImplementedError:
-speculative rounds, grammar/JSON constraints, logprobs, presence/frequency
-penalties and logit bias (the engine already refuses `speculative`).
+grammar/regex/JSON constraints (the engine already refuses `speculative`).
 """
 from __future__ import annotations
 
@@ -38,8 +47,11 @@ import torch
 
 from ..config import SamplingParams, check_sampling
 from ..models import decode_loop, paged_decode_loop, paged_prefill_step, prefill_slot_step
-from ..ops.sampling import sample_logits
+from ..ops.sampling import (
+    apply_logit_bias, apply_penalties, logprob_entry, sample_logits, token_logprobs,
+)
 from .engine import _bucket as _next_bucket
+from .engine import check_bias_ids
 from .paged_cache import OutOfPages, PageAllocator, PagedKVCache
 
 log = logging.getLogger(__name__)
@@ -72,6 +84,9 @@ class Request:
     submitted_at: float = field(default_factory=time.perf_counter)
     first_token_at: float | None = None
     finished_at: float | None = None
+    # SamplingParams.logprobs: one dict per emitted token —
+    # {"id", "logprob", "top": [(token_id, logprob), ...]}
+    logprob_data: list[dict] = field(default_factory=list)
     _cancel: threading.Event = field(default_factory=threading.Event)
 
     def cancel(self) -> None:
@@ -168,6 +183,11 @@ class BatchEngine:
         self.top_k = 64
         self._warned_topk_clamp = False
         self.preemptions = 0
+        # the OpenAI options: a fixed-width logit-bias table per slot, and
+        # the output-token counts of the penalties (made on first use)
+        self.bias_width = 16
+        self._warned_bias_clamp = False
+        self._counts: torch.Tensor | None = None  # [max_batch, V] int32
 
         cfg = engine.config
         self.paged = cfg.paged_kv if paged is None else paged
@@ -191,6 +211,7 @@ class BatchEngine:
     def submit(self, prompt_ids: Sequence[int], sampling: SamplingParams | None = None) -> Request:
         sampling = sampling or SamplingParams()
         check_sampling(sampling)
+        check_bias_ids(sampling, self.engine.model_cfg.vocab_size)
         req = Request(id=next(self._ids), prompt_ids=list(prompt_ids), sampling=sampling)
         max_prompt = self.engine.max_seq_len - 1
         if len(req.prompt_ids) > max_prompt:
@@ -276,6 +297,8 @@ class BatchEngine:
         slot.prefill_ids = ids
         slot.prefill_next = start
         req.state = RequestState.RUNNING
+        if self._counts is not None:
+            self._counts[slot_idx] = 0
         return True
 
     def _prefill_tick(self, slot_idx: int) -> None:
@@ -304,19 +327,60 @@ class BatchEngine:
         slot.prefill_next = pos + take
         if slot.prefill_next < ids.size:
             return  # more chunks to go; decode proceeds meanwhile
-        # prompt complete: sample the first token
+        # prompt complete: sample the first token (bias → penalties → sample
+        # → logprobs, as a decode step does)
         if self.paged:
             self.alloc.publish_prefix([int(t) for t in ids], slot.pages)
         s = req.sampling
-        tok = int(sample_logits(
+        if s.logit_bias:
+            b_ids, b_vals = self._bias_row(s)
+            logits = apply_logit_bias(logits, torch.from_numpy(b_ids[None]).to(dev),
+                                      torch.from_numpy(b_vals[None]).to(dev))
+        if s.has_penalties:
+            # the tokens a preempted request already emitted count again
+            counts = self._counts_on()
+            counts[slot_idx] = torch.bincount(
+                torch.tensor(req.output_ids, dtype=torch.int64),
+                minlength=eng.model_cfg.vocab_size).to(device=dev, dtype=counts.dtype)
+            logits = apply_penalties(logits, counts[slot_idx:slot_idx + 1],
+                                     s.presence_penalty, s.frequency_penalty)
+        tok_dev = sample_logits(
             logits, self.generator, s.temperature, self.top_k, s.top_p, min_p=s.min_p,
             top_k_rows=torch.tensor([self._effective_top_k(s.top_k)], device=dev),
-        )[0])
+        )
+        if s.has_penalties:
+            self._counts[slot_idx:slot_idx + 1].scatter_add_(
+                1, tok_dev[:, None], torch.ones_like(self._counts[:1, :1]))
+        lp_dev = None if s.logprobs is None else token_logprobs(logits, tok_dev, s.top_logprobs)
+        tok = int(tok_dev[0])  # the one host read of the prefill's end
+        lps = None if lp_dev is None else [logprob_entry(*(a.tolist() for a in lp_dev), 0, s.top_logprobs, tok)]
         slot.prefill_ids = None
         slot.pos = int(ids.size)
         slot.budget = min(s.max_new_tokens - len(req.output_ids), eng.max_seq_len - ids.size)
         slot.next_token = tok
-        self._emit(slot_idx, [tok])
+        self._emit(slot_idx, [tok], lps)
+
+    def _counts_on(self) -> torch.Tensor:
+        """The output-token counts [max_batch, V] int32, made on first use."""
+        if self._counts is None:
+            self._counts = torch.zeros((self.max_batch, self.engine.model_cfg.vocab_size),
+                                       dtype=torch.int32, device=self.engine.device)
+        return self._counts
+
+    def _bias_row(self, sampling) -> tuple[np.ndarray, np.ndarray]:
+        """Fixed-width (ids, biases) row; requests with more than
+        `bias_width` entries keep the largest-magnitude ones."""
+        ids = np.zeros(self.bias_width, np.int64)
+        vals = np.zeros(self.bias_width, np.float32)
+        pairs = sorted(sampling.logit_bias, key=lambda p: -abs(float(p[1])))
+        if len(pairs) > self.bias_width and not self._warned_bias_clamp:
+            self._warned_bias_clamp = True
+            log.warning("request logit_bias has %d entries; keeping the %d largest "
+                        "(BatchEngine.bias_width)", len(pairs), self.bias_width)
+        for j, (tid, b) in enumerate(pairs[: self.bias_width]):
+            ids[j] = int(tid)
+            vals[j] = float(b)
+        return ids, vals
 
     def _table_row(self, slot_idx: int) -> np.ndarray:
         row = np.zeros(self.max_pages, np.int32)  # sink-padded
@@ -335,18 +399,22 @@ class BatchEngine:
             return self.top_k
         return requested
 
-    def _emit(self, slot_idx: int, tokens: list[int]) -> None:
-        """Push tokens to the request stream; finish on EOS/budget."""
+    def _emit(self, slot_idx: int, tokens: list[int], logprobs: list[dict] | None = None) -> None:
+        """Push tokens to the request stream; finish on EOS/budget.
+        `logprobs` (when the request asked for them) runs parallel to
+        `tokens`; entries for tokens cut by EOS/budget are dropped too."""
         slot = self.slots[slot_idx]
         req = slot.request
         tok_eos = self.engine.tokenizer.is_eos
-        for t in tokens:
+        for j, t in enumerate(tokens):
             if req.first_token_at is None:
                 req.first_token_at = time.perf_counter()
             if tok_eos(t) or slot.budget <= 0:
                 self._finish(slot_idx)
                 return
             req.output_ids.append(t)
+            if logprobs is not None:
+                req.logprob_data.append(logprobs[j])
             req.out.put(t)
             slot.budget -= 1
         if slot.budget <= 0:
@@ -449,6 +517,11 @@ class BatchEngine:
         top_ps = np.ones(width, np.float32)
         top_ks = np.full(width, self.top_k, np.int64)
         min_ps = np.zeros(width, np.float32)
+        pres = np.zeros(width, np.float32)
+        freqs = np.zeros(width, np.float32)
+        bias_ids = np.zeros((width, self.bias_width), np.int64)
+        bias_vals = np.zeros((width, self.bias_width), np.float32)
+        any_bias = any_pen = False
         if not self.paged:
             # a dense lane that is mid-prefill writes its frozen row at the
             # next position its prefill will overwrite, not at 0
@@ -466,31 +539,60 @@ class BatchEngine:
             top_ps[j] = sp.top_p
             top_ks[j] = self._effective_top_k(sp.top_k)
             min_ps[j] = sp.min_p
+            pres[j] = sp.presence_penalty
+            freqs[j] = sp.frequency_penalty
+            if sp.logit_bias:
+                bias_ids[j], bias_vals[j] = self._bias_row(sp)
+                any_bias = True
+            any_pen |= sp.has_penalties
+        want_lp = [self.slots[i].request.sampling.top_logprobs for i in active_idx
+                   if self.slots[i].request.sampling.logprobs is not None]
         dev = self.engine.device
         on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         kw = dict(temperature=on(temps), top_k=self.top_k, top_p=on(top_ps), min_p=on(min_ps),
                   active=on(active), top_k_rows=on(top_ks))
+        if any_bias:
+            kw.update(bias_ids=on(bias_ids), bias_vals=on(bias_vals))
+        if any_pen:
+            # the compacted rows' counts (pad lanes read slot 0's, and are dropped)
+            row_sel = on(np.asarray(rows + [0] * (width - len(rows)), np.int64))
+            kw.update(presence=on(pres), frequency=on(freqs),
+                      counts=self._counts_on().index_select(0, row_sel))
+        if want_lp:
+            kw["n_logprobs"] = max(want_lp)
         if self.paged:
             tables = np.zeros((width, self.max_pages), np.int32)  # pad lanes: the sink page
             for j, i in enumerate(rows):
                 tables[j] = self._table_row(i)
-            toks, nxt, self.cache, _ = paged_decode_loop(
+            out = paged_decode_loop(
                 self.engine.params, self.engine.model_cfg, on(tokens), on(positions),
                 self.cache, on(tables), self.generator, n, **kw)
         else:
-            toks, nxt, self.cache, _ = decode_loop(
+            out = decode_loop(
                 self.engine.params, self.engine.model_cfg, on(tokens), on(positions),
                 self.cache, self.generator, n, **kw)
+        toks, nxt, self.cache, _ = out[:4]
+        rest = list(out[4:])
+        if any_pen:
+            self._counts.index_copy_(0, on(np.asarray(rows, np.int64)), rest.pop(0)[: len(rows)])
         host = torch.cat([toks, nxt[:, None]], dim=1).tolist()  # the chunk's one sync
+        lp_host = [a.tolist() for a in rest] if want_lp else None  # read after that sync
         for i in active_idx:
-            row = host[row_of[i]]
+            j = row_of[i]
+            row = host[j]
             slot = self.slots[i]
             # toks[j] = [prev next_token (already emitted), t1, ..., t_{n-1}];
             # fresh tokens for the stream are t1..t_{n-1} plus the new tail
             fresh = row[1:]
+            lps = None
+            sp = slot.request.sampling
+            if lp_host is not None and sp.logprobs is not None:
+                # step k's arrays describe fresh[k]
+                lp_a, tid_a, tlp_a = (a[j] for a in lp_host)
+                lps = [logprob_entry(lp_a, tid_a, tlp_a, k, sp.top_logprobs, fresh[k]) for k in range(n)]
             slot.pos += n
             slot.next_token = row[-1]
-            self._emit(i, fresh)
+            self._emit(i, fresh, lps)
             if self.slots[i].request is not None and slot.pos >= max_seq:
                 self._finish(i)  # out of cache room
         return self._busy()

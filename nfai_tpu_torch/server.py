@@ -10,10 +10,15 @@ Counterpart of nfai_tpu/server.py:
 - ``GET  /v1/models`` — model listing
 
 Stdlib only (ThreadingHTTPServer); concurrency comes from the BatchEngine's
-continuous batching, not from a model per thread. A body that asks for an
-option the port does not run yet (grammar, regex, a JSON response_format,
-logprobs, logit_bias, presence/frequency penalties) gets a 501 JSON error
-naming the option; a malformed body gets a 400; a full queue a 503.
+continuous batching, not from a model per thread. The OpenAI sampling
+options are read as the JAX server reads them: `logit_bias` ({"id": bias},
+clamped to [-100, 100]), `presence_penalty`, `frequency_penalty`, and
+logprobs (chat's `"logprobs": true` with `top_logprobs`, the legacy
+completions' `"logprobs": N`, 0 <= N <= 20), returned in the chat or the
+legacy layout, per SSE chunk or whole. A body that asks for an option the
+port does not run yet (grammar, regex, a JSON response_format) gets a 501
+JSON error naming the option; a malformed body gets a 400; a full queue a
+503.
 
 Usage:
     python -m nfai_tpu_torch.server --gguf model.gguf [--port 8000] [--device cpu]
@@ -52,15 +57,10 @@ def _unported_options(body: dict) -> list[str]:
     """The body options the port does not run yet, by their wire names."""
     rf = body.get("response_format") or {}
     rf_type = rf.get("type") if isinstance(rf, dict) else str(rf)
-    lp = body.get("logprobs")
     asked = {
         "grammar": body.get("grammar") is not None,
         "regex": body.get("regex") is not None,
         f"response_format {rf_type!r}": rf_type in ("json_object", "json", "json_schema"),
-        "logprobs": lp is not None and lp is not False,
-        "logit_bias": bool(body.get("logit_bias")),
-        "presence_penalty": bool(body.get("presence_penalty")),
-        "frequency_penalty": bool(body.get("frequency_penalty")),
     }
     return [name for name, on in asked.items() if on]
 
@@ -76,14 +76,32 @@ def _sampling_from_body(body: dict) -> SamplingParams:
     stop = body.get("stop") or ()
     if isinstance(stop, str):
         stop = (stop,)
+    # OpenAI logit_bias comes as {"token_id": bias}, clamped to [-100, 100]
+    bias = body.get("logit_bias") or {}
+    logit_bias = tuple((int(k), max(-100.0, min(100.0, float(v)))) for k, v in bias.items())
+    # OpenAI logprobs: chat sends "logprobs": true and "top_logprobs": N; the
+    # legacy completions endpoint sends "logprobs": N
+    lp_raw = body.get("logprobs")
+    logprobs = None
+    if isinstance(lp_raw, bool):
+        if lp_raw:
+            logprobs = int(body.get("top_logprobs") or 0)
+    elif lp_raw is not None:
+        logprobs = int(lp_raw)
+    if logprobs is not None and not 0 <= logprobs <= 20:
+        raise ValueError("logprobs/top_logprobs must be in [0, 20]")
     return SamplingParams(
         temperature=float(body.get("temperature", 0.5)),
         top_k=int(body.get("top_k", 40)),
         top_p=float(body.get("top_p", 0.95)),
         min_p=float(body.get("min_p", 0.0)),
+        presence_penalty=float(body.get("presence_penalty", 0.0)),
+        frequency_penalty=float(body.get("frequency_penalty", 0.0)),
+        logit_bias=logit_bias,
         seed=body.get("seed"),
         max_new_tokens=int(body.get("max_tokens") or body.get("max_completion_tokens") or 512),
         stop=tuple(str(s) for s in stop),
+        logprobs=logprobs,
     )
 
 
@@ -203,27 +221,64 @@ def make_handler(state: ServerState):
                     r.cancel()
                 raise
 
-        def _chunk(self, rid, created, chat, payload, finish=None):
+        def _chunk(self, rid, created, chat, payload, finish=None, logprobs=None):
             obj = "chat.completion.chunk" if chat else "text_completion"
             delta = {"delta": payload} if chat else {"text": payload.get("content", "")}
+            choice = {"index": 0, **delta, "finish_reason": finish}
+            if logprobs is not None:
+                choice["logprobs"] = logprobs
             self._sse({"id": rid, "object": obj, "created": created,
-                       "model": state.engine.model_name,
-                       "choices": [{"index": 0, **delta, "finish_reason": finish}]})
+                       "model": state.engine.model_name, "choices": [choice]})
+
+        def _tok_repr(self, token_id: int) -> tuple[str, list[int]]:
+            """A token's text and bytes (an unknown id: none; a malformed
+            byte piece: none)."""
+            try:
+                bs = state.engine.tokenizer.decode_token_bytes(token_id)
+            except ValueError:
+                bs = b""
+            return bs.decode("utf-8", errors="replace"), list(bs)
+
+        def _logprobs_block(self, entries: list[dict], chat: bool) -> dict:
+            """OpenAI logprobs payload: chat uses the structured `content`
+            list, legacy completions parallel arrays."""
+            if chat:
+                def item(token_id, lp):
+                    text, bs = self._tok_repr(token_id)
+                    return {"token": text, "logprob": lp, "bytes": bs}
+
+                return {"content": [dict(item(e["id"], e["logprob"]),
+                                         top_logprobs=[item(i, lp) for i, lp in e["top"]])
+                                    for e in entries]}
+            toks, lps, tops, offs = [], [], [], []
+            off = 0
+            for e in entries:
+                s, _ = self._tok_repr(e["id"])
+                toks.append(s)
+                lps.append(e["logprob"])
+                tops.append({self._tok_repr(i)[0]: lp for i, lp in e["top"]})
+                offs.append(off)
+                off += len(s)
+            return {"tokens": toks, "token_logprobs": lps, "top_logprobs": tops, "text_offset": offs}
 
         def _respond(self, body: dict, req, chat: bool):
             eng = state.engine
             sampling = req.sampling
             rid = f"{'chatcmpl' if chat else 'cmpl'}-{uuid.uuid4().hex[:16]}"
             created = int(time.time())
+            want_lp = sampling.logprobs is not None
             if not body.get("stream"):
                 tokens = list(req.stream(timeout=600))
                 text = _cut_at_stop(eng.tokenizer.decode(tokens, skip_special=True), sampling.stop)
                 content = ({"message": {"role": "assistant", "content": text}} if chat
                            else {"text": text})
+                choice = {"index": 0, **content, "finish_reason": "stop"}
+                if want_lp:
+                    choice["logprobs"] = self._logprobs_block(req.logprob_data[: len(tokens)], chat)
                 self._json(200, {
                     "id": rid, "object": "chat.completion" if chat else "text_completion",
                     "created": created, "model": eng.model_name,
-                    "choices": [{"index": 0, **content, "finish_reason": "stop"}],
+                    "choices": [choice],
                     "usage": {"prompt_tokens": len(req.prompt_ids),
                               "completion_tokens": len(tokens),
                               "total_tokens": len(req.prompt_ids) + len(tokens)},
@@ -238,21 +293,33 @@ def make_handler(state: ServerState):
             self.end_headers()
             detok = StreamDetokenizer(eng.tokenizer)
             stopper = TextStopper(sampling.stop)
+            lp_cursor = 0
             for tok in req.stream(timeout=600):
                 raw = detok.push(tok)
                 if not raw:
                     continue
                 piece, stopped = stopper.feed(raw)
                 if piece:
-                    self._chunk(rid, created, chat, {"content": piece})
+                    lps = None
+                    if want_lp:
+                        # the entries of every token consumed since the last
+                        # piece (the detokenizer may buffer several)
+                        lps = self._logprobs_block(req.logprob_data[lp_cursor:], chat)
+                        lp_cursor = len(req.logprob_data)
+                    self._chunk(rid, created, chat, {"content": piece}, logprobs=lps)
                 if stopped:
                     break
             if stopper.done:
                 req.cancel()  # stop string hit: free the slot now
             tail = "" if stopper.done else detok.flush() + stopper.flush()
+            # the entries of tokens whose text only the final flush gives out
+            # (the JAX server drops them)
+            rest = None
+            if want_lp and not stopper.done and len(req.logprob_data) > lp_cursor:
+                rest = self._logprobs_block(req.logprob_data[lp_cursor:], chat)
             if tail:
-                self._chunk(rid, created, chat, {"content": tail})
-            self._chunk(rid, created, chat, {}, finish="stop")
+                self._chunk(rid, created, chat, {"content": tail}, logprobs=rest)
+            self._chunk(rid, created, chat, {}, finish="stop", logprobs=None if tail else rest)
             self.wfile.write(b"data: [DONE]\n\n")
             self.wfile.flush()
 
@@ -268,7 +335,10 @@ def make_handler(state: ServerState):
                                     req.sampling.stop)
                 content = ({"message": {"role": "assistant", "content": text}} if chat
                            else {"text": text})
-                choices.append({"index": idx, **content, "finish_reason": "stop"})
+                choice = {"index": idx, **content, "finish_reason": "stop"}
+                if req.sampling.logprobs is not None:
+                    choice["logprobs"] = self._logprobs_block(req.logprob_data[: len(tokens)], chat)
+                choices.append(choice)
             n_prompt = len(reqs[0].prompt_ids)
             self._json(200, {
                 "id": f"{'chatcmpl' if chat else 'cmpl'}-{uuid.uuid4().hex[:16]}",

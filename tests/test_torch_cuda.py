@@ -66,7 +66,11 @@ bf16 and int8, head widths 64, 128 and 256, a dropped row in every case)
 equals its plain version run on the CPU bit for bit, one launch a call,
 and refuses a head width, a row type or an alignment it does not take;
 K3's contract on the store's copy body holds at row widths on both sides
-of its 512-byte split, bf16 and int8, exactly.
+of its 512-byte split, bf16 and int8, exactly. The OpenAI sampling options
+(bias, penalties, logprobs) in decode_loop on the card, with no host sync,
+against the CPU (tokens up to a near-tie); a ChatSession saved, loaded and
+continued on the card (bf16 and int8); eval.perplexity on the card against
+the CPU (mean NLL within TOL, INT8_TOL on an int8 cache).
 """
 import pytest
 import torch
@@ -1124,3 +1128,125 @@ def test_row_write_kernel_row_widths(cuda, row_bytes, dtype):
     starts = torch.tensor([0, 17, s - 1, s], device="cuda", dtype=torch.int32)  # the last dropped
     want = fd.write_all_layers_plain(cache.cpu(), rows.cpu(), starts.cpu())
     assert _same_bits(fd.write_all_layers(cache.clone(), rows, starts), want)
+
+
+def _tiny_q4k(tmp_path):
+    from nfai_tpu_torch.gguf import GGMLType
+    from nfai_tpu_torch.testing import make_tiny_llama_gguf
+
+    return make_tiny_llama_gguf(tmp_path / "t.gguf", hidden=256, n_heads=4, n_kv_heads=2, ffn_dim=512,
+                                vocab_size=512, quant=GGMLType.Q4_K, tied=False, context_length=512)
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_sampling_options_on_the_card_match_the_cpu(cuda, tmp_path, kv_dtype):
+    """decode_loop with a logit bias, penalties and logprobs at batch 2 on
+    the card (no host sync inside: sync debug mode "error") against the
+    CPU: greedy tokens equal up to a near-tie (where they part, the card's
+    token lies within TOL x the logit scale of the CPU's top logprob), the
+    counts are the sampled tokens', logprobs within 2 x TOL x the logit
+    scale (INT8_TOL on int8 caches)."""
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.models import decode_loop, prefill_step
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    path = _tiny_q4k(tmp_path)
+    cfg = EngineConfig(max_seq_len=256, kv_dtype=kv_dtype)
+    engines = {dev: InferenceEngine(path, cfg, device=dev) for dev in ("cuda", "cpu")}
+    prompts = torch.randint(5, 250, (2, 12), generator=torch.Generator().manual_seed(3))
+    tol = TOL if kv_dtype == "auto" else INT8_TOL
+    out, scale = {}, {}
+    for dev, e in engines.items():
+        cache = e.new_cache(2)
+        logits, cache = prefill_step(e.params, e.model_cfg, prompts.to(dev),
+                                     torch.arange(12, device=dev)[None].expand(2, 12),
+                                     torch.tensor([11, 11], device=dev), cache)
+        scale[dev] = float(logits.abs().max())
+        first = torch.tensor([7, 9], device=dev)
+        kw = dict(temperature=0.0, bias_ids=torch.tensor([[300, 0], [17, 42]], device=dev),
+                  bias_vals=torch.tensor([[100.0, 0.0], [-100.0, -100.0]], device=dev),
+                  presence=torch.tensor([0.0, 0.75], device=dev), frequency=torch.tensor([30.0, 0.5], device=dev),
+                  counts=torch.zeros((2, 512), dtype=torch.int32, device=dev), n_logprobs=3)
+        start = torch.tensor([12, 12], device=dev)
+        if dev == "cuda":
+            before = (fd.K2.launches, fd.K2_I8.launches)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = decode_loop(e.params, e.model_cfg, first, start, cache, None, 8, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert (fd.K2_I8 if kv_dtype == "int8" else fd.K2).launches - before[kv_dtype == "int8"] == 8 * 2
+        else:
+            res = decode_loop(e.params, e.model_cfg, first, start, cache, None, 8, **kw)
+        out[dev] = [t.cpu() for t in res[:2]] + [t.cpu() for t in res[4:]]
+    g, c = out["cuda"], out["cpu"]
+    tie, lp_tol = tol * scale["cpu"], 2 * tol * scale["cpu"]
+    for r in range(2):
+        seq_g = g[0][r, 1:].tolist() + [int(g[1][r])]
+        seq_c = c[0][r, 1:].tolist() + [int(c[1][r])]
+        d = next((j for j, (a, b) in enumerate(zip(seq_g, seq_c)) if a != b), 8)
+        if d < 8:
+            ids, lps = c[4][r, d].tolist(), c[5][r, d].tolist()
+            assert seq_g[d] in ids and lps[ids.index(seq_g[d])] >= lps[0] - tie
+        assert g[2][r].tolist() == torch.bincount(torch.tensor(seq_g), minlength=512).tolist()
+        assert (g[3][r, :d + 1] - c[3][r, :d + 1]).abs().max() <= lp_tol
+        assert (g[5][r, :d + 1] - c[5][r, :d + 1]).abs().max() <= lp_tol
+    assert int(g[0][0, 1]) == 300  # the bias forced row 0's first sample
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_session_round_trip_on_the_card(cuda, tmp_path, kv_dtype):
+    """A session saved on the card, loaded back onto it and continued
+    gives the tokens of one never saved; the loaded cache holds the saved
+    bits on the card; the same file loads into a CPU engine."""
+    from nfai_tpu_torch.config import EngineConfig, SamplingParams
+    from nfai_tpu_torch.runtime.engine import ChatSession, InferenceEngine
+
+    path = _tiny_q4k(tmp_path)
+    cfg = EngineConfig(max_seq_len=320, kv_dtype=kv_dtype)
+    gpu = InferenceEngine(path, cfg, device="cuda")
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=6)
+    s = ChatSession(gpu, greedy)
+    r1 = s.send("hello")
+    s.save(tmp_path / "s.npz")
+    s2 = ChatSession.load(gpu, tmp_path / "s.npz", greedy)
+    assert s2._cache.k.device.type == "cuda"
+    for a in ("k", "v", "ks", "vs"):
+        saved, loaded = getattr(s._cache, a), getattr(s2._cache, a)
+        if saved is not None:
+            cut = (slice(None),) * (2 if a in ("k", "v") else 3) + (slice(0, 320),)
+            assert torch.equal(loaded[cut], saved[cut])
+    r2 = s2.send("again")
+    s3 = ChatSession(gpu, greedy)
+    assert s3.send("hello") == r1 and s3.send("again") == r2
+    cpu = InferenceEngine(path, cfg, device="cpu")
+    s4 = ChatSession.load(cpu, tmp_path / "s.npz", greedy)
+    assert torch.equal(s4._cache.k[:, :, :320], s._cache.k[:, :, :320].cpu())
+
+
+def test_perplexity_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """eval.perplexity over two 64-token windows, bf16 and int8 caches, on
+    the card (the prefill path: K1's tiles, K5, K4 / K4-i8, the store, the
+    head at M = 64) against the CPU's plain versions: mean NLL within TOL
+    relative (int8: INT8_TOL, each device quantizes its own K/V)."""
+    import math
+
+    from nfai_tpu_torch import eval as teval
+    from nfai_tpu_torch.gguf import GGUFFile
+    from nfai_tpu_torch.models import LlamaConfig, load_params
+    from nfai_tpu_torch.ops import kv_store as kvs
+
+    path = _tiny_q4k(tmp_path)
+    ids = torch.randint(0, 500, (128,), generator=torch.Generator().manual_seed(4)).numpy()
+    with GGUFFile.open(path) as g:
+        cfg = LlamaConfig.from_gguf(g)
+        params = {dev: load_params(g, cfg, dtype=torch.bfloat16, device=dev) for dev in ("cuda", "cpu")}
+    for quant, tol in ((False, TOL), (True, INT8_TOL)):
+        before = (pa.K4.launches, pa.K4_I8.launches, kvs.KV_STORE.launches, qm.K1.launches)
+        got = teval.perplexity(params["cuda"], cfg, ids, window=64, kv_quant=quant)
+        after = (pa.K4.launches, pa.K4_I8.launches, kvs.KV_STORE.launches, qm.K1.launches)
+        want = teval.perplexity(params["cpu"], cfg, ids, window=64, kv_quant=quant)
+        assert abs(math.log(got) - math.log(want)) <= tol * math.log(want), (quant, got, want)
+        k4 = after[1] - before[1] if quant else after[0] - before[0]
+        assert k4 == 2 * cfg.n_layers and after[2] - before[2] == 2 * cfg.n_layers and after[3] > before[3]

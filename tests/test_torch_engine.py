@@ -25,6 +25,7 @@ from nfai_tpu.gguf import GGUFFile as JGGUFFile
 from nfai_tpu.models.llama import decode_step as jax_decode_step
 from nfai_tpu.models.llama import load_params as jax_load_params
 from nfai_tpu.models.testing import make_tiny_llama_gguf as jax_make_tiny
+from nfai_tpu.runtime.engine import GenerationMetrics as JGenerationMetrics
 from nfai_tpu.runtime.engine import InferenceEngine as JInferenceEngine
 from nfai_tpu_torch import cli
 from nfai_tpu_torch.config import EngineConfig, SamplingParams
@@ -33,7 +34,7 @@ from nfai_tpu_torch.models import (
     KVCache, LlamaConfig, decode_step, load_params, params_from_jax, prefill_step,
 )
 from nfai_tpu_torch.ops.qtensor import dequant
-from nfai_tpu_torch.runtime.engine import ChatSession, InferenceEngine
+from nfai_tpu_torch.runtime.engine import ChatSession, GenerationMetrics, InferenceEngine
 from nfai_tpu_torch.testing import make_tiny_llama_gguf
 
 TOL = 2e-2
@@ -186,13 +187,30 @@ def test_cache_rounds_up_to_the_key_tile(gguf_path):
     assert 0 < len(out) <= 100 - len(ids) + 1  # stops at max_seq_len, not at 128
 
 
-def test_unported_options_raise(gguf_path):
-    with pytest.raises(NotImplementedError):
+def test_unported_options_raise(gguf_path, engines, tmp_path):
+    """Speculative decoding, fp8 caches and constrained decoding are still
+    refused by name. Logprobs and session save/load now run: greedy tokens
+    and logprobs as the JAX engine's (logprobs within 0.12: twice 2e-2 of
+    this fixture's logit scale of 3; test_torch_sampling_ext.py holds every
+    option), and a saved session loads (test_torch_session.py)."""
+    with pytest.raises(NotImplementedError, match="speculative"):
         InferenceEngine(gguf_path, EngineConfig(speculative="ngram"), device="cpu")
     with pytest.raises(NotImplementedError):  # int8 runs (test_torch_kv_int8.py); other kinds do not
         InferenceEngine(gguf_path, EngineConfig(kv_dtype="fp8"), device="cpu")
-    te = InferenceEngine(gguf_path, EngineConfig(dtype="float32"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        list(te.generate([1, 2, 3], SamplingParams(logprobs=2)))
-    with pytest.raises(NotImplementedError):
-        ChatSession(te).save("x")
+    je, te = engines
+    for s in (SamplingParams(response_format="json"), SamplingParams(regex="a+"),
+              SamplingParams(grammar='root ::= "a"')):
+        with pytest.raises(NotImplementedError, match="constrained decoding"):
+            list(te.generate([1, 2, 3], s))
+    ids = te.tokenizer.encode(PROMPT)
+    jm, tm = JGenerationMetrics(), GenerationMetrics()
+    want = list(je.generate(ids, JSamplingParams(temperature=0.0, max_new_tokens=16, logprobs=2), metrics=jm))
+    got = list(te.generate(ids, SamplingParams(temperature=0.0, max_new_tokens=16, logprobs=2), metrics=tm))
+    assert got == want
+    assert [e["id"] for e in tm.logprobs] == got
+    np.testing.assert_allclose([e["logprob"] for e in tm.logprobs], [e["logprob"] for e in jm.logprobs],
+                               rtol=0, atol=0.12)
+    session = ChatSession(te, SamplingParams(temperature=0.0, max_new_tokens=4))
+    session.send("hi")
+    session.save(tmp_path / "s.npz")
+    assert ChatSession.load(te, tmp_path / "s.npz")._cached_ids == session._cached_ids

@@ -33,17 +33,32 @@ def test_every_port_module_imports_without_jax():
             "nfai_tpu_torch.runtime.paged_cache", "nfai_tpu_torch.runtime.scheduler",
             "nfai_tpu_torch.ops.paged_attention", "nfai_tpu_torch.server",
             "nfai_tpu_torch.testing", "nfai_tpu_torch.models.registry",
-            "nfai_tpu_torch.tokenizer.spm"} <= set(res["modules"])
+            "nfai_tpu_torch.tokenizer.spm", "nfai_tpu_torch.eval"} <= set(res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
-def test_chip_smoke_imports_no_jax():
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _imported(path: Path) -> set[str]:
+    """Every module an import statement of `path` names, those inside
+    functions included (absolute names; relative imports stay in the port)."""
     names = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module:
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
             names.add(node.module)
+    return names
+
+
+def test_chip_smoke_imports_no_jax():
+    names = _imported(ROOT / "chip_smoke.py")
     assert "nfai_tpu_torch.models" in names  # the walk sees the imports inside functions
     assert sorted(n for n in names if _forbidden(n)) == []
+
+
+def test_no_port_source_imports_jax_even_inside_a_function():
+    """The import-time check above cannot see an import that runs only when
+    a function is called (eval.main's, the kernels' build functions)."""
+    files = sorted((ROOT / "nfai_tpu_torch").rglob("*.py"))
+    assert ROOT / "nfai_tpu_torch" / "eval.py" in files
+    hits = {str(f.relative_to(ROOT)): sorted(n for n in _imported(f) if _forbidden(n)) for f in files}
+    assert {f: n for f, n in hits.items() if n} == {}

@@ -245,14 +245,77 @@ def test_prefill_overlaps_decode(engine, paged):
 
 
 def test_unported_sampling_options_raise_at_submit(engine, paged):
+    """Constrained decoding is still refused by name (and a bias id outside
+    the vocabulary is a ValueError); what now runs is held to the JAX
+    BatchEngine in the parity cases below."""
     be = BatchEngine(engine, max_batch=2, paged=paged)
-    for s in (SamplingParams(logprobs=2), SamplingParams(presence_penalty=0.5),
-              SamplingParams(frequency_penalty=0.5), SamplingParams(logit_bias=((3, 1.0),)),
-              SamplingParams(response_format="json"), SamplingParams(regex="a+"),
+    for s in (SamplingParams(response_format="json"), SamplingParams(regex="a+"),
               SamplingParams(grammar='root ::= "a"')):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="constrained decoding"):
             be.submit([1, 2, 3], s)
+    with pytest.raises(ValueError, match="outside the vocabulary"):
+        be.submit([1, 2, 3], SamplingParams(logit_bias=((engine.model_cfg.vocab_size, 1.0),)))
     assert be.queue.empty()
+
+
+@pytest.fixture(scope="module")
+def jax_engine(gguf_path):
+    return JInferenceEngine(str(gguf_path), JEngineConfig(**CONFIG))
+
+
+@pytest.mark.parametrize("opt", [dict(logprobs=2), dict(presence_penalty=0.5), dict(frequency_penalty=0.5),
+                                 dict(logit_bias=((3, 1.0),))],
+                         ids=["logprobs", "presence_penalty", "frequency_penalty", "logit_bias"])
+def test_sampling_options_run_as_in_the_jax_batch_engine(engine, jax_engine, paged, opt):
+    """The options the port now runs, one request beside a plain one on 2
+    slots: greedy output_ids equal the JAX BatchEngine's up to a near-tie
+    (where they part, the port's token lies within 0.06, 2e-2 of the
+    fixture's logit scale of 3, of JAX's top logprob, which the JAX run
+    reports for every request), logprobs within 0.12 (twice that)."""
+    p, q = prompts_of(2, (9, 13))
+    s = dict(temperature=0.0, max_new_tokens=10)
+    jbe = JBatchEngine(jax_engine, max_batch=2, decode_chunk=4, paged=paged)
+    jr = [jbe.submit(x, JSamplingParams(**s, **{**opt, "logprobs": max(2, opt.get("logprobs", 0))}))
+          for x in (p, q)]
+    drive(jbe, jr)
+    be = BatchEngine(engine, max_batch=2, decode_chunk=4, paged=paged)
+    r = [be.submit(p, SamplingParams(**s, **opt)), be.submit(q, SamplingParams(**s))]
+    drive(be, r)
+    for got, want in zip(r, jr):
+        assert got.state == RequestState.FINISHED and len(got.output_ids) == 10
+        for d, (g, w) in enumerate(zip(got.output_ids, want.output_ids)):
+            if g != w:
+                top = dict(want.logprob_data[d]["top"])
+                assert g in top and top[g] >= want.logprob_data[d]["top"][0][1] - 0.06
+                break
+    if "logprobs" in opt:
+        assert [e["id"] for e in r[0].logprob_data] == r[0].output_ids and r[1].logprob_data == []
+        for g, w in zip(r[0].logprob_data, jr[0].logprob_data):
+            if g["id"] != w["id"]:
+                break
+            assert abs(g["logprob"] - w["logprob"]) <= 0.12
+
+
+def test_counts_follow_the_slots(engine, paged):
+    """The penalties' counts hold each slot's output tokens, including the
+    first (sampled at the end of the prefill), and a slot's row starts
+    from zero for its next request."""
+    be = BatchEngine(engine, max_batch=2, decode_chunk=4, paged=paged)
+    s = SamplingParams(temperature=0.0, max_new_tokens=30, frequency_penalty=0.5)
+    reqs = [be.submit(p, s) for p in prompts_of(3, (7, 12))]
+    for _ in range(2):
+        be.step()
+    assert all(slot.request is not None for slot in be.slots)
+    for i, slot in enumerate(be.slots):
+        req = slot.request
+        want = np.bincount(req.output_ids, minlength=engine.model_cfg.vocab_size)
+        assert be._counts[i].tolist() == want.tolist()
+    drive(be, reqs)
+    r3 = be.submit(prompts_of(4, (5,))[0], s)
+    be.step()
+    slot = next(i for i, sl in enumerate(be.slots) if sl.request is r3)
+    assert be._counts[slot].tolist() == np.bincount(r3.output_ids,
+                                                    minlength=engine.model_cfg.vocab_size).tolist()
 
 
 def test_queue_full_is_refused(engine, paged):
@@ -307,6 +370,28 @@ def test_preemption_recovers_and_output_is_unchanged(engine):
     assert [r1.state, r2.state] == [RequestState.FINISHED] * 2
     assert [r1.output_ids, r2.output_ids] == expected
     assert (be.alloc.refs[1:] == 0).all()  # every page came back
+
+
+def test_preempted_penalties_and_logprobs_resume_unchanged(engine):
+    """A starved pool preempts a request with penalties and logprobs: on
+    re-admission its counts are rebuilt from the tokens it already emitted
+    (the JAX scheduler restarts them from zero), so its output and
+    logprobs equal the unconstrained run's."""
+    p1, p2 = prompts_of(10, (20, 20))
+    s = SamplingParams(temperature=0.0, max_new_tokens=24, frequency_penalty=0.8,
+                       presence_penalty=0.4, logprobs=2)
+    roomy = BatchEngine(engine, max_batch=2, decode_chunk=4, paged=True)
+    want = [roomy.submit(p1, s), roomy.submit(p2, s)]
+    drive(roomy, want)
+    be = small_pool(engine, 5, max_batch=2, decode_chunk=4)
+    got = [be.submit(p1, s), be.submit(p2, s)]
+    drive(be, got, max_steps=400)
+    assert be.preemptions >= 1
+    for g, w in zip(got, want):
+        assert g.state == RequestState.FINISHED and g.output_ids == w.output_ids
+        assert [e["id"] for e in g.logprob_data] == g.output_ids
+        np.testing.assert_allclose([e["logprob"] for e in g.logprob_data],
+                                   [e["logprob"] for e in w.logprob_data], rtol=0, atol=2e-2)
 
 
 def test_lane_compaction_runs_the_smallest_power_of_two(engine, monkeypatch):

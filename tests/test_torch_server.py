@@ -6,7 +6,11 @@ returns exactly the port engine's greedy text for the rendered prompt, the
 SSE pieces join to that text, every option the port does not run yet gets
 a 501 JSON error naming it while the server keeps answering, a full queue
 gets a 503, and serve/main refuse to start without a card unless given the
-CPU.
+CPU. The OpenAI sampling options (logprobs in both wire forms, logit_bias,
+presence and frequency penalties) answer 200 in the JAX server's response
+shape for the same body (the JAX server runs beside the port's on the same
+GGUF), blocking and streamed, and their logprobs are those of the port
+engine's own greedy run.
 """
 import json
 import socket
@@ -16,12 +20,16 @@ import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
 
+import numpy as np
 import pytest
 import torch
 
+from nfai_tpu import server as jsrv
+from nfai_tpu.config import EngineConfig as JEngineConfig
 from nfai_tpu_torch import server as srv
 from nfai_tpu_torch.config import EngineConfig, SamplingParams
 from nfai_tpu_torch.gguf import GGMLType
+from nfai_tpu_torch.runtime.engine import GenerationMetrics
 from nfai_tpu_torch.runtime.scheduler import BatchEngine, RequestState
 from nfai_tpu_torch.testing import make_tiny_llama_gguf
 from nfai_tpu_torch.tokenizer import Message
@@ -205,11 +213,6 @@ def test_n_stream_rejected(server):
     ({"response_format": {"type": "json_object"}}, "response_format 'json_object'"),
     ({"response_format": {"type": "json_schema", "json_schema": {"schema": {}}}},
      "response_format 'json_schema'"),
-    ({"logprobs": True, "top_logprobs": 2}, "logprobs"),
-    ({"logprobs": 3}, "logprobs"),
-    ({"logit_bias": {"5": 10}}, "logit_bias"),
-    ({"presence_penalty": 0.5}, "presence_penalty"),
-    ({"frequency_penalty": 0.5}, "frequency_penalty"),
 ])
 def test_unported_options_get_a_named_error_and_the_server_keeps_serving(server, extra, name):
     base, _ = server
@@ -220,6 +223,119 @@ def test_unported_options_get_a_named_error_and_the_server_keeps_serving(server,
         assert name in json.loads(e.value.read())["error"]["message"]
     with _post(base, "/v1/chat/completions", CHAT) as r:  # still answering
         assert r.status == 200
+
+
+@pytest.fixture(scope="module")
+def jax_server(gguf_path):
+    """The JAX package's server on the same GGUF and settings."""
+    httpd = jsrv.serve(str(gguf_path), host="127.0.0.1", port=0,
+                       engine_config=JEngineConfig(max_seq_len=256, dtype="float32", prefill_chunk=64),
+                       max_batch=2)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    httpd.shutdown()
+    httpd.server_close()
+    httpd.state.batch.close()
+    thread.join(timeout=10)
+
+
+def _shape(obj):
+    """A response's structure: dict keys, list element shapes, leaf types
+    (None and numbers as one kind: finish_reason and logprobs values)."""
+    if isinstance(obj, dict):
+        return {k: _shape(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return sorted({json.dumps(_shape(v), sort_keys=True) for v in obj})
+    return "str" if isinstance(obj, str) else "scalar"
+
+
+@pytest.mark.parametrize("extra", [
+    {"logprobs": True, "top_logprobs": 2},
+    {"logprobs": 3},
+    {"logit_bias": {"5": 10}},
+    {"presence_penalty": 0.5},
+    {"frequency_penalty": 0.5},
+], ids=["logprobs-top", "logprobs-legacy", "logit_bias", "presence_penalty", "frequency_penalty"])
+def test_sampling_options_answer_in_the_jax_servers_shape(server, jax_server, extra):
+    base, state = server
+    for path, body in (("/v1/chat/completions", dict(CHAT, **extra)),
+                       ("/v1/completions", {"prompt": "abc", "temperature": 0, "max_tokens": 6, **extra})):
+        with _post(base, path, body) as r, _post(jax_server, path, body) as jr:
+            assert r.status == jr.status == 200
+            got, want = json.loads(r.read()), json.loads(jr.read())
+        assert _shape(got) == _shape(want)
+        with _post(base, path, dict(body, stream=True)) as r, _post(jax_server, path, dict(body, stream=True)) as jr:
+            events, jevents = _sse_events(r), _sse_events(jr)
+        assert events[-1] == jevents[-1] == "[DONE]"
+        chunks, jchunks = [json.loads(e) for e in events[:-1]], [json.loads(e) for e in jevents[:-1]]
+        assert _shape(chunks[0]) == _shape(jchunks[0]) and _shape(chunks[-1]) == _shape(jchunks[-1])
+        if "logprobs" not in extra:
+            assert "logprobs" not in got["choices"][0]
+            continue
+        # the blocking answer's logprobs are the engine's for its greedy run
+        # (this prompt has no near-tie on the port: the tokens are equal)
+        chat = path == "/v1/chat/completions"
+        eng = state.engine
+        ids = (eng.tokenizer.encode(eng.chat_template.render([Message("user", "hi")],
+                                                             add_generation_prompt=True), add_bos=False)
+               if chat else eng.tokenizer.encode("abc"))
+        m = GenerationMetrics()
+        k = 2 if extra["logprobs"] is True else extra["logprobs"]
+        toks = list(eng.generate(ids, SamplingParams(temperature=0.0, max_new_tokens=body["max_tokens"],
+                                                     logprobs=k), metrics=m))
+        lp = got["choices"][0]["logprobs"]
+        vals = [e["logprob"] for e in lp["content"]] if chat else lp["token_logprobs"]
+        tops = ([[t["logprob"] for t in e["top_logprobs"]] for e in lp["content"]] if chat
+                else [sorted(t.values(), reverse=True) for t in lp["top_logprobs"]])
+        assert len(vals) == len(toks) == got["usage"]["completion_tokens"]
+        # within 2e-2: the BatchEngine's batched rows and generate's single row
+        # may round one logit (near 3, a bf16 step of 2^-6) differently
+        np.testing.assert_allclose(vals, [e["logprob"] for e in m.logprobs], rtol=0, atol=2e-2)
+        # (the legacy layout keys its top entries by text: ids that decode alike share one)
+        assert all(len(t) == k if chat else 0 < len(t) <= k for t in tops)
+        if chat:
+            assert [t["token"] for t in lp["content"][0]["top_logprobs"]][0] == lp["content"][0]["token"]
+        # the streamed chunks carry every token's entry once
+        streamed = [e for c in chunks for e in ((c["choices"][0].get("logprobs") or {}).get(
+            "content" if chat else "token_logprobs") or [])]
+        assert len(streamed) == len(toks)
+
+
+def test_streamed_logprobs_reach_the_client_when_the_text_comes_at_the_end(server, monkeypatch):
+    """A stream whose text the detokenizer holds back to its final flush
+    (byte-level pieces that complete no character): every token's entry
+    still reaches the client, on the tail chunk (the JAX server drops
+    them)."""
+    base, _ = server
+
+    class Holding(srv.StreamDetokenizer):
+        def push(self, token_id):
+            self._held = getattr(self, "_held", []) + [token_id]
+            return ""
+
+        def flush(self):
+            return self.tok.decode(getattr(self, "_held", []), skip_special=True)
+
+    monkeypatch.setattr(srv, "StreamDetokenizer", Holding)
+    body = dict(CHAT, stream=True, logprobs=True, top_logprobs=1)
+    with _post(base, "/v1/chat/completions", body) as r:
+        chunks = [json.loads(e) for e in _sse_events(r)[:-1]]
+    entries = [e for c in chunks for e in (c["choices"][0].get("logprobs") or {}).get("content", [])]
+    assert len(chunks) == 2 and chunks[-1]["choices"][0]["finish_reason"] == "stop"
+    assert len(entries) == 8 and all(len(e["top_logprobs"]) == 1 for e in entries)
+
+
+@pytest.mark.parametrize("body,why", [
+    ({"logprobs": 21}, "logprobs"), ({"logprobs": True, "top_logprobs": -1}, "logprobs"),
+    ({"logit_bias": {"x": 1}}, "invalid literal"), ({"logit_bias": {"100000": 1}}, "outside the vocabulary"),
+], ids=["logprobs-21", "top_logprobs-negative", "bias-key", "bias-id"])
+def test_bad_option_values_get_a_400(server, body, why):
+    base, _ = server
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(base, "/v1/chat/completions", dict(CHAT, **body))
+    assert e.value.code == 400
+    assert why in json.loads(e.value.read())["error"]["message"]
 
 
 def test_neutral_option_values_are_accepted(server):
