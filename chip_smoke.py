@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only build,kernels --kernels k3    # K3 / K10 and the K/V store
     python3 chip_smoke.py --only build,serve,batch,profile --models E   # one model's path
     python3 chip_smoke.py --only build,options,eval   # the OpenAI options, sessions and eval on A / A8
+    python3 chip_smoke.py --only build,constrained,spec   # constrained and speculative decoding on A
 
 Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
@@ -46,7 +47,9 @@ Phases (each failure propagates, the exit code is then non-zero):
            1024 below the head), model B's Q6_K wv and w_down at rows 16,
            256 and 1024, and wo in the g16 / mins kinds, three launches with
            the same bits, beside K6 on the same int8 codes; K4 (every case
-           in `_kernels_k4`, --kernels k4): "full" at models A's, C's, E's,
+           in `_kernels_k4`, --kernels k4): the verify forward's shape (T =
+           9 at batch 1 and 8, ragged offsets, a lane frozen at the cache's
+           length), "full" at models A's, C's, E's,
            the 3B's and Gemma's heads (A's batch-1 16-token bucket at offset
            1000: the short grid), bf16 and int8, then the "headmajor"
            (K4-hm) and "merged" layouts, bf16 and int8, at model E's heads,
@@ -125,6 +128,22 @@ Phases (each failure propagates, the exit code is then non-zero):
            and one HTTP request with logprobs, whole and streamed: "A
            options server"; on A8's engine the session round trip on the
            int8 cache and generate with the options: "A8 options"
+  constrained  on model A's engine: generate at batch 1, greedy, with JSON
+           mode, a JSON Schema, a GBNF grammar and a regex (each text must
+           satisfy its constraint: json.loads, the schema's required keys,
+           re.fullmatch), the host syncs a constrained step ("A
+           constrained"); the paged BatchEngine at batch 8 with the four
+           constraints beside four plain slots ("A constrained server")
+  spec     on model A's engine: speculative="ngram" and "draft" (a 2-layer
+           GGUF of A's widths and vocabulary) at batch 1, greedy, each equal
+           to plain greedy decoding up to the plain stream's first top-two
+           logit gap below TOL x the logit scale (printed with its gap), with
+           tokens per verify forward, acceptance and wall tok/s against plain;
+           a sampled ngram request; the verify forward (T = 9) at batch 1 and
+           8 against the same tokens fed one decode step at a time (a frozen
+           lane's rows unchanged, no host sync) and its device ms against one
+           decode step's ("A spec"); the paged BatchEngine at batch 8 with
+           greedy and sampled slots speculating together ("A spec server")
   eval     nfai_tpu_torch.eval on model A: one 512-token window of a seeded
            id stream on a bf16 and on an int8 cache, seconds a window
            ("A eval": K4 / K4-i8, the store and K5 once a layer a window,
@@ -132,8 +151,9 @@ Phases (each failure propagates, the exit code is then non-zero):
            timed beside its plain version and cuBLAS, with its bound; the
            2-layer Q4_K copy's window on the card against the CPU's plain
            versions (mean NLL within TOL, INT8_TOL on the int8 cache)
-With only options and eval (no serve or batch) the main path is model A
-and A8 alone; either phase needs serve's load of those engines, which runs.
+With only options, eval, constrained or spec (no serve or batch) the main
+path is model A (and A8 for options) alone; each needs serve's load of
+those engines, which runs.
 The main path is six models, A8 and E8, each driven by serve, batch and
 profile; A's and A8's engines then serve continuously batched traffic, and
 so do C's, G's, D's and E's:
@@ -204,6 +224,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -219,7 +240,8 @@ TOL = 2e-2  # max|got - want| / max|want|, the JAX package's kernel-parity rule
 # bf16 cache logits within 5e-2 of the logit scale, tests/test_kv_int8.py)
 INT8_TOL = 5e-2
 
-PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity", "options", "eval")
+PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity", "options", "eval",
+          "constrained", "spec")
 # main-path model -> make_llama_1b_gguf kind ("qwen3moe": make_qwen3moe_gguf)
 MODELS = {"A": "q4_k", "B": "q4_k_m", "C": "qwen3moe", "G": "gemma2_2b", "D": "f16",
           "E": "llama_8b_q8_0"}
@@ -400,7 +422,8 @@ def _kernels_k1(torch, timer, gen) -> dict:
     for label, (k, n) in shapes.items():
         w = _q4_weight(torch, n, k, gen)
         wd = dequant(w).to(bf)
-        for m in (1, 8, 16, 24, 32, 64, 256) + (() if label == "lm_head" else (1024,)):
+        verify = (9, 72) if label in ("wqkv", "wo", "lm_head") else ()  # a verify forward's B x 9 rows
+        for m in (1, 8, 16, 24, 32, 64, 256) + verify + (() if label == "lm_head" else (1024,)):
             x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
             got = qm.q4_matmul(x, w)
             torch.cuda.synchronize()
@@ -577,7 +600,8 @@ def _kernels_k5(torch, timer, gen) -> dict:
     # 2, 8 and 16, the tiles' 17, 32 and 64 (batch-1 buckets), 256 and 1024
     # (the 8x128 chunk)) and at the 3B's (K = H = 3072, rows 1, 8, 256)
     cases = []
-    for k, f, h, rows in ((2048, 8192, 2048, (1, 2, 8, 16, 17, 32, 64, 256, 1024)),
+    # (and 9, 72: a verify forward's B x 9 rows at batch 1 and 8)
+    for k, f, h, rows in ((2048, 8192, 2048, (1, 2, 8, 9, 16, 17, 32, 64, 72, 256, 1024)),
                           (3072, 8192, 3072, (1, 8, 256))):
         gu, dn = _q4_weight(torch, 2 * f, k, gen), _q4_weight(torch, h, f, gen)
 
@@ -640,6 +664,8 @@ def _kernels_k6(torch, timer, gen) -> dict:
         rows = ((1, 8) if label.startswith("G") and label.endswith("head")
                 else (1, 2, 8, 16, 24, 32, 64, 256) if label.endswith("head")
                 else (1, 2, 8, 16, 24, 32, 64, 256, 1024))
+        if label in ("Q6_K head", "Q8_0 wqkv"):
+            rows += (9, 72)  # a verify forward's B x 9 rows
         for m in rows:
             x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
             got = qm.q8_matmul(x, w)
@@ -893,13 +919,16 @@ def _k10(torch, timer, gen) -> dict:
 STORE_STEP_CASES = (("A", 16, 8, 8, 64, 1024), ("C", 8, 8, 4, 128, 1024), ("G", 26, 8, 4, 256, 1024))
 # its dense prefill cases, one layer: (label, B, T, Hkv, D, S, offset); A's batch-1
 # chunk at S - 128 keeps 128 of its 256 rows (the rest are dropped)
+# (and a verify forward's 9 rows a lane at batch 8, its last lane frozen at S:
+# all of its rows are dropped)
 STORE_CHUNK_CASES = (("A 8x128", 8, 128, 8, 64, 1024, 0), ("A B=1 T=256 tail", 1, 256, 8, 64, 1024, 896),
-                     ("C B=1 T=256", 1, 256, 4, 128, 1024, 256), ("G 8x128", 8, 128, 4, 256, 1024, 0))
+                     ("C B=1 T=256", 1, 256, 4, 128, 1024, 256), ("G 8x128", 8, 128, 4, 256, 1024, 0),
+                     ("A verify B=8 T=9", 8, 9, 8, 64, 1024, 500))
 # its paged cases, one layer: (label, B, T, Hkv, D, page size); a row of every
 # case lands on a page outside the pool and is dropped
 STORE_PAGED_CASES = (("A decode ps=128", 8, 1, 8, 64, 128), ("A decode ps=16", 8, 1, 8, 64, 16),
                      ("A chunk B=1 T=256", 1, 256, 8, 64, 128), ("C decode", 8, 1, 4, 128, 128),
-                     ("G decode", 8, 1, 4, 256, 128))
+                     ("G decode", 8, 1, 4, 256, 128), ("A verify B=8 T=9 ps=16", 8, 9, 8, 64, 16))
 
 
 def _equal(name, got, want) -> float:
@@ -1015,6 +1044,8 @@ def _kv_store_cases(torch, timer, gen) -> dict:
         starts = torch.full((b,), off, dtype=torch.int32, device=dev)
         if b > 1:
             starts[1], starts[-1] = 17, s - t // 2  # the last row's tail is dropped
+        if label.startswith("A verify"):
+            starts[-1] = s  # a frozen lane
         for quant in (False, True):
             kc, vc = (torch.zeros(b, s, kvd, dtype=torch.int8 if quant else bf, device=dev) for _ in range(2))
             kss, vss = ((torch.zeros(b, hkv, s, device=dev) for _ in range(2)) if quant else (None, None))
@@ -1651,6 +1682,7 @@ def _kernels_k4(torch, timer, gen) -> dict:
                 f"x{ms / lib_ms:.2f})")
             del kc, vc
         del kf, vf, kd, vd
+    _k4_verify(torch, timer, gen, out)
     src = "nfai_tpu_torch/csrc/prefill_attention.cu"
     rows = {name: dict(route="cuda", source=src, replaces="nfai_tpu/ops/prefill_attention.py:267",
                        also_replaces=[], headline=c[2], cases=c) for name, c in out.items()}
@@ -1660,6 +1692,73 @@ def _kernels_k4(torch, timer, gen) -> dict:
     rows["prefill_attention_i8"]["merged_cases"] = layouts.pop("merged_i8")
     rows.update(layouts)
     return rows
+
+
+# K4 at the verify forward's shape (T = spec_tokens + 1 = 9, model A's heads,
+# S = 1024): (B, each row's offset); at batch 8 the offsets are ragged across
+# key tiles and the last lane is frozen at S (it reads every key; nothing
+# past the cache)
+K4_VERIFY_CASES = ((1, (500,)), (8, (0, 5, 63, 64, 300, 700, 1015, 1024)))
+
+
+def _k4_verify(torch, timer, gen, out) -> None:
+    """K4 and K4-i8 at K4_VERIFY_CASES against their plain versions (per
+    query token), timed beside SDPA over the whole cache with each row's
+    causal mask (int8: the cache dequantized, then SDPA); the cases join
+    `out`'s rows. The bound counts each row's visible keys."""
+    import torch.nn.functional as nnf
+
+    from nfai_tpu_torch.models.llama import dequant_kv
+    from nfai_tpu_torch.ops import prefill_attention as pa
+
+    bf = torch.bfloat16
+    hq, hkv, d, t, s = 32, 8, 64, 9, 1024
+    kvd, scale = hkv * d, d**-0.5
+    for b, offsets in K4_VERIFY_CASES:
+        q = torch.randn(b, t, hq, d, device="cuda", dtype=bf, generator=gen)
+        kf = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        vf = torch.randn(b, s, kvd, device="cuda", dtype=bf, generator=gen)
+        offs = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+        qpos = offs.long()[:, None, None] + torch.arange(t, device="cuda")[None, :, None]
+        mask = (torch.arange(s, device="cuda")[None, None, :] <= qpos)[:, None]  # [B, 1, T, S]
+        visible = int(mask.sum())
+        keys_read = sum(min(o + t, s) for o in offsets)
+        qt = q.transpose(1, 2)
+        kd, vd = (x.view(b, s, hkv, d).transpose(1, 2).contiguous() for x in (kf, vf))
+        for quant in (False, True):
+            if quant:
+                (kc, ks), (vc, vs) = _kv_codes(torch, kf, hkv), _kv_codes(torch, vf, hkv)
+                sc, name = dict(k_scales=ks, v_scales=vs), "prefill_attention_i8"
+            else:
+                kc, vc, ks, vs, sc, name = kf, vf, None, None, {}, "prefill_attention"
+            label = f"A verify Hq={hq} Hkv={hkv} D={d} B={b} T={t} S={s} offsets {list(offsets)}"
+            run = lambda: pa.flash_prefill_attention(q, kc, vc, offs, scale, **sc)  # noqa: B023,E731
+            got = run()
+            torch.cuda.synchronize()
+            plain = lambda: pa.flash_prefill_attention_plain(q, kc, vc, offs, scale, ks, vs)  # noqa: B023,E731
+            err = check(f"{'K4-i8' if quant else 'K4'} {label}", got, plain(), row_dims=2)
+            if quant:
+                def lib():  # noqa: B023
+                    kq = dequant_kv(kc, ks, bf).view(b, s, hkv, d).transpose(1, 2)
+                    vq = dequant_kv(vc, vs, bf).view(b, s, hkv, d).transpose(1, 2)
+                    return nnf.scaled_dot_product_attention(qt, kq, vq, attn_mask=mask, scale=scale,
+                                                            enable_gqa=True)
+            else:
+                def lib():  # noqa: B023
+                    return nnf.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, scale=scale,
+                                                            enable_gqa=True)
+            ms = timer(run)
+            plain_ms = timer(plain, iters=3)
+            lib_ms = timer(lib)
+            nbytes = 2 * (2 * b * t * hq * d) + 2 * keys_read * kvd * (1 if quant else 2) + (
+                2 * 4 * hkv * keys_read if quant else 0)
+            bb, by = bound_ms(nbytes, 4.0 * hq * d * visible)
+            library = "dequantize + SDPA" if quant else "SDPA"
+            out[name].append(dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bb,
+                                  bound_by=by, library_ms=lib_ms, library=library))
+            log(f"    {ms:.4f} ms (bound {bb:.5f} by {by}, plain {plain_ms:.3f}, {library} {lib_ms:.4f}, "
+                f"x{ms / lib_ms:.2f})")
+            del kc, vc
 
 
 # (label, Hq, Hkv, D, B, T, S, offset, softcap, window): model E's heads (32 / 8 of
@@ -3259,6 +3358,661 @@ def phase_eval(torch, engine, kernels_mod, tmp) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phases: constrained and speculative decoding (on model A's engine)
+
+SMOKE_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"}, "n": {"type": "integer"}},
+                "required": ["ok", "n"]}
+SMOKE_GBNF = 'root ::= ("yes" | "no") " " [0-9]+'
+SMOKE_REGEX = r"(ab|cd)+-[0-9]{2}"
+# each constraint: SamplingParams fields, and the check its text must pass
+CONSTRAINTS = {
+    "json": (dict(response_format="json"), lambda t: isinstance(json.loads(t), dict)),
+    "json_schema": (dict(response_format="json_schema", json_schema=SMOKE_SCHEMA),
+                    lambda t: isinstance(json.loads(t), dict) and {"ok", "n"} <= set(json.loads(t))),
+    "gbnf": (dict(grammar=SMOKE_GBNF), lambda t: re.fullmatch(r"(yes|no) [0-9]+", t) is not None),
+    "regex": (dict(regex=SMOKE_REGEX), lambda t: re.fullmatch(SMOKE_REGEX, t) is not None),
+}
+CONSTRAINED_BUDGET = 24  # tokens a constrained request may emit; the closing masks end it within
+
+
+def _satisfies(name, text) -> bool:
+    try:
+        return bool(CONSTRAINTS[name][1](text))
+    except ValueError:  # json.loads
+        return False
+
+
+def _constrained_generate(torch, engine) -> dict:
+    """generate at batch 1, greedy, with each constraint: the text must
+    satisfy it; then the host syncs a constrained step, counted with
+    torch.cuda.set_sync_debug_mode("warn") over one JSON Schema request
+    less its prefill's (one a step: the sampled token's read-back)."""
+    import warnings
+
+    from nfai_tpu_torch.config import SamplingParams
+    from nfai_tpu_torch.runtime.engine import GenerationMetrics
+
+    ids = engine.tokenizer.encode("Answer in the format you are asked for.")
+    t0 = time.perf_counter()
+    engine.json_constraint  # the vocabulary-wide index, built once an engine
+    out = {"constraint_index_s": time.perf_counter() - t0}
+    for name, (fields, _) in CONSTRAINTS.items():
+        m = GenerationMetrics()
+        _sync(torch)
+        t0 = time.perf_counter()
+        toks = list(engine.generate(ids, SamplingParams(temperature=0.0, max_new_tokens=CONSTRAINED_BUDGET,
+                                                        **fields), metrics=m))
+        wall = time.perf_counter() - t0
+        text = engine.tokenizer.decode(toks)
+        if not _satisfies(name, text):
+            raise AssertionError(f"generate with {name}: {text!r} does not satisfy the constraint")
+        out[name] = dict(tokens=len(toks), wall_s=wall, ms_per_token=wall * 1e3 / max(len(toks), 1), text=text)
+        log(f"  generate {name}: {len(toks)} tokens in {wall:.2f} s ({wall * 1e3 / max(len(toks), 1):.1f} "
+            f"ms a token, host masks included): {text!r}")
+
+    def syncs(fn) -> int:  # host syncs while fn runs (torch.cuda.set_sync_debug_mode("warn"))
+        _sync(torch)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return sum("called a synchronizing" in str(w.message) for w in caught)
+
+    toks = []
+    n_prefill = syncs(lambda: engine.prefill(engine.new_cache(1), ids))
+    n_all = syncs(lambda: toks.extend(engine.generate(
+        ids, SamplingParams(temperature=0.0, max_new_tokens=CONSTRAINED_BUDGET, **CONSTRAINTS["json_schema"][0]))))
+    out["host_syncs_per_step"] = (n_all - n_prefill) / max(len(toks), 1)
+    log(f"  host syncs: {n_all} in a {len(toks)}-token JSON Schema request, {n_prefill} of them the prefill's: "
+        f"{out['host_syncs_per_step']:.2f} a constrained step (one a step, the token the next mask needs, "
+        f"and at most one a request to set up)")
+    if not len(toks) <= n_all - n_prefill <= len(toks) + 1:
+        raise AssertionError(f"{n_all - n_prefill} host syncs for {len(toks)} constrained steps")
+    return out
+
+
+def _constrained_batch_engine(torch, engine) -> dict:
+    """The paged BatchEngine at batch 8: the four constraints beside four
+    plain slots (two greedy, two sampled); one-step chunks with a [8, V]
+    mask while a constrained slot runs. Every constrained text must
+    satisfy its constraint."""
+    from nfai_tpu_torch.config import SamplingParams
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine, RequestState
+
+    rng = torch.Generator().manual_seed(21)
+    prompts = [torch.randint(300, 5000, (n,), generator=rng).tolist() for n in (20, 60, 110, 170, 40, 90, 140, 230)]
+    sampling = [SamplingParams(temperature=0.0, max_new_tokens=CONSTRAINED_BUDGET, **f)
+                for f, _ in CONSTRAINTS.values()]
+    sampling += [SamplingParams(temperature=0.0, max_new_tokens=32)] * 2 + [
+        SamplingParams(temperature=0.8, top_k=40, max_new_tokens=32, seed=i) for i in range(2)]
+    be = BatchEngine(engine, max_batch=8, decode_chunk=8, paged=True)
+    _sync(torch)
+    t0 = time.perf_counter()
+    reqs = [be.submit(p, s) for p, s in zip(prompts, sampling)]
+    _drive(be, reqs)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    for name, r in zip(CONSTRAINTS, reqs):
+        text = engine.tokenizer.decode(r.output_ids)
+        if r.state != RequestState.FINISHED or not _satisfies(name, text):
+            raise AssertionError(f"BatchEngine {name} slot ({r.state}): {text!r} does not satisfy it")
+    if any(not 0 < len(r.output_ids) <= 32 for r in reqs[4:]):
+        raise AssertionError(f"plain slots: {[len(r.output_ids) for r in reqs[4:]]} tokens")
+    texts = [engine.tokenizer.decode(r.output_ids) for r in reqs[:4]]
+    log(f"  BatchEngine (paged, batch 8: 4 constrained, 4 plain): {sum(len(r.output_ids) for r in reqs)} tokens "
+        f"in {wall:.2f} s; constrained texts {texts}")
+    return dict(wall_s=wall, tokens=sum(len(r.output_ids) for r in reqs), texts=texts)
+
+
+def phase_constrained(torch, engine, kernels_mod) -> tuple[dict, dict]:
+    """Constrained decoding on model A's engine: "A constrained" (generate
+    with JSON, a JSON Schema, a GBNF grammar and a regex; the host syncs a
+    constrained step), "A constrained server" (the paged BatchEngine at
+    batch 8 mixing constrained and plain slots). Returns (results,
+    launches by path)."""
+    out, paths = {}, {}
+    kernels_mod.reset_launches()
+    out["generate"] = _constrained_generate(torch, engine)
+    paths["A constrained"] = _check_route(kernels_mod, "A constrained", "model A's constrained generate")
+    kernels_mod.reset_launches()
+    out["batch_engine"] = _constrained_batch_engine(torch, engine)
+    paths["A constrained server"] = _check_route(kernels_mod, "A constrained server",
+                                                 "model A's constrained BatchEngine")
+    return out, paths
+
+
+SPEC_PROMPT = "Repeat after me: one two three four, one two three four, one two three four, one two"
+SPEC_NEW = 128  # tokens a batch-1 speculative request emits
+# model A's bf16 routes on the card (the verify forward at T = 9, decode
+# steps, one prefill chunk) against each other: max|a - b| in a row within
+# PATH_TOL of the row's max|logit|. Set from an H100's readings (PERF.md §6,
+# PR 20): 4.3-6.0e-2 between any two of them.
+PATH_TOL = 8e-2
+# each route against the CPU's f32 forward of the same model, its weights
+# dequantized exactly at load (the same H100's readings: 5.8-7.1e-2 on
+# model A's 16 layers, 2.1-2.6e-2 on the 2-layer copy) ...
+EXACT_TOL = {16: 9e-2, 2: 3.5e-2}  # by depth
+# ... and the verify no farther from it than the decode steps, within a
+# quarter (read: 0.94-1.07 times)
+EXACT_RATIO = 1.25
+
+
+def _with_config(engine, **changes):
+    """The engine with other EngineConfig fields, sharing its loaded weights
+    (a shallow copy: speculative decoding reads only the config)."""
+    import copy
+
+    e = copy.copy(engine)
+    e.config = dataclasses.replace(engine.config, **changes)
+    e._draft_engine = None
+    return e
+
+
+class _VerifyProbe:
+    """While installed, records each verify forward the speculative rounds
+    run (`models.llama._verify_forward`, which `spec_decode_rounds` and
+    `draft_spec_rounds` look up every round): its [B, T] and the kernel
+    launches it made, from the launch counters before and after (host
+    integers: no sync). It computes nothing itself."""
+
+    def __init__(self, kernels_mod):
+        self.kernels = kernels_mod.KERNELS
+        self.calls = []
+
+    def _counts(self) -> dict:
+        return {k.name: k.launches for k in self.kernels.values()}
+
+    def __enter__(self):
+        from nfai_tpu_torch.models import llama
+
+        inner = self._inner = llama._verify_forward
+
+        def probe(params, cfg, tin, *args):
+            before = self._counts()
+            out = inner(params, cfg, tin, *args)
+            self.calls.append((tuple(tin.shape), {k: v - before[k] for k, v in self._counts().items()
+                                                   if v != before[k]}))
+            return out
+
+        llama._verify_forward = probe
+        return self
+
+    def __exit__(self, *exc):
+        from nfai_tpu_torch.models import llama
+
+        llama._verify_forward = self._inner
+
+    def check(self, what, n_layers, t, store, min_calls) -> dict:
+        """Every verify forward ran T = t tokens a lane and launched K4,
+        K5 and the store (`store`, chunk mode) once a layer and K1
+        2 n_layers + 1 times (wqkv and wo a layer, the head), nothing
+        else; at least `min_calls` of them (the drafted tokens over gamma
+        and the lanes)."""
+        want = {"prefill_attention": n_layers, "fused_mlp": n_layers, store: n_layers,
+                "q4_matmul": 2 * n_layers + 1}
+        bad = [(shape, d) for shape, d in self.calls if shape[1] != t or d != want]
+        batches = sorted({shape[0] for shape, _ in self.calls})
+        log(f"  {what}: {len(self.calls)} verify forwards at T = {t} (B {batches}; at least {min_calls} from "
+            f"the drafted tokens), each launching {want}")
+        if bad or len(self.calls) < min_calls:
+            raise AssertionError(f"{what}: {len(self.calls)} verify forwards (at least {min_calls}); these "
+                                 f"differ from [B, {t}] and {want}: {bad[:3]}")
+        return dict(verify_forwards=len(self.calls), per_verify=want, batches=batches)
+
+
+def _prefill_k4(kernels_mod, engine, ids) -> int:
+    """K4 launches of one prefill of `ids` (a window of its own)."""
+    kernels_mod.reset_launches()
+    engine.prefill(engine.new_cache(1), ids)
+    return kernels_mod.KERNELS["prefill_attention"].launches
+
+
+def _gaps(entries) -> list:
+    """The top-two logit gap of each step of a plain stream, from its
+    logprob entries (top 2)."""
+    return [e["top"][0][1] - e["top"][1][1] for e in entries]
+
+
+def _tie_prefix(name, got, plain, gaps, margin) -> tuple[int, float]:
+    """`got` against the plain greedy stream `plain` (`gaps`: its top-two
+    logit gap at each step): they may part only at a step where that gap is
+    below `margin` (the verify's and the decode step's matmuls run at other
+    M and may round a near-tie apart). Returns (the step where they part,
+    or their length, and the gap there); logs it beside the plain stream's
+    first step under the margin."""
+    first_tie = next((i for i, g in enumerate(gaps) if g < margin), len(plain))
+    part = next((i for i, (a, b) in enumerate(zip(got, plain)) if a != b), min(len(got), len(plain)))
+    if part < min(len(got), len(plain)) and not gaps[part] < margin:
+        raise AssertionError(f"{name}: token {part} is {got[part]}, plain greedy's {plain[part]}, where the plain "
+                             f"stream's top-two gap is {gaps[part]:.4f} >= {margin:.4f}")
+    if part == min(len(got), len(plain)) and len(got) != len(plain):
+        raise AssertionError(f"{name}: {len(got)} tokens against plain greedy's {len(plain)}")
+    gap = gaps[part] if part < len(gaps) else float("nan")
+    log(f"  {name}: equals plain greedy for {part} of {len(plain)} tokens"
+        + (f", parting at a near-tie (gap {gap:.4f} < {margin:.4f})" if part < len(plain) else "")
+        + f"; the plain stream's first gap under the margin is at step {first_tie}")
+    return part, gap
+
+
+def _teacher_force(torch, engine, name, prompt, got) -> dict:
+    """Every token of the greedy stream `got` against one prefill chunk of
+    prompt + got (`verify_step`: the logits at every position): its logit
+    must lie within 2 PATH_TOL x the row's max|logit| of the row's top (the
+    stream's own logits came from other routes, each within PATH_TOL of
+    this one, so its argmax lies at most twice that below). Returns the
+    deepest a token lies below the top, relative to the row's scale, and
+    how many tokens are not the row's argmax."""
+    from nfai_tpu_torch.models.llama import verify_step
+
+    ids = list(prompt) + list(got)
+    dev = engine.device
+    logits, _ = verify_step(engine.params, engine.model_cfg, torch.tensor([ids], device=dev),
+                            torch.arange(len(ids), device=dev)[None], engine.new_cache(1))
+    rows = logits[0, len(prompt) - 1:len(ids) - 1]  # row i predicts got[i]
+    chosen = rows.gather(1, torch.tensor(got, device=dev)[:, None])[:, 0]
+    depth = ((rows.amax(1) - chosen) / rows.abs().amax(1)).cpu()
+    res = dict(worst_depth=float(depth.max()), not_argmax=int((depth > 0).sum()), tokens=len(got))
+    del logits, rows
+    log(f"  {name}: all {len(got)} tokens teacher-forced through one {len(ids)}-token prefill chunk: "
+        f"{res['not_argmax']} are not its argmax, the deepest {res['worst_depth']:.4f} x the row's scale below "
+        f"the top (limit {2 * PATH_TOL:g})")
+    if not res["worst_depth"] <= 2 * PATH_TOL:
+        raise AssertionError(f"{name}: a token lies {res['worst_depth']:.4f} x the row's scale below the "
+                             f"teacher-forced top, past {2 * PATH_TOL:g}")
+    return res
+
+
+def _rotations(engine) -> list:
+    """8 prompts of one loop: rotations of SPEC_PROMPT's ids by 3."""
+    base = engine.tokenizer.encode(SPEC_PROMPT)
+    return [base[i:] + base[:i] for i in range(0, 8 * 3, 3)]
+
+
+def _seeded_rounds(torch, engine, kernels_mod) -> dict:
+    """`spec_decode_rounds` at batch 8 on model A's dense cache, lane 7
+    frozen: its accepted-draft branch (the multi-token commit, the history
+    scatter, positions moving by more than one) at full width. Prompt
+    lookup accepts nothing on a random-weight model, which repeats nothing
+    and does not reproduce its own output after prompt + output + prompt
+    (PERF.md §6, PR 20), so each lane's lookup history is seeded: its
+    prompt's last two tokens and its own plain greedy continuation G
+    (`decode_loop` on the same prompts) ahead of the prompt, the lookup
+    then drafts G. Calls of spec_rounds rounds, read back once each, until
+    every live lane has SPEC_NEW tokens: drafts must be accepted, each
+    live lane's stream equal G up to a near-tie and hold under teacher
+    forcing, the frozen lane's K/V rows stay as they were, and each verify
+    forward launches what `_VerifyProbe.check` names."""
+    from nfai_tpu_torch.models import decode_loop, prefill_step
+    from nfai_tpu_torch.models.llama import spec_decode_rounds
+
+    cfg, params, dev = engine.model_cfg, engine.params, engine.device
+    gamma, rounds, ngram = engine.config.spec_tokens, engine.config.spec_rounds, engine.config.spec_ngram
+    prompts = _rotations(engine)
+    b, n, s_max = len(prompts), len(prompts[0]), engine.max_seq_len
+
+    def prefilled():
+        return prefill_step(params, cfg, torch.tensor(prompts, device=dev),
+                            torch.arange(n, device=dev)[None].expand(b, n), torch.full((b,), n - 1, device=dev),
+                            engine.new_cache(b))
+
+    logits, cache = prefilled()
+    first = logits.argmax(-1)
+    top0 = logits.topk(2, dim=-1).values
+    scale = float(logits.abs().max())
+    plain, _, cache, _, _, _, top_lps = decode_loop(params, cfg, first, torch.full((b,), n, device=dev), cache,
+                                                   None, SPEC_NEW, temperature=0.0, n_logprobs=2)
+    gaps = torch.cat([top0[:, :1] - top0[:, 1:], top_lps[:, :-1, 0] - top_lps[:, :-1, 1]], 1).tolist()
+    plain = plain.tolist()
+    del cache
+    _, cache = prefilled()
+    frozen = (cache.k[:, -1].clone(), cache.v[:, -1].clone())
+    hist = torch.zeros(b, s_max, dtype=torch.int64)
+    hlen = torch.zeros(b, dtype=torch.int64)
+    for lane, (p, g) in enumerate(zip(prompts, plain)):
+        row = p[-2:] + g + p + g[:1]  # ends with the pending token, as the engine's history does
+        hist[lane, :len(row)] = torch.tensor(row)
+        hlen[lane] = len(row)
+    tok, pos, hist, hlen = first, torch.full((b,), n, device=dev), hist.to(dev), hlen.to(dev)
+    active = torch.arange(b, device=dev) < b - 1
+    streams, drafted, accepted, calls = [[] for _ in range(b)], 0, 0, 0
+    with _VerifyProbe(kernels_mod) as probe:
+        while min(len(x) for x in streams[:-1]) < SPEC_NEW and calls < 2 * SPEC_NEW:
+            outs, ocnt, tok, pos, cache, hist, hlen, active, dr, ac = spec_decode_rounds(
+                params, cfg, tok, pos, cache, hist, hlen, engine._eos_tensor(), active, rounds, gamma, ngram)
+            host = torch.cat([outs, torch.stack([ocnt, active.long(), dr, ac], 1)], 1).tolist()  # one read-back
+            calls += 1
+            for lane, row in enumerate(host):
+                streams[lane] += row[:row[-4]]
+                drafted, accepted = drafted + row[-2], accepted + row[-1]
+            if not any(row[-3] for row in host):
+                break
+    verifies = probe.check("seeded spec_decode_rounds", cfg.n_layers, gamma + 1, "kv_store",
+                           -(-drafted // (gamma * (b - 1))))
+    if not (torch.equal(cache.k[:, -1], frozen[0]) and torch.equal(cache.v[:, -1], frozen[1])):
+        raise AssertionError("seeded spec_decode_rounds: the frozen lane's K/V rows changed")
+    out = dict(drafted=drafted, accepted=accepted, acceptance=accepted / max(drafted, 1), calls=calls,
+               tokens_per_verify=(accepted + drafted / gamma) / max(drafted / gamma, 1), verify_launches=verifies)
+    log(f"  seeded spec_decode_rounds, batch 8 (lane 7 frozen): {drafted} drafted, {accepted} accepted "
+        f"({out['acceptance']:.3f}), {out['tokens_per_verify']:.2f} tokens a lane's verify, {calls} read-backs; "
+        f"the frozen lane's K/V rows unchanged")
+    if accepted <= 0 or any(len(x) < SPEC_NEW for x in streams[:-1]) or streams[-1]:
+        raise AssertionError(f"seeded spec_decode_rounds: {accepted} accepted, streams of "
+                             f"{[len(x) for x in streams]} tokens")
+    out["equal_prefix"] = [_tie_prefix(f"seeded lane {lane}", streams[lane][:SPEC_NEW], plain[lane], gaps[lane],
+                                       TOL * scale) for lane in range(b - 1)]
+    out["teacher_forced"] = [_teacher_force(torch, engine, f"seeded lane {lane}", prompts[lane],
+                                            streams[lane][:SPEC_NEW]) for lane in range(b - 1)]
+    return out
+
+
+def _spec_generate(torch, engine, kernels_mod, draft_path, ids) -> tuple[dict, dict]:
+    """Batch 1, greedy, on the prompt `ids`: plain greedy
+    (the reference, and timed), then speculative="ngram", "draft" (the
+    2-layer copy of model A's widths and vocabulary at `draft_path`) and
+    "draft" with model A as its own draft (the acceptance machinery's upper
+    bound: a random-weight model agrees with no other), then a sampled
+    ngram request (temperature 0.8). Each greedy stream may part from plain
+    greedy only at a near-tie (gap < TOL x the logit scale), and every one
+    of its tokens holds under teacher forcing (`_teacher_force`). The
+    launch counts are zeroed just before the timed
+    speculative requests and read just after (the plain runs, the draft's
+    load and the warm-ups stay outside): each verify forward's own launches
+    (`_VerifyProbe`), and K4's in all equal n_layers a verify plus the
+    prefills'. Returns (results, the window's launches)."""
+    from nfai_tpu_torch.config import SamplingParams
+    from nfai_tpu_torch.runtime.engine import GenerationMetrics
+
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=SPEC_NEW)
+    sampled = SamplingParams(temperature=0.8, top_k=40, seed=3, max_new_tokens=64)
+    m = GenerationMetrics()
+    plain = list(engine.generate(ids, dataclasses.replace(greedy, logprobs=2), metrics=m))
+    entries = m.logprobs
+    scale = float(engine.prefill(engine.new_cache(1), ids)[0].abs().max())
+    margin = TOL * scale
+    walls = []
+    for _ in range(2):  # the second is timed
+        pm = GenerationMetrics()
+        _sync(torch)
+        t0 = time.perf_counter()
+        list(engine.generate(ids, greedy, metrics=pm))
+        _sync(torch)
+        walls.append(time.perf_counter() - t0)
+    out = {"prompt_tokens": len(ids), "plain": dict(tokens=pm.new_tokens, wall_s=walls[-1],
+                                                     tok_s=pm.new_tokens / walls[-1],
+                                                     decode_tok_s=pm.decode_tokens_per_s),
+           "logit_scale": scale, "tie_margin": margin}
+    log(f"  plain greedy, batch 1, {len(ids)}-token prompt: {pm.new_tokens} tokens in {walls[-1]:.3f} s = "
+        f"{pm.new_tokens / walls[-1]:.1f} tok/s (decode {pm.decode_tokens_per_s:.1f})")
+    gamma, n_layers = engine.config.spec_tokens, engine.model_cfg.n_layers
+    engines = {"ngram": _with_config(engine, speculative="ngram"),
+               "draft": _with_config(engine, speculative="draft", draft_gguf=str(draft_path)),
+               "draft (self)": _with_config(engine, speculative="draft", draft_gguf=str(draft_path))}
+    t0 = time.perf_counter()
+    draft = engines["draft"].draft_engine  # loaded on first use
+    out["draft_load_s"] = time.perf_counter() - t0
+    engines["draft (self)"]._draft_engine = engine  # model A drafts for itself
+    k4_prefill = {"A": _prefill_k4(kernels_mod, engine, ids), "draft": _prefill_k4(kernels_mod, draft, ids)}
+    runs = [(label, greedy) for label in engines] + [("ngram", sampled)]
+    for label, sp in runs:  # warm-ups, outside the window
+        list(engines[label].generate(ids, sp))
+    got, metrics, walls, k4_want = {}, {}, {}, 0
+    kernels_mod.reset_launches()
+    with _VerifyProbe(kernels_mod) as probe:
+        for label, sp in runs:
+            key = label if sp is greedy else "ngram_sampled"
+            metrics[key] = GenerationMetrics()
+            _sync(torch)
+            t0 = time.perf_counter()
+            got[key] = list(engines[label].generate(ids, sp, metrics=metrics[key]))
+            _sync(torch)
+            walls[key] = time.perf_counter() - t0
+            k4_want += k4_prefill["A"] + (k4_prefill["draft"] if label == "draft" else 0) + (
+                k4_prefill["A"] if label == "draft (self)" else 0)
+    window = _check_route(kernels_mod, "A spec", "model A's speculative generate (timed runs)")
+    drafted = sum(mm.spec_drafted for mm in metrics.values())
+    out["verify_launches"] = probe.check("A spec", n_layers, gamma + 1, "kv_store", -(-drafted // gamma))
+    k4_want += n_layers * len(probe.calls)
+    if window["prefill_attention"] != k4_want:
+        raise AssertionError(f"A spec: K4 launched {window['prefill_attention']} times, not {k4_want} "
+                             f"({n_layers} a verify forward and the prefills' {k4_prefill})")
+    log(f"  A spec: K4 launched {window['prefill_attention']} times = {n_layers} x {len(probe.calls)} verify "
+        f"forwards + the prefills' ({k4_prefill} a prefill)")
+    for label in engines:
+        sm, toks, wall = metrics[label], got[label], walls[label]
+        tie, gap = _tie_prefix(f"speculative={label!r} greedy", toks, plain, _gaps(entries), margin)
+        forced = _teacher_force(torch, engine, f"speculative={label!r} greedy", ids, toks)
+        verifies = sm.spec_drafted / gamma
+        res = dict(tokens=len(toks), wall_s=wall, tok_s=len(toks) / wall, drafted=sm.spec_drafted,
+                   accepted=sm.spec_accepted, acceptance=sm.spec_accepted / max(sm.spec_drafted, 1),
+                   verify_forwards=verifies, tokens_per_verify=(sm.spec_accepted + verifies) / max(verifies, 1),
+                   equal_prefix=tie, tie_gap=gap, teacher_forced=forced,
+                   speedup=(len(toks) / wall) / out["plain"]["tok_s"])
+        out[label] = res
+        log(f"  speculative={label!r}, batch 1: {len(toks)} tokens in {wall:.3f} s = {res['tok_s']:.1f} tok/s "
+            f"(x{res['speedup']:.2f} plain); {sm.spec_drafted} drafted, {sm.spec_accepted} accepted "
+            f"({res['acceptance']:.3f}); {verifies:.0f} verify forwards, {res['tokens_per_verify']:.2f} "
+            f"tokens a verify")
+        if sm.spec_drafted <= 0:
+            raise AssertionError(f"speculative={label!r} drafted nothing")
+    sm = metrics["ngram_sampled"]
+    if not got["ngram_sampled"] or sm.spec_drafted <= 0:
+        raise AssertionError(f"sampled speculation: {len(got['ngram_sampled'])} tokens, {sm.spec_drafted} drafted")
+    out["ngram_sampled"] = dict(tokens=len(got["ngram_sampled"]), drafted=sm.spec_drafted,
+                                accepted=sm.spec_accepted)
+    log(f"  speculative='ngram' at temperature 0.8: {len(got['ngram_sampled'])} tokens, {sm.spec_drafted} "
+        f"drafted, {sm.spec_accepted} accepted (rejection sampling)")
+    return out, window
+
+
+def _verify_case(torch, engine, b, t, dev, seed):
+    """A batch-b cache after 128-token prompts on `dev`, and a verify of t
+    tokens a row at ragged positions (at b > 1 the last lane frozen):
+    (prompts, cache, tin, pos, act), made from one seed on every device."""
+    from nfai_tpu_torch.models import prefill_step
+
+    gen = torch.Generator().manual_seed(seed)
+    prompts = torch.randint(300, 5000, (b, 128), generator=gen).to(dev)
+    cache = engine.new_cache(b)
+    _, cache = prefill_step(engine.params, engine.model_cfg, prompts,
+                            torch.arange(128, device=dev)[None].expand(b, 128),
+                            torch.full((b,), 127, device=dev), cache)
+    tin = torch.randint(300, 5000, (b, t), generator=gen).to(dev)
+    pos = torch.tensor([128 - 5 * (i % 4) for i in range(b)], device=dev)
+    act = torch.ones(b, dtype=torch.bool, device=dev)
+    act[-1] = b == 1
+    return prompts, cache, tin, pos, act
+
+
+def _held(name, rel, tol) -> float:
+    log(f"  {name}: rel err {rel:.3e} (worst row; limit {tol:g})")
+    if not rel <= tol:
+        raise AssertionError(f"{name}: rel err {rel:.3e} exceeds {tol:g}")
+    return rel
+
+
+def _verify_shapes(torch, engine, a_path, copy_path) -> dict:
+    """The verify forward (`_verify_forward`, T = spec_tokens + 1) at batch
+    1 and 8 after 128-token prompts, ragged positions, at batch 8 one lane
+    frozen: no host sync, the frozen lane's cache rows unchanged, finite
+    logits, its device ms against one decode step's (the profiler's
+    tally). Its logits against three other computations of the same rows
+    (worst row of max|a - b| / max|b|): on model A at batch 1, the card's
+    decode steps (the same tokens one step at a time) and one prefill chunk
+    of prompt + tokens, each within PATH_TOL of the others, and the CPU's
+    f32 forward with the weights dequantized exactly at load, each route
+    within EXACT_TOL of it and the verify within EXACT_RATIO of the decode
+    steps' distance (the witness of where the card's routes part: each
+    rounds in bf16, and that grows over the layers); at batch 8 the decode
+    steps within PATH_TOL; on the 2-layer copy at `copy_path` the verify
+    and the decode steps against the CPU's f32 plain versions, the same
+    way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.models import decode_step
+    from nfai_tpu_torch.models.llama import _verify_forward, verify_step
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    t = engine.config.spec_tokens + 1
+    torch.set_num_threads(os.cpu_count() or 8)
+    t0 = time.perf_counter()
+    cpu = {"A": InferenceEngine(a_path, EngineConfig(max_seq_len=1024, dtype="float32", param_dtype="float32"),
+                                device="cpu"),
+           "2-layer copy": InferenceEngine(copy_path, EngineConfig(max_seq_len=1024, dtype="float32"),
+                                           device="cpu")}
+    out = {"cpu_load_s": time.perf_counter() - t0}
+    copy_card = InferenceEngine(copy_path, EngineConfig(max_seq_len=1024), device="cuda")
+    for b in (1, 8):
+        for name, e in (("A", engine), ("2-layer copy", copy_card)):
+            cfg = e.model_cfg
+            prompts, cache, tin, pos, act = _verify_case(torch, e, b, t, "cuda", seed=b)
+            frozen = cache.k[:, -1].clone()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits = _verify_forward(e.params, cfg, tin, pos, act, cache, None)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if b > 1 and not torch.equal(cache.k[:, -1], frozen):
+                raise AssertionError(f"{name}: the verify forward wrote K/V rows of a frozen lane")
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{name}: the verify forward's logits are not finite")
+            live = slice(0, b if b == 1 else b - 1)
+            steps = []
+            for j in range(t):  # the same tokens, one decode step each (the frozen lane past the cache)
+                p = torch.where(act, pos + j, torch.full_like(pos, cache.max_seq))
+                steps.append(decode_step(e.params, cfg, tin[:, j], p, cache)[0])
+            routes = {"verify": logits[live], "decode steps": torch.stack(steps, 1)[live]}
+            res = out.setdefault(f"{name} B={b}", {})
+            tag = f"{name} B={b} T={t}"
+            if name == "A" and b == 1:  # one prefill chunk of prompt + tokens: its last t rows
+                whole = torch.cat([prompts, tin], 1)
+                routes["prefill chunk"] = verify_step(e.params, cfg, whole, torch.arange(whole.shape[1],
+                                                      device="cuda")[None], e.new_cache(1))[0][:, -t:]
+            pairs = [(a, c) for i, a in enumerate(routes) for c in list(routes)[i + 1:]]
+            for a, c in pairs if name == "A" else ():
+                res[f"{a} vs {c}"] = _held(f"{tag} {a} against {c}", errors(routes[a], routes[c], 2)[1],
+                                           PATH_TOL)
+            if b == 1 or name != "A":  # the CPU's f32 forward of the same case
+                ce = cpu[name]
+                _, ccache, ctin, cpos, cact = _verify_case(torch, ce, b, t, "cpu", seed=b)
+                want = _verify_forward(ce.params, ce.model_cfg, ctin, cpos, cact, ccache, None)[live]
+                for r, got in routes.items():
+                    res[f"{r} vs cpu f32"] = _held(f"{tag} {r} against the CPU's f32", errors(got, want, 2)[1],
+                                                   EXACT_TOL[cfg.n_layers])
+                ratio = res["verify vs cpu f32"] / res["decode steps vs cpu f32"]
+                log(f"  {tag}: the verify {ratio:.3f} times as far from the CPU's f32 as the decode steps "
+                    f"(limit {EXACT_RATIO:g})")
+                if not ratio <= EXACT_RATIO:
+                    raise AssertionError(f"{tag}: the verify is {ratio:.3f} times as far from the CPU's f32 "
+                                         f"forward as the decode steps")
+                del ccache, want
+            if name != "A":
+                continue
+            walls, ms = {}, {}
+            for kind, fn in (("verify", lambda: _verify_forward(e.params, cfg, tin, pos, act, cache, None)),  # noqa: B023
+                             ("decode", lambda: decode_step(e.params, cfg, tin[:, 0], pos, cache))):  # noqa: B023
+                for _ in range(2):
+                    fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(3):
+                        fn()
+                    torch.cuda.synchronize()
+                    walls[kind] = (time.perf_counter() - t0) * 1e3 / 3
+                ms[kind] = sum(v for v, _ in _kernel_table(prof).values()) / 3
+                if ms[kind] <= 0:
+                    raise AssertionError("the profiler saw no device time")
+            res.update(verify_device_ms=ms["verify"], decode_device_ms=ms["decode"], verify_wall_ms=walls["verify"],
+                       decode_wall_ms=walls["decode"], verify_over_decode=ms["verify"] / ms["decode"])
+            log(f"  verify forward B={b} T={t}: device {ms['verify']:.3f} ms (wall {walls['verify']:.2f}) against one "
+                f"decode step {ms['decode']:.3f} ms (wall {walls['decode']:.2f}): x{ms['verify'] / ms['decode']:.2f} "
+                f"for {t} tokens a row")
+            del cache, routes
+    del cpu, copy_card
+    return out
+
+
+def _spec_batch_engine(torch, engine, kernels_mod, prompts) -> tuple[dict, dict]:
+    """The paged BatchEngine at batch 8 with speculative="ngram" on
+    `prompts`: four greedy slots and four sampled at temperature 0.8
+    speculate together. The
+    launch counts are zeroed just before and read just after, with each
+    verify forward's own (`_VerifyProbe`). Then, outside that window, each
+    greedy slot against plain greedy generate (parting only at a near-tie)
+    and under teacher forcing. Returns (results, the window's launches)."""
+    from nfai_tpu_torch.config import SamplingParams
+    from nfai_tpu_torch.runtime.engine import GenerationMetrics
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine, RequestState
+
+    sampling = [SamplingParams(temperature=0.0, max_new_tokens=64)] * 4 + [
+        SamplingParams(temperature=0.8, top_k=40, max_new_tokens=64, seed=i) for i in range(4)]
+    be = BatchEngine(_with_config(engine, speculative="ngram"), max_batch=8, decode_chunk=8, paged=True)
+    kernels_mod.reset_launches()
+    with _VerifyProbe(kernels_mod) as probe:
+        _sync(torch)
+        t0 = time.perf_counter()
+        reqs = [be.submit(p, s) for p, s in zip(prompts, sampling)]
+        _drive(be, reqs)
+        _sync(torch)
+        wall = time.perf_counter() - t0
+    window = _check_route(kernels_mod, "A spec server", "model A's speculative BatchEngine")
+    if any(r.state != RequestState.FINISHED or not r.output_ids for r in reqs) or be.spec_drafted <= 0:
+        raise AssertionError(f"spec BatchEngine: {[(r.state, len(r.output_ids)) for r in reqs]}, "
+                             f"{be.spec_drafted} drafted, {be.spec_accepted} accepted")
+    gamma = engine.config.spec_tokens
+    n_out = sum(len(r.output_ids) for r in reqs)
+    out = dict(wall_s=wall, tokens=n_out, tok_s=n_out / wall, drafted=be.spec_drafted, accepted=be.spec_accepted,
+               acceptance=be.spec_accepted / be.spec_drafted,
+               verify_launches=probe.check("A spec server", engine.model_cfg.n_layers, gamma + 1,
+                                           "kv_store_paged", -(-be.spec_drafted // (gamma * 8))))
+    log(f"  BatchEngine speculative='ngram' (paged, batch 8: 4 greedy, 4 at temperature 0.8): {n_out} tokens in "
+        f"{wall:.2f} s = {n_out / wall:.1f} tok/s; {be.spec_drafted} drafted, {be.spec_accepted} accepted "
+        f"({out['acceptance']:.3f})")
+    scale = float(engine.prefill(engine.new_cache(1), prompts[0])[0].abs().max())
+    ties, forced = [], []
+    for i, (p, r) in enumerate(zip(prompts[:4], reqs)):
+        m = GenerationMetrics()
+        plain = list(engine.generate(p, SamplingParams(temperature=0.0, max_new_tokens=64, logprobs=2), metrics=m))
+        ties.append(_tie_prefix(f"BatchEngine speculative slot {i}", r.output_ids, plain, _gaps(m.logprobs),
+                                TOL * scale))
+        forced.append(_teacher_force(torch, engine, f"BatchEngine speculative slot {i}", p, r.output_ids))
+    out.update(greedy_equal_prefix=ties, teacher_forced=forced)
+    return out, window
+
+
+def phase_spec(torch, engine, kernels_mod, a_path) -> tuple[dict, dict]:
+    """Speculative decoding on model A's engine (GGUF at `a_path`): "A
+    spec" (generate with speculative="ngram" and "draft" at batch 1 against
+    plain greedy, a sampled request; its window holds the timed speculative
+    requests only), "A spec server" (the paged BatchEngine at batch 8 with
+    greedy and sampled slots speculating together), then outside every
+    window `spec_decode_rounds` with seeded lookup histories (its accepted
+    drafts at full width) and the verify forward's shapes against other
+    routes and the CPU (`_verify_shapes`). The draft is
+    `make_llama_1b_gguf(kind="q4_k", n_layers=2)`: model A's widths and
+    vocabulary, 2 layers. Returns (results, launches by path)."""
+    from nfai_tpu_torch.testing import make_llama_1b_gguf
+
+    out, paths = {}, {}
+    t0 = time.perf_counter()
+    draft = make_llama_1b_gguf(os.path.join(os.path.dirname(a_path), "llama1b_2l_draft.gguf"), kind="q4_k",
+                               n_layers=2)
+    out["draft_write_s"] = time.perf_counter() - t0
+    prompts = _rotations(engine)
+    out["generate"], paths["A spec"] = _spec_generate(torch, engine, kernels_mod, draft, prompts[0])
+    out["batch_engine"], paths["A spec server"] = _spec_batch_engine(torch, engine, kernels_mod, prompts)
+    out["seeded_rounds"] = _seeded_rounds(torch, engine, kernels_mod)
+    out["verify"] = _verify_shapes(torch, engine, a_path, draft)
+    os.remove(draft)
+    return out, paths
+
+
+# ---------------------------------------------------------------------------
 
 
 # kernels each main path must launch, and those its route must not
@@ -3324,6 +4078,15 @@ ROUTES = {
 # generate and ChatSession on A's and A8's dense caches, the BatchEngine and
 # the HTTP server on A's page pool
 ROUTES.update({"A options": ROUTES["A"], "A8 options": ROUTES["A8"], "A options server": ROUTES["server"]})
+# constrained and speculative decoding run A's routes too: generate, the
+# draft model's decode steps and the verify forwards (the store's chunk mode
+# and K4 at T = spec_tokens + 1) on the dense cache; the BatchEngine's
+# one-step constrained chunks on the page pool (K7), its speculative steps
+# through the paged store and K4 on the gathered pages (a step that only
+# speculates runs no K7)
+ROUTES.update({"A constrained": ROUTES["A"], "A constrained server": ROUTES["server"], "A spec": ROUTES["A"],
+               "A spec server": ({"q4_matmul", "prefill_attention", "fused_mlp", "kv_store_paged"},
+                                 {"decode_attention", "kv_store", "q8_matmul", "grouped_q4", "grouped_q8"} | INT8)})
 for _path, (_must, _must_not) in ROUTES.items():
     _must_not |= OLD_WRITES
     if not _path.startswith("E"):
@@ -3342,6 +4105,10 @@ VARIANTS = {
     "A options": {"kv_store": ("bf16 D=64",)},
     "A8 options": {"kv_store": ("int8 D=64",)},
     "A options server": {"kv_store_paged": ("bf16 D=64",)},
+    "A constrained": {"kv_store": ("bf16 D=64",)},
+    "A constrained server": {"kv_store_paged": ("bf16 D=64",)},
+    "A spec": {"kv_store": ("bf16 D=64",)},
+    "A spec server": {"kv_store_paged": ("bf16 D=64",)},
     "A eval": {"kv_store": ("bf16 D=64", "int8 D=64")},
     "G": {"decode_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS,
           "kv_store": ("bf16 D=256",)},
@@ -3477,9 +4244,10 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
         f"in {time.perf_counter() - t0:.1f}s")
     by_path = _drive_model(torch, kernels_mod, label, path, only, summary, phase_s)
     if label in ("A", "E"):
-        log(f"model {label}8 ({kind}, kv_dtype int8): a second engine on model {label}'s GGUF")
-        by_path.update(_drive_model(torch, kernels_mod, f"{label}8", path, only, summary, phase_s,
-                                    "int8"))
+        if {"serve", "batch", "profile", "server", "options"} & set(only):  # not for constrained/spec alone
+            log(f"model {label}8 ({kind}, kv_dtype int8): a second engine on model {label}'s GGUF")
+            by_path.update(_drive_model(torch, kernels_mod, f"{label}8", path, only, summary, phase_s,
+                                        "int8"))
     os.remove(path)
     return by_path
 
@@ -3589,6 +4357,16 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
         t0 = time.perf_counter()
         summary["eval"], by_path["A eval"] = phase_eval(torch, engine, kernels_mod, os.path.dirname(path))
         phase_s["eval"] = time.perf_counter() - t0
+    if label == "A" and "constrained" in only:  # on the engine already loaded
+        t0 = time.perf_counter()
+        summary["constrained"], paths = phase_constrained(torch, engine, kernels_mod)
+        by_path.update(paths)
+        phase_s["constrained"] = time.perf_counter() - t0
+    if label == "A" and "spec" in only:
+        t0 = time.perf_counter()
+        summary["spec"], paths = phase_spec(torch, engine, kernels_mod, path)
+        by_path.update(paths)
+        phase_s["spec"] = time.perf_counter() - t0
     if label in ("C", "G", "D", "E") and "server" in only:
         t0 = time.perf_counter()
         kernels_mod.reset_launches()
@@ -3665,9 +4443,10 @@ def main(argv=None) -> int:
             kern = phase_kernels(torch, timer, subset)
             phase_s["kernels"] = time.perf_counter() - t0
         launches = None
-        if not {"serve", "batch"} & set(only) and {"options", "eval"} & set(only):
-            models = {m: k for m, k in models.items() if m == "A"}  # they run on A's (and A8's) engines
-        if {"serve", "batch", "options", "eval"} & set(only):
+        engine_phases = {"options", "eval", "constrained", "spec"}  # they run on A's (and A8's) engines
+        if not {"serve", "batch"} & set(only) and engine_phases & set(only):
+            models = {m: k for m, k in models.items() if m == "A"}
+        if {"serve", "batch"} & set(only) or engine_phases & set(only):
             by_path = {}
             for label, kind in models.items():
                 by_path.update(main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s))

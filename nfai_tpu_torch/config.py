@@ -33,7 +33,7 @@ class SamplingParams:
     # token-by-token (the vocab mask depends on every accepted token),
     # bypassing the fused decode chunks.
     response_format: str | None = None
-    # structured-output extensions (see nfai_tpu.grammar): a GBNF grammar
+    # structured-output extensions (see nfai_tpu_torch.grammar): a GBNF grammar
     # (llama.cpp format), a full-match regex, or a JSON Schema the output
     # must conform to. At most one of grammar/regex/json_schema applies;
     # any of them puts the request on the constrained path.
@@ -80,7 +80,8 @@ class EngineConfig:
     page_size: int = 128  # KV cache page granularity
     prefill_chunk: int = 256  # prompt chunking bucket for jit shape stability
     decode_chunk: int = 32  # tokens generated per on-device fused decode call
-    # speculative decoding (greedy paths): "off" | "ngram" | "draft".
+    # speculative decoding (greedy and sampled requests): "off" | "ngram" |
+    # "draft"; any other value is a ValueError at engine start.
     # "ngram" = prompt-lookup self-drafting (no draft model, drafts come
     # from the most recent n-gram match in the prompt + generated text);
     # "draft" = a second, smaller GGUF model proposes tokens (set
@@ -118,10 +119,3 @@ class EngineConfig:
     expert_parallel: bool = False
     system_prompt: str = "You are a helpful assistant."
 
-
-def check_sampling(s: SamplingParams) -> None:
-    """Raise NotImplementedError for the sampling option the port does not
-    run yet, constrained decoding (grammar, regex, JSON), naming it (the
-    engine and the BatchEngine both refuse it)."""
-    if s.constrained:
-        raise NotImplementedError("sampling options not ported yet: ['constrained decoding']")

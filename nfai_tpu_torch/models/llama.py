@@ -79,8 +79,22 @@ its own container, where a stack mixes kinds). The cache is updated in
 place. `decode_loop` is a Python loop over steps (the JAX version is one
 jitted scan; capturing the step as a CUDA graph is later work). It takes
 the JAX `decode_loop`'s OpenAI options (a logit-bias table, presence and
-frequency penalties over carried output counts, logprobs) as plain
-PyTorch on the step's logits, with no host read.
+frequency penalties over carried output counts, logprobs) and a
+constrained request's vocabulary mask (`allowed_mask`) as plain PyTorch on
+the step's logits, with no host read.
+
+Speculative decoding (`verify_step`, `spec_decode_rounds` with the
+on-device prompt-lookup drafter `_ngram_draft_device`, and
+`draft_spec_rounds` with a draft model) verifies gamma drafts in one
+forward of T = gamma + 1 tokens a row: on the dense cache the store's
+chunk mode and K4 at each row's own offset, on the pool the paged store
+and K4 over the gathered pages. The rounds run as a Python loop of device
+work with no host read, one read-back a call. A lane that takes no part in
+a round (frozen: it hit EOS, ran out of room, or holds no request) writes
+no K/V row: on the dense cache it is given positions from the cache's
+length on, which the store drops (the JAX functions feed it at its frozen
+position, which writes that row; in the JAX BatchEngine that is row 0 of a
+lane that is mid-prefill); on the pool its table is the sink page's.
 
 Two opt-ins of the JAX package are read from the same environment
 variables at the same points, with no config field, as there:
@@ -148,7 +162,9 @@ from ..ops.rope import (
     apply_rope_cs, compute_inv_freq, inv_freq_from_factors, norm_to_neox_perm,
     rope_cos_sin,
 )
-from ..ops.sampling import apply_logit_bias, apply_penalties, sample_logits, token_logprobs
+from ..ops.sampling import (
+    apply_logit_bias, apply_penalties, sample_logits, spec_verify_sample, token_logprobs,
+)
 from ..runtime.paged_cache import PagedKVCache
 
 
@@ -977,11 +993,12 @@ def decode_step(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 
 def _decode_chunk(params, cfg, tok, pos, cache, page_tables, generator, n_steps,
                   temperature, top_k, top_p, min_p, active, top_k_rows, bias_ids=None,
-                  bias_vals=None, presence=None, frequency=None, counts=None, n_logprobs=None):
+                  bias_vals=None, presence=None, frequency=None, counts=None, n_logprobs=None,
+                  allowed_mask=None):
     """The shared body of `decode_loop` and `paged_decode_loop`. Per step:
-    logits → bias → penalties → sample → logprobs of the sampled token from
-    those same logits; `counts` grow on active rows only. Nothing is read
-    back to the host."""
+    logits → bias → penalties → vocabulary mask → sample → logprobs of the
+    sampled token from those same logits; `counts` grow on active rows
+    only. Nothing is read back to the host."""
     out, lps = [], []
     if counts is not None:
         counts = counts.clone()  # the caller's tensor stays as it was (the JAX contract)
@@ -994,6 +1011,8 @@ def _decode_chunk(params, cfg, tok, pos, cache, page_tables, generator, n_steps,
         if counts is not None:
             logits = apply_penalties(logits, counts, 0.0 if presence is None else presence,
                                      0.0 if frequency is None else frequency)
+        if allowed_mask is not None:  # a constrained row's illegal continuations
+            logits = logits.masked_fill(~allowed_mask, float("-inf"))
         nxt = sample_logits(logits, generator, temperature, top_k, top_p,
                             min_p=min_p, top_k_rows=top_k_rows).to(tok.dtype)
         out.append(tok)
@@ -1020,7 +1039,7 @@ def decode_loop(params: dict, cfg: LlamaConfig, first_tokens: torch.Tensor,
                 top_k_rows: torch.Tensor | None = None,
                 bias_ids: torch.Tensor | None = None, bias_vals: torch.Tensor | None = None,
                 presence=None, frequency=None, counts: torch.Tensor | None = None,
-                n_logprobs: int | None = None):
+                n_logprobs: int | None = None, allowed_mask: torch.Tensor | None = None):
     """Generate `n_steps` tokens on the device without a host sync per token.
 
     temperature, top_p and min_p are scalars or per-row [B]; `top_k_rows`
@@ -1037,10 +1056,14 @@ def decode_loop(params: dict, cfg: LlamaConfig, first_tokens: torch.Tensor,
     counts to the returns; `n_logprobs` (0 = the chosen token only) adds
     (chosen_lp [B, n_steps], top_ids [B, n_steps, k], top_lps [B, n_steps,
     k]), k = max(n_logprobs, 1), where step j describes the token it
-    sampled: toks[:, j + 1], and next_tokens for the last step."""
+    sampled: toks[:, j + 1], and next_tokens for the last step.
+    `allowed_mask` [B, V] bool (constrained decoding: the caller runs one
+    step a chunk and recomputes it on the host between chunks) sends every
+    False entry to -inf after the bias and the penalties, before the sample
+    and the logprobs, which then describe the masked distribution."""
     return _decode_chunk(params, cfg, first_tokens, start_pos, cache, None, generator,
                          n_steps, temperature, top_k, top_p, min_p, active, top_k_rows,
-                         bias_ids, bias_vals, presence, frequency, counts, n_logprobs)
+                         bias_ids, bias_vals, presence, frequency, counts, n_logprobs, allowed_mask)
 
 
 @torch.inference_mode()
@@ -1052,13 +1075,219 @@ def paged_decode_loop(params: dict, cfg: LlamaConfig, first_tokens: torch.Tensor
                       top_k_rows: torch.Tensor | None = None,
                       bias_ids: torch.Tensor | None = None, bias_vals: torch.Tensor | None = None,
                       presence=None, frequency=None, counts: torch.Tensor | None = None,
-                      n_logprobs: int | None = None):
+                      n_logprobs: int | None = None, allowed_mask: torch.Tensor | None = None):
     """`decode_loop` over the page pool: K/V rows are stored through the
     block tables [B, max_pages] int32 (sent once per chunk) and every layer
     attends with K7. Same returns and sampling arguments as `decode_loop`."""
     return _decode_chunk(params, cfg, first_tokens, start_pos, cache, tables, generator,
                          n_steps, temperature, top_k, top_p, min_p, active, top_k_rows,
-                         bias_ids, bias_vals, presence, frequency, counts, n_logprobs)
+                         bias_ids, bias_vals, presence, frequency, counts, n_logprobs, allowed_mask)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding
+
+
+@torch.inference_mode()
+def verify_step(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, positions: torch.Tensor,
+                cache: KVCache):
+    """Speculative verification (the JAX `verify_step`): T candidate tokens
+    [B, T] (the first the committed next token) at positions [B, T] in ONE
+    forward; returns (f32 logits at every position [B, T, V], cache). The
+    K/V of all T candidates are written; a rejected candidate's rows are
+    overwritten by later steps, and attention masks by position, so they
+    are never seen."""
+    h, cache = forward(params, cfg, tokens, positions, cache)
+    return logits_for(params, h, cfg), cache
+
+
+def _ngram_draft_device(hist: torch.Tensor, hlen: torch.Tensor, n: int, gamma: int):
+    """On-device prompt-lookup draft (the JAX `_ngram_draft_device`): the
+    most recent position of hist [B, S] (entries 0 .. hlen[b] - 1 valid,
+    the pending token last) whose n-gram equals the trailing n-gram; the
+    `gamma` tokens after it are the draft. Returns (draft [B, gamma],
+    found [B]). On a miss, or where the continuation runs past the
+    history, the draft repeats the last token (the verify rejects a bad
+    draft: a miss costs acceptance only)."""
+    b, s = hist.shape
+    dev = hist.device
+    hlen = hlen.to(device=dev, dtype=torch.int64)
+    qidx = hlen[:, None] + torch.arange(-n, 0, device=dev)[None]
+    q = torch.gather(hist, 1, qidx.clamp(0, s - 1))  # [B, n]
+    hp = torch.cat([hist, torch.full((b, n), -1, dtype=hist.dtype, device=dev)], dim=1)  # -1 matches nothing
+    win = torch.stack([hp[:, i:i + s] for i in range(n)], dim=-1)  # [B, S, n]
+    match = (win == q[:, None, :]).all(-1)
+    posr = torch.arange(s, device=dev)[None]
+    valid = match & (posr < hlen[:, None] - n)  # the query itself is left out
+    best = torch.where(valid, posr, -1).amax(1)
+    found = (best >= 0) & (hlen >= n + 1)
+    didx = best[:, None] + n + torch.arange(gamma, device=dev)[None]
+    last = torch.gather(hist, 1, (hlen[:, None] - 1).clamp(0, s - 1))
+    cont = torch.gather(hist, 1, didx.clamp(0, s - 1))
+    draft = torch.where(found[:, None] & (didx < hlen[:, None]), cont, last)
+    return draft, found
+
+
+def _is_eos(x: torch.Tensor, eos_ids: torch.Tensor) -> torch.Tensor:
+    return (x[..., None] == eos_ids).any(-1)
+
+
+def _verify_forward(params, cfg, tin, pos, act, cache, page_tables):
+    """The verify forward of one round: tin [B, T] at pos[b] + t on the
+    active rows. A frozen row writes no K/V row: on the dense cache it runs
+    at positions from the cache's length on (the store drops them; K4 and
+    the rope take them), through the pool on the sink page (its table all
+    zeros, positions 0 .. T - 1). Returns f32 logits [B, T, V]."""
+    t = tin.shape[1]
+    jt = torch.arange(t, device=tin.device)[None]
+    if page_tables is None:
+        posv = torch.where(act[:, None], pos[:, None] + jt, cache.max_seq + jt)
+        tables = None
+    else:
+        posv = torch.where(act[:, None], pos[:, None] + jt, jt)
+        tables = torch.where(act[:, None], page_tables, torch.zeros_like(page_tables))
+    h, _ = forward(params, cfg, tin, posv, cache, tables)
+    return logits_for(params, h, cfg)
+
+
+def _accept(logits3, draft, generator, temps, top_k, top_ps, top_k_rows, min_ps):
+    """(n_acc [B], new_tok [B]) of one verify: the argmax-prefix rule, or
+    with `temps` rejection sampling (`spec_verify_sample`)."""
+    if temps is not None:
+        return spec_verify_sample(logits3, draft, generator, temps, top_k,
+                                  1.0 if top_ps is None else top_ps, top_k_rows,
+                                  0.0 if min_ps is None else min_ps)
+    nxt = torch.argmax(logits3, dim=-1)  # [B, T]
+    ok = (draft == nxt[:, :-1]).to(torch.int64)
+    n_acc = torch.cumprod(ok, dim=1).sum(1)
+    return n_acc, torch.gather(nxt, 1, n_acc[:, None])[:, 0]
+
+
+def _commit(tin, n_acc, new_tok, tok, act, outs, ocnt, eos_ids):
+    """A round's emitted tokens: tin[:, :n_acc + 1] ([tok] + the accepted
+    drafts), cut before the first EOS (which is not emitted), none on a
+    frozen row; they go to outs [B, n_out + 1] at ocnt (the last column
+    takes the writes that are dropped). Returns (e [B] tokens emitted,
+    hit_eos [B], the next pending token [B])."""
+    t = tin.shape[1]
+    n_out = outs.shape[1] - 1
+    jt = torch.arange(t, device=tin.device)[None]
+    e = n_acc + 1
+    first_eos = torch.where(_is_eos(tin, eos_ids) & (jt < e[:, None]), jt, n_out).amin(1)
+    hit_eos = first_eos < e
+    e = torch.where(act, torch.where(hit_eos, first_eos, e), 0)
+    new_tok = torch.where(act & ~hit_eos, new_tok, tok)
+    oidx = torch.where(jt < e[:, None], ocnt[:, None] + jt, n_out).clamp(max=n_out)
+    outs.scatter_(1, oidx, tin)
+    return e, hit_eos, new_tok
+
+
+def _spec_state(tokens, positions, active, eos_ids, n_out):
+    """The rounds' starting state: int64 tokens and positions, bool active,
+    the EOS ids on the device, and zeroed outs [B, n_out + 1] and counters."""
+    dev = tokens.device
+    zero = torch.zeros(tokens.shape[0], dtype=torch.int64, device=dev)
+    return (tokens.to(torch.int64), positions.to(device=dev, dtype=torch.int64),
+            active.to(device=dev, dtype=torch.bool), eos_ids.to(device=dev, dtype=torch.int64),
+            torch.zeros(tokens.shape[0], n_out + 1, dtype=torch.int64, device=dev),
+            zero, zero.clone(), zero.clone())
+
+
+@torch.inference_mode()
+def spec_decode_rounds(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, positions: torch.Tensor,
+                       cache, hist: torch.Tensor, hist_len: torch.Tensor, eos_ids: torch.Tensor,
+                       active: torch.Tensor, n_rounds: int, gamma: int, ngram: int,
+                       page_tables: torch.Tensor | None = None, generator: torch.Generator | None = None,
+                       temps=None, top_k: int = 64, top_ps=None, top_k_rows=None, min_ps=None):
+    """Prompt-lookup speculative decoding (the JAX `spec_decode_rounds`):
+    `n_rounds` of (on-device n-gram draft → one verify forward of gamma + 1
+    tokens → accept) with no host read; the caller reads the results once.
+
+    tokens [B] are the pending (sampled, not yet emitted) ids at positions
+    [B]; hist [B, S] the history including the pending token, hist_len [B]
+    its valid entries (S bounds the positions: a lane needs room for a whole
+    round); eos_ids [E] (pad with -1); active [B]. With `page_tables`
+    [B, max_pages] the cache is the page pool. Acceptance is the
+    argmax-prefix rule (plain greedy's output exactly), or with `temps` [B]
+    rejection sampling (`spec_verify_sample`, drawing from `generator`;
+    top_k, top_ps, top_k_rows and min_ps as in sampling), under which
+    greedy lanes keep the argmax rule.
+
+    A lane stops when its pending token is EOS, an accepted draft is EOS, or
+    the cache lacks room for a round; it then writes no K/V row (module
+    doc) and its state freezes. Returns (out_tokens [B, n_rounds*(gamma+1)],
+    out_counts [B], next_tokens [B], next_pos [B], cache, hist, hist_len,
+    active [B], drafted [B], accepted [B]): out_tokens[b, :out_counts[b]]
+    are the emitted tokens in order (EOS left out)."""
+    b, s_max = hist.shape
+    t = gamma + 1
+    n_out = n_rounds * t
+    tok, pos, act, eos_ids, outs, ocnt, drafted, accepted = _spec_state(tokens, positions, active,
+                                                                         eos_ids, n_out)
+    dev = tok.device
+    jt = torch.arange(t, device=dev)[None]
+    # one more column takes the history writes that are dropped
+    hist = torch.cat([hist.to(device=dev, dtype=torch.int64),
+                      torch.zeros(b, 1, dtype=torch.int64, device=dev)], dim=1)
+    hlen = hist_len.to(device=dev, dtype=torch.int64)
+    for _ in range(n_rounds):
+        act = act & ~_is_eos(tok, eos_ids) & (pos + t <= s_max)
+        draft, _ = _ngram_draft_device(hist[:, :s_max], hlen, ngram, gamma)
+        tin = torch.cat([tok[:, None], draft], dim=1)
+        logits3 = _verify_forward(params, cfg, tin, pos, act, cache, page_tables)
+        n_acc, new_tok = _accept(logits3, draft, generator, temps, top_k, top_ps, top_k_rows, min_ps)
+        e, hit_eos, new_tok = _commit(tin, n_acc, new_tok, tok, act, outs, ocnt, eos_ids)
+        # the history (which ends with tok) gains [the accepted drafts, the new pending token]
+        entries = torch.cat([tin[:, 1:], torch.zeros_like(tin[:, :1])], dim=1)
+        entries = torch.where(jt == (e - 1)[:, None], new_tok[:, None], entries)
+        write = (act & ~hit_eos)[:, None] & (jt < e[:, None]) & (hlen[:, None] + jt < s_max)
+        hist.scatter_(1, torch.where(write, hlen[:, None] + jt, s_max), entries)
+        drafted += torch.where(act, gamma, 0)
+        accepted += torch.where(act, n_acc, 0)
+        act = act & ~hit_eos
+        tok, pos, hlen, ocnt = new_tok, pos + e, hlen + e, ocnt + e
+    return outs[:, :n_out], ocnt, tok, pos, cache, hist[:, :s_max], hlen, act, drafted, accepted
+
+
+@torch.inference_mode()
+def draft_spec_rounds(params: dict, cfg: LlamaConfig, dparams: dict, dcfg: LlamaConfig,
+                      tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache, dcache: KVCache,
+                      eos_ids: torch.Tensor, active: torch.Tensor, n_rounds: int, gamma: int,
+                      generator: torch.Generator | None = None, temps=None, top_k: int = 64,
+                      top_ps=None, min_ps=None, max_seq: int | None = None):
+    """Draft-model speculative decoding (the JAX `draft_spec_rounds`): per
+    round the draft model rolls out gamma + 1 greedy steps through
+    `decode_step` (the last one stores the last draft's K/V, so the draft
+    cache has no hole after a full acceptance), the target verifies the
+    gamma drafts in one forward, and the accepted prefix commits. Greedy
+    acceptance gives the target's greedy output whatever the draft;
+    `temps` selects rejection sampling against the greedy rollout (a
+    point-mass proposal). `max_seq` bounds the positions (default: the
+    shorter cache). The lane conventions and returns are those of
+    `spec_decode_rounds` without the history: (out_tokens, out_counts,
+    next_tokens, next_pos, cache, dcache, active, drafted, accepted)."""
+    s_max = max_seq if max_seq is not None else min(cache.max_seq, dcache.max_seq)
+    t = gamma + 1
+    tok, pos, act, eos_ids, outs, ocnt, drafted, accepted = _spec_state(tokens, positions, active,
+                                                                         eos_ids, n_rounds * t)
+    for _ in range(n_rounds):
+        act = act & ~_is_eos(tok, eos_ids) & (pos + t <= s_max)
+        dtok, rollout = tok, []
+        for j in range(t):  # a frozen lane runs past the draft cache's end: nothing is stored
+            dlogits, dcache = decode_step(dparams, dcfg, dtok, torch.where(act, pos + j, dcache.max_seq),
+                                          dcache)
+            dtok = torch.where(act, torch.argmax(dlogits.float(), dim=-1), dtok)
+            rollout.append(dtok)
+        draft = torch.stack(rollout[:gamma], dim=1)
+        tin = torch.cat([tok[:, None], draft], dim=1)
+        logits3 = _verify_forward(params, cfg, tin, pos, act, cache, None)
+        n_acc, new_tok = _accept(logits3, draft, generator, temps, top_k, top_ps, None, min_ps)
+        e, hit_eos, new_tok = _commit(tin, n_acc, new_tok, tok, act, outs, ocnt, eos_ids)
+        drafted += torch.where(act, gamma, 0)
+        accepted += torch.where(act, n_acc, 0)
+        act = act & ~hit_eos
+        tok, pos, ocnt = new_tok, pos + e, ocnt + e
+    return outs[:, :-1], ocnt, tok, pos, cache, dcache, act, drafted, accepted
 
 
 @torch.inference_mode()

@@ -1,7 +1,8 @@
 """Token sampling on the device: temperature → top-k → top-p → min-p →
-categorical draw, or greedy argmax; and the OpenAI options applied before
-it (`apply_logit_bias`, `apply_penalties`) and read after it
-(`token_logprobs`), plain PyTorch as they are plain `jnp` in the JAX
+categorical draw, or greedy argmax; the OpenAI options applied before it
+(`apply_logit_bias`, `apply_penalties`) and read after it
+(`token_logprobs`); and speculative decoding's acceptance rule
+(`spec_verify_sample`) — plain PyTorch, as they are plain `jnp` in the JAX
 package.
 
 The JAX package takes an approximate top-k (TPU `approx_max_k`); here it is
@@ -75,6 +76,60 @@ def sample_logits(logits: torch.Tensor, generator: torch.Generator | None,
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits.float(), dim=-1)
+
+
+def spec_verify_sample(logits3: torch.Tensor, draft: torch.Tensor, generator: torch.Generator | None,
+                       temperature, top_k: int, top_p, top_k_rows=None, min_p=0.0):
+    """Rejection-sampling acceptance for a point-mass drafter (prompt-lookup
+    n-grams, greedy draft-model rollouts; the JAX `spec_verify_sample`).
+    logits3 [B, T, V] are the target's logits at [tok, d_1 .. d_gamma]
+    (T = gamma + 1), draft [B, gamma] the drafted ids. Draft d_j is
+    accepted with probability p_j(d_j), its probability under the row's
+    sampling pipeline (`filtered_for_sampling`); on rejection the
+    continuation is drawn from p_j with d_j removed and renormalised, which
+    for a point-mass proposal is the residual distribution. Token by token
+    the output law is that of plain sampling; greedy rows (temperature <= 0)
+    reduce to the argmax-prefix rule, bit for bit. temperature, top_p and
+    min_p are scalars or [B]; the draws (gamma uniforms, then T categorical
+    draws a row) come from `generator`.
+
+    Returns (n_acc [B] in 0..gamma, new_tok [B]): the accepted drafts and
+    the continuation, a residual draw at the rejected column or a fresh
+    draw after full acceptance."""
+    b, t, v = logits3.shape
+    gamma = t - 1
+    dev = logits3.device
+    lf = logits3.float().reshape(b * t, v)
+
+    def bt(a):  # scalar or [B] -> [B*T] (one entry a verify column)
+        a = torch.broadcast_to(torch.as_tensor(a, dtype=torch.float32, device=dev), (b,))
+        return a[:, None].expand(b, t).reshape(-1)
+
+    tkr = None
+    if top_k_rows is not None:
+        tkr = torch.as_tensor(top_k_rows, device=dev)[:, None].expand(b, t).reshape(-1)
+    filtered, top_idx, _ = filtered_for_sampling(lf, bt(temperature), top_k, bt(top_p), bt(min_p), tkr)
+    k = filtered.shape[-1]
+    probs3 = torch.softmax(filtered, dim=-1).reshape(b, t, k)
+    idx3 = top_idx.reshape(b, t, k)
+    f3 = filtered.reshape(b, t, k)
+    greedy = (torch.broadcast_to(torch.as_tensor(temperature, dtype=torch.float32, device=dev), (b,))
+              <= 0.0)[:, None]
+    argmax3 = torch.argmax(lf, dim=-1).reshape(b, t)
+    draft = draft.to(device=dev, dtype=torch.int64)
+    # p(d_j) under the filtered distribution (0 where it was filtered out)
+    p_d = torch.where(idx3[:, :gamma] == draft[:, :, None], probs3[:, :gamma], 0.0).sum(-1)
+    u = torch.rand((b, gamma), generator=generator, device=dev)
+    acc = torch.where(greedy, draft == argmax3[:, :gamma], u < p_d)
+    n_acc = torch.cumprod(acc.to(torch.int64), dim=1).sum(1)
+    # each column's continuation: columns < gamma leave their draft out (the
+    # residual); column gamma is a plain draw from the pipeline
+    excl = torch.cat([draft, torch.full((b, 1), -1, dtype=torch.int64, device=dev)], dim=1)
+    f3 = torch.where(idx3 == excl[:, :, None], torch.full_like(f3, NEG_INF), f3)
+    choice = torch.multinomial(torch.softmax(f3, dim=-1).reshape(b * t, k), 1, generator=generator)
+    cont = torch.gather(idx3.reshape(b * t, k), 1, choice).reshape(b, t)
+    cont = torch.where(greedy, argmax3, cont)
+    return n_acc, torch.gather(cont, 1, n_acc[:, None])[:, 0]
 
 
 def apply_logit_bias(logits: torch.Tensor, bias_ids: torch.Tensor,

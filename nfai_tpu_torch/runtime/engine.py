@@ -24,24 +24,45 @@ carry on the device) and logprobs (`GenerationMetrics.logprobs`, one entry
 per emitted token, read back with the chunk's tokens). `ChatSession.save`
 and `load` write and read the JAX package's session file.
 
-Not ported yet, and raising NotImplementedError when asked for: speculative
-and constrained decoding, device meshes (tensor/sequence/expert parallel).
+Constrained requests (`response_format` "json"/"json_schema", `json_schema`,
+`grammar` GBNF, `regex`) run one token a step: the host automaton
+(`grammar.machine_for`, or `constrained.JsonMachine` for plain JSON) gives a
+[V] mask of legal continuations, applied after the logit bias and the
+penalties (the JAX engine's constrained path drops both; its BatchEngine
+applies them), and the sample is read back each step. Near the token budget
+the masks only close the structure, so the output ends as a complete match.
+
+`EngineConfig(speculative="ngram")` drafts from the most recent n-gram of the
+prompt and output (`models.llama.spec_decode_rounds`), `"draft"` from a
+second, smaller GGUF of the same vocabulary (`draft_gguf`,
+`draft_spec_rounds`); `spec_rounds` rounds of gamma = `spec_tokens` drafts
+and one verify forward each run per read-back. Greedy requests give plain
+greedy's tokens, sampled ones plain sampling's law. A request with a logit
+bias, penalties, logprobs or a constraint decodes without speculation, as
+in the JAX engine. Any other `speculative` value is a ValueError (the JAX
+engine runs plain decoding on a misspelt one).
+
+Not ported yet, and raising NotImplementedError when asked for: device
+meshes (tensor/sequence/expert parallel).
 """
 from __future__ import annotations
 
 import json
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from pathlib import Path
 from typing import Any, Iterator, Sequence
 
 import numpy as np
 import torch
 
-from ..config import EngineConfig, SamplingParams, check_sampling
+from ..config import EngineConfig, SamplingParams
 from ..device import resolve_device
 from ..gguf import GGUFFile, Keys
+from ..constrained import JsonMachine, constraint_for
+from ..grammar import machine_for
 from ..models import KVCache, decode_loop, prefill_step, resolve
+from ..models.llama import draft_spec_rounds, spec_decode_rounds
 from ..ops.sampling import apply_logit_bias, logprob_entry, sample_logits, token_logprobs
 from ..tokenizer import (
     ChatTemplate,
@@ -54,6 +75,20 @@ from ..tokenizer import (
 _PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 
 
+def _ngram_propose(history: list[int], n: int, gamma: int) -> list[int] | None:
+    """Most recent occurrence of the trailing n-gram in `history`; returns up
+    to `gamma` continuation tokens (prompt-lookup decoding on the host, the
+    JAX `_ngram_propose`)."""
+    ln = len(history)
+    if ln < n + 1:
+        return None
+    key = history[-n:]
+    for j in range(ln - n - 1, -1, -1):
+        if history[j:j + n] == key:
+            return history[j + n:j + n + gamma] or None
+    return None
+
+
 def _bucket(n: int, cap: int) -> int:
     for b in _PREFILL_BUCKETS:
         if n <= b and b <= cap:
@@ -61,9 +96,11 @@ def _bucket(n: int, cap: int) -> int:
     return cap
 
 
+SPECULATIVE = ("off", "ngram", "draft")
+
+
 def _check_config(config: EngineConfig) -> None:
     unported = {
-        "speculative": config.speculative != "off",
         "kv_dtype": config.kv_dtype not in ("auto", "", "int8"),
         "mesh_shape": bool(config.mesh_shape),
         "seq_parallel": config.seq_parallel,
@@ -72,6 +109,8 @@ def _check_config(config: EngineConfig) -> None:
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"EngineConfig options not ported yet: {bad}")
+    if config.speculative not in SPECULATIVE:
+        raise ValueError(f"speculative={config.speculative!r}: use one of {SPECULATIVE}")
     if config.param_dtype not in ("auto", config.dtype):
         raise ValueError(
             f"param_dtype={config.param_dtype!r}: use 'auto' (keep quantized weights) or the "
@@ -95,6 +134,8 @@ class GenerationMetrics:
     new_tokens: int = 0
     ttft_s: float = 0.0
     decode_s: float = 0.0
+    spec_drafted: int = 0  # speculative: draft tokens proposed
+    spec_accepted: int = 0  # speculative: draft tokens accepted
     # SamplingParams.logprobs: one dict per emitted token (appended BEFORE
     # the token is yielded) — {"id", "logprob", "top": [(id, lp), ...]}
     logprobs: list = field(default_factory=list)
@@ -200,8 +241,10 @@ class InferenceEngine:
     ) -> Iterator[int]:
         """Stream generated token ids until EOS / max tokens / cache full."""
         sampling = sampling or SamplingParams()
-        check_sampling(sampling)
         check_bias_ids(sampling, self.model_cfg.vocab_size)
+        machine = None
+        if sampling.constrained:  # a bad grammar raises before the prefill
+            machine = machine_for(sampling) or JsonMachine(require_object=True)
         metrics = metrics if metrics is not None else GenerationMetrics()
         if cache is None:
             cache = self.new_cache(1)
@@ -223,8 +266,14 @@ class InferenceEngine:
         t0 = time.perf_counter()
         logits, cache = self.prefill(cache, prompt_ids, start_pos)
         pos = start_pos + len(prompt_ids)
+        metrics.prompt_tokens = len(prompt_ids)
         if "bias_ids" in extras:  # the output counts are still zero: no penalty yet
             logits = apply_logit_bias(logits, extras["bias_ids"], extras["bias_vals"])
+        if machine is not None:  # the first token under the first mask, after the bias
+            # one pinned buffer takes every step's mask up without a host sync
+            mask_buf = torch.empty(self.model_cfg.vocab_size, dtype=torch.bool, pin_memory=dev.type == "cuda")
+            mask = self._upload_mask(mask_buf, machine, sampling.max_new_tokens)
+            logits = logits.masked_fill(~mask[None], float("-inf"))
         token = sample_logits(
             logits, gen, sampling.temperature, sampling.top_k, sampling.top_p,
             min_p=sampling.min_p,
@@ -234,9 +283,18 @@ class InferenceEngine:
         if want_lp:
             first_lp = token_logprobs(logits, token, lp_k)
         token_host = int(token[0])  # sync: TTFT includes the first sample
-        metrics.prompt_tokens = len(prompt_ids)
         metrics.ttft_s = time.perf_counter() - t0
         self._last_cache, self._last_pos = cache, pos
+        if machine is not None:
+            yield from self._generate_constrained(
+                token, token_host, pos, cache, sampling, metrics, gen, machine, mask_buf, extras, counts,
+                logprob_entry(*(a.tolist() for a in first_lp), 0, lp_k, token_host) if want_lp else None)
+            return
+        if self.config.speculative != "off" and not extras and counts is None:
+            # no speculation with a bias, penalties or logprobs (`extras`)
+            spec = self._generate_draft if self.config.speculative == "draft" else self._generate_ngram
+            yield from spec(token_host, pos, cache, [int(t) for t in prompt_ids], sampling, metrics, gen)
+            return
         if want_lp:
             carry_lp = logprob_entry(*(a.tolist() for a in first_lp), 0, lp_k, token_host)
 
@@ -291,6 +349,246 @@ class InferenceEngine:
                     metrics.logprobs.append(carry_lp)
                 yield token_host
                 emitted += 1
+        metrics.new_tokens = emitted
+        metrics.decode_s = time.perf_counter() - t_dec
+
+    # -- speculative decoding ----------------------------------------------
+    def _spec_kw(self, sampling: SamplingParams, gen: torch.Generator) -> dict:
+        """The rounds' sampling arguments: none for a greedy request (the
+        argmax-prefix rule), else rejection sampling with the request's
+        settings and generator."""
+        if sampling.greedy:
+            return {}
+        row = lambda v: torch.tensor([v], dtype=torch.float32, device=self.device)  # noqa: E731
+        return dict(generator=gen, temps=row(sampling.temperature), top_k=max(1, sampling.top_k),
+                    top_ps=row(sampling.top_p), min_ps=row(sampling.min_p))
+
+    def _eos_tensor(self) -> torch.Tensor:
+        return torch.tensor(sorted(self.tokenizer.eos_ids) or [-2], device=self.device)
+
+    def _plain_chunk(self, tok_id, pos, cache, room, emitted, sampling, gen):
+        """One plain decode chunk of a power-of-two length that fits the
+        room and the budget (a speculative path's cache tail or rejection
+        streak); returns (tokens, the next pending token, cache)."""
+        m = min(self.config.decode_chunk, room, sampling.max_new_tokens - emitted)
+        m = 1 << (max(m, 1).bit_length() - 1)
+        toks, nxt, cache, _ = decode_loop(
+            self.params, self.model_cfg, torch.tensor([tok_id], device=self.device),
+            torch.tensor([pos], device=self.device), cache, gen, m, sampling.temperature,
+            max(1, sampling.top_k), sampling.top_p, sampling.min_p)
+        return toks[0].tolist(), int(nxt[0]), cache
+
+    def _spec_loop(self, tok_id, pos, cache, s, sampling, metrics, gen, rounds_call,
+                   after_plain=None, streak_fallback=False) -> Iterator[int]:
+        """The emit loop both speculative paths share. `rounds_call(tok_id,
+        pos, cache)` runs one call of rounds and reads it back once: it
+        returns (emitted tokens, next pending token, cache, live, drafted,
+        accepted). The cache tail (less room than a round, `s` the room's
+        end) takes plain chunks, `after_plain(tokens, pending)` then sees
+        them; with `streak_fallback` a call that accepted nothing is
+        followed by one plain chunk (the JAX ngram path's rejection
+        streak)."""
+        gamma = max(1, self.config.spec_tokens)
+        t_dec = time.perf_counter()
+        emitted = 0
+        force_plain = False
+
+        def emit_ok():
+            return emitted < sampling.max_new_tokens and not self.tokenizer.is_eos(tok_id)
+
+        while emit_ok():
+            room = s - pos
+            plain = room < gamma + 1 or force_plain
+            if plain and room <= 0:  # the final token needs no K/V slot
+                yield tok_id
+                emitted += 1
+                break
+            if plain:
+                force_plain = False
+                toks, nxt, cache = self._plain_chunk(tok_id, pos, cache, room, emitted, sampling, gen)
+            else:
+                toks, nxt, cache, live, drafted, accepted = rounds_call(tok_id, pos, cache)
+                metrics.spec_drafted += drafted
+                metrics.spec_accepted += accepted
+            stop = False
+            for j, t in enumerate(toks):
+                tok_id = t
+                if not emit_ok():
+                    stop = True
+                    self._last_pos = pos + j
+                    break
+                yield t
+                emitted += 1
+            self._last_cache = cache
+            if stop:
+                break
+            pos += len(toks)
+            self._last_pos = pos
+            tok_id = nxt
+            if plain:
+                if after_plain is not None:
+                    after_plain(toks, nxt)
+            elif not live:
+                if s - pos >= gamma + 1:
+                    break  # EOS inside the rounds
+                # else out of room mid-call: the tail path takes over
+            else:
+                force_plain = streak_fallback and accepted == 0
+        else:
+            self._last_cache = cache
+        metrics.new_tokens = emitted
+        metrics.decode_s = time.perf_counter() - t_dec
+
+    def _generate_ngram(self, tok_id, pos, cache, history, sampling, metrics, gen) -> Iterator[int]:
+        """Prompt-lookup speculative decoding (the JAX `_generate_ngram`):
+        `spec_decode_rounds` runs `spec_rounds` rounds of (on-device n-gram
+        draft → one verify forward → accept) per read-back. After a call
+        that accepted nothing it runs one plain chunk before drafting again,
+        and the cache tail (less room than a round) takes plain chunks."""
+        gamma = max(1, self.config.spec_tokens)
+        n = max(1, self.config.spec_ngram)
+        rounds = max(1, self.config.spec_rounds)
+        spec_kw = self._spec_kw(sampling, gen)
+        dev = self.device
+        s = self.max_seq_len
+        eos = self._eos_tensor()
+        hist = torch.zeros((1, s), dtype=torch.int64, device=dev)
+        hist[0, :len(history) + 1] = torch.tensor(history + [tok_id], device=dev)
+        hlen = len(history) + 1
+
+        def rounds_call(tok_id, pos, cache):
+            nonlocal hist, hlen
+            outs, ocnt, pend, _, cache, hist, _, act, dr, ac = spec_decode_rounds(
+                self.params, self.model_cfg, torch.tensor([tok_id], device=dev),
+                torch.tensor([pos], device=dev), cache, hist, torch.tensor([hlen], device=dev),
+                eos, torch.ones(1, dtype=torch.bool, device=dev), rounds, gamma, n, **spec_kw)
+            cnt = int(ocnt[0])  # the call's one read-back
+            hlen += cnt
+            return outs[0, :cnt].tolist(), int(pend[0]), cache, bool(act[0]), int(dr[0]), int(ac[0])
+
+        def after_plain(toks, pending):
+            nonlocal hlen
+            # the device history follows: [toks[1:], the new pending token]
+            entries = (toks[1:] + [pending])[:s - hlen]
+            with torch.inference_mode():  # hist came out of the rounds
+                hist[0, hlen:hlen + len(entries)] = torch.tensor(entries, device=dev)
+            hlen += len(entries)
+
+        yield from self._spec_loop(tok_id, pos, cache, s, sampling, metrics, gen, rounds_call,
+                                   after_plain, streak_fallback=True)
+
+    @property
+    def draft_engine(self) -> "InferenceEngine":
+        """The second engine of speculative="draft" (`draft_gguf`), on this
+        engine's device, made on first use; its vocabulary must be the
+        target's."""
+        if getattr(self, "_draft_engine", None) is None:
+            if not self.config.draft_gguf:
+                raise ValueError("speculative='draft' requires EngineConfig.draft_gguf")
+            draft = InferenceEngine(
+                self.config.draft_gguf,
+                replace(self.config, gguf_path=self.config.draft_gguf, speculative="off", draft_gguf=""),
+                device=self.device)
+            if draft.model_cfg.vocab_size != self.model_cfg.vocab_size:
+                raise ValueError("draft model vocabulary differs from the target's")
+            self._draft_engine = draft
+        return self._draft_engine
+
+    def _generate_draft(self, tok_id, pos, cache, history, sampling, metrics, gen) -> Iterator[int]:
+        """Draft-model speculative decoding (the JAX `_generate_draft`): the
+        draft GGUF prefills the same prompt into its own cache, then
+        `draft_spec_rounds` runs `spec_rounds` rounds of (gamma + 1 draft
+        steps → one target verify → accept) per read-back; the cache tail
+        takes plain chunks on the target. Like the JAX engine, the draft
+        cache holds this call's prompt from position 0 (a ChatSession turn's
+        earlier tokens are not in it: they lower acceptance only)."""
+        gamma = max(1, self.config.spec_tokens)
+        rounds = max(1, self.config.spec_rounds)
+        de = self.draft_engine
+        spec_kw = self._spec_kw(sampling, gen)
+        dev = self.device
+        s = min(self.max_seq_len, de.max_seq_len)
+        eos = self._eos_tensor()
+        _, dcache = de.prefill(de.new_cache(1), history)
+
+        def rounds_call(tok_id, pos, cache):
+            nonlocal dcache
+            outs, ocnt, pend, _, cache, dcache, act, dr, ac = draft_spec_rounds(
+                self.params, self.model_cfg, de.params, de.model_cfg, torch.tensor([tok_id], device=dev),
+                torch.tensor([pos], device=dev), cache, dcache, eos,
+                torch.ones(1, dtype=torch.bool, device=dev), rounds, gamma, max_seq=s, **spec_kw)
+            cnt = int(ocnt[0])  # the call's one read-back
+            return outs[0, :cnt].tolist(), int(pend[0]), cache, bool(act[0]), int(dr[0]), int(ac[0])
+
+        yield from self._spec_loop(tok_id, pos, cache, s, sampling, metrics, gen, rounds_call)
+
+    # -- constrained decoding ----------------------------------------------
+    @property
+    def json_constraint(self):
+        """The vocabulary-wide TokenConstraint (built once per engine)."""
+        if getattr(self, "_json_constraint", None) is None:
+            self._json_constraint = constraint_for(self.tokenizer, "json")
+        return self._json_constraint
+
+    def constraint_mask(self, machine, budget: int) -> np.ndarray:
+        """bool [V]: the tokens `machine` may take next. When the bytes the
+        structure needs to close, plus 4, reach the remaining token
+        `budget`, only those that close it (`closing_allowed`), so the
+        output ends as a complete match (the JAX engine's policy)."""
+        cons = self.json_constraint
+        closing = len(machine.closing_string()) + 4 >= budget
+        allowed = cons.closing_allowed(machine) if closing else cons.allowed(machine)
+        out = np.zeros(self.model_cfg.vocab_size, bool)
+        out[:allowed.shape[0]] = allowed
+        return out
+
+    def _upload_mask(self, buf: torch.Tensor, machine, budget: int) -> torch.Tensor:
+        """`constraint_mask` written into the pinned host buffer `buf` and
+        sent to the device without a host sync (the previous step's copy
+        from `buf` is done: its token was read back)."""
+        buf.numpy()[:] = self.constraint_mask(machine, budget)
+        return buf.to(self.device, non_blocking=True)
+
+    def _generate_constrained(self, token, token_host, pos, cache, sampling, metrics, gen, machine,
+                              mask_buf, extras, counts, carry_lp) -> Iterator[int]:
+        """Grammar-constrained decoding (the JAX `_generate_constrained`):
+        `token` was sampled from the prefill under the first mask; then
+        one-step `decode_loop` calls, each with the next [V] mask
+        (`constraint_mask`) applied after the logit bias and the penalties,
+        the order of the BatchEngine's chunks (the JAX engine's constrained
+        path drops both). Logprobs describe the masked distribution. The
+        masks go up through `mask_buf` and the position stays on the
+        device: the token is the step's one read-back, which the next mask
+        needs."""
+        token_bytes = self.json_constraint.token_bytes
+        dev = self.device
+        lp_k = sampling.top_logprobs
+        pos_dev = torch.tensor([pos], device=dev)
+        emitted = 0
+        t_dec = time.perf_counter()
+        while not self.tokenizer.is_eos(token_host):
+            if not machine.advance_bytes(token_bytes[token_host]):
+                raise RuntimeError(f"constrained sampler emitted an illegal token {token_host}")
+            if carry_lp is not None:
+                metrics.logprobs.append(carry_lp)
+            yield token_host
+            emitted += 1
+            if emitted >= sampling.max_new_tokens or machine.complete or pos >= self.max_seq_len:
+                break
+            mask = self._upload_mask(mask_buf, machine, sampling.max_new_tokens - emitted)
+            out = decode_loop(
+                self.params, self.model_cfg, token, pos_dev, cache, gen, 1, sampling.temperature,
+                sampling.top_k, sampling.top_p, sampling.min_p, counts=counts, allowed_mask=mask[None],
+                **extras)
+            _, token, cache, gen = out[:4]
+            rest = list(out[4:])
+            if counts is not None:
+                counts = rest.pop(0)
+            token_host = int(token[0])  # the step's one host read: the next mask needs it
+            if carry_lp is not None:
+                carry_lp = logprob_entry(*(a[0].tolist() for a in rest), 0, lp_k, token_host)
+            pos, pos_dev = pos + 1, pos_dev + 1
+            self._last_cache, self._last_pos = cache, pos
         metrics.new_tokens = emitted
         metrics.decode_s = time.perf_counter() - t_dec
 

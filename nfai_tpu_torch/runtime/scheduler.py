@@ -26,8 +26,21 @@ token is sampled at the end of the prefill with the same options. A
 preempted request's counts are rebuilt from the tokens it already emitted
 (the JAX scheduler restarts them from zero).
 
-Not ported yet, and refused by `submit` with NotImplementedError:
-grammar/regex/JSON constraints (the engine already refuses `speculative`).
+Constrained requests (grammar, regex, JSON, JSON Schema) keep a host
+automaton per slot (`_Slot.machine`, rebuilt from the emitted tokens when a
+preempted request comes back): while one runs, decode chunks are one step
+long and each step carries a [rows, V] mask, all True on the other rows,
+applied after the bias and the penalties. A token the automaton rejects
+fails its own request only.
+
+With `EngineConfig(speculative="ngram")` the decoding slots speculate
+together (`_spec_step`, `models.llama.spec_decode_rounds`): greedy slots by
+the argmax-prefix rule, sampled ones by rejection sampling, in one batch,
+unless a slot asks for a bias, penalties, logprobs or a constraint, or a
+slot lacks the cache room for a call's rounds. On the page pool the call
+runs on the compacted rows, its pad lanes on the sink page; on the dense
+cache a lane that is not decoding (empty, or mid-prefill) writes no K/V row
+(the JAX BatchEngine's frozen lanes write row 0 of theirs).
 """
 from __future__ import annotations
 
@@ -45,8 +58,11 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
-from ..config import SamplingParams, check_sampling
+from ..config import SamplingParams
+from ..constrained import JsonMachine
+from ..grammar import machine_for
 from ..models import decode_loop, paged_decode_loop, paged_prefill_step, prefill_slot_step
+from ..models.llama import spec_decode_rounds
 from ..ops.sampling import (
     apply_logit_bias, apply_penalties, logprob_entry, sample_logits, token_logprobs,
 )
@@ -124,6 +140,9 @@ class _Slot:
     # the slot is decoding
     prefill_ids: np.ndarray | None = None
     prefill_next: int = 0  # next absolute position to prefill
+    # a constrained request's host automaton (None for the others): the next
+    # step's vocabulary mask comes from it
+    machine: object | None = None
 
     @property
     def prefilling(self) -> bool:
@@ -188,6 +207,8 @@ class BatchEngine:
         self.bias_width = 16
         self._warned_bias_clamp = False
         self._counts: torch.Tensor | None = None  # [max_batch, V] int32
+        self.spec_drafted = 0  # speculative: draft tokens proposed, all slots
+        self.spec_accepted = 0  # and accepted
 
         cfg = engine.config
         self.paged = cfg.paged_kv if paged is None else paged
@@ -210,8 +231,12 @@ class BatchEngine:
     # -- client API --------------------------------------------------------
     def submit(self, prompt_ids: Sequence[int], sampling: SamplingParams | None = None) -> Request:
         sampling = sampling or SamplingParams()
-        check_sampling(sampling)
         check_bias_ids(sampling, self.engine.model_cfg.vocab_size)
+        try:  # a bad grammar, regex or schema is the caller's error, raised here and not in `step`
+            machine_for(sampling)
+        except ValueError as e:
+            field = "grammar" if sampling.grammar else "regex" if sampling.regex else "json_schema"
+            raise ValueError(f"{field}: {e}") from e
         req = Request(id=next(self._ids), prompt_ids=list(prompt_ids), sampling=sampling)
         max_prompt = self.engine.max_seq_len - 1
         if len(req.prompt_ids) > max_prompt:
@@ -296,10 +321,58 @@ class BatchEngine:
         slot.request = req
         slot.prefill_ids = ids
         slot.prefill_next = start
+        slot.machine = self._build_machine(req) if req.sampling.constrained else None
         req.state = RequestState.RUNNING
         if self._counts is not None:
             self._counts[slot_idx] = 0
         return True
+
+    # -- constrained decoding ------------------------------------------------
+    @property
+    def _cons(self):
+        """The vocabulary-wide TokenConstraint, shared with the engine."""
+        return self.engine.json_constraint
+
+    def _build_machine(self, req: Request):
+        """A request's automaton, fed the tokens it already emitted, so a
+        preempted request resumes where it stood."""
+        m = machine_for(req.sampling) or JsonMachine(require_object=True)
+        tb = self._cons.token_bytes
+        for t in req.output_ids:
+            if not m.advance_bytes(tb[t]):
+                log.error("req %d: constraint replay failed on token %d", req.id, t)
+                break
+        return m
+
+    def _mask_row(self, slot: _Slot, budget: int) -> np.ndarray:
+        """bool [V] of a constrained slot's legal next tokens
+        (`InferenceEngine.constraint_mask`: near the budget only those that
+        close the structure)."""
+        return self.engine.constraint_mask(slot.machine, budget)
+
+    def _advance_machine(self, slot_idx: int, tokens: list[int]) -> bool:
+        """Feed emitted tokens to the slot's automaton (EOS stops it). A
+        token it rejects fails this request alone: returns False."""
+        slot = self.slots[slot_idx]
+        tb = self._cons.token_bytes
+        for t in tokens:
+            if self.engine.tokenizer.is_eos(t) or slot.machine.complete:
+                break
+            if not slot.machine.advance_bytes(tb[t]):
+                log.error("req %d: the constrained sampler emitted illegal token %d", slot.request.id, t)
+                self._finish(slot_idx, RequestState.FAILED)
+                return False
+        return True
+
+    def _emit_constrained(self, slot_idx: int, tokens: list[int], logprobs=None) -> None:
+        """`_emit` for any slot; a constrained one's automaton takes the
+        tokens first, and the request ends once its structure is complete."""
+        slot = self.slots[slot_idx]
+        if slot.machine is not None and not self._advance_machine(slot_idx, tokens):
+            return
+        self._emit(slot_idx, tokens, logprobs)
+        if self.slots[slot_idx].request is not None and slot.machine is not None and slot.machine.complete:
+            self._finish(slot_idx)
 
     def _prefill_tick(self, slot_idx: int) -> None:
         """Run ONE prefill chunk for the slot; on prompt completion, sample
@@ -344,6 +417,9 @@ class BatchEngine:
                 minlength=eng.model_cfg.vocab_size).to(device=dev, dtype=counts.dtype)
             logits = apply_penalties(logits, counts[slot_idx:slot_idx + 1],
                                      s.presence_penalty, s.frequency_penalty)
+        if slot.machine is not None:
+            mask = self._mask_row(slot, s.max_new_tokens - len(req.output_ids))
+            logits = logits.masked_fill(~torch.from_numpy(mask).to(dev)[None], float("-inf"))
         tok_dev = sample_logits(
             logits, self.generator, s.temperature, self.top_k, s.top_p, min_p=s.min_p,
             top_k_rows=torch.tensor([self._effective_top_k(s.top_k)], device=dev),
@@ -358,7 +434,7 @@ class BatchEngine:
         slot.pos = int(ids.size)
         slot.budget = min(s.max_new_tokens - len(req.output_ids), eng.max_seq_len - ids.size)
         slot.next_token = tok
-        self._emit(slot_idx, [tok], lps)
+        self._emit_constrained(slot_idx, [tok], lps)
 
     def _counts_on(self) -> torch.Tensor:
         """The output-token counts [max_batch, V] int32, made on first use."""
@@ -497,6 +573,11 @@ class BatchEngine:
         max_seq = self.engine.max_seq_len
         # the chunk must fit the tightest slot's remaining cache room
         n = min(self.decode_chunk, min(max_seq - self.slots[i].pos for i in active_idx))
+        if any(self.slots[i].machine is not None for i in active_idx):
+            n = 1  # a constrained slot's next mask needs this step's token
+        elif self._spec_eligible(active_idx):
+            self._spec_step(active_idx)
+            return self._busy()
         if self.paged:
             active_idx = self._grow_tables(active_idx, n)
             active_idx = [i for i in active_idx if not self.slots[i].prefilling]
@@ -560,6 +641,12 @@ class BatchEngine:
                       counts=self._counts_on().index_select(0, row_sel))
         if want_lp:
             kw["n_logprobs"] = max(want_lp)
+        constrained = [i for i in active_idx if self.slots[i].machine is not None]
+        if constrained:  # every other row may take any token
+            amask = np.ones((width, self.engine.model_cfg.vocab_size), bool)
+            for i in constrained:
+                amask[row_of[i]] = self._mask_row(self.slots[i], self.slots[i].budget)
+            kw["allowed_mask"] = on(amask)
         if self.paged:
             tables = np.zeros((width, self.max_pages), np.int32)  # pad lanes: the sink page
             for j, i in enumerate(rows):
@@ -592,10 +679,102 @@ class BatchEngine:
                 lps = [logprob_entry(lp_a, tid_a, tlp_a, k, sp.top_logprobs, fresh[k]) for k in range(n)]
             slot.pos += n
             slot.next_token = row[-1]
-            self._emit(i, fresh, lps)
+            self._emit_constrained(i, fresh, lps)
             if self.slots[i].request is not None and slot.pos >= max_seq:
                 self._finish(i)  # out of cache room
         return self._busy()
+
+    # -- batched speculative decoding ----------------------------------------
+    def _spec_eligible(self, active_idx: list[int]) -> bool:
+        """The decoding slots speculate together when the engine asks for
+        "ngram" (the JAX BatchEngine speculates for nothing else), every
+        slot has room for a call's rounds, and none asks for a logit bias,
+        penalties, logprobs or a constraint (the verify does not model
+        them). Greedy and sampled slots mix."""
+        cfg = self.engine.config
+        if cfg.speculative != "ngram" or not active_idx:
+            return False
+        lookahead = max(1, cfg.spec_rounds) * (max(1, cfg.spec_tokens) + 1)
+        if min(self.engine.max_seq_len - self.slots[i].pos for i in active_idx) < lookahead:
+            return False  # the cache tail: plain chunks
+        for i in active_idx:
+            slot = self.slots[i]
+            sp = slot.request.sampling
+            if sp.logit_bias or sp.has_penalties or sp.logprobs is not None or slot.machine is not None:
+                return False
+        return True
+
+    def _spec_step(self, active_idx: list[int]) -> None:
+        """One `spec_decode_rounds` call for every decoding slot (the JAX
+        `_spec_step`), read back once. Paged: the rows are the decoding
+        slots compacted to a power-of-two width, the pad lanes inactive on
+        the sink page. Dense: the max_batch lanes, those not decoding
+        inactive (they write no K/V row)."""
+        cfg = self.engine.config
+        gamma, ngram, rounds = max(1, cfg.spec_tokens), max(1, cfg.spec_ngram), max(1, cfg.spec_rounds)
+        if self.paged:
+            active_idx = self._grow_tables(active_idx, rounds * (gamma + 1))
+            active_idx = [i for i in active_idx if not self.slots[i].prefilling]
+            if not active_idx:
+                return
+            rows = list(active_idx)
+            width = min(1 << (len(rows) - 1).bit_length(), self.max_batch)
+        else:
+            rows = list(range(self.max_batch))
+            width = self.max_batch
+        row_of = {i: j for j, i in enumerate(rows)}
+        s = self.engine.max_seq_len
+        tokens = np.zeros(width, np.int64)
+        positions = np.zeros(width, np.int64)
+        active = np.zeros(width, bool)
+        hist = np.zeros((width, s), np.int64)
+        hlen = np.ones(width, np.int64)  # >= 1 keeps the drafter's indices in range
+        temps = np.zeros(width, np.float32)
+        top_ps = np.ones(width, np.float32)
+        top_ks = np.full(width, self.top_k, np.int64)
+        min_ps = np.zeros(width, np.float32)
+        for i in active_idx:
+            j = row_of[i]
+            slot = self.slots[i]
+            sp = slot.request.sampling
+            # the host record ends with the pending token (next_token == output_ids[-1])
+            ids = (list(slot.request.prompt_ids) + list(slot.request.output_ids))[-s:]
+            hist[j, :len(ids)] = ids
+            hlen[j] = len(ids)
+            tokens[j], positions[j], active[j] = slot.next_token, slot.pos, True
+            temps[j], top_ps[j], min_ps[j] = sp.temperature, sp.top_p, sp.min_p
+            top_ks[j] = self._effective_top_k(sp.top_k)
+        dev = self.engine.device
+        on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        kw = {}
+        if (temps > 0).any():  # rejection sampling; its greedy lanes keep the argmax rule
+            kw = dict(generator=self.generator, temps=on(temps), top_k=self.top_k, top_ps=on(top_ps),
+                      top_k_rows=on(top_ks), min_ps=on(min_ps))
+        if self.paged:
+            tables = np.zeros((width, self.max_pages), np.int32)  # pad lanes: the sink page
+            for j, i in enumerate(rows):
+                tables[j] = self._table_row(i)
+            kw["page_tables"] = on(tables)
+        eos = torch.tensor(sorted(self.engine.tokenizer.eos_ids) or [-2], device=dev)
+        outs, ocnt, pend, _, self.cache, _, _, act, dr, ac = spec_decode_rounds(
+            self.engine.params, self.engine.model_cfg, on(tokens), on(positions), self.cache, on(hist),
+            on(hlen), eos, on(active), rounds, gamma, ngram, **kw)
+        host = torch.cat([outs, torch.stack([ocnt, pend, act.long(), dr, ac], dim=1)], dim=1).tolist()
+        n_out = outs.shape[1]
+        for i in active_idx:
+            row = host[row_of[i]]
+            cnt, nxt, live, drafted, accepted = row[n_out:]
+            self.spec_drafted += drafted
+            self.spec_accepted += accepted
+            slot = self.slots[i]
+            # row[0] is the pending token, already emitted; the new ones are
+            # row[1:cnt] and the new pending token, unless the lane hit EOS
+            fresh = row[1:cnt] + ([nxt] if live else [])
+            slot.pos += cnt
+            slot.next_token = nxt
+            self._emit(i, fresh)
+            if self.slots[i].request is not None and not live:
+                self._finish(i)  # EOS inside the rounds (not streamed)
 
     # -- background driving -------------------------------------------------
     def start(self) -> None:

@@ -15,10 +15,13 @@ options are read as the JAX server reads them: `logit_bias` ({"id": bias},
 clamped to [-100, 100]), `presence_penalty`, `frequency_penalty`, and
 logprobs (chat's `"logprobs": true` with `top_logprobs`, the legacy
 completions' `"logprobs": N`, 0 <= N <= 20), returned in the chat or the
-legacy layout, per SSE chunk or whole. A body that asks for an option the
-port does not run yet (grammar, regex, a JSON response_format) gets a 501
-JSON error naming the option; a malformed body gets a 400; a full queue a
-503.
+legacy layout, per SSE chunk or whole. Structured output as the JAX
+server takes it: `response_format` {"type": "json_object"} (or "json"),
+{"type": "json_schema", "json_schema": {"schema": {...}}}, and the llama.cpp
+body fields `grammar` (GBNF) and `regex` (full match), at most one of
+grammar, regex and schema; `BatchEngine.submit` compiles each when the
+request arrives, so a bad one gets a 400 naming it before anything is
+queued. A malformed body gets a 400; a full queue a 503.
 
 Usage:
     python -m nfai_tpu_torch.server --gguf model.gguf [--port 8000] [--device cpu]
@@ -53,32 +56,32 @@ class ServerState:
         self.lock = threading.Lock()
 
 
-def _unported_options(body: dict) -> list[str]:
-    """The body options the port does not run yet, by their wire names."""
-    rf = body.get("response_format") or {}
-    rf_type = rf.get("type") if isinstance(rf, dict) else str(rf)
-    asked = {
-        "grammar": body.get("grammar") is not None,
-        "regex": body.get("regex") is not None,
-        f"response_format {rf_type!r}": rf_type in ("json_object", "json", "json_schema"),
-    }
-    return [name for name, on in asked.items() if on]
-
-
 def _sampling_from_body(body: dict) -> SamplingParams:
-    unported = _unported_options(body)
-    if unported:
-        raise NotImplementedError(f"options not supported by this server yet: {unported}")
-    rf = body.get("response_format") or {}
-    rf_type = rf.get("type") if isinstance(rf, dict) else str(rf)
-    if rf_type not in (None, "text"):
-        raise ValueError(f"unsupported response_format type {rf_type!r}")
     stop = body.get("stop") or ()
     if isinstance(stop, str):
         stop = (stop,)
     # OpenAI logit_bias comes as {"token_id": bias}, clamped to [-100, 100]
     bias = body.get("logit_bias") or {}
     logit_bias = tuple((int(k), max(-100.0, min(100.0, float(v)))) for k, v in bias.items())
+    # OpenAI response_format: {"type": "json_object"} constrains to JSON,
+    # {"type": "json_schema", "json_schema": {"schema": {...}}} to a schema
+    rf = body.get("response_format") or {}
+    rf_type = rf.get("type") if isinstance(rf, dict) else str(rf)
+    json_schema = None
+    if rf_type in (None, "text"):
+        response_format = None
+    elif rf_type in ("json_object", "json"):
+        response_format = "json"
+    elif rf_type == "json_schema":
+        wrapper = rf.get("json_schema") if isinstance(rf, dict) else None
+        if not isinstance(wrapper, dict):
+            raise ValueError('response_format json_schema needs a "json_schema" object')
+        json_schema = wrapper.get("schema", wrapper)
+        if not isinstance(json_schema, (dict, bool)):
+            raise ValueError("json_schema.schema must be an object")
+        response_format = "json_schema"
+    else:
+        raise ValueError(f"unsupported response_format type {rf_type!r}")
     # OpenAI logprobs: chat sends "logprobs": true and "top_logprobs": N; the
     # legacy completions endpoint sends "logprobs": N
     lp_raw = body.get("logprobs")
@@ -90,6 +93,9 @@ def _sampling_from_body(body: dict) -> SamplingParams:
         logprobs = int(lp_raw)
     if logprobs is not None and not 0 <= logprobs <= 20:
         raise ValueError("logprobs/top_logprobs must be in [0, 20]")
+    grammar, regex = body.get("grammar"), body.get("regex")
+    if sum(x is not None for x in (grammar, regex, json_schema)) > 1:
+        raise ValueError("at most one of grammar/regex/json_schema")
     return SamplingParams(
         temperature=float(body.get("temperature", 0.5)),
         top_k=int(body.get("top_k", 40)),
@@ -101,6 +107,10 @@ def _sampling_from_body(body: dict) -> SamplingParams:
         seed=body.get("seed"),
         max_new_tokens=int(body.get("max_tokens") or body.get("max_completion_tokens") or 512),
         stop=tuple(str(s) for s in stop),
+        response_format=response_format,
+        grammar=None if grammar is None else str(grammar),
+        regex=None if regex is None else str(regex),
+        json_schema=json_schema,
         logprobs=logprobs,
     )
 
@@ -161,8 +171,6 @@ def make_handler(state: ServerState):
                     self._completions()
                 else:
                     self._error(404, f"no route {self.path}")
-            except NotImplementedError as e:
-                self._error(501, str(e))
             except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
                 self._error(400, f"bad request: {e}")
             except (BrokenPipeError, ConnectionResetError):

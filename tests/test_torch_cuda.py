@@ -70,7 +70,14 @@ of its 512-byte split, bf16 and int8, exactly. The OpenAI sampling options
 (bias, penalties, logprobs) in decode_loop on the card, with no host sync,
 against the CPU (tokens up to a near-tie); a ChatSession saved, loaded and
 continued on the card (bf16 and int8); eval.perplexity on the card against
-the CPU (mean NLL within TOL, INT8_TOL on an int8 cache).
+the CPU (mean NLL within TOL, INT8_TOL on an int8 cache). Speculative and
+constrained decoding: K4 at the verify forward's T = 9 (batch 1 and 8,
+ragged offsets, a lane frozen at the cache's length, bf16 and int8); the
+store dropping a frozen lane's rows (dense chunk mode) and writing only
+the sink page through an all-zero table (paged); the verify forward on the
+card against the CPU (no host sync, a frozen lane's rows unchanged); the
+BatchEngine speculating (dense and paged, greedy equal to plain decoding
+up to a near-tie) and serving constrained slots on the card.
 """
 import pytest
 import torch
@@ -1250,3 +1257,161 @@ def test_perplexity_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert abs(math.log(got) - math.log(want)) <= tol * math.log(want), (quant, got, want)
         k4 = after[1] - before[1] if quant else after[0] - before[0]
         assert k4 == 2 * cfg.n_layers and after[2] - before[2] == 2 * cfg.n_layers and after[3] > before[3]
+
+
+# -- speculative and constrained decoding: the verify shapes ---------------------
+
+
+# K4 at the verify forward's shape, T = gamma + 1 = 9 (EngineConfig's default
+# spec_tokens 8): batch 1 and 8, every row at its own offset (ragged, across
+# key tiles), and at batch 8 a frozen lane at the cache's length (a start
+# the store drops; K4 reads no key past the cache), bf16 and int8
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("d,r", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("b", [1, 8])
+def test_prefill_attention_at_the_verify_shape(cuda, b, d, r, quant):
+    from nfai_tpu_torch.models.llama import quantize_kv
+
+    s, t, hkv = 1024, 9, 2
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    q = torch.randn(b, t, hkv * r, d, **bf) * 2
+    kc, vc = torch.randn(b, s, hkv * d, **bf), torch.randn(b, s, hkv * d, **bf)
+    sc = {}
+    if quant:
+        (kc, ks), (vc, vs) = quantize_kv(kc, hkv), quantize_kv(vc, hkv)
+        sc = dict(k_scales=ks.transpose(1, 2).contiguous(), v_scales=vs.transpose(1, 2).contiguous())
+    offs = [37] if b == 1 else [0, 5, 63, 64, 500, 700, s - t, s]  # the last lane frozen
+    offs = torch.tensor(offs, device="cuda", dtype=torch.int32)
+    kernel = pa.K4_I8 if quant else pa.K4
+    before = kernel.launches
+    got = pa.flash_prefill_attention(q, kc, vc, offs, **sc)
+    assert kernel.launches == before + 1
+    want = pa.flash_prefill_attention_plain(q, kc, vc, offs, d**-0.5, sc.get("k_scales"), sc.get("v_scales"))
+    assert rel(got, want, row_dims=3) < (INT8_TOL if quant else TOL)
+
+
+# the store in chunk mode for 9 rows a layer, a frozen lane at the cache's
+# length (and one past it) writing nothing; the paged store through a frozen
+# lane's all-zero (sink) table writing page 0 only
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_kv_store_drops_a_frozen_lanes_rows(cuda, quant):
+    from nfai_tpu_torch.ops import kv_store as kvs
+
+    b, s, t, hkv, d = 4, 96, 9, 2, 64
+    kvd = hkv * d
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    k, v = torch.randn(b, t, kvd, **bf) * 4, torch.randn(b, t, kvd, **bf) * 4
+    starts = torch.tensor([3, s - t, s, s + 5], device="cuda", dtype=torch.int32)
+    caches = _store_caches((b, s, kvd), (b, hkv, s), quant, cuda)
+    want = [None if c is None else c.cpu() for c in caches]
+    kvs.kv_store_plain(*want[:2], k.cpu(), v.cpu(), starts.cpu(), hkv, *want[2:])
+    frozen = [c[2:].clone() for c in caches if c is not None]
+    kvs.kv_store(*caches[:2], k, v, starts, hkv, *caches[2:])
+    torch.cuda.synchronize()
+    assert all(_same_bits(g, w) for g, w in zip(caches, want) if w is not None)
+    assert all(torch.equal(c[2:], f) for c, f in zip([c for c in caches if c is not None], frozen))
+    n_pages, ps = 6, 16
+    tables = torch.tensor([[1, 2, 0, 0], [0, 0, 0, 0]], device="cuda", dtype=torch.int32)  # lane 1: the sink
+    positions = (torch.arange(t, dtype=torch.int32)[None] + torch.tensor([[10], [0]], dtype=torch.int32)).cuda()
+    pages = _store_caches((hkv, n_pages, ps, d), (hkv, n_pages, ps), quant, cuda)
+    kept = [p[:, 3:].clone() for p in pages if p is not None]
+    kk, vv = (x[:2].view(2, t, hkv, d) for x in (k, v))
+    kvs.kv_store_paged(*pages[:2], kk, vv, tables, positions.contiguous(), *pages[2:])
+    torch.cuda.synchronize()
+    assert all(torch.equal(p[:, 3:], c) for p, c in zip([p for p in pages if p is not None], kept))
+
+
+def _verify_inputs(e, b, dev):
+    """A batch-b cache after 40-token prompts, and a verify of 9 tokens a row
+    at ragged positions (the last row frozen at b > 1)."""
+    from nfai_tpu_torch.models import prefill_step
+
+    gen = torch.Generator().manual_seed(5)
+    prompts = torch.randint(5, 250, (b, 40), generator=gen)
+    cache = e.new_cache(b)
+    _, cache = prefill_step(e.params, e.model_cfg, prompts.to(dev), torch.arange(40, device=dev)[None].expand(b, 40),
+                            torch.full((b,), 39, device=dev), cache)
+    tin = torch.randint(5, 250, (b, 9), generator=gen).to(dev)
+    pos = torch.tensor([40 - 3 * (i % 3) for i in range(b)], device=dev)
+    act = torch.ones(b, dtype=torch.bool, device=dev)
+    act[-1] = b == 1
+    return cache, tin, pos, act
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_verify_forward_cuda_matches_cpu(cuda, tmp_path, b):
+    """The verify forward (K1/K5 at M = 9b, K4 at T = 9 through the store's
+    chunk mode, the LM head over every position) on the card against the
+    CPU: logits within TOL per position of the active rows; a frozen row
+    writes no K/V row on either device; no host sync on the card."""
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.models.llama import _verify_forward
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    path = _tiny_q4k(tmp_path)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        e = InferenceEngine(path, EngineConfig(max_seq_len=256), device=dev)
+        cache, tin, pos, act = _verify_inputs(e, b, dev)
+        before = cache.k.clone()
+        if dev == "cuda":
+            k4 = pa.K4.launches
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits = _verify_forward(e.params, e.model_cfg, tin, pos, act, cache, None)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert pa.K4.launches - k4 == e.model_cfg.n_layers
+        else:
+            logits = _verify_forward(e.params, e.model_cfg, tin, pos, act, cache, None)
+        if b > 1:
+            assert torch.equal(cache.k[:, -1], before[:, -1])  # the frozen lane
+        out[dev] = logits.float().cpu()
+    live = slice(0, b if b == 1 else b - 1)
+    assert rel(out["cuda"][live], out["cpu"][live], row_dims=2) < TOL
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_speculative_and_constrained_batch_engine_on_the_card(cuda, tmp_path, paged):
+    """The BatchEngine on the card with speculative="ngram": greedy slots
+    equal the same engine's plain BatchEngine up to a near-tie (the card's
+    verify and decode matmuls round differently), a sampled slot fills its
+    budget, drafts are accepted; then constrained slots (JSON, a regex)
+    beside a plain one give text that satisfies them."""
+    import json
+    import re
+
+    from nfai_tpu_torch.config import EngineConfig, SamplingParams
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine, RequestState
+
+    path = _tiny_q4k(tmp_path)
+    prompts = [[3, 4, 5, 3, 4, 5, 3, 4] * 3, [9, 9, 2] * 6, [7, 1] * 9]
+    sampling = [SamplingParams(temperature=0.0, max_new_tokens=24)] * 2 + [
+        SamplingParams(temperature=0.8, top_k=20, max_new_tokens=24, seed=1)]
+    outs = {}
+    for spec in ("off", "ngram"):
+        e = InferenceEngine(path, EngineConfig(max_seq_len=256, speculative=spec, paged_kv=paged, page_size=16),
+                            device="cuda")
+        be = BatchEngine(e, max_batch=4)
+        reqs = [be.submit(p, s) for p, s in zip(prompts, sampling)]
+        for _ in range(500):
+            if be.step() == 0 and be.queue.empty():
+                break
+        outs[spec] = [r.output_ids for r in reqs]
+        assert all(r.state == RequestState.FINISHED for r in reqs)
+    assert be.spec_drafted > 0 and be.spec_accepted > 0 and len(outs["ngram"][2]) == 24
+    for got, want in zip(outs["ngram"][:2], outs["off"][:2]):
+        d = next((j for j, (a, c) in enumerate(zip(got, want)) if a != c), len(got))
+        assert d >= 4, (got, want)  # the first tokens leave no room for a tie
+    checks = [(dict(response_format="json"), lambda t: isinstance(json.loads(t), dict)),
+              (dict(regex="(ab|cd)+-[0-9]{2}"), lambda t: re.fullmatch("(ab|cd)+-[0-9]{2}", t)), ({}, None)]
+    be = BatchEngine(e, max_batch=4)
+    reqs = [be.submit(p, SamplingParams(temperature=0.0, max_new_tokens=24, **f)) for p, (f, _) in zip(prompts, checks)]
+    for _ in range(500):
+        if be.step() == 0 and be.queue.empty():
+            break
+    for r, (_, ok) in zip(reqs, checks):
+        assert r.state == RequestState.FINISHED
+        assert ok is None or ok(e.tokenizer.decode(r.output_ids)), r.output_ids

@@ -188,20 +188,15 @@ def test_cache_rounds_up_to_the_key_tile(gguf_path):
 
 
 def test_unported_options_raise(gguf_path, engines, tmp_path):
-    """Speculative decoding, fp8 caches and constrained decoding are still
-    refused by name. Logprobs and session save/load now run: greedy tokens
-    and logprobs as the JAX engine's (logprobs within 0.12: twice 2e-2 of
-    this fixture's logit scale of 3; test_torch_sampling_ext.py holds every
-    option), and a saved session loads (test_torch_session.py)."""
-    with pytest.raises(NotImplementedError, match="speculative"):
-        InferenceEngine(gguf_path, EngineConfig(speculative="ngram"), device="cpu")
+    """fp8 caches are still refused by name. Logprobs and session
+    save/load run: greedy tokens and logprobs as the JAX engine's (logprobs
+    within 0.12: twice 2e-2 of this fixture's logit scale of 3;
+    test_torch_sampling_ext.py holds every option), and a saved session
+    loads (test_torch_session.py). Speculative and constrained decoding run
+    (test_speculative_and_constrained_requests_run below)."""
     with pytest.raises(NotImplementedError):  # int8 runs (test_torch_kv_int8.py); other kinds do not
         InferenceEngine(gguf_path, EngineConfig(kv_dtype="fp8"), device="cpu")
     je, te = engines
-    for s in (SamplingParams(response_format="json"), SamplingParams(regex="a+"),
-              SamplingParams(grammar='root ::= "a"')):
-        with pytest.raises(NotImplementedError, match="constrained decoding"):
-            list(te.generate([1, 2, 3], s))
     ids = te.tokenizer.encode(PROMPT)
     jm, tm = JGenerationMetrics(), GenerationMetrics()
     want = list(je.generate(ids, JSamplingParams(temperature=0.0, max_new_tokens=16, logprobs=2), metrics=jm))
@@ -214,3 +209,29 @@ def test_unported_options_raise(gguf_path, engines, tmp_path):
     session.send("hi")
     session.save(tmp_path / "s.npz")
     assert ChatSession.load(te, tmp_path / "s.npz")._cached_ids == session._cached_ids
+
+
+def test_speculative_and_constrained_requests_run(gguf_path, engines):
+    """Speculative decoding ("ngram", and "draft" with the target's own
+    GGUF as the draft) gives the plain greedy tokens; JSON mode, a regex
+    and a GBNF grammar give text that satisfies them (test_torch_spec.py
+    and test_torch_constrained.py hold both to the JAX package)."""
+    import json
+    import re
+
+    _, te = engines
+    ids = te.tokenizer.encode(PROMPT)
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=12)
+    want = list(te.generate(ids, greedy))
+    for spec in ("ngram", "draft"):
+        e = InferenceEngine(gguf_path, EngineConfig(dtype="float32", max_seq_len=256, speculative=spec,
+                                                    draft_gguf=str(gguf_path) if spec == "draft" else ""),
+                            device="cpu")
+        m = GenerationMetrics()
+        assert list(e.generate(ids, greedy, metrics=m)) == want and m.spec_drafted > 0
+    checks = [(dict(response_format="json"), lambda t: isinstance(json.loads(t), dict)),
+              (dict(regex="a+"), lambda t: re.fullmatch("a+", t)),
+              (dict(grammar='root ::= "a"'), lambda t: t == "a")]
+    for fields, ok in checks:
+        text = te.generate_text(PROMPT, SamplingParams(temperature=0.0, max_new_tokens=24, **fields))
+        assert ok(text), (fields, text)

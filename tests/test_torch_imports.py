@@ -33,7 +33,8 @@ def test_every_port_module_imports_without_jax():
             "nfai_tpu_torch.runtime.paged_cache", "nfai_tpu_torch.runtime.scheduler",
             "nfai_tpu_torch.ops.paged_attention", "nfai_tpu_torch.server",
             "nfai_tpu_torch.testing", "nfai_tpu_torch.models.registry",
-            "nfai_tpu_torch.tokenizer.spm", "nfai_tpu_torch.eval"} <= set(res["modules"])
+            "nfai_tpu_torch.tokenizer.spm", "nfai_tpu_torch.eval",
+            "nfai_tpu_torch.grammar", "nfai_tpu_torch.constrained"} <= set(res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 

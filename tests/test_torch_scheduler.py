@@ -245,17 +245,34 @@ def test_prefill_overlaps_decode(engine, paged):
 
 
 def test_unported_sampling_options_raise_at_submit(engine, paged):
-    """Constrained decoding is still refused by name (and a bias id outside
-    the vocabulary is a ValueError); what now runs is held to the JAX
-    BatchEngine in the parity cases below."""
+    """A bias id outside the vocabulary, or a grammar, regex or schema that
+    does not compile, is a ValueError at submit naming the field (nothing
+    is queued; the server answers it with a 400); what now runs is held to the JAX BatchEngine in the parity cases below and in
+    test_torch_constrained.py / test_torch_spec.py."""
     be = BatchEngine(engine, max_batch=2, paged=paged)
-    for s in (SamplingParams(response_format="json"), SamplingParams(regex="a+"),
-              SamplingParams(grammar='root ::= "a"')):
-        with pytest.raises(NotImplementedError, match="constrained decoding"):
-            be.submit([1, 2, 3], s)
     with pytest.raises(ValueError, match="outside the vocabulary"):
         be.submit([1, 2, 3], SamplingParams(logit_bias=((engine.model_cfg.vocab_size, 1.0),)))
+    for bad in (dict(grammar='root ::= "unterminated'), dict(regex="(a"), dict(json_schema={"type": "nope"})):
+        with pytest.raises(ValueError, match=f"^{next(iter(bad))}: "):
+            be.submit([1, 2, 3], SamplingParams(**bad))
     assert be.queue.empty()
+
+
+def test_constrained_requests_run_through_submit(engine, paged):
+    """JSON mode, a regex and a GBNF grammar beside a plain request: every
+    constrained output satisfies its constraint."""
+    import json
+    import re
+
+    be = BatchEngine(engine, max_batch=4, paged=paged)
+    checks = [(dict(response_format="json"), lambda t: isinstance(json.loads(t), dict)),
+              (dict(regex="a+"), lambda t: re.fullmatch("a+", t)),
+              (dict(grammar='root ::= "a"'), lambda t: t == "a"), ({}, lambda t: True)]
+    reqs = [be.submit(p, SamplingParams(temperature=0.0, max_new_tokens=20, **fields))
+            for p, (fields, _) in zip(prompts_of(3, (5, 9, 12, 7)), checks)]
+    drive(be, reqs)
+    for r, (fields, ok) in zip(reqs, checks):
+        assert r.state == RequestState.FINISHED and ok(engine.tokenizer.decode(r.output_ids)), (fields, r.output_ids)
 
 
 @pytest.fixture(scope="module")

@@ -1,18 +1,20 @@
 """The port's HTTP server (stdlib ThreadingHTTPServer over the BatchEngine)
-on the CPU: the cases of the JAX package's server tests except grammar and
-JSON modes (health, models, blocking and SSE chat, completions, error
-paths, concurrency, stop strings, n choices), plus: a greedy blocking chat
-returns exactly the port engine's greedy text for the rendered prompt, the
-SSE pieces join to that text, every option the port does not run yet gets
-a 501 JSON error naming it while the server keeps answering, a full queue
-gets a 503, and serve/main refuse to start without a card unless given the
-CPU. The OpenAI sampling options (logprobs in both wire forms, logit_bias,
-presence and frequency penalties) answer 200 in the JAX server's response
-shape for the same body (the JAX server runs beside the port's on the same
-GGUF), blocking and streamed, and their logprobs are those of the port
-engine's own greedy run.
+on the CPU: the cases of the JAX package's server tests (health, models,
+blocking and SSE chat, completions, error paths, concurrency, stop strings,
+n choices, grammar and JSON modes), plus: a greedy blocking chat returns
+exactly the port engine's greedy text for the rendered prompt, the SSE
+pieces join to that text, the structured-output options (grammar, regex,
+JSON and JSON Schema response formats) answer text that satisfies them
+while a malformed one gets a 400 naming it, a full queue gets a 503, and
+serve/main refuse to start without a card unless given the CPU. The OpenAI
+sampling options (logprobs in both wire forms, logit_bias, presence and
+frequency penalties) answer 200 in the JAX server's response shape for the
+same body (the JAX server runs beside the port's on the same GGUF),
+blocking and streamed, and their logprobs are those of the port engine's
+own greedy run.
 """
 import json
+import re
 import socket
 import threading
 import time
@@ -207,20 +209,53 @@ def test_n_stream_rejected(server):
     assert e.value.code == 400
 
 
+SCHEMA = {"type": "object", "properties": {"a": {"type": "integer"}, "b": {"type": "boolean"}},
+          "required": ["a", "b"]}
+
+
+def _json_dict(text) -> bool:
+    return isinstance(json.loads(text), dict)
+
+
+# each structured-output option: a body that asks for it, a check of the
+# text it answers, and a malformed body of the same option (a 400 naming it)
+STRUCTURED = [
+    ({"grammar": 'root ::= "ok:" [0-9]+'}, lambda t: re.fullmatch("ok:[0-9]+", t),
+     {"grammar": 'root ::= "unterminated'}),
+    ({"regex": "(yes|no)"}, lambda t: t in ("yes", "no"), {"regex": "(yes|no"}),
+    ({"response_format": {"type": "json_object"}}, _json_dict,
+     {"response_format": {"type": "json_objekt"}}),
+    ({"response_format": {"type": "json_schema", "json_schema": {"name": "t", "schema": SCHEMA}}},
+     lambda t: _json_dict(t) and {"a", "b"} <= set(json.loads(t)), {"response_format": {"type": "json_schema"}}),
+]
+
+
 @pytest.mark.parametrize("extra,name", [
-    ({"grammar": 'root ::= "ok"'}, "grammar"),
-    ({"regex": "(yes|no)"}, "regex"),
-    ({"response_format": {"type": "json_object"}}, "response_format 'json_object'"),
-    ({"response_format": {"type": "json_schema", "json_schema": {"schema": {}}}},
-     "response_format 'json_schema'"),
+    (STRUCTURED[0], "grammar"),
+    (STRUCTURED[1], "regex"),
+    (STRUCTURED[2], "response_format 'json_object'"),
+    (STRUCTURED[3], "response_format 'json_schema'"),
 ])
 def test_unported_options_get_a_named_error_and_the_server_keeps_serving(server, extra, name):
+    """The structured-output options answer 200, blocking and streamed,
+    with text that satisfies the constraint; a malformed one is a 400
+    whose message names the option, and the server keeps answering."""
     base, _ = server
+    body, ok, bad = extra
     for stream in (False, True):
+        req = dict(CHAT, stream=stream, temperature=0.8, seed=4, max_tokens=48, **body)
+        with _post(base, "/v1/chat/completions", req) as r:
+            assert r.status == 200
+            if stream:
+                chunks = [json.loads(e) for e in _sse_events(r)[:-1]]
+                text = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+            else:
+                text = json.loads(r.read())["choices"][0]["message"]["content"]
+        assert ok(text), (name, stream, text)
         with pytest.raises(urllib.error.HTTPError) as e:
-            _post(base, "/v1/chat/completions", dict(CHAT, stream=stream, **extra))
-        assert e.value.code == 501
-        assert name in json.loads(e.value.read())["error"]["message"]
+            _post(base, "/v1/chat/completions", dict(CHAT, stream=stream, **bad))
+        assert e.value.code == 400
+        assert name.split()[0] in json.loads(e.value.read())["error"]["message"]
     with _post(base, "/v1/chat/completions", CHAT) as r:  # still answering
         assert r.status == 200
 
