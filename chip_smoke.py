@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only build,serve,batch,profile --models E   # one model's path
     python3 chip_smoke.py --only build,options,eval   # the OpenAI options, sessions and eval on A / A8
     python3 chip_smoke.py --only build,constrained,spec   # constrained and speculative decoding on A
+    python3 chip_smoke.py --only build,serve,batch,profile,server,parity --models Q,P,M   # the families
 
 Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
@@ -22,7 +23,8 @@ Phases (each failure propagates, the exit code is then non-zero):
            K6 the same at every (K, N) of the path, the heads of models B,
            C and G, a g32 layer with mins, at rows 1, 2, 8, 16, 24, 32,
            64, 256 and 1024 (G's head at 1 and 8);
-           K2/K3/K4/K7 at head_dim 64 and 128; K8/K9 at
+           K2/K3/K4/K7 at head_dim 64, 96 and 128 (K2/K7 at GQA ratios
+           5, 6, 7 and 16: the families' heads); K8/K9 at
            the decode layouts of a batch-1 and a batch-8 routing and a
            256-token prefill chunk); the int8 KV cache's kernels on int8
            codes and scales from quantize_kv: K2-i8, K4-i8 and K7-i8 at the
@@ -113,7 +115,9 @@ Phases (each failure propagates, the exit code is then non-zero):
            copy again under NFAI_Q8V3=1 (its Q6_K layers on K12, its tied
            Q6_K head on K6); model E's 2-layer copy under NFAI_Q8V3=1:
            "headmajor" dense and paged on bf16 and int8 caches, "merged"
-           dense (K12, K4-hm, K4-hm-i8 and K4's merged variant)
+           dense (K12, K4-hm, K4-hm-i8 and K4's merged variant); the
+           families' 2-layer copies (Q, P, M; Q also on int8 caches), dense
+           and paged, each also against the CPU's f32 forward
   options  on model A's engine, with the counts zeroed: generate at batch 1
            with a +100 logit bias (its token forced on every greedy step),
            then a frequency penalty of 30 (the repeat broken within 4),
@@ -154,9 +158,10 @@ Phases (each failure propagates, the exit code is then non-zero):
 With only options, eval, constrained or spec (no serve or batch) the main
 path is model A (and A8 for options) alone; each needs serve's load of
 those engines, which runs.
-The main path is six models, A8 and E8, each driven by serve, batch and
-profile; A's and A8's engines then serve continuously batched traffic, and
-so do C's, G's, D's and E's:
+The main path is nine models, A8, E8 and Q8, each driven by serve, batch
+and profile; A's and A8's engines then serve continuously batched traffic,
+and so do C's, G's, D's, E's, Q's, P's and M's (the last three also one SSE
+chat and one completion over HTTP):
   A  the untied Q4_K Llama-3.2-1B in the JAX package's default
      configuration: every layer's MLP is one K5 launch (16 per decode
      step), no K6;
@@ -190,6 +195,21 @@ so do C's, G's, D's and E's:
      decode and K4's merged variant on the gathered pages;
   E8  model E's GGUF on a second engine with EngineConfig(kv_dtype="int8"),
      "headmajor": K4-hm's int8 entry point at prefill, K2-i8, the int8 store;
+  Q  qwen2 at Qwen2.5-1.5B's widths (hidden 1536, 28 layers, 12 / 2 heads
+     of 128: r = 6, ffn 8960, vocab 151936, tied, q/k/v biases), llama.cpp's
+     Q4_K_M mix, full depth: K1, K6 (the tied Q6_K head, the Q6_K attn_v /
+     ffn_down layers), K2/K4 at r = 6, q/k/v split on every layer with
+     their biases as plain adds (its profile runs again without them: what
+     they add a step); no K5 (down mixes kinds); Q8 the same GGUF on an int8
+     cache (K2-i8 / K4-i8 at r = 6);
+  P  phi3 at Phi-3-mini-4k's widths (hidden 3072, 32 / 32 heads of 96, ffn
+     8192, vocab 32064, untied), 8 of 32 layers (P_LAYERS), the Q4_K_M mix:
+     its pre-fused attn_qkv in Q5_K on K6, the [gate; up] ffn_up on K1,
+     K2/K4/K7 and the store at head_dim 96, the dense head (N = 32064 is
+     not a multiple of 128) on torch.matmul;
+  M  mistral at Mistral-7B-v0.3's widths (hidden 4096, 32 / 8 heads of 128,
+     ffn 14336, vocab 32768, NORM rope, untied), 8 of 32 layers (M_LAYERS),
+     plain Q4_K: K5 once a layer at a 7B width, K1 for wqkv, wo and the head;
   A8  model A's GGUF on a second engine with EngineConfig(kv_dtype="int8"),
      loaded after A's phases and freed before B: int8 codes with f32
      scales; per decode step K2-i8 once per layer, the int8 store once,
@@ -244,15 +264,23 @@ PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity", "
           "constrained", "spec")
 # main-path model -> make_llama_1b_gguf kind ("qwen3moe": make_qwen3moe_gguf)
 MODELS = {"A": "q4_k", "B": "q4_k_m", "C": "qwen3moe", "G": "gemma2_2b", "D": "f16",
-          "E": "llama_8b_q8_0"}
+          "E": "llama_8b_q8_0", "Q": "qwen2", "P": "phi3", "M": "mistral"}
 C_LAYERS = 8  # model C's depth: 8 of Qwen3-30B-A3B's 48 layers, every width kept
 E_LAYERS = 8  # model E's depth: 8 of Llama-3.1-8B's 32 layers, every width kept
 B_LAYERS = 8  # model B's depth, cut for the run's time: it repeats A's widths (16 layers)
+P_LAYERS = 8  # model P's depth: 8 of Phi-3-mini's 32 layers, every width kept
+M_LAYERS = 8  # model M's depth: 8 of Mistral-7B-v0.3's 32 layers, every width kept
+# the families' builders (nfai_tpu_torch.testing) and depths, by MODELS kind: Q at full depth
+FAMILY_BUILDERS = {"qwen2": ("make_qwen2_1_5b_gguf", None), "phi3": ("make_phi3_mini_gguf", P_LAYERS),
+                   "mistral": ("make_mistral_7b_gguf", M_LAYERS)}
+FAMILY_MODELS = {m: kind for m, kind in MODELS.items() if kind in FAMILY_BUILDERS}  # Q, P, M
 # model E runs under the JAX package's two opt-ins: NFAI_Q8V3=1 around its load,
 # and K4's layout per path ("headmajor" for its engine, "merged" for its server)
 E_LAYOUTS = {"E": "headmajor", "E8": "headmajor", "E server": "merged"}
 GEMMA3_PROMPT = 700  # the Gemma-3-1B copy's prompt: past its 512-token window
 PARITY_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied", "f16", "bf16", "llama_3b")
+# parity copies that also run their steps through the page pool (the families' too)
+PAGED_PARITY_KINDS = ("q4_k", "f16", "qwen2", "phi3", "mistral")
 DENSE_KINDS = ("f16", "bf16")  # every matmul weight dense: K11, no K1/K5/K6
 # parity copies that run again with every weight dequantized at load
 PARITY_PARAM_DTYPE = {"q4_k_m": "bfloat16"}
@@ -417,13 +445,21 @@ def _kernels_k1(torch, timer, gen) -> dict:
               "gate_up": (2048, 16384), "down": (8192, 2048), "lm_head": (2048, 128256),
               "C wq": (2048, 4096), "C wo": (4096, 2048),  # model C's head_dim-128 q and o
               "3B wqkv": (3072, 5120), "3B wo": (3072, 3072),  # the 3B's K = 3072 (K % 2048 != 0)
-              "G wqkv": (2304, 4096)}  # model G's K = 2304
+              "G wqkv": (2304, 4096),  # model G's K = 2304
+              # models Q (K = 1536; split q/k/v), P (K = 3072, its fused gate_up) and M (K = 4096,
+              # its Q4_K head of N = 32768): decode rows and the 8x128 chunk's (a head: 256)
+              "Q wq": (1536, 1536), "Q wk/wv": (1536, 256), "Q gate_up": (1536, 17920),
+              "Q down": (8960, 1536), "P wo": (3072, 3072), "P gate_up": (3072, 16384),
+              "M wqkv": (4096, 6144), "M lm_head": (4096, 32768)}
     cases = []
     for label, (k, n) in shapes.items():
         w = _q4_weight(torch, n, k, gen)
         wd = dequant(w).to(bf)
         verify = (9, 72) if label in ("wqkv", "wo", "lm_head") else ()  # a verify forward's B x 9 rows
-        for m in (1, 8, 16, 24, 32, 64, 256) + verify + (() if label == "lm_head" else (1024,)):
+        rows = (1, 8, 16, 24, 32, 64, 256) + verify + (() if label == "lm_head" else (1024,))
+        if label[:2] in ("Q ", "P ", "M "):
+            rows = (1, 8, 256) if label.endswith("head") else (1, 8, 1024)
+        for m in rows:
             x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
             got = qm.q4_matmul(x, w)
             torch.cuda.synchronize()
@@ -601,8 +637,9 @@ def _kernels_k5(torch, timer, gen) -> dict:
     # (the 8x128 chunk)) and at the 3B's (K = H = 3072, rows 1, 8, 256)
     cases = []
     # (and 9, 72: a verify forward's B x 9 rows at batch 1 and 8)
+    # (and model M's, K = H = 4096, F = 14336: Mistral-7B's MLP, rows 1, 8, 256, 1024)
     for k, f, h, rows in ((2048, 8192, 2048, (1, 2, 8, 9, 16, 17, 32, 64, 72, 256, 1024)),
-                          (3072, 8192, 3072, (1, 8, 256))):
+                          (3072, 8192, 3072, (1, 8, 256)), (4096, 14336, 4096, (1, 8, 256, 1024))):
         gu, dn = _q4_weight(torch, 2 * f, k, gen), _q4_weight(torch, h, f, gen)
 
         def replaced_route(x):  # what K5 replaces: K1 gate_up, silu * up, K1 down
@@ -623,7 +660,7 @@ def _kernels_k5(torch, timer, gen) -> dict:
             route_ms = timer(lambda: replaced_route(x))
             nbytes = m * k * 2 + (2 * f * k + h * f) * 3 // 4 + m * h * 2
             b, by = bound_ms(nbytes, 2.0 * m * k * 2 * f + 2.0 * m * f * h)
-            cases.append(dict(shape=f"M={m}" + ("" if k == 2048 else f" H={h}"), max_abs_err=err,
+            cases.append(dict(shape=f"M={m}" + ("" if k == 2048 else f" H={h} F={f}"), max_abs_err=err,
                               ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
                               replaced_route_ms=route_ms))
             log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, "
@@ -656,14 +693,25 @@ def _kernels_k6(torch, timer, gen) -> dict:
               "Q8_0 down": (8192, 2048, 32, 127, False), "Q6_K wv": (2048, 512, 16, 32, False),
               "Q6_K w_down": (8192, 2048, 16, 32, False),
               "G Q6_K ffn_down": (9216, 2304, 16, 32, False),
-              "Q5_K wqkv (mins)": (2048, 3072, 32, 127, True)}
+              "Q5_K wqkv (mins)": (2048, 3072, 32, 127, True),
+              # model Q's tied Q6_K head (N = 151936) and ffn_down (K = 8960); model P's
+              # Q5_K attn_qkv (g32 with mins, 9216 x 3072) and Q6_K ffn_down; a Q6_K
+              # head at P's N = 32064, not a multiple of 128 (P's own head is dense by
+              # the JAX `quantizable` rule: this row checks the tiles' ragged N edge)
+              "Q Q6_K head": (1536, 151936, 16, 32, False), "Q Q6_K ffn_down": (8960, 1536, 16, 32, False),
+              "P Q5_K attn_qkv (mins)": (3072, 9216, 32, 127, True),
+              "P Q6_K ffn_down": (8192, 3072, 16, 32, False),
+              "N=32064 Q6_K head": (3072, 32064, 16, 32, False)}
     cases = []
     for label, (k, n, group, qmax, with_mins) in shapes.items():
         w = _q8_weight(torch, n, k, group, qmax, gen, with_mins=with_mins)
         wd = dequant(w).to(bf)
         rows = ((1, 8) if label.startswith("G") and label.endswith("head")
+                else (1, 8, 256) if label[:2] in ("Q ", "P ", "N=")
                 else (1, 2, 8, 16, 24, 32, 64, 256) if label.endswith("head")
                 else (1, 2, 8, 16, 24, 32, 64, 256, 1024))
+        if label.startswith("P ") and not label.endswith("head"):
+            rows += (1024,)
         if label in ("Q6_K head", "Q8_0 wqkv"):
             rows += (9, 72)  # a verify forward's B x 9 rows
         for m in rows:
@@ -916,19 +964,23 @@ def _k10(torch, timer, gen) -> dict:
 
 
 # the store's dense decode cases: (label, L, B, Hkv, D, S) of models A (and A8), C and G
-STORE_STEP_CASES = (("A", 16, 8, 8, 64, 1024), ("C", 8, 8, 4, 128, 1024), ("G", 26, 8, 4, 256, 1024))
+STORE_STEP_CASES = (("A", 16, 8, 8, 64, 1024), ("C", 8, 8, 4, 128, 1024), ("G", 26, 8, 4, 256, 1024),
+                    ("Q", 28, 8, 2, 128, 1024), ("P", 8, 8, 32, 96, 1024))
 # its dense prefill cases, one layer: (label, B, T, Hkv, D, S, offset); A's batch-1
 # chunk at S - 128 keeps 128 of its 256 rows (the rest are dropped)
 # (and a verify forward's 9 rows a lane at batch 8, its last lane frozen at S:
 # all of its rows are dropped)
 STORE_CHUNK_CASES = (("A 8x128", 8, 128, 8, 64, 1024, 0), ("A B=1 T=256 tail", 1, 256, 8, 64, 1024, 896),
                      ("C B=1 T=256", 1, 256, 4, 128, 1024, 256), ("G 8x128", 8, 128, 4, 256, 1024, 0),
-                     ("A verify B=8 T=9", 8, 9, 8, 64, 1024, 500))
+                     ("A verify B=8 T=9", 8, 9, 8, 64, 1024, 500), ("P 8x128", 8, 128, 32, 96, 1024, 0),
+                     ("P B=1 T=256 tail", 1, 256, 32, 96, 1024, 896))
 # its paged cases, one layer: (label, B, T, Hkv, D, page size); a row of every
 # case lands on a page outside the pool and is dropped
 STORE_PAGED_CASES = (("A decode ps=128", 8, 1, 8, 64, 128), ("A decode ps=16", 8, 1, 8, 64, 16),
                      ("A chunk B=1 T=256", 1, 256, 8, 64, 128), ("C decode", 8, 1, 4, 128, 128),
-                     ("G decode", 8, 1, 4, 256, 128), ("A verify B=8 T=9 ps=16", 8, 9, 8, 64, 16))
+                     ("G decode", 8, 1, 4, 256, 128), ("A verify B=8 T=9 ps=16", 8, 9, 8, 64, 16),
+                     ("P decode", 8, 1, 32, 96, 128), ("P chunk B=1 T=256", 1, 256, 32, 96, 128),
+                     ("Q decode ps=16", 8, 1, 2, 128, 16))
 
 
 def _equal(name, got, want) -> float:
@@ -1242,6 +1294,15 @@ def _record(timer, results, name, label, err, run, plain, lib, nbytes, flops, li
     log(f"    {ms:.4f} ms (bound {bb:.4f} by {by}, plain {plain_ms:.3f}, {library} {lib_ms:.4f})")
 
 
+# K2 / K7 at the GQA ratios and head width of the families PR 21 added:
+# (label, Hq, Hkv, D): Qwen2.5-1.5B's 12 / 2 (r = 6, model Q), Qwen2.5-7B's
+# 28 / 4 (r = 7), Qwen3-14B's 40 / 8 (r = 5), Qwen3-235B-A22B's 64 / 4
+# (r = 16: two groups of 8 head columns) at head_dim 128, and Phi-3-mini's
+# 32 / 32 at head_dim 96 (model P)
+FAMILY_HEADS = (("Qwen2.5-1.5B", 12, 2, 128), ("Qwen2.5-7B", 28, 4, 128), ("Qwen3-14B", 40, 8, 128),
+                ("Qwen3-235B", 64, 4, 128), ("Phi-3-mini", 32, 32, 96))
+
+
 def _gemma_k2(torch, timer, gen, results) -> None:
     """K2 (and, in `_gemma_k7`, K7) at head_dim 256 with Gemma's options,
     bf16 and int8 (the int8 entry points on quantize_kv codes), appended to
@@ -1255,20 +1316,29 @@ def _gemma_k2(torch, timer, gen, results) -> None:
     with every row full; the bound counts the bytes and operations of the
     keys the window leaves visible. Yardstick: SDPA over the visible keys
     (int8: dequantized first; K7: the pages gathered first), without the
-    softcap, which SDPA does not take."""
+    softcap, which SDPA does not take. Then the families' rows
+    (FAMILY_HEADS, batch 8, 1023 keys, no options)."""
+    rows = [(f"D=256 {heads} heads", *GEMMA_HEADS[heads], 256, b, s, start, cap, win)
+            for heads, b, s, start, cap, win in (
+                ("G", 8, 1024, 1023, 50.0, 0), ("G", 8, 1024, 1023, 50.0, 4096),
+                ("G", 8, 4096, 4000, 50.0, 0), ("G", 8, 4096, 4000, 50.0, 512),
+                ("3-1B", 8, 1024, 1023, 0.0, 512), ("3-1B", 8, 4096, 4000, 0.0, 0),
+                ("3-1B", 8, 4096, 4000, 0.0, 512), ("2B", 8, 1024, 1023, 0.0, 0))]
+    rows += [(f"D={d} {name} heads", hq, hkv, d, 8, 1024, 1023, 0.0, 0) for name, hq, hkv, d in FAMILY_HEADS]
+    _decode_rows(torch, timer, gen, results, rows)
+
+
+def _decode_rows(torch, timer, gen, results, rows) -> None:
+    """K2 and K2-i8 at `rows` ((label, Hq, Hkv, D, B, S, start, softcap,
+    window)): checked per row against the plain version (ragged starts),
+    the same bits on three launches, then timed with every row full."""
     import torch.nn.functional as nnf
 
     from nfai_tpu_torch.models.llama import dequant_kv
     from nfai_tpu_torch.ops import fused_decode as fd
 
-    bf, d = torch.bfloat16, 256
-
-    # K2 / K2-i8: (heads, B, S, start, softcap, window)
-    for heads, b, s, start, cap, win in (("G", 8, 1024, 1023, 50.0, 0), ("G", 8, 1024, 1023, 50.0, 4096),
-                                         ("G", 8, 4096, 4000, 50.0, 0), ("G", 8, 4096, 4000, 50.0, 512),
-                                         ("3-1B", 8, 1024, 1023, 0.0, 512), ("3-1B", 8, 4096, 4000, 0.0, 0),
-                                         ("3-1B", 8, 4096, 4000, 0.0, 512), ("2B", 8, 1024, 1023, 0.0, 0)):
-        hq, hkv = GEMMA_HEADS[heads]
+    bf = torch.bfloat16
+    for heads, hq, hkv, d, b, s, start, cap, win in rows:
         kvd = hkv * d
         kf = torch.randn(2, b, s, kvd, device="cuda", dtype=bf, generator=gen)
         vf = torch.randn(2, b, s, kvd, device="cuda", dtype=bf, generator=gen)
@@ -1286,13 +1356,19 @@ def _gemma_k2(torch, timer, gen, results) -> None:
                 sc, name = dict(k_scales=ks, v_scales=vs), "decode_attention_i8"
             else:
                 kc, vc, ks, vs, sc, name = kf, vf, None, None, {}, "decode_attention"
-            label = (f"D=256 {heads} heads Hq={hq} Hkv={hkv} B={b} S={s} start={start} softcap={cap:g} "
-                     f"window={win}")
-            got = fd.layered_decode_attention(q, kn, vn, kc, vc, 1, starts, d**-0.5, softcap=cap, window=win, **sc)
+            label = f"{heads} Hq={hq} Hkv={hkv} B={b} S={s} start={start} softcap={cap:g} window={win}"
+
+            def run(st):
+                return fd.layered_decode_attention(q, kn, vn, kc, vc, 1, st, d**-0.5, softcap=cap,
+                                                   window=win, **sc)
+
+            got = run(starts)
             torch.cuda.synchronize()
             lsc = (ks[1], vs[1]) if quant else (None, None)
-            err = check(f"{'K2-i8' if quant else 'K2'} {label}", got, fd.decode_attention_plain(
-                q, kn, vn, kc[1], vc[1], starts, d**-0.5, *lsc, cap, win), row_dims=1)
+            err = check(f"{'K2-i8' if quant else 'K2'} {label} split {_split_of(torch, b, hkv, s, d)}", got,
+                        fd.decode_attention_plain(q, kn, vn, kc[1], vc[1], starts, d**-0.5, *lsc, cap, win),
+                        row_dims=1)
+            same_bits(f"{'K2-i8' if quant else 'K2'} {label}", got, lambda: run(starts))
 
             def lib():  # the visible keys (dequantized for int8) and the new one, SDPA
                 if quant:
@@ -1302,14 +1378,13 @@ def _gemma_k2(torch, timer, gen, results) -> None:
                     kd, vd = kc[1, :, first:start], vc[1, :, first:start]
                 kd = torch.cat([kd, kn[:, None]], 1).view(b, vis + 1, hkv, d).transpose(1, 2)
                 vd = torch.cat([vd, vn[:, None]], 1).view(b, vis + 1, hkv, d).transpose(1, 2)
-                return nnf.scaled_dot_product_attention(q[:, :, None], kd, vd, scale=d**-0.5, enable_gqa=True)
+                return nnf.scaled_dot_product_attention(q[:, :, None], kd, vd, scale=d**-0.5,
+                                                        enable_gqa=True)
 
             elem = 1 if quant else 2
             nbytes = 2 * (2 * b * hq * d + 2 * b * kvd) + 2 * b * vis * kvd * elem + (
                 2 * 4 * b * hkv * vis if quant else 0)
-            _record(timer, results, name, label, err,
-                    lambda: fd.layered_decode_attention(q, kn, vn, kc, vc, 1, starts_t, d**-0.5,
-                                                        softcap=cap, window=win, **sc),
+            _record(timer, results, name, label, err, lambda: run(starts_t),
                     lambda: fd.decode_attention_plain(q, kn, vn, kc[1], vc[1], starts_t, d**-0.5, *lsc,
                                                       cap, win),
                     lib, nbytes, 4.0 * b * hq * (vis + 1) * d,
@@ -1320,20 +1395,29 @@ def _gemma_k2(torch, timer, gen, results) -> None:
 
 def _gemma_k7(torch, timer, gen, results) -> None:
     """K7 and K7-i8 at head_dim 256 with Gemma's options (see `_gemma_k2`),
-    through shuffled tables of 128-slot pages."""
+    through shuffled tables of 128-slot pages; then the families' rows
+    (FAMILY_HEADS, batch 8, ragged lengths up to 1024)."""
+    ragged = [1, 127, 128, 129, 500, 777, 1000, 1024]
+    rows = [(f"D=256 {heads} heads", *GEMMA_HEADS[heads], 256, b, ps, lens, cap, win)
+            for heads, b, ps, lens, cap, win in (
+                ("G", 8, 128, [1024] * 8, 50.0, 0), ("G", 8, 128, ragged, 50.0, 4096),
+                ("G", 8, 128, [4000] * 8, 50.0, 0), ("G", 8, 128, [4000] * 8, 50.0, 512),
+                ("3-1B", 8, 128, ragged, 0.0, 512), ("3-1B", 8, 128, [4000] * 8, 0.0, 0),
+                ("3-1B", 8, 128, [4000] * 8, 0.0, 512), ("2B", 8, 128, [1024] * 8, 0.0, 0))]
+    rows += [(f"D={d} {name} heads", hq, hkv, d, 8, 128, ragged, 0.0, 0) for name, hq, hkv, d in FAMILY_HEADS]
+    _paged_rows(torch, timer, gen, results, rows)
+
+
+def _paged_rows(torch, timer, gen, results, rows) -> None:
+    """K7 and K7-i8 at `rows` ((label, Hq, Hkv, D, B, page size, lengths,
+    softcap, window)) through shuffled tables: checked per row against the
+    plain version, the same bits on three launches, timed."""
     import torch.nn.functional as nnf
 
     from nfai_tpu_torch.ops import paged_attention as pga
 
-    bf, d = torch.bfloat16, 256
-
-    # K7 / K7-i8: (heads, B, ps, lengths, softcap, window)
-    ragged = [1, 127, 128, 129, 500, 777, 1000, 1024]
-    for heads, b, ps, lens, cap, win in (("G", 8, 128, [1024] * 8, 50.0, 0), ("G", 8, 128, ragged, 50.0, 4096),
-                                         ("G", 8, 128, [4000] * 8, 50.0, 0), ("G", 8, 128, [4000] * 8, 50.0, 512),
-                                         ("3-1B", 8, 128, ragged, 0.0, 512), ("3-1B", 8, 128, [4000] * 8, 0.0, 0),
-                                         ("3-1B", 8, 128, [4000] * 8, 0.0, 512), ("2B", 8, 128, [1024] * 8, 0.0, 0)):
-        hq, hkv = GEMMA_HEADS[heads]
+    bf = torch.bfloat16
+    for heads, hq, hkv, d, b, ps, lens, cap, win in rows:
         n_p = -(-max(lens) // ps)
         n_pages = b * n_p + 16
         kf = torch.randn(hkv, n_pages, ps, d, device="cuda", dtype=bf, generator=gen)
@@ -1353,14 +1437,16 @@ def _gemma_k7(torch, timer, gen, results) -> None:
                 sc, name = dict(k_scales=ksp, v_scales=vsp), "paged_attention_i8"
             else:
                 kp, vp, ksp, vsp, sc, name = kf, vf, None, None, {}, "paged_attention"
-            label = f"D=256 {heads} heads Hq={hq} Hkv={hkv} B={b} ps={ps} lengths={lens[0]}..{lens[-1]} " \
+            label = f"{heads} Hq={hq} Hkv={hkv} B={b} ps={ps} lengths={lens[0]}..{lens[-1]} " \
                     f"softcap={cap:g} window={win}"
             run = lambda: pga.paged_decode_attention(q, kp, vp, tables, lengths, d**-0.5, softcap=cap, window=win, **sc)  # noqa: E731
             got = run()
             torch.cuda.synchronize()
             plain = lambda: pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, d**-0.5, ksp, vsp,  # noqa: E731
                                                              cap, win)
-            err = check(f"{'K7-i8' if quant else 'K7'} {label}", got, plain(), row_dims=1)
+            tag = f"{'K7-i8' if quant else 'K7'} {label}"
+            err = check(f"{tag} split {_split_of(torch, b, hkv, s, d)}", got, plain(), row_dims=1)
+            same_bits(tag, got, run)
 
             def lib():
                 kg, vg = kp[:, tl], vp[:, tl]
@@ -1600,7 +1686,10 @@ K4_CASES = (("A", 32, 8, 64, 1, 256, 1024, 0), ("A", 32, 8, 64, 1, 256, 1024, 25
             ("A", 32, 8, 64, 1, 16, 1024, 1000),
             ("C", 32, 4, 128, 1, 256, 1024, 0), ("C", 32, 4, 128, 1, 256, 1024, 256),
             ("C", 32, 4, 128, 8, 128, 1024, 0), ("E", 32, 8, 128, 8, 128, 1024, 0),
-            ("3B", 24, 8, 128, 1, 256, 1024, 256))
+            ("3B", 24, 8, 128, 1, 256, 1024, 256),
+            ("Q", 12, 2, 128, 8, 128, 1024, 0), ("Q", 12, 2, 128, 1, 256, 1024, 256),
+            ("P", 32, 32, 96, 8, 128, 1024, 0), ("P", 32, 32, 96, 1, 256, 1024, 256),
+            ("D=96 r=6", 12, 2, 96, 1, 256, 1024, 256), ("M", 32, 8, 128, 8, 128, 1024, 0))
 # K4 at head_dim 256 (heads of GEMMA_HEADS, B, T, S, offset, softcap,
 # window): model G's with softcap 50 at chunks of 256 (window 4096 and, at
 # offset 768, 512: the window bites) and the 8 x 128 prefill; Gemma-3-1B's
@@ -1770,7 +1859,9 @@ LAYOUT_CASES = (("E B=8 T=128", 32, 8, 128, 8, 128, 1024, 0, 0.0, 0),
                 ("E B=1 T=256 offset 256", 32, 8, 128, 1, 256, 1024, 256, 0.0, 0),
                 ("A D=64 B=1 T=256 offset 256", 32, 8, 64, 1, 256, 1024, 256, 0.0, 0),
                 ("G D=256 softcap window B=1 T=256 offset 768", 8, 4, 256, 1, 256, 1024, 768,
-                 50.0, 512))
+                 50.0, 512),
+                ("P D=96 B=1 T=256 offset 256", 32, 32, 96, 1, 256, 1024, 256, 0.0, 0),
+                ("D=96 r=6 B=8 T=128", 12, 2, 96, 8, 128, 1024, 0, 0.0, 0))
 
 
 def _k4_layouts(torch, timer, gen) -> dict:
@@ -2251,6 +2342,8 @@ def phase_parity(torch, path2, kind, kv_dtypes=("auto",), param_dtype="auto", q8
     out = {name if kv == "auto" else f"{name} {kv}": _parity_run(
         torch, engines, ids, kind, kv == "int8", dense=kind in DENSE_KINDS or param_dtype != "auto")
         for kv in kv_dtypes}
+    if kind in FAMILY_BUILDERS:
+        out[name]["f32_witness"] = _f32_witness(torch, engines, path2, ids, name)
     if q8v3:  # B's mix: the Q6_K layers of its LayerLists on K12, the tied Q6_K head on K6
         from nfai_tpu_torch.ops.qtensor import LayerList, Q8Tensor, Q8V3Tensor
 
@@ -2264,6 +2357,37 @@ def phase_parity(torch, path2, kind, kv_dtypes=("auto",), param_dtype="auto", q8
                 or launches["q8v3_matmul"] <= 0 or launches["q8_matmul"] <= 0:
             raise AssertionError(f"{name}: the Q6_K layers are not on K12 or the tied head not on K6")
     return out
+
+
+def _f32_witness(torch, engines, path2, ids, name) -> dict:
+    """How far a family copy's two bf16 forwards (the card's kernels, the
+    CPU's plain versions) each sit from the exact function: prefill logits
+    and 4 teacher-forced decode steps against the CPU's f32 forward of the
+    same file. Each card output is held to the larger of TOL and 1.5 x the
+    CPU bf16 forward's own distance (tests/test_torch_cuda.py's rule)."""
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.models import KVCache, decode_step
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    runs = dict(engines, f32=InferenceEngine(path2, EngineConfig(max_seq_len=256, dtype="float32"),
+                                             device="cpu"))
+    outs = {}
+    for run, e in runs.items():
+        cache = KVCache.zeros(e.model_cfg, 1, 256, e.cache_dtype, e.device)
+        logits, cache = e.prefill(cache, ids)
+        outs[run], pos = [logits.float().cpu()], len(ids)
+        for tok in (17, 99, 200, 42):
+            logits, cache = decode_step(e.params, e.model_cfg, torch.tensor([tok], device=e.device),
+                                        torch.tensor([pos], device=e.device), cache)
+            outs[run].append(logits.float().cpu())
+            pos += 1
+    card = [errors(g, w)[1] for g, w in zip(outs["cuda"], outs["f32"])]
+    cpu = [errors(g, w)[1] for g, w in zip(outs["cpu"], outs["f32"])]
+    log(f"  {name} against the CPU's f32 forward (prefill, 4 decode steps): card bf16 "
+        f"{[f'{x:.3e}' for x in card]}, CPU bf16 {[f'{x:.3e}' for x in cpu]}")
+    if any(not c < max(TOL, 1.5 * p) for c, p in zip(card, cpu)):
+        raise AssertionError(f"{name}: the card sits farther from f32 than 1.5 x the CPU's bf16 forward")
+    return dict(card_vs_f32=max(card), cpu_bf16_vs_f32=max(cpu))
 
 
 def _parity_run(torch, engines, ids, kind, quant, dense=False) -> dict:
@@ -2306,7 +2430,7 @@ def _parity_run(torch, engines, ids, kind, quant, dense=False) -> dict:
                 torch.tensor([t - 1], device=dev),
                 KVCache.zeros(e.model_cfg, 1, 1152, e.cache_dtype, e.device))
         compare(f"prefill logits ({t} rows in one chunk: mlp_prefill)", logits)
-    if kind in ("q4_k", "f16"):
+    if kind in PAGED_PARITY_KINDS:
         _paged_parity(torch, engines, ids, compare, quant)
     launches = {k.name: k.launches - before[k.name] for k in KERNELS.values()}
     if dense:  # every matmul weight dense: K11 and no dequant-matmul kernel
@@ -2317,7 +2441,7 @@ def _parity_run(torch, engines, ids, kind, quant, dense=False) -> dict:
     if quant:
         log(f"  {tag} launches: {launches}")
         want = ("decode_attention_i8", "prefill_attention_i8", "kv_store") + (
-            ("paged_attention_i8", "kv_store_paged") if kind in ("q4_k", "f16") else ())
+            ("paged_attention_i8", "kv_store_paged") if kind in PAGED_PARITY_KINDS else ())
         if any(launches[n] <= 0 for n in want) or launches["decode_attention"] or launches["paged_attention"]:
             raise AssertionError(f"the {tag} copy did not take the int8 routes: {launches}")
     if kind == "llama_3b":  # K = 3072, head_dim 128; K5 where mlp_eligible takes H = 3072
@@ -4073,6 +4197,36 @@ ROUTES = {
                  {"decode_attention", "kv_store", "q4_matmul", "q8_matmul", "fused_mlp",
                   "dense_matmul", "prefill_attention_hm", "prefill_attention_hm_i8",
                   "grouped_q4", "grouped_q8"} | INT8),
+    # model Q (qwen2 at Qwen2.5-1.5B's widths, Q4_K_M): K1 for the Q4_K parts, K6 for the
+    # tied Q6_K head and the Q6_K attn_v / ffn_down layers; K2/K4 at r = 6, D = 128; no K5
+    # (down mixes kinds); the q/k/v biases are plain adds
+    "Q": ({"q4_matmul", "q8_matmul", "decode_attention", "kv_store", "prefill_attention"},
+          {"fused_mlp", "dense_matmul", "paged_attention", "grouped_q4", "grouped_q8", "kv_store_paged"}
+          | INT8),
+    "Q8": ({"q4_matmul", "q8_matmul", "decode_attention_i8", "kv_store", "prefill_attention_i8"},
+           {"decode_attention", "prefill_attention", "paged_attention", "paged_attention_i8", "fused_mlp",
+            "dense_matmul", "grouped_q4", "grouped_q8", "kv_store_paged"}),
+    # model P (phi3 at Phi-3-mini's widths): K6 for the Q5_K attn_qkv and the Q6_K down
+    # layers, K1 for wo, the Q4_K gate_up and down layers; the dense head (N = 32064) is
+    # torch.matmul; K2/K4/K7 and the store at D = 96
+    "P": ({"q4_matmul", "q8_matmul", "decode_attention", "kv_store", "prefill_attention"},
+          {"fused_mlp", "dense_matmul", "paged_attention", "grouped_q4", "grouped_q8", "kv_store_paged"}
+          | INT8),
+    # model M (mistral at Mistral-7B-v0.3's widths, plain Q4_K): K1 and K5, no K6
+    "M": ({"q4_matmul", "fused_mlp", "decode_attention", "kv_store", "prefill_attention"},
+          {"q8_matmul", "dense_matmul", "paged_attention", "grouped_q4", "grouped_q8", "kv_store_paged"}
+          | INT8),
+    # their server paths: the paged BatchEngine and HTTP requests (K7 at decode, K4 on the
+    # gathered pages, the paged store)
+    "Q server": ({"q4_matmul", "q8_matmul", "paged_attention", "prefill_attention", "kv_store_paged"},
+                 {"decode_attention", "kv_store", "fused_mlp", "dense_matmul", "grouped_q4", "grouped_q8"}
+                 | INT8),
+    "P server": ({"q4_matmul", "q8_matmul", "paged_attention", "prefill_attention", "kv_store_paged"},
+                 {"decode_attention", "kv_store", "fused_mlp", "dense_matmul", "grouped_q4", "grouped_q8"}
+                 | INT8),
+    "M server": ({"q4_matmul", "fused_mlp", "paged_attention", "prefill_attention", "kv_store_paged"},
+                 {"decode_attention", "kv_store", "q8_matmul", "dense_matmul", "grouped_q4", "grouped_q8"}
+                 | INT8),
 }
 # the OpenAI options and sessions run the routes of the engines they use:
 # generate and ChatSession on A's and A8's dense caches, the BatchEngine and
@@ -4117,6 +4271,13 @@ VARIANTS = {
     "E": {"prefill_attention_hm": ("D=128",)},
     "E8": {"prefill_attention_hm_i8": ("D=128",), "kv_store": ("int8 D=128",)},
     "E server": {"prefill_attention": ("merged D=128",)},
+    "Q": {"decode_attention": ("D=128",), "kv_store": ("bf16 D=128",)},
+    "Q8": {"decode_attention_i8": ("D=128",), "prefill_attention_i8": ("D=128",), "kv_store": ("int8 D=128",)},
+    "Q server": {"paged_attention": ("D=128",), "kv_store_paged": ("bf16 D=128",)},
+    "P": {"decode_attention": ("D=96",), "prefill_attention": ("D=96",), "kv_store": ("bf16 D=96",)},
+    "P server": {"paged_attention": ("D=96",), "prefill_attention": ("D=96",), "kv_store_paged": ("bf16 D=96",)},
+    "M": {"decode_attention": ("D=128",), "kv_store": ("bf16 D=128",)},
+    "M server": {"paged_attention": ("D=128",), "kv_store_paged": ("bf16 D=128",)},
 }
 
 
@@ -4189,6 +4350,87 @@ def _check_e_step(engine, batch, quant=False) -> None:
                              f"{want_chunk} and none")
 
 
+def _expected_matmuls(engine) -> dict[str, int]:
+    """The dequant-matmul and fused-MLP launches a decode step implies from
+    the containers loaded: per layer one launch a projection stack (K1 for
+    a 4-bit layer, K6 for an 8-bit one; a LayerList by each layer's kind),
+    K5 once a layer in place of gate_up and down where the pair is fused,
+    and the head's (none for a dense head: torch.matmul)."""
+    from nfai_tpu_torch.ops.qtensor import LayerList, Q4Tensor, Q8Tensor
+
+    lp, n = engine.params["layers"], engine.model_cfg.n_layers
+    fused = engine.params["fused_mlp"]
+    want = {"q4_matmul": 0, "q8_matmul": 0, "fused_mlp": n if fused else 0}
+
+    def tally(w, times=1):
+        if isinstance(w, Q4Tensor):
+            want["q4_matmul"] += times
+        elif isinstance(w, Q8Tensor):
+            want["q8_matmul"] += times
+
+    for key, w in lp.items():
+        if key.endswith(("norm", "bias")) or (fused and key in ("w_gate_up", "w_down")):
+            continue
+        if isinstance(w, LayerList):
+            for it in w.items:
+                tally(it)
+        else:
+            tally(w, n)
+    tally(engine.params["lm_head"])
+    return want
+
+
+def _check_family_step(engine, label, batch) -> None:
+    """Models Q (and Q8 on its int8 cache), P and M: a decode step launches
+    K2 (K2-i8) once a layer, the store once and the matmuls its containers
+    imply (`_expected_matmuls`), no K11 and no host sync; and each loaded
+    what its file holds: Q its q/k/v split on every layer (attn_v mixes
+    Q4_K and Q6_K) with the three biases, r = 6 at D = 128; P its Q5_K
+    attn_qkv on K6, a dense head, D = 96; M the fused MLP (K5)."""
+    import torch
+
+    from nfai_tpu_torch.ops.qtensor import Q8Tensor
+
+    cfg, lp, n = engine.model_cfg, engine.params["layers"], engine.model_cfg.n_layers
+    step = batch["launches_per_step"]
+    i8 = "_i8" if label == "Q8" else ""
+    want = {f"decode_attention{i8}": n, "kv_store": 1, "dense_matmul": 0, **_expected_matmuls(engine)}
+    got = {k: step[k] for k in want}
+    log(f"  model {label} per decode step {got}; the route implies {want}")
+    if got != want or batch["host_syncs_per_step"] != 0:
+        raise AssertionError(f"model {label}: per decode step {got} and {batch['host_syncs_per_step']} host "
+                             f"syncs; the route implies {want} and none")
+    if label in ("Q", "Q8"):
+        ok = ("wqkv" not in lp and {"wq_bias", "wk_bias", "wv_bias"} <= set(lp)
+              and (cfg.n_heads // cfg.n_kv_heads, cfg.head_dim) == (6, 128))
+    elif label == "P":
+        ok = (isinstance(lp["wqkv"], Q8Tensor) and isinstance(engine.params["lm_head"], torch.Tensor)
+              and cfg.head_dim == 96 and "w_gate_up" in lp)
+    else:
+        ok = engine.params["fused_mlp"] and cfg.head_dim == 128 and not cfg.rope_neox
+    if not ok:
+        raise AssertionError(f"model {label} did not load what its file holds: {sorted(lp)}")
+
+
+def _bias_cost(torch, engine, state, with_biases) -> dict:
+    """Model Q's q/k/v biases (plain adds after the projections): the same
+    8 profiled decode steps again with the bias stacks taken out of the
+    params (put back after); the kernels and device ms a step they add."""
+    lp = engine.params["layers"]
+    saved = {k: lp.pop(k) for k in list(lp) if k.endswith("_bias")}
+    try:
+        without = phase_profile(torch, engine, state)
+    finally:
+        lp.update(saved)
+    out = dict(kernels_per_step=with_biases["kernels_per_step"] - without["kernels_per_step"],
+               device_ms_per_step=with_biases["device_ms_per_step"] - without["device_ms_per_step"],
+               wall_ms_per_step=with_biases["wall_ms_per_step"] - without["wall_ms_per_step"],
+               bias_stacks=sorted(saved))
+    log(f"  model Q biases ({', '.join(sorted(saved))}): +{out['kernels_per_step']:.1f} kernels a step, "
+        f"+{out['device_ms_per_step']:.4f} device ms, +{out['wall_ms_per_step']:.3f} wall ms")
+    return out
+
+
 def _paged_server_run(torch, engine, label) -> dict:
     """A paged BatchEngine on model C or G: 8 requests of 30-600 tokens, 32
     new tokens each, half greedy and half at temperature 0.8 with top_k 20
@@ -4228,10 +4470,14 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
     """Write the model's GGUF and drive it (`_drive_model`); model A's file
     then also serves A8, a second engine with the int8 KV cache. Returns
     the launch counts of each path."""
+    from nfai_tpu_torch import testing
     from nfai_tpu_torch.testing import make_gemma2_2b_gguf, make_llama_1b_gguf, make_qwen3moe_gguf
 
     t0 = time.perf_counter()
-    if kind == "qwen3moe":
+    if kind in FAMILY_BUILDERS:
+        builder, depth = FAMILY_BUILDERS[kind]
+        path = getattr(testing, builder)(os.path.join(tmp, f"{kind}.gguf"), n_layers=depth)
+    elif kind == "qwen3moe":
         path = make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe.gguf"), n_layers=C_LAYERS)
     elif kind == "gemma2_2b":
         path = make_gemma2_2b_gguf(os.path.join(tmp, "gemma2_2b.gguf"))
@@ -4243,7 +4489,7 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
     log(f"model {label} ({kind}): wrote {path.stat().st_size / 2**30:.2f} GiB GGUF "
         f"in {time.perf_counter() - t0:.1f}s")
     by_path = _drive_model(torch, kernels_mod, label, path, only, summary, phase_s)
-    if label in ("A", "E"):
+    if label in ("A", "E", "Q"):
         if {"serve", "batch", "profile", "server", "options"} & set(only):  # not for constrained/spec alone
             log(f"model {label}8 ({kind}, kv_dtype int8): a second engine on model {label}'s GGUF")
             by_path.update(_drive_model(torch, kernels_mod, f"{label}8", path, only, summary, phase_s,
@@ -4288,6 +4534,8 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
                     f"synchronised, batch phase; median of five {prof['median_wall_ms']:.1f}); device "
                     f"{prof['device_ms']:.2f} ms: "
                     + ", ".join(f"{f} {ms[f]:.4f} in {n} launches" for f, n in expect.items()))
+            if label == "Q":  # what the q/k/v biases add to a decode step
+                out["bias_cost"] = _bias_cost(torch, engine, state, out["profile"])
             if label == "A":  # K5 at M = 1024 (a layer's MLP), K1's tiles for wqkv and wo
                 n_layers = engine.model_cfg.n_layers
                 prof = out["prefill_profile"] = phase_profile_prefill(
@@ -4328,6 +4576,8 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
             _check_moe_step(engine, per_step)
         if label in ("E", "E8"):  # K12 for wqkv, wo, gate_up, down and the head; K4-hm once a layer a chunk
             _check_e_step(engine, out["batch"], quant=label == "E8")
+        if label in ("Q", "Q8", "P", "M"):
+            _check_family_step(engine, label, out["batch"])
         if label == "D":  # K11 for wqkv, wo, gate_up and down on every layer, nothing else
             want = {"dense_matmul": 4 * n_layers, "q4_matmul": 0, "q8_matmul": 0, "fused_mlp": 0}
             got = {k: per_step[k] for k in want}
@@ -4367,11 +4617,13 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
         summary["spec"], paths = phase_spec(torch, engine, kernels_mod, path)
         by_path.update(paths)
         phase_s["spec"] = time.perf_counter() - t0
-    if label in ("C", "G", "D", "E") and "server" in only:
+    if label in ("C", "G", "D", "E", "Q", "P", "M") and "server" in only:
         t0 = time.perf_counter()
         kernels_mod.reset_launches()
         with _Switches(layout=E_LAYOUTS.get(f"{label} server")):
             summary[f"server {label}"] = _paged_server_run(torch, engine, label)
+            if label in ("Q", "P", "M"):  # and the HTTP server: one SSE chat, one completion
+                summary[f"server {label}"]["http"] = _http_run(torch, engine, 2)
         by_path[f"{label} server"] = _check_route(kernels_mod, f"{label} server", f"model {label}'s server path")
         if label == "E":  # every K4 launch of the path on the merged-lane instance
             k4 = PATH_VARIANTS["E server"].get("prefill_attention", {})
@@ -4422,6 +4674,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from nfai_tpu_torch import kernels as kernels_mod
+    from nfai_tpu_torch import testing
     from nfai_tpu_torch.testing import (
         GEMMA3_1B_KINDS, make_gemma3_1b_gguf, make_llama_1b_gguf, make_qwen3moe_gguf,
     )
@@ -4456,7 +4709,9 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             summary["parity"] = {}
             timed = lambda name, t: phase_s.__setitem__(f"parity {name}", time.perf_counter() - t)  # noqa: E731
-            for kind in PARITY_KINDS:
+            # --models naming only the families' models: only their parity copies
+            families_only = set(models) <= set(FAMILY_MODELS)
+            for kind in () if families_only else PARITY_KINDS:
                 t1 = time.perf_counter()
                 path2 = make_llama_1b_gguf(os.path.join(tmp, f"llama1b_2l_{kind}.gguf"),
                                            kind=kind, n_layers=2)
@@ -4470,25 +4725,36 @@ def main(argv=None) -> int:
                     summary["parity"].update(phase_parity(torch, path2, kind, q8v3=True))
                 os.remove(path2)
                 timed(kind, t1)
-            t1 = time.perf_counter()
-            path2 = make_llama_1b_gguf(os.path.join(tmp, "llama8b_2l_q8_0.gguf"),
-                                       kind="llama_8b_q8_0", n_layers=2)
-            summary["parity"].update(phase_parity_e(torch, kernels_mod, path2))
-            os.remove(path2)
-            timed("E", t1)
-            t1 = time.perf_counter()
-            path2 = make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe_2l.gguf"), n_layers=2)
-            summary["parity"].update(phase_parity_moe(torch, path2, ("auto", "int8")))
-            summary["parity"].update(phase_parity_moe(torch, path2, param_dtype="bfloat16"))
-            os.remove(path2)
-            timed("qwen3moe", t1)
-            for kind in GEMMA3_1B_KINDS:
+            if not families_only:
+                t1 = time.perf_counter()
+                path2 = make_llama_1b_gguf(os.path.join(tmp, "llama8b_2l_q8_0.gguf"),
+                                           kind="llama_8b_q8_0", n_layers=2)
+                summary["parity"].update(phase_parity_e(torch, kernels_mod, path2))
+                os.remove(path2)
+                timed("E", t1)
+                t1 = time.perf_counter()
+                path2 = make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe_2l.gguf"), n_layers=2)
+                summary["parity"].update(phase_parity_moe(torch, path2, ("auto", "int8")))
+                summary["parity"].update(phase_parity_moe(torch, path2, param_dtype="bfloat16"))
+                os.remove(path2)
+                timed("qwen3moe", t1)
+            for kind in () if families_only else GEMMA3_1B_KINDS:
                 t1 = time.perf_counter()
                 path2 = make_gemma3_1b_gguf(os.path.join(tmp, f"gemma3_1b_2l_{kind}.gguf"),
                                             n_layers=2, kind=kind)
                 summary["parity"].update(phase_parity_gemma3(torch, kernels_mod, path2, kind))
                 os.remove(path2)
                 timed(f"gemma3 {kind}", t1)
+            for label, kind in FAMILY_MODELS.items():
+                if label not in models:
+                    continue
+                t1 = time.perf_counter()
+                path2 = getattr(testing, FAMILY_BUILDERS[kind][0])(os.path.join(tmp, f"{kind}_2l.gguf"),
+                                                                   n_layers=2)
+                summary["parity"].update(phase_parity(torch, path2, kind,
+                                                      ("auto", "int8") if label == "Q" else ("auto",)))
+                os.remove(path2)
+                timed(f"{label} ({kind})", t1)
             phase_s["parity"] = time.perf_counter() - t0
         log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "
             f"total {time.perf_counter() - t_all:.1f}")

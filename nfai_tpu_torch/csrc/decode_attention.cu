@@ -29,8 +29,9 @@
 // rows only; K7 takes its row's last key the same way, so the dense and
 // the paged decode give the same bits on the same keys. With a window, tiles wholly before lo are never read and the
 // first visited tile's keys before lo are zero-filled, not loaded.
-// r in {1, 2, 3, 4, 8} (a run-time value: the products always take 8 head
-// columns, zero past r); D = 64, 128 or 256, a template parameter.
+// 1 <= r <= 16 (a run-time value: the products take 8 head columns, or 16
+// in two groups past r = 8, zero past r); D = 64, 96, 128 or 256, a
+// template parameter.
 //
 // Softcap and sliding window (EXT, a template flag: the Llama and Qwen
 // launches compile none of it, as the JAX kernel makes `windowed` and
@@ -65,7 +66,7 @@ struct CacheRows {
 
 // KV: the cache element, __nv_bfloat16 or int8_t (then ks/vs are read);
 // EXT: softcap (> 0) and window (> 0) are read; c: the blocks of a cluster
-template <int D, typename KV, bool EXT>
+template <int D, typename KV, bool EXT, int HG>
 __global__ void __launch_bounds__(DA_THREADS)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
                    const __nv_bfloat16* __restrict__ k_new,  // [B, KVD]
@@ -89,15 +90,15 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
   const CacheRows<KV> rows{kc + head, vc + head, ks ? ks + srow : nullptr, vs ? vs + srow : nullptr, kvd};
   const size_t qo = ((size_t)b * hkv + h) * r * D, no = (size_t)b * kvd + h * D;
   const LastKey<__nv_bfloat16> last{k_new + no, v_new + no, 1.f, 1.f};  // the new token, at full precision
-  decode_attn_body<D, KV, EXT>(rows, last, q + qo, out + qo, r, lo, n_old, scale, softcap, c, smem);
+  decode_attn_body<D, KV, EXT, HG>(rows, last, q + qo, out + qo, r, lo, n_old, scale, softcap, c, smem);
 }
 
-template <int D, typename KV, bool EXT>
+template <int D, typename KV, bool EXT, int HG>
 int launch(const void* q, const void* k_new, const void* v_new, const void* kc, const void* vc,
            const void* ks, const void* vs, const void* starts, void* out, int B, int S, int hkv, int r,
            float scale, float softcap, int window, int c, cudaStream_t st) {
-  constexpr int smem = DaShape<D, std::is_same<KV, int8_t>::value>::SMEM;
-  const auto kernel = decode_attn_kernel<D, KV, EXT>;
+  constexpr int smem = DaShape<D, std::is_same<KV, int8_t>::value, HG>::SMEM;
+  const auto kernel = decode_attn_kernel<D, KV, EXT, HG>;
   static const cudaError_t attr = da_attributes(kernel, smem);  // once per instantiation
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -123,12 +124,20 @@ template <typename KV, bool EXT>
 int dispatch_d(const void* q, const void* k_new, const void* v_new, const void* kc, const void* vc,
                const void* ks, const void* vs, const void* starts, void* out, int B, int S, int hkv, int r,
                int d, float scale, float softcap, int window, int c, cudaStream_t st) {
-#define NFAI_LAUNCH(DD)                                                                                  \
-  return launch<DD, KV, EXT>(q, k_new, v_new, kc, vc, ks, vs, starts, out, B, S, hkv, r, scale, softcap, \
-                             window, c, st)
-  if (d == 64) NFAI_LAUNCH(64);
-  if (d == 128) NFAI_LAUNCH(128);
-  if (d == 256) NFAI_LAUNCH(256);
+#define NFAI_LAUNCH(DD, HG)                                                                              \
+  return launch<DD, KV, EXT, HG>(q, k_new, v_new, kc, vc, ks, vs, starts, out, B, S, hkv, r, scale, softcap, \
+                                 window, c, st)
+  // one group of 8 head columns for r <= 8, two for 9 <= r <= 16
+#define NFAI_LAUNCH_D(DD)     \
+  if (d == DD) {              \
+    if (r > 8) NFAI_LAUNCH(DD, 2); \
+    NFAI_LAUNCH(DD, 1);       \
+  }
+  NFAI_LAUNCH_D(64)
+  NFAI_LAUNCH_D(96)
+  NFAI_LAUNCH_D(128)
+  NFAI_LAUNCH_D(256)
+#undef NFAI_LAUNCH_D
 #undef NFAI_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -138,7 +147,7 @@ int dispatch(const void* q, const void* k_new, const void* v_new, const void* kc
              const void* ks, const void* vs, const void* starts, void* out, int B, int S, int hkv, int r,
              int d, float scale, float softcap, int window, int c, void* stream) {
   const auto misaligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) != 0; };
-  if (softcap < 0.f || window < 0 || r < 1 || r > 8 || !da_valid_split(c) || misaligned(q) ||
+  if (softcap < 0.f || window < 0 || r < 1 || r > 16 || !da_valid_split(c) || misaligned(q) ||
       misaligned(k_new) || misaligned(v_new) || misaligned(kc) || misaligned(vc) || misaligned(out))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || hkv <= 0) return static_cast<int>(cudaSuccess);
@@ -154,7 +163,7 @@ int dispatch(const void* q, const void* k_new, const void* v_new, const void* kc
 
 // q [B, Hq, D], k_new/v_new [B, Hkv*D], kc/vc [B, S, Hkv*D] (one layer),
 // starts [B] int32, out [B, Hq, D]; all bf16 except starts, 16-byte
-// aligned. D in {64, 128, 256}, r = Hq/Hkv in 1..8; softcap 0 = none,
+// aligned. D in {64, 96, 128, 256}, r = Hq/Hkv in 1..16; softcap 0 = none,
 // window 0 = unlimited; c the blocks a (row, kv head) pair's keys are
 // split across (1, 2, 4, 8 or 16: `decode_split`).
 extern "C" int nfai_decode_attention(const void* q, const void* k_new, const void* v_new, const void* kc,

@@ -23,8 +23,8 @@
 //   cp.async copies of a tile's K and V rows (one row address a key: the
 //   policy's row index, computed for tile i + STAGES while tile i is
 //   multiplied, so K7's table lookups hide behind the products) into a
-//   ring of STAGES stages (4 at D = 64, 3 at D = 128 bf16 and 4 int8, 3 at
-//   D = 256: 34-192 KB a block; at D = 256 three ran 3-7% faster than two,
+//   ring of STAGES stages (4 at D = 64 and 96, 3 at D = 128 bf16 and 4
+//   int8, 3 at D = 256: 34-207 KB a block; at D = 256 three ran 3-7% faster than two,
 //   six at D = 64 and four at D = 128 slower than these). Keys outside
 //   [lo, hi) are zero-filled (cp.async with no source bytes): a masked
 //   key's value is 0, never a stale NaN. cp.async and not TMA: one row
@@ -32,7 +32,10 @@
 //   host encodes no tensor map a launch.
 // - Products on tensor cores (mma.sync m16n8k16, bf16 in, f32 sums), each
 //   warp on 16 keys of the tile: S^T [16 keys, 8 heads] = K Q^T, the heads
-//   (r <= 8, padded with zero queries) as N. Lane (g, t) reads 16 bytes of
+//   as N in HG groups of 8 (a template parameter: HG = 1 for r <= 8, 2 for
+//   9 <= r <= 16; each group shares the key fragments and the V tile's
+//   ldmatrix, and the heads past r are zero queries whose outputs are never
+//   written). Lane (g, t) reads 16 bytes of
 //   key rows g and g + 8 (chunk 4p + t of the row) and uses them as the A
 //   fragments of KPC = 16 / (4 * bytes an element) k16 steps: the D order
 //   inside a product is free, so slots (2t, 2t + 1, 2t + 8, 2t + 9) of
@@ -40,7 +43,9 @@
 //   (4j + 1, 4j + 3), the exact bf16 of the codes by two lop3 and a packed
 //   subtract), and the queries' B fragments are loaded once in the same
 //   order. The K tile's 16-byte chunks are stored at chunk ^ 4 on odd rows
-//   (conflict-free reads).
+//   (conflict-free reads). D = 96: a bf16 row is 12 chunks (three quads of
+//   lanes, six k16 steps), an int8 row 6 (the second quad's lanes t >= 2
+//   feed zero A and B fragments: eight k16 steps, two of them zero).
 // - The online softmax on S's fragments: lane (g, t) holds keys g, g + 8
 //   and heads 2t, 2t + 1; scale, int8 k scale, softcap (tanhf), the mask;
 //   the max over the warp's keys by three shuffles; p summed unscaled, then
@@ -66,37 +71,43 @@ constexpr int DA_THREADS = DA_WARPS * 32;
 constexpr int DA_MAX_SPLIT = 16;
 constexpr float DA_NEG = -1e30f;
 
-template <int D, bool Q8>
+template <int D, bool Q8, int HG>
 struct DaShape {
+  static constexpr int NH = 8 * HG;                // head columns of the products (r <= NH)
   static constexpr int RB = D * (Q8 ? 1 : 2);      // bytes of a K or V row
   static constexpr int NC = RB / 16;               // 16-byte chunks a row
+  static constexpr int NP = (NC + 3) / 4;          // chunk quads a row (int8 D = 96: the last is half)
   static constexpr int KPC = Q8 ? 4 : 2;           // k16 steps a chunk
   static constexpr int TILE = DA_KEYS * RB;        // a K or V tile
   static constexpr int STAGE = 2 * TILE + (Q8 ? 2 * DA_KEYS * 4 : 0);  // + the k and v scales
   static constexpr int STAGES = D == 256 ? 3 : (D == 128 && !Q8 ? 3 : 4);
   static constexpr int CONV = Q8 ? DA_WARPS * 16 * D * 2 : 0;  // each warp's V rows as bf16
   static constexpr int ROWS_OFF = STAGES * STAGE + CONV;       // the ring of key rows
-  static constexpr int LAST_OFF = ROWS_OFF + STAGES * DA_KEYS * 4;  // the last key's scores [8]
-  static constexpr int LQ_OFF = LAST_OFF + 8 * 4;                   // the query rows [8][D] bf16
-  static constexpr int LK_OFF = LQ_OFF + 8 * D * 2;                 // the last key's K row (bf16 room)
+  static constexpr int LAST_OFF = ROWS_OFF + STAGES * DA_KEYS * 4;  // the last key's scores [NH]
+  static constexpr int LQ_OFF = LAST_OFF + NH * 4;                  // the query rows [NH][D] bf16
+  static constexpr int LK_OFF = LQ_OFF + NH * D * 2;                // the last key's K row (bf16 room)
   static constexpr int LV_OFF = LK_OFF + D * 2;                     // and its V row
   static constexpr int SMEM = LV_OFF + D * 2;
   // the merge reuses the stages: (m, l) and O of four warps, then the block's
-  static constexpr int WACC_OFF = 2 * DA_WARPS * 8 * 4;
-  static constexpr int PART_OFF = WACC_OFF + DA_WARPS * 8 * D * 4;
-  static_assert(PART_OFF + 2 * 8 * 4 + 8 * D * 4 <= STAGES * STAGE, "merge buffers");
+  static constexpr int WACC_OFF = 2 * DA_WARPS * NH * 4;
+  static constexpr int PART_OFF = WACC_OFF + DA_WARPS * NH * D * 4;
+  static_assert(PART_OFF + 2 * NH * 4 + NH * D * 4 <= STAGES * STAGE, "merge buffers");
+  static_assert(D % 32 == 0 && NC % 2 == 0, "head width");
 };
 
 // byte offset of 16-byte chunk ch of row `key` in a K tile (odd rows: ch ^ 4)
+// (rows of a multiple of 8 chunks; at 12 or 6 chunks, D = 96, rows g and g +
+// 1 already fall on the two halves of the 128-byte bank line)
 template <int NC>
 __device__ __forceinline__ int k_off(int key, int ch) {
-  return key * NC * 16 + 16 * (NC >= 8 ? ch ^ ((key & 1) << 2) : ch);
+  return key * NC * 16 + 16 * (NC % 8 == 0 ? ch ^ ((key & 1) << 2) : ch);
 }
 
-// the same in a bf16 V tile: ch ^ (row & 7), for ldmatrix
+// the same in a bf16 V tile: ch ^ (row & 7), for ldmatrix; a row of 12
+// chunks (D = 96) swizzles its first 8 so and its last 4 by ch ^ (row & 3)
 template <int NC>
 __device__ __forceinline__ int v_off(int key, int ch) {
-  return key * NC * 16 + 16 * (ch ^ (key & 7));
+  return key * NC * 16 + 16 * (NC % 8 == 0 || ch < (NC & ~7) ? ch ^ (key & 7) : ch ^ (key & 3));
 }
 
 // the int8 codes at bits 0-7 and 16-23 of w → their bf16x2, exactly:
@@ -129,7 +140,7 @@ struct LastKey {
 // Rows: k, v (key row 0 of the (row, kv head)'s keys), ks, vs (their int8
 // scales, one float a row), pitch (elements between rows) and row(s), the
 // row index of visible key s.
-template <int D, typename KV, bool EXT, typename Rows, typename KL>
+template <int D, typename KV, bool EXT, int HG, typename Rows, typename KL>
 __device__ __forceinline__ void decode_attn_body(const Rows& rows, const LastKey<KL>& last,
                                                  const __nv_bfloat16* __restrict__ q,  // [r, D]
                                                  __nv_bfloat16* __restrict__ out,      // [r, D]
@@ -137,8 +148,8 @@ __device__ __forceinline__ void decode_attn_body(const Rows& rows, const LastKey
                                                  unsigned char* smem) {
   namespace cg = cooperative_groups;
   constexpr bool Q8 = std::is_same<KV, int8_t>::value;
-  using L = DaShape<D, Q8>;
-  constexpr int STAGES = L::STAGES, NC = L::NC, KPC = L::KPC, RB = L::RB;
+  using L = DaShape<D, Q8, HG>;
+  constexpr int STAGES = L::STAGES, NC = L::NC, NP = L::NP, KPC = L::KPC, RB = L::RB, NH = L::NH;
   constexpr int NACC = D / 16 < 4 ? D / 16 : 4;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int rank = c > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
@@ -194,28 +205,41 @@ __device__ __forceinline__ void decode_attn_body(const Rows& rows, const LastKey
     cp_async_commit();
   }
 
-  // the queries' B fragments, in the K fragments' D order (heads >= r: zero)
-  uint32_t qf[D / 16][2];
-  {
-    const __nv_bfloat16* qrow = q + (g < r ? g : 0) * D;
+  // the queries' B fragments, in the K fragments' D order: group hg holds
+  // heads 8 hg .. 8 hg + 7 (heads >= r: zero; an int8 row of 6 chunks leaves
+  // lanes t >= 2 of the second quad zero too)
+  uint32_t qf[HG][NP * KPC][2];
 #pragma unroll
-    for (int p = 0; p < NC / 4; ++p)
+  for (int hg = 0; hg < HG; ++hg) {
+    const int head = 8 * hg + g;
+    const __nv_bfloat16* qrow = q + (head < r ? head : 0) * D;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
 #pragma unroll
       for (int j = 0; j < KPC; ++j) {
         const int d0 = (4 * p + t) * (16 / (int)sizeof(KV)) + 4 * j;
         uint2 v = make_uint2(0u, 0u);
-        if (g < r) v = __ldg(reinterpret_cast<const uint2*>(qrow + d0));
-        qf[KPC * p + j][0] = Q8 ? prmt(v.x, v.y, 0x5410) : v.x;  // int8: dims (d0, d0 + 2)
-        qf[KPC * p + j][1] = Q8 ? prmt(v.x, v.y, 0x7632) : v.y;  //        (d0 + 1, d0 + 3)
+        if (head < r && 4 * p + t < NC) v = __ldg(reinterpret_cast<const uint2*>(qrow + d0));
+        qf[hg][KPC * p + j][0] = Q8 ? prmt(v.x, v.y, 0x5410) : v.x;  // int8: dims (d0, d0 + 2)
+        qf[hg][KPC * p + j][1] = Q8 ? prmt(v.x, v.y, 0x7632) : v.y;  //        (d0 + 1, d0 + 3)
       }
   }
 
-  float m_run[2] = {DA_NEG, DA_NEG}, l_run[2] = {0.f, 0.f};  // heads 2t, 2t + 1; l: this lane's keys
-  float acc[D / 16][4];  // O^T: dims 16 mb + g (+ 8 for e >= 2), heads 2t + (e & 1)
+  // heads 8 hg + 2t, + 1; l: this lane's keys
+  float m_run[HG][2], l_run[HG][2];
+  float acc[HG][D / 16][4];  // O^T: dims 16 mb + g (+ 8 for e >= 2), heads 8 hg + 2t + (e & 1)
 #pragma unroll
-  for (int mb = 0; mb < D / 16; ++mb)
+  for (int hg = 0; hg < HG; ++hg) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[mb][e] = 0.f;
+    for (int hh = 0; hh < 2; ++hh) {
+      m_run[hg][hh] = DA_NEG;
+      l_run[hg][hh] = 0.f;
+    }
+#pragma unroll
+    for (int mb = 0; mb < D / 16; ++mb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[hg][mb][e] = 0.f;
+  }
   const int kr0 = 16 * warp + g, kr1 = kr0 + 8;  // this lane's keys in a tile
 
   for (int it = 0; it < nt; ++it) {
@@ -228,72 +252,40 @@ __device__ __forceinline__ void decode_attn_body(const Rows& rows, const LastKey
     const unsigned char* st = smem + (it % STAGES) * L::STAGE;
     const int s0 = (t0 + it) * DA_KEYS, w0 = s0 + 16 * warp;
     if (w0 < hi && w0 + 16 > lo) {  // this warp's 16 keys hold a visible one
-      // S^T: keys kr0 (e < 2), kr1; heads 2t + (e & 1), in NACC independent
-      // sums (a chain of D / 16 dependent products otherwise), added at the end
-      float part[NACC][4];
+      // S^T: keys kr0 (e < 2), kr1; heads 8 hg + 2t + (e & 1), in NACC
+      // independent sums (a chain of D / 16 dependent products otherwise),
+      // added at the end
+      float part[HG][NACC][4];
 #pragma unroll
-      for (int a = 0; a < NACC; ++a)
+      for (int hg = 0; hg < HG; ++hg)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) part[a][e] = 0.f;
+        for (int a = 0; a < NACC; ++a)
 #pragma unroll
-      for (int p = 0; p < NC / 4; ++p) {
-        const uint4 u0 = *reinterpret_cast<const uint4*>(st + k_off<NC>(kr0, 4 * p + t));
-        const uint4 u1 = *reinterpret_cast<const uint4*>(st + k_off<NC>(kr1, 4 * p + t));
+          for (int e = 0; e < 4; ++e) part[hg][a][e] = 0.f;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        uint4 u0 = make_uint4(0u, 0u, 0u, 0u), u1 = u0;
+        if (4 * p + t < NC) {
+          u0 = *reinterpret_cast<const uint4*>(st + k_off<NC>(kr0, 4 * p + t));
+          u1 = *reinterpret_cast<const uint4*>(st + k_off<NC>(kr1, 4 * p + t));
+        }
         const uint32_t x0[4] = {u0.x, u0.y, u0.z, u0.w}, x1[4] = {u1.x, u1.y, u1.z, u1.w};
 #pragma unroll
         for (int j = 0; j < KPC; ++j) {
-          float(&acc_s)[4] = part[(KPC * p + j) % NACC];
-          if constexpr (Q8)
-            mma_16816(acc_s, i8x2_bf16(x0[j]), i8x2_bf16(x1[j]), i8x2_bf16(x0[j] >> 8), i8x2_bf16(x1[j] >> 8),
-                      qf[KPC * p + j][0], qf[KPC * p + j][1]);
-          else
-            mma_16816(acc_s, x0[2 * j], x1[2 * j], x0[2 * j + 1], x1[2 * j + 1], qf[KPC * p + j][0],
-                      qf[KPC * p + j][1]);
+          uint32_t a[4];
+          if constexpr (Q8) {
+            a[0] = i8x2_bf16(x0[j]), a[1] = i8x2_bf16(x1[j]);
+            a[2] = i8x2_bf16(x0[j] >> 8), a[3] = i8x2_bf16(x1[j] >> 8);
+          } else {
+            a[0] = x0[2 * j], a[1] = x1[2 * j], a[2] = x0[2 * j + 1], a[3] = x1[2 * j + 1];
+          }
+#pragma unroll
+          for (int hg = 0; hg < HG; ++hg)
+            mma_16816(part[hg][(KPC * p + j) % NACC], a[0], a[1], a[2], a[3], qf[hg][KPC * p + j][0],
+                      qf[hg][KPC * p + j][1]);
         }
       }
-      float sc[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[e] = part[0][e];
-#pragma unroll
-        for (int a = 1; a < NACC; ++a) sc[e] += part[a][e];
-      }
       const float* ksc = reinterpret_cast<const float*>(st + 2 * L::TILE);  // int8: the tile's k scales
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kr = e < 2 ? kr0 : kr1;
-        float x = sc[e] * scale;
-        if constexpr (Q8) x *= ksc[kr];
-        if constexpr (EXT)
-          if (inv_cap > 0.f) x = softcap * tanhf(x * inv_cap);
-        x = s0 + kr >= lo && s0 + kr < hi ? x : -INFINITY;
-        sc[e] = x;
-        mx[e & 1] = fmaxf(mx[e & 1], x);
-      }
-      float corr[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], off));
-        const float m_new = fmaxf(m_run[hh], mx[hh]);
-        corr[hh] = __expf(m_run[hh] - m_new);
-        m_run[hh] = m_new;
-        l_run[hh] *= corr[hh];
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(sc[e] - m_run[e & 1]);
-        l_run[e & 1] += p;  // the denominator takes the unscaled p, P the v scale of its key
-        sc[e] = Q8 ? p * ksc[DA_KEYS + (e < 2 ? kr0 : kr1)] : p;
-      }
-#pragma unroll
-      for (int mb = 0; mb < D / 16; ++mb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mb][e] *= corr[e & 1];
-      // P^T's B fragments: keys 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of head g
-      const uint32_t b0 = movmatrix_trans(bf16x2(sc[0], sc[1]));
-      const uint32_t b1 = movmatrix_trans(bf16x2(sc[2], sc[3]));
       const unsigned char* vt = st + L::TILE + 16 * warp * RB;  // this warp's 16 value rows
       if constexpr (Q8) {  // the codes → bf16 rows in the warp's buffer
         unsigned char* cb = smem + STAGES * L::STAGE + warp * 16 * (2 * D);
@@ -312,12 +304,59 @@ __device__ __forceinline__ void decode_attn_body(const Rows& rows, const LastKey
         __syncwarp();
         vt = cb;
       }
+      // P^T's B fragments per group: keys 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of head 8 hg + g
+      uint32_t b0[HG], b1[HG];
+#pragma unroll
+      for (int hg = 0; hg < HG; ++hg) {
+        float sc[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[e] = part[hg][0][e];
+#pragma unroll
+          for (int a = 1; a < NACC; ++a) sc[e] += part[hg][a][e];
+        }
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kr = e < 2 ? kr0 : kr1;
+          float x = sc[e] * scale;
+          if constexpr (Q8) x *= ksc[kr];
+          if constexpr (EXT)
+            if (inv_cap > 0.f) x = softcap * tanhf(x * inv_cap);
+          x = s0 + kr >= lo && s0 + kr < hi ? x : -INFINITY;
+          sc[e] = x;
+          mx[e & 1] = fmaxf(mx[e & 1], x);
+        }
+        float corr[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], off));
+          const float m_new = fmaxf(m_run[hg][hh], mx[hh]);
+          corr[hh] = __expf(m_run[hg][hh] - m_new);
+          m_run[hg][hh] = m_new;
+          l_run[hg][hh] *= corr[hh];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = __expf(sc[e] - m_run[hg][e & 1]);
+          l_run[hg][e & 1] += p;  // the denominator takes the unscaled p, P the v scale of its key
+          sc[e] = Q8 ? p * ksc[DA_KEYS + (e < 2 ? kr0 : kr1)] : p;
+        }
+#pragma unroll
+        for (int mb = 0; mb < D / 16; ++mb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[hg][mb][e] *= corr[e & 1];
+        b0[hg] = movmatrix_trans(bf16x2(sc[0], sc[1]));
+        b1[hg] = movmatrix_trans(bf16x2(sc[2], sc[3]));
+      }
       const int vrow = (lane & 7) + 8 * (lane >> 4), vch = (lane >> 3) & 1;
 #pragma unroll
       for (int mb = 0; mb < D / 16; ++mb) {
         uint32_t a[4];
         ldmatrix_x4_trans(a, vt + v_off<D / 8>(vrow, 2 * mb + vch));
-        mma_16816(acc[mb], a[0], a[1], a[2], a[3], b0, b1);
+#pragma unroll
+        for (int hg = 0; hg < HG; ++hg) mma_16816(acc[hg][mb], a[0], a[1], a[2], a[3], b0[hg], b1[hg]);
       }
     }
     if (tid < DA_KEYS) rowbuf[(it % STAGES) * DA_KEYS + tid] = nxt;  // read after the next barrier
@@ -327,7 +366,7 @@ __device__ __forceinline__ void decode_attn_body(const Rows& rows, const LastKey
 
   const KL* lk = reinterpret_cast<const KL*>(smem + L::LK_OFF);
   const KL* lv = reinterpret_cast<const KL*>(smem + L::LV_OFF);
-  if (last.k) {  // the last key's scores (warp w: heads w, w + 4), in f32
+  if (last.k) {  // the last key's scores (warp w: heads w, w + 4, ...), in f32
     const __nv_bfloat16* lq = reinterpret_cast<const __nv_bfloat16*>(smem + L::LQ_OFF);
     for (int j = warp; j < r; j += DA_WARPS) {
       float dot = 0.f;
@@ -342,43 +381,44 @@ __device__ __forceinline__ void decode_attn_body(const Rows& rows, const LastKey
   }
 
   // the warps' partials: (m, l) per head and O, into the stages' memory
+  float* wm = reinterpret_cast<float*>(smem);  // [DA_WARPS][NH]
+  float* wl = wm + DA_WARPS * NH;
+  float* wacc = reinterpret_cast<float*>(smem + L::WACC_OFF);  // [DA_WARPS][NH][D]
+  float* part = reinterpret_cast<float*>(smem + L::PART_OFF);  // m [NH], l [NH], O [NH][D]
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) l_run[hh] += __shfl_xor_sync(0xffffffffu, l_run[hh], off);
-  float* wm = reinterpret_cast<float*>(smem);  // [DA_WARPS][8]
-  float* wl = wm + DA_WARPS * 8;
-  float* wacc = reinterpret_cast<float*>(smem + L::WACC_OFF);  // [DA_WARPS][8][D]
-  float* part = reinterpret_cast<float*>(smem + L::PART_OFF);  // m [8], l [8], O [8][D]
-  if (g == 0) {
+  for (int hg = 0; hg < HG; ++hg) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      wm[warp * 8 + 2 * t + hh] = m_run[hh];
-      wl[warp * 8 + 2 * t + hh] = l_run[hh];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) l_run[hg][hh] += __shfl_xor_sync(0xffffffffu, l_run[hg][hh], off);
+      if (g == 0) {
+        wm[warp * NH + 8 * hg + 2 * t + hh] = m_run[hg][hh];
+        wl[warp * NH + 8 * hg + 2 * t + hh] = l_run[hg][hh];
+      }
     }
+#pragma unroll
+    for (int mb = 0; mb < D / 16; ++mb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        wacc[(warp * NH + 8 * hg + 2 * t + (e & 1)) * D + 16 * mb + g + 8 * (e >> 1)] = acc[hg][mb][e];
   }
-#pragma unroll
-  for (int mb = 0; mb < D / 16; ++mb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      wacc[(warp * 8 + 2 * t + (e & 1)) * D + 16 * mb + g + 8 * (e >> 1)] = acc[mb][e];
   __syncthreads();
   for (int e = tid; e < r * D; e += DA_THREADS) {  // the block's partial, warps in order
     const int j = e / D, d = e % D;
     float mx = DA_NEG;
 #pragma unroll
-    for (int w = 0; w < DA_WARPS; ++w) mx = fmaxf(mx, wm[w * 8 + j]);
+    for (int w = 0; w < DA_WARPS; ++w) mx = fmaxf(mx, wm[w * NH + j]);
     float num = 0.f, den = 0.f;
 #pragma unroll
     for (int w = 0; w < DA_WARPS; ++w) {
-      const float f = __expf(wm[w * 8 + j] - mx);
-      num += wacc[(w * 8 + j) * D + d] * f;
-      den += wl[w * 8 + j] * f;
+      const float f = __expf(wm[w * NH + j] - mx);
+      num += wacc[(w * NH + j) * D + d] * f;
+      den += wl[w * NH + j] * f;
     }
-    part[16 + e] = num;
+    part[2 * NH + e] = num;
     if (d == 0) {
       part[j] = mx;
-      part[8 + j] = den;
+      part[NH + j] = den;
     }
   }
 
@@ -402,12 +442,12 @@ __device__ __forceinline__ void decode_attn_body(const Rows& rows, const LastKey
     for (int k = 0; k < c; ++k) {
       const float* pk = c > 1 ? cg::this_cluster().map_shared_rank(part, k) : part;
       const float fk = __expf(pk[j] - mx);
-      const float4 a = *reinterpret_cast<const float4*>(pk + 16 + 4 * f);
+      const float4 a = *reinterpret_cast<const float4*>(pk + 2 * NH + 4 * f);
       num.x += a.x * fk;
       num.y += a.y * fk;
       num.z += a.z * fk;
       num.w += a.w * fk;
-      den += pk[8 + j] * fk;
+      den += pk[NH + j] * fk;
     }
     if (last.k) {  // the denominator takes the unscaled weight, the value the v scale
       const float fl = __expf(sl - mx), fv = fl * last.vs;

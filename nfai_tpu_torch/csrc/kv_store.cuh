@@ -12,8 +12,9 @@
 // - copy: the row's `chunks` 16-byte pieces are copied as they are (lane i
 //   takes pieces i, i + G, ...), and, where a scale source is given, lane 0
 //   copies the item's f32 scale (K10's contract: rows of no bytes);
-// - quantize (G = D / 8): each lane loads 8 bf16 values as one 16-byte
-//   vector, the group's amax meets by __shfl_xor_sync, scale =
+// - quantize (G = D / 8, or 16 for D = 96: lanes 12-15 load nothing, add
+//   0 to the amax and store nothing): each lane loads 8 bf16 values as one
+//   16-byte vector, the group's amax meets by __shfl_xor_sync, scale =
 //   fmaxf(amax, 1e-20) / 127 and q = clamp(rint(x / scale), -127, 127) with
 //   IEEE division (__fdiv_rn: no reciprocal, no fast division) and rounding
 //   half to even, so the codes and scales are the bits of the JAX and the
@@ -155,7 +156,7 @@ __device__ __forceinline__ void kv_store_body(const StoreArgs& a, const Find& fi
       for (int k = 0; k < 4; ++k) word |= (uint32_t)(uint8_t)kv_code(x[4 * j + k], scale) << (8 * k);
       packed[j] = word;
     }
-    reinterpret_cast<uint2*>(dst + row * a.dst_row)[lane] = make_uint2(packed[0], packed[1]);
+    if (lane < a.chunks) reinterpret_cast<uint2*>(dst + row * a.dst_row)[lane] = make_uint2(packed[0], packed[1]);
     if (lane == 0) sdst[srow] = scale;
   } else {
     if (!keep) return;
@@ -184,12 +185,14 @@ int kv_store_launch(const StoreArgs& a, const Find& find, cudaStream_t stream) {
 }
 
 // the quantizing and the copying store of D-wide head rows (G = D / 8 lanes,
-// one 16-byte piece each); D outside 64 / 128 / 256 is refused
+// one 16-byte piece each; D = 96 takes G = 16, a group must divide the warp);
+// D outside 64 / 96 / 128 / 256 is refused
 template <typename Find>
 int kv_store_heads(const StoreArgs& a, const Find& find, int D, bool quant, cudaStream_t stream) {
   switch (D) {
     case 64:
       return quant ? kv_store_launch<true, 8>(a, find, stream) : kv_store_launch<false, 8>(a, find, stream);
+    case 96:
     case 128:
       return quant ? kv_store_launch<true, 16>(a, find, stream) : kv_store_launch<false, 16>(a, find, stream);
     case 256:

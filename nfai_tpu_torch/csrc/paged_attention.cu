@@ -35,8 +35,8 @@
 // in runs and read only tiles below lengths[b] (the same page skip), the
 // ragged last page's keys zero-filled and masked. Key lengths[b] - 1 (the
 // current token) is the body's last key, merged after the tiles as K2
-// merges its new token: the paged and the dense decode give the same bits. r in {1, 2, 3, 4, 8},
-// page sizes 16/32/64/128, D = 64, 128 or 256.
+// merges its new token: the paged and the dense decode give the same bits. 1 <= r <= 16,
+// page sizes 16/32/64/128, D = 64, 96, 128 or 256.
 //
 // Softcap and sliding window as in K2 (EXT, a template flag; tanhf on the
 // score after the scale and the k scale, before the softmax): a window
@@ -75,7 +75,7 @@ struct PageRows {
 
 // KV: the pool element, __nv_bfloat16 or int8_t (then ks/vs are read);
 // EXT: softcap (> 0) and window (> 0) are read; c: the blocks of a cluster
-template <int D, typename KV, bool EXT>
+template <int D, typename KV, bool EXT, int HG>
 __global__ void __launch_bounds__(DA_THREADS)
 paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
                   const KV* __restrict__ kp,             // [Hkv, P, ps, D]
@@ -105,16 +105,16 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
     last = {rows.k + (size_t)row * D, rows.v + (size_t)row * D, ks ? rows.ks[row] : 1.f, vs ? rows.vs[row] : 1.f};
   }
   const size_t qo = ((size_t)b * hkv + h) * r * D;
-  decode_attn_body<D, KV, EXT>(rows, last, q + qo, out + qo, r, lo, len > 0 ? len - 1 : 0, scale, softcap, c,
+  decode_attn_body<D, KV, EXT, HG>(rows, last, q + qo, out + qo, r, lo, len > 0 ? len - 1 : 0, scale, softcap, c,
                                smem);
 }
 
-template <int D, typename KV, bool EXT>
+template <int D, typename KV, bool EXT, int HG>
 int launch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs, const void* tables,
            const void* lengths, void* out, int B, int hkv, int r, int n_pages, int ps, int max_pages, float scale,
            float softcap, int window, int c, cudaStream_t st) {
-  constexpr int smem = DaShape<D, std::is_same<KV, int8_t>::value>::SMEM;
-  const auto kernel = paged_attn_kernel<D, KV, EXT>;
+  constexpr int smem = DaShape<D, std::is_same<KV, int8_t>::value, HG>::SMEM;
+  const auto kernel = paged_attn_kernel<D, KV, EXT, HG>;
   static const cudaError_t attr = da_attributes(kernel, smem);  // once per instantiation
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -140,12 +140,20 @@ template <typename KV, bool EXT>
 int dispatch_d(const void* q, const void* kp, const void* vp, const void* ks, const void* vs, const void* tables,
                const void* lengths, void* out, int B, int hkv, int r, int n_pages, int ps, int max_pages, int d,
                float scale, float softcap, int window, int c, cudaStream_t st) {
-#define NFAI_LAUNCH(DD)                                                                                    \
-  return launch<DD, KV, EXT>(q, kp, vp, ks, vs, tables, lengths, out, B, hkv, r, n_pages, ps, max_pages, \
-                             scale, softcap, window, c, st)
-  if (d == 64) NFAI_LAUNCH(64);
-  if (d == 128) NFAI_LAUNCH(128);
-  if (d == 256) NFAI_LAUNCH(256);
+#define NFAI_LAUNCH(DD, HG)                                                                                  \
+  return launch<DD, KV, EXT, HG>(q, kp, vp, ks, vs, tables, lengths, out, B, hkv, r, n_pages, ps, max_pages, \
+                                 scale, softcap, window, c, st)
+  // one group of 8 head columns for r <= 8, two for 9 <= r <= 16
+#define NFAI_LAUNCH_D(DD)     \
+  if (d == DD) {              \
+    if (r > 8) NFAI_LAUNCH(DD, 2); \
+    NFAI_LAUNCH(DD, 1);       \
+  }
+  NFAI_LAUNCH_D(64)
+  NFAI_LAUNCH_D(96)
+  NFAI_LAUNCH_D(128)
+  NFAI_LAUNCH_D(256)
+#undef NFAI_LAUNCH_D
 #undef NFAI_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -155,7 +163,7 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* ks, cons
              const void* lengths, void* out, int B, int hkv, int r, int n_pages, int ps, int max_pages, int d,
              float scale, float softcap, int window, int c, void* stream) {
   const auto misaligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) != 0; };
-  if (softcap < 0.f || window < 0 || r < 1 || r > 8 || !da_valid_split(c) || n_pages <= 0 || ps <= 0 ||
+  if (softcap < 0.f || window < 0 || r < 1 || r > 16 || !da_valid_split(c) || n_pages <= 0 || ps <= 0 ||
       misaligned(q) || misaligned(kp) || misaligned(vp) || misaligned(out))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || hkv <= 0) return static_cast<int>(cudaSuccess);
@@ -171,7 +179,7 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* ks, cons
 
 // q [B, Hq, D] bf16, kp/vp [Hkv, P, ps, D] bf16 (one layer's pool),
 // tables [B, max_pages] int32, lengths [B] int32, out [B, Hq, D] bf16;
-// 16-byte aligned. D in {64, 128, 256}, r = Hq/Hkv in 1..8; softcap 0 =
+// 16-byte aligned. D in {64, 96, 128, 256}, r = Hq/Hkv in 1..16; softcap 0 =
 // none, window 0 = unlimited; c the blocks a (row, kv head) pair's keys are
 // split across (1, 2, 4, 8 or 16: `decode_split`).
 extern "C" int nfai_paged_attention(const void* q, const void* kp, const void* vp, const void* tables,

@@ -76,7 +76,7 @@
 // 120-148).
 // No atomics: every output is one block's, summed in a fixed order; the
 // same bits on every launch.
-// D = 64, 128 or 256, r <= 64, S % 64 == 0, 16-byte aligned tensors.
+// D = 64, 96, 128 or 256, r <= 64, S % 64 == 0, 16-byte aligned tensors.
 //
 // Softcap and sliding window (EXT, a template flag: the Llama and Qwen
 // launches compile none of it, as the JAX kernel makes them static).
@@ -87,23 +87,28 @@ namespace {
 constexpr float NEG = -1e30f;
 constexpr int BS = 64;  // keys a tile
 
-// NG consumer warpgroups of 64 query rows (NG = 1 at D = 256)
+// NG consumer warpgroups of 64 query rows (NG = 1 at D = 256). A row is
+// KC sub-tiles of 64 columns, DP = 64 KC wide: D = 96 takes two, the second
+// half used (its columns past D hold the next head's values, or TMA's zeros
+// past the tensor's edge: QK^T reads only D columns, P V computes DP output
+// columns, and the epilogue stores D of them)
 template <int D, int NG, bool Q8>
 struct Shape {
   static constexpr int THREADS = NG * 128 + 32;      // and the producer warp
-  static constexpr int KC = D / 64;                  // 64-column sub-tiles a row
-  static constexpr int Q_BYTES = NG * 64 * D * 2;    // the groups' Q tiles
-  static constexpr int TILE = BS * D * 2;            // a bf16 K or V tile
-  static constexpr int CODES = BS * D;               // an int8 K or V tile
+  static constexpr int KC = (D + 63) / 64;           // 64-column sub-tiles a row
+  static constexpr int DP = KC * 64;                 // their columns
+  static constexpr int Q_BYTES = NG * 64 * DP * 2;   // the groups' Q tiles
+  static constexpr int TILE = BS * DP * 2;           // a bf16 K or V tile
+  static constexpr int CODES = BS * DP;              // an int8 K or V tile
   static constexpr int CONV = Q8 ? 2 * 2 * TILE : 0;  // two buffers of converted K and V
   static constexpr int SC_OFF = 2 * CODES;            // the int8 stage's scales: BS k, BS v
   static constexpr int STAGE = Q8 ? SC_OFF + 2 * BS * 4 : 2 * TILE;
-  static constexpr int STAGES = D == 64 ? 4 : (NG == 1 ? 2 : (Q8 ? 3 : 4));
+  static constexpr int STAGES = DP == 64 ? 4 : (NG == 1 ? 2 : (Q8 ? 3 : 4));
   static constexpr int SMEM = Q_BYTES + CONV + STAGES * STAGE + 1024;  // + alignment slack
   // blocks an SM (what shared memory and 64K registers allow): at NG = 1
-  // D = 64 three (two int8), D = 128 two (one int8); at NG = 2 D = 64 two
+  // D = 64 three (two int8), D = 96 and 128 two (one int8); at NG = 2 D = 64 two
   static constexpr int MIN_BLOCKS =
-      NG == 1 ? (D == 64 ? (Q8 ? 2 : 3) : (D == 128 && !Q8 ? 2 : 1)) : (D == 64 && !Q8 ? 2 : 1);
+      NG == 1 ? (DP == 64 ? (Q8 ? 2 : 3) : (DP == 128 && !Q8 ? 2 : 1)) : (DP == 64 && !Q8 ? 2 : 1);
 };
 
 __device__ __forceinline__ void named_bar(int id, int n) {
@@ -149,7 +154,7 @@ prefill_attn_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_consta
                      int T, int S, int hkv, int r, int hm, float scale, float softcap, int window) {
   constexpr bool Q8 = std::is_same<KV, int8_t>::value;
   using L = Shape<D, NG, Q8>;
-  constexpr int KC = L::KC, STAGES = L::STAGES;
+  constexpr int KC = L::KC, DP = L::DP, STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -207,7 +212,7 @@ prefill_attn_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_consta
 
   const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t4 = lane & 3, ctid = tid & 127;
   if (wg >= n_active) return;
-  unsigned char* qs = sm + wg * (64 * D * 2);  // this group's Q tile (later its output)
+  unsigned char* qs = sm + wg * (64 * DP * 2);  // this group's Q tile (later its output)
   for (int e = ctid; e < 64 * (D / 8); e += 128) {
     const int rr = e / (D / 8), c8 = e % (D / 8), row = 64 * wg + rr, tk = t0 + row / r;
     uint4 v = make_uint4(0, 0, 0, 0);
@@ -231,9 +236,9 @@ prefill_attn_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_consta
   const int g_last = offset + min(t0 + min(64 * wg + 63, rows_used - 1) / r, T - 1);
   const float inv_cap = EXT && softcap > 0.f ? 1.f / softcap : 0.f;
   float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};  // l: this lane's share of the row's sum
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
 
   for (int kt = kt0; kt < n_tiles; ++kt) {
     const int i = kt - kt0, s = i % STAGES, s0 = kt * BS;
@@ -322,7 +327,7 @@ prefill_attn_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_consta
         sacc[j] = Q8 ? p * vsc[2 * (j >> 2) + (j & 1)] : p;
       }
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) o[j] *= corr[(j >> 1) & 1];
+      for (int j = 0; j < DP / 2; ++j) o[j] *= corr[(j >> 1) & 1];
       // P's A fragments, k16 step k: (row g, keys 2t, 2t+1), (g + 8, the
       // same), (g, 2t + 8, 2t + 9), (g + 8, the same) = sacc[8k .. 8k + 7]
       uint32_t pf[BS / 16][4];
@@ -333,7 +338,7 @@ prefill_attn_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_consta
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < BS / 16; ++k)
-        wgmma_rs<D, 1>(o, pf[k], sw128_mn_desc(vtile + k * 16 * 128, BS * 128));
+        wgmma_rs<DP, 1>(o, pf[k], sw128_mn_desc(vtile + k * 16 * 128, BS * 128));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -416,6 +421,10 @@ int dispatch_d(const void* q, const void* kc, const void* vc, const void* ks, co
     if (two) NFAI_LAUNCH(64, 2);
     NFAI_LAUNCH(64, 1);
   }
+  if (d == 96) {
+    if (two) NFAI_LAUNCH(96, 2);
+    NFAI_LAUNCH(96, 1);
+  }
   if (d == 128) {
     if (two) NFAI_LAUNCH(128, 2);
     NFAI_LAUNCH(128, 1);
@@ -445,7 +454,7 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* ks, cons
 }  // namespace
 
 // q/out [B, T, Hkv*r, D], kc/vc [B, S, Hkv*D] (one layer), offsets [B]
-// int32; bf16 except offsets. D in {64, 128, 256}; needs r <= 64,
+// int32; bf16 except offsets. D in {64, 96, 128, 256}; needs r <= 64,
 // S % 64 == 0 and 16-byte aligned tensors; softcap 0 = none, window 0 =
 // unlimited.
 extern "C" int nfai_prefill_attention(const void* q, const void* kc,

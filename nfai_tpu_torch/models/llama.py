@@ -1,4 +1,5 @@
-"""Llama-schema models (llama, qwen3, qwen3moe, gemma, gemma2, gemma3):
+"""Llama-schema models (llama, mistral, qwen2, qwen3, qwen3moe, gemma,
+gemma2, gemma3, phi3):
 config from GGUF metadata, quantized weight loading, the prefill and decode
 forwards, and the decode loop.
 
@@ -132,8 +133,18 @@ the embedding rows and the head; a dense head runs `torch.matmul` (JAX
 leaves `x @ lm_head` to XLA). Dense expert stacks [L, E, N, K] run
 `_moe_ffn_dense`, the JAX `_moe_ffn_grouped` (XLA's `ragged_dot`, no
 Pallas kernel) in plain PyTorch: one product per hit expert, which reads
-the expert counts back to the host once per layer. The other families'
-features (biases, pre-fused tensors) raise NotImplementedError.
+the expert counts back to the host once per layer.
+
+qwen2, mistral and phi3 follow the JAX loader: mistral is NORM-roped like
+llama (wq/wk rows permuted to NEOX at load); qwen2 and phi3 are NEOX.
+qwen2's q/k/v biases (`attn_bias`, from `blk.0.attn_q.bias`) load as f32
+[L, N] stacks, fuse into ``wqkv_bias`` exactly where q/k/v fuse, are kept
+in the activation dtype and are added after the projections in `_qkv`
+(every route: prefill, dense and paged decode, the verify forward, the
+draft model). phi3's pre-fused ``attn_qkv`` loads as ``wqkv`` and its
+[gate; up] ``ffn_up`` (2 * ffn_dim rows, no ``ffn_gate``) as
+``w_gate_up`` (K5 where `mlp_eligible` holds). None of the three reads a
+sliding window, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -168,7 +179,10 @@ from ..ops.sampling import (
 from ..runtime.paged_cache import PagedKVCache
 
 
-ARCHS = frozenset({"llama", "qwen3", "qwen3moe", "gemma", "gemma2", "gemma3"})
+ARCHS = frozenset({"llama", "mistral", "qwen2", "qwen3", "qwen3moe", "gemma", "gemma2", "gemma3",
+                   "phi3"})
+# stored without the HF→ggml q/k permutation (the rest, llama and mistral, are NORM)
+NEOX_ARCHS = ("qwen2", "qwen3", "qwen3moe", "phi3", "gemma", "gemma2", "gemma3")
 # "full" feeds K4 the native merged-lane [B, S, KVD] cache; "headmajor" a
 # per-layer [B, Hkv, S, D] copy; "merged" the native rows one head at a
 # time (the JAX package's NFAI_PREFILL_KV, read at import as there)
@@ -196,8 +210,9 @@ class LlamaConfig:
     rope_original_ctx: int = 8192
     context_length: int = 8192
     tied_embeddings: bool = True
+    attn_bias: bool = False  # qwen2: q/k/v biases after the projections
     qk_norm: bool = False  # qwen3, gemma3: per-head q/k RMS norms before the rope
-    rope_neox: bool = False  # stored without the HF→ggml q/k permutation (qwen3, gemma)
+    rope_neox: bool = False  # stored without the HF→ggml q/k permutation (NEOX_ARCHS)
     activation: str = "silu"  # MLP gate activation ("silu" | "gelu", tanh form)
     embed_scale: float = 1.0  # gemma multiplies embeddings by sqrt(hidden)
     # gemma2/3
@@ -237,10 +252,10 @@ class LlamaConfig:
             raise NotImplementedError(
                 f"architecture {arch!r} is not ported yet (the port runs {sorted(ARCHS)})"
             )
-        unported = ["blk.0.attn_q.bias", "blk.0.attn_qkv.weight"]
+        unported = []
         if arch not in ("gemma2", "gemma3"):
             unported.append("blk.0.post_attention_norm.weight")
-        if arch == "llama":
+        if arch not in NEOX_ARCHS:
             unported.append("blk.0.attn_q_norm.weight")
         if arch != "qwen3moe":
             unported.append("blk.0.ffn_gate_exps.weight")
@@ -276,8 +291,9 @@ class LlamaConfig:
             rope_original_ctx=int(key(Keys.ROPE_SCALING_ORIG_CTX, 8192)),
             context_length=int(key(Keys.CONTEXT_LENGTH, 8192)),
             tied_embeddings="output.weight" not in g.tensors,
+            attn_bias="blk.0.attn_q.bias" in g.tensors,
             qk_norm="blk.0.attn_q_norm.weight" in g.tensors,
-            rope_neox=arch in ("qwen3", "qwen3moe") or gemma,
+            rope_neox=arch in NEOX_ARCHS,
             activation="gelu" if gemma else "silu",
             embed_scale=float(hidden) ** 0.5 if gemma else 1.0,
             attn_softcap=float(key("{arch}.attn_logit_softcapping", 0.0) or 0.0),
@@ -369,6 +385,9 @@ _GGUF_NAMES = {
     "w_down": "blk.{i}.ffn_down.weight",
 }
 _QK_NORM_NAMES = {"q_norm": "blk.{i}.attn_q_norm.weight", "k_norm": "blk.{i}.attn_k_norm.weight"}
+# qwen2: q/k/v biases (f32 [N] a layer), fused with the projections where they fuse
+_BIAS_NAMES = {"wq_bias": "blk.{i}.attn_q.bias", "wk_bias": "blk.{i}.attn_k.bias",
+               "wv_bias": "blk.{i}.attn_v.bias"}
 # gemma2/3: RMS norms on the attention and FFN outputs
 _POST_NORM_NAMES = {"post_attn_norm": "blk.{i}.post_attention_norm.weight",
                     "post_ffw_norm": "blk.{i}.post_ffw_norm.weight"}
@@ -381,9 +400,22 @@ _MOE_NAMES = {
 }
 
 
-def _layer_names(cfg: LlamaConfig) -> dict[str, str]:
-    """Params key → GGUF tensor template of one layer, per the config."""
+def _layer_names(cfg: LlamaConfig, tensors) -> dict[str, str]:
+    """Params key → GGUF tensor template of one layer, per the config and
+    the file's tensors: phi3's pre-fused ``attn_qkv`` maps onto ``wqkv``,
+    and an ``ffn_up`` of 2 * ffn_dim rows with no ``ffn_gate`` ([gate; up])
+    onto ``w_gate_up``, as the JAX loader maps them."""
     names = dict(_GGUF_NAMES)
+    if "blk.0.attn_qkv.weight" in tensors:
+        for k in ("wq", "wk", "wv"):
+            del names[k]
+        names["wqkv"] = "blk.{i}.attn_qkv.weight"
+    up = tensors.get("blk.0.ffn_up.weight")
+    if "blk.0.ffn_gate.weight" not in tensors and up is not None and up.shape[0] == 2 * cfg.ffn_dim:
+        del names["w_gate"], names["w_up"]
+        names["w_gate_up"] = "blk.{i}.ffn_up.weight"
+    if cfg.attn_bias:
+        names.update(_BIAS_NAMES)
     if cfg.qk_norm:
         names.update(_QK_NORM_NAMES)
     if cfg.post_norms:
@@ -395,7 +427,9 @@ def _layer_names(cfg: LlamaConfig) -> dict[str, str]:
     return names
 
 
-_FUSIONS = ((("wq", "wk", "wv"), "wqkv"), (("w_gate", "w_up"), "w_gate_up"))
+# (parts, fused key, their biases' keys, the fused bias key)
+_FUSIONS = ((("wq", "wk", "wv"), "wqkv", tuple(_BIAS_NAMES), "wqkv_bias"),
+            (("w_gate", "w_up"), "w_gate_up", (), ""))
 
 
 def _stack_layers(per_layer: dict[str, list], fuse: bool = True) -> dict:
@@ -403,18 +437,25 @@ def _stack_layers(per_layer: dict[str, list], fuse: bool = True) -> dict:
     along N only when every layer's parts share a container or are all
     dense (the JAX `_fuse_projections` rule: a Q4_K_M file's Q6_K attn_v, or
     a dense part beside quantized ones, keeps the group split on every
-    layer); a stack whose quantized layers mix kinds becomes a LayerList,
-    one that mixes quantized and dense layers a dense stack (`stack`).
+    layer); q/k/v biases fuse into ``wqkv_bias`` exactly where q/k/v
+    fuse, and stay split otherwise; a stack whose quantized layers mix
+    kinds becomes a LayerList, one that mixes quantized and dense layers a
+    dense stack (`stack`).
     Without `fuse` the parts stay as given (weights the JAX package has
     already fused or kept split)."""
     per_layer = dict(per_layer)
-    for names, fused in _FUSIONS if fuse else ():
+    for names, fused, biases, fused_bias in _FUSIONS if fuse else ():
         if all(n in per_layer for n in names):
             groups = list(zip(*(per_layer[n] for n in names)))
             if all(same_layout(list(parts)) for parts in groups):
                 per_layer[fused] = [concat(list(parts)) for parts in groups]
                 for n in names:
                     del per_layer[n]
+                if biases and all(n in per_layer for n in biases):
+                    bias_groups = zip(*(per_layer[n] for n in biases))
+                    per_layer[fused_bias] = [torch.cat(parts) for parts in bias_groups]
+                    for n in biases:
+                        del per_layer[n]
     return {k: stack(v) for k, v in per_layer.items()}
 
 
@@ -427,7 +468,9 @@ def _params(embed, layers: dict, final_norm, lm_head, inv_freq, inv_freq_local, 
         embed = embed.to(dtype).to(device)
     out = {
         "embed": embed,
-        "layers": {k: v.to(device) for k, v in layers.items()},
+        # the q/k/v biases in the activation dtype: the forward adds them as
+        # the JAX package does (bias.astype(projection dtype)), one add a part
+        "layers": {k: (v.to(dtype) if k.endswith("_bias") else v).to(device) for k, v in layers.items()},
         "final_norm": final_norm.to(device),
         "lm_head": head,
         "inv_freq": inv_freq.to(device),
@@ -478,7 +521,9 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
       as layer stacks of `Q4Tensor`/`Q8Tensor` (a `LayerList` where the
       quantized layers mix kinds) or dense [L, N, K] tensors in `dtype`:
       ``wqkv`` or ``wq``/``wk``/``wv`` (wq/wk rows
-      permuted NORM → NEOX for llama), ``wo``, ``w_gate_up`` or
+      permuted NORM → NEOX for llama and mistral), with qwen2's biases
+      ``wqkv_bias`` or ``wq_bias``/``wk_bias``/``wv_bias`` ([L, N] in
+      `dtype`), ``wo``, ``w_gate_up`` or
       ``w_gate``/``w_up``, ``w_down``; with q/k norms ``q_norm``/``k_norm``
       f32 [L, D]; with post norms ``post_attn_norm``/``post_ffw_norm`` f32
       [L, H]; a MoE model has ``router`` f32 [L, H, E] and the expert
@@ -511,22 +556,25 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
     def vec(name: str) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(g.tensor_f32(name), np.float32))
 
-    names = _layer_names(cfg)
+    names = _layer_names(cfg, g.tensors)
     per_layer: dict[str, list] = {k: [] for k in names}
     for i in range(cfg.n_layers):
         for key, template in names.items():
             name = template.format(i=i)
-            if key.endswith("norm"):
+            if key.endswith(("norm", "bias")):
                 per_layer[key].append(vec(name))
             elif key == "router":  # GGUF [E, H] → [H, E], f32 as the JAX route computes it
                 per_layer[key].append(vec(name).T.contiguous())
             else:
                 per_layer[key].append(mat(name))
-    if not cfg.rope_neox:
+    if not cfg.rope_neox and "wq" in per_layer:  # the JAX loader's rule (a pre-fused NORM qkv stays)
         q_perm = norm_to_neox_perm(cfg.n_heads, cfg.head_dim)
         k_perm = norm_to_neox_perm(cfg.n_kv_heads, cfg.head_dim)
         per_layer["wq"] = [permute_rows(w, q_perm) for w in per_layer["wq"]]
         per_layer["wk"] = [permute_rows(w, k_perm) for w in per_layer["wk"]]
+        if "wq_bias" in per_layer:
+            per_layer["wq_bias"] = [b[q_perm] for b in per_layer["wq_bias"]]
+            per_layer["wk_bias"] = [b[k_perm] for b in per_layer["wk_bias"]]
     if "rope_freqs.weight" in g.tensors:
         inv_freq = inv_freq_from_factors(
             g.tensor_f32("rope_freqs.weight"), cfg.head_dim, cfg.rope_base
@@ -588,13 +636,13 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
 
     src = np_params["layers"]
     unknown = set(src) - {"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv",
-                          "wo", "w_gate_up", "w_gate", "w_up", "w_down",
-                          *_QK_NORM_NAMES, *_POST_NORM_NAMES, *_MOE_NAMES}
+                          "wo", "w_gate_up", "w_gate", "w_up", "w_down", "wqkv_bias",
+                          *_BIAS_NAMES, *_QK_NORM_NAMES, *_POST_NORM_NAMES, *_MOE_NAMES}
     if unknown:
         raise NotImplementedError(f"layer parameters {sorted(unknown)} are not ported yet")
     per_layer = {}
     for key, leaf in src.items():
-        if key.endswith("norm") or key == "router":  # f32 [L, D|H] / [L, H, E]
+        if key.endswith(("norm", "bias")) or key == "router":  # f32 [L, D|H|N] / [L, H, E]
             per_layer[key] = list(torch.from_numpy(np.array(leaf, np.float32)))
         else:
             w = conv(leaf)
@@ -662,11 +710,20 @@ def _finish_layer(params: dict, cfg: LlamaConfig, h: torch.Tensor, attn: torch.T
 
 def _qkv(lp: dict, x: torch.Tensor, layer: int, qd: int, kvd: int):
     """q, k, v projections of x [..., H]: one fused matmul where the
-    checkpoint allows it, else three."""
+    checkpoint allows it, else three; qwen2's biases added after them in
+    the projection's dtype (one add on the fused output, else one a part:
+    plain PyTorch, as XLA adds them in the JAX forward; no kernel takes a
+    bias)."""
     if "wqkv" in lp:
         qkv = linear_layered(x, lp["wqkv"], layer)
-        return qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
-    return tuple(linear_layered(x, lp[k], layer) for k in ("wq", "wk", "wv"))
+        if "wqkv_bias" in lp:
+            qkv = qkv + lp["wqkv_bias"][layer].to(qkv.dtype)
+        q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
+    else:
+        q, k, v = (linear_layered(x, lp[k], layer) for k in ("wq", "wk", "wv"))
+    if "wq_bias" in lp:
+        q, k, v = (y + lp[f"{n}_bias"][layer].to(y.dtype) for y, n in zip((q, k, v), ("wq", "wk", "wv")))
+    return q, k, v
 
 
 def _norm_rope(lp: dict, cfg: LlamaConfig, layer: int, q: torch.Tensor, k: torch.Tensor,

@@ -1,16 +1,18 @@
 """Model factory registry: architecture sniffing → model family dispatch
-(the JAX package's registry, with the llama schema's llama, qwen3,
-qwen3moe and gemma/gemma2/gemma3 architectures ported)."""
+(the JAX package's registry: every architecture of its LLAMA_LIKE_ARCHS,
+the llama schema's llama, mistral, qwen2, qwen3, qwen3moe, gemma/gemma2/
+gemma3 and phi3)."""
 from __future__ import annotations
 
 from ..gguf import GGUFFile
 
 
 class LlamaFamily:
-    """Llama 3.x dense models, Qwen3 (q/k norms, NEOX rope), Qwen3-MoE
-    (routed experts) and Gemma 1/2/3 (gelu, scaled embeddings, softcaps,
-    sliding windows, post norms): 4-bit and 8-bit GGUF weights, tied or
-    untied head."""
+    """Llama 3.x and Mistral dense models, Qwen2 (q/k/v biases), Qwen3 (q/k
+    norms, NEOX rope), Qwen3-MoE (routed experts), Gemma 1/2/3 (gelu,
+    scaled embeddings, softcaps, sliding windows, post norms) and Phi-3
+    (pre-fused attn_qkv and gate/up): 4-bit, 8-bit and dense GGUF weights,
+    tied or untied head."""
 
     def config_from_gguf(self, g: GGUFFile):
         from .llama import LlamaConfig

@@ -25,7 +25,8 @@ Gemma's attention options ride the same entry points: ``softcap`` (the
 score becomes softcap * tanh(score / softcap) after the scale and the k
 scale, the new token's too) and ``window`` (a sliding window: the old keys
 s > starts[b] - window and the new token stay visible; 0 = unlimited), as
-the JAX kernels apply them. Head widths 64, 128 and 256.
+the JAX kernels apply them. Head widths 64, 96, 128 and 256; GQA ratios
+r = Hq / Hkv of 1 to 16.
 
 On CUDA tensors the wrappers launch ``csrc/decode_attention.cu`` and
 ``csrc/kv_write.cu`` or raise; on CPU tensors they run the plain versions.
@@ -56,7 +57,8 @@ K10 = register(Kernel(
 ))
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)  # the head widths K2 is compiled for
+HEAD_DIMS = (64, 96, 128, 256)  # the head widths K2 is compiled for
+MAX_GQA = 16  # query heads a kv head K2 and K7 take (two groups of 8 head columns)
 SPLIT_KEYS = 64  # keys a tile of K2/K7 (csrc/decode_attn.cuh's DA_KEYS)
 # blocks a cluster at most: 16 (non-portable) measured slower than 8 at every
 # narrow grid (tests/torch_decode_split_probe.py: 1.3-1.5x at B * Hkv = 8)
@@ -195,9 +197,10 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, starts, scale=None,
     _, s, kvd = k_cache.shape
     hkv = kvd // d
     r = hq // hkv
-    if d not in HEAD_DIMS or r not in (1, 2, 3, 4, 8) or hq != hkv * r:
-        raise NotImplementedError(f"decode attention kernel takes D in {HEAD_DIMS}, r in 1/2/3/4/8; "
-                                  f"got D={d}, r={r}")
+    if d not in HEAD_DIMS or not 1 <= r <= MAX_GQA or hq != hkv * r:
+        raise NotImplementedError(f"decode attention kernel takes D in {HEAD_DIMS} and GQA ratios r = Hq / Hkv "
+                                  f"of 1 to {MAX_GQA} (no family the port serves publishes more); "
+                                  f"got D={d}, Hq={hq}, Hkv={hkv}")
     cache_dtype = torch.int8 if quantized else torch.bfloat16
     for t, dtype in ((q, torch.bfloat16), (k_new, torch.bfloat16), (v_new, torch.bfloat16),
                      (k_cache, cache_dtype), (v_cache, cache_dtype)):

@@ -13,8 +13,8 @@ int8 entry point and launch counter (``paged_attention_i8``): the k scale
 multiplies each score column, the v scale each softmax weight after the
 denominator is summed. Gemma's ``softcap`` (after the scale and the k
 scale) and sliding ``window`` (positions lengths[b] - window <= s <
-lengths[b]; 0 = unlimited) take the same entry points; head widths 64, 128
-and 256.
+lengths[b]; 0 = unlimited) take the same entry points; head widths 64, 96,
+128 and 256, GQA ratios 1 to 16 (K2's, through the body they share).
 
 On CUDA tensors the wrapper launches ``csrc/paged_attention.cu`` or raises;
 on CPU tensors it runs `paged_decode_attention_plain`.
@@ -24,7 +24,9 @@ from __future__ import annotations
 import torch
 
 from ..kernels import F, I, Kernel, P, ptr, register, stream_ptr
-from .fused_decode import check_options, check_scales, decode_split, sm_count, softcap_scores, variant
+from .fused_decode import (
+    HEAD_DIMS, MAX_GQA, check_options, check_scales, decode_split, sm_count, softcap_scores, variant,
+)
 
 K7 = register(Kernel(
     "paged_attention", "paged_attention.cu",
@@ -37,7 +39,6 @@ K7_I8 = register(Kernel(
 
 NEG_INF = -1e30
 PAGE_SIZES = (16, 32, 64, 128)
-HEAD_DIMS = (64, 128, 256)  # the head widths K7 is compiled for
 
 
 def gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -107,9 +108,10 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, scale=None,
                                             k_scales, v_scales, softcap, window)
     hkv, n_pages, ps, _ = k_pages.shape
     r = hq // hkv
-    if d not in HEAD_DIMS or r not in (1, 2, 3, 4, 8) or hq != hkv * r:
-        raise NotImplementedError(f"paged attention kernel takes D in {HEAD_DIMS}, r in 1/2/3/4/8; "
-                                  f"got D={d}, r={r}")
+    if d not in HEAD_DIMS or not 1 <= r <= MAX_GQA or hq != hkv * r:
+        raise NotImplementedError(f"paged attention kernel takes D in {HEAD_DIMS} and GQA ratios r = Hq / Hkv "
+                                  f"of 1 to {MAX_GQA} (no family the port serves publishes more); "
+                                  f"got D={d}, Hq={hq}, Hkv={hkv}")
     if ps not in PAGE_SIZES:
         raise NotImplementedError(f"paged attention kernel takes page sizes {PAGE_SIZES}; got {ps}")
     pool_dtype = torch.int8 if quantized else torch.bfloat16

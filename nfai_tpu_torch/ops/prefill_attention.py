@@ -11,7 +11,8 @@ int8 entry point and launch counter (``prefill_attention_i8``): the k scale
 multiplies each score column and the v scale each softmax weight after the
 denominator is summed, as the JAX kernel applies them. Gemma's ``softcap``
 and sliding ``window`` (query t sees slots pos - window < s <= pos; 0 =
-unlimited) take the same entry points; head widths 64, 128 and 256.
+unlimited) take the same entry points; head widths 64, 96, 128 and 256
+(96 in two 64-column sub-tiles, the second half used).
 
 `kv_layout` follows the JAX function's (default "full", as the JAX
 `_PREFILL_KV_LAYOUT`): "full" and "merged" take the native [B, S, Hkv*D]
@@ -52,7 +53,7 @@ K4_HM_I8 = register(Kernel(
 ))
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)  # the head widths K4 is compiled for
+HEAD_DIMS = (64, 96, 128, 256)  # the head widths K4 is compiled for
 KV_LAYOUTS = ("full", "headmajor", "merged")
 
 

@@ -3,10 +3,10 @@ checkpoints at published widths filled with random raw quantized blocks
 (no quantizer runs over billions of floats).
 
 `make_tiny_llama_gguf` is a copy of the JAX package's fixture (same bytes
-for the same arguments) limited to the options the port runs (llama, qwen3
-q/k norms, qwen3moe experts, the gemma options: post norms, sliding window,
-softcaps, the SPM vocabulary), plus `key_length`, which the JAX fixture
-lacks, for a head_dim * n_heads other than hidden.
+for the same arguments: llama, mistral, qwen2 q/k/v biases, qwen3 q/k
+norms, qwen3moe experts, phi3's pre-fused tensors, the gemma options: post
+norms, sliding window, softcaps, the SPM vocabulary), plus `key_length`,
+which the JAX fixture lacks, for a head_dim * n_heads other than hidden.
 `make_llama_1b_gguf` writes the published Llama-3.2-1B shapes (hidden 2048,
 32 heads / 8 kv heads, ffn 8192, vocab 128256, rope base 500000 with a
 llama3 `rope_freqs` tensor) in one of these kinds: "q4_k" (untied, Q4_K
@@ -130,37 +130,74 @@ def tiny_spm_tokenizer_metadata() -> dict:
     }
 
 
-def gemma_spm_tokenizer_metadata(n_tokens: int) -> dict:
-    """A Gemma-style SPM vocabulary of `n_tokens` pieces: <pad> <eos> <bos>
-    <unk> (ids 0-3, as in Gemma's), <start_of_turn> and <end_of_turn>
-    (control pieces: <end_of_turn> ends generation), the 256 byte pieces and
-    "▁", then filler pieces of four letters or digits (the id in base 62)
-    that decode to visible text; there are no two-character pieces, so
-    every string falls back to byte pieces and encoding never merges. With
-    Gemma's chat template."""
-    pieces, types = list(SPM_SPECIALS), [TokenType.CONTROL] * len(SPM_SPECIALS)
-    types[3] = TokenType.UNKNOWN
+def spm_tokenizer_metadata(n_tokens: int, specials: tuple, *, unk: int, bos: int, eos: int,
+                           template: str, pad: int | None = None, added: tuple = ()) -> dict:
+    """An SPM vocabulary of `n_tokens` pieces: the `specials` (control
+    pieces, the one at `unk` the unknown piece), the 256 byte pieces and
+    "▁", filler pieces of four letters or digits (the id in base 62) that
+    decode to visible text, then the `added` control pieces at the end;
+    there are no two-character pieces, so every string falls back to byte
+    pieces and encoding never merges. BOS is added; the chat template is
+    `template`."""
+    pieces, types = list(specials), [TokenType.CONTROL] * len(specials)
+    types[unk] = TokenType.UNKNOWN
     for b in range(256):
         pieces.append(f"<0x{b:02X}>")
         types.append(TokenType.BYTE)
     pieces.append("▁")
     types.append(TokenType.NORMAL)
     digits = "0123456789abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
-    for i in range(len(pieces), n_tokens):
+    for i in range(len(pieces), n_tokens - len(added)):
         pieces.append("".join(digits[i // 62**p % 62] for p in (3, 2, 1, 0)))
         types.append(TokenType.NORMAL)
-    return {
+    pieces += added
+    types += [TokenType.CONTROL] * len(added)
+    md = {
         Keys.TOKENIZER_MODEL: "llama",
         Keys.TOKENIZER_TOKENS: pieces,
         "tokenizer.ggml.scores": [0.0] * len(pieces),
         Keys.TOKENIZER_TOKEN_TYPE: types,
-        Keys.TOKENIZER_BOS: 2,
-        Keys.TOKENIZER_EOS: 1,
-        Keys.TOKENIZER_PAD: 0,
-        "tokenizer.ggml.unknown_token_id": 3,
-        Keys.TOKENIZER_ADD_BOS: True,
-        Keys.TOKENIZER_CHAT_TEMPLATE: GEMMA_TEMPLATE,
+        Keys.TOKENIZER_BOS: bos,
+        Keys.TOKENIZER_EOS: eos,
     }
+    if pad is not None:
+        md[Keys.TOKENIZER_PAD] = pad
+    md["tokenizer.ggml.unknown_token_id"] = unk
+    md[Keys.TOKENIZER_ADD_BOS] = True
+    md[Keys.TOKENIZER_CHAT_TEMPLATE] = template
+    return md
+
+
+def gemma_spm_tokenizer_metadata(n_tokens: int) -> dict:
+    """A Gemma-style SPM vocabulary of `n_tokens` pieces: <pad> <eos> <bos>
+    <unk> (ids 0-3, as in Gemma's), <start_of_turn> and <end_of_turn>
+    (control pieces: <end_of_turn> ends generation), the 256 byte pieces and
+    "▁", then filler pieces (`spm_tokenizer_metadata`). With Gemma's chat
+    template."""
+    return spm_tokenizer_metadata(n_tokens, SPM_SPECIALS, unk=3, bos=2, eos=1, pad=0,
+                                  template=GEMMA_TEMPLATE)
+
+
+# Mistral-7B-v0.3's control pieces (ids 0-4 of its 32768) and its [INST] template
+MISTRAL_SPECIALS = ("<unk>", "<s>", "</s>", "[INST]", "[/INST]")
+MISTRAL_TEMPLATE = (
+    "{{- bos_token }}"
+    "{%- for message in messages %}"
+    "{%- if message['role'] in ('user', 'system') %}{{- '[INST] ' + message['content'] + ' [/INST]' }}"
+    "{%- else %}{{- message['content'] + eos_token }}{%- endif %}"
+    "{%- endfor %}"
+)
+# Phi-3-mini's llama-2 pieces 0-2 and its added tokens 32000-32010 (the
+# vocabulary padded to 32064 with placeholders); <|end|> ends a turn
+PHI3_ADDED = ("<|endoftext|>", "<|assistant|>", "<|placeholder1|>", "<|placeholder2|>",
+              "<|placeholder3|>", "<|placeholder4|>", "<|system|>", "<|end|>", "<|placeholder5|>",
+              "<|placeholder6|>", "<|user|>")
+PHI3_TEMPLATE = (
+    "{%- for message in messages %}"
+    "{{- '<|' + message['role'] + '|>\n' + message['content'] + '<|end|>\n' }}"
+    "{%- endfor %}"
+    "{%- if add_generation_prompt %}{{- '<|assistant|>\n' }}{%- endif %}"
+)
 
 
 def _header(w: GGUFWriter, arch: str, name: str, *, context_length: int,
@@ -200,7 +237,9 @@ def make_tiny_llama_gguf(
     rope_base: float = 10000.0,
     quant: GGMLType = GGMLType.F32,
     tied: bool = True,
+    attn_bias: bool = False,  # qwen2-style q/k/v biases
     qk_norm: bool = False,  # qwen3-style per-head q/k norms
+    fused_tensors: bool = False,  # phi3-style: attn_qkv + a [gate; up] ffn_up
     spm_tokenizer: bool = False,  # llama-2/gemma-style SPM vocab instead of BPE
     n_experts: int = 0,  # qwen3moe-style MoE FFN
     n_experts_used: int = 0,
@@ -253,10 +292,17 @@ def make_tiny_llama_gguf(
         addw("rope_freqs.weight", rope_freqs.astype(np.float32), GGMLType.F32)
     for i in range(n_layers):
         addw(f"blk.{i}.attn_norm.weight", np.ones(hidden, np.float32), GGMLType.F32)
-        addw(f"blk.{i}.attn_q.weight", rand(n_heads * head_dim, hidden))
-        addw(f"blk.{i}.attn_k.weight", rand(n_kv_heads * head_dim, hidden))
-        addw(f"blk.{i}.attn_v.weight", rand(n_kv_heads * head_dim, hidden))
+        if fused_tensors:
+            addw(f"blk.{i}.attn_qkv.weight", rand((n_heads + 2 * n_kv_heads) * head_dim, hidden))
+        else:
+            addw(f"blk.{i}.attn_q.weight", rand(n_heads * head_dim, hidden))
+            addw(f"blk.{i}.attn_k.weight", rand(n_kv_heads * head_dim, hidden))
+            addw(f"blk.{i}.attn_v.weight", rand(n_kv_heads * head_dim, hidden))
         addw(f"blk.{i}.attn_output.weight", rand(hidden, n_heads * head_dim))
+        if attn_bias:
+            addw(f"blk.{i}.attn_q.bias", rand(n_heads * head_dim), GGMLType.F32)
+            addw(f"blk.{i}.attn_k.bias", rand(n_kv_heads * head_dim), GGMLType.F32)
+            addw(f"blk.{i}.attn_v.bias", rand(n_kv_heads * head_dim), GGMLType.F32)
         if qk_norm:
             addw(f"blk.{i}.attn_q_norm.weight", 1.0 + rand(head_dim), GGMLType.F32)
             addw(f"blk.{i}.attn_k_norm.weight", 1.0 + rand(head_dim), GGMLType.F32)
@@ -272,8 +318,11 @@ def make_tiny_llama_gguf(
             addw(f"blk.{i}.ffn_up_exps.weight", rand(n_experts, ffn_dim, hidden))
             addw(f"blk.{i}.ffn_down_exps.weight", rand(n_experts, hidden, ffn_dim))
         else:
-            addw(f"blk.{i}.ffn_gate.weight", rand(ffn_dim, hidden))
-            addw(f"blk.{i}.ffn_up.weight", rand(ffn_dim, hidden))
+            if fused_tensors:
+                addw(f"blk.{i}.ffn_up.weight", rand(2 * ffn_dim, hidden))
+            else:
+                addw(f"blk.{i}.ffn_gate.weight", rand(ffn_dim, hidden))
+                addw(f"blk.{i}.ffn_up.weight", rand(ffn_dim, hidden))
             addw(f"blk.{i}.ffn_down.weight", rand(hidden, ffn_dim))
     addw("output_norm.weight", np.ones(hidden, np.float32), GGMLType.F32)
     if not tied:
@@ -304,6 +353,20 @@ QWEN3_30B_A3B = dict(
     hidden=2048, n_layers=48, n_heads=32, n_kv_heads=4, head_dim=128, ffn_dim=6144,
     n_experts=128, n_experts_used=8, moe_ffn_dim=768, vocab_size=151936,
     rope_base=1e6, rms_eps=1e-6, context_length=40960,
+)
+# Qwen/Qwen2.5-1.5B, microsoft/Phi-3-mini-4k-instruct and
+# mistralai/Mistral-7B-v0.3 (published config.json)
+QWEN2_5_1_5B = dict(
+    hidden=1536, n_layers=28, n_heads=12, n_kv_heads=2, ffn_dim=8960, vocab_size=151936,
+    rope_base=1e6, rms_eps=1e-6, context_length=32768,
+)
+PHI3_MINI_4K = dict(
+    hidden=3072, n_layers=32, n_heads=32, n_kv_heads=32, ffn_dim=8192, vocab_size=32064,
+    rope_base=1e4, rms_eps=1e-5, context_length=4096,
+)
+MISTRAL_7B_V0_3 = dict(
+    hidden=4096, n_layers=32, n_heads=32, n_kv_heads=8, ffn_dim=14336, vocab_size=32768,
+    rope_base=1e6, rms_eps=1e-5, context_length=32768,
 )
 # google/gemma-2-2b and google/gemma-3-1b-it (published config.json)
 GEMMA2_2B = dict(
@@ -344,6 +407,19 @@ def random_q6k_bytes(rng: np.random.Generator, n_out: int, k_in: int,
     blocks = np.frombuffer(rng.bytes(nb * 210), np.uint8).reshape(nb, 210).copy()
     blocks[:, 192:208] = rng.integers(-15, 16, (nb, 16)).astype(np.int8).view(np.uint8)
     blocks[:, 208:210] = _f16_bytes(rng, nb, d_scale)
+    return blocks.reshape(-1)
+
+
+def random_q5k_bytes(rng: np.random.Generator, n_out: int, k_in: int,
+                     d_scale: float = 7e-5) -> np.ndarray:
+    """Raw Q5_K payload: random 6-bit scales and mins, 5-bit values (high
+    bits in qh), small finite f16 d/dmin (dmin = 15.5 d keeps the weights
+    roughly centred)."""
+    nb = n_out * k_in // 256
+    blocks = np.frombuffer(rng.bytes(nb * 176), np.uint8).reshape(nb, 176).copy()
+    d = (rng.uniform(0.5, 1.5, nb) * d_scale).astype(np.float16)
+    blocks[:, 0:2] = d.view(np.uint8).reshape(nb, 2)
+    blocks[:, 2:4] = (d.astype(np.float32) * 15.5).astype(np.float16).view(np.uint8).reshape(nb, 2)
     return blocks.reshape(-1)
 
 
@@ -393,6 +469,7 @@ def random_float_bytes(rng: np.random.Generator, n_out: int, k_in: int,
 
 _RANDOM_BLOCKS = {
     GGMLType.Q4_K: random_q4k_bytes,
+    GGMLType.Q5_K: random_q5k_bytes,
     GGMLType.Q6_K: random_q6k_bytes,
     GGMLType.Q8_0: random_q8_0_bytes,
     GGMLType.Q4_0: random_q4_0_bytes,
@@ -614,3 +691,112 @@ def make_gemma3_1b_gguf(path: str | Path, *, n_layers: int = 2, seed: int = 0,
 
     name = "gemma-3-1b-width-random" + ("" if kind == "q4_0" else f"-{kind}")
     return _gemma_gguf(path, "gemma3", c, name, {"q4_0": q4_0, "q4_k_m": q4_k_m}[kind], seed)
+
+
+def _family_gguf(path, arch: str, c: dict, name: str, tok_md: dict, kind, *, tied: bool,
+                 bias: bool = False, fused: bool = False, seed: int = 0) -> Path:
+    """A random-block llama-schema GGUF of `arch` at the widths in `c`;
+    `kind(name, layer)` picks each matmul tensor's GGMLType (the token table
+    asks with layer -1, an untied output.weight with layer -2). `bias`:
+    qwen2's F32 q/k/v biases (std 0.5, as a trained Qwen2's are); `fused`:
+    phi3's attn_qkv and [gate; up] ffn_up. Norms are ones."""
+    rng = np.random.default_rng(seed)
+    h, v, nl, f = c["hidden"], c["vocab_size"], c["n_layers"], c["ffn_dim"]
+    hd = h // c["n_heads"]
+    qd, kvd = c["n_heads"] * hd, c["n_kv_heads"] * hd
+    w = GGUFWriter()
+    _header(w, arch, name, context_length=c["context_length"], hidden=h, n_layers=nl,
+            ffn_dim=f, n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
+            rope_base=c["rope_base"], vocab_size=v, rms_eps=c["rms_eps"], tok_md=tok_md)
+
+    def quant(tname, layer, n_out, k_in):
+        q = kind(tname, layer)
+        w.add_tensor(tname, _shape_only(n_out, k_in), q, raw_bytes=_RANDOM_BLOCKS[q](rng, n_out, k_in))
+
+    def f32(tname, arr):
+        w.add_tensor(tname, np.asarray(arr, np.float32), GGMLType.F32)
+
+    quant("token_embd.weight", -1, v, h)
+    for i in range(nl):
+        f32(f"blk.{i}.attn_norm.weight", np.ones(h))
+        if fused:
+            quant(f"blk.{i}.attn_qkv.weight", i, qd + 2 * kvd, h)
+        else:
+            quant(f"blk.{i}.attn_q.weight", i, qd, h)
+            quant(f"blk.{i}.attn_k.weight", i, kvd, h)
+            quant(f"blk.{i}.attn_v.weight", i, kvd, h)
+        quant(f"blk.{i}.attn_output.weight", i, h, qd)
+        if bias:
+            for part, n in (("q", qd), ("k", kvd), ("v", kvd)):
+                f32(f"blk.{i}.attn_{part}.bias", rng.standard_normal(n, np.float32) * 0.5)
+        f32(f"blk.{i}.ffn_norm.weight", np.ones(h))
+        if fused:
+            quant(f"blk.{i}.ffn_up.weight", i, 2 * f, h)
+        else:
+            quant(f"blk.{i}.ffn_gate.weight", i, f, h)
+            quant(f"blk.{i}.ffn_up.weight", i, f, h)
+        quant(f"blk.{i}.ffn_down.weight", i, h, f)
+    f32("output_norm.weight", np.ones(h))
+    if not tied:
+        quant("output.weight", -2, v, h)
+    return w.write(path)
+
+
+def _cut(widths: dict, n_layers: int | None) -> dict:
+    return dict(widths) if n_layers is None else dict(widths, n_layers=n_layers)
+
+
+def make_qwen2_1_5b_gguf(path: str | Path, *, n_layers: int | None = None, seed: int = 0) -> Path:
+    """Model Q: qwen2 at Qwen2.5-1.5B's widths (hidden 1536, 28 layers, 12 / 2
+    heads of 128: r = 6, ffn 8960, vocab 151936, tied, q/k/v biases, rope
+    base 1e6, rms eps 1e-6, a ChatML tokenizer) in llama.cpp's Q4_K_M mix:
+    tied Q6_K table, Q6_K attn_v and ffn_down on the layers `use_more_bits`
+    picks, Q4_K elsewhere. ~1.1 GB at full depth."""
+    c = _cut(QWEN2_5_1_5B, n_layers)
+    nl = c["n_layers"]
+
+    def kind(name, layer):
+        if layer < 0 or (name.endswith(("attn_v.weight", "ffn_down.weight")) and use_more_bits(layer, nl)):
+            return GGMLType.Q6_K
+        return GGMLType.Q4_K
+
+    return _family_gguf(path, "qwen2", c, "qwen2.5-1.5b-width-random-q4_k_m",
+                        tiny_tokenizer_metadata(c["vocab_size"], chatml=True), kind, tied=True,
+                        bias=True, seed=seed)
+
+
+def make_phi3_mini_gguf(path: str | Path, *, n_layers: int | None = None, seed: int = 0) -> Path:
+    """Model P: phi3 at Phi-3-mini-4k's widths (hidden 3072, 32 layers, 32 /
+    32 heads of 96: r = 1, ffn 8192, vocab 32064 of SPM pieces, untied,
+    rope base 1e4) with its pre-fused attn_qkv [9216, 3072] and [gate; up]
+    ffn_up [16384, 3072], in llama.cpp's Q4_K_M mix: Q5_K attn_qkv (its
+    rule for a fused qkv), Q6_K ffn_down on the layers `use_more_bits`
+    picks, Q6_K output.weight, Q4_K elsewhere (the token table too). ~2.3 GB
+    at full depth."""
+    c = _cut(PHI3_MINI_4K, n_layers)
+    nl = c["n_layers"]
+
+    def kind(name, layer):
+        if layer == -2 or (name.endswith("ffn_down.weight") and use_more_bits(layer, nl)):
+            return GGMLType.Q6_K
+        return GGMLType.Q5_K if name.endswith("attn_qkv.weight") else GGMLType.Q4_K
+
+    added = PHI3_ADDED + tuple(f"<|dummy_id_{i}|>" for i in range(64 - len(PHI3_ADDED)))
+    tok = spm_tokenizer_metadata(c["vocab_size"], ("<unk>", "<s>", "</s>"), unk=0, bos=1,
+                                 eos=c["vocab_size"] - len(added) + added.index("<|end|>"),
+                                 template=PHI3_TEMPLATE, added=added)
+    return _family_gguf(path, "phi3", c, "phi-3-mini-4k-width-random-q4_k_m", tok, kind, tied=False,
+                        fused=True, seed=seed)
+
+
+def make_mistral_7b_gguf(path: str | Path, *, n_layers: int | None = None, seed: int = 0) -> Path:
+    """Model M: mistral at Mistral-7B-v0.3's widths (hidden 4096, 32 layers,
+    32 / 8 heads of 128, ffn 14336, vocab 32768 of SPM pieces, NORM rope,
+    base 1e6, untied) in plain Q4_K (the token table and output.weight
+    too), so that every layer's MLP is K5's at a 7B width. ~4.0 GB at full
+    depth."""
+    c = _cut(MISTRAL_7B_V0_3, n_layers)
+    tok = spm_tokenizer_metadata(c["vocab_size"], MISTRAL_SPECIALS, unk=0, bos=1, eos=2,
+                                 template=MISTRAL_TEMPLATE)
+    return _family_gguf(path, "mistral", c, "mistral-7b-v0.3-width-random-q4_k", tok,
+                        lambda name, layer: GGMLType.Q4_K, tied=False, seed=seed)

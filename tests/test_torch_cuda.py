@@ -77,7 +77,15 @@ store dropping a frozen lane's rows (dense chunk mode) and writing only
 the sink page through an all-zero table (paged); the verify forward on the
 card against the CPU (no host sync, a frozen lane's rows unchanged); the
 BatchEngine speculating (dense and paged, greedy equal to plain decoding
-up to a near-tie) and serving constrained slots on the card.
+up to a near-tie) and serving constrained slots on the card. The qwen2 /
+mistral / phi3 instances: K2 and K7 (bf16 and int8, every option) at GQA
+ratios 5, 6, 7, 9 and 16 and at head_dim 96, per (row, head) with the same
+bits on three launches; the padded query columns neither read into a
+result nor written past the real heads (buffers with a NaN tail); K4 at
+head_dim 96 ("full" per (token, head) row, "headmajor" the same bits,
+"merged" refused); the K/V store at head_dim 96 bit for bit; tiny Q4_K
+qwen2 / mistral / phi3 models on the card against the CPU, dense and
+paged, bf16 and int8 caches.
 """
 import pytest
 import torch
@@ -1100,7 +1108,7 @@ def test_kv_store_refuses_what_it_cannot_store(cuda):
 
     b, s, hkv = 2, 64, 2
     starts = torch.zeros(b, device="cuda", dtype=torch.int32)
-    for d, dtype in ((96, torch.bfloat16), (64, torch.float32)):  # a head width, a row type it lacks
+    for d, dtype in ((80, torch.bfloat16), (64, torch.float32)):  # a head width, a row type it lacks
         cache = torch.zeros(b, s, hkv * d, device="cuda", dtype=dtype)
         rows = torch.zeros(b, 3, hkv * d, device="cuda", dtype=dtype)
         with pytest.raises((NotImplementedError, ValueError)):
@@ -1415,3 +1423,238 @@ def test_speculative_and_constrained_batch_engine_on_the_card(cuda, tmp_path, pa
     for r, (_, ok) in zip(reqs, checks):
         assert r.state == RequestState.FINISHED
         assert ok is None or ok(e.tokenizer.decode(r.output_ids)), r.output_ids
+
+
+# -- the instances the qwen2 / mistral / phi3 families need ---------------------------
+
+# K2's and K7's new instances: GQA ratios 5, 6, 7, 9 and 16 at head_dim 128
+# (Qwen3-14B, Qwen2.5-1.5B, Qwen2.5-7B, a second head group's ragged edge,
+# Qwen3-235B-A22B), r = 16 at head_dims 64 and 256 (the two-group shared
+# memory at its widest), and head_dim 96 (Phi-3-mini's) at r = 1, 6 and 16;
+# bf16 and int8, with and without softcap and window, on the narrow and
+# the wide grid; per (row, head) against the plain version, one counter step
+# a call, the same bits on three launches
+NEW_DECODE_SHAPES = [(5, 128), (6, 128), (7, 128), (9, 128), (16, 128), (16, 64), (16, 256), (1, 96),
+                     (6, 96), (16, 96)]
+
+
+@pytest.mark.parametrize(**SPLIT_OPTIONS)
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("r,d", NEW_DECODE_SHAPES)
+@pytest.mark.parametrize("b,hkv", [(8, 1), (4, 8)], ids=["narrow", "wide"])
+def test_decode_attention_new_instances(cuda, b, hkv, r, d, quant, cap, win):
+    from nfai_tpu_torch.models.llama import quantize_kv
+
+    s = 2048
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    kc, vc = torch.randn(b, s, hkv * d, **bf), torch.randn(b, s, hkv * d, **bf)
+    sc = {}
+    if quant:
+        (kc, ks), (vc, vs) = quantize_kv(kc, hkv), quantize_kv(vc, hkv)
+        sc = dict(k_scales=ks.transpose(1, 2).contiguous(), v_scales=vs.transpose(1, 2).contiguous())
+    q = torch.randn(b, hkv * r, d, **bf) * (3 if cap else 1)
+    kn, vn = torch.randn(b, hkv * d, **bf), torch.randn(b, hkv * d, **bf)
+    starts = torch.tensor([0, 1, 63, 65, 777, 1024, 2000, 2048][:b], device="cuda", dtype=torch.int32)
+    kernel = fd.K2_I8 if quant else fd.K2
+
+    def run():
+        return fd.decode_attention(q, kn, vn, kc, vc, starts, softcap=cap, window=win, **sc)
+
+    before = kernel.launches
+    got = run()
+    assert kernel.launches == before + 1
+    want = fd.decode_attention_plain(q, kn, vn, kc, vc, starts, d**-0.5, sc.get("k_scales"),
+                                     sc.get("v_scales"), cap, win)
+    assert rel(got, want, row_dims=2) < TOL
+    assert all(torch.equal(run(), got) for _ in range(2))  # no atomics
+
+
+@pytest.mark.parametrize(**SPLIT_OPTIONS)
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("r,d", NEW_DECODE_SHAPES)
+def test_paged_attention_new_instances(cuda, r, d, ps, quant, cap, win):
+    from nfai_tpu_torch.models.llama import quantize_kv
+
+    b, hkv = 8, 2
+    n_p = 2048 // ps
+    n_pages = b * n_p + 3
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    kp, vp = torch.randn(hkv, n_pages, ps, d, **bf), torch.randn(hkv, n_pages, ps, d, **bf)
+    sc = {}
+    if quant:
+        (kp, ks), (vp, vs) = quantize_kv(kp, 1), quantize_kv(vp, 1)
+        sc = dict(k_scales=ks[..., 0].contiguous(), v_scales=vs[..., 0].contiguous())
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(ps + d + r))[: b * n_p] + 1
+    tables = perm.view(b, n_p).to(torch.int32).cuda()
+    lengths = torch.tensor([1, 63, 64, 65, 777, 1024, 2000, 2048], device="cuda", dtype=torch.int32)
+    q = torch.randn(b, hkv * r, d, **bf) * (3 if cap else 1)
+    kernel = pga.K7_I8 if quant else pga.K7
+
+    def run():
+        return pga.paged_decode_attention(q, kp, vp, tables, lengths, softcap=cap, window=win, **sc)
+
+    before = kernel.launches
+    got = run()
+    assert kernel.launches == before + 1
+    want = pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, d**-0.5, sc.get("k_scales"),
+                                            sc.get("v_scales"), cap, win)
+    assert rel(got, want, row_dims=2) < TOL
+    assert all(torch.equal(run(), got) for _ in range(2))  # no atomics
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("r", [5, 16])
+@pytest.mark.parametrize("which", ["K2", "K7"])
+def test_padded_head_columns_are_neither_read_nor_written(cuda, which, r, quant):
+    """The products pad the r query heads to 8 (or 16) columns: the C entry
+    point called on buffers that run on past the real heads, NaN there.
+    The queries past the last kv head's r heads are never read into a
+    result (every output finite and equal to the plain version), and no
+    output past the r heads of the last kv head is written (the NaN tail
+    stays NaN, bit for bit)."""
+    from nfai_tpu_torch.kernels import ptr, stream_ptr
+    from nfai_tpu_torch.models.llama import quantize_kv
+
+    b, hkv, d, s, tail = 2, 2, 128, 300, 16 * 128
+    hq = hkv * r
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    qbuf = torch.full((b * hq * d + tail,), float("nan"), device="cuda", dtype=torch.bfloat16)
+    qbuf[: b * hq * d] = torch.randn(b * hq * d, **bf)
+    q = qbuf[: b * hq * d].view(b, hq, d)
+    obuf = torch.full((b * hq * d + tail,), float("nan"), device="cuda", dtype=torch.bfloat16)
+    out = obuf[: b * hq * d].view(b, hq, d)
+    scale = d**-0.5
+    if which == "K2":
+        kc, vc = torch.randn(b, s, hkv * d, **bf), torch.randn(b, s, hkv * d, **bf)
+        kn, vn = torch.randn(b, hkv * d, **bf), torch.randn(b, hkv * d, **bf)
+        starts = torch.tensor([0, s - 1], device="cuda", dtype=torch.int32)
+        if quant:
+            (kc, ks), (vc, vs) = quantize_kv(kc, hkv), quantize_kv(vc, hkv)
+            ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+            fd.K2_I8.call("nfai_decode_attention_i8", ptr(q), ptr(kn), ptr(vn), ptr(kc), ptr(vc), ptr(ks),
+                          ptr(vs), ptr(starts), ptr(out), b, s, hkv, r, d, scale, 0.0, 0, 1, stream_ptr(q))
+            want = fd.decode_attention_plain(q, kn, vn, kc, vc, starts, scale, ks, vs)
+        else:
+            fd.K2.call("nfai_decode_attention", ptr(q), ptr(kn), ptr(vn), ptr(kc), ptr(vc), ptr(starts),
+                       ptr(out), b, s, hkv, r, d, scale, 0.0, 0, 1, stream_ptr(q))
+            want = fd.decode_attention_plain(q, kn, vn, kc, vc, starts, scale)
+    else:
+        ps, n_p = 16, 20
+        n_pages = b * n_p + 1
+        kp, vp = torch.randn(hkv, n_pages, ps, d, **bf), torch.randn(hkv, n_pages, ps, d, **bf)
+        tables = (torch.arange(b * n_p, device="cuda", dtype=torch.int32) + 1).view(b, n_p)
+        lengths = torch.tensor([1, n_p * ps], device="cuda", dtype=torch.int32)
+        if quant:
+            (kp, ks), (vp, vs) = quantize_kv(kp, 1), quantize_kv(vp, 1)
+            ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+            pga.K7_I8.call("nfai_paged_attention_i8", ptr(q), ptr(kp), ptr(vp), ptr(ks), ptr(vs), ptr(tables),
+                           ptr(lengths), ptr(out), b, hkv, r, n_pages, ps, n_p, d, scale, 0.0, 0, 1,
+                           stream_ptr(q))
+            want = pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, scale, ks, vs)
+        else:
+            pga.K7.call("nfai_paged_attention", ptr(q), ptr(kp), ptr(vp), ptr(tables), ptr(lengths), ptr(out),
+                        b, hkv, r, n_pages, ps, n_p, d, scale, 0.0, 0, 1, stream_ptr(q))
+            want = pga.paged_decode_attention_plain(q, kp, vp, tables, lengths, scale)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert rel(out, want, row_dims=2) < TOL
+    assert bool(torch.isnan(obuf[b * hq * d:]).all())
+
+
+# K4 at head_dim 96 (two 64-column sub-tiles, the second half used): r 1
+# (Phi-3-mini) and 6, chunks of 1 to 256 tokens at offsets 0 and 700, the
+# narrow and the wide grid, bf16 and int8, softcap and window once; "full"
+# per (token, head) row against the plain version with the same bits on
+# three launches, "headmajor" the same bits as "full", "merged" refused
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("offset", [0, 700])
+@pytest.mark.parametrize("t", [1, 17, 64, 256])
+@pytest.mark.parametrize("r", [1, 6])
+@pytest.mark.parametrize("b,hkv", [(2, 2), (8, 8)], ids=["narrow", "wide"])
+def test_prefill_attention_d96(cuda, b, hkv, r, t, offset, quant):
+    from nfai_tpu_torch.models.llama import quantize_kv
+
+    s, d = 1024, 96
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=cuda)
+    q = torch.randn(b, t, hkv * r, d, **bf) * 2
+    kc, vc = torch.randn(b, s, hkv * d, **bf), torch.randn(b, s, hkv * d, **bf)
+    sc = {}
+    if quant:
+        (kc, ks), (vc, vs) = quantize_kv(kc, hkv), quantize_kv(vc, hkv)
+        sc = dict(k_scales=ks.transpose(1, 2).contiguous(), v_scales=vs.transpose(1, 2).contiguous())
+    offs = torch.tensor([offset, offset // 2] * (b // 2), device="cuda", dtype=torch.int32)
+    for cap, win in ((0.0, 0), (50.0, 96)):
+        kernel = pa.K4_I8 if quant else pa.K4
+        before = kernel.launches
+        got = pa.flash_prefill_attention(q, kc, vc, offs, softcap=cap, window=win, **sc)
+        assert kernel.launches == before + 1
+        want = pa.flash_prefill_attention_plain(q, kc, vc, offs, d**-0.5, sc.get("k_scales"),
+                                                sc.get("v_scales"), cap, win)
+        assert rel(got, want, row_dims=3) < (INT8_TOL if quant else TOL), (cap, win)
+        assert all(torch.equal(pa.flash_prefill_attention(q, kc, vc, offs, softcap=cap, window=win, **sc),
+                               got) for _ in range(2))
+        hm = pa.flash_prefill_attention(q, pa.head_major(kc, hkv), pa.head_major(vc, hkv), offs, softcap=cap,
+                                        window=win, kv_layout="headmajor", **sc)
+        assert torch.equal(hm, got)
+    with pytest.raises(ValueError):
+        pa.flash_prefill_attention(q, kc, vc, offs, kv_layout="merged", **sc)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("mode", ["step", "chunk"])
+def test_kv_store_kernel_d96(cuda, quant, mode):
+    """The dense store at head_dim 96 (groups of 16 lanes, 12 of them
+    loading and storing): bit for bit against the plain version."""
+    test_kv_store_kernel(cuda, 96, quant, mode)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("t,ps", [(1, 16), (1, 128), (37, 16), (37, 128)])
+def test_kv_store_paged_kernel_d96(cuda, quant, t, ps):
+    test_kv_store_paged_kernel(cuda, 96, quant, t, ps)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("qwen2", dict(attn_bias=True, hidden=768, n_heads=6, n_kv_heads=1)),
+    ("mistral", dict(spm_tokenizer=True, hidden=512, n_heads=4, n_kv_heads=1)),
+    ("phi3", dict(fused_tensors=True, hidden=768, n_heads=8, n_kv_heads=8, tied=False)),
+], ids=["qwen2", "mistral", "phi3"])
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_tiny_family_cuda_matches_cpu(cuda, tmp_path, arch, kw, kv_dtype):
+    """A tiny Q4_K model of each family (qwen2 at r = 6 with biases, mistral
+    at r = 4, phi3 at head_dim 96 with its pre-fused tensors) on the card
+    (bf16) against the CPU's f32 forward: prefill logits and a decode step,
+    dense and paged. Each output is held to the larger of TOL (INT8_TOL on
+    int8 caches) and 1.5 x the CPU's own bf16 forward's distance from the
+    same f32 forward: the card's bf16 route may sit no farther from the exact
+    function than the plain bf16 route does (on these random weights the
+    plain bf16 route is itself 1.3-1.8e-2 from f32)."""
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.gguf import GGMLType
+    from nfai_tpu_torch.models import decode_step, paged_prefill_step
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+    from nfai_tpu_torch.runtime.paged_cache import PagedKVCache
+    from nfai_tpu_torch.testing import make_tiny_llama_gguf
+
+    path = make_tiny_llama_gguf(tmp_path / f"{arch}.gguf", arch=arch, ffn_dim=512, vocab_size=512,
+                                quant=GGMLType.Q4_K, **kw)
+    runs = {"cuda": ("cuda", "bfloat16"), "cpu bf16": ("cpu", "bfloat16"), "cpu f32": ("cpu", "float32")}
+    outs = {}
+    for name, (dev, dtype) in runs.items():
+        e = InferenceEngine(path, EngineConfig(max_seq_len=256, kv_dtype=kv_dtype, dtype=dtype), device=dev)
+        ids = e.tokenizer.encode("a short prompt for both devices")
+        logits, cache = e.prefill(e.new_cache(1), ids)
+        step, _ = decode_step(e.params, e.model_cfg, torch.tensor([7], device=dev),
+                              torch.tensor([len(ids)], device=dev), cache)
+        pool = PagedKVCache.zeros(e.model_cfg, 9, 16, e.cache_dtype, dev, quantized=kv_dtype == "int8")
+        table = torch.tensor([[5, 2, 7, 3]], dtype=torch.int32, device=dev)
+        plog, pool = paged_prefill_step(e.params, e.model_cfg, torch.tensor([ids], device=dev),
+                                        torch.arange(len(ids), device=dev)[None],
+                                        torch.tensor([len(ids) - 1], device=dev), pool, table)
+        pstep, _ = decode_step(e.params, e.model_cfg, torch.tensor([7], device=dev),
+                               torch.tensor([len(ids)], device=dev), pool, page_tables=table)
+        outs[name] = [t.float().cpu() for t in (logits, step, plog, pstep)]
+    base = INT8_TOL if kv_dtype == "int8" else TOL
+    for i, (g, b16, f32) in enumerate(zip(outs["cuda"], outs["cpu bf16"], outs["cpu f32"])):
+        assert rel(g, f32) < max(base, 1.5 * rel(b16, f32)), i

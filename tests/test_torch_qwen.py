@@ -76,8 +76,8 @@ def test_fixture_bytes_and_config_match_jax(tmp_path, kw):
 
 def test_head_dim_comes_from_key_length_and_other_archs_raise(tmp_path):
     """A qwen3moe header with key_length 128 at hidden 512 / 8 heads (as
-    Qwen3-30B-A3B: hidden / heads = 64); qwen2, and llama with q/k norms,
-    are not ported."""
+    Qwen3-30B-A3B: hidden / heads = 64); an architecture neither package
+    serves (falcon), and llama with q/k norms, are not ported."""
     w = GGUFWriter()
     _header(w, "qwen3moe", "hdr", context_length=64, hidden=512, n_layers=1, ffn_dim=64,
             n_heads=8, n_kv_heads=2, rope_base=1e6, vocab_size=300, rms_eps=1e-6,
@@ -89,9 +89,9 @@ def test_head_dim_comes_from_key_length_and_other_archs_raise(tmp_path):
         cfg = LlamaConfig.from_gguf(g)
     assert (cfg.head_dim, cfg.rms_eps, cfg.n_experts, cfg.n_experts_used, cfg.moe_ffn_dim) == (
         128, np.float32(1e-6), 16, 4, 96)
-    qwen2 = make_tiny_llama_gguf(tmp_path / "q2.gguf", arch="qwen2")
+    falcon = make_tiny_llama_gguf(tmp_path / "falcon.gguf", arch="falcon")
     llama_qk = make_tiny_llama_gguf(tmp_path / "lq.gguf", qk_norm=True)
-    for path in (qwen2, llama_qk):
+    for path in (falcon, llama_qk):
         with GGUFFile.open(path) as g, pytest.raises(NotImplementedError):
             resolve(g).config_from_gguf(g)
 
