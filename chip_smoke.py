@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only build,options,eval   # the OpenAI options, sessions and eval on A / A8
     python3 chip_smoke.py --only build,constrained,spec   # constrained and speculative decoding on A
     python3 chip_smoke.py --only build,serve,batch,profile,server,parity --models Q,P,M   # the families
+    python3 chip_smoke.py --only build,tools   # the host tools and the native dequant library
 
 Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
@@ -95,7 +96,9 @@ Phases (each failure propagates, the exit code is then non-zero):
            model C's and model G's engines a paged BatchEngine serving 8
            requests; on model D's engine the same 8-request paged BatchEngine
   parity   2-layer full-width copies on cuda and on cpu (plain versions):
-           four Llama-3.2-1B kinds and the Llama-3.2-3B widths (K1 at K =
+           three Llama-3.2-1B kinds (Q4_K, the Q4_K_M mix, the tied Q4_0;
+           the Q8_0 kind is the tools phase's requantized copy) and the
+           Llama-3.2-3B widths (K1 at K =
            3072, K5 at H = 3072, K2/K4 at head_dim 128): prefill logits and
            4 teacher-forced decode steps within tolerance; the Q4_K copy
            also prefills one chunk of more than 1024 rows (the mlp_prefill
@@ -155,9 +158,29 @@ Phases (each failure propagates, the exit code is then non-zero):
            timed beside its plain version and cuBLAS, with its bound; the
            2-layer Q4_K copy's window on the card against the CPU's plain
            versions (mean NLL within TOL, INT8_TOL on the int8 cache)
-With only options, eval, constrained or spec (no serve or batch) the main
-path is model A (and A8 for options) alone; each needs serve's load of
-those engines, which runs.
+  tools    the host tools (nfai_tpu_torch.tools) and the native dequant
+           library on the card machine's host: the 13 kinds the library
+           decodes, on random blocks at normal and subnormal f16 scales and
+           on encoded values, bit for bit against the numpy codecs, and its
+           fused transpose against the decode's transpose; model A's F16
+           token table, a Q6_K tensor of C, Q's tied Q6_K table and every
+           F16 weight of D decoded both ways (the same bits; seconds each,
+           the OpenMP team); A's and D's engine loads again with the numpy
+           codecs forced, beside serve's loads; `validate` on model A at
+           full width and depth (--update through the entry point, then on
+           A's loaded engine: exit 0, and 1 with the fixture's ppl moved by
+           1%) and on a 2-layer copy of A written with another seed (exit 2;
+           its card ppl beside the CPU's f32 ppl on the same file): "A
+           validate"; that copy requantized to Q8_0 and inspected, then
+           served on the card (every projection and the head on K6, no K1
+           or K5, 4 x layers + 1 K6 launches a decode step; prefill and 4
+           decode steps within TOL of the CPU's plain versions: "A q8_0")
+           and through a paged BatchEngine ("A q8_0 server"); every model's
+           engine load time at the end
+With only options, eval, constrained, spec or tools (no serve or batch) the
+main path is model A (and A8 for options) alone; each needs serve's load of
+those engines, which runs. With tools, models C, Q and D are also written,
+for their host decodes alone.
 The main path is nine models, A8, E8 and Q8, each driven by serve, batch
 and profile; A's and A8's engines then serve continuously batched traffic,
 and so do C's, G's, D's, E's, Q's, P's and M's (the last three also one SSE
@@ -261,7 +284,7 @@ TOL = 2e-2  # max|got - want| / max|want|, the JAX package's kernel-parity rule
 INT8_TOL = 5e-2
 
 PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity", "options", "eval",
-          "constrained", "spec")
+          "constrained", "spec", "tools")
 # main-path model -> make_llama_1b_gguf kind ("qwen3moe": make_qwen3moe_gguf)
 MODELS = {"A": "q4_k", "B": "q4_k_m", "C": "qwen3moe", "G": "gemma2_2b", "D": "f16",
           "E": "llama_8b_q8_0", "Q": "qwen2", "P": "phi3", "M": "mistral"}
@@ -278,7 +301,8 @@ FAMILY_MODELS = {m: kind for m, kind in MODELS.items() if kind in FAMILY_BUILDER
 # and K4's layout per path ("headmajor" for its engine, "merged" for its server)
 E_LAYOUTS = {"E": "headmajor", "E8": "headmajor", "E server": "merged"}
 GEMMA3_PROMPT = 700  # the Gemma-3-1B copy's prompt: past its 512-token window
-PARITY_KINDS = ("q4_k", "q4_k_m", "q8_0", "q4_0_tied", "f16", "bf16", "llama_3b")
+# (the Q8_0 kind at A's widths is the tools phase's requantized copy, `_serve_requantized`)
+PARITY_KINDS = ("q4_k", "q4_k_m", "q4_0_tied", "f16", "bf16", "llama_3b")
 # parity copies that also run their steps through the page pool (the families' too)
 PAGED_PARITY_KINDS = ("q4_k", "f16", "qwen2", "phi3", "mistral")
 DENSE_KINDS = ("f16", "bf16")  # every matmul weight dense: K11, no K1/K5/K6
@@ -2003,9 +2027,10 @@ def phase_serve(torch, path, kv_dtype="auto", q8v3=False) -> dict:
     with _Switches(q8v3=q8v3):
         engine = InferenceEngine(path, EngineConfig(max_seq_len=1024, kv_dtype=kv_dtype), device="cuda")
     torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
     log(f"  loaded {engine.model_name}: {engine.model_cfg.n_layers} layers, kv_dtype {kv_dtype}, "
         f"hidden {engine.model_cfg.hidden_size}, vocab {engine.model_cfg.vocab_size} "
-        f"in {time.perf_counter() - t0:.1f}s; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"in {load_s:.2f}s; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     session = ChatSession(engine, SamplingParams(temperature=0.0, max_new_tokens=64))
     prompts = [
         "Hello! Who are you?",
@@ -2025,7 +2050,7 @@ def phase_serve(torch, path, kv_dtype="auto", q8v3=False) -> dict:
             raise AssertionError("a request produced no tokens")
     if max(r["prompt_tokens"] for r in reqs) <= 256:
         raise AssertionError("no prompt exceeded one 256-token prefill chunk")
-    return {"engine": engine, "requests": reqs}
+    return {"engine": engine, "requests": reqs, "load_s": load_s}
 
 
 def phase_batch(torch, engine, kernels_mod) -> dict:
@@ -3482,6 +3507,292 @@ def phase_eval(torch, engine, kernels_mod, tmp) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase: tools (the host tools and the native dequant library)
+
+# the tensors of each model's GGUF the tools phase decodes on the host, with
+# the native library and with the numpy codecs (None: every F16 tensor)
+HOST_DECODE = {"A": ("token_embd.weight",),  # the untied F16 table [128256, 2048], decoded at load
+               "C": ("blk.0.attn_v.weight",),  # a Q6_K tensor (use_more_bits' layer 0)
+               "Q": ("token_embd.weight",),  # the tied Q6_K table [151936, 1536]
+               "D": None}  # every F16 weight: D loads each one dense
+NUMPY_LOADS = ("A", "D")  # their engine loads are timed again with the numpy codecs forced
+VALIDATE_PPL_TOL = 0.005  # the validate tool's default --ppl-tol
+
+
+def _same_bits(name, got, want) -> None:
+    import numpy as np
+
+    if got.shape != want.shape or not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError(f"{name}: the native library and the numpy codecs give different bits")
+
+
+def _openmp_runtimes() -> list:
+    with open("/proc/self/maps") as f:
+        return sorted({line.split()[-1] for line in f if "gomp" in line})
+
+
+def _native_kinds() -> dict:
+    """Every kind the library decodes, on random blocks (random codes, f16
+    scales in [1e-3, 1e-2) and log-uniform in [1e-7, 5e-5]: subnormal) and
+    on the encoders' blocks of N(0, 1) and N(0, 1e-4) values, against the
+    numpy codecs; then the fused transpose of a [96, 1024] tensor of each
+    kind against the decode's transpose."""
+    import numpy as np
+
+    from nfai_tpu_torch.gguf import GGML_BLOCK_LAYOUT, GGMLType, native, quants
+
+    scales = {GGMLType.Q4_0: (0,), GGMLType.Q4_1: (0, 2), GGMLType.Q5_0: (0,), GGMLType.Q5_1: (0, 2),
+              GGMLType.Q8_0: (0,), GGMLType.Q2_K: (80, 82), GGMLType.Q3_K: (108,),
+              GGMLType.Q4_K: (0, 2), GGMLType.Q5_K: (0, 2), GGMLType.Q6_K: (208,)}
+    rng = np.random.default_rng(22)
+
+    def blocks(kind, subnormal, n_blocks):
+        layout = GGML_BLOCK_LAYOUT[kind]
+        n = n_blocks * layout.block_size
+        mag = 1e-6 if subnormal else 1.0
+        if kind == GGMLType.F16:
+            return (rng.standard_normal(n) * mag).astype(np.float16).view(np.uint8), n
+        if kind == GGMLType.BF16:
+            return quants.quant_bf16((rng.standard_normal(n) * (1e-39 if subnormal else 1.0)).astype(np.float32)), n
+        raw = np.frombuffer(rng.bytes(n_blocks * layout.type_size), np.uint8).reshape(n_blocks, -1).copy()
+        d = 10.0 ** rng.uniform(-7, np.log10(5e-5), n_blocks) if subnormal else rng.uniform(1e-3, 1e-2, n_blocks)
+        for off in scales.get(kind, ()):
+            raw[:, off:off + 2] = d.astype(np.float16).view(np.uint8).reshape(-1, 2)
+        if kind == GGMLType.Q8_K:
+            raw[:, :4] = d.astype(np.float32).view(np.uint8).reshape(-1, 4)
+        return raw.reshape(-1), n
+
+    kinds = sorted(native._NATIVE_TYPES, key=int)
+    for kind in kinds:
+        for subnormal in (False, True):
+            raw, n = blocks(kind, subnormal, 64)
+            _same_bits(f"{kind.name} random blocks", native.dequantize_native(raw, n, kind),
+                       quants.dequantize(raw, n, kind))
+            if kind in quants.QUANTIZERS or kind == GGMLType.F16:
+                x = (rng.standard_normal(4096) * (1e-4 if subnormal else 1.0)).astype(np.float32)
+                enc = quants.quantize(x, kind)
+                _same_bits(f"{kind.name} encoded", native.dequantize_native(enc, x.size, kind),
+                           quants.dequantize(enc, x.size, kind))
+        raw, _ = blocks(kind, False, 96 * 1024 // GGML_BLOCK_LAYOUT[kind].block_size)
+        t = native.dequant_transpose_native(raw, kind, 96, 1024)
+        _same_bits(f"{kind.name} fused transpose", t,
+                   np.ascontiguousarray(quants.dequantize(raw, 96 * 1024, kind).reshape(96, 1024).T))
+    out = dict(kinds=[k.name for k in kinds], threads=native.num_threads(), host_cores=os.cpu_count(),
+               openmp_runtimes=_openmp_runtimes())
+    log(f"  native dequant library: {len(kinds)} kinds ({', '.join(out['kinds'])}) bit-equal to the numpy "
+        f"codecs on random blocks at normal and subnormal f16 scales and on encoded values; the fused "
+        f"transpose of each equals the decode's transpose; OpenMP team {out['threads']} on {out['host_cores']} "
+        f"host cores; OpenMP runtimes mapped {out['openmp_runtimes']}")
+    return out
+
+
+def _host_decode(torch, label, path) -> dict:
+    """Model `label`'s HOST_DECODE tensors decoded by the library and by the
+    numpy codecs: the same bits, and the seconds of each (the file was just
+    written: its pages are warm). Model A also times the fused transpose of
+    a layer's ffn_down against decode + transpose, and models NUMPY_LOADS
+    time an InferenceEngine load with the numpy codecs forced (the port
+    before the library), beside serve's load."""
+    import numpy as np
+
+    from nfai_tpu_torch.gguf import GGMLType, GGUFFile, native, quants
+
+    out = {}
+    if label == "A":
+        t0 = time.perf_counter()
+        native.load_library()  # the g++ build, at first use
+        out["library_s"] = time.perf_counter() - t0
+        log(f"  native dequant library built and loaded in {out['library_s']:.2f} s")
+        out["kinds"] = _native_kinds()
+    with GGUFFile.open(path) as g:
+        names = HOST_DECODE[label] or [n for n, d in g.tensors.items() if d.ggml_type == GGMLType.F16]
+        t_native = t_numpy = 0.0
+        for name in names:
+            desc = g.tensors[name]  # (no view of the mapped file outlives the loop: close() needs none)
+            t0 = time.perf_counter()
+            got = native.dequantize_native(g.tensor_bytes(name), desc.n_elements, desc.ggml_type)
+            t_native += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = quants.dequantize(g.tensor_bytes(name), desc.n_elements, desc.ggml_type)
+            t_numpy += time.perf_counter() - t0
+            _same_bits(f"model {label} {name}", got, want)
+            del got, want
+        values = sum(g.tensors[n].n_elements for n in names)
+        kinds = sorted({g.tensors[n].ggml_type.name for n in names})
+        what = f"{names[0]} {g.tensors[names[0]].shape}" if len(names) == 1 else f"{len(names)} tensors"
+        out.update(tensors=what, values=values, native_s=t_native, numpy_s=t_numpy)
+        log(f"  host decode, model {label}: {what}, {values / 1e6:.1f}M values of {kinds}: native "
+            f"{t_native:.3f} s, numpy {t_numpy:.3f} s (x{t_numpy / t_native:.1f}), the same bits; "
+            f"OpenMP team {native.num_threads()}, torch threads {torch.get_num_threads()}")
+        if label == "A":
+            name = "blk.0.ffn_down.weight"
+            t0 = time.perf_counter()
+            fused = g.tensor_f32_transposed(name)
+            t_fused = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            plain = np.ascontiguousarray(g.tensor_f32(name).T)
+            t_two = time.perf_counter() - t0
+            _same_bits(f"model A {name} transposed", fused, plain)
+            out["transpose"] = dict(tensor=name, fused_s=t_fused, decode_then_transpose_s=t_two)
+            log(f"  fused dequant-transpose of {name} {g.tensors[name].shape} (Q4_K): {t_fused:.4f} s, "
+                f"decode then transpose {t_two:.4f} s, the same bits")
+    if label in NUMPY_LOADS:
+        from nfai_tpu_torch.config import EngineConfig
+        from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+        saved, native._NATIVE_TYPES = native._NATIVE_TYPES, frozenset()  # the numpy codecs, forced
+        try:
+            t0 = time.perf_counter()
+            engine = InferenceEngine(path, EngineConfig(max_seq_len=1024), device="cuda")
+            torch.cuda.synchronize()
+            out["numpy_load_s"] = time.perf_counter() - t0
+        finally:
+            native._NATIVE_TYPES = saved
+        del engine
+        torch.cuda.empty_cache()
+        log(f"  model {label}: InferenceEngine load with the numpy codecs forced {out['numpy_load_s']:.2f} s")
+    return out
+
+
+def _tool(tools, argv) -> tuple[int, dict | None]:
+    """Run `python -m nfai_tpu_torch.tools argv` in process: its exit code
+    and the record `validate` prints (None for the other commands)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tools.main(argv)
+    text = buf.getvalue()
+    log("\n".join(f"    {line}" for line in text.splitlines() if line.strip() and line[0] not in " {}"))
+    record = json.loads(text[text.index("{"):text.rindex("}") + 1]) if argv[0] == "validate" else None
+    return rc, record
+
+
+def _expect(what, rc, want) -> None:
+    log(f"  {what}: exit {rc} (expected {want})")
+    if rc != want:
+        raise AssertionError(f"{what}: exit {rc}, expected {want}")
+
+
+def phase_tools(torch, engine, kernels_mod, a_path, tmp) -> tuple[dict, dict]:
+    """The tools on model A (see the module doc): `validate` through the
+    entry point and on A's loaded engine, a seed-1 2-layer copy (exit 2, its
+    card ppl beside the CPU's f32 ppl), that copy requantized to Q8_0,
+    inspected and served on K6 ("A q8_0", "A q8_0 server")."""
+    import numpy as np
+
+    from nfai_tpu_torch import tools
+    from nfai_tpu_torch.eval import perplexity
+    from nfai_tpu_torch.gguf import GGUFFile
+    from nfai_tpu_torch.models import LlamaConfig, load_params
+    from nfai_tpu_torch.testing import make_llama_1b_gguf
+    from nfai_tpu_torch.tokenizer import tokenizer_from_gguf
+
+    out, paths = {}, {}
+    fx = os.path.join(tmp, "validation_fixtures.json")
+    max_seq = engine.max_seq_len  # the CLI's engine holds a cache of A's loaded one
+    common = ["--fixtures", fx, "--device", "cuda", "--max-seq", str(max_seq)]
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    rc, record = _tool(tools, ["validate", str(a_path), *common, "--update"])
+    out["validate_update_s"] = time.perf_counter() - t0
+    _expect(f"validate --update on model A ({out['validate_update_s']:.1f} s with its own engine load)", rc, 0)
+    out["record"] = record
+    log(f"  model A's record: {json.dumps(record)}")
+    key = tools._checkpoint_key(str(a_path))
+    t0 = time.perf_counter()
+    again = tools.validation_record(engine, key, max_seq)
+    out["validate_check_s"] = time.perf_counter() - t0
+    _expect(f"validate on model A's loaded engine ({out['validate_check_s']:.1f} s)",
+            tools.check_record(again, fx, False, VALIDATE_PPL_TOL), 0)
+    with open(fx, encoding="utf-8") as f:
+        fixtures = json.load(f)
+    fixtures[key]["ppl"] *= 1.01
+    with open(fx, "w", encoding="utf-8") as f:
+        json.dump(fixtures, f)
+    _expect("validate with the fixture's ppl moved by 1%",
+            tools.check_record(tools.validation_record(engine, key, max_seq), fx, False, VALIDATE_PPL_TOL), 1)
+    x = make_llama_1b_gguf(os.path.join(tmp, "llama1b_2l_seed1.gguf"), kind="q4_k", n_layers=2, seed=1)
+    rc, rec_x = _tool(tools, ["validate", str(x), *common])
+    _expect("validate on a 2-layer copy of A written with seed 1", rc, 2)
+    paths["A validate"] = _check_route(kernels_mod, "A validate", "validate on model A and its 2-layer copy")
+    torch.set_num_threads(os.cpu_count() or 8)
+    t0 = time.perf_counter()
+    with GGUFFile.open(x) as g:
+        cfg = LlamaConfig.from_gguf(g)
+        ids = np.asarray(tokenizer_from_gguf(g.metadata).encode(tools._VALIDATE_CORPUS), np.int64)
+        ppl_cpu = perplexity(load_params(g, cfg, dtype=torch.float32, device="cpu"), cfg, ids,
+                             rec_x["ppl_window"], torch.float32)
+    out["ppl_seed1"] = dict(card_bf16=rec_x["ppl"], cpu_f32=ppl_cpu, window=rec_x["ppl_window"],
+                            cpu_s=time.perf_counter() - t0)
+    log(f"  validate ppl of the seed-1 copy ({len(ids)} tokens, windows of {rec_x['ppl_window']}): card bf16 "
+        f"{rec_x['ppl']:.4f}, CPU f32 {ppl_cpu:.4f} (rel {abs(rec_x['ppl'] - ppl_cpu) / ppl_cpu:.2e}; "
+        f"a number, not a gate; CPU {out['ppl_seed1']['cpu_s']:.1f} s)")
+    y = os.path.join(tmp, "llama1b_2l_seed1_q8_0.gguf")
+    t0 = time.perf_counter()
+    _expect("requantize the copy to q8_0", _tool(tools, ["requantize", str(x), y, "--type", "q8_0"])[0], 0)
+    out["requantize_s"] = time.perf_counter() - t0
+    _expect("inspect the q8_0 copy", _tool(tools, ["inspect", y])[0], 0)
+    os.remove(x)
+    out["q8_0"], served = _serve_requantized(torch, kernels_mod, y)
+    paths.update(served)
+    os.remove(y)
+    log(f"  tools: requantize {out['requantize_s']:.1f} s")
+    return out, paths
+
+
+def _serve_requantized(torch, kernels_mod, path) -> tuple[dict, dict]:
+    """The Q8_0 copy on the card: every projection and the head a Q8Tensor
+    on K6, no K1 or K5 (a decode step launches K6 4 x layers + 1 times);
+    prefill and 4 decode steps within TOL of the CPU's plain versions on
+    the same file ("A q8_0"); then a paged BatchEngine ("A q8_0 server")."""
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.models import decode_step
+    from nfai_tpu_torch.ops.qtensor import Q8Tensor
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    kernels_mod.reset_launches()
+    engines = {dev: InferenceEngine(path, EngineConfig(max_seq_len=1024), device=dev) for dev in ("cuda", "cpu")}
+    e = engines["cuda"]
+    lp, n = e.params["layers"], e.model_cfg.n_layers
+    mats = {k: type(lp[k]).__name__ for k in ("wqkv", "wo", "w_gate_up", "w_down")}
+    if set(mats.values()) != {"Q8Tensor"} or not isinstance(e.params["lm_head"], Q8Tensor) or e.params["fused_mlp"]:
+        raise AssertionError(f"the q8_0 copy loaded {mats}, head {type(e.params['lm_head']).__name__}, fused MLP "
+                             f"{e.params['fused_mlp']}: not every matmul on K6")
+    ids = engines["cpu"].tokenizer.encode("Requantized to Q8_0 by the port's tools, served on the card.")
+    out = _parity_run(torch, engines, ids, "q8_0 requantized", False)
+    cache = e.new_cache(1)
+    _, cache = e.prefill(cache, ids)
+    before = {k.name: k.launches for k in kernels_mod.KERNELS.values()}
+    decode_step(e.params, e.model_cfg, torch.tensor([17], device="cuda"), torch.tensor([len(ids)], device="cuda"),
+                cache)
+    torch.cuda.synchronize()
+    step = {k.name: k.launches - before[k.name] for k in kernels_mod.KERNELS.values()}
+    want = {"q8_matmul": 4 * n + 1, "q4_matmul": 0, "fused_mlp": 0, "decode_attention": n, "kv_store": 1}
+    got = {k: step[k] for k in want}
+    log(f"  q8_0 copy: a decode step launches {got} (the route implies {want})")
+    if got != want:
+        raise AssertionError(f"the q8_0 copy's decode step launched {got}, not {want}")
+    paths = {"A q8_0": _check_route(kernels_mod, "A q8_0", "the requantized q8_0 copy")}
+    kernels_mod.reset_launches()
+    out["server"] = _paged_server_run(torch, e, "A q8_0")
+    paths["A q8_0 server"] = _check_route(kernels_mod, "A q8_0 server", "the q8_0 copy's BatchEngine")
+    del engines, e, cache
+    torch.cuda.empty_cache()
+    return out, paths
+
+
+def _log_load_times(summary) -> None:
+    loads = {k.removeprefix("model "): round(v["load_s"], 2) for k, v in summary.items()
+             if k.startswith("model ") and "load_s" in v}
+    numpy_loads = {m: round(v["numpy_load_s"], 2) for m, v in summary.get("host_decode", {}).items()
+                   if "numpy_load_s" in v}
+    log(f"engine load times (InferenceEngine, host clock, synchronised; {os.cpu_count()} host cores): {loads}; "
+        f"with the numpy codecs forced: {numpy_loads}")
+
+
+# ---------------------------------------------------------------------------
 # phases: constrained and speculative decoding (on model A's engine)
 
 SMOKE_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"}, "n": {"type": "integer"}},
@@ -4228,6 +4539,18 @@ ROUTES = {
                  {"decode_attention", "kv_store", "q8_matmul", "dense_matmul", "grouped_q4", "grouped_q8"}
                  | INT8),
 }
+# the tools phase: validate runs A's route on A's dense cache (the CLI's engine, A's
+# loaded one, the 2-layer copy's); the Q8_0 copy requantized from that copy runs every
+# projection and the head on K6 (no K1 or K5), then a paged BatchEngine
+ROUTES.update({
+    "A validate": ROUTES["A"],
+    "A q8_0": ({"q8_matmul", "decode_attention", "kv_store", "prefill_attention"},
+               {"q4_matmul", "fused_mlp", "dense_matmul", "paged_attention", "grouped_q4", "grouped_q8",
+                "kv_store_paged"} | INT8),
+    "A q8_0 server": ({"q8_matmul", "paged_attention", "prefill_attention", "kv_store_paged"},
+                      {"q4_matmul", "fused_mlp", "dense_matmul", "decode_attention", "kv_store", "grouped_q4",
+                       "grouped_q8"} | INT8),
+})
 # the OpenAI options and sessions run the routes of the engines they use:
 # generate and ChatSession on A's and A8's dense caches, the BatchEngine and
 # the HTTP server on A's page pool
@@ -4264,6 +4587,9 @@ VARIANTS = {
     "A spec": {"kv_store": ("bf16 D=64",)},
     "A spec server": {"kv_store_paged": ("bf16 D=64",)},
     "A eval": {"kv_store": ("bf16 D=64", "int8 D=64")},
+    "A validate": {"kv_store": ("bf16 D=64",)},
+    "A q8_0": {"kv_store": ("bf16 D=64",)},
+    "A q8_0 server": {"kv_store_paged": ("bf16 D=64",)},
     "G": {"decode_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS,
           "kv_store": ("bf16 D=256",)},
     "G server": {"paged_attention": GEMMA2_VARIANTS, "prefill_attention": GEMMA2_VARIANTS,
@@ -4488,6 +4814,13 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
                                   n_layers=B_LAYERS if label == "B" else None)
     log(f"model {label} ({kind}): wrote {path.stat().st_size / 2**30:.2f} GiB GGUF "
         f"in {time.perf_counter() - t0:.1f}s")
+    if "tools" in only and label in HOST_DECODE:
+        t0 = time.perf_counter()
+        summary.setdefault("host_decode", {})[label] = _host_decode(torch, label, path)
+        phase_s[f"tools host {label}"] = time.perf_counter() - t0
+    if not ({"serve", "batch"} & set(only) or label == "A"):  # --only tools: C, Q and D for their decodes
+        os.remove(path)
+        return {}
     by_path = _drive_model(torch, kernels_mod, label, path, only, summary, phase_s)
     if label in ("A", "E", "Q"):
         if {"serve", "batch", "profile", "server", "options"} & set(only):  # not for constrained/spec alone
@@ -4513,7 +4846,7 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
     t0 = time.perf_counter()
     served = phase_serve(torch, path, kv_dtype, q8v3=label in ("E", "E8"))
     engine = served["engine"]
-    out["requests"] = served["requests"]
+    out["requests"], out["load_s"] = served["requests"], served["load_s"]
     phase_s[f"serve {label}"] = time.perf_counter() - t0
     if "batch" in only:
         t0 = time.perf_counter()
@@ -4607,6 +4940,11 @@ def _drive_engine(torch, kernels_mod, label, path, only, summary, phase_s, kv_dt
         t0 = time.perf_counter()
         summary["eval"], by_path["A eval"] = phase_eval(torch, engine, kernels_mod, os.path.dirname(path))
         phase_s["eval"] = time.perf_counter() - t0
+    if label == "A" and "tools" in only:  # on the engine already loaded
+        t0 = time.perf_counter()
+        summary["tools"], paths = phase_tools(torch, engine, kernels_mod, path, os.path.dirname(path))
+        by_path.update(paths)
+        phase_s["tools"] = time.perf_counter() - t0
     if label == "A" and "constrained" in only:  # on the engine already loaded
         t0 = time.perf_counter()
         summary["constrained"], paths = phase_constrained(torch, engine, kernels_mod)
@@ -4696,15 +5034,19 @@ def main(argv=None) -> int:
             kern = phase_kernels(torch, timer, subset)
             phase_s["kernels"] = time.perf_counter() - t0
         launches = None
-        engine_phases = {"options", "eval", "constrained", "spec"}  # they run on A's (and A8's) engines
+        # they run on A's (and A8's) engines; tools also decodes C's, Q's and D's files on the host
+        engine_phases = {"options", "eval", "constrained", "spec", "tools"}
         if not {"serve", "batch"} & set(only) and engine_phases & set(only):
-            models = {m: k for m, k in models.items() if m == "A"}
+            keep = {"A"} | (set(HOST_DECODE) if "tools" in only else set())
+            models = {m: k for m, k in models.items() if m in keep}
         if {"serve", "batch"} & set(only) or engine_phases & set(only):
             by_path = {}
             for label, kind in models.items():
                 by_path.update(main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s))
             launches = {name: sum(m[name] for m in by_path.values()) for name in kernels_mod.KERNELS}
             summary["launches_by_path"] = by_path
+            if "tools" in only:
+                _log_load_times(summary)
         if "parity" in only:
             t0 = time.perf_counter()
             summary["parity"] = {}

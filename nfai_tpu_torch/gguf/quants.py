@@ -5,7 +5,8 @@ nibble packing, 6-bit K-quant scale unpacking). The port reads every kind
 the JAX package reads (`DEQUANTIZERS`: F32, F16, BF16, F64, I8-I64, Q4_0,
 Q4_1, Q5_0, Q5_1, Q8_0, Q8_1, Q2_K-Q6_K, Q8_K, IQ4_NL, IQ4_XS); every other
 kind raises NotImplementedError. It writes F32, F16, BF16 (rounded to
-nearest even), Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q4_K and Q6_K.
+nearest even), Q4_0, Q4_1, Q5_0, Q5_1, Q8_0 and the k-quants Q2_K-Q6_K:
+every kind the JAX package writes, and BF16.
 
 Encoders exist so tests and tools can fabricate valid GGUF files; they produce
 bit-valid blocks (round-trip decode matches within quantization error) but use
@@ -342,6 +343,38 @@ def dequant_q5_k(data: np.ndarray, n: int) -> np.ndarray:
     return out.reshape(-1)[:n]
 
 
+def quant_q5_k(x: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1, 8, 32)
+    nb = x.shape[0]
+    sub_min = np.minimum(x.min(axis=2), 0.0)
+    sub_max = x.max(axis=2)
+    sub_scale = np.maximum(sub_max - sub_min, 0.0) / 31.0
+    d = (sub_scale.max(axis=1) / 63.0).astype(np.float16).astype(np.float32)
+    dmin = ((-sub_min).max(axis=1) / 63.0).astype(np.float16).astype(np.float32)
+    inv_d = np.where(d > 0, 1.0 / np.where(d > 0, d, 1.0), 0.0)
+    inv_dmin = np.where(dmin > 0, 1.0 / np.where(dmin > 0, dmin, 1.0), 0.0)
+    sc = np.clip(np.rint(sub_scale * inv_d[:, None]), 0, 63).astype(np.uint8)
+    mi = np.clip(np.rint(-sub_min * inv_dmin[:, None]), 0, 63).astype(np.uint8)
+    eff_scale = d[:, None] * sc.astype(np.float32)
+    eff_min = dmin[:, None] * mi.astype(np.float32)
+    inv_es = np.where(eff_scale > 0, 1.0 / np.where(eff_scale > 0, eff_scale, 1.0), 0.0)
+    q = np.clip(np.rint((x + eff_min[:, :, None]) * inv_es[:, :, None]), 0, 31).astype(np.uint8)
+    q = q.reshape(nb, 4, 2, 32)  # (nb, chunk j, lo/hi, elem l)
+    qs = (q[:, :, 0, :] & 0x0F) | ((q[:, :, 1, :] & 0x0F) << 4)
+    j = np.arange(4)
+    qh = (((q[:, :, 0, :] >> 4) & 1).astype(np.uint32) << (2 * j)[None, :, None]) | (
+        ((q[:, :, 1, :] >> 4) & 1).astype(np.uint32) << (2 * j + 1)[None, :, None]
+    )
+    qh = qh.sum(axis=1).astype(np.uint8)  # (nb,32) OR across chunks via sum of disjoint bits
+    out = np.empty((nb, 176), dtype=np.uint8)
+    out[:, :2] = _fp16_bytes(d).reshape(-1, 2)
+    out[:, 2:4] = _fp16_bytes(dmin).reshape(-1, 2)
+    out[:, 4:16] = _pack_kquant_scales(sc, mi)
+    out[:, 16:48] = qh
+    out[:, 48:] = qs.reshape(nb, 128)
+    return out.reshape(-1)
+
+
 def dequant_q6_k(data: np.ndarray, n: int) -> np.ndarray:
     """Q6_K: 128B ql, 64B qh, 16 int8 scales (per 16 elems), f16 d; x=d*sc*(q-32)."""
     blocks = _blocks(data, n, GGMLType.Q6_K)
@@ -409,6 +442,32 @@ def dequant_q2_k(data: np.ndarray, n: int) -> np.ndarray:
     return out.reshape(-1)[:n]
 
 
+def quant_q2_k(x: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1, 16, 16)
+    nb = x.shape[0]
+    sub_min = np.minimum(x.min(axis=2), 0.0)
+    sub_max = x.max(axis=2)
+    sub_scale = np.maximum(sub_max - sub_min, 0.0) / 3.0
+    d = (sub_scale.max(axis=1) / 15.0).astype(np.float16).astype(np.float32)
+    dmin = ((-sub_min).max(axis=1) / 15.0).astype(np.float16).astype(np.float32)
+    inv_d = np.where(d > 0, 1.0 / np.where(d > 0, d, 1.0), 0.0)
+    inv_dmin = np.where(dmin > 0, 1.0 / np.where(dmin > 0, dmin, 1.0), 0.0)
+    sc = np.clip(np.rint(sub_scale * inv_d[:, None]), 0, 15).astype(np.uint8)
+    mi = np.clip(np.rint(-sub_min * inv_dmin[:, None]), 0, 15).astype(np.uint8)
+    eff_scale = d[:, None] * sc.astype(np.float32)
+    eff_min = dmin[:, None] * mi.astype(np.float32)
+    inv_es = np.where(eff_scale > 0, 1.0 / np.where(eff_scale > 0, eff_scale, 1.0), 0.0)
+    q = np.clip(np.rint((x + eff_min[:, :, None]) * inv_es[:, :, None]), 0, 3).astype(np.uint8)
+    q = q.reshape(nb, 2, 4, 32)  # (nb, half, shift, l)
+    packed = (q[:, :, 0] | (q[:, :, 1] << 2) | (q[:, :, 2] << 4) | (q[:, :, 3] << 6)).reshape(nb, 64)
+    out = np.empty((nb, 84), dtype=np.uint8)
+    out[:, 0:16] = (sc | (mi << 4)).reshape(nb, 16)
+    out[:, 16:80] = packed
+    out[:, 80:82] = _fp16_bytes(d).reshape(-1, 2)
+    out[:, 82:84] = _fp16_bytes(dmin).reshape(-1, 2)
+    return out.reshape(-1)
+
+
 def _unpack_q3k_scales(scales12: np.ndarray) -> np.ndarray:
     """Q3_K 12-byte scale unpack → (nb, 16) int8 values in [-32, 31]+32 form.
 
@@ -448,6 +507,40 @@ def dequant_q3_k(data: np.ndarray, n: int) -> np.ndarray:
     sc_full = np.repeat(sc, 16, axis=3)
     out = d[:, :, None, None] * sc_full * q
     return out.reshape(-1)[:n]
+
+
+def quant_q3_k(x: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1, 16, 16)
+    nb = x.shape[0]
+    gmax = np.abs(x).max(axis=2)
+    group_scale = gmax / 4.0  # q-4 in [-4,3]
+    d = (group_scale.max(axis=1) / 31.0).astype(np.float16).astype(np.float32)
+    inv_d = np.where(d > 0, 1.0 / np.where(d > 0, d, 1.0), 0.0)
+    sc = np.clip(np.rint(group_scale * inv_d[:, None]), -32, 31).astype(np.int16)
+    eff = d[:, None] * sc.astype(np.float32)
+    inv_eff = np.where(eff != 0, 1.0 / np.where(eff != 0, eff, 1.0), 0.0)
+    q = np.clip(np.rint(x * inv_eff[:, :, None] + 4.0), 0, 7).astype(np.uint8)  # (nb,16,16)
+    q = q.reshape(nb, 2, 4, 32)
+    lo = q & 3
+    hb = (q >> 2) & 1  # 1 ⇒ do NOT subtract 4
+    packed = (lo[:, :, 0] | (lo[:, :, 1] << 2) | (lo[:, :, 2] << 4) | (lo[:, :, 3] << 6)).reshape(nb, 64)
+    m = (4 * np.arange(2)[:, None] + np.arange(4)[None, :]).reshape(1, 2, 4, 1)
+    hmask = (hb.astype(np.uint32) << m).sum(axis=(1, 2)).astype(np.uint8)  # (nb,32)
+    # pack scales (+32 → [0,63] 6-bit) via inverse of _unpack_q3k_scales
+    s6 = (sc + 32).astype(np.uint8).reshape(nb, 16).view(np.uint8)
+    w = s6.copy().view(np.uint8).reshape(nb, 4, 4)  # 4 words of 4 bytes
+    lo4 = w & 0x0F
+    hi2 = (w >> 4) & 0x03
+    aux = np.zeros((nb, 3, 4), dtype=np.uint8)
+    aux[:, 0] = lo4[:, 0] | (lo4[:, 2] << 4)
+    aux[:, 1] = lo4[:, 1] | (lo4[:, 3] << 4)
+    aux[:, 2] = hi2[:, 0] | (hi2[:, 1] << 2) | (hi2[:, 2] << 4) | (hi2[:, 3] << 6)
+    out = np.empty((nb, 110), dtype=np.uint8)
+    out[:, 0:32] = hmask
+    out[:, 32:96] = packed
+    out[:, 96:108] = aux.reshape(nb, 12)
+    out[:, 108:110] = _fp16_bytes(d).reshape(-1, 2)
+    return out.reshape(-1)
 
 
 def dequant_q8_k(data: np.ndarray, n: int) -> np.ndarray:
@@ -538,7 +631,10 @@ QUANTIZERS = {
     GGMLType.Q5_0: quant_q5_0,
     GGMLType.Q5_1: quant_q5_1,
     GGMLType.Q8_0: quant_q8_0,
+    GGMLType.Q2_K: quant_q2_k,
+    GGMLType.Q3_K: quant_q3_k,
     GGMLType.Q4_K: quant_q4_k,
+    GGMLType.Q5_K: quant_q5_k,
     GGMLType.Q6_K: quant_q6_k,
 }
 
@@ -566,7 +662,7 @@ def quantize(x: np.ndarray, ggml_type: GGMLType) -> np.ndarray:
     if fn is None:
         raise NotImplementedError(
             f"quantization to {ggml_type.name} is not supported (the port writes "
-            "F32, F16, BF16, Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q4_K and Q6_K)"
+            "F32, F16, BF16, Q4_0, Q4_1, Q5_0, Q5_1, Q8_0 and Q2_K-Q6_K)"
         )
     flat = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
     bs = GGML_BLOCK_LAYOUT[ggml_type].block_size

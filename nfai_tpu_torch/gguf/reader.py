@@ -5,7 +5,11 @@ store incl. nested arrays (:145-236), tensor-info records (:244-307), alignment
 handling (:125-128). Unlike the reference (which streams tensor bytes through
 managed 10 MB batches, ``NFAI.Core/AbstractComputeCollection.cs:36-79``), this
 reader mmaps the file once and exposes each tensor as a zero-copy numpy view of
-the quantized payload, decoded on demand.
+the quantized payload, decoded on demand: the 13 kinds of the native library
+(`native.py`, built with g++ at first use; a failed build raises) in one
+parallel pass, the rest by the numpy codecs. `metadata_types` keeps each
+key's value type (and an array's element type), so a tool that rewrites a
+file can write every value back as it was typed.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from .constants import (
     Keys,
     tensor_nbytes,
 )
+from . import native
 from .quants import dequantize
 
 _SCALAR_FMT: dict[GGUFValueType, str] = {
@@ -132,6 +137,9 @@ class GGUFFile:
     data_offset: int
     _buf: Any = field(default=None, repr=False)  # mmap or bytes
     _file: BinaryIO | None = field(default=None, repr=False)
+    # key -> (value type, element type of an ARRAY value, else None)
+    metadata_types: dict[str, tuple[GGUFValueType, GGUFValueType | None]] = field(
+        default_factory=dict, repr=False)
 
     # -- lifecycle ---------------------------------------------------------
     @classmethod
@@ -159,10 +167,14 @@ class GGUFFile:
         n_kv = cur.u64()
 
         metadata: dict[str, Any] = {}
+        metadata_types: dict[str, tuple[GGUFValueType, GGUFValueType | None]] = {}
         for _ in range(n_kv):
             key = cur.string()
             vtype = GGUFValueType(cur.u32())
+            elem = GGUFValueType(struct.unpack_from("<I", buf, cur.pos)[0]) \
+                if vtype == GGUFValueType.ARRAY else None
             metadata[key] = cur.value(vtype)
+            metadata_types[key] = (vtype, elem)
 
         tensors: dict[str, TensorDesc] = {}
         for _ in range(n_tensors):
@@ -175,7 +187,8 @@ class GGUFFile:
 
         alignment = int(metadata.get(Keys.ALIGNMENT, GGUF_DEFAULT_ALIGNMENT))
         data_offset = (cur.pos + alignment - 1) // alignment * alignment
-        return cls(path, version, metadata, tensors, alignment, data_offset, buf, f)
+        return cls(path, version, metadata, tensors, alignment, data_offset, buf, f,
+                   metadata_types=metadata_types)
 
     def close(self) -> None:
         if isinstance(self._buf, mmap.mmap):
@@ -201,10 +214,25 @@ class GGUFFile:
         return np.frombuffer(self._buf, dtype=np.uint8, count=desc.nbytes, offset=start)
 
     def tensor_f32(self, name: str) -> np.ndarray:
-        """Dequantized float32 tensor in numpy (row-major) shape."""
+        """Dequantized float32 tensor in numpy (row-major) shape: the native
+        library's kinds through it, the others through the numpy codecs."""
         desc = self.tensors[name]
-        flat = dequantize(self.tensor_bytes(name), desc.n_elements, desc.ggml_type)
+        if native.available(desc.ggml_type):
+            flat = native.dequantize_native(self.tensor_bytes(name), desc.n_elements, desc.ggml_type)
+        else:
+            flat = dequantize(self.tensor_bytes(name), desc.n_elements, desc.ggml_type)
         return flat.reshape(desc.shape)
+
+    def tensor_f32_transposed(self, name: str) -> np.ndarray:
+        """Dequantized 2-D tensor transposed to (in, out), contiguous: one
+        fused native pass for the library's kinds."""
+        desc = self.tensors[name]
+        if len(desc.shape) != 2:
+            raise ValueError(f"{name} is not 2-D")
+        n_out, k_in = desc.shape
+        if native.available(desc.ggml_type):
+            return native.dequant_transpose_native(self.tensor_bytes(name), desc.ggml_type, n_out, k_in)
+        return np.ascontiguousarray(self.tensor_f32(name).T)
 
     # -- metadata access ---------------------------------------------------
     @property

@@ -42,12 +42,16 @@ def _infer_vtype(value: Any) -> GGUFValueType:
 class GGUFWriter:
     def __init__(self, alignment: int = GGUF_DEFAULT_ALIGNMENT):
         self.alignment = alignment
-        self._kv: list[tuple[str, GGUFValueType, Any]] = []
+        self._kv: list[tuple[str, GGUFValueType, Any, GGUFValueType | None]] = []
         self._tensors: list[tuple[str, tuple[int, ...], GGMLType, bytes]] = []
 
     # -- metadata ----------------------------------------------------------
-    def add(self, key: str, value: Any, vtype: GGUFValueType | None = None) -> None:
-        self._kv.append((key, vtype or _infer_vtype(value), value))
+    def add(self, key: str, value: Any, vtype: GGUFValueType | None = None,
+            elem_type: GGUFValueType | None = None) -> None:
+        """One metadata value; its type is inferred unless given. An ARRAY's
+        element type is inferred from its first item unless `elem_type`
+        names it (`GGUFFile.metadata_types` gives a read file's)."""
+        self._kv.append((key, vtype or _infer_vtype(value), value, elem_type))
 
     # -- tensors -----------------------------------------------------------
     def add_tensor(
@@ -90,7 +94,8 @@ class GGUFWriter:
         return struct.pack("<Q", len(b)) + b
 
     @classmethod
-    def _pack_value(cls, vtype: GGUFValueType, value: Any) -> bytes:
+    def _pack_value(cls, vtype: GGUFValueType, value: Any,
+                    elem_type: GGUFValueType | None = None) -> bytes:
         fmt = {
             GGUFValueType.UINT8: "<B",
             GGUFValueType.INT8: "<b",
@@ -108,7 +113,8 @@ class GGUFWriter:
             return cls._pack_string(str(value))
         if vtype == GGUFValueType.ARRAY:
             items = list(value)
-            elem_type = _infer_vtype(items[0]) if items else GGUFValueType.UINT32
+            if elem_type is None:
+                elem_type = _infer_vtype(items[0]) if items else GGUFValueType.UINT32
             out = struct.pack("<IQ", int(elem_type), len(items))
             return out + b"".join(cls._pack_value(elem_type, v) for v in items)
         return struct.pack(fmt[vtype], value)
@@ -119,8 +125,8 @@ class GGUFWriter:
             "<IIQQ", GGUF_MAGIC, GGUF_VERSION, len(self._tensors), len(self._kv)
         )
         kv_blob = b"".join(
-            self._pack_string(k) + struct.pack("<I", int(t)) + self._pack_value(t, v)
-            for k, t, v in self._kv
+            self._pack_string(k) + struct.pack("<I", int(t)) + self._pack_value(t, v, e)
+            for k, t, v, e in self._kv
         )
         # tensor infos with aligned offsets
         infos = b""

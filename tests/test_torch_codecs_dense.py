@@ -97,24 +97,52 @@ def test_iq4_xs_decodes_ggml_blocks_where_the_jax_copy_raises():
 
 def test_dispatch_tables_hold_the_jax_kinds():
     assert set(tq.DEQUANTIZERS) == set(jq.DEQUANTIZERS)
-    assert set(tq.QUANTIZERS) - {GGMLType.BF16} <= set(jq.QUANTIZERS)
+    assert set(tq.QUANTIZERS) - {GGMLType.BF16} == set(jq.QUANTIZERS)
     for k in tq.DEQUANTIZERS:
         mine, theirs = GGML_BLOCK_LAYOUT[k], JLAYOUT[k]
         assert (mine.block_size, mine.type_size) == (theirs.block_size, theirs.type_size), k
 
 
-@pytest.mark.parametrize("kind", [GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.BF16, GGMLType.F16],
-                         ids=lambda k: k.name)
+# round-trip error bound of each encoder, relative to max|x|: half a code
+# step (Q2_K: 4 codes over a range up to 2 max|x|) and the sub-block scale's
+# rounding; Q3_K's simple scale (group max / 4) clips a group's largest
+# positive value from code 4 to 3, a quarter of the group max
+ROUND_TRIP = {GGMLType.Q5_0: 1 / 15, GGMLType.Q5_1: 1 / 30, GGMLType.Q2_K: 0.4,
+              GGMLType.Q3_K: 0.3, GGMLType.Q5_K: 1 / 20}
+NEW_ENCODERS = [GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q5_K]
+
+
+@pytest.mark.parametrize("kind", [GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.BF16, GGMLType.F16]
+                         + NEW_ENCODERS, ids=lambda k: k.name)
 @pytest.mark.parametrize("scale", [0.02, 3.0])
 def test_encoders_give_the_jax_bytes(kind, scale):
     rng = np.random.default_rng(int(kind))
     x = (rng.standard_normal(32 * 24) * scale).astype(np.float32)
-    x[:32] = 0.0  # an all-zero block (d = 0)
+    x[:max(32, GGML_BLOCK_LAYOUT[kind].block_size)] = 0.0  # an all-zero (super-)block (d = 0)
     got, want = tq.quantize(x, kind), jq.quantize(x, kind)
     assert got.dtype == np.uint8 and np.array_equal(got, want)
     back = tq.dequantize(got, x.size, kind)
-    step = {GGMLType.Q5_0: 1 / 15, GGMLType.Q5_1: 1 / 30}.get(kind, 2**-7)
+    step = ROUND_TRIP.get(kind, 2**-7)
     assert np.abs(back - x).max() <= step * np.abs(x).max()
+
+
+@pytest.mark.parametrize("kind", NEW_ENCODERS, ids=lambda k: k.name)
+def test_k_encoders_give_the_jax_bytes_at_subnormal_scales(kind):
+    """Values of ~1e-4 put the f16 super-block scales d (d = range / 45,
+    max / 124 and range / 1953 for Q2_K, Q3_K and Q5_K) below f16's smallest
+    normal (6.1e-5), and above zero: the bytes still equal the JAX
+    encoder's, and the subnormal scales decode (not flushed to zero)."""
+    rng = np.random.default_rng(40 + int(kind))
+    x = (rng.standard_normal(256 * 4) * 1e-4).astype(np.float32)
+    got, want = tq.quantize(x, kind), jq.quantize(x, kind)
+    assert np.array_equal(got, want)
+    layout = GGML_BLOCK_LAYOUT[kind]
+    d_off = {GGMLType.Q2_K: 80, GGMLType.Q3_K: 108, GGMLType.Q5_K: 0}[kind]
+    d = got.reshape(-1, layout.type_size)[:, d_off:d_off + 2].copy().view(np.float16)
+    assert (0 < np.abs(d)).all() and (np.abs(d) < np.finfo(np.float16).tiny).all()
+    back = tq.dequantize(got, x.size, kind)
+    assert np.array_equal(back.view(np.uint32), jq.dequantize(want, x.size, kind).view(np.uint32))
+    assert np.abs(back).max() > 0
 
 
 def test_bf16_encoder_rounds_to_nearest_even():

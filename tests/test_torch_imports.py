@@ -34,7 +34,8 @@ def test_every_port_module_imports_without_jax():
             "nfai_tpu_torch.ops.paged_attention", "nfai_tpu_torch.server",
             "nfai_tpu_torch.testing", "nfai_tpu_torch.models.registry",
             "nfai_tpu_torch.tokenizer.spm", "nfai_tpu_torch.eval",
-            "nfai_tpu_torch.grammar", "nfai_tpu_torch.constrained"} <= set(res["modules"])
+            "nfai_tpu_torch.grammar", "nfai_tpu_torch.constrained",
+            "nfai_tpu_torch.tools", "nfai_tpu_torch.gguf.native"} <= set(res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
