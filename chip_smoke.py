@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only build,constrained,spec   # constrained and speculative decoding on A
     python3 chip_smoke.py --only build,serve,batch,profile,server,parity --models Q,P,M   # the families
     python3 chip_smoke.py --only build,tools   # the host tools and the native dequant library
+    python3 chip_smoke.py --only build,parallel   # the mesh: NCCL at world size 1, tp = 2 over gloo
 
 Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
@@ -177,6 +178,30 @@ Phases (each failure propagates, the exit code is then non-zero):
            decode steps within TOL of the CPU's plain versions: "A q8_0")
            and through a paged BatchEngine ("A q8_0 server"); every model's
            engine load time at the end
+  parallel the mesh and Megatron tensor parallelism (nfai_tpu_torch.parallel) in
+           child processes, waited on by a thread while the parity copies
+           run (they time nothing), each world within PAR_TIMEOUT_S (a child
+           that fails, hangs or exits non-zero fails the phase): NCCL at
+           world size 1, model A at full width and depth as a {"tp": 1} mesh
+           beside the single-device engine in the same process (prefill
+           logits and 16 greedy tokens bit-equal; it also writes the
+           single-device references below and prints that engine's own
+           spread between two prefill chunkings); then tp = 2 over gloo
+           with both ranks on the one card (NCCL takes one rank a device):
+           each rank's local heads, weight bytes beside one device's, A's
+           prefill and 8 teacher-forced decode steps against the
+           single-device engine (PATH_TOL per row: A's bf16 routes against
+           each other at 16 random layers), a decode step's collectives (2L
+           + 1, and the gathers staged through the host under gloo) and
+           launches (the route the containers imply), greedy and sampled
+           tokens equal on both ranks, a paged BatchEngine of 8 requests (4
+           share a prefix) and one SSE chat and one completion over HTTP
+           served by rank 0 while rank 1 follows; then 2-layer copies of A
+           and of Q (Qwen2.5-1.5B's widths: biases, 6 / 1 heads a rank, the
+           tied Q6_K head split over the vocabulary on K6, the
+           vocab-parallel embedding) against one device (TOL per row). Each
+           rank's paths join the launch counts ("parallel ..."). Two ranks
+           time-sharing one card say nothing of TP's speed
 With only options, eval, constrained, spec or tools (no serve or batch) the
 main path is model A (and A8 for options) alone; each needs serve's load of
 those engines, which runs. With tools, models C, Q and D are also written,
@@ -197,14 +222,14 @@ chat and one completion over HTTP):
      in the Q4_K_M mix: q/k norms, NEOX rope, head_dim 128 (K2/K4 at
      D = 128, r = 8), per layer K8 for the gate and up experts and for a
      4-bit down, K9 for a Q6_K down, K6 for the Q6_K head and attn_v; no K5;
-  G  gemma2 at Gemma-2-2B's widths (hidden 2304, 26 layers, 8 / 4 heads of
+  G  gemma2 at Gemma-2-2B's widths (hidden 2304, 8 of 26 layers (G_LAYERS), 8 / 4 heads of
      head_dim 256, ffn 9216, vocab 256000 of SPM pieces, window 4096 on
      every second layer, softcaps 50 / 30, tied embeddings) in the Q4_K_M
      mix: K2/K4 at D = 256 with softcap on every layer and the window on
      the local ones, K1 and K6 (Q6_K attn_v / ffn_down, the tied head); no
      K5 (K = 2304); its server path K7 with the same options;
   D  Llama-3.2-1B as llama.cpp's f16 conversion writes it (F16 matmul
-     weights, a tied F16 table, no cut): every projection dense through K11
+     weights, a tied F16 table; 8 of 16 layers, D_LAYERS): every projection dense through K11
      (4 launches a layer: wqkv, wo, gate_up, down; no K1/K5/K6), the tied
      head torch.matmul, the embedding rows gathered from the same table;
      its profile phase also records one 8x128 prefill chunk, whose 64
@@ -218,9 +243,9 @@ chat and one completion over HTTP):
      decode and K4's merged variant on the gathered pages;
   E8  model E's GGUF on a second engine with EngineConfig(kv_dtype="int8"),
      "headmajor": K4-hm's int8 entry point at prefill, K2-i8, the int8 store;
-  Q  qwen2 at Qwen2.5-1.5B's widths (hidden 1536, 28 layers, 12 / 2 heads
+  Q  qwen2 at Qwen2.5-1.5B's widths (hidden 1536, 8 of 28 layers (Q_LAYERS), 12 / 2 heads
      of 128: r = 6, ffn 8960, vocab 151936, tied, q/k/v biases), llama.cpp's
-     Q4_K_M mix, full depth: K1, K6 (the tied Q6_K head, the Q6_K attn_v /
+     Q4_K_M mix: K1, K6 (the tied Q6_K head, the Q6_K attn_v /
      ffn_down layers), K2/K4 at r = 6, q/k/v split on every layer with
      their biases as plain adds (its profile runs again without them: what
      they add a step); no K5 (down mixes kinds); Q8 the same GGUF on an int8
@@ -272,6 +297,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
@@ -284,17 +310,20 @@ TOL = 2e-2  # max|got - want| / max|want|, the JAX package's kernel-parity rule
 INT8_TOL = 5e-2
 
 PHASES = ("build", "kernels", "serve", "batch", "profile", "server", "parity", "options", "eval",
-          "constrained", "spec", "tools")
+          "constrained", "spec", "tools", "parallel")
 # main-path model -> make_llama_1b_gguf kind ("qwen3moe": make_qwen3moe_gguf)
 MODELS = {"A": "q4_k", "B": "q4_k_m", "C": "qwen3moe", "G": "gemma2_2b", "D": "f16",
           "E": "llama_8b_q8_0", "Q": "qwen2", "P": "phi3", "M": "mistral"}
 C_LAYERS = 8  # model C's depth: 8 of Qwen3-30B-A3B's 48 layers, every width kept
 E_LAYERS = 8  # model E's depth: 8 of Llama-3.1-8B's 32 layers, every width kept
 B_LAYERS = 8  # model B's depth, cut for the run's time: it repeats A's widths (16 layers)
+G_LAYERS = 8  # model G's depth, cut for the run's time: 8 of Gemma-2-2B's 26 layers, every width kept
+Q_LAYERS = 8  # model Q's depth, cut for the run's time: 8 of Qwen2.5-1.5B's 28 layers, every width kept
+D_LAYERS = 8  # model D's depth, cut for the run's time: 8 of Llama-3.2-1B's 16 layers (A keeps 16)
 P_LAYERS = 8  # model P's depth: 8 of Phi-3-mini's 32 layers, every width kept
 M_LAYERS = 8  # model M's depth: 8 of Mistral-7B-v0.3's 32 layers, every width kept
-# the families' builders (nfai_tpu_torch.testing) and depths, by MODELS kind: Q at full depth
-FAMILY_BUILDERS = {"qwen2": ("make_qwen2_1_5b_gguf", None), "phi3": ("make_phi3_mini_gguf", P_LAYERS),
+# the families' builders (nfai_tpu_torch.testing) and depths, by MODELS kind
+FAMILY_BUILDERS = {"qwen2": ("make_qwen2_1_5b_gguf", Q_LAYERS), "phi3": ("make_phi3_mini_gguf", P_LAYERS),
                    "mistral": ("make_mistral_7b_gguf", M_LAYERS)}
 FAMILY_MODELS = {m: kind for m, kind in MODELS.items() if kind in FAMILY_BUILDERS}  # Q, P, M
 # model E runs under the JAX package's two opt-ins: NFAI_Q8V3=1 around its load,
@@ -474,7 +503,12 @@ def _kernels_k1(torch, timer, gen) -> dict:
               # its Q4_K head of N = 32768): decode rows and the 8x128 chunk's (a head: 256)
               "Q wq": (1536, 1536), "Q wk/wv": (1536, 256), "Q gate_up": (1536, 17920),
               "Q down": (8960, 1536), "P wo": (3072, 3072), "P gate_up": (3072, 16384),
-              "M wqkv": (4096, 6144), "M lm_head": (4096, 32768)}
+              "M wqkv": (4096, 6144), "M lm_head": (4096, 32768),
+              # a tp = 2 rank's shards (the parallel phase): model A's local [q|k|v], its
+              # row-split wo (K = 1024) and vocab-split head; the Q copy's Q4_K parts
+              "tp2 A wqkv": (2048, 1536), "tp2 A wo": (1024, 2048), "tp2 A lm_head": (2048, 64128),
+              "tp2 Q wq": (1536, 768), "tp2 Q wk/wv": (1536, 128), "tp2 Q gate/up": (1536, 4480),
+              "tp2 Q down": (4480, 1536)}
     cases = []
     for label, (k, n) in shapes.items():
         w = _q4_weight(torch, n, k, gen)
@@ -483,6 +517,8 @@ def _kernels_k1(torch, timer, gen) -> dict:
         rows = (1, 8, 16, 24, 32, 64, 256) + verify + (() if label == "lm_head" else (1024,))
         if label[:2] in ("Q ", "P ", "M "):
             rows = (1, 8, 256) if label.endswith("head") else (1, 8, 1024)
+        if label.startswith("tp2 "):  # batch-1 and batch-8 decode
+            rows = (1, 8)
         for m in rows:
             x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
             got = qm.q4_matmul(x, w)
@@ -662,8 +698,10 @@ def _kernels_k5(torch, timer, gen) -> dict:
     cases = []
     # (and 9, 72: a verify forward's B x 9 rows at batch 1 and 8)
     # (and model M's, K = H = 4096, F = 14336: Mistral-7B's MLP, rows 1, 8, 256, 1024)
+    # (and a tp = 2 rank's half of A's MLP, F = 4096: rows 1 and 8)
     for k, f, h, rows in ((2048, 8192, 2048, (1, 2, 8, 9, 16, 17, 32, 64, 72, 256, 1024)),
-                          (3072, 8192, 3072, (1, 8, 256)), (4096, 14336, 4096, (1, 8, 256, 1024))):
+                          (3072, 8192, 3072, (1, 8, 256)), (4096, 14336, 4096, (1, 8, 256, 1024)),
+                          (2048, 4096, 2048, (1, 8))):
         gu, dn = _q4_weight(torch, 2 * f, k, gen), _q4_weight(torch, h, f, gen)
 
         def replaced_route(x):  # what K5 replaces: K1 gate_up, silu * up, K1 down
@@ -684,7 +722,7 @@ def _kernels_k5(torch, timer, gen) -> dict:
             route_ms = timer(lambda: replaced_route(x))
             nbytes = m * k * 2 + (2 * f * k + h * f) * 3 // 4 + m * h * 2
             b, by = bound_ms(nbytes, 2.0 * m * k * 2 * f + 2.0 * m * f * h)
-            cases.append(dict(shape=f"M={m}" + ("" if k == 2048 else f" H={h} F={f}"), max_abs_err=err,
+            cases.append(dict(shape=f"M={m}" + ("" if (k, f) == (2048, 8192) else f" H={h} F={f}"), max_abs_err=err,
                               ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
                               replaced_route_ms=route_ms))
             log(f"    {ms:.4f} ms (bound {b:.4f} by {by}, plain {plain_ms:.3f}, "
@@ -725,7 +763,11 @@ def _kernels_k6(torch, timer, gen) -> dict:
               "Q Q6_K head": (1536, 151936, 16, 32, False), "Q Q6_K ffn_down": (8960, 1536, 16, 32, False),
               "P Q5_K attn_qkv (mins)": (3072, 9216, 32, 127, True),
               "P Q6_K ffn_down": (8192, 3072, 16, 32, False),
-              "N=32064 Q6_K head": (3072, 32064, 16, 32, False)}
+              "N=32064 Q6_K head": (3072, 32064, 16, 32, False),
+              # a tp = 2 rank's shards of the Q copy: the vocab-split tied head (N = 75968,
+              # not a multiple of 128), its row-split ffn_down (K = 4480), a kv-head's wv
+              "tp2 Q Q6_K head": (1536, 75968, 16, 32, False), "tp2 Q Q6_K ffn_down": (4480, 1536, 16, 32, False),
+              "tp2 Q Q6_K wv": (1536, 128, 16, 32, False)}
     cases = []
     for label, (k, n, group, qmax, with_mins) in shapes.items():
         w = _q8_weight(torch, n, k, group, qmax, gen, with_mins=with_mins)
@@ -736,6 +778,8 @@ def _kernels_k6(torch, timer, gen) -> dict:
                 else (1, 2, 8, 16, 24, 32, 64, 256, 1024))
         if label.startswith("P ") and not label.endswith("head"):
             rows += (1024,)
+        if label.startswith("tp2 "):  # batch-1 and batch-8 decode
+            rows = (1, 8)
         if label in ("Q6_K head", "Q8_0 wqkv"):
             rows += (9, 72)  # a verify forward's B x 9 rows
         for m in rows:
@@ -989,7 +1033,8 @@ def _k10(torch, timer, gen) -> dict:
 
 # the store's dense decode cases: (label, L, B, Hkv, D, S) of models A (and A8), C and G
 STORE_STEP_CASES = (("A", 16, 8, 8, 64, 1024), ("C", 8, 8, 4, 128, 1024), ("G", 26, 8, 4, 256, 1024),
-                    ("Q", 28, 8, 2, 128, 1024), ("P", 8, 8, 32, 96, 1024))
+                    ("Q", 28, 8, 2, 128, 1024), ("P", 8, 8, 32, 96, 1024),
+                    ("tp2 A", 16, 8, 4, 64, 1024))  # a tp = 2 rank's 4 of A's 8 kv-heads
 # its dense prefill cases, one layer: (label, B, T, Hkv, D, S, offset); A's batch-1
 # chunk at S - 128 keeps 128 of its 256 rows (the rest are dropped)
 # (and a verify forward's 9 rows a lane at batch 8, its last lane frozen at S:
@@ -1004,7 +1049,8 @@ STORE_PAGED_CASES = (("A decode ps=128", 8, 1, 8, 64, 128), ("A decode ps=16", 8
                      ("A chunk B=1 T=256", 1, 256, 8, 64, 128), ("C decode", 8, 1, 4, 128, 128),
                      ("G decode", 8, 1, 4, 256, 128), ("A verify B=8 T=9 ps=16", 8, 9, 8, 64, 16),
                      ("P decode", 8, 1, 32, 96, 128), ("P chunk B=1 T=256", 1, 256, 32, 96, 128),
-                     ("Q decode ps=16", 8, 1, 2, 128, 16))
+                     ("Q decode ps=16", 8, 1, 2, 128, 16),
+                     ("tp2 A decode ps=128", 8, 1, 4, 64, 128))  # a tp = 2 rank's kv-heads
 
 
 def _equal(name, got, want) -> float:
@@ -1323,8 +1369,10 @@ def _record(timer, results, name, label, err, run, plain, lib, nbytes, flops, li
 # 28 / 4 (r = 7), Qwen3-14B's 40 / 8 (r = 5), Qwen3-235B-A22B's 64 / 4
 # (r = 16: two groups of 8 head columns) at head_dim 128, and Phi-3-mini's
 # 32 / 32 at head_dim 96 (model P)
+# (and a tp = 2 rank's heads: Llama-3.2-1B's 16 / 4 of 64, the Q copy's 6 / 1 of 128)
 FAMILY_HEADS = (("Qwen2.5-1.5B", 12, 2, 128), ("Qwen2.5-7B", 28, 4, 128), ("Qwen3-14B", 40, 8, 128),
-                ("Qwen3-235B", 64, 4, 128), ("Phi-3-mini", 32, 32, 96))
+                ("Qwen3-235B", 64, 4, 128), ("Phi-3-mini", 32, 32, 96),
+                ("tp2 Llama-3.2-1B", 16, 4, 64), ("tp2 Qwen2.5-1.5B", 6, 1, 128))
 
 
 def _gemma_k2(torch, timer, gen, results) -> None:
@@ -1713,7 +1761,10 @@ K4_CASES = (("A", 32, 8, 64, 1, 256, 1024, 0), ("A", 32, 8, 64, 1, 256, 1024, 25
             ("3B", 24, 8, 128, 1, 256, 1024, 256),
             ("Q", 12, 2, 128, 8, 128, 1024, 0), ("Q", 12, 2, 128, 1, 256, 1024, 256),
             ("P", 32, 32, 96, 8, 128, 1024, 0), ("P", 32, 32, 96, 1, 256, 1024, 256),
-            ("D=96 r=6", 12, 2, 96, 1, 256, 1024, 256), ("M", 32, 8, 128, 8, 128, 1024, 0))
+            ("D=96 r=6", 12, 2, 96, 1, 256, 1024, 256), ("M", 32, 8, 128, 8, 128, 1024, 0),
+            # a tp = 2 rank's heads: model A's 16 / 4, the Q copy's 6 / 1
+            ("tp2 A", 16, 4, 64, 1, 256, 1024, 0), ("tp2 A", 16, 4, 64, 8, 128, 1024, 0),
+            ("tp2 Q", 6, 1, 128, 1, 256, 1024, 0))
 # K4 at head_dim 256 (heads of GEMMA_HEADS, B, T, S, offset, softcap,
 # window): model G's with softcap 50 at chunks of 256 (window 4096 and, at
 # offset 768, 512: the window bites) and the 8 x 128 prefill; Gemma-3-1B's
@@ -4792,6 +4843,401 @@ def _paged_server_run(torch, engine, label) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase: parallel (the mesh and Megatron tensor parallelism, nfai_tpu_torch.parallel)
+
+PAR_TIMEOUT_S = 180  # a world's children must end within this, or the phase fails
+PAR_GROUP_TIMEOUT_S = 120  # each child's process group (a dead rank raises within it)
+PAR_PROMPT = ("Tensor parallelism splits every layer of the model across ranks: the attention "
+              "heads and the columns of the feed-forward network. " * 3)
+PAR_STEPS = 8  # teacher-forced decode steps held against the single-device engine
+# model A's 16 random layers amplify any change of rounding: tp = 2 is one
+# more of A's bf16 routes (its partial sums are rounded to bf16 before the
+# f32 sum, as the JAX psums round them), so A at full depth is held to
+# PATH_TOL, the rule for A's routes against each other (set from their
+# 4.3-6.0e-2, PERF.md §6); the run prints beside it the single-device engine's
+# own spread between a prefill in chunks of 256 and of PAR_CHUNK. A's
+# 2-layer copy and the Q copy, at the depth the JAX rule was set for, are
+# held to TOL itself
+PAR_CHUNK = 32
+PAR_TOKENS = 16  # greedy tokens of the NCCL world-size-1 check
+# the launch routes of the parallel phase's paths: A's dense and paged routes on
+# each rank's shard, the Q copy's (K1 and K6: its tied Q6_K head, vocab-split)
+ROUTES.update({"parallel nccl A": ROUTES["A"], "parallel tp2 A": ROUTES["A"], "parallel tp2 A2": ROUTES["A"],
+               "parallel tp2 A server": ROUTES["server"], "parallel tp2 Q": ROUTES["Q"]})
+
+
+def _param_bytes(params) -> int:
+    """Bytes of every tensor a params tree holds (containers' leaves, dense
+    weights, norms, the rope tables)."""
+    import torch
+
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            if x.data_ptr() not in seen:  # a dense tied table is the head and the embedding
+                seen.add(x.data_ptr())
+                total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif dataclasses.is_dataclass(x):  # the containers, a LayerList's items
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, list):
+            for v in x:
+                walk(v)
+
+    walk({k: v for k, v in params.items() if k != "comm"})
+    return total
+
+
+def _launches(kernels_mod) -> dict[str, int]:
+    return {k.name: k.launches for k in kernels_mod.KERNELS.values()}
+
+
+def _teacher_forced(torch, engine, ids, tokens):
+    """Prefill logits [1, V] of `ids`, then the logits of decode steps fed
+    `tokens` one at a time: [1 + len(tokens), V] f32 on the host."""
+    from nfai_tpu_torch.models.llama import decode_step
+
+    logits, cache = engine.prefill(engine.new_cache(1), ids)
+    rows = [logits]
+    pos = len(ids)
+    for t in tokens:
+        lg, cache = decode_step(engine.params, engine.model_cfg, torch.tensor([t], device=engine.device),
+                                torch.tensor([pos], device=engine.device), cache)
+        rows.append(lg)
+        pos += 1
+    return torch.cat(rows).float().cpu()
+
+
+def _par_nccl(torch, kernels_mod, conf) -> dict:
+    """World size 1 under NCCL: model A at full width and depth as a {"tp": 1}
+    mesh beside the single-device engine in this process: prefill logits and
+    PAR_TOKENS greedy tokens bit-equal. Also writes the single-device
+    references the tp = 2 world is held to (A, and the Q copy)."""
+    from nfai_tpu_torch.config import EngineConfig, SamplingParams
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    one = InferenceEngine(conf["A"], EngineConfig(max_seq_len=1024), device="cuda")
+    tp1 = InferenceEngine(conf["A"], EngineConfig(max_seq_len=1024, mesh_shape={"tp": 1}), device="cuda")
+    ids = one.tokenizer.encode(PAR_PROMPT)
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=PAR_TOKENS)
+    want, ref_toks = one.prefill(one.new_cache(1), ids)[0], list(one.generate(ids, greedy))
+    torch.cuda.synchronize()
+    kernels_mod.reset_launches()  # the tp=1 engine's path alone
+    got = tp1.prefill(tp1.new_cache(1), ids)[0]
+    toks = list(tp1.generate(ids, greedy))
+    torch.cuda.synchronize()
+    launches = _launches(kernels_mod)
+    logits = _teacher_forced(torch, one, ids, ref_toks[:PAR_STEPS])
+    chunked = _teacher_forced(torch, _with_config(one, prefill_chunk=PAR_CHUNK), ids, ref_toks[:PAR_STEPS])
+    out = dict(prefill_bit_equal=bool(torch.equal(got, want)), tokens=toks, ref_tokens=ref_toks,
+               launches=launches, collectives=dict(tp1.comm.counts), weight_bytes=_param_bytes(one.params),
+               backend=tp1.comm.backend, device=str(tp1.device),
+               route_spread=errors(chunked, logits, row_dims=1)[1])
+    refs = {"A": {"ids": ids, "tokens": ref_toks[:PAR_STEPS], "logits": logits}}
+    del one, tp1
+    for name in ("A2", "Q"):  # the 2-layer copies
+        e = InferenceEngine(conf[name], EngineConfig(max_seq_len=1024), device="cuda")
+        e_ids = e.tokenizer.encode(PAR_PROMPT)
+        e_toks = list(e.generate(e_ids, SamplingParams(temperature=0.0, max_new_tokens=PAR_STEPS)))
+        refs[name] = {"ids": e_ids, "tokens": e_toks, "logits": _teacher_forced(torch, e, e_ids, e_toks),
+                      "weight_bytes": _param_bytes(e.params)}
+        del e
+    torch.save(refs, conf["refs"])
+    return out
+
+
+def _par_batch(torch, engine, root) -> dict:
+    """8 requests on a paged BatchEngine (4 share a 300-token prefix; greedy
+    and sampled): rank 0 submits and steps, the other rank follows."""
+    from nfai_tpu_torch.config import SamplingParams
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine
+
+    be = BatchEngine(engine, max_batch=8, decode_chunk=8, paged=True)
+    if not root:
+        be.follow()
+        return dict(preemptions=be.preemptions, prefix_hits=be.alloc.hits)
+    rng = torch.Generator().manual_seed(7)
+    ids = lambda n: torch.randint(0, 1000, (n,), generator=rng).tolist()  # noqa: E731
+    prefix = ids(300)
+    prompts = [prefix + ids(t) for t in (20, 60, 100, 140)] + [ids(n) for n in (40, 120, 250, 400)]
+    sampling = [SamplingParams(temperature=0.0 if i % 2 == 0 else 0.8, max_new_tokens=32)
+                for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    reqs = [be.submit(prompts[0], sampling[0])]
+    while not reqs[0].output_ids:  # its prefill publishes the prefix before the sharers arrive
+        be.step()
+    reqs += [be.submit(p, s) for p, s in zip(prompts[1:], sampling[1:])]
+    _drive(be, reqs)
+    wall = time.perf_counter() - t0
+    be.close()
+    return dict(requests=len(reqs), new_tokens=sum(len(r.output_ids) for r in reqs), wall_s=wall,
+                preemptions=be.preemptions, prefix_hits=be.alloc.hits)
+
+
+def _par_tp2(torch, kernels_mod, conf, rank) -> dict:
+    """One rank of tp = 2 over gloo, both ranks on the one card: model A at
+    full width and depth, then the A and Q copies (see `ParallelPhase`)."""
+    from nfai_tpu_torch.config import EngineConfig, SamplingParams
+    from nfai_tpu_torch.models.llama import decode_step
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine
+
+    root = rank == 0
+    refs = torch.load(conf["refs"])
+    mesh = {"tp": 2}
+    out, launches = {}, {}
+    eng = InferenceEngine(conf["A"], EngineConfig(max_seq_len=1024, mesh_shape=mesh), device="cuda")
+    comm = eng.comm
+    out.update(backend=comm.backend, device=str(eng.device), weight_bytes=_param_bytes(eng.params),
+               n_layers=eng.model_cfg.n_layers,
+               local=[eng.model_cfg.n_heads, eng.model_cfg.n_kv_heads, eng.model_cfg.ffn_dim],
+               cache_mb=eng.new_cache(1).nbytes / 2**20)
+    # the dense path: the teacher-forced logits, one decode step counted alone, generate
+    ref = refs["A"]
+    kernels_mod.reset_launches()
+    got = _teacher_forced(torch, eng, ref["ids"], ref["tokens"])
+    out["logit_rel_err"] = errors(got, ref["logits"], row_dims=1)[1]
+    cache = eng.prefill(eng.new_cache(1), ref["ids"])[1]
+    torch.cuda.synchronize()
+    before = _launches(kernels_mod)
+    comm.reset()
+    decode_step(eng.params, eng.model_cfg, torch.tensor([5], device=eng.device),
+                torch.tensor([len(ref["ids"])], device=eng.device), cache)
+    torch.cuda.synchronize()
+    out["step_launches"] = {k: n - before[k] for k, n in _launches(kernels_mod).items()}
+    out["step_expected"] = _expected_matmuls(eng)
+    out["step_collectives"], out["step_staged"] = dict(comm.counts), dict(comm.staged)
+    t0 = time.perf_counter()
+    out["greedy"] = list(eng.generate(ref["ids"], SamplingParams(temperature=0.0, max_new_tokens=PAR_TOKENS)))
+    torch.cuda.synchronize()
+    out["greedy_wall_s"] = time.perf_counter() - t0
+    out["sampled"] = list(eng.generate(ref["ids"], SamplingParams(temperature=0.8, seed=11, max_new_tokens=16)))
+    out["sampled_unseeded"] = list(eng.generate(ref["ids"], SamplingParams(temperature=0.8, max_new_tokens=16)))
+    torch.cuda.synchronize()
+    launches["A"] = _launches(kernels_mod)
+    # the paged path: the BatchEngine, then the HTTP server (rank 0 serves, rank 1 follows)
+    kernels_mod.reset_launches()
+    out["batch"] = _par_batch(torch, eng, root)
+    if root:
+        out["http"] = _http_run(torch, eng, 2)
+    else:
+        BatchEngine(eng, max_batch=8, decode_chunk=8).follow()
+    torch.cuda.synchronize()
+    launches["A server"] = _launches(kernels_mod)
+    out["collectives"], out["staged"] = dict(comm.counts), dict(comm.staged)
+    del eng, cache
+    torch.cuda.empty_cache()
+    # A's 2-layer copy, then the Q copy: biases, 6 / 1 heads a rank, the
+    # vocab-split tied Q6_K head on K6 and the vocab-parallel embedding
+    for name in ("A2", "Q"):
+        e = InferenceEngine(conf[name], EngineConfig(max_seq_len=1024, mesh_shape=mesh), device="cuda")
+        ref = refs[name]
+        kernels_mod.reset_launches()
+        got = _teacher_forced(torch, e, ref["ids"], ref["tokens"])
+        torch.cuda.synchronize()
+        launches[name] = _launches(kernels_mod)
+        out[name] = dict(logit_rel_err=errors(got, ref["logits"], row_dims=1)[1], collectives=dict(e.comm.counts),
+                         weight_bytes=_param_bytes(e.params), single_weight_bytes=ref["weight_bytes"],
+                         local=[e.model_cfg.n_heads, e.model_cfg.n_kv_heads, e.model_cfg.ffn_dim],
+                         head=[type(e.params["lm_head"]).__name__, e.params["lm_head"].n],
+                         embed_tied=e.params["embed"] is None)
+        del e
+    out["launches"] = launches
+    return out
+
+
+def _parallel_rank(world, rank, size, coord, backend, conf) -> None:
+    """A child process: one rank of `world` (see `ParallelPhase`); writes
+    its result to conf["out"] % rank and exits 1 on any failure."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from nfai_tpu_torch import kernels as kernels_mod
+    from nfai_tpu_torch.parallel import init_distributed
+
+    t0 = time.perf_counter()
+    res = {"rank": rank, "world": world}
+    try:
+        init_distributed(coord, size, rank, backend=backend, timeout_s=PAR_GROUP_TIMEOUT_S)
+        res.update(_par_nccl(torch, kernels_mod, conf) if world == "nccl" else
+                   _par_tp2(torch, kernels_mod, conf, rank))
+        res["ok"] = True
+    except BaseException:  # noqa: BLE001 - the parent reads it and fails the phase
+        res["ok"] = False
+        res["error"] = traceback.format_exc()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    res["seconds"] = time.perf_counter() - t0
+    with open(conf["out"] % rank, "w") as f:
+        json.dump(res, f)
+    sys.exit(0 if res["ok"] else 1)
+
+
+def _run_world(world, size, backend, conf, tmp) -> list[dict]:
+    """Start `size` child ranks of `world`, wait PAR_TIMEOUT_S at most (then
+    kill them), and return their results; a rank that fails, hangs or exits
+    non-zero raises."""
+    import multiprocessing as mp
+
+    conf = dict(conf, out=os.path.join(tmp, f"par_{world}_%d.json"))
+    coord = f"file://{os.path.join(tmp, f'rdv_{world}_{time.time_ns()}')}"
+    ctx = mp.get_context("spawn")
+    # daemons: a parent that stops on another phase's failure takes them with it
+    procs = [ctx.Process(target=_parallel_rank, args=(world, r, size, coord, backend, conf), daemon=True)
+             for r in range(size)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    results = []
+    for r, p in enumerate(procs):
+        path = conf["out"] % r
+        res = json.load(open(path)) if os.path.exists(path) else {"ok": False, "error": "no result"}
+        results.append(res)
+        if not res["ok"] or p.exitcode != 0 or r in hung:
+            raise AssertionError(f"parallel {world} rank {r}: exit {p.exitcode}"
+                                 f"{' (killed: hung past the deadline)' if r in hung else ''}\n"
+                                 f"{res.get('error', '')}")
+    return results
+
+
+def _child_route(path, launches, what) -> dict:
+    """`_check_route` for launch counts read in a child process."""
+    must, must_not = ROUTES[path]
+    log(f"  {what} launches: { {k: v for k, v in launches.items() if v} }")
+    if any(launches[n] <= 0 for n in must) or any(launches[n] != 0 for n in must_not):
+        raise AssertionError(f"{what} did not take its route: {launches}")
+    return launches
+
+
+class ParallelPhase(threading.Thread):
+    """The mesh on the one card (see the module doc): NCCL at world size 1,
+    then tp = 2 over gloo with both ranks on the card. NCCL refuses two
+    ranks of one communicator on one device, so two ranks share the card
+    through gloo: the run proves the process-group plumbing, every kernel
+    on each rank's shard shapes and the logits' parity with one device; it
+    measures nothing of TP's speed (both ranks time-share one card and gloo
+    stages through the host). The worlds run in child processes, waited on
+    by this thread while the parent runs the parity copies, which time
+    nothing; `finish` joins them and makes the checks."""
+
+    def __init__(self, tmp, a_path=None):
+        super().__init__(daemon=True)
+        self.tmp, self.a_path = tmp, a_path
+        self.results, self.error, self.seconds = {}, None, 0.0
+
+    def run(self):
+        from nfai_tpu_torch.testing import make_llama_1b_gguf, make_qwen2_1_5b_gguf
+
+        t0 = time.perf_counter()
+        try:
+            tmp = self.tmp
+            conf = {"A": str(self.a_path or make_llama_1b_gguf(os.path.join(tmp, "llama1b_q4_k.gguf"),
+                                                               kind="q4_k")),
+                    "A2": str(make_llama_1b_gguf(os.path.join(tmp, "llama1b_2l_par.gguf"), kind="q4_k",
+                                                 n_layers=2)),
+                    "Q": str(make_qwen2_1_5b_gguf(os.path.join(tmp, "qwen2_2l_par.gguf"), n_layers=2)),
+                    "refs": os.path.join(tmp, "par_refs.pt")}
+            self.results["gguf_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            (self.results["nccl"],) = _run_world("nccl", 1, "nccl", conf, tmp)
+            self.results["nccl_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            self.results["tp2"] = _run_world("tp2", 2, "gloo", conf, tmp)
+            self.results["tp2_s"] = time.perf_counter() - t1
+        except BaseException as e:  # noqa: BLE001 - raised again by finish()
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def finish(self) -> tuple[dict, dict]:
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return _parallel_checks(self.results, self.seconds)
+
+
+def _parallel_checks(worlds: dict, seconds: float) -> tuple[dict, dict]:
+    """The parallel phase's checks and lines, from its worlds' results."""
+    n1, ranks = worlds["nccl"], worlds["tp2"]
+    by_path = {}
+    log(f"  parallel: GGUFs ready in {worlds['gguf_s']:.1f}s")
+    log(f"  [backend {n1['backend']}, world 1, {n1['device']}] model A as a tp=1 mesh beside the single-device "
+        f"engine: prefill logits bit-equal {n1['prefill_bit_equal']}; {PAR_TOKENS} greedy tokens equal "
+        f"{n1['tokens'] == n1['ref_tokens']}; collectives {n1['collectives']}; the single-device engine's own "
+        f"spread (prefill chunks of 256 against {PAR_CHUNK}, then the same {PAR_STEPS} steps) "
+        f"{n1['route_spread']:.3e} per row; {n1['seconds']:.1f}s in the child")
+    if not n1["prefill_bit_equal"] or n1["tokens"] != n1["ref_tokens"]:
+        raise AssertionError("NCCL world size 1: the tp=1 mesh engine is not bit-equal to the single-device one")
+    by_path["parallel nccl A"] = _child_route("parallel nccl A", n1["launches"], "NCCL tp=1 model A")
+    for res in ranks:
+        n_layers = res["n_layers"]
+        r, b = res["rank"], f"[backend {res['backend']}, tp=2, rank {res['rank']} on {res['device']}]"
+        log(f"  {b} local heads / kv-heads / ffn {res['local']}; weights {res['weight_bytes'] / 2**20:.1f} MiB "
+            f"against {n1['weight_bytes'] / 2**20:.1f} MiB on one device; cache {res['cache_mb']:.1f} MiB at "
+            f"1024 slots")
+        log(f"  {b} model A prefill + {PAR_STEPS} teacher-forced steps: worst per-row rel err "
+            f"{res['logit_rel_err']:.3e} against the single-device engine (tol {PATH_TOL:g}, A's routes "
+            f"against each other at 16 layers; the single-device engine's own spread {n1['route_spread']:.3e})")
+        if not res["logit_rel_err"] < PATH_TOL:
+            raise AssertionError(f"tp=2 rank {r}: model A logits rel err {res['logit_rel_err']:.3e}")
+        want = {"all_reduce": 2 * n_layers, "gather_vocab": 1}
+        log(f"  {b} a decode step: collectives {res['step_collectives']} (staged through the host: "
+            f"{res['step_staged']}), launches { {k: v for k, v in res['step_launches'].items() if v} }")
+        if res["step_collectives"] != want:
+            raise AssertionError(f"tp=2 rank {r}: a decode step made {res['step_collectives']}, not {want}")
+        step = res["step_launches"]
+        exp = dict(res["step_expected"], decode_attention=n_layers, kv_store=1)
+        if {k: step[k] for k in exp} != exp:
+            raise AssertionError(f"tp=2 rank {r}: decode step launches {step}, the route implies {exp}")
+        by_path[f"parallel tp2 A r{r}"] = _child_route("parallel tp2 A", res["launches"]["A"], f"tp=2 rank {r} model A")
+        by_path[f"parallel tp2 A server r{r}"] = _child_route("parallel tp2 A server", res["launches"]["A server"],
+                                                             f"tp=2 rank {r} BatchEngine + server")
+        for name in ("A2", "Q"):
+            by_path[f"parallel tp2 {name} r{r}"] = _child_route(f"parallel tp2 {name}", res["launches"][name],
+                                                               f"tp=2 rank {r} {name} copy")
+            c = res[name]
+            log(f"  {b} {name} copy (2 layers): local {c['local']}, head {c['head']}, tied table under the "
+                f"head {c['embed_tied']}; weights {c['weight_bytes'] / 2**20:.1f} MiB against "
+                f"{c['single_weight_bytes'] / 2**20:.1f} MiB; collectives {c['collectives']}; prefill + "
+                f"{PAR_STEPS} steps worst per-row rel err {c['logit_rel_err']:.3e} (tol {TOL:g})")
+            if not c["logit_rel_err"] < TOL:
+                raise AssertionError(f"tp=2 rank {r}: the {name} copy's logits rel err {c['logit_rel_err']:.3e}")
+        if not res["Q"]["collectives"].get("embed_reduce"):
+            raise AssertionError(f"tp=2 rank {r}: the Q copy made no vocab-parallel embedding")
+        log(f"  {b} BatchEngine {res['batch']}; all collectives {res['collectives']}, staged {res['staged']}; "
+            f"{res['seconds']:.1f}s in the child")
+    a, b = ranks
+    for key in ("greedy", "sampled", "sampled_unseeded"):
+        if a[key] != b[key]:
+            raise AssertionError(f"tp=2: the ranks' {key} tokens differ: {a[key]} / {b[key]}")
+    log(f"  tp=2: both ranks' greedy, seeded and unseeded sampled tokens agree; greedy {PAR_TOKENS} tokens "
+        f"{a['greedy_wall_s'] * 1e3:.0f} ms on one shared card over gloo (two ranks time-sharing one H100: "
+        f"says nothing of TP's speed)")
+    if a["batch"]["requests"] != 8 or a["batch"]["prefix_hits"] <= 0:
+        raise AssertionError(f"tp=2 BatchEngine: {a['batch']}")
+    log(f"  parallel phase: {seconds:.1f}s beside the parity copies (the GGUFs {worlds['gguf_s']:.1f}s, NCCL "
+        f"world {worlds['nccl_s']:.1f}s, tp=2 world {worlds['tp2_s']:.1f}s)")
+    return dict(worlds, seconds=seconds), by_path
+
+
+KEPT_GGUF: dict[str, str] = {}  # model -> a GGUF main_path left for a later phase
+
+
 def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> dict:
     """Write the model's GGUF and drive it (`_drive_model`); model A's file
     then also serves A8, a second engine with the int8 KV cache. Returns
@@ -4806,12 +5252,12 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
     elif kind == "qwen3moe":
         path = make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe.gguf"), n_layers=C_LAYERS)
     elif kind == "gemma2_2b":
-        path = make_gemma2_2b_gguf(os.path.join(tmp, "gemma2_2b.gguf"))
+        path = make_gemma2_2b_gguf(os.path.join(tmp, "gemma2_2b.gguf"), n_layers=G_LAYERS)
     elif kind == "llama_8b_q8_0":
         path = make_llama_1b_gguf(os.path.join(tmp, "llama8b_q8_0.gguf"), kind=kind, n_layers=E_LAYERS)
     else:
         path = make_llama_1b_gguf(os.path.join(tmp, f"llama1b_{kind}.gguf"), kind=kind,
-                                  n_layers=B_LAYERS if label == "B" else None)
+                                  n_layers={"B": B_LAYERS, "D": D_LAYERS}.get(label))
     log(f"model {label} ({kind}): wrote {path.stat().st_size / 2**30:.2f} GiB GGUF "
         f"in {time.perf_counter() - t0:.1f}s")
     if "tools" in only and label in HOST_DECODE:
@@ -4827,7 +5273,10 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
             log(f"model {label}8 ({kind}, kv_dtype int8): a second engine on model {label}'s GGUF")
             by_path.update(_drive_model(torch, kernels_mod, f"{label}8", path, only, summary, phase_s,
                                         "int8"))
-    os.remove(path)
+    if label == "A" and "parallel" in only:  # the parallel phase serves A's file again
+        KEPT_GGUF["A"] = path
+    else:
+        os.remove(path)
     return by_path
 
 
@@ -5034,19 +5483,21 @@ def main(argv=None) -> int:
             kern = phase_kernels(torch, timer, subset)
             phase_s["kernels"] = time.perf_counter() - t0
         launches = None
+        by_path = {}
         # they run on A's (and A8's) engines; tools also decodes C's, Q's and D's files on the host
         engine_phases = {"options", "eval", "constrained", "spec", "tools"}
         if not {"serve", "batch"} & set(only) and engine_phases & set(only):
             keep = {"A"} | (set(HOST_DECODE) if "tools" in only else set())
             models = {m: k for m, k in models.items() if m in keep}
         if {"serve", "batch"} & set(only) or engine_phases & set(only):
-            by_path = {}
             for label, kind in models.items():
                 by_path.update(main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s))
-            launches = {name: sum(m[name] for m in by_path.values()) for name in kernels_mod.KERNELS}
-            summary["launches_by_path"] = by_path
             if "tools" in only:
                 _log_load_times(summary)
+        parallel = None
+        if "parallel" in only:  # in child processes, beside the parity copies: A's and the copies' paths
+            parallel = ParallelPhase(tmp, KEPT_GGUF.pop("A", None))
+            parallel.start()
         if "parity" in only:
             t0 = time.perf_counter()
             summary["parity"] = {}
@@ -5098,6 +5549,15 @@ def main(argv=None) -> int:
                 os.remove(path2)
                 timed(f"{label} ({kind})", t1)
             phase_s["parity"] = time.perf_counter() - t0
+        if parallel is not None:
+            t0 = time.perf_counter()
+            summary["parallel"], paths = parallel.finish()
+            by_path.update(paths)
+            phase_s["parallel"] = parallel.seconds
+            phase_s["parallel after parity"] = time.perf_counter() - t0
+        if by_path:
+            launches = {name: sum(m[name] for m in by_path.values()) for name in kernels_mod.KERNELS}
+            summary["launches_by_path"] = by_path
         log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "
             f"total {time.perf_counter() - t_all:.1f}")
         if len(summary) > 1:

@@ -3,17 +3,33 @@
 Usage:
     python -m nfai_tpu_torch.cli --gguf model.gguf [--device cuda|cpu] ...
     echo "hello" | python -m nfai_tpu_torch.cli --gguf model.gguf   # piped mode
+    python -m nfai_tpu_torch.cli --gguf model.gguf --mesh tp=2   # tensor parallel, one host
 
 Runs on the GPU by default and raises if none is visible; `--device cpu`
 runs the plain PyTorch versions of the kernels.
+
+With `--mesh` (e.g. ``tp=2`` or ``dp=2,tp=2``) the engine is one rank of a
+mesh (parallel/). On one host this process becomes rank 0 and spawns the
+other ranks itself; with NFAI_COORD / NFAI_NUM_PROCS / NFAI_PROC_ID set, it
+is one rank of a launch the user started. Rank 0 reads the input and
+broadcasts each line (and, while it waits, an idle beat every second, so
+the other ranks' collectives never wait past their timeout); every rank runs
+the same session, and rank 0 prints. `--seq-parallel` and
+`--expert-parallel` are taken and raise NotImplementedError, as the engine
+does.
 """
 from __future__ import annotations
 
 import argparse
+import queue
 import sys
+import threading
 
 from .config import EngineConfig, SamplingParams
+from .parallel.distributed import join_local, start_world
 from .runtime.engine import ChatSession, InferenceEngine
+
+_IDLE, _EOF = ("idle",), ("eof",)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -31,57 +47,126 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--system", default="You are a helpful assistant.")
     p.add_argument("--metrics", action="store_true",
                    help="print TTFT / tokens-per-second after each reply")
+    p.add_argument("--mesh", default="",
+                   help="device mesh, e.g. 'tp=2' or 'dp=2,tp=2' (empty = single device)")
+    p.add_argument("--seq-parallel", action="store_true",
+                   help="sequence parallelism (not ported yet: raises)")
+    p.add_argument("--expert-parallel", action="store_true",
+                   help="expert parallelism (not ported yet: raises)")
     return p
 
 
-def main(argv: list[str] | None = None) -> int:
-    args = build_arg_parser().parse_args(argv)
-    engine = InferenceEngine(
-        args.gguf,
-        EngineConfig(
-            gguf_path=args.gguf,
-            max_seq_len=args.max_seq,
-            dtype=args.dtype,
-            system_prompt=args.system,
-        ),
-        device=args.device,
-    )
-    sampling = SamplingParams(
-        temperature=args.temp,
-        top_k=args.top_k,
-        top_p=args.top_p,
-        seed=args.seed,
-        max_new_tokens=args.max_new_tokens,
-    )
-    session = ChatSession(engine, sampling)
-    interactive = sys.stdin.isatty()
-    if interactive:
-        print(f"{engine.model_name} ready — type a message ('quit' to exit)")
+def parse_mesh(spec: str) -> dict[str, int]:
+    """'dp=2,tp=4' -> {"dp": 2, "tp": 4} (the JAX package's parse_mesh)."""
+    if not spec:
+        return {}
+    out = {}
+    for part in spec.split(","):
+        k, _, v = part.partition("=")
+        out[k.strip()] = int(v)
+    return out
+
+
+def _input(interactive: bool):
+    """The input lines: the prompt in a terminal, else piped stdin."""
     while True:
         if interactive:
             try:
                 line = input("> ")
             except EOFError:
-                break
+                return
         else:
             line = sys.stdin.readline()
             if not line:
+                return
+        yield line
+
+
+def _lines(engine: InferenceEngine, interactive: bool):
+    """The input lines, the same on every rank of a mesh: rank 0 reads them
+    on a thread and broadcasts each, or an idle beat each second it waits."""
+    comm = engine.comm
+    if comm is None:
+        yield from _input(interactive)
+        return
+    src: queue.Queue | None = None
+    if comm.is_root:
+        src = queue.Queue()
+
+        def pump():
+            for line in _input(interactive):
+                src.put(line)
+            src.put(_EOF)
+
+        threading.Thread(target=pump, daemon=True).start()
+    while True:
+        item = None
+        if src is not None:
+            try:
+                item = src.get(timeout=1.0)
+            except queue.Empty:
+                item = _IDLE
+        item = comm.broadcast_object(item)
+        if item == _EOF:
+            return
+        if item != _IDLE:
+            yield item
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_arg_parser().parse_args(argv)
+    mesh = parse_mesh(args.mesh)
+    procs = start_world(mesh, "nfai_tpu_torch.cli:main", argv, args.device)
+    try:
+        engine = InferenceEngine(
+            args.gguf,
+            EngineConfig(
+                gguf_path=args.gguf,
+                max_seq_len=args.max_seq,
+                dtype=args.dtype,
+                system_prompt=args.system,
+                mesh_shape=mesh,
+                seq_parallel=args.seq_parallel,
+                expert_parallel=args.expert_parallel,
+            ),
+            device=args.device,
+        )
+        root = engine.comm is None or engine.comm.is_root
+        sampling = SamplingParams(
+            temperature=args.temp,
+            top_k=args.top_k,
+            top_p=args.top_p,
+            seed=args.seed,
+            max_new_tokens=args.max_new_tokens,
+        )
+        session = ChatSession(engine, sampling)
+        interactive = root and sys.stdin.isatty()
+        if interactive:
+            print(f"{engine.model_name} ready — type a message ('quit' to exit)")
+        for line in _lines(engine, interactive):
+            line = line.strip()
+            if not line:
+                continue
+            if line.lower() in ("quit", "exit"):
                 break
-        line = line.strip()
-        if not line:
-            continue
-        if line.lower() in ("quit", "exit"):
-            break
-        for piece in session.stream(line):
-            print(piece, end="", flush=True)
-        print()
-        if args.metrics:
-            m = session.last_metrics
-            print(
-                f"[{m.prompt_tokens} prompt tok, {m.new_tokens} new | "
-                f"ttft {m.ttft_s*1000:.0f} ms | {m.decode_tokens_per_s:.1f} tok/s]",
-                file=sys.stderr,
-            )
+            for piece in session.stream(line):
+                if root:
+                    print(piece, end="", flush=True)
+            if root:
+                print()
+            if args.metrics and root:
+                m = session.last_metrics
+                print(
+                    f"[{m.prompt_tokens} prompt tok, {m.new_tokens} new | "
+                    f"ttft {m.ttft_s*1000:.0f} ms | {m.decode_tokens_per_s:.1f} tok/s]",
+                    file=sys.stderr,
+                )
+    finally:
+        codes = join_local(procs) if procs else []
+    if any(c != 0 for c in codes):
+        print(f"ranks 1..{len(procs)} exited with {codes}", file=sys.stderr)
+        return 1
     return 0
 
 

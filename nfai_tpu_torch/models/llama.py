@@ -117,6 +117,15 @@ variables at the same points, with no config field, as there:
   `_cached_attention` does; "merged" needs head_dim % 128 == 0. Any other
   value raises at use, where the JAX package silently runs "headmajor".
 
+Tensor parallelism (parallel/, ``EngineConfig(mesh_shape=...)``): a rank
+loads its shard (`load_params(..., tp=, tp_rank=)`, the split of
+parallel.sharding) and runs this forward unchanged on the local config
+(`parallel.sharding.local_config`: its heads and ffn columns), with the
+engine's `parallel.comm.Comm` as ``params["comm"]``: wo's and the FFN's
+partial sums are added in f32 over the tp group (`_finish_layer`), the
+vocab-split logits gathered (`logits_for`), and a tied table split under
+the head embeds vocab-parallel (`_embed`).
+
 Dense weights follow the JAX package's decisions: a matmul weight stays
 quantized only where its kind has a container (Q4_0/Q4_1/Q4_K, Q8_0,
 Q2_K/Q3_K/Q5_K/Q6_K), K % 64 == 0, N % 128 == 0 and the engine's
@@ -156,6 +165,7 @@ import torch
 import torch.nn.functional as nnf
 
 from ..gguf import GGUFFile, Keys
+from ..gguf.constants import tensor_nbytes
 from ..ops.fused_decode import layered_decode_attention
 from ..ops.fused_mlp import (
     MLP_FUSED_MAX_ROWS, activation, fused_mlp_layered, mlp_eligible, mlp_prefill,
@@ -176,6 +186,8 @@ from ..ops.rope import (
 from ..ops.sampling import (
     apply_logit_bias, apply_penalties, sample_logits, spec_verify_sample, token_logprobs,
 )
+from ..parallel.mesh import UNPORTED
+from ..parallel.sharding import COL, ROW, col_rows, row_range, slice_k, split_of
 from ..runtime.paged_cache import PagedKVCache
 
 
@@ -506,7 +518,7 @@ def _repack_q8v3(layers: dict, device) -> dict:
 
 
 def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
-                device="cpu", quantized: bool = True) -> dict:
+                device="cpu", quantized: bool = True, tp: int = 1, tp_rank: int = 0) -> dict:
     """GGUF → params dict on `device`. With `quantized` (the engine's
     ``param_dtype="auto"``) a matmul weight keeps a quantized container
     where the JAX `quantizable` holds (its kind has one, K % 64 == 0,
@@ -538,23 +550,58 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
 
     Under ``NFAI_Q8V3`` (not "0") the eligible 8-bit stacks and an untied
     8-bit head are `Q8V3Tensor`s (module doc).
-    """
 
-    def mat(name: str):
+    With `tp` > 1 the result is rank `tp_rank`'s shard (parallel.sharding):
+    a column-split weight keeps its rank's GGUF rows, taken before packing
+    (a fused qkv or [gate; up] its rows of each section; wq/wk permuted to
+    NEOX on the rank's heads), a row-split one (wo, w_down) its K-range of
+    the packed container (K/tp % 64 == 0, else ValueError), the head its
+    vocabulary rows; whether a weight stays quantized is decided on the
+    whole tensor, as the JAX loader decides before it shards. MoE models
+    and NFAI_Q8V3 raise NotImplementedError under tp > 1.
+    """
+    if tp > 1 and (cfg.n_experts or _q8v3_on()):
+        what = "MoE models" if cfg.n_experts else "NFAI_Q8V3"
+        raise NotImplementedError(f"{what} under tensor parallelism: {UNPORTED}")
+    hd = cfg.head_dim
+    # the fused weights' sections: a rank keeps its rows of each
+    sections = {"wqkv": (cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.n_kv_heads * hd),
+                "w_gate_up": (cfg.ffn_dim, cfg.ffn_dim)}
+
+    def rows_of(key: str, n: int):
+        """The GGUF rows rank `tp_rank` keeps of a column-split weight (None:
+        all of them)."""
+        if tp == 1 or split_of(key) != COL:
+            return None
+        return col_rows(n, tp, tp_rank, sections.get(key))
+
+    def mat(name: str, key: str = ""):
         desc = g.tensors[name]
         *lead, n, k = desc.shape
+        rows = rows_of(key, n)
+        row_split = tp > 1 and split_of(key) == ROW
         if not (quantized and desc.ggml_type in SUPPORTED_QUANT_TYPES
-                and k % 64 == 0 and n % 128 == 0):  # the JAX `quantizable`
-            return torch.from_numpy(g.tensor_f32(name)).to(dtype)
+                and k % 64 == 0 and n % 128 == 0):  # the JAX `quantizable`, on the whole tensor
+            w = torch.from_numpy(g.tensor_f32(name))
+            w = (w if rows is None else w[torch.from_numpy(rows)]).to(dtype)
+            return slice_k(w, *row_range(k, tp, tp_rank, False)) if row_split else w
         e = int(np.prod(lead, dtype=np.int64))
+        raw = g.tensor_bytes(name)
+        if rows is not None:  # whole GGUF rows of a 2-D weight, before packing
+            raw = raw.reshape(n, tensor_nbytes(k, desc.ggml_type))[rows]
+            n = rows.size
         # an expert stack [E, N, K] is E*N rows of K (experts contiguous)
-        w = pack_gguf_tensor(g.tensor_bytes(name), desc.ggml_type, (e * n, k))
+        w = pack_gguf_tensor(raw, desc.ggml_type, (e * n, k))
+        if row_split:  # the rank's K-range of the packed container
+            return slice_k(w, *row_range(k, tp, tp_rank, True))
         if not lead:
             return w
         return w._map(lambda t: t.reshape(*lead, n, *t.shape[1:]), n=n)
 
-    def vec(name: str) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(g.tensor_f32(name), np.float32))
+    def vec(name: str, key: str = "") -> torch.Tensor:
+        v = torch.from_numpy(np.ascontiguousarray(g.tensor_f32(name), np.float32))
+        rows = rows_of(key, v.shape[0])  # a bias follows its projection's rows
+        return v if rows is None else v[torch.from_numpy(rows)]
 
     names = _layer_names(cfg, g.tensors)
     per_layer: dict[str, list] = {k: [] for k in names}
@@ -562,14 +609,15 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
         for key, template in names.items():
             name = template.format(i=i)
             if key.endswith(("norm", "bias")):
-                per_layer[key].append(vec(name))
+                per_layer[key].append(vec(name, key))
             elif key == "router":  # GGUF [E, H] → [H, E], f32 as the JAX route computes it
                 per_layer[key].append(vec(name).T.contiguous())
             else:
-                per_layer[key].append(mat(name))
+                per_layer[key].append(mat(name, key))
     if not cfg.rope_neox and "wq" in per_layer:  # the JAX loader's rule (a pre-fused NORM qkv stays)
-        q_perm = norm_to_neox_perm(cfg.n_heads, cfg.head_dim)
-        k_perm = norm_to_neox_perm(cfg.n_kv_heads, cfg.head_dim)
+        # within each head: on a rank's shard, the permutation of its heads
+        q_perm = norm_to_neox_perm(cfg.n_heads // tp, cfg.head_dim)
+        k_perm = norm_to_neox_perm(cfg.n_kv_heads // tp, cfg.head_dim)
         per_layer["wq"] = [permute_rows(w, q_perm) for w in per_layer["wq"]]
         per_layer["wk"] = [permute_rows(w, k_perm) for w in per_layer["wk"]]
         if "wq_bias" in per_layer:
@@ -587,12 +635,12 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
         )
     inv_freq_local = (torch.from_numpy(compute_inv_freq(cfg.head_dim, cfg.rope_base_local))
                       if cfg.rope_base_local else None)
-    if cfg.tied_embeddings:  # one table: the head, and the embedding rows
-        lm_head = mat("token_embd.weight")
+    if cfg.tied_embeddings:  # one table: the head, and the embedding rows (vocab-parallel under tp)
+        lm_head = mat("token_embd.weight", "lm_head")
         embed = lm_head if isinstance(lm_head, torch.Tensor) else None
     else:
         embed = torch.from_numpy(g.tensor_f32("token_embd.weight"))
-        lm_head = mat("output.weight")
+        lm_head = mat("output.weight", "lm_head")
         if _q8v3_on() and q8v3_eligible(lm_head):  # an untied 8-bit head: no gather reads it
             lm_head = to_q8v3_stacked(lm_head.to(device))
     layers = _stack_layers(per_layer)
@@ -667,14 +715,40 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
 
 def _embed(params: dict, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Token rows in the activation dtype (gemma: times sqrt(hidden) in f32,
-    then rounded, as the JAX package scales them)."""
-    if params["embed"] is None:  # tied: rows of the quantized head are the embedding
+    then rounded, as the JAX package scales them). Under tensor parallelism
+    a tied table is vocab-split under the head: `_embed_vocab_parallel`."""
+    comm = params.get("comm")
+    if comm is not None and (params["embed"] is None or params["embed"] is params["lm_head"]):
+        h = _embed_vocab_parallel(params, comm, tokens)
+    elif params["embed"] is None:  # tied: rows of the quantized head are the embedding
         h = dequant_gather(params["lm_head"], tokens).to(params["act_dtype"])
     else:
         h = params["embed"][tokens.long()]
     if cfg.embed_scale != 1.0:
         h = (h.float() * cfg.embed_scale).to(h.dtype)
     return h
+
+
+def _embed_vocab_parallel(params: dict, comm, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of a tied table that is vocab-split under the head: each rank
+    takes the ids in its range (rank * V/tp ..), writes zeros for the
+    others, and the f32 rows are summed over the tp group (exact: one
+    nonzero row an id), then rounded to the activation dtype."""
+    head = params["lm_head"]
+    v = head.shape[0] if isinstance(head, torch.Tensor) else head.n
+    local = tokens.long() - comm.rank * v
+    inside = (local >= 0) & (local < v)
+    idx = local.clamp(0, v - 1)
+    rows = head[idx].float() if isinstance(head, torch.Tensor) else dequant_gather(head, idx)
+    rows = torch.where(inside[..., None], rows, 0.0)
+    return comm.embed_reduce(rows).to(params["act_dtype"])
+
+
+def _tp_sum(params: dict, partial: torch.Tensor) -> torch.Tensor:
+    """A row-parallel output summed over the tp group in f32 (the JAX
+    ``psum``); unchanged on one device."""
+    comm = params.get("comm")
+    return partial if comm is None else comm.all_reduce_f32(partial)
 
 
 def _rope_tables(params: dict, cfg: LlamaConfig, positions: torch.Tensor) -> list:
@@ -696,13 +770,15 @@ def _finish_layer(params: dict, cfg: LlamaConfig, h: torch.Tensor, attn: torch.T
                   layer: int) -> torch.Tensor:
     """The rest of a layer after attention: wo, the residual add, the FFN
     and its residual add, each output RMS-normed first where the model has
-    post norms; h stays in its dtype."""
+    post norms; h stays in its dtype. Under tensor parallelism wo's and the
+    FFN's outputs are partial sums, added over the tp group before the post
+    norms (which take the full sums), as the JAX psums are placed."""
     lp = params["layers"]
-    out = linear_layered(attn, lp["wo"], layer)
+    out = _tp_sum(params, linear_layered(attn, lp["wo"], layer))
     if cfg.post_norms:
         out = rms_norm(out, lp["post_attn_norm"][layer], cfg.rms_eps)
     h = (h + out).to(h.dtype)
-    out = _mlp(params, cfg, rms_norm(h, lp["ffn_norm"][layer], cfg.rms_eps), layer)
+    out = _tp_sum(params, _mlp(params, cfg, rms_norm(h, lp["ffn_norm"][layer], cfg.rms_eps), layer))
     if cfg.post_norms:
         out = rms_norm(out, lp["post_ffw_norm"][layer], cfg.rms_eps)
     return (h + out).to(h.dtype)
@@ -1020,8 +1096,12 @@ def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 
 def logits_for(params: dict, hidden: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     """LM head (K1 or K6; the tied table for a tied checkpoint) → f32
-    logits, capped by gemma2's final softcap where `cfg` has one."""
+    logits, capped by gemma2's final softcap where `cfg` has one. Under
+    tensor parallelism the rank's vocabulary slice is gathered from the tp
+    group first, so every rank holds the whole logits."""
     logits = linear(hidden, params["lm_head"]).float()
+    if (comm := params.get("comm")) is not None:
+        logits = comm.gather_vocab(logits)
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits

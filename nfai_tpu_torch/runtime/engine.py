@@ -42,8 +42,24 @@ bias, penalties, logprobs or a constraint decodes without speculation, as
 in the JAX engine. Any other `speculative` value is a ValueError (the JAX
 engine runs plain decoding on a misspelt one).
 
-Not ported yet, and raising NotImplementedError when asked for: device
-meshes (tensor/sequence/expert parallel).
+`EngineConfig(mesh_shape={"dp": d, "tp": t})` runs the engine as one rank
+of a `torch.distributed` world (parallel/: `init_distributed` first, one
+process a rank, rank r on cuda:(r % device count) unless the caller asks
+for the CPU): `make_mesh` then `validate_tp` (the JAX order), then the rank
+loads only its shard of every column- and row-parallel weight
+(`load_params(tp=, tp_rank=)`), holds only its kv-heads in the cache and the
+BatchEngine's pool, and runs the forward on its local config
+(`model_cfg`; `global_cfg` is the whole model's) with the engine's
+`parallel.comm.Comm` (two f32 all-reduces a layer, one gather of the
+vocab-split logits). dp replicates the model: every dp group serves the
+whole batch. Every rank runs this host code on the same inputs; the
+logits are gathered to every rank, so with one shared seed (a request
+without one takes rank 0's) all ranks sample the same tokens. The group
+lives on the engine and its params, so engines in one process keep theirs.
+Not ported yet, and raising NotImplementedError (ROADMAP queue 1, item
+2(b)): `seq_parallel` and `expert_parallel` (with or without a mesh), other
+mesh axes ("sp"), and under tp > 1 MoE models and NFAI_Q8V3; the draft model
+(speculative="draft") under any mesh.
 """
 from __future__ import annotations
 
@@ -64,6 +80,9 @@ from ..grammar import machine_for
 from ..models import KVCache, decode_loop, prefill_step, resolve
 from ..models.llama import draft_spec_rounds, spec_decode_rounds
 from ..ops.sampling import apply_logit_bias, logprob_entry, sample_logits, token_logprobs
+from ..parallel import Comm, local_config, make_mesh, validate_tp
+from ..parallel.distributed import local_device_index
+from ..parallel.mesh import UNPORTED
 from ..tokenizer import (
     ChatTemplate,
     Message,
@@ -100,15 +119,8 @@ SPECULATIVE = ("off", "ngram", "draft")
 
 
 def _check_config(config: EngineConfig) -> None:
-    unported = {
-        "kv_dtype": config.kv_dtype not in ("auto", "", "int8"),
-        "mesh_shape": bool(config.mesh_shape),
-        "seq_parallel": config.seq_parallel,
-        "expert_parallel": config.expert_parallel,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"EngineConfig options not ported yet: {bad}")
+    if config.kv_dtype not in ("auto", "", "int8"):
+        raise NotImplementedError(f"kv_dtype={config.kv_dtype!r} is not ported ('auto' or 'int8')")
     if config.speculative not in SPECULATIVE:
         raise ValueError(f"speculative={config.speculative!r}: use one of {SPECULATIVE}")
     if config.param_dtype not in ("auto", config.dtype):
@@ -116,6 +128,19 @@ def _check_config(config: EngineConfig) -> None:
             f"param_dtype={config.param_dtype!r}: use 'auto' (keep quantized weights) or the "
             f"activation dtype {config.dtype!r} (dequantize every matmul weight into it)"
         )
+
+
+def _check_parallel(config: EngineConfig, mesh) -> None:
+    """What a mesh does not run yet (after `make_mesh` and `validate_tp`,
+    the JAX order): sequence and expert parallelism with or without a mesh,
+    and the draft model under one. MoE models and NFAI_Q8V3 under tp > 1
+    raise in `load_params`."""
+    flags = [k for k in ("seq_parallel", "expert_parallel") if getattr(config, k)]
+    if flags:
+        where = "" if mesh is not None else " (and no mesh_shape is set)"
+        raise NotImplementedError(f"EngineConfig {flags}{where}: {UNPORTED}")
+    if mesh is not None and config.speculative == "draft":
+        raise NotImplementedError(f"speculative='draft' under a mesh: {UNPORTED}")
 
 
 def check_bias_ids(sampling: SamplingParams, vocab_size: int) -> None:
@@ -147,7 +172,7 @@ class GenerationMetrics:
 
 class InferenceEngine:
     """Single-model engine on one device ("cuda" unless the caller passes
-    device="cpu"; CUDA absent raises)."""
+    device="cpu"; CUDA absent raises), or one rank of a mesh (module doc)."""
 
     def __init__(
         self,
@@ -164,10 +189,26 @@ class InferenceEngine:
         g = gguf if isinstance(gguf, GGUFFile) else GGUFFile.open(gguf)
         self.gguf = g
         self.family = resolve(g)
-        self.model_cfg = self.family.config_from_gguf(g)
+        self.global_cfg = self.family.config_from_gguf(g)
         self.model_name = str(g.metadata.get(Keys.NAME, g.architecture))
-        self.params = self.family.load_params(g, self.model_cfg, dtype=dtype, device=self.device,
-                                              quantized=self.config.param_dtype == "auto")
+        self.mesh = self.comm = None
+        tp, tp_rank = 1, 0
+        if self.config.mesh_shape:
+            self.mesh = make_mesh(self.config.mesh_shape)
+            validate_tp(self.global_cfg, self.mesh.tp)
+        _check_parallel(self.config, self.mesh)
+        if self.mesh is not None:
+            tp, tp_rank = self.mesh.tp, self.mesh.tp_rank
+            if self.mesh.tp_group is not None:
+                self.comm = Comm(self.mesh)
+            if self.device.type == "cuda" and torch.device(device).index is None:
+                self.device = torch.device("cuda", local_device_index(self.mesh.rank))
+        self.model_cfg = local_config(self.global_cfg, tp)
+        self.params = self.family.load_params(g, self.global_cfg, dtype=dtype, device=self.device,
+                                              quantized=self.config.param_dtype == "auto",
+                                              tp=tp, tp_rank=tp_rank)
+        if self.comm is not None:
+            self.params["comm"] = self.comm
         self.tokenizer = tokenizer_from_gguf(g.metadata)
         bos = (
             self.tokenizer.id_to_token.get(self.tokenizer.bos_id, "")
@@ -226,8 +267,14 @@ class InferenceEngine:
         return logits, cache
 
     def _generator(self, seed: int | None) -> torch.Generator:
+        """A generator seeded with `seed`, or without one a random seed (rank
+        0's on every rank of a mesh, so the ranks sample alike)."""
+        if seed is None:
+            seed = int(np.random.randint(2**31))
+            if self.comm is not None:
+                seed = self.comm.broadcast_object(seed)
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed if seed is not None else int(np.random.randint(2**31)))
+        gen.manual_seed(seed)
         return gen
 
     # -- generation --------------------------------------------------------
@@ -676,7 +723,9 @@ class ChatSession:
         `cache_k`/`cache_v` [L, 1, max_seq_len, KVD] (+ `cache_ks`/`cache_vs`
         [L, 1, Hkv, max_seq_len] f32 on an int8 cache). A bf16 cache is
         written as the raw 2-byte records (`|V2`) numpy makes of the JAX
-        package's bf16 arrays."""
+        package's bf16 arrays. Under a mesh every rank calls it: the ranks'
+        kv-heads are gathered and rank 0 writes the whole cache, which a
+        single-device engine or a mesh of any tp loads."""
         meta = {
             "messages": [m.asdict() for m in self.messages],
             "cached_ids": list(self._cached_ids),
@@ -684,13 +733,18 @@ class ChatSession:
             "max_seq_len": self.engine.max_seq_len,
         }
         arrays = {}
+        comm = self.engine.comm
         if self._cache is not None:
             s = self.engine.max_seq_len  # the cache's slots past it are never written
             c = self._cache
+            if comm is not None:  # a rank's kv-heads: the whole cache, joined in rank order
+                c = KVCache(comm.gather_heads(c.k, -1), comm.gather_heads(c.v, -1),
+                            *(None if t is None else comm.gather_heads(t, 2) for t in (c.ks, c.vs)))
             arrays["cache_k"], arrays["cache_v"] = _to_numpy(c.k[:, :, :s]), _to_numpy(c.v[:, :, :s])
             if c.quantized:
                 arrays["cache_ks"], arrays["cache_vs"] = _to_numpy(c.ks[..., :s]), _to_numpy(c.vs[..., :s])
-        np.savez_compressed(path, meta=json.dumps(meta), **arrays)
+        if comm is None or comm.is_root:  # one file, from rank 0 of a mesh
+            np.savez_compressed(path, meta=json.dumps(meta), **arrays)
 
     @classmethod
     def load(cls, engine: InferenceEngine, path, sampling: SamplingParams | None = None) -> "ChatSession":
@@ -733,11 +787,18 @@ def _from_numpy(a: np.ndarray) -> torch.Tensor:
 
 def _cache_from_arrays(engine: InferenceEngine, arrays: dict) -> KVCache:
     """A saved batch-1 cache ([L, 1, S, KVD], + [L, 1, Hkv, S] scales) in
-    a new engine cache on the engine's device, its S slots first."""
+    a new engine cache on the engine's device, its S slots first; a rank of
+    a mesh takes its kv-heads' lanes and scales."""
     k = arrays["cache_k"]
     if k.ndim != 4:  # the JAX package's pre-merged-lane sessions: [L, Hkv, B, S, D]
         raise ValueError("session cache uses the old per-head KV layout; re-create the session "
                          "(cache layout is now [L, B, S, Hkv*D])")
+    if engine.comm is not None:
+        r, hkv, d = engine.comm.rank, engine.model_cfg.n_kv_heads, engine.model_cfg.head_dim
+        lanes, heads = slice(r * hkv * d, (r + 1) * hkv * d), slice(r * hkv, (r + 1) * hkv)
+        arrays = {key: a[..., lanes] if key in ("cache_k", "cache_v") else a[:, :, heads]
+                  for key, a in arrays.items()}
+        k = arrays["cache_k"]
     quantized = "cache_ks" in arrays
     if quantized != engine.kv_quantized:
         raise ValueError(f"session cache is {'int8' if quantized else 'not int8'}; the engine's "

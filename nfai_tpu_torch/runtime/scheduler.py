@@ -41,6 +41,20 @@ slot lacks the cache room for a call's rounds. On the page pool the call
 runs on the compacted rows, its pad lanes on the sink page; on the dense
 cache a lane that is not decoding (empty, or mid-prefill) writes no K/V row
 (the JAX BatchEngine's frozen lanes write row 0 of theirs).
+
+Under a mesh (the engine's `comm`) every rank runs this scheduler on its
+shard of the pool (its kv-heads; the pages and block tables are the same on
+every rank, as the JAX pool replicates its page axis). What comes from
+outside must be the same on every rank: submits and cancels arrive on rank
+0's threads, and at the top of every `step` rank 0 broadcasts the requests
+that arrived and the ids cancelled since the last step to the world
+(`_sync`); every rank applies them before admission, so admission,
+preemption, page growth and prefix sharing are deterministic and equal on
+all ranks. The other ranks run `follow`, which steps until rank 0's `close`
+broadcasts the end. Rank 0's idle loop steps every 50 ms at least (the
+followers' collectives then never wait past their timeout), and a failed
+step under a mesh fails its requests and stops the loop: no rank carries on
+alone.
 """
 from __future__ import annotations
 
@@ -192,6 +206,13 @@ class BatchEngine:
         self.queue: queue.Queue[Request] = queue.Queue(maxsize=queue_cap)
         self._parked: deque[Request] = deque()  # requeued (preempted) heads
         self._ids = itertools.count()
+        # under a mesh: the arrivals rank 0 broadcast, not yet admitted, and
+        # the request ids cancelled as of the last broadcast
+        self.comm = engine.comm
+        self._pending: deque[Request] = deque()
+        self._cancelled: set[int] = set()
+        self._wake = threading.Event()
+        self._closed = self._broken = False
         self.generator = torch.Generator(device=engine.device)
         self.generator.manual_seed(0)
         self._thread: threading.Thread | None = None
@@ -230,6 +251,10 @@ class BatchEngine:
 
     # -- client API --------------------------------------------------------
     def submit(self, prompt_ids: Sequence[int], sampling: SamplingParams | None = None) -> Request:
+        if self.comm is not None and not self.comm.is_root:
+            raise RuntimeError("requests enter a mesh on rank 0; the other ranks follow()")
+        if self._broken:
+            raise RuntimeError("the mesh's scheduler stopped after a failed step")
         sampling = sampling or SamplingParams()
         check_bias_ids(sampling, self.engine.model_cfg.vocab_size)
         try:  # a bad grammar, regex or schema is the caller's error, raised here and not in `step`
@@ -251,19 +276,64 @@ class BatchEngine:
             req.state = RequestState.FAILED
             req.out.put(_END)
             raise QueueFull(f"request queue full ({self.queue.maxsize}); retry later") from None
+        self._wake.set()
         return req
+
+    # -- the mesh: rank 0's inbox on every rank ----------------------------
+    def _sync(self, close: bool = False) -> bool:
+        """Under a mesh, rank 0 broadcasts the requests that arrived since
+        the last step (id, prompt, sampling, submit time) and the ids
+        cancelled by then; every rank queues and applies them. Returns
+        whether rank 0 closed (then no step follows)."""
+        if self.comm is None:
+            return False
+        if self.comm.is_root:
+            new = []
+            while True:
+                try:
+                    new.append(self.queue.get_nowait())
+                except queue.Empty:
+                    break
+            known = ([s.request for s in self.slots if s.request is not None]
+                     + list(self._parked) + list(self._pending) + new)
+            cancels = sorted(r.id for r in known if r.cancelled)
+            self.comm.broadcast_object(
+                (close, [(r.id, r.prompt_ids, r.sampling, r.submitted_at) for r in new], cancels))
+        else:
+            close, subs, cancels = self.comm.broadcast_object()
+            new = [Request(id=i, prompt_ids=p, sampling=sp, submitted_at=t) for i, p, sp, t in subs]
+        self._pending.extend(new)
+        self._cancelled.update(cancels)
+        return close
+
+    def _is_cancelled(self, req: Request) -> bool:
+        """Cancelled as of the last broadcast under a mesh (the same answer on
+        every rank), else as of now."""
+        return req.id in self._cancelled if self.comm is not None else req.cancelled
+
+    def follow(self) -> None:
+        """A rank other than 0 of a mesh: step in lockstep with rank 0 until
+        its `close`."""
+        if self.comm is None or self.comm.is_root:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a mesh")
+        while not self._sync():
+            self._step()
 
     # -- scheduler ---------------------------------------------------------
     def _next_queued(self) -> Request | None:
         while True:
             if self._parked:
                 req = self._parked.popleft()
+            elif self.comm is not None:  # what rank 0 broadcast, in its order
+                if not self._pending:
+                    return None
+                req = self._pending.popleft()
             else:
                 try:
                     req = self.queue.get_nowait()
                 except queue.Empty:
                     return None
-            if req.cancelled:
+            if self._is_cancelled(req):
                 req.state = RequestState.CANCELLED
                 req.out.put(_END)
                 continue
@@ -502,6 +572,7 @@ class BatchEngine:
         req.state = state
         req.finished_at = time.perf_counter()
         req.out.put(_END)
+        self._cancelled.discard(req.id)
         if self.paged and slot.pages:
             self.alloc.release(slot.pages)
         self.slots[slot_idx] = _Slot()
@@ -550,7 +621,7 @@ class BatchEngine:
 
     def _sweep_cancelled(self) -> None:
         for i, slot in enumerate(self.slots):
-            if slot.request is not None and slot.request.cancelled:
+            if slot.request is not None and self._is_cancelled(slot.request):
                 self._finish(i, RequestState.CANCELLED)
 
     def _busy(self) -> int:
@@ -560,7 +631,15 @@ class BatchEngine:
         """One scheduler iteration: admit, advance up to
         `prefill_ticks_per_step` pending prefills by one chunk each, then one
         fused decode chunk for the decoding slots (one host read-back).
-        Returns the number of occupied slots after the step."""
+        Returns the number of occupied slots after the step. Under a mesh
+        only rank 0 calls it (the others `follow`); it first broadcasts the
+        inbox."""
+        if self.comm is not None and not self.comm.is_root:
+            raise RuntimeError("the ranks other than 0 of a mesh run follow(), not step()")
+        self._sync()
+        return self._step()
+
+    def _step(self) -> int:
         self._admit()
         self._sweep_cancelled()
         prefilling = [i for i, s in enumerate(self.slots) if s.prefilling]
@@ -793,12 +872,25 @@ class BatchEngine:
                 for i, s in enumerate(self.slots):
                     if s.request is not None:
                         self._finish(i, RequestState.FAILED)
+                if self.comm is not None:  # a rank or a collective failed: stop, do not go on alone
+                    self._broken = True
+                    return
                 continue
             if n == 0:
-                time.sleep(0.002)
+                if self.comm is None:
+                    time.sleep(0.002)
+                else:  # idle: step again on the next submit, or within 50 ms
+                    self._wake.wait(0.05)
+                    self._wake.clear()
 
     def close(self) -> None:
+        """Stop the background thread; under a mesh rank 0 then broadcasts
+        the end, which returns the other ranks from `follow`."""
         self._stop.set()
         if self._thread is not None:
-            self._thread.join(timeout=5)
+            self._wake.set()
+            self._thread.join(timeout=30)
             self._thread = None
+        if self.comm is not None and self.comm.is_root and not (self._closed or self._broken):
+            self._closed = True
+            self._sync(close=True)

@@ -25,21 +25,31 @@ queued. A malformed body gets a 400; a full queue a 503.
 
 Usage:
     python -m nfai_tpu_torch.server --gguf model.gguf [--port 8000] [--device cpu]
+    python -m nfai_tpu_torch.server --gguf model.gguf --mesh tp=2   # tensor parallel, one host
 
 Runs on the GPU by default and raises if none is visible; `--device cpu`
 runs the plain PyTorch versions of the kernels.
+
+With `--mesh` the engine is one rank of a mesh (parallel/; the CLI's
+launch rules: one host spawns its own ranks, NFAI_COORD joins a launch the
+user started). Rank 0 listens on HTTP and runs the BatchEngine's thread;
+the other ranks `follow` it until it closes. `--seq-parallel` and
+`--expert-parallel` are taken and raise NotImplementedError.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import logging
+import sys
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from .cli import parse_mesh
 from .config import EngineConfig, SamplingParams
+from .parallel.distributed import join_local, start_world
 from .runtime.engine import InferenceEngine
 from .runtime.scheduler import BatchEngine, QueueFull
 from .tokenizer import Message, StreamDetokenizer, TextStopper
@@ -381,9 +391,14 @@ def serve(
 ) -> ThreadingHTTPServer:
     """Load the model on `device` (the card unless the caller asks for the
     CPU; raises without one), start the BatchEngine's thread and bind the
-    server (call its serve_forever)."""
+    server (call its serve_forever). On a rank other than 0 of a mesh the
+    BatchEngine follows rank 0 instead, and None is returned once rank 0
+    closes."""
     engine = InferenceEngine(gguf, engine_config or EngineConfig(gguf_path=gguf), device=device)
     batch = BatchEngine(engine, max_batch=max_batch)
+    if engine.comm is not None and not engine.comm.is_root:
+        batch.follow()
+        return None
     batch.start()
     state = ServerState(engine, batch)
     httpd = ThreadingHTTPServer((host, port), make_handler(state))
@@ -402,23 +417,36 @@ def main(argv=None) -> int:
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
                    help="activation dtype (the CUDA kernels take bfloat16)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--mesh", default="",
+                   help="device mesh, e.g. 'tp=2' or 'dp=2,tp=2' (empty = single device)")
+    p.add_argument("--seq-parallel", action="store_true",
+                   help="sequence parallelism (not ported yet: raises)")
+    p.add_argument("--expert-parallel", action="store_true",
+                   help="expert parallelism (not ported yet: raises)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
-    httpd = serve(
-        args.gguf, args.host, args.port,
-        EngineConfig(gguf_path=args.gguf, max_seq_len=args.max_seq, dtype=args.dtype),
-        args.max_batch, device=args.device,
-    )
+    mesh = parse_mesh(args.mesh)
+    procs = start_world(mesh, "nfai_tpu_torch.server:main", argv, args.device)
     try:
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        httpd = serve(
+            args.gguf, args.host, args.port,
+            EngineConfig(gguf_path=args.gguf, max_seq_len=args.max_seq, dtype=args.dtype,
+                         mesh_shape=mesh, seq_parallel=args.seq_parallel,
+                         expert_parallel=args.expert_parallel),
+            args.max_batch, device=args.device,
+        )
+        if httpd is not None:
+            try:
+                httpd.serve_forever()
+            except KeyboardInterrupt:
+                pass
+            finally:
+                httpd.state.batch.close()
+                httpd.server_close()
     finally:
-        httpd.state.batch.close()
-        httpd.server_close()
-    return 0
+        codes = join_local(procs) if procs else []
+    return 1 if any(c != 0 for c in codes) else 0
 
 
 if __name__ == "__main__":
-    import sys
-
     sys.exit(main())
