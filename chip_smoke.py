@@ -13,7 +13,7 @@
     python3 chip_smoke.py --only build,constrained,spec   # constrained and speculative decoding on A
     python3 chip_smoke.py --only build,serve,batch,profile,server,parity --models Q,P,M   # the families
     python3 chip_smoke.py --only build,tools   # the host tools and the native dequant library
-    python3 chip_smoke.py --only build,parallel   # the mesh: NCCL at world size 1, tp = 2 over gloo
+    python3 chip_smoke.py --only build,parallel   # the mesh: NCCL at world size 1, tp, sp, EP over gloo
 
 Phases (each failure propagates, the exit code is then non-zero):
   build    print the card, its power limit and the versions; build every
@@ -97,7 +97,7 @@ Phases (each failure propagates, the exit code is then non-zero):
            model C's and model G's engines a paged BatchEngine serving 8
            requests; on model D's engine the same 8-request paged BatchEngine
   parity   2-layer full-width copies on cuda and on cpu (plain versions):
-           three Llama-3.2-1B kinds (Q4_K, the Q4_K_M mix, the tied Q4_0;
+           three Llama-3.2-1B kinds (Q4_K, the Q4_K_M mix, F16;
            the Q8_0 kind is the tools phase's requantized copy) and the
            Llama-3.2-3B widths (K1 at K =
            3072, K5 at H = 3072, K2/K4 at head_dim 128): prefill logits and
@@ -113,7 +113,7 @@ Phases (each failure propagates, the exit code is then non-zero):
            700-token prompt and 4 decode steps past it, dense and paged,
            bf16 and int8; the same on llama.cpp's Q4_K_M mix of Gemma-3-1B
            (Q5_0 and a dequantized Q8_0 layer dense, through K11 beside K1
-           and K6); dense weights: the F16 (dense and paged) and BF16 copies,
+           and K6); dense weights: the F16 copy (dense and paged),
            the Q4_K_M copy and model C's with param_dtype="bfloat16" (every
            weight dequantized at load: K11, no K1/K5/K6/K8/K9); the Q4_K_M
            copy again under NFAI_Q8V3=1 (its Q6_K layers on K12, its tied
@@ -200,8 +200,23 @@ Phases (each failure propagates, the exit code is then non-zero):
            and of Q (Qwen2.5-1.5B's widths: biases, 6 / 1 heads a rank, the
            tied Q6_K head split over the vocabulary on K6, the
            vocab-parallel embedding) against one device (TOL per row). Each
-           rank's paths join the launch counts ("parallel ..."). Two ranks
-           time-sharing one card say nothing of TP's speed
+           rank's paths join the launch counts ("parallel ..."). Then, over
+           gloo on the one card: a references child (one device: model A
+           and its 2-layer copy on SP_PROMPT tokens in SP_SLOTS slots, bf16
+           and int8 caches; model C and its 2-layer copy with each row's
+           router near-tie flag); sp = 2 with seq_parallel (each rank half
+           of every layer's cache; A prefill + 16 teacher-forced steps
+           within PATH_TOL, the copies within TOL, a decode step's max and
+           sums over sp, the ring against the stats merge on layer 0's
+           slices, no K2 / K4 on the path: attention is PyTorch ops, as in
+           JAX); tp = 2 on model C with expert_parallel and with the ffn
+           split (expert bytes half of one device's, C within PATH_TOL and
+           its copy within TOL on the rows without a router near-tie, a
+           decode step's collectives and K8 / K9 launches, a paged
+           BatchEngine of 8 requests); and in this process A in two
+           pipeline stages on cuda:0 against its one-stage forward. Two
+           ranks time-sharing one card say nothing of TP's, SP's or EP's
+           speed
 With only options, eval, constrained, spec or tools (no serve or batch) the
 main path is model A (and A8 for options) alone; each needs serve's load of
 those engines, which runs. With tools, models C, Q and D are also written,
@@ -331,7 +346,10 @@ FAMILY_MODELS = {m: kind for m, kind in MODELS.items() if kind in FAMILY_BUILDER
 E_LAYOUTS = {"E": "headmajor", "E8": "headmajor", "E server": "merged"}
 GEMMA3_PROMPT = 700  # the Gemma-3-1B copy's prompt: past its 512-token window
 # (the Q8_0 kind at A's widths is the tools phase's requantized copy, `_serve_requantized`)
-PARITY_KINDS = ("q4_k", "q4_k_m", "q4_0_tied", "f16", "bf16", "llama_3b")
+# the tied Q4_0 and BF16 copies left for the run's time (they repeat A's widths): A keeps K1
+# at them, the Gemma-3-1B copy Q4_0 on K1 and the F16 copy K11; the tied
+# Q4_0 table stays in tests/test_torch_kinds.py and the card's tests/test_torch_cuda.py
+PARITY_KINDS = ("q4_k", "q4_k_m", "f16", "llama_3b")
 # parity copies that also run their steps through the page pool (the families' too)
 PAGED_PARITY_KINDS = ("q4_k", "f16", "qwen2", "phi3", "mistral")
 DENSE_KINDS = ("f16", "bf16")  # every matmul weight dense: K11, no K1/K5/K6
@@ -1537,18 +1555,22 @@ def _paged_rows(torch, timer, gen, results, rows) -> None:
         del kf, vf
 
 
-def _routing_layout(torch, n_tokens, e, used, gen):
+def _routing_layout(torch, n_tokens, e, used, gen, ep=1):
     """A batch of n_tokens each routed to `used` distinct experts drawn at
     random (a random-weight router's routing), laid out group-aligned as
     moe_ffn lays it out: (x_pad rows, dst, block_group, block_rows, tm,
-    distinct experts hit)."""
+    distinct experts hit). With `ep` > 1 the layout rank 0 of an expert
+    parallel group of `ep` builds over its E/ep experts (moe_ffn_ep: the
+    other ranks' rows clipped to its last expert)."""
     from nfai_tpu_torch.models.llama import group_tm, moe_group_layout
 
     idx = torch.rand(n_tokens, e, device="cuda", generator=gen).argsort(-1)[:, :used]
     rows = n_tokens * used
     tm = group_tm(rows)
-    _, dst, bg, br, m_pad = moe_group_layout(idx.reshape(-1), rows, e, tm)
-    return m_pad, dst, bg, br, tm, int(torch.unique(idx).numel())
+    el = e // ep
+    local = idx.clamp(0, el - 1)
+    _, dst, bg, br, m_pad = moe_group_layout(local.reshape(-1), rows, el, tm)
+    return m_pad, dst, bg, br, tm, int(torch.unique(local).numel())
 
 
 def _kernels_k8_k9(torch, timer, gen) -> dict:
@@ -1556,7 +1578,10 @@ def _kernels_k8_k9(torch, timer, gen) -> dict:
     gate/up [128, 768, 2048] and down [128, 2048, 768], at the decode layouts
     of a batch-1 and a batch-8 routing (8 and 64 rows, tm 8), a 256-token
     prefill chunk (2048 rows, tm 32) and the batch phase's 8 x 128-token
-    prefill (8192 rows, tm 128); per routed row against the plain version,
+    prefill (8192 rows, tm 128); then a tp = 2 rank's stacks at the first
+    three layouts: expert parallelism's [64, 768, 2048] / [64, 2048, 768]
+    on its local layout, the ffn split's [128, 384, 2048] / [128, 2048, 384];
+    per routed row against the plain version,
     with x's padding rows random (the kernels must write zeros there from
     block_rows alone), three launches with the same bits. Yardsticks: the
     hit experts of every block dequantized to bf16, then one torch.bmm over
@@ -1569,7 +1594,7 @@ def _kernels_k8_k9(torch, timer, gen) -> dict:
     bf = torch.bfloat16
     e, used, h, f = 128, 8, 2048, 768
 
-    def stack(kind, n, k, group=32, with_mins=False):
+    def stack(kind, n, k, group=32, with_mins=False, e=e):
         if kind == "q4":
             return Q4Tensor(
                 torch.randint(0, 256, (e, n, k // 2), dtype=torch.uint8, device="cuda", generator=gen),
@@ -1587,14 +1612,30 @@ def _kernels_k8_k9(torch, timer, gen) -> dict:
                "batch 8": _routing_layout(torch, 8, e, used, gen),
                "prefill 256": _routing_layout(torch, 256, e, used, gen),
                "batch prefill 8x128": _routing_layout(torch, 8 * 128, e, used, gen)}
+    # a tp = 2 rank's stacks (the parallel phase's C worlds): expert parallelism's
+    # 64 whole experts, its layout over them (the other rank's rows clipped to the
+    # last local expert, weighted 0); the ffn split's 128 experts of half the ffn
+    # columns (gate/up N = 384, down K = 384), the whole layout
+    rank_e = e // 2
+    rank_cases = {"EP rank": ({"gate/up": stack("q4", f, h, e=rank_e), "down": stack("q4", h, f, e=rank_e),
+                               "Q6_K down": stack("q8", h, f, group=16, e=rank_e)},
+                              {n: _routing_layout(torch, t, e, used, gen, ep=2) for n, t in
+                               (("batch 1", 1), ("batch 8", 8), ("prefill 256", 256))}),
+                  "ffn-split rank": ({"gate/up": stack("q4", f // 2, h), "down": stack("q4", h, f // 2),
+                                      "Q6_K down": stack("q8", h, f // 2, group=16)},
+                                     {n: layouts[n] for n in ("batch 1", "batch 8", "prefill 256")})}
     results = {}
     for name, ws in weights.items():
         cases = []
         kname = "K8" if name == "grouped_q4" else "K9"
-        for label, w in ws.items():
+        work = [(label, w, layouts) for label, w in ws.items()]
+        for rank, (rank_ws, rank_layouts) in rank_cases.items():
+            work += [(f"{rank} {label}", w, rank_layouts) for label, w in rank_ws.items()
+                     if (label == "Q6_K down") == (name == "grouped_q8")]
+        for label, w, w_layouts in work:
             per_expert = sum(t[0].numel() * t.element_size()
                              for t in (w.qs, w.scales) + (() if w.mins is None else (w.mins,)))
-            for lname, (m_pad, dst, bg, br, tm, hit) in layouts.items():
+            for lname, (m_pad, dst, bg, br, tm, hit) in w_layouts.items():
                 rows = dst.numel()
                 x = torch.randn(m_pad, w.k, device="cuda", dtype=bf, generator=gen)  # padding too
                 got = qm.qmatmul_grouped(x, w, bg, tm, br)
@@ -5052,11 +5093,286 @@ def _par_tp2(torch, kernels_mod, conf, rank) -> dict:
     return out
 
 
+# sequence parallelism: model A's long-context case, the 3500-token prompt of
+# the long-context phase in 4096 slots, one 2048-slot slice a rank
+SP_SLOTS = 4096
+SP_PROMPT = 3500
+SP_TOKENS = 16
+MOE_PROMPT = 192  # model C's teacher-forced prompt: random ids, every row's logits compared
+# a rank may pick other experts than one device for a row whose router gap
+# is below NEAR_TIE at some layer, and a rank's bf16 partials move some
+# picks past it: both kinds of row are left out, which at C's 8 layers
+# leaves about one row in six; at least this many must remain
+MOE_MIN_ROWS = 16
+EXPERT_KEYS = ("w_gate_exps", "w_up_exps", "w_down_exps")
+# the SP path: attention is PyTorch ops over each rank's slice (local_flash and
+# the merge: the JAX package's jnp inside shard_map, no Pallas kernel), so no
+# K2, K4 or K7; every layer's K/V through the store's chunk mode, then K1 / K5
+SP_ROUTE = ({"q4_matmul", "fused_mlp", "kv_store"},
+            {"decode_attention", "prefill_attention", "paged_attention", "q8_matmul", "grouped_q4", "grouped_q8",
+             "kv_store_paged", "dense_matmul"} | INT8)
+ROUTES.update({"parallel sp2 A": SP_ROUTE, "parallel sp2 A2": SP_ROUTE, "parallel sp2 A8 copy": SP_ROUTE,
+               "parallel ep2 C": ROUTES["C"], "parallel ep2 C2": ROUTES["C"],
+               "parallel ep2 C server": ROUTES["C server"], "parallel ffn2 C": ROUTES["C"],
+               "parallel ffn2 C2": ROUTES["C"], "parallel ffn2 C server": ROUTES["C server"],
+               "pipeline A": ROUTES["A"]})
+for _path in ("parallel sp2 A", "parallel sp2 A2", "parallel sp2 A8 copy", "parallel ep2 C", "parallel ep2 C2",
+              "parallel ep2 C server", "parallel ffn2 C", "parallel ffn2 C2", "parallel ffn2 C server", "pipeline A"):
+    ROUTES[_path][1].update(OLD_WRITES | Q8V3_HM)
+
+
+def _sp_ids(torch) -> list[int]:
+    return torch.randint(0, 1000, (SP_PROMPT,), generator=torch.Generator().manual_seed(5)).tolist()
+
+
+def _moe_ids(torch) -> list[int]:
+    return torch.randint(0, 1000, (MOE_PROMPT,), generator=torch.Generator().manual_seed(6)).tolist()
+
+
+def _expert_bytes(params) -> int:
+    return _param_bytes({"layers": {k: params["layers"][k] for k in EXPERT_KEYS}})
+
+
+class _RouterMargins:
+    """Records, while active, the router's k-th vs (k+1)-th logit gap and the
+    experts picked of every row at every layer (`models.llama.moe_route`
+    wrapped, as the parity phase does): the rows where a rank's slightly
+    different input may rightly pick other experts."""
+
+    def __init__(self, torch):
+        from nfai_tpu_torch.models import llama as tllama
+
+        self.torch, self.mod, self.route, self.calls = torch, tllama, tllama.moe_route, []
+
+    def __enter__(self):
+        def recording(xx, router, n_used, norm_topk):
+            vals, idx = self.route(xx, router, n_used, norm_topk)
+            top = self.torch.topk(xx.float() @ router.float(), n_used + 1, dim=-1).values
+            self.calls.append(((top[:, n_used - 1] - top[:, n_used]).cpu(), idx.sort(-1).values.cpu()))
+            return vals, idx
+
+        self.mod.moe_route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_route = self.route
+
+    def near(self, row: int) -> bool:
+        """Whether row `row` of the forwards since the last `calls.clear()`
+        had a gap below NEAR_TIE at any layer."""
+        return min(float(gap[row]) for gap, _ in self.calls) < NEAR_TIE
+
+    def picks(self, row: int) -> list:
+        """Row `row`'s experts at every layer since the last `calls.clear()`."""
+        return [idx[row].tolist() for _, idx in self.calls]
+
+
+def _teacher_forced_moe(torch, engine, ids, tokens):
+    """The f32 logits on the host of every prompt row (one forward over the
+    prompt) and of decode steps fed `tokens` one at a time: [len(ids) +
+    len(tokens), V]; and each row's router near-tie flag and experts at
+    every layer (_RouterMargins)."""
+    from nfai_tpu_torch.models.llama import decode_step, forward, logits_for
+
+    dev, cfg = engine.device, engine.model_cfg
+    with _RouterMargins(torch) as margins, torch.inference_mode():
+        h, cache = forward(engine.params, cfg, torch.tensor([ids], device=dev),
+                           torch.arange(len(ids), device=dev)[None], engine.new_cache(1))
+        rows = [logits_for(engine.params, h[0], cfg).float().cpu()]
+        near = [margins.near(i) for i in range(len(ids))]
+        picks = [margins.picks(i) for i in range(len(ids))]
+        pos = len(ids)
+        for t in tokens:
+            margins.calls.clear()
+            lg, cache = decode_step(engine.params, cfg, torch.tensor([t], device=dev),
+                                    torch.tensor([pos], device=dev), cache)
+            near.append(margins.near(0))
+            picks.append(margins.picks(0))
+            rows.append(lg.float().cpu())
+            pos += 1
+    return torch.cat(rows), near, picks
+
+
+def _par_refs(torch, kernels_mod, conf) -> dict:
+    """The single-device references of the sp2, ep2 and ffn2 worlds (a child
+    of its own, world size 1): model A and its 2-layer copy (bf16 and int8
+    caches) at SP_SLOTS on the SP_PROMPT-token prompt, SP_TOKENS greedy
+    tokens teacher-forced; model C and its 2-layer copy on MOE_PROMPT random
+    ids (every prompt row), PAR_STEPS greedy tokens teacher-forced, with each
+    row's router near-tie flag; the cache and expert bytes on one device."""
+    from nfai_tpu_torch.config import EngineConfig, SamplingParams
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    refs, out = {}, {}
+    ids = _sp_ids(torch)
+    for name, path, kv in (("A", conf["A"], "auto"), ("A2", conf["A2"], "auto"), ("A8 copy", conf["A2"], "int8")):
+        e = InferenceEngine(path, EngineConfig(max_seq_len=SP_SLOTS, kv_dtype=kv), device="cuda")
+        toks = list(e.generate(ids, SamplingParams(temperature=0.0, max_new_tokens=SP_TOKENS)))
+        refs[name] = {"tokens": toks, "logits": _teacher_forced(torch, e, ids, toks)}
+        out[f"{name} cache_bytes"], out[f"{name} tokens"] = e.new_cache(1).nbytes, toks
+        del e
+        torch.cuda.empty_cache()
+    mids = _moe_ids(torch)
+    for name in ("C", "C2"):
+        e = InferenceEngine(conf[name], EngineConfig(max_seq_len=1024), device="cuda")
+        toks = list(e.generate(mids, SamplingParams(temperature=0.0, max_new_tokens=PAR_STEPS)))
+        logits, near, picks = _teacher_forced_moe(torch, e, mids, toks)
+        refs[name] = {"tokens": toks, "logits": logits, "near": near, "picks": picks}
+        out[f"{name} expert_bytes"] = _expert_bytes(e.params)
+        out[f"{name} near_ties"] = sum(near)
+        del e
+        torch.cuda.empty_cache()
+    torch.save(refs, conf["refs2"])
+    return out
+
+
+def _par_sp2(torch, kernels_mod, conf, rank) -> dict:
+    """One rank of {"sp": 2} with seq_parallel over gloo, both ranks on the
+    one card: model A at full width and depth on the SP_PROMPT-token prompt
+    in SP_SLOTS slots (each rank 2048 slots of every layer's cache), then its
+    2-layer copy on a bf16 and an int8 cache, against `_par_refs`."""
+    from nfai_tpu_torch.config import EngineConfig, SamplingParams
+    from nfai_tpu_torch.models.llama import decode_step
+    from nfai_tpu_torch.parallel import sp_decode_attention_merged
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    refs = torch.load(conf["refs2"])
+    ids = _sp_ids(torch)
+    mesh = {"sp": 2}
+    out, launches = {}, {}
+    eng = InferenceEngine(conf["A"], EngineConfig(max_seq_len=SP_SLOTS, mesh_shape=mesh, seq_parallel=True),
+                          device="cuda")
+    sp = eng.sp_comm
+    cache = eng.new_cache(1)
+    out.update(backend=sp.backend, device=str(eng.device), n_layers=eng.model_cfg.n_layers,
+               cache=[list(cache.k.shape), cache.offset, cache.max_seq], cache_bytes=cache.nbytes)
+    del cache
+    ref = refs["A"]
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    got = _teacher_forced(torch, eng, ids, ref["tokens"])
+    torch.cuda.synchronize()
+    out["teacher_forced_s"] = time.perf_counter() - t0
+    out["logit_rel_err"] = errors(got, ref["logits"], row_dims=1)[1]
+    out["prefill_rel_err"] = errors(got[:1], ref["logits"][:1], row_dims=1)[1]
+    # one decode step counted alone, on the prompt's cache
+    cache = eng.prefill(eng.new_cache(1), ids)[1]
+    torch.cuda.synchronize()
+    before = _launches(kernels_mod)
+    sp.reset()
+    decode_step(eng.params, eng.model_cfg, torch.tensor([5], device=eng.device),
+                torch.tensor([len(ids)], device=eng.device), cache)
+    torch.cuda.synchronize()
+    out["step_launches"] = {k: n - before[k] for k, n in _launches(kernels_mod).items()}
+    out["step_collectives"], out["step_staged"] = dict(sp.counts), dict(sp.staged)
+    # the ring against the stats merge on layer 0's slice, for a random query
+    q = torch.randn(1, eng.model_cfg.n_heads, eng.model_cfg.head_dim, device=eng.device,
+                    generator=torch.Generator(device=eng.device).manual_seed(9)).to(torch.bfloat16)
+    lengths = torch.tensor([len(ids)], device=eng.device)
+    sp.reset()
+    pair = (cache.k[0], cache.v[0])
+    stats = sp_decode_attention_merged(q, pair, lengths, eng.model_cfg.n_kv_heads, sp)
+    ring = sp_decode_attention_merged(q, pair, lengths, eng.model_cfg.n_kv_heads, sp, ring=True)
+    out["ring_vs_stats"] = errors(ring, stats)[1]
+    out["ring_collectives"], out["ring_staged"] = dict(sp.counts), dict(sp.staged)
+    del cache
+    t0 = time.perf_counter()
+    out["greedy"] = list(eng.generate(ids, SamplingParams(temperature=0.0, max_new_tokens=SP_TOKENS)))
+    torch.cuda.synchronize()
+    out["greedy_wall_s"] = time.perf_counter() - t0
+    launches["A"] = _launches(kernels_mod)
+    del eng
+    torch.cuda.empty_cache()
+    for name, kv in (("A2", "auto"), ("A8 copy", "int8")):
+        e = InferenceEngine(conf["A2"], EngineConfig(max_seq_len=SP_SLOTS, kv_dtype=kv, mesh_shape=mesh,
+                                                     seq_parallel=True), device="cuda")
+        kernels_mod.reset_launches()
+        got = _teacher_forced(torch, e, ids, refs[name]["tokens"])
+        torch.cuda.synchronize()
+        launches[name] = _launches(kernels_mod)
+        out[name] = dict(logit_rel_err=errors(got, refs[name]["logits"], row_dims=1)[1],
+                         cache_bytes=e.new_cache(1).nbytes, variants=dict(kernels_mod.KERNELS["kv_store"].variants))
+        del e
+    out["launches"] = launches
+    return out
+
+
+def _par_moe(torch, kernels_mod, conf, rank, ep) -> dict:
+    """One rank of {"tp": 2} over gloo, both ranks on the one card, on model
+    C (qwen3moe at Qwen3-30B-A3B's widths) with its experts split over the
+    expert axis (`ep`: expert_parallel, 64 whole experts a rank) or over
+    their ffn columns (384 of each expert's 768, down's K range): the
+    teacher-forced logits of C and of its 2-layer copy against `_par_refs`
+    (router near-ties left out), one decode step's launches and
+    collectives, the expert bytes, then 8 requests on a paged BatchEngine
+    (rank 0 submits, rank 1 follows)."""
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.models.llama import decode_step
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    root = rank == 0
+    refs = torch.load(conf["refs2"])
+    mids = _moe_ids(torch)
+    mesh = {"tp": 2}
+    out, launches = {}, {}
+    eng = InferenceEngine(conf["C"], EngineConfig(max_seq_len=1024, mesh_shape=mesh, expert_parallel=ep),
+                          device="cuda")
+    comm = eng.comm
+    shapes = {k: list(eng.params["layers"][k].layer(0).qs.shape) for k in EXPERT_KEYS}
+    out.update(backend=comm.backend, device=str(eng.device), n_layers=eng.model_cfg.n_layers,
+               expert_bytes=_expert_bytes(eng.params), weight_bytes=_param_bytes(eng.params), shapes=shapes,
+               expert_parallel=bool(eng.params.get("expert_parallel")))
+    for name, e in (("C", eng), ("C2", None)):
+        if e is None:
+            e = InferenceEngine(conf["C2"], EngineConfig(max_seq_len=1024, mesh_shape=mesh, expert_parallel=ep),
+                                device="cuda")
+        ref = refs[name]
+        kernels_mod.reset_launches()
+        got, _, picks = _teacher_forced_moe(torch, e, mids, ref["tokens"])
+        torch.cuda.synchronize()
+        moved = [p != q for p, q in zip(picks, ref["picks"])]  # the rank picked other experts somewhere
+        keep = [i for i, (near, m) in enumerate(zip(ref["near"], moved)) if not (near or m)]
+        if len(keep) < MOE_MIN_ROWS:
+            raise AssertionError(f"{name}: {len(keep)} rows without a router near-tie, too few to compare")
+        res = dict(rows=len(ref["near"]), near_ties=sum(ref["near"]), moved=sum(moved),
+                   compared=len(keep), logit_rel_err=errors(got[keep], ref["logits"][keep], row_dims=1)[1],
+                   expert_bytes=_expert_bytes(e.params))
+        if name == "C":  # one decode step counted alone
+            cache = e.prefill(e.new_cache(1), mids)[1]
+            torch.cuda.synchronize()
+            before = _launches(kernels_mod)
+            comm.reset()
+            decode_step(e.params, e.model_cfg, torch.tensor([5], device=e.device),
+                        torch.tensor([len(mids)], device=e.device), cache)
+            torch.cuda.synchronize()
+            res["step_launches"] = {k: n - before[k] for k, n in _launches(kernels_mod).items()}
+            res["step_expected"] = {"grouped_q4": 2 * e.model_cfg.n_layers + _q4_downs(e),
+                                    "grouped_q8": e.model_cfg.n_layers - _q4_downs(e)}
+            res["step_collectives"], res["step_staged"] = dict(comm.counts), dict(comm.staged)
+            res["tied"] = e.params["embed"] is None
+            del cache
+        launches[name] = _launches(kernels_mod)
+        out[name] = res
+        if name == "C2":
+            del e
+    # the paged BatchEngine on C's engine: rank 0 submits and steps, rank 1 follows
+    kernels_mod.reset_launches()
+    out["batch"] = _par_batch(torch, eng, root)
+    torch.cuda.synchronize()
+    launches["C server"] = _launches(kernels_mod)
+    out["launches"] = launches
+    return out
+
+
 def _parallel_rank(world, rank, size, coord, backend, conf) -> None:
     """A child process: one rank of `world` (see `ParallelPhase`); writes
     its result to conf["out"] % rank and exits 1 on any failure."""
     import traceback
 
+    # a spawned child takes the parent's environment as it stands at its
+    # start, and the parent's main thread may then hold `_Switches(q8v3=True)`
+    # around a parity copy: no world runs NFAI_Q8V3 (a 2(c) option under tp)
+    os.environ.pop("NFAI_Q8V3", None)
     import torch
     import torch.distributed as dist
 
@@ -5067,8 +5383,13 @@ def _parallel_rank(world, rank, size, coord, backend, conf) -> None:
     res = {"rank": rank, "world": world}
     try:
         init_distributed(coord, size, rank, backend=backend, timeout_s=PAR_GROUP_TIMEOUT_S)
-        res.update(_par_nccl(torch, kernels_mod, conf) if world == "nccl" else
-                   _par_tp2(torch, kernels_mod, conf, rank))
+        fns = {"nccl": lambda: _par_nccl(torch, kernels_mod, conf),
+               "refs": lambda: _par_refs(torch, kernels_mod, conf),
+               "tp2": lambda: _par_tp2(torch, kernels_mod, conf, rank),
+               "sp2": lambda: _par_sp2(torch, kernels_mod, conf, rank),
+               "ep2": lambda: _par_moe(torch, kernels_mod, conf, rank, True),
+               "ffn2": lambda: _par_moe(torch, kernels_mod, conf, rank, False)}
+        res.update(fns[world]())
         res["ok"] = True
     except BaseException:  # noqa: BLE001 - the parent reads it and fails the phase
         res["ok"] = False
@@ -5136,13 +5457,13 @@ class ParallelPhase(threading.Thread):
     by this thread while the parent runs the parity copies, which time
     nothing; `finish` joins them and makes the checks."""
 
-    def __init__(self, tmp, a_path=None):
+    def __init__(self, tmp, a_path=None, c_path=None):
         super().__init__(daemon=True)
-        self.tmp, self.a_path = tmp, a_path
-        self.results, self.error, self.seconds = {}, None, 0.0
+        self.tmp, self.a_path, self.c_path = tmp, a_path, c_path
+        self.results, self.error, self.seconds, self.conf = {}, None, 0.0, {}
 
     def run(self):
-        from nfai_tpu_torch.testing import make_llama_1b_gguf, make_qwen2_1_5b_gguf
+        from nfai_tpu_torch.testing import make_llama_1b_gguf, make_qwen2_1_5b_gguf, make_qwen3moe_gguf
 
         t0 = time.perf_counter()
         try:
@@ -5152,14 +5473,18 @@ class ParallelPhase(threading.Thread):
                     "A2": str(make_llama_1b_gguf(os.path.join(tmp, "llama1b_2l_par.gguf"), kind="q4_k",
                                                  n_layers=2)),
                     "Q": str(make_qwen2_1_5b_gguf(os.path.join(tmp, "qwen2_2l_par.gguf"), n_layers=2)),
-                    "refs": os.path.join(tmp, "par_refs.pt")}
+                    "C": str(self.c_path or make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe_par.gguf"),
+                                                               n_layers=C_LAYERS)),
+                    "C2": str(make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe_2l_par.gguf"), n_layers=2)),
+                    "refs": os.path.join(tmp, "par_refs.pt"), "refs2": os.path.join(tmp, "par_refs2.pt")}
+            self.conf = conf
             self.results["gguf_s"] = time.perf_counter() - t0
-            t1 = time.perf_counter()
-            (self.results["nccl"],) = _run_world("nccl", 1, "nccl", conf, tmp)
-            self.results["nccl_s"] = time.perf_counter() - t1
-            t1 = time.perf_counter()
-            self.results["tp2"] = _run_world("tp2", 2, "gloo", conf, tmp)
-            self.results["tp2_s"] = time.perf_counter() - t1
+            for world, size, backend in (("nccl", 1, "nccl"), ("tp2", 2, "gloo"), ("refs", 1, "gloo"),
+                                         ("sp2", 2, "gloo"), ("ep2", 2, "gloo"), ("ffn2", 2, "gloo")):
+                t1 = time.perf_counter()
+                ranks = _run_world(world, size, backend, conf, tmp)
+                self.results[world] = ranks[0] if size == 1 else ranks
+                self.results[f"{world}_s"] = time.perf_counter() - t1
         except BaseException as e:  # noqa: BLE001 - raised again by finish()
             self.error = e
         self.seconds = time.perf_counter() - t0
@@ -5230,9 +5555,151 @@ def _parallel_checks(worlds: dict, seconds: float) -> tuple[dict, dict]:
         f"says nothing of TP's speed)")
     if a["batch"]["requests"] != 8 or a["batch"]["prefix_hits"] <= 0:
         raise AssertionError(f"tp=2 BatchEngine: {a['batch']}")
+    by_path.update(_sp_checks(worlds))
+    by_path.update(_moe_checks(worlds))
     log(f"  parallel phase: {seconds:.1f}s beside the parity copies (the GGUFs {worlds['gguf_s']:.1f}s, NCCL "
-        f"world {worlds['nccl_s']:.1f}s, tp=2 world {worlds['tp2_s']:.1f}s)")
+        f"world {worlds['nccl_s']:.1f}s, tp=2 world {worlds['tp2_s']:.1f}s, references {worlds['refs_s']:.1f}s, "
+        f"sp=2 world {worlds['sp2_s']:.1f}s, expert-parallel world {worlds['ep2_s']:.1f}s, ffn-split world "
+        f"{worlds['ffn2_s']:.1f}s)")
     return dict(worlds, seconds=seconds), by_path
+
+
+def _sp_checks(worlds: dict) -> dict:
+    """The sp=2 world's checks and lines."""
+    refs, by_path = worlds["refs"], {}
+    ranks = worlds["sp2"]
+    for res in ranks:
+        r, n = res["rank"], res["n_layers"]
+        b = f"[backend {res['backend']}, sp=2, rank {r} on {res['device']}]"
+        shape, offset, span = res["cache"]
+        log(f"  {b} model A, {SP_PROMPT}-token prompt in {SP_SLOTS} slots: the rank's cache {shape} from slot "
+            f"{offset} of {span}, {res['cache_bytes'] / 2**20:.1f} MiB against {refs['A cache_bytes'] / 2**20:.1f} "
+            f"MiB on one device; prefill + {SP_TOKENS} teacher-forced steps worst per-row rel err "
+            f"{res['logit_rel_err']:.3e} (prefill {res['prefill_rel_err']:.3e}; tol {PATH_TOL:g}) in "
+            f"{res['teacher_forced_s']:.1f}s")
+        if not res["logit_rel_err"] < PATH_TOL or offset != r * span // 2 or shape[2] * 2 != span:
+            raise AssertionError(f"sp=2 rank {r}: model A rel err {res['logit_rel_err']:.3e}, cache {res['cache']}")
+        want = {"all_max": n, "all_reduce": 2 * n}
+        step = res["step_launches"]
+        log(f"  {b} a decode step: sp collectives {res['step_collectives']} (staged {res['step_staged']}), "
+            f"launches { {k: v for k, v in step.items() if v} }")
+        if res["step_collectives"] != want or step["kv_store"] != n or step["decode_attention"]:
+            raise AssertionError(f"sp=2 rank {r}: a decode step made {res['step_collectives']} and {step}")
+        log(f"  {b} layer 0's slices, one random query: the ring against the stats merge rel err "
+            f"{res['ring_vs_stats']:.3e} (ring + merge collectives {res['ring_collectives']}, staged "
+            f"{res['ring_staged']})")
+        if not res["ring_vs_stats"] < 1e-3 or res["ring_collectives"].get("ring") != 1:
+            raise AssertionError(f"sp=2 rank {r}: ring against stats merge {res['ring_vs_stats']:.3e}")
+        by_path[f"parallel sp2 A r{r}"] = _child_route("parallel sp2 A", res["launches"]["A"], f"sp=2 rank {r} model A")
+        for name in ("A2", "A8 copy"):
+            c = res[name]
+            log(f"  {b} {name} (2 layers, {'int8' if name == 'A8 copy' else 'bf16'} cache): teacher-forced worst "
+                f"per-row rel err {c['logit_rel_err']:.3e} (tol {TOL:g}); cache {c['cache_bytes'] / 2**20:.2f} MiB "
+                f"against {refs[f'{name} cache_bytes'] / 2**20:.2f}; store variants {c['variants']}")
+            if not c["logit_rel_err"] < TOL:
+                raise AssertionError(f"sp=2 rank {r}: {name} rel err {c['logit_rel_err']:.3e}")
+            by_path[f"parallel sp2 {name} r{r}"] = _child_route(f"parallel sp2 {name}", res["launches"][name],
+                                                               f"sp=2 rank {r} {name}")
+    a, b = ranks
+    if a["greedy"] != b["greedy"]:
+        raise AssertionError(f"sp=2: the ranks' greedy tokens differ: {a['greedy']} / {b['greedy']}")
+    same = sum(x == y for x, y in zip(a["greedy"], refs["A tokens"]))
+    log(f"  sp=2: both ranks' {SP_TOKENS} greedy tokens agree; {same} of them equal the single-device engine's; "
+        f"{a['greedy_wall_s'] * 1e3:.0f} ms on one shared card over gloo (says nothing of SP's speed)")
+    return by_path
+
+
+def _moe_checks(worlds: dict) -> dict:
+    """The expert-parallel and ffn-split worlds' checks and lines."""
+    refs, by_path = worlds["refs"], {}
+    for world, what in (("ep2", "expert parallelism"), ("ffn2", "the ffn split")):
+        ranks = worlds[world]
+        for res in ranks:
+            r, n = res["rank"], res["n_layers"]
+            b = f"[backend {res['backend']}, tp=2 {what}, rank {r} on {res['device']}]"
+            log(f"  {b} model C: expert stacks (layer 0) {res['shapes']}, expert bytes "
+                f"{res['expert_bytes'] / 2**20:.1f} MiB against {refs['C expert_bytes'] / 2**20:.1f} MiB on one "
+                f"device; all weights {res['weight_bytes'] / 2**20:.1f} MiB")
+            if res["expert_parallel"] != (world == "ep2") or 2 * res["expert_bytes"] != refs["C expert_bytes"]:
+                raise AssertionError(f"{world} rank {r}: expert bytes {res['expert_bytes']}")
+            for name, tol in (("C", PATH_TOL), ("C2", TOL)):
+                c = res[name]
+                log(f"  {b} {name} ({n if name == 'C' else 2} layers) {MOE_PROMPT} prompt rows + {PAR_STEPS} "
+                    f"teacher-forced steps: worst per-row rel err {c['logit_rel_err']:.3e} over {c['compared']} "
+                    f"rows (left out: {c['near_ties']} router near-ties on one device, {c['moved']} rows whose "
+                    f"experts moved at some layer; tol {tol:g})")
+                if not c["logit_rel_err"] < tol or 2 * c["expert_bytes"] != refs[f"{name} expert_bytes"]:
+                    raise AssertionError(f"{world} rank {r}: {name} rel err {c['logit_rel_err']:.3e}")
+                by_path[f"parallel {world} {name} r{r}"] = _child_route(
+                    f"parallel {world} {name}", res["launches"][name], f"{world} rank {r} {name}")
+            c = res["C"]
+            step = c["step_launches"]
+            want = {"all_reduce": 2 * n, "gather_vocab": 1, **({"embed_reduce": 1} if c["tied"] else {})}
+            log(f"  {b} a decode step: collectives {c['step_collectives']} (staged {c['step_staged']}); grouped "
+                f"launches K8 {step['grouped_q4']}, K9 {step['grouped_q8']} (route implies {c['step_expected']})")
+            if c["step_collectives"] != want or {k: step[k] for k in c["step_expected"]} != c["step_expected"]:
+                raise AssertionError(f"{world} rank {r}: a decode step made {c['step_collectives']}, {step}")
+            by_path[f"parallel {world} C server r{r}"] = _child_route(
+                f"parallel {world} C server", res["launches"]["C server"], f"{world} rank {r} BatchEngine")
+            log(f"  {b} BatchEngine {res['batch']}; {res['seconds']:.1f}s in the child")
+        if ranks[0]["batch"]["requests"] != 8:
+            raise AssertionError(f"{world} BatchEngine: {ranks[0]['batch']}")
+    return by_path
+
+
+PP_STAGES = 2
+
+
+def phase_pipeline(torch, kernels_mod, a_path) -> tuple[dict, dict]:
+    """The pipeline stage split in this process (parallel.pipeline_parallel):
+    model A in PP_STAGES stages, both on cuda:0, against its one-stage
+    forward: a prefill of the parallel phase's prompt, then PAR_STEPS decode
+    steps fed the one-stage greedy tokens; the launches of the pipelined run
+    alone, checked against A's route."""
+    from nfai_tpu_torch.config import EngineConfig
+    from nfai_tpu_torch.models.llama import forward, logits_for
+    from nfai_tpu_torch.parallel import pp_forward, split_cache, split_stages
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    e = InferenceEngine(a_path, EngineConfig(max_seq_len=1024), device="cuda")
+    cfg, dev = e.model_cfg, e.device
+    ids = e.tokenizer.encode(PAR_PROMPT)
+    stages = split_stages(e.params, PP_STAGES, cfg)
+
+    def one(t, p, cache):
+        with torch.inference_mode():
+            return forward(e.params, cfg, t, p, cache)
+
+    def piped(t, p, caches):
+        return pp_forward(stages, t, p, caches, devices=[dev] * PP_STAGES)
+
+    def rollout(step, state, head, toks=None):
+        """Prefill, then PAR_STEPS steps fed `toks` (or the greedy tokens);
+        returns (f32 logits [1 + PAR_STEPS, V] on the host, the tokens)."""
+        h, state = step(torch.tensor([ids], device=dev), torch.arange(len(ids), device=dev)[None], state)
+        rows, fed = [logits_for(head, h[:, -1], cfg)], []
+        for j in range(PAR_STEPS):
+            fed.append(int(torch.argmax(rows[-1], -1)) if toks is None else toks[j])
+            h, state = step(torch.tensor([[fed[-1]]], device=dev), torch.tensor([[len(ids) + j]], device=dev), state)
+            rows.append(logits_for(head, h[:, -1], cfg))
+        return torch.cat(rows).float().cpu(), fed
+
+    want, toks = rollout(one, e.new_cache(1), e.params)
+    torch.cuda.synchronize()
+    kernels_mod.reset_launches()
+    got, _ = rollout(piped, split_cache(e.new_cache(1), PP_STAGES), stages[-1][0], toks)
+    torch.cuda.synchronize()
+    launches = _check_route(kernels_mod, "pipeline A", f"pipeline ({PP_STAGES} stages on {dev}) model A")
+    err = check(f"pipeline: model A in {PP_STAGES} stages, prefill of {len(ids)} tokens + {PAR_STEPS} teacher-forced "
+                f"decode steps against the one-stage forward", got, want, TOL, row_dims=1)
+    per_stage = [sorted(k for k in ("embed", "lm_head", "final_norm") if st.get(k) is not None) for st, _ in stages]
+    same_argmax = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    log(f"  pipeline: bit-equal {bool(torch.equal(got, want))}; argmax equal {same_argmax}; stage layers "
+        f"{[c.n_layers for _, c in stages]}, each stage's own entries {per_stage}")
+    if not same_argmax or per_stage[-1] != ["final_norm", "lm_head"] or "lm_head" in per_stage[0]:
+        raise AssertionError(f"pipeline: argmax equal {same_argmax}, stage entries {per_stage}")
+    del e
+    return dict(max_abs_err=err, bit_equal=bool(torch.equal(got, want))), {"pipeline A": launches}
 
 
 KEPT_GGUF: dict[str, str] = {}  # model -> a GGUF main_path left for a later phase
@@ -5273,8 +5740,8 @@ def main_path(torch, kernels_mod, label, kind, tmp, only, summary, phase_s) -> d
             log(f"model {label}8 ({kind}, kv_dtype int8): a second engine on model {label}'s GGUF")
             by_path.update(_drive_model(torch, kernels_mod, f"{label}8", path, only, summary, phase_s,
                                         "int8"))
-    if label == "A" and "parallel" in only:  # the parallel phase serves A's file again
-        KEPT_GGUF["A"] = path
+    if label in ("A", "C") and "parallel" in only:  # the parallel phase serves A's and C's files again
+        KEPT_GGUF[label] = path
     else:
         os.remove(path)
     return by_path
@@ -5496,7 +5963,8 @@ def main(argv=None) -> int:
                 _log_load_times(summary)
         parallel = None
         if "parallel" in only:  # in child processes, beside the parity copies: A's and the copies' paths
-            parallel = ParallelPhase(tmp, KEPT_GGUF.pop("A", None))
+            a_path = KEPT_GGUF.pop("A", None)
+            parallel = ParallelPhase(tmp, a_path, KEPT_GGUF.pop("C", None))
             parallel.start()
         if "parity" in only:
             t0 = time.perf_counter()
@@ -5555,6 +6023,10 @@ def main(argv=None) -> int:
             by_path.update(paths)
             phase_s["parallel"] = parallel.seconds
             phase_s["parallel after parity"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            summary["pipeline"], paths = phase_pipeline(torch, kernels_mod, parallel.conf["A"])
+            by_path.update(paths)
+            phase_s["pipeline"] = time.perf_counter() - t0
         if by_path:
             launches = {name: sum(m[name] for m in by_path.values()) for name in kernels_mod.KERNELS}
             summary["launches_by_path"] = by_path

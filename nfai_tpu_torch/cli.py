@@ -4,6 +4,8 @@ Usage:
     python -m nfai_tpu_torch.cli --gguf model.gguf [--device cuda|cpu] ...
     echo "hello" | python -m nfai_tpu_torch.cli --gguf model.gguf   # piped mode
     python -m nfai_tpu_torch.cli --gguf model.gguf --mesh tp=2   # tensor parallel, one host
+    python -m nfai_tpu_torch.cli --gguf model.gguf --mesh sp=2 --seq-parallel   # the cache split over S
+    python -m nfai_tpu_torch.cli --gguf moe.gguf --mesh tp=2 --expert-parallel   # MoE experts split
 
 Runs on the GPU by default and raises if none is visible; `--device cpu`
 runs the plain PyTorch versions of the kernels.
@@ -14,9 +16,13 @@ other ranks itself; with NFAI_COORD / NFAI_NUM_PROCS / NFAI_PROC_ID set, it
 is one rank of a launch the user started. Rank 0 reads the input and
 broadcasts each line (and, while it waits, an idle beat every second, so
 the other ranks' collectives never wait past their timeout); every rank runs
-the same session, and rank 0 prints. `--seq-parallel` and
-`--expert-parallel` are taken and raise NotImplementedError, as the engine
-does.
+the same session, and rank 0 prints. `--seq-parallel` with an sp axis
+(``--mesh sp=2``, or ``tp=2,sp=2``) splits the KV cache over its S axis
+across the sp ranks (`EngineConfig.seq_parallel`); `--expert-parallel`
+with ``--mesh tp=N`` splits a MoE model's experts over the tp ranks
+(`EngineConfig.expert_parallel`); a MoE model under ``tp=N`` alone splits
+its experts' ffn columns. Either flag without a mesh is refused, as the
+engine refuses it.
 """
 from __future__ import annotations
 
@@ -50,9 +56,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default="",
                    help="device mesh, e.g. 'tp=2' or 'dp=2,tp=2' (empty = single device)")
     p.add_argument("--seq-parallel", action="store_true",
-                   help="sequence parallelism (not ported yet: raises)")
+                   help="split the KV cache over its S axis on the mesh's sp axis (e.g. --mesh sp=2)")
     p.add_argument("--expert-parallel", action="store_true",
-                   help="expert parallelism (not ported yet: raises)")
+                   help="split a MoE model's experts over the mesh's tp axis (e.g. --mesh tp=2)")
     return p
 
 

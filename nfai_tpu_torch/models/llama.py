@@ -124,7 +124,14 @@ parallel.sharding) and runs this forward unchanged on the local config
 engine's `parallel.comm.Comm` as ``params["comm"]``: wo's and the FFN's
 partial sums are added in f32 over the tp group (`_finish_layer`), the
 vocab-split logits gathered (`logits_for`), and a tied table split under
-the head embeds vocab-parallel (`_embed`).
+the head embeds vocab-parallel (`_embed`). A MoE model's experts split
+over their ffn columns, or under ``params["expert_parallel"]`` over the
+expert axis (`parallel.expert_parallel.moe_ffn_ep`); its FFN hands the f32
+weighted sum to that reduce. Under sequence parallelism (``params["sp"]``,
+the sp group's Comm) the dense cache is the rank's S slice and
+`_sp_forward` runs instead of the prefill and decode paths. `forward`'s
+`h0` / `final_norm` seams serve the pipeline stages
+(parallel.pipeline_parallel).
 
 Dense weights follow the JAX package's decisions: a matmul weight stays
 quantized only where its kind has a container (Q4_0/Q4_1/Q4_K, Q8_0,
@@ -187,7 +194,9 @@ from ..ops.sampling import (
     apply_logit_bias, apply_penalties, sample_logits, spec_verify_sample, token_logprobs,
 )
 from ..parallel.mesh import UNPORTED
-from ..parallel.sharding import COL, ROW, col_rows, row_range, slice_k, split_of
+from ..parallel.sharding import (
+    COL, EXPERT, ROW, col_rows, expert_cols, expert_range, row_range, slice_k, split_of,
+)
 from ..runtime.paged_cache import PagedKVCache
 
 
@@ -335,12 +344,16 @@ class KVCache:
     cache.k[l] is the [B, S, KVD] view the attention kernels read. The int8
     cache holds int8 codes in k/v and the per-(token, kv head) f32 scales in
     ks/vs [L, B, Hkv, S] (time-minor, the JAX layout); ks/vs are None for a
-    bf16/f32 cache."""
+    bf16/f32 cache. Under sequence parallelism a rank holds the slots
+    `offset` .. `offset` + S - 1 of a cache of `span` slots (`max_seq`);
+    else offset is 0 and span S."""
 
     k: torch.Tensor
     v: torch.Tensor
     ks: torch.Tensor | None = None
     vs: torch.Tensor | None = None
+    offset: int = 0
+    span: int = 0
 
     @classmethod
     def zeros(cls, cfg: LlamaConfig, batch: int, max_seq: int,
@@ -356,7 +369,8 @@ class KVCache:
 
     @property
     def max_seq(self) -> int:
-        return self.k.shape[2]
+        """The cache's slots (all ranks' under sequence parallelism)."""
+        return self.span or self.k.shape[2]
 
     @property
     def quantized(self) -> bool:
@@ -370,7 +384,7 @@ class KVCache:
     def lane(self, slot: int) -> "KVCache":
         """Batch slot `slot` as a batch-1 cache of views (writes go to self)."""
         view = lambda t: None if t is None else t[:, slot:slot + 1]  # noqa: E731
-        return KVCache(view(self.k), view(self.v), view(self.ks), view(self.vs))
+        return KVCache(view(self.k), view(self.v), view(self.ks), view(self.vs), self.offset, self.span)
 
 
 def dequant_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -518,7 +532,8 @@ def _repack_q8v3(layers: dict, device) -> dict:
 
 
 def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
-                device="cpu", quantized: bool = True, tp: int = 1, tp_rank: int = 0) -> dict:
+                device="cpu", quantized: bool = True, tp: int = 1, tp_rank: int = 0,
+                expert_parallel: bool = False) -> dict:
     """GGUF → params dict on `device`. With `quantized` (the engine's
     ``param_dtype="auto"``) a matmul weight keeps a quantized container
     where the JAX `quantizable` holds (its kind has one, K % 64 == 0,
@@ -554,49 +569,62 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
     With `tp` > 1 the result is rank `tp_rank`'s shard (parallel.sharding):
     a column-split weight keeps its rank's GGUF rows, taken before packing
     (a fused qkv or [gate; up] its rows of each section; wq/wk permuted to
-    NEOX on the rank's heads), a row-split one (wo, w_down) its K-range of
-    the packed container (K/tp % 64 == 0, else ValueError), the head its
-    vocabulary rows; whether a weight stays quantized is decided on the
-    whole tensor, as the JAX loader decides before it shards. MoE models
-    and NFAI_Q8V3 raise NotImplementedError under tp > 1.
+    NEOX on the rank's heads; an expert stack its rows of every expert), a
+    row-split one (wo, w_down, w_down_exps) its K-range of the packed
+    container (K/tp % 64 == 0, else ValueError), the head its vocabulary
+    rows; with `expert_parallel` the expert stacks keep the rank's E/tp
+    experts whole instead (`parallel.sharding.expert_range`; the params
+    then carry ``expert_parallel``). Whether a weight stays quantized is
+    decided on the whole tensor, as the JAX loader decides before it
+    shards. NFAI_Q8V3 raises NotImplementedError under tp > 1.
     """
-    if tp > 1 and (cfg.n_experts or _q8v3_on()):
-        what = "MoE models" if cfg.n_experts else "NFAI_Q8V3"
-        raise NotImplementedError(f"{what} under tensor parallelism: {UNPORTED}")
+    if tp > 1 and _q8v3_on():
+        raise NotImplementedError(f"NFAI_Q8V3 under tensor parallelism: {UNPORTED}")
+    if expert_parallel and not cfg.n_experts:
+        raise ValueError("expert_parallel needs an MoE model")
     hd = cfg.head_dim
     # the fused weights' sections: a rank keeps its rows of each
     sections = {"wqkv": (cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.n_kv_heads * hd),
                 "w_gate_up": (cfg.ffn_dim, cfg.ffn_dim)}
 
+    def split(key: str) -> str | None:
+        return split_of(key, expert_parallel) if tp > 1 and key else None
+
     def rows_of(key: str, n: int):
-        """The GGUF rows rank `tp_rank` keeps of a column-split weight (None:
-        all of them)."""
-        if tp == 1 or split_of(key) != COL:
+        """The GGUF rows rank `tp_rank` keeps of a column-split weight (of
+        each expert of a stack; None: all of them)."""
+        if split(key) != COL:
             return None
         return col_rows(n, tp, tp_rank, sections.get(key))
 
     def mat(name: str, key: str = ""):
         desc = g.tensors[name]
         *lead, n, k = desc.shape
-        rows = rows_of(key, n)
-        row_split = tp > 1 and split_of(key) == ROW
+        how, rows = split(key), rows_of(key, n)
+        experts = expert_range(lead[0], tp, tp_rank) if how == EXPERT else None
         if not (quantized and desc.ggml_type in SUPPORTED_QUANT_TYPES
                 and k % 64 == 0 and n % 128 == 0):  # the JAX `quantizable`, on the whole tensor
             w = torch.from_numpy(g.tensor_f32(name))
-            w = (w if rows is None else w[torch.from_numpy(rows)]).to(dtype)
-            return slice_k(w, *row_range(k, tp, tp_rank, False)) if row_split else w
+            if experts is not None:
+                w = w[experts[0]:experts[1]]
+            w = (w if rows is None else w[..., torch.from_numpy(rows), :]).to(dtype)
+            return slice_k(w, *row_range(k, tp, tp_rank, False)) if how == ROW else w
         e = int(np.prod(lead, dtype=np.int64))
-        raw = g.tensor_bytes(name)
-        if rows is not None:  # whole GGUF rows of a 2-D weight, before packing
-            raw = raw.reshape(n, tensor_nbytes(k, desc.ggml_type))[rows]
-            n = rows.size
         # an expert stack [E, N, K] is E*N rows of K (experts contiguous)
+        raw = g.tensor_bytes(name).reshape(e, n, tensor_nbytes(k, desc.ggml_type))
+        if experts is not None:  # the rank's experts whole
+            raw = raw[experts[0]:experts[1]]
+            lead, e = [experts[1] - experts[0]], experts[1] - experts[0]
+        if rows is not None:  # whole GGUF rows (of every expert), before packing
+            if lead:
+                expert_cols(n, tp)
+            raw, n = raw[:, rows], rows.size
         w = pack_gguf_tensor(raw, desc.ggml_type, (e * n, k))
-        if row_split:  # the rank's K-range of the packed container
-            return slice_k(w, *row_range(k, tp, tp_rank, True))
-        if not lead:
-            return w
-        return w._map(lambda t: t.reshape(*lead, n, *t.shape[1:]), n=n)
+        if lead:
+            w = w._map(lambda t: t.reshape(*lead, n, *t.shape[1:]), n=n)
+        if how == ROW:  # the rank's K-range of the packed container
+            w = slice_k(w, *row_range(k, tp, tp_rank, True))
+        return w
 
     def vec(name: str, key: str = "") -> torch.Tensor:
         v = torch.from_numpy(np.ascontiguousarray(g.tensor_f32(name), np.float32))
@@ -646,8 +674,11 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
     layers = _stack_layers(per_layer)
     if _q8v3_on():
         layers = _repack_q8v3(layers, device)
-    return _params(embed, layers, vec("output_norm.weight"), lm_head,
-                   torch.from_numpy(inv_freq), inv_freq_local, dtype, device)
+    params = _params(embed, layers, vec("output_norm.weight"), lm_head,
+                     torch.from_numpy(inv_freq), inv_freq_local, dtype, device)
+    if expert_parallel and tp > 1:
+        params["expert_parallel"] = True
+    return params
 
 
 def params_from_jax(np_params: dict, cfg: LlamaConfig, dtype=torch.float32,
@@ -772,13 +803,17 @@ def _finish_layer(params: dict, cfg: LlamaConfig, h: torch.Tensor, attn: torch.T
     and its residual add, each output RMS-normed first where the model has
     post norms; h stays in its dtype. Under tensor parallelism wo's and the
     FFN's outputs are partial sums, added over the tp group before the post
-    norms (which take the full sums), as the JAX psums are placed."""
+    norms (which take the full sums), as the JAX psums are placed; a MoE
+    FFN's partial is its f32 weighted sum (split over experts or over their
+    ffn columns), rounded to h's dtype after the sum as the JAX
+    `moe_ffn_ep` rounds it."""
     lp = params["layers"]
     out = _tp_sum(params, linear_layered(attn, lp["wo"], layer))
     if cfg.post_norms:
         out = rms_norm(out, lp["post_attn_norm"][layer], cfg.rms_eps)
     h = (h + out).to(h.dtype)
-    out = _tp_sum(params, _mlp(params, cfg, rms_norm(h, lp["ffn_norm"][layer], cfg.rms_eps), layer))
+    # a MoE FFN under tp hands back its f32 partial: summed in f32, then rounded
+    out = _tp_sum(params, _mlp(params, cfg, rms_norm(h, lp["ffn_norm"][layer], cfg.rms_eps), layer)).to(h.dtype)
     if cfg.post_norms:
         out = rms_norm(out, lp["post_ffw_norm"][layer], cfg.rms_eps)
     return (h + out).to(h.dtype)
@@ -859,66 +894,92 @@ def moe_group_layout(flat_expert: torch.Tensor, n_rows: int, e: int, tm: int):
     return order, dst, g.to(torch.int32), block_rows, m_pad
 
 
-def moe_ffn(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torch.Tensor:
-    """qwen3moe's FFN of layer `layer` for x [..., H] (the JAX
-    `_moe_ffn_grouped_q`): route, lay the rows out group-aligned in bf16,
-    gate / up / down through `qmatmul_grouped` (K8 / K9), silu(gate) * up
-    rounded to bf16, then each row weighted and summed back to its token in
-    f32; result in x's dtype. Dense expert stacks take `_moe_ffn_dense`."""
-    lp = params["layers"]
-    dense = [isinstance(lp[k], torch.Tensor) for k in ("w_gate_exps", "w_up_exps", "w_down_exps")]
-    if any(dense):
-        if not all(dense):
-            raise NotImplementedError("expert stacks mixing dense and quantized kinds")
-        return _moe_ffn_dense(params, cfg, x, layer)
-    lead, hdim = x.shape[:-1], x.shape[-1]
-    xf = x.reshape(-1, hdim)
-    n, e, used = xf.shape[0], cfg.n_experts, cfg.n_experts_used
-    top_vals, top_idx = moe_route(xf, lp["router"][layer], used, cfg.norm_topk_prob)
+def expert_layer(w, layer: int):
+    """Layer `layer`'s [E, N, ...] expert stack: a container's layer, a
+    LayerList's item or a dense stack's [E, N, K] slice."""
+    return w[layer] if isinstance(w, torch.Tensor) else w.layer(layer)
+
+
+def moe_grouped(xf: torch.Tensor, top_vals: torch.Tensor, top_idx: torch.Tensor, wg, wu, wd,
+                n_experts: int) -> torch.Tensor:
+    """The grouped route of the MoE FFN (the JAX `_moe_ffn_grouped_q`) for
+    tokens xf [N, H] routed to experts top_idx [N, used] with weights
+    top_vals: lay the rows out group-aligned in bf16, gate / up / down
+    through `qmatmul_grouped` (K8 / K9) on the [E, N, ...] stacks wg, wu,
+    wd, silu(gate) * up rounded to bf16, then each row weighted and summed
+    back to its token. Returns the f32 sums [N, H]."""
+    n, hdim = xf.shape
+    used = top_idx.shape[1]
     rows = n * used
     tm = group_tm(rows)
-    order, dst, block_group, block_rows, m_pad = moe_group_layout(top_idx.reshape(-1), rows, e, tm)
+    order, dst, block_group, block_rows, m_pad = moe_group_layout(top_idx.reshape(-1), rows, n_experts, tm)
     token_of = order // used
-    x_pad = torch.zeros(m_pad, hdim, dtype=torch.bfloat16, device=x.device)
+    x_pad = torch.zeros(m_pad, hdim, dtype=torch.bfloat16, device=xf.device)
     x_pad[dst] = xf[token_of].to(torch.bfloat16)
-    gate, up = (qmatmul_grouped(x_pad, lp[k].layer(layer), block_group, tm, block_rows)
-                for k in ("w_gate_exps", "w_up_exps"))
+    gate, up = (qmatmul_grouped(x_pad, w, block_group, tm, block_rows) for w in (wg, wu))
     inner = (nnf.silu(gate.float()) * up.float()).to(torch.bfloat16)
-    down = qmatmul_grouped(inner, lp["w_down_exps"].layer(layer), block_group, tm, block_rows)
+    down = qmatmul_grouped(inner, wd, block_group, tm, block_rows)
     dsel = down[dst].float() * top_vals.reshape(-1)[order][:, None]
-    out = torch.zeros(n, hdim, dtype=torch.float32, device=x.device).index_add_(0, token_of, dsel)
-    return out.reshape(*lead, hdim).to(x.dtype)
+    return torch.zeros(n, hdim, dtype=torch.float32, device=xf.device).index_add_(0, token_of, dsel)
 
 
-def _moe_ffn_dense(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torch.Tensor:
-    """The MoE FFN over dense expert stacks [L, E, N, K] (the JAX
-    `_moe_ffn_grouped`, XLA's `ragged_dot` there): route, sort the (token,
-    slot) rows by expert (stable), round them to the weights' dtype, one
-    f32 product per hit expert for gate, up and down, act(gate) * up
-    rounded to the weights' dtype, each row weighted and summed back to its
-    token in f32. The expert counts are read back to the host once a layer."""
+def moe_ffn(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torch.Tensor:
+    """qwen3moe's FFN of layer `layer` for x [..., H] (the JAX `_moe_ffn`):
+    route, then `moe_grouped` (K8 / K9) on quantized stacks or
+    `_moe_ffn_dense` on dense ones. On one device the result is in x's
+    dtype. Under tensor parallelism it is the rank's f32 partial, which
+    `_finish_layer` sums over the tp group: with the ffn split every expert
+    gives its share of the ffn columns; under expert parallelism
+    (``params["expert_parallel"]``) the rank's E/tp experts run
+    `parallel.expert_parallel.moe_ffn_ep`."""
     lp = params["layers"]
+    ws = [expert_layer(lp[k], layer) for k in ("w_gate_exps", "w_up_exps", "w_down_exps")]
+    dense = [isinstance(w, torch.Tensor) for w in ws]
+    if any(dense) and not all(dense):
+        raise NotImplementedError("expert stacks mixing dense and quantized kinds")
     lead, hdim = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, hdim)
-    used = cfg.n_experts_used
-    top_vals, top_idx = moe_route(xf, lp["router"][layer], used, cfg.norm_topk_prob)
+    comm = params.get("comm")
+    if params.get("expert_parallel"):
+        from ..parallel.expert_parallel import moe_ffn_ep
+
+        out = moe_ffn_ep(xf, lp["router"][layer], *ws, cfg, comm.rank, comm.size)
+    else:
+        top_vals, top_idx = moe_route(xf, lp["router"][layer], cfg.n_experts_used, cfg.norm_topk_prob)
+        if dense[0]:
+            out = _moe_ffn_dense(xf, top_vals, top_idx, *ws, cfg.n_experts, cfg.activation)
+        else:
+            out = moe_grouped(xf, top_vals, top_idx, *ws, cfg.n_experts)
+    out = out.reshape(*lead, hdim)
+    return out if comm is not None else out.to(x.dtype)
+
+
+def _moe_ffn_dense(xf: torch.Tensor, top_vals: torch.Tensor, top_idx: torch.Tensor, wg, wu, wd,
+                   n_experts: int, act: str) -> torch.Tensor:
+    """The MoE FFN over dense expert stacks [E, N, K] (the JAX
+    `_moe_ffn_grouped`, XLA's `ragged_dot` there): sort the (token, slot)
+    rows by expert (stable), round them to the weights' dtype, one f32
+    product per hit expert for gate, up and down, act(gate) * up rounded to
+    the weights' dtype, each row weighted and summed back to its token.
+    Returns the f32 sums [N, H]. The expert counts are read back to the
+    host once a layer."""
+    used = top_idx.shape[1]
     flat = top_idx.reshape(-1)
     order = torch.argsort(flat, stable=True)
     token_of = order // used
-    wg, wu, wd = (lp[k][layer] for k in ("w_gate_exps", "w_up_exps", "w_down_exps"))
     xs = xf[token_of].to(wg.dtype)
-    down = torch.empty(xs.shape[0], wd.shape[1], dtype=torch.float32, device=x.device)
+    down = torch.empty(xs.shape[0], wd.shape[1], dtype=torch.float32, device=xf.device)
     start = 0
-    for e, rows in enumerate(torch.bincount(flat, minlength=cfg.n_experts).tolist()):
+    for e, rows in enumerate(torch.bincount(flat, minlength=n_experts).tolist()):
         if rows:
             xe = xs[start:start + rows].float()
             gate, up = xe @ wg[e].float().T, xe @ wu[e].float().T
-            inner = (activation(gate, cfg.activation) * up).to(wg.dtype)
+            inner = (activation(gate, act) * up).to(wg.dtype)
             down[start:start + rows] = inner.float() @ wd[e].float().T
             start += rows
     down = down * top_vals.reshape(-1)[order][:, None]
-    out = torch.zeros(xf.shape[0], hdim, dtype=torch.float32, device=x.device)
-    return out.index_add_(0, token_of, down).reshape(*lead, hdim).to(x.dtype)
+    out = torch.zeros(xf.shape[0], xf.shape[1], dtype=torch.float32, device=xf.device)
+    return out.index_add_(0, token_of, down)
 
 
 def _mlp(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torch.Tensor:
@@ -944,20 +1005,45 @@ def _mlp(params: dict, cfg: LlamaConfig, x: torch.Tensor, layer: int) -> torch.T
 
 
 def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
-            positions: torch.Tensor, cache, page_tables: torch.Tensor | None = None):
+            positions: torch.Tensor, cache, page_tables: torch.Tensor | None = None,
+            h0: torch.Tensor | None = None, final_norm: bool = True):
     """Run the stack over tokens/positions [B, T]; returns (hidden [B, T, H]
     after the final norm, cache updated in place). On the dense `KVCache`,
     T == 1 takes the decode path (K2 + the store), T > 1 the prefill path
     (the store + K4). With `page_tables` [B, max_pages] int32 the cache is a
     `PagedKVCache` pool (`_paged_forward`). An int8 cache takes the int8
-    entry points (module doc)."""
+    entry points (module doc). Under sequence parallelism (``params["sp"]``,
+    the sp group's Comm) the dense cache is this rank's S slice
+    (`_sp_forward`).
+
+    `h0` / `final_norm` are the pipeline stage seams (the JAX `forward`'s;
+    parallel.pipeline_parallel): a stage after the first receives the
+    previous stage's hidden state [B, T, H] as `h0` (no embedding), a stage
+    before the last passes final_norm=False (the final RMS norm belongs to
+    the last stage)."""
     if page_tables is not None:
-        return _paged_forward(params, cfg, tokens, positions, cache, page_tables)
-    if tokens.shape[1] == 1:
-        return _decode_forward(params, cfg, tokens, positions, cache)
+        h, cache = _paged_forward(params, cfg, tokens, positions, cache, page_tables, h0)
+    elif params.get("sp") is not None:
+        h, cache = _sp_forward(params, cfg, tokens, positions, cache, h0)
+    elif tokens.shape[1] == 1:
+        h, cache = _decode_forward(params, cfg, tokens, positions, cache, h0)
+    else:
+        h, cache = _prefill_forward(params, cfg, tokens, positions, cache, h0)
+    return (rms_norm(h, params["final_norm"], cfg.rms_eps) if final_norm else h), cache
+
+
+def _input(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, h0) -> torch.Tensor:
+    """The stack's input: the token rows, or a pipeline stage's `h0`."""
+    return _embed(params, cfg, tokens) if h0 is None else h0.to(params["act_dtype"])
+
+
+def _prefill_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
+                     positions: torch.Tensor, cache: KVCache, h0=None):
+    """A prefill chunk (T > 1) on the dense cache: per layer the store
+    writes the chunk's K and V, then K4 attends over the cache."""
     b, t = tokens.shape
     lp = params["layers"]
-    h = _embed(params, cfg, tokens)
+    h = _input(params, cfg, tokens, h0)
     act = h.dtype
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     rope, windows = _rope_tables(params, cfg, positions), cfg.layer_windows()
@@ -976,11 +1062,11 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         attn = _prefill_attention(q.contiguous(), cache.k[layer], cache.v[layer], starts,
                                   cfg.n_kv_heads, _attn_kw(cfg, windows, layer), scales)
         h = _finish_layer(params, cfg, h, attn.reshape(b, t, qd), layer)
-    return rms_norm(h, params["final_norm"], cfg.rms_eps), cache
+    return h, cache
 
 
 def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
-                    positions: torch.Tensor, cache: KVCache):
+                    positions: torch.Tensor, cache: KVCache, h0=None):
     """One token per row: K2 attends over cache[:, :starts] plus the new row;
     after the layer loop one store launch writes every layer's new K and V
     rows. An int8 cache is attended through its scales with the new row at
@@ -988,7 +1074,7 @@ def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     writes their codes and scales."""
     b = tokens.shape[0]
     lp = params["layers"]
-    h = _embed(params, cfg, tokens)
+    h = _input(params, cfg, tokens, h0)
     act = h.dtype
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     rope, windows = _rope_tables(params, cfg, positions), cfg.layer_windows()
@@ -1012,7 +1098,43 @@ def _decode_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         )
         h = _finish_layer(params, cfg, h, attn.reshape(b, 1, qd), layer)
     kv_store(cache.k, cache.v, k_rows, v_rows, starts, cfg.n_kv_heads, cache.ks, cache.vs)
-    return rms_norm(h, params["final_norm"], cfg.rms_eps), cache
+    return h, cache
+
+
+def _sp_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
+                positions: torch.Tensor, cache: KVCache, h0=None):
+    """Prefill chunks and decode steps under sequence parallelism: `cache`
+    is this rank's slice [L, B, S/sp, KVD] of the dense cache, from global
+    slot ``cache.offset``. Per layer the store writes the new K and V rows
+    at positions - offset (it drops the rows outside the slice, so each
+    rank keeps only its own), then `parallel.seq_parallel.sp_attention`
+    attends over the slice (`local_flash`: softcap, window and the int8
+    scales included) and merges the partials over the sp group. The JAX
+    generic scan's order, store first and then attend
+    (nfai_tpu/models/llama.py:761-775), which JAX takes under SP: an int8
+    cache reads the new token back quantized, unlike K2's dense decode."""
+    from ..parallel.seq_parallel import sp_attention
+
+    b, t = tokens.shape
+    lp, sp = params["layers"], params["sp"]
+    h = _input(params, cfg, tokens, h0)
+    act = h.dtype
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rope, windows = _rope_tables(params, cfg, positions), cfg.layer_windows()
+    local = (positions[:, 0] - cache.offset).to(torch.int32).contiguous()  # the store's starts in the slice
+    for layer in range(cfg.n_layers):
+        x = rms_norm(h, lp["attn_norm"][layer], cfg.rms_eps)
+        q, k, v = _qkv(lp, x, layer, hq * hd, hkv * hd)
+        q, k = _norm_rope(lp, cfg, layer, q.reshape(b, t, hq, hd), k.reshape(b, t, hkv, hd), *rope[layer])
+        scales = {}
+        if cache.quantized:
+            scales = dict(k_scales=cache.ks[layer], v_scales=cache.vs[layer])
+        kv_store(cache.k[layer], cache.v[layer], k.reshape(b, t, hkv * hd), v.reshape(b, t, hkv * hd),
+                 local, hkv, **scales)
+        attn = sp_attention(q.to(act), cache.k[layer], cache.v[layer], positions, cache.offset, sp,
+                            **_attn_kw(cfg, windows, layer), **scales).to(act)
+        h = _finish_layer(params, cfg, h, attn.reshape(b, t, hq * hd), layer)
+    return h, cache
 
 
 def _prefill_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, offsets: torch.Tensor,
@@ -1068,13 +1190,15 @@ def _paged_attention(q: torch.Tensor, pool: PagedKVCache, layer: int,
 
 
 def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
-                   positions: torch.Tensor, pool: PagedKVCache, tables: torch.Tensor):
+                   positions: torch.Tensor, pool: PagedKVCache, tables: torch.Tensor, h0=None):
     """`forward` over the page pool: per layer, one store launch writes the
     roped K and V rows (an int8 pool: their codes and scales) through the
-    tables, then `_paged_attention` runs."""
+    tables, then `_paged_attention` runs. The pool's pages are whole on
+    every rank of an sp group (the JAX scheduler's layout): no sequence
+    parallelism here."""
     b, t = tokens.shape
     lp = params["layers"]
-    h = _embed(params, cfg, tokens)
+    h = _input(params, cfg, tokens, h0)
     act = h.dtype
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rope, windows = _rope_tables(params, cfg, positions), cfg.layer_windows()
@@ -1091,7 +1215,7 @@ def _paged_forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         kv_store_paged(pool.k[layer], pool.v[layer], k, v.reshape(b, t, hkv, hd), tables, slots, **scales)
         attn = _paged_attention(q, pool, layer, tables, first, _attn_kw(cfg, windows, layer))
         h = _finish_layer(params, cfg, h, attn.reshape(b, t, hq * hd), layer)
-    return rms_norm(h, params["final_norm"], cfg.rms_eps), pool
+    return h, pool
 
 
 def logits_for(params: dict, hidden: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:

@@ -45,21 +45,33 @@ engine runs plain decoding on a misspelt one).
 `EngineConfig(mesh_shape={"dp": d, "tp": t})` runs the engine as one rank
 of a `torch.distributed` world (parallel/: `init_distributed` first, one
 process a rank, rank r on cuda:(r % device count) unless the caller asks
-for the CPU): `make_mesh` then `validate_tp` (the JAX order), then the rank
-loads only its shard of every column- and row-parallel weight
-(`load_params(tp=, tp_rank=)`), holds only its kv-heads in the cache and the
-BatchEngine's pool, and runs the forward on its local config
-(`model_cfg`; `global_cfg` is the whole model's) with the engine's
+for the CPU): `make_mesh` then `validate_tp` and the checks of the options
+(the JAX order), then the rank loads only its shard of every column- and
+row-parallel weight (`load_params(tp=, tp_rank=)`), holds only its kv-heads
+in the cache and the BatchEngine's pool, and runs the forward on its local
+config (`model_cfg`; `global_cfg` is the whole model's) with the engine's
 `parallel.comm.Comm` (two f32 all-reduces a layer, one gather of the
 vocab-split logits). dp replicates the model: every dp group serves the
 whole batch. Every rank runs this host code on the same inputs; the
 logits are gathered to every rank, so with one shared seed (a request
-without one takes rank 0's) all ranks sample the same tokens. The group
-lives on the engine and its params, so engines in one process keep theirs.
-Not ported yet, and raising NotImplementedError (ROADMAP queue 1, item
-2(b)): `seq_parallel` and `expert_parallel` (with or without a mesh), other
-mesh axes ("sp"), and under tp > 1 MoE models and NFAI_Q8V3; the draft model
-(speculative="draft") under any mesh.
+without one takes rank 0's) all ranks sample the same tokens. The groups
+live on the engine and its params, so engines in one process keep theirs.
+
+A MoE model under tp splits its expert stacks over their ffn columns (gate
+and up by columns, down by rows: K8/K9 at the rank's widths, one f32 sum
+of the FFN a layer); `expert_parallel=True` (n_experts divisible by tp)
+splits them over their experts instead (parallel.expert_parallel, one f32
+sum of the FFN a layer). `seq_parallel=True` with an "sp" axis (sp > 1,
+max_seq_len divisible by sp) gives each rank of an sp group its slice of
+the dense cache's S axis (`new_cache`: slots sp_rank * S/sp ..) and runs
+attention over the slice with the partials merged over the group
+(parallel.seq_parallel; ``sp_comm``); a session saved under it gathers
+the slices, and resumes on one device. A mesh with an "sp" axis and
+seq_parallel off replicates over sp. Either flag without a mesh raises
+ValueError (the JAX engine ignores it). Not ported yet, and raising
+NotImplementedError (ROADMAP queue 1, item 2(c)): NFAI_Q8V3 under tp > 1,
+the draft model (speculative="draft") under any mesh, and mesh axes other
+than dp, tp and sp.
 """
 from __future__ import annotations
 
@@ -82,7 +94,7 @@ from ..models.llama import draft_spec_rounds, spec_decode_rounds
 from ..ops.sampling import apply_logit_bias, logprob_entry, sample_logits, token_logprobs
 from ..parallel import Comm, local_config, make_mesh, validate_tp
 from ..parallel.distributed import local_device_index
-from ..parallel.mesh import UNPORTED
+from ..parallel.mesh import SP_AXIS, UNPORTED
 from ..tokenizer import (
     ChatTemplate,
     Message,
@@ -130,16 +142,26 @@ def _check_config(config: EngineConfig) -> None:
         )
 
 
-def _check_parallel(config: EngineConfig, mesh) -> None:
-    """What a mesh does not run yet (after `make_mesh` and `validate_tp`,
-    the JAX order): sequence and expert parallelism with or without a mesh,
-    and the draft model under one. MoE models and NFAI_Q8V3 under tp > 1
-    raise in `load_params`."""
-    flags = [k for k in ("seq_parallel", "expert_parallel") if getattr(config, k)]
-    if flags:
-        where = "" if mesh is not None else " (and no mesh_shape is set)"
-        raise NotImplementedError(f"EngineConfig {flags}{where}: {UNPORTED}")
-    if mesh is not None and config.speculative == "draft":
+def _check_parallel(config: EngineConfig, mesh, cfg) -> None:
+    """The JAX engine's checks of seq_parallel and expert_parallel, in its
+    order (after `make_mesh` and `validate_tp`), with the messages the right
+    way round; either flag without a mesh, and the draft model under one,
+    raise (the JAX engine ignores the first and runs the second)."""
+    if mesh is None:
+        if flags := [k for k in ("seq_parallel", "expert_parallel") if getattr(config, k)]:
+            raise ValueError(f"EngineConfig {flags} needs a mesh (no mesh_shape is set)")
+        return
+    if config.seq_parallel:
+        if mesh.sp <= 1:
+            raise ValueError("seq_parallel needs mesh_shape={'sp': n>1}")
+        if config.max_seq_len % mesh.sp:
+            raise ValueError(f"max_seq_len={config.max_seq_len} must be divisible by the sp axis ({mesh.sp})")
+    if config.expert_parallel:
+        if not cfg.n_experts:
+            raise ValueError("expert_parallel needs an MoE model")
+        if cfg.n_experts % mesh.tp:
+            raise ValueError(f"n_experts={cfg.n_experts} must be divisible by tp={mesh.tp} for expert_parallel")
+    if config.speculative == "draft":
         raise NotImplementedError(f"speculative='draft' under a mesh: {UNPORTED}")
 
 
@@ -191,24 +213,29 @@ class InferenceEngine:
         self.family = resolve(g)
         self.global_cfg = self.family.config_from_gguf(g)
         self.model_name = str(g.metadata.get(Keys.NAME, g.architecture))
-        self.mesh = self.comm = None
+        self.mesh = self.comm = self.sp_comm = None
         tp, tp_rank = 1, 0
         if self.config.mesh_shape:
             self.mesh = make_mesh(self.config.mesh_shape)
             validate_tp(self.global_cfg, self.mesh.tp)
-        _check_parallel(self.config, self.mesh)
+        _check_parallel(self.config, self.mesh, self.global_cfg)
+        ep = self.config.expert_parallel
         if self.mesh is not None:
             tp, tp_rank = self.mesh.tp, self.mesh.tp_rank
             if self.mesh.tp_group is not None:
                 self.comm = Comm(self.mesh)
+                if self.config.seq_parallel:
+                    self.sp_comm = Comm(self.mesh, SP_AXIS)
             if self.device.type == "cuda" and torch.device(device).index is None:
                 self.device = torch.device("cuda", local_device_index(self.mesh.rank))
-        self.model_cfg = local_config(self.global_cfg, tp)
+        self.model_cfg = local_config(self.global_cfg, tp, ep)
         self.params = self.family.load_params(g, self.global_cfg, dtype=dtype, device=self.device,
                                               quantized=self.config.param_dtype == "auto",
-                                              tp=tp, tp_rank=tp_rank)
-        if self.comm is not None:
+                                              tp=tp, tp_rank=tp_rank, expert_parallel=ep)
+        if self.comm is not None and tp > 1:
             self.params["comm"] = self.comm
+        if self.sp_comm is not None:
+            self.params["sp"] = self.sp_comm
         self.tokenizer = tokenizer_from_gguf(g.metadata)
         bos = (
             self.tokenizer.id_to_token.get(self.tokenizer.bos_id, "")
@@ -230,10 +257,16 @@ class InferenceEngine:
         """A zeroed cache for `batch` rows (int8 codes and scales under
         kv_dtype="int8"). Its length is max_seq_len rounded up to a multiple
         of 64 (the prefill kernel's key tile); attention masks by position,
-        so the extra slots are never read."""
-        slots = -(-self.max_seq_len // 64) * 64
-        return KVCache.zeros(self.model_cfg, batch, slots, self.cache_dtype, self.device,
-                             quantized=self.kv_quantized)
+        so the extra slots are never read. Under sequence parallelism it is
+        this rank's slice of a cache of max_seq_len rounded up to 64 * sp
+        slots: S/sp slots from sp_rank * S/sp on."""
+        sp = self.sp_comm.size if self.sp_comm is not None else 1
+        slots = -(-self.max_seq_len // (64 * sp)) * 64 * sp
+        cache = KVCache.zeros(self.model_cfg, batch, slots // sp, self.cache_dtype, self.device,
+                              quantized=self.kv_quantized)
+        if sp > 1:
+            cache.offset, cache.span = self.sp_comm.rank * (slots // sp), slots
+        return cache
 
     def prefill(
         self, cache: KVCache, token_ids: Sequence[int], start_pos: int = 0
@@ -724,8 +757,9 @@ class ChatSession:
         [L, 1, Hkv, max_seq_len] f32 on an int8 cache). A bf16 cache is
         written as the raw 2-byte records (`|V2`) numpy makes of the JAX
         package's bf16 arrays. Under a mesh every rank calls it: the ranks'
-        kv-heads are gathered and rank 0 writes the whole cache, which a
-        single-device engine or a mesh of any tp loads."""
+        kv-heads (and under sequence parallelism their S slices) are
+        gathered and rank 0 writes the whole cache, which a single-device
+        engine or a mesh of any tp or sp loads."""
         meta = {
             "messages": [m.asdict() for m in self.messages],
             "cached_ids": list(self._cached_ids),
@@ -740,6 +774,9 @@ class ChatSession:
             if comm is not None:  # a rank's kv-heads: the whole cache, joined in rank order
                 c = KVCache(comm.gather_heads(c.k, -1), comm.gather_heads(c.v, -1),
                             *(None if t is None else comm.gather_heads(t, 2) for t in (c.ks, c.vs)))
+            if (sp := self.engine.sp_comm) is not None:  # then the S slices, in sp-rank order
+                c = KVCache(sp.gather(c.k, 2, "gather_slots"), sp.gather(c.v, 2, "gather_slots"),
+                            *(None if t is None else sp.gather(t, 3, "gather_slots") for t in (c.ks, c.vs)))
             arrays["cache_k"], arrays["cache_v"] = _to_numpy(c.k[:, :, :s]), _to_numpy(c.v[:, :, :s])
             if c.quantized:
                 arrays["cache_ks"], arrays["cache_vs"] = _to_numpy(c.ks[..., :s]), _to_numpy(c.vs[..., :s])
@@ -788,7 +825,8 @@ def _from_numpy(a: np.ndarray) -> torch.Tensor:
 def _cache_from_arrays(engine: InferenceEngine, arrays: dict) -> KVCache:
     """A saved batch-1 cache ([L, 1, S, KVD], + [L, 1, Hkv, S] scales) in
     a new engine cache on the engine's device, its S slots first; a rank of
-    a mesh takes its kv-heads' lanes and scales."""
+    a mesh takes its kv-heads' lanes and scales, and under sequence
+    parallelism the saved slots of its S slice."""
     k = arrays["cache_k"]
     if k.ndim != 4:  # the JAX package's pre-merged-lane sessions: [L, Hkv, B, S, D]
         raise ValueError("session cache uses the old per-head KV layout; re-create the session "
@@ -807,9 +845,15 @@ def _cache_from_arrays(engine: InferenceEngine, arrays: dict) -> KVCache:
     s = k.shape[2]
     if k.shape[:2] + k.shape[3:] != cache.k.shape[:2] + cache.k.shape[3:] or s > cache.max_seq:
         raise ValueError(f"session cache shape {k.shape} does not fit the engine's {tuple(cache.k.shape)}")
+    lo, hi = cache.offset, min(s, cache.offset + cache.k.shape[2])  # the saved slots this cache holds
     pairs = [("k", "cache_k"), ("v", "cache_v")] + ([("ks", "cache_ks"), ("vs", "cache_vs")] if quantized else [])
     for attr, key in pairs:
-        dst = getattr(cache, attr)
-        dst = dst[:, :, :s] if attr in ("k", "v") else dst[..., :s]
-        dst.copy_(_from_numpy(arrays[key]))
+        if hi <= lo:
+            break
+        dst, src = getattr(cache, attr), arrays[key]
+        if attr in ("k", "v"):
+            dst, src = dst[:, :, :hi - lo], src[:, :, lo:hi]
+        else:
+            dst, src = dst[..., :hi - lo], src[..., lo:hi]
+        dst.copy_(_from_numpy(src))
     return cache

@@ -54,7 +54,11 @@ all ranks. The other ranks run `follow`, which steps until rank 0's `close`
 broadcasts the end. Rank 0's idle loop steps every 50 ms at least (the
 followers' collectives then never wait past their timeout), and a failed
 step under a mesh fails its requests and stops the loop: no rank carries on
-alone.
+alone. Under an sp mesh the pool's pages stay whole on every sp rank (the
+JAX scheduler shards only the kv-heads over tp), so the paged path runs
+K7 and the paged store unchanged there; the dense cache of `paged=False`
+is each rank's S slice (`InferenceEngine.new_cache`). A MoE model's
+experts split as its engine splits them (over experts or ffn columns).
 """
 from __future__ import annotations
 

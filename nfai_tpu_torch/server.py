@@ -33,8 +33,12 @@ runs the plain PyTorch versions of the kernels.
 With `--mesh` the engine is one rank of a mesh (parallel/; the CLI's
 launch rules: one host spawns its own ranks, NFAI_COORD joins a launch the
 user started). Rank 0 listens on HTTP and runs the BatchEngine's thread;
-the other ranks `follow` it until it closes. `--seq-parallel` and
-`--expert-parallel` are taken and raise NotImplementedError.
+the other ranks `follow` it until it closes. `--seq-parallel` (with an sp
+axis) and `--expert-parallel` (with a tp axis) are the CLI's: the engine's
+`seq_parallel` and `expert_parallel`. The BatchEngine's page pool is whole
+on every sp rank (the JAX scheduler's layout), so a paged server under an
+sp mesh runs its requests on every sp rank alike; the dense cache of
+`BatchEngine(paged=False)` and of `InferenceEngine.generate` is split.
 """
 from __future__ import annotations
 
@@ -420,9 +424,9 @@ def main(argv=None) -> int:
     p.add_argument("--mesh", default="",
                    help="device mesh, e.g. 'tp=2' or 'dp=2,tp=2' (empty = single device)")
     p.add_argument("--seq-parallel", action="store_true",
-                   help="sequence parallelism (not ported yet: raises)")
+                   help="split the KV cache over its S axis on the mesh's sp axis (e.g. --mesh sp=2)")
     p.add_argument("--expert-parallel", action="store_true",
-                   help="expert parallelism (not ported yet: raises)")
+                   help="split a MoE model's experts over the mesh's tp axis (e.g. --mesh tp=2)")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
     mesh = parse_mesh(args.mesh)

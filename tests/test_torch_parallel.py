@@ -13,7 +13,8 @@ in this process (the spawned worlds run in tests/test_torch_tp_engine.py).
   4}, the rank shards of `load_params(tp=, tp_rank=)`, dequantized and
   joined, are bit-equal to `load_params()`'s;
 - the refusals that need no world: sequence and expert parallelism without
-  a mesh, an "sp" axis, a mesh without CUDA unless the CPU is asked for,
+  a mesh, axes other than dp, tp and sp, a mesh without CUDA unless the CPU
+  is asked for,
   NCCL with two ranks on one device (the device count mocked to 1), a
   row split whose K/tp is not a multiple of 64; importing the package makes
   no process group;
@@ -74,9 +75,10 @@ def test_mesh_dims_match_jax(shape, n):
 
 
 def test_other_mesh_axes_raise():
-    for fn in (lambda: mesh_dims({"sp": 2}, 2), lambda: make_mesh({"sp": 1}),
-               lambda: make_mesh({"dp": 1, "tp": 1, "ep": 1})):
-        with pytest.raises(NotImplementedError, match=r"2\(b\)"):
+    """Axes other than dp, tp and sp stay unported (ROADMAP 2(c))."""
+    for fn in (lambda: mesh_dims({"ep": 2}, 2), lambda: make_mesh({"pp": 1}),
+               lambda: make_mesh({"dp": 1, "tp": 1, "sp": 1, "ep": 1})):
+        with pytest.raises(NotImplementedError, match=r"2\(c\)"):
             fn()
 
 
@@ -244,7 +246,7 @@ def test_slice_k_and_col_rows():
 def test_parallel_flags_without_a_mesh_raise(tmp_path, flag):
     """The JAX engine ignores them without a mesh; the port refuses them."""
     path = make_tiny_llama_gguf(tmp_path / "m.gguf", **TINY)
-    with pytest.raises(NotImplementedError, match=r"no mesh_shape.*2\(b\)"):
+    with pytest.raises(ValueError, match=rf"{flag}.*needs a mesh \(no mesh_shape is set\)"):
         InferenceEngine(path, EngineConfig(dtype="float32", **{flag: True}), device="cpu")
 
 

@@ -183,14 +183,23 @@ def server_checks(path, mesh, root) -> dict:
     return out
 
 
+def _same_greedy(path, mesh, **kw) -> str:
+    tp = InferenceEngine(path, EngineConfig(mesh_shape=mesh, dtype="float32", max_seq_len=128, **kw),
+                         device="cpu")
+    one = InferenceEngine(path, EngineConfig(dtype="float32", max_seq_len=128), device="cpu")
+    ids = one.tokenizer.encode(PROMPT)
+    return f"greedy equal {list(tp.generate(ids, GREEDY)) == list(one.generate(ids, GREEDY))}"
+
+
 def refusals(paths, mesh) -> dict:
-    """What a mesh does not run yet raises NotImplementedError."""
+    """What a mesh does not run yet raises NotImplementedError (ROADMAP
+    2(c)); the options ported since (an "sp" axis, seq_parallel's checks,
+    expert_parallel, a MoE model under tp) record what they did."""
     out = {}
 
     def expect(name, fn):
         try:
-            fn()
-            out[name] = "no error"
+            out[name] = f"ok: {fn()}"
         except NotImplementedError as e:
             out[name] = "NotImplementedError: " + str(e)
         except Exception as e:  # noqa: BLE001 - recorded for the test
@@ -198,12 +207,11 @@ def refusals(paths, mesh) -> dict:
 
     llama = paths["llama"]
     cfg = dict(dtype="float32", max_seq_len=128)
-    expect("sp_axis", lambda: make_mesh({"sp": 2}))
+    expect("sp_axis", lambda: (lambda m: f"dp={m.dp} tp={m.tp} sp={m.sp} sp_rank={m.sp_rank}")(make_mesh({"sp": 2})))
     expect("seq_parallel", lambda: InferenceEngine(
         llama, EngineConfig(mesh_shape=mesh, seq_parallel=True, **cfg), device="cpu"))
-    expect("expert_parallel", lambda: InferenceEngine(
-        paths["moe"], EngineConfig(mesh_shape=mesh, expert_parallel=True, **cfg), device="cpu"))
-    expect("moe", lambda: InferenceEngine(paths["moe"], EngineConfig(mesh_shape=mesh, **cfg), device="cpu"))
+    expect("expert_parallel", lambda: _same_greedy(paths["moe"], mesh, expert_parallel=True))
+    expect("moe", lambda: _same_greedy(paths["moe"], mesh))
     expect("draft", lambda: InferenceEngine(
         llama, EngineConfig(mesh_shape=mesh, speculative="draft", draft_gguf=llama, **cfg), device="cpu"))
     os.environ["NFAI_Q8V3"] = "1"
