@@ -199,7 +199,17 @@ Phases (each failure propagates, the exit code is then non-zero):
            served by rank 0 while rank 1 follows; then 2-layer copies of A
            and of Q (Qwen2.5-1.5B's widths: biases, 6 / 1 heads a rank, the
            tied Q6_K head split over the vocabulary on K6, the
-           vocab-parallel embedding) against one device (TOL per row). Each
+           vocab-parallel embedding) against one device (TOL per row);
+           then, in the same world: speculative="draft" on A with its
+           2-layer copy drafting (the draft engine on the target's Mesh,
+           its own Comm; greedy against plain greedy by the near-tie rule),
+           {"dp": 2, "tp": 1} on A's dense BatchEngine (each rank 4 of 8
+           lanes: cache bytes half of one device's, a step's launches, one
+           gather over dp a chunk, the streams against one device's by the
+           near-tie rule), {"tp": 1, "x": 2} on A's 2-layer copy (bit-equal
+           to one device), and 2-layer full-width copies of D (F16, K11) and
+           of E (Q8_0 under NFAI_Q8V3=1 around its load, K6: no split weight
+           takes K12 at E's widths) at tp = 2 against one device. Each
            rank's paths join the launch counts ("parallel ..."). Then, over
            gloo on the one card: a references child (one device: model A
            and its 2-layer copy on SP_PROMPT tokens in SP_SLOTS slots, bf16
@@ -532,7 +542,8 @@ def _kernels_k1(torch, timer, gen) -> dict:
         w = _q4_weight(torch, n, k, gen)
         wd = dequant(w).to(bf)
         verify = (9, 72) if label in ("wqkv", "wo", "lm_head") else ()  # a verify forward's B x 9 rows
-        rows = (1, 8, 16, 24, 32, 64, 256) + verify + (() if label == "lm_head" else (1024,))
+        dp_rank = (4,) if label in ("wqkv", "wo", "lm_head") else ()  # a dp = 2 rank's 4 of 8 lanes
+        rows = (1, 8, 16, 24, 32, 64, 256) + verify + dp_rank + (() if label == "lm_head" else (1024,))
         if label[:2] in ("Q ", "P ", "M "):
             rows = (1, 8, 256) if label.endswith("head") else (1, 8, 1024)
         if label.startswith("tp2 "):  # batch-1 and batch-8 decode
@@ -586,9 +597,10 @@ def phase_kernels(torch, timer, subset=None) -> dict:
 
 # the decode shapes of K2 and K3: (layers, Hq, Hkv, D, B, S) of the 1B (L=16,
 # Hq=32, Hkv=8, D=64), model C (L=8, Hq=32, Hkv=4, D=128, r = 8; K3's row is
-# 512 wide in both) and the 3B (Hq=24, Hkv=8, D=128, r = 3; 2 layers of cache)
+# 512 wide in both) and the 3B (Hq=24, Hkv=8, D=128, r = 3; 2 layers of cache),
+# and a dp = 2 rank's 4 of the 1B's 8 lanes
 DECODE_SHAPES = ((16, 32, 8, 64, 1, 512), (16, 32, 8, 64, 8, 1024), (8, 32, 4, 128, 1, 512),
-                 (8, 32, 4, 128, 8, 1024), (2, 24, 8, 128, 8, 1024))
+                 (8, 32, 4, 128, 8, 1024), (2, 24, 8, 128, 8, 1024), (16, 32, 8, 64, 4, 1024))
 
 
 def _split_of(torch, b, hkv, capacity, d) -> int | None:
@@ -716,8 +728,8 @@ def _kernels_k5(torch, timer, gen) -> dict:
     cases = []
     # (and 9, 72: a verify forward's B x 9 rows at batch 1 and 8)
     # (and model M's, K = H = 4096, F = 14336: Mistral-7B's MLP, rows 1, 8, 256, 1024)
-    # (and a tp = 2 rank's half of A's MLP, F = 4096: rows 1 and 8)
-    for k, f, h, rows in ((2048, 8192, 2048, (1, 2, 8, 9, 16, 17, 32, 64, 72, 256, 1024)),
+    # (and a tp = 2 rank's half of A's MLP, F = 4096: rows 1 and 8; row 4: a dp = 2 rank's decode)
+    for k, f, h, rows in ((2048, 8192, 2048, (1, 2, 8, 9, 16, 17, 32, 64, 72, 256, 1024, 4)),
                           (3072, 8192, 3072, (1, 8, 256)), (4096, 14336, 4096, (1, 8, 256, 1024)),
                           (2048, 4096, 2048, (1, 8))):
         gu, dn = _q4_weight(torch, 2 * f, k, gen), _q4_weight(torch, h, f, gen)
@@ -785,7 +797,14 @@ def _kernels_k6(torch, timer, gen) -> dict:
               # a tp = 2 rank's shards of the Q copy: the vocab-split tied head (N = 75968,
               # not a multiple of 128), its row-split ffn_down (K = 4480), a kv-head's wv
               "tp2 Q Q6_K head": (1536, 75968, 16, 32, False), "tp2 Q Q6_K ffn_down": (4480, 1536, 16, 32, False),
-              "tp2 Q Q6_K wv": (1536, 128, 16, 32, False)}
+              "tp2 Q Q6_K wv": (1536, 128, 16, 32, False),
+              # a tp = 2 rank's shards of model E under NFAI_Q8V3=1 (the JAX loader marks every
+              # split 8-bit weight at these widths, so they keep K6's container): its local
+              # [q|k|v], the row-split wo (K = 2048) and down (K = 7168), its half of gate_up,
+              # the vocab-split head
+              "tp2 E Q8_0 wqkv": (4096, 3072, 32, 127, False), "tp2 E Q8_0 wo": (2048, 4096, 32, 127, False),
+              "tp2 E Q8_0 gate_up": (4096, 14336, 32, 127, False),
+              "tp2 E Q8_0 down": (7168, 4096, 32, 127, False), "tp2 E Q8_0 head": (4096, 64128, 32, 127, False)}
     cases = []
     for label, (k, n, group, qmax, with_mins) in shapes.items():
         w = _q8_weight(torch, n, k, group, qmax, gen, with_mins=with_mins)
@@ -1694,11 +1713,16 @@ def _kernels_k11(torch, timer, gen) -> dict:
 
     bf = torch.bfloat16
     shapes = {"wqkv": (2048, 3072), "wo": (2048, 2048), "gate_up": (2048, 16384),
-              "down": (8192, 2048), "3-1B wq": (1152, 1024), "3-1B gate_up": (1152, 13824)}
+              "down": (8192, 2048), "3-1B wq": (1152, 1024), "3-1B gate_up": (1152, 13824),
+              # a tp = 2 rank's shards of model D (the parallel phase): its local [q|k|v],
+              # the row-split wo (K = 1024) and down (K = 4096), its half of gate_up;
+              # decode rows 1 and 8 and the 8x128 prefill chunk
+              "tp2 D wqkv": (2048, 1536), "tp2 D wo": (1024, 2048), "tp2 D gate_up": (2048, 8192),
+              "tp2 D down": (4096, 2048)}
     cases = []
     for label, (k, n) in shapes.items():
         w = torch.randn(2, n, k, device="cuda", dtype=bf, generator=gen) * 0.03
-        for m in (1, 8, 16, 24, 32, 64, 256, 1024):
+        for m in (1, 8, 1024) if label.startswith("tp2 ") else (1, 8, 16, 24, 32, 64, 256, 1024):
             x = torch.randn(m, k, device="cuda", dtype=bf, generator=gen)
             got = qm.dense_matmul_layered(x, w, 1)
             torch.cuda.synchronize()
@@ -4906,6 +4930,17 @@ PAR_TOKENS = 16  # greedy tokens of the NCCL world-size-1 check
 # each rank's shard, the Q copy's (K1 and K6: its tied Q6_K head, vocab-split)
 ROUTES.update({"parallel nccl A": ROUTES["A"], "parallel tp2 A": ROUTES["A"], "parallel tp2 A2": ROUTES["A"],
                "parallel tp2 A server": ROUTES["server"], "parallel tp2 Q": ROUTES["Q"]})
+# the rest of the mesh: the draft model under tp = 2 (A's route: its verify forward is
+# a prefill), the dense BatchEngine split over dp, an axis no split names (A's
+# 2-layer copy), model D's 2-layer copy at tp = 2 (K11 only) and model E's
+# under NFAI_Q8V3=1 at tp = 2, whose split 8-bit weights all keep K6's
+# container: K6 for every projection and the head, no K12
+ROUTES.update({"parallel tp2 A draft": ROUTES["A"], "parallel dp2 A": ROUTES["A"], "parallel x2 A2": ROUTES["A"],
+               "parallel tp2 D2": ROUTES["D"],
+               "parallel tp2 E2 q8v3": ({"q8_matmul", "decode_attention", "kv_store", "prefill_attention"},
+                                        {"q4_matmul", "fused_mlp", "dense_matmul", "paged_attention",
+                                         "grouped_q4", "grouped_q8", "kv_store_paged"} | INT8 | OLD_WRITES
+                                        | Q8V3_HM)})
 
 
 def _param_bytes(params) -> int:
@@ -4959,7 +4994,8 @@ def _par_nccl(torch, kernels_mod, conf) -> dict:
     """World size 1 under NCCL: model A at full width and depth as a {"tp": 1}
     mesh beside the single-device engine in this process: prefill logits and
     PAR_TOKENS greedy tokens bit-equal. Also writes the single-device
-    references the tp = 2 world is held to (A, and the Q copy)."""
+    references the tp = 2 world is held to (A and its dense BatchEngine, and
+    the 2-layer copies: A2, Q, D2, E2 under NFAI_Q8V3=1 and on K6)."""
     from nfai_tpu_torch.config import EngineConfig, SamplingParams
     from nfai_tpu_torch.runtime.engine import InferenceEngine
 
@@ -4981,14 +5017,26 @@ def _par_nccl(torch, kernels_mod, conf) -> dict:
                backend=tp1.comm.backend, device=str(tp1.device),
                route_spread=errors(chunked, logits, row_dims=1)[1])
     refs = {"A": {"ids": ids, "tokens": ref_toks[:PAR_STEPS], "logits": logits}}
+    # the dp check's reference: A's dense BatchEngine on one device
+    refs["A dense batch"] = out["dense_batch"] = _dense_batch(torch, kernels_mod, one, True)
+    # the logit scale of the greedy streams' tie margin (TOL x it, `_tie_prefix`'s rule)
+    out["dense_batch"]["scale"] = float(one.prefill(one.new_cache(1), _dp_requests(torch)[0][0])[0].abs().max())
     del one, tp1
-    for name in ("A2", "Q"):  # the 2-layer copies
-        e = InferenceEngine(conf[name], EngineConfig(max_seq_len=1024), device="cuda")
+    for name in ("A2", "Q", "D2", "E2"):  # the 2-layer copies (E's under NFAI_Q8V3=1, as its tp = 2 ranks)
+        with _Switches(q8v3=name == "E2"):
+            e = InferenceEngine(conf[name], EngineConfig(max_seq_len=1024), device="cuda")
         e_ids = e.tokenizer.encode(PAR_PROMPT)
         e_toks = list(e.generate(e_ids, SamplingParams(temperature=0.0, max_new_tokens=PAR_STEPS)))
         refs[name] = {"ids": e_ids, "tokens": e_toks, "logits": _teacher_forced(torch, e, e_ids, e_toks),
                       "weight_bytes": _param_bytes(e.params)}
         del e
+        torch.cuda.empty_cache()
+    # E's copy without the switch: one device on K6, the containers a tp = 2 rank keeps under it
+    e = InferenceEngine(conf["E2"], EngineConfig(max_seq_len=1024), device="cuda")
+    refs["E2"]["k6_logits"] = _teacher_forced(torch, e, refs["E2"]["ids"], refs["E2"]["tokens"])
+    out["e2_route_spread"] = errors(refs["E2"]["k6_logits"], refs["E2"]["logits"], row_dims=1)[1]
+    del e
+    torch.cuda.empty_cache()
     torch.save(refs, conf["refs"])
     return out
 
@@ -5072,6 +5120,7 @@ def _par_tp2(torch, kernels_mod, conf, rank) -> dict:
     torch.cuda.synchronize()
     launches["A server"] = _launches(kernels_mod)
     out["collectives"], out["staged"] = dict(comm.counts), dict(comm.staged)
+    out["draft"] = _par_draft(torch, kernels_mod, eng, conf, refs["A"]["ids"], launches)
     del eng, cache
     torch.cuda.empty_cache()
     # A's 2-layer copy, then the Q copy: biases, 6 / 1 heads a rank, the
@@ -5089,7 +5138,175 @@ def _par_tp2(torch, kernels_mod, conf, rank) -> dict:
                          head=[type(e.params["lm_head"]).__name__, e.params["lm_head"].n],
                          embed_tied=e.params["embed"] is None)
         del e
+    out.update(_par_meshes(torch, kernels_mod, conf, rank, refs, launches))
     out["launches"] = launches
+    return out
+
+
+# the rest of the mesh, in the tp = 2 world (a world holds several meshes)
+DP_BATCH = 8  # the dense BatchEngine's lanes: 4 a rank at dp = 2
+DP_NEW = 48  # tokens a request emits
+DP_LENGTHS = (40, 120, 250, 400, 60, 90, 300, 30)  # the prompts' lengths (random ids)
+SPEC_GAMMA = 4  # the draft check's drafts a round
+EXTRA_AXIS = {"tp": 1, "x": 2}  # an axis no split names: the ranks replicate
+
+
+def _dp_requests(torch):
+    """DP_BATCH prompts of random ids and their sampling: even ones greedy,
+    odd ones sampled at 0.8; each with its top-2 logprobs (the greedy
+    streams' margins, read where two streams part)."""
+    from nfai_tpu_torch.config import SamplingParams
+
+    rng = torch.Generator().manual_seed(25)
+    prompts = [torch.randint(0, 1000, (n,), generator=rng).tolist() for n in DP_LENGTHS]
+    sampling = [SamplingParams(temperature=0.0 if i % 2 == 0 else 0.8, max_new_tokens=DP_NEW, logprobs=2)
+                for i in range(DP_BATCH)]
+    return prompts, sampling
+
+
+def _dense_batch(torch, kernels_mod, engine, root) -> dict:
+    """Model A's dense BatchEngine (paged=False, DP_BATCH lanes, chunks of 8,
+    every prefilling slot a chunk a step): rank 0 submits `_dp_requests` and
+    steps, the other ranks of a mesh follow. The first chunk in which every
+    lane decodes runs alone between two syncs: its decode steps, launches
+    and dp collectives. Returns those, the cache bytes and lanes, the wall
+    and, on rank 0, each request's tokens and logprob entries."""
+    from nfai_tpu_torch.runtime.scheduler import BatchEngine, RequestState
+
+    be = BatchEngine(engine, max_batch=DP_BATCH, decode_chunk=8, paged=False, prefill_ticks_per_step=DP_BATCH)
+    dp = be.dp_comm
+    reqs = [be.submit(p, s) for p, s in zip(*_dp_requests(torch))] if root else []
+    measured, t0 = None, time.perf_counter()
+    if dp is not None:
+        dp.reset()
+    while not (root and all(r.state in (RequestState.FINISHED, RequestState.FAILED) for r in reqs)):
+        if be._sync():  # rank 0's close (a follower); no-op on one device
+            break
+        if measured is None and all(sl.request is not None and not sl.prefilling for sl in be.slots):
+            steps = min(be.decode_chunk, min(engine.max_seq_len - sl.pos for sl in be.slots))
+            torch.cuda.synchronize()
+            before = _launches(kernels_mod)
+            counts, staged = (dict(dp.counts), dict(dp.staged)) if dp else ({}, {})
+            be._step()
+            torch.cuda.synchronize()
+            measured = dict(steps=steps, launches={k: n - before[k] for k, n in _launches(kernels_mod).items()},
+                            dp={k: n - counts.get(k, 0) for k, n in dp.counts.items() if n > counts.get(k, 0)}
+                            if dp else {},
+                            staged={k: n - staged.get(k, 0) for k, n in dp.staged.items() if n > staged.get(k, 0)}
+                            if dp else {})
+        else:
+            be._step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if root:
+        be.close()
+    if measured is None:
+        raise AssertionError("the dense BatchEngine never decoded every lane at once")
+    out = dict(cache_bytes=be.cache.nbytes, lanes=[be.lanes.start, len(be.lanes)], measured=measured, wall_s=wall,
+               dp_all=dict(dp.counts) if dp else {})
+    if root:
+        bad = [r.id for r in reqs if r.state != RequestState.FINISHED]
+        if bad:
+            raise AssertionError(f"dense BatchEngine: requests {bad} did not finish")
+        out.update(tokens=[list(r.output_ids) for r in reqs], logprobs=[r.logprob_data for r in reqs],
+                   new_tokens=sum(len(r.output_ids) for r in reqs))
+    return out
+
+
+def _par_draft(torch, kernels_mod, eng, conf, ids, launches) -> dict:
+    """speculative="draft" on the tp = 2 target A (this rank's engine, its
+    weights shared), A's 2-layer copy as the draft: the draft engine takes
+    the target's Mesh and loads its own shard. PAR_TOKENS greedy tokens
+    of `ids` against the target's plain greedy, with its top-two gaps and
+    the tie margin of `_tie_prefix` (TOL x the prefill's largest logit: the verify
+    forward runs the matmuls at gamma + 1 rows, the decode step at one, so
+    a near-tie may round apart), acceptance counted."""
+    from nfai_tpu_torch.config import SamplingParams
+    from nfai_tpu_torch.runtime.engine import GenerationMetrics
+
+    m0 = GenerationMetrics()
+    plain = list(eng.generate(ids, SamplingParams(temperature=0.0, max_new_tokens=PAR_TOKENS, logprobs=2),
+                              metrics=m0))
+    scale = float(eng.prefill(eng.new_cache(1), ids)[0].abs().max())
+    spec = _with_config(eng, speculative="draft", draft_gguf=conf["A2"], spec_tokens=SPEC_GAMMA, spec_rounds=2)
+    de = spec.draft_engine  # loaded here, outside the counted run
+    torch.cuda.synchronize()
+    kernels_mod.reset_launches()
+    de.comm.reset()
+    m = GenerationMetrics()
+    t0 = time.perf_counter()
+    toks = list(spec.generate(ids, SamplingParams(temperature=0.0, max_new_tokens=PAR_TOKENS), metrics=m))
+    torch.cuda.synchronize()
+    launches["A draft"] = _launches(kernels_mod)
+    out = dict(tokens=toks, plain=plain, gaps=_gaps(m0.logprobs), margin=TOL * scale,
+               drafted=m.spec_drafted, accepted=m.spec_accepted,
+               wall_s=time.perf_counter() - t0, mesh_shared=de.mesh is eng.mesh, own_comm=de.comm is not eng.comm,
+               draft_local=[de.model_cfg.n_heads, de.model_cfg.n_kv_heads, de.model_cfg.ffn_dim],
+               draft_collectives=dict(de.comm.counts))
+    del spec, de
+    return out
+
+
+def _par_meshes(torch, kernels_mod, conf, rank, refs, launches) -> dict:
+    """The other meshes of the tp = 2 world: {"dp": 2, "tp": 1} on model A's
+    dense BatchEngine (each rank 4 of its 8 lanes); EXTRA_AXIS on A's 2-layer
+    copy (bit for bit one device's); model D's 2-layer copy (F16: K11) and
+    model E's (Q8_0 under NFAI_Q8V3=1, set around its load alone) at tp = 2:
+    weight bytes, one decode step's launches, the teacher-forced logits
+    against one device's (`_par_nccl`'s references)."""
+    from nfai_tpu_torch.config import EngineConfig, SamplingParams
+    from nfai_tpu_torch.models.llama import decode_step
+    from nfai_tpu_torch.runtime.engine import InferenceEngine
+
+    root, out = rank == 0, {}
+    eng = InferenceEngine(conf["A"], EngineConfig(max_seq_len=1024, mesh_shape={"dp": 2, "tp": 1}), device="cuda")
+    kernels_mod.reset_launches()
+    out["dp2"] = _dense_batch(torch, kernels_mod, eng, root)
+    torch.cuda.synchronize()
+    launches["A dp2"] = _launches(kernels_mod)
+    out["dp2"].update(weight_bytes=_param_bytes(eng.params), dp_rank=eng.mesh.dp_rank, backend=eng.dp_comm.backend)
+    del eng
+    torch.cuda.empty_cache()
+    e = InferenceEngine(conf["A2"], EngineConfig(max_seq_len=1024, mesh_shape=EXTRA_AXIS), device="cuda")
+    ref = refs["A2"]
+    kernels_mod.reset_launches()
+    got = _teacher_forced(torch, e, ref["ids"], ref["tokens"])
+    toks = list(e.generate(ref["ids"], SamplingParams(temperature=0.0, max_new_tokens=PAR_STEPS)))
+    torch.cuda.synchronize()
+    launches["A2 x2"] = _launches(kernels_mod)
+    out["x2"] = dict(dims=e.mesh.dims, groups={a: e.mesh.ranks(a) for a in e.mesh.dims},
+                     logits_bit_equal=bool(torch.equal(got, ref["logits"])), tokens=toks, ref_tokens=ref["tokens"],
+                     params_comm="comm" in e.params)
+    del e
+    mesh = {"tp": 2}
+    for name in ("D2", "E2"):
+        with _Switches(q8v3=name == "E2"):
+            e = InferenceEngine(conf[name], EngineConfig(max_seq_len=1024, mesh_shape=mesh), device="cuda")
+        ref = refs[name]
+        kernels_mod.reset_launches()
+        got = _teacher_forced(torch, e, ref["ids"], ref["tokens"])
+        torch.cuda.synchronize()
+        launches[name] = _launches(kernels_mod)
+        cache = e.prefill(e.new_cache(1), ref["ids"])[1]
+        torch.cuda.synchronize()
+        before = _launches(kernels_mod)
+        e.comm.reset()
+        decode_step(e.params, e.model_cfg, torch.tensor([5], device=e.device),
+                    torch.tensor([len(ref["ids"])], device=e.device), cache)
+        torch.cuda.synchronize()
+        lp = e.params["layers"]
+        out[name] = dict(logit_rel_err=errors(got, ref["logits"], row_dims=1)[1], weight_bytes=_param_bytes(e.params),
+                         k6_rel_err=errors(got, ref["k6_logits"], row_dims=1)[1] if "k6_logits" in ref else None,
+                         single_weight_bytes=ref["weight_bytes"],
+                         step_launches={k: n - before[k] for k, n in _launches(kernels_mod).items()},
+                         step_collectives=dict(e.comm.counts), n_layers=e.model_cfg.n_layers,
+                         kinds={k: type(w).__name__ for k, w in [*lp.items(), ("lm_head", e.params["lm_head"])]
+                                if not k.endswith("norm")},
+                         shapes={k: [w.n, w.k] if hasattr(w, "k") else list(w.shape[-2:])
+                                 for k, w in [*lp.items(), ("lm_head", e.params["lm_head"])]
+                                 if not k.endswith("norm")})
+        del e, cache
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5473,6 +5690,11 @@ class ParallelPhase(threading.Thread):
                     "A2": str(make_llama_1b_gguf(os.path.join(tmp, "llama1b_2l_par.gguf"), kind="q4_k",
                                                  n_layers=2)),
                     "Q": str(make_qwen2_1_5b_gguf(os.path.join(tmp, "qwen2_2l_par.gguf"), n_layers=2)),
+                    # 2-layer full-width copies of D (F16) and E (Q8_0) for tp = 2
+                    "D2": str(make_llama_1b_gguf(os.path.join(tmp, "llama1b_2l_f16_par.gguf"), kind="f16",
+                                                 n_layers=2)),
+                    "E2": str(make_llama_1b_gguf(os.path.join(tmp, "llama8b_2l_par.gguf"), kind="llama_8b_q8_0",
+                                                 n_layers=2)),
                     "C": str(self.c_path or make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe_par.gguf"),
                                                                n_layers=C_LAYERS)),
                     "C2": str(make_qwen3moe_gguf(os.path.join(tmp, "qwen3moe_2l_par.gguf"), n_layers=2)),
@@ -5555,6 +5777,7 @@ def _parallel_checks(worlds: dict, seconds: float) -> tuple[dict, dict]:
         f"says nothing of TP's speed)")
     if a["batch"]["requests"] != 8 or a["batch"]["prefix_hits"] <= 0:
         raise AssertionError(f"tp=2 BatchEngine: {a['batch']}")
+    by_path.update(_mesh_checks(worlds))
     by_path.update(_sp_checks(worlds))
     by_path.update(_moe_checks(worlds))
     log(f"  parallel phase: {seconds:.1f}s beside the parity copies (the GGUFs {worlds['gguf_s']:.1f}s, NCCL "
@@ -5562,6 +5785,96 @@ def _parallel_checks(worlds: dict, seconds: float) -> tuple[dict, dict]:
         f"sp=2 world {worlds['sp2_s']:.1f}s, expert-parallel world {worlds['ep2_s']:.1f}s, ffn-split world "
         f"{worlds['ffn2_s']:.1f}s)")
     return dict(worlds, seconds=seconds), by_path
+
+
+def _mesh_checks(worlds: dict) -> dict:
+    """The other meshes' checks and lines, from the tp = 2 world's ranks and the NCCL
+    child's one-device references: the draft model under tp = 2, the dp
+    split of A's dense BatchEngine, the extra axis, D's and E's copies."""
+    ref, by_path = worlds["nccl"]["dense_batch"], {}
+    ranks = worlds["tp2"]
+    for res in ranks:
+        r = res["rank"]
+        b = f"[backend {res['backend']}, rank {r} on {res['device']}]"
+        d = res["draft"]
+        log(f"  {b} tp=2, speculative='draft' (A's 2-layer copy drafting for A, {SPEC_GAMMA} a round): "
+            f"accepted {d['accepted']} of {d['drafted']} drafts; the draft engine shares the target's Mesh "
+            f"{d['mesh_shared']}, has its own Comm {d['own_comm']}, local heads / kv-heads / ffn "
+            f"{d['draft_local']}, collectives {d['draft_collectives']}; {d['wall_s'] * 1e3:.0f} ms")
+        d["equal_prefix"], d["tie_gap"] = _tie_prefix(f"tp=2 rank {r} speculative='draft' greedy", d["tokens"],
+                                                      d["plain"], d["gaps"], d["margin"])
+        if not (d["mesh_shared"] and d["own_comm"]) or not d["drafted"]:
+            raise AssertionError(f"tp=2 rank {r}: the draft model: {d}")
+        by_path[f"parallel tp2 A draft r{r}"] = _child_route("parallel tp2 A draft", res["launches"]["A draft"],
+                                                             f"tp=2 rank {r} draft")
+        dp = res["dp2"]
+        m, n = dp["measured"], dp["measured"]["steps"]
+        step = {k: v / n for k, v in m["launches"].items() if v}
+        b = f"[backend {dp['backend']}, dp=2, rank {r} (dp rank {dp['dp_rank']})]"
+        log(f"  {b} model A's dense BatchEngine, {DP_BATCH} lanes: the rank's lanes {dp['lanes']}, cache "
+            f"{dp['cache_bytes'] / 2**20:.1f} MiB against {ref['cache_bytes'] / 2**20:.1f} MiB on one device; "
+            f"weights {dp['weight_bytes'] / 2**20:.1f} MiB (replicated); a chunk of {n} decode steps with every "
+            f"lane decoding: launches a step {step} (one device's: "
+            f"{ {k: v / ref['measured']['steps'] for k, v in ref['measured']['launches'].items() if v} }), dp "
+            f"collectives a chunk {m['dp']} (staged through the host {m['staged']}); the whole run "
+            f"{dp['wall_s']:.1f}s, dp collectives {dp['dp_all']}")
+        want = {"q4_matmul": 33, "fused_mlp": 16, "decode_attention": 16, "kv_store": 1}
+        if (2 * dp["cache_bytes"] != ref["cache_bytes"] or dp["lanes"] != [4 * r, 4]
+                or {k: step.get(k) for k in want} != want or m["dp"] != {"gather_lanes": 1}):
+            raise AssertionError(f"dp=2 rank {r}: {dp}")
+        by_path[f"parallel dp2 A r{r}"] = _child_route("parallel dp2 A", res["launches"]["A dp2"],
+                                                       f"dp=2 rank {r} dense BatchEngine")
+        x = res["x2"]
+        log(f"  [rank {r}] mesh {x['dims']} on A's 2-layer copy: groups {x['groups']}, split params "
+            f"{x['params_comm']}; prefill + {PAR_STEPS} teacher-forced steps bit-equal to one device "
+            f"{x['logits_bit_equal']}; greedy tokens equal {x['tokens'] == x['ref_tokens']}")
+        if (not x["logits_bit_equal"] or x["tokens"] != x["ref_tokens"] or x["params_comm"]
+                or x["groups"] != {"dp": [r], "tp": [r], "x": [0, 1]}):
+            raise AssertionError(f"rank {r}: the extra axis: {x}")
+        by_path[f"parallel x2 A2 r{r}"] = _child_route("parallel x2 A2", res["launches"]["A2 x2"],
+                                                       f"{EXTRA_AXIS} rank {r} A2")
+        for name, kernel, what in (("D2", "dense_matmul", "F16, K11"), ("E2", "q8_matmul", "Q8_0, NFAI_Q8V3=1")):
+            c = res[name]
+            nl = c["n_layers"]
+            st = {k: v for k, v in c["step_launches"].items() if v}
+            # E's rank keeps K6's containers, one device under the switch runs K12: other routes, so
+            # PATH_TOL against it, and TOL against one device on K6 (the same containers)
+            err = (f"{c['logit_rel_err']:.3e} (tol {TOL:g})" if name == "D2" else
+                   f"{c['logit_rel_err']:.3e} against one device under the switch (K12; tol {PATH_TOL:g}, one "
+                   f"device's own K12-against-K6 spread {worlds['nccl']['e2_route_spread']:.3e}), "
+                   f"{c['k6_rel_err']:.3e} against one device on K6 (tol {TOL:g})")
+            log(f"  [rank {r}] tp=2, {name} ({what}, 2 layers at full width): weights "
+                f"{c['weight_bytes'] / 2**20:.1f} MiB against {c['single_weight_bytes'] / 2**20:.1f} MiB on one "
+                f"device; containers {c['kinds']} at {c['shapes']}; a decode step's launches {st}, collectives "
+                f"{c['step_collectives']}; prefill + {PAR_STEPS} teacher-forced steps worst per-row rel err {err}")
+            want = 4 * nl + (1 if name == "E2" else 0)  # E's untied 8-bit head on K6; D's tied dense head on matmul
+            ok = c["logit_rel_err"] < TOL if name == "D2" else c["logit_rel_err"] < PATH_TOL and c["k6_rel_err"] < TOL
+            if not ok or c["step_launches"][kernel] != want or c["step_launches"]["q8v3_matmul"] != 0:
+                raise AssertionError(f"tp=2 rank {r}: {name}: {c}")
+            by_path[f"parallel tp2 {name} r{r}"] = _child_route(
+                "parallel tp2 D2" if name == "D2" else "parallel tp2 E2 q8v3", res["launches"][name],
+                f"tp=2 rank {r} {name}")
+    # rank 0's tokens against one device's dense BatchEngine: a greedy stream
+    # may part from it only at a near-tie (TOL x the logit scale, `_tie_prefix`:
+    # a rank's K2 splits 4 rows' keys over other blocks than 8 rows', so its
+    # merge rounds apart); a sampled one takes the same draws
+    dp = ranks[0]["dp2"]
+    parts = []
+    for i, (got, want, entries) in enumerate(zip(dp["tokens"], ref["tokens"], ref["logprobs"])):
+        if i % 2 == 0:
+            parts.append(_tie_prefix(f"dp=2 dense BatchEngine, greedy request {i}", got, want, _gaps(entries),
+                                     TOL * ref["scale"])[0])
+        else:
+            part = next((j for j, (a, c) in enumerate(zip(got, want)) if a != c), min(len(got), len(want)))
+            parts.append(part)
+            log(f"  dp=2 dense BatchEngine, sampled request {i}: equals one device's for {part} of {len(want)} "
+                f"tokens")
+            if part == 0:
+                raise AssertionError(f"dp=2 sampled request {i}: its first token (the same prefill) differs")
+    log(f"  dp=2: {dp['new_tokens']} tokens in {dp['wall_s']:.1f}s (one device {ref['new_tokens']} in "
+        f"{ref['wall_s']:.1f}s; two ranks time-share one card over gloo: says nothing of dp's speed); "
+        f"streams equal for {parts} of {DP_NEW} tokens")
+    return by_path
 
 
 def _sp_checks(worlds: dict) -> dict:

@@ -10,8 +10,9 @@ Usage:
 Runs on the GPU by default and raises if none is visible; `--device cpu`
 runs the plain PyTorch versions of the kernels.
 
-With `--mesh` (e.g. ``tp=2`` or ``dp=2,tp=2``) the engine is one rank of a
-mesh (parallel/). On one host this process becomes rank 0 and spawns the
+With `--mesh` (e.g. ``tp=2`` or ``dp=2,tp=2``; an axis of any other name,
+``tp=2,x=2``, replicates as in the JAX mesh, and the CLI's batch of one
+replicates over dp) the engine is one rank of a mesh (parallel/). On one host this process becomes rank 0 and spawns the
 other ranks itself; with NFAI_COORD / NFAI_NUM_PROCS / NFAI_PROC_ID set, it
 is one rank of a launch the user started. Rank 0 reads the input and
 broadcasts each line (and, while it waits, an idle beat every second, so
@@ -54,7 +55,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics", action="store_true",
                    help="print TTFT / tokens-per-second after each reply")
     p.add_argument("--mesh", default="",
-                   help="device mesh, e.g. 'tp=2' or 'dp=2,tp=2' (empty = single device)")
+                   help="device mesh, e.g. 'tp=2', 'dp=2,tp=2' or 'tp=2,x=2' (an axis no split names "
+                        "replicates; empty = single device)")
     p.add_argument("--seq-parallel", action="store_true",
                    help="split the KV cache over its S axis on the mesh's sp axis (e.g. --mesh sp=2)")
     p.add_argument("--expert-parallel", action="store_true",

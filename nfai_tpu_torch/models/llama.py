@@ -108,7 +108,13 @@ variables at the same points, with no config field, as there:
   a `Q8Tensor` on K6 (the embedding rows are gathered from it). In a
   `LayerList` the 8-bit layers are repacked and the 4-bit ones stay on K1,
   where the JAX package promotes the whole stack to 8 bits first: the same
-  function.
+  function. Under tp > 1 the JAX loader marks a split 8-bit weight's tp
+  role before it repacks, and `q8v3_eligible` refuses a marked one: a
+  column-split weight is marked where N/tp % 128 == 0 and the JAX kernel's
+  tiles fit a shard, a row-split one where K % (tp * group) == 0 and they
+  fit (`_jax_marks_tp`). So a rank's split weight stays a `Q8Tensor` on K6
+  where the JAX package marks it, and only an unmarked one (the JAX
+  package shards its q8v3 container) is repacked on the rank's shard.
 - ``NFAI_PREFILL_KV`` → `_PREFILL_KV_LAYOUT`, read once at import ("full"
   by default): the kv_layout of K4 at both prefill call sites, the dense
   prefill and the paged prefill on gathered pages, bf16 and int8 caches.
@@ -184,7 +190,8 @@ from ..ops.prefill_attention import flash_prefill_attention, head_major
 from ..ops.qmatmul import linear, linear_layered, qmatmul_grouped
 from ..ops.qtensor import (
     SUPPORTED_QUANT_TYPES, LayerList, concat, dequant_gather, from_jax_qtensor, n_layers,
-    pack_gguf_tensor, permute_rows, q8v3_eligible, same_layout, stack, to_q8v3_stacked,
+    Q8Tensor, Q8V3Tensor, Q8V3_K_MULTIPLE, pack_gguf_tensor, permute_rows, q8v3_eligible, q8v3_from_codes,
+    same_layout, stack, to_q8v3_stacked,
 )
 from ..ops.rope import (
     apply_rope_cs, compute_inv_freq, inv_freq_from_factors, norm_to_neox_perm,
@@ -193,7 +200,6 @@ from ..ops.rope import (
 from ..ops.sampling import (
     apply_logit_bias, apply_penalties, sample_logits, spec_verify_sample, token_logprobs,
 )
-from ..parallel.mesh import UNPORTED
 from ..parallel.sharding import (
     COL, EXPERT, ROW, col_rows, expert_cols, expert_range, row_range, slice_k, split_of,
 )
@@ -473,7 +479,8 @@ def _stack_layers(per_layer: dict[str, list], fuse: bool = True) -> dict:
     for names, fused, biases, fused_bias in _FUSIONS if fuse else ():
         if all(n in per_layer for n in names):
             groups = list(zip(*(per_layer[n] for n in names)))
-            if all(same_layout(list(parts)) for parts in groups):
+            # a part repacked on a tp shard stays split (`_q8v3_shard`)
+            if all(same_layout(list(parts)) and not isinstance(parts[0], Q8V3Tensor) for parts in groups):
                 per_layer[fused] = [concat(list(parts)) for parts in groups]
                 for n in names:
                     del per_layer[n]
@@ -512,6 +519,30 @@ def _q8v3_on() -> bool:
     return os.environ.get("NFAI_Q8V3", "0") != "0"
 
 
+def _jax_q8_tiles_fit(k: int, n: int, group: int) -> bool:
+    """The JAX `kernel_supported` of an 8-bit container [K, N]: the K tile
+    of its decode tile picker (`_pick_tiles(0, k, n)`) holds a multiple of
+    8 scale rows, or all of them."""
+    n_tiles = (1024, 512, 256, 128) if n < 65536 else (512, 256, 128)
+    tk = None
+    if any(n % t == 0 for t in n_tiles):
+        tk = next((t for t in (1024, 512, 256) if k % t == 0), None)
+    if tk is None:
+        tk = next((t for t in (512, 256, 128) if k % t == 0), k)
+    rows = tk // group
+    return rows % 8 == 0 or rows == k // group
+
+
+def _jax_marks_tp(how: str, n: int, k: int, group: int, tp: int) -> bool:
+    """Whether the JAX loader's `mark_tp` gives a whole 8-bit weight [N, K]
+    split `how` over tp its tp role (nfai_tpu/models/llama.py): the shard's
+    view must fit the JAX kernel. A marked weight keeps its q8 container
+    under NFAI_Q8V3."""
+    if how == COL:
+        return n % tp == 0 and (n // tp) % 128 == 0 and _jax_q8_tiles_fit(k, n // tp, group)
+    return k % (tp * group) == 0 and _jax_q8_tiles_fit(k // tp, n, group)
+
+
 def _repack_q8v3(layers: dict, device) -> dict:
     """The JAX `repack` under NFAI_Q8V3: every eligible 8-bit layer stack
     (or 8-bit layer of a LayerList) → `Q8V3Tensor`, repacked on `device`;
@@ -529,6 +560,23 @@ def _repack_q8v3(layers: dict, device) -> dict:
         else:
             out[key] = repack(w)
     return out
+
+
+def _q8v3_shard(w, how: str, tp: int, device):
+    """A rank's shard `w` (one layer, or the head) of a weight split `how`
+    over tp under NFAI_Q8V3: a `Q8V3Tensor` of the shard where the whole
+    weight is one the JAX `q8v3_eligible` takes and its `mark_tp` leaves
+    unmarked (the JAX package then shards the whole's q8v3 container,
+    whose rows and scale groups are the shard's own), else `w` as it is.
+    Such a part is never fused with others (`_stack_layers`), as the JAX
+    `_fuse_projections_tp` fuses marked parts only."""
+    if not (isinstance(w, Q8Tensor) and w.qs.dim() in (2, 3) and w.group in (16, 32)):
+        return w
+    n, k = (w.n * tp, w.k) if how == COL else (w.n, w.k * tp)
+    if k % Q8V3_K_MULTIPLE or _jax_marks_tp(how, n, k, w.group, tp):
+        return w
+    w = w.to(device)
+    return q8v3_from_codes(w.qs, 8.0 * w.scales, w.mins, w.group)
 
 
 def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
@@ -576,10 +624,9 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
     experts whole instead (`parallel.sharding.expert_range`; the params
     then carry ``expert_parallel``). Whether a weight stays quantized is
     decided on the whole tensor, as the JAX loader decides before it
-    shards. NFAI_Q8V3 raises NotImplementedError under tp > 1.
+    shards. Under NFAI_Q8V3 a split 8-bit weight is repacked on the rank
+    only where the JAX loader leaves it without a tp role (module doc).
     """
-    if tp > 1 and _q8v3_on():
-        raise NotImplementedError(f"NFAI_Q8V3 under tensor parallelism: {UNPORTED}")
     if expert_parallel and not cfg.n_experts:
         raise ValueError("expert_parallel needs an MoE model")
     hd = cfg.head_dim
@@ -669,10 +716,15 @@ def load_params(g: GGUFFile, cfg: LlamaConfig, dtype=torch.bfloat16,
     else:
         embed = torch.from_numpy(g.tensor_f32("token_embd.weight"))
         lm_head = mat("output.weight", "lm_head")
-        if _q8v3_on() and q8v3_eligible(lm_head):  # an untied 8-bit head: no gather reads it
-            lm_head = to_q8v3_stacked(lm_head.to(device))
+        if _q8v3_on():  # an untied 8-bit head: no gather reads it
+            lm_head = (_q8v3_shard(lm_head, COL, tp, device) if tp > 1
+                       else to_q8v3_stacked(lm_head.to(device)) if q8v3_eligible(lm_head) else lm_head)
+    if _q8v3_on() and tp > 1:  # each layer's shard, as the JAX loader's marks decide
+        for key in per_layer:
+            if split(key) in (COL, ROW):
+                per_layer[key] = [_q8v3_shard(w, split(key), tp, device) for w in per_layer[key]]
     layers = _stack_layers(per_layer)
-    if _q8v3_on():
+    if _q8v3_on() and tp == 1:
         layers = _repack_q8v3(layers, device)
     params = _params(embed, layers, vec("output_norm.weight"), lm_head,
                      torch.from_numpy(inv_freq), inv_freq_local, dtype, device)
@@ -1255,7 +1307,7 @@ def decode_step(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 def _decode_chunk(params, cfg, tok, pos, cache, page_tables, generator, n_steps,
                   temperature, top_k, top_p, min_p, active, top_k_rows, bias_ids=None,
                   bias_vals=None, presence=None, frequency=None, counts=None, n_logprobs=None,
-                  allowed_mask=None):
+                  allowed_mask=None, lanes=None):
     """The shared body of `decode_loop` and `paged_decode_loop`. Per step:
     logits → bias → penalties → vocabulary mask → sample → logprobs of the
     sampled token from those same logits; `counts` grow on active rows
@@ -1275,7 +1327,7 @@ def _decode_chunk(params, cfg, tok, pos, cache, page_tables, generator, n_steps,
         if allowed_mask is not None:  # a constrained row's illegal continuations
             logits = logits.masked_fill(~allowed_mask, float("-inf"))
         nxt = sample_logits(logits, generator, temperature, top_k, top_p,
-                            min_p=min_p, top_k_rows=top_k_rows).to(tok.dtype)
+                            min_p=min_p, top_k_rows=top_k_rows, lanes=lanes).to(tok.dtype)
         out.append(tok)
         if active is None:
             tok, pos = nxt, pos + 1
@@ -1300,7 +1352,8 @@ def decode_loop(params: dict, cfg: LlamaConfig, first_tokens: torch.Tensor,
                 top_k_rows: torch.Tensor | None = None,
                 bias_ids: torch.Tensor | None = None, bias_vals: torch.Tensor | None = None,
                 presence=None, frequency=None, counts: torch.Tensor | None = None,
-                n_logprobs: int | None = None, allowed_mask: torch.Tensor | None = None):
+                n_logprobs: int | None = None, allowed_mask: torch.Tensor | None = None,
+                lanes: tuple[int, int] | None = None):
     """Generate `n_steps` tokens on the device without a host sync per token.
 
     temperature, top_p and min_p are scalars or per-row [B]; `top_k_rows`
@@ -1321,10 +1374,14 @@ def decode_loop(params: dict, cfg: LlamaConfig, first_tokens: torch.Tensor,
     `allowed_mask` [B, V] bool (constrained decoding: the caller runs one
     step a chunk and recomputes it on the host between chunks) sends every
     False entry to -inf after the bias and the penalties, before the sample
-    and the logprobs, which then describe the masked distribution."""
+    and the logprobs, which then describe the masked distribution.
+    `lanes` (lo, total): the B rows are lanes lo .. of a batch of `total`
+    (a dp rank's share of the dense BatchEngine's), whose random draws the
+    samples take (`ops.sampling.draw`)."""
     return _decode_chunk(params, cfg, first_tokens, start_pos, cache, None, generator,
                          n_steps, temperature, top_k, top_p, min_p, active, top_k_rows,
-                         bias_ids, bias_vals, presence, frequency, counts, n_logprobs, allowed_mask)
+                         bias_ids, bias_vals, presence, frequency, counts, n_logprobs, allowed_mask,
+                         lanes)
 
 
 @torch.inference_mode()
@@ -1411,13 +1468,13 @@ def _verify_forward(params, cfg, tin, pos, act, cache, page_tables):
     return logits_for(params, h, cfg)
 
 
-def _accept(logits3, draft, generator, temps, top_k, top_ps, top_k_rows, min_ps):
+def _accept(logits3, draft, generator, temps, top_k, top_ps, top_k_rows, min_ps, lanes=None):
     """(n_acc [B], new_tok [B]) of one verify: the argmax-prefix rule, or
     with `temps` rejection sampling (`spec_verify_sample`)."""
     if temps is not None:
         return spec_verify_sample(logits3, draft, generator, temps, top_k,
                                   1.0 if top_ps is None else top_ps, top_k_rows,
-                                  0.0 if min_ps is None else min_ps)
+                                  0.0 if min_ps is None else min_ps, lanes)
     nxt = torch.argmax(logits3, dim=-1)  # [B, T]
     ok = (draft == nxt[:, :-1]).to(torch.int64)
     n_acc = torch.cumprod(ok, dim=1).sum(1)
@@ -1459,7 +1516,8 @@ def spec_decode_rounds(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos
                        cache, hist: torch.Tensor, hist_len: torch.Tensor, eos_ids: torch.Tensor,
                        active: torch.Tensor, n_rounds: int, gamma: int, ngram: int,
                        page_tables: torch.Tensor | None = None, generator: torch.Generator | None = None,
-                       temps=None, top_k: int = 64, top_ps=None, top_k_rows=None, min_ps=None):
+                       temps=None, top_k: int = 64, top_ps=None, top_k_rows=None, min_ps=None,
+                       lanes: tuple[int, int] | None = None):
     """Prompt-lookup speculative decoding (the JAX `spec_decode_rounds`):
     `n_rounds` of (on-device n-gram draft → one verify forward of gamma + 1
     tokens → accept) with no host read; the caller reads the results once.
@@ -1472,7 +1530,7 @@ def spec_decode_rounds(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos
     argmax-prefix rule (plain greedy's output exactly), or with `temps` [B]
     rejection sampling (`spec_verify_sample`, drawing from `generator`;
     top_k, top_ps, top_k_rows and min_ps as in sampling), under which
-    greedy lanes keep the argmax rule.
+    greedy lanes keep the argmax rule; `lanes` as in `decode_loop`.
 
     A lane stops when its pending token is EOS, an accepted draft is EOS, or
     the cache lacks room for a round; it then writes no K/V row (module
@@ -1496,7 +1554,7 @@ def spec_decode_rounds(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos
         draft, _ = _ngram_draft_device(hist[:, :s_max], hlen, ngram, gamma)
         tin = torch.cat([tok[:, None], draft], dim=1)
         logits3 = _verify_forward(params, cfg, tin, pos, act, cache, page_tables)
-        n_acc, new_tok = _accept(logits3, draft, generator, temps, top_k, top_ps, top_k_rows, min_ps)
+        n_acc, new_tok = _accept(logits3, draft, generator, temps, top_k, top_ps, top_k_rows, min_ps, lanes)
         e, hit_eos, new_tok = _commit(tin, n_acc, new_tok, tok, act, outs, ocnt, eos_ids)
         # the history (which ends with tok) gains [the accepted drafts, the new pending token]
         entries = torch.cat([tin[:, 1:], torch.zeros_like(tin[:, :1])], dim=1)

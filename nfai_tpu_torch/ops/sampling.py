@@ -53,12 +53,29 @@ def filtered_for_sampling(logits: torch.Tensor, temperature, top_k: int, top_p,
     return filtered, top_idx, greedy
 
 
+def draw(probs: torch.Tensor, generator: torch.Generator | None, lanes=None) -> torch.Tensor:
+    """One categorical draw a row of probs [B, K] ([B, 1] indices). With
+    `lanes` = (lo, total) the rows are lanes lo .. lo + B - 1 of a batch of
+    `total` (a dp rank's share of the dense BatchEngine's lanes): the draw
+    is the whole batch's, the other lanes' rows uniform, so the rank takes
+    the numbers one device drawing every lane takes for these rows
+    (`torch.multinomial` of one sample divides each row by its own
+    exponential draws)."""
+    if lanes is None or lanes[1] == probs.shape[0]:
+        return torch.multinomial(probs, 1, generator=generator)
+    lo, total = lanes
+    full = torch.ones((total, probs.shape[1]), dtype=probs.dtype, device=probs.device)
+    full[lo:lo + probs.shape[0]] = probs
+    return torch.multinomial(full, 1, generator=generator)[lo:lo + probs.shape[0]]
+
+
 def sample_logits(logits: torch.Tensor, generator: torch.Generator | None,
                   temperature=0.5, top_k: int = 40, top_p=0.95,
-                  min_p=0.0, top_k_rows=None) -> torch.Tensor:
+                  min_p=0.0, top_k_rows=None, lanes=None) -> torch.Tensor:
     """Next token ids [B] (int64). temperature, top_p and min_p are scalars
     or per-row [B]; `top_k_rows` [B] is a per-row top-k inside the static
-    `top_k` window. temperature <= 0 is greedy argmax."""
+    `top_k` window. temperature <= 0 is greedy argmax. `lanes` (lo, total):
+    the rows are lanes of a larger batch whose draws they take (`draw`)."""
     logits = logits.float()
     static_temp = isinstance(temperature, (int, float))
     if static_temp and temperature <= 0.0:
@@ -66,8 +83,7 @@ def sample_logits(logits: torch.Tensor, generator: torch.Generator | None,
     filtered, top_idx, greedy = filtered_for_sampling(
         logits, temperature, top_k, top_p, min_p, top_k_rows
     )
-    probs = torch.softmax(filtered, dim=-1)
-    choice = torch.multinomial(probs, 1, generator=generator)
+    choice = draw(torch.softmax(filtered, dim=-1), generator, lanes)
     sampled = torch.gather(top_idx, 1, choice)[:, 0]
     if static_temp:
         return sampled
@@ -79,7 +95,7 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
 
 
 def spec_verify_sample(logits3: torch.Tensor, draft: torch.Tensor, generator: torch.Generator | None,
-                       temperature, top_k: int, top_p, top_k_rows=None, min_p=0.0):
+                       temperature, top_k: int, top_p, top_k_rows=None, min_p=0.0, lanes=None):
     """Rejection-sampling acceptance for a point-mass drafter (prompt-lookup
     n-grams, greedy draft-model rollouts; the JAX `spec_verify_sample`).
     logits3 [B, T, V] are the target's logits at [tok, d_1 .. d_gamma]
@@ -91,7 +107,8 @@ def spec_verify_sample(logits3: torch.Tensor, draft: torch.Tensor, generator: to
     the output law is that of plain sampling; greedy rows (temperature <= 0)
     reduce to the argmax-prefix rule, bit for bit. temperature, top_p and
     min_p are scalars or [B]; the draws (gamma uniforms, then T categorical
-    draws a row) come from `generator`.
+    draws a row) come from `generator`; with `lanes` (lo, total) they are
+    those of lanes lo .. lo + B - 1 of a batch of `total` (`draw`).
 
     Returns (n_acc [B] in 0..gamma, new_tok [B]): the accepted drafts and
     the continuation, a residual draw at the rejected column or a fresh
@@ -119,14 +136,15 @@ def spec_verify_sample(logits3: torch.Tensor, draft: torch.Tensor, generator: to
     draft = draft.to(device=dev, dtype=torch.int64)
     # p(d_j) under the filtered distribution (0 where it was filtered out)
     p_d = torch.where(idx3[:, :gamma] == draft[:, :, None], probs3[:, :gamma], 0.0).sum(-1)
-    u = torch.rand((b, gamma), generator=generator, device=dev)
+    lo, total = lanes or (0, b)
+    u = torch.rand((total, gamma), generator=generator, device=dev)[lo:lo + b]
     acc = torch.where(greedy, draft == argmax3[:, :gamma], u < p_d)
     n_acc = torch.cumprod(acc.to(torch.int64), dim=1).sum(1)
     # each column's continuation: columns < gamma leave their draft out (the
     # residual); column gamma is a plain draw from the pipeline
     excl = torch.cat([draft, torch.full((b, 1), -1, dtype=torch.int64, device=dev)], dim=1)
     f3 = torch.where(idx3 == excl[:, :, None], torch.full_like(f3, NEG_INF), f3)
-    choice = torch.multinomial(torch.softmax(f3, dim=-1).reshape(b * t, k), 1, generator=generator)
+    choice = draw(torch.softmax(f3, dim=-1).reshape(b * t, k), generator, (lo * t, total * t))
     cont = torch.gather(idx3.reshape(b * t, k), 1, choice).reshape(b, t)
     cont = torch.where(greedy, argmax3, cont)
     return n_acc, torch.gather(cont, 1, n_acc[:, None])[:, 0]

@@ -28,7 +28,10 @@ in one process keep their own groups and counts.
 - `broadcast_object`: host objects from rank 0 to the whole world (the
   BatchEngine's arrivals and cancels, the CLI's input lines, a seed);
 - `gather`: a cache's slices joined along one axis, for a session file
-  (the kv-heads over tp, the S slices over sp).
+  (the kv-heads over tp, the S slices over sp), and over dp the rows of
+  the dense BatchEngine's lanes that each dp group sampled (one a step);
+- `broadcast_from`: one rank's tensor on every rank of the group (over
+  dp, a prefill's first token from the dp group that owns its lane).
 
 A decode step under tp makes 2L all-reduces and one gather (and one
 embedding reduce for a tied table split under the head); under
@@ -124,6 +127,13 @@ class Comm:
             out = torch.cat(parts, dim=dim)
         self.counts[kind] += 1
         return out
+
+    def broadcast_from(self, t: torch.Tensor, src: int, kind: str) -> torch.Tensor:
+        """The group's rank `src`'s `t` on every rank of the group, in
+        place (counted as `kind`)."""
+        dist.broadcast(t, src=self.ranks[src], group=self.group)
+        self.counts[kind] += 1
+        return t
 
     def ring_exchange(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
         """One hop of the ring: `tensors` go to the next rank of the group

@@ -119,10 +119,21 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def leave_world() -> None:
+    """Destroy this process's groups, if it joined a world: a rank that
+    exits with its gloo groups alive may abort in their threads' teardown."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def _rank_main(target: str, argv, env: dict) -> None:
     os.environ.update(env)
     module, _, fn = target.partition(":")
-    raise SystemExit(getattr(importlib.import_module(module), fn)(argv))
+    try:
+        code = getattr(importlib.import_module(module), fn)(argv)
+    finally:
+        leave_world()
+    raise SystemExit(code)
 
 
 def spawn_local(target: str, argv: list[str], world: int) -> list:
@@ -176,7 +187,8 @@ def start_world(mesh_shape: dict[str, int], target: str, argv: list[str], device
 
 def join_local(procs: list, timeout_s: float = 60.0) -> list[int | None]:
     """Wait for spawned ranks (each at most `timeout_s`), terminate any that
-    still run, and return their exit codes."""
+    still run, leave the world (`leave_world`), and return their exit
+    codes."""
     deadline = time.monotonic() + timeout_s
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
@@ -184,4 +196,5 @@ def join_local(procs: list, timeout_s: float = 60.0) -> list[int | None]:
         if p.is_alive():
             p.terminate()
             p.join(5)
+    leave_world()
     return [p.exitcode for p in procs]

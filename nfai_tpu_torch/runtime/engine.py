@@ -42,20 +42,28 @@ bias, penalties, logprobs or a constraint decodes without speculation, as
 in the JAX engine. Any other `speculative` value is a ValueError (the JAX
 engine runs plain decoding on a misspelt one).
 
-`EngineConfig(mesh_shape={"dp": d, "tp": t})` runs the engine as one rank
-of a `torch.distributed` world (parallel/: `init_distributed` first, one
-process a rank, rank r on cuda:(r % device count) unless the caller asks
-for the CPU): `make_mesh` then `validate_tp` and the checks of the options
-(the JAX order), then the rank loads only its shard of every column- and
-row-parallel weight (`load_params(tp=, tp_rank=)`), holds only its kv-heads
-in the cache and the BatchEngine's pool, and runs the forward on its local
-config (`model_cfg`; `global_cfg` is the whole model's) with the engine's
-`parallel.comm.Comm` (two f32 all-reduces a layer, one gather of the
-vocab-split logits). dp replicates the model: every dp group serves the
-whole batch. Every rank runs this host code on the same inputs; the
-logits are gathered to every rank, so with one shared seed (a request
-without one takes rank 0's) all ranks sample the same tokens. The groups
-live on the engine and its params, so engines in one process keep theirs.
+`EngineConfig(mesh_shape={"dp": d, "tp": t, ...})` runs the engine as one
+rank of a `torch.distributed` world (parallel/: `init_distributed` first,
+one process a rank, rank r on cuda:(r % device count) unless the caller
+asks for the CPU): `make_mesh` then `validate_tp` and the checks of the
+options (the JAX order), then the rank loads only its shard of every
+column- and row-parallel weight (`load_params(tp=, tp_rank=)`), holds only
+its kv-heads in the cache and the BatchEngine's pool, and runs the forward
+on its local config (`model_cfg`; `global_cfg` is the whole model's) with
+the engine's `parallel.comm.Comm` (two f32 all-reduces a layer, one gather
+of the vocab-split logits). dp replicates the model: a dense cache of B
+lanes, B a multiple of dp, holds on a rank its dp group's B/dp lanes
+(`lanes`, `new_cache`; the JAX `kv_cache_sharding`), which the dense
+BatchEngine decodes and prefills there (runtime.scheduler); any other
+batch (`generate`'s one row) replicates over dp, and the engine's own
+calls run whole on every dp group (``dp_comm`` is the dp group's Comm).
+An axis other than dp, tp and sp (any name the caller gives) replicates.
+Every rank runs this host code on the same inputs; the logits are
+gathered to every rank, so with one shared seed (a request without one
+takes rank 0's) all ranks sample the same tokens. The groups live on the
+engine and its params, so engines in one process keep theirs; an engine
+given a `Mesh` of its mesh shape (`mesh=`) takes its groups instead of
+making new ones, as the draft engine takes its target's.
 
 A MoE model under tp splits its expert stacks over their ffn columns (gate
 and up by columns, down by rows: K8/K9 at the rank's widths, one f32 sum
@@ -68,14 +76,16 @@ attention over the slice with the partials merged over the group
 (parallel.seq_parallel; ``sp_comm``); a session saved under it gathers
 the slices, and resumes on one device. A mesh with an "sp" axis and
 seq_parallel off replicates over sp. Either flag without a mesh raises
-ValueError (the JAX engine ignores it). Not ported yet, and raising
-NotImplementedError (ROADMAP queue 1, item 2(c)): NFAI_Q8V3 under tp > 1,
-the draft model (speculative="draft") under any mesh, and mesh axes other
-than dp, tp and sp.
+ValueError (the JAX engine ignores it). The draft model
+(speculative="draft") runs under any mesh: its engine takes the target's
+config, mesh shape included, and the target's `Mesh`, with a Comm of its
+own on its own params. NFAI_Q8V3 under tp > 1 repacks what the JAX loader
+repacks there (models.llama, `load_params`).
 """
 from __future__ import annotations
 
 import json
+import math
 import time
 from dataclasses import dataclass, field, replace
 from pathlib import Path
@@ -92,9 +102,9 @@ from ..grammar import machine_for
 from ..models import KVCache, decode_loop, prefill_step, resolve
 from ..models.llama import draft_spec_rounds, spec_decode_rounds
 from ..ops.sampling import apply_logit_bias, logprob_entry, sample_logits, token_logprobs
-from ..parallel import Comm, local_config, make_mesh, validate_tp
+from ..parallel import Comm, local_config, make_mesh, mesh_dims, validate_tp
 from ..parallel.distributed import local_device_index
-from ..parallel.mesh import SP_AXIS, UNPORTED
+from ..parallel.mesh import DP_AXIS, SP_AXIS, Mesh
 from ..tokenizer import (
     ChatTemplate,
     Message,
@@ -145,8 +155,8 @@ def _check_config(config: EngineConfig) -> None:
 def _check_parallel(config: EngineConfig, mesh, cfg) -> None:
     """The JAX engine's checks of seq_parallel and expert_parallel, in its
     order (after `make_mesh` and `validate_tp`), with the messages the right
-    way round; either flag without a mesh, and the draft model under one,
-    raise (the JAX engine ignores the first and runs the second)."""
+    way round; either flag without a mesh raises (the JAX engine ignores
+    it)."""
     if mesh is None:
         if flags := [k for k in ("seq_parallel", "expert_parallel") if getattr(config, k)]:
             raise ValueError(f"EngineConfig {flags} needs a mesh (no mesh_shape is set)")
@@ -161,8 +171,6 @@ def _check_parallel(config: EngineConfig, mesh, cfg) -> None:
             raise ValueError("expert_parallel needs an MoE model")
         if cfg.n_experts % mesh.tp:
             raise ValueError(f"n_experts={cfg.n_experts} must be divisible by tp={mesh.tp} for expert_parallel")
-    if config.speculative == "draft":
-        raise NotImplementedError(f"speculative='draft' under a mesh: {UNPORTED}")
 
 
 def check_bias_ids(sampling: SamplingParams, vocab_size: int) -> None:
@@ -194,13 +202,15 @@ class GenerationMetrics:
 
 class InferenceEngine:
     """Single-model engine on one device ("cuda" unless the caller passes
-    device="cpu"; CUDA absent raises), or one rank of a mesh (module doc)."""
+    device="cpu"; CUDA absent raises), or one rank of a mesh (module doc;
+    `mesh`: a `Mesh` of the config's mesh shape to take the groups of)."""
 
     def __init__(
         self,
         gguf: str | Path | GGUFFile,
         config: EngineConfig | None = None,
         device: str | torch.device = "cuda",
+        mesh: Mesh | None = None,
     ):
         self.device = resolve_device(device)
         self.config = config or EngineConfig()
@@ -213,10 +223,12 @@ class InferenceEngine:
         self.family = resolve(g)
         self.global_cfg = self.family.config_from_gguf(g)
         self.model_name = str(g.metadata.get(Keys.NAME, g.architecture))
-        self.mesh = self.comm = self.sp_comm = None
+        self.mesh = self.comm = self.sp_comm = self.dp_comm = None
         tp, tp_rank = 1, 0
         if self.config.mesh_shape:
-            self.mesh = make_mesh(self.config.mesh_shape)
+            if mesh is not None and mesh.dims != mesh_dims(self.config.mesh_shape, math.prod(mesh.dims.values())):
+                raise ValueError(f"mesh {mesh.dims} is not mesh_shape={self.config.mesh_shape}")
+            self.mesh = mesh or make_mesh(self.config.mesh_shape)
             validate_tp(self.global_cfg, self.mesh.tp)
         _check_parallel(self.config, self.mesh, self.global_cfg)
         ep = self.config.expert_parallel
@@ -226,6 +238,8 @@ class InferenceEngine:
                 self.comm = Comm(self.mesh)
                 if self.config.seq_parallel:
                     self.sp_comm = Comm(self.mesh, SP_AXIS)
+                if self.mesh.dp > 1:
+                    self.dp_comm = Comm(self.mesh, DP_AXIS)
             if self.device.type == "cuda" and torch.device(device).index is None:
                 self.device = torch.device("cuda", local_device_index(self.mesh.rank))
         self.model_cfg = local_config(self.global_cfg, tp, ep)
@@ -253,16 +267,28 @@ class InferenceEngine:
         self.max_seq_len = min(self.config.max_seq_len, self.model_cfg.context_length)
 
     # -- low level ---------------------------------------------------------
+    def lanes(self, batch: int) -> tuple[int, int]:
+        """(first lane, lanes) of a `batch`-lane dense cache that this rank
+        holds: under a mesh with dp > 1 dividing `batch`, its dp group's
+        batch/dp lanes from dp_rank * batch/dp on (the JAX
+        `kv_cache_sharding`: B over dp); else all of them (a batch that dp
+        does not divide, as generate's one row, replicates)."""
+        dp = self.dp_comm.size if self.dp_comm is not None else 1
+        if dp > 1 and batch % dp == 0:
+            return self.dp_comm.rank * (batch // dp), batch // dp
+        return 0, batch
+
     def new_cache(self, batch: int = 1) -> KVCache:
         """A zeroed cache for `batch` rows (int8 codes and scales under
-        kv_dtype="int8"). Its length is max_seq_len rounded up to a multiple
-        of 64 (the prefill kernel's key tile); attention masks by position,
-        so the extra slots are never read. Under sequence parallelism it is
-        this rank's slice of a cache of max_seq_len rounded up to 64 * sp
-        slots: S/sp slots from sp_rank * S/sp on."""
+        kv_dtype="int8"), of which a rank holds its `lanes`. Its length is
+        max_seq_len rounded up to a multiple of 64 (the prefill kernel's key
+        tile); attention masks by position, so the extra slots are never
+        read. Under sequence parallelism it is this rank's slice of a cache
+        of max_seq_len rounded up to 64 * sp slots: S/sp slots from sp_rank
+        * S/sp on."""
         sp = self.sp_comm.size if self.sp_comm is not None else 1
         slots = -(-self.max_seq_len // (64 * sp)) * 64 * sp
-        cache = KVCache.zeros(self.model_cfg, batch, slots // sp, self.cache_dtype, self.device,
+        cache = KVCache.zeros(self.model_cfg, self.lanes(batch)[1], slots // sp, self.cache_dtype, self.device,
                               quantized=self.kv_quantized)
         if sp > 1:
             cache.offset, cache.span = self.sp_comm.rank * (slots // sp), slots
@@ -560,15 +586,17 @@ class InferenceEngine:
     @property
     def draft_engine(self) -> "InferenceEngine":
         """The second engine of speculative="draft" (`draft_gguf`), on this
-        engine's device, made on first use; its vocabulary must be the
-        target's."""
+        engine's device, made on first use with this engine's config (the
+        JAX `draft_engine`'s), mesh shape included: under a mesh it takes
+        this engine's `Mesh` and its groups, loads its own shard and has
+        its own Comm. Its vocabulary must be the target's."""
         if getattr(self, "_draft_engine", None) is None:
             if not self.config.draft_gguf:
                 raise ValueError("speculative='draft' requires EngineConfig.draft_gguf")
             draft = InferenceEngine(
                 self.config.draft_gguf,
                 replace(self.config, gguf_path=self.config.draft_gguf, speculative="off", draft_gguf=""),
-                device=self.device)
+                device=self.device, mesh=self.mesh)
             if draft.model_cfg.vocab_size != self.model_cfg.vocab_size:
                 raise ValueError("draft model vocabulary differs from the target's")
             self._draft_engine = draft

@@ -59,6 +59,21 @@ JAX scheduler shards only the kv-heads over tp), so the paged path runs
 K7 and the paged store unchanged there; the dense cache of `paged=False`
 is each rank's S slice (`InferenceEngine.new_cache`). A MoE model's
 experts split as its engine splits them (over experts or ffn columns).
+
+Under a mesh with dp > 1 dividing `max_batch`, the dense cache
+(`paged=False`) holds a rank's dp group's max_batch/dp lanes
+(`InferenceEngine.lanes`, the JAX `kv_cache_sharding`), and a rank
+computes only those: a slot's prefill runs in the dp group that owns its
+lane, which then broadcasts the first token (and its logprobs) over dp;
+each decode chunk or speculative call runs on the group's lanes and its
+tokens (with the logprobs, or the speculative counts) are gathered over dp
+in lane order, one gather a step, so every rank keeps the whole host state
+and steps in lockstep. Every rank draws the whole batch's random numbers
+from the shared generator and samples its own lanes' rows with them
+(`ops.sampling.draw`; a rank that does not own a prefilling slot draws
+its first token's numbers too), so the tokens are one device's, greedy or
+sampled. The penalty counts of a lane live on the group that owns it. The
+page pool is not split over dp (the JAX pool is sharded over tp only).
 """
 from __future__ import annotations
 
@@ -252,6 +267,10 @@ class BatchEngine:
                      self.cache.nbytes / 1e6)
         else:
             self.cache = engine.new_cache(max_batch)
+        # the lanes this rank decodes: a dp group's share of the dense cache, else all
+        lo, n = (0, max_batch) if self.paged else engine.lanes(max_batch)
+        self.lanes = range(lo, lo + n)
+        self.dp_comm = engine.dp_comm if n < max_batch else None
 
     # -- client API --------------------------------------------------------
     def submit(self, prompt_ids: Sequence[int], sampling: SamplingParams | None = None) -> Request:
@@ -463,14 +482,16 @@ class BatchEngine:
         chunk = np.zeros(bucket, np.int64)
         chunk[:take] = ids[pos: pos + take]
         positions = np.arange(pos, pos + bucket, dtype=np.int64)
-        args = (eng.params, eng.model_cfg, torch.from_numpy(chunk[None]).to(dev),
-                torch.from_numpy(positions[None]).to(dev),
-                torch.tensor([take - 1], device=dev), self.cache)
-        if self.paged:
-            table = torch.from_numpy(self._table_row(slot_idx)[None]).to(dev)
-            logits, self.cache = paged_prefill_step(*args, table)
-        else:
-            logits, self.cache = prefill_slot_step(*args, slot_idx)
+        own = slot_idx in self.lanes  # under a dp split, the group that owns the lane computes it
+        if own:
+            args = (eng.params, eng.model_cfg, torch.from_numpy(chunk[None]).to(dev),
+                    torch.from_numpy(positions[None]).to(dev),
+                    torch.tensor([take - 1], device=dev), self.cache)
+            if self.paged:
+                table = torch.from_numpy(self._table_row(slot_idx)[None]).to(dev)
+                logits, self.cache = paged_prefill_step(*args, table)
+            else:
+                logits, self.cache = prefill_slot_step(*args, slot_idx - self.lanes.start)
         slot.prefill_next = pos + take
         if slot.prefill_next < ids.size:
             return  # more chunks to go; decode proceeds meanwhile
@@ -479,6 +500,13 @@ class BatchEngine:
         if self.paged:
             self.alloc.publish_prefix([int(t) for t in ids], slot.pages)
         s = req.sampling
+        if not own:  # another dp group's lane: draw what its sample draws, then take its token
+            sample_logits(torch.zeros((1, eng.model_cfg.vocab_size), device=dev), self.generator,
+                          s.temperature, self.top_k, s.top_p, min_p=s.min_p,
+                          top_k_rows=torch.tensor([self._effective_top_k(s.top_k)], device=dev))
+            tok, lps = self._first_from_owner(slot_idx, None, None, s)
+            self._start_decoding(slot_idx, tok, lps)
+            return
         if s.logit_bias:
             b_ids, b_vals = self._bias_row(s)
             logits = apply_logit_bias(logits, torch.from_numpy(b_ids[None]).to(dev),
@@ -502,13 +530,59 @@ class BatchEngine:
             self._counts[slot_idx:slot_idx + 1].scatter_add_(
                 1, tok_dev[:, None], torch.ones_like(self._counts[:1, :1]))
         lp_dev = None if s.logprobs is None else token_logprobs(logits, tok_dev, s.top_logprobs)
-        tok = int(tok_dev[0])  # the one host read of the prefill's end
-        lps = None if lp_dev is None else [logprob_entry(*(a.tolist() for a in lp_dev), 0, s.top_logprobs, tok)]
+        if self.dp_comm is not None:
+            tok, lps = self._first_from_owner(slot_idx, tok_dev, lp_dev, s)
+        else:
+            tok = int(tok_dev[0])  # the one host read of the prefill's end
+            lps = None if lp_dev is None else [logprob_entry(*(a.tolist() for a in lp_dev), 0, s.top_logprobs, tok)]
+        self._start_decoding(slot_idx, tok, lps)
+
+    def _start_decoding(self, slot_idx: int, tok: int, lps) -> None:
+        """A slot whose prompt is in: its first token `tok` is emitted and
+        it decodes from the next step on."""
+        slot = self.slots[slot_idx]
+        req, n = slot.request, int(slot.prefill_ids.size)
         slot.prefill_ids = None
-        slot.pos = int(ids.size)
-        slot.budget = min(s.max_new_tokens - len(req.output_ids), eng.max_seq_len - ids.size)
+        slot.pos = n
+        slot.budget = min(req.sampling.max_new_tokens - len(req.output_ids), self.engine.max_seq_len - n)
         slot.next_token = tok
         self._emit_constrained(slot_idx, [tok], lps)
+
+    def _first_from_owner(self, slot_idx: int, tok_dev, lp_dev, s) -> tuple[int, list | None]:
+        """Under a dp split: the first token of `slot_idx` (and its logprob
+        entry), broadcast over dp from the group that owns the lane (which
+        passes `tok_dev` and `lp_dev`; the others None)."""
+        k = max(s.top_logprobs, 1)
+        width = 1 + (0 if s.logprobs is None else 1 + 2 * k)
+        if tok_dev is None:
+            buf = torch.empty((1, width), dtype=torch.float64, device=self.engine.device)
+        else:
+            buf = self._rows(tok_dev[:, None], *(() if lp_dev is None else lp_dev))
+        self.dp_comm.broadcast_from(buf, slot_idx // len(self.lanes), "broadcast_first")
+        row = buf[0].tolist()  # the host read of the prefill's end
+        tok = int(row[0])
+        if s.logprobs is None:
+            return tok, None
+        arrays = [[row[1]], [row[2:2 + k]], [row[2 + k:]]]
+        return tok, [logprob_entry(*arrays, 0, s.top_logprobs, tok)]
+
+    @staticmethod
+    def _rows(*parts: torch.Tensor) -> torch.Tensor:
+        """[B, ...] tensors as one [B, X] f64 tensor (exact for token ids
+        and f32 logprobs): what a dp group sends of its lanes."""
+        return torch.cat([p.reshape(p.shape[0], -1).to(torch.float64) for p in parts], dim=1)
+
+    def _gather_lanes(self, *parts: torch.Tensor) -> list[torch.Tensor]:
+        """Every dp group's rows of `parts` ([lanes, ...] tensors), joined
+        in lane order over dp (one gather) and cast back to each part's
+        dtype: [max_batch, ...] each."""
+        full = self.dp_comm.gather(self._rows(*parts), 0, "gather_lanes")
+        out, at = [], 0
+        for p in parts:
+            w = math.prod(p.shape[1:])
+            out.append(full[:, at:at + w].reshape(-1, *p.shape[1:]).to(p.dtype))
+            at += w
+        return out
 
     def _counts_on(self) -> torch.Tensor:
         """The output-token counts [max_batch, V] int32, made on first use."""
@@ -670,9 +744,9 @@ class BatchEngine:
             # runs at the smallest power of two covering the active slots
             rows = list(active_idx)
             width = min(1 << (len(rows) - 1).bit_length(), self.max_batch)
-        else:
-            rows = list(range(self.max_batch))
-            width = self.max_batch
+        else:  # the lanes this rank holds (all of them without a dp split)
+            rows = list(self.lanes)
+            width = len(rows)
         row_of = {i: j for j, i in enumerate(rows)}
         tokens = np.zeros(width, np.int64)
         positions = np.zeros(width, np.int64)
@@ -689,10 +763,12 @@ class BatchEngine:
         if not self.paged:
             # a dense lane that is mid-prefill writes its frozen row at the
             # next position its prefill will overwrite, not at 0
-            for i, s in enumerate(self.slots):
-                if s.prefilling:
-                    positions[i] = s.prefill_next
+            for i in rows:
+                if self.slots[i].prefilling:
+                    positions[row_of[i]] = self.slots[i].prefill_next
         for i in active_idx:
+            if i not in row_of:  # another dp group's lane
+                continue
             j = row_of[i]
             s = self.slots[i]
             tokens[j] = s.next_token
@@ -724,7 +800,7 @@ class BatchEngine:
                       counts=self._counts_on().index_select(0, row_sel))
         if want_lp:
             kw["n_logprobs"] = max(want_lp)
-        constrained = [i for i in active_idx if self.slots[i].machine is not None]
+        constrained = [i for i in active_idx if self.slots[i].machine is not None and i in row_of]
         if constrained:  # every other row may take any token
             amask = np.ones((width, self.engine.model_cfg.vocab_size), bool)
             for i in constrained:
@@ -738,6 +814,8 @@ class BatchEngine:
                 self.engine.params, self.engine.model_cfg, on(tokens), on(positions),
                 self.cache, on(tables), self.generator, n, **kw)
         else:
+            if self.dp_comm is not None:  # the whole batch's draws, this rank's rows
+                kw["lanes"] = (self.lanes.start, self.max_batch)
             out = decode_loop(
                 self.engine.params, self.engine.model_cfg, on(tokens), on(positions),
                 self.cache, self.generator, n, **kw)
@@ -745,6 +823,9 @@ class BatchEngine:
         rest = list(out[4:])
         if any_pen:
             self._counts.index_copy_(0, on(np.asarray(rows, np.int64)), rest.pop(0)[: len(rows)])
+        if self.dp_comm is not None:  # every dp group's lanes, in lane order
+            toks, nxt, *rest = self._gather_lanes(toks, nxt, *rest)
+            row_of = {i: i for i in range(self.max_batch)}
         host = torch.cat([toks, nxt[:, None]], dim=1).tolist()  # the chunk's one sync
         lp_host = [a.tolist() for a in rest] if want_lp else None  # read after that sync
         for i in active_idx:
@@ -802,9 +883,9 @@ class BatchEngine:
                 return
             rows = list(active_idx)
             width = min(1 << (len(rows) - 1).bit_length(), self.max_batch)
-        else:
-            rows = list(range(self.max_batch))
-            width = self.max_batch
+        else:  # the lanes this rank holds (all of them without a dp split)
+            rows = list(self.lanes)
+            width = len(rows)
         row_of = {i: j for j, i in enumerate(rows)}
         s = self.engine.max_seq_len
         tokens = np.zeros(width, np.int64)
@@ -817,6 +898,8 @@ class BatchEngine:
         top_ks = np.full(width, self.top_k, np.int64)
         min_ps = np.zeros(width, np.float32)
         for i in active_idx:
+            if i not in row_of:  # another dp group's lane
+                continue
             j = row_of[i]
             slot = self.slots[i]
             sp = slot.request.sampling
@@ -830,9 +913,12 @@ class BatchEngine:
         dev = self.engine.device
         on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         kw = {}
-        if (temps > 0).any():  # rejection sampling; its greedy lanes keep the argmax rule
+        # rejection sampling where any slot samples (all dp groups alike); greedy lanes keep the argmax rule
+        if any(self.slots[i].request.sampling.temperature > 0 for i in active_idx):
             kw = dict(generator=self.generator, temps=on(temps), top_k=self.top_k, top_ps=on(top_ps),
                       top_k_rows=on(top_ks), min_ps=on(min_ps))
+            if self.dp_comm is not None:
+                kw["lanes"] = (self.lanes.start, self.max_batch)
         if self.paged:
             tables = np.zeros((width, self.max_pages), np.int32)  # pad lanes: the sink page
             for j, i in enumerate(rows):
@@ -842,7 +928,11 @@ class BatchEngine:
         outs, ocnt, pend, _, self.cache, _, _, act, dr, ac = spec_decode_rounds(
             self.engine.params, self.engine.model_cfg, on(tokens), on(positions), self.cache, on(hist),
             on(hlen), eos, on(active), rounds, gamma, ngram, **kw)
-        host = torch.cat([outs, torch.stack([ocnt, pend, act.long(), dr, ac], dim=1)], dim=1).tolist()
+        res = torch.cat([outs, torch.stack([ocnt, pend, act.long(), dr, ac], dim=1)], dim=1)
+        if self.dp_comm is not None:  # every dp group's lanes, in lane order
+            res = self._gather_lanes(res)[0]
+            row_of = {i: i for i in range(self.max_batch)}
+        host = res.tolist()
         n_out = outs.shape[1]
         for i in active_idx:
             row = host[row_of[i]]

@@ -38,7 +38,10 @@ axis) and `--expert-parallel` (with a tp axis) are the CLI's: the engine's
 `seq_parallel` and `expert_parallel`. The BatchEngine's page pool is whole
 on every sp rank (the JAX scheduler's layout), so a paged server under an
 sp mesh runs its requests on every sp rank alike; the dense cache of
-`BatchEngine(paged=False)` and of `InferenceEngine.generate` is split.
+`BatchEngine(paged=False)` and of `InferenceEngine.generate` is split. The
+pool is not split over dp either (the JAX pool is sharded over tp only):
+the dense BatchEngine's lanes are (runtime.scheduler). Any other axis
+name replicates.
 """
 from __future__ import annotations
 
@@ -422,7 +425,8 @@ def main(argv=None) -> int:
                    help="activation dtype (the CUDA kernels take bfloat16)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--mesh", default="",
-                   help="device mesh, e.g. 'tp=2' or 'dp=2,tp=2' (empty = single device)")
+                   help="device mesh, e.g. 'tp=2', 'dp=2,tp=2' or 'tp=2,x=2' (an axis no split names "
+                        "replicates; empty = single device)")
     p.add_argument("--seq-parallel", action="store_true",
                    help="split the KV cache over its S axis on the mesh's sp axis (e.g. --mesh sp=2)")
     p.add_argument("--expert-parallel", action="store_true",

@@ -75,11 +75,15 @@ def test_mesh_dims_match_jax(shape, n):
 
 
 def test_other_mesh_axes_raise():
-    """Axes other than dp, tp and sp stay unported (ROADMAP 2(c))."""
-    for fn in (lambda: mesh_dims({"ep": 2}, 2), lambda: make_mesh({"pp": 1}),
-               lambda: make_mesh({"dp": 1, "tp": 1, "sp": 1, "ep": 1})):
-        with pytest.raises(NotImplementedError, match=r"2\(c\)"):
-            fn()
+    """Axes other than dp, tp and sp, once refused, now make the JAX
+    `make_mesh`'s mesh: dp and tp first, the others in the caller's order
+    (tests/test_torch_mesh_axes.py holds the layouts to the JAX device
+    arrays)."""
+    for shape, n in (({"ep": 2}, 2), ({"pp": 1}, 1), ({"dp": 1, "tp": 1, "sp": 1, "ep": 1}, 1)):
+        want = list(dict(jax_make_mesh(dict(shape), devices=jax.devices()[:n]).shape).items())
+        assert list(mesh_dims(shape, n).items()) == want
+        if n == 1:  # a world of one
+            assert list(make_mesh(shape).dims.items()) == want
 
 
 def test_make_mesh_without_a_world_is_one_rank():
@@ -284,6 +288,27 @@ def test_nccl_refuses_two_ranks_on_one_device(tmp_path, monkeypatch):
 def test_init_distributed_without_a_coordinator(monkeypatch):
     monkeypatch.delenv("NFAI_COORD", raising=False)
     assert distributed.init_distributed() is False
+
+
+def _world_of_one(argv) -> int:
+    distributed.init_distributed(f"file://{argv[0]}", 1, 0, backend="gloo", timeout_s=30)
+    return 0
+
+
+def test_ranks_leave_the_world_before_they_exit(tmp_path):
+    """A spawned rank's main (`_rank_main`) and rank 0's `join_local`
+    destroy their process groups: a rank that exits with its gloo groups
+    alive may abort in their threads' teardown ("terminate called without
+    an active exception", seen under load in the CLI's tp = 2 world)."""
+    with pytest.raises(SystemExit) as stop:
+        distributed._rank_main(f"{__name__}:_world_of_one", [str(tmp_path / "a")], {})
+    assert stop.value.code == 0 and not torch.distributed.is_initialized()
+    _world_of_one([str(tmp_path / "b")])
+    try:
+        assert torch.distributed.is_initialized()
+        assert distributed.join_local([]) == [] and not torch.distributed.is_initialized()
+    finally:
+        distributed.leave_world()
 
 
 def test_importing_the_package_makes_no_group():

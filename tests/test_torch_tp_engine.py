@@ -21,9 +21,11 @@ llama is hidden 256, 2 layers, 8 / 4 heads, ffn 1024. Held:
 - the BatchEngine (prefix sharing, a starved pool that preempts), one
   HTTP completion and one SSE chat equal the single-device ones; a session
   file saved under the mesh resumes on one device; perplexity;
-- what a mesh does not run yet raises NotImplementedError naming ROADMAP
-  2(c), and the options ported since run; `cli --mesh tp=2 --device cpu`
-  answers piped input as the single-device CLI does.
+- the options a mesh once refused run and agree with one device (an "sp"
+  axis, seq_parallel's check, a MoE model under tp with and without
+  expert_parallel, the draft model, NFAI_Q8V3, an axis no split names);
+  `cli --mesh tp=2 --device cpu` answers piped input as the single-device
+  CLI does.
 
 Each world has a file:// rendezvous under tmp_path and a 120 s group
 timeout; every process is killed past 240 s, so a hung rank fails the
@@ -198,28 +200,31 @@ def test_server_at_tp2(run):
     assert follower["server"]["followed"]
 
 
-PORTED_OPTIONS = {  # ROADMAP 2(b): what each case does now in the tp = 2 world
+PORTED_OPTIONS = {  # ROADMAP 2(b), 2(c): what each case does now in the tp = 2 world
     "sp_axis": "ok: dp=1 tp=1 sp=2 sp_rank={rank}",
     "seq_parallel": "ValueError: seq_parallel needs mesh_shape={{'sp': n>1}}",
     "expert_parallel": "ok: greedy equal True",
     "moe": "ok: greedy equal True",
+    "draft": "ok: greedy equal True",
+    "q8v3": "ok: greedy equal True",
+    "x_axis": "ok: greedy equal True",
 }
 
 
-@pytest.mark.parametrize("name", ["sp_axis", "seq_parallel", "expert_parallel", "moe", "draft", "q8v3"])
+@pytest.mark.parametrize("name", ["sp_axis", "seq_parallel", "expert_parallel", "moe", "draft", "q8v3", "x_axis"])
 def test_unported_parallel_options_raise(run, name):
-    """The draft model and NFAI_Q8V3 under a mesh still raise, naming ROADMAP
-    2(c). The options 2(b) ported run: an "sp" axis makes a mesh,
-    seq_parallel on a mesh without an sp axis gives the JAX check's
-    ValueError, a MoE model under tp (with or without expert_parallel)
-    decodes the single-device engine's greedy tokens (tests/test_torch_expert_parallel.py holds them
-    to the JAX engine)."""
+    """Every option a mesh once refused now runs (ROADMAP 2(b), 2(c)): an
+    "sp" axis makes a mesh, seq_parallel on a mesh without an sp axis gives
+    the JAX check's ValueError, and a MoE model under tp (with or without
+    expert_parallel), speculative="draft" (the model as its own draft),
+    NFAI_Q8V3=1 and a mesh {"tp": 1, "x": 2} decode the single-device
+    engine's greedy tokens (tests/test_torch_expert_parallel.py,
+    test_torch_spec_mesh.py and test_torch_mesh_axes.py hold them to the
+    JAX package). No case raises NotImplementedError any more."""
     for res in _ok(run, "tp2"):
         msg = res["refusals"][name]
-        if name in PORTED_OPTIONS:
-            assert msg == PORTED_OPTIONS[name].format(rank=res["rank"]), msg
-        else:
-            assert msg.startswith("NotImplementedError") and "2(c)" in msg, msg
+        assert not msg.startswith("NotImplementedError"), msg
+        assert msg == PORTED_OPTIONS[name].format(rank=res["rank"]), msg
 
 
 def test_cli_mesh_piped(run, capsys, monkeypatch):

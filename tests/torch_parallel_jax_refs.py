@@ -5,6 +5,8 @@ tests/sp_worker.py and tests/ep_worker.py run them (shard_map programs
 compiled in the test process break later XLA:CPU compiles).
 
     python tests/torch_parallel_jax_refs.py sp|ep INPUTS.npz OUT.npz
+    XLA_FLAGS=--xla_force_host_platform_device_count=2 \
+        python tests/torch_parallel_jax_refs.py mesh CONFIG.json OUT.json
 
 sp: `sp_decode_attention`, `sp_decode_attention_ring` and
 `sp_decode_attention_merged` (stats merge and ring) of the inputs' q, k, v,
@@ -12,6 +14,14 @@ lengths over an sp axis of 2 and of 4. ep: `moe_ffn_ep` over a tp axis of
 2 and of 4, on dense stacks and on 8-bit (q8) stacks, for the inputs' x and
 router. Each call is jitted: run eagerly, a shard_map program compiles op
 by op (about a minute for these calls, against a few seconds jitted).
+
+mesh (on 2 devices: the JAX `make_mesh` takes every device), the JAX
+engines of tests/test_torch_dp_split.py and tests/test_torch_spec_mesh.py,
+f32, on CONFIG.json's GGUFs and prompts: the dense BatchEngine under
+{"dp": 2, "tp": 1}; the engine under {"tp": 2} (dense weights); the
+single-device engine with speculative="draft"; and under {"tp": 2} with
+NFAI_Q8V3=1 the 8-bit model's container kinds, prefill logits and greedy
+tokens. Writes their tokens and kinds as JSON.
 """
 import os
 import sys
@@ -82,8 +92,61 @@ def ep(inp) -> dict:
     return out
 
 
+def mesh(conf) -> dict:
+    from nfai_tpu.config import EngineConfig, SamplingParams
+    from nfai_tpu.runtime.engine import InferenceEngine
+    from nfai_tpu.runtime.scheduler import BatchEngine
+
+    paths, out = conf["paths"], {}
+    base = dict(dtype="float32", max_seq_len=128)
+    if "dp" in conf:  # the dense BatchEngine, its lanes over dp
+        dp = conf["dp"]
+        eng = InferenceEngine(paths["llama"], EngineConfig(mesh_shape={"dp": 2, "tp": 1},
+                                                           prefill_chunk=dp["prefill_chunk"], **base))
+        with jax.sharding.set_mesh(eng.mesh):
+            be = BatchEngine(eng, max_batch=dp["max_batch"], decode_chunk=4, paged=False)
+            reqs = [be.submit(p, SamplingParams(temperature=0.0, max_new_tokens=dp["n_new"])) for p in dp["prompts"]]
+            for _ in range(500):
+                if be.step() == 0:
+                    break
+        out["dp_tokens"] = [list(map(int, r.output_ids)) for r in reqs]
+        out["dp_cache_lanes"] = int(be.cache.k.addressable_shards[0].data.shape[1])
+    if "spec" in conf:
+        sp = conf["spec"]
+        greedy = SamplingParams(temperature=0.0, max_new_tokens=sp["n_new"])
+        eng = InferenceEngine(paths["llama"], EngineConfig(mesh_shape={"tp": 2}, **base))
+        with jax.sharding.set_mesh(eng.mesh):
+            out["tp_tokens"] = list(map(int, eng.generate(sp["ids"], greedy)))
+        draft = InferenceEngine(paths["llama"], EngineConfig(speculative="draft", draft_gguf=paths["draft"],
+                                                             spec_tokens=3, **base))
+        out["draft_tokens"] = list(map(int, draft.generate(sp["ids"], greedy)))
+        os.environ["NFAI_Q8V3"] = "1"
+        try:
+            q = InferenceEngine(paths["q8"], EngineConfig(mesh_shape={"tp": 2}, dtype="float32", max_seq_len=64))
+        finally:
+            del os.environ["NFAI_Q8V3"]
+        kind = lambda w: getattr(w, "kind", "dense")  # noqa: E731
+        out["q8v3_kinds"] = {k: kind(w) for k, w in q.params["layers"].items() if not k.endswith("norm")}
+        out["q8v3_kinds"]["lm_head"] = kind(q.params["lm_head"])
+        with jax.sharding.set_mesh(q.mesh):
+            logits, _ = q.prefill(q.new_cache(1), sp["q_ids"])
+            out["q8v3_logits"] = np.asarray(logits, np.float32)[0].tolist()
+            out["q8v3_tokens"] = list(map(int, q.generate(sp["q_ids"], SamplingParams(temperature=0.0,
+                                                                                      max_new_tokens=4))))
+    return out
+
+
 def main(argv) -> int:
     mode, src, dst = argv
+    if mode == "mesh":
+        import json
+
+        with open(src) as f:
+            out = mesh(json.load(f))
+        with open(dst, "w") as f:
+            json.dump(out, f)
+        print("ALL OK")
+        return 0
     with np.load(src) as z:
         inp = {k: z[k] for k in z.files}
     out = {"sp": sp, "ep": ep}[mode](inp)

@@ -11,7 +11,6 @@ errors, collective counts, cache shapes) and rank 0 OUT_DIR/WORLD_arrays.npz
 (the attention outputs, the prefill logits) for the test to compare, and
 exits non-zero on any failure. Imports torch and the port only.
 """
-import dataclasses
 import json
 import os
 import sys
@@ -165,9 +164,8 @@ def main(argv) -> int:
     try:
         probe = InferenceEngine(paths["llama"], EngineConfig(mesh_shape=mesh, seq_parallel=True, **CFG),
                                 device="cpu")
-        result["mesh"] = dataclasses.asdict(dataclasses.replace(
-            probe.mesh, tp_group=None, dp_group=None, sp_group=None)) | {"sp_rank": probe.mesh.sp_rank,
-                                                                          "tp_rank": probe.mesh.tp_rank}
+        result["mesh"] = {**probe.mesh.dims, "rank": probe.mesh.rank, "sp_rank": probe.mesh.sp_rank,
+                          "tp_rank": probe.mesh.tp_rank}
         with np.load(conf["attention"]) as z:
             result["attention"] = attention_checks({k: z[k] for k in z.files}, probe.sp_comm, arrays)
         del probe

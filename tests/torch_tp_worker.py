@@ -5,11 +5,14 @@ port's single-device engine in the same process.
     python tests/torch_tp_worker.py WORLD RANK SIZE COORD CONFIG.json OUT_DIR
 
 WORLD names the checks ("tp2": every check below; "tp4" and
-"dp2tp2": the tiny llama's tokens and logits). CONFIG.json holds the GGUF
-paths and the mesh; the rank writes OUT_DIR/WORLD_RANK.json with what it
-measured (tokens, prompt ids, relative logit errors, collective counts)
-for the test to compare, and exits non-zero on any failure. Imports torch
-and the port only.
+"dp2tp2": the tiny llama's tokens and logits; "dp2": the dense
+BatchEngine's lanes split over dp, tests/test_torch_dp_split.py; "x2": an
+axis no split names, tests/test_torch_mesh_axes.py; "spec": the draft
+model and NFAI_Q8V3 under tp = 2, tests/test_torch_spec_mesh.py).
+CONFIG.json holds the GGUF paths and the mesh; the rank writes
+OUT_DIR/WORLD_RANK.json with what it measured (tokens, prompt ids,
+relative logit errors, collective counts) for the test to compare, and
+exits non-zero on any failure. Imports torch and the port only.
 """
 import json
 import os
@@ -26,7 +29,7 @@ import torch  # noqa: E402
 torch.set_num_threads(1)
 
 from nfai_tpu_torch.config import EngineConfig, SamplingParams  # noqa: E402
-from nfai_tpu_torch.models.llama import decode_step  # noqa: E402
+from nfai_tpu_torch.models.llama import decode_step, prefill_slot_step  # noqa: E402
 from nfai_tpu_torch.parallel import init_distributed, make_mesh  # noqa: E402
 from nfai_tpu_torch.runtime.engine import InferenceEngine  # noqa: E402
 from nfai_tpu_torch.runtime.scheduler import BatchEngine, RequestState  # noqa: E402
@@ -192,9 +195,11 @@ def _same_greedy(path, mesh, **kw) -> str:
 
 
 def refusals(paths, mesh) -> dict:
-    """What a mesh does not run yet raises NotImplementedError (ROADMAP
-    2(c)); the options ported since (an "sp" axis, seq_parallel's checks,
-    expert_parallel, a MoE model under tp) record what they did."""
+    """The options a mesh once refused record what they do now: an "sp"
+    axis, seq_parallel's checks, expert_parallel, a MoE model under tp, the
+    draft model, NFAI_Q8V3 and an axis no split names (greedy tokens
+    against the single-device engine's); anything else raising
+    NotImplementedError is recorded as such."""
     out = {}
 
     def expect(name, fn):
@@ -212,13 +217,156 @@ def refusals(paths, mesh) -> dict:
         llama, EngineConfig(mesh_shape=mesh, seq_parallel=True, **cfg), device="cpu"))
     expect("expert_parallel", lambda: _same_greedy(paths["moe"], mesh, expert_parallel=True))
     expect("moe", lambda: _same_greedy(paths["moe"], mesh))
-    expect("draft", lambda: InferenceEngine(
-        llama, EngineConfig(mesh_shape=mesh, speculative="draft", draft_gguf=llama, **cfg), device="cpu"))
+    expect("draft", lambda: _same_greedy(llama, mesh, speculative="draft", draft_gguf=llama))
     os.environ["NFAI_Q8V3"] = "1"
     try:
-        expect("q8v3", lambda: InferenceEngine(llama, EngineConfig(mesh_shape=mesh, **cfg), device="cpu"))
+        expect("q8v3", lambda: _same_greedy(llama, mesh))
     finally:
         del os.environ["NFAI_Q8V3"]
+    expect("x_axis", lambda: _same_greedy(llama, {"tp": 1, "x": 2}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dp = 2: the dense BatchEngine's lanes split over dp
+
+DP_BATCH = 4
+DP_CASES = {
+    # six greedy prompts through four slots (two admission waves)
+    "greedy": dict(prompts=[list(range(10 + 7 * i, 19 + 11 * i)) for i in range(6)], n_new=10,
+                   sampling=[dict(temperature=0.0)] * 6),
+    # sampled rows beside greedy ones, with logprobs, penalties and a logit bias on some
+    "sampled": dict(prompts=[list(range(40 + 5 * i, 52 + 9 * i)) for i in range(5)], n_new=10,
+                    sampling=[dict(temperature=0.8, top_k=20), dict(temperature=0.0, logprobs=2),
+                              dict(temperature=1.0, presence_penalty=0.5, frequency_penalty=0.3),
+                              dict(temperature=0.7, logit_bias=((17, 2.0), (33, -1.0)), logprobs=0),
+                              dict(temperature=0.9, top_p=0.8, min_p=0.05)]),
+}
+DP_SPEC = dict(prompts=[[5, 6, 7, 8, 9] * 4 + [5, 6], [11, 12, 13] * 6, [20, 21, 22, 23] * 4, [30, 31] * 8],
+               n_new=16, sampling=[dict(temperature=0.0), dict(temperature=0.8), dict(temperature=0.0),
+                                   dict(temperature=0.6)])
+
+
+def _batch_run(engine, root, case, **kw) -> dict:
+    """A dense BatchEngine of DP_BATCH slots on `engine` driven through
+    `case` (rank 0 submits and steps, the others follow): the tokens and
+    logprob entries of each request (rank 0), and every rank's dp
+    collectives."""
+    be = BatchEngine(engine, max_batch=DP_BATCH, decode_chunk=4, paged=False, **kw)
+    reqs = [be.submit(p, SamplingParams(max_new_tokens=case["n_new"], **s))
+            for p, s in zip(case["prompts"], case["sampling"])] if root else []
+    got = _drain(be, reqs, root)
+    out = {"lanes": [be.lanes.start, len(be.lanes)], "cache_lanes": be.cache.k.shape[1],
+           "dp": dict(be.dp_comm.counts) if be.dp_comm is not None else None}
+    if root:
+        out.update(tokens=got, logprobs=[r.logprob_data for r in reqs], spec=[be.spec_drafted, be.spec_accepted])
+    return out
+
+
+def dp_checks(path, mesh, root) -> dict:
+    """The dense cache's lanes a rank holds (B/dp of a batch that dp
+    divides, all of a batch it does not), one decode step's logits on the
+    rank's lanes against the single-device engine's rows, and the dense
+    BatchEngine's tokens (greedy, sampled with the options, speculative
+    "ngram") against the single-device BatchEngine's."""
+    dp, one = engines(path, mesh, prefill_chunk=16)
+    out = {"cache_batch": {b: dp.new_cache(b).k.shape[1] for b in (1, 3, 4, 8)}, "lanes": dp.lanes(DP_BATCH)}
+    lo, n = dp.lanes(DP_BATCH)
+    prompts = DP_CASES["greedy"]["prompts"][:DP_BATCH]
+    caches = {"dp": dp.new_cache(DP_BATCH), "one": one.new_cache(DP_BATCH)}
+    last = {}
+    for name, e in (("dp", dp), ("one", one)):
+        rows = range(lo, lo + n) if name == "dp" else range(DP_BATCH)
+        for slot in rows:
+            ids = prompts[slot]
+            logits, caches[name] = prefill_slot_step(
+                e.params, e.model_cfg, torch.tensor([ids]), torch.arange(len(ids))[None],
+                torch.tensor([len(ids) - 1]), caches[name], slot - rows.start)
+        toks = torch.tensor([prompts[i][-1] for i in rows])
+        pos = torch.tensor([len(prompts[i]) for i in rows])
+        last[name], _ = decode_step(e.params, e.model_cfg, toks, pos, caches[name])
+    out["logit_err"] = rel(last["dp"], last["one"][lo:lo + n])
+    for name, case in DP_CASES.items():
+        got = _batch_run(dp, root, case)
+        if root:
+            got["want"] = _batch_run(one, True, case)
+        out[name] = got
+    sdp, sone = engines(path, mesh, prefill_chunk=16, speculative="ngram", spec_tokens=3, spec_rounds=2)
+    out["spec"] = _batch_run(sdp, root, DP_SPEC)
+    if root:
+        out["spec"]["want"] = _batch_run(sone, True, DP_SPEC)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# an axis no split names: {"tp": 1, "x": 2} replicates
+
+def x_axis_checks(path, mesh, root) -> dict:
+    """Each axis's group, then the model on every rank bit for bit the
+    single-device engine's: prefill logits, greedy tokens, a paged
+    BatchEngine (rank 0 steps, rank 1 follows)."""
+    x, one = engines(path, mesh)
+    m = x.mesh
+    out = {"dims": m.dims, "groups": {a: m.ranks(a) for a in m.dims}, "coords": [m.axis_rank(a) for a in m.dims]}
+    ids = one.tokenizer.encode(PROMPT)
+    out["prefill_equal"] = bool(torch.equal(x.prefill(x.new_cache(1), ids)[0], one.prefill(one.new_cache(1), ids)[0]))
+    out["tokens"], out["one_tokens"] = list(x.generate(ids, GREEDY)), list(one.generate(ids, GREEDY))
+    out["params_comm"] = "comm" in x.params
+    be = BatchEngine(x, max_batch=4, decode_chunk=4)
+    prompts = DP_CASES["greedy"]["prompts"]
+    s = SamplingParams(temperature=0.0, max_new_tokens=8)
+    out["batch"] = _drain(be, [be.submit(p, s) for p in prompts] if root else [], root)
+    if root:
+        be0 = BatchEngine(one, max_batch=4, decode_chunk=4)
+        out["batch_one"] = _drain(be0, [be0.submit(p, s) for p in prompts], True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the draft model and NFAI_Q8V3 under tp = 2
+
+def spec_checks(paths, mesh, root) -> dict:
+    """The draft model under the mesh (greedy and seeded sampled, against
+    the tp target's plain decoding; its engine takes the target's Mesh and
+    has its own Comm), then the hidden-2048 Q8_0 model under NFAI_Q8V3=1 at
+    tp = 2 (the containers a rank holds, greedy tokens, the prefill's
+    logits against the single-device engine under the same switch)."""
+    llama, draft = paths["llama"], paths["draft"]
+    tp, one = engines(llama, mesh, speculative="draft", draft_gguf=draft, spec_tokens=3, spec_rounds=2)
+    plain = InferenceEngine(llama, EngineConfig(mesh_shape=mesh, dtype="float32", max_seq_len=128),
+                            device="cpu", mesh=tp.mesh)
+    ids = one.tokenizer.encode(PROMPT)
+    out = {}
+    from nfai_tpu_torch.runtime.engine import GenerationMetrics
+
+    s = SamplingParams(temperature=0.0, max_new_tokens=24)
+    m = GenerationMetrics()
+    out["draft_tokens"] = list(tp.generate(ids, s, metrics=m))
+    out["plain_tokens"] = list(plain.generate(ids, s))
+    out["one_draft_tokens"] = list(one.generate(ids, s))
+    out["acceptance"] = [m.spec_drafted, m.spec_accepted]
+    de = tp.draft_engine
+    out["draft_mesh_shared"] = de.mesh is tp.mesh and de.comm is not tp.comm and de.params["comm"] is de.comm
+    out["draft_local_heads"] = [de.model_cfg.n_heads, de.model_cfg.n_kv_heads]
+    out["draft_collectives"] = dict(de.comm.counts)
+    sampled = SamplingParams(temperature=0.8, seed=5, max_new_tokens=16)
+    out["draft_sampled"] = list(tp.generate(ids, sampled))
+    os.environ["NFAI_Q8V3"] = "1"
+    try:
+        q = InferenceEngine(paths["q8"], EngineConfig(mesh_shape=mesh, dtype="float32", max_seq_len=64),
+                            device="cpu")
+        qone = InferenceEngine(paths["q8"], EngineConfig(dtype="float32", max_seq_len=64), device="cpu")
+    finally:
+        del os.environ["NFAI_Q8V3"]
+    kinds = {k: type(w).__name__ for k, w in q.params["layers"].items() if not k.endswith("norm")}
+    kinds["lm_head"] = type(q.params["lm_head"]).__name__
+    q_ids = [2, 4, 6, 8, 10, 12, 14]
+    lt, lo = q.prefill(q.new_cache(1), q_ids)[0], qone.prefill(qone.new_cache(1), q_ids)[0]
+    qs = SamplingParams(temperature=0.0, max_new_tokens=4)
+    out["q8v3"] = {"kinds": kinds, "one_kinds": {k: type(w).__name__ for k, w in qone.params["layers"].items()
+                                                 if not k.endswith("norm")},
+                   "tokens": list(q.generate(q_ids, qs)), "one_tokens": list(qone.generate(q_ids, qs)),
+                   "logit_err": rel(lt, lo), "logits": lt[0].tolist()}
     return out
 
 
@@ -233,7 +381,14 @@ def main(argv) -> int:
     result = {"rank": rank}
     t0 = time.perf_counter()
     try:
-        result["llama"] = llama_checks(paths["llama"], mesh)
+        if world == "dp2":
+            result["dp"] = dp_checks(paths["llama"], mesh, root)
+        elif world == "x2":
+            result["x"] = x_axis_checks(paths["llama"], mesh, root)
+        elif world == "spec":
+            result["spec"] = spec_checks(paths, mesh, root)
+        else:
+            result["llama"] = llama_checks(paths["llama"], mesh)
         if world == "tp2":
             result["int8"] = model_checks(paths["llama"], mesh, kv_dtype="int8")
             for name in ("qwen2", "phi3", "gemma2"):
